@@ -1,0 +1,1 @@
+"""Fused ops of the port (paddle_tpu.incubate.nn counterpart)."""
