@@ -7,18 +7,29 @@ Phases, each printed as it ends; any failure exits non-zero before the
 last line:
 
 1. device   the card's name and power limit (nvidia-smi); no card → exit 1
-2. build    both CUDA kernels built with nvcc for sm_90a from csrc/
+2. build    every CUDA kernel built with nvcc for sm_90a from csrc/
 3. kernels  each kernel against its plain PyTorch version on the card at
-            the serving path's shapes, with its time, the plain version's,
-            one PyTorch library call's and the bound from bytes moved
+            the serving and training paths' shapes, with its time, the
+            plain version's, one PyTorch library call's where there is
+            one and its bound; controls: deliberately wrong results that
+            the checks must reject
 4. serve    Llama-2 7B at full width (32 layers, bf16, random weights
-            from a seed) behind the paged Engine: 8 requests, both
+            from a seed) behind the paged Engine: 8 requests, the serving
             kernels' launch counts checked against the steps taken; then
             torch.profiler over a short serving run (device busy share,
             device time by kernel)
 5. parity   a 2-layer model at the 7B widths in fp32 with the same
             weights served on the CPU (plain versions) and on the card
             (kernels): greedy outputs must be identical
+6. train    Llama-2 7B at full width cut to 8 layers, bf16 O2 through
+            amp.decorate, AdamW with fp32 master weights and global-norm
+            clipping, B1 x S4096: 2 warm-up and 6 timed steps (step ms,
+            tokens/s, MFU, peak memory), every training kernel's launch
+            count checked against the steps taken and the loss falling;
+            then torch.profiler over one step
+7. train-parity  a 2-layer fp32 model at the 7B widths, the same weights
+            and batch, 3 AdamW steps on the CPU (plain versions) and on
+            the card (kernels): losses and parameters must agree
 
 The second-to-last line is the kernels' JSON summary, the last line
 ``{"ok": true, "device": {...}}``.  ``--phases`` runs a subset.
@@ -34,18 +45,43 @@ import time
 import numpy as np
 import torch
 
-from paddle_tpu_torch import kernels
+from paddle_tpu_torch import amp, kernels
 from paddle_tpu_torch.kernels import _build
+from paddle_tpu_torch.kernels.adam import adam_update, adam_update_ref
+from paddle_tpu_torch.kernels import flash_attention as fa
 from paddle_tpu_torch.kernels.paged_decode import (paged_decode_attention,
                                                    paged_decode_ref)
-from paddle_tpu_torch.kernels.rms_norm import rms_norm, rms_norm_ref
+from paddle_tpu_torch.kernels.rms_norm import (rms_norm, rms_norm_bwd,
+                                               rms_norm_bwd_ref,
+                                               rms_norm_ref)
+from paddle_tpu_torch.kernels.rope import rope, rope_ref
 from paddle_tpu_torch.models import LlamaForCausalLM, llama_config
+from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.serving import Engine, SamplingParams, ServingConfig
 
 HBM_BYTES_PER_S = 3.35e12                   # H100 SXM data sheet
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
             torch.float32: 67e12}           # dense; fp32 outside tensor cores
-PHASES = ("device", "build", "kernels", "serve", "parity")
+PHASES = ("device", "build", "kernels", "serve", "parity", "train",
+          "train-parity")
+TRAIN_KERNELS = ("rms_norm", "rms_norm_bwd", "rope", "flash_fwd",
+                 "flash_bwd_dkv", "flash_bwd_dq", "adam")
+#: (source under paddle_tpu_torch/, the TPU kernel it replaces)
+KERNEL_META = {
+    "rms_norm": ("csrc/rms_norm.cu", "paddle_tpu/pallas/fused.py:92"),
+    "paged_decode": ("csrc/paged_decode.cu",
+                     "paddle_tpu/pallas/flash_attention.py:860"),
+    "rms_norm_bwd": ("csrc/rms_norm.cu", "paddle_tpu/pallas/fused.py:112"),
+    "rope": ("csrc/rope.cu", "paddle_tpu/pallas/fused.py:204"),
+    "flash_fwd": ("csrc/flash_attention_fwd.cu",
+                  "paddle_tpu/pallas/flash_attention.py:364"),
+    "flash_bwd_dkv": ("csrc/flash_attention_bwd.cu",
+                      "paddle_tpu/pallas/flash_attention.py:578"),
+    "flash_bwd_dq": ("csrc/flash_attention_bwd.cu",
+                     "paddle_tpu/pallas/flash_attention.py:608"),
+    "adam": ("csrc/adam.cu", "paddle_tpu/pallas/fused.py:320"),
+}
 
 
 def log(msg):
@@ -98,7 +134,63 @@ def bound(bytes_moved, ops, dtype):
 
 
 def max_err(a, b):
-    return float((a.float() - b.float()).abs().max())
+    return float((a.detach().float() - b.detach().float()).abs().max())
+
+
+def row_err(got, want):
+    """Largest relative error of a row (the last dim) against its own norm,
+    ``|got_r - want_r| / max(|want_r|, 1e-2 x the RMS row norm)``.  Each
+    tensor and each row is held to its own scale, so a wrong row of small
+    values (the late positions of causal attention, whose gradients are
+    ~1/sqrt(position) of the first) shows; the floor only covers rows whose
+    exact value is ~0 (dQ of the first causal row)."""
+    g = got.detach().float().reshape(-1, got.shape[-1])
+    w = want.detach().float().reshape(-1, want.shape[-1])
+    norm = w.norm(dim=-1)
+    floor = max(1e-2 * float(norm.square().mean().sqrt()), 1e-30)
+    return float(((g - w).norm(dim=-1) / norm.clamp_min(floor)).max())
+
+
+#: per-row tolerances: fp32, sums of up to thousands of terms in another
+#: order; 16-bit, one rounding of every output element (2^-9 relative)
+#: and, in the flash backward, of p and dS for the tensor cores, with 2-5x
+#: room
+ROW_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2, torch.float16: 1e-2}
+
+
+def check_rows(name, pairs, dtype):
+    """Each ``(label, got, want)`` row by row within ROW_TOL (`row_err`);
+    returns (the largest absolute error, the largest row error) over the
+    pairs."""
+    worst = 0.0
+    for label, got, want in pairs:
+        err = row_err(got, want)
+        if err > ROW_TOL[dtype] or not torch.isfinite(got).all():
+            raise AssertionError(f"{name} {label}: a row is {err:.3e} off "
+                                 f"its own norm (tolerance "
+                                 f"{ROW_TOL[dtype]:.0e})")
+        worst = max(worst, err)
+    return max(max_err(got, want) for _, got, want in pairs), worst
+
+
+def expect_rejected(name, check):
+    """A control: ``check`` runs a comparison on a deliberately wrong
+    result and must raise; returns the message it raised with."""
+    try:
+        check()
+    except AssertionError as e:
+        log(f"[controls] {name}: rejected ({e})")
+        return str(e)
+    raise AssertionError(f"control {name}: a wrong result passed the check")
+
+
+def late_half_off(t, seq_dim, by=1.03):
+    """``t`` with the second half of its positions 3% off: the wrong
+    result a kernel that slips in late causal rows would give."""
+    t = t.clone()
+    t.narrow(seq_dim, t.shape[seq_dim] // 2,
+             t.shape[seq_dim] - t.shape[seq_dim] // 2).mul_(by)
+    return t
 
 
 def check_close(name, got, want, dtype):
@@ -215,9 +307,222 @@ def paged_case(dev, b, h, h_kv, d, psz, n_pages, offsets, dtype, gen,
     return err, res
 
 
+def rms_bwd_case(dev, rows, n, dtype, gen, timer=None):
+    x = torch.randn(rows, n, device=dev, generator=gen).to(dtype)
+    w = (1.0 + 0.1 * torch.randn(n, device=dev, generator=gen)).to(dtype)
+    g = torch.randn(rows, n, device=dev, generator=gen).to(dtype)
+    eps = 1e-5
+    _, r = rms_norm(x, w, eps, return_rstd=True)
+    (dx, dw) = rms_norm_bwd(x, w, r, g)
+    torch.cuda.synchronize()
+    want_dx, want_dw = rms_norm_bwd_ref(x, w, r, g)
+    name = f"rms_norm_bwd[{rows}x{n} {dtype}]"
+    err, rel = check_rows(name, [("dx", dx, want_dx), ("dw", dw, want_dw)],
+                          dtype)
+    log(f"[kernels] {name}: worst row {rel:.2e} of its norm")
+    if timer is None:
+        return err, None
+    # control: dx without its mean term, r (g w), in the plain version's
+    # arithmetic
+    no_mean = (r[:, None] * g.float() * w.float()).to(dtype)
+    expect_rejected(f"{name} dx without the mean term", lambda: check_rows(
+        name, [("dx", no_mean, want_dx)], dtype))
+    del no_mean
+    es, ws = x.element_size(), w.element_size()
+    b_ms, b_by = bound(3 * rows * n * es + 4 * rows + 2 * n * ws,
+                       10 * rows * n, dtype)
+    # the library yardstick: autograd of F.rms_norm, its forward and
+    # backward captured together, less its forward alone
+    xg, wg = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+
+    def lib_fwd_bwd():
+        y = torch.nn.functional.rms_norm(xg, (n,), wg, eps)
+        torch.autograd.grad(y, (xg, wg), g)
+    lib_fwd = timer(lambda: torch.nn.functional.rms_norm(x, (n,), w, eps))
+    res = dict(ms=timer(lambda: rms_norm_bwd(x, w, r, g)),
+               plain_ms=timer(lambda: rms_norm_bwd_ref(x, w, r, g)),
+               library_ms=timer(lib_fwd_bwd) - lib_fwd,
+               bound_ms=b_ms, bound_by=b_by)
+    return err, res
+
+
+def rope_case(dev, b, s, h, d, neox, dtype, gen, timer=None):
+    """Forward and backward (inverse) against the plain version: the same
+    fp32 products and sums, each rounded on its own, so they must be
+    equal; the time is the forward's."""
+    t = torch.randn(b, s, h, d, device=dev, generator=gen).to(dtype)
+    inv = 1.0 / (10000.0 ** (torch.arange(0, d, 2, device=dev).float() / d))
+    freqs = torch.outer(torch.arange(s, device=dev).float(), inv)
+    emb = torch.cat([freqs, freqs], dim=-1)
+    cos, sin = emb.cos(), emb.sin()
+    err = 0.0
+    for inverse in (False, True):
+        got = rope(t, cos, sin, neox, inverse)
+        torch.cuda.synchronize()
+        want = rope_ref(t, cos, sin, neox, inverse)
+        if not torch.equal(got, want):
+            raise AssertionError(f"rope[{b}x{s}x{h}x{d} neox={neox} "
+                                 f"inverse={inverse} {dtype}]: differs from"
+                                 f" the plain version by {max_err(got, want)}")
+        err = max(err, max_err(got, want))
+    if timer is None:
+        return err, None
+    b_ms, b_by = bound(2 * t.numel() * t.element_size() + 2 * s * d * 4,
+                       6 * t.numel(), dtype)
+    res = dict(ms=timer(lambda: rope(t, cos, sin, neox)),
+               plain_ms=timer(lambda: rope_ref(t, cos, sin, neox)),
+               library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    return err, res
+
+
+def flash_case(dev, b, h, h_kv, s, d, causal, dtype, gen, timer=None,
+               controls=False):
+    """Head-major, as Llama calls it.  The forward (out, lse) against its
+    plain version and the dK/dV and dQ kernels each against theirs on the
+    same inputs (the kernel's out and lse, the same delta): out and every
+    gradient row by row (`check_rows`), lse 2e-5 (fp32) or 1e-3 (16-bit:
+    fp32 sums of up to S exponentials in another order).  The whole
+    backward (`flash_attention_bwd`: delta, then both kernels) must give
+    the two kernels' tensors bit for bit; the plain backward against
+    autograd is a CPU test (tests/test_torch_train_kernels.py).  Returns
+    ({kernel: max abs err}, {kernel or "flash_bwd": timings} or None)."""
+    def mk(heads):
+        return torch.randn(b, heads, s, d, device=dev, generator=gen).to(dtype)
+    q, k, v, do = mk(h), mk(h_kv), mk(h_kv), mk(h)
+    name = f"flash[B{b} H{h}/{h_kv} S{s} D{d} causal={causal} {dtype}]"
+    out, lse = fa.flash_attention_fwd(q, k, v, causal, None, True)
+    torch.cuda.synchronize()
+    out_ref, lse_ref = fa.flash_attention_ref(q, k, v, causal, None, True)
+    errs, rels = {}, {}
+    errs["flash_fwd"], rels["out"] = check_rows(name, [("out", out, out_ref)],
+                                                dtype)
+    tol = 2e-5 if dtype == torch.float32 else 1e-3
+    if not torch.allclose(lse, lse_ref, rtol=tol, atol=tol):
+        raise AssertionError(f"{name}: lse max abs err "
+                             f"{max_err(lse, lse_ref)}")
+    errs["flash_fwd"] = max(errs["flash_fwd"], max_err(lse, lse_ref))
+    delta = (do.float() * out.float()).sum(-1).contiguous()
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal, None, True)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, causal, None, True)
+    torch.cuda.synchronize()
+    want_k, want_v = fa.flash_bwd_dkv_ref(q, k, v, do, lse, delta, causal,
+                                          None, True)
+    errs["flash_bwd_dkv"], rels["dK/dV"] = check_rows(
+        name, [("dk", dk, want_k), ("dv", dv, want_v)], dtype)
+    want_q = fa.flash_bwd_dq_ref(q, k, v, do, lse, delta, causal, None, True)
+    errs["flash_bwd_dq"], rels["dQ"] = check_rows(
+        name, [("dq", dq, want_q)], dtype)
+    log(f"[kernels] {name}: worst row of its norm " + ", ".join(
+        f"{k} {v:.2e}" for k, v in rels.items()))
+    grads = fa.flash_attention_bwd(q, k, v, out, lse, do, causal, None, True)
+    if not all(torch.equal(a, b) for a, b in zip(grads, (dq, dk, dv))):
+        raise AssertionError(f"{name}: flash_attention_bwd differs from its "
+                             "two kernels called alone")
+    if controls:
+        for label, got, want in (("out", out, out_ref), ("dq", dq, want_q),
+                                 ("dk", dk, want_k), ("dv", dv, want_v)):
+            expect_rejected(f"{name} {label} 3% off in its late half",
+                            lambda label=label, got=got, want=want:
+                            check_rows(name, [(label, late_half_off(got, 2),
+                                               want)], dtype))
+    del out_ref, lse_ref, grads, want_k, want_v, want_q
+    if timer is None:
+        return errs, None
+    es = q.element_size()
+    el_q, el_kv = b * h * s * d * es, b * h_kv * s * d * es
+    rows = 4 * b * h * s                   # one fp32 value a row (lse, delta)
+    prod = 2 * b * h * s * s * d * (0.5 if causal else 1.0)   # one product
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gqa = h != h_kv
+    timed = {}
+    # forward: reads q, k, v, writes out and lse; products q k^T and p v
+    b_ms, b_by = bound(2 * el_q + 2 * el_kv + rows, 2 * prod, dtype)
+    timed["flash_fwd"] = dict(
+        ms=timer(lambda: fa.flash_attention_fwd(q, k, v, causal, None, True)),
+        plain_ms=timer(lambda: fa.flash_attention_ref(q, k, v, causal, None,
+                                                      True)),
+        library_ms=timer(lambda: sdpa(q, k, v, is_causal=causal,
+                                      enable_gqa=gqa)),
+        bound_ms=b_ms, bound_by=b_by)
+    # dK/dV: reads q, k, v, dO, lse, delta, writes dk, dv; products s, dp,
+    # dv, dk.  dQ: the same reads, writes dq; products s, dp, dq.  Neither
+    # has a PyTorch call of its own (SDPA's backward computes all three)
+    for kname, fn, ref, n_prod, out_b in (
+            ("flash_bwd_dkv", fa.flash_bwd_dkv, fa.flash_bwd_dkv_ref, 4,
+             2 * el_kv),
+            ("flash_bwd_dq", fa.flash_bwd_dq, fa.flash_bwd_dq_ref, 3, el_q)):
+        b_ms, b_by = bound(2 * el_q + 2 * el_kv + 2 * rows + out_b,
+                           n_prod * prod, dtype)
+        timed[kname] = dict(
+            ms=timer(lambda fn=fn: fn(q, k, v, do, lse, delta, causal, None,
+                                      True)),
+            plain_ms=timer(lambda ref=ref: ref(q, k, v, do, lse, delta,
+                                               causal, None, True)),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    # the whole backward (delta + both kernels) beside SDPA's backward
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+
+    def lib_fwd_bwd():
+        o = sdpa(qg, kg, vg, is_causal=causal, enable_gqa=gqa)
+        torch.autograd.grad(o, (qg, kg, vg), do)
+    b_ms, b_by = bound(4 * el_q + 4 * el_kv + rows, 5 * prod, dtype)
+    timed["flash_bwd"] = dict(
+        ms=timer(lambda: fa.flash_attention_bwd(q, k, v, out, lse, do,
+                                                causal, None, True)),
+        plain_ms=timer(lambda: fa.flash_attention_bwd_ref(
+            q, k, v, out, lse, do, causal, None, True)),
+        library_ms=timer(lib_fwd_bwd) - timed["flash_fwd"]["library_ms"],
+        bound_ms=b_ms, bound_by=b_by)
+    return errs, timed
+
+
+def adam_case(dev, n, p_dtype, master, decoupled, wd, gen, timer=None,
+              offset=0):
+    """One parameter's update, kernel against plain version on copies of
+    the same state: w, m1, m2 and the parameter must be equal bit for bit
+    (the same fp32 ops, each rounded on its own).  ``offset`` places every
+    tensor that many elements off an aligned address (the kernel of one
+    element per thread).  The bias corrections are the third step's."""
+    def placed(t):
+        buf = torch.empty(t.numel() + offset, device=dev, dtype=t.dtype)
+        return buf[offset:].copy_(t)
+    w = torch.randn(n, device=dev, generator=gen)
+    m1 = 1e-2 * torch.randn(n, device=dev, generator=gen)
+    m2 = 1e-4 * torch.rand(n, device=dev, generator=gen)
+    g = (1e-2 * torch.randn(n, device=dev, generator=gen)).to(p_dtype)
+    hyper = dict(lr=3e-4, bc1=1 - 0.9 ** 3, bc2=1 - 0.999 ** 3, b1=0.9,
+                 b2=0.999, eps=1e-8, wd=wd, decoupled=decoupled)
+
+    def state():
+        p = placed(torch.empty(n, device=dev, dtype=p_dtype)) \
+            if master else None
+        return placed(w), g, placed(m1), placed(m2), p
+    got, want = state(), state()
+    adam_update(*got, **hyper)
+    torch.cuda.synchronize()
+    adam_update_ref(*want, **hyper)
+    name = (f"adam[n={n} {p_dtype}{' + fp32 master' if master else ''} "
+            f"{'AdamW' if decoupled else 'Adam'} wd={wd} offset={offset}]")
+    for label, a, b in zip(("w", "g", "m1", "m2", "p"), got, want):
+        if a is not None and not torch.equal(a, b):
+            raise AssertionError(f"{name} {label}: differs from the plain "
+                                 f"version by {max_err(a, b)}")
+    if timer is None:
+        return 0.0, None
+    es = g.element_size()
+    b_ms, b_by = bound(24 * n + es * n + (es * n if master else 0), 15 * n,
+                       torch.float32)
+    res = dict(ms=timer(lambda: adam_update(*got, **hyper)),
+               plain_ms=timer(lambda: adam_update_ref(*want, **hyper)),
+               library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    return 0.0, res
+
+
 def fmt(res):
+    lib = res["library_ms"]
+    lib = "—" if lib is None else f"{lib:.4f} ms"
     return (f"kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
-            f"library {res['library_ms']:.4f} ms, bound {res['bound_ms']:.5f}"
+            f"library {lib}, bound {res['bound_ms']:.5f}"
             f" ms ({res['bound_by']})")
 
 
@@ -258,9 +563,90 @@ def phase_kernels(dev):
             log(f"[kernels] paged_decode {label} {dtype}: max abs err "
                 f"{err:.3e}; {fmt(res)}")
             timed[("paged_decode", label, dtype)] = res
+    errs.update({k: 0.0 for k in ("rms_norm_bwd", "rope", "flash_fwd",
+                                  "flash_bwd_dkv", "flash_bwd_dq", "adam")})
+    # RMS-norm backward: the training shape (4096 tokens x 4096) and the
+    # scalar tail
+    for dtype in (torch.float32, torch.bfloat16):
+        err, res = rms_bwd_case(dev, 4096, 4096, dtype, gen, timer)
+        errs["rms_norm_bwd"] = max(errs["rms_norm_bwd"], err)
+        log(f"[kernels] rms_norm_bwd rows=4096 N=4096 {dtype}: max abs err "
+            f"{err:.3e}; {fmt(res)}")
+        timed[("rms_norm_bwd", dtype)] = res
+        err, _ = rms_bwd_case(dev, 3, 100, dtype, gen)
+        errs["rms_norm_bwd"] = max(errs["rms_norm_bwd"], err)
+    # rope: the training shape in bf16 (neox), interleaved fp32 small
+    err, res = rope_case(dev, 1, 4096, 32, 128, True, torch.bfloat16, gen,
+                         timer)
+    log(f"[kernels] rope [1, 4096, 32, 128] neox bf16 fwd+bwd: max abs err "
+        f"{err:.3e}; {fmt(res)}")
+    timed[("rope", "train")] = res
+    err, _ = rope_case(dev, 2, 37, 4, 64, False, torch.float32, gen)
+    log(f"[kernels] rope [2, 37, 4, 64] interleaved fp32 fwd+bwd: max abs "
+        f"err {err:.3e}")
+    # flash attention: the training shape, Llama-2 70B's GQA heads, a
+    # non-causal call and a ragged sequence in fp32 and bf16
+    cases = [
+        ("7b-train", dict(b=1, h=32, h_kv=32, s=4096, d=128, causal=True,
+                          dtype=torch.bfloat16), True),
+        ("70b-gqa", dict(b=1, h=64, h_kv=8, s=2048, d=128, causal=True,
+                         dtype=torch.bfloat16), True),
+        ("non-causal", dict(b=1, h=32, h_kv=32, s=1024, d=128,
+                            causal=False, dtype=torch.bfloat16), False),
+        ("ragged-bf16", dict(b=1, h=32, h_kv=32, s=1000, d=128, causal=True,
+                             dtype=torch.bfloat16), False),
+        ("ragged-fp32", dict(b=1, h=32, h_kv=32, s=1000, d=128, causal=True,
+                             dtype=torch.float32), False),
+    ]
+    for label, kw, time_it in cases:
+        case_errs, res = flash_case(dev, gen=gen,
+                                    timer=timer if time_it else None,
+                                    controls=label == "7b-train", **kw)
+        for kname, err in case_errs.items():
+            errs[kname] = max(errs[kname], err)
+        msg = (f"[kernels] flash {label}: max abs err fwd "
+               f"{case_errs['flash_fwd']:.3e}, dK/dV "
+               f"{case_errs['flash_bwd_dkv']:.3e}, dQ "
+               f"{case_errs['flash_bwd_dq']:.3e}")
+        if res is not None:
+            msg += (f"; fwd {fmt(res['flash_fwd'])}; dK/dV "
+                    f"{fmt(res['flash_bwd_dkv'])}; dQ "
+                    f"{fmt(res['flash_bwd_dq'])}; whole backward (delta + "
+                    f"dK/dV + dQ) {fmt(res['flash_bwd'])}")
+            for kname, r in res.items():
+                timed[(kname, label)] = r
+        log(msg)
+    # Adam: the 7B-width MLP weight (4096 x 11008) in bf16 with its fp32
+    # master under AdamW, as the train phase updates it; an fp32 parameter
+    # with a ragged tail under L2-coupled Adam; a misaligned fp16 one
+    err, res = adam_case(dev, 4096 * 11008, torch.bfloat16, True, True, 0.01,
+                         gen, timer)
+    log(f"[kernels] adam 4096 x 11008 bf16 + fp32 master AdamW: bitwise "
+        f"equal; {fmt(res)}")
+    timed[("adam", "train")] = res
+    adam_case(dev, 4096 + 3, torch.float32, False, False, 0.1, gen)
+    adam_case(dev, 1001, torch.float16, True, True, 0.0, gen, offset=1)
+    log("[kernels] adam fp32 n=4099 Adam (L2) and fp16 n=1001 misaligned: "
+        "bitwise equal")
     return errs, {"rms_norm": timed[("rms_norm", 4, torch.bfloat16)],
                   "paged_decode": timed[("paged_decode", "7b-serve",
-                                         torch.bfloat16)]}
+                                         torch.bfloat16)],
+                  "rms_norm_bwd": timed[("rms_norm_bwd", torch.bfloat16)],
+                  "rope": timed[("rope", "train")],
+                  **{k: timed[(k, "7b-train")] for k in (
+                      "flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")},
+                  "adam": timed[("adam", "train")]}
+
+
+def device_rows(prof):
+    """(name, device ms, count) of the work that ran on the card: kernels,
+    copies and memsets.  The CPU-side ops that launched them also carry a
+    device time (their kernels'), so summing every event counts the card's
+    work twice."""
+    from torch.autograd import DeviceType
+    return [(e.key, e.device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
 
 
 def serve_requests(vocab, seed=0):
@@ -300,9 +686,7 @@ def profile_decode(model, dev, vocab):
                 f.result(timeout=300)
             wall_ms = (time.monotonic() - t0) * 1e3
         st = eng.stats()
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if e.self_device_time_total > 0]
+    rows = device_rows(prof)
     busy_ms = sum(r[1] for r in rows)
     log(f"[profile] wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
         f"({100 * busy_ms / wall_ms:.1f}%), decode steps "
@@ -388,12 +772,190 @@ def phase_parity(dev):
         if not np.array_equal(a, b):
             raise AssertionError(f"greedy outputs differ: cpu {a.tolist()} "
                                  f"card {b.tolist()}")
-    if any(after[k] == before[k] for k in after):
+    if any(after[k] == before[k] for k in ("rms_norm", "paged_decode")):
         raise AssertionError(f"the card run skipped a kernel: {before} → "
                              f"{after}")
     log(f"[parity] 2-layer 7B-width fp32: greedy outputs identical on the "
         f"CPU and the card for 3 prompts ({time.monotonic() - t0:.1f} s): "
         f"{[o.tolist() for o in outs['card']]}")
+
+
+def train_batch(vocab, seq, seed=0):
+    """One batch of random token ids; labels are the ids shifted by one,
+    the last position ignored."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, vocab, (1, seq)).astype(np.int64)
+    labels = np.roll(ids, -1, axis=1)
+    labels[:, -1] = -100
+    return torch.from_numpy(ids), torch.from_numpy(labels)
+
+
+def train_step(model, opt, ids, labels, marks=None):
+    """One eager training step; with ``marks`` (four CUDA events) the
+    forward, backward and optimizer are timed on the card's timeline."""
+    if marks:
+        marks[0].record()
+    _, loss = model(ids, labels=labels)
+    if marks:
+        marks[1].record()
+    loss.backward()
+    if marks:
+        marks[2].record()
+    opt.step()
+    opt.clear_grad()
+    if marks:
+        marks[3].record()
+    return float(loss.detach())
+
+
+def make_trainer(cfg, dev, dtype, seed, lr=3e-4):
+    model = LlamaForCausalLM(cfg, device=dev, dtype=torch.float32, seed=seed)
+    opt = AdamW(learning_rate=lr, parameters=model.parameters(),
+                weight_decay=0.01, grad_clip=ClipGradByGlobalNorm(1.0))
+    if dtype != torch.float32:
+        model, opt = amp.decorate(model, opt, level="O2", dtype=dtype)
+    return model, opt
+
+
+def profile_train_step(model, opt, ids, labels):
+    """torch.profiler over one training step: device time by kernel and
+    the device's busy share of the step's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        train_step(model, opt, ids, labels)
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    rows = device_rows(prof)
+    busy_ms = sum(r[1] for r in rows)
+    log(f"[train-profile] one step: wall {wall_ms:.1f} ms, device busy "
+        f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%)")
+    groups = {}
+    for key, ms, _ in rows:
+        k = key.lower()
+        group = ("flash attention (ours)" if "flash_" in k else
+                 "adam (ours)" if "adam_kernel" in k else
+                 "rms norm + rope (ours)" if "rms_norm" in k or "rope" in k
+                 else "GEMM (cuBLAS)" if any(t in k for t in (
+                     "nvjet", "gemm", "cutlass", "xmma")) else
+                 "elementwise, reductions, copies (torch)")
+        groups[group] = groups.get(group, 0.0) + ms
+    log("[train-profile] by group: " + ", ".join(
+        f"{g} {ms:.1f} ms" for g, ms in sorted(groups.items(),
+                                               key=lambda x: -x[1])))
+    for key, ms, count in sorted(rows, key=lambda r: -r[1])[:15]:
+        log(f"[train-profile]   {ms:9.3f} ms  {count:6d}x  {key[:90]}")
+
+
+def phase_train(dev, warmup=2, steps=6):
+    """Llama-2 7B width, 8 of its 32 layers (memory: 16 B a parameter under
+    O2 AdamW), bf16 O2, B1 x S4096, one batch repeated."""
+    cfg = llama_config("llama2-7b", num_layers=8)
+    seq = 4096
+    t0 = time.monotonic()
+    model, opt = make_trainer(cfg, dev, torch.bfloat16, seed=0)
+    ids, labels = (t.to(dev) for t in train_batch(cfg.vocab_size, seq))
+    n_params = model.num_params()
+    torch.cuda.synchronize()
+    log(f"[train] Llama-2 7B width, {cfg.num_layers} layers "
+        f"({n_params / 1e9:.3f} B params), bf16 O2, AdamW(3e-4, wd 0.01, "
+        f"clip 1.0), B1 x S{seq}; built in {time.monotonic() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    losses, times, parts = [], [], []
+    for i in range(warmup + steps):
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        t1 = time.monotonic()
+        losses.append(train_step(model, opt, ids, labels, marks))
+        torch.cuda.synchronize()
+        times.append((time.monotonic() - t1) * 1e3)
+        if i >= warmup:
+            parts.append([marks[j].elapsed_time(marks[j + 1])
+                          for j in range(3)])
+    counts = kernels.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    n = warmup + steps
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    need = {k: cfg.num_layers * n for k in TRAIN_KERNELS}
+    need["adam"] = len(list(model.parameters())) * n   # one per parameter
+    for name, k in need.items():
+        if counts[name] < k:
+            raise AssertionError(f"{name}: {counts[name]} launches, expected "
+                                 f">= {k}")
+    step_ms = float(np.median(times[warmup:]))
+    tokens = ids.numel()
+    # MFU: 6 N T (N every parameter but the input embedding, whose lookup
+    # does no product; forward and backward) plus causal attention, 3 x 2
+    # S^2 hidden per layer (two products of 2 S^2 D per head, halved by the
+    # mask; forward and backward), over 989 TFLOP/s
+    n_matmul = n_params - model.llama.embed_tokens.weight.numel()
+    flops = 6 * n_matmul * tokens + \
+        6 * tokens * seq * cfg.hidden_size * cfg.num_layers
+    mfu = flops / (step_ms / 1e3) / PEAK_OPS[torch.bfloat16]
+    log(f"[train] losses {[round(x, 4) for x in losses]}")
+    log(f"[train] step {step_ms:.1f} ms p50 over {steps} timed steps (all: "
+        f"{[round(t, 1) for t in times]}), {tokens / (step_ms / 1e3):.0f} "
+        f"tokens/s, MFU {100 * mfu:.1f}% ({flops / 1e12:.1f} TFLOP a step), "
+        f"peak memory {peak_gb:.2f} GB")
+    fwd_ms, bwd_ms, opt_ms = np.median(np.asarray(parts), axis=0)
+    log(f"[train] step parts p50 (CUDA events): forward + loss {fwd_ms:.1f}"
+        f" ms, backward {bwd_ms:.1f} ms, clip + AdamW + clear_grad "
+        f"{opt_ms:.1f} ms")
+    log(f"[train] launches {counts} (needed >= {need})")
+    profile_train_step(model, opt, ids, labels)
+    del model, opt
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_train_parity(dev, steps=3):
+    """The same fp32 2-layer model at the 7B widths, the same weights and
+    batch, 3 AdamW steps on the CPU (plain versions) and on the card
+    (kernels).  Tolerances: losses 1e-4 relative (fp32 sums in other
+    orders); parameters: AdamW moves an element by ~lr whatever its
+    gradient's size, so an element whose gradient is at the fp32 noise
+    floor may step differently: all but 1 in 10^4 elements within 1e-5,
+    and every element within 2 lr per step."""
+    cfg = llama_config("llama2-7b", num_layers=2, max_seq_len=256)
+    t0 = time.monotonic()
+    cpu_model, cpu_opt = make_trainer(cfg, "cpu", torch.float32, seed=1)
+    card_model, card_opt = make_trainer(cfg, dev, torch.float32, seed=1)
+    card_model.load_state_dict(cpu_model.state_dict())
+    ids, labels = train_batch(cfg.vocab_size, 256, seed=1)
+    cpu_losses = [train_step(cpu_model, cpu_opt, ids, labels)
+                  for _ in range(steps)]
+    before = kernels.launch_counts()
+    card_losses = [train_step(card_model, card_opt, ids.to(dev),
+                              labels.to(dev)) for _ in range(steps)]
+    after = kernels.launch_counts()
+    if not np.allclose(card_losses, cpu_losses, rtol=1e-4, atol=0):
+        raise AssertionError(f"losses differ: cpu {cpu_losses} card "
+                             f"{card_losses}")
+    skipped = [k for k in TRAIN_KERNELS if after[k] == before[k]]
+    if skipped:
+        raise AssertionError(f"the card run skipped {skipped}")
+    cpu_sd, card_sd = cpu_model.state_dict(), card_model.state_dict()
+    worst = {}
+    for name in ("llama.embed_tokens.weight",
+                 "llama.layers.0.self_attn.q_proj.weight",
+                 "llama.layers.1.mlp.down_proj.weight",
+                 "llama.layers.1.input_layernorm.weight", "lm_head.weight"):
+        diff = (card_sd[name].cpu() - cpu_sd[name]).abs()
+        off = float((diff > 1e-5).float().mean())
+        worst[name] = (float(diff.max()), off)
+        if off > 1e-4 or float(diff.max()) > 2 * 3e-4 * steps:
+            raise AssertionError(f"{name}: max diff {float(diff.max()):.3e},"
+                                 f" share above 1e-5 {off:.2e}")
+    log(f"[train-parity] 2-layer 7B-width fp32, S256, {steps} AdamW steps: "
+        f"losses cpu {cpu_losses} card {card_losses}; parameters (max diff,"
+        f" share > 1e-5) {worst} ({time.monotonic() - t0:.1f} s)")
+    del card_model, card_opt
+    torch.cuda.empty_cache()
 
 
 def main(argv=None):
@@ -414,15 +976,22 @@ def main(argv=None):
         counts = phase_serve(dev)
     if "parity" in phases:
         phase_parity(dev)
-    if timed and counts is not None:
-        meta = {"rms_norm": ("csrc/rms_norm.cu", "paddle_tpu/pallas/fused.py:92"),
-                "paged_decode": ("csrc/paged_decode.cu",
-                                 "paddle_tpu/pallas/flash_attention.py:860")}
+    train_counts = None
+    if "train" in phases:
+        train_counts = phase_train(dev)
+    if "train-parity" in phases:
+        phase_train_parity(dev)
+    if timed and counts is not None and train_counts is not None:
+        # launches: the serving run's for its two kernels, the training
+        # run's for the six of the training path
+        launches = dict(counts)
+        launches.update({k: train_counts[k] for k in TRAIN_KERNELS
+                         if k != "rms_norm"})
         summary = [dict(name=k, route="cuda",
-                        source="paddle_tpu_torch/" + meta[k][0],
-                        replaces=meta[k][1], launches=counts[k],
+                        source="paddle_tpu_torch/" + KERNEL_META[k][0],
+                        replaces=KERNEL_META[k][1], launches=launches[k],
                         max_abs_err=errs[k], **timed[k])
-                   for k in ("rms_norm", "paged_decode")]
+                   for k in KERNEL_META]
         log(json.dumps({"kernels": summary}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

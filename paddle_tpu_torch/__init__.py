@@ -1,8 +1,11 @@
 """paddle_tpu_torch: the PyTorch/CUDA port of paddle_tpu for NVIDIA Hopper.
 
-The serving path (``serving.Engine`` over ``models.LlamaForCausalLM``
-with a paged KV cache) runs in plain PyTorch around two hand-written CUDA
-kernels (``kernels.rms_norm``, ``kernels.paged_decode``).  Every entry
+Two paths are ported, in plain PyTorch around hand-written CUDA kernels
+(``kernels/``, sources in ``csrc/``): serving (``serving.Engine`` over
+``models.LlamaForCausalLM`` with a paged KV cache; RMS norm and paged
+decode attention) and training (``LlamaForCausalLM(ids, labels=...)``
+under ``amp.decorate`` with ``optimizer.AdamW``; RMS norm forward and
+backward, rope, flash attention forward, dK/dV and dQ).  Every entry
 point runs on the card unless the caller passes ``device="cpu"``; on the
 CPU each kernel wrapper takes its plain PyTorch version.
 """

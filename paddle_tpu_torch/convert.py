@@ -1,4 +1,4 @@
-"""Weights across the two packages.
+"""Weights and optimizer state across the two packages.
 
 The port keeps paddle_tpu's parameter names and layouts (``Linear`` is
 ``[in, out]``), so a paddle_tpu state dict, taken to numpy arrays, maps
@@ -6,6 +6,13 @@ name for name onto a port model with no transpose::
 
     np_state = {k: np.asarray(v._data_) for k, v in jax_model.state_dict().items()}
     load_paddle_tpu_state(torch_model, np_state)
+
+An optimizer's state (``moment1.<i>``, ``moment2.<i>``, ``master.<i>``,
+``step_count``, ``step_tensor``) is indexed by the position of the
+parameter in the optimizer's list; `load_paddle_tpu_optimizer_state`
+carries it over when the port's optimizer lists the port model's
+parameters in the JAX optimizer's order (``model.parameters()`` on both
+sides: the port's modules register them in the JAX package's order).
 """
 from __future__ import annotations
 
@@ -48,3 +55,23 @@ def load_paddle_tpu_state(model, np_state):
         for name, t in tensors.items():
             own[name].copy_(t)
     return model
+
+
+def load_paddle_tpu_optimizer_state(optimizer, np_state):
+    """Adopt a paddle_tpu optimizer's ``state_dict()`` (values taken to
+    numpy arrays or Python numbers) into a port optimizer of the same
+    kind, copying each tensor onto its parameter's device.  Raises on a
+    key the port optimizer has no slot for."""
+    optimizer._ensure_state()
+    n = len(optimizer._all_params())
+    names = set(optimizer._state)
+    for key in np_state:
+        if key in ("step_count", "step_tensor"):
+            continue
+        name, _, idx = key.rpartition(".")
+        if name not in names or not idx.isdigit() or int(idx) >= n:
+            raise KeyError(f"optimizer state key {key!r} has no slot in "
+                           f"{type(optimizer).__name__} (state "
+                           f"{sorted(names)}, {n} parameters)")
+    optimizer.set_state_dict(dict(np_state))
+    return optimizer

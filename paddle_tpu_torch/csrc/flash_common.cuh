@@ -1,0 +1,175 @@
+// Shared pieces of the flash attention kernels (flash_attention_fwd.cu,
+// flash_attention_bwd.cu): tile geometry, the strides of one tensor, the
+// 16-bit tensor-core product (mma.sync m16n8k16, fp32 accumulation),
+// ldmatrix fragment loads and cp.async tile copies.
+//
+// Fragment layouts of mma.sync.m16n8k16 (lane = 4 * g + t4):
+//   A 16x16 row-major: a0 (g, 2t4..+1)  a1 (g+8, 2t4..)  a2 (g, 8+2t4..)
+//                      a3 (g+8, 8+2t4..)
+//   B 16x8  (k, n):    b0 (k = 2t4..+1, n = g)  b1 (k = 8+2t4.., n = g)
+//   C 16x8  fp32:      c0, c1 (g, 2t4..+1)      c2, c3 (g+8, 2t4..+1)
+// so the C fragments of two neighbouring 8-column tiles are, element for
+// element, the A fragment of the next product over those 16 columns
+// (packed to 16 bits): probabilities never leave registers.
+#pragma once
+
+#include <cstdint>
+
+#include "common.cuh"
+
+namespace ptt {
+namespace flash {
+
+constexpr float kNegInf = -1e30f;   // the Pallas kernels' NEG_INF
+constexpr int kThreads = 128;       // four warps per block
+
+// Element strides of a [B, H, S, D] view (D contiguous): both layouts of
+// the public op, [B, H, S, D] and [B, S, H, D], are such views.
+struct Strides {
+  int64_t b, h, s;
+};
+
+template <typename T>
+struct Mma;
+
+template <>
+struct Mma<__nv_bfloat16> {
+  static __device__ __forceinline__ void run(float* c, const uint32_t* a,
+                                             const uint32_t* b) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  }
+  // two floats rounded to one 32-bit register, `lo` in the low half
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+  static __device__ __forceinline__ float round(float x) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  }
+};
+
+template <>
+struct Mma<__half> {
+  static __device__ __forceinline__ void run(float* c, const uint32_t* a,
+                                             const uint32_t* b) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  }
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+  static __device__ __forceinline__ float round(float x) {
+    return __half2float(__float2half_rn(x));
+  }
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Four 8x8 16-bit matrices; lane l gives the address of row l % 8 of
+// matrix l / 8 and receives (row l / 4, columns 2 (l % 4) .. +1) of each.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// The same, each matrix transposed: lane l receives (rows 2 (l % 4) .. +1,
+// column l / 4).
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// A fragment (16 rows x 16 columns) of a row-major tile in shared memory
+// with row stride `ld` elements, rows r0.., columns c0..
+template <typename T>
+__device__ __forceinline__ void load_a(uint32_t* a, const T* tile, int ld,
+                                       int r0, int c0, int lane) {
+  const int row = r0 + (lane & 7) + (((lane >> 3) & 1) << 3);
+  const int col = c0 + ((lane >> 4) << 3);
+  ldmatrix_x4(a, tile + row * ld + col);
+}
+
+// B fragments of two neighbouring n-tiles (b[0..1] for n0.., b[2..3] for
+// n0+8..) for a product over k = c0..c0+15, where B[k][n] = tile[n][k]
+// (the tile holds B transposed: keys x head dim for Q K^T).
+template <typename T>
+__device__ __forceinline__ void load_b_nt(uint32_t* b, const T* tile, int ld,
+                                          int n0, int c0, int lane) {
+  const int row = n0 + (lane & 7) + ((lane >> 4) << 3);
+  const int col = c0 + (((lane >> 3) & 1) << 3);
+  ldmatrix_x4(b, tile + row * ld + col);
+}
+
+// B fragments of two neighbouring n-tiles for k = k0..k0+15 where
+// B[k][n] = tile[k][n] (the tile holds B itself: keys x head dim for P V).
+template <typename T>
+__device__ __forceinline__ void load_b_kn(uint32_t* b, const T* tile, int ld,
+                                          int k0, int n0, int lane) {
+  const int row = k0 + (lane & 7) + (((lane >> 3) & 1) << 3);
+  const int col = n0 + ((lane >> 4) << 3);
+  ldmatrix_x4_trans(b, tile + row * ld + col);
+}
+
+// 16-byte asynchronous copy global -> shared; `full` false fills zeros.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(full ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows 0..ROWS-1 of a [rows, D] tile (row stride `stride` elements) into
+// shared memory with row stride D + 8; rows at or past `valid` are zero.
+// `valid` >= 1, so a clamped row address is always inside the tensor.
+template <typename T, int ROWS, int D>
+__device__ __forceinline__ void load_tile(T* dst, const T* src,
+                                          int64_t stride, int valid,
+                                          int tid) {
+  constexpr int kChunks = D / 8;   // 16-byte chunks per row
+  constexpr int kLd = D + 8;
+  for (int i = tid; i < ROWS * kChunks; i += kThreads) {
+    const int r = i / kChunks, c = (i - r * kChunks) * 8;
+    const bool ok = r < valid;
+    const int rs = ok ? r : valid - 1;
+    cp_async16(dst + r * kLd + c, src + rs * stride + c, ok);
+  }
+}
+
+// Lets `kernel` take `bytes` of dynamic shared memory (above 48 KB it has
+// to ask).  Callers keep the result in a function-local static, so the
+// attribute is set once per kernel, outside any CUDA-graph capture that
+// follows.
+template <typename K>
+inline cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+}  // namespace flash
+}  // namespace ptt

@@ -1,10 +1,14 @@
-"""Fused-op APIs of the serving path (port of
+"""Fused-op APIs of the serving and training paths (port of
 paddle_tpu/incubate/nn/functional/__init__.py): rotary position
 embedding, cache attention, and paged multi-head attention.
 
-Rope and the prefill chunk's attention are plain PyTorch here, as they are
-plain jnp in the JAX package on this path.  The single-token decode read
-goes through the paged-decode kernel (its plain version on the CPU).
+Rope with one ``[S, D]`` table (no positions, 1-D positions, or 2-D
+sin/cos tables) goes through the rope kernel with fp32 tables, as the JAX
+package takes its Pallas kernel when it has such a table; per-row ``[B, S]``
+positions (the serving engine's slots) stay plain PyTorch, as they stay
+jnp there.  The prefill chunk's attention is plain PyTorch too; the
+single-token decode read goes through the paged-decode kernel (its plain
+version on the CPU).
 """
 from __future__ import annotations
 
@@ -13,6 +17,7 @@ import math
 import torch
 
 from ...kernels.paged_decode import paged_decode_attention
+from ...kernels.rope import RopeFunction, rope
 
 NEG_INF = -1e30
 
@@ -45,6 +50,7 @@ def fused_rotary_position_embedding(q, k=None, v=None, sin=None, cos=None,
     or ``arange(S)``; sin/cos default to the standard rope table.
     Returns ``(q, k, v)`` with None where an input was None."""
     _, s, _, d = q.shape
+    cos2d = sin2d = None        # [S, D] tables: the kernel's route
     if sin is None or cos is None:
         inv = 1.0 / (rotary_emb_base ** (torch.arange(
             0, d, 2, dtype=torch.float32, device=q.device) / d))
@@ -60,14 +66,26 @@ def fused_rotary_position_embedding(q, k=None, v=None, sin=None, cos=None,
         else:
             freqs = torch.outer(pos, inv)                     # [S, d/2]
             emb = torch.cat([freqs, freqs], dim=-1)
-            cos_a, sin_a = emb.cos()[None, :, None, :], \
-                emb.sin()[None, :, None, :]
+            cos2d, sin2d = emb.cos(), emb.sin()
     else:
         cos_a, sin_a = cos, sin
         if cos_a.dim() == 2:
+            if tuple(cos_a.shape) == (s, d):
+                cos2d, sin2d = cos_a.float(), sin_a.float()
             cos_a, sin_a = cos_a[None, :, None, :], sin_a[None, :, None, :]
+    if cos2d is not None:
+        return tuple(None if t is None else _rope_2d(t, cos2d, sin2d,
+                                                     use_neox_rotary_style)
+                     for t in (q, k, v))
     return _apply_rope(q, k, v, cos_a.to(q.dtype), sin_a.to(q.dtype),
                        use_neox_rotary_style)
+
+
+def _rope_2d(t, cos, sin, neox):
+    """One tensor through the rope kernel (differentiable when needed)."""
+    if torch.is_grad_enabled() and t.requires_grad:
+        return RopeFunction.apply(t, cos, sin, bool(neox))
+    return rope(t, cos, sin, neox)
 
 
 def _cache_attend(qa, ck, cv, off, scale):

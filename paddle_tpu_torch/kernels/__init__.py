@@ -32,9 +32,15 @@ def check_cuda(name, *tensors):
 
 
 def _wrappers():
-    from . import paged_decode, rms_norm
+    from . import adam, flash_attention, paged_decode, rms_norm, rope
     return {"rms_norm": rms_norm.rms_norm,
-            "paged_decode": paged_decode.paged_decode_attention}
+            "paged_decode": paged_decode.paged_decode_attention,
+            "rms_norm_bwd": rms_norm.rms_norm_bwd,
+            "rope": rope.rope,
+            "flash_fwd": flash_attention.flash_attention_fwd,
+            "flash_bwd_dkv": flash_attention.flash_bwd_dkv,
+            "flash_bwd_dq": flash_attention.flash_bwd_dq,
+            "adam": adam.adam_update}
 
 
 def launch_counts() -> dict:

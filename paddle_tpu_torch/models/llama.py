@@ -3,9 +3,10 @@ pre-norm, rotary position embeddings, SwiGLU MLP, grouped-query
 attention, with the JAX package's parameter names and ``[in, out]``
 Linear layout so its state dicts load unchanged (``convert.py``).
 
-This slice ports the cache path only (``caches=`` given), the path the
-serving engine drives.  The full forward without a cache is the flash
-attention kernel's path and raises until that kernel is ported.
+Two paths, as in the JAX package: with ``caches=`` (the serving engine)
+attention reads the paged KV cache; without, the forward is the training
+path: rope through the rope kernel and causal head-major flash attention,
+with ``labels=`` giving ``(logits, loss)``.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from torch import nn
 
 from ..device import resolve_device, to_torch_dtype
 from ..incubate.nn import functional as IF
+from ..kernels.flash_attention import flash_attention
 from ..nn import functional as F
 from ..nn.layers import Embedding, Linear, RMSNorm
 
@@ -85,17 +87,22 @@ class LlamaAttention(nn.Module):
         self.o_proj = Linear(h, h, std=out_std, **kw)
 
     def forward(self, x, cache=None):
-        if cache is None:
-            raise NotImplementedError(
-                "LlamaAttention without a KV cache runs the flash attention "
-                "kernel, which is not ported yet (ROADMAP Queue A: training "
-                "for Llama, flash fwd/bwd)")
         cfg = self.config
         b, s, h = x.shape
         d = cfg.head_dim
         q = self.q_proj(x).reshape(b, s, cfg.num_heads, d)
         k = self.k_proj(x).reshape(b, s, cfg.num_kv_heads, d)
         v = self.v_proj(x).reshape(b, s, cfg.num_kv_heads, d)
+        if cache is None:
+            q, k, _ = IF.fused_rotary_position_embedding(
+                q, k, rotary_emb_base=cfg.rope_theta)
+            # K/V stay at num_kv_heads (the kernels index the shared kv
+            # head); head-major views of the [B, S, H, D] projections, which
+            # the kernels read through their strides without a copy
+            out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2), causal=True,
+                                  training=self.training, head_major=True)
+            return self.o_proj(out.transpose(1, 2).reshape(b, s, h))
         off = cache["offset"]
         pos = torch.arange(s, dtype=torch.int32, device=x.device)
         if off.dim() == 1:
@@ -188,11 +195,20 @@ class LlamaForCausalLM(nn.Module):
                 if hasattr(mod, "reset_parameters"):
                     mod.reset_parameters(gen)
 
-    def forward(self, input_ids, caches=None):
+    def forward(self, input_ids, labels=None, caches=None):
+        """Logits ``[B, S, vocab]``; with ``labels`` (``[B, S]``, -100
+        ignored) ``(logits, loss)``, the mean cross-entropy over the
+        labelled positions (no shift: the caller aligns labels)."""
         hidden = self.llama(input_ids, caches=caches)
         if self.lm_head is not None:
-            return self.lm_head(hidden)
-        return F.linear(hidden, self.llama.embed_tokens.weight.T)
+            logits = self.lm_head(hidden)
+        else:
+            logits = F.linear(hidden, self.llama.embed_tokens.weight.T)
+        if labels is not None:
+            loss = F.cross_entropy(logits.reshape(-1, self.config.vocab_size),
+                                   labels.reshape(-1))
+            return logits, loss
+        return logits
 
     def num_params(self):
         return sum(p.numel() for p in self.parameters())

@@ -9,8 +9,14 @@ import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch import kernels
+from paddle_tpu_torch.kernels import adam
+from paddle_tpu_torch.kernels import flash_attention as fa
 from paddle_tpu_torch.kernels import paged_decode as pd
 from paddle_tpu_torch.kernels import rms_norm as rn
+from paddle_tpu_torch.kernels import rope as rp
+from paddle_tpu_torch.nn import RMSNorm
+from paddle_tpu_torch.optimizer import AdamW
 
 
 def paged_inputs(seed=0, B=3, H=8, Hkv=2, D=16, psz=8, N=4,
@@ -61,3 +67,234 @@ def test_paged_decode_kernel_on_card(card, dtype):
         tol = 2e-5 if dtype == torch.float32 else 2e-2
         torch.testing.assert_close(out.float(), ref.float(), rtol=tol,
                                    atol=tol)
+
+
+def _rms_row_norm(t):
+    return float(t.detach().float().reshape(-1, t.shape[-1]).norm(dim=-1)
+                 .square().mean().sqrt())
+
+
+def _row_err(got, want, scale=None):
+    """Largest relative error of a row (the last dim) against its own norm,
+    ``|got - want| / max(|want|, 1e-2 x scale)``: every row of every tensor
+    is held to its own scale, so a wrong row of small values (late causal
+    positions) shows.  The floor only covers rows whose exact value is ~0
+    (dQ of the first causal row); ``scale`` defaults to the tensor's RMS
+    row norm and is given where a whole tensor is ~0 (dq and dk of a
+    single key)."""
+    g = got.detach().float().reshape(-1, got.shape[-1])
+    w = want.detach().float().reshape(-1, want.shape[-1])
+    norm = w.norm(dim=-1)
+    scale = _rms_row_norm(want) if scale is None else scale
+    floor = max(1e-2 * scale, 1e-30)
+    return float(((g - w).norm(dim=-1) / norm.clamp_min(floor)).max())
+
+
+# row tolerances: fp32, sums of many terms in another order; 16-bit, one
+# rounding of the output (2^-9 relative) and of p and dS for the tensor
+# cores, with room
+ROW_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2, torch.float16: 1e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rms_norm_layer_has_gradients_on_card(card, dtype):
+    """RMSNorm on the card is differentiable: x.grad and weight.grad match
+    autograd through the plain version, each row within ROW_TOL of its
+    own norm."""
+    g = torch.Generator(device=card).manual_seed(1)
+    x0 = torch.randn(64, 512, device=card, generator=g).to(dtype)
+    dy = torch.randn(64, 512, device=card, generator=g).to(dtype)
+    layer = RMSNorm(512, epsilon=1e-5, device=card, dtype=dtype)
+    with torch.no_grad():
+        layer.weight.copy_(1 + 0.1 * torch.randn(512, device=card,
+                                                 generator=g))
+    x = x0.clone().requires_grad_(True)
+    y = layer(x)
+    assert y.grad_fn is not None
+    y.backward(dy)
+    w_ref = layer.weight.detach().clone().requires_grad_(True)
+    x_ref = x0.clone().requires_grad_(True)
+    rn.rms_norm_ref(x_ref, w_ref, 1e-5).backward(dy)
+    assert _row_err(x.grad, x_ref.grad) < ROW_TOL[dtype]
+    assert _row_err(layer.weight.grad, w_ref.grad) < ROW_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rms_norm_bwd_kernel_on_card(card, dtype):
+    """Both kernels against the plain backward: a shared-memory dw
+    partial (N 4096), the workspace partial (N 16384) and the scalar
+    tail (3 x 100)."""
+    g = torch.Generator(device=card).manual_seed(2)
+    before = rn.rms_norm_bwd.launches
+    for rows, n in [(300, 4096), (40, 16384), (3, 100)]:
+        x = torch.randn(rows, n, device=card, generator=g).to(dtype)
+        w = (1 + 0.1 * torch.randn(n, device=card, generator=g)).to(dtype)
+        dy = torch.randn(rows, n, device=card, generator=g).to(dtype)
+        _, r = rn.rms_norm(x, w, 1e-5, return_rstd=True)
+        dx, dw = rn.rms_norm_bwd(x, w, r, dy)
+        dx_ref, dw_ref = rn.rms_norm_bwd_ref(x, w, r, dy)
+        assert dx.dtype == dtype and dw.dtype == dtype
+        assert _row_err(dx, dx_ref) < ROW_TOL[dtype], (rows, n)
+        assert _row_err(dw, dw_ref) < ROW_TOL[dtype], (rows, n)
+    assert rn.rms_norm_bwd.launches == before + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("neox", [True, False])
+def test_rope_kernel_on_card(card, dtype, neox):
+    """Forward and inverse equal the plain version exactly: the same fp32
+    products and sums, each rounded on its own, then one rounding."""
+    g = torch.Generator(device=card).manual_seed(3)
+    for b, s, h, d in [(2, 37, 4, 64), (1, 128, 8, 128), (1, 5, 3, 6)]:
+        t = torch.randn(b, s, h, d, device=card, generator=g).to(dtype)
+        ang = torch.rand(s, d, device=card, generator=g) * 6.28
+        cos, sin = ang.cos(), ang.sin()
+        for inverse in (False, True):
+            out = rp.rope(t, cos, sin, neox, inverse)
+            want = rp.rope_ref(t, cos, sin, neox, inverse)
+            assert torch.equal(out, want), (b, s, h, d, inverse)
+
+
+def _attn_inputs(card, b, h, h_kv, s, d, dtype, head_major, seed):
+    g = torch.Generator(device=card).manual_seed(seed)
+
+    def mk(heads):
+        shape = (b, heads, s, d) if head_major else (b, s, heads, d)
+        return torch.randn(shape, device=card, generator=g).to(dtype)
+    return mk(h), mk(h_kv), mk(h_kv), mk(h)
+
+
+ATTN_CASES = [
+    # b, h, h_kv, s, d, causal, head_major
+    (2, 4, 2, 130, 64, True, True),       # GQA, ragged S, head-major
+    (1, 8, 8, 256, 128, False, False),    # MHA, [B, S, H, D]
+    (1, 4, 1, 77, 32, True, False),       # MQA, D 32, S < one tile pair
+    (1, 2, 2, 1, 128, True, True),        # one token
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_flash_attention_kernels_on_card(card, dtype):
+    """Forward (out, lse) against the plain version, and the backward
+    kernels (dq, dk, dv) against the plain backward on the same inputs
+    (the kernel's out and lse).  fp32: out and lse 2e-5; 16-bit: lse 1e-3;
+    out and each gradient row by row within ROW_TOL of the row's own
+    norm."""
+    for i, (b, h, h_kv, s, d, causal, hm) in enumerate(ATTN_CASES):
+        q, k, v, do = _attn_inputs(card, b, h, h_kv, s, d, dtype, hm, i)
+        out, lse = fa.flash_attention_fwd(q, k, v, causal, None, hm)
+        out_ref, lse_ref = fa.flash_attention_ref(q, k, v, causal, None, hm)
+        if dtype == torch.float32:
+            torch.testing.assert_close(out, out_ref, rtol=2e-5, atol=2e-5)
+            torch.testing.assert_close(lse, lse_ref, rtol=2e-5, atol=2e-5)
+        else:
+            assert _row_err(out, out_ref) < ROW_TOL[dtype], i
+            torch.testing.assert_close(lse, lse_ref, rtol=1e-3, atol=1e-3)
+        grads = fa.flash_attention_bwd(q, k, v, out, lse, do, causal, None,
+                                       hm)
+        wants = fa.flash_attention_bwd_ref(q, k, v, out, lse, do, causal,
+                                           None, hm)
+        # the floor from the largest of the three: with one key, dq and dk
+        # are 0 and only dv is not
+        scale = max(_rms_row_norm(w) for w in wants)
+        for got, want in zip(grads, wants):
+            assert got.shape == want.shape and got.dtype == dtype
+            err = _row_err(got, want, scale)
+            assert err < ROW_TOL[dtype], (i, err)
+
+
+@pytest.mark.cuda
+def test_flash_attention_op_under_autograd_on_card(card):
+    """The public op differentiates through the kernels: every flash
+    launch count moves, and the gradients are the kernels' own for the
+    forward's out and lse."""
+    q, k, v, do = _attn_inputs(card, 1, 8, 2, 200, 128, torch.bfloat16,
+                               True, 9)
+    before = kernels.launch_counts()
+    qa, ka, va = (t.clone().requires_grad_(True) for t in (q, k, v))
+    fa.flash_attention(qa, ka, va, causal=True, head_major=True).backward(do)
+    after = kernels.launch_counts()
+    for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+        assert after[name] == before[name] + 1, name
+    out, lse = fa.flash_attention_fwd(q, k, v, True, None, True)
+    want = fa.flash_attention_bwd(q, k, v, out, lse, do, True, None, True)
+    for got, w in zip((qa.grad, ka.grad, va.grad), want):
+        assert torch.equal(got, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p_dtype,master,decoupled,wd", [
+    (torch.bfloat16, True, True, 0.01),     # O2 AdamW: bf16 + fp32 master
+    (torch.float32, False, True, 0.01),     # fp32 AdamW
+    (torch.float16, True, False, 0.1),      # Adam, L2-coupled decay
+    (torch.bfloat16, False, True, 0.0),     # no master, no decay
+])
+def test_adam_kernel_on_card(card, p_dtype, master, decoupled, wd):
+    """The kernel equals its plain version bit for bit (the same fp32 ops,
+    each rounded on its own) on an aligned size, a ragged tail and a
+    misaligned view (the one-element-per-thread kernel)."""
+    g = torch.Generator(device=card).manual_seed(5)
+    before = adam.adam_update.launches
+    for n, offset in ((4096 * 3, 0), (1027, 0), (1001, 1)):
+        def copy(t):                # a copy ``offset`` elements off
+            buf = torch.empty(t.numel() + offset, device=card, dtype=t.dtype)
+            return buf[offset:].copy_(t)
+        w = torch.randn(n, device=card, generator=g)
+        m1 = 1e-2 * torch.randn(n, device=card, generator=g)
+        m2 = 1e-4 * torch.rand(n, device=card, generator=g)
+        grad = torch.randn(n, device=card, generator=g).to(p_dtype)
+        outs = []
+        for fn in (adam.adam_update, adam.adam_update_ref):
+            ww, a, b = copy(w), copy(m1), copy(m2)
+            if master:
+                p = torch.empty(n, device=card, dtype=p_dtype)
+            elif p_dtype == torch.float32:
+                p = None
+            else:
+                ww, p = ww.to(p_dtype).float(), torch.empty(
+                    n, device=card, dtype=p_dtype)
+            fn(ww, grad, a, b, p, 3e-4, 0.271, 0.002997, b1=0.9, b2=0.999,
+               eps=1e-8, wd=wd, decoupled=decoupled)
+            outs.append([t for t in (ww, a, b, p) if t is not None])
+        for got, want in zip(*outs):
+            assert torch.equal(got, want), (n, offset)
+    assert adam.adam_update.launches == before + 3
+
+
+@pytest.mark.cuda
+def test_adamw_step_launches_the_kernel_on_card(card):
+    """`AdamW.step` on the card updates every parameter through the kernel,
+    once a step, and matches the same step on the CPU (plain version)."""
+    torch.manual_seed(0)
+    params = [torch.randn(64, 48), torch.randn(48), torch.randn(7, 3)]
+    grads = [torch.randn_like(t) for t in params]
+    steps = {}
+    for dev in ("cpu", card):
+        ps = [torch.nn.Parameter(t.clone().to(dev)) for t in params]
+        for p, gr in zip(ps, grads):
+            p.grad = gr.to(dev)
+        opt = AdamW(learning_rate=1e-3, parameters=ps, weight_decay=0.01)
+        before = adam.adam_update.launches
+        opt.step()
+        opt.step()
+        launched = adam.adam_update.launches - before
+        steps[str(dev)] = ([p.detach().cpu() for p in ps], launched)
+    (cpu, cpu_n), (gpu, gpu_n) = steps["cpu"], steps[str(card)]
+    assert cpu_n == 0 and gpu_n == 2 * len(params)
+    for a, b in zip(cpu, gpu):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_what_it_does_not_take(card):
+    q = torch.zeros(1, 16, 2, 48, device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim 48"):
+        fa.flash_attention(q, q, q, causal=True)
+    q = torch.zeros(1, 16, 2, 64, device=card, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="dropout"):
+        fa.flash_attention(q, q, q, dropout=0.1)

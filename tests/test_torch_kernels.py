@@ -74,7 +74,9 @@ def test_cpu_tensors_take_the_plain_versions():
     w = torch.randn(64, dtype=torch.bfloat16)
     torch.testing.assert_close(rn.rms_norm(x, w, 1e-6),
                                rn.rms_norm_ref(x, w, 1e-6))
-    assert kernels.launch_counts() == {"rms_norm": 0, "paged_decode": 0}
+    counts = kernels.launch_counts()
+    assert {"rms_norm", "paged_decode"} <= set(counts)
+    assert all(n == 0 for n in counts.values()), counts
 
 
 def test_rms_norm_ref_rounds_once_in_bf16():

@@ -126,9 +126,21 @@ def test_llama_cache_path_matches_jax(pair):
                                rtol=1e-5, atol=1e-5)
 
 
-def test_llama_without_cache_raises(pair):
-    _, tm = pair
-    with pytest.raises(NotImplementedError, match="flash attention"):
+def test_llama_without_cache_raises(pair, monkeypatch):
+    """Without a cache the forward runs flash attention (the training
+    path, tests/test_torch_train.py), which raises for what it does not
+    port: attention dropout, named after its ROADMAP item."""
+    jm, tm = pair
+    ids = np.random.default_rng(4).integers(0, 512, (1, 12)).astype(np.int32)
+    with torch.no_grad():
+        logits = tm(_t(ids))
+    np.testing.assert_allclose(logits.numpy(), _np(jm(Tensor(ids))),
+                               rtol=1e-4, atol=1e-4)
+    from paddle_tpu_torch.models import llama as port_llama
+    real = port_llama.flash_attention
+    monkeypatch.setattr(port_llama, "flash_attention",
+                        lambda *a, **kw: real(*a, dropout=0.1, **kw))
+    with pytest.raises(NotImplementedError, match="dropout.*ROADMAP"):
         tm(torch.zeros(1, 4, dtype=torch.int32))
 
 
