@@ -18,16 +18,24 @@ last line:
             kernels' launch counts checked against the steps taken; then
             torch.profiler over a short serving run (device busy share,
             device time by kernel)
-5. parity   a 2-layer model at the 7B widths in fp32 with the same
+5. serve-lora-int8  the same model behind an int8-KV Engine with a
+            4-slot LoRA adapter pool (rank pool 16) and three adapters:
+            the same 8 requests, six of them under adapters; launch counts
+            of the int8 decode and LoRA delta kernels checked against the
+            steps taken, a prefix hit inside an adapter's scope; the same
+            traffic without the pool (the pool's decode-step cost); int8
+            and fp8 pages in use at equal load against a bf16 pool
+6. parity   a 2-layer model at the 7B widths in fp32 with the same
             weights served on the CPU (plain versions) and on the card
-            (kernels): greedy outputs must be identical
-6. train    Llama-2 7B at full width cut to 8 layers, bf16 O2 through
+            (kernels): greedy outputs must be identical, with float pools
+            and with int8 and fp8 pools under an adapter pool
+7. train    Llama-2 7B at full width cut to 8 layers, bf16 O2 through
             amp.decorate, AdamW with fp32 master weights and global-norm
             clipping, B1 x S4096: 2 warm-up and 6 timed steps (step ms,
             tokens/s, MFU, peak memory), every training kernel's launch
             count checked against the steps taken and the loss falling;
             then torch.profiler over one step
-7. train-parity  a 2-layer fp32 model at the 7B widths, the same weights
+8. train-parity  a 2-layer fp32 model at the 7B widths, the same weights
             and batch, 3 AdamW steps on the CPU (plain versions) and on
             the card (kernels): losses and parameters must agree
 
@@ -49,7 +57,9 @@ from paddle_tpu_torch import amp, kernels
 from paddle_tpu_torch.kernels import _build
 from paddle_tpu_torch.kernels.adam import adam_update, adam_update_ref
 from paddle_tpu_torch.kernels import flash_attention as fa
-from paddle_tpu_torch.kernels.paged_decode import (paged_decode_attention,
+from paddle_tpu_torch.kernels.lora import lora_delta, lora_delta_ref
+from paddle_tpu_torch.kernels.paged_decode import (gather_pages,
+                                                   paged_decode_attention,
                                                    paged_decode_ref)
 from paddle_tpu_torch.kernels.rms_norm import (rms_norm, rms_norm_bwd,
                                                rms_norm_bwd_ref,
@@ -58,13 +68,15 @@ from paddle_tpu_torch.kernels.rope import rope, rope_ref
 from paddle_tpu_torch.models import LlamaForCausalLM, llama_config
 from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
 from paddle_tpu_torch.optimizer import AdamW
+from paddle_tpu_torch.quantization import (KV_QUANT_DTYPES, dequantize_kv,
+                                           quantize_kv_rows)
 from paddle_tpu_torch.serving import Engine, SamplingParams, ServingConfig
 
 HBM_BYTES_PER_S = 3.35e12                   # H100 SXM data sheet
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
             torch.float32: 67e12}           # dense; fp32 outside tensor cores
-PHASES = ("device", "build", "kernels", "serve", "parity", "train",
-          "train-parity")
+PHASES = ("device", "build", "kernels", "serve", "serve-lora-int8", "parity",
+          "train", "train-parity")
 TRAIN_KERNELS = ("rms_norm", "rms_norm_bwd", "rope", "flash_fwd",
                  "flash_bwd_dkv", "flash_bwd_dq", "adam")
 #: (source under paddle_tpu_torch/, the TPU kernel it replaces)
@@ -81,7 +93,15 @@ KERNEL_META = {
     "flash_bwd_dq": ("csrc/flash_attention_bwd.cu",
                      "paddle_tpu/pallas/flash_attention.py:608"),
     "adam": ("csrc/adam.cu", "paddle_tpu/pallas/fused.py:320"),
+    "paged_decode_int8": ("csrc/paged_decode.cu",
+                          "paddle_tpu/pallas/flash_attention.py:860"),
+    "paged_decode_fp8": ("csrc/paged_decode.cu",
+                         "paddle_tpu/pallas/flash_attention.py:860"),
+    "lora_delta": ("csrc/lora_delta.cu", "paddle_tpu/serving/adapters.py:105"),
 }
+#: the target projections of a Llama layer (the adapter pool wraps each)
+LORA_TARGETS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj",
+                "up_proj", "down_proj")
 
 
 def log(msg):
@@ -93,22 +113,23 @@ class Timer:
     """Device time of one call: ``reps`` calls, each after a write of
     64 MB that flushes the 50 MB L2 (the serving path finds K/V cold),
     are captured in one CUDA graph and replayed between CUDA events, so
-    no host launch time sits between them; a graph of the flushes alone
-    is subtracted.  The median of 5 replays, per call."""
+    no host launch time sits between them; the flushes' own time is
+    subtracted.  The median of 5 replays, per call.  A call slower than
+    1 ms is captured fewer times (at least 3), ~20 ms of work a graph."""
 
     def __init__(self, dev, reps=20):
         self.flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
         self.reps = reps
-        self.flush_ms = self._replay_ms(lambda: None)
+        self.flush_ms = self._replay_ms(lambda: None, reps) / reps
 
-    def _replay_ms(self, fn):
+    def _replay_ms(self, fn, reps):
         for _ in range(3):                  # warm up outside the capture
             self.flush.zero_()
             fn()
         torch.cuda.synchronize()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
-            for _ in range(self.reps):
+            for _ in range(reps):
                 self.flush.zero_()
                 fn()
         times = []
@@ -124,7 +145,16 @@ class Timer:
         return float(np.median(times))
 
     def __call__(self, fn):
-        return max(self._replay_ms(fn) - self.flush_ms, 0.0) / self.reps
+        fn()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        reps = max(3, min(self.reps, int(self.reps / max(
+            start.elapsed_time(end), 1e-3))))
+        return max(self._replay_ms(fn, reps) / reps - self.flush_ms, 0.0)
 
 
 def bound(bytes_moved, ops, dtype):
@@ -518,6 +548,128 @@ def adam_case(dev, n, p_dtype, master, decoupled, wd, gen, timer=None,
     return 0.0, res
 
 
+def quant_pools(dev, name, pool_pages, psz, h_kv, d, gen):
+    """int8 / fp8 pools holding the codes of N(0, 1) rows, each token's
+    row scaled by its own U(0.2, 5) factor so that neighbouring rows'
+    scales differ, and their per-row scales (`quantize_kv_rows`)."""
+    sd, qmax = KV_QUANT_DTYPES[name]
+    out = []
+    for _ in range(2):
+        x = torch.randn(pool_pages, psz, h_kv, d, device=dev, generator=gen)
+        x *= 0.2 + 4.8 * torch.rand(pool_pages, psz, 1, 1, device=dev,
+                                    generator=gen)
+        out.extend(quantize_kv_rows(x, qmax, sd))
+        del x
+    k_pool, k_scale, v_pool, v_scale = out
+    return k_pool, v_pool, k_scale, v_scale
+
+
+def quant_paged_case(dev, name, b, h, h_kv, d, psz, n_pages, offsets, gen,
+                     timer=None, controls=False):
+    """The quantized variant against its plain version (dequantize the
+    gathered pages, fp32 softmax) with a bf16 query, row by row; the
+    control: the plain version with every token's scales taken from its
+    neighbour row (a kernel that reads the scale row off by one)."""
+    dtype = torch.bfloat16
+    pool_pages = 1 + b * n_pages
+    k_pool, v_pool, k_scale, v_scale = quant_pools(dev, name, pool_pages, psz,
+                                                   h_kv, d, gen)
+    q = torch.randn(b, h, d, device=dev, generator=gen).to(dtype)
+    table = (torch.randperm(pool_pages - 1, device=dev, generator=gen) + 1) \
+        .reshape(b, n_pages).to(torch.int32)
+    off = torch.tensor(offsets, dtype=torch.int32, device=dev)
+    kw = dict(k_scale=k_scale, v_scale=v_scale)
+    out = paged_decode_attention(q, k_pool, v_pool, table, off, **kw)
+    torch.cuda.synchronize()
+    want = paged_decode_ref(q, k_pool, v_pool, table, off, **kw)
+    label = (f"paged_decode_{name}[B={b} H={h} Hkv={h_kv} D={d} psz={psz} "
+             f"off={list(offsets)} bf16 q]")
+    err, rel = check_rows(label, [("out", out, want)], dtype)
+    log(f"[kernels] {label}: worst row {rel:.2e} of its norm")
+    if controls:
+        shifted = {k: v.roll(1, dims=1).contiguous() for k, v in kw.items()}
+        wrong = paged_decode_ref(q, k_pool, v_pool, table, off, **shifted)
+        expect_rejected(f"{label} scales one row off", lambda: check_rows(
+            label, [("out", out, wrong)], dtype))
+    if timer is None:
+        return err, None
+    tokens = sum(o + 1 for o in offsets)
+    live_pages = sum(o // psz + 1 for o in offsets)
+    bytes_moved = (2 * b * h * d * q.element_size()          # q, out
+                   + 2 * tokens * h_kv * d * k_pool.element_size()
+                   + 2 * tokens * 4                          # scales
+                   + 4 * live_pages + 4 * b)                 # table, offsets
+    ops = 4 * h * d * tokens + 2 * h_kv * d * tokens         # + dequantize
+    b_ms, b_by = bound(bytes_moved, ops, dtype)
+    # the library yardstick: SDPA over the cache gathered and dequantized
+    # beforehand (neither timed), heads expanded for GQA
+    s = n_pages * psz
+    pt = table.long()
+
+    def deq(pool, sc):
+        return dequantize_kv(gather_pages(pool, pt), sc[pt]) \
+            .reshape(b, s, h_kv, d).transpose(1, 2) \
+            .repeat_interleave(h // h_kv, dim=1).to(dtype).contiguous()
+    kg, vg = deq(k_pool, k_scale), deq(v_pool, v_scale)
+    mask = (torch.arange(s, device=dev)[None, :] <= off.long()[:, None]) \
+        [:, None, None, :]
+    q4 = q[:, :, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    res = dict(ms=timer(lambda: paged_decode_attention(q, k_pool, v_pool,
+                                                       table, off, **kw)),
+               plain_ms=timer(lambda: paged_decode_ref(q, k_pool, v_pool,
+                                                       table, off, **kw)),
+               library_ms=timer(lambda: sdpa(q4, kg, vg, attn_mask=mask)),
+               bound_ms=b_ms, bound_by=b_by)
+    return err, res
+
+
+def lora_case(dev, seq, din, dout, dtype, gen, timer=None, controls=False,
+              ns=4, rp=16, pool=5):
+    """The gathered delta against its plain version, row by row: ``ns``
+    rows through four distinct pool slots (0, the identity, among them),
+    factors N(0, 0.02).  The control: the plain version with idx shifted
+    by one row."""
+    x = torch.randn(ns, seq, din, device=dev, generator=gen).to(dtype)
+    a = (0.02 * torch.randn(pool, din, rp, device=dev, generator=gen)) \
+        .to(dtype)
+    b = (0.02 * torch.randn(pool, rp, dout, device=dev, generator=gen)) \
+        .to(dtype)
+    a[0], b[0] = 0, 0
+    sc = torch.tensor([0.0, 1.0, 2.0, 0.5, 1.0], device=dev).to(dtype)
+    idx = torch.tensor([0, 1, 2, 3][:ns], dtype=torch.int32, device=dev)
+    out = lora_delta(x, a, b, sc, idx)
+    torch.cuda.synchronize()
+    want = lora_delta_ref(x, a, b, sc, idx)
+    label = f"lora_delta[{ns}x{seq} {din}->{dout} rank {rp} {dtype}]"
+    err, rel = check_rows(label, [("delta", out, want)], dtype)
+    if out[0].any():
+        raise AssertionError(f"{label}: the identity slot's rows are not 0")
+    log(f"[kernels] {label}: worst row {rel:.2e} of its norm")
+    if controls:
+        wrong = lora_delta_ref(x, a, b, sc, idx.roll(1))
+        expect_rejected(f"{label} idx shifted by one row", lambda: check_rows(
+            label, [("delta", out, wrong)], dtype))
+    if timer is None:
+        return err, None
+    es = x.element_size()
+    distinct = len(set(idx.tolist()))
+    b_ms, b_by = bound(es * (ns * seq * din + distinct * (din * rp + rp * dout
+                                                           + 1)
+                             + ns * seq * dout) + 4 * ns,
+                       2 * ns * seq * rp * (din + dout) + ns * seq * dout,
+                       dtype)
+    # the library yardstick: two bmm over stacks gathered beforehand (the
+    # scale folded into B, not timed)
+    i = idx.long()
+    ag, bg = a[i], b[i] * sc[i][:, None, None]
+    res = dict(ms=timer(lambda: lora_delta(x, a, b, sc, idx)),
+               plain_ms=timer(lambda: lora_delta_ref(x, a, b, sc, idx)),
+               library_ms=timer(lambda: torch.bmm(torch.bmm(x, ag), bg)),
+               bound_ms=b_ms, bound_by=b_by)
+    return err, res
+
+
 def fmt(res):
     lib = res["library_ms"]
     lib = "—" if lib is None else f"{lib:.4f} ms"
@@ -628,6 +780,38 @@ def phase_kernels(dev):
     adam_case(dev, 1001, torch.float16, True, True, 0.0, gen, offset=1)
     log("[kernels] adam fp32 n=4099 Adam (L2) and fp16 n=1001 misaligned: "
         "bitwise equal")
+    # quantized paged decode: the int8 engine's 32-token pages at the
+    # serving run's table (max_seq_len 1024) and Llama-2 70B's GQA heads
+    for name in ("int8", "fp8"):
+        kname = "paged_decode_" + name
+        errs[kname] = 0.0
+        for label, kw in (
+                ("7b-serve", dict(b=4, h=32, h_kv=32, d=128, psz=32,
+                                  n_pages=32, offsets=(100, 300, 500, 620))),
+                ("70b-gqa", dict(b=4, h=64, h_kv=8, d=128, psz=32,
+                                 n_pages=128, offsets=(3000, 1, 256, 77)))):
+            err, res = quant_paged_case(dev, name, gen=gen, timer=timer,
+                                        controls=label == "7b-serve", **kw)
+            errs[kname] = max(errs[kname], err)
+            log(f"[kernels] {kname} {label}: max abs err {err:.3e}; "
+                f"{fmt(res)}")
+            timed[(kname, label)] = res
+    # LoRA delta: a decode step (4 rows x 1) and a prefill chunk (4 x 32)
+    # through the three projection geometries of Llama-2 7B, rank pool 16
+    errs["lora_delta"] = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for seq in (1, 32):
+            for din, dout in ((4096, 4096), (4096, 11008), (11008, 4096)):
+                time_it = dtype == torch.bfloat16
+                err, res = lora_case(
+                    dev, seq, din, dout, dtype, gen,
+                    timer=timer if time_it else None,
+                    controls=time_it and seq == 1 and dout == 11008)
+                errs["lora_delta"] = max(errs["lora_delta"], err)
+                if res is not None:
+                    log(f"[kernels] lora_delta 4x{seq} {din}->{dout} rank 16 "
+                        f"{dtype}: max abs err {err:.3e}; {fmt(res)}")
+                    timed[("lora_delta", seq, din, dout)] = res
     return errs, {"rms_norm": timed[("rms_norm", 4, torch.bfloat16)],
                   "paged_decode": timed[("paged_decode", "7b-serve",
                                          torch.bfloat16)],
@@ -635,7 +819,11 @@ def phase_kernels(dev):
                   "rope": timed[("rope", "train")],
                   **{k: timed[(k, "7b-train")] for k in (
                       "flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")},
-                  "adam": timed[("adam", "train")]}
+                  "adam": timed[("adam", "train")],
+                  "paged_decode_int8": timed[("paged_decode_int8",
+                                              "7b-serve")],
+                  "paged_decode_fp8": timed[("paged_decode_fp8", "7b-serve")],
+                  "lora_delta": timed[("lora_delta", 1, 4096, 11008)]}
 
 
 def device_rows(prof):
@@ -695,7 +883,7 @@ def profile_decode(model, dev, vocab):
         log(f"[profile]   {ms:9.3f} ms  {count:6d}x  {key[:90]}")
 
 
-def phase_serve(dev):
+def build_7b(dev):
     cfg = llama_config("llama2-7b")
     t0 = time.monotonic()
     model = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16, seed=0)
@@ -703,37 +891,59 @@ def phase_serve(dev):
     log(f"[serve] Llama-2 7B ({model.num_params() / 1e9:.2f} B params, "
         f"bf16, random weights, seed 0) built in "
         f"{time.monotonic() - t0:.1f} s")
-    prompts, sampling = serve_requests(cfg.vocab_size)
-    scfg = ServingConfig(num_slots=4, max_seq_len=1024,
-                         cache_dtype="bfloat16")
+    return model
+
+
+def serve_run(model, dev, scfg, prompts, sampling, adapter_ids=None,
+              max_new=32):
+    """One Engine run over the requests, from launch counts at 0: returns
+    (outputs, stats, launch counts, wall s, peak GB); every request must
+    give ``max_new`` in-vocab tokens."""
+    vocab = model.config.vocab_size
+    adapter_ids = adapter_ids or [None] * len(prompts)
     eng = Engine(model, scfg)
     torch.cuda.reset_peak_memory_stats(dev)
     kernels.reset_launch_counts()
     t0 = time.monotonic()
     with eng:
-        futs = [eng.submit(p, max_new_tokens=32, sampling=s)
-                for p, s in zip(prompts, sampling)]
+        futs = [eng.submit(p, max_new_tokens=max_new, sampling=s,
+                           adapter_id=a)
+                for p, s, a in zip(prompts, sampling, adapter_ids)]
         outs = [f.result(timeout=900) for f in futs]
     wall = time.monotonic() - t0
     counts = kernels.launch_counts()
     st = eng.stats()
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     for o in outs:
-        if o.output_ids.size != 32 or o.finish_reason != "length":
+        if o.output_ids.size != max_new or o.finish_reason != "length":
             raise AssertionError(f"request {o.request_id}: {o.output_ids.size}"
                                  f" tokens, finish {o.finish_reason}")
-        if not ((o.output_ids >= 0) & (o.output_ids < cfg.vocab_size)).all():
+        if not ((o.output_ids >= 0) & (o.output_ids < vocab)).all():
             raise AssertionError(f"request {o.request_id}: token outside "
                                  "the vocab")
+    return outs, st, counts, wall, peak_gb
+
+
+def check_launches(counts, need):
+    for name, n in need.items():
+        if counts[name] < n or counts[name] == 0:
+            raise AssertionError(f"{name}: {counts[name]} launches, expected"
+                                 f" >= {n}")
+
+
+def phase_serve(dev, model):
+    cfg = model.config
+    prompts, sampling = serve_requests(cfg.vocab_size)
+    scfg = ServingConfig(num_slots=4, max_seq_len=1024,
+                         cache_dtype="bfloat16")
+    outs, st, counts, wall, peak_gb = serve_run(model, dev, scfg, prompts,
+                                                sampling)
     decode_steps = st["decode_steps"]
     prefill_calls = st["prefill_calls"]
     calls = decode_steps + prefill_calls
     need = {"paged_decode": cfg.num_layers * decode_steps,
             "rms_norm": (2 * cfg.num_layers + 1) * calls}
-    for name, n in need.items():
-        if counts[name] < n or counts[name] == 0:
-            raise AssertionError(f"{name}: {counts[name]} launches, expected"
-                                 f" >= {n}")
+    check_launches(counts, need)
     if st.get("prefix_cache_hits", 0) < 1:
         raise AssertionError("the shared 64-token prefix was not reused")
     log(f"[serve] 8 requests ({sum(p.size for p in prompts)} prompt tokens,"
@@ -743,12 +953,117 @@ def phase_serve(dev):
         f"steps, prefill chunk {st['prefill_chunk_ms_p50']:.2f} ms p50 over "
         f"{prefill_calls} calls, {st['tokens_generated'] / wall:.1f} "
         f"tokens/s wall ({st['tokens_per_sec']:.1f} engine), prefix hits "
-        f"{st['prefix_cache_hits']}, peak memory {peak_gb:.2f} GB")
+        f"{st['prefix_cache_hits']}, peak memory {peak_gb:.2f} GB, KV pages "
+        f"peak {st['kv_pages_peak']} of 16 tokens")
     log(f"[serve] launches {counts} (needed >= {need})")
     profile_decode(model, dev, cfg.vocab_size)
-    del eng, model
-    torch.cuda.empty_cache()
-    return counts
+    return counts, st
+
+
+def adapter_spec(model, seed, rank, targets, alpha=None, std=0.02):
+    """An in-memory adapter_spec over ``model``'s target projections: A
+    and B N(0, std) from a numpy seed (B nonzero, so the adapter acts)."""
+    rng = np.random.default_rng(seed)
+    spec = {}
+    for name, mod in model.named_modules():
+        if name.rsplit(".", 1)[-1] in targets:
+            din, dout = mod.weight.shape
+            spec[name] = {
+                "A": std * rng.standard_normal((din, rank), np.float32),
+                "B": std * rng.standard_normal((rank, dout), np.float32),
+                "rank": rank, "alpha": float(alpha or rank)}
+    return spec
+
+
+def serve_adapters(model):
+    """The three adapters of the serve-lora-int8 phase, from seed 7."""
+    return {"a": adapter_spec(model, 7, 16, LORA_TARGETS),
+            "b": adapter_spec(model, 8, 8, ("q_proj", "v_proj")),
+            "c": adapter_spec(model, 9, 16, ("gate_proj", "up_proj",
+                                             "down_proj"), alpha=32.0)}
+
+
+def phase_serve_lora(dev, model, float_st=None):
+    """int8 KV pools and a LoRA adapter pool on the serve phase's model
+    and traffic; then the same traffic without the pool; then the pages
+    in use at equal load for bf16, int8 and fp8 pools, fp8 serving."""
+    cfg = model.config
+    prompts, sampling = serve_requests(cfg.vocab_size)
+    ids = [None, None, "a", "b", "c", "a", "b", "c"]
+    t0 = time.monotonic()
+    specs = serve_adapters(model)
+    log(f"[serve-lora-int8] adapters a (rank 16, all 7 projections), b "
+        f"(rank 8, q/v), c (rank 16, alpha 32, MLP), N(0, 0.02) from seeds "
+        f"7-9, made in {time.monotonic() - t0:.1f} s")
+    scfg = ServingConfig(num_slots=4, max_seq_len=1024, cache_dtype="int8",
+                         max_adapters=4, adapter_rank_pool=16,
+                         adapters=specs)
+    outs, st, counts, wall, peak_gb = serve_run(model, dev, scfg, prompts,
+                                                sampling, ids)
+    n_proj = len(LORA_TARGETS) * cfg.num_layers
+    calls = st["decode_steps"] + st["prefill_calls"]
+    need = {"paged_decode_int8": cfg.num_layers * st["decode_steps"],
+            "lora_delta": n_proj * calls}
+    check_launches(counts, need)
+    if counts["paged_decode"] != 0:
+        raise AssertionError(f"the int8 engine launched the float kernel "
+                             f"{counts['paged_decode']} times")
+    if st.get("prefix_cache_hits", 0) < 1:
+        raise AssertionError("the shared 64-token prefix was not reused "
+                             "inside adapter a's scope")
+    if st["adapters_loaded"] != 3:
+        raise AssertionError(f"adapters_loaded {st['adapters_loaded']}, "
+                             "expected 3")
+    float_pages = float_st["kv_pages_peak"] if float_st else "not measured"
+    log(f"[serve-lora-int8] 8 requests (2 base, 6 under 3 adapters) in "
+        f"{wall:.2f} s: decode {st['decode_ms_p50']:.2f} ms/step p50 "
+        f"({st['decode_ms_avg']:.2f} avg) over {st['decode_steps']} steps, "
+        f"TTFT p50 {st['ttft_ms_p50']:.1f} ms, prefill chunk "
+        f"{st['prefill_chunk_ms_p50']:.2f} ms p50 over {st['prefill_calls']} "
+        f"calls, {st['tokens_generated'] / wall:.1f} tokens/s wall, peak "
+        f"memory {peak_gb:.2f} GB, KV pages peak {st['kv_pages_peak']} of 32 "
+        f"tokens (the bf16 serve phase: {float_pages} of 16), prefix hits "
+        f"{st['prefix_cache_hits']}, adapters loaded {st['adapters_loaded']} "
+        f"in {st['adapter_load_ms_avg']:.1f} ms avg, routed "
+        f"{st['requests_routed_adapter_by_adapter']}")
+    log(f"[serve-lora-int8] launches {counts} (needed >= {need})")
+    lora_counts = counts
+    # the pool's cost: the same traffic, int8 pools, no adapter pool
+    _, st0, _, wall0, _ = serve_run(model, dev, ServingConfig(
+        num_slots=4, max_seq_len=1024, cache_dtype="int8"), prompts, sampling)
+    log(f"[serve-lora-int8] without the adapter pool: decode "
+        f"{st0['decode_ms_p50']:.2f} ms/step p50 ({st0['decode_ms_avg']:.2f} "
+        f"avg), TTFT p50 {st0['ttft_ms_p50']:.1f} ms, "
+        f"{st0['tokens_generated'] / wall0:.1f} tokens/s wall: the pool adds "
+        f"{st['decode_ms_p50'] - st0['decode_ms_p50']:.2f} ms a decode step "
+        f"({n_proj} delta calls of 2 kernels)")
+    # equal load: 4 greedy requests of 240 prompt + 16 new tokens, in
+    # step with each other (one length), filling whole 32-token pages, no
+    # prefix cache; then the fp8 run's launches
+    rng = np.random.default_rng(5)
+    short = [rng.integers(0, cfg.vocab_size, (240,)).astype(np.int32)
+             for _ in range(4)]
+    greedy = [SamplingParams()] * len(short)
+    peaks = {}
+    for dtype in ("bfloat16", "int8", "fp8"):
+        _, st_d, counts_d, _, _ = serve_run(model, dev, ServingConfig(
+            num_slots=4, max_seq_len=1024, cache_dtype=dtype,
+            enable_prefix_cache=False), short, greedy, max_new=16)
+        peaks[dtype] = st_d["kv_pages_peak"]
+        if dtype == "fp8":
+            fp8_counts = counts_d
+            check_launches(counts_d, {"paged_decode_fp8": cfg.num_layers
+                                      * st_d["decode_steps"]})
+            log(f"[serve-lora-int8] fp8 engine, 4 requests x 16 tokens: "
+                f"decode {st_d['decode_ms_p50']:.2f} ms/step p50, "
+                f"paged_decode_fp8 launches {counts_d['paged_decode_fp8']} "
+                f"over {st_d['decode_steps']} steps")
+    if not peaks["int8"] * 2 == peaks["fp8"] * 2 == peaks["bfloat16"]:
+        raise AssertionError(f"pages in use at equal load {peaks}: the "
+                             "quantized pools should hold half")
+    log(f"[serve-lora-int8] KV pages peak at equal load (4 x 256 tokens): "
+        f"{peaks}")
+    return lora_counts, fp8_counts
 
 
 def phase_parity(dev):
@@ -778,6 +1093,39 @@ def phase_parity(dev):
     log(f"[parity] 2-layer 7B-width fp32: greedy outputs identical on the "
         f"CPU and the card for 3 prompts ({time.monotonic() - t0:.1f} s): "
         f"{[o.tolist() for o in outs['card']]}")
+    # quantized pools under an adapter pool: a base and an adapter request
+    # on one prompt, on each device
+    t0 = time.monotonic()
+    spec = adapter_spec(cpu_model, 7, 16, LORA_TARGETS, std=0.05)
+    for name in ("int8", "fp8"):
+        scfg = ServingConfig(num_slots=4, cache_dtype=name, max_adapters=2,
+                             adapter_rank_pool=16, adapters={"a": spec})
+        outs = {}
+        before = kernels.launch_counts()
+        for label, model in (("cpu", cpu_model), ("card", card_model)):
+            with Engine(model, scfg) as eng:
+                futs = [eng.submit(prompts[1], max_new_tokens=8,
+                                   adapter_id=aid) for aid in (None, "a")]
+                outs[label] = [f.result(timeout=600).output_ids
+                               for f in futs]
+        after = kernels.launch_counts()
+        for a, b in zip(outs["cpu"], outs["card"]):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"{name} + adapter: greedy outputs "
+                                     f"differ: cpu {a.tolist()} card "
+                                     f"{b.tolist()}")
+        if np.array_equal(*outs["card"]):
+            raise AssertionError(f"{name}: the adapter request decoded the "
+                                 "base request's tokens")
+        skipped = [k for k in ("paged_decode_" + name, "lora_delta")
+                   if after[k] == before[k]]
+        if skipped:
+            raise AssertionError(f"the card run skipped {skipped}")
+        log(f"[parity] {name} pools + adapter pool: greedy outputs identical"
+            f" on the CPU and the card, base {outs['card'][0].tolist()}, "
+            f"adapter {outs['card'][1].tolist()}")
+    log(f"[parity] quantized + adapter runs took "
+        f"{time.monotonic() - t0:.1f} s")
 
 
 def train_batch(vocab, seq, seed=0):
@@ -966,27 +1314,45 @@ def main(argv=None):
     phases = args.phases.split(",")
     name, card = phase_device()
     dev = torch.device("cuda", 0)
+
+    def run(label, fn, *a):
+        t0 = time.monotonic()
+        out = fn(*a)
+        log(f"[time] {label}: {time.monotonic() - t0:.1f} s")
+        return out
     if "build" in phases:
-        phase_build()
+        run("build", phase_build)
     errs, timed = {}, {}
     if "kernels" in phases:
-        errs, timed = phase_kernels(dev)
-    counts = None
-    if "serve" in phases:
-        counts = phase_serve(dev)
+        errs, timed = run("kernels", phase_kernels, dev)
+    counts = lora_counts = fp8_counts = None
+    if "serve" in phases or "serve-lora-int8" in phases:
+        model = build_7b(dev)
+        float_st = None
+        if "serve" in phases:
+            counts, float_st = run("serve", phase_serve, dev, model)
+        if "serve-lora-int8" in phases:
+            lora_counts, fp8_counts = run("serve-lora-int8", phase_serve_lora,
+                                          dev, model, float_st)
+        del model
+        torch.cuda.empty_cache()
     if "parity" in phases:
-        phase_parity(dev)
+        run("parity", phase_parity, dev)
     train_counts = None
     if "train" in phases:
-        train_counts = phase_train(dev)
+        train_counts = run("train", phase_train, dev)
     if "train-parity" in phases:
-        phase_train_parity(dev)
-    if timed and counts is not None and train_counts is not None:
+        run("train-parity", phase_train_parity, dev)
+    if timed and None not in (counts, lora_counts, train_counts):
         # launches: the serving run's for its two kernels, the training
-        # run's for the six of the training path
+        # run's for the six of the training path, the int8 + LoRA run's
+        # and the fp8 run's for the quantized decode and the delta
         launches = dict(counts)
         launches.update({k: train_counts[k] for k in TRAIN_KERNELS
                          if k != "rms_norm"})
+        launches.update(paged_decode_int8=lora_counts["paged_decode_int8"],
+                        lora_delta=lora_counts["lora_delta"],
+                        paged_decode_fp8=fp8_counts["paged_decode_fp8"])
         summary = [dict(name=k, route="cuda",
                         source="paddle_tpu_torch/" + KERNEL_META[k][0],
                         replaces=KERNEL_META[k][1], launches=launches[k],

@@ -6,16 +6,24 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
+#include <cuda_fp8.h>
+
+#include <cstdint>
 
 namespace ptt {
 
-enum DType : int { kF32 = 0, kBF16 = 1, kF16 = 2 };
+// kI8 and kF8E4M3 are storage types of quantized KV pools only
+enum DType : int { kF32 = 0, kBF16 = 1, kF16 = 2, kI8 = 3, kF8E4M3 = 4 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 __device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
+__device__ __forceinline__ float to_f32(int8_t x) { return static_cast<float>(x); }
+__device__ __forceinline__ float to_f32(__nv_fp8_e4m3 x) {
+  return static_cast<float>(x);
+}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);

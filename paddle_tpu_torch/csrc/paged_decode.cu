@@ -1,16 +1,18 @@
 // Paged decode attention: one new query token per row against a paged KV
-// cache, with GQA.
+// cache, with GQA, over float pools or quantized (int8 / fp8 e4m3) pools
+// with one float32 scale per cached token row.
 //
 // Replaces: paddle_tpu/pallas/flash_attention.py paged_decode_attention /
-// _paged_decode_kernel (float pools; the int8/fp8 variant is not ported
-// yet).
+// _paged_decode_kernel, both variants (``quant`` False and True).
 //
 // Bound on the H100 (3.35 TB/s): bytes.  Each row reads the K and V of its
 // live tokens once: 2 * H_kv * D * bytes per token per layer, 16 KB for
-// Llama-2 7B in bf16.  Four rows of 512 cached tokens are 32 MB, ~9.8 us a
-// layer.  The arithmetic is 4 * H * D flops per cached token, ~1 flop per
-// byte without GQA and n_rep flops per byte with it: far below the ~295
-// flops per byte where the tensor cores would bind.
+// Llama-2 7B in bf16 and 8 KB (+ 8 bytes of scales) in int8 or fp8.  Four
+// rows of 512 cached tokens are 32 MB in bf16, ~9.8 us a layer, and half
+// that quantized.  The arithmetic is 4 * H * D flops per cached token
+// (plus the dequantizing multiply), ~1 flop per byte without GQA and
+// n_rep flops per byte with it: far below the ~295 flops per byte where
+// the tensor cores would bind.
 //
 // Design: one block per (kv head, batch row), serving the row's n_rep
 // query heads, so every K/V byte is read from device memory once whatever
@@ -19,16 +21,19 @@
 // the live pages j <= offsets[b] / page_size, and inside the last page
 // only the positions <= offsets[b]: nothing past the offset is read, which
 // is the causal mask.  Each page is staged in shared memory in tiles of
-// up to 16 tokens as fp32 [tile, D] K and V; scores use one warp per
-// (query head, token) with a shuffle reduction; the online softmax keeps
-// its running max m, sum l and the accumulator acc[n_rep, D] in fp32 in
-// shared memory.  The output is acc / max(l, 1e-30), as the TPU kernel's
-// finalize, cast to q's type.  A row whose page table is all 0 (a free
-// slot riding the static batch at offset 0) reads position 0 of scratch
-// page 0 and returns finite values.  No tensor cores, no TMA: at decode
-// the kernel is bound by bytes, and making it reach that bound is later
-// work.
+// up to 16 tokens as fp32 [tile, D] K and V; a quantized pool's values are
+// converted to fp32 and multiplied by their row's fp32 scale as they are
+// staged (the Pallas body's ``kf * ks``, before the dot).  Scores use one
+// warp per (query head, token) with a shuffle reduction; the online
+// softmax keeps its running max m, sum l and the accumulator acc[n_rep, D]
+// in fp32 in shared memory.  The output is acc / max(l, 1e-30), as the TPU
+// kernel's finalize, rounded once to q's type.  A row whose page table is
+// all 0 (a free slot riding the static batch at offset 0) reads position
+// 0 of scratch page 0 and returns finite values.  No tensor cores, no
+// TMA, one element a thread per load: at decode the kernel is bound by
+// bytes, and making it reach that bound is later work.
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -37,10 +42,17 @@ namespace {
 constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 128;
 
+template <typename TKV>
+constexpr bool kQuantized =
+    std::is_same<TKV, int8_t>::value || std::is_same<TKV, __nv_fp8_e4m3>::value;
+
+// k_scale, v_scale: float32 [P, page_size] for a quantized pool, else null.
 template <typename TQ, typename TKV>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pool,
                     const TKV* __restrict__ v_pool,
+                    const float* __restrict__ k_scale,
+                    const float* __restrict__ v_scale,
                     const int* __restrict__ page_table,
                     const int* __restrict__ offsets, TQ* __restrict__ out,
                     int n_pages, int page_size, int h_kv, int n_rep, int d,
@@ -83,10 +95,15 @@ paged_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pool,
       const int n_tok = min(tile, page_live - t0);
       for (int i = tid; i < n_tok * d; i += blockDim.x) {
         const int t = i / d, dd = i - t * d;
-        const size_t g =
-            ((page * page_size + t0 + t) * h_kv + kvh) * static_cast<size_t>(d) + dd;
-        k_s[i] = ptt::to_f32(k_pool[g]);
-        v_s[i] = ptt::to_f32(v_pool[g]);
+        const size_t row = page * page_size + t0 + t;
+        const size_t g = (row * h_kv + kvh) * static_cast<size_t>(d) + dd;
+        if constexpr (kQuantized<TKV>) {
+          k_s[i] = ptt::to_f32(k_pool[g]) * k_scale[row];
+          v_s[i] = ptt::to_f32(v_pool[g]) * v_scale[row];
+        } else {
+          k_s[i] = ptt::to_f32(k_pool[g]);
+          v_s[i] = ptt::to_f32(v_pool[g]);
+        }
       }
       __syncthreads();
       for (int p = warp; p < n_rep * n_tok; p += n_warps) {
@@ -131,6 +148,7 @@ paged_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k_pool,
 
 template <typename TQ, typename TKV>
 int launch(const void* q, const void* k_pool, const void* v_pool,
+           const float* k_scale, const float* v_scale,
            const int* page_table, const int* offsets, void* out, int b,
            int h, int h_kv, int d, int page_size, int n_pages, float scale,
            cudaStream_t stream) {
@@ -149,7 +167,7 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
   dim3 grid(h_kv, b);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(k_pool),
-      static_cast<const TKV*>(v_pool), page_table, offsets,
+      static_cast<const TKV*>(v_pool), k_scale, v_scale, page_table, offsets,
       static_cast<TQ*>(out), n_pages, page_size, h_kv, n_rep, d, scale,
       tile);
   return static_cast<int>(cudaGetLastError());
@@ -157,20 +175,30 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
 
 template <typename TQ>
 int launch_kv(int kv_dtype, const void* q, const void* k_pool,
-              const void* v_pool, const int* page_table, const int* offsets,
-              void* out, int b, int h, int h_kv, int d, int page_size,
-              int n_pages, float scale, cudaStream_t stream) {
+              const void* v_pool, const float* ks, const float* vs,
+              const int* pt, const int* off, void* out, int b, int h,
+              int h_kv, int d, int psz, int n_pages, float scale,
+              cudaStream_t s) {
+  // a quantized pool comes with its scales, a float pool without
+  if ((kv_dtype == ptt::kI8 || kv_dtype == ptt::kF8E4M3) != (ks != nullptr) ||
+      (ks == nullptr) != (vs == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   switch (kv_dtype) {
     case ptt::kF32:
-      return launch<TQ, float>(q, k_pool, v_pool, page_table, offsets, out, b, h,
-                               h_kv, d, page_size, n_pages, scale, stream);
+      return launch<TQ, float>(q, k_pool, v_pool, ks, vs, pt, off, out, b, h,
+                               h_kv, d, psz, n_pages, scale, s);
     case ptt::kBF16:
-      return launch<TQ, __nv_bfloat16>(q, k_pool, v_pool, page_table, offsets, out,
-                                       b, h, h_kv, d, page_size, n_pages, scale,
-                                       stream);
+      return launch<TQ, __nv_bfloat16>(q, k_pool, v_pool, ks, vs, pt, off, out,
+                                       b, h, h_kv, d, psz, n_pages, scale, s);
     case ptt::kF16:
-      return launch<TQ, __half>(q, k_pool, v_pool, page_table, offsets, out, b, h,
-                                h_kv, d, page_size, n_pages, scale, stream);
+      return launch<TQ, __half>(q, k_pool, v_pool, ks, vs, pt, off, out, b, h,
+                                h_kv, d, psz, n_pages, scale, s);
+    case ptt::kI8:
+      return launch<TQ, int8_t>(q, k_pool, v_pool, ks, vs, pt, off, out, b, h,
+                                h_kv, d, psz, n_pages, scale, s);
+    case ptt::kF8E4M3:
+      return launch<TQ, __nv_fp8_e4m3>(q, k_pool, v_pool, ks, vs, pt, off, out,
+                                       b, h, h_kv, d, psz, n_pages, scale, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -178,9 +206,11 @@ int launch_kv(int kv_dtype, const void* q, const void* k_pool,
 }  // namespace
 
 // q, out: [b, h, d] of q_dtype; k_pool, v_pool: [P, page_size, h_kv, d] of
-// kv_dtype; page_table: int32 [b, n_pages]; offsets: int32 [b].
+// kv_dtype; k_scale, v_scale: float32 [P, page_size] when kv_dtype is kI8 or
+// kF8E4M3, else null; page_table: int32 [b, n_pages]; offsets: int32 [b].
 extern "C" int ptt_paged_decode(const void* q, const void* k_pool,
-                                const void* v_pool, const void* page_table,
+                                const void* v_pool, const void* k_scale,
+                                const void* v_scale, const void* page_table,
                                 const void* offsets, void* out, int b, int h,
                                 int h_kv, int d, int page_size, int n_pages,
                                 float scale, int q_dtype, int kv_dtype,
@@ -188,18 +218,21 @@ extern "C" int ptt_paged_decode(const void* q, const void* k_pool,
   if (b <= 0 || h_kv <= 0 || h % h_kv != 0 || d <= 0 || page_size <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* ks = static_cast<const float*>(k_scale);
+  const float* vs = static_cast<const float*>(v_scale);
   const int* pt = static_cast<const int*>(page_table);
   const int* off = static_cast<const int*>(offsets);
   switch (q_dtype) {
     case ptt::kF32:
-      return launch_kv<float>(kv_dtype, q, k_pool, v_pool, pt, off, out, b, h, h_kv,
-                              d, page_size, n_pages, scale, s);
+      return launch_kv<float>(kv_dtype, q, k_pool, v_pool, ks, vs, pt, off, out,
+                              b, h, h_kv, d, page_size, n_pages, scale, s);
     case ptt::kBF16:
-      return launch_kv<__nv_bfloat16>(kv_dtype, q, k_pool, v_pool, pt, off, out, b,
-                                      h, h_kv, d, page_size, n_pages, scale, s);
+      return launch_kv<__nv_bfloat16>(kv_dtype, q, k_pool, v_pool, ks, vs, pt,
+                                      off, out, b, h, h_kv, d, page_size,
+                                      n_pages, scale, s);
     case ptt::kF16:
-      return launch_kv<__half>(kv_dtype, q, k_pool, v_pool, pt, off, out, b, h, h_kv,
-                               d, page_size, n_pages, scale, s);
+      return launch_kv<__half>(kv_dtype, q, k_pool, v_pool, ks, vs, pt, off, out,
+                               b, h, h_kv, d, page_size, n_pages, scale, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -8,7 +8,8 @@ package takes its Pallas kernel when it has such a table; per-row ``[B, S]``
 positions (the serving engine's slots) stay plain PyTorch, as they stay
 jnp there.  The prefill chunk's attention is plain PyTorch too; the
 single-token decode read goes through the paged-decode kernel (its plain
-version on the CPU).
+version on the CPU), over float pools or int8/fp8 pools with per-row
+scales.
 """
 from __future__ import annotations
 
@@ -16,8 +17,10 @@ import math
 
 import torch
 
-from ...kernels.paged_decode import paged_decode_attention
+from ...kernels.paged_decode import gather_pages, paged_decode_attention
 from ...kernels.rope import RopeFunction, rope
+from ...quantization import (as_bytes, dequantize_kv, qmax_of,
+                             quantize_kv_rows)
 
 NEG_INF = -1e30
 
@@ -124,7 +127,8 @@ def _cache_attend(qa, ck, cv, off, scale):
 
 
 def paged_masked_multihead_attention(q, k, v, k_pool, v_pool, page_table,
-                                     offset, page_size, scale=None):
+                                     offset, page_size, scale=None,
+                                     k_scale=None, v_scale=None):
     """Decode or chunked-prefill attention against a paged KV cache.
 
     q/k/v: [B, S, H, D] new tokens; k_pool/v_pool: [P, page_size, Hkv, D]
@@ -135,10 +139,19 @@ def paged_masked_multihead_attention(q, k, v, k_pool, v_pool, page_table,
     With ``S == 1`` the read is the paged-decode kernel; a prefill chunk
     gathers each row's ``[N * page_size]`` view and runs `_cache_attend`.
 
-    Unlike the JAX op, the pools are updated IN PLACE (an indexed store,
-    no copy of the pool per call) and returned as the same tensors.
+    Quantized storage: with ``k_scale``/``v_scale`` ([P, page_size]
+    float32) the pools hold int8 or float8 values.  Each new token's
+    ``[Hkv, D]`` row is quantized with its own scale (`quantize_kv_rows`)
+    and stored with it through the page table; a prefill chunk gathers,
+    dequantizes to fp32 and runs the same `_cache_attend`.  Returns
+    ``(out, k_pool, v_pool, k_scale, v_scale)`` in this mode.
+
+    Unlike the JAX op, the pools (and scales) are updated IN PLACE (an
+    indexed store, no copy of the pool per call) and returned as the same
+    tensors.
     """
     psz = int(page_size)
+    quant = k_scale is not None
     b, s_new, _, d = q.shape
     n_pages = page_table.shape[1]
     s_cap = n_pages * psz
@@ -153,31 +166,51 @@ def paged_masked_multihead_attention(q, k, v, k_pool, v_pool, page_table,
     pos = off[:, None] + torch.arange(s_new, device=q.device)[None, :]
     page_ids = page_table.long().gather(1, pos // psz)        # [B, S]
     in_page = pos % psz
-    k_pool[page_ids, in_page] = k.to(k_pool.dtype)
-    v_pool[page_ids, in_page] = v.to(v_pool.dtype)
+    if quant:
+        qmax = qmax_of(k_pool.dtype)
+        qk, sk = quantize_kv_rows(k, qmax, k_pool.dtype)
+        qv, sv = quantize_kv_rows(v, qmax, v_pool.dtype)
+        as_bytes(k_pool)[page_ids, in_page] = as_bytes(qk)
+        as_bytes(v_pool)[page_ids, in_page] = as_bytes(qv)
+        k_scale[page_ids, in_page] = sk
+        v_scale[page_ids, in_page] = sv
+    else:
+        k_pool[page_ids, in_page] = k.to(k_pool.dtype)
+        v_pool[page_ids, in_page] = v.to(v_pool.dtype)
     if s_new == 1:
         out = paged_decode_attention(
             q[:, 0].contiguous(), k_pool, v_pool,
             page_table.to(torch.int32).contiguous(),
-            offset.to(torch.int32).contiguous(), scale=scale)[:, None]
+            offset.to(torch.int32).contiguous(), scale=scale,
+            k_scale=k_scale, v_scale=v_scale)[:, None]
     else:
         h_kv = k_pool.shape[2]
         pt = page_table.long()
-        kf = k_pool[pt].reshape(b, s_cap, h_kv, d)
-        vf = v_pool[pt].reshape(b, s_cap, h_kv, d)
-        out = _cache_attend(q, kf, vf, off, scale)
+        kf, vf = gather_pages(k_pool, pt), gather_pages(v_pool, pt)
+        if quant:
+            kf = dequantize_kv(kf, k_scale[pt])
+            vf = dequantize_kv(vf, v_scale[pt])
+        out = _cache_attend(q, kf.reshape(b, s_cap, h_kv, d),
+                            vf.reshape(b, s_cap, h_kv, d), off, scale)
+    if quant:
+        return out, k_pool, v_pool, k_scale, v_scale
     return out, k_pool, v_pool
 
 
 def paged_cache_attention(q, k, v, cache, scale=None):
-    """Attention against one `PagedKVCache` layer dict; float pools only
-    (int8/fp8 KV is not ported yet)."""
+    """Attention against one `PagedKVCache` layer dict: the plain or the
+    quantized (int8/fp8, per-row scales) paged op, with the pools and
+    scales written back into the dict (the same tensors, updated in
+    place)."""
     if cache.get("k_scale") is not None:
-        raise NotImplementedError(
-            "quantized (int8/fp8) KV pools are not ported yet (ROADMAP "
-            "Queue A: int8/fp8 KV)")
-    out, kp, vp = paged_masked_multihead_attention(
-        q, k, v, cache["k_pool"], cache["v_pool"], cache["page_table"],
-        cache["offset"], cache["page_size"], scale=scale)
+        out, kp, vp, ks, vs = paged_masked_multihead_attention(
+            q, k, v, cache["k_pool"], cache["v_pool"], cache["page_table"],
+            cache["offset"], cache["page_size"], scale=scale,
+            k_scale=cache["k_scale"], v_scale=cache["v_scale"])
+        cache["k_scale"], cache["v_scale"] = ks, vs
+    else:
+        out, kp, vp = paged_masked_multihead_attention(
+            q, k, v, cache["k_pool"], cache["v_pool"], cache["page_table"],
+            cache["offset"], cache["page_size"], scale=scale)
     cache["k_pool"], cache["v_pool"] = kp, vp
     return out

@@ -32,7 +32,7 @@ def check_cuda(name, *tensors):
 
 
 def _wrappers():
-    from . import adam, flash_attention, paged_decode, rms_norm, rope
+    from . import adam, flash_attention, lora, paged_decode, rms_norm, rope
     return {"rms_norm": rms_norm.rms_norm,
             "paged_decode": paged_decode.paged_decode_attention,
             "rms_norm_bwd": rms_norm.rms_norm_bwd,
@@ -40,7 +40,12 @@ def _wrappers():
             "flash_fwd": flash_attention.flash_attention_fwd,
             "flash_bwd_dkv": flash_attention.flash_bwd_dkv,
             "flash_bwd_dq": flash_attention.flash_bwd_dq,
-            "adam": adam.adam_update}
+            "adam": adam.adam_update,
+            # the quantized pools' launches of the paged-decode kernel
+            "paged_decode_int8": paged_decode.QUANT_LAUNCHES[torch.int8],
+            "paged_decode_fp8":
+                paged_decode.QUANT_LAUNCHES[torch.float8_e4m3fn],
+            "lora_delta": lora.lora_delta}
 
 
 def launch_counts() -> dict:

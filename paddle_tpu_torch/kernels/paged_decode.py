@@ -1,35 +1,58 @@
 """Paged decode attention: the CUDA kernel ``csrc/paged_decode.cu`` and its
 plain version (port of paddle_tpu/pallas/flash_attention.py
-``paged_decode_attention``, float pools).
+``paged_decode_attention``, float and quantized pools).
 
 One new query token per row attends the row's cached positions
 ``0..offsets[b]`` through its page table.  GQA is native: query head
-``i`` reads kv head ``i // (H / H_kv)``.
+``i`` reads kv head ``i // (H / H_kv)``.  An int8 or float8 (e4m3) pool
+comes with ``k_scale``/``v_scale``, float32 ``[P, page_size]``: one scale
+per cached token row, multiplied in fp32 before the dot.
+
+Each storage type keeps its own launch count: `paged_decode_attention`'s
+``launches`` counts float pools, ``QUANT_LAUNCHES[torch.int8]`` and
+``QUANT_LAUNCHES[torch.float8_e4m3fn]`` the quantized ones.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from types import SimpleNamespace
 
 import torch
 
 from . import _build, check_cuda, dtype_code
+from ..quantization import as_bytes, dequantize_kv
 
 MAX_HEAD_DIM = 256
 MAX_PAGE_SIZE = 64
+#: kernel dtype codes of the quantized storage types (csrc/common.cuh)
+QUANT_CODES = {torch.int8: 3, torch.float8_e4m3fn: 4}
+#: launch counts of the quantized variants, by storage type
+QUANT_LAUNCHES = {dt: SimpleNamespace(launches=0) for dt in QUANT_CODES}
 
 
-def paged_decode_ref(q, k_pool, v_pool, page_table, offsets, scale=None):
-    """Plain PyTorch version: gather ``pool[page_table]`` and take the
-    masked softmax in fp32 (the reference of tests/test_paged_kv.py)."""
+def gather_pages(pool, pt):
+    """``pool[pt]``, through a uint8 view for a float8 pool."""
+    return as_bytes(pool)[pt].view(pool.dtype)
+
+
+def paged_decode_ref(q, k_pool, v_pool, page_table, offsets, scale=None,
+                     k_scale=None, v_scale=None):
+    """Plain PyTorch version: gather ``pool[page_table]`` (dequantized by
+    the gathered scales for a quantized pool, the JAX gather path's
+    ``dequantize_kv(kp[pt], ks[pt])``) and take the masked softmax in fp32
+    (the reference of tests/test_paged_kv.py)."""
     b, h, d = q.shape
     psz, h_kv = k_pool.shape[1], k_pool.shape[2]
     n = page_table.shape[1]
     rep = h // h_kv
     sc = scale if scale is not None else 1.0 / math.sqrt(d)
     pt = page_table.long()
-    kf = k_pool[pt].reshape(b, n * psz, h_kv, d).float()
-    vf = v_pool[pt].reshape(b, n * psz, h_kv, d).float()
+    kf, vf = gather_pages(k_pool, pt), gather_pages(v_pool, pt)
+    if k_scale is not None:
+        kf, vf = dequantize_kv(kf, k_scale[pt]), dequantize_kv(vf, v_scale[pt])
+    kf = kf.reshape(b, n * psz, h_kv, d).float()
+    vf = vf.reshape(b, n * psz, h_kv, d).float()
     qg = q.float().reshape(b, h_kv, rep, d)
     s = torch.einsum("bhrd,bkhd->bhrk", qg, kf) * sc
     k_pos = torch.arange(n * psz, device=q.device)
@@ -41,18 +64,25 @@ def paged_decode_ref(q, k_pool, v_pool, page_table, offsets, scale=None):
 
 
 def paged_decode_attention(q, k_pool, v_pool, page_table, offsets,
-                           scale=None):
+                           scale=None, k_scale=None, v_scale=None):
     """q: [B, H, D]; k_pool/v_pool: [P, page_size, H_kv, D]; page_table:
-    int32 [B, N]; offsets: int32 [B] → [B, H, D] like q.  CPU tensors
-    take `paged_decode_ref`; CUDA tensors launch the kernel."""
+    int32 [B, N]; offsets: int32 [B] → [B, H, D] like q.  An int8 or
+    float8 pool needs ``k_scale``/``v_scale`` (float32 [P, page_size]), a
+    float pool takes none.  CPU tensors take `paged_decode_ref`; CUDA
+    tensors launch the kernel."""
     if q.device.type == "cpu":
         return paged_decode_ref(q, k_pool, v_pool, page_table, offsets,
-                                scale)
+                                scale, k_scale, v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention: unsupported device "
                          f"{q.device}")
+    quant = k_pool.dtype in QUANT_CODES
+    scales = (k_scale, v_scale) if quant else ()
+    if quant != (k_scale is not None) or (k_scale is None) != (v_scale is None):
+        raise ValueError("paged_decode_attention: an int8/fp8 pool takes "
+                         "k_scale and v_scale, a float pool neither")
     check_cuda("paged_decode_attention", q, k_pool, v_pool, page_table,
-               offsets)
+               offsets, *scales)
     if q.dim() != 3 or k_pool.dim() != 4 or v_pool.shape != k_pool.shape:
         raise ValueError(
             f"paged_decode_attention: q {tuple(q.shape)} must be [B, H, D] "
@@ -75,20 +105,31 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, offsets,
     if v_pool.dtype != k_pool.dtype:
         raise TypeError("paged_decode_attention: k_pool and v_pool dtypes "
                         "differ")
+    if quant and any(t.dtype != torch.float32 or
+                     tuple(t.shape) != tuple(k_pool.shape[:2])
+                     for t in scales):
+        raise ValueError("paged_decode_attention: k_scale and v_scale must "
+                         f"be float32 {tuple(k_pool.shape[:2])}")
     sc = scale if scale is not None else 1.0 / math.sqrt(d)
     out = torch.empty_like(q)
     fn = _build.function("ptt_paged_decode", [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p])
+    kv_code = QUANT_CODES[k_pool.dtype] if quant else dtype_code(k_pool)
+    scale_ptrs = [_build.ptr(t) for t in scales] if quant else [None, None]
     with torch.cuda.device(q.device):
         err = fn(_build.ptr(q), _build.ptr(k_pool), _build.ptr(v_pool),
-                 _build.ptr(page_table), _build.ptr(offsets), _build.ptr(out),
-                 b, h, h_kv, d, psz, page_table.shape[1], float(sc),
-                 dtype_code(q), dtype_code(k_pool), _build.stream(q.device))
+                 *scale_ptrs, _build.ptr(page_table), _build.ptr(offsets),
+                 _build.ptr(out), b, h, h_kv, d, psz, page_table.shape[1],
+                 float(sc), dtype_code(q), kv_code, _build.stream(q.device))
     _build.check(err, "ptt_paged_decode")
-    paged_decode_attention.launches += 1
+    if quant:
+        QUANT_LAUNCHES[k_pool.dtype].launches += 1
+    else:
+        paged_decode_attention.launches += 1
     return out
 
 

@@ -1,12 +1,16 @@
-"""Serving engine of the port: paged KV cache, chunked prefill, prefix
-cache, continuous batching."""
-from .api import (DeadlineExceededError, EngineShutdownError,
-                  QueueFullError, RequestCancelledError, RequestOutput,
-                  SamplingParams, ServingConfig, ServingError)
+"""Serving engine of the port: paged KV cache (float, int8 or fp8 pools),
+chunked prefill, prefix cache, continuous batching, multi-LoRA adapter
+pool."""
+from .adapters import AdapterPool
+from .api import (AdapterConfigError, DeadlineExceededError,
+                  EngineShutdownError, QueueFullError, RequestCancelledError,
+                  RequestOutput, SamplingParams, ServingConfig, ServingError,
+                  UnknownAdapterError)
 from .engine import Engine
 from .paged_kv import PagedKVCache, PrefixTree
 
-__all__ = ["DeadlineExceededError", "Engine", "EngineShutdownError",
-           "PagedKVCache", "PrefixTree", "QueueFullError",
-           "RequestCancelledError", "RequestOutput", "SamplingParams",
-           "ServingConfig", "ServingError"]
+__all__ = ["AdapterConfigError", "AdapterPool", "DeadlineExceededError",
+           "Engine", "EngineShutdownError", "PagedKVCache", "PrefixTree",
+           "QueueFullError", "RequestCancelledError", "RequestOutput",
+           "SamplingParams", "ServingConfig", "ServingError",
+           "UnknownAdapterError"]

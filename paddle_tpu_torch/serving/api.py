@@ -8,8 +8,7 @@ and per-request deadlines evict the slot (`DeadlineExceededError`).
 
 Options of the JAX engine that this port does not carry yet raise
 ``NotImplementedError`` from `ServingConfig.validate` (ROADMAP Queue A):
-quantized KV (``int8``/``fp8``), speculation, LoRA adapters,
-prefill/decode roles and the dense slot layout.
+speculation, prefill/decode roles and the dense slot layout.
 """
 from __future__ import annotations
 
@@ -37,7 +36,21 @@ class EngineShutdownError(ServingError):
 
 class RequestCancelledError(ServingError):
     """The request was cancelled via ``Engine.cancel`` before it
-    finished; its slot and KV pages were released."""
+    finished; its slot, KV pages and adapter pin were released."""
+
+
+class AdapterConfigError(ServingError):
+    """An adapter registration is infeasible for this engine's pool: rank
+    over ``adapter_rank_pool``, factor shapes that do not match the base
+    model's projections, or a projection name the model does not have.
+    Raised from ``Engine(...)`` / ``AdapterPool.register``, naming the
+    layer, never as a shape error mid-decode."""
+
+
+class UnknownAdapterError(ServingError):
+    """A request named an ``adapter_id`` absent from the engine's
+    registry.  Delivered by failing THAT request's future; the scheduler
+    never sees the request."""
 
 
 @dataclass(frozen=True)
@@ -76,7 +89,7 @@ class SamplingParams:
             self.repetition_penalty != 1.0
 
 
-CACHE_DTYPES = ("float32", "bfloat16", "float16")
+CACHE_DTYPES = ("float32", "bfloat16", "float16", "int8", "fp8")
 
 
 @dataclass
@@ -93,8 +106,12 @@ class ServingConfig:
     deadline_policy          "evict": a request past its deadline_s is
                              failed and its slot freed; "ignore": never
                              enforced
-    cache_dtype              KV pool element type: float32, bfloat16 or
-                             float16
+    cache_dtype              KV pool element type: float32, bfloat16,
+                             float16, or int8 / fp8 (e4m3): quantized
+                             pools with one float32 scale per cached token
+                             row; a quantized page packs 2 x page_size
+                             tokens in half the bytes of a bf16 page, so
+                             the pages in use at equal load halve
     idle_wait_s              scheduler sleep when no work is queued
     kv_layout                "paged" (the only layout ported)
     page_size                tokens per KV page
@@ -105,7 +122,19 @@ class ServingConfig:
                              prefix reuse its KV
     prefill_chunk_tokens     prompts prefill this many tokens per
                              scheduler iteration, interleaved with decode
-    draft_model, speculation_k, role, max_adapters
+    max_adapters             concurrent hot LoRA adapters over the base
+                             model; 0 (default) = no adapter pool.  >0
+                             allocates per-projection A/B/scale stacks of
+                             max_adapters + 1 slots (slot 0 is the exact
+                             identity base requests ride) and enables
+                             submit(..., adapter_id=...)
+    adapter_rank_pool        rank every pool slot is padded to; an adapter
+                             of higher rank raises AdapterConfigError
+    adapters                 registry {adapter_id: source}, a save_adapter
+                             artifact directory or an adapter_spec dict,
+                             validated at Engine construction; more via
+                             Engine.register_adapter
+    draft_model, speculation_k, role
                              JAX-engine options not ported yet: anything
                              but their defaults raises
     """
@@ -127,12 +156,10 @@ class ServingConfig:
     speculation_k: int = 0
     role: str = "mixed"
     max_adapters: int = 0
+    adapter_rank_pool: int = 8
+    adapters: dict | None = None
 
     def validate(self):
-        if self.cache_dtype in ("int8", "fp8"):
-            raise NotImplementedError(
-                f"cache_dtype={self.cache_dtype!r}: quantized KV is not "
-                "ported yet (ROADMAP Queue A)")
         if self.cache_dtype not in CACHE_DTYPES:
             raise ValueError(f"cache_dtype must be one of {CACHE_DTYPES}, "
                              f"got {self.cache_dtype!r}")
@@ -143,9 +170,6 @@ class ServingConfig:
         if self.speculation_k != 0 or self.draft_model is not None:
             raise NotImplementedError(
                 "speculative decoding is not ported yet (ROADMAP Queue A)")
-        if self.max_adapters != 0:
-            raise NotImplementedError(
-                "multi-LoRA serving is not ported yet (ROADMAP Queue A)")
         if self.role != "mixed":
             raise NotImplementedError(
                 f"role={self.role!r}: prefill/decode disaggregation is not "
@@ -169,6 +193,16 @@ class ServingConfig:
             raise ValueError(
                 "deadline_policy must be 'evict' or 'ignore', got "
                 f"{self.deadline_policy!r}")
+        if self.max_adapters < 0:
+            raise ValueError(f"max_adapters must be >= 0, got "
+                             f"{self.max_adapters}")
+        if self.adapter_rank_pool < 1:
+            raise ValueError(f"adapter_rank_pool must be >= 1, got "
+                             f"{self.adapter_rank_pool}")
+        if self.adapters and self.max_adapters == 0:
+            raise ValueError(
+                "ServingConfig.adapters given but max_adapters == 0: set "
+                "max_adapters to the concurrent-adapter budget")
         return self
 
 

@@ -13,13 +13,21 @@ A background scheduler thread, in each iteration:
    every active request is greedy and per-row sampling otherwise;
 4. completes futures on EOS, max-tokens, slot capacity or deadline.
 
+``cache_dtype="int8"`` or ``"fp8"`` stores K/V quantized with per-row
+scales; a quantized page packs ``2 x page_size`` tokens.  With
+``max_adapters > 0`` an `AdapterPool` serves LoRA adapters over the base
+model: ``submit(..., adapter_id=...)`` pins the adapter's pool slot for
+the request's lifetime, every model call adds each row's gathered delta,
+and prefix-tree entries are scoped by adapter id.
+
 The JAX engine's compiled scheduler tick, fused sampling call,
-speculation, LoRA, migration/drain, stall watchdog, scheduler restarts and
+speculation, migration/drain, stall watchdog, scheduler restarts and
 tracing are not ported yet (ROADMAP Queue A).  A crash of the scheduler
 fails every outstanding future with the error and stops the engine.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import threading
 import time
@@ -30,9 +38,12 @@ import numpy as np
 import torch
 
 from ..models.generation import sample_next_token
-from .api import (DeadlineExceededError, EngineShutdownError,
-                  QueueFullError, RequestCancelledError, RequestOutput,
-                  SamplingParams, ServingConfig)
+from ..quantization import kv_quant_params
+from .adapters import AdapterPool
+from .api import (AdapterConfigError, DeadlineExceededError,
+                  EngineShutdownError, QueueFullError, RequestCancelledError,
+                  RequestOutput, SamplingParams, ServingConfig,
+                  UnknownAdapterError)
 from .paged_kv import PagedKVCache, PrefixTree
 from .stats import ServingStats
 
@@ -42,7 +53,7 @@ class _Request:
                  "eos_token_id", "deadline", "future", "submit_t",
                  "ttft_ms", "tokens", "seen", "last_token", "slot",
                  "prefill_pos", "shared_len", "prefix_nodes", "first_tok",
-                 "generator")
+                 "generator", "adapter_id", "adapter_slot")
 
     def __init__(self, rid, prompt, max_new_tokens, sampling,
                  eos_token_id, deadline, generator):
@@ -64,6 +75,8 @@ class _Request:
         self.prefix_nodes = []      # tree nodes this request references
         self.first_tok = None       # sampled first token, not yet appended
         self.generator = generator  # this request's sampling stream
+        self.adapter_id = None      # LoRA adapter this request decodes
+        self.adapter_slot = 0       # its pool slot (0 = base identity)
 
 
 class Engine:
@@ -80,7 +93,10 @@ class Engine:
         self.device = next(model.parameters()).device
         self.max_len = self.scfg.max_seq_len or self.cfg.max_seq_len
         self._kv_heads = self.cfg.num_kv_heads
-        self._page_size = self.scfg.page_size
+        # a quantized page packs 2x the baseline page's tokens in half its
+        # bytes: the pages in use at equal token load halve
+        quant = kv_quant_params(self.scfg.cache_dtype) is not None
+        self._page_size = self.scfg.page_size * (2 if quant else 1)
         self._stats = ServingStats()
         self._queue: deque[_Request] = deque()
         self._active: dict[int, _Request] = {}
@@ -100,6 +116,17 @@ class Engine:
         self._ids = itertools.count()
         self._cancels: set[int] = set()
         self.cache = None
+        # multi-tenant LoRA: A/B/scale stacks per target projection and
+        # the per-slot adapter index, built (and the registry validated)
+        # here; None without max_adapters, and then every model call is
+        # the plain one
+        self.adapter_pool = None
+        if self.scfg.max_adapters > 0:
+            self.adapter_pool = AdapterPool(
+                model, self.scfg.max_adapters, self.scfg.adapter_rank_pool,
+                self.scfg.num_slots, stats=self._stats)
+            for aid, source in (self.scfg.adapters or {}).items():
+                self.adapter_pool.register(aid, source)
 
     # ---------------- lifecycle ----------------
     def start(self):
@@ -155,10 +182,13 @@ class Engine:
 
     # ---------------- client API ----------------
     def submit(self, prompt_ids, max_new_tokens=None, sampling=None,
-               eos_token_id=None, deadline_s=None):
+               eos_token_id=None, deadline_s=None, adapter_id=None):
         """Enqueue one request; returns a ``Future[RequestOutput]``.
         Raises `QueueFullError` when the bounded queue is full and
-        ``ValueError`` for prompts a slot cannot hold."""
+        ``ValueError`` for prompts a slot cannot hold.  ``adapter_id``
+        decodes under that registered LoRA adapter; an id absent from the
+        registry fails THIS request's future with `UnknownAdapterError`
+        (the scheduler never sees it)."""
         prompt = np.asarray(prompt_ids).astype(np.int32).reshape(-1)
         if prompt.size == 0:
             raise ValueError("empty prompt")
@@ -183,6 +213,18 @@ class Engine:
                 f"request needs {need} KV pages (prompt {prompt.size} + "
                 f"max_new {max_new}) but the pool holds {pool}; raise "
                 "ServingConfig.kv_pool_pages")
+        if adapter_id is not None:
+            known = self.adapter_pool.known_ids() \
+                if self.adapter_pool is not None else []
+            if str(adapter_id) not in known:
+                msg = (f"adapter_id {adapter_id!r} is not in this "
+                       f"engine's registry (registered: {known})")
+                if self.adapter_pool is None:
+                    msg += ("; the engine has no adapter pool: set "
+                            "ServingConfig.max_adapters > 0")
+                fut = Future()
+                fut.set_exception(UnknownAdapterError(msg))
+                return fut
         gen = None
         if not sampling.greedy:
             gen = torch.Generator(device=self.device)
@@ -194,6 +236,8 @@ class Engine:
             if deadline_s is not None else None
         req = _Request(next(self._ids), prompt, max_new, sampling,
                        eos_token_id, deadline, gen)
+        if adapter_id is not None:
+            req.adapter_id = str(adapter_id)
         with self._work:
             if not self._running:
                 raise EngineShutdownError(
@@ -213,11 +257,12 @@ class Engine:
         return req.future
 
     def generate(self, prompt_ids, max_new_tokens=None, sampling=None,
-                 eos_token_id=None, deadline_s=None, timeout=None):
+                 eos_token_id=None, deadline_s=None, timeout=None,
+                 adapter_id=None):
         """Sync client: submit + wait.  Returns a `RequestOutput`."""
         fut = self.submit(prompt_ids, max_new_tokens=max_new_tokens,
                           sampling=sampling, eos_token_id=eos_token_id,
-                          deadline_s=deadline_s)
+                          deadline_s=deadline_s, adapter_id=adapter_id)
         return fut.result(timeout or self.scfg.request_timeout_s)
 
     def cancel(self, request_id):
@@ -264,6 +309,32 @@ class Engine:
     def stats(self):
         """A snapshot of the engine's counters (`ServingStats.snapshot`)."""
         return self._stats.snapshot()
+
+    # ---------------- multi-tenant LoRA ----------------
+    def register_adapter(self, adapter_id, source):
+        """Validate and register an adapter on a live engine.  ``source``
+        is a ``save_adapter`` artifact directory or an ``adapter_spec``
+        dict.  Raises `AdapterConfigError` for infeasible adapters."""
+        if self.adapter_pool is None:
+            raise AdapterConfigError(
+                "engine has no adapter pool: construct it with "
+                "ServingConfig(max_adapters=...) > 0")
+        with self._lock:
+            return self.adapter_pool.register(adapter_id, source)
+
+    def loaded_adapters(self):
+        """Adapter ids currently hot in pool slots."""
+        if self.adapter_pool is None:
+            return []
+        with self._lock:
+            return self.adapter_pool.loaded_ids()
+
+    def _lora_ctx(self, idx=None):
+        """Activation scope for model calls: hooked projections add the
+        gathered low-rank delta.  A no-op without an adapter pool."""
+        if self.adapter_pool is None:
+            return contextlib.nullcontext()
+        return self.adapter_pool.activate(idx)
 
     # ---------------- scheduler ----------------
     def _loop(self):
@@ -334,9 +405,20 @@ class Engine:
         Returns the slot, or None (the request stays queued)."""
         psz = self._page_size
         total = min(req.prompt.size + req.max_new_tokens, self.max_len)
+        if req.adapter_id is not None:
+            # pin (hot-loading first if cold) the adapter's pool slot for
+            # the request's lifetime; None = every slot is pinned by
+            # in-flight requests, and the request stays queued
+            pool_slot = self.adapter_pool.acquire(req.adapter_id)
+            if pool_slot is None:
+                return None
+            req.adapter_slot = pool_slot
         nodes, pages = [], []
         if self.prefix_tree is not None:
-            nodes, pages = self.prefix_tree.match(req.prompt)
+            # scoped by adapter id: a prompt prefilled under one adapter
+            # has other K/V than under another or under the base
+            nodes, pages = self.prefix_tree.match(req.prompt,
+                                                  scope=req.adapter_id)
         need = -(-total // psz) - len(pages)
         short = need - self.cache.available_pages
         if short > 0 and self.prefix_tree is not None:
@@ -347,6 +429,8 @@ class Engine:
         if slot is None:
             if nodes:
                 self.prefix_tree.release(nodes)
+            if req.adapter_id is not None:
+                self.adapter_pool.release(req.adapter_id)
             return None
         if self.prefix_tree is not None:
             self._stats.incr("prefix_cache_hits" if pages
@@ -363,6 +447,14 @@ class Engine:
         req.slot = slot
         req.prefill_pos = req.shared_len
         req.first_tok = None
+        if self.adapter_pool is not None:
+            # the slot's row of the persistent index vector now points at
+            # the request's pool slot (0 for a base request)
+            self.adapter_pool.set_row(slot, req.adapter_slot)
+            if req.adapter_id is not None:
+                self._stats.incr("requests_routed_adapter")
+                self._stats.incr_labeled("requests_routed_adapter",
+                                         "adapter", req.adapter_id)
         self.cache.set_offset(slot, req.shared_len)
         self._prefilling.append(req)
 
@@ -410,7 +502,8 @@ class Engine:
                 self._stats.incr("prefill_steps")
                 if self.prefix_tree is not None:
                     self.prefix_tree.insert(req.prompt, self.cache,
-                                            req.slot, req.prefix_nodes)
+                                            req.slot, req.prefix_nodes,
+                                            scope=req.adapter_id)
         for req in reqs:
             if req.prefill_pos < req.prompt.size or req.first_tok is None:
                 continue
@@ -436,9 +529,17 @@ class Engine:
             cache.ensure_capacity(req.slot, off + new_real - 1)
             starts.append(start)
         t0 = time.monotonic()
+        # the call batches by ROW, not scheduler slot: its adapter index
+        # is row-ordered (surplus rows ride the identity slot 0)
+        idx = None
+        if self.adapter_pool is not None:
+            rows = np.zeros(cache.num_slots, np.int32)
+            rows[:len(reqs)] = [r.adapter_slot for r in reqs]
+            idx = self.adapter_pool.row_tensor(rows)
         views = cache.prefill_view([r.slot for r in reqs], starts)
-        logits = self.model(torch.tensor(tokens, device=self.device),
-                            caches=views)
+        with self._lora_ctx(idx):
+            logits = self.model(torch.tensor(tokens, device=self.device),
+                                caches=views)
         cache.absorb_view(views)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)   # time the device work
@@ -469,8 +570,9 @@ class Engine:
         tok_in = np.zeros((self.cache.num_slots, 1), np.int32)
         for slot, req in self._active.items():
             tok_in[slot, 0] = req.last_token
-        logits = self.model(torch.tensor(tok_in, device=self.device),
-                            caches=self.cache.layer_caches())
+        with self._lora_ctx():
+            logits = self.model(torch.tensor(tok_in, device=self.device),
+                                caches=self.cache.layer_caches())
         self.cache.advance(self._active.keys())
         last = logits[:, -1, :]                      # [num_slots, V]
         toks = None
@@ -564,6 +666,12 @@ class Engine:
         if req.prefix_nodes and self.prefix_tree is not None:
             self.prefix_tree.release(req.prefix_nodes)
             req.prefix_nodes = []
+        if self.adapter_pool is not None:
+            self.adapter_pool.clear_row(req.slot)
+            if req.adapter_id is not None:
+                self.adapter_pool.release(req.adapter_id)
+                req.adapter_id = None   # released exactly once
+                req.adapter_slot = 0
         req.slot = None
 
     def _fail_all(self, exc):

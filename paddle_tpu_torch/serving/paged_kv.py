@@ -1,5 +1,5 @@
 """Paged KV cache + prefix tree for the serving engine (port of
-paddle_tpu/serving/paged_kv.py, float pools only).
+paddle_tpu/serving/paged_kv.py).
 
 - **A fixed page pool per layer** ``[num_pages, page_size, H_kv, D]`` on
   the device, an int32 page table ``[num_slots, pages_per_slot]`` and
@@ -8,9 +8,14 @@ paddle_tpu/serving/paged_kv.py, float pools only).
 - **Scratch page 0** is never allocated.  Free slots, and table entries
   not grown into yet, point at it, so the static batch's dummy writes land
   there and the causal bound keeps every live row blind to it.
+- **Quantized pools** (``dtype`` ``"int8"`` or ``"fp8"``): the pools hold
+  int8 or float8 (e4m3) codes, and each layer carries ``k_scale`` /
+  ``v_scale``, float32 ``[num_pages, page_size]`` initialised to ones: one
+  scale per cached token row (``paddle_tpu_torch.quantization``).
 - **Prefix tree** (`PrefixTree`): a refcounted, page-granular radix tree
   over prompt tokens.  Requests that share a prompt prefix attach its
-  pages to their table instead of recomputing prefill.
+  pages to their table instead of recomputing prefill.  Entries are
+  scoped (by LoRA adapter id): each scope has a private root.
 
 Admission-time reservations make growth safe: `allocate` records how many
 pages the request may still claim, and `available_pages` subtracts them,
@@ -28,6 +33,7 @@ import numpy as np
 import torch
 
 from ..device import to_torch_dtype
+from ..quantization import kv_quant_params
 
 
 class PagedKVCache:
@@ -61,14 +67,30 @@ class PagedKVCache:
         self._shared = {}        # slot -> leading tree-owned page count
         self._reserved = {}      # slot -> pages it may still claim
         self._dirty = True
-        store = to_torch_dtype(dtype)
+        quant = kv_quant_params(dtype)
+        #: "int8"/"fp8" when K/V are stored quantized with per-row scales;
+        #: None for float storage
+        self.quant_dtype = dtype if quant else None
+        store = quant[0] if quant else to_torch_dtype(dtype)
         shape = (total, self.page_size, num_kv_heads, head_dim)
-        self.layers = [
-            {"k_pool": torch.zeros(shape, dtype=store, device=self.device),
-             "v_pool": torch.zeros(shape, dtype=store, device=self.device),
-             "page_table": None, "offset": None,
-             "page_size": self.page_size}
-            for _ in range(num_layers)]
+
+        def pool():
+            # zero bytes through uint8: float8 fills are not in every
+            # build's CUDA kernels
+            return torch.zeros(shape, dtype=torch.uint8,
+                               device=self.device).view(store) \
+                if store.itemsize == 1 else \
+                torch.zeros(shape, dtype=store, device=self.device)
+        self.layers = []
+        for _ in range(num_layers):
+            lay = {"k_pool": pool(), "v_pool": pool(), "page_table": None,
+                   "offset": None, "page_size": self.page_size}
+            if quant:
+                for name in ("k_scale", "v_scale"):
+                    lay[name] = torch.ones(total, self.page_size,
+                                           dtype=torch.float32,
+                                           device=self.device)
+            self.layers.append(lay)
         self._flush()
 
     # ---------------- pool accounting ----------------
@@ -187,16 +209,15 @@ class PagedKVCache:
             off[row] = start
         pt = torch.tensor(table, device=self.device)
         offt = torch.tensor(off, device=self.device)
-        return [{"k_pool": lay["k_pool"], "v_pool": lay["v_pool"],
-                 "page_table": pt, "offset": offt,
-                 "page_size": self.page_size} for lay in self.layers]
+        return [dict(lay, page_table=pt, offset=offt) for lay in self.layers]
 
     def absorb_view(self, views):
-        """Adopt the pools of a `prefill_view` call (the same tensors,
-        written in place)."""
+        """Adopt the pools (and scales) of a `prefill_view` call (the same
+        tensors, written in place)."""
         for lay, view in zip(self.layers, views):
-            lay["k_pool"] = view["k_pool"]
-            lay["v_pool"] = view["v_pool"]
+            for name in ("k_pool", "v_pool", "k_scale", "v_scale"):
+                if name in lay:
+                    lay[name] = view[name]
 
     def _flush(self):
         if not self._dirty:
@@ -231,23 +252,40 @@ class PrefixTree:
     stores its K/V.  Refcounts count the active requests using a page;
     pages at refcount zero stay cached until `evict` reclaims them LRU.
     `match` never returns the whole prompt: the final token is always
-    recomputed, so the engine has last-token logits to sample from."""
+    recomputed, so the engine has last-token logits to sample from.
+
+    Entries are keyed by ``scope`` (the request's LoRA adapter id; None is
+    the base model): the same prompt prefilled under two adapters gives
+    different K/V, so each scope owns a private root and scopes never
+    share pages.  Eviction and accounting walk every scope's root."""
 
     def __init__(self, page_size):
         self.page_size = int(page_size)
         self.root = _PrefixNode(None, None, None)
+        # scope -> root; the base scope is self.root
+        self._roots = {None: self.root}
         self._ticks = itertools.count(1)
+
+    def _scope_root(self, scope):
+        root = self._roots.get(scope)
+        if root is None:
+            root = self._roots[scope] = _PrefixNode(None, None, None)
+        return root
+
+    def _top_nodes(self):
+        return [n for root in self._roots.values()
+                for n in root.children.values()]
 
     def _page_key(self, prompt, i):
         p = self.page_size
         return tuple(np.asarray(prompt[i * p:(i + 1) * p]).tolist())
 
-    def match(self, prompt):
-        """Longest cached page-aligned prefix of `prompt`, capped at
-        ``(len-1)//page_size`` pages.  Takes a reference on every matched
-        node; returns (nodes, page_ids)."""
+    def match(self, prompt, scope=None):
+        """Longest cached page-aligned prefix of `prompt` within ``scope``,
+        capped at ``(len-1)//page_size`` pages.  Takes a reference on every
+        matched node; returns (nodes, page_ids)."""
         limit = (len(prompt) - 1) // self.page_size
-        node, nodes, pages = self.root, [], []
+        node, nodes, pages = self._scope_root(scope), [], []
         for i in range(limit):
             child = node.children.get(self._page_key(prompt, i))
             if child is None:
@@ -259,7 +297,7 @@ class PrefixTree:
             node = child
         return nodes, pages
 
-    def insert(self, prompt, cache, slot, held_nodes):
+    def insert(self, prompt, cache, slot, held_nodes, scope=None):
         """Register the prompt's fully covered pages after its prefill,
         moving the slot's pages to the tree (refcount 1 for the inserting
         request).  Nodes in `held_nodes` (this request's match) are
@@ -268,7 +306,7 @@ class PrefixTree:
         nodes to `held_nodes`; returns how many were inserted."""
         full = len(prompt) // self.page_size
         held = set(id(n) for n in held_nodes)
-        node, inserted = self.root, 0
+        node, inserted = self._scope_root(scope), 0
         for i in range(full):
             key = self._page_key(prompt, i)
             child = node.children.get(key)
@@ -297,7 +335,7 @@ class PrefixTree:
         freed = 0
         while freed < n_pages:
             victim, best = None, None
-            stack = list(self.root.children.values())
+            stack = self._top_nodes()
             while stack:
                 node = stack.pop()
                 if node.children:
@@ -313,7 +351,7 @@ class PrefixTree:
 
     def cached_pages(self):
         """Pages the tree owns (any refcount)."""
-        count, stack = 0, list(self.root.children.values())
+        count, stack = 0, self._top_nodes()
         while stack:
             node = stack.pop()
             count += 1

@@ -4,7 +4,10 @@ paddle_tpu/serving/stats.py, without an exporter).
 Each `Engine` owns one `ServingStats`; the scheduler thread writes while
 clients read `snapshot()`, so every access takes the lock.  The names are
 the JAX engine's: ``ttft_ms``, ``decode_ms``, ``prefill_chunk_ms``,
-``decode_steps``, ``tokens_generated``, ...
+``decode_steps``, ``tokens_generated``, ...  The adapter pool's counters
+(``adapters_loaded``, ``adapter_evictions``, ``requests_routed_adapter``
+and its per-adapter series) read 0 until they move, as the JAX engine
+declares them at start.
 """
 from __future__ import annotations
 
@@ -19,16 +22,25 @@ class ServingStats:
         self._counters = {}
         self._gauges = {}
         self._hists = {}
+        self._labeled = {}
 
     def reset(self):
         with self._lock:
             self._counters.clear()
             self._gauges.clear()
             self._hists.clear()
+            self._labeled.clear()
 
     def incr(self, name, value=1):
         with self._lock:
             self._counters[name] = self._counters.get(name, 0) + value
+
+    def incr_labeled(self, name, label_name, label, value=1):
+        """One series of a labeled counter, ``name{label_name=label}``;
+        the snapshot carries the series as ``name_by_<label_name>``."""
+        with self._lock:
+            series = self._labeled.setdefault(f"{name}_by_{label_name}", {})
+            series[label] = series.get(label, 0) + value
 
     def set_value(self, name, value):
         with self._lock:
@@ -43,10 +55,20 @@ class ServingStats:
         ``_avg``, ``_p50`` and ``_p99`` and the derived quantities:
         ``per_token_ms_avg`` (mean decode-step wall time),
         ``slot_occupancy`` (active slot steps / slot steps) and
-        ``tokens_per_sec`` (generated tokens / prefill + decode wall)."""
+        ``tokens_per_sec`` (generated tokens / prefill + decode wall).
+        Adapter pool: ``adapters_loaded`` (hot-loads into pool slots),
+        ``adapter_evictions`` (LRU evictions of idle adapters),
+        ``adapter_load_ms_avg`` (None before the first load),
+        ``requests_routed_adapter`` (admitted adapter requests) and
+        ``requests_routed_adapter_by_adapter`` ({adapter_id: count})."""
         with self._lock:
-            out = dict(self._counters)
+            out = {"adapters_loaded": 0, "adapter_evictions": 0,
+                   "requests_routed_adapter": 0,
+                   "requests_routed_adapter_by_adapter": {},
+                   "adapter_load_ms_avg": None}
+            out.update(self._counters)
             out.update(self._gauges)
+            out.update({k: dict(v) for k, v in self._labeled.items()})
             hists = {k: list(v) for k, v in self._hists.items()}
         for name, vals in hists.items():
             arr = np.asarray(vals)

@@ -10,13 +10,18 @@ import pytest
 import torch
 
 from paddle_tpu_torch import kernels
+from paddle_tpu_torch import quantization as Q
+from paddle_tpu_torch.incubate.nn import functional as IF
 from paddle_tpu_torch.kernels import adam
 from paddle_tpu_torch.kernels import flash_attention as fa
+from paddle_tpu_torch.kernels import lora as kl
 from paddle_tpu_torch.kernels import paged_decode as pd
 from paddle_tpu_torch.kernels import rms_norm as rn
 from paddle_tpu_torch.kernels import rope as rp
+from paddle_tpu_torch.models import LlamaForCausalLM, llama_config
 from paddle_tpu_torch.nn import RMSNorm
 from paddle_tpu_torch.optimizer import AdamW
+from paddle_tpu_torch.serving import AdapterPool, Engine, ServingConfig
 
 
 def paged_inputs(seed=0, B=3, H=8, Hkv=2, D=16, psz=8, N=4,
@@ -298,3 +303,156 @@ def test_flash_attention_refuses_what_it_does_not_take(card):
     q = torch.zeros(1, 16, 2, 64, device=card, dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="dropout"):
         fa.flash_attention(q, q, q, dropout=0.1)
+
+
+def quant_pools(card, name, P, psz, h_kv, d, seed):
+    """Pools of a quantized storage type holding the codes of N(0, 1)
+    values, with their per-row scales (`quantize_kv_rows`)."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    sd, qmax = Q.KV_QUANT_DTYPES[name]
+    out = []
+    for _ in range(2):
+        x = torch.randn(P, psz, h_kv, d, device=card, generator=g)
+        out.extend(Q.quantize_kv_rows(x, qmax, sd))
+    k_pool, k_scale, v_pool, v_scale = out
+    return k_pool, v_pool, k_scale, v_scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quant_paged_decode_kernel_on_card(card, name, dtype):
+    """int8 and fp8 pools with per-row scales against the plain version
+    (dequantize, gather, fp32 softmax): GQA 4:1, MHA with a page edge and
+    offset 0, MQA at D 128 and a 32-token page; each launch counted under
+    its storage type."""
+    before = kernels.launch_counts()
+    for i, (h, h_kv, d, psz, off) in enumerate([
+            (8, 2, 16, 8, (5, 17, 30)), (4, 4, 16, 8, (0, 8, 31)),
+            (8, 1, 128, 32, (95, 0, 40))]):
+        b, n = 3, 4
+        k_pool, v_pool, k_scale, v_scale = quant_pools(
+            card, name, 1 + b * n, psz, h_kv, d, i)
+        q = torch.randn(b, h, d, device=card).to(dtype)
+        pt = (torch.randperm(b * n, device=card) + 1).reshape(b, n) \
+            .to(torch.int32)
+        offs = torch.tensor(off, dtype=torch.int32, device=card)
+        out = pd.paged_decode_attention(q, k_pool, v_pool, pt, offs,
+                                        k_scale=k_scale, v_scale=v_scale)
+        ref = pd.paged_decode_ref(q, k_pool, v_pool, pt, offs,
+                                  k_scale=k_scale, v_scale=v_scale)
+        assert out.dtype == dtype
+        tol = 2e-5 if dtype == torch.float32 else 2e-2
+        torch.testing.assert_close(out.float(), ref.float(), rtol=tol,
+                                   atol=tol)
+        with pytest.raises(ValueError, match="k_scale"):
+            pd.paged_decode_attention(q, k_pool, v_pool, pt, offs)
+    after = kernels.launch_counts()
+    assert after["paged_decode_" + name] == before["paged_decode_" + name] + 3
+    assert after["paged_decode"] == before["paged_decode"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lora_delta_kernel_on_card(card, dtype):
+    """The gathered delta against its plain version at ragged shapes: S 1,
+    17, 33; ranks 1, 8, 16; an input width past one 512-column chunk and
+    an output width past one 256-column tile; idx with a repeat and 0.
+    Each row within ROW_TOL of its own norm; slot 0 rows exactly 0."""
+    g = torch.Generator(device=card).manual_seed(6)
+    before = kl.lora_delta.launches
+    cases = [(1, 8, 4096, 4096), (17, 1, 600, 300), (33, 16, 1030, 257)]
+    for seq, rank, din, dout in cases:
+        ns, P = 4, 3
+        x = torch.randn(ns, seq, din, device=card, generator=g).to(dtype)
+        a = (0.05 * torch.randn(P, din, rank, device=card, generator=g)
+             ).to(dtype)
+        b = (0.05 * torch.randn(P, rank, dout, device=card, generator=g)
+             ).to(dtype)
+        a[0], b[0] = 0, 0
+        s = torch.tensor([0.0, 2.0, 0.5], device=card).to(dtype)
+        idx = torch.tensor([2, 0, 1, 2], dtype=torch.int32, device=card)
+        out = kl.lora_delta(x, a, b, s, idx)
+        ref = kl.lora_delta_ref(x, a, b, s, idx)
+        assert out.shape == (ns, seq, dout) and out.dtype == dtype
+        live = idx.cpu() != 0
+        assert _row_err(out[live], ref[live]) < ROW_TOL[dtype], \
+            (seq, rank, din, dout)
+        assert not out[1].any()
+    assert kl.lora_delta.launches == before + len(cases)
+
+
+@pytest.mark.cuda
+def test_fp8_pool_store_and_gather_on_card(card):
+    """The fp8 store and the prefill gather (through uint8 views) on the
+    card: the op writes the CPU's codes and scales bit for bit and gives
+    its output within 1e-5; then a tiny fp8 engine serves on the card
+    with the CPU's greedy outputs."""
+    rng = np.random.default_rng(3)
+    B, S, H, Hkv, D, psz, N = 2, 6, 4, 2, 16, 8, 3
+    P = 1 + B * N
+    q, k, v = (rng.normal(size=(B, S, h, D)).astype(np.float32)
+               for h in (H, Hkv, Hkv))
+    table = rng.permutation(np.arange(1, P)).reshape(B, N).astype(np.int32)
+    off = np.array([0, 9], np.int32)
+    res = {}
+    for dev in ("cpu", card):
+        kp, vp, ks, vs = quant_pools("cpu", "fp8", P, psz, Hkv, D, 0)
+        t = [torch.from_numpy(a).to(dev) for a in (q, k, v, table, off)]
+        out = IF.paged_masked_multihead_attention(
+            t[0], t[1], t[2], kp.to(dev), vp.to(dev), t[3], t[4], psz,
+            k_scale=ks.to(dev), v_scale=vs.to(dev))
+        res[str(dev)] = [x.cpu() for x in out]
+    cpu, gpu = res["cpu"], res[str(card)]
+    torch.testing.assert_close(gpu[0], cpu[0], rtol=1e-5, atol=1e-5)
+    for a, b in zip(cpu[1:], gpu[1:]):
+        assert torch.equal(Q.as_bytes(a), Q.as_bytes(b))
+    cfg = llama_config("tiny", max_seq_len=64)
+    prompts = [rng.integers(0, 512, (n,)).astype(np.int32) for n in (5, 21)]
+    outs = {}
+    cpu_model = LlamaForCausalLM(cfg, device="cpu", seed=2)
+    card_model = LlamaForCausalLM(cfg, device=card)
+    card_model.load_state_dict(cpu_model.state_dict())
+    for dev, m in (("cpu", cpu_model), (card, card_model)):
+        with Engine(m, ServingConfig(num_slots=2, cache_dtype="fp8")) as eng:
+            outs[str(dev)] = [eng.generate(p, max_new_tokens=6).output_ids
+                              for p in prompts]
+            assert eng.cache.layers[0]["k_pool"].dtype == torch.float8_e4m3fn
+    for a, b in zip(outs["cpu"], outs[str(card)]):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_adapter_pool_hot_load_stays_on_card(card):
+    """Stacks and index vector live on the card in the weight's dtype;
+    a hot-load writes them in place; an active scope launches the delta
+    kernel once per target projection."""
+    m = LlamaForCausalLM(llama_config("tiny", max_seq_len=64), device=card,
+                         dtype=torch.bfloat16, seed=3)
+    pool = AdapterPool(m, 2, 8, 2)
+    rng = np.random.default_rng(4)
+    spec = {name: {"A": rng.normal(0, 0.1, (mod.weight.shape[0], 4)),
+                   "B": rng.normal(0, 0.1, (4, mod.weight.shape[1])),
+                   "rank": 4, "alpha": 8.0}
+            for name, mod in m.named_modules() if name.endswith("q_proj")}
+    pool.register("a", spec)
+    stk = pool._stacks["llama.layers.0.self_attn.q_proj"]
+    ptrs = (stk.A.data_ptr(), stk.B.data_ptr(), pool.idx.data_ptr())
+    slot = pool.acquire("a")
+    pool.set_row(1, slot)
+    assert (stk.A.data_ptr(), stk.B.data_ptr(), pool.idx.data_ptr()) == ptrs
+    assert stk.A.device.type == "cuda" and stk.A.dtype == torch.bfloat16
+    assert pool.idx.device.type == "cuda" and pool.idx.tolist() == [0, slot]
+    want = torch.from_numpy(spec["llama.layers.0.self_attn.q_proj"]["A"]) \
+        .to(torch.bfloat16)
+    assert torch.equal(stk.A[slot, :, :4].cpu(), want)
+    assert not stk.A[slot, :, 4:].any() and not stk.A[0].any()
+    ids = torch.randint(0, 512, (2, 3), device=card)
+    before = kl.lora_delta.launches
+    with torch.no_grad():
+        base = m(ids)
+        with pool.activate():
+            adapted = m(ids)
+    assert kl.lora_delta.launches == before + 7 * 2   # 7 projections a layer
+    assert torch.equal(adapted[0], base[0])           # row 0: slot 0
+    assert not torch.equal(adapted[1], base[1])

@@ -1,7 +1,8 @@
 """The port's serving engine (paddle_tpu_torch/serving/): greedy outputs
 identical to the JAX engine on the same tiny Llama, plus the scheduler's
 own contract: prefix reuse, seeded sampling, admission, cancellation,
-deadlines, shutdown and the options not ported yet."""
+deadlines, shutdown and the options not ported yet (quantized KV and
+LoRA adapters: tests/test_torch_kv_quant.py, test_torch_lora_serving.py)."""
 import numpy as np
 import pytest
 import torch
@@ -133,9 +134,7 @@ def test_admission_cancel_deadline_shutdown(model):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(cache_dtype="int8"), dict(cache_dtype="fp8"),
-    dict(speculation_k=2), dict(max_adapters=1), dict(role="prefill"),
-    dict(kv_layout="slots")])
+    dict(speculation_k=2), dict(role="prefill"), dict(kv_layout="slots")])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError):
         ServingConfig(**kw).validate()
