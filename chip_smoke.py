@@ -12,7 +12,9 @@ last line:
             the serving and training paths' shapes, with its time, the
             plain version's, one PyTorch library call's where there is
             one and its bound; controls: deliberately wrong results that
-            the checks must reject
+            the checks must reject; the flash kernels' feature variants
+            (dropout 0.1, an additive bias, a key-padding mask with a
+            fully masked row, segment ids) at GPT-2's training shape
 4. serve    Llama-2 7B at full width (32 layers, bf16, random weights
             from a seed) behind the paged Engine: 8 requests, the serving
             kernels' launch counts checked against the steps taken; then
@@ -38,6 +40,19 @@ last line:
 8. train-parity  a 2-layer fp32 model at the 7B widths, the same weights
             and batch, 3 AdamW steps on the CPU (plain versions) and on
             the card (kernels): losses and parameters must agree
+9. train-gpt2  GPT-2 124M, nothing cut (12 layers, hidden 768, vocab
+            50304), attention and residual dropout 0.1, bf16 O2 AdamW, B8
+            x S1024: 2 warm-up and 6 timed steps through the flash
+            kernels' dropout variants, the loss falling; then
+            torch.profiler over one step
+10. gpt2-parity  a 2-layer GPT-2-width fp32 model with attention
+            dropout 0.1: 3 AdamW steps on the CPU and on the card from the
+            same weights and flash seeds must agree
+11. attn-ops  the public attention entry points at GPT-2's shape
+            (scaled_dot_product_attention with a boolean mask and
+            dropout, flash_attention with segment ids, variable-length
+            attention with an additive mask), forward and backward,
+            against their plain versions through the masked variants
 
 The second-to-last line is the kernels' JSON summary, the last line
 ``{"ok": true, "device": {...}}``.  ``--phases`` runs a subset.
@@ -65,7 +80,11 @@ from paddle_tpu_torch.kernels.rms_norm import (rms_norm, rms_norm_bwd,
                                                rms_norm_bwd_ref,
                                                rms_norm_ref)
 from paddle_tpu_torch.kernels.rope import rope, rope_ref
-from paddle_tpu_torch.models import LlamaForCausalLM, llama_config
+from paddle_tpu_torch.incubate.nn.functional import \
+    variable_length_memory_efficient_attention
+from paddle_tpu_torch.models import (GPTForCausalLM, LlamaForCausalLM,
+                                     gpt_config, llama_config)
+from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.quantization import (KV_QUANT_DTYPES, dequantize_kv,
@@ -76,9 +95,14 @@ HBM_BYTES_PER_S = 3.35e12                   # H100 SXM data sheet
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
             torch.float32: 67e12}           # dense; fp32 outside tensor cores
 PHASES = ("device", "build", "kernels", "serve", "serve-lora-int8", "parity",
-          "train", "train-parity")
+          "train", "train-parity", "train-gpt2", "gpt2-parity", "attn-ops")
 TRAIN_KERNELS = ("rms_norm", "rms_norm_bwd", "rope", "flash_fwd",
                  "flash_bwd_dkv", "flash_bwd_dq", "adam")
+FLASH = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+DROPOUT_KERNELS = tuple(k + "_dropout" for k in FLASH)
+MASKED_KERNELS = tuple(k + "_masked" for k in FLASH)
+#: GPT-2 124M's training shape: B 8, 12 heads, S 1024, head dim 64
+GPT2_SHAPE = dict(b=8, h=12, s=1024, d=64)
 #: (source under paddle_tpu_torch/, the TPU kernel it replaces)
 KERNEL_META = {
     "rms_norm": ("csrc/rms_norm.cu", "paddle_tpu/pallas/fused.py:92"),
@@ -98,6 +122,11 @@ KERNEL_META = {
     "paged_decode_fp8": ("csrc/paged_decode.cu",
                          "paddle_tpu/pallas/flash_attention.py:860"),
     "lora_delta": ("csrc/lora_delta.cu", "paddle_tpu/serving/adapters.py:105"),
+    **{k + v: ("csrc/flash_attention_fwd.cu" if k == "flash_fwd" else
+               "csrc/flash_attention_bwd.cu",
+               "paddle_tpu/pallas/flash_attention.py:" + line)
+       for k, line in zip(FLASH, ("364", "578", "608"))
+       for v in ("_dropout", "_masked")},
 }
 #: the target projections of a Llama layer (the adapter pool wraps each)
 LORA_TARGETS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj",
@@ -506,6 +535,198 @@ def flash_case(dev, b, h, h_kv, s, d, causal, dtype, gen, timer=None,
     return errs, timed
 
 
+FEATURE_SEED = 20261016
+DEAD_ROW = 3          # the fully masked q row of the last batch
+
+
+def padding_keep(dev, b, s):
+    """A boolean key-padding mask ``[B, 1, S, S]``: batch i keeps its first
+    S - 64 i keys, and q row `DEAD_ROW` of the last batch keeps none."""
+    keep = torch.ones(b, 1, s, s, dtype=torch.bool, device=dev)
+    for i in range(b):
+        keep[i, :, :, s - 64 * i:] = i == 0
+    keep[b - 1, 0, DEAD_ROW] = False
+    return keep
+
+
+def packed_segments(dev, b, s):
+    """int32 segment ids ``[B, S]``: four packed documents a row, their
+    borders shifted by 16 tokens a row."""
+    pos = torch.arange(s, device=dev)
+    return torch.stack([((pos + 16 * i) * 4 // s).clamp_max(3)
+                        for i in range(b)]).to(torch.int32)
+
+
+def feature_inputs(dev, kind, b, h, s, gen):
+    """The features of a case and the boolean or additive mask that gives
+    SDPA the same function: (kernel features, SDPA's attn_mask or None
+    for ``is_causal``, SDPA's dropout_p, a fully masked (batch, row) or
+    None).  ``dropout``: 0.1.  ``bias``: an additive N(0, 1) bf16
+    ``[B, 1, S, S]``.  ``padding``: `padding_keep`.  ``segments``:
+    `packed_segments`."""
+    causal = torch.ones(s, s, dtype=torch.bool, device=dev).tril()
+    feats = dict(mask=None, segment_ids=None, dropout=0.0,
+                 seed=FEATURE_SEED)
+    lib_mask, lib_p, dead = None, 0.0, None
+    if kind == "dropout":
+        feats["dropout"] = lib_p = 0.1
+    elif kind == "bias":
+        bias = torch.randn(b, 1, s, s, device=dev, generator=gen).bfloat16()
+        feats["mask"] = fa.additive_mask(bias)
+        lib_mask = bias.masked_fill(~causal, float("-inf"))
+    elif kind == "padding":
+        keep = padding_keep(dev, b, s)
+        dead = (b - 1, DEAD_ROW)
+        feats["mask"] = fa.additive_mask(keep)
+        lib_mask = keep & causal
+    elif kind == "segments":
+        seg = packed_segments(dev, b, s)
+        feats["segment_ids"] = seg
+        lib_mask = (seg[:, None, :, None] == seg[:, None, None, :]) & causal
+    return feats, lib_mask, lib_p, dead
+
+
+def feature_case(dev, kind, b, h, s, d, dtype, gen, timer, controls=False):
+    """A feature variant of the three flash kernels at one shape, causal
+    and head-major as GPT calls them: the forward (out, lse) and the dK/dV
+    and dQ kernels against their plain versions with the same features
+    and seed, row by row as `flash_case`; a fully masked row must give
+    out 0 and dq 0.  Controls (``controls``): the plain version at seed +
+    1, the plain version with the hash keyed by the head alone (not
+    b * H + h), and with the mask read one row off must be rejected.
+    Returns ({variant: max abs err}, {variant or "flash_bwd": timings},
+    the plain keep share or None)."""
+    def mk():
+        return torch.randn(b, h, s, d, device=dev, generator=gen).to(dtype)
+    q, k, v, do = mk(), mk(), mk(), mk()
+    feats, lib_mask, lib_p, dead = feature_inputs(dev, kind, b, h, s, gen)
+    variant = "_dropout" if kind == "dropout" else "_masked"
+    name = f"flash {kind}[B{b} H{h} S{s} D{d} causal {dtype}]"
+    out, lse = fa.flash_attention_fwd(q, k, v, True, None, True, **feats)
+    torch.cuda.synchronize()
+    out_ref, lse_ref = fa.flash_attention_ref(q, k, v, True, None, True,
+                                              **feats)
+    errs, rels = {}, {}
+    errs["flash_fwd" + variant], rels["out"] = check_rows(
+        name, [("out", out, out_ref)], dtype)
+    if not torch.allclose(lse, lse_ref, rtol=1e-3, atol=1e-3):
+        raise AssertionError(f"{name}: lse max abs err "
+                             f"{max_err(lse, lse_ref)}")
+    delta = (do.float() * out.float()).sum(-1).contiguous()
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, True, None, True,
+                              **feats)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, True, None, True, **feats)
+    torch.cuda.synchronize()
+    want_k, want_v = fa.flash_bwd_dkv_ref(q, k, v, do, lse, delta, True,
+                                          None, True, **feats)
+    errs["flash_bwd_dkv" + variant], rels["dK/dV"] = check_rows(
+        name, [("dk", dk, want_k), ("dv", dv, want_v)], dtype)
+    want_q = fa.flash_bwd_dq_ref(q, k, v, do, lse, delta, True, None, True,
+                                 **feats)
+    errs["flash_bwd_dq" + variant], rels["dQ"] = check_rows(
+        name, [("dq", dq, want_q)], dtype)
+    del want_k, want_v, want_q
+    if dead is not None:
+        bi, row = dead
+        if out[bi, :, row].any() or dq[bi, :, row].any():
+            raise AssertionError(f"{name}: the fully masked row is not 0")
+    log(f"[kernels] {name}: worst row of its norm " + ", ".join(
+        f"{k_} {v_:.2e}" for k_, v_ in rels.items()))
+    share = None
+    if feats["dropout"]:
+        share = float(fa._keep(FEATURE_SEED, 0.1, b, h, s, dev).float()
+                      .mean())
+        if abs(share - 0.9) > 1e-3:
+            raise AssertionError(f"{name}: keep share {share}")
+    if controls and feats["dropout"]:
+        wrong, _ = fa.flash_attention_ref(
+            q, k, v, True, None, True, **dict(feats, seed=FEATURE_SEED + 1))
+        expect_rejected(f"{name} out against the plain version at seed + 1",
+                        lambda: check_rows(name, [("out", out, wrong)],
+                                           dtype))
+        keep_of = fa._keep
+
+        def head_only(seed, p, b_, h_, s_, device):
+            return keep_of(seed, p, 1, h_, s_, device).expand(b_, h_, s_, s_)
+        fa._keep = head_only
+        try:
+            wrong, _ = fa.flash_attention_ref(q, k, v, True, None, True,
+                                              **feats)
+        finally:
+            fa._keep = keep_of
+        expect_rejected(f"{name} out against the hash keyed by the head "
+                        "alone", lambda: check_rows(
+                            name, [("out", out, wrong)], dtype))
+        del wrong
+    if controls and feats["mask"] is not None:
+        wrong, _ = fa.flash_attention_ref(
+            q, k, v, True, None, True,
+            **dict(feats, mask=feats["mask"].roll(1, dims=2)))
+        expect_rejected(f"{name} out against the mask read one row off",
+                        lambda: check_rows(name, [("out", out, wrong)],
+                                           dtype))
+        del wrong
+    es = q.element_size()
+    el = b * h * s * d * es
+    rows = 4 * b * h * s
+    # one product's flops over the scores this run's data leaves live
+    # (causal, not masked out, within one segment): work on the others
+    # could be skipped, so the bound does not count it
+    live = torch.ones(s, s, dtype=torch.bool, device=dev).tril()
+    if feats["mask"] is not None:
+        live = live & (feats["mask"] > fa.NEG_INF / 2)
+    if feats["segment_ids"] is not None:
+        seg = feats["segment_ids"]
+        live = live & (seg[:, None, :, None] == seg[:, None, None, :])
+    prod = 2 * d * float(live.expand(b, h, s, s).sum())
+    del live
+    feat_b = 0
+    if feats["mask"] is not None:                 # the causal half is read
+        feat_b += feats["mask"].numel() * 4 * 0.5
+    if feats["segment_ids"] is not None:
+        feat_b += b * s * 4
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    timed = {}
+    b_ms, b_by = bound(4 * el + rows + feat_b, 2 * prod, dtype)
+    timed["flash_fwd" + variant] = dict(
+        ms=timer(lambda: fa.flash_attention_fwd(q, k, v, True, None, True,
+                                                **feats)),
+        plain_ms=timer(lambda: fa.flash_attention_ref(q, k, v, True, None,
+                                                      True, **feats)),
+        library_ms=timer(lambda: sdpa(q, k, v, attn_mask=lib_mask,
+                                      dropout_p=lib_p,
+                                      is_causal=lib_mask is None)),
+        bound_ms=b_ms, bound_by=b_by)
+    for kname, fn, ref, n_prod, out_b in (
+            ("flash_bwd_dkv", fa.flash_bwd_dkv, fa.flash_bwd_dkv_ref, 4,
+             2 * el),
+            ("flash_bwd_dq", fa.flash_bwd_dq, fa.flash_bwd_dq_ref, 3, el)):
+        b_ms, b_by = bound(4 * el + 2 * rows + feat_b + out_b,
+                           n_prod * prod, dtype)
+        timed[kname + variant] = dict(
+            ms=timer(lambda fn=fn: fn(q, k, v, do, lse, delta, True, None,
+                                      True, **feats)),
+            plain_ms=timer(lambda ref=ref: ref(q, k, v, do, lse, delta, True,
+                                               None, True, **feats)),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+
+    def lib_fwd_bwd():
+        o = sdpa(qg, kg, vg, attn_mask=lib_mask, dropout_p=lib_p,
+                 is_causal=lib_mask is None)
+        torch.autograd.grad(o, (qg, kg, vg), do)
+    b_ms, b_by = bound(8 * el + rows + feat_b, 5 * prod, dtype)
+    timed["flash_bwd"] = dict(
+        ms=timer(lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, True,
+                                                None, True, **feats)),
+        plain_ms=timer(lambda: fa.flash_attention_bwd_ref(
+            q, k, v, out, lse, do, True, None, True, **feats)),
+        library_ms=timer(lib_fwd_bwd)
+        - timed["flash_fwd" + variant]["library_ms"],
+        bound_ms=b_ms, bound_by=b_by)
+    return errs, timed, share
+
+
 def adam_case(dev, n, p_dtype, master, decoupled, wd, gen, timer=None,
               offset=0):
     """One parameter's update, kernel against plain version on copies of
@@ -768,6 +989,37 @@ def phase_kernels(dev):
             for kname, r in res.items():
                 timed[(kname, label)] = r
         log(msg)
+    # the feature variants at GPT-2's training shape (B8 H12 S1024 D64,
+    # causal, bf16), and the same kernels without features at that shape
+    g2 = GPT2_SHAPE
+    case_errs, res = flash_case(dev, g2["b"], g2["h"], g2["h"], g2["s"],
+                                g2["d"], True, torch.bfloat16, gen, timer)
+    for kname, err in case_errs.items():
+        errs[kname] = max(errs[kname], err)
+    log(f"[kernels] flash gpt2 (no features): fwd {fmt(res['flash_fwd'])}; "
+        f"dK/dV {fmt(res['flash_bwd_dkv'])}; dQ {fmt(res['flash_bwd_dq'])}; "
+        f"whole backward {fmt(res['flash_bwd'])}")
+    errs.update({k: 0.0 for k in DROPOUT_KERNELS + MASKED_KERNELS})
+    for kind in ("dropout", "bias", "padding", "segments"):
+        case_errs, res, share = feature_case(
+            dev, kind, g2["b"], g2["h"], g2["s"], g2["d"], torch.bfloat16,
+            gen, timer, controls=kind in ("dropout", "bias"))
+        for kname, err in case_errs.items():
+            errs[kname] = max(errs[kname], err)
+        if share is not None:
+            log(f"[kernels] plain keep share at dropout 0.1: {share:.6f} "
+                f"(B8 H12 S1024, every score)")
+        v = "_dropout" if kind == "dropout" else "_masked"
+        log(f"[kernels] flash {kind} gpt2: max abs err fwd "
+            f"{case_errs['flash_fwd' + v]:.3e}, dK/dV "
+            f"{case_errs['flash_bwd_dkv' + v]:.3e}, dQ "
+            f"{case_errs['flash_bwd_dq' + v]:.3e}; fwd "
+            f"{fmt(res['flash_fwd' + v])}; dK/dV "
+            f"{fmt(res['flash_bwd_dkv' + v])}; dQ "
+            f"{fmt(res['flash_bwd_dq' + v])}; whole backward "
+            f"{fmt(res['flash_bwd'])}")
+        for kname, r in res.items():
+            timed[(kname, kind)] = r
     # Adam: the 7B-width MLP weight (4096 x 11008) in bf16 with its fp32
     # master under AdamW, as the train phase updates it; an fp32 parameter
     # with a ragged tail under L2-coupled Adam; a misaligned fp16 one
@@ -823,7 +1075,9 @@ def phase_kernels(dev):
                   "paged_decode_int8": timed[("paged_decode_int8",
                                               "7b-serve")],
                   "paged_decode_fp8": timed[("paged_decode_fp8", "7b-serve")],
-                  "lora_delta": timed[("lora_delta", 1, 4096, 11008)]}
+                  "lora_delta": timed[("lora_delta", 1, 4096, 11008)],
+                  **{k: timed[(k, "dropout")] for k in DROPOUT_KERNELS},
+                  **{k: timed[(k, "bias")] for k in MASKED_KERNELS}}
 
 
 def device_rows(prof):
@@ -1165,7 +1419,7 @@ def make_trainer(cfg, dev, dtype, seed, lr=3e-4):
     return model, opt
 
 
-def profile_train_step(model, opt, ids, labels):
+def profile_train_step(model, opt, ids, labels, tag="train-profile"):
     """torch.profiler over one training step: device time by kernel and
     the device's busy share of the step's wall time."""
     from torch.profiler import ProfilerActivity, profile
@@ -1178,7 +1432,7 @@ def profile_train_step(model, opt, ids, labels):
         wall_ms = (time.monotonic() - t0) * 1e3
     rows = device_rows(prof)
     busy_ms = sum(r[1] for r in rows)
-    log(f"[train-profile] one step: wall {wall_ms:.1f} ms, device busy "
+    log(f"[{tag}] one step: wall {wall_ms:.1f} ms, device busy "
         f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%)")
     groups = {}
     for key, ms, _ in rows:
@@ -1190,11 +1444,11 @@ def profile_train_step(model, opt, ids, labels):
                      "nvjet", "gemm", "cutlass", "xmma")) else
                  "elementwise, reductions, copies (torch)")
         groups[group] = groups.get(group, 0.0) + ms
-    log("[train-profile] by group: " + ", ".join(
+    log(f"[{tag}] by group: " + ", ".join(
         f"{g} {ms:.1f} ms" for g, ms in sorted(groups.items(),
                                                key=lambda x: -x[1])))
     for key, ms, count in sorted(rows, key=lambda r: -r[1])[:15]:
-        log(f"[train-profile]   {ms:9.3f} ms  {count:6d}x  {key[:90]}")
+        log(f"[{tag}]   {ms:9.3f} ms  {count:6d}x  {key[:90]}")
 
 
 def phase_train(dev, warmup=2, steps=6):
@@ -1306,6 +1560,202 @@ def phase_train_parity(dev, steps=3):
     torch.cuda.empty_cache()
 
 
+def gpt2_batch(vocab, b, seq, seed=0):
+    """bench.py's batch: B x (S + 1) random ids from a numpy seed, the
+    first S the inputs and the last S the labels."""
+    rng = np.random.default_rng(seed)
+    data = rng.integers(0, vocab, (b, seq + 1)).astype(np.int64)
+    return (torch.from_numpy(data[:, :-1].copy()),
+            torch.from_numpy(data[:, 1:].copy()))
+
+
+def make_gpt_trainer(cfg, dev, dtype, seed, lr, grad_clip=None):
+    model = GPTForCausalLM(cfg, device=dev, dtype=torch.float32, seed=seed)
+    opt = AdamW(learning_rate=lr, parameters=model.parameters(),
+                weight_decay=0.01, grad_clip=grad_clip)
+    if dtype != torch.float32:
+        model, opt = amp.decorate(model, opt, level="O2", dtype=dtype)
+    return model, opt
+
+
+def phase_train_gpt2(dev, warmup=2, steps=6):
+    """GPT-2 124M as bench.py trains it (AdamW(1e-4, weight_decay=0.01),
+    B8 x S1024) with GPT-2's published dropouts (attention, residual and
+    embedding 0.1), bf16 O2; nothing cut."""
+    cfg = gpt_config("gpt2-124m", max_seq_len=1024, attn_dropout=0.1,
+                     dropout=0.1)
+    b, seq = 8, 1024
+    t0 = time.monotonic()
+    model, opt = make_gpt_trainer(cfg, dev, torch.bfloat16, seed=0, lr=1e-4)
+    ids, labels = (t.to(dev) for t in gpt2_batch(cfg.vocab_size, b, seq))
+    n_params = model.num_params()            # every parameter but wpe
+    n_tensors = len(list(model.parameters()))
+    torch.cuda.synchronize()
+    log(f"[train-gpt2] GPT-2 124M ({cfg.num_layers} layers, hidden "
+        f"{cfg.hidden_size}, {cfg.num_heads} heads, vocab {cfg.vocab_size};"
+        f" {model.num_params(non_embedding=False) / 1e6:.2f} M params, "
+        f"{n_params / 1e6:.2f} M without wpe, {n_tensors} tensors), dropout "
+        f"0.1 (attention, residual, embedding), bf16 O2, AdamW(1e-4, wd "
+        f"0.01), B{b} x S{seq}; built in {time.monotonic() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    losses, times, parts = [], [], []
+    for i in range(warmup + steps):
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        t1 = time.monotonic()
+        losses.append(train_step(model, opt, ids, labels, marks))
+        torch.cuda.synchronize()
+        times.append((time.monotonic() - t1) * 1e3)
+        if i >= warmup:
+            parts.append([marks[j].elapsed_time(marks[j + 1])
+                          for j in range(3)])
+    counts = kernels.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    n = warmup + steps
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    need = {k: cfg.num_layers * n for k in DROPOUT_KERNELS}
+    need["adam"] = n_tensors * n                  # one per parameter
+    check_launches(counts, need)
+    plain = {k: counts[k] for k in FLASH + MASKED_KERNELS if counts[k]}
+    if plain:
+        raise AssertionError(f"training launched other flash variants: "
+                             f"{plain}")
+    step_ms = float(np.median(times[warmup:]))
+    tokens = ids.numel()
+    # MFU: 6 N T (N every parameter but wpe: the tied wte does the head's
+    # product) plus causal attention, 6 T S hidden L, over 989 TFLOP/s
+    flops = 6 * n_params * tokens + \
+        6 * tokens * seq * cfg.hidden_size * cfg.num_layers
+    mfu = flops / (step_ms / 1e3) / PEAK_OPS[torch.bfloat16]
+    log(f"[train-gpt2] losses {[round(x, 4) for x in losses]}")
+    log(f"[train-gpt2] step {step_ms:.1f} ms p50 over {steps} timed steps "
+        f"(all: {[round(t, 1) for t in times]}), "
+        f"{tokens / (step_ms / 1e3):.0f} tokens/s, MFU {100 * mfu:.1f}% "
+        f"({flops / 1e12:.2f} TFLOP a step), peak memory {peak_gb:.2f} GB")
+    fwd_ms, bwd_ms, opt_ms = np.median(np.asarray(parts), axis=0)
+    log(f"[train-gpt2] step parts p50 (CUDA events): forward + loss "
+        f"{fwd_ms:.1f} ms, backward {bwd_ms:.1f} ms, AdamW + clear_grad "
+        f"{opt_ms:.1f} ms")
+    log(f"[train-gpt2] launches {counts} (needed >= {need})")
+    profile_train_step(model, opt, ids, labels, "train-gpt2-profile")
+    del model, opt
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_gpt2_parity(dev, steps=3, lr=3e-4):
+    """A 2-layer GPT-2-width fp32 model with attention dropout 0.1 (the
+    residual dropout off: its masks come from torch's device generators,
+    which differ between the CPU and the card), built on the CPU and
+    loaded onto the card, both models' flash generators on one seed: 3
+    AdamW steps (clip 1.0) must agree to train-parity's tolerances."""
+    cfg = gpt_config("gpt2-124m", num_layers=2, max_seq_len=256,
+                     attn_dropout=0.1, dropout=0.0)
+    t0 = time.monotonic()
+    clip = ClipGradByGlobalNorm(1.0)
+    cpu_model, cpu_opt = make_gpt_trainer(cfg, "cpu", torch.float32, 1, lr,
+                                          clip)
+    card_model, card_opt = make_gpt_trainer(cfg, dev, torch.float32, 1, lr,
+                                            clip)
+    card_model.load_state_dict(cpu_model.state_dict())
+    ids, labels = gpt2_batch(cfg.vocab_size, 1, 256, seed=1)
+    cpu_losses = [train_step(cpu_model, cpu_opt, ids, labels)
+                  for _ in range(steps)]
+    before = kernels.launch_counts()
+    card_losses = [train_step(card_model, card_opt, ids.to(dev),
+                              labels.to(dev)) for _ in range(steps)]
+    after = kernels.launch_counts()
+    if not np.allclose(card_losses, cpu_losses, rtol=1e-4, atol=0):
+        raise AssertionError(f"losses differ: cpu {cpu_losses} card "
+                             f"{card_losses}")
+    skipped = [k for k in DROPOUT_KERNELS if after[k] == before[k]]
+    if skipped:
+        raise AssertionError(f"the card run skipped {skipped}")
+    cpu_sd, card_sd = cpu_model.state_dict(), card_model.state_dict()
+    worst = {}
+    for name in ("gpt.wte.weight", "gpt.wpe.weight",
+                 "gpt.h.0.attn.qkv_proj.weight", "gpt.h.0.attn.qkv_proj.bias",
+                 "gpt.h.1.mlp.fc_out.weight", "gpt.h.1.ln_1.weight"):
+        diff = (card_sd[name].cpu() - cpu_sd[name]).abs()
+        off = float((diff > 1e-5).float().mean())
+        worst[name] = (float(diff.max()), off)
+        if off > 1e-4 or float(diff.max()) > 2 * lr * steps:
+            raise AssertionError(f"{name}: max diff {float(diff.max()):.3e},"
+                                 f" share above 1e-5 {off:.2e}")
+    log(f"[gpt2-parity] 2-layer GPT-2-width fp32, attention dropout 0.1, "
+        f"B1 x S256, {steps} AdamW steps: losses cpu {cpu_losses} card "
+        f"{card_losses}; parameters (max diff, share > 1e-5) {worst}; the "
+        f"card's dropout launches "
+        f"{ {k: after[k] - before[k] for k in DROPOUT_KERNELS} } "
+        f"({time.monotonic() - t0:.1f} s)")
+    del card_model, card_opt
+    torch.cuda.empty_cache()
+
+
+def phase_attn_ops(dev):
+    """The public attention entry points at GPT-2's shape ([B, S, H, D],
+    bf16), forward and backward under autograd, each against its plain
+    version (the same features and seed): scaled_dot_product_attention
+    (boolean key-padding mask with a fully masked row, dropout 0.1,
+    causal), flash_attention with four segments a row (causal), and
+    variable-length attention with an additive length mask (not causal).
+    Every call goes through the masked variants."""
+    g2 = GPT2_SHAPE
+    b, h, s, d = g2["b"], g2["h"], g2["s"], g2["d"]
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def mk():
+        return torch.randn(b, s, h, d, device=dev, generator=gen).bfloat16()
+    q, k, v, do = mk(), mk(), mk(), mk()
+    keep = padding_keep(dev, b, s)
+    seg = packed_segments(dev, b, s)
+    pos = torch.arange(s, device=dev)
+    lens = torch.tensor([s - 100 * i for i in range(b)], device=dev)
+    length_mask = torch.where(pos[None, None, None, :] < lens[:, None, None,
+                                                              None],
+                              0.0, fa.NEG_INF).expand(b, 1, s, s)
+    seed = fa.draw_seed(torch.Generator().manual_seed(11))
+    cases = [
+        ("scaled_dot_product_attention", True,
+         dict(mask=fa.additive_mask(keep), dropout=0.1, seed=seed),
+         lambda q_, k_, v_: F.scaled_dot_product_attention(
+             q_, k_, v_, attn_mask=keep, dropout_p=0.1, is_causal=True,
+             generator=torch.Generator().manual_seed(11))),
+        ("flash_attention(segment_ids)", True, dict(segment_ids=seg),
+         lambda q_, k_, v_: fa.flash_attention(q_, k_, v_, causal=True,
+                                               segment_ids=seg)),
+        ("variable_length_memory_efficient_attention", False,
+         dict(mask=length_mask),
+         lambda q_, k_, v_: variable_length_memory_efficient_attention(
+             q_, k_, v_, seq_lens=lens, kv_seq_lens=lens, mask=length_mask)),
+    ]
+    kernels.reset_launch_counts()
+    for label, causal, feats, op in cases:
+        qa, ka, va = (t.clone().requires_grad_(True) for t in (q, k, v))
+        out = op(qa, ka, va)
+        out.backward(do)
+        torch.cuda.synchronize()
+        out_ref, lse_ref = fa.flash_attention_ref(q, k, v, causal, None,
+                                                  False, **feats)
+        grads_ref = fa.flash_attention_bwd_ref(q, k, v, out_ref, lse_ref, do,
+                                               causal, None, False, **feats)
+        err, rel = check_rows(label, [
+            ("out", out, out_ref), ("dq", qa.grad, grads_ref[0]),
+            ("dk", ka.grad, grads_ref[1]), ("dv", va.grad, grads_ref[2])],
+            torch.bfloat16)
+        log(f"[attn-ops] {label}: forward and backward against the plain "
+            f"version, worst row {rel:.2e} of its norm, max abs err "
+            f"{err:.3e}")
+        del qa, ka, va, out, out_ref, grads_ref
+    counts = kernels.launch_counts()
+    check_launches(counts, {k_: len(cases) for k_ in MASKED_KERNELS})
+    log(f"[attn-ops] launches {counts}")
+    return counts
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -1343,7 +1793,15 @@ def main(argv=None):
         train_counts = run("train", phase_train, dev)
     if "train-parity" in phases:
         run("train-parity", phase_train_parity, dev)
-    if timed and None not in (counts, lora_counts, train_counts):
+    gpt2_counts = ops_counts = None
+    if "train-gpt2" in phases:
+        gpt2_counts = run("train-gpt2", phase_train_gpt2, dev)
+    if "gpt2-parity" in phases:
+        run("gpt2-parity", phase_gpt2_parity, dev)
+    if "attn-ops" in phases:
+        ops_counts = run("attn-ops", phase_attn_ops, dev)
+    if timed and None not in (counts, lora_counts, train_counts, gpt2_counts,
+                              ops_counts):
         # launches: the serving run's for its two kernels, the training
         # run's for the six of the training path, the int8 + LoRA run's
         # and the fp8 run's for the quantized decode and the delta
@@ -1353,6 +1811,10 @@ def main(argv=None):
         launches.update(paged_decode_int8=lora_counts["paged_decode_int8"],
                         lora_delta=lora_counts["lora_delta"],
                         paged_decode_fp8=fp8_counts["paged_decode_fp8"])
+        # the dropout variants: GPT-2's training run; the masked ones: the
+        # public attention entry points
+        launches.update({k: gpt2_counts[k] for k in DROPOUT_KERNELS})
+        launches.update({k: ops_counts[k] for k in MASKED_KERNELS})
         summary = [dict(name=k, route="cuda",
                         source="paddle_tpu_torch/" + KERNEL_META[k][0],
                         replaces=KERNEL_META[k][1], launches=launches[k],

@@ -4,14 +4,20 @@
 // op, as the JAX package computes it outside Pallas).
 //
 // Replaces: paddle_tpu/pallas/flash_attention.py _pallas_flash_bwd, its
-// _bwd_dkv_kernel (pallas_call at :578) and _bwd_dq_kernel (:608), no
-// masks, segment ids or dropout.
+// _bwd_dkv_kernel (pallas_call at :578) and _bwd_dq_kernel (:608), with
+// their features: the additive mask, segment ids and attention dropout
+// (`Features`, flash_common.cuh), the same keep-mask as the forward's.
 //
 // Bound on the H100: operations.  dK/dV does four products of 2 S^2 D
 // flops per head (s, dp, dv, dk) and dQ three (s, dp, dq): with the
 // forward's two that is the usual 2.5x the forward, halved by a causal
-// mask; bytes are O(S D), far below.  At the training shape (B 1, H 32,
-// S 4096, D 128, causal, bf16) the least time of both is 0.347 ms.
+// mask; bytes are O(S D), far below.  At the Llama training shape (B 1,
+// H 32, S 4096, D 128, causal, bf16) the least time of both is 0.347 ms;
+// at GPT-2's (B 8, H 12, S 1024, D 64, causal) dK/dV 0.0261 ms and dQ
+// 0.0195 ms.  A [B, 1, S, S] fp32 mask adds 4 bytes a live score (16.8 MB
+// there), which makes bytes bind: dK/dV 0.0278 ms, dQ 0.0240 ms.  The
+// dropout hash (~12 integer operations a live score, on the CUDA cores)
+// stays below the products.
 //
 // Design.  The TPU dK/dV kernel kept one kv block resident and streamed
 // (q head of the GQA group, q block) through its innermost sequential grid
@@ -29,7 +35,12 @@
 // feed the next products straight from registers, rounded to the input's
 // 16-bit type as the tensor cores need.  fp32 inputs take plain FMA kernels
 // with 32x32 tiles.  Any S >= 1: ragged rows and keys are zero-filled and
-// masked.
+// masked.  Features (FEAT = true, its own instantiation), where p is
+// recomputed: the mask and segments through `feature_score` and the
+// fully-masked guard on every live score; dropout by the forward's hash at
+// the same (b * H + q head, q, key): dK/dV feeds the dropped p / (1 - p)
+// to dV and the dropped dp / (1 - p) to dS = p (dp - delta) scale with the
+// undropped p; dQ drops dp alike.
 #include <cmath>
 #include <cstdint>
 
@@ -43,7 +54,7 @@ using namespace ptt::flash;
 constexpr int KB = 64;   // keys per block (16 per warp)
 constexpr int QB = 32;   // q rows per step
 
-template <typename T, int D>
+template <typename T, int D, bool FEAT>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_mma(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, const T* __restrict__ dout,
@@ -51,7 +62,7 @@ flash_bwd_dkv_mma(const T* __restrict__ q, const T* __restrict__ k,
                   const float* __restrict__ delta, T* __restrict__ dk,
                   T* __restrict__ dv, int S, int H, int n_rep, Strides qs,
                   Strides ks, Strides vs, Strides dos, Strides dks,
-                  Strides dvs, float scale, bool causal) {
+                  Strides dvs, float scale, bool causal, Features f) {
   constexpr int LD = D + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* k_s = reinterpret_cast<T*>(smem_raw);           // [KB][LD]
@@ -67,6 +78,8 @@ flash_bwd_dkv_mma(const T* __restrict__ q, const T* __restrict__ k,
   const int k0 = blockIdx.x * KB;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
+  const bool masked = FEAT && f.masked();
+  const bool drop = FEAT && f.dropout > 0.f;
 
   load_tile<T, KB, D>(k_s, k + b * ks.b + kvh * ks.h + k0 * ks.s, ks.s,
                       S - k0, tid);
@@ -115,6 +128,7 @@ flash_bwd_dkv_mma(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
     const int buf = st & 1;
+    const int h = kvh * n_rep + st / per_head;   // this step's q head
     const int q0 = (i0 + st % per_head) * QB;
     const T* qb = q_s + buf * QB * LD;
     const T* dob = do_s + buf * QB * LD;
@@ -153,9 +167,20 @@ flash_bwd_dkv_mma(const T* __restrict__ q, const T* __restrict__ k,
         const int qi = q0 + ql;
         const int key = e < 2 ? key_a : key_b;
         const bool live = qi < S && key < S && (!causal || key <= qi);
-        const float p = live ? expf(st_[nt][e] * scale - lb[ql]) : 0.f;
-        st_[nt][e] = p;
-        dpt[nt][e] = p * (dpt[nt][e] - db[ql]) * scale;
+        float x = st_[nt][e] * scale;
+        if (masked && live) x = feature_score(f, x, b, h, S, qi, key);
+        float p = live ? expf(x - lb[ql]) : 0.f;
+        if (masked) p = guard(p, x);
+        float dp = dpt[nt][e];
+        if (drop) {
+          // dV takes the dropped p; dS the undropped p and dropped dp
+          const bool keep = kept(f, b * H + h, qi, key);
+          st_[nt][e] = survivor(f, keep, p);
+          dp = survivor(f, keep, dp);
+        } else {
+          st_[nt][e] = p;
+        }
+        dpt[nt][e] = p * (dp - db[ql]) * scale;
       }
     }
     // dV += p^T dO and dK += dS^T q, the q rows as the reduction
@@ -209,14 +234,15 @@ flash_bwd_dkv_mma(const T* __restrict__ q, const T* __restrict__ k,
 constexpr int QB2 = 64;   // q rows per block (16 per warp)
 constexpr int KB2 = 64;   // keys per K/V tile
 
-template <typename T, int D>
+template <typename T, int D, bool FEAT>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_mma(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const T* __restrict__ dout,
                  const float* __restrict__ lse,
                  const float* __restrict__ delta, T* __restrict__ dq, int S,
                  int H, int n_rep, Strides qs, Strides ks, Strides vs,
-                 Strides dos, Strides dqs, float scale, bool causal) {
+                 Strides dos, Strides dqs, float scale, bool causal,
+                 Features f) {
   constexpr int LD = D + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* q_s = reinterpret_cast<T*>(smem_raw);   // [QB2][LD]
@@ -230,6 +256,8 @@ flash_bwd_dq_mma(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = qt * QB2;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
+  const bool masked = FEAT && f.masked();
+  const bool drop = FEAT && f.dropout > 0.f;
   const T* kg = k + b * ks.b + kvh * ks.h;
   const T* vg = v + b * vs.b + kvh * vs.h;
 
@@ -302,9 +330,13 @@ flash_bwd_dq_mma(const T* __restrict__ q, const T* __restrict__ k,
         const int col = k0 + nt * 8 + 2 * t4 + (e & 1);
         const int row = e < 2 ? row_a : row_b;
         const bool live = col < S && row < S && (!causal || col <= row);
-        const float p =
-            live ? expf(s[nt][e] * scale - (e < 2 ? lse_a : lse_b)) : 0.f;
-        dp[nt][e] = p * (dp[nt][e] - (e < 2 ? dl_a : dl_b)) * scale;
+        float x = s[nt][e] * scale;
+        if (masked && live) x = feature_score(f, x, b, h, S, row, col);
+        float p = live ? expf(x - (e < 2 ? lse_a : lse_b)) : 0.f;
+        if (masked) p = guard(p, x);
+        float dpv = dp[nt][e];
+        if (drop) dpv = dropped(f, bh, row, col, dpv);
+        dp[nt][e] = p * (dpv - (e < 2 ? dl_a : dl_b)) * scale;
       }
     }
     // dQ += dS k, the keys as the reduction
@@ -363,7 +395,7 @@ __device__ __forceinline__ void load_rows_f32(float* dst, const float* src,
   }
 }
 
-template <int D>
+template <int D, bool FEAT>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v,
@@ -372,7 +404,8 @@ flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ delta, float* __restrict__ dk,
                   float* __restrict__ dv, int S, int H, int n_rep,
                   Strides qs, Strides ks, Strides vs, Strides dos,
-                  Strides dks, Strides dvs, float scale, bool causal) {
+                  Strides dks, Strides dvs, float scale, bool causal,
+                  Features f) {
   constexpr int LD = D + 1;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* k_s = reinterpret_cast<float*>(smem_raw);   // [F][LD]
@@ -389,6 +422,8 @@ flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int k0 = blockIdx.x * F;
   const int tid = threadIdx.x, r = tid >> 2, c = tid & 3;
   const int key = k0 + r;
+  const bool masked = FEAT && f.masked();
+  const bool drop = FEAT && f.dropout > 0.f;
   load_rows_f32(k_s, k + b * ks.b + kvh * ks.h, ks.s, k0, S, D, LD, tid);
   load_rows_f32(v_s, v + b * vs.b + kvh * vs.h, vs.s, k0, S, D, LD, tid);
 
@@ -418,9 +453,18 @@ flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
         const float s = dot_row(k_s + r * LD, q_s + ql * LD, D);
         const float dp = dot_row(v_s + r * LD, do_s + ql * LD, D);
         const bool live = qi < S && key < S && (!causal || key <= qi);
-        const float p = live ? expf(s * scale - lse_s[ql]) : 0.f;
-        p_s[r * (F + 1) + ql] = p;
-        ds_s[r * (F + 1) + ql] = p * (dp - dl_s[ql]) * scale;
+        float x = s * scale;
+        if (masked && live) x = feature_score(f, x, b, h, S, qi, key);
+        float p = live ? expf(x - lse_s[ql]) : 0.f;
+        if (masked) p = guard(p, x);
+        float pv = p, dpv = dp;
+        if (drop) {
+          const bool keep = kept(f, b * H + h, qi, key);
+          pv = survivor(f, keep, p);
+          dpv = survivor(f, keep, dp);
+        }
+        p_s[r * (F + 1) + ql] = pv;
+        ds_s[r * (F + 1) + ql] = p * (dpv - dl_s[ql]) * scale;
       }
       __syncwarp();
 #pragma unroll
@@ -448,14 +492,15 @@ flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int D>
+template <int D, bool FEAT>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ dout,
                  const float* __restrict__ lse,
                  const float* __restrict__ delta, float* __restrict__ dq,
                  int S, int H, int n_rep, Strides qs, Strides ks, Strides vs,
-                 Strides dos, Strides dqs, float scale, bool causal) {
+                 Strides dos, Strides dqs, float scale, bool causal,
+                 Features f) {
   constexpr int LD = D + 1;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* q_s = reinterpret_cast<float*>(smem_raw);   // [F][LD]
@@ -470,6 +515,8 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int q0 = qt * F;
   const int tid = threadIdx.x, r = tid >> 2, c = tid & 3;
   const int row = q0 + r;
+  const bool masked = FEAT && f.masked();
+  const bool drop = FEAT && f.dropout > 0.f;
   load_rows_f32(q_s, q + b * qs.b + h * qs.h, qs.s, q0, S, D, LD, tid);
   load_rows_f32(do_s, dout + b * dos.b + h * dos.h, dos.s, q0, S, D, LD,
                 tid);
@@ -496,8 +543,12 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
       const float s = dot_row(q_s + r * LD, k_s + kl * LD, D);
       const float dp = dot_row(do_s + r * LD, v_s + kl * LD, D);
       const bool live = col < S && row < S && (!causal || col <= row);
-      const float p = live ? expf(s * scale - lse_r) : 0.f;
-      ds_s[r * (F + 1) + kl] = p * (dp - dl_r) * scale;
+      float x = s * scale;
+      if (masked && live) x = feature_score(f, x, b, h, S, row, col);
+      float p = live ? expf(x - lse_r) : 0.f;
+      if (masked) p = guard(p, x);
+      const float dpv = drop ? dropped(f, bh, row, col, dp) : dp;
+      ds_s[r * (F + 1) + kl] = p * (dpv - dl_r) * scale;
     }
     __syncwarp();
 #pragma unroll
@@ -525,15 +576,16 @@ struct Args {
   Strides qs, ks, vs, dos, dqs, dks, dvs;
   float scale;
   bool causal;
+  Features f;
   cudaStream_t stream;
 };
 
-template <typename T, int D>
+template <typename T, int D, bool FEAT>
 int launch_dkv_mma(const Args& a) {
   constexpr int LD = D + 8;
   const size_t smem = sizeof(T) * static_cast<size_t>(2 * KB + 4 * QB) * LD +
                       sizeof(float) * 4 * QB;
-  auto kernel = flash_bwd_dkv_mma<T, D>;
+  auto kernel = flash_bwd_dkv_mma<T, D, FEAT>;
   static const cudaError_t e = allow_smem(kernel, smem);  // once
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid((a.s + KB - 1) / KB, a.b * a.h_kv);
@@ -542,16 +594,16 @@ int launch_dkv_mma(const Args& a) {
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
       a.delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.s, a.h,
       a.h / a.h_kv, a.qs, a.ks, a.vs, a.dos, a.dks, a.dvs, a.scale,
-      a.causal);
+      a.causal, a.f);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
+template <typename T, int D, bool FEAT>
 int launch_dq_mma(const Args& a) {
   constexpr int LD = D + 8;
   const size_t smem =
       sizeof(T) * static_cast<size_t>(2 * QB2 + 4 * KB2) * LD;
-  auto kernel = flash_bwd_dq_mma<T, D>;
+  auto kernel = flash_bwd_dq_mma<T, D, FEAT>;
   static const cudaError_t e = allow_smem(kernel, smem);  // once
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid((a.s + QB2 - 1) / QB2, a.b * a.h);
@@ -559,16 +611,16 @@ int launch_dq_mma(const Args& a) {
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
       a.delta, static_cast<T*>(a.dq), a.s, a.h, a.h / a.h_kv, a.qs, a.ks,
-      a.vs, a.dos, a.dqs, a.scale, a.causal);
+      a.vs, a.dos, a.dqs, a.scale, a.causal, a.f);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int D, bool FEAT>
 int launch_dkv_f32(const Args& a) {
   const size_t smem =
       sizeof(float) * (4 * static_cast<size_t>(F) * (D + 1) +
                        2 * F * (F + 1) + 2 * F);
-  auto kernel = flash_bwd_dkv_f32<D>;
+  auto kernel = flash_bwd_dkv_f32<D, FEAT>;
   static const cudaError_t e = allow_smem(kernel, smem);  // once
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid((a.s + F - 1) / F, a.b * a.h_kv);
@@ -577,15 +629,15 @@ int launch_dkv_f32(const Args& a) {
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       a.lse, a.delta, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
       a.s, a.h, a.h / a.h_kv, a.qs, a.ks, a.vs, a.dos, a.dks, a.dvs, a.scale,
-      a.causal);
+      a.causal, a.f);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int D, bool FEAT>
 int launch_dq_f32(const Args& a) {
   const size_t smem =
       sizeof(float) * (4 * static_cast<size_t>(F) * (D + 1) + F * (F + 1));
-  auto kernel = flash_bwd_dq_f32<D>;
+  auto kernel = flash_bwd_dq_f32<D, FEAT>;
   static const cudaError_t e = allow_smem(kernel, smem);  // once
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid((a.s + F - 1) / F, a.b * a.h);
@@ -593,33 +645,41 @@ int launch_dq_f32(const Args& a) {
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       a.lse, a.delta, static_cast<float*>(a.dq), a.s, a.h, a.h / a.h_kv,
-      a.qs, a.ks, a.vs, a.dos, a.dqs, a.scale, a.causal);
+      a.qs, a.ks, a.vs, a.dos, a.dqs, a.scale, a.causal, a.f);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int D, bool FEAT>
 int dispatch(bool dkv, int dtype, const Args& a) {
   switch (dtype) {
     case ptt::kF32:
-      return dkv ? launch_dkv_f32<D>(a) : launch_dq_f32<D>(a);
+      return dkv ? launch_dkv_f32<D, FEAT>(a) : launch_dq_f32<D, FEAT>(a);
     case ptt::kBF16:
-      return dkv ? launch_dkv_mma<__nv_bfloat16, D>(a)
-                 : launch_dq_mma<__nv_bfloat16, D>(a);
+      return dkv ? launch_dkv_mma<__nv_bfloat16, D, FEAT>(a)
+                 : launch_dq_mma<__nv_bfloat16, D, FEAT>(a);
     case ptt::kF16:
-      return dkv ? launch_dkv_mma<__half, D>(a) : launch_dq_mma<__half, D>(a);
+      return dkv ? launch_dkv_mma<__half, D, FEAT>(a)
+                 : launch_dq_mma<__half, D, FEAT>(a);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <bool FEAT>
+int run_d(bool dkv, int d, int dtype, const Args& a) {
+  switch (d) {
+    case 32: return dispatch<32, FEAT>(dkv, dtype, a);
+    case 64: return dispatch<64, FEAT>(dkv, dtype, a);
+    case 128: return dispatch<128, FEAT>(dkv, dtype, a);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 int run(bool dkv, int d, int dtype, const Args& a) {
-  if (a.b <= 0 || a.h <= 0 || a.h_kv <= 0 || a.h % a.h_kv != 0 || a.s <= 0)
+  if (a.b <= 0 || a.h <= 0 || a.h_kv <= 0 || a.h % a.h_kv != 0 ||
+      a.s <= 0 || !(a.f.dropout >= 0.f && a.f.dropout < 1.f))
     return static_cast<int>(cudaErrorInvalidValue);
-  switch (d) {
-    case 32: return dispatch<32>(dkv, dtype, a);
-    case 64: return dispatch<64>(dkv, dtype, a);
-    case 128: return dispatch<128>(dkv, dtype, a);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return a.f.any() ? run_d<true>(dkv, d, dtype, a)
+                   : run_d<false>(dkv, d, dtype, a);
 }
 
 Strides at(const long long* s, int i) {
@@ -632,12 +692,17 @@ Strides at(const long long* s, int i) {
 // strides (b, h, s) in `strides`, three per tensor in argument order:
 // q, k, v, dout, then dk, dv (dK/dV) or dq (dQ).  lse and delta: fp32
 // [B, H, S].  dk, dv: [B, H_kv, S, D].  D in {32, 64, 128}; one dtype.
+// The features as ptt_flash_fwd takes them (the forward's seed).
 extern "C" int ptt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
                                  const void* delta, void* dk, void* dv,
                                  int b, int h, int h_kv, int s, int d,
                                  const long long* strides, float scale,
-                                 int causal, int dtype, void* stream) {
+                                 int causal, int dtype, const void* mask,
+                                 const long long* mask_strides,
+                                 const void* seg, float dropout,
+                                 float keep_div, unsigned int seed,
+                                 void* stream) {
   Args a{};
   a.q = q; a.k = k; a.v = v; a.dout = dout;
   a.lse = static_cast<const float*>(lse);
@@ -647,6 +712,7 @@ extern "C" int ptt_flash_bwd_dkv(const void* q, const void* k, const void* v,
   a.qs = at(strides, 0); a.ks = at(strides, 1); a.vs = at(strides, 2);
   a.dos = at(strides, 3); a.dks = at(strides, 4); a.dvs = at(strides, 5);
   a.scale = scale; a.causal = causal != 0;
+  a.f = make_features(mask, mask_strides, seg, dropout, keep_div, seed);
   a.stream = static_cast<cudaStream_t>(stream);
   return run(true, d, dtype, a);
 }
@@ -656,7 +722,11 @@ extern "C" int ptt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* delta, void* dq, int b, int h,
                                 int h_kv, int s, int d,
                                 const long long* strides, float scale,
-                                int causal, int dtype, void* stream) {
+                                int causal, int dtype, const void* mask,
+                                const long long* mask_strides,
+                                const void* seg, float dropout,
+                                float keep_div, unsigned int seed,
+                                void* stream) {
   Args a{};
   a.q = q; a.k = k; a.v = v; a.dout = dout;
   a.lse = static_cast<const float*>(lse);
@@ -666,6 +736,7 @@ extern "C" int ptt_flash_bwd_dq(const void* q, const void* k, const void* v,
   a.qs = at(strides, 0); a.ks = at(strides, 1); a.vs = at(strides, 2);
   a.dos = at(strides, 3); a.dqs = at(strides, 4);
   a.scale = scale; a.causal = causal != 0;
+  a.f = make_features(mask, mask_strides, seg, dropout, keep_div, seed);
   a.stream = static_cast<cudaStream_t>(stream);
   return run(false, d, dtype, a);
 }

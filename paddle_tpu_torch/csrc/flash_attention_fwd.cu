@@ -1,15 +1,22 @@
-// Flash attention forward: out = softmax(q k^T * scale [+ causal mask]) v
-// and the fp32 log-sum-exp of every row, for [B, H, S, D] or [B, S, H, D]
-// q with H_kv <= H key/value heads (GQA: kv head = q head / (H / H_kv)).
+// Flash attention forward: out = softmax(q k^T * scale [+ masks]) v and
+// the fp32 log-sum-exp of every row, for [B, H, S, D] or [B, S, H, D] q
+// with H_kv <= H key/value heads (GQA: kv head = q head / (H / H_kv)).
 //
 // Replaces: paddle_tpu/pallas/flash_attention.py _pallas_flash_fwd /
-// _fwd_kernel (no masks, segment ids or dropout: those stay unported).
+// _fwd_kernel, with all of its features: the causal mask, an fp32
+// additive mask [B|1, H|1, S, S] (a boolean mask arrives as 0 / NEG_INF),
+// segment ids [B, S] (packed varlen) and attention dropout by the Pallas
+// counter hash (`Features`, flash_common.cuh).
 //
-// Bound on the H100: operations.  Two products of 2 S^2 D flops per head
-// (halved by a causal mask) against 2 S D H (2 + 2 / n_rep) bytes of
-// q, k, v and out: at S 4096, D 128 that is ~2000 flops per byte, far
-// above the ~295 where the bf16 tensor cores (989 TFLOP/s) bind.  For the
-// training shape (B 1, H 32, S 4096, causal) the least time is 0.139 ms.
+// Bound on the H100.  Two products of 2 S^2 D flops per head (halved by a
+// causal mask) against 2 S D H (2 + 2 / n_rep) bytes of q, k, v and out:
+// at S 4096, D 128 that is ~2000 flops per byte, far above the ~295 where
+// the bf16 tensor cores (989 TFLOP/s) bind, so for the Llama training
+// shape (B 1, H 32, S 4096, causal) operations bind: 0.139 ms.  At GPT-2's
+// (B 8, H 12, S 1024, D 64, causal) bytes bind: 50.7 MB, 0.0151 ms (the
+// products 0.0130 ms).  A [B, 1, S, S] fp32 mask adds 4 bytes a live
+// score (16.8 MB there, to 0.0201 ms); dropout adds ~12 integer
+// operations a live score (0.6 G, ~0.01 ms at the CUDA cores' 67 T/s).
 //
 // Design.  The TPU kernel streamed K/V blocks through a sequential grid
 // axis and carried (m, l, acc) in VMEM scratch; on Hopper one block of
@@ -27,8 +34,14 @@
 // diagonal tile, so dead tiles are never fetched, and blocks are launched
 // last q tile first (the longest loops start first).  The ragged tail of
 // S is zero-filled on load and masked in the scores, so any S >= 1 works
-// (the TPU kernel needed S % 128 == 0).  A later PR can move the products
-// to wgmma with TMA loads and a producer warp.
+// (the TPU kernel needed S % 128 == 0).  Features (FEAT = true, its own
+// instantiation): every score of a masked call goes through
+// `feature_score` (mask and segment ids read from global memory through
+// L1, no tile skipping by segment) and the fully-masked guard; dropout
+// regenerates the hash per score after the row sums (l sums the undropped
+// p, as the Pallas kernel does) and before the head/remainder split.  A
+// later PR can move the products to wgmma with TMA loads and a producer
+// warp, and stage mask tiles in shared memory.
 #include <cmath>
 #include <cstdint>
 
@@ -41,12 +54,13 @@ using namespace ptt::flash;
 constexpr int BQ = 64;   // q rows per block (16 per warp)
 constexpr int BK = 64;   // keys per K/V tile
 
-template <typename T, int D>
+template <typename T, int D, bool FEAT>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_mma(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, T* __restrict__ out,
               float* __restrict__ lse, int S, int H, int n_rep, Strides qs,
-              Strides ks, Strides vs, Strides os, float scale, bool causal) {
+              Strides ks, Strides vs, Strides os, float scale, bool causal,
+              Features f) {
   constexpr int LD = D + 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* q_s = reinterpret_cast<T*>(smem_raw);     // [BQ][LD]
@@ -59,6 +73,8 @@ flash_fwd_mma(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = qt * BQ;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
+  const bool masked = FEAT && f.masked();
+  const bool drop = FEAT && f.dropout > 0.f;
 
   const T* qg = q + b * qs.b + h * qs.h + q0 * qs.s;
   const T* kg = k + b * ks.b + kvh * ks.h;
@@ -117,7 +133,9 @@ flash_fwd_mma(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
 
-    const bool edge = (k0 + BK > S) || (causal && k0 + BK - 1 > q0);
+    // a mask or segments touch every tile, not only the edges
+    const bool edge =
+        masked || (k0 + BK > S) || (causal && k0 + BK - 1 > q0);
     float mx_a = kNegInf, mx_b = kNegInf;
 #pragma unroll
     for (int nt = 0; nt < BK / 8; ++nt) {
@@ -127,7 +145,10 @@ flash_fwd_mma(const T* __restrict__ q, const T* __restrict__ k,
         if (edge) {
           const int col = k0 + nt * 8 + 2 * t4 + (e & 1);
           const int row = e < 2 ? row_a : row_b;
-          if (col >= S || (causal && col > row)) x = kNegInf;
+          if (col >= S || (causal && col > row))
+            x = kNegInf;
+          else if (masked && row < S)
+            x = feature_score(f, x, b, h, S, row, col);
         }
         s[nt][e] = x;
       }
@@ -145,10 +166,16 @@ flash_fwd_mma(const T* __restrict__ q, const T* __restrict__ k,
     float rs_a = 0.f, rs_b = 0.f;
 #pragma unroll
     for (int nt = 0; nt < BK / 8; ++nt) {
-      s[nt][0] = expf(s[nt][0] - mn_a);
-      s[nt][1] = expf(s[nt][1] - mn_a);
-      s[nt][2] = expf(s[nt][2] - mn_b);
-      s[nt][3] = expf(s[nt][3] - mn_b);
+      if (masked) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[nt][e] = guard(expf(s[nt][e] - (e < 2 ? mn_a : mn_b)), s[nt][e]);
+      } else {
+        s[nt][0] = expf(s[nt][0] - mn_a);
+        s[nt][1] = expf(s[nt][1] - mn_a);
+        s[nt][2] = expf(s[nt][2] - mn_b);
+        s[nt][3] = expf(s[nt][3] - mn_b);
+      }
       rs_a += s[nt][0] + s[nt][1];
       rs_b += s[nt][2] + s[nt][3];
     }
@@ -160,6 +187,16 @@ flash_fwd_mma(const T* __restrict__ q, const T* __restrict__ k,
       o[i][1] *= al_a;
       o[i][2] *= al_b;
       o[i][3] *= al_b;
+    }
+    if (drop) {
+      // l holds the undropped sum; dropout acts on the p that meets v
+#pragma unroll
+      for (int nt = 0; nt < BK / 8; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[nt][e] = dropped(f, bh, e < 2 ? row_a : row_b,
+                             k0 + nt * 8 + 2 * t4 + (e & 1), s[nt][e]);
+      }
     }
 
 #pragma unroll
@@ -218,12 +255,13 @@ flash_fwd_mma(const T* __restrict__ q, const T* __restrict__ k,
 // and its accumulator columns c, c + 4, ... (strided: no bank conflicts).
 constexpr int FQ = 32, FK = 32;
 
-template <int D>
+template <int D, bool FEAT>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ out,
               float* __restrict__ lse, int S, int H, int n_rep, Strides qs,
-              Strides ks, Strides vs, Strides os, float scale, bool causal) {
+              Strides ks, Strides vs, Strides os, float scale, bool causal,
+              Features f) {
   constexpr int LD = D + 1;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* q_s = reinterpret_cast<float*>(smem_raw);   // [FQ][LD]
@@ -237,6 +275,8 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int q0 = qt * FQ;
   const int tid = threadIdx.x, r = tid >> 2, c = tid & 3;
   const int row = q0 + r;
+  const bool masked = FEAT && f.masked();
+  const bool drop = FEAT && f.dropout > 0.f;
 
   const float* qg = q + b * qs.b + h * qs.h;
   const float* kg = k + b * ks.b + kvh * ks.h;
@@ -272,7 +312,10 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
       for (int dd = 0; dd < D; ++dd) dot += q_s[r * LD + dd] * k_s[kk * LD + dd];
       float x = dot * scale;
       const int col = k0 + kk;
-      if (col >= S || (causal && col > row)) x = kNegInf;
+      if (col >= S || (causal && col > row))
+        x = kNegInf;
+      else if (masked && row < S)
+        x = feature_score(f, x, b, h, S, row, col);
       s[i] = x;
       mx = fmaxf(mx, x);
     }
@@ -284,9 +327,11 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     float rs = 0.f;
 #pragma unroll
     for (int i = 0; i < FK / 4; ++i) {
-      const float p = expf(s[i] - mn);
-      p_s[r * (FK + 1) + c + 4 * i] = p;
+      float p = expf(s[i] - mn);
+      if (masked) p = guard(p, s[i]);
       rs += p;
+      if (drop) p = dropped(f, bh, row, k0 + c + 4 * i, p);
+      p_s[r * (FK + 1) + c + 4 * i] = p;
     }
     rs += __shfl_xor_sync(0xffffffffu, rs, 1);
     rs += __shfl_xor_sync(0xffffffffu, rs, 2);
@@ -310,57 +355,64 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <typename T, int D>
-int launch_mma(const void* q, const void* k, const void* v, void* out,
-               float* lse, int b, int h, int h_kv, int s, Strides qs,
-               Strides ks, Strides vs, Strides os, float scale, bool causal,
-               cudaStream_t stream) {
+struct Call {
+  const void *q, *k, *v;
+  void* out;
+  float* lse;
+  int b, h, h_kv, s;
+  Strides qs, ks, vs, os;
+  float scale;
+  bool causal;
+  Features f;
+  cudaStream_t stream;
+};
+
+template <typename T, int D, bool FEAT>
+int launch_mma(const Call& a) {
   constexpr int LD = D + 8;
   const size_t smem = sizeof(T) * static_cast<size_t>(BQ + 4 * BK) * LD;
-  auto kernel = flash_fwd_mma<T, D>;
+  auto kernel = flash_fwd_mma<T, D, FEAT>;
   static const cudaError_t e = allow_smem(kernel, smem);  // once
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid((s + BQ - 1) / BQ, b * h);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), lse, s, h, h / h_kv,
-      qs, ks, vs, os, scale, causal);
+  dim3 grid((a.s + BQ - 1) / BQ, a.b * a.h);
+  kernel<<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<T*>(a.out), a.lse, a.s, a.h,
+      a.h / a.h_kv, a.qs, a.ks, a.vs, a.os, a.scale, a.causal, a.f);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
-int launch_f32(const void* q, const void* k, const void* v, void* out,
-               float* lse, int b, int h, int h_kv, int s, Strides qs,
-               Strides ks, Strides vs, Strides os, float scale, bool causal,
-               cudaStream_t stream) {
+template <int D, bool FEAT>
+int launch_f32(const Call& a) {
   const size_t smem = sizeof(float) *
       (static_cast<size_t>(FQ + FK) * (D + 1) + FK * D + FQ * (FK + 1));
-  auto kernel = flash_fwd_f32<D>;
+  auto kernel = flash_fwd_f32<D, FEAT>;
   static const cudaError_t e = allow_smem(kernel, smem);  // once
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid((s + FQ - 1) / FQ, b * h);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), lse, s, h,
-      h / h_kv, qs, ks, vs, os, scale, causal);
+  dim3 grid((a.s + FQ - 1) / FQ, a.b * a.h);
+  kernel<<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<float*>(a.out), a.lse, a.s,
+      a.h, a.h / a.h_kv, a.qs, a.ks, a.vs, a.os, a.scale, a.causal, a.f);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
-int dispatch(int dtype, const void* q, const void* k, const void* v,
-             void* out, float* lse, int b, int h, int h_kv, int s,
-             Strides qs, Strides ks, Strides vs, Strides os, float scale,
-             bool causal, cudaStream_t st) {
+template <int D, bool FEAT>
+int dispatch(int dtype, const Call& a) {
   switch (dtype) {
-    case ptt::kF32:
-      return launch_f32<D>(q, k, v, out, lse, b, h, h_kv, s, qs, ks, vs, os,
-                           scale, causal, st);
-    case ptt::kBF16:
-      return launch_mma<__nv_bfloat16, D>(q, k, v, out, lse, b, h, h_kv, s,
-                                          qs, ks, vs, os, scale, causal, st);
-    case ptt::kF16:
-      return launch_mma<__half, D>(q, k, v, out, lse, b, h, h_kv, s, qs, ks,
-                                   vs, os, scale, causal, st);
+    case ptt::kF32: return launch_f32<D, FEAT>(a);
+    case ptt::kBF16: return launch_mma<__nv_bfloat16, D, FEAT>(a);
+    case ptt::kF16: return launch_mma<__half, D, FEAT>(a);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <bool FEAT>
+int run(int d, int dtype, const Call& a) {
+  switch (d) {
+    case 32: return dispatch<32, FEAT>(dtype, a);
+    case 64: return dispatch<64, FEAT>(dtype, a);
+    case 128: return dispatch<128, FEAT>(dtype, a);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -370,25 +422,31 @@ int dispatch(int dtype, const void* q, const void* k, const void* v,
 // q, out: [B, H, S, D] views with element strides (b, h, s) in
 // strides[0..2] and strides[9..11]; k, v: [B, H_kv, S, D] views with
 // strides[3..5] and strides[6..8]; D contiguous.  lse: fp32 [B, H, S].
-// D in {32, 64, 128}; one dtype for q, k, v and out.
+// D in {32, 64, 128}; one dtype for q, k, v and out.  Features: `mask`
+// fp32 with element strides (b, h, q) in mask_strides[0..2] (0 on a
+// broadcast dim; keys contiguous) or null; `seg` int32 [B, S] or null;
+// `dropout` in [0, 1) with `keep_div` = (float)(1 - dropout) and `seed`.
 extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
                              void* out, void* lse, int b, int h, int h_kv,
                              int s, int d, const long long* strides,
                              float scale, int causal, int dtype,
-                             void* stream) {
-  if (b <= 0 || h <= 0 || h_kv <= 0 || h % h_kv != 0 || s <= 0)
+                             const void* mask, const long long* mask_strides,
+                             const void* seg, float dropout, float keep_div,
+                             unsigned int seed, void* stream) {
+  if (b <= 0 || h <= 0 || h_kv <= 0 || h % h_kv != 0 || s <= 0 ||
+      !(dropout >= 0.f && dropout < 1.f))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Strides qs{strides[0], strides[1], strides[2]};
-  const Strides ks{strides[3], strides[4], strides[5]};
-  const Strides vs{strides[6], strides[7], strides[8]};
-  const Strides os{strides[9], strides[10], strides[11]};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* l = static_cast<float*>(lse);
-  const bool c = causal != 0;
-  switch (d) {
-    case 32: return dispatch<32>(dtype, q, k, v, out, l, b, h, h_kv, s, qs, ks, vs, os, scale, c, st);
-    case 64: return dispatch<64>(dtype, q, k, v, out, l, b, h, h_kv, s, qs, ks, vs, os, scale, c, st);
-    case 128: return dispatch<128>(dtype, q, k, v, out, l, b, h, h_kv, s, qs, ks, vs, os, scale, c, st);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  Call a{};
+  a.q = q; a.k = k; a.v = v; a.out = out;
+  a.lse = static_cast<float*>(lse);
+  a.b = b; a.h = h; a.h_kv = h_kv; a.s = s;
+  a.qs = Strides{strides[0], strides[1], strides[2]};
+  a.ks = Strides{strides[3], strides[4], strides[5]};
+  a.vs = Strides{strides[6], strides[7], strides[8]};
+  a.os = Strides{strides[9], strides[10], strides[11]};
+  a.scale = scale;
+  a.causal = causal != 0;
+  a.f = make_features(mask, mask_strides, seg, dropout, keep_div, seed);
+  a.stream = static_cast<cudaStream_t>(stream);
+  return a.f.any() ? run<true>(d, dtype, a) : run<false>(d, dtype, a);
 }

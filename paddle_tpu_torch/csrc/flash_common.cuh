@@ -1,7 +1,10 @@
 // Shared pieces of the flash attention kernels (flash_attention_fwd.cu,
 // flash_attention_bwd.cu): tile geometry, the strides of one tensor, the
 // 16-bit tensor-core product (mma.sync m16n8k16, fp32 accumulation),
-// ldmatrix fragment loads and cp.async tile copies.
+// ldmatrix fragment loads and cp.async tile copies; and the optional score
+// features of all three kernels (`Features`: the additive mask, segment
+// ids and attention dropout of paddle_tpu/pallas/flash_attention.py
+// _apply_masks and _dropout_uniform).
 //
 // Fragment layouts of mma.sync.m16n8k16 (lane = 4 * g + t4):
 //   A 16x16 row-major: a0 (g, 2t4..+1)  a1 (g+8, 2t4..)  a2 (g, 8+2t4..)
@@ -157,6 +160,104 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src,
     const int rs = ok ? r : valid - 1;
     cp_async16(dst + r * kLd + c, src + rs * stride + c, ok);
   }
+}
+
+// ------------------------------------------------------------- features
+// The optional inputs of a call, passed to every kernel by value.  A
+// kernel instantiated with FEAT = false never reads them (the plain causal
+// path is the code it was before the features).
+struct Features {
+  // fp32 additive mask [B|1, H|1, S, S]: element strides of its batch,
+  // head and query dims (0 on a broadcast dim, so a [1, 1, S, S] mask is
+  // never expanded); keys contiguous.  nullptr: none
+  const float* mask;
+  int64_t mask_b, mask_h, mask_q;
+  const int* seg;      // int32 segment ids [B, S], contiguous; nullptr: none
+  float dropout;       // the drop probability; 0: none
+  float keep_div;      // (float)(1.0 - dropout), the survivors' divisor
+  uint32_t seed;       // the call's dropout seed
+  __host__ __device__ bool masked() const {
+    return mask != nullptr || seg != nullptr;
+  }
+  __host__ __device__ bool any() const { return masked() || dropout > 0.f; }
+};
+
+// The features of a call from the C entry points' arguments.
+inline Features make_features(const void* mask,
+                              const long long* mask_strides,
+                              const void* seg, float dropout,
+                              float keep_div, unsigned int seed) {
+  Features f{};
+  f.mask = static_cast<const float*>(mask);
+  if (mask != nullptr) {
+    f.mask_b = mask_strides[0];
+    f.mask_h = mask_strides[1];
+    f.mask_q = mask_strides[2];
+  }
+  f.seg = static_cast<const int*>(seg);
+  f.dropout = dropout;
+  f.keep_div = keep_div;
+  f.seed = seed;
+  return f;
+}
+
+// The Pallas kernels' counter hash (_dropout_uniform), bit for bit: a
+// uniform in [0, 1) on a 2^-24 grid for (seed, head, q position, key
+// position), all uint32 with wrapping products.  `head` is the flattened
+// b * H + q head and the positions are absolute, so the keep-mask depends
+// on neither the tiling nor the kernel.
+__device__ __forceinline__ float dropout_uniform(uint32_t seed,
+                                                 uint32_t head, uint32_t qp,
+                                                 uint32_t kp) {
+  uint32_t x = qp * 0x9E3779B1u + kp * 0x85EBCA77u;
+  x ^= seed + head * 0x27D4EB2Fu;
+  x ^= x >> 15;
+  x *= 0x2C1B3C6Du;
+  x ^= x >> 12;
+  x *= 0x297A2D39u;
+  x ^= x >> 15;
+  return static_cast<float>(x >> 8) * (1.0f / 16777216.0f);
+}
+
+// Whether dropout keeps the score at (head, qp, kp): u >= p.
+__device__ __forceinline__ bool kept(const Features& f, uint32_t head,
+                                     int qp, int kp) {
+  return dropout_uniform(f.seed, head, static_cast<uint32_t>(qp),
+                         static_cast<uint32_t>(kp)) >= f.dropout;
+}
+
+// A kept value divided (not multiplied by a reciprocal) by (1 - p), a
+// dropped one 0, as the Pallas kernels do.
+__device__ __forceinline__ float survivor(const Features& f, bool keep,
+                                          float x) {
+  return keep ? __fdiv_rn(x, f.keep_div) : 0.f;
+}
+
+// Dropout of `x` at (head, qp, kp).
+__device__ __forceinline__ float dropped(const Features& f, uint32_t head,
+                                         int qp, int kp, float x) {
+  return survivor(f, kept(f, head, qp, kp), x);
+}
+
+// The scaled score `x` of a live pair (both positions inside S, causally
+// visible) of batch b, q head h under the mask and segments, in the
+// Pallas order: NEG_INF where the segments differ, then + the mask.
+__device__ __forceinline__ float feature_score(const Features& f, float x,
+                                               int b, int h, int S, int qp,
+                                               int kp) {
+  if (f.seg != nullptr) {
+    const int* sb = f.seg + static_cast<int64_t>(b) * S;
+    if (sb[qp] != sb[kp]) x = kNegInf;
+  }
+  if (f.mask != nullptr)
+    x += f.mask[b * f.mask_b + h * f.mask_h + qp * f.mask_q + kp];
+  return x;
+}
+
+// Fully masked rows (mask or segments only): where the score sits at
+// NEG_INF the probability is 0, not exp(0) against a NEG_INF max or lse.
+__device__ __forceinline__ float guard(float p, float x) {
+  return x > kNegInf * 0.5f ? p : 0.f;
 }
 
 // Lets `kernel` take `bytes` of dynamic shared memory (above 48 KB it has

@@ -1,6 +1,7 @@
 """Fused-op APIs of the serving and training paths (port of
 paddle_tpu/incubate/nn/functional/__init__.py): rotary position
-embedding, cache attention, and paged multi-head attention.
+embedding, cache attention, paged multi-head attention, and
+variable-length (masked) attention through the flash kernels.
 
 Rope with one ``[S, D]`` table (no positions, 1-D positions, or 2-D
 sin/cos tables) goes through the rope kernel with fp32 tables, as the JAX
@@ -17,6 +18,7 @@ import math
 
 import torch
 
+from ...kernels.flash_attention import flash_attention
 from ...kernels.paged_decode import gather_pages, paged_decode_attention
 from ...kernels.rope import RopeFunction, rope
 from ...quantization import (as_bytes, dequantize_kv, qmax_of,
@@ -89,6 +91,18 @@ def _rope_2d(t, cos, sin, neox):
     if torch.is_grad_enabled() and t.requires_grad:
         return RopeFunction.apply(t, cos, sin, bool(neox))
     return rope(t, cos, sin, neox)
+
+
+def variable_length_memory_efficient_attention(query, key, value,
+                                               seq_lens=None,
+                                               kv_seq_lens=None, mask=None,
+                                               scale=None, causal=False):
+    """``[B, S, H, D]`` attention under an additive or boolean ``mask``
+    (``[B|1, H|1, S, S]``) through the flash kernels, as the JAX package
+    maps it to its flash op; like there, ``seq_lens`` and ``kv_seq_lens``
+    are not read (the lengths live in the mask)."""
+    return flash_attention(query, key, value, attn_mask=mask, causal=causal,
+                           scale=scale)
 
 
 def _cache_attend(qa, ck, cv, off, scale):

@@ -45,7 +45,10 @@ def _wrappers():
             "paged_decode_int8": paged_decode.QUANT_LAUNCHES[torch.int8],
             "paged_decode_fp8":
                 paged_decode.QUANT_LAUNCHES[torch.float8_e4m3fn],
-            "lora_delta": lora.lora_delta}
+            "lora_delta": lora.lora_delta,
+            # the flash kernels' launches with dropout alone, and with a
+            # mask or segment ids (with or without dropout)
+            **flash_attention.VARIANT_LAUNCHES}
 
 
 def launch_counts() -> dict:

@@ -14,13 +14,34 @@ does (it casts q, k and v to fp32 in its body).  The kernels take views
 with any batch/head/sequence strides and a contiguous head dim, so the
 head-major transpose of a ``[B, S, H, D]`` projection costs no copy.
 
-Not ported: attention dropout, additive/boolean masks and segment ids
-(ROADMAP Queue B); the public op raises for them.
+The Pallas kernels' features, in all three kernels and their plain
+versions (``_apply_masks`` and ``_dropout_uniform``):
+
+- ``mask``: an fp32 additive mask ``[B|1, H|1, S, S]``, added after the
+  causal and segment masks; read through its strides, so a broadcast
+  ``[1, 1, S, S]`` mask is never expanded.  The public op turns a boolean
+  mask into ``where(m, 0, NEG_INF)`` and a 16-bit one into fp32.
+- ``segment_ids``: int32 ``[B, S]``; scores between segments that differ
+  get ``NEG_INF`` (packed varlen).  With a mask or segments, a score at
+  ``NEG_INF`` gets probability 0, so a fully masked row gives out 0, lse
+  ~-1e30 and zero gradients.
+- ``dropout`` with a uint32 ``seed``: the keep-mask of `dropout_uniform`,
+  keyed by (seed, ``b * H + q head``, absolute q and key positions), the
+  Pallas hash bit for bit; ``l`` sums the undropped p, the survivors are
+  divided by ``(float)(1 - p)``.  The public op draws the seed from an
+  explicit CPU ``torch.Generator`` (no device sync, the same seed on the
+  CPU and the card); the autograd function keeps it for the backward.
+
+Like the Pallas kernels these give no mask gradient: the public op
+refuses a mask that requires grad.  Each feature variant counts its own
+launches (``VARIANT_LAUNCHES``): ``*_dropout`` (dropout alone) and
+``*_masked`` (a mask or segment ids, with or without dropout).
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from types import SimpleNamespace
 
 import torch
 
@@ -28,8 +49,72 @@ from . import _build, dtype_code
 
 NEG_INF = -1e30
 SUPPORTED_HEAD_DIMS = (32, 64, 128)
-_UNPORTED = ("is not ported yet (ROADMAP Queue B: flash attention dropout, "
-             "masks and segment ids)")
+#: launch counts of the feature variants, by name
+VARIANT_LAUNCHES = {name: SimpleNamespace(launches=0) for name in (
+    "flash_fwd_dropout", "flash_bwd_dkv_dropout", "flash_bwd_dq_dropout",
+    "flash_fwd_masked", "flash_bwd_dkv_masked", "flash_bwd_dq_masked")}
+_MASK_GRAD = ("flash_attention: a mask that requires grad is not ported "
+              "(ROADMAP Queue A: the flash mask gradient); the kernels, like "
+              "the Pallas ones, give no mask gradient")
+
+#: the public op's seeds when the caller passes no generator (the JAX
+#: package's ``next_rng_key`` state; never torch's global RNG)
+_seed_generator = torch.Generator(device="cpu")
+_seed_generator.manual_seed(0)
+
+
+def draw_seed(generator=None) -> int:
+    """One uint32 dropout seed from a CPU ``torch.Generator``."""
+    gen = _seed_generator if generator is None else generator
+    return int(torch.randint(0, 1 << 32, (), generator=gen,
+                             dtype=torch.int64))
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x, c):
+    """``x * c mod 2^32`` for int64 ``x`` in [0, 2^32) and a constant
+    ``c``, with no product above 2^49 (no int64 overflow)."""
+    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def dropout_uniform(seed, head, q_pos, k_pos):
+    """The Pallas counter hash (``_dropout_uniform``) in int64 arithmetic
+    masked to 32 bits: fp32 uniforms on a 2^-24 grid for broadcasting
+    int tensors ``head`` (``b * H + q head``), ``q_pos`` and ``k_pos``
+    (absolute positions).  Bit for bit the kernels' and the JAX
+    package's."""
+    qp, kp, hd = (torch.as_tensor(t).long() for t in (q_pos, k_pos, head))
+    x = (_mul32(qp, 0x9E3779B1) + _mul32(kp, 0x85EBCA77)) & _M32
+    x = x ^ ((int(seed) + _mul32(hd, 0x27D4EB2F)) & _M32)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x2C1B3C6D)
+    x = x ^ (x >> 12)
+    x = _mul32(x, 0x297A2D39)
+    x = x ^ (x >> 15)
+    return (x >> 8).float() * (1.0 / (1 << 24))
+
+
+def _keep(seed, dropout, b, h, s, device):
+    """The keep-mask ``[B, H, S, S]`` of a call: ``u >= (float)p``."""
+    head = torch.arange(b * h, device=device).reshape(b, h, 1, 1)
+    pos = torch.arange(s, device=device)
+    u = dropout_uniform(seed, head, pos[:, None], pos[None, :])
+    return u >= torch.full((), dropout, dtype=torch.float32, device=device)
+
+
+def _zero(t):
+    return torch.zeros((), dtype=t.dtype, device=t.device)
+
+
+def _drop(t, keep, dropout):
+    """``where(keep, t, 0) / (1 - p)``: a division by a 0-dim tensor on
+    t's device, (float)(1.0 - p) rounded once, as JAX's weak-typed
+    ``1.0 - dropout`` (a CUDA tensor divided by a Python number is
+    multiplied by its reciprocal instead)."""
+    div = torch.full((), 1.0 - dropout, dtype=torch.float32, device=t.device)
+    return torch.where(keep, t, _zero(t)) / div
 
 
 def _head_major(t, head_major):
@@ -63,32 +148,55 @@ def _causal_mask(s, device):
     return torch.ones(s, s, dtype=torch.bool, device=device).tril()
 
 
-def flash_attention_ref(q, k, v, causal=False, scale=None, head_major=False):
+def _masked_logits(logits, causal, mask, segment_ids):
+    """``_apply_masks`` on fp32 ``[B, H, S, S]`` logits: NEG_INF above the
+    diagonal, then between segments that differ, then + the mask."""
+    if causal:
+        logits = logits.masked_fill(
+            ~_causal_mask(logits.shape[-1], logits.device), NEG_INF)
+    if segment_ids is not None:
+        seg = segment_ids.long()
+        logits = logits.masked_fill(seg[:, None, :, None]
+                                    != seg[:, None, None, :], NEG_INF)
+    if mask is not None:
+        logits = logits + mask.float()
+    return logits
+
+
+def flash_attention_ref(q, k, v, causal=False, scale=None, head_major=False,
+                        mask=None, segment_ids=None, dropout=0.0, seed=0):
     """Plain PyTorch forward → (out like q, fp32 lse [B, H, S]): logits,
     softmax and ``p @ v`` in fp32 (K/V heads repeated for GQA), one
-    rounding to q's dtype.  Differentiable by autograd."""
+    rounding to q's dtype; the features as the Pallas forward applies
+    them.  Differentiable by autograd in q, k and v."""
     b, h, h_kv, s, d = _geometry(q, k, v, head_major)
     qh, kh, vh = (_head_major(t, head_major).float() for t in (q, k, v))
     if h != h_kv:
         kh = kh.repeat_interleave(h // h_kv, dim=1)
         vh = vh.repeat_interleave(h // h_kv, dim=1)
-    logits = torch.matmul(qh, kh.transpose(-1, -2)) * _scale(scale, d)
-    if causal:
-        logits = logits.masked_fill(~_causal_mask(s, q.device), NEG_INF)
-    m = logits.amax(dim=-1, keepdim=True)
+    logits = _masked_logits(torch.matmul(qh, kh.transpose(-1, -2))
+                            * _scale(scale, d), causal, mask, segment_ids)
+    # the kernels' running max starts at NEG_INF
+    m = logits.amax(dim=-1, keepdim=True).clamp_min(NEG_INF)
     p = torch.exp(logits - m)
+    if mask is not None or segment_ids is not None:
+        p = torch.where(logits > NEG_INF * 0.5, p, _zero(p))
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)  # noqa: E741
+    if dropout > 0.0:
+        p = _drop(p, _keep(seed, dropout, b, h, s, q.device), dropout)
     out = torch.matmul(p, vh) / l
     lse = (m + torch.log(l)).squeeze(-1)
     return _head_major(out.to(q.dtype), head_major), lse
 
 
 def _bwd_ref(q, k, v, dout, lse, delta, causal, scale, head_major, want_dq,
-             want_dkv):
+             want_dkv, mask=None, segment_ids=None, dropout=0.0, seed=0):
     """The Pallas backward kernels' math in plain PyTorch, fp32: p
     recomputed from ``lse``, ``dS = p (dP - delta) scale``; the GQA heads
-    sharing a kv head are summed into its dK/dV.  ``lse`` and ``delta`` are
-    fp32 ``[B, H, S]``.  → (dq or None, dk or None, dv or None)."""
+    sharing a kv head are summed into its dK/dV.  With dropout, dV takes
+    the dropped p and dS the undropped p with the dropped dP.  ``lse`` and
+    ``delta`` are fp32 ``[B, H, S]``.  → (dq or None, dk or None, dv or
+    None)."""
     b, h, h_kv, s, d = _geometry(q, k, v, head_major)
     rep = h // h_kv
     sc = _scale(scale, d)
@@ -97,17 +205,24 @@ def _bwd_ref(q, k, v, dout, lse, delta, causal, scale, head_major, want_dq,
     if rep > 1:
         kh = kh.repeat_interleave(rep, dim=1)
         vh = vh.repeat_interleave(rep, dim=1)
-    logits = torch.matmul(qh, kh.transpose(-1, -2)) * sc
+    logits = _masked_logits(torch.matmul(qh, kh.transpose(-1, -2)) * sc,
+                            causal, mask, segment_ids)
     p = torch.exp(logits - lse[..., None])
-    if causal:
+    if mask is not None or segment_ids is not None:
+        p = torch.where(logits > NEG_INF * 0.5, p, _zero(p))
+    elif causal:
         p = p.masked_fill(~_causal_mask(s, q.device), 0.0)
     dp = torch.matmul(doh, vh.transpose(-1, -2))
+    p_v = p
+    if dropout > 0.0:
+        keep = _keep(seed, dropout, b, h, s, q.device)
+        p_v, dp = _drop(p, keep, dropout), _drop(dp, keep, dropout)
     ds = p * (dp - delta[..., None]) * sc
     dq = dk = dv = None
     if want_dq:
         dq = _head_major(torch.matmul(ds, kh).to(q.dtype), head_major)
     if want_dkv:
-        dv = torch.matmul(p.transpose(-1, -2), doh)
+        dv = torch.matmul(p_v.transpose(-1, -2), doh)
         dk = torch.matmul(ds.transpose(-1, -2), qh)
         if rep > 1:
             dk = dk.reshape(b, h_kv, rep, s, d).sum(dim=2)
@@ -118,17 +233,19 @@ def _bwd_ref(q, k, v, dout, lse, delta, causal, scale, head_major, want_dq,
 
 
 def flash_bwd_dkv_ref(q, k, v, dout, lse, delta, causal=False, scale=None,
-                      head_major=False):
+                      head_major=False, mask=None, segment_ids=None,
+                      dropout=0.0, seed=0):
     """Plain version of the dK/dV kernel → (dk like k, dv like v)."""
     return _bwd_ref(q, k, v, dout, lse, delta, causal, scale, head_major,
-                    False, True)[1:]
+                    False, True, mask, segment_ids, dropout, seed)[1:]
 
 
 def flash_bwd_dq_ref(q, k, v, dout, lse, delta, causal=False, scale=None,
-                     head_major=False):
+                     head_major=False, mask=None, segment_ids=None,
+                     dropout=0.0, seed=0):
     """Plain version of the dQ kernel → dq like q."""
     return _bwd_ref(q, k, v, dout, lse, delta, causal, scale, head_major,
-                    True, False)[0]
+                    True, False, mask, segment_ids, dropout, seed)[0]
 
 
 def _delta(out, dout, head_major):
@@ -138,11 +255,13 @@ def _delta(out, dout, head_major):
 
 
 def flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=False,
-                            scale=None, head_major=False):
+                            scale=None, head_major=False, mask=None,
+                            segment_ids=None, dropout=0.0, seed=0):
     """Plain PyTorch backward → (dq, dk, dv): ``delta = rowsum(dO * O)``,
     then the two kernels' plain versions in one pass."""
     return _bwd_ref(q, k, v, dout, lse, _delta(out, dout, head_major), causal,
-                    scale, head_major, True, True)
+                    scale, head_major, True, True, mask, segment_ids, dropout,
+                    seed)
 
 
 def _prep(t):
@@ -174,16 +293,69 @@ def _strides(tensors, head_major):
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
-def flash_attention_fwd(q, k, v, causal=False, scale=None, head_major=False):
+#: the C entry points' trailing feature arguments: mask, its strides,
+#: segment ids, dropout, keep divisor, seed
+_FEATURE_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                 ctypes.c_float, ctypes.c_float, ctypes.c_uint32]
+
+
+def _features(name, q, b, h, s, mask, segment_ids, dropout, seed):
+    """Checks the features of a CUDA call → (mask, segment_ids, the C
+    arguments); the mask keeps its shape, read with stride 0 on a
+    broadcast batch or head dim."""
+    if not 0.0 <= dropout < 1.0:
+        raise ValueError(f"{name}: dropout {dropout} outside [0, 1)")
+    mask_ptr = seg_ptr = None
+    mask_st = (ctypes.c_longlong * 3)(0, 0, 0)
+    if mask is not None:
+        if mask.dim() != 4 or tuple(mask.shape[2:]) != (s, s) \
+                or mask.shape[0] not in (1, b) or mask.shape[1] not in (1, h) \
+                or mask.dtype != torch.float32 or mask.device != q.device:
+            raise ValueError(f"{name}: mask {tuple(mask.shape)} "
+                             f"{mask.dtype} must be fp32 [B|1, H|1, S, S] "
+                             f"with B {b}, H {h}, S {s} on {q.device}")
+        if mask.stride(-1) != 1:
+            mask = mask.contiguous()
+        mask_st = (ctypes.c_longlong * 3)(
+            *(0 if mask.shape[i] == 1 else mask.stride(i) for i in range(3)))
+        mask_ptr = _build.ptr(mask)
+    if segment_ids is not None:
+        if tuple(segment_ids.shape) != (b, s) \
+                or segment_ids.dtype != torch.int32 \
+                or segment_ids.device != q.device:
+            raise ValueError(f"{name}: segment_ids {tuple(segment_ids.shape)}"
+                             f" {segment_ids.dtype} must be int32 [{b}, {s}]"
+                             f" on {q.device}")
+        segment_ids = segment_ids.contiguous()
+        seg_ptr = _build.ptr(segment_ids)
+    args = [mask_ptr, mask_st, seg_ptr, float(dropout), float(1.0 - dropout),
+            int(seed) & _M32]
+    return mask, segment_ids, args
+
+
+def _count(fn, variant, mask, segment_ids, dropout):
+    if mask is not None or segment_ids is not None:
+        VARIANT_LAUNCHES[variant + "_masked"].launches += 1
+    elif dropout > 0.0:
+        VARIANT_LAUNCHES[variant + "_dropout"].launches += 1
+    else:
+        fn.launches += 1
+
+
+def flash_attention_fwd(q, k, v, causal=False, scale=None, head_major=False,
+                        mask=None, segment_ids=None, dropout=0.0, seed=0):
     """→ (out like q, fp32 lse [B, H, S]).  CPU tensors take
     `flash_attention_ref`; CUDA tensors launch the forward kernel."""
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal, scale, head_major)
+        return flash_attention_ref(q, k, v, causal, scale, head_major, mask,
+                                   segment_ids, dropout, seed)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_fwd: unsupported device "
                          f"{q.device}")
     b, h, h_kv, s, d = _geometry(q, k, v, head_major)
     _check_cuda_call("flash_attention_fwd", q, k, v, d)
+    mask, segment_ids, feats = _features("flash_attention_fwd", q, b, h, s,
+                                         mask, segment_ids, dropout, seed)
     q, k, v = _prep(q), _prep(k), _prep(v)
     out = torch.empty_like(q)
     lse = torch.empty(b, h, s, dtype=torch.float32, device=q.device)
@@ -193,14 +365,15 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None, head_major=False):
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_float,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        ctypes.c_int, ctypes.c_int] + _FEATURE_ARGS + [ctypes.c_void_p])
     with torch.cuda.device(q.device):
         err = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v),
                  _build.ptr(out), _build.ptr(lse), b, h, h_kv, s, d,
                  _strides((q, k, v, out), head_major), _scale(scale, d),
-                 int(bool(causal)), dtype_code(q), _build.stream(q.device))
+                 int(bool(causal)), dtype_code(q), *feats,
+                 _build.stream(q.device))
     _build.check(err, "ptt_flash_fwd")
-    flash_attention_fwd.launches += 1
+    _count(flash_attention_fwd, "flash_fwd", mask, segment_ids, dropout)
     return out, lse
 
 
@@ -209,54 +382,61 @@ flash_attention_fwd.launches = 0
 _BWD_ARGS = [ctypes.c_void_p] * 6
 
 
-def flash_bwd_dkv(q, k, v, dout, lse, delta, causal, scale, head_major):
+def flash_bwd_dkv(q, k, v, dout, lse, delta, causal, scale, head_major,
+                  mask=None, segment_ids=None, dropout=0.0, seed=0):
     """The dK/dV kernel → (dk like k, dv like v).  CPU tensors take
     `flash_bwd_dkv_ref`; CUDA tensors must come as `flash_attention_bwd`
     prepares them."""
     if q.device.type == "cpu":
         return flash_bwd_dkv_ref(q, k, v, dout, lse, delta, causal, scale,
-                                 head_major)
+                                 head_major, mask, segment_ids, dropout, seed)
     b, h, h_kv, s, d = _geometry(q, k, v, head_major)
+    mask, segment_ids, feats = _features("flash_bwd_dkv", q, b, h, s, mask,
+                                         segment_ids, dropout, seed)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     fn = _build.function("ptt_flash_bwd_dkv", _BWD_ARGS + [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        ctypes.c_float, ctypes.c_int, ctypes.c_int] + _FEATURE_ARGS
+        + [ctypes.c_void_p])
     with torch.cuda.device(q.device):
         err = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v),
                  _build.ptr(dout), _build.ptr(lse), _build.ptr(delta),
                  _build.ptr(dk), _build.ptr(dv), b, h, h_kv, s, d,
                  _strides((q, k, v, dout, dk, dv), head_major),
-                 _scale(scale, d), int(bool(causal)), dtype_code(q),
+                 _scale(scale, d), int(bool(causal)), dtype_code(q), *feats,
                  _build.stream(q.device))
     _build.check(err, "ptt_flash_bwd_dkv")
-    flash_bwd_dkv.launches += 1
+    _count(flash_bwd_dkv, "flash_bwd_dkv", mask, segment_ids, dropout)
     return dk, dv
 
 
 flash_bwd_dkv.launches = 0
 
 
-def flash_bwd_dq(q, k, v, dout, lse, delta, causal, scale, head_major):
+def flash_bwd_dq(q, k, v, dout, lse, delta, causal, scale, head_major,
+                 mask=None, segment_ids=None, dropout=0.0, seed=0):
     """The dQ kernel → dq like q.  CPU tensors take `flash_bwd_dq_ref`."""
     if q.device.type == "cpu":
         return flash_bwd_dq_ref(q, k, v, dout, lse, delta, causal, scale,
-                                head_major)
+                                head_major, mask, segment_ids, dropout, seed)
     b, h, h_kv, s, d = _geometry(q, k, v, head_major)
+    mask, segment_ids, feats = _features("flash_bwd_dq", q, b, h, s, mask,
+                                         segment_ids, dropout, seed)
     dq = torch.empty_like(q)
     fn = _build.function("ptt_flash_bwd_dq", _BWD_ARGS + [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_float,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        ctypes.c_int, ctypes.c_int] + _FEATURE_ARGS + [ctypes.c_void_p])
     with torch.cuda.device(q.device):
         err = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v),
                  _build.ptr(dout), _build.ptr(lse), _build.ptr(delta),
                  _build.ptr(dq), b, h, h_kv, s, d,
                  _strides((q, k, v, dout, dq), head_major),
-                 _scale(scale, d), int(bool(causal)), dtype_code(q),
+                 _scale(scale, d), int(bool(causal)), dtype_code(q), *feats,
                  _build.stream(q.device))
     _build.check(err, "ptt_flash_bwd_dq")
-    flash_bwd_dq.launches += 1
+    _count(flash_bwd_dq, "flash_bwd_dq", mask, segment_ids, dropout)
     return dq
 
 
@@ -264,14 +444,17 @@ flash_bwd_dq.launches = 0
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, causal=False, scale=None,
-                        head_major=False):
+                        head_major=False, mask=None, segment_ids=None,
+                        dropout=0.0, seed=0):
     """→ (dq, dk, dv) like q, k, v.  CPU tensors take
     `flash_attention_bwd_ref`; CUDA tensors compute ``delta = rowsum(dO *
     O)`` with one torch op (as the JAX package does outside Pallas) and
-    launch the dK/dV and dQ kernels."""
+    launch the dK/dV and dQ kernels with the forward's features and
+    seed."""
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, out, lse, dout, causal,
-                                       scale, head_major)
+                                       scale, head_major, mask, segment_ids,
+                                       dropout, seed)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: unsupported device "
                          f"{q.device}")
@@ -286,48 +469,74 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal=False, scale=None,
     delta = _delta(out, dout, head_major)
     if not q.numel():
         return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    feats = (mask, segment_ids, dropout, seed)
     dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, causal, scale,
-                           head_major)
-    dq = flash_bwd_dq(q, k, v, dout, lse, delta, causal, scale, head_major)
+                           head_major, *feats)
+    dq = flash_bwd_dq(q, k, v, dout, lse, delta, causal, scale, head_major,
+                      *feats)
     return dq, dk, dv
 
 
 class FlashAttentionFunction(torch.autograd.Function):
     """Flash attention under autograd (the custom VJP of the JAX package's
-    ``_flash_core``): the forward saves out and lse, the backward runs the
-    two backward kernels."""
+    ``_flash_core``): the forward saves out, lse, the mask, the segment ids
+    and the seed; the backward runs the two backward kernels with them.
+    No gradient for the mask (as in the JAX kernels' VJP)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale, head_major):
-        out, lse = flash_attention_fwd(q, k, v, causal, scale, head_major)
-        ctx.save_for_backward(q, k, v, out, lse)
+    def forward(ctx, q, k, v, causal, scale, head_major, mask, segment_ids,
+                dropout, seed):
+        out, lse = flash_attention_fwd(q, k, v, causal, scale, head_major,
+                                       mask, segment_ids, dropout, seed)
+        ctx.save_for_backward(q, k, v, out, lse, mask, segment_ids)
         ctx.cfg = (causal, scale, head_major)
+        ctx.drop = (dropout, seed)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, *ctx.cfg)
-        return dq, dk, dv, None, None, None
+        q, k, v, out, lse, mask, seg = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, *ctx.cfg,
+                                         mask, seg, *ctx.drop)
+        return dq, dk, dv, None, None, None, None, None, None, None
+
+
+def additive_mask(attn_mask):
+    """The public op's mask as the kernels take it: a boolean mask becomes
+    ``where(m, 0, NEG_INF)`` in fp32, any other is cast to fp32; the shape
+    is kept (no expansion)."""
+    if attn_mask is None:
+        return None
+    if attn_mask.dtype == torch.bool:
+        return torch.zeros(attn_mask.shape, dtype=torch.float32,
+                           device=attn_mask.device).masked_fill_(
+                               ~attn_mask, NEG_INF)
+    return attn_mask.float()
 
 
 def flash_attention(query, key, value, attn_mask=None, dropout=0.0,
                     causal=False, training=True, scale=None,
-                    segment_ids=None, head_major=False):
+                    segment_ids=None, head_major=False, generator=None):
     """Public op: ``[B, S, H, D]`` (or ``[B, H, S, D]`` with
     ``head_major``) → attention output like ``query``; GQA when k/v carry
-    fewer heads.  Differentiable (`FlashAttentionFunction`) whenever an
-    input requires grad under grad mode."""
-    if training and dropout > 0.0:
-        raise NotImplementedError(f"flash_attention: dropout {_UNPORTED}")
-    if attn_mask is not None:
-        raise NotImplementedError(f"flash_attention: attn_mask {_UNPORTED}")
-    if segment_ids is not None:
-        raise NotImplementedError(f"flash_attention: segment_ids {_UNPORTED}")
+    fewer heads.  ``attn_mask`` (bool or additive, ``[B|1, H|1, S, S]``),
+    ``segment_ids`` (``[B, S]``) and ``dropout`` (when ``training``) run
+    inside the kernels; the dropout seed comes from ``generator``, a CPU
+    ``torch.Generator`` (None: this module's own, never torch's global
+    RNG).  Differentiable (`FlashAttentionFunction`) whenever an input
+    requires grad under grad mode; a mask that requires grad raises."""
+    dropout = float(dropout) if training else 0.0
+    if attn_mask is not None and attn_mask.requires_grad:
+        raise NotImplementedError(_MASK_GRAD)
+    mask = additive_mask(attn_mask)
+    seg = None if segment_ids is None else segment_ids.to(torch.int32)
+    seed = draw_seed(generator) if dropout > 0.0 else 0
     d = query.shape[-1]
     sc = _scale(scale, d)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (query, key, value)):
         return FlashAttentionFunction.apply(query, key, value, bool(causal),
-                                            sc, bool(head_major))
-    return flash_attention_fwd(query, key, value, causal, sc, head_major)[0]
+                                            sc, bool(head_major), mask, seg,
+                                            dropout, seed)
+    return flash_attention_fwd(query, key, value, causal, sc, head_major,
+                               mask, seg, dropout, seed)[0]

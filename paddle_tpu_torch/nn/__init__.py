@@ -1,5 +1,6 @@
-"""Layers and functional ops of the port's serving path."""
+"""Layers and functional ops of the port's serving and training paths."""
 from . import functional
-from .layers import Embedding, Linear, RMSNorm
+from .layers import Dropout, Embedding, LayerNorm, Linear, RMSNorm
 
-__all__ = ["functional", "Embedding", "Linear", "RMSNorm"]
+__all__ = ["functional", "Dropout", "Embedding", "LayerNorm", "Linear",
+           "RMSNorm"]

@@ -1,10 +1,12 @@
 """Functional ops of the serving and training paths (port of
-paddle_tpu/nn/functional.py: ``rms_norm``, ``silu``, ``linear``,
-``cross_entropy``)."""
+paddle_tpu/nn/functional.py: ``rms_norm``, ``layer_norm``, ``silu``,
+``gelu``, ``dropout``, ``linear``, ``cross_entropy``,
+``scaled_dot_product_attention``)."""
 from __future__ import annotations
 
 import torch
 
+from ..kernels import flash_attention as _fa
 from ..kernels import rms_norm as _rms
 
 
@@ -18,8 +20,68 @@ def rms_norm(x, weight, epsilon=1e-6):
     return _rms.rms_norm(x, weight, epsilon)
 
 
+def layer_norm(x, normalized_shape=None, weight=None, bias=None,
+               epsilon=1e-5):
+    """The JAX package's rounding order, not ``F.layer_norm``'s: the
+    statistics and the normalised value in fp32 for a 16-bit ``x``, that
+    value rounded to x's dtype, then ``* weight + bias`` in x's dtype (the
+    two differ in bf16).  No Pallas kernel backs it on the TPU either."""
+    if isinstance(normalized_shape, int):
+        normalized_shape = [normalized_shape]
+    n_axes = len(normalized_shape) if normalized_shape else 1
+    axes = tuple(range(x.dim() - n_axes, x.dim()))
+    xf = x.float() if x.dtype in (torch.bfloat16, torch.float16) else x
+    mean = xf.mean(dim=axes, keepdim=True)
+    var = (xf - mean).square().mean(dim=axes, keepdim=True)
+    out = ((xf - mean) * torch.rsqrt(var + epsilon)).to(x.dtype)
+    if weight is not None:
+        out = out * weight
+    if bias is not None:
+        out = out + bias
+    return out
+
+
 def silu(x):
     return torch.nn.functional.silu(x)
+
+
+def gelu(x, approximate=False):
+    """GELU; ``approximate=True`` is the tanh form (GPT-2's), as
+    ``jax.nn.gelu(approximate=True)``."""
+    return torch.nn.functional.gelu(
+        x, approximate="tanh" if approximate else "none")
+
+
+_generators = {}
+
+
+def default_generator(device):
+    """This package's own generator for ``device`` (seed 0), used by
+    `dropout` when the caller passes none; never torch's global RNG."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    if dev not in _generators:
+        _generators[dev] = torch.Generator(device=dev).manual_seed(0)
+    return _generators[dev]
+
+
+def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
+            generator=None):
+    """``upscale_in_train`` dropout: each element kept with probability
+    ``1 - p`` (a uniform draw from ``generator``, a ``torch.Generator`` on
+    x's device) and divided by ``1 - p``; the identity when not training
+    or ``p == 0``."""
+    if not training or p == 0.0:
+        return x
+    if mode != "upscale_in_train" or axis is not None:
+        raise NotImplementedError(
+            f"dropout: mode={mode!r}, axis={axis!r}: only upscale_in_train "
+            "over every element is ported")
+    gen = default_generator(x.device) if generator is None else generator
+    keep = torch.rand(x.shape, device=x.device, generator=gen) < 1.0 - p
+    return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype,
+                                                        device=x.device))
 
 
 def linear(x, weight, bias=None):
@@ -70,3 +132,15 @@ def cross_entropy(input, label, ignore_index=-100):  # noqa: A002
     loss = _SoftmaxXent.apply(input, label, ignore_index)
     count = (label != ignore_index).sum().to(loss.dtype)
     return loss.sum() / count.clamp_min(1.0)
+
+
+def scaled_dot_product_attention(query, key, value, attn_mask=None,
+                                 dropout_p=0.0, is_causal=False,
+                                 training=True, generator=None):
+    """``[B, S, H, D]`` attention through the flash kernels
+    (`kernels.flash_attention.flash_attention`), as the JAX package routes
+    it to its Pallas kernels: a boolean or additive ``attn_mask``,
+    in-kernel dropout seeded from ``generator`` (a CPU generator)."""
+    return _fa.flash_attention(query, key, value, attn_mask=attn_mask,
+                               dropout=dropout_p, causal=is_causal,
+                               training=training, generator=generator)

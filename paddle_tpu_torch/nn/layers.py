@@ -1,6 +1,7 @@
-"""Layers of the serving path (port of paddle_tpu/nn/layers_common.py
-``Linear``, ``Embedding``, ``RMSNorm``), with the same parameter names and
-layouts so state dicts cross unchanged: ``Linear.weight`` is ``[in, out]``.
+"""Layers of the serving and training paths (port of
+paddle_tpu/nn/layers_common.py ``Linear``, ``Embedding``, ``RMSNorm``,
+``LayerNorm``, ``Dropout``), with the same parameter names and layouts so
+state dicts cross unchanged: ``Linear.weight`` is ``[in, out]``.
 
 Parameters are allocated uninitialised on the requested device and filled
 by `reset_parameters` (under ``torch.no_grad()``) from an explicit
@@ -70,3 +71,42 @@ class RMSNorm(nn.Module):
 
     def forward(self, x):
         return F.rms_norm(x, self.weight, self._epsilon)
+
+
+class LayerNorm(nn.Module):
+    """``weight`` (ones) and ``bias`` (zeros) over ``normalized_shape``."""
+
+    def __init__(self, normalized_shape, epsilon=1e-5, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        if isinstance(normalized_shape, int):
+            normalized_shape = [normalized_shape]
+        self._normalized_shape = list(normalized_shape)
+        self._epsilon = epsilon
+        self.weight = nn.Parameter(torch.empty(
+            self._normalized_shape, device=device, dtype=dtype))
+        self.bias = nn.Parameter(torch.empty(
+            self._normalized_shape, device=device, dtype=dtype))
+
+    def reset_parameters(self, generator=None):
+        self.weight.fill_(1.0)
+        self.bias.zero_()
+
+    def forward(self, x):
+        return F.layer_norm(x, self._normalized_shape, self.weight,
+                            self.bias, self._epsilon)
+
+
+class Dropout(nn.Module):
+    """``upscale_in_train`` dropout while training, the identity in
+    ``eval()``; the mask is drawn from ``generator`` (a ``torch.Generator``
+    on the input's device; None: the package's default for the device)."""
+
+    def __init__(self, p=0.5, generator=None):
+        super().__init__()
+        self.p = p
+        self.generator = generator
+
+    def forward(self, x):
+        return F.dropout(x, self.p, training=self.training,
+                         generator=self.generator)

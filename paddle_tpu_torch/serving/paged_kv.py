@@ -32,19 +32,20 @@ import itertools
 import numpy as np
 import torch
 
-from ..device import to_torch_dtype
+from ..device import resolve_device, to_torch_dtype
 from ..quantization import kv_quant_params
 
 
 class PagedKVCache:
     """Host bookkeeping is numpy; `layer_caches` uploads the offsets and
     the page table once per scheduler iteration, and only after a
-    host-side change."""
+    host-side change.  The pools live on ``device`` (None → the card; it
+    raises without CUDA unless the caller passes ``"cpu"``)."""
 
     def __init__(self, num_layers, num_slots, max_len, num_kv_heads,
                  head_dim, page_size=16, num_pages=None, dtype="float32",
-                 device="cpu"):
-        self.device = torch.device(device)
+                 device=None):
+        self.device = resolve_device(device)
         self.num_slots = int(num_slots)
         self.page_size = int(page_size)
         self.max_len = int(max_len)

@@ -301,8 +301,120 @@ def test_flash_attention_refuses_what_it_does_not_take(card):
     with pytest.raises(ValueError, match="head_dim 48"):
         fa.flash_attention(q, q, q, causal=True)
     q = torch.zeros(1, 16, 2, 64, device=card, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        fa.flash_attention(q, q, q, dropout=0.1)
+    mask = torch.zeros(1, 1, 16, 16, device=card, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="mask gradient"):
+        fa.flash_attention(q, q, q, attn_mask=mask)
+    with pytest.raises(ValueError, match="mask"):
+        fa.flash_attention_fwd(q, q, q, mask=torch.zeros(1, 3, 16, 16,
+                                                         device=card))
+
+
+FEATURE_CASES = [
+    # b, h, h_kv, s, d, causal, head_major, features
+    (2, 4, 2, 130, 64, True, True, "dropout"),     # GQA, ragged S
+    (2, 4, 4, 96, 32, False, False, "dropout"),
+    (2, 4, 2, 130, 64, True, True, "bool"),        # padding, a dead row
+    (1, 4, 2, 200, 128, False, False, "additive"),  # [1, H, S, S]
+    (2, 4, 2, 130, 64, True, True, "segments"),
+    (2, 4, 2, 130, 64, False, False, "all"),       # + a dead row
+]
+
+
+def _features(card, kind, b, h, s, seed):
+    """(mask, segment_ids, dropout, dead row or None) of a case: a boolean
+    key-padding mask as 0 / NEG_INF, an additive N(0, 1) bias, four
+    segments a row, or all of them with dropout 0.1."""
+    g = torch.Generator(device=card).manual_seed(100 + seed)
+    mask = seg = dead = None
+    dropout = 0.1 if kind in ("dropout", "all") else 0.0
+    if kind in ("bool", "all"):
+        keep = torch.ones(b, 1, s, s, dtype=torch.bool, device=card)
+        keep[:, :, :, s - 20:] = False
+        keep[b - 1, 0, 7] = False                  # a fully masked q row
+        dead = (b - 1, 7)
+        mask = fa.additive_mask(keep)
+    if kind == "additive":
+        mask = torch.randn(1, h, s, s, device=card, generator=g)
+    if kind == "all":
+        mask = mask + torch.randn(b, 1, s, s, device=card, generator=g)
+    if kind in ("segments", "all"):
+        seg = (torch.arange(s, device=card) * 4 // s).to(torch.int32)
+        seg = seg[None].repeat(b, 1)
+    return mask, seg, dropout, dead
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_features_on_card(card, dtype):
+    """Dropout, masks and segment ids in the three kernels against their
+    plain versions (the same seed, the same keep-mask): out and each
+    gradient row by row within ROW_TOL of the row's own norm, lse 2e-5
+    (fp32) or 1e-3; a fully masked row gives out 0 and dq 0 on both; each
+    call counted under its variant; the plain version at seed + 1 is
+    rejected."""
+    for i, (b, h, h_kv, s, d, causal, hm, kind) in enumerate(FEATURE_CASES):
+        q, k, v, do = _attn_inputs(card, b, h, h_kv, s, d, dtype, hm, 20 + i)
+        mask, seg, p, dead = _features(card, kind, b, h, s, i)
+        feats = dict(mask=mask, segment_ids=seg, dropout=p, seed=1234 + i)
+        variant = "dropout" if kind == "dropout" else "masked"
+        before = kernels.launch_counts()
+        out, lse = fa.flash_attention_fwd(q, k, v, causal, None, hm, **feats)
+        grads = fa.flash_attention_bwd(q, k, v, out, lse, do, causal, None,
+                                       hm, **feats)
+        after = kernels.launch_counts()
+        for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+            assert after[f"{name}_{variant}"] == \
+                before[f"{name}_{variant}"] + 1, (i, name)
+            assert after[name] == before[name], (i, name)
+        out_ref, lse_ref = fa.flash_attention_ref(q, k, v, causal, None, hm,
+                                                  **feats)
+        assert _row_err(out, out_ref) < ROW_TOL[dtype], (i, kind)
+        tol = 2e-5 if dtype == torch.float32 else 1e-3
+        torch.testing.assert_close(lse, lse_ref, rtol=tol, atol=tol)
+        wants = fa.flash_attention_bwd_ref(q, k, v, out, lse, do, causal,
+                                           None, hm, **feats)
+        scale = max(_rms_row_norm(w) for w in wants)
+        for got, want in zip(grads, wants):
+            assert got.shape == want.shape and got.dtype == dtype
+            assert _row_err(got, want, scale) < ROW_TOL[dtype], (i, kind)
+        if dead is not None:
+            bi, row = dead
+            for t in (out, out_ref, grads[0], wants[0]):
+                t_bh = t if hm else t.transpose(1, 2)
+                assert not t_bh[bi, :, row].any(), (i, kind)
+        if p:
+            wrong, _ = fa.flash_attention_ref(q, k, v, causal, None, hm,
+                                              **dict(feats, seed=1235 + i))
+            assert _row_err(out, wrong) > 10 * ROW_TOL[dtype], (i, kind)
+
+
+@pytest.mark.cuda
+def test_flash_dropout_op_under_autograd_on_card(card):
+    """The public op with dropout: the seed comes from the CPU generator
+    (equal generators, equal outputs on the CPU and the card), the
+    backward reuses it, and the dropout variants are the ones launched."""
+    q, k, v, do = _attn_inputs(card, 2, 4, 2, 128, 64, torch.float32, True,
+                               30)
+    res = {}
+    for dev in ("cpu", card):
+        gen = torch.Generator().manual_seed(7)
+        qa, ka, va = (t.detach().to(dev).requires_grad_(True)
+                      for t in (q, k, v))
+        before = kernels.launch_counts()
+        out = fa.flash_attention(qa, ka, va, dropout=0.1, causal=True,
+                                 head_major=True, generator=gen)
+        out.backward(do.to(dev))
+        after = kernels.launch_counts()
+        launched = {n: after[n] - before[n] for n in after if
+                    after[n] != before[n]}
+        res[str(dev)] = ([t.detach().cpu() for t in (out, qa.grad, ka.grad,
+                                                     va.grad)], launched)
+    (cpu, cpu_n), (gpu, gpu_n) = res["cpu"], res[str(card)]
+    assert cpu_n == {} and gpu_n == {"flash_fwd_dropout": 1,
+                                     "flash_bwd_dkv_dropout": 1,
+                                     "flash_bwd_dq_dropout": 1}
+    for a, b in zip(cpu, gpu):
+        assert _row_err(b, a) < ROW_TOL[torch.float32]
 
 
 def quant_pools(card, name, P, psz, h_kv, d, seed):

@@ -192,7 +192,8 @@ def test_paged_cache_quant_pools(name):
     """Pools of the storage type, zero; scales float32 [P, page_size] of
     ones; a prefill view shares them; the quantized op writes them back
     in place."""
-    cache = PagedKVCache(2, 2, 32, 2, 16, page_size=8, dtype=name)
+    cache = PagedKVCache(2, 2, 32, 2, 16, page_size=8, dtype=name,
+                         device="cpu")
     lay = cache.layers[0]
     sd = Q.KV_QUANT_DTYPES[name][0]
     assert cache.quant_dtype == name
@@ -210,7 +211,7 @@ def test_paged_cache_quant_pools(name):
     cache.absorb_view(views)
     page = int(cache.table[slot, 0])
     assert bool((lay["k_scale"][page] != 1).all())
-    assert PagedKVCache(1, 1, 16, 1, 8).quant_dtype is None
+    assert PagedKVCache(1, 1, 16, 1, 8, device="cpu").quant_dtype is None
 
 
 # ---------------------------------------------------------------- engine

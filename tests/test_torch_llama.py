@@ -98,7 +98,7 @@ def test_llama_cache_path_matches_jax(pair):
     rng = np.random.default_rng(3)
     prompts = rng.integers(0, 512, (2, 8)).astype(np.int32)
     caches = [JaxPagedKVCache(2, 2, 64, 2, 32, page_size=8),
-              PagedKVCache(2, 2, 64, 2, 32, page_size=8)]
+              PagedKVCache(2, 2, 64, 2, 32, page_size=8, device="cpu")]
     for c in caches:
         slots = [c.allocate(8), c.allocate(8)]
         for s in slots:
@@ -128,8 +128,9 @@ def test_llama_cache_path_matches_jax(pair):
 
 def test_llama_without_cache_raises(pair, monkeypatch):
     """Without a cache the forward runs flash attention (the training
-    path, tests/test_torch_train.py), which raises for what it does not
-    port: attention dropout, named after its ROADMAP item."""
+    path, tests/test_torch_train.py).  Attention dropout runs inside it;
+    what it does not port, a mask that requires grad (no mask gradient),
+    raises, named after its ROADMAP item."""
     jm, tm = pair
     ids = np.random.default_rng(4).integers(0, 512, (1, 12)).astype(np.int32)
     with torch.no_grad():
@@ -140,7 +141,14 @@ def test_llama_without_cache_raises(pair, monkeypatch):
     real = port_llama.flash_attention
     monkeypatch.setattr(port_llama, "flash_attention",
                         lambda *a, **kw: real(*a, dropout=0.1, **kw))
-    with pytest.raises(NotImplementedError, match="dropout.*ROADMAP"):
+    with torch.no_grad():
+        dropped = tm(_t(ids))
+    assert dropped.shape == logits.shape
+    assert not torch.allclose(dropped, logits)
+    mask = torch.zeros(1, 1, 4, 4, requires_grad=True)
+    monkeypatch.setattr(port_llama, "flash_attention",
+                        lambda *a, **kw: real(*a, attn_mask=mask, **kw))
+    with pytest.raises(NotImplementedError, match="mask.*ROADMAP"):
         tm(torch.zeros(1, 4, dtype=torch.int32))
 
 

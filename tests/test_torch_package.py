@@ -11,6 +11,7 @@ import paddle_tpu_torch
 from paddle_tpu_torch import device as D
 from paddle_tpu_torch.kernels import _build
 from paddle_tpu_torch.models import LlamaForCausalLM, llama_config
+from paddle_tpu_torch.serving.paged_kv import PagedKVCache
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
@@ -49,6 +50,16 @@ def test_device_none_raises_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         LlamaForCausalLM(llama_config("tiny"))
     assert D.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_paged_kv_cache_default_device_is_the_card(monkeypatch):
+    """`PagedKVCache` with no device resolves to the card like every other
+    entry point: without CUDA it raises; ``"cpu"`` is taken."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PagedKVCache(1, 1, 16, 1, 8)
+    assert PagedKVCache(1, 1, 16, 1, 8, device="cpu").device == \
+        torch.device("cpu")
 
 
 def test_dtype_names():

@@ -111,14 +111,21 @@ def test_flash_op_differentiates_on_cpu():
 
 
 def test_flash_op_refuses_unported_features():
-    q = torch.zeros(1, 8, 2, 32)
-    for kw, what in ((dict(dropout=0.1), "dropout"),
-                     (dict(attn_mask=torch.zeros(1, 1, 8, 8)), "attn_mask"),
-                     (dict(segment_ids=torch.zeros(1, 8)), "segment_ids")):
-        with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP"):
-            fa.flash_attention(q, q, q, **kw)
-    # dropout outside training is no dropout, as in the JAX op
-    fa.flash_attention(q, q, q, dropout=0.1, training=False)
+    """The one feature left unported is the mask gradient: a mask that
+    requires grad is refused (the kernels, like the Pallas ones, give
+    none), on the CPU as on the card; a mask that does not is taken.
+    Dropout outside training is no dropout, as in the JAX op."""
+    q, k, v, _ = (_t(a) for a in _attn_inputs(12, False, s=8))
+    mask = torch.zeros(1, 1, 8, 8, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="mask.*ROADMAP"):
+        fa.flash_attention(q, k, v, attn_mask=mask)
+    assert torch.equal(fa.flash_attention(q, k, v, attn_mask=mask.detach()),
+                       fa.flash_attention(q, k, v))
+    assert torch.equal(fa.flash_attention(q, k, v, dropout=0.1,
+                                          training=False),
+                       fa.flash_attention(q, k, v))
+    assert not torch.equal(fa.flash_attention(q, k, v, dropout=0.5),
+                           fa.flash_attention(q, k, v))
 
 
 @pytest.mark.parametrize("rows,n", [(8, 128), (32, 256)])
