@@ -7,19 +7,24 @@ Phases, each printed as it ends; any failure exits non-zero before the
 last line:
 
 1. device   the card's name and power limit (nvidia-smi); no card → exit 1
-2. build    every CUDA kernel built with nvcc for sm_90a from csrc/
+2. build    every CUDA kernel built with nvcc for sm_90a from csrc/; the
+            paged-decode kernels' registers and spills (ptxas -v): any
+            spill fails
 3. kernels  each kernel against its plain PyTorch version on the card at
             the serving and training paths' shapes, with its time, the
             plain version's, one PyTorch library call's where there is
             one and its bound; controls: deliberately wrong results that
             the checks must reject; the flash kernels' feature variants
             (dropout 0.1, an additive bias, a key-padding mask with a
-            fully masked row, segment ids) at GPT-2's training shape
+            fully masked row, segment ids) at GPT-2's training shape;
+            paged decode's split plan for each case, a 32-row batch and
+            offsets on the split's edges
 4. serve    Llama-2 7B at full width (32 layers, bf16, random weights
             from a seed) behind the paged Engine: 8 requests, the serving
             kernels' launch counts checked against the steps taken; then
             torch.profiler over a short serving run (device busy share,
-            device time by kernel)
+            device time by kernel) and over one 900-token request
+            (paged decode's device time a decode step)
 5. serve-lora-int8  the same model behind an int8-KV Engine with a
             4-slot LoRA adapter pool (rank pool 16) and three adapters:
             the same 8 requests, six of them under adapters; launch counts
@@ -75,7 +80,8 @@ from paddle_tpu_torch.kernels import flash_attention as fa
 from paddle_tpu_torch.kernels.lora import lora_delta, lora_delta_ref
 from paddle_tpu_torch.kernels.paged_decode import (gather_pages,
                                                    paged_decode_attention,
-                                                   paged_decode_ref)
+                                                   paged_decode_ref,
+                                                   split_plan)
 from paddle_tpu_torch.kernels.rms_norm import (rms_norm, rms_norm_bwd,
                                                rms_norm_bwd_ref,
                                                rms_norm_ref)
@@ -285,12 +291,43 @@ def phase_device():
     return name, card
 
 
+def ptxas_report(build_log, source):
+    """(kernel, registers, spill store bytes, spill load bytes, stack
+    frame bytes) of every kernel ``-Xptxas=-v`` reported for ``source``
+    in the build log."""
+    section = build_log.split(f"== {source}", 1)[-1].split("\n== ", 1)[0]
+    rows, name, spill = [], None, (0, 0, 0)
+    for line in section.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split()
+                    if w.isdigit()]
+            spill = (nums[1], nums[2], nums[0])
+        elif "Used" in line and "registers" in line and name:
+            regs = int(line.split("Used")[1].split()[0])
+            rows.append((name, regs) + spill)
+            name = None
+    return rows
+
+
 def phase_build():
     t0 = time.monotonic()
     path = _build.build()
     _build.library()
     log(f"[build] {path.name} built in {time.monotonic() - t0:.2f} s "
         f"(nvcc, sm_90a, sources {[p.name for p in _build.sources()]})")
+    # the paged-decode kernels keep q, the softmax state and the next
+    # stage's K/V rows in registers: no instantiation may spill
+    rows = ptxas_report(_build.build_log(), "paged_decode.cu")
+    spilled = [r for r in rows if r[2] or r[3]]
+    log(f"[build] paged_decode.cu: {len(rows)} kernels, registers "
+        f"{sorted({r[1] for r in rows})}, spill bytes "
+        f"{sum(r[2] + r[3] for r in rows)}, largest stack frame "
+        f"{max((r[4] for r in rows), default=0)} bytes")
+    if not rows or spilled:
+        raise AssertionError(f"paged_decode.cu kernels spill (or the build "
+                             f"log lists none): {spilled or rows}")
 
 
 def rms_case(dev, rows, n, dtype, gen, timer=None):
@@ -315,10 +352,17 @@ def rms_case(dev, rows, n, dtype, gen, timer=None):
     return err, res
 
 
+def last_split_off(offsets, split):
+    """The offsets with each row's last live split masked off, where the
+    row has more than one: what a merge that dropped that split sees."""
+    return [o - o % split - 1 if o >= split else o for o in offsets]
+
+
 def paged_case(dev, b, h, h_kv, d, psz, n_pages, offsets, dtype, gen,
-               free_row=None, timer=None):
+               free_row=None, timer=None, controls=False):
     """Pools of b * n_pages + 1 pages, a random page table; ``free_row``
-    gets an all-zero table at offset 0 (a free slot on scratch page 0)."""
+    gets an all-zero table at offset 0 (a free slot on scratch page 0).
+    The control: the plain version without each row's last live split."""
     pool_pages = 1 + b * n_pages
     k_pool = torch.randn(pool_pages, psz, h_kv, d, device=dev,
                          generator=gen).to(dtype)
@@ -337,6 +381,12 @@ def paged_case(dev, b, h, h_kv, d, psz, n_pages, offsets, dtype, gen,
             f"off={list(offsets)} {dtype}]")
     check_close(name, out, want, dtype)
     err = max_err(out, want)
+    if controls:
+        split = split_plan(b, h, h_kv, psz, n_pages, dev)[0]
+        wrong = paged_decode_ref(q, k_pool, v_pool, table, torch.tensor(
+            last_split_off(offsets, split), dtype=torch.int32, device=dev))
+        expect_rejected(f"{name} last live split of {split} tokens dropped",
+                        lambda: check_close(name, out, wrong, dtype))
     if timer is None:
         return err, None
     es = k_pool.element_size()
@@ -763,9 +813,20 @@ def adam_case(dev, n, p_dtype, master, decoupled, wd, gen, timer=None,
     es = g.element_size()
     b_ms, b_by = bound(24 * n + es * n + (es * n if master else 0), 15 * n,
                        torch.float32)
+    # the library yardstick: torch._fused_adamw_ (AdamW(fused=True)'s
+    # kernel) on the fp32 master and moments with an fp32 gradient; it
+    # writes no 16-bit parameter
+    lib = [[placed(w)], [g.float()], [placed(m1)], [placed(m2)], [],
+           [torch.tensor(3.0, device=dev)]]
+
+    def fused_adamw():
+        torch._fused_adamw_(*lib, lr=hyper["lr"], beta1=hyper["b1"],
+                            beta2=hyper["b2"], weight_decay=wd,
+                            eps=hyper["eps"], amsgrad=False, maximize=False)
     res = dict(ms=timer(lambda: adam_update(*got, **hyper)),
                plain_ms=timer(lambda: adam_update_ref(*want, **hyper)),
-               library_ms=None, bound_ms=b_ms, bound_by=b_by)
+               library_ms=timer(fused_adamw) if decoupled else None,
+               bound_ms=b_ms, bound_by=b_by)
     return 0.0, res
 
 
@@ -917,7 +978,10 @@ def phase_kernels(dev):
         errs["rms_norm"] = max(errs["rms_norm"], err)
     # paged decode: Llama-2 7B heads (32/32, D 128, page 16) and 70B's
     # GQA heads (64/8); ragged offsets with a free row at 0, page edges,
-    # a 4000-token row, and the serving run's 1024-token table
+    # a 4000-token row, and the serving run's 1024-token table; a 32-row
+    # batch of long rows (one split-free grid already fills the card);
+    # offsets on the edges of the planned split
+    edge = split_plan(4, 32, 32, 16, 64, dev)[0]
     cases = [
         ("7b-serve", dict(b=4, h=32, h_kv=32, d=128, psz=16, n_pages=64,
                           offsets=(100, 300, 500, 620))),
@@ -927,14 +991,24 @@ def phase_kernels(dev):
                            offsets=(511, 512, 1023, 16))),
         ("70b-gqa", dict(b=4, h=64, h_kv=8, d=128, psz=16, n_pages=256,
                          offsets=(3000, 1, 256, 77))),
+        ("7b-batch32", dict(b=32, h=32, h_kv=32, d=128, psz=16, n_pages=64,
+                            offsets=tuple(900 + 4 * i for i in range(31))
+                            + (1023,))),
+        ("7b-split-edges", dict(b=4, h=32, h_kv=32, d=128, psz=16,
+                                n_pages=64, offsets=(edge - 1, edge,
+                                                     edge + 1, 2 * edge))),
     ]
     for dtype in (torch.float32, torch.bfloat16):
         for label, kw in cases:
-            err, res = paged_case(dev, dtype=dtype, gen=gen, timer=timer,
-                                  **kw)
+            err, res = paged_case(
+                dev, dtype=dtype, gen=gen, timer=timer,
+                controls=label == "7b-serve" and dtype == torch.bfloat16,
+                **kw)
             errs["paged_decode"] = max(errs["paged_decode"], err)
-            log(f"[kernels] paged_decode {label} {dtype}: max abs err "
-                f"{err:.3e}; {fmt(res)}")
+            split, n_splits = split_plan(kw["b"], kw["h"], kw["h_kv"],
+                                         kw["psz"], kw["n_pages"], dev)
+            log(f"[kernels] paged_decode {label} {dtype}: {n_splits} splits "
+                f"of {split} tokens; max abs err {err:.3e}; {fmt(res)}")
             timed[("paged_decode", label, dtype)] = res
     errs.update({k: 0.0 for k in ("rms_norm_bwd", "rope", "flash_fwd",
                                   "flash_bwd_dkv", "flash_bwd_dq", "adam")})
@@ -1045,8 +1119,10 @@ def phase_kernels(dev):
             err, res = quant_paged_case(dev, name, gen=gen, timer=timer,
                                         controls=label == "7b-serve", **kw)
             errs[kname] = max(errs[kname], err)
-            log(f"[kernels] {kname} {label}: max abs err {err:.3e}; "
-                f"{fmt(res)}")
+            split, n_splits = split_plan(kw["b"], kw["h"], kw["h_kv"],
+                                         kw["psz"], kw["n_pages"], dev)
+            log(f"[kernels] {kname} {label}: {n_splits} splits of {split} "
+                f"tokens; max abs err {err:.3e}; {fmt(res)}")
             timed[(kname, label)] = res
     # LoRA delta: a decode step (4 rows x 1) and a prefill chunk (4 x 32)
     # through the three projection geometries of Llama-2 7B, rank pool 16
@@ -1137,6 +1213,36 @@ def profile_decode(model, dev, vocab):
         log(f"[profile]   {ms:9.3f} ms  {count:6d}x  {key[:90]}")
 
 
+def profile_long(model, dev, vocab, prompt_len=900, steps=16):
+    """torch.profiler over one long request (a ~900-token prompt, 16
+    decode steps): paged decode's device time per decode step and the
+    device's busy share of the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(10)
+    prompt = rng.integers(0, vocab, (prompt_len,)).astype(np.int32)
+    with Engine(model, ServingConfig(num_slots=4, max_seq_len=1024,
+                                     cache_dtype="bfloat16")) as eng:
+        eng.generate(prompt[:20], max_new_tokens=2)     # warm
+        steps0 = eng.stats()["decode_steps"]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            eng.submit(prompt, max_new_tokens=steps + 1).result(timeout=300)
+            wall_ms = (time.monotonic() - t0) * 1e3
+        n_steps = eng.stats()["decode_steps"] - steps0
+    rows = device_rows(prof)
+    busy_ms = sum(r[1] for r in rows)
+    paged = [r for r in rows if "paged_decode" in r[0]]
+    paged_ms = sum(r[1] for r in paged)
+    log(f"[profile-long] one {prompt_len}-token prompt, {n_steps} decode "
+        f"steps: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+        f"({100 * busy_ms / wall_ms:.1f}%), paged decode {paged_ms:.3f} ms "
+        f"device ({paged_ms / max(n_steps, 1):.3f} ms a decode step, "
+        f"{sum(r[2] for r in paged)} kernel launches)")
+    for key, ms, count in sorted(paged, key=lambda r: -r[1]):
+        log(f"[profile-long]   {ms:9.3f} ms  {count:6d}x  {key[:90]}")
+
+
 def build_7b(dev):
     cfg = llama_config("llama2-7b")
     t0 = time.monotonic()
@@ -1211,6 +1317,7 @@ def phase_serve(dev, model):
         f"peak {st['kv_pages_peak']} of 16 tokens")
     log(f"[serve] launches {counts} (needed >= {need})")
     profile_decode(model, dev, cfg.vocab_size)
+    profile_long(model, dev, cfg.vocab_size)
     return counts, st
 
 

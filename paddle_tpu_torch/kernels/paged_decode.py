@@ -8,13 +8,22 @@ One new query token per row attends the row's cached positions
 comes with ``k_scale``/``v_scale``, float32 ``[P, page_size]``: one scale
 per cached token row, multiplied in fp32 before the dot.
 
+The kernel cuts the cached sequence into splits (flash-decoding): one
+block per (split, kv head, row) and a second launch that merges each
+row's live splits.  `plan_splits` picks the split from what the host
+knows (the table's capacity, the batch, the heads, the SM count), never
+from ``offsets``, so a captured call stays right when the offsets change
+between replays.
+
 Each storage type keeps its own launch count: `paged_decode_attention`'s
 ``launches`` counts float pools, ``QUANT_LAUNCHES[torch.int8]`` and
-``QUANT_LAUNCHES[torch.float8_e4m3fn]`` the quantized ones.
+``QUANT_LAUNCHES[torch.float8_e4m3fn]`` the quantized ones; one call
+counts one, whatever the number of kernels it takes.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from types import SimpleNamespace
 
@@ -29,6 +38,38 @@ MAX_PAGE_SIZE = 64
 QUANT_CODES = {torch.int8: 3, torch.float8_e4m3fn: 4}
 #: launch counts of the quantized variants, by storage type
 QUANT_LAUNCHES = {dt: SimpleNamespace(launches=0) for dt in QUANT_CODES}
+#: the fewest positions a split holds (rounded up to whole pages)
+MIN_SPLIT_TOKENS = 64
+#: blocks a full-capacity batch should give, in waves of one block an SM
+SPLIT_WAVES = 8
+#: query heads one block serves (csrc/paged_decode.cu: at most 8)
+MAX_REP_PER_BLOCK = 8
+
+
+def plan_splits(capacity, page_size, batch, kv_blocks, sms):
+    """``(split_tokens, n_splits)`` for a page table of ``capacity``
+    positions: splits of whole pages, each at least `MIN_SPLIT_TOKENS`
+    (or the whole capacity), as many as a full-capacity batch of
+    ``batch`` rows x ``kv_blocks`` blocks a row needs for `SPLIT_WAVES`
+    waves over ``sms`` SMs.  The splits cover ``0..capacity`` once."""
+    unit = page_size * -(-MIN_SPLIT_TOKENS // page_size)
+    want = -(-SPLIT_WAVES * sms // (batch * kv_blocks))
+    n = max(1, min(want, -(-capacity // unit)))
+    split = page_size * -(-(-(-capacity // n)) // page_size)
+    return split, -(-capacity // split)
+
+
+@functools.lru_cache(maxsize=None)
+def split_plan(b, h, h_kv, page_size, n_pages, device):
+    """The wrapper's ``(split_tokens, n_splits)`` for a call of this
+    geometry on the CUDA ``device`` (cached: the decode loop asks the same
+    question every layer)."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    groups = -(-(h // h_kv) // MAX_REP_PER_BLOCK)
+    return plan_splits(n_pages * page_size, page_size, b, h_kv * groups, sms)
 
 
 def gather_pages(pool, pt):
@@ -110,21 +151,38 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, offsets,
                      for t in scales):
         raise ValueError("paged_decode_attention: k_scale and v_scale must "
                          f"be float32 {tuple(k_pool.shape[:2])}")
+    n_pages = page_table.shape[1]
+    if n_pages < 1:
+        raise ValueError("paged_decode_attention: the page table has no "
+                         "pages")
     sc = scale if scale is not None else 1.0 / math.sqrt(d)
     out = torch.empty_like(q)
+    split, n_splits = split_plan(b, h, h_kv, psz, n_pages, q.device)
+    # fp32 partials of every split, scratch for the merge: acc [b, h,
+    # n_splits, d], then m and l [b, h, n_splits, 2]; with one split the
+    # first kernel writes ``out`` itself
+    parts = [None, None]
+    if n_splits > 1:
+        n_acc = b * h * n_splits * d
+        scratch = torch.empty(n_acc + 2 * b * h * n_splits, device=q.device,
+                              dtype=torch.float32)
+        parts = [_build.ptr(scratch),
+                 ctypes.c_void_p(scratch.data_ptr() + 4 * n_acc)]
     fn = _build.function("ptt_paged_decode", [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p])
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     kv_code = QUANT_CODES[k_pool.dtype] if quant else dtype_code(k_pool)
     scale_ptrs = [_build.ptr(t) for t in scales] if quant else [None, None]
     with torch.cuda.device(q.device):
         err = fn(_build.ptr(q), _build.ptr(k_pool), _build.ptr(v_pool),
                  *scale_ptrs, _build.ptr(page_table), _build.ptr(offsets),
-                 _build.ptr(out), b, h, h_kv, d, psz, page_table.shape[1],
-                 float(sc), dtype_code(q), kv_code, _build.stream(q.device))
+                 _build.ptr(out), *parts, b, h, h_kv, d, psz, n_pages, split,
+                 n_splits, float(sc), dtype_code(q), kv_code,
+                 _build.stream(q.device))
     _build.check(err, "ptt_paged_decode")
     if quant:
         QUANT_LAUNCHES[k_pool.dtype].launches += 1

@@ -464,6 +464,138 @@ def test_quant_paged_decode_kernel_on_card(card, name, dtype):
     assert after["paged_decode"] == before["paged_decode"]
 
 
+#: pool storage types of the split-decode cases, each with its query type
+POOLS = {"fp32": (torch.float32, torch.float32),
+         "bf16": (torch.bfloat16, torch.bfloat16),
+         "fp16": (torch.float16, torch.float16),
+         "int8": ("int8", torch.bfloat16),
+         "fp8": ("fp8", torch.bfloat16)}
+
+
+def split_inputs(card, pool, b, h, h_kv, d, psz, n, offs, seed=0,
+                 free_row=None, q_dtype=None):
+    """Pools of 1 + b * n pages of ``pool``'s storage type, a random page
+    table and ``offs``; ``free_row`` gets an all-zero table at offset 0.
+    Returns the positional arguments and the scales' keywords."""
+    kv, qd = POOLS[pool]
+    g = torch.Generator(device=card).manual_seed(seed)
+    P = 1 + b * n
+    if isinstance(kv, str):
+        k_pool, v_pool, ks, vs = quant_pools(card, kv, P, psz, h_kv, d, seed)
+        kw = dict(k_scale=ks, v_scale=vs)
+    else:
+        k_pool, v_pool = (torch.randn(P, psz, h_kv, d, device=card,
+                                      generator=g).to(kv) for _ in range(2))
+        kw = {}
+    q = torch.randn(b, h, d, device=card, generator=g).to(q_dtype or qd)
+    pt = (torch.randperm(P - 1, device=card, generator=g) + 1) \
+        .reshape(b, n).to(torch.int32)
+    off = torch.tensor(offs, dtype=torch.int32, device=card)
+    if free_row is not None:
+        pt[free_row] = 0
+        off[free_row] = 0
+    return (q, k_pool, v_pool, pt, off), kw
+
+
+#: (b, h, h_kv, d, psz, n, offsets or "edges", free_row): offsets at a
+#: split's edges, a 4000-token row beside short rows, every row at 0, a
+#: free row, GQA 8:1 at D 128 and 256, 12 query heads a kv head (two
+#: groups of a block), MHA at page sizes 8-64, D not a multiple of the
+#: 16-byte vector (the scalar tail)
+SPLIT_CASES = {
+    "split-edges": (4, 8, 2, 64, 16, 32, "edges", None),
+    "long-row": (4, 4, 4, 128, 16, 256, (4000, 3, 17, 100), None),
+    "all-zero": (3, 8, 2, 64, 16, 16, (0, 0, 0), None),
+    "free-row": (3, 8, 2, 64, 16, 16, (200, 0, 77), 1),
+    "gqa8-d128": (2, 16, 2, 128, 16, 32, (511, 130), None),
+    "gqa8-d256": (2, 16, 2, 256, 16, 32, (300, 64), None),
+    "rep12": (2, 24, 2, 64, 16, 16, (255, 40), None),
+    "psz8": (3, 4, 4, 64, 8, 64, (511, 64, 8), None),
+    "psz16": (3, 4, 4, 64, 16, 32, (300, 63, 0), None),
+    "psz32": (3, 4, 4, 64, 32, 16, (511, 128, 31), None),
+    "psz64": (3, 4, 4, 64, 64, 8, (450, 64, 63), None),
+    "tail-d20": (3, 4, 2, 20, 16, 16, (255, 70, 5), None),
+    "tail-d24": (2, 4, 1, 24, 16, 16, (200, 9), None),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", list(POOLS))
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+def test_split_paged_decode_on_card(card, case, pool):
+    """The split kernel and its merge against the plain version, every
+    pool type, one launch counted under the pool's storage type."""
+    b, h, h_kv, d, psz, n, offs, free_row = SPLIT_CASES[case]
+    split, n_splits = pd.split_plan(b, h, h_kv, psz, n, card)
+    if offs == "edges":
+        offs = (split - 1, split, split + 1, 2 * split)
+    args, kw = split_inputs(card, pool, b, h, h_kv, d, psz, n, offs,
+                            free_row=free_row)
+    name = {"int8": "paged_decode_int8", "fp8": "paged_decode_fp8"} \
+        .get(pool, "paged_decode")
+    before = kernels.launch_counts()[name]
+    out = pd.paged_decode_attention(*args, **kw)
+    ref = pd.paged_decode_ref(*args, **kw)
+    assert kernels.launch_counts()[name] == before + 1
+    assert out.dtype == args[0].dtype and torch.isfinite(out).all()
+    tol = 2e-5 if out.dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    if case == "split-edges":
+        assert n_splits > 1
+
+
+@pytest.mark.cuda
+def test_split_paged_decode_fp32_query_on_bf16_pool(card):
+    args, _ = split_inputs(card, "bf16", 3, 8, 2, 128, 16, 32,
+                           (500, 64, 1), q_dtype=torch.float32)
+    out = pd.paged_decode_attention(*args)
+    assert out.dtype == torch.float32
+    torch.testing.assert_close(out, pd.paged_decode_ref(*args), rtol=2e-5,
+                               atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["bf16", "int8"])
+def test_split_paged_decode_is_deterministic_on_card(card, pool):
+    """No atomics: two calls over many splits give the same bits."""
+    args, kw = split_inputs(card, pool, 4, 32, 8, 128, 16, 64,
+                            (1023, 700, 5, 300))
+    assert pd.split_plan(4, 32, 8, 16, 64, card)[1] > 1
+    first = pd.paged_decode_attention(*args, **kw)
+    second = pd.paged_decode_attention(*args, **kw)
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["bf16", "fp8"])
+def test_split_paged_decode_in_a_cuda_graph_on_card(card, pool):
+    """Captured once, replayed after the offsets and the table changed in
+    place: the split plan does not depend on the offsets, so each replay
+    equals the plain version at the new offsets (a row that grew into
+    later splits included)."""
+    (q, k_pool, v_pool, pt, off), kw = split_inputs(
+        card, pool, 4, 8, 2, 64, 16, 32, (10, 100, 0, 64))
+    assert pd.split_plan(4, 8, 2, 16, 32, card)[1] > 1
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        pd.paged_decode_attention(q, k_pool, v_pool, pt, off, **kw)
+    torch.cuda.current_stream().wait_stream(s)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = pd.paged_decode_attention(q, k_pool, v_pool, pt, off, **kw)
+    g = torch.Generator(device=card).manual_seed(11)
+    for new_off in ((511, 3, 200, 64), (0, 0, 0, 0), (64, 511, 63, 130)):
+        off.copy_(torch.tensor(new_off, dtype=torch.int32))
+        pt.copy_((torch.randperm(pt.numel(), device=card, generator=g) + 1)
+                 .reshape(pt.shape).to(torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        ref = pd.paged_decode_ref(q, k_pool, v_pool, pt, off, **kw)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2,
+                                   atol=2e-2)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_lora_delta_kernel_on_card(card, dtype):

@@ -2,6 +2,8 @@
 version against the JAX package's Pallas kernel in interpret mode, and
 the CPU route of the wrappers.  The CUDA kernels themselves are held
 against their plain versions by tests/test_torch_cuda.py on the card."""
+import inspect
+
 import numpy as np
 import pytest
 import torch
@@ -87,6 +89,40 @@ def test_rms_norm_ref_rounds_once_in_bf16():
     r = torch.rsqrt(xf.pow(2).mean(-1, keepdim=True) + 1e-6)
     want = (xf * r * w.float()).to(torch.bfloat16)
     assert torch.equal(rn.rms_norm_ref(x, w, 1e-6), want)
+
+
+#: (capacity, page_size, batch, kv blocks a row, least waves of 132 SMs):
+#: the 7B bf16 serving table (64 pages of 16) and its int8 one (32 of 32),
+#: 70B's GQA heads at 4096 positions, a 32-row batch, page sizes 8 and 64,
+#: tables shorter than one split, a capacity that is not a multiple of 64
+PLAN_CASES = {
+    "7b-serve": (1024, 16, 4, 32, 2),
+    "7b-serve-int8": (1024, 32, 4, 32, 2),
+    "70b-gqa": (4096, 16, 4, 8, 2),
+    "7b-batch32": (1024, 16, 32, 32, 2),
+    "psz8": (512, 8, 3, 4, 0),
+    "psz64": (4032, 64, 2, 2, 0),
+    "short": (32, 8, 3, 2, 0),
+    "ragged": (208, 16, 1, 1, 0),
+    "one-page": (64, 64, 1, 1, 0),
+}
+
+
+@pytest.mark.parametrize("case", list(PLAN_CASES))
+def test_plan_splits_covers_the_table_in_whole_pages(case):
+    capacity, psz, batch, kv_blocks, waves = PLAN_CASES[case]
+    split, n = pd.plan_splits(capacity, psz, batch, kv_blocks, 132)
+    # the plan never sees the offsets
+    assert "offsets" not in inspect.signature(pd.plan_splits).parameters
+    # split edges on page edges; each position in exactly one split
+    assert split % psz == 0 and n >= 1
+    covered = np.zeros(capacity, np.int64)
+    for i in range(n):
+        covered[i * split:min((i + 1) * split, capacity)] += 1
+    assert (covered == 1).all() and (n - 1) * split < capacity
+    # no split under 64 positions unless the whole table is shorter
+    assert split >= min(pd.MIN_SPLIT_TOKENS, capacity)
+    assert n * batch * kv_blocks >= waves * 132
 
 
 def test_wrappers_refuse_other_devices():
