@@ -8,8 +8,8 @@ last line:
 
 1. device   the card's name and power limit (nvidia-smi); no card → exit 1
 2. build    every CUDA kernel built with nvcc for sm_90a from csrc/; the
-            paged-decode kernels' registers and spills (ptxas -v): any
-            spill fails
+            registers and spills (ptxas -v) of the paged-decode kernels
+            and of every flash backward kernel: any spill fails
 3. kernels  each kernel against its plain PyTorch version on the card at
             the serving and training paths' shapes, with its time, the
             plain version's, one PyTorch library call's where there is
@@ -103,7 +103,7 @@ PEAK_OPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
 PHASES = ("device", "build", "kernels", "serve", "serve-lora-int8", "parity",
           "train", "train-parity", "train-gpt2", "gpt2-parity", "attn-ops")
 TRAIN_KERNELS = ("rms_norm", "rms_norm_bwd", "rope", "flash_fwd",
-                 "flash_bwd_dkv", "flash_bwd_dq", "adam")
+                 "flash_bwd_dkv", "flash_bwd_dq", "flash_bwd_delta", "adam")
 FLASH = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
 DROPOUT_KERNELS = tuple(k + "_dropout" for k in FLASH)
 MASKED_KERNELS = tuple(k + "_masked" for k in FLASH)
@@ -122,6 +122,9 @@ KERNEL_META = {
                       "paddle_tpu/pallas/flash_attention.py:578"),
     "flash_bwd_dq": ("csrc/flash_attention_bwd.cu",
                      "paddle_tpu/pallas/flash_attention.py:608"),
+    # the delta einsum of _pallas_flash_bwd, outside its two pallas_calls
+    "flash_bwd_delta": ("csrc/flash_attention_bwd.cu",
+                        "paddle_tpu/pallas/flash_attention.py:540"),
     "adam": ("csrc/adam.cu", "paddle_tpu/pallas/fused.py:320"),
     "paged_decode_int8": ("csrc/paged_decode.cu",
                           "paddle_tpu/pallas/flash_attention.py:860"),
@@ -318,16 +321,26 @@ def phase_build():
     log(f"[build] {path.name} built in {time.monotonic() - t0:.2f} s "
         f"(nvcc, sm_90a, sources {[p.name for p in _build.sources()]})")
     # the paged-decode kernels keep q, the softmax state and the next
-    # stage's K/V rows in registers: no instantiation may spill
-    rows = ptxas_report(_build.build_log(), "paged_decode.cu")
-    spilled = [r for r in rows if r[2] or r[3]]
-    log(f"[build] paged_decode.cu: {len(rows)} kernels, registers "
-        f"{sorted({r[1] for r in rows})}, spill bytes "
-        f"{sum(r[2] + r[3] for r in rows)}, largest stack frame "
-        f"{max((r[4] for r in rows), default=0)} bytes")
-    if not rows or spilled:
-        raise AssertionError(f"paged_decode.cu kernels spill (or the build "
-                             f"log lists none): {spilled or rows}")
+    # stage's K/V rows in registers, the flash backward kernels their
+    # accumulators and score tiles: no instantiation may spill
+    for source in ("paged_decode.cu", "flash_attention_bwd.cu"):
+        rows = ptxas_report(_build.build_log(), source)
+        spilled = [r for r in rows if r[2] or r[3]]
+        log(f"[build] {source}: {len(rows)} kernels, registers "
+            f"{sorted({r[1] for r in rows})}, spill bytes "
+            f"{sum(r[2] + r[3] for r in rows)}, largest stack frame "
+            f"{max((r[4] for r in rows), default=0)} bytes")
+        if source == "flash_attention_bwd.cu":
+            wg = [r for r in rows if "wgmma" in r[0]]
+            log(f"[build] {source} wgmma kernels (registers at launch, "
+                f"spill bytes): " + ", ".join(
+                    f"{r[0]} {r[1]} {r[2] + r[3]}" for r in wg))
+            if not wg:
+                raise AssertionError(f"{source}: the build log lists no "
+                                     "wgmma kernel")
+        if not rows or spilled:
+            raise AssertionError(f"{source} kernels spill (or the build "
+                                 f"log lists none): {spilled or rows}")
 
 
 def rms_case(dev, rows, n, dtype, gen, timer=None):
@@ -491,10 +504,11 @@ def flash_case(dev, b, h, h_kv, s, d, causal, dtype, gen, timer=None,
     same inputs (the kernel's out and lse, the same delta): out and every
     gradient row by row (`check_rows`), lse 2e-5 (fp32) or 1e-3 (16-bit:
     fp32 sums of up to S exponentials in another order).  The whole
-    backward (`flash_attention_bwd`: delta, then both kernels) must give
-    the two kernels' tensors bit for bit; the plain backward against
-    autograd is a CPU test (tests/test_torch_train_kernels.py).  Returns
-    ({kernel: max abs err}, {kernel or "flash_bwd": timings} or None)."""
+    backward (`flash_attention_bwd`: the delta pass, then both kernels)
+    must give the two kernels' tensors bit for bit; the delta pass is held
+    against `_delta` (`check_delta`); the plain backward against autograd
+    is a CPU test (tests/test_torch_train_kernels.py).  Returns ({kernel:
+    max abs err}, {kernel or "flash_bwd": timings} or None)."""
     def mk(heads):
         return torch.randn(b, heads, s, d, device=dev, generator=gen).to(dtype)
     q, k, v, do = mk(h), mk(h_kv), mk(h_kv), mk(h)
@@ -510,7 +524,8 @@ def flash_case(dev, b, h, h_kv, s, d, causal, dtype, gen, timer=None,
         raise AssertionError(f"{name}: lse max abs err "
                              f"{max_err(lse, lse_ref)}")
     errs["flash_fwd"] = max(errs["flash_fwd"], max_err(lse, lse_ref))
-    delta = (do.float() * out.float()).sum(-1).contiguous()
+    delta = fa.flash_bwd_delta(out, do, True)
+    errs["flash_bwd_delta"] = check_delta(name, delta, out, do)
     dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal, None, True)
     dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, causal, None, True)
     torch.cuda.synchronize()
@@ -568,6 +583,13 @@ def flash_case(dev, b, h, h_kv, s, d, causal, dtype, gen, timer=None,
             plain_ms=timer(lambda ref=ref: ref(q, k, v, do, lse, delta,
                                                causal, None, True)),
             library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    # the delta pass: reads out and dO, writes one fp32 value a row; one
+    # multiply-add an element (fp32, outside the tensor cores)
+    b_ms, b_by = bound(2 * el_q + rows, 2 * b * h * s * d, torch.float32)
+    timed["flash_bwd_delta"] = dict(
+        ms=timer(lambda: fa.flash_bwd_delta(out, do, True)),
+        plain_ms=timer(lambda: fa._delta(out, do, True)),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by)
     # the whole backward (delta + both kernels) beside SDPA's backward
     qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
 
@@ -583,6 +605,22 @@ def flash_case(dev, b, h, h_kv, s, d, causal, dtype, gen, timer=None,
         library_ms=timer(lib_fwd_bwd) - timed["flash_fwd"]["library_ms"],
         bound_ms=b_ms, bound_by=b_by)
     return errs, timed
+
+
+def check_delta(name, got, out, dout):
+    """The delta pass against `_delta` (fp32 sums of D products in another
+    order): each value within 2e-5 of the sum of its terms' magnitudes (2
+    (D - 1) fp32 roundings, both ways, with room).  Returns the max abs
+    err."""
+    want = fa._delta(out, dout, True)
+    mag = fa._delta(out.abs(), dout.abs(), True)
+    err = (got - want).abs()
+    if not bool((err <= 2e-5 * mag + 1e-30).all()) \
+            or not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: delta pass off by "
+                             f"{float((err / mag.clamp_min(1e-30)).max()):.3e}"
+                             " of its terms' magnitudes (tolerance 2e-5)")
+    return float(err.max())
 
 
 FEATURE_SEED = 20261016
@@ -1011,7 +1049,8 @@ def phase_kernels(dev):
                 f"of {split} tokens; max abs err {err:.3e}; {fmt(res)}")
             timed[("paged_decode", label, dtype)] = res
     errs.update({k: 0.0 for k in ("rms_norm_bwd", "rope", "flash_fwd",
-                                  "flash_bwd_dkv", "flash_bwd_dq", "adam")})
+                                  "flash_bwd_dkv", "flash_bwd_dq",
+                                  "flash_bwd_delta", "adam")})
     # RMS-norm backward: the training shape (4096 tokens x 4096) and the
     # scalar tail
     for dtype in (torch.float32, torch.bfloat16):
@@ -1058,8 +1097,9 @@ def phase_kernels(dev):
         if res is not None:
             msg += (f"; fwd {fmt(res['flash_fwd'])}; dK/dV "
                     f"{fmt(res['flash_bwd_dkv'])}; dQ "
-                    f"{fmt(res['flash_bwd_dq'])}; whole backward (delta + "
-                    f"dK/dV + dQ) {fmt(res['flash_bwd'])}")
+                    f"{fmt(res['flash_bwd_dq'])}; delta "
+                    f"{fmt(res['flash_bwd_delta'])}; whole backward (delta"
+                    f" + dK/dV + dQ) {fmt(res['flash_bwd'])}")
             for kname, r in res.items():
                 timed[(kname, label)] = r
         log(msg)
@@ -1072,7 +1112,8 @@ def phase_kernels(dev):
         errs[kname] = max(errs[kname], err)
     log(f"[kernels] flash gpt2 (no features): fwd {fmt(res['flash_fwd'])}; "
         f"dK/dV {fmt(res['flash_bwd_dkv'])}; dQ {fmt(res['flash_bwd_dq'])}; "
-        f"whole backward {fmt(res['flash_bwd'])}")
+        f"delta {fmt(res['flash_bwd_delta'])}; whole backward "
+        f"{fmt(res['flash_bwd'])}")
     errs.update({k: 0.0 for k in DROPOUT_KERNELS + MASKED_KERNELS})
     for kind in ("dropout", "bias", "padding", "segments"):
         case_errs, res, share = feature_case(
@@ -1146,7 +1187,8 @@ def phase_kernels(dev):
                   "rms_norm_bwd": timed[("rms_norm_bwd", torch.bfloat16)],
                   "rope": timed[("rope", "train")],
                   **{k: timed[(k, "7b-train")] for k in (
-                      "flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")},
+                      "flash_fwd", "flash_bwd_dkv", "flash_bwd_dq",
+                      "flash_bwd_delta")},
                   "adam": timed[("adam", "train")],
                   "paged_decode_int8": timed[("paged_decode_int8",
                                               "7b-serve")],

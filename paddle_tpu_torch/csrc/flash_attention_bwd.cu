@@ -1,12 +1,14 @@
-// Flash attention backward, as two kernels: dK/dV and dQ.  Both recompute
-// p = exp(s * scale - lse) from the forward's fp32 log-sum-exp, so nothing
-// O(S^2) is stored; delta = rowsum(dO * O) comes in precomputed (one torch
-// op, as the JAX package computes it outside Pallas).
+// Flash attention backward: a delta pass and two kernels, dK/dV and dQ.
+// Both kernels recompute p from the forward's fp32 log-sum-exp, so
+// nothing O(S^2) is stored; delta = rowsum(dO * O) comes from its own
+// one-pass kernel (the JAX package computes it outside Pallas, one jnp
+// einsum).
 //
 // Replaces: paddle_tpu/pallas/flash_attention.py _pallas_flash_bwd, its
 // _bwd_dkv_kernel (pallas_call at :578) and _bwd_dq_kernel (:608), with
 // their features: the additive mask, segment ids and attention dropout
-// (`Features`, flash_common.cuh), the same keep-mask as the forward's.
+// (`Features`, flash_common.cuh), the same keep-mask as the forward's;
+// and the delta einsum (:540).
 //
 // Bound on the H100: operations.  dK/dV does four products of 2 S^2 D
 // flops per head (s, dp, dv, dk) and dQ three (s, dp, dq): with the
@@ -15,47 +17,63 @@
 // H 32, S 4096, D 128, causal, bf16) the least time of both is 0.347 ms;
 // at GPT-2's (B 8, H 12, S 1024, D 64, causal) dK/dV 0.0261 ms and dQ
 // 0.0195 ms.  A [B, 1, S, S] fp32 mask adds 4 bytes a live score (16.8 MB
-// there), which makes bytes bind: dK/dV 0.0278 ms, dQ 0.0240 ms.  The
-// dropout hash (~12 integer operations a live score, on the CUDA cores)
-// stays below the products.
+// there), which makes bytes bind: dK/dV 0.0278 ms, dQ 0.0240 ms.  Two
+// deterministic kernels repeat s and dp (seven products against five), so
+// the pair reaches at most 71% of the whole backward's bound.  The delta
+// pass is bound by bytes (O and dO read once).
 //
-// Design.  The TPU dK/dV kernel kept one kv block resident and streamed
-// (q head of the GQA group, q block) through its innermost sequential grid
-// axis into VMEM accumulators.  Here one block of four warps owns 64 keys
-// of one (batch, kv head), keeps K and V in shared memory, and loops over
-// the n_rep q heads that share the kv head and over their 32-row q tiles
-// from the diagonal on (causal), double-buffering q, dO, lse and delta by
-// cp.async; each warp accumulates dK and dV for its 16 keys in fp32
-// registers and writes them once.  No atomics: the GQA heads are summed
-// inside the block.  The dQ kernel is the forward's shape: one block per
-// 64-row q tile of one (batch, head), looping over 64-key K/V tiles up to
-// the diagonal.  16-bit inputs run the five products on the tensor cores
-// (mma.sync m16n8k16, fp32 accumulation); s = q k^T and dp = dO v^T are
-// computed transposed in the dK/dV kernel (keys as rows), so p^T and dS^T
-// feed the next products straight from registers, rounded to the input's
-// 16-bit type as the tensor cores need.  fp32 inputs take plain FMA kernels
-// with 32x32 tiles.  Any S >= 1: ragged rows and keys are zero-filled and
-// masked.  Features (FEAT = true, its own instantiation), where p is
-// recomputed: the mask and segments through `feature_score` and the
-// fully-masked guard on every live score; dropout by the forward's hash at
-// the same (b * H + q head, q, key): dK/dV feeds the dropped p / (1 - p)
-// to dV and the dropped dp / (1 - p) to dS = p (dp - delta) scale with the
-// undropped p; dQ drops dp alike.
+// Design, 16-bit D 64 and 128 (both training paths): warp-specialised
+// Hopper kernels (hopper.cuh).  A block has three warpgroups: a producer,
+// whose one issuing warp keeps a ring of stages full by TMA (4-D tensor
+// maps over the [B, heads, S, D] views with their strides; the ragged S
+// edge is TMA's zero fill) and gives its registers to the consumers
+// (setmaxnreg 24 / 240), and two consumer warpgroups of 64 rows each that
+// run every product as wgmma (m64nNk16, fp32 accumulation): the score
+// products with both operands in shared memory, the gradient products
+// with the probabilities or dS as A straight from the score accumulators'
+// registers and the streamed tile as the transposed (MN-major) B.  full
+// and empty mbarriers hand each stage over.  p = 2^(s scale log2e - lse
+// log2e), lse pre-scaled once; the causal and ragged masks run only on
+// tiles that cross the diagonal or the S edge.  dQ: one block per 128 q
+// rows of one (batch, head), Q and dO resident, 64-key K/V tiles
+// streamed, the late (longest) q tiles first.  dK/dV: one block per 128
+// keys of one (batch, kv head), K and V resident, (q tile, dO tile, lse,
+// delta) streamed over the n_rep q heads and their q tiles from the
+// diagonal on, the early (longest) key tiles first; the GQA heads are
+// summed inside the block, so there are no atomics and two calls give the
+// same bits.  Each output is rounded once and stored through shared
+// memory in 16-byte rows.  Features (FEAT = true, its own instantiation):
+// the producer stages the fp32 mask tile by TMA with the stage, segment
+// ids and the fully-masked guard on every live score, and the dropout
+// hash is computed while the dP product is in flight; dK/dV feeds the
+// dropped p / (1 - p) to dV and the dropped dp / (1 - p) to dS = p (dp -
+// delta) scale with the undropped p; dQ drops dp alike.  The plain
+// instantiation runs none of it.
+//
+// D 32 (16-bit) keeps mma.sync m16n8k16 bodies with 64-key / 32-row
+// (dK/dV) and 64-row / 64-key (dQ) tiles double-buffered by cp.async, and
+// fp32 inputs keep plain FMA kernels with 32 x 32 tiles; no training path
+// takes either.  Any S >= 1: ragged rows and keys are zero-filled and
+// masked.
 #include <cmath>
 #include <cstdint>
+#include <cstring>
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace ptt::flash;
+namespace hw = ptt::hopper;
 
-// ---------------------------------------------------------------- dK/dV
+// ------------------------------------------- mma.sync bodies (16-bit D 32)
+// dK/dV
 constexpr int KB = 64;   // keys per block (16 per warp)
 constexpr int QB = 32;   // q rows per step
 
 template <typename T, int D, bool FEAT>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkv_mma(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, const T* __restrict__ dout,
                   const float* __restrict__ lse,
@@ -230,12 +248,12 @@ flash_bwd_dkv_mma(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ------------------------------------------------------------------- dQ
+// dQ
 constexpr int QB2 = 64;   // q rows per block (16 per warp)
 constexpr int KB2 = 64;   // keys per K/V tile
 
 template <typename T, int D, bool FEAT>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_mma(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const T* __restrict__ dout,
                  const float* __restrict__ lse,
@@ -371,6 +389,634 @@ flash_bwd_dq_mma(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ------------------------------------------------- wgmma bodies (D 64, 128)
+// Three warpgroups: a producer (one warp issues every copy; the group
+// gives its registers to the others) and two consumers of 64 rows each.
+constexpr int kWg = 128;                   // threads of a warpgroup
+constexpr int kWgmmaThreads = 3 * kWg;
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kPanelBytes = 128;           // one swizzled row of a panel
+
+template <typename T>
+struct Tma;
+template <>
+struct Tma<__nv_bfloat16> {
+  static constexpr CUtensorMapDataType kType =
+      CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+};
+template <>
+struct Tma<__half> {
+  static constexpr CUtensorMapDataType kType = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+};
+
+// The dynamic shared memory of a block, its shared address rounded up to
+// 1024 bytes (the 128-byte swizzle's period); 1 KB more is allocated.
+__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
+  const uint32_t pad = (1024u - (hw::smem_u32(raw) & 1023u)) & 1023u;
+  return raw + pad;
+}
+
+// Rows `r` and `r + 8` of one thread's 64 x D accumulator, rounded once
+// to T, into `stage` (the group's 64 rows of a swizzled tile, panels
+// `panel` bytes apart), then rows row0.. (< S) of `out` (row stride `ld`
+// elements) by 16-byte stores.  Barrier `bar` syncs the warpgroup.
+template <typename T, int D>
+__device__ __forceinline__ void store_rows(const float (&acc)[D / 2],
+                                           unsigned char* stage,
+                                           uint32_t panel, T* out,
+                                           int64_t ld, int row0, int S,
+                                           int bar) {
+  const int t = threadIdx.x % kWg, warp = t >> 5, lane = t & 31;
+  const int r = 16 * warp + (lane >> 2), c0 = 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    *reinterpret_cast<uint32_t*>(
+        stage + hw::swizzled_offset(r, 8 * j + c0, panel)) =
+        Mma<T>::pack(acc[4 * j], acc[4 * j + 1]);
+    *reinterpret_cast<uint32_t*>(
+        stage + hw::swizzled_offset(r + 8, 8 * j + c0, panel)) =
+        Mma<T>::pack(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+  hw::named_sync(bar, kWg);
+  constexpr int kChunks = D / 8;           // 16-byte chunks a row
+  for (int i = t; i < 64 * kChunks; i += kWg) {
+    const int rr = i / kChunks, cc = i - rr * kChunks;
+    if (row0 + rr < S)
+      *reinterpret_cast<uint4*>(out + (row0 + rr) * ld + cc * 8) =
+          *reinterpret_cast<const uint4*>(
+              stage + hw::swizzled_offset(rr, cc * 8, panel));
+  }
+}
+
+// The dropout keep bits of a thread's scores (bit i: accumulator element
+// i), the forward's hash at (b * H + q head, q position, key position):
+// `hashes(i, qh, kh)` gives element i's split hash of its q and key
+// positions (`kept_split`), `sh` the head's.
+template <int N, typename Hashes>
+__device__ __forceinline__ uint32_t keep_bits(const Features& f, uint32_t sh,
+                                              Hashes hashes) {
+  uint32_t bits = 0;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    uint32_t qh, kh;
+    hashes(i, qh, kh);
+    bits |= static_cast<uint32_t>(kept_split(f, sh, qh, kh)) << i;
+  }
+  return bits;
+}
+
+// ------------------------------------------------------------------- dQ
+// One block owns 128 q rows of one (batch, head): consumer warpgroup w
+// the rows 64 w..; Q, dO, lse and delta stay resident while the producer
+// streams 64-key K/V tiles (and the fp32 mask tile) through a ring of
+// stages.  Per tile: S = Q K^T and dP = dO V^T (both operands in shared
+// memory), p = 2^(s scale log2e - lse log2e), dS in registers, dQ += dS K
+// (A from registers, K as the transposed B).
+constexpr int kDqRows = 128;
+constexpr int kDqKeys = 64;
+
+template <int D, bool FEAT>
+struct DqSmem {
+  static constexpr int kPanels = D / 64;
+  static constexpr int kStages = FEAT ? 2 : 3;
+  static constexpr uint32_t kQPanel = kDqRows * kPanelBytes;
+  static constexpr uint32_t kKPanel = kDqKeys * kPanelBytes;
+  static constexpr uint32_t kKStage = kPanels * kKPanel;
+  static constexpr uint32_t kMaskStage = FEAT ? kDqRows * kDqKeys * 4 : 0;
+  static constexpr uint32_t kQ = 0;
+  static constexpr uint32_t kDo = kQ + kPanels * kQPanel;
+  static constexpr uint32_t kK = kDo + kPanels * kQPanel;
+  static constexpr uint32_t kV = kK + kStages * kKStage;
+  static constexpr uint32_t kMask = kV + kStages * kKStage;
+  static constexpr uint32_t kBar = kMask + kStages * kMaskStage;
+  static constexpr size_t kAlloc = kBar + (1 + 2 * kStages) * 8 + 1024;
+};
+
+template <typename T, int D, bool FEAT>
+__global__ void __launch_bounds__(kWgmmaThreads, 1)
+flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v,
+                   const __grid_constant__ CUtensorMap tm_do,
+                   const __grid_constant__ CUtensorMap tm_mask,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, T* __restrict__ dq,
+                   Strides dqs, int S, int H, int n_rep, float scale,
+                   bool causal, Features f) {
+  using L = DqSmem<D, FEAT>;
+  constexpr int KT = kDqKeys;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sm = aligned_smem(smem_raw);
+  uint64_t* bar_qdo = reinterpret_cast<uint64_t*>(sm + L::kBar);
+  uint64_t* full = bar_qdo + 1;
+  uint64_t* empty = full + L::kStages;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh - b * H, kvh = h / n_rep;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kDqRows;   // late rows first
+  int n_tiles = (S + KT - 1) / KT;
+  if (causal) n_tiles = min(n_tiles, (min(q0 + kDqRows, S) - 1) / KT + 1);
+  const bool has_mask = FEAT && f.mask != nullptr;
+
+  if (threadIdx.x == 0) {
+    hw::mbar_init(bar_qdo, 1);
+    for (int s = 0; s < L::kStages; ++s) {
+      hw::mbar_init(&full[s], 1);
+      hw::mbar_init(&empty[s], 2 * kWg);
+    }
+    hw::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < kWg) {                 // ------------------ producer
+    hw::regs_dealloc<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      hw::mbar_arrive_expect_tx(bar_qdo, 2 * L::kPanels * L::kQPanel);
+      for (int p = 0; p < L::kPanels; ++p) {
+        hw::tma_load_4d(sm + L::kQ + p * L::kQPanel, &tm_q, bar_qdo, 64 * p,
+                        q0, h, b);
+        hw::tma_load_4d(sm + L::kDo + p * L::kQPanel, &tm_do, bar_qdo,
+                        64 * p, q0, h, b);
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % L::kStages;
+        hw::mbar_wait(&empty[st], ((j / L::kStages) & 1) ^ 1);
+        hw::mbar_arrive_expect_tx(
+            &full[st], 2 * L::kKStage + (has_mask ? L::kMaskStage : 0));
+        for (int p = 0; p < L::kPanels; ++p) {
+          hw::tma_load_4d(sm + L::kK + st * L::kKStage + p * L::kKPanel,
+                          &tm_k, &full[st], 64 * p, j * KT, kvh, b);
+          hw::tma_load_4d(sm + L::kV + st * L::kKStage + p * L::kKPanel,
+                          &tm_v, &full[st], 64 * p, j * KT, kvh, b);
+        }
+        if (has_mask)
+          hw::tma_load_4d(sm + L::kMask + st * L::kMaskStage, &tm_mask,
+                          &full[st], j * KT, q0, f.mask_h ? h : 0,
+                          f.mask_b ? b : 0);
+      }
+    }
+    return;
+  }
+  // -------------------------------------------------------- consumers
+  hw::regs_alloc<kConsumerRegs>();
+  const int cw = threadIdx.x / kWg - 1;
+  const int t = threadIdx.x % kWg, warp = t >> 5, lane = t & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int row0 = q0 + 64 * cw;
+  const int ra = row0 + 16 * warp + g, rb = ra + 8;
+  const float scale_l2 = scale * kLog2e;
+  const float* lb = lse + static_cast<int64_t>(bh) * S;
+  const float* db = delta + static_cast<int64_t>(bh) * S;
+  const float lse_a = ra < S ? lb[ra] * kLog2e : 0.f;
+  const float lse_b = rb < S ? lb[rb] * kLog2e : 0.f;
+  const float dl_a = ra < S ? db[ra] : 0.f;
+  const float dl_b = rb < S ? db[rb] : 0.f;
+  const bool masked = FEAT && f.masked();
+  const bool drop = FEAT && f.dropout > 0.f;
+  const int* seg = FEAT && f.seg != nullptr
+                       ? f.seg + static_cast<int64_t>(b) * S : nullptr;
+  const int seg_a = seg != nullptr && ra < S ? seg[ra] : 0;
+  const int seg_b = seg != nullptr && rb < S ? seg[rb] : 0;
+  const uint32_t qh_a = hash_q(ra), qh_b = hash_q(rb);
+  // the tiles this group needs: keys up to its last live row
+  const int wg_tiles =
+      row0 >= S ? 0
+                : causal ? min(n_tiles, (min(row0 + 63, S - 1)) / KT + 1)
+                         : n_tiles;
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  const uint64_t q_desc = hw::desc_k_major(sm + L::kQ + 64 * cw * kPanelBytes);
+  const uint64_t do_desc =
+      hw::desc_k_major(sm + L::kDo + 64 * cw * kPanelBytes);
+  hw::mbar_wait(bar_qdo, 0);
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j % L::kStages;
+    hw::mbar_wait(&full[st], (j / L::kStages) & 1);
+    if (j < wg_tiles) {
+      const int k0 = j * KT;
+      unsigned char* k_s = sm + L::kK + st * L::kKStage;
+      const uint64_t k_desc = hw::desc_k_major(k_s);
+      const uint64_t v_desc = hw::desc_k_major(sm + L::kV + st * L::kKStage);
+      float s[KT / 2], dp[KT / 2];
+      hw::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t a = ((kk / 4) * L::kQPanel + (kk % 4) * 32) >> 4;
+        const uint32_t bo = ((kk / 4) * L::kKPanel + (kk % 4) * 32) >> 4;
+        hw::Wgmma<T, KT>::ss(s, q_desc + a, k_desc + bo, kk > 0);
+      }
+      hw::wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t a = ((kk / 4) * L::kQPanel + (kk % 4) * 32) >> 4;
+        const uint32_t bo = ((kk / 4) * L::kKPanel + (kk % 4) * 32) >> 4;
+        hw::Wgmma<T, KT>::ss(dp, do_desc + a, v_desc + bo, kk > 0);
+      }
+      hw::wgmma_commit();
+      hw::wgmma_wait<1>();                 // S is in; dP still running
+      hw::fence_regs(s);
+      // element i: row (i & 2 ? rb : ra), key k0 + 8 (i >> 2) + 2 t4 + (i & 1)
+      if (!masked) {                       // dropout alone takes it too
+        const bool edge = (causal && k0 + KT - 1 > row0) || k0 + KT > S ||
+                          row0 + 64 > S;
+        if (edge) {
+#pragma unroll
+          for (int i = 0; i < KT / 2; ++i) {
+            const int col = k0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
+            const int row = i & 2 ? rb : ra;
+            const bool live = col < S && row < S && (!causal || col <= row);
+            const float p =
+                hw::ex2(fmaf(s[i], scale_l2, -(i & 2 ? lse_b : lse_a)));
+            s[i] = live ? p : 0.f;
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < KT / 2; ++i)
+            s[i] = hw::ex2(fmaf(s[i], scale_l2, -(i & 2 ? lse_b : lse_a)));
+        }
+      } else {
+        const float* mask_s = reinterpret_cast<const float*>(
+            sm + L::kMask + st * L::kMaskStage);
+#pragma unroll
+        for (int i = 0; i < KT / 2; ++i) {
+          const int kc = 8 * (i >> 2) + 2 * t4 + (i & 1), col = k0 + kc;
+          const int rl = 64 * cw + 16 * warp + g + (i & 2 ? 8 : 0);
+          const int row = q0 + rl;
+          const bool live = col < S && row < S && (!causal || col <= row);
+          float x = s[i] * scale;
+          if (masked && live) {
+            if (seg != nullptr && seg[col] != (i & 2 ? seg_b : seg_a))
+              x = kNegInf;
+            if (has_mask) x += mask_s[rl * KT + kc];
+          }
+          float p = live ? hw::ex2(fmaf(x, kLog2e, -(i & 2 ? lse_b : lse_a)))
+                         : 0.f;
+          if (masked) p = guard(p, x);
+          s[i] = p;
+        }
+      }
+      uint32_t keep = 0;                   // the hash runs beside dP
+      if (drop)
+        keep = keep_bits<KT / 2>(
+            f, hash_head(f, static_cast<uint32_t>(bh)),
+            [&](int i, uint32_t& qh, uint32_t& kh) {
+              qh = i & 2 ? qh_b : qh_a;
+              kh = hash_k(k0 + 8 * (i >> 2) + 2 * t4 + (i & 1));
+            });
+      hw::wgmma_wait<0>();
+      hw::fence_regs(dp);
+#pragma unroll
+      for (int i = 0; i < KT / 2; ++i) {
+        float dpv = dp[i];
+        if (drop) dpv = survivor(f, (keep >> i) & 1u, dpv);
+        dp[i] = s[i] * (dpv - (i & 2 ? dl_b : dl_a)) * scale;
+      }
+      uint32_t ds[KT / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < KT / 16; ++kk) {
+        ds[kk][0] = Mma<T>::pack(dp[8 * kk], dp[8 * kk + 1]);
+        ds[kk][1] = Mma<T>::pack(dp[8 * kk + 2], dp[8 * kk + 3]);
+        ds[kk][2] = Mma<T>::pack(dp[8 * kk + 4], dp[8 * kk + 5]);
+        ds[kk][3] = Mma<T>::pack(dp[8 * kk + 6], dp[8 * kk + 7]);
+      }
+      const uint64_t kt_desc = hw::desc_mn_major(k_s, L::kKPanel);
+      hw::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KT / 16; ++kk)
+        hw::Wgmma<T, D, 1>::rs(acc, ds[kk],
+                               kt_desc + ((kk * 16 * kPanelBytes) >> 4), 1);
+      hw::wgmma_commit();
+      hw::wgmma_wait<0>();
+      hw::fence_regs(acc);
+    }
+    hw::mbar_arrive(&empty[st]);
+  }
+  // dQ rounded once, through this group's (now unused) Q rows
+  store_rows<T, D>(acc, sm + L::kQ + 64 * cw * kPanelBytes, L::kQPanel,
+                   dq + b * dqs.b + h * dqs.h, dqs.s, row0, S, 1 + cw);
+}
+
+// ---------------------------------------------------------------- dK/dV
+// One block owns 128 keys of one (batch, kv head): consumer warpgroup w
+// the keys 64 w..; K and V stay resident while the producer streams a
+// ring of (q tile, dO tile, lse log2e, delta, the fp32 mask tile) over the
+// n_rep q heads of the group and their q tiles from the diagonal on.  Per
+// stage, keys as the rows: S^T = K Q^T and dP^T = V dO^T, then dV +=
+// P~^T dO and dK += dS^T Q (A from registers, dO and Q as the transposed
+// B).  The GQA heads are summed inside the block: no atomics.
+constexpr int kDkvKeys = 128;
+
+template <int D, bool FEAT>
+struct DkvSmem {
+  // q rows a stage; at D 128 with features 64 rows spill (the features'
+  // registers beside 2 x 64 accumulators and two 64 x 64 score tiles)
+  static constexpr int QT = D == 128 && FEAT ? 32 : 64;
+  static constexpr int kPanels = D / 64;
+  static constexpr int kStages = FEAT ? 2 : 3;
+  static constexpr uint32_t kKPanel = kDkvKeys * kPanelBytes;
+  static constexpr uint32_t kQPanel = QT * kPanelBytes;
+  static constexpr uint32_t kQStage = kPanels * kQPanel;
+  static constexpr uint32_t kMaskStage = FEAT ? QT * kDkvKeys * 4 : 0;
+  static constexpr uint32_t kK = 0;
+  static constexpr uint32_t kV = kK + kPanels * kKPanel;
+  static constexpr uint32_t kQ = kV + kPanels * kKPanel;
+  static constexpr uint32_t kDo = kQ + kStages * kQStage;
+  static constexpr uint32_t kMask = kDo + kStages * kQStage;
+  static constexpr uint32_t kRows = kMask + kStages * kMaskStage;
+  static constexpr uint32_t kBar = kRows + kStages * 2 * QT * 4;
+  static constexpr size_t kAlloc = kBar + (1 + 2 * kStages) * 8 + 1024;
+};
+
+template <typename T, int D, bool FEAT>
+__global__ void __launch_bounds__(kWgmmaThreads, 1)
+flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const __grid_constant__ CUtensorMap tm_do,
+                    const __grid_constant__ CUtensorMap tm_mask,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, T* __restrict__ dk,
+                    T* __restrict__ dv, Strides dks, Strides dvs, int S,
+                    int H, int n_rep, float scale, bool causal, Features f) {
+  using L = DkvSmem<D, FEAT>;
+  constexpr int QT = L::QT;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sm = aligned_smem(smem_raw);
+  uint64_t* bar_kv = reinterpret_cast<uint64_t*>(sm + L::kBar);
+  uint64_t* full = bar_kv + 1;
+  uint64_t* empty = full + L::kStages;
+
+  const int h_kv = H / n_rep;
+  const int bkv = blockIdx.x;
+  const int b = bkv / h_kv, kvh = bkv - b * h_kv;
+  const int k0 = blockIdx.y * kDkvKeys;   // the longest key tiles first
+  const int nq = (S + QT - 1) / QT;
+  const int i0 = causal ? k0 / QT : 0;
+  const int per_head = nq - i0;
+  const int steps = n_rep * per_head;
+  const bool has_mask = FEAT && f.mask != nullptr;
+
+  if (threadIdx.x == 0) {
+    hw::mbar_init(bar_kv, 1);
+    for (int s = 0; s < L::kStages; ++s) {
+      hw::mbar_init(&full[s], 32);         // the producer warp's lanes
+      hw::mbar_init(&empty[s], 2 * kWg);
+    }
+    hw::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < kWg) {                 // ------------------ producer
+    hw::regs_dealloc<kProducerRegs>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        hw::mbar_arrive_expect_tx(bar_kv, 2 * L::kPanels * L::kKPanel);
+        for (int p = 0; p < L::kPanels; ++p) {
+          hw::tma_load_4d(sm + L::kK + p * L::kKPanel, &tm_k, bar_kv,
+                          64 * p, k0, kvh, b);
+          hw::tma_load_4d(sm + L::kV + p * L::kKPanel, &tm_v, bar_kv,
+                          64 * p, k0, kvh, b);
+        }
+      }
+      for (int t = 0; t < steps; ++t) {
+        const int st = t % L::kStages;
+        hw::mbar_wait(&empty[st], ((t / L::kStages) & 1) ^ 1);
+        const int h = kvh * n_rep + t / per_head;
+        const int q0 = (i0 + t % per_head) * QT;
+        float* rows = reinterpret_cast<float*>(sm + L::kRows) + st * 2 * QT;
+        const int64_t base = (static_cast<int64_t>(b) * H + h) * S;
+        for (int r = lane; r < QT; r += 32) {
+          const bool ok = q0 + r < S;
+          rows[r] = ok ? lse[base + q0 + r] * kLog2e : 0.f;
+          rows[QT + r] = ok ? delta[base + q0 + r] : 0.f;
+        }
+        if (lane == 0) {
+          hw::mbar_arrive_expect_tx(
+              &full[st], 2 * L::kQStage + (has_mask ? L::kMaskStage : 0));
+          for (int p = 0; p < L::kPanels; ++p) {
+            hw::tma_load_4d(sm + L::kQ + st * L::kQStage + p * L::kQPanel,
+                            &tm_q, &full[st], 64 * p, q0, h, b);
+            hw::tma_load_4d(sm + L::kDo + st * L::kQStage + p * L::kQPanel,
+                            &tm_do, &full[st], 64 * p, q0, h, b);
+          }
+          if (has_mask)
+            hw::tma_load_4d(sm + L::kMask + st * L::kMaskStage, &tm_mask,
+                            &full[st], k0, q0, f.mask_h ? h : 0,
+                            f.mask_b ? b : 0);
+        } else {
+          hw::mbar_arrive(&full[st]);
+        }
+      }
+    }
+    return;
+  }
+  // -------------------------------------------------------- consumers
+  hw::regs_alloc<kConsumerRegs>();
+  const int cw = threadIdx.x / kWg - 1;
+  const int t = threadIdx.x % kWg, warp = t >> 5, lane = t & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int kw0 = k0 + 64 * cw;
+  const int key_a = kw0 + 16 * warp + g, key_b = key_a + 8;
+  const float scale_l2 = scale * kLog2e;
+  const bool masked = FEAT && f.masked();
+  const bool drop = FEAT && f.dropout > 0.f;
+  const int* seg = FEAT && f.seg != nullptr
+                       ? f.seg + static_cast<int64_t>(b) * S : nullptr;
+  const int seg_a = seg != nullptr && key_a < S ? seg[key_a] : 0;
+  const int seg_b = seg != nullptr && key_b < S ? seg[key_b] : 0;
+  const uint32_t kh_a = hash_k(key_a), kh_b = hash_k(key_b);
+
+  float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  const uint64_t k_desc = hw::desc_k_major(sm + L::kK + 64 * cw * kPanelBytes);
+  const uint64_t v_desc = hw::desc_k_major(sm + L::kV + 64 * cw * kPanelBytes);
+  hw::mbar_wait(bar_kv, 0);
+
+  for (int step = 0; step < steps; ++step) {
+    const int st = step % L::kStages;
+    hw::mbar_wait(&full[st], (step / L::kStages) & 1);
+    const int h = kvh * n_rep + step / per_head;
+    const int q0 = (i0 + step % per_head) * QT;
+    // nothing to do when every q row of the tile precedes every key
+    if (kw0 < S && !(causal && q0 + QT - 1 < kw0)) {
+      unsigned char* q_s = sm + L::kQ + st * L::kQStage;
+      unsigned char* do_s = sm + L::kDo + st * L::kQStage;
+      const uint64_t q_desc = hw::desc_k_major(q_s);
+      const uint64_t do_desc = hw::desc_k_major(do_s);
+      const float* rows =
+          reinterpret_cast<const float*>(sm + L::kRows) + st * 2 * QT;
+      float s[QT / 2], dp[QT / 2];
+      hw::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t a = ((kk / 4) * L::kKPanel + (kk % 4) * 32) >> 4;
+        const uint32_t bo = ((kk / 4) * L::kQPanel + (kk % 4) * 32) >> 4;
+        hw::Wgmma<T, QT>::ss(s, k_desc + a, q_desc + bo, kk > 0);
+      }
+      hw::wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t a = ((kk / 4) * L::kKPanel + (kk % 4) * 32) >> 4;
+        const uint32_t bo = ((kk / 4) * L::kQPanel + (kk % 4) * 32) >> 4;
+        hw::Wgmma<T, QT>::ss(dp, v_desc + a, do_desc + bo, kk > 0);
+      }
+      hw::wgmma_commit();
+      hw::wgmma_wait<1>();                 // S^T is in; dP^T still running
+      hw::fence_regs(s);
+      // element i: key (i & 2 ? key_b : key_a), q q0 + 8 (i >> 2) + 2 t4
+      // + (i & 1)
+      if (!masked) {                       // dropout alone takes it too
+        const bool edge = (causal && kw0 + 63 > q0) || q0 + QT > S ||
+                          kw0 + 64 > S;
+        if (edge) {
+#pragma unroll
+          for (int i = 0; i < QT / 2; ++i) {
+            const int qc = 8 * (i >> 2) + 2 * t4 + (i & 1), qi = q0 + qc;
+            const int key = i & 2 ? key_b : key_a;
+            const bool live = qi < S && key < S && (!causal || key <= qi);
+            const float p = hw::ex2(fmaf(s[i], scale_l2, -rows[qc]));
+            s[i] = live ? p : 0.f;
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < QT / 2; ++i) {
+            const int qc = 8 * (i >> 2) + 2 * t4 + (i & 1);
+            s[i] = hw::ex2(fmaf(s[i], scale_l2, -rows[qc]));
+          }
+        }
+      } else {
+        const float* mask_s = reinterpret_cast<const float*>(
+            sm + L::kMask + st * L::kMaskStage);
+#pragma unroll
+        for (int i = 0; i < QT / 2; ++i) {
+          const int qc = 8 * (i >> 2) + 2 * t4 + (i & 1), qi = q0 + qc;
+          const int kl = 64 * cw + 16 * warp + g + (i & 2 ? 8 : 0);
+          const int key = k0 + kl;
+          const bool live = qi < S && key < S && (!causal || key <= qi);
+          float x = s[i] * scale;
+          if (masked && live) {
+            if (seg != nullptr && seg[qi] != (i & 2 ? seg_b : seg_a))
+              x = kNegInf;
+            if (has_mask) x += mask_s[qc * kDkvKeys + kl];
+          }
+          float p = live ? hw::ex2(fmaf(x, kLog2e, -rows[qc])) : 0.f;
+          if (masked) p = guard(p, x);
+          s[i] = p;
+        }
+      }
+      uint32_t keep = 0;                   // the hash runs beside dP^T
+      if (drop)
+        keep = keep_bits<QT / 2>(
+            f, hash_head(f, static_cast<uint32_t>(b * H + h)),
+            [&](int i, uint32_t& qh, uint32_t& kh) {
+              qh = hash_q(q0 + 8 * (i >> 2) + 2 * t4 + (i & 1));
+              kh = i & 2 ? kh_b : kh_a;
+            });
+      hw::wgmma_wait<0>();
+      hw::fence_regs(dp);
+      // dS^T = p (dp - delta) scale with the dropped dp; dV takes the
+      // dropped p
+#pragma unroll
+      for (int i = 0; i < QT / 2; ++i) {
+        const int qc = 8 * (i >> 2) + 2 * t4 + (i & 1);
+        float dpv = dp[i];
+        if (drop) {
+          const bool k = (keep >> i) & 1u;
+          dpv = survivor(f, k, dpv);
+          dp[i] = s[i] * (dpv - rows[QT + qc]) * scale;
+          s[i] = survivor(f, k, s[i]);
+        } else {
+          dp[i] = s[i] * (dpv - rows[QT + qc]) * scale;
+        }
+      }
+      uint32_t pa[QT / 16][4], sa[QT / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < QT / 16; ++kk) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          pa[kk][e] = Mma<T>::pack(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
+          sa[kk][e] =
+              Mma<T>::pack(dp[8 * kk + 2 * e], dp[8 * kk + 2 * e + 1]);
+        }
+      }
+      const uint64_t dot_desc = hw::desc_mn_major(do_s, L::kQPanel);
+      const uint64_t qt_desc = hw::desc_mn_major(q_s, L::kQPanel);
+      hw::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < QT / 16; ++kk)
+        hw::Wgmma<T, D, 1>::rs(dv_acc, pa[kk],
+                               dot_desc + ((kk * 16 * kPanelBytes) >> 4), 1);
+#pragma unroll
+      for (int kk = 0; kk < QT / 16; ++kk)
+        hw::Wgmma<T, D, 1>::rs(dk_acc, sa[kk],
+                               qt_desc + ((kk * 16 * kPanelBytes) >> 4), 1);
+      hw::wgmma_commit();
+      hw::wgmma_wait<0>();
+      hw::fence_regs(dv_acc);
+      hw::fence_regs(dk_acc);
+    }
+    hw::mbar_arrive(&empty[st]);
+  }
+  // rounded once, through this group's (now unused) K and V rows
+  store_rows<T, D>(dk_acc, sm + L::kK + 64 * cw * kPanelBytes, L::kKPanel,
+                   dk + b * dks.b + kvh * dks.h, dks.s, kw0, S, 1 + cw);
+  store_rows<T, D>(dv_acc, sm + L::kV + 64 * cw * kPanelBytes, L::kKPanel,
+                   dv + b * dvs.b + kvh * dvs.h, dvs.s, kw0, S, 1 + cw);
+}
+
+// ---------------------------------------------------------------- delta
+// delta = rowsum(dO * O) in fp32 [B, H, S] in one pass: D / (16 bytes)
+// lanes a row, each one 16-byte load of O and of dO, then a butterfly sum
+// over the row's lanes.  Bound: bytes (O and dO read once).
+constexpr int kDeltaThreads = 256;
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kDeltaThreads)
+flash_bwd_delta(const T* __restrict__ out, const T* __restrict__ dout,
+                float* __restrict__ delta, int S, int H, int64_t rows,
+                Strides os, Strides dos) {
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kLanes = D / kVec;           // 2..32, a power of two
+  constexpr int kRows = kDeltaThreads / kLanes;
+  const int64_t row =
+      static_cast<int64_t>(blockIdx.x) * kRows + threadIdx.x / kLanes;
+  const int part = threadIdx.x % kLanes;
+  float acc = 0.f;
+  if (row < rows) {
+    int64_t bh;
+    int s;
+    if (rows <= INT32_MAX) {               // 32-bit division where it fits
+      const int r = static_cast<int>(row);
+      bh = r / S;
+      s = r - static_cast<int>(bh) * S;
+    } else {
+      bh = row / S;
+      s = static_cast<int>(row - bh * S);
+    }
+    const int b = static_cast<int>(bh / H), h = static_cast<int>(bh - b * H);
+    const uint4 o = *reinterpret_cast<const uint4*>(
+        out + b * os.b + h * os.h + s * os.s + part * kVec);
+    const uint4 d = *reinterpret_cast<const uint4*>(
+        dout + b * dos.b + h * dos.h + s * dos.s + part * kVec);
+    const T* ov = reinterpret_cast<const T*>(&o);
+    const T* dv = reinterpret_cast<const T*>(&d);
+#pragma unroll
+    for (int e = 0; e < kVec; ++e)
+      acc = fmaf(ptt::to_f32(dv[e]), ptt::to_f32(ov[e]), acc);
+  }
+#pragma unroll
+  for (int o = kLanes / 2; o > 0; o >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, o);
+  if (row < rows && part == 0) delta[row] = acc;
+}
+
 // ------------------------------------------------------- fp32 (FMA) path
 // 32 x 32 tiles; thread (r = tid / 4, c = tid % 4) owns row r of the
 // block's rows (keys for dK/dV, q rows for dQ), the scores of columns
@@ -396,7 +1042,7 @@ __device__ __forceinline__ void load_rows_f32(float* dst, const float* src,
 }
 
 template <int D, bool FEAT>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v,
                   const float* __restrict__ dout,
@@ -493,7 +1139,7 @@ flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int D, bool FEAT>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ dout,
                  const float* __restrict__ lse,
@@ -580,6 +1226,87 @@ struct Args {
   cudaStream_t stream;
 };
 
+// The TMA map of a 16-bit [B, heads, S, D] view (element strides `st`),
+// boxes of 64 columns x `rows` rows in the 128-byte swizzle.
+template <typename T>
+cudaError_t head_map(CUtensorMap* map, const void* p, const Strides& st,
+                     int b, int heads, int s, int d, int rows) {
+  const uint64_t dims[4] = {static_cast<uint64_t>(d),
+                            static_cast<uint64_t>(s),
+                            static_cast<uint64_t>(heads),
+                            static_cast<uint64_t>(b)};
+  const uint64_t strides[3] = {static_cast<uint64_t>(st.s) * sizeof(T),
+                               static_cast<uint64_t>(st.h) * sizeof(T),
+                               static_cast<uint64_t>(st.b) * sizeof(T)};
+  const uint32_t box[4] = {64, static_cast<uint32_t>(rows), 1, 1};
+  return hw::tensor_map_4d(map, Tma<T>::kType, sizeof(T), p, dims, strides,
+                           box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// The TMA map of the fp32 mask [B|1, H|1, S, S] (a broadcast dim has
+// stride 0 and size 1), boxes of `keys` x `rows`; no mask: zeros.
+cudaError_t mask_map(CUtensorMap* map, const Features& f, int b, int h,
+                     int s, int keys, int rows) {
+  if (f.mask == nullptr) {
+    memset(map, 0, sizeof(*map));
+    return cudaSuccess;
+  }
+  const uint64_t dims[4] = {static_cast<uint64_t>(s),
+                            static_cast<uint64_t>(s),
+                            static_cast<uint64_t>(f.mask_h ? h : 1),
+                            static_cast<uint64_t>(f.mask_b ? b : 1)};
+  const uint64_t strides[3] = {static_cast<uint64_t>(f.mask_q) * 4,
+                               static_cast<uint64_t>(f.mask_h) * 4,
+                               static_cast<uint64_t>(f.mask_b) * 4};
+  const uint32_t box[4] = {static_cast<uint32_t>(keys),
+                           static_cast<uint32_t>(rows), 1, 1};
+  return hw::tensor_map_4d(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, f.mask,
+                           dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE);
+}
+
+template <typename T, int D, bool FEAT>
+int launch_dq_wgmma(const Args& a) {
+  using L = DqSmem<D, FEAT>;
+  auto kernel = flash_bwd_dq_wgmma<T, D, FEAT>;
+  static const cudaError_t e = allow_smem(kernel, L::kAlloc);  // once
+  if (e != cudaSuccess) return static_cast<int>(e);
+  CUtensorMap tq, tk, tv, tdo, tmask;
+  cudaError_t err;
+  if ((err = head_map<T>(&tq, a.q, a.qs, a.b, a.h, a.s, D, kDqRows)) ||
+      (err = head_map<T>(&tk, a.k, a.ks, a.b, a.h_kv, a.s, D, kDqKeys)) ||
+      (err = head_map<T>(&tv, a.v, a.vs, a.b, a.h_kv, a.s, D, kDqKeys)) ||
+      (err = head_map<T>(&tdo, a.dout, a.dos, a.b, a.h, a.s, D, kDqRows)) ||
+      (err = mask_map(&tmask, a.f, a.b, a.h, a.s, kDqKeys, kDqRows)))
+    return static_cast<int>(err);
+  dim3 grid(a.b * a.h, (a.s + kDqRows - 1) / kDqRows);
+  kernel<<<grid, kWgmmaThreads, L::kAlloc, a.stream>>>(
+      tq, tk, tv, tdo, tmask, a.lse, a.delta, static_cast<T*>(a.dq), a.dqs,
+      a.s, a.h, a.h / a.h_kv, a.scale, a.causal, a.f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D, bool FEAT>
+int launch_dkv_wgmma(const Args& a) {
+  using L = DkvSmem<D, FEAT>;
+  auto kernel = flash_bwd_dkv_wgmma<T, D, FEAT>;
+  static const cudaError_t e = allow_smem(kernel, L::kAlloc);  // once
+  if (e != cudaSuccess) return static_cast<int>(e);
+  CUtensorMap tq, tk, tv, tdo, tmask;
+  cudaError_t err;
+  if ((err = head_map<T>(&tq, a.q, a.qs, a.b, a.h, a.s, D, L::QT)) ||
+      (err = head_map<T>(&tk, a.k, a.ks, a.b, a.h_kv, a.s, D, kDkvKeys)) ||
+      (err = head_map<T>(&tv, a.v, a.vs, a.b, a.h_kv, a.s, D, kDkvKeys)) ||
+      (err = head_map<T>(&tdo, a.dout, a.dos, a.b, a.h, a.s, D, L::QT)) ||
+      (err = mask_map(&tmask, a.f, a.b, a.h, a.s, kDkvKeys, L::QT)))
+    return static_cast<int>(err);
+  dim3 grid(a.b * a.h_kv, (a.s + kDkvKeys - 1) / kDkvKeys);
+  kernel<<<grid, kWgmmaThreads, L::kAlloc, a.stream>>>(
+      tq, tk, tv, tdo, tmask, a.lse, a.delta, static_cast<T*>(a.dk),
+      static_cast<T*>(a.dv), a.dks, a.dvs, a.s, a.h, a.h / a.h_kv, a.scale,
+      a.causal, a.f);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int D, bool FEAT>
 int launch_dkv_mma(const Args& a) {
   constexpr int LD = D + 8;
@@ -649,17 +1376,25 @@ int launch_dq_f32(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// 16-bit inputs: D 64 and 128 take the wgmma bodies, D 32 the mma.sync ones
+template <typename T, int D, bool FEAT>
+int launch_16bit(bool dkv, const Args& a) {
+  if constexpr (D == 32)
+    return dkv ? launch_dkv_mma<T, D, FEAT>(a) : launch_dq_mma<T, D, FEAT>(a);
+  else
+    return dkv ? launch_dkv_wgmma<T, D, FEAT>(a)
+               : launch_dq_wgmma<T, D, FEAT>(a);
+}
+
 template <int D, bool FEAT>
 int dispatch(bool dkv, int dtype, const Args& a) {
   switch (dtype) {
     case ptt::kF32:
       return dkv ? launch_dkv_f32<D, FEAT>(a) : launch_dq_f32<D, FEAT>(a);
     case ptt::kBF16:
-      return dkv ? launch_dkv_mma<__nv_bfloat16, D, FEAT>(a)
-                 : launch_dq_mma<__nv_bfloat16, D, FEAT>(a);
+      return launch_16bit<__nv_bfloat16, D, FEAT>(dkv, a);
     case ptt::kF16:
-      return dkv ? launch_dkv_mma<__half, D, FEAT>(a)
-                 : launch_dq_mma<__half, D, FEAT>(a);
+      return launch_16bit<__half, D, FEAT>(dkv, a);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -682,6 +1417,28 @@ int run(bool dkv, int d, int dtype, const Args& a) {
                    : run_d<false>(dkv, d, dtype, a);
 }
 
+template <typename T>
+int launch_delta(const void* out, const void* dout, void* delta, int b,
+                 int h, int s, int d, Strides os, Strides dos,
+                 cudaStream_t stream) {
+  const int64_t rows = static_cast<int64_t>(b) * h * s;
+  auto go = [&](auto kernel, int lanes) {
+    const int64_t per_block = kDeltaThreads / lanes;
+    const int64_t blocks = (rows + per_block - 1) / per_block;
+    kernel<<<static_cast<unsigned>(blocks), kDeltaThreads, 0, stream>>>(
+        static_cast<const T*>(out), static_cast<const T*>(dout),
+        static_cast<float*>(delta), s, h, rows, os, dos);
+    return static_cast<int>(cudaGetLastError());
+  };
+  constexpr int kVec = 16 / sizeof(T);
+  switch (d) {
+    case 32: return go(flash_bwd_delta<T, 32>, 32 / kVec);
+    case 64: return go(flash_bwd_delta<T, 64>, 64 / kVec);
+    case 128: return go(flash_bwd_delta<T, 128>, 128 / kVec);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 Strides at(const long long* s, int i) {
   return Strides{s[3 * i], s[3 * i + 1], s[3 * i + 2]};
 }
@@ -691,8 +1448,11 @@ Strides at(const long long* s, int i) {
 // All tensors are [B, heads, S, D] views, D contiguous, with their element
 // strides (b, h, s) in `strides`, three per tensor in argument order:
 // q, k, v, dout, then dk, dv (dK/dV) or dq (dQ).  lse and delta: fp32
-// [B, H, S].  dk, dv: [B, H_kv, S, D].  D in {32, 64, 128}; one dtype.
-// The features as ptt_flash_fwd takes them (the forward's seed).
+// [B, H, S].  dk, dv: [B, H_kv, S, D].  D in {32, 64, 128}; one dtype;
+// for 16-bit D 64 and 128 (the TMA maps) 16-byte aligned bases and
+// strides.  The features as ptt_flash_fwd takes them (the forward's
+// seed); for 16-bit D 64 and 128 the mask's non-broadcast strides are
+// positive multiples of 4 elements and its base 16-byte aligned.
 extern "C" int ptt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
                                  const void* delta, void* dk, void* dv,
@@ -739,4 +1499,26 @@ extern "C" int ptt_flash_bwd_dq(const void* q, const void* k, const void* v,
   a.f = make_features(mask, mask_strides, seg, dropout, keep_div, seed);
   a.stream = static_cast<cudaStream_t>(stream);
   return run(false, d, dtype, a);
+}
+
+// delta = rowsum(dout * out) as fp32 [B, H, S]: out and dout [B, H, S, D]
+// views (strides as above, out then dout), 16-byte aligned rows.
+extern "C" int ptt_flash_bwd_delta(const void* out, const void* dout,
+                                   void* delta, int b, int h, int s, int d,
+                                   const long long* strides, int dtype,
+                                   void* stream) {
+  if (b <= 0 || h <= 0 || s <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Strides os = at(strides, 0), dos = at(strides, 1);
+  const auto st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case ptt::kF32:
+      return launch_delta<float>(out, dout, delta, b, h, s, d, os, dos, st);
+    case ptt::kBF16:
+      return launch_delta<__nv_bfloat16>(out, dout, delta, b, h, s, d, os,
+                                         dos, st);
+    case ptt::kF16:
+      return launch_delta<__half>(out, dout, delta, b, h, s, d, os, dos, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -417,6 +417,16 @@ int run(int d, int dtype, const Call& a) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// Every value of x as a kept survivor (the check of `survivor`).
+__global__ void dropout_rescale_kernel(const float* __restrict__ x,
+                                       float* __restrict__ out, long long n,
+                                       Features f) {
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < n; i += static_cast<long long>(gridDim.x) * blockDim.x)
+    out[i] = survivor(f, true, x[i]);
+}
+
 }  // namespace
 
 // q, out: [B, H, S, D] views with element strides (b, h, s) in
@@ -449,4 +459,21 @@ extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
   a.f = make_features(mask, mask_strides, seg, dropout, keep_div, seed);
   a.stream = static_cast<cudaStream_t>(stream);
   return a.f.any() ? run<true>(d, dtype, a) : run<false>(d, dtype, a);
+}
+
+// out = x / (float)(1 - dropout) rounded once, for n fp32 values, by the
+// survivors' rescale that the flash kernels apply to kept values.
+extern "C" int ptt_flash_dropout_rescale(const void* x, void* out,
+                                         long long n, float dropout,
+                                         float keep_div, void* stream) {
+  if (n <= 0 || !(dropout >= 0.f && dropout < 1.f))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Features f =
+      make_features(nullptr, nullptr, nullptr, dropout, keep_div, 0);
+  const long long blocks = (n + 255) / 256;
+  dropout_rescale_kernel<<<static_cast<unsigned>(blocks < 4096 ? blocks
+                                                               : 4096),
+                           256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<float*>(out), n, f);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -16,6 +16,7 @@
 // (packed to 16 bits): probabilities never leave registers.
 #pragma once
 
+#include <cmath>
 #include <cstdint>
 
 #include "common.cuh"
@@ -174,8 +175,10 @@ struct Features {
   int64_t mask_b, mask_h, mask_q;
   const int* seg;      // int32 segment ids [B, S], contiguous; nullptr: none
   float dropout;       // the drop probability; 0: none
-  float keep_div;      // (float)(1.0 - dropout), the survivors' divisor
   uint32_t seed;       // the call's dropout seed
+  uint32_t keep_min;   // ceil(dropout 2^24): the least kept (hash >> 8)
+  double keep_rcp;     // 1 / (double)keep_div, rounded once: the
+                       // survivors' factor (keep_div = (float)(1 - p))
   __host__ __device__ bool masked() const {
     return mask != nullptr || seg != nullptr;
   }
@@ -196,41 +199,61 @@ inline Features make_features(const void* mask,
   }
   f.seg = static_cast<const int*>(seg);
   f.dropout = dropout;
-  f.keep_div = keep_div;
   f.seed = seed;
+  f.keep_min = static_cast<uint32_t>(
+      std::ceil(static_cast<double>(dropout) * 16777216.0));
+  f.keep_rcp = 1.0 / static_cast<double>(keep_div);
   return f;
 }
 
-// The Pallas kernels' counter hash (_dropout_uniform), bit for bit: a
-// uniform in [0, 1) on a 2^-24 grid for (seed, head, q position, key
-// position), all uint32 with wrapping products.  `head` is the flattened
-// b * H + q head and the positions are absolute, so the keep-mask depends
-// on neither the tiling nor the kernel.
-__device__ __forceinline__ float dropout_uniform(uint32_t seed,
-                                                 uint32_t head, uint32_t qp,
-                                                 uint32_t kp) {
-  uint32_t x = qp * 0x9E3779B1u + kp * 0x85EBCA77u;
-  x ^= seed + head * 0x27D4EB2Fu;
+// The Pallas kernels' counter hash (_dropout_uniform), bit for bit, over
+// (seed, head, q position, key position), all uint32 with wrapping
+// products; `head` is the flattened b * H + q head and the positions are
+// absolute, so the keep-mask depends on neither the tiling nor the kernel.
+// It is split for a tile: `qh` = q position x 0x9E3779B1 and `kh` = key
+// position x 0x85EBCA77 (once per row and per column), `sh` = seed + head
+// x 0x27D4EB2F (once per head).  The uniform u = (x >> 8) 2^-24 is exact,
+// so the keep test u >= p holds exactly when (x >> 8) >= ceil(p 2^24).
+__device__ __forceinline__ uint32_t hash_q(int qp) {
+  return static_cast<uint32_t>(qp) * 0x9E3779B1u;
+}
+__device__ __forceinline__ uint32_t hash_k(int kp) {
+  return static_cast<uint32_t>(kp) * 0x85EBCA77u;
+}
+__device__ __forceinline__ uint32_t hash_head(const Features& f,
+                                              uint32_t head) {
+  return f.seed + head * 0x27D4EB2Fu;
+}
+__device__ __forceinline__ bool kept_split(const Features& f, uint32_t sh,
+                                           uint32_t qh, uint32_t kh) {
+  uint32_t x = (qh + kh) ^ sh;
   x ^= x >> 15;
   x *= 0x2C1B3C6Du;
   x ^= x >> 12;
   x *= 0x297A2D39u;
   x ^= x >> 15;
-  return static_cast<float>(x >> 8) * (1.0f / 16777216.0f);
+  return (x >> 8) >= f.keep_min;
 }
 
 // Whether dropout keeps the score at (head, qp, kp): u >= p.
 __device__ __forceinline__ bool kept(const Features& f, uint32_t head,
                                      int qp, int kp) {
-  return dropout_uniform(f.seed, head, static_cast<uint32_t>(qp),
-                         static_cast<uint32_t>(kp)) >= f.dropout;
+  return kept_split(f, hash_head(f, head), hash_q(qp), hash_k(kp));
 }
 
-// A kept value divided (not multiplied by a reciprocal) by (1 - p), a
-// dropped one 0, as the Pallas kernels do.
+// A kept value divided by c = (float)(1 - p) and rounded once, a dropped
+// one 0, as the Pallas kernels do; computed as one product in double, bit
+// for bit __fdiv_rn(x, c).  The exact quotient of two floats is never a
+// midpoint of two floats (that would take an odd 25-bit significand times
+// c's to fit in 24 bits) and lies at least 2^-49 (relative) from one; x
+// times 1 / c rounded to double is within 2^-52 of it, so rounding that
+// to float rounds the quotient correctly, subnormal quotients and
+// overflow included (the double neither overflows nor goes subnormal).
+// tests/test_torch_cuda.py holds it against IEEE division bit for bit.
 __device__ __forceinline__ float survivor(const Features& f, bool keep,
                                           float x) {
-  return keep ? __fdiv_rn(x, f.keep_div) : 0.f;
+  return keep ? __double2float_rn(static_cast<double>(x) * f.keep_rcp)
+              : 0.f;
 }
 
 // Dropout of `x` at (head, qp, kp).

@@ -40,6 +40,7 @@ def _wrappers():
             "flash_fwd": flash_attention.flash_attention_fwd,
             "flash_bwd_dkv": flash_attention.flash_bwd_dkv,
             "flash_bwd_dq": flash_attention.flash_bwd_dq,
+            "flash_bwd_delta": flash_attention.flash_bwd_delta,
             "adam": adam.adam_update,
             # the quantized pools' launches of the paged-decode kernel
             "paged_decode_int8": paged_decode.QUANT_LAUNCHES[torch.int8],

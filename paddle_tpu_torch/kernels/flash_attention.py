@@ -1,8 +1,13 @@
 """Flash attention: the CUDA kernels ``csrc/flash_attention_fwd.cu`` (forward)
-and ``csrc/flash_attention_bwd.cu`` (dK/dV and dQ) with their plain
-versions (port of paddle_tpu/pallas/flash_attention.py ``flash_attention``:
-``_pallas_flash_fwd``, ``_pallas_flash_bwd`` and the custom VJP of
-``_flash_core``).
+and ``csrc/flash_attention_bwd.cu`` (the delta pass, dK/dV and dQ) with
+their plain versions (port of paddle_tpu/pallas/flash_attention.py
+``flash_attention``: ``_pallas_flash_fwd``, ``_pallas_flash_bwd`` and the
+custom VJP of ``_flash_core``).
+
+The backward kernels for 16-bit inputs at head dims 64 and 128 (GPT-2's
+and Llama's) are warp-specialised Hopper kernels (wgmma products fed by
+TMA, see the source); head dim 32 keeps ``mma.sync`` bodies and fp32 its
+FMA bodies, which no training path takes.
 
 Layouts are the JAX package's: q ``[B, S, H, D]``, or ``[B, H, S, D]`` with
 ``head_major=True``; k and v carry ``H_kv`` heads with ``H % H_kv == 0``
@@ -35,7 +40,9 @@ versions (``_apply_masks`` and ``_dropout_uniform``):
 Like the Pallas kernels these give no mask gradient: the public op
 refuses a mask that requires grad.  Each feature variant counts its own
 launches (``VARIANT_LAUNCHES``): ``*_dropout`` (dropout alone) and
-``*_masked`` (a mask or segment ids, with or without dropout).
+``*_masked`` (a mask or segment ids, with or without dropout).  The two
+backward kernels sum the GQA heads of a kv head inside one block (no
+atomics): two calls give the same bits.
 """
 from __future__ import annotations
 
@@ -249,7 +256,8 @@ def flash_bwd_dq_ref(q, k, v, dout, lse, delta, causal=False, scale=None,
 
 
 def _delta(out, dout, head_major):
-    """``rowsum(dO * O)`` in fp32 as ``[B, H, S]``."""
+    """``rowsum(dO * O)`` in fp32 as ``[B, H, S]`` (the plain version of
+    `flash_bwd_delta`)."""
     delta = (dout.float() * out.float()).sum(dim=-1)
     return (delta if head_major else delta.transpose(1, 2)).contiguous()
 
@@ -264,13 +272,34 @@ def flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=False,
                     seed)
 
 
-def _prep(t):
+def _prep(t, rows16=False):
     """A view the kernels can read: contiguous head dim; for 16-bit types
-    also 16-byte aligned rows (cp.async); else a contiguous copy."""
-    ok = t.stride(-1) == 1 and (t.element_size() == 4 or (
+    (or with ``rows16``) also 16-byte aligned base and strides (TMA,
+    16-byte loads); else a contiguous copy."""
+    per = 16 // t.element_size()
+    ok = t.stride(-1) == 1 and ((t.element_size() == 4 and not rows16) or (
         t.data_ptr() % 16 == 0
-        and all(st % 8 == 0 for st in t.stride()[:-1])))
+        and all(st % per == 0 for st in t.stride()[:-1])))
     return t if ok else t.contiguous()
+
+
+def _tma_mask(mask):
+    """The mask as the backward kernels' TMA reads it: keys contiguous, a
+    16-byte aligned base and every stride of a dim longer than 1 a
+    positive multiple of 4 elements; else a copy into rows padded to a
+    multiple of 4 keys, seen through a view of the same shape."""
+    if mask is None:
+        return None
+    ok = mask.stride(-1) == 1 and mask.data_ptr() % 16 == 0 and all(
+        mask.stride(i) > 0 and mask.stride(i) % 4 == 0
+        for i in range(3) if mask.shape[i] > 1)
+    if ok:
+        return mask
+    keys = mask.shape[-1]
+    padded = torch.empty(*mask.shape[:-1], -(-keys // 4) * 4,
+                         dtype=mask.dtype, device=mask.device)
+    padded[..., :keys].copy_(mask)
+    return padded[..., :keys]
 
 
 def _check_cuda_call(name, q, k, v, d):
@@ -391,8 +420,9 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, causal, scale, head_major,
         return flash_bwd_dkv_ref(q, k, v, dout, lse, delta, causal, scale,
                                  head_major, mask, segment_ids, dropout, seed)
     b, h, h_kv, s, d = _geometry(q, k, v, head_major)
-    mask, segment_ids, feats = _features("flash_bwd_dkv", q, b, h, s, mask,
-                                         segment_ids, dropout, seed)
+    mask, segment_ids, feats = _features("flash_bwd_dkv", q, b, h, s,
+                                         _tma_mask(mask), segment_ids,
+                                         dropout, seed)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     fn = _build.function("ptt_flash_bwd_dkv", _BWD_ARGS + [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
@@ -421,8 +451,9 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, causal, scale, head_major,
         return flash_bwd_dq_ref(q, k, v, dout, lse, delta, causal, scale,
                                 head_major, mask, segment_ids, dropout, seed)
     b, h, h_kv, s, d = _geometry(q, k, v, head_major)
-    mask, segment_ids, feats = _features("flash_bwd_dq", q, b, h, s, mask,
-                                         segment_ids, dropout, seed)
+    mask, segment_ids, feats = _features("flash_bwd_dq", q, b, h, s,
+                                         _tma_mask(mask), segment_ids,
+                                         dropout, seed)
     dq = torch.empty_like(q)
     fn = _build.function("ptt_flash_bwd_dq", _BWD_ARGS + [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -443,14 +474,81 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, causal, scale, head_major,
 flash_bwd_dq.launches = 0
 
 
+def flash_bwd_delta(out, dout, head_major):
+    """The delta pass → ``rowsum(dO * O)``, fp32 ``[B, H, S]``.  CPU tensors
+    take `_delta`; CUDA tensors launch the one-pass kernel (O and dO read
+    once)."""
+    if out.device.type == "cpu":
+        return _delta(out, dout, head_major)
+    if out.shape != dout.shape or out.dtype != dout.dtype \
+            or out.device != dout.device or out.dim() != 4:
+        raise ValueError(f"flash_bwd_delta: out {tuple(out.shape)} "
+                         f"{out.dtype} and dout {tuple(dout.shape)} "
+                         f"{dout.dtype} must match, 4-D, on one device")
+    if head_major:
+        b, h, s, d = out.shape
+    else:
+        b, s, h, d = out.shape
+    if d not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"flash_bwd_delta: head_dim {d} is not supported; "
+                         f"supported: {SUPPORTED_HEAD_DIMS}")
+    out, dout = _prep(out, rows16=True), _prep(dout, rows16=True)
+    delta = torch.empty(b, h, s, dtype=torch.float32, device=out.device)
+    if not delta.numel():
+        return delta
+    fn = _build.function("ptt_flash_bwd_delta", [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p])
+    with torch.cuda.device(out.device):
+        err = fn(_build.ptr(out), _build.ptr(dout), _build.ptr(delta), b, h,
+                 s, d, _strides((out, dout), head_major), dtype_code(out),
+                 _build.stream(out.device))
+    _build.check(err, "ptt_flash_bwd_delta")
+    flash_bwd_delta.launches += 1
+    return delta
+
+
+flash_bwd_delta.launches = 0
+
+
+def dropout_rescale(x, dropout):
+    """``x / (float)(1 - dropout)`` rounded once, for fp32 ``x``: the
+    rescale the flash kernels apply to kept values.  CPU tensors take the
+    plain division (`_drop` with every value kept); CUDA tensors launch
+    the kernels' own rescale (`survivor`, csrc/flash_common.cuh), so a
+    test can hold it against IEEE division bit for bit."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"dropout_rescale: x is {x.dtype}, not float32")
+    if not 0.0 <= dropout < 1.0:
+        raise ValueError(f"dropout_rescale: dropout {dropout} not in [0, 1)")
+    if x.device.type == "cpu":
+        return _drop(x, torch.ones((), dtype=torch.bool), dropout)
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    if not x.numel():
+        return out
+    fn = _build.function("ptt_flash_dropout_rescale", [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float,
+        ctypes.c_float, ctypes.c_void_p])
+    with torch.cuda.device(x.device):
+        err = fn(_build.ptr(x), _build.ptr(out), x.numel(), dropout,
+                 float(1.0 - dropout), _build.stream(x.device))
+    _build.check(err, "ptt_flash_dropout_rescale")
+    dropout_rescale.launches += 1
+    return out
+
+
+dropout_rescale.launches = 0
+
+
 def flash_attention_bwd(q, k, v, out, lse, dout, causal=False, scale=None,
                         head_major=False, mask=None, segment_ids=None,
                         dropout=0.0, seed=0):
     """→ (dq, dk, dv) like q, k, v.  CPU tensors take
-    `flash_attention_bwd_ref`; CUDA tensors compute ``delta = rowsum(dO *
-    O)`` with one torch op (as the JAX package does outside Pallas) and
-    launch the dK/dV and dQ kernels with the forward's features and
-    seed."""
+    `flash_attention_bwd_ref`; CUDA tensors launch the delta pass
+    (`flash_bwd_delta`), then the dK/dV and dQ kernels with the forward's
+    features and seed."""
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, out, lse, dout, causal,
                                        scale, head_major, mask, segment_ids,
@@ -466,10 +564,10 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal=False, scale=None,
                          f"fp32 [{b}, {h}, {s}]")
     q, k, v, dout = _prep(q), _prep(k), _prep(v), _prep(dout)
     lse = lse.contiguous()
-    delta = _delta(out, dout, head_major)
     if not q.numel():
         return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    feats = (mask, segment_ids, dropout, seed)
+    delta = flash_bwd_delta(out, dout, head_major)
+    feats = (_tma_mask(mask), segment_ids, dropout, seed)
     dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, causal, scale,
                            head_major, *feats)
     dq = flash_bwd_dq(q, k, v, dout, lse, delta, causal, scale, head_major,

@@ -5,7 +5,8 @@ state dicts cross unchanged: ``Linear.weight`` is ``[in, out]``.
 
 Parameters are allocated uninitialised on the requested device and filled
 by `reset_parameters` (under ``torch.no_grad()``) from an explicit
-``torch.Generator``.
+``torch.Generator``.  ``device=None`` means the card (`resolve_device`):
+without CUDA a layer raises unless it was asked for ``"cpu"``.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import math
 import torch
 from torch import nn
 
+from ..device import resolve_device
 from . import functional as F
 
 
@@ -24,6 +26,7 @@ class Linear(nn.Module):
     def __init__(self, in_features, out_features, bias=True, std=None,
                  device=None, dtype=torch.float32):
         super().__init__()
+        device = resolve_device(device)
         self.in_features = in_features
         self.out_features = out_features
         self.std = std
@@ -47,6 +50,7 @@ class Embedding(nn.Module):
     def __init__(self, num_embeddings, embedding_dim, std=1.0, device=None,
                  dtype=torch.float32):
         super().__init__()
+        device = resolve_device(device)
         self.std = std
         self.weight = nn.Parameter(torch.empty(
             num_embeddings, embedding_dim, device=device, dtype=dtype))
@@ -62,6 +66,7 @@ class RMSNorm(nn.Module):
     def __init__(self, hidden_size, epsilon=1e-6, device=None,
                  dtype=torch.float32):
         super().__init__()
+        device = resolve_device(device)
         self._epsilon = epsilon
         self.weight = nn.Parameter(torch.empty(
             hidden_size, device=device, dtype=dtype))
@@ -79,6 +84,7 @@ class LayerNorm(nn.Module):
     def __init__(self, normalized_shape, epsilon=1e-5, device=None,
                  dtype=torch.float32):
         super().__init__()
+        device = resolve_device(device)
         if isinstance(normalized_shape, int):
             normalized_shape = [normalized_shape]
         self._normalized_shape = list(normalized_shape)

@@ -232,6 +232,76 @@ def test_flash_attention_op_under_autograd_on_card(card):
         assert torch.equal(got, w)
 
 
+#: the tile edges of the Hopper backward kernels (128 keys or q rows a
+#: block, 64-row warpgroups, 64-key and 64- or 32-row stages)
+EDGE_LENGTHS = (1, 127, 128, 129, 1000)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_backward_tile_edges_on_card(card, dtype, d):
+    """The whole backward (delta pass, dK/dV, dQ) at S on and around the
+    new tiles' edges, causal and not, both layouts, n_rep 4, against the
+    plain backward on the same out and lse: each gradient row within
+    ROW_TOL of its own norm."""
+    for s in EDGE_LENGTHS:
+        for causal in (True, False):
+            for hm in (True, False):
+                b = 1 if s == 1000 else 2
+                q, k, v, do = _attn_inputs(card, b, 8, 2, s, d, dtype, hm,
+                                           s + 2 * causal + hm)
+                out, lse = fa.flash_attention_fwd(q, k, v, causal, None, hm)
+                grads = fa.flash_attention_bwd(q, k, v, out, lse, do, causal,
+                                               None, hm)
+                wants = fa.flash_attention_bwd_ref(q, k, v, out, lse, do,
+                                                   causal, None, hm)
+                scale = max(_rms_row_norm(w) for w in wants)
+                for got, want in zip(grads, wants):
+                    assert got.shape == want.shape and got.dtype == dtype
+                    err = _row_err(got, want, scale)
+                    assert err < ROW_TOL[dtype], (s, causal, hm, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+def test_flash_backward_is_deterministic_on_card(card, dropout):
+    """No atomics: the GQA heads of a kv head are summed inside one block,
+    so two calls of the whole backward give the same bits (causal, n_rep
+    4, a ragged S)."""
+    q, k, v, do = _attn_inputs(card, 2, 8, 2, 1000, 128, torch.bfloat16,
+                               True, 40)
+    feats = dict(dropout=dropout, seed=77)
+    out, lse = fa.flash_attention_fwd(q, k, v, True, None, True, **feats)
+    first = fa.flash_attention_bwd(q, k, v, out, lse, do, True, None, True,
+                                   **feats)
+    second = fa.flash_attention_bwd(q, k, v, out, lse, do, True, None, True,
+                                    **feats)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_flash_delta_pass_on_card(card, dtype):
+    """The delta kernel against its plain version `_delta` (fp32 sums of D
+    products in another order: within 2e-5 of the sum of the terms'
+    magnitudes), both layouts and every head dim, one launch a call."""
+    for i, (s, d, hm) in enumerate(((1000, 128, True), (77, 64, False),
+                                    (5, 32, True))):
+        _, _, _, out = _attn_inputs(card, 2, 6, 6, s, d, dtype, hm, 50 + i)
+        _, _, _, dout = _attn_inputs(card, 2, 6, 6, s, d, dtype, hm, 60 + i)
+        before = fa.flash_bwd_delta.launches
+        got = fa.flash_bwd_delta(out, dout, hm)
+        assert fa.flash_bwd_delta.launches == before + 1
+        want = fa._delta(out, dout, hm)
+        mag = fa._delta(out.abs(), dout.abs(), hm)
+        assert got.shape == want.shape == (2, 6, s)
+        assert got.dtype == torch.float32
+        assert bool(((got - want).abs() <= 2e-5 * mag + 1e-30).all()), i
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("p_dtype,master,decoupled,wd", [
     (torch.bfloat16, True, True, 0.01),     # O2 AdamW: bf16 + fp32 master
@@ -317,6 +387,11 @@ FEATURE_CASES = [
     (1, 4, 2, 200, 128, False, False, "additive"),  # [1, H, S, S]
     (2, 4, 2, 130, 64, True, True, "segments"),
     (2, 4, 2, 130, 64, False, False, "all"),       # + a dead row
+    # D 128 with features: 32-row q stages in dK/dV, the causal skip
+    (2, 8, 2, 1000, 128, True, True, "dropout"),
+    (2, 8, 2, 129, 128, True, False, "segments"),
+    (2, 8, 2, 1000, 128, True, False, "all"),
+    (2, 8, 2, 129, 128, True, True, "all"),
 ]
 
 
@@ -344,7 +419,8 @@ def _features(card, kind, b, h, s, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_flash_attention_features_on_card(card, dtype):
     """Dropout, masks and segment ids in the three kernels against their
     plain versions (the same seed, the same keep-mask): out and each
@@ -389,6 +465,40 @@ def test_flash_attention_features_on_card(card, dtype):
 
 
 @pytest.mark.cuda
+def test_flash_dropout_rescale_is_ieee_division_on_card(card):
+    """The survivors' rescale of every flash kernel (one product in
+    double) against numpy's float32 division by (float)(1 - p), bit for
+    bit: random bit patterns over every exponent, subnormals, zeros,
+    infinities and the overflow edge, at several p.  Multiplying by the
+    float reciprocal instead differs on these inputs, so a 1-ulp split
+    would show."""
+    rng = np.random.default_rng(0)
+    bits = rng.integers(0, 2 ** 32, 1 << 20, dtype=np.uint64)
+    bits = bits.astype(np.uint32)
+    bits = bits[((bits >> 23) & 0xFF) != 0xFF]         # no NaN, no inf
+    tiny = np.arange(1, 4096, dtype=np.uint32)          # subnormals
+    big = np.uint32(0x7F7FFFFF) - np.arange(4096, dtype=np.uint32)
+    x = np.concatenate([bits, tiny, big, tiny | 0x80000000]).view(np.float32)
+    x = np.concatenate([x, np.float32([0.0, -0.0, np.inf, -np.inf, 1.0])])
+    x_card = torch.from_numpy(x).to(card)
+    split = 0
+    for p in (1e-7, 0.1, 0.25, 1 / 3, 0.5, 0.9, 0.999,
+              *rng.uniform(0, 1, 8)):
+        c = np.float32(1.0 - p)
+        with np.errstate(over="ignore"):
+            want = x / c
+            split += int((x * (np.float32(1) / c) != want).sum())
+        before = fa.dropout_rescale.launches
+        got = fa.dropout_rescale(x_card, float(p)).cpu().numpy()
+        assert fa.dropout_rescale.launches == before + 1
+        assert np.array_equal(got.view(np.uint32), want.view(np.uint32)), p
+        assert np.array_equal(
+            fa.dropout_rescale(torch.from_numpy(x), float(p)).numpy()
+            .view(np.uint32), want.view(np.uint32)), p
+    assert split > 0
+
+
+@pytest.mark.cuda
 def test_flash_dropout_op_under_autograd_on_card(card):
     """The public op with dropout: the seed comes from the CPU generator
     (equal generators, equal outputs on the CPU and the card), the
@@ -412,7 +522,8 @@ def test_flash_dropout_op_under_autograd_on_card(card):
     (cpu, cpu_n), (gpu, gpu_n) = res["cpu"], res[str(card)]
     assert cpu_n == {} and gpu_n == {"flash_fwd_dropout": 1,
                                      "flash_bwd_dkv_dropout": 1,
-                                     "flash_bwd_dq_dropout": 1}
+                                     "flash_bwd_dq_dropout": 1,
+                                     "flash_bwd_delta": 1}
     for a, b in zip(cpu, gpu):
         assert _row_err(b, a) < ROW_TOL[torch.float32]
 

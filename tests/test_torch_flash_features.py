@@ -234,7 +234,8 @@ def test_cpu_route_counts_no_variant_launch():
     out, lse = fa.flash_attention_fwd(q, k, v, True, None, True, **feats)
     fa.flash_attention_bwd(q, k, v, out, lse, do, True, None, True, **feats)
     counts = kernels.launch_counts()
-    assert set(fa.VARIANT_LAUNCHES) <= set(counts) and len(counts) == 17
+    # every wrapper's count, the flash backward's delta pass among them
+    assert set(fa.VARIANT_LAUNCHES) <= set(counts) and len(counts) == 18
     assert all(n == 0 for n in counts.values()), counts
 
 
