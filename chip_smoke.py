@@ -8,8 +8,10 @@ last line:
 
 1. device   the card's name and power limit (nvidia-smi); no card → exit 1
 2. build    every CUDA kernel built with nvcc for sm_90a from csrc/; the
-            registers and spills (ptxas -v) of the paged-decode kernels
-            and of every flash backward kernel: any spill fails
+            registers and spills (ptxas -v) of the paged-decode kernels,
+            of every flash forward and backward kernel and of the LoRA
+            delta: any spill fails, and so does a flash source whose
+            build lists no wgmma kernel
 3. kernels  each kernel against its plain PyTorch version on the card at
             the serving and training paths' shapes, with its time, the
             plain version's, one PyTorch library call's where there is
@@ -321,16 +323,18 @@ def phase_build():
     log(f"[build] {path.name} built in {time.monotonic() - t0:.2f} s "
         f"(nvcc, sm_90a, sources {[p.name for p in _build.sources()]})")
     # the paged-decode kernels keep q, the softmax state and the next
-    # stage's K/V rows in registers, the flash backward kernels their
-    # accumulators and score tiles: no instantiation may spill
-    for source in ("paged_decode.cu", "flash_attention_bwd.cu"):
+    # stage's K/V rows in registers, the flash kernels their accumulators
+    # and score tiles, the LoRA delta its partial sums: no instantiation
+    # may spill
+    for source in ("paged_decode.cu", "flash_attention_fwd.cu",
+                   "flash_attention_bwd.cu", "lora_delta.cu"):
         rows = ptxas_report(_build.build_log(), source)
         spilled = [r for r in rows if r[2] or r[3]]
         log(f"[build] {source}: {len(rows)} kernels, registers "
             f"{sorted({r[1] for r in rows})}, spill bytes "
             f"{sum(r[2] + r[3] for r in rows)}, largest stack frame "
             f"{max((r[4] for r in rows), default=0)} bytes")
-        if source == "flash_attention_bwd.cu":
+        if source.startswith("flash_attention_"):
             wg = [r for r in rows if "wgmma" in r[0]]
             log(f"[build] {source} wgmma kernels (registers at launch, "
                 f"spill bytes): " + ", ".join(
@@ -679,9 +683,10 @@ def feature_case(dev, kind, b, h, s, d, dtype, gen, timer, controls=False):
     and head-major as GPT calls them: the forward (out, lse) and the dK/dV
     and dQ kernels against their plain versions with the same features
     and seed, row by row as `flash_case`; a fully masked row must give
-    out 0 and dq 0.  Controls (``controls``): the plain version at seed +
-    1, the plain version with the hash keyed by the head alone (not
-    b * H + h), and with the mask read one row off must be rejected.
+    out 0 and dq 0.  Controls: the forward's out 3% off in its late half
+    (every variant); with ``controls``, the plain version at seed + 1,
+    the plain version with the hash keyed by the head alone (not b * H +
+    h), and with the mask read one row off must be rejected.
     Returns ({variant: max abs err}, {variant or "flash_bwd": timings},
     the plain keep share or None)."""
     def mk():
@@ -720,6 +725,10 @@ def feature_case(dev, kind, b, h, s, d, dtype, gen, timer, controls=False):
             raise AssertionError(f"{name}: the fully masked row is not 0")
     log(f"[kernels] {name}: worst row of its norm " + ", ".join(
         f"{k_} {v_:.2e}" for k_, v_ in rels.items()))
+    # every variant: a forward that slips in late causal rows is rejected
+    expect_rejected(f"{name} out 3% off in its late half",
+                    lambda: check_rows(name, [("out", late_half_off(out, 2),
+                                               out_ref)], dtype))
     share = None
     if feats["dropout"]:
         share = float(fa._keep(FEATURE_SEED, 0.1, b, h, s, dev).float()
@@ -1439,7 +1448,7 @@ def phase_serve_lora(dev, model, float_st=None):
         f"avg), TTFT p50 {st0['ttft_ms_p50']:.1f} ms, "
         f"{st0['tokens_generated'] / wall0:.1f} tokens/s wall: the pool adds "
         f"{st['decode_ms_p50'] - st0['decode_ms_p50']:.2f} ms a decode step "
-        f"({n_proj} delta calls of 2 kernels)")
+        f"({n_proj} delta launches)")
     # equal load: 4 greedy requests of 240 prompt + 16 new tokens, in
     # step with each other (one length), filling whole 32-token pages, no
     # prefix cache; then the fp8 run's launches

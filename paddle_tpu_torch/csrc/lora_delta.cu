@@ -14,172 +14,382 @@
 // A or B at decode (seq 1) and ~60 at a 32-token prefill chunk, below the
 // ~295 where the tensor cores would bind.  Llama-2 7B's 4096 -> 11008
 // projection with four distinct rank-16 adapters reads ~1.9 MB of factors,
-// ~0.6 us.
+// ~0.6 us.  At decode the call is a chain of dependent steps (idx, then
+// the factors, then a reduction across blocks), so its time is latency:
+// the design keeps that chain short and every load of a step in flight at
+// once.
 //
-// Design, as Punica does it: two kernels and an fp32 intermediate, no
-// gathered copy of A or B (each block reads its own row's adapter slot
-// from idx and indexes the stacks with it).
-// - shrink: one block per (row, tile of 8 tokens, chunk of 512 input
-//   columns) stages the x tile in shared memory as fp32, then its threads
-//   (one per (rank column, input lane)) read A[slot] rows coalesced, keep
-//   8 fp32 sums in registers, and reduce over the lanes in a fixed order.
-//   It writes partial[row, chunk, token, rank], so no atomics and the
-//   result does not depend on the block order.
-// - expand: one block per (row, tile of 8 tokens, 256 output columns)
-//   sums the partials over the chunks in order into xa[token, rank] in
-//   shared memory, then each thread takes one output column: B[slot] rows
-//   read coalesced, 8 fp32 sums, times the scale, one rounding.
-// No tensor cores: at these ranks the factors' bytes bind, not the
-// products.  An index outside the pool writes NaN rows.
+// Design: one launch, no gathered copy of A or B and no scratch in device
+// memory.  For each (batch row, tile of 8 tokens) the grid holds R
+// thread-block clusters of C blocks (C <= 8, portable), sized from din and
+// dout so that four decode rows still spread over the card's SMs.  Block c
+// of a cluster reads its row's adapter slot, then issues, all at once, 16-
+// byte asynchronous copies of its 1/C chunk of the x rows and of A[slot]
+// (contiguous rows of rp values) and of the first B[slot] columns it will
+// expand, into shared memory.  It computes its chunk's [tokens, rp]
+// partial of x·A in fp32 (each thread a fixed group of 16 bytes of rank
+// columns over strided rows, then butterfly shuffles and a sum over the
+// warps in a fixed order) into its own shared memory.  One cluster barrier,
+// then every block sums the C partials through distributed shared memory
+// in rank order, so the blocks of a cluster hold the same bits of x·A; no
+// atomics, so two calls give the same bits.  Each block then expands its
+// share of the dout columns from the staged B, times the scale, rounded
+// once, stored 16 bytes a thread.  The R clusters of a row repeat the
+// shrink (A again, from L2) to put more SMs on the B columns.  Ranks whose
+// 16-byte groups are not a power of two (or unaligned shapes) take the same
+// kernel with element-wise copies.  No tensor cores: at these ranks the
+// factors' bytes bind, not the products.  An index outside the pool
+// writes NaN rows.
+#include <cooperative_groups.h>
+
+#include <algorithm>
 #include <cmath>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kSeqTile = 8;
-constexpr int kChunk = 512;
-constexpr int kMaxRank = 256;
+namespace cg = cooperative_groups;
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-lora_shrink_kernel(const T* __restrict__ x, const T* __restrict__ a_stack,
-                   const int* __restrict__ idx, float* __restrict__ partial,
-                   int seq, int din, int rp, int n_split, int n_pool) {
-  __shared__ float x_s[kSeqTile * kChunk];
-  __shared__ float red[kThreads * kSeqTile];
-  const int i = blockIdx.x;
-  const int s0 = blockIdx.y * kSeqTile;
-  const int z = blockIdx.z;
-  const int k0 = z * kChunk;
-  const int n_tok = min(kSeqTile, seq - s0);
-  const int n_k = min(kChunk, din - k0);
-  const int tid = threadIdx.x;
-  const int slot = idx[i];
-  const bool valid = slot >= 0 && slot < n_pool;
-  for (int e = tid; e < n_tok * n_k; e += kThreads) {
-    const int t = e / n_k, k = e - t * n_k;
-    x_s[t * kChunk + k] =
-        ptt::to_f32(x[(static_cast<size_t>(i) * seq + s0 + t) * din + k0 + k]);
-  }
-  __syncthreads();
-  const int lanes = kThreads / rp;
-  const int r = tid % rp, lane = tid / rp;
-  float acc[kSeqTile];
-#pragma unroll
-  for (int t = 0; t < kSeqTile; ++t) acc[t] = 0.f;
-  if (lane < lanes && valid) {
-    const T* a = a_stack + (static_cast<size_t>(slot) * din + k0) * rp + r;
-    for (int k = lane; k < n_k; k += lanes) {
-      const float av = ptt::to_f32(a[static_cast<size_t>(k) * rp]);
-#pragma unroll
-      for (int t = 0; t < kSeqTile; ++t)
-        if (t < n_tok) acc[t] += x_s[t * kChunk + k] * av;
-    }
-  }
-  if (lane < lanes) {
-#pragma unroll
-    for (int t = 0; t < kSeqTile; ++t)
-      if (t < n_tok) red[(lane * kSeqTile + t) * rp + r] = acc[t];
-  }
-  __syncthreads();
-  for (int e = tid; e < n_tok * rp; e += kThreads) {
-    const int t = e / rp, rr = e - t * rp;
-    float sum = 0.f;
-    for (int l = 0; l < lanes; ++l) sum += red[(l * kSeqTile + t) * rp + rr];
-    partial[((static_cast<size_t>(i) * n_split + z) * seq + s0 + t) * rp + rr] =
-        valid ? sum : NAN;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kSeqTile = 8;
+constexpr int kMaxRank = 256;
+constexpr int kMaxCluster = 8;
+constexpr int kStageBytes = 32 * 1024;   // A rows, or B columns, a stage
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
+
+// `rows` rows of `cols` elements, src (row stride `src_ld` elements) ->
+// dst (row stride `dst_ld`): 16-byte asynchronous copies spread over the
+// block's threads (VEC: 16-byte aligned rows, cols a multiple of 16
+// bytes; complete at cp_async_wait_all) or element by element.
+template <typename T, bool VEC>
+__device__ __forceinline__ void stage(T* dst, int dst_ld, const T* src,
+                                      size_t src_ld, int rows, int cols) {
+  constexpr int kVe = VEC ? 16 / sizeof(T) : 1;
+  const int per_row = cols / kVe;
+  for (int v = threadIdx.x; v < rows * per_row; v += kThreads) {
+    const int r = v / per_row, e = (v - r * per_row) * kVe;
+    if constexpr (VEC)
+      cp_async16(dst + r * dst_ld + e, src + r * src_ld + e);
+    else
+      dst[r * dst_ld + e] = src[r * src_ld + e];
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-lora_expand_kernel(const float* __restrict__ partial,
-                   const T* __restrict__ b_stack, const T* __restrict__ scale,
-                   const int* __restrict__ idx, T* __restrict__ out, int seq,
-                   int dout, int rp, int n_split, int n_pool) {
-  __shared__ float xa_s[kSeqTile * kMaxRank];
-  const int i = blockIdx.x;
-  const int s0 = blockIdx.y * kSeqTile;
-  const int n = blockIdx.z * kThreads + threadIdx.x;
+template <typename T, bool VEC>
+__device__ __forceinline__ void load_vec(float* v, const T* p) {
+  constexpr int kVe = VEC ? 16 / sizeof(T) : 1;
+  if constexpr (VEC) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int u = 0; u < kVe; ++u) v[u] = ptt::to_f32(e[u]);
+  } else {
+    v[0] = ptt::to_f32(*p);
+  }
+}
+
+// Grid (R * C, token tiles, rows), clusters of C blocks along x.  kc: the
+// input columns of a cluster block; kr: the A rows staged at a time; nc:
+// the output columns of a block; cw: the B columns staged at a time (all
+// multiples of 8).
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kThreads, 1)
+lora_delta_kernel(const T* __restrict__ x, const T* __restrict__ a_stack,
+                  const T* __restrict__ b_stack, const T* __restrict__ scale,
+                  const int* __restrict__ idx, T* __restrict__ out, int seq,
+                  int din, int dout, int rp, int n_pool, int kc, int kr,
+                  int nc, int cw) {
+  // VEC: a thread owns kVe rank columns (16 bytes); G groups of them span
+  // a row of A, L threads stride over its rows.  Otherwise one column.
+  constexpr int kVe = VEC ? 16 / sizeof(T) : 1;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* a_s = reinterpret_cast<T*>(smem);                 // [kr][rp]
+  T* b_s = a_s + kr * rp;                              // [rp][cw]
+  T* x_s = b_s + rp * cw;                              // [kSeqTile][kr]
+  float* part_s = reinterpret_cast<float*>(x_s + kSeqTile * kr);
+  float* xa_s = part_s + kSeqTile * rp;                // [kSeqTile][rp]
+  float* red = xa_s + kSeqTile * rp;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n_blocks = static_cast<int>(cluster.num_blocks());
+  const int c = static_cast<int>(cluster.block_rank());
+  const int i = blockIdx.z, s0 = blockIdx.y * kSeqTile;
   const int n_tok = min(kSeqTile, seq - s0);
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, lane32 = tid & 31, warp = tid >> 5;
+  const int slot_in = idx[i];
+  const bool valid = slot_in >= 0 && slot_in < n_pool;
+  const int slot = valid ? slot_in : 0;   // NaN rows: see part_s below
+  const T* a = a_stack + static_cast<size_t>(slot) * din * rp;
+  const T* bm = b_stack + static_cast<size_t>(slot) * rp * dout;
+  const T* xr = x + (static_cast<size_t>(i) * seq + s0) * din;
+
+  // this block's B columns; the first stage is in flight with the shrink's
+  const int n_begin = blockIdx.x * nc;
+  const int n_end = min(dout, n_begin + nc);
+  auto stage_b = [&](int n0) {
+    stage<T, VEC>(b_s, cw, bm + n0, dout, rp, min(cw, n_end - n0));
+  };
+  if (n_begin < n_end) stage_b(n_begin);
+
+  // ---- shrink: this block's chunk of x·A, [tokens, rp] in fp32
+  const int G = VEC ? rp / kVe : rp;
+  const int L = kThreads / G;
+  const int gi = tid % G, ln = tid / G;
+  float acc[kSeqTile][kVe];
+#pragma unroll
+  for (int t = 0; t < kSeqTile; ++t)
+#pragma unroll
+    for (int u = 0; u < kVe; ++u) acc[t][u] = 0.f;
+  const int k_end = min(din, (c + 1) * kc);
+  for (int k0 = c * kc; k0 < k_end; k0 += kr) {
+    const int rows = min(kr, k_end - k0);
+    stage<T, VEC>(a_s, 0, a + static_cast<size_t>(k0) * rp, 0, 1, rows * rp);
+    stage<T, VEC>(x_s, kr, xr + k0, din, n_tok, rows);
+    cp_async_wait_all();
+    __syncthreads();
+    if (ln < L) {
+#pragma unroll 4
+      for (int k = ln; k < rows; k += L) {
+        float av[kVe];
+        load_vec<T, VEC>(av, a_s + k * rp + gi * kVe);
+#pragma unroll
+        for (int t = 0; t < kSeqTile; ++t) {
+          if (t < n_tok) {
+            const float xv = ptt::to_f32(x_s[t * kr + k]);
+#pragma unroll
+            for (int u = 0; u < kVe; ++u) acc[t][u] = fmaf(xv, av[u], acc[t][u]);
+          }
+        }
+      }
+    }
+    __syncthreads();   // the next stage overwrites a_s and x_s
+  }
+  // the threads of one rank group, in a fixed order
+  if constexpr (VEC) {
+    // lanes of a warp with the same group differ by multiples of G
+    for (int off = G; off < 32; off <<= 1) {
+#pragma unroll
+      for (int t = 0; t < kSeqTile; ++t)
+        if (t < n_tok) {                   // n_tok is uniform
+#pragma unroll
+          for (int u = 0; u < kVe; ++u)
+            acc[t][u] += __shfl_xor_sync(0xffffffffu, acc[t][u], off);
+        }
+    }
+    if (lane32 < G) {
+#pragma unroll
+      for (int t = 0; t < kSeqTile; ++t)
+        if (t < n_tok) {
+#pragma unroll
+          for (int u = 0; u < kVe; ++u)
+            red[(warp * kSeqTile + t) * rp + gi * kVe + u] = acc[t][u];
+        }
+    }
+  } else {
+    if (ln < L) {
+#pragma unroll
+      for (int t = 0; t < kSeqTile; ++t)
+        if (t < n_tok) red[(ln * kSeqTile + t) * rp + gi] = acc[t][0];
+    }
+  }
+  __syncthreads();
+  const int n_red = VEC ? kWarps : L;
   for (int e = tid; e < n_tok * rp; e += kThreads) {
     const int t = e / rp, r = e - t * rp;
     float sum = 0.f;
-    for (int z = 0; z < n_split; ++z)
-      sum += partial[((static_cast<size_t>(i) * n_split + z) * seq + s0 + t) * rp + r];
-    xa_s[t * rp + r] = sum;
+    for (int w = 0; w < n_red; ++w) sum += red[(w * kSeqTile + t) * rp + r];
+    part_s[e] = valid ? sum : NAN;
   }
+
+  // ---- the cluster's partials, summed in rank order in every block
+  cluster.sync();
+  for (int e = tid; e < n_tok * rp; e += kThreads) {
+    float sum = 0.f;
+    for (int cc = 0; cc < n_blocks; ++cc)
+      sum += cluster.map_shared_rank(part_s, cc)[e];
+    xa_s[e] = sum;
+  }
+  // no block leaves (freeing its partials) before every block has read them
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
   __syncthreads();
-  if (n >= dout) return;
-  int slot = idx[i];
-  const bool valid = slot >= 0 && slot < n_pool;
-  if (!valid) slot = 0;     // the rows are NaN already (shrink)
+
+  // ---- expand: this block's columns of (x·A)·B, times the scale
   const float sc = ptt::to_f32(scale[slot]);
-  float acc[kSeqTile];
+  for (int n0 = n_begin; n0 < n_end; n0 += cw) {
+    if (n0 != n_begin) {
+      __syncthreads();   // every thread is done with the previous stage
+      stage_b(n0);
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    const int cols = min(cw, n_end - n0);
+    for (int v = tid; v < cols / kVe; v += kThreads) {
+      float o[kSeqTile][kVe];
 #pragma unroll
-  for (int t = 0; t < kSeqTile; ++t) acc[t] = 0.f;
-  const T* bcol = b_stack + static_cast<size_t>(slot) * rp * dout + n;
-  for (int r = 0; r < rp; ++r) {
-    const float bv = ptt::to_f32(bcol[static_cast<size_t>(r) * dout]);
+      for (int t = 0; t < kSeqTile; ++t)
 #pragma unroll
-    for (int t = 0; t < kSeqTile; ++t)
-      if (t < n_tok) acc[t] += xa_s[t * rp + r] * bv;
+        for (int u = 0; u < kVe; ++u) o[t][u] = 0.f;
+      for (int r = 0; r < rp; ++r) {
+        float bv[kVe];
+        load_vec<T, VEC>(bv, b_s + r * cw + v * kVe);
+#pragma unroll
+        for (int t = 0; t < kSeqTile; ++t) {
+          if (t < n_tok) {
+            const float xv = xa_s[t * rp + r];
+#pragma unroll
+            for (int u = 0; u < kVe; ++u) o[t][u] = fmaf(xv, bv[u], o[t][u]);
+          }
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < kSeqTile; ++t) {
+        if (t >= n_tok) continue;
+        T* dst = out + (static_cast<size_t>(i) * seq + s0 + t) * dout + n0 +
+                 v * kVe;
+        if constexpr (VEC) {
+          uint4 raw;
+          T* e = reinterpret_cast<T*>(&raw);
+#pragma unroll
+          for (int u = 0; u < kVe; ++u) e[u] = ptt::from_f32<T>(o[t][u] * sc);
+          *reinterpret_cast<uint4*>(dst) = raw;
+        } else {
+          *dst = ptt::from_f32<T>(o[t][0] * sc);
+        }
+      }
+    }
   }
-#pragma unroll
-  for (int t = 0; t < kSeqTile; ++t)
-    if (t < n_tok)
-      out[(static_cast<size_t>(i) * seq + s0 + t) * dout + n] =
-          ptt::from_f32<T>(acc[t] * sc);
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-template <typename T>
+struct Plan {
+  int cluster, per_row, kc, kr, nc, cw;
+  size_t smem;
+};
+
+int round8(int n) { return (n + 7) / 8 * 8; }
+
+// Cluster size from din (a block reduces >= 512 input columns), clusters
+// a row from the card's SMs and dout (a block expands >= 256 columns),
+// stages within kStageBytes.
+Plan plan(int ns, int seq, int din, int dout, int rp, int elem, int sms,
+          bool vec) {
+  Plan p{};
+  p.cluster = std::min(kMaxCluster, std::max(1, (din + 511) / 512));
+  p.kc = round8((din + p.cluster - 1) / p.cluster);
+  const int tiles = ns * ((seq + kSeqTile - 1) / kSeqTile);
+  const int want = (sms + tiles * p.cluster - 1) / (tiles * p.cluster);
+  const int most = std::max(1, dout / (256 * p.cluster));
+  const int r = std::max(1, std::min(want, most));
+  p.per_row = r * p.cluster;
+  p.nc = round8((dout + p.per_row - 1) / p.per_row);
+  p.kr = std::min(p.kc, std::max(8, kStageBytes / (rp * elem) / 8 * 8));
+  p.cw = std::min(p.nc, std::max(8, kStageBytes / (rp * elem) / 8 * 8));
+  const size_t red = vec ? static_cast<size_t>(kWarps) * kSeqTile * rp
+                         : static_cast<size_t>(kThreads) * kSeqTile;
+  p.smem = static_cast<size_t>(elem) *
+               (static_cast<size_t>(p.kr) * rp +
+                static_cast<size_t>(rp) * p.cw +
+                static_cast<size_t>(kSeqTile) * p.kr) +
+           4 * (2 * static_cast<size_t>(kSeqTile) * rp + red);
+  return p;
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+template <typename T, bool VEC>
 int launch(const void* x, const void* a_stack, const void* b_stack,
-           const void* scale, const int* idx, float* partial, void* out,
-           int ns, int seq, int din, int dout, int rp, int n_split,
-           int n_pool, cudaStream_t stream) {
-  const int seq_tiles = (seq + kSeqTile - 1) / kSeqTile;
-  lora_shrink_kernel<T><<<dim3(ns, seq_tiles, n_split), kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(a_stack), idx, partial,
-      seq, din, rp, n_split, n_pool);
-  cudaError_t e = cudaGetLastError();
+           const void* scale, const int* idx, void* out, int ns, int seq,
+           int din, int dout, int rp, int n_pool, cudaStream_t stream) {
+  auto kernel = lora_delta_kernel<T, VEC>;
+  static const cudaError_t e = cudaFuncSetAttribute(     // once
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 200 * 1024);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int n_tiles = (dout + kThreads - 1) / kThreads;
-  lora_expand_kernel<T><<<dim3(ns, seq_tiles, n_tiles), kThreads, 0, stream>>>(
-      partial, static_cast<const T*>(b_stack), static_cast<const T*>(scale),
-      idx, static_cast<T*>(out), seq, dout, rp, n_split, n_pool);
+  static const int sms = [] {
+    int dev = 0, n = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return n > 0 ? n : 132;
+  }();
+  const Plan p = plan(ns, seq, din, dout, rp, sizeof(T), sms, VEC);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.per_row, (seq + kSeqTile - 1) / kSeqTile, ns);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = p.smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const T*>(x), static_cast<const T*>(a_stack),
+      static_cast<const T*>(b_stack), static_cast<const T*>(scale), idx,
+      static_cast<T*>(out), seq, din, dout, rp, n_pool, p.kc, p.kr, p.nc,
+      p.cw);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// 16-byte copies where every row of A, B and x and every base allows
+// them and a row of A is a power-of-two number (<= 32) of 16-byte groups
+template <typename T>
+int dispatch(const void* x, const void* a_stack, const void* b_stack,
+             const void* scale, const int* idx, void* out, int ns, int seq,
+             int din, int dout, int rp, int n_pool, cudaStream_t stream) {
+  constexpr int kVe = 16 / sizeof(T);
+  const int g = rp / kVe;
+  const bool vec = rp % kVe == 0 && g <= 32 && (g & (g - 1)) == 0 &&
+                   din % kVe == 0 && dout % kVe == 0 && aligned16(x) &&
+                   aligned16(a_stack) && aligned16(b_stack) &&
+                   aligned16(out);
+  return vec ? launch<T, true>(x, a_stack, b_stack, scale, idx, out, ns, seq,
+                               din, dout, rp, n_pool, stream)
+             : launch<T, false>(x, a_stack, b_stack, scale, idx, out, ns,
+                                seq, din, dout, rp, n_pool, stream);
 }
 
 }  // namespace
 
 // x: [ns, seq, din]; a_stack: [n_pool, din, rp]; b_stack: [n_pool, rp, dout];
-// scale: [n_pool]; out: [ns, seq, dout], all of `dtype`; idx: int32 [ns];
-// partial: float32 [ns, n_split, seq, rp] scratch, n_split = ceil(din / 512).
+// scale: [n_pool]; out: [ns, seq, dout], all of `dtype` and contiguous;
+// idx: int32 [ns]; rp <= 256.
 extern "C" int ptt_lora_delta(const void* x, const void* a_stack,
                               const void* b_stack, const void* scale,
-                              const void* idx, void* partial, void* out,
-                              int ns, int seq, int din, int dout, int rp,
-                              int n_split, int n_pool, int dtype,
-                              void* stream) {
+                              const void* idx, void* out, int ns, int seq,
+                              int din, int dout, int rp, int n_pool,
+                              int dtype, void* stream) {
   if (ns <= 0 || seq <= 0 || din <= 0 || dout <= 0 || rp <= 0 ||
-      rp > kMaxRank || n_pool <= 0 || n_split != (din + kChunk - 1) / kChunk)
+      rp > kMaxRank || n_pool <= 0 || ns > 65535 ||
+      (seq + kSeqTile - 1) / kSeqTile > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* ix = static_cast<const int*>(idx);
-  float* part = static_cast<float*>(partial);
   switch (dtype) {
     case ptt::kF32:
-      return launch<float>(x, a_stack, b_stack, scale, ix, part, out, ns, seq,
-                           din, dout, rp, n_split, n_pool, s);
+      return dispatch<float>(x, a_stack, b_stack, scale, ix, out, ns, seq,
+                             din, dout, rp, n_pool, s);
     case ptt::kBF16:
-      return launch<__nv_bfloat16>(x, a_stack, b_stack, scale, ix, part, out,
-                                   ns, seq, din, dout, rp, n_split, n_pool, s);
+      return dispatch<__nv_bfloat16>(x, a_stack, b_stack, scale, ix, out, ns,
+                                     seq, din, dout, rp, n_pool, s);
     case ptt::kF16:
-      return launch<__half>(x, a_stack, b_stack, scale, ix, part, out, ns, seq,
-                            din, dout, rp, n_split, n_pool, s);
+      return dispatch<__half>(x, a_stack, b_stack, scale, ix, out, ns, seq,
+                              din, dout, rp, n_pool, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -4,10 +4,11 @@ their plain versions (port of paddle_tpu/pallas/flash_attention.py
 ``flash_attention``: ``_pallas_flash_fwd``, ``_pallas_flash_bwd`` and the
 custom VJP of ``_flash_core``).
 
-The backward kernels for 16-bit inputs at head dims 64 and 128 (GPT-2's
-and Llama's) are warp-specialised Hopper kernels (wgmma products fed by
-TMA, see the source); head dim 32 keeps ``mma.sync`` bodies and fp32 its
-FMA bodies, which no training path takes.
+The forward and the two backward kernels for 16-bit inputs at head dims
+64 and 128 (GPT-2's and Llama's) are warp-specialised Hopper kernels
+(wgmma products fed by TMA, see the sources); head dim 32 keeps
+``mma.sync`` bodies and fp32 its FMA bodies, which no training path
+takes.
 
 Layouts are the JAX package's: q ``[B, S, H, D]``, or ``[B, H, S, D]`` with
 ``head_major=True``; k and v carry ``H_kv`` heads with ``H % H_kv == 0``
@@ -15,9 +16,11 @@ Layouts are the JAX package's: q ``[B, S, H, D]``, or ``[B, H, S, D]`` with
 memory by the kernels).  The forward also returns the fp32 log-sum-exp
 ``lse [B, H, S]``, which the backward uses to recompute the probabilities.
 All versions keep the softmax and ``p @ v`` in fp32, as the Pallas kernel
-does (it casts q, k and v to fp32 in its body).  The kernels take views
-with any batch/head/sequence strides and a contiguous head dim, so the
-head-major transpose of a ``[B, S, H, D]`` projection costs no copy.
+does (it casts q, k and v to fp32 in its body): the 16-bit forward
+kernels give the tensor cores p as a 16-bit head and remainder.  The
+kernels take views with any batch/head/sequence strides and a contiguous
+head dim, so the head-major transpose of a ``[B, S, H, D]`` projection
+costs no copy.
 
 The Pallas kernels' features, in all three kernels and their plain
 versions (``_apply_masks`` and ``_dropout_uniform``):
@@ -284,7 +287,7 @@ def _prep(t, rows16=False):
 
 
 def _tma_mask(mask):
-    """The mask as the backward kernels' TMA reads it: keys contiguous, a
+    """The mask as the flash kernels' TMA reads it: keys contiguous, a
     16-byte aligned base and every stride of a dim longer than 1 a
     positive multiple of 4 elements; else a copy into rows padded to a
     multiple of 4 keys, seen through a view of the same shape."""
@@ -384,7 +387,8 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None, head_major=False,
     b, h, h_kv, s, d = _geometry(q, k, v, head_major)
     _check_cuda_call("flash_attention_fwd", q, k, v, d)
     mask, segment_ids, feats = _features("flash_attention_fwd", q, b, h, s,
-                                         mask, segment_ids, dropout, seed)
+                                         _tma_mask(mask), segment_ids,
+                                         dropout, seed)
     q, k, v = _prep(q), _prep(k), _prep(v)
     out = torch.empty_like(q)
     lse = torch.empty(b, h, s, dtype=torch.float32, device=q.device)

@@ -1,5 +1,5 @@
-"""Gathered multi-LoRA delta: the CUDA kernels ``csrc/lora_delta.cu`` and
-their plain version (port of paddle_tpu/serving/adapters.py
+"""Gathered multi-LoRA delta: the CUDA kernel ``csrc/lora_delta.cu`` and
+its plain version (port of paddle_tpu/serving/adapters.py
 ``_pallas_delta``).
 
 ``lora_delta(x, a_stack, b_stack, scale, idx)`` returns, for each batch
@@ -7,7 +7,10 @@ row ``i``, ``(x[i] @ A[idx[i]]) @ B[idx[i]] * scale[idx[i]]`` computed in
 fp32 and rounded once to ``x``'s dtype, as the Pallas kernel does; the
 caller adds it to the base projection's output.  The stacks stay where
 they are: the kernel reads each row's adapter slot from ``idx`` (the
-Pallas kernel's scalar prefetch) and never builds a gathered copy.
+Pallas kernel's scalar prefetch) and never builds a gathered copy.  One
+launch a call (thread-block clusters sum x·A through distributed shared
+memory, in a fixed order: two calls give the same bits) and no scratch
+tensor.
 """
 from __future__ import annotations
 
@@ -17,8 +20,6 @@ import torch
 
 from . import _build, check_cuda, dtype_code
 
-#: input columns a shrink block reduces (csrc/lora_delta.cu ``kChunk``)
-SHRINK_CHUNK = 512
 MAX_RANK = 256
 
 
@@ -34,7 +35,7 @@ def lora_delta(x, a_stack, b_stack, scale, idx):
     """x: [ns, seq, din]; a_stack: [P, din, rp]; b_stack: [P, rp, dout];
     scale: [P] (all of one float dtype); idx: int32 [ns] → [ns, seq, dout]
     like x.  CPU tensors take `lora_delta_ref`; CUDA tensors launch the
-    kernels."""
+    kernel."""
     if x.device.type == "cpu":
         return lora_delta_ref(x, a_stack, b_stack, scale, idx)
     if x.device.type != "cuda":
@@ -61,20 +62,17 @@ def lora_delta(x, a_stack, b_stack, scale, idx):
         raise TypeError(f"lora_delta: x {x.dtype} and the stacks "
                         f"{a_stack.dtype} / {b_stack.dtype} / {scale.dtype} "
                         "must share one dtype")
-    n_split = -(-din // SHRINK_CHUNK)
-    partial = torch.empty(ns, n_split, seq, rp, device=x.device,
-                          dtype=torch.float32)
     out = torch.empty(ns, seq, dout, device=x.device, dtype=x.dtype)
     fn = _build.function("ptt_lora_delta", [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        ctypes.c_void_p])
     with torch.cuda.device(x.device):
         err = fn(_build.ptr(x), _build.ptr(a_stack), _build.ptr(b_stack),
-                 _build.ptr(scale), _build.ptr(idx), _build.ptr(partial),
-                 _build.ptr(out), ns, seq, din, dout, rp, n_split, n_pool,
-                 dtype_code(x), _build.stream(x.device))
+                 _build.ptr(scale), _build.ptr(idx), _build.ptr(out), ns, seq,
+                 din, dout, rp, n_pool, dtype_code(x),
+                 _build.stream(x.device))
     _build.check(err, "ptt_lora_delta")
     lora_delta.launches += 1
     return out

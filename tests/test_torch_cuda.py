@@ -232,8 +232,8 @@ def test_flash_attention_op_under_autograd_on_card(card):
         assert torch.equal(got, w)
 
 
-#: the tile edges of the Hopper backward kernels (128 keys or q rows a
-#: block, 64-row warpgroups, 64-key and 64- or 32-row stages)
+#: the tile edges of the Hopper flash kernels (128 keys or q rows a block,
+#: 64-row warpgroups, 64- or 128-key and 64- or 32-row stages)
 EDGE_LENGTHS = (1, 127, 128, 129, 1000)
 
 
@@ -279,6 +279,126 @@ def test_flash_backward_is_deterministic_on_card(card, dropout):
                                     **feats)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_forward_tile_edges_on_card(card, dtype, d):
+    """The Hopper forward (128 q rows a block, 64-row warpgroups, 128-key
+    stages) at S on and around its tiles' edges, causal and not, both
+    layouts, n_rep 4, against the fp32 plain forward: out row by row
+    within ROW_TOL, lse within 1e-3; one launch of the plain variant a
+    call."""
+    for s in EDGE_LENGTHS:
+        for causal in (True, False):
+            for hm in (True, False):
+                b = 1 if s == 1000 else 2
+                q, k, v, _ = _attn_inputs(card, b, 8, 2, s, d, dtype, hm,
+                                          70 + s + 2 * causal + hm)
+                before = fa.flash_attention_fwd.launches
+                out, lse = fa.flash_attention_fwd(q, k, v, causal, None, hm)
+                assert fa.flash_attention_fwd.launches == before + 1
+                want, want_lse = fa.flash_attention_ref(q, k, v, causal,
+                                                        None, hm)
+                assert out.shape == want.shape and out.dtype == dtype
+                err = _row_err(out, want)
+                assert err < ROW_TOL[dtype], (s, causal, hm, err)
+                torch.testing.assert_close(lse, want_lse, rtol=1e-3,
+                                           atol=1e-3)
+
+
+def _edge_features(card, kind, b, h, s, seed):
+    """(features, the fully masked (batch, row) or None) of a forward edge
+    case: dropout 0.1; an additive N(0, 1) fp32 bias [B, 1, S, S]; a
+    key-padding mask (batch i keeps its first S - 7 i keys) with q row
+    min(3, S - 1) of the last batch fully masked; four segments a row,
+    their borders shifted by 5 tokens a batch."""
+    g = torch.Generator(device=card).manual_seed(200 + seed)
+    feats = dict(mask=None, segment_ids=None, dropout=0.0, seed=4321 + seed)
+    dead = None
+    if kind == "dropout":
+        feats["dropout"] = 0.1
+    elif kind == "bias":
+        feats["mask"] = torch.randn(b, 1, s, s, device=card, generator=g)
+    elif kind == "padding":
+        keep = torch.ones(b, 1, s, s, dtype=torch.bool, device=card)
+        for i in range(b):
+            keep[i, :, :, max(1, s - 7 * i):] = False
+        dead = (b - 1, min(3, s - 1))
+        keep[dead[0], 0, dead[1]] = False
+        feats["mask"] = fa.additive_mask(keep)
+    elif kind == "segments":
+        pos = torch.arange(s, device=card)
+        feats["segment_ids"] = torch.stack(
+            [((pos + 5 * i) * 4 // s).clamp_max(3) for i in range(b)]
+        ).to(torch.int32)
+    return feats, dead
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["dropout", "bias", "padding", "segments"])
+def test_flash_forward_features_at_tile_edges_on_card(card, kind):
+    """The forward's feature instantiation (mask tiles staged by TMA, the
+    segment ids and the guard on every live score, the dropout hash beside
+    the S product) at the tile edges, D 64 and 128, causal and not, both
+    layouts, n_rep 4, bf16: the forward against the plain forward and the
+    backward against the plain backward on the kernel's out and lse, both
+    with the same features and seed, so each kernel drops exactly the
+    plain version's elements; with dropout also the whole forward +
+    backward against the plain pair (the plain backward on the plain
+    forward's out and lse).  Out and every gradient row by row within
+    ROW_TOL, lse within 1e-3; a fully masked row gives out 0 on both."""
+    dtype = torch.bfloat16
+    for s in EDGE_LENGTHS:
+        for d in (64, 128):
+            for causal in (True, False):
+                for hm in (True, False):
+                    b = 1 if s == 1000 else 2
+                    seed = s + 2 * d + 4 * causal + hm
+                    q, k, v, do = _attn_inputs(card, b, 8, 2, s, d, dtype,
+                                               hm, 90 + seed)
+                    feats, dead = _edge_features(card, kind, b, 8, s, seed)
+                    out, lse = fa.flash_attention_fwd(q, k, v, causal, None,
+                                                      hm, **feats)
+                    want, want_lse = fa.flash_attention_ref(
+                        q, k, v, causal, None, hm, **feats)
+                    case = (s, d, causal, hm)
+                    assert _row_err(out, want) < ROW_TOL[dtype], case
+                    torch.testing.assert_close(lse, want_lse, rtol=1e-3,
+                                               atol=1e-3)
+                    grads = fa.flash_attention_bwd(q, k, v, out, lse, do,
+                                                   causal, None, hm, **feats)
+                    pairs = [(out, lse)]
+                    if kind == "dropout":
+                        pairs.append((want, want_lse))
+                    for o, l in pairs:
+                        wants = fa.flash_attention_bwd_ref(
+                            q, k, v, o, l, do, causal, None, hm, **feats)
+                        scale = max(_rms_row_norm(w) for w in wants)
+                        for got, w in zip(grads, wants):
+                            assert _row_err(got, w, scale) < ROW_TOL[dtype], \
+                                case
+                    if dead is not None:
+                        bi, row = dead
+                        for t in (out, want):
+                            t_bh = t if hm else t.transpose(1, 2)
+                            assert not t_bh[bi, :, row].any(), case
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+def test_flash_forward_is_deterministic_on_card(card, dropout):
+    """No atomics in the forward: two calls give the same bits of out and
+    lse (causal, n_rep 4, a ragged S, D 64 and 128)."""
+    for d in (64, 128):
+        q, k, v, _ = _attn_inputs(card, 2, 8, 2, 1000, d, torch.bfloat16,
+                                  True, 41 + d)
+        feats = dict(dropout=dropout, seed=78)
+        first = fa.flash_attention_fwd(q, k, v, True, None, True, **feats)
+        second = fa.flash_attention_fwd(q, k, v, True, None, True, **feats)
+        for a, b in zip(first, second):
+            assert torch.equal(a, b), d
 
 
 @pytest.mark.cuda
@@ -735,6 +855,69 @@ def test_lora_delta_kernel_on_card(card, dtype):
             (seq, rank, din, dout)
         assert not out[1].any()
     assert kl.lora_delta.launches == before + len(cases)
+
+
+def _lora_inputs(card, seq, rank, din, dout, dtype, seed, ns=4, pool=5):
+    """x [ns, seq, din] and a pool of `pool` adapters with N(0, 0.05)
+    factors, slot 0 the identity (A = B = 0), scales 0, 2, 0.5, 1, 1.5."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    x = torch.randn(ns, seq, din, device=card, generator=g).to(dtype)
+    a = (0.05 * torch.randn(pool, din, rank, device=card, generator=g)
+         ).to(dtype)
+    b = (0.05 * torch.randn(pool, rank, dout, device=card, generator=g)
+         ).to(dtype)
+    a[0], b[0] = 0, 0
+    s = torch.tensor([0.0, 2.0, 0.5, 1.0, 1.5][:pool], device=card).to(dtype)
+    return x, a, b, s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_lora_delta_edges_on_card(card, dtype):
+    """The one-launch delta at the sequence tile's edges (seq 1, 7, 8, 9,
+    32), input widths 4096, 11008 and 1000 (not a multiple of a block's
+    512-column share), ranks 8, 16 and 64: each row within ROW_TOL of the
+    plain version, the identity slot 0 gives 0 rows, an idx outside the
+    pool gives NaN rows, and a second call gives the same bits."""
+    cases = [(seq, 16, 4096, 11008) for seq in (1, 7, 8, 9, 32)] + [
+        (1, 8, 11008, 4096), (9, 64, 1000, 4096), (32, 64, 4096, 4096),
+        (8, 8, 1000, 1000), (1, 16, 11008, 4096)]
+    for i, (seq, rank, din, dout) in enumerate(cases):
+        x, a, b, s = _lora_inputs(card, seq, rank, din, dout, dtype, 300 + i)
+        idx = torch.tensor([3, 0, 1, 5], dtype=torch.int32, device=card)
+        out = kl.lora_delta(x, a, b, s, idx)
+        again = kl.lora_delta(x, a, b, s, idx)
+        case = (seq, rank, din, dout)
+        assert out.shape == (4, seq, dout) and out.dtype == dtype, case
+        ok = torch.tensor([3, 0, 1, 1], dtype=torch.int32, device=card)
+        want = kl.lora_delta_ref(x, a, b, s, ok)
+        assert _row_err(out[[0, 2]], want[[0, 2]]) < ROW_TOL[dtype], case
+        assert not out[1].any(), case
+        assert bool(torch.isnan(out[3]).all()), case
+        assert torch.equal(out[:3], again[:3]), case
+        assert bool(torch.isnan(again[3]).all()), case
+
+
+@pytest.mark.cuda
+def test_lora_delta_is_one_launch_on_card(card):
+    """One call is one device kernel (torch.profiler counts the CUDA
+    kernels of the call; no scratch fill or second pass) and raises
+    `lora_delta.launches` by one."""
+    x, a, b, s = _lora_inputs(card, 1, 16, 4096, 11008, torch.bfloat16, 9)
+    idx = torch.tensor([0, 1, 2, 3], dtype=torch.int32, device=card)
+    kl.lora_delta(x, a, b, s, idx)                  # built and warm
+    torch.cuda.synchronize()
+    before = kl.lora_delta.launches
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        kl.lora_delta(x, a, b, s, idx)
+        torch.cuda.synchronize()
+    assert kl.lora_delta.launches == before + 1
+    kernels_run = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels_run) == 1 and "lora_delta" in kernels_run[0], \
+        kernels_run
 
 
 @pytest.mark.cuda
