@@ -8,10 +8,10 @@ last line:
 
 1. device   the card's name and power limit (nvidia-smi); no card → exit 1
 2. build    every CUDA kernel built with nvcc for sm_90a from csrc/; the
-            registers and spills (ptxas -v) of the paged-decode kernels,
-            of every flash forward and backward kernel and of the LoRA
-            delta: any spill fails, and so does a flash source whose
-            build lists no wgmma kernel
+            registers and spills (ptxas -v) of the RMS-norm kernels, the
+            paged-decode kernels, every flash forward and backward kernel
+            and the LoRA delta: any spill fails, and so does a flash
+            source whose build lists no wgmma kernel
 3. kernels  each kernel against its plain PyTorch version on the card at
             the serving and training paths' shapes, with its time, the
             plain version's, one PyTorch library call's where there is
@@ -20,7 +20,10 @@ last line:
             (dropout 0.1, an additive bias, a key-padding mask with a
             fully masked row, segment ids) at GPT-2's training shape;
             paged decode's split plan for each case, a 32-row batch and
-            offsets on the split's edges
+            offsets on the split's edges; RMS norm's launch plan for each
+            case, its staged and generic paths, dw bit-identical over two
+            calls, the backward's two launches timed apart, and the
+            Timer's floor (one in-place add on a 4-element tensor)
 4. serve    Llama-2 7B at full width (32 layers, bf16, random weights
             from a seed) behind the paged Engine: 8 requests, the serving
             kernels' launch counts checked against the steps taken; then
@@ -84,6 +87,7 @@ from paddle_tpu_torch.kernels.paged_decode import (gather_pages,
                                                    paged_decode_attention,
                                                    paged_decode_ref,
                                                    split_plan)
+from paddle_tpu_torch.kernels import rms_norm as rn
 from paddle_tpu_torch.kernels.rms_norm import (rms_norm, rms_norm_bwd,
                                                rms_norm_bwd_ref,
                                                rms_norm_ref)
@@ -322,12 +326,14 @@ def phase_build():
     _build.library()
     log(f"[build] {path.name} built in {time.monotonic() - t0:.2f} s "
         f"(nvcc, sm_90a, sources {[p.name for p in _build.sources()]})")
-    # the paged-decode kernels keep q, the softmax state and the next
-    # stage's K/V rows in registers, the flash kernels their accumulators
-    # and score tiles, the LoRA delta its partial sums: no instantiation
-    # may spill
-    for source in ("paged_decode.cu", "flash_attention_fwd.cu",
-                   "flash_attention_bwd.cu", "lora_delta.cu"):
+    # the RMS-norm kernels keep a row, the next row and w (and dw's
+    # partials) in registers, the paged-decode kernels q, the softmax
+    # state and the next stage's K/V rows, the flash kernels their
+    # accumulators and score tiles, the LoRA delta its partial sums: no
+    # instantiation may spill
+    for source in ("rms_norm.cu", "paged_decode.cu",
+                   "flash_attention_fwd.cu", "flash_attention_bwd.cu",
+                   "lora_delta.cu"):
         rows = ptxas_report(_build.build_log(), source)
         spilled = [r for r in rows if r[2] or r[3]]
         log(f"[build] {source}: {len(rows)} kernels, registers "
@@ -347,26 +353,47 @@ def phase_build():
                                  f"log lists none): {spilled or rows}")
 
 
-def rms_case(dev, rows, n, dtype, gen, timer=None):
-    x = torch.randn(rows, n, device=dev, generator=gen).to(dtype)
+def misaligned_rows(dev, rows, n, dtype, gen):
+    """[rows, n] random values, contiguous, one element past a 16-byte
+    boundary (the generic path)."""
+    flat = torch.randn(rows * n + 1, device=dev, generator=gen).to(dtype)
+    return flat[1:].view(rows, n)
+
+
+def rms_case(dev, rows, n, dtype, gen, timer=None, rstd=False,
+             misaligned=False):
+    """The forward against the plain version (y, and r with ``rstd``, as
+    training calls it); timed with ``timer``."""
+    x = misaligned_rows(dev, rows, n, dtype, gen) if misaligned else \
+        torch.randn(rows, n, device=dev, generator=gen).to(dtype)
     w = (1.0 + 0.1 * torch.randn(n, device=dev, generator=gen)).to(dtype)
     eps = 1e-5
-    y = rms_norm(x, w, eps)
+    y, r = rms_norm(x, w, eps, return_rstd=True)
     torch.cuda.synchronize()
-    want = rms_norm_ref(x, w, eps)
-    check_close(f"rms_norm[{rows}x{n} {dtype}]", y, want, dtype)
+    want, want_r = rms_norm_ref(x, w, eps, return_rstd=True)
+    name = f"rms_norm[{rows}x{n} {dtype}{' misaligned' if misaligned else ''}]"
+    check_close(name, y, want, dtype)
+    check_close(name + " r", r, want_r, torch.float32)
     err = max_err(y, want)
     if timer is None:
         return err, None
     es = x.element_size()
-    b_ms, b_by = bound(2 * rows * n * es + n * w.element_size(),
-                       4 * rows * n, dtype)
-    res = dict(ms=timer(lambda: rms_norm(x, w, eps)),
+    b_ms, b_by = bound(2 * rows * n * es + n * w.element_size()
+                       + (4 * rows if rstd else 0), 4 * rows * n, dtype)
+    res = dict(ms=timer(lambda: rms_norm(x, w, eps, return_rstd=rstd)),
                plain_ms=timer(lambda: rms_norm_ref(x, w, eps)),
                library_ms=timer(lambda: torch.nn.functional.rms_norm(
                    x, (n,), w, eps)),
                bound_ms=b_ms, bound_by=b_by)
     return err, res
+
+
+def rms_plan_str(p):
+    path = {rn.REG: "registers", rn.STAGED: "staged", rn.GENERIC: "generic"}
+    return (f"{path[p.path]}, {p.blocks} blocks x {p.threads} threads, "
+            f"{p.rows_per_block} rows a block"
+            + (f", {p.ept} elements a thread" if p.path == rn.REG else "")
+            + (f", {p.stages} rows staged" if p.path == rn.STAGED else ""))
 
 
 def last_split_off(offsets, split):
@@ -433,27 +460,51 @@ def paged_case(dev, b, h, h_kv, d, psz, n_pages, offsets, dtype, gen,
     return err, res
 
 
-def rms_bwd_case(dev, rows, n, dtype, gen, timer=None):
-    x = torch.randn(rows, n, device=dev, generator=gen).to(dtype)
+def rms_bwd_case(dev, rows, n, dtype, gen, timer=None, misaligned=False):
+    """The backward against the plain version, dx and dw row by row, and
+    dw bit-identical over two calls; timed with ``timer``, then also its
+    two launches apart, with two controls."""
+    x = misaligned_rows(dev, rows, n, dtype, gen) if misaligned else \
+        torch.randn(rows, n, device=dev, generator=gen).to(dtype)
     w = (1.0 + 0.1 * torch.randn(n, device=dev, generator=gen)).to(dtype)
     g = torch.randn(rows, n, device=dev, generator=gen).to(dtype)
     eps = 1e-5
     _, r = rms_norm(x, w, eps, return_rstd=True)
     (dx, dw) = rms_norm_bwd(x, w, r, g)
+    _, dw_again = rms_norm_bwd(x, w, r, g)
     torch.cuda.synchronize()
     want_dx, want_dw = rms_norm_bwd_ref(x, w, r, g)
-    name = f"rms_norm_bwd[{rows}x{n} {dtype}]"
+    name = f"rms_norm_bwd[{rows}x{n} {dtype}{' misaligned' if misaligned else ''}]"
     err, rel = check_rows(name, [("dx", dx, want_dx), ("dw", dw, want_dw)],
                           dtype)
-    log(f"[kernels] {name}: worst row {rel:.2e} of its norm")
+    if not torch.equal(dw, dw_again):
+        raise AssertionError(f"{name}: dw differs between two calls")
+    p = rn.bwd_plan(x, w, g, dx)
+    log(f"[kernels] {name}: worst row {rel:.2e} of its norm; dw "
+        f"bit-identical over two calls; plan {rms_plan_str(p)}")
     if timer is None:
         return err, None
-    # control: dx without its mean term, r (g w), in the plain version's
-    # arithmetic
+    # controls: dx without its mean term, r (g w), in the plain version's
+    # arithmetic; dw summed from the kernel's own partials with one
+    # block's left out
     no_mean = (r[:, None] * g.float() * w.float()).to(dtype)
     expect_rejected(f"{name} dx without the mean term", lambda: check_rows(
         name, [("dx", no_mean, want_dx)], dtype))
     del no_mean
+    ws = torch.empty(p.ws_rows, n, dtype=torch.float32, device=dev)
+    dx_part, dw_part = torch.empty_like(dx), torch.empty_like(dw)
+    rn.launch_bwd_rows(x, w, r, g, dx_part, ws, p)
+    k = p.blocks // 2
+    short = torch.cat([ws[:k], ws[k + 1:]]).sum(dim=0).to(w.dtype)
+    expect_rejected(
+        f"{name} dw without block {k}'s partial ({p.rows_per_block} rows)",
+        lambda: check_rows(name, [("dw", short, want_dw)], dtype))
+    del short
+    rows_ms = timer(lambda: rn.launch_bwd_rows(x, w, r, g, dx_part, ws, p))
+    dw_ms = timer(lambda: rn.launch_dw_sum(ws, dw_part))
+    log(f"[kernels] {name} its two launches apart: dx and dw's partials "
+        f"{rows_ms:.4f} ms, dw's column sum over {p.ws_rows} partial rows "
+        f"{dw_ms:.4f} ms (workspace read after the L2 flush)")
     es, ws = x.element_size(), w.element_size()
     b_ms, b_by = bound(3 * rows * n * es + 4 * rows + 2 * n * ws,
                        10 * rows * n, dtype)
@@ -1013,16 +1064,32 @@ def phase_kernels(dev):
     timer = Timer(dev)
     errs = {"rms_norm": 0.0, "paged_decode": 0.0}
     timed = {}
+    # the Timer's floor: one captured launch of a PyTorch kernel that does
+    # next to nothing (an in-place add on 4 elements), a yardstick only
+    tiny = torch.zeros(4, device=dev)
+    floor_ms = timer(lambda: tiny.add_(1.0))
+    log(f"[kernels] Timer floor (one in-place add on a 4-element tensor): "
+        f"{floor_ms:.4f} ms")
     # RMS norm: a decode step (4 rows), a 4 x 32 prefill chunk, 4096 rows
+    # (with r, as training calls it)
     for dtype in (torch.float32, torch.bfloat16):
         for rows in (4, 128, 4096):
-            err, res = rms_case(dev, rows, 4096, dtype, gen, timer)
+            err, res = rms_case(dev, rows, 4096, dtype, gen, timer,
+                                rstd=rows == 4096)
             errs["rms_norm"] = max(errs["rms_norm"], err)
-            log(f"[kernels] rms_norm rows={rows} N=4096 {dtype}: max abs err"
-                f" {err:.3e}; {fmt(res)}")
+            plan = rn.device_plan(torch.empty(0, device=dev, dtype=dtype),
+                                  rows, 4096, True)
+            log(f"[kernels] rms_norm rows={rows} N=4096 {dtype}"
+                f"{' with r' if rows == 4096 else ''}: max abs err "
+                f"{err:.3e}; {fmt(res)}; plan {rms_plan_str(plan)}"
+                + (f"; Timer floor {floor_ms:.4f} ms" if rows == 4 else ""))
             timed[("rms_norm", rows, dtype)] = res
-        err, _ = rms_case(dev, 3, 100, dtype, gen)    # scalar tail path
-        errs["rms_norm"] = max(errs["rms_norm"], err)
+        # the staged path (N 16384), the generic loop (N 100; rows off
+        # 16-byte alignment)
+        for rows, n, mis in ((300, 16384, False), (3, 100, False),
+                             (128, 4096, True)):
+            err, _ = rms_case(dev, rows, n, dtype, gen, misaligned=mis)
+            errs["rms_norm"] = max(errs["rms_norm"], err)
     # paged decode: Llama-2 7B heads (32/32, D 128, page 16) and 70B's
     # GQA heads (64/8); ragged offsets with a free row at 0, page edges,
     # a 4000-token row, and the serving run's 1024-token table; a 32-row
@@ -1060,16 +1127,18 @@ def phase_kernels(dev):
     errs.update({k: 0.0 for k in ("rms_norm_bwd", "rope", "flash_fwd",
                                   "flash_bwd_dkv", "flash_bwd_dq",
                                   "flash_bwd_delta", "adam")})
-    # RMS-norm backward: the training shape (4096 tokens x 4096) and the
-    # scalar tail
+    # RMS-norm backward: the training shape (4096 tokens x 4096), the
+    # staged path (N 16384) and the generic loop (N 100; misaligned rows)
     for dtype in (torch.float32, torch.bfloat16):
         err, res = rms_bwd_case(dev, 4096, 4096, dtype, gen, timer)
         errs["rms_norm_bwd"] = max(errs["rms_norm_bwd"], err)
         log(f"[kernels] rms_norm_bwd rows=4096 N=4096 {dtype}: max abs err "
             f"{err:.3e}; {fmt(res)}")
         timed[("rms_norm_bwd", dtype)] = res
-        err, _ = rms_bwd_case(dev, 3, 100, dtype, gen)
-        errs["rms_norm_bwd"] = max(errs["rms_norm_bwd"], err)
+        for rows, n, mis in ((300, 16384, False), (3, 100, False),
+                             (128, 4096, True)):
+            err, _ = rms_bwd_case(dev, rows, n, dtype, gen, misaligned=mis)
+            errs["rms_norm_bwd"] = max(errs["rms_norm_bwd"], err)
     # rope: the training shape in bf16 (neox), interleaved fp32 small
     err, res = rope_case(dev, 1, 4096, 32, 128, True, torch.bfloat16, gen,
                          timer)
@@ -1597,8 +1666,9 @@ def profile_train_step(model, opt, ids, labels, tag="train-profile"):
         k = key.lower()
         group = ("flash attention (ours)" if "flash_" in k else
                  "adam (ours)" if "adam_kernel" in k else
-                 "rms norm + rope (ours)" if "rms_norm" in k or "rope" in k
-                 else "GEMM (cuBLAS)" if any(t in k for t in (
+                 "rms norm + rope (ours)" if any(t in k for t in (
+                     "rms_fwd", "rms_bwd", "rms_dw", "rope")) else
+                 "GEMM (cuBLAS)" if any(t in k for t in (
                      "nvjet", "gemm", "cutlass", "xmma")) else
                  "elementwise, reductions, copies (torch)")
         groups[group] = groups.get(group, 0.0) + ms

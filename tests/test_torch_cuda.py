@@ -146,6 +146,61 @@ def test_rms_norm_bwd_kernel_on_card(card, dtype):
     assert rn.rms_norm_bwd.launches == before + 3
 
 
+#: (rows, N, x off 16-byte alignment): the register path at the decode
+#: step, a prefill chunk and the training shape, Llama-2 70B's width, the
+#: staged path (16384), the generic loop (N 100, and rows one element off
+#: 16-byte alignment)
+RMS_SHAPES = [(1, 4096, False), (4, 4096, False), (128, 4096, False),
+              (4096, 4096, False), (4, 8192, False), (300, 8192, False),
+              (4, 16384, False), (300, 16384, False), (3, 100, False),
+              (4, 4096, True), (128, 4096, True)]
+RMS_DTYPES = [torch.float32, torch.bfloat16, torch.float16]
+
+
+def _rows_of(card, g, rows, n, dtype, misaligned):
+    """[rows, n] of dtype from the card generator; ``misaligned``: a
+    contiguous view that starts one element past a 16-byte boundary."""
+    flat = torch.randn(rows * n + 1, device=card, generator=g).to(dtype)
+    return flat[1:].view(rows, n) if misaligned else flat[:-1].view(rows, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w_dtype", RMS_DTYPES)
+@pytest.mark.parametrize("x_dtype", RMS_DTYPES)
+def test_rms_norm_paths_on_card(card, x_dtype, w_dtype):
+    """Every path of the forward and backward (registers, staged, generic)
+    for each pair of x and w types against the plain versions: y within
+    2e-5 (fp32) / 2e-2 (16-bit), r within 2e-5, dx and dw each within
+    ROW_TOL of their own type row by row; dw bit-identical over two
+    calls; one launch counted per call."""
+    g = torch.Generator(device=card).manual_seed(4)
+    paths = set()
+    for rows, n, misaligned in RMS_SHAPES:
+        x = _rows_of(card, g, rows, n, x_dtype, misaligned)
+        dy = _rows_of(card, g, rows, n, x_dtype, False)
+        w = (1 + 0.1 * torch.randn(n, device=card, generator=g)).to(w_dtype)
+        assert (x.data_ptr() % 16 != 0) == misaligned
+        paths.add(rn.bwd_plan(x, w, dy, torch.empty_like(x)).path)
+        f0, b0 = rn.rms_norm.launches, rn.rms_norm_bwd.launches
+        y, r = rn.rms_norm(x, w, 1e-5, return_rstd=True)
+        y_ref, r_ref = rn.rms_norm_ref(x, w, 1e-5, return_rstd=True)
+        tol = 2e-5 if x_dtype == torch.float32 else 2e-2
+        torch.testing.assert_close(y.float(), y_ref.float(), rtol=tol,
+                                   atol=tol, msg=f"y {rows}x{n}")
+        torch.testing.assert_close(r, r_ref, rtol=2e-5, atol=2e-5,
+                                   msg=f"r {rows}x{n}")
+        dx, dw = rn.rms_norm_bwd(x, w, r, dy)
+        _, dw2 = rn.rms_norm_bwd(x, w, r, dy)
+        dx_ref, dw_ref = rn.rms_norm_bwd_ref(x, w, r, dy)
+        assert dx.dtype == x_dtype and dw.dtype == w_dtype
+        assert _row_err(dx, dx_ref) < ROW_TOL[x_dtype], (rows, n)
+        assert _row_err(dw, dw_ref) < ROW_TOL[w_dtype], (rows, n)
+        assert torch.equal(dw, dw2), (rows, n)
+        assert rn.rms_norm.launches == f0 + 1
+        assert rn.rms_norm_bwd.launches == b0 + 2
+    assert paths == {rn.REG, rn.STAGED, rn.GENERIC}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("neox", [True, False])

@@ -132,3 +132,88 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         pd.paged_decode_attention(torch.empty(1, 2, 8, device="meta"),
                                   None, None, None, None)
+
+
+#: (rows, N): one row, the decode step, a prefill chunk, the training
+#: shape, Llama-2 70B's width, the staged widths, odd widths, the extremes
+RMS_PLAN_SHAPES = [(1, 1), (1, 4096), (4, 4096), (128, 4096), (4096, 4096),
+                   (4096, 8192), (40, 16384), (3, 100), (7, 8200),
+                   (65536, 1), (65536, 16384), (131, 4104), (1000, 16383)]
+
+
+def _rms_plan_shapes(seed, count=40):
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(1, 65537, count)
+    n = rng.integers(1, 16385, count)
+    return RMS_PLAN_SHAPES + list(zip(rows.tolist(), n.tolist()))
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("elem_size", [4, 2])
+@pytest.mark.parametrize("sms", [132, 114])
+def test_rms_plan_covers_every_row_once(backward, elem_size, sms):
+    """Every row in exactly one block and every block non-empty; one
+    workspace row a backward block; whole warps, 32-1024 threads; a
+    thread's elements cover the row on the register path; the staged path
+    within its shared memory; a bounded row count a block."""
+    for rows, n in _rms_plan_shapes(elem_size * sms + backward):
+        for aligned in (True, False):
+            p = rn.plan(rows, n, elem_size, sms, aligned, backward)
+            block_of = np.arange(rows) // p.rows_per_block
+            assert block_of[-1] == p.blocks - 1, (rows, n, p)
+            assert (np.bincount(block_of, minlength=p.blocks) >= 1).all()
+            assert p.ws_rows == (p.blocks if backward else 0)
+            assert 32 <= p.threads <= 1024 and p.threads % 32 == 0
+            if backward:
+                assert p.blocks <= rn.BWD_BLOCKS_PER_SM * sms
+                assert p.rows_per_block == -(-rows // p.blocks)
+            elif p.path == rn.GENERIC:
+                assert p.rows_per_block == 1
+            else:
+                assert p.rows_per_block <= rn.FWD_ROWS_PER_BLOCK
+            v = 16 // elem_size
+            vec = aligned and n % v == 0
+            if p.path == rn.REG:
+                assert vec and n <= rn.REG_MAX_N and p.ept in rn.EPTS
+                vpt, nv = p.ept // v, n // v
+                assert p.threads * vpt >= nv > (p.threads - 32) * vpt
+                assert p.threads <= (rn.BWD_MAX_THREADS if backward
+                                     else rn.FWD_MAX_THREADS)
+            elif p.path == rn.STAGED:
+                assert vec and n > rn.REG_MAX_N and p.stages in (1, 2)
+                assert p.smem <= rn.SMEM_LIMIT
+                assert p.threads == rn.STAGED_THREADS
+            else:
+                assert p.path == rn.GENERIC
+                assert not vec or n > rn.REG_MAX_N
+            if not aligned:
+                assert p.path == rn.GENERIC
+
+
+@pytest.mark.parametrize("rows,n,path", [
+    (4, 4096, "reg"), (4096, 4096, "reg"), (4, 8192, "reg"),
+    (4, 16384, "staged"), (4096, 16384, "staged"), (3, 100, "generic")])
+def test_rms_plan_paths_for_bf16(rows, n, path):
+    """bf16 rows up to 8192 in registers, 16384 staged two rows deep in
+    both directions, a width off the 16-byte vector on the generic loop."""
+    want = {"reg": rn.REG, "staged": rn.STAGED, "generic": rn.GENERIC}[path]
+    for backward in (False, True):
+        p = rn.plan(rows, n, 2, 132, True, backward)
+        assert p.path == want
+        if path == "staged":
+            assert p.stages == 2
+
+
+def test_rms_plan_limits_match_the_kernels():
+    """The plan's limits are the numbers csrc/rms_norm.cu checks."""
+    src = (rn._build.CSRC / "rms_norm.cu").read_text()
+    for const, value in (("kFwdMaxThreads", rn.FWD_MAX_THREADS),
+                         ("kBwdMaxThreads", rn.BWD_MAX_THREADS),
+                         ("kStagedThreads", rn.STAGED_THREADS),
+                         ("kSmemLimit", rn.SMEM_LIMIT)):
+        line = next(ln for ln in src.splitlines()
+                    if f"constexpr int {const} =" in ln)
+        factors = line.split("=")[1].split(";")[0].split("*")
+        assert int(np.prod([int(f) for f in factors])) == value, const
+    assert (rn.GENERIC, rn.REG, rn.STAGED) == (0, 1, 2)
+    assert "enum Path : int { kGeneric = 0, kReg = 1, kStaged = 2 };" in src
