@@ -25,22 +25,40 @@ last line:
             calls, the backward's two launches timed apart, and the
             Timer's floor (one in-place add on a 4-element tensor)
 4. serve    Llama-2 7B at full width (32 layers, bf16, random weights
-            from a seed) behind the paged Engine: 8 requests, the serving
-            kernels' launch counts checked against the steps taken; then
-            torch.profiler over a short serving run (device busy share,
-            device time by kernel) and over one 900-token request
-            (paged decode's device time a decode step)
+            from a seed) behind the paged Engine: 8 requests, every decode
+            step a compiled tick (one CUDA graph replay; no fallback), the
+            serving kernels' launch counts (a replay adds its graph's
+            launches) checked against the steps taken; then torch.profiler
+            over a short serving run (device busy share, device time by
+            kernel) and over one 900-token request (paged decode's device
+            time a decode step)
 5. serve-lora-int8  the same model behind an int8-KV Engine with a
             4-slot LoRA adapter pool (rank pool 16) and three adapters:
             the same 8 requests, six of them under adapters; launch counts
             of the int8 decode and LoRA delta kernels checked against the
             steps taken, a prefix hit inside an adapter's scope; the same
             traffic without the pool (the pool's decode-step cost); int8
-            and fp8 pages in use at equal load against a bf16 pool
+            and fp8 pages in use at equal load against a bf16 pool; every
+            run decodes through the compiled tick; the kernels of 5
+            profiled replays of each tick graph must be its recorded
+            launches; then the adapter traffic with a ninth, unseeded
+            sampled request that sends the steps while it decodes to the
+            uncompiled int8 + adapter step and back to the tick: the
+            eight requests' tokens must equal the all-tick run's
+5b. serve-tick  the serve phase's 8 requests (six greedy, two
+            seeded-sampled) on the same model twice, with
+            FLAGS_compiled_tick off and on: every request's tokens must be
+            equal in both lanes; each lane's decode ms/step p50, avg and
+            p99, tick ms, TTFT p50, tokens/s and device busy share
+            (torch.profiler over a short run), and the tick's graphs:
+            captures, each mode's first tick (warm-up + capture), replays
+            and kernel launches a replay, checked against 5 profiled
+            replays
 6. parity   a 2-layer model at the 7B widths in fp32 with the same
-            weights served on the CPU (plain versions) and on the card
-            (kernels): greedy outputs must be identical, with float pools
-            and with int8 and fp8 pools under an adapter pool
+            weights served on the CPU (plain versions, the tick's eager
+            body) and on the card (kernels, the tick's graphs): greedy and
+            seeded-sampled outputs must be identical, with float pools,
+            and greedy ones with int8 and fp8 pools under an adapter pool
 7. train    Llama-2 7B at full width cut to 8 layers, bf16 O2 through
             amp.decorate, AdamW with fp32 master weights and global-norm
             clipping, B1 x S4096: 2 warm-up and 6 timed steps (step ms,
@@ -102,12 +120,14 @@ from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.quantization import (KV_QUANT_DTYPES, dequantize_kv,
                                            quantize_kv_rows)
 from paddle_tpu_torch.serving import Engine, SamplingParams, ServingConfig
+from paddle_tpu_torch.utils import flags as port_flags
 
 HBM_BYTES_PER_S = 3.35e12                   # H100 SXM data sheet
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
             torch.float32: 67e12}           # dense; fp32 outside tensor cores
-PHASES = ("device", "build", "kernels", "serve", "serve-lora-int8", "parity",
-          "train", "train-parity", "train-gpt2", "gpt2-parity", "attn-ops")
+PHASES = ("device", "build", "kernels", "serve", "serve-lora-int8",
+          "serve-tick", "parity", "train", "train-parity", "train-gpt2",
+          "gpt2-parity", "attn-ops")
 TRAIN_KERNELS = ("rms_norm", "rms_norm_bwd", "rope", "flash_fwd",
                  "flash_bwd_dkv", "flash_bwd_dq", "flash_bwd_delta", "adam")
 FLASH = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
@@ -1305,32 +1325,40 @@ def serve_requests(vocab, seed=0):
     return prompts, sampling
 
 
-def profile_decode(model, dev, vocab):
+def profile_decode(model, dev, vocab, tick=True, tag="profile", top=12):
     """torch.profiler over a short serving run (2 greedy requests, one
-    chunk of prefill, 16 decode steps): device time by kernel and the
-    device's busy share of the wall time."""
+    chunk of prefill, 16 decode steps) with FLAGS_compiled_tick set to
+    ``tick`` (a warm-up request captures the tick's graph first): device
+    time by kernel and the device's busy share of the wall time, which it
+    returns."""
     from torch.profiler import ProfilerActivity, profile
     rng = np.random.default_rng(9)
     prompts = [rng.integers(0, vocab, (n,)).astype(np.int32)
                for n in (20, 30)]
-    with Engine(model, ServingConfig(num_slots=4, max_seq_len=1024,
-                                     cache_dtype="bfloat16")) as eng:
-        eng.generate(prompts[0], max_new_tokens=2)      # warm
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.monotonic()
-            futs = [eng.submit(p, max_new_tokens=17) for p in prompts]
-            for f in futs:
-                f.result(timeout=300)
-            wall_ms = (time.monotonic() - t0) * 1e3
-        st = eng.stats()
+    port_flags.set_flags({"FLAGS_compiled_tick": tick})
+    try:
+        with Engine(model, ServingConfig(num_slots=4, max_seq_len=1024,
+                                         cache_dtype="bfloat16")) as eng:
+            eng.generate(prompts[0], max_new_tokens=2)      # warm
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.monotonic()
+                futs = [eng.submit(p, max_new_tokens=17) for p in prompts]
+                for f in futs:
+                    f.result(timeout=300)
+                wall_ms = (time.monotonic() - t0) * 1e3
+            st = eng.stats()
+    finally:
+        port_flags.set_flags({"FLAGS_compiled_tick": True})
     rows = device_rows(prof)
     busy_ms = sum(r[1] for r in rows)
-    log(f"[profile] wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
-        f"({100 * busy_ms / wall_ms:.1f}%), decode steps "
-        f"{st['decode_steps']}, prefill calls {st['prefill_calls']}")
-    for key, ms, count in sorted(rows, key=lambda r: -r[1])[:12]:
-        log(f"[profile]   {ms:9.3f} ms  {count:6d}x  {key[:90]}")
+    log(f"[{tag}] profiled: wall {wall_ms:.1f} ms, device busy "
+        f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%), decode steps "
+        f"{st['decode_steps']} ({st['tick_compiled_hits']} compiled "
+        f"ticks), prefill calls {st['prefill_calls']}")
+    for key, ms, count in sorted(rows, key=lambda r: -r[1])[:top]:
+        log(f"[{tag}]   {ms:9.3f} ms  {count:6d}x  {key[:90]}")
+    return busy_ms / wall_ms
 
 
 def profile_long(model, dev, vocab, prompt_len=900, steps=16):
@@ -1375,25 +1403,38 @@ def build_7b(dev):
 
 
 def serve_run(model, dev, scfg, prompts, sampling, adapter_ids=None,
-              max_new=32):
-    """One Engine run over the requests, from launch counts at 0: returns
-    (outputs, stats, launch counts, wall s, peak GB); every request must
-    give ``max_new`` in-vocab tokens."""
+              max_new=32, tick=True):
+    """One Engine run over the requests, from launch counts at 0, with
+    FLAGS_compiled_tick set to ``tick``: returns (outputs, stats, launch
+    counts, wall s, peak GB, the engine); every request must give
+    ``max_new``
+    in-vocab tokens, and with the tick on every decode step must be a
+    compiled tick (no fallback)."""
     vocab = model.config.vocab_size
     adapter_ids = adapter_ids or [None] * len(prompts)
-    eng = Engine(model, scfg)
-    torch.cuda.reset_peak_memory_stats(dev)
-    kernels.reset_launch_counts()
-    t0 = time.monotonic()
-    with eng:
-        futs = [eng.submit(p, max_new_tokens=max_new, sampling=s,
-                           adapter_id=a)
-                for p, s, a in zip(prompts, sampling, adapter_ids)]
-        outs = [f.result(timeout=900) for f in futs]
-    wall = time.monotonic() - t0
+    port_flags.set_flags({"FLAGS_compiled_tick": tick})
+    try:
+        eng = Engine(model, scfg)
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launch_counts()
+        t0 = time.monotonic()
+        with eng:
+            futs = [eng.submit(p, max_new_tokens=max_new, sampling=s,
+                               adapter_id=a)
+                    for p, s, a in zip(prompts, sampling, adapter_ids)]
+            outs = [f.result(timeout=900) for f in futs]
+        wall = time.monotonic() - t0
+    finally:
+        port_flags.set_flags({"FLAGS_compiled_tick": True})
     counts = kernels.launch_counts()
     st = eng.stats()
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    hits, falls = st["tick_compiled_hits"], st["tick_fallbacks"]
+    if tick and (hits == 0 or hits != st["decode_steps"] or falls):
+        raise AssertionError(f"compiled ticks {hits} of {st['decode_steps']}"
+                             f" decode steps, fallbacks {falls}")
+    if not tick and (hits or eng._tick is not None):
+        raise AssertionError(f"FLAGS_compiled_tick off, yet {hits} ticks")
     for o in outs:
         if o.output_ids.size != max_new or o.finish_reason != "length":
             raise AssertionError(f"request {o.request_id}: {o.output_ids.size}"
@@ -1401,7 +1442,81 @@ def serve_run(model, dev, scfg, prompts, sampling, adapter_ids=None,
         if not ((o.output_ids >= 0) & (o.output_ids < vocab)).all():
             raise AssertionError(f"request {o.request_id}: token outside "
                                  "the vocab")
-    return outs, st, counts, wall, peak_gb
+    return outs, st, counts, wall, peak_gb, eng
+
+
+def fmt_graphs(eng):
+    """The tick's graphs by mode: captures, the first tick's ms (warm-up,
+    capture and the first replay, while the live requests wait), replays,
+    launches a replay."""
+    first = eng._tick.first_tick_ms
+    return ", ".join(f"{mode}: {cap} capture(s), first tick "
+                     f"{first[mode]:.1f} ms, {rep} replays, launches a "
+                     f"replay {launches}" for mode, (cap, rep, launches)
+                     in sorted(eng._tick.graph_stats().items()))
+
+
+def fmt_decode(st):
+    """decode ms/step p50, avg and p99 and tick ms p50 and avg."""
+    return (f"decode {st['decode_ms_p50']:.2f} ms/step p50 "
+            f"({st['decode_ms_avg']:.2f} avg, {st['decode_ms_p99']:.2f} "
+            f"p99) over {st['decode_steps']} steps, tick "
+            f"{st['tick_ms_p50']:.2f} ms p50 ({st['tick_ms_avg']:.2f} avg)")
+
+
+#: the kernel wrappers a decode step runs -> the kernel that one wrapper
+#: launch runs once (paged decode's merge runs only when the plan splits)
+REPLAY_KERNELS = {
+    ("rms_norm",): ("rms_fwd",),
+    ("paged_decode", "paged_decode_int8", "paged_decode_fp8"):
+        ("paged_decode_split",),
+    ("lora_delta",): ("lora_delta_kernel",),
+    ("rope",): ("rope_vec_kernel", "rope_scalar_kernel"),
+}
+
+
+def profile_replays(step, n=5):
+    """`device_rows` of ``n`` replays of a captured tick graph, profiled
+    after one warm-up replay under the profiler (its tracing set up, not
+    recorded); the kernels they ran must be the graph's recorded launches
+    a replay (what every replay adds to the launch counts) times ``n``."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 acc_events=True) as prof:
+        for reps in (1, n):
+            for _ in range(reps):
+                step.graph.replay()
+            torch.cuda.synchronize()
+            prof.step()
+    rows = device_rows(prof)
+    covered = {w for names in REPLAY_KERNELS for w in names}
+    if set(step.launches) - covered:
+        raise AssertionError(f"a replay launches {step.launches}; no kernel "
+                             "name is known for "
+                             f"{set(step.launches) - covered}")
+    bad = []
+    for names, kernel_names in REPLAY_KERNELS.items():
+        want = n * sum(step.launches.get(w, 0) for w in names)
+        hits = [(key[:60], c) for key, _, c in rows
+                if any(k in key for k in kernel_names)]
+        got = sum(c for _, c in hits)
+        if got != want:
+            bad.append(f"{'/'.join(names)}: {got} kernels in {n} replays, "
+                       f"{want} recorded ({hits})")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return rows
+
+
+def check_replays(eng, tag):
+    """`profile_replays` of each of the engine's tick graphs (after the
+    engine stopped: every row dead, the same kernels at the same shapes)."""
+    for mode, step in sorted(eng._tick.steps.items()):
+        profile_replays(step)
+        log(f"[{tag}] {mode} graph: the kernels of 5 profiled replays are "
+            f"5 x its recorded launches {step.launches}")
 
 
 def check_launches(counts, need):
@@ -1416,8 +1531,8 @@ def phase_serve(dev, model):
     prompts, sampling = serve_requests(cfg.vocab_size)
     scfg = ServingConfig(num_slots=4, max_seq_len=1024,
                          cache_dtype="bfloat16")
-    outs, st, counts, wall, peak_gb = serve_run(model, dev, scfg, prompts,
-                                                sampling)
+    outs, st, counts, wall, peak_gb, eng = serve_run(
+        model, dev, scfg, prompts, sampling)
     decode_steps = st["decode_steps"]
     prefill_calls = st["prefill_calls"]
     calls = decode_steps + prefill_calls
@@ -1428,14 +1543,15 @@ def phase_serve(dev, model):
         raise AssertionError("the shared 64-token prefix was not reused")
     log(f"[serve] 8 requests ({sum(p.size for p in prompts)} prompt tokens,"
         f" {st['tokens_generated']} generated) in {wall:.2f} s: TTFT p50 "
-        f"{st['ttft_ms_p50']:.1f} ms, decode {st['decode_ms_p50']:.2f} "
-        f"ms/step p50 ({st['decode_ms_avg']:.2f} avg) over {decode_steps} "
-        f"steps, prefill chunk {st['prefill_chunk_ms_p50']:.2f} ms p50 over "
+        f"{st['ttft_ms_p50']:.1f} ms, {fmt_decode(st)}, prefill chunk {st['prefill_chunk_ms_p50']:.2f} ms p50 over "
         f"{prefill_calls} calls, {st['tokens_generated'] / wall:.1f} "
         f"tokens/s wall ({st['tokens_per_sec']:.1f} engine), prefix hits "
         f"{st['prefix_cache_hits']}, peak memory {peak_gb:.2f} GB, KV pages "
         f"peak {st['kv_pages_peak']} of 16 tokens")
     log(f"[serve] launches {counts} (needed >= {need})")
+    log(f"[serve] compiled ticks {st['tick_compiled_hits']} of "
+        f"{decode_steps} decode steps, fallbacks {st['tick_fallbacks']}; "
+        f"graphs {fmt_graphs(eng)}")
     profile_decode(model, dev, cfg.vocab_size)
     profile_long(model, dev, cfg.vocab_size)
     return counts, st
@@ -1479,8 +1595,8 @@ def phase_serve_lora(dev, model, float_st=None):
     scfg = ServingConfig(num_slots=4, max_seq_len=1024, cache_dtype="int8",
                          max_adapters=4, adapter_rank_pool=16,
                          adapters=specs)
-    outs, st, counts, wall, peak_gb = serve_run(model, dev, scfg, prompts,
-                                                sampling, ids)
+    outs, st, counts, wall, peak_gb, eng = serve_run(
+        model, dev, scfg, prompts, sampling, ids)
     n_proj = len(LORA_TARGETS) * cfg.num_layers
     calls = st["decode_steps"] + st["prefill_calls"]
     need = {"paged_decode_int8": cfg.num_layers * st["decode_steps"],
@@ -1497,9 +1613,7 @@ def phase_serve_lora(dev, model, float_st=None):
                              "expected 3")
     float_pages = float_st["kv_pages_peak"] if float_st else "not measured"
     log(f"[serve-lora-int8] 8 requests (2 base, 6 under 3 adapters) in "
-        f"{wall:.2f} s: decode {st['decode_ms_p50']:.2f} ms/step p50 "
-        f"({st['decode_ms_avg']:.2f} avg) over {st['decode_steps']} steps, "
-        f"TTFT p50 {st['ttft_ms_p50']:.1f} ms, prefill chunk "
+        f"{wall:.2f} s: {fmt_decode(st)}, TTFT p50 {st['ttft_ms_p50']:.1f} ms, prefill chunk "
         f"{st['prefill_chunk_ms_p50']:.2f} ms p50 over {st['prefill_calls']} "
         f"calls, {st['tokens_generated'] / wall:.1f} tokens/s wall, peak "
         f"memory {peak_gb:.2f} GB, KV pages peak {st['kv_pages_peak']} of 32 "
@@ -1508,9 +1622,15 @@ def phase_serve_lora(dev, model, float_st=None):
         f"in {st['adapter_load_ms_avg']:.1f} ms avg, routed "
         f"{st['requests_routed_adapter_by_adapter']}")
     log(f"[serve-lora-int8] launches {counts} (needed >= {need})")
+    log(f"[serve-lora-int8] compiled ticks {st['tick_compiled_hits']} of "
+        f"{st['decode_steps']} decode steps, fallbacks "
+        f"{st['tick_fallbacks']}; graphs {fmt_graphs(eng)}")
+    check_replays(eng, "serve-lora-int8")
+    del eng
     lora_counts = counts
+    lane_switch_run(model, scfg, prompts, sampling, ids, outs)
     # the pool's cost: the same traffic, int8 pools, no adapter pool
-    _, st0, _, wall0, _ = serve_run(model, dev, ServingConfig(
+    _, st0, _, wall0, _, _ = serve_run(model, dev, ServingConfig(
         num_slots=4, max_seq_len=1024, cache_dtype="int8"), prompts, sampling)
     log(f"[serve-lora-int8] without the adapter pool: decode "
         f"{st0['decode_ms_p50']:.2f} ms/step p50 ({st0['decode_ms_avg']:.2f} "
@@ -1527,7 +1647,7 @@ def phase_serve_lora(dev, model, float_st=None):
     greedy = [SamplingParams()] * len(short)
     peaks = {}
     for dtype in ("bfloat16", "int8", "fp8"):
-        _, st_d, counts_d, _, _ = serve_run(model, dev, ServingConfig(
+        _, st_d, counts_d, _, _, _ = serve_run(model, dev, ServingConfig(
             num_slots=4, max_seq_len=1024, cache_dtype=dtype,
             enable_prefix_cache=False), short, greedy, max_new=16)
         peaks[dtype] = st_d["kv_pages_peak"]
@@ -1547,6 +1667,141 @@ def phase_serve_lora(dev, model, float_st=None):
     return lora_counts, fp8_counts
 
 
+def lane_switch_run(model, scfg, prompts, sampling, ids, want):
+    """The serve-lora-int8 traffic once more with a ninth request, unseeded
+    and sampled under adapter a: the first four requests are submitted,
+    then, when the first completes, the ninth and the last four.  While
+    the ninth decodes, the tick is blocked (one TickFallbackWarning,
+    tick.fallbacks counted): the engine flushes the device's tokens to the
+    host, runs the uncompiled int8 + adapter step, and once the ninth
+    ends rebuilds the tick's state from the live requests and replays
+    (the last four, queued behind it with 32 tokens each to its 3,
+    outlast it).  The eight requests' tokens must equal ``want`` (the
+    all-tick run), the steps must go tick, uncompiled, tick, and the
+    launch counts must cover the steps taken in both lanes."""
+    cfg = model.config
+    extra = np.random.default_rng(11).integers(
+        0, cfg.vocab_size, (17,)).astype(np.int32)
+    eng = Engine(model, scfg)
+    lanes = []
+    kernels.reset_launch_counts()
+    with eng:
+        tick_step = eng._tick.step
+
+        def traced_step():
+            lanes.append(tick_step())
+            return lanes[-1]
+        eng._tick.step = traced_step        # set before any request
+        futs = [eng.submit(p, max_new_tokens=32, sampling=s, adapter_id=a)
+                for p, s, a in list(zip(prompts, sampling, ids))[:4]]
+        futs[0].result(timeout=900)
+        xfut = eng.submit(extra, max_new_tokens=3, adapter_id="a",
+                          sampling=SamplingParams(temperature=1.0, top_k=50))
+        futs += [eng.submit(p, max_new_tokens=32, sampling=s, adapter_id=a)
+                 for p, s, a in list(zip(prompts, sampling, ids))[4:]]
+        outs = [f.result(timeout=900) for f in futs]
+        xout = xfut.result(timeout=900)
+    st = eng.stats()
+    counts = kernels.launch_counts()
+    for w, g in zip(want, outs):
+        if not np.array_equal(w.output_ids, g.output_ids):
+            raise AssertionError(
+                f"request {g.request_id}: all-tick {w.output_ids.tolist()} "
+                f"!= with lane switches {g.output_ids.tolist()}")
+    if xout.output_ids.size != 3 or not (
+            (xout.output_ids >= 0) & (xout.output_ids < cfg.vocab_size)).all():
+        raise AssertionError(f"the unseeded request gave "
+                             f"{xout.output_ids.tolist()}")
+    hits, falls = st["tick_compiled_hits"], st["tick_fallbacks"]
+    off = [i for i, ran in enumerate(lanes) if not ran]
+    if not off or not any(lanes[:off[0]]) or not any(lanes[off[-1] + 1:]) \
+            or hits + falls != st["decode_steps"] or falls != len(off):
+        raise AssertionError(f"steps {''.join('TU'[not r] for r in lanes)} "
+                             f"(T tick, U uncompiled), {hits} compiled "
+                             f"ticks, {falls} fallbacks, "
+                             f"{st['decode_steps']} decode steps")
+    n_proj = len(LORA_TARGETS) * cfg.num_layers
+    calls = st["decode_steps"] + st["prefill_calls"]
+    need = {"paged_decode_int8": cfg.num_layers * st["decode_steps"],
+            "rms_norm": (2 * cfg.num_layers + 1) * calls,
+            "lora_delta": n_proj * calls}
+    check_launches(counts, need)
+    log(f"[serve-lora-int8] lane switches: a ninth request (unseeded, "
+        f"sampled, adapter a, 3 tokens) after the first completed; steps "
+        f"{''.join('TU'[not r] for r in lanes)} (T tick, U uncompiled): "
+        f"{hits} compiled ticks, {falls} fallbacks; the eight requests' "
+        f"tokens equal the all-tick run's; launches {counts} (needed >= "
+        f"{need})")
+
+
+def phase_serve_tick(dev, model):
+    """The serve phase's traffic in both lanes on the same model: the
+    tokens must be equal request by request; each lane's decode ms/step,
+    TTFT and tokens/s, its device busy share over a short profiled run,
+    and the tick's graphs."""
+    cfg = model.config
+    prompts, sampling = serve_requests(cfg.vocab_size)
+    scfg = ServingConfig(num_slots=4, max_seq_len=1024,
+                         cache_dtype="bfloat16")
+    runs = {}
+    for lane, tick in (("uncompiled", False), ("tick", True)):
+        outs, st, counts, wall, _, eng = serve_run(
+            model, dev, scfg, prompts, sampling, tick=tick)
+        busy = profile_decode(model, dev, cfg.vocab_size, tick=tick,
+                              tag=f"serve-tick {lane}")
+        runs[lane] = outs
+        log(f"[serve-tick] {lane}: {fmt_decode(st)}, TTFT p50 "
+            f"{st['ttft_ms_p50']:.1f} ms, "
+            f"{st['tokens_generated'] / wall:.1f} tokens/s wall "
+            f"({st['tokens_per_sec']:.1f} engine), device busy {100 * busy:.1f}% "
+            f"(profiled run), compiled ticks {st['tick_compiled_hits']}, "
+            f"paged_decode launches {counts['paged_decode']}, rms_norm "
+            f"{counts['rms_norm']}")
+        if tick:
+            tick_steps = eng._tick.steps
+            log(f"[serve-tick] graphs {fmt_graphs(eng)}")
+    for a, b in zip(runs["uncompiled"], runs["tick"]):
+        if not np.array_equal(a.output_ids, b.output_ids):
+            raise AssertionError(
+                f"request {a.request_id}: uncompiled "
+                f"{a.output_ids.tolist()} != tick {b.output_ids.tolist()}")
+    log("[serve-tick] every request's 32 tokens equal in both lanes "
+        "(6 greedy, 2 seeded-sampled)")
+    time_replays(model, tick_steps)
+
+
+def time_replays(model, steps, reps=20):
+    """Device time of one replay of each mode's graph (CUDA events over
+    ``reps`` replays, after the engine stopped: every row dead, the same
+    kernels at the same shapes), by kernel group (`profile_replays`: 5,
+    whose kernels must be the recorded launches), beside the step's
+    bound: every weight but the embedding table read once."""
+    cfg = model.config
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    weight_bytes -= (cfg.vocab_size - 4) * cfg.hidden_size * 2
+    bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+    for mode, step in sorted(steps.items()):
+        graph = step.graph
+        graph.replay()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            graph.replay()
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end) / reps
+        groups = kernel_groups(profile_replays(step), per=5)
+        log(f"[serve-tick] one {mode} replay: {ms:.3f} ms device (CUDA "
+            f"events, {reps} replays); bound {bound_ms:.3f} ms "
+            f"({weight_bytes / 1e9:.2f} GB of weights / 3.35 TB/s), "
+            f"{100 * bound_ms / ms:.1f}% of it; by group "
+            f"{fmt_groups(groups, 3)} (profiled, a replay; its kernels = "
+            f"the recorded launches {step.launches})")
+
+
 def phase_parity(dev):
     """The same 2-layer fp32 model on the CPU and on the card."""
     cfg = llama_config("llama2-7b", num_layers=2, max_seq_len=256)
@@ -1557,22 +1812,36 @@ def phase_parity(dev):
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32)
                for n in (5, 40, 23)]
+    # three greedy requests and two seeded-sampled ones, 4 slots: the
+    # tick's "mixed" mode, then its "greedy" one
+    subs = [(p, SamplingParams()) for p in prompts] + [
+        (prompts[1], SamplingParams(temperature=0.8, top_k=50, top_p=0.95,
+                                    seed=3)),
+        (prompts[2], SamplingParams(temperature=1.0, top_p=0.9,
+                                    repetition_penalty=1.1, seed=6))]
     outs = {}
     before = kernels.launch_counts()
     for label, model in (("cpu", cpu_model), ("card", card_model)):
         with Engine(model, ServingConfig(num_slots=4)) as eng:
-            futs = [eng.submit(p, max_new_tokens=8) for p in prompts]
+            futs = [eng.submit(p, max_new_tokens=8, sampling=sp)
+                    for p, sp in subs]
             outs[label] = [f.result(timeout=600).output_ids for f in futs]
+        st = eng.stats()
+        if st["tick_compiled_hits"] == 0 or st["tick_fallbacks"]:
+            raise AssertionError(f"{label}: compiled ticks "
+                                 f"{st['tick_compiled_hits']}, fallbacks "
+                                 f"{st['tick_fallbacks']}")
     after = kernels.launch_counts()
     for a, b in zip(outs["cpu"], outs["card"]):
         if not np.array_equal(a, b):
-            raise AssertionError(f"greedy outputs differ: cpu {a.tolist()} "
-                                 f"card {b.tolist()}")
+            raise AssertionError(f"greedy or seeded outputs differ: cpu "
+                                 f"{a.tolist()} card {b.tolist()}")
     if any(after[k] == before[k] for k in ("rms_norm", "paged_decode")):
         raise AssertionError(f"the card run skipped a kernel: {before} → "
                              f"{after}")
-    log(f"[parity] 2-layer 7B-width fp32: greedy outputs identical on the "
-        f"CPU and the card for 3 prompts ({time.monotonic() - t0:.1f} s): "
+    log(f"[parity] 2-layer 7B-width fp32, the compiled tick on both: greedy "
+        f"and seeded outputs identical on the CPU and the card for 3 + 2 "
+        f"requests ({time.monotonic() - t0:.1f} s): "
         f"{[o.tolist() for o in outs['card']]}")
     # quantized pools under an adapter pool: a base and an adapter request
     # on one prompt, on each device
@@ -1646,6 +1915,29 @@ def make_trainer(cfg, dev, dtype, seed, lr=3e-4):
     return model, opt
 
 
+def kernel_groups(rows, per=1):
+    """Device ms by group of `device_rows`, divided by ``per``."""
+    groups = {}
+    for key, ms, _ in rows:
+        k = key.lower()
+        group = ("flash attention (ours)" if "flash_" in k else
+                 "adam (ours)" if "adam_kernel" in k else
+                 "paged decode + lora delta (ours)" if any(t in k for t in (
+                     "paged_decode", "lora")) else
+                 "rms norm + rope (ours)" if any(t in k for t in (
+                     "rms_fwd", "rms_bwd", "rms_dw", "rope")) else
+                 "GEMM (cuBLAS)" if any(t in k for t in (
+                     "nvjet", "gemm", "cutlass", "xmma")) else
+                 "elementwise, reductions, copies (torch)")
+        groups[group] = groups.get(group, 0.0) + ms / per
+    return groups
+
+
+def fmt_groups(groups, digits=1):
+    return ", ".join(f"{g} {ms:.{digits}f} ms" for g, ms in
+                     sorted(groups.items(), key=lambda x: -x[1]))
+
+
 def profile_train_step(model, opt, ids, labels, tag="train-profile"):
     """torch.profiler over one training step: device time by kernel and
     the device's busy share of the step's wall time."""
@@ -1661,20 +1953,7 @@ def profile_train_step(model, opt, ids, labels, tag="train-profile"):
     busy_ms = sum(r[1] for r in rows)
     log(f"[{tag}] one step: wall {wall_ms:.1f} ms, device busy "
         f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%)")
-    groups = {}
-    for key, ms, _ in rows:
-        k = key.lower()
-        group = ("flash attention (ours)" if "flash_" in k else
-                 "adam (ours)" if "adam_kernel" in k else
-                 "rms norm + rope (ours)" if any(t in k for t in (
-                     "rms_fwd", "rms_bwd", "rms_dw", "rope")) else
-                 "GEMM (cuBLAS)" if any(t in k for t in (
-                     "nvjet", "gemm", "cutlass", "xmma")) else
-                 "elementwise, reductions, copies (torch)")
-        groups[group] = groups.get(group, 0.0) + ms
-    log(f"[{tag}] by group: " + ", ".join(
-        f"{g} {ms:.1f} ms" for g, ms in sorted(groups.items(),
-                                               key=lambda x: -x[1])))
+    log(f"[{tag}] by group: " + fmt_groups(kernel_groups(rows)))
     for key, ms, count in sorted(rows, key=lambda r: -r[1])[:15]:
         log(f"[{tag}]   {ms:9.3f} ms  {count:6d}x  {key[:90]}")
 
@@ -2004,7 +2283,7 @@ def main(argv=None):
     if "kernels" in phases:
         errs, timed = run("kernels", phase_kernels, dev)
     counts = lora_counts = fp8_counts = None
-    if "serve" in phases or "serve-lora-int8" in phases:
+    if {"serve", "serve-lora-int8", "serve-tick"} & set(phases):
         model = build_7b(dev)
         float_st = None
         if "serve" in phases:
@@ -2012,6 +2291,8 @@ def main(argv=None):
         if "serve-lora-int8" in phases:
             lora_counts, fp8_counts = run("serve-lora-int8", phase_serve_lora,
                                           dev, model, float_st)
+        if "serve-tick" in phases:
+            run("serve-tick", phase_serve_tick, dev, model)
         del model
         torch.cuda.empty_cache()
     if "parity" in phases:

@@ -59,3 +59,11 @@ def launch_counts() -> dict:
 def reset_launch_counts():
     for fn in _wrappers().values():
         fn.launches = 0
+
+
+def add_launch_counts(delta: dict):
+    """Add ``{name: n}`` to the wrappers' counts: a CUDA graph replay's
+    launches, which run no wrapper (`framework.capture.CapturedStep`)."""
+    wrappers = _wrappers()
+    for name, n in delta.items():
+        wrappers[name].launches += n

@@ -2,8 +2,10 @@
 paddle_tpu/models/generation.py ``apply_logit_processors`` and
 ``sample_next_token``), shared by the serving engine's per-row sampling.
 
-Draws come from an explicit ``torch.Generator``: the engine gives every
-request its own, seeded from ``SamplingParams.seed``.
+Draws come from an explicit ``torch.Generator`` (torch's default one when
+None): the serving engine gives each unseeded sampled request its own.  A
+seeded request's draws take the key stream of
+``serving.compiled_tick.choose_tokens`` instead.
 """
 from __future__ import annotations
 

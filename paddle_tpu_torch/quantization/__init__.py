@@ -44,10 +44,11 @@ def quantize_kv_rows(x, qmax, storage_dtype):
     row.  Returns ``(q [..., H, D] storage_dtype, scale [...] float32)``
     with ``q * scale ≈ x``.  The divisions are tensor by tensor: on the
     card a division by a Python number becomes a multiplication by its
-    reciprocal, which would round differently."""
+    reciprocal, which would round differently.  The divisor is filled on
+    the device (no host copy), so a CUDA graph can capture the call."""
     xf = x.float()
     absmax = xf.abs().amax(dim=(-2, -1))
-    scale = torch.clamp(absmax / torch.tensor(qmax, device=x.device),
+    scale = torch.clamp(absmax / torch.full((), qmax, device=x.device),
                         min=1e-12)
     scaled = xf / scale[..., None, None]
     if storage_dtype == torch.int8:

@@ -1,6 +1,7 @@
 """Serving engine of the port: paged KV cache (float, int8 or fp8 pools),
 chunked prefill, prefix cache, continuous batching, multi-LoRA adapter
-pool."""
+pool, and the compiled scheduler tick (one CUDA graph replay a decode
+step, `compiled_tick`)."""
 from .adapters import AdapterPool
 from .api import (AdapterConfigError, DeadlineExceededError,
                   EngineShutdownError, QueueFullError, RequestCancelledError,

@@ -79,7 +79,9 @@ def _patch_linear(layer, qual_name):
             return y
         return y + lora_delta(args[0], ent.A, ent.B, ent.scale, act.idx)
 
-    layer.register_forward_hook(hook)
+    # the hook's id lets the compiled tick tell the pool's hooks from
+    # others (which block it)
+    layer._lora_serving_hook = layer.register_forward_hook(hook).id
     layer._lora_serving_name = qual_name
 
 

@@ -56,8 +56,9 @@ class UnknownAdapterError(ServingError):
 @dataclass(frozen=True)
 class SamplingParams:
     """Per-request decoding knobs, in the HF processor order of
-    `models.generation`; ``temperature=0.0`` is greedy.  ``seed`` seeds
-    the request's own ``torch.Generator``."""
+    `models.generation`; ``temperature=0.0`` is greedy.  ``seed`` keys
+    the request's draws: token n comes from ``categorical(fold_in(
+    PRNGKey(seed), n))``, the JAX engine's stream (`framework.prng`)."""
 
     temperature: float = 0.0
     top_k: int | None = None

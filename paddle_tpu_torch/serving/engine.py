@@ -9,9 +9,22 @@ A background scheduler thread, in each iteration:
    call for every request still prefilling, sampling a request's first
    token when its prompt is fully cached;
 3. runs ONE batched ``[num_slots, 1]`` decode step over every slot (free
-   slots ride along on the scratch page), with one batched argmax when
-   every active request is greedy and per-row sampling otherwise;
+   slots ride along on the scratch page): by default the compiled tick
+   (`compiled_tick.CompiledServingTick`, one CUDA graph replay on the card
+   over device-resident scheduler state, one ``[num_slots]`` read back);
+   otherwise the uncompiled step, with one batched argmax when every
+   active request is greedy, one fused sampling call when each is greedy
+   or seeded, and per-row sampling otherwise;
 4. completes futures on EOS, max-tokens, slot capacity or deadline.
+
+A seeded request (``SamplingParams.seed``) draws token n from
+``categorical(fold_in(PRNGKey(seed), n))``, the JAX engine's key stream
+bit for bit (`framework.prng`), whichever lane draws it; an unseeded
+sampled request draws from its own ``torch.Generator``.  Flags
+(`utils.flags`): ``FLAGS_compiled_tick`` (the tick) and
+``FLAGS_serving_fused_sampling`` (the uncompiled step's one fused call;
+off, each sampled row is drawn by a call of its own, a seeded one from
+the same key stream), both on by default.
 
 ``cache_dtype="int8"`` or ``"fp8"`` stores K/V quantized with per-row
 scales; a quantized page packs ``2 x page_size`` tokens.  With
@@ -20,10 +33,10 @@ model: ``submit(..., adapter_id=...)`` pins the adapter's pool slot for
 the request's lifetime, every model call adds each row's gathered delta,
 and prefix-tree entries are scoped by adapter id.
 
-The JAX engine's compiled scheduler tick, fused sampling call,
-speculation, migration/drain, stall watchdog, scheduler restarts and
-tracing are not ported yet (ROADMAP Queue A).  A crash of the scheduler
-fails every outstanding future with the error and stops the engine.
+The JAX engine's speculation, migration/drain, stall watchdog, scheduler
+restarts and tracing are not ported yet (ROADMAP Queue A).  A crash of
+the scheduler fails every outstanding future with the error and stops
+the engine.
 """
 from __future__ import annotations
 
@@ -39,11 +52,14 @@ import torch
 
 from ..models.generation import sample_next_token
 from ..quantization import kv_quant_params
+from ..utils.flags import flag as _flag
 from .adapters import AdapterPool
 from .api import (AdapterConfigError, DeadlineExceededError,
                   EngineShutdownError, QueueFullError, RequestCancelledError,
                   RequestOutput, SamplingParams, ServingConfig,
                   UnknownAdapterError)
+from .compiled_tick import (CompiledServingTick, fused_sample_call,
+                            request_key, sampling_hostable)
 from .paged_kv import PagedKVCache, PrefixTree
 from .stats import ServingStats
 
@@ -74,7 +90,7 @@ class _Request:
         self.shared_len = 0         # prompt tokens reused from the tree
         self.prefix_nodes = []      # tree nodes this request references
         self.first_tok = None       # sampled first token, not yet appended
-        self.generator = generator  # this request's sampling stream
+        self.generator = generator  # unseeded sampling's own stream
         self.adapter_id = None      # LoRA adapter this request decodes
         self.adapter_slot = 0       # its pool slot (0 = base identity)
 
@@ -116,6 +132,12 @@ class Engine:
         self._ids = itertools.count()
         self._cancels: set[int] = set()
         self.cache = None
+        # compiled scheduler tick (serving/compiled_tick.py): one captured
+        # program per iteration over device-resident state.  _mut counts
+        # host-lane mutations of request/slot state, so the tick knows
+        # when its device mirror must be rebuilt.
+        self._tick = None
+        self._mut = 0
         # multi-tenant LoRA: A/B/scale stacks per target projection and
         # the per-slot adapter index, built (and the registry validated)
         # here; None without max_adapters, and then every model call is
@@ -134,7 +156,9 @@ class Engine:
             if self._running:
                 return self
             self._stats.reset()
+            self._stats.declare_tick_stats()
             self.cache = self._new_cache()
+            self._tick = self._make_tick()
             self._max_active = 0
             self._running = True
         self._thread = threading.Thread(
@@ -155,6 +179,13 @@ class Engine:
         self._prefilling.clear()
         self._pages_peak = 0
         return cache
+
+    def _make_tick(self):
+        """A fresh compiled tick for a new cache, or None with
+        ``FLAGS_compiled_tick`` off (no tick object, no state mirrors)."""
+        if not _flag("FLAGS_compiled_tick", True):
+            return None
+        return CompiledServingTick(self)
 
     def shutdown(self, wait_s=30.0):
         """Stop the scheduler; queued and in-flight futures resolve with
@@ -226,12 +257,10 @@ class Engine:
                 fut.set_exception(UnknownAdapterError(msg))
                 return fut
         gen = None
-        if not sampling.greedy:
+        if not sampling.greedy and sampling.seed is None:
+            # a seeded request draws from its key stream (_sample_row)
             gen = torch.Generator(device=self.device)
-            if sampling.seed is not None:
-                gen.manual_seed(int(sampling.seed))
-            else:
-                gen.seed()
+            gen.seed()
         deadline = (time.monotonic() + deadline_s) \
             if deadline_s is not None else None
         req = _Request(next(self._ids), prompt, max_new, sampling,
@@ -292,6 +321,8 @@ class Engine:
         if not self._cancels:
             return
         cancels, self._cancels = self._cancels, set()
+        if self._tick is not None:
+            self._tick.flush_to_host()
         for cid in cancels:
             req = self._pending.get(cid)
             if req is None:
@@ -355,6 +386,8 @@ class Engine:
         while True:
             with self._work:
                 if not self._running:
+                    if self._tick is not None:
+                        self._tick.flush_to_host()
                     break
                 self._process_cancels_locked()
                 self._expire_queued_locked()
@@ -378,7 +411,8 @@ class Engine:
             if self._prefilling:
                 self._prefill_round()
             if self._active:
-                self._decode_step()
+                if self._tick is None or not self._tick.step():
+                    self._decode_step()
             self._publish_pool_stats()
             self._stats.observe("tick_ms",
                                 (time.monotonic() - t_tick) * 1e3)
@@ -579,6 +613,8 @@ class Engine:
         if all(r.sampling.greedy and not r.sampling.uses_penalty
                for r in self._active.values()):
             toks = torch.argmax(last, dim=-1).cpu().numpy()  # one argmax
+        elif self._fused_sampling_ok():
+            toks = self._fused_sample(last)     # one call for every slot
         for slot, req in list(self._active.items()):
             tok = int(toks[slot]) if toks is not None else \
                 self._sample_row(last[slot:slot + 1, :], req)
@@ -589,10 +625,59 @@ class Engine:
         self._stats.incr("slot_steps_active", n_active)
         self._stats.set_value("active_slots", len(self._active))
 
+    def _fused_sampling_ok(self):
+        """Whether ONE fused call can sample every active slot this
+        iteration: the flag is on and each request is greedy or seeded."""
+        return _flag("FLAGS_serving_fused_sampling", True) and all(
+            sampling_hostable(r.sampling) for r in self._active.values())
+
+    def _sampling_knobs(self, reqs):
+        """Per-row knob arrays of `fused_sample_call` for ``reqs`` (row i:
+        the i-th request, None for an empty row)."""
+        n, vocab = len(reqs), self.cfg.vocab_size
+        knobs = dict(temp=np.zeros(n, np.float32), top_k=np.zeros(n, np.int32),
+                     top_p=np.ones(n, np.float32),
+                     penalty=np.ones(n, np.float32),
+                     seen=np.zeros((n, vocab), bool),
+                     keys=np.zeros((n, 2), np.int64),
+                     counts=np.zeros(n, np.int64))
+        for row, req in enumerate(reqs):
+            if req is None:
+                continue
+            sp = req.sampling
+            knobs["temp"][row] = sp.temperature
+            knobs["top_k"][row] = sp.top_k or 0
+            if sp.top_p is not None:
+                knobs["top_p"][row] = sp.top_p
+            if sp.repetition_penalty is not None:
+                knobs["penalty"][row] = sp.repetition_penalty
+            knobs["counts"][row] = len(req.tokens)
+            if not sp.greedy and sp.seed is not None:
+                knobs["keys"][row] = request_key(sp)
+            if req.seen is not None:
+                knobs["seen"][row] = req.seen
+        return knobs
+
+    def _fused_sample(self, last):
+        """One sampling call over all slots: exactly the vectorized chain
+        the compiled tick runs in its program, so a request's tokens are
+        the same whichever lane draws them.  Returns np [num_slots]."""
+        reqs = [self._active.get(s) for s in range(self.cache.num_slots)]
+        return fused_sample_call(last, **self._sampling_knobs(reqs)) \
+            .cpu().numpy()
+
     def _sample_row(self, logits_row, req):
-        """[1, V] logits → one token under the request's params, drawn
-        from the request's own generator."""
+        """[1, V] logits → one token under the request's params.  A seeded
+        non-greedy request draws from its key stream
+        ``fold_in(PRNGKey(seed), n_generated)`` (the fused call's and the
+        tick's, so its stream is the same in every lane and under every
+        flag from token 0); an unseeded one from its own generator.
+        (The JAX engine draws a seeded row from its global RNG when
+        ``FLAGS_serving_fused_sampling`` is off; the port keeps the seed.)"""
         sp = req.sampling
+        if not sp.greedy and sp.seed is not None:
+            tok = fused_sample_call(logits_row, **self._sampling_knobs([req]))
+            return int(tok.cpu()[0])
         seen = None
         if req.seen is not None:
             seen = torch.from_numpy(req.seen[None, :]).to(logits_row.device)
@@ -605,6 +690,7 @@ class Engine:
     def _append_token(self, req, tok):
         """Account one generated token, then finish/evict the request on
         EOS, its token budget, slot capacity or its deadline."""
+        self._mut += 1      # host-lane mutation: the tick's mirror is stale
         req.tokens.append(tok)
         req.last_token = tok
         if req.seen is not None:
@@ -659,6 +745,9 @@ class Engine:
     def _release(self, req):
         if req.slot is None:
             return
+        if self._tick is not None:
+            self._tick.flush_to_host()
+        self._mut += 1          # slot membership changed: the tick rebuilds
         if self._active.get(req.slot) is req:
             del self._active[req.slot]
         # paged requests hold pages from admission on, prefill included

@@ -23,7 +23,10 @@ so `ensure_capacity` can never fail mid-decode.
 
 The model writes K/V into the pools in place (``incubate.nn.functional``),
 so a prefill view shares the pool tensors and `absorb_view` has nothing to
-copy back.
+copy back.  The decode step's page table ``[num_slots, N]`` and offsets
+``[num_slots]`` are persistent int32 tensors too, allocated once: host
+mutations are copied into them in place, so a captured decode step (the
+compiled tick's CUDA graph) reads them at the same addresses every replay.
 """
 from __future__ import annotations
 
@@ -37,10 +40,11 @@ from ..quantization import kv_quant_params
 
 
 class PagedKVCache:
-    """Host bookkeeping is numpy; `layer_caches` uploads the offsets and
-    the page table once per scheduler iteration, and only after a
-    host-side change.  The pools live on ``device`` (None → the card; it
-    raises without CUDA unless the caller passes ``"cpu"``)."""
+    """Host bookkeeping is numpy; `layer_caches` copies the offsets and
+    the page table into their persistent device tensors once per scheduler
+    iteration, and only after a host-side change.  The pools live on
+    ``device`` (None → the card; it raises without CUDA unless the caller
+    passes ``"cpu"``)."""
 
     def __init__(self, num_layers, num_slots, max_len, num_kv_heads,
                  head_dim, page_size=16, num_pages=None, dtype="float32",
@@ -74,6 +78,11 @@ class PagedKVCache:
         self.quant_dtype = dtype if quant else None
         store = quant[0] if quant else to_torch_dtype(dtype)
         shape = (total, self.page_size, num_kv_heads, head_dim)
+        #: the decode step's persistent page table and offsets
+        self.device_table = torch.zeros(self.table.shape, dtype=torch.int32,
+                                        device=self.device)
+        self.device_offsets = torch.zeros(self.num_slots, dtype=torch.int32,
+                                          device=self.device)
 
         def pool():
             # zero bytes through uint8: float8 fills are not in every
@@ -84,8 +93,9 @@ class PagedKVCache:
                 torch.zeros(shape, dtype=store, device=self.device)
         self.layers = []
         for _ in range(num_layers):
-            lay = {"k_pool": pool(), "v_pool": pool(), "page_table": None,
-                   "offset": None, "page_size": self.page_size}
+            lay = {"k_pool": pool(), "v_pool": pool(),
+                   "page_table": self.device_table,
+                   "offset": self.device_offsets, "page_size": self.page_size}
             if quant:
                 for name in ("k_scale", "v_scale"):
                     lay[name] = torch.ones(total, self.page_size,
@@ -175,6 +185,14 @@ class PagedKVCache:
             self.offsets[idx] += 1
         self._dirty = True
 
+    def absorb_tick(self, slots):
+        """A compiled tick advanced the device offsets of `slots` in place:
+        advance the host mirror in lockstep.  The dirty flag is NOT set:
+        device and host agree after this call."""
+        idx = list(slots)
+        if idx:
+            self.offsets[idx] += 1
+
     # ---------------- prefix-tree ownership transfer ----------------
     def make_shared(self, slot, table_index):
         """Move the page at `table_index` of the slot's table from slot
@@ -227,11 +245,8 @@ class PagedKVCache:
             raise ValueError(
                 f"paged KV cache overflow: offsets {self.offsets.tolist()} "
                 f"reach the page-table capacity {self.capacity}")
-        off = torch.tensor(self.offsets, device=self.device)
-        pt = torch.tensor(self.table, device=self.device)
-        for lay in self.layers:
-            lay["offset"] = off
-            lay["page_table"] = pt
+        self.device_offsets.copy_(torch.from_numpy(self.offsets))
+        self.device_table.copy_(torch.from_numpy(self.table))
         self._dirty = False
 
 

@@ -7,7 +7,9 @@ the JAX engine's: ``ttft_ms``, ``decode_ms``, ``prefill_chunk_ms``,
 ``decode_steps``, ``tokens_generated``, ...  The adapter pool's counters
 (``adapters_loaded``, ``adapter_evictions``, ``requests_routed_adapter``
 and its per-adapter series) read 0 until they move, as the JAX engine
-declares them at start.
+declares them at start; so do the compiled tick's families
+(`declare_tick_stats`).  A dotted counter name reads with underscores in
+the snapshot (``tick.compiled_hits`` → ``tick_compiled_hits``).
 """
 from __future__ import annotations
 
@@ -46,6 +48,17 @@ class ServingStats:
         with self._lock:
             self._gauges[name] = value
 
+    def declare_tick_stats(self):
+        """The compiled tick's families at 0 before the first iteration:
+        ``tick.compiled_hits`` (iterations one captured tick ran),
+        ``tick.fallbacks`` (iterations a blocker sent to the uncompiled
+        lane) and the ``tick_ms`` histogram (one whole scheduler
+        iteration, either lane)."""
+        with self._lock:
+            for name in ("tick.compiled_hits", "tick.fallbacks"):
+                self._counters.setdefault(name, 0)
+            self._hists.setdefault("tick_ms", [])
+
     def observe(self, name, value):
         with self._lock:
             self._hists.setdefault(name, []).append(float(value))
@@ -60,21 +73,28 @@ class ServingStats:
         ``adapter_evictions`` (LRU evictions of idle adapters),
         ``adapter_load_ms_avg`` (None before the first load),
         ``requests_routed_adapter`` (admitted adapter requests) and
-        ``requests_routed_adapter_by_adapter`` ({adapter_id: count})."""
+        ``requests_routed_adapter_by_adapter`` ({adapter_id: count}).
+        Compiled tick: ``tick_compiled_hits``, ``tick_fallbacks`` and
+        ``tick_ms_avg`` / ``_p50`` / ``_p99`` (None before the first
+        iteration)."""
         with self._lock:
             out = {"adapters_loaded": 0, "adapter_evictions": 0,
                    "requests_routed_adapter": 0,
                    "requests_routed_adapter_by_adapter": {},
                    "adapter_load_ms_avg": None}
-            out.update(self._counters)
+            out.update({k.replace(".", "_"): v
+                        for k, v in self._counters.items()})
             out.update(self._gauges)
             out.update({k: dict(v) for k, v in self._labeled.items()})
             hists = {k: list(v) for k, v in self._hists.items()}
         for name, vals in hists.items():
             arr = np.asarray(vals)
-            out[name + "_avg"] = float(arr.mean())
-            out[name + "_p50"] = float(np.percentile(arr, 50))
-            out[name + "_p99"] = float(np.percentile(arr, 99))
+            empty = arr.size == 0       # declared, not observed yet
+            out[name + "_avg"] = None if empty else float(arr.mean())
+            out[name + "_p50"] = None if empty else \
+                float(np.percentile(arr, 50))
+            out[name + "_p99"] = None if empty else \
+                float(np.percentile(arr, 99))
         busy_s = (sum(hists.get("prefill_ms", ()))
                   + sum(hists.get("decode_ms", ()))) / 1e3
         tokens = out.get("tokens_generated", 0)

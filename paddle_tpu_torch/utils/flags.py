@@ -1,0 +1,63 @@
+"""Runtime flags of the port (port of paddle_tpu/utils/flags.py): a typed
+registry seeded from ``FLAGS_*`` environment variables at import, read
+with `flag` and changed with `set_flags`.
+
+Only the flags the port reads are declared, with the JAX package's
+defaults:
+
+- ``FLAGS_compiled_tick`` (True): the paged engine's decode iteration
+  runs as one captured program over device-resident scheduler state
+  (`serving.compiled_tick.CompiledServingTick`; one CUDA graph replay a
+  tick on the card).  Off: the engine builds no tick and runs the
+  uncompiled iteration.
+- ``FLAGS_serving_fused_sampling`` (True): on the uncompiled iteration,
+  when every active request is greedy or seeded, one vectorized call
+  samples every slot.  Off: each sampled row is drawn by a call of its
+  own.  Either way a seeded request's draws come from its key stream
+  ``fold_in(PRNGKey(seed), n_generated)``, so the flag changes no token
+  (the JAX engine's off state draws seeded rows from its global RNG).
+"""
+from __future__ import annotations
+
+import os
+from typing import Any
+
+_FLAGS: dict[str, Any] = {
+    "FLAGS_compiled_tick": True,
+    "FLAGS_serving_fused_sampling": True,
+}
+
+
+def _coerce(old, new):
+    if isinstance(old, bool):
+        if isinstance(new, str):
+            return new.lower() in ("1", "true", "yes")
+        return bool(new)
+    if isinstance(old, int):
+        return int(new)
+    if isinstance(old, float):
+        return float(new)
+    return new
+
+
+# environment overrides at import
+for _k in list(_FLAGS):
+    if _k in os.environ:
+        _FLAGS[_k] = _coerce(_FLAGS[_k], os.environ[_k])
+
+
+def set_flags(flags: dict):
+    for k, v in flags.items():
+        _FLAGS[k] = _coerce(_FLAGS[k], v) if k in _FLAGS else v
+
+
+def get_flags(keys=None):
+    if keys is None:
+        return dict(_FLAGS)
+    if isinstance(keys, str):
+        return {keys: _FLAGS.get(keys)}
+    return {k: _FLAGS.get(k) for k in keys}
+
+
+def flag(name, default=None):
+    return _FLAGS.get(name, default)

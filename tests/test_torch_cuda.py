@@ -21,7 +21,9 @@ from paddle_tpu_torch.kernels import rope as rp
 from paddle_tpu_torch.models import LlamaForCausalLM, llama_config
 from paddle_tpu_torch.nn import RMSNorm
 from paddle_tpu_torch.optimizer import AdamW
-from paddle_tpu_torch.serving import AdapterPool, Engine, ServingConfig
+from paddle_tpu_torch.serving import (AdapterPool, Engine, SamplingParams,
+                                      ServingConfig)
+from paddle_tpu_torch.utils import flags as tick_flags
 
 
 def paged_inputs(seed=0, B=3, H=8, Hkv=2, D=16, psz=8, N=4,
@@ -1049,3 +1051,236 @@ def test_adapter_pool_hot_load_stays_on_card(card):
     assert kl.lora_delta.launches == before + 7 * 2   # 7 projections a layer
     assert torch.equal(adapted[0], base[0])           # row 0: slot 0
     assert not torch.equal(adapted[1], base[1])
+
+
+# ---------------------------------------------------------------- the tick
+def _tiny_llama(device, seed=5, dtype=torch.float32):
+    return LlamaForCausalLM(llama_config("tiny", max_seq_len=64),
+                            device=device, dtype=dtype, seed=seed)
+
+
+def _tick_prompts(seed=0, lens=(5, 9, 7)):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 512, (n,)).astype(np.int32) for n in lens]
+
+
+def _serve_lane(model, cfg, subs, tick):
+    """Run ``subs`` ((prompt, max_new, sampling, adapter_id)) through an
+    Engine with FLAGS_compiled_tick = ``tick``: (outputs, engine)."""
+    prev = tick_flags.get_flags("FLAGS_compiled_tick")
+    tick_flags.set_flags({"FLAGS_compiled_tick": tick})
+    try:
+        with Engine(model, cfg) as eng:
+            futs = [eng.submit(p, max_new_tokens=n, sampling=sp,
+                               adapter_id=a) for p, n, sp, a in subs]
+            outs = [f.result(timeout=300).output_ids for f in futs]
+        return outs, eng
+    finally:
+        tick_flags.set_flags(prev)
+
+
+def _mixed_subs(adapter=None):
+    pa, pb, pc = _tick_prompts()
+    return [(pa, 8, SamplingParams(), None),
+            (pb, 8, SamplingParams(temperature=0.8, top_k=20, seed=3),
+             adapter),
+            (pc, 6, SamplingParams(temperature=1.0, top_p=0.9,
+                                   repetition_penalty=1.3, seed=5), None),
+            (pa, 5, SamplingParams(repetition_penalty=1.2), adapter)]
+
+
+def _lora_spec(model, seed, rank=4, std=0.1):
+    rng = np.random.default_rng(seed)
+    return {n: {"A": rng.normal(0, std, (m.weight.shape[0], rank)),
+                "B": rng.normal(0, std, (rank, m.weight.shape[1])),
+                "rank": rank, "alpha": float(rank)}
+            for n, m in model.named_modules()
+            if n.rsplit(".", 1)[-1] in ("q_proj", "v_proj", "down_proj")}
+
+
+@pytest.mark.cuda
+def test_tick_captures_once_per_mode_and_replays_on_card(card):
+    """Greedy traffic, then mixed traffic: one capture per mode, every
+    decode step a replay, and a replay's launches are the model's (2L + 1
+    RMS norms, L paged decodes)."""
+    model = _tiny_llama(card)
+    greedy = [(p, 6, SamplingParams(), None) for p in _tick_prompts()]
+    cfg = ServingConfig(num_slots=2)
+    with Engine(model, cfg) as eng:
+        for p, n, sp, a in greedy:
+            eng.generate(p, max_new_tokens=n, sampling=sp)
+        futs = [eng.submit(p, max_new_tokens=n, sampling=sp)
+                for p, n, sp, _ in _mixed_subs()]
+        for f in futs:
+            f.result(timeout=300)
+        snap = eng.stats()
+        graphs = eng._tick.graph_stats()
+    assert set(graphs) == {"greedy", "mixed"}
+    assert set(eng._tick.first_tick_ms) == set(graphs)
+    assert all(cap == 1 and rep > 0 for cap, rep, _ in graphs.values())
+    assert sum(rep for _, rep, _ in graphs.values()) == \
+        snap["tick_compiled_hits"] == snap["decode_steps"]
+    assert snap["tick_fallbacks"] == 0
+    for _, _, launches in graphs.values():
+        assert launches == {"rms_norm": 5, "paged_decode": 2}
+
+
+def _set_tick_state(tick, cache, gen):
+    """A hand-made scheduler state: three live rows at offsets 5, 17 and
+    30 over pages of their own (row 1 seeded-sampled, row 2 at its length
+    limit), a dead row 3 on the scratch page, random K/V in the pools."""
+    st = tick._state
+    n = cache.device_table.shape[1]
+    table = torch.zeros_like(cache.device_table)
+    table[:3] = torch.arange(1, 3 * n + 1, dtype=torch.int32).reshape(3, n)
+    cache.device_table.copy_(table)
+    cache.device_offsets.copy_(torch.tensor([5, 17, 30, 0]))
+    for lay in cache.layers:
+        lay["k_pool"].normal_(generator=gen)
+        lay["v_pool"].normal_(generator=gen)
+    st["alive"].copy_(torch.tensor([True, True, True, False]))
+    st["last"].copy_(torch.tensor([11, 22, 33, 0]))
+    st["counts"].copy_(torch.tensor([2, 0, 5, 0]))
+    st["limits"].copy_(torch.tensor([50, 50, 6, 50]))
+    st["eos"].fill_(-1)
+    st["temp"].copy_(torch.tensor([0.0, 0.8, 0.0, 0.0]))
+    st["topk"].copy_(torch.tensor([0, 20, 0, 0]))
+    st["topp"].copy_(torch.tensor([1.0, 0.9, 1.0, 1.0]))
+    st["pen"].copy_(torch.tensor([1.0, 1.0, 1.3, 1.0]))
+    st["keys"].copy_(torch.tensor([[0, 0], [0, 3], [0, 0], [0, 0]]))
+
+
+def _tick_snapshot(tick, cache):
+    snap = {k: v.clone() for k, v in tick._state.items()}
+    snap["offsets"] = cache.device_offsets.clone()
+    for i, lay in enumerate(cache.layers):
+        snap[f"k{i}"], snap[f"v{i}"] = lay["k_pool"].clone(), \
+            lay["v_pool"].clone()
+    return snap
+
+
+def _tick_restore(tick, cache, snap):
+    for k, v in tick._state.items():
+        v.copy_(snap[k])
+    cache.device_offsets.copy_(snap["offsets"])
+    for i, lay in enumerate(cache.layers):
+        lay["k_pool"].copy_(snap[f"k{i}"])
+        lay["v_pool"].copy_(snap[f"v{i}"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["greedy", "mixed"])
+def test_tick_replay_equals_eager_body_on_card(card, mode):
+    """The 2-layer model's tick from one hand-made state, run as the
+    eager body and as a graph replay: tokens, counts, seen, finish codes,
+    offsets and the written K/V rows bit for bit."""
+    model = _tiny_llama(card)
+    with Engine(model, ServingConfig(num_slots=4)) as eng:
+        eng.generate(_tick_prompts()[0], max_new_tokens=2)
+    tick, cache = eng._tick, eng.cache
+    _set_tick_state(tick, cache, torch.Generator(device=card).manual_seed(1))
+    start = _tick_snapshot(tick, cache)
+    with torch.no_grad():
+        tick._body(mode)
+        eager = _tick_snapshot(tick, cache)
+        _tick_restore(tick, cache, start)
+        tick._step_for(mode)()
+    torch.cuda.synchronize()
+    replay = _tick_snapshot(tick, cache)
+    for name in eager:
+        assert torch.equal(replay[name], eager[name]), name
+    assert replay["offsets"].tolist() == [6, 18, 31, 0]
+    assert replay["counts"].tolist() == [3, 1, 6, 0]
+    assert replay["fin"].tolist() == [0, 0, 2, 0]
+    assert replay["alive"].tolist() == [True, True, False, False]
+    # the live rows wrote their K/V at their offsets, nothing else moved
+    n = cache.device_table.shape[1]
+    psz = cache.page_size
+    for i in range(len(cache.layers)):
+        moved = (replay[f"k{i}"] != start[f"k{i}"]).flatten(2).any(-1)
+        written = {(int(p), int(r)) for p, r in moved.nonzero().tolist()}
+        want = {(1 + row * n + off // psz, off % psz)
+                for row, off in enumerate((5, 17, 30))}
+        assert want <= written <= want | {(0, 0)}     # dead row: scratch
+
+
+@pytest.mark.cuda
+def test_tick_launch_counts_grow_per_replay_on_card(card):
+    """A replay runs no wrapper, yet each adds its graph's launches to the
+    wrappers' counts; the capture itself adds none."""
+    model = _tiny_llama(card)
+    with Engine(model, ServingConfig(num_slots=4)) as eng:
+        eng.generate(_tick_prompts()[0], max_new_tokens=2)
+    tick = eng._tick
+    step = tick._step_for("greedy")
+    graph = step.graph
+    assert graph is not None and step.launches == {"rms_norm": 5,
+                                                   "paged_decode": 2}
+    _set_tick_state(tick, eng.cache,
+                    torch.Generator(device=card).manual_seed(2))
+    before = kernels.launch_counts()
+    with torch.no_grad():
+        for _ in range(3):
+            step()
+    after = kernels.launch_counts()
+    assert {k: after[k] - before[k] for k in after
+            if after[k] != before[k]} == {"rms_norm": 15, "paged_decode": 6}
+    assert step.graph is graph and step.replays >= 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["adapters", "int8", "fp8"])
+def test_tick_captures_with_adapters_and_quantized_pools_on_card(card, kv):
+    """The tick with an adapter pool, int8 pools and fp8 pools: every
+    decode step a replay, the tokens equal the uncompiled lane's, and the
+    graphs launch the quantized decode and the LoRA delta."""
+    model = _tiny_llama(card)
+    kw = dict(num_slots=2)
+    adapter = None
+    if kv == "adapters":
+        kw.update(max_adapters=2, adapter_rank_pool=4,
+                  adapters={"a": _lora_spec(model, 1)})
+        adapter = "a"
+    else:
+        kw["cache_dtype"] = kv
+    subs = _mixed_subs(adapter)
+    want, _ = _serve_lane(model, ServingConfig(**kw), subs, False)
+    got, eng = _serve_lane(model, ServingConfig(**kw), subs, True)
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g, w)
+    snap = eng.stats()
+    assert snap["tick_compiled_hits"] == snap["decode_steps"] > 0
+    assert snap["tick_fallbacks"] == 0
+    kernel = {"adapters": "lora_delta", "int8": "paged_decode_int8",
+              "fp8": "paged_decode_fp8"}[kv]
+    for cap, rep, launches in eng._tick.graph_stats().values():
+        assert cap == 1 and launches.get(kernel, 0) > 0
+
+
+@pytest.mark.cuda
+def test_adapter_hot_loaded_after_capture_reaches_the_replay_on_card(card):
+    """The greedy graph is captured under the base request; an adapter
+    registered and hot-loaded afterwards writes the stacks in place, so
+    the next replays decode its tokens (those of the uncompiled lane)
+    without a second capture."""
+    model = _tiny_llama(card)
+    cfg = ServingConfig(num_slots=2, max_adapters=2, adapter_rank_pool=8)
+    p = _tick_prompts()[1]
+    with Engine(model, cfg) as eng:
+        base = eng.generate(p, max_new_tokens=8).output_ids
+        eng.register_adapter("b", _lora_spec(model, 7, rank=8, std=0.3))
+        adapted = eng.generate(p, max_new_tokens=8,
+                               adapter_id="b").output_ids
+        graphs = eng._tick.graph_stats()
+        loaded = eng.stats()["adapters_loaded"]
+    assert loaded == 1 and not np.array_equal(adapted, base)
+    assert graphs["greedy"][0] == 1 and graphs["greedy"][1] >= 14
+    tick_flags.set_flags({"FLAGS_compiled_tick": False})
+    try:
+        with Engine(model, cfg) as eng:
+            eng.register_adapter("b", _lora_spec(model, 7, rank=8, std=0.3))
+            want = eng.generate(p, max_new_tokens=8,
+                                adapter_id="b").output_ids
+    finally:
+        tick_flags.set_flags({"FLAGS_compiled_tick": True})
+    np.testing.assert_array_equal(adapted, want)

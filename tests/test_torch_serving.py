@@ -43,8 +43,9 @@ def model(pair):
 
 def test_engine_matches_jax_engine(pair):
     """3 prompts (4, 8, 6 tokens) through 2 slots, 5 greedy tokens: the
-    port's output_ids equal the JAX engine's (its host lane, which the
-    port mirrors: the compiled tick is not ported)."""
+    port's output_ids (its compiled tick, on by default) equal the JAX
+    engine's host lane (tests/test_torch_compiled_tick.py holds the two
+    ticks against each other)."""
     jm, tm = pair
     prompts = _prompts([4, 8, 6])
     prev = paddle.get_flags("FLAGS_compiled_tick")["FLAGS_compiled_tick"]
