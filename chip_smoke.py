@@ -19,6 +19,11 @@ last line:
             the checks must reject; the flash kernels' feature variants
             (dropout 0.1, an additive bias, a key-padding mask with a
             fully masked row, segment ids) at GPT-2's training shape;
+            the dropout seed read from device memory (a 0-dim int64
+            tensor) equal to the host int's bits, seed + 1 rejected;
+            Adam with its [lr, bc1, bc2] made on the card from a device
+            step counter, bit for bit, the skip flag set writing nothing,
+            the fourth step's scalars rejected;
             paged decode's split plan for each case, a 32-row batch and
             offsets on the split's edges; RMS norm's launch plan for each
             case, its staged and generic paths, dw bit-identical over two
@@ -61,18 +66,31 @@ last line:
             and greedy ones with int8 and fp8 pools under an adapter pool
 7. train    Llama-2 7B at full width cut to 8 layers, bf16 O2 through
             amp.decorate, AdamW with fp32 master weights and global-norm
-            clipping, B1 x S4096: 2 warm-up and 6 timed steps (step ms,
-            tokens/s, MFU, peak memory), every training kernel's launch
-            count checked against the steps taken and the loss falling;
-            then torch.profiler over one step
+            clipping, B1 x S4096, in two lanes on the same weights and
+            batch: eager (2 warm-up and 6 timed steps: step ms, tokens/s,
+            MFU, peak memory, every training kernel's launch count checked
+            against the steps taken, the loss falling; torch.profiler over
+            one step), then, the eager model freed, CompiledTrainStep
+            (call 1 eager, call 2 captures; the same measures, the first
+            compiled call's ms, the graph's captures, replays and launches
+            a replay, which must equal the eager lane's a step;
+            torch.profiler over 3 replays after a warm-up one)
 8. train-parity  a 2-layer fp32 model at the 7B widths, the same weights
             and batch, 3 AdamW steps on the CPU (plain versions) and on
             the card (kernels): losses and parameters must agree
+8b. train-compiled-parity  eager against CompiledTrainStep on the card,
+            bit for bit (losses, every parameter, moment and master, the
+            step counter): (a) train-parity's model with its clip, (b) a
+            2-layer GPT-2-width fp32 model with attention and residual
+            dropout 0.1, (c) (b) in fp16 O2 under a GradScaler and a
+            LinearWarmup + cosine schedule with an overflowing batch
+            (skipped, the scale halved, sync_scaler equal), (d) (a) with
+            two-batch accumulation; (a)'s card losses against the CPU's
 9. train-gpt2  GPT-2 124M, nothing cut (12 layers, hidden 768, vocab
             50304), attention and residual dropout 0.1, bf16 O2 AdamW, B8
-            x S1024: 2 warm-up and 6 timed steps through the flash
-            kernels' dropout variants, the loss falling; then
-            torch.profiler over one step
+            x S1024, in the train phase's two lanes (the compiled model
+            rebuilt from the same seed) through the flash kernels'
+            dropout variants, the loss falling
 10. gpt2-parity  a 2-layer GPT-2-width fp32 model with attention
             dropout 0.1: 3 AdamW steps on the CPU and on the card from the
             same weights and flash seeds must agree
@@ -98,7 +116,8 @@ import torch
 
 from paddle_tpu_torch import amp, kernels
 from paddle_tpu_torch.kernels import _build
-from paddle_tpu_torch.kernels.adam import adam_update, adam_update_ref
+from paddle_tpu_torch.kernels.adam import (adam_scalars, adam_update,
+                                           adam_update_ref)
 from paddle_tpu_torch.kernels import flash_attention as fa
 from paddle_tpu_torch.kernels.lora import lora_delta, lora_delta_ref
 from paddle_tpu_torch.kernels.paged_decode import (gather_pages,
@@ -116,7 +135,9 @@ from paddle_tpu_torch.models import (GPTForCausalLM, LlamaForCausalLM,
                                      gpt_config, llama_config)
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+from paddle_tpu_torch.framework import CompiledTrainStep
 from paddle_tpu_torch.optimizer import AdamW
+from paddle_tpu_torch.optimizer import lr as lrs
 from paddle_tpu_torch.quantization import (KV_QUANT_DTYPES, dequantize_kv,
                                            quantize_kv_rows)
 from paddle_tpu_torch.serving import Engine, SamplingParams, ServingConfig
@@ -126,8 +147,8 @@ HBM_BYTES_PER_S = 3.35e12                   # H100 SXM data sheet
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
             torch.float32: 67e12}           # dense; fp32 outside tensor cores
 PHASES = ("device", "build", "kernels", "serve", "serve-lora-int8",
-          "serve-tick", "parity", "train", "train-parity", "train-gpt2",
-          "gpt2-parity", "attn-ops")
+          "serve-tick", "parity", "train", "train-parity",
+          "train-compiled-parity", "train-gpt2", "gpt2-parity", "attn-ops")
 TRAIN_KERNELS = ("rms_norm", "rms_norm_bwd", "rope", "flash_fwd",
                  "flash_bwd_dkv", "flash_bwd_dq", "flash_bwd_delta", "adam")
 FLASH = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
@@ -895,13 +916,61 @@ def feature_case(dev, kind, b, h, s, d, dtype, gen, timer, controls=False):
     return errs, timed, share
 
 
+def seed_case(dev, b, h, s, d, gen):
+    """The flash kernels' seed from device memory: each dropout variant's
+    forward, dK/dV and dQ (dropout 0.1 alone, and with a key-padding mask)
+    called with a host int seed and with the same seed in a 0-dim int64
+    tensor on the card (2^31 + 7: the kernels read its low 32 bits) must
+    be equal bit for bit.  Control: the device seed + 1 must give another
+    forward."""
+    def mk():
+        return torch.randn(b, h, s, d, device=dev, generator=gen).bfloat16()
+    q, k, v, do = mk(), mk(), mk(), mk()
+    seed = 2 ** 31 + 7
+    on_card = torch.full((), seed, dtype=torch.int64, device=dev)
+    for kind, mask in (("dropout", None),
+                       ("dropout + padding", fa.additive_mask(
+                           padding_keep(dev, b, s)))):
+        feats = dict(mask=mask, dropout=0.1)
+
+        def calls(sd):
+            out, lse = fa.flash_attention_fwd(q, k, v, True, None, True,
+                                              seed=sd, **feats)
+            delta = (do.float() * out.float()).sum(-1).contiguous()
+            dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, True, None,
+                                      True, seed=sd, **feats)
+            dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, True, None, True,
+                                 seed=sd, **feats)
+            return {"out": out, "lse": lse, "dk": dk, "dv": dv, "dq": dq}
+        host = calls(seed)
+        name = f"flash seed on the card [{kind}, B{b} H{h} S{s} D{d}]"
+
+        def same(got, label):
+            for part, t in got.items():
+                if not torch.equal(t, host[part]):
+                    raise AssertionError(f"{name} {label} {part}: differs "
+                                         f"from the host seed's by "
+                                         f"{max_err(t, host[part])}")
+        same(calls(on_card), "device int64")
+        other = calls(on_card + 1)
+        expect_rejected(f"{name}: the device seed + 1",
+                        lambda: same(other, "seed + 1"))
+        log(f"[kernels] {name}: fwd, dK/dV, dQ equal bit for bit with the "
+            f"seed as a host int and as a device int64")
+
+
 def adam_case(dev, n, p_dtype, master, decoupled, wd, gen, timer=None,
               offset=0):
     """One parameter's update, kernel against plain version on copies of
     the same state: w, m1, m2 and the parameter must be equal bit for bit
     (the same fp32 ops, each rounded on its own).  ``offset`` places every
     tensor that many elements off an aligned address (the kernel of one
-    element per thread).  The bias corrections are the third step's."""
+    element per thread).  The scalars ``[lr, 1 - b1^3, 1 - b2^3]`` are
+    made on the card from a device step counter (`adam_scalars`, the
+    optimizer's own computation) and read there by both versions.  Then
+    the skip flag: set, neither version may change anything; clear, the
+    update equals the flagless one.  Control: the kernel's result against
+    the plain version at the fourth step's scalars must be rejected."""
     def placed(t):
         buf = torch.empty(t.numel() + offset, device=dev, dtype=t.dtype)
         return buf[offset:].copy_(t)
@@ -909,12 +978,13 @@ def adam_case(dev, n, p_dtype, master, decoupled, wd, gen, timer=None,
     m1 = 1e-2 * torch.randn(n, device=dev, generator=gen)
     m2 = 1e-4 * torch.rand(n, device=dev, generator=gen)
     g = (1e-2 * torch.randn(n, device=dev, generator=gen)).to(p_dtype)
-    hyper = dict(lr=3e-4, bc1=1 - 0.9 ** 3, bc2=1 - 0.999 ** 3, b1=0.9,
+    lr_t = torch.full((), 3e-4, dtype=torch.float32, device=dev)
+    step_t = torch.full((), 3.0, dtype=torch.float32, device=dev)
+    hyper = dict(scal=adam_scalars(lr_t, step_t, 0.9, 0.999), b1=0.9,
                  b2=0.999, eps=1e-8, wd=wd, decoupled=decoupled)
 
     def state():
-        p = placed(torch.empty(n, device=dev, dtype=p_dtype)) \
-            if master else None
+        p = placed(w.to(p_dtype)) if master else None
         return placed(w), g, placed(m1), placed(m2), p
     got, want = state(), state()
     adam_update(*got, **hyper)
@@ -922,10 +992,30 @@ def adam_case(dev, n, p_dtype, master, decoupled, wd, gen, timer=None,
     adam_update_ref(*want, **hyper)
     name = (f"adam[n={n} {p_dtype}{' + fp32 master' if master else ''} "
             f"{'AdamW' if decoupled else 'Adam'} wd={wd} offset={offset}]")
-    for label, a, b in zip(("w", "g", "m1", "m2", "p"), got, want):
-        if a is not None and not torch.equal(a, b):
-            raise AssertionError(f"{name} {label}: differs from the plain "
-                                 f"version by {max_err(a, b)}")
+    def same(label, xs, ys):
+        for part, a, b in zip(("w", "g", "m1", "m2", "p"), xs, ys):
+            if a is not None and not torch.equal(a, b):
+                raise AssertionError(f"{name} {label} {part}: differs by "
+                                     f"{max_err(a, b)}")
+    same("kernel against the plain version", got, want)
+    other = state()
+    adam_update_ref(*other, **dict(hyper, scal=adam_scalars(
+        lr_t, step_t + 1.0, 0.9, 0.999)))
+    expect_rejected(f"{name} against the fourth step's scalars",
+                    lambda: same("kernel against the fourth step", got,
+                                 other))
+    del other
+    for flag in (True, False):
+        skip = torch.full((), flag, dtype=torch.bool, device=dev)
+        for fn in (adam_update, adam_update_ref):
+            before, after = state(), state()
+            fn(*after, **hyper, skip=skip)
+            if flag:
+                same(f"{fn.__name__} with the skip flag set", after, before)
+            else:
+                same(f"{fn.__name__} with the skip flag clear", after, got)
+    log(f"[kernels] {name}: device scalars, bit for bit; skip flag set: "
+        f"nothing written (kernel and plain version)")
     if timer is None:
         return 0.0, None
     es = g.element_size()
@@ -938,7 +1028,7 @@ def adam_case(dev, n, p_dtype, master, decoupled, wd, gen, timer=None,
            [torch.tensor(3.0, device=dev)]]
 
     def fused_adamw():
-        torch._fused_adamw_(*lib, lr=hyper["lr"], beta1=hyper["b1"],
+        torch._fused_adamw_(*lib, lr=3e-4, beta1=hyper["b1"],
                             beta2=hyper["b2"], weight_decay=wd,
                             eps=hyper["eps"], amsgrad=False, maximize=False)
     res = dict(ms=timer(lambda: adam_update(*got, **hyper)),
@@ -1233,6 +1323,7 @@ def phase_kernels(dev):
             f"{fmt(res['flash_bwd'])}")
         for kname, r in res.items():
             timed[(kname, kind)] = r
+    seed_case(dev, g2["b"], g2["h"], g2["s"], g2["d"], gen)
     # Adam: the 7B-width MLP weight (4096 x 11008) in bf16 with its fp32
     # master under AdamW, as the train phase updates it; an fp32 parameter
     # with a ragged tail under L2-coupled Adam; a misaligned fp16 one
@@ -1958,21 +2049,12 @@ def profile_train_step(model, opt, ids, labels, tag="train-profile"):
         log(f"[{tag}]   {ms:9.3f} ms  {count:6d}x  {key[:90]}")
 
 
-def phase_train(dev, warmup=2, steps=6):
-    """Llama-2 7B width, 8 of its 32 layers (memory: 16 B a parameter under
-    O2 AdamW), bf16 O2, B1 x S4096, one batch repeated."""
-    cfg = llama_config("llama2-7b", num_layers=8)
-    seq = 4096
-    t0 = time.monotonic()
-    model, opt = make_trainer(cfg, dev, torch.bfloat16, seed=0)
-    ids, labels = (t.to(dev) for t in train_batch(cfg.vocab_size, seq))
-    n_params = model.num_params()
-    torch.cuda.synchronize()
-    log(f"[train] Llama-2 7B width, {cfg.num_layers} layers "
-        f"({n_params / 1e9:.3f} B params), bf16 O2, AdamW(3e-4, wd 0.01, "
-        f"clip 1.0), B1 x S{seq}; built in {time.monotonic() - t0:.1f} s")
+def eager_lane(tag, model, opt, ids, labels, dev, warmup, steps):
+    """The eager lane: ``warmup`` + ``steps`` calls of `train_step` (the
+    forward, backward and optimizer parts timed by CUDA events); returns
+    its losses, host times, parts, peak memory and launch counts."""
     torch.cuda.reset_peak_memory_stats(dev)
-    kernels.reset_launch_counts()
+    before = kernels.launch_counts()
     losses, times, parts = [], [], []
     for i in range(warmup + steps):
         marks = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
@@ -1983,43 +2065,170 @@ def phase_train(dev, warmup=2, steps=6):
         if i >= warmup:
             parts.append([marks[j].elapsed_time(marks[j + 1])
                           for j in range(3)])
-    counts = kernels.launch_counts()
-    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    after = kernels.launch_counts()
+    return dict(losses=losses, times=times, parts=parts,
+                peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+                counts={k: after[k] - before[k] for k in after})
+
+
+def compiled_lane(tag, model, opt, ids, labels, dev, warmup, steps):
+    """The compiled lane: `CompiledTrainStep` over the same forward; call
+    1 is its eager warm-up, call 2 captures and replays; returns the
+    losses, host times, peak memory and the step object."""
+    torch.cuda.reset_peak_memory_stats(dev)
+    cs = CompiledTrainStep(lambda x, y: model(x, labels=y)[1], opt,
+                           network=model)
+    losses, times = [], []
+    for _ in range(warmup + steps):
+        t1 = time.monotonic()
+        losses.append(float(cs(ids, labels)))
+        torch.cuda.synchronize()
+        times.append((time.monotonic() - t1) * 1e3)
+    if not cs.compiled or cs.fallbacks:
+        raise AssertionError(f"[{tag}] the compiled lane fell back: "
+                             f"{cs.fallback_reason}")
+    return dict(losses=losses, times=times, cs=cs,
+                peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+
+
+def lane_line(tag, label, lane, warmup, steps, tokens, flops):
+    """Logs a lane's losses, step ms p50, tokens/s, MFU and peak memory;
+    returns its step ms p50."""
+    step_ms = float(np.median(lane["times"][warmup:]))
+    mfu = flops / (step_ms / 1e3) / PEAK_OPS[torch.bfloat16]
+    lane["step_ms"], lane["mfu"] = step_ms, mfu
+    log(f"[{tag}] {label} losses {[round(x, 4) for x in lane['losses']]}")
+    log(f"[{tag}] {label} step {step_ms:.2f} ms p50 over {steps} timed "
+        f"steps (all: {[round(t, 1) for t in lane['times']]}), "
+        f"{tokens / (step_ms / 1e3):.0f} tokens/s, MFU {100 * mfu:.1f}% "
+        f"({flops / 1e12:.2f} TFLOP a step), peak memory "
+        f"{lane['peak_gb']:.2f} GB")
+    return step_ms
+
+
+def profile_compiled(cs, ids, labels, tag, n=3):
+    """torch.profiler over ``n`` compiled steps after one warm-up step
+    under the profiler (its tracing set up, not recorded): the device's
+    busy share of their wall time and the time by group."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 acc_events=True) as prof:
+        for reps in (1, n):
+            t0 = time.monotonic()
+            for _ in range(reps):
+                cs(ids, labels)
+            torch.cuda.synchronize()
+            wall_ms = (time.monotonic() - t0) * 1e3
+            prof.step()
+    rows = device_rows(prof)
+    busy_ms = sum(r[1] for r in rows)
+    log(f"[{tag}] {n} replays: wall {wall_ms / n:.2f} ms a step, device "
+        f"busy {busy_ms / n:.2f} ms ({100 * busy_ms / wall_ms:.1f}%)")
+    log(f"[{tag}] by group a step: " + fmt_groups(kernel_groups(rows, n), 2))
+    for key, ms, count in sorted(rows, key=lambda r: -r[1])[:8]:
+        log(f"[{tag}]   {ms / n:9.3f} ms  {count / n:7.1f}x a step  "
+            f"{key[:80]}")
+    return busy_ms / wall_ms
+
+
+def check_compiled_losses(tag, comp, eager):
+    """The compiled lane's losses: finite, falling, and equal bit for bit
+    to the eager lane's (same seed, weights and batch)."""
+    if not all(np.isfinite(comp)):
+        raise AssertionError(f"[{tag}] compiled: non-finite loss: {comp}")
+    if not comp[-1] < comp[0]:
+        raise AssertionError(f"[{tag}] compiled: the loss did not fall: "
+                             f"{comp}")
+    if comp != eager:
+        raise AssertionError(f"[{tag}] compiled losses {comp} differ from "
+                             f"the eager lane's {eager}")
+
+
+def check_replay_launches(tag, eager, n_eager, cs):
+    """Each training kernel's launches in one replay of the full graph
+    equal the eager lane's launches a step."""
+    (label, (captures, replays, per_replay)), = [
+        kv for kv in cs.graph_stats().items() if kv[0].startswith("full")]
+    per_step = {}
+    for k, c in eager.items():
+        if c:
+            if c % n_eager:
+                raise AssertionError(f"[{tag}] {k}: {c} launches in "
+                                     f"{n_eager} eager steps")
+            per_step[k] = c // n_eager
+    if per_step != per_replay or captures != 1:
+        raise AssertionError(f"[{tag}] launches a replay {per_replay} "
+                             f"(captures {captures}) differ from the eager "
+                             f"lane's a step {per_step}")
+    log(f"[{tag}] graphs {cs.graph_stats()}: launches a replay equal the "
+        f"eager lane's a step")
+
+
+def phase_train(dev, warmup=2, steps=6):
+    """Llama-2 7B width, 8 of its 32 layers (memory: 16 B a parameter under
+    O2 AdamW), bf16 O2, B1 x S4096, one batch repeated: the eager lane,
+    then (the eager model freed: the two do not fit together) the same
+    model from the same seed through `CompiledTrainStep`."""
+    cfg = llama_config("llama2-7b", num_layers=8)
+    seq = 4096
+    t0 = time.monotonic()
+    model, opt = make_trainer(cfg, dev, torch.bfloat16, seed=0)
+    ids, labels = (t.to(dev) for t in train_batch(cfg.vocab_size, seq))
+    n_params = model.num_params()
+    n_tensors = len(list(model.parameters()))
+    n_matmul = n_params - model.llama.embed_tokens.weight.numel()
+    torch.cuda.synchronize()
+    log(f"[train] Llama-2 7B width, {cfg.num_layers} layers "
+        f"({n_params / 1e9:.3f} B params), bf16 O2, AdamW(3e-4, wd 0.01, "
+        f"clip 1.0), B1 x S{seq}; built in {time.monotonic() - t0:.1f} s")
+    kernels.reset_launch_counts()
+    eager = eager_lane("train", model, opt, ids, labels, dev, warmup, steps)
+    losses, counts = eager["losses"], eager["counts"]
     n = warmup + steps
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite loss: {losses}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"the loss did not fall: {losses}")
     need = {k: cfg.num_layers * n for k in TRAIN_KERNELS}
-    need["adam"] = len(list(model.parameters())) * n   # one per parameter
+    need["adam"] = n_tensors * n                       # one per parameter
     for name, k in need.items():
         if counts[name] < k:
             raise AssertionError(f"{name}: {counts[name]} launches, expected "
                                  f">= {k}")
-    step_ms = float(np.median(times[warmup:]))
     tokens = ids.numel()
     # MFU: 6 N T (N every parameter but the input embedding, whose lookup
     # does no product; forward and backward) plus causal attention, 3 x 2
     # S^2 hidden per layer (two products of 2 S^2 D per head, halved by the
     # mask; forward and backward), over 989 TFLOP/s
-    n_matmul = n_params - model.llama.embed_tokens.weight.numel()
     flops = 6 * n_matmul * tokens + \
         6 * tokens * seq * cfg.hidden_size * cfg.num_layers
-    mfu = flops / (step_ms / 1e3) / PEAK_OPS[torch.bfloat16]
-    log(f"[train] losses {[round(x, 4) for x in losses]}")
-    log(f"[train] step {step_ms:.1f} ms p50 over {steps} timed steps (all: "
-        f"{[round(t, 1) for t in times]}), {tokens / (step_ms / 1e3):.0f} "
-        f"tokens/s, MFU {100 * mfu:.1f}% ({flops / 1e12:.1f} TFLOP a step), "
-        f"peak memory {peak_gb:.2f} GB")
-    fwd_ms, bwd_ms, opt_ms = np.median(np.asarray(parts), axis=0)
-    log(f"[train] step parts p50 (CUDA events): forward + loss {fwd_ms:.1f}"
-        f" ms, backward {bwd_ms:.1f} ms, clip + AdamW + clear_grad "
-        f"{opt_ms:.1f} ms")
-    log(f"[train] launches {counts} (needed >= {need})")
+    lane_line("train", "eager", eager, warmup, steps, tokens, flops)
+    fwd_ms, bwd_ms, opt_ms = np.median(np.asarray(eager["parts"]), axis=0)
+    log(f"[train] eager step parts p50 (CUDA events): forward + loss "
+        f"{fwd_ms:.1f} ms, backward {bwd_ms:.1f} ms, clip + AdamW + "
+        f"clear_grad {opt_ms:.1f} ms")
+    log(f"[train] eager launches {counts} (needed >= {need})")
     profile_train_step(model, opt, ids, labels)
     del model, opt
     torch.cuda.empty_cache()
-    return counts
+    model, opt = make_trainer(cfg, dev, torch.bfloat16, seed=0)
+    kernels.reset_launch_counts()
+    comp = compiled_lane("train", model, opt, ids, labels, dev, warmup,
+                         steps)
+    main_counts = kernels.launch_counts()
+    check_launches(main_counts, need)   # call 1 eager + 7 replays
+    lane_line("train", "compiled", comp, warmup, steps, tokens, flops)
+    check_compiled_losses("train", comp["losses"], losses)
+    log(f"[train] compiled: first compiled call (capture + first replay) "
+        f"{comp['times'][1]:.1f} ms; losses equal to the eager lane's bit "
+        f"for bit")
+    check_replay_launches("train", counts, n, comp["cs"])
+    profile_compiled(comp["cs"], ids, labels, "train-profile")
+    del model, opt, comp
+    torch.cuda.empty_cache()
+    return main_counts
 
 
 def phase_train_parity(dev, steps=3):
@@ -2065,6 +2274,175 @@ def phase_train_parity(dev, steps=3):
         f" share > 1e-5) {worst} ({time.monotonic() - t0:.1f} s)")
     del card_model, card_opt
     torch.cuda.empty_cache()
+    return cpu_losses
+
+
+def eager_update(fwd, opt, scaler, accum, x, y, update):
+    """The eager lane as a training loop writes it (the compiled step's
+    default eager step): the loss, scaled and divided by the accumulation
+    count for the backward; on an update the scaler's (or the
+    optimizer's) step and cleared gradients."""
+    loss = fwd(x, y)
+    bwd = scaler.scale(loss) if scaler is not None else loss
+    if accum > 1:
+        bwd = bwd * (1.0 / accum)
+    bwd.backward()
+    if update:
+        if scaler is not None:
+            scaler.step(opt)
+        else:
+            opt.step()
+        opt.clear_grad()
+    return loss
+
+
+def parity_lane(build, batches, compiled, accum=1, scaler_kw=None):
+    """One lane over ``batches``: ``build()`` → (model, opt, forward,
+    scheduler or None).  Returns the losses, the step counter after each
+    call, every parameter, moment and master, the scaler's state and the
+    step object (None in the eager lane)."""
+    model, opt, fwd, sched = build()
+    opt._ensure_state()
+    scaler = amp.GradScaler(**scaler_kw) if scaler_kw else None
+    cs = CompiledTrainStep(fwd, opt, scaler=scaler, network=model,
+                           accumulate_grad_batches=accum) \
+        if compiled else None
+    losses, steps = [], []
+    for i, (x, y) in enumerate(batches):
+        update = (i + 1) % accum == 0
+        loss = cs(x, y, update) if compiled else \
+            eager_update(fwd, opt, scaler, accum, x, y, update)
+        if update and sched is not None:
+            sched.step()
+        losses.append(loss.detach().float().reshape(1))
+        steps.append(opt._step_tensor.clone())
+    if compiled:
+        cs.sync_scaler()
+        if not cs.compiled or cs.fallbacks:
+            raise AssertionError(f"the compiled lane fell back: "
+                                 f"{cs.fallback_reason}")
+    state = {f"param {n}": p.detach().clone()
+             for n, p in model.named_parameters()}
+    for name, vals in opt._state.items():
+        for i, v in enumerate(vals):
+            if v is not None:
+                state[f"{name}.{i}"] = v.clone()
+    state["step_tensor"] = opt._step_tensor.clone()
+    out = dict(losses=torch.cat(losses), steps=torch.stack(steps),
+               state=state, scaler=scaler.state_dict() if scaler else None,
+               stats=cs.graph_stats() if compiled else None)
+    del model, opt, fwd, cs
+    torch.cuda.empty_cache()
+    return out
+
+
+def compare_lanes(label, eager, comp):
+    """Eager and compiled must agree bit for bit (tolerance: none)."""
+    bad = [k for k in ("losses", "steps") if not torch.equal(eager[k],
+                                                             comp[k])]
+    bad += [k for k, v in eager["state"].items()
+            if not torch.equal(v, comp["state"][k])]
+    if eager["scaler"] != comp["scaler"]:
+        bad.append(f"scaler {eager['scaler']} != {comp['scaler']}")
+    if bad:
+        raise AssertionError(f"[train-compiled-parity] {label}: eager and "
+                             f"compiled differ in {bad[:8]} (losses "
+                             f"{eager['losses'].tolist()} / "
+                             f"{comp['losses'].tolist()})")
+    log(f"[train-compiled-parity] {label}: losses "
+        f"{comp['losses'].tolist()}, step counter "
+        f"{comp['steps'].tolist()}, {len(comp['state'])} tensors (every "
+        f"parameter, moment and master, the counter) equal bit for bit; "
+        f"graphs {comp['stats']}")
+
+
+def phase_train_compiled_parity(dev, cpu_losses=None, steps=4):
+    """Eager against compiled on the card, bit for bit: (a) the 2-layer
+    fp32 Llama of train-parity (the same weights, built on the CPU) with
+    its global-norm clip; (b) a 2-layer GPT-2-width fp32 model with
+    attention and residual dropout 0.1; (c) (b) in fp16 O2 under a
+    GradScaler (2^16, growth every 2 steps) and a LinearWarmup into
+    CosineAnnealingDecay schedule, one batch marked so that its loss is
+    multiplied by 1e4 and a gradient overflows: that step is skipped (the
+    counter stays), the scale halves and ``sync_scaler()`` equals the
+    eager scaler; (d) (a) with accumulate_grad_batches=2.  Then (a)'s
+    card losses against the CPU's under train-parity's tolerance."""
+    t0 = time.monotonic()
+    cfg = llama_config("llama2-7b", num_layers=2, max_seq_len=256)
+    cpu_model, cpu_opt = make_trainer(cfg, "cpu", torch.float32, seed=1)
+    init = {k: v.clone() for k, v in cpu_model.state_dict().items()}
+    ids, labels = train_batch(cfg.vocab_size, 256, seed=1)
+    if cpu_losses is None:
+        cpu_losses = [train_step(cpu_model, cpu_opt, ids, labels)
+                      for _ in range(3)]
+    del cpu_model, cpu_opt
+    batches = [(ids.to(dev), labels.to(dev))] * steps
+
+    def llama():
+        model, opt = make_trainer(cfg, dev, torch.float32, seed=1)
+        model.load_state_dict(init)
+        return model, opt, lambda x, y: model(x, labels=y)[1], None
+    kernels.reset_launch_counts()
+    a = {c: parity_lane(llama, batches, c) for c in (False, True)}
+    compare_lanes("(a) Llama 2-layer fp32, clip 1.0", a[False], a[True])
+    card = a[True]["losses"][:len(cpu_losses)].tolist()
+    if not np.allclose(card, cpu_losses, rtol=1e-4, atol=0):
+        raise AssertionError(f"(a) card losses {card} against the CPU's "
+                             f"{cpu_losses}")
+    log(f"[train-compiled-parity] (a) compiled card losses {card} against "
+        f"the CPU's {cpu_losses}: within 1e-4 relative")
+    d = {c: parity_lane(llama, batches, c, accum=2) for c in (False, True)}
+    compare_lanes("(d) (a) with accumulate_grad_batches=2", d[False],
+                  d[True])
+    del init
+    gcfg = gpt_config("gpt2-124m", num_layers=2, max_seq_len=256,
+                      attn_dropout=0.1, dropout=0.1)
+    gids, glabels = (t.to(dev) for t in gpt2_batch(gcfg.vocab_size, 2, 256,
+                                                    seed=1))
+
+    def gpt(dtype):
+        def build():
+            model, opt = make_gpt_trainer(gcfg, dev, torch.float32, 1, 3e-4,
+                                          ClipGradByGlobalNorm(1.0))
+            sched = None
+            if dtype != torch.float32:
+                model, opt = amp.decorate(model, opt, level="O2",
+                                          dtype=dtype)
+                sched = lrs.LinearWarmup(lrs.CosineAnnealingDecay(
+                    3e-4, T_max=8), warmup_steps=2, start_lr=1e-5,
+                    end_lr=3e-4)
+                opt.set_lr_scheduler(sched)
+
+            def fwd(x, y):
+                loss = model(x, labels=y)[1]
+                # the marked batch (label 0 ignored): loss x 1e4
+                return loss * torch.where(y[0, 0] == -100, 1e4, 1.0)
+            return model, opt, fwd, sched
+        return build
+    b = {c: parity_lane(gpt(torch.float32), [(gids, glabels)] * steps, c)
+         for c in (False, True)}
+    compare_lanes("(b) GPT-2-width 2-layer fp32, dropout 0.1", b[False],
+                  b[True])
+    marked = glabels.clone()
+    marked[0, 0] = -100
+    cbatches = [(gids, glabels)] * 3 + [(gids, marked), (gids, glabels)]
+    scaler_kw = dict(init_loss_scaling=2.0 ** 16, incr_every_n_steps=2)
+    c = {k: parity_lane(gpt(torch.float16), cbatches, k, scaler_kw=scaler_kw)
+         for k in (False, True)}
+    compare_lanes("(c) (b) in fp16 O2, GradScaler, LinearWarmup + cosine",
+                  c[False], c[True])
+    st = c[True]["steps"].tolist()
+    if st[3] != st[2] or st[4] != st[2] + 1 or \
+            c[True]["scaler"]["scale"] != 2.0 ** 16 or \
+            not np.isfinite(c[True]["losses"][3].item()):
+        raise AssertionError(f"(c) the marked step: counter {st}, scaler "
+                             f"{c[True]['scaler']}")
+    log(f"[train-compiled-parity] (c) the marked step (4th) was skipped: "
+        f"counter {st}; the scale grew to 2^17 after two good steps and "
+        f"halved at the overflow: {c[True]['scaler']} (the eager scaler's "
+        f"{c[False]['scaler']})")
+    log(f"[train-compiled-parity] launches {kernels.launch_counts()} "
+        f"({time.monotonic() - t0:.1f} s)")
 
 
 def gpt2_batch(vocab, b, seq, seed=0):
@@ -2088,7 +2466,8 @@ def make_gpt_trainer(cfg, dev, dtype, seed, lr, grad_clip=None):
 def phase_train_gpt2(dev, warmup=2, steps=6):
     """GPT-2 124M as bench.py trains it (AdamW(1e-4, weight_decay=0.01),
     B8 x S1024) with GPT-2's published dropouts (attention, residual and
-    embedding 0.1), bf16 O2; nothing cut."""
+    embedding 0.1), bf16 O2; nothing cut.  The eager lane, then the model
+    rebuilt from the same seed through `CompiledTrainStep`."""
     cfg = gpt_config("gpt2-124m", max_seq_len=1024, attn_dropout=0.1,
                      dropout=0.1)
     b, seq = 8, 1024
@@ -2104,20 +2483,10 @@ def phase_train_gpt2(dev, warmup=2, steps=6):
         f"{n_params / 1e6:.2f} M without wpe, {n_tensors} tensors), dropout "
         f"0.1 (attention, residual, embedding), bf16 O2, AdamW(1e-4, wd "
         f"0.01), B{b} x S{seq}; built in {time.monotonic() - t0:.1f} s")
-    torch.cuda.reset_peak_memory_stats(dev)
     kernels.reset_launch_counts()
-    losses, times, parts = [], [], []
-    for i in range(warmup + steps):
-        marks = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        t1 = time.monotonic()
-        losses.append(train_step(model, opt, ids, labels, marks))
-        torch.cuda.synchronize()
-        times.append((time.monotonic() - t1) * 1e3)
-        if i >= warmup:
-            parts.append([marks[j].elapsed_time(marks[j + 1])
-                          for j in range(3)])
-    counts = kernels.launch_counts()
-    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    eager = eager_lane("train-gpt2", model, opt, ids, labels, dev, warmup,
+                       steps)
+    losses, counts = eager["losses"], eager["counts"]
     n = warmup + steps
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite loss: {losses}")
@@ -2130,27 +2499,36 @@ def phase_train_gpt2(dev, warmup=2, steps=6):
     if plain:
         raise AssertionError(f"training launched other flash variants: "
                              f"{plain}")
-    step_ms = float(np.median(times[warmup:]))
     tokens = ids.numel()
     # MFU: 6 N T (N every parameter but wpe: the tied wte does the head's
     # product) plus causal attention, 6 T S hidden L, over 989 TFLOP/s
     flops = 6 * n_params * tokens + \
         6 * tokens * seq * cfg.hidden_size * cfg.num_layers
-    mfu = flops / (step_ms / 1e3) / PEAK_OPS[torch.bfloat16]
-    log(f"[train-gpt2] losses {[round(x, 4) for x in losses]}")
-    log(f"[train-gpt2] step {step_ms:.1f} ms p50 over {steps} timed steps "
-        f"(all: {[round(t, 1) for t in times]}), "
-        f"{tokens / (step_ms / 1e3):.0f} tokens/s, MFU {100 * mfu:.1f}% "
-        f"({flops / 1e12:.2f} TFLOP a step), peak memory {peak_gb:.2f} GB")
-    fwd_ms, bwd_ms, opt_ms = np.median(np.asarray(parts), axis=0)
-    log(f"[train-gpt2] step parts p50 (CUDA events): forward + loss "
+    lane_line("train-gpt2", "eager", eager, warmup, steps, tokens, flops)
+    fwd_ms, bwd_ms, opt_ms = np.median(np.asarray(eager["parts"]), axis=0)
+    log(f"[train-gpt2] eager step parts p50 (CUDA events): forward + loss "
         f"{fwd_ms:.1f} ms, backward {bwd_ms:.1f} ms, AdamW + clear_grad "
         f"{opt_ms:.1f} ms")
-    log(f"[train-gpt2] launches {counts} (needed >= {need})")
+    log(f"[train-gpt2] eager launches {counts} (needed >= {need})")
     profile_train_step(model, opt, ids, labels, "train-gpt2-profile")
     del model, opt
     torch.cuda.empty_cache()
-    return counts
+    model, opt = make_gpt_trainer(cfg, dev, torch.bfloat16, seed=0, lr=1e-4)
+    kernels.reset_launch_counts()
+    comp = compiled_lane("train-gpt2", model, opt, ids, labels, dev, warmup,
+                         steps)
+    main_counts = kernels.launch_counts()
+    check_launches(main_counts, need)   # call 1 eager + 7 replays
+    lane_line("train-gpt2", "compiled", comp, warmup, steps, tokens, flops)
+    check_compiled_losses("train-gpt2", comp["losses"], losses)
+    log(f"[train-gpt2] compiled: first compiled call (capture + first "
+        f"replay) {comp['times'][1]:.1f} ms; losses equal to the eager "
+        f"lane's bit for bit")
+    check_replay_launches("train-gpt2", counts, n, comp["cs"])
+    profile_compiled(comp["cs"], ids, labels, "train-gpt2-profile")
+    del model, opt, comp
+    torch.cuda.empty_cache()
+    return main_counts
 
 
 def phase_gpt2_parity(dev, steps=3, lr=3e-4):
@@ -2300,8 +2678,12 @@ def main(argv=None):
     train_counts = None
     if "train" in phases:
         train_counts = run("train", phase_train, dev)
+    cpu_losses = None
     if "train-parity" in phases:
-        run("train-parity", phase_train_parity, dev)
+        cpu_losses = run("train-parity", phase_train_parity, dev)
+    if "train-compiled-parity" in phases:
+        run("train-compiled-parity", phase_train_compiled_parity, dev,
+            cpu_losses)
     gpt2_counts = ops_counts = None
     if "train-gpt2" in phases:
         gpt2_counts = run("train-gpt2", phase_train_gpt2, dev)
@@ -2312,7 +2694,8 @@ def main(argv=None):
     if timed and None not in (counts, lora_counts, train_counts, gpt2_counts,
                               ops_counts):
         # launches: the serving run's for its two kernels, the training
-        # run's for the six of the training path, the int8 + LoRA run's
+        # run's for the six of the training path (its compiled lane, the
+        # default: call 1 eager, then replays), the int8 + LoRA run's
         # and the fp8 run's for the quantized decode and the delta
         launches = dict(counts)
         launches.update({k: train_counts[k] for k in TRAIN_KERNELS

@@ -60,12 +60,19 @@ class GradScaler:
     when any gradient is not finite, and ``update`` grows the scale after
     ``incr_every_n_steps`` good steps or shrinks it after
     ``decr_every_n_nan_or_inf`` bad ones.  At scale 1.0 (bf16 training)
-    nothing is multiplied or checked."""
+    nothing is multiplied or checked, unless ``always_check_found_inf``
+    (then a non-finite step is still skipped).
+
+    This is the eager surface: ``unscale_`` reads the found-inf decision
+    back to the host, unless ``defer_found_inf`` keeps it on the device
+    (`_found_inf_tensor`).  The compiled train step keeps ``[scale, good,
+    bad]`` on the device instead and updates it with `scaler_update`;
+    its ``sync_scaler()`` writes the vector back here."""
 
     def __init__(self, enable=True, init_loss_scaling=2.0 ** 15,
                  incr_ratio=2.0, decr_ratio=0.5, incr_every_n_steps=2000,
                  decr_every_n_nan_or_inf=1, use_dynamic_loss_scaling=True,
-                 min_loss_scale=1.0):
+                 min_loss_scale=1.0, always_check_found_inf=False):
         self._enable = enable
         self._scale = float(init_loss_scaling) if enable else 1.0
         self._incr_ratio = incr_ratio
@@ -74,9 +81,12 @@ class GradScaler:
         self._decr_every = decr_every_n_nan_or_inf
         self._dynamic = use_dynamic_loss_scaling
         self._min_scale = max(float(min_loss_scale), 1.0)
+        self._always_check = bool(always_check_found_inf)
         self._good_steps = 0
         self._bad_steps = 0
         self._found_inf = False
+        self._found_inf_dev = None
+        self._found_inf_streak = 0
         self._unscaled = False
 
     def scale(self, loss):
@@ -85,12 +95,14 @@ class GradScaler:
         return loss * self._scale
 
     @torch.no_grad()
-    def unscale_(self, optimizer):
+    def unscale_(self, optimizer, defer_found_inf=False):
         """Divide every gradient by the scale (once per step) and record
-        whether any is not finite (one device reduction, one host read)."""
+        whether any is not finite: one device reduction and one host read,
+        or, with ``defer_found_inf``, none (`_found_inf_tensor`)."""
         if not self._enable or self._unscaled:
             return
         self._unscaled = True
+        self._found_inf_dev = None
         grads = [p.grad for p in optimizer._all_params()
                  if p.grad is not None]
         if self._scale != 1.0:
@@ -98,10 +110,22 @@ class GradScaler:
             for g in grads:
                 g.mul_(inv)
         found = False
-        if grads and self._scale != 1.0:
-            sums = torch.stack([g.float().sum() for g in grads])
-            found = not bool(torch.isfinite(sums).all())
+        if grads and (self._scale != 1.0 or self._always_check):
+            bad = found_inf(grads)
+            if defer_found_inf:
+                self._found_inf_dev = bad
+            else:
+                found = bool(bad)
         self._found_inf = found
+
+    def _found_inf_tensor(self):
+        """The deferred found-inf decision as an fp32 ``[1]`` tensor (0.0:
+        every gradient finite), ready to ride a gradient all-reduce."""
+        bad = self._found_inf_dev
+        self._found_inf_dev = None
+        if bad is None:
+            return torch.tensor([float(self._found_inf)])
+        return bad.reshape(1).float()
 
     def step(self, optimizer):
         if not self._enable:
@@ -114,7 +138,13 @@ class GradScaler:
         self._unscaled = False
 
     def update(self):
-        if not self._enable or not self._dynamic or self._scale == 1.0:
+        if not self._enable:
+            return
+        if self._found_inf:
+            self._found_inf_streak += 1
+        else:
+            self._found_inf_streak = 0
+        if not self._dynamic or self._scale == 1.0:
             return
         if self._found_inf:
             self._bad_steps += 1
@@ -130,5 +160,53 @@ class GradScaler:
                 self._scale *= self._incr_ratio
                 self._good_steps = 0
 
+    @property
+    def found_inf_streak(self):
+        """Consecutive steps skipped for non-finite gradients (reset by
+        the first healthy step)."""
+        return self._found_inf_streak
+
+    def is_enable(self):
+        return self._enable
+
+    def is_use_dynamic_loss_scaling(self):
+        return self._dynamic
+
     def get_loss_scaling(self):
         return self._scale
+
+    def state_dict(self):
+        return {"scale": self._scale, "good_steps": self._good_steps,
+                "bad_steps": self._bad_steps}
+
+    def load_state_dict(self, state):
+        self._scale = float(state["scale"])
+        self._good_steps = int(state["good_steps"])
+        self._bad_steps = int(state["bad_steps"])
+
+
+def found_inf(grads):
+    """0-dim bool on the gradients' device: any gradient not finite (one
+    fp32 sum a gradient, stacked: the eager scaler's reduction)."""
+    sums = torch.stack([g.float().sum() for g in grads])
+    return ~torch.isfinite(sums).all()
+
+
+def scaler_update(scaler, svec, found):
+    """`GradScaler.update` as device math (JAX train_step.py
+    ``_scaler_update``, op for op): ``svec`` the fp32 ``[scale, good, bad]``
+    vector, ``found`` a 0-dim bool; returns the new vector, the old one
+    when scaling is off or the scale is 1."""
+    scale, good, bad = svec[0], svec[1], svec[2]
+    active = (scale != 1.0) & bool(scaler._enable and scaler._dynamic)
+    bad_n = torch.where(found, bad + 1.0, torch.zeros_like(bad))
+    good_n = torch.where(found, torch.zeros_like(good), good + 1.0)
+    dec = found & (bad_n >= scaler._decr_every)
+    inc = ~found & (good_n >= scaler._incr_every)
+    scale_n = torch.where(
+        dec, torch.clamp_min(scale * scaler._decr_ratio, scaler._min_scale),
+        torch.where(inc, scale * scaler._incr_ratio, scale))
+    bad_n = torch.where(dec, torch.zeros_like(bad_n), bad_n)
+    good_n = torch.where(inc, torch.zeros_like(good_n), good_n)
+    out = torch.stack([scale_n, good_n, bad_n])
+    return torch.where(active, out, svec)

@@ -8,11 +8,15 @@ name for name onto a port model with no transpose::
     load_paddle_tpu_state(torch_model, np_state)
 
 An optimizer's state (``moment1.<i>``, ``moment2.<i>``, ``master.<i>``,
-``step_count``, ``step_tensor``) is indexed by the position of the
-parameter in the optimizer's list; `load_paddle_tpu_optimizer_state`
-carries it over when the port's optimizer lists the port model's
-parameters in the JAX optimizer's order (``model.parameters()`` on both
-sides: the port's modules register them in the JAX package's order).
+``step_count``, ``step_tensor``, and ``LR_Scheduler`` with a schedule) is
+indexed by the position of the parameter in the optimizer's list;
+`load_paddle_tpu_optimizer_state` carries it over when the port's
+optimizer lists the port model's parameters in the JAX optimizer's order
+(``model.parameters()`` on both sides: the port's modules register them in
+the JAX package's order).  The step counter lands in the optimizer's
+device tensor and the schedule's state in its `LRScheduler`;
+`load_paddle_tpu_scaler_state` adopts a ``GradScaler.state_dict()``.  A
+run resumed so continues as the JAX compiled step does.
 """
 from __future__ import annotations
 
@@ -66,7 +70,7 @@ def load_paddle_tpu_optimizer_state(optimizer, np_state):
     n = len(optimizer._all_params())
     names = set(optimizer._state)
     for key in np_state:
-        if key in ("step_count", "step_tensor"):
+        if key in ("step_count", "step_tensor", "LR_Scheduler"):
             continue
         name, _, idx = key.rpartition(".")
         if name not in names or not idx.isdigit() or int(idx) >= n:
@@ -75,3 +79,12 @@ def load_paddle_tpu_optimizer_state(optimizer, np_state):
                            f"{sorted(names)}, {n} parameters)")
     optimizer.set_state_dict(dict(np_state))
     return optimizer
+
+
+def load_paddle_tpu_scaler_state(scaler, state):
+    """Adopt a paddle_tpu ``GradScaler.state_dict()`` (``scale``,
+    ``good_steps``, ``bad_steps``; numbers or 0-dim arrays) into a port
+    `amp.GradScaler`."""
+    scaler.load_state_dict({k: np.asarray(state[k]).item()
+                            for k in ("scale", "good_steps", "bad_steps")})
+    return scaler

@@ -5,6 +5,13 @@
 //
 // Replaces: paddle_tpu/pallas/fused.py _adam_kernel / adam_update_pallas.
 //
+// Scalars on the device.  As the Pallas kernel reads scal_ref, the kernel
+// reads [lr * lr_scale, bc1, bc2] (fp32, bc = 1 - beta^t) from device
+// memory, and an optional device skip flag (one byte; nullptr: none): when
+// it is set, the kernel writes nothing.  So one launch serves every step of
+// a CUDA graph: the step counter, the schedule's lr and the loss scaler's
+// found-inf decision all live on the card (kernels/adam.py adam_scalars).
+//
 // Bound on the H100 (3.35 TB/s): bytes.  Each element reads and writes w,
 // m1 and m2 (24 B), reads g and, for a 16-bit parameter with a master,
 // writes p: 28 B for bf16, ~15 fp32 operations, far under the 67 TFLOP/s
@@ -31,9 +38,21 @@ namespace {
 enum Decay : int { kNoDecay = 0, kCoupled = 1, kDecoupled = 2 };
 
 struct AdamArgs {
-  float lr, bc1, bc2, b1, omb1, b2, omb2, eps, wd;  // omb = fp32(1 - beta)
+  float lr, bc1, bc2;   // read from the device by each thread (`scalars`)
+  float b1, omb1, b2, omb2, eps, wd;               // omb = fp32(1 - beta)
   int decay;
 };
+
+// The launch's device scalars into `a`; false when the skip flag is set.
+__device__ __forceinline__ bool scalars(AdamArgs& a,
+                                        const float* __restrict__ scal,
+                                        const uint8_t* __restrict__ skip) {
+  if (skip != nullptr && *skip) return false;
+  a.lr = scal[0];
+  a.bc1 = scal[1];
+  a.bc2 = scal[2];
+  return true;
+}
 
 template <typename T, int V>
 struct alignas(sizeof(T) * V) Pack {
@@ -55,11 +74,13 @@ __device__ __forceinline__ void adam_elem(float& w, float gf, float& m1,
 template <typename G, typename P, bool kHasP, int V>
 __global__ void adam_kernel(float* __restrict__ w, const G* __restrict__ g,
                             float* __restrict__ m1, float* __restrict__ m2,
-                            P* __restrict__ p, int64_t n, AdamArgs a) {
+                            P* __restrict__ p, int64_t n, AdamArgs a,
+                            const float* __restrict__ scal,
+                            const uint8_t* __restrict__ skip) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                     threadIdx.x;
   const int64_t base = i * V;
-  if (base >= n) return;
+  if (base >= n || !scalars(a, scal, skip)) return;
   if (base + V <= n) {
     Pack<float, V> wv = reinterpret_cast<const Pack<float, V>*>(w)[i];
     Pack<float, V> av = reinterpret_cast<const Pack<float, V>*>(m1)[i];
@@ -93,7 +114,8 @@ bool aligned(const void* ptr, size_t bytes) {
 
 template <typename G, typename P, bool kHasP>
 int launch(float* w, const void* g, float* m1, float* m2, void* p, int64_t n,
-           const AdamArgs& a, cudaStream_t stream) {
+           const AdamArgs& a, const float* scal, const uint8_t* skip,
+           cudaStream_t stream) {
   constexpr int V = 4;
   const bool vec = aligned(w, 16) && aligned(m1, 16) && aligned(m2, 16) &&
                    aligned(g, sizeof(G) * V) &&
@@ -103,22 +125,29 @@ int launch(float* w, const void* g, float* m1, float* m2, void* p, int64_t n,
   const unsigned blocks = static_cast<unsigned>((work + threads - 1) / threads);
   if (vec)
     adam_kernel<G, P, kHasP, V><<<blocks, threads, 0, stream>>>(
-        w, static_cast<const G*>(g), m1, m2, static_cast<P*>(p), n, a);
+        w, static_cast<const G*>(g), m1, m2, static_cast<P*>(p), n, a, scal,
+        skip);
   else
     adam_kernel<G, P, kHasP, 1><<<blocks, threads, 0, stream>>>(
-        w, static_cast<const G*>(g), m1, m2, static_cast<P*>(p), n, a);
+        w, static_cast<const G*>(g), m1, m2, static_cast<P*>(p), n, a, scal,
+        skip);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename G>
 int dispatch_p(float* w, const void* g, float* m1, float* m2, void* p,
-               int p_dtype, int64_t n, const AdamArgs& a, cudaStream_t st) {
-  if (p == nullptr) return launch<G, float, false>(w, g, m1, m2, p, n, a, st);
+               int p_dtype, int64_t n, const AdamArgs& a, const float* sc,
+               const uint8_t* sk, cudaStream_t st) {
+  if (p == nullptr)
+    return launch<G, float, false>(w, g, m1, m2, p, n, a, sc, sk, st);
   switch (p_dtype) {
     case ptt::kBF16:
-      return launch<G, __nv_bfloat16, true>(w, g, m1, m2, p, n, a, st);
-    case ptt::kF16: return launch<G, __half, true>(w, g, m1, m2, p, n, a, st);
-    case ptt::kF32: return launch<G, float, true>(w, g, m1, m2, p, n, a, st);
+      return launch<G, __nv_bfloat16, true>(w, g, m1, m2, p, n, a, sc, sk,
+                                            st);
+    case ptt::kF16:
+      return launch<G, __half, true>(w, g, m1, m2, p, n, a, sc, sk, st);
+    case ptt::kF32:
+      return launch<G, float, true>(w, g, m1, m2, p, n, a, sc, sk, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -126,28 +155,35 @@ int dispatch_p(float* w, const void* g, float* m1, float* m2, void* p,
 }  // namespace
 
 // w, m1, m2: fp32 [n], updated in place; g: [n] of g_dtype; p: [n] of
-// p_dtype written with w's new value rounded, or null.  decay: 0 none, 1
-// L2-coupled (Adam), 2 decoupled (AdamW).  omb1/omb2 are fp32(1 - beta),
-// computed by the caller as the JAX lane computes them.
+// p_dtype written with w's new value rounded, or null.  scal: fp32 [3] on
+// the device, [lr * lr_scale, 1 - b1^t, 1 - b2^t]; skip: one byte on the
+// device or null, nonzero to write nothing.  decay: 0 none, 1 L2-coupled
+// (Adam), 2 decoupled (AdamW).  omb1/omb2 are fp32(1 - beta), computed by
+// the caller as the JAX lane computes them.
 extern "C" int ptt_adam_update(void* w, const void* g, void* m1, void* m2,
-                               void* p, long long n, float lr, float bc1,
-                               float bc2, float b1, float omb1, float b2,
-                               float omb2, float eps, float wd, int decay,
-                               int g_dtype, int p_dtype, void* stream) {
-  if (n <= 0 || decay < kNoDecay || decay > kDecoupled)
+                               void* p, long long n, const void* scal,
+                               const void* skip, float b1, float omb1,
+                               float b2, float omb2, float eps, float wd,
+                               int decay, int g_dtype, int p_dtype,
+                               void* stream) {
+  if (n <= 0 || scal == nullptr || decay < kNoDecay || decay > kDecoupled)
     return static_cast<int>(cudaErrorInvalidValue);
-  const AdamArgs a{lr, bc1, bc2, b1, omb1, b2, omb2, eps, wd, decay};
+  const AdamArgs a{0.f, 0.f, 0.f, b1, omb1, b2, omb2, eps, wd, decay};
+  const float* sc = static_cast<const float*>(scal);
+  const uint8_t* sk = static_cast<const uint8_t*>(skip);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* wf = static_cast<float*>(w);
   float* m1f = static_cast<float*>(m1);
   float* m2f = static_cast<float*>(m2);
   switch (g_dtype) {
     case ptt::kF32:
-      return dispatch_p<float>(wf, g, m1f, m2f, p, p_dtype, n, a, st);
+      return dispatch_p<float>(wf, g, m1f, m2f, p, p_dtype, n, a, sc, sk, st);
     case ptt::kBF16:
-      return dispatch_p<__nv_bfloat16>(wf, g, m1f, m2f, p, p_dtype, n, a, st);
+      return dispatch_p<__nv_bfloat16>(wf, g, m1f, m2f, p, p_dtype, n, a, sc,
+                                       sk, st);
     case ptt::kF16:
-      return dispatch_p<__half>(wf, g, m1f, m2f, p, p_dtype, n, a, st);
+      return dispatch_p<__half>(wf, g, m1f, m2f, p, p_dtype, n, a, sc, sk,
+                                st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -96,6 +96,7 @@ flash_bwd_dkv_mma(const T* __restrict__ q, const T* __restrict__ k,
   const int g = lane >> 2, t4 = lane & 3;
   const bool masked = FEAT && f.masked();
   const bool drop = FEAT && f.dropout > 0.f;
+  if (drop) load_seed(f);
 
   load_tile<T, KB, D>(k_s, k + b * ks.b + kvh * ks.h + k0 * ks.s, ks.s,
                       S - k0, tid);
@@ -274,6 +275,7 @@ flash_bwd_dq_mma(const T* __restrict__ q, const T* __restrict__ k,
   const int g = lane >> 2, t4 = lane & 3;
   const bool masked = FEAT && f.masked();
   const bool drop = FEAT && f.dropout > 0.f;
+  if (drop) load_seed(f);
   const T* kg = k + b * ks.b + kvh * ks.h;
   const T* vg = v + b * vs.b + kvh * vs.h;
 
@@ -499,6 +501,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
   const float dl_b = rb < S ? db[rb] : 0.f;
   const bool masked = FEAT && f.masked();
   const bool drop = FEAT && f.dropout > 0.f;
+  if (drop) load_seed(f);
   const int* seg = FEAT && f.seg != nullptr
                        ? f.seg + static_cast<int64_t>(b) * S : nullptr;
   const int seg_a = seg != nullptr && ra < S ? seg[ra] : 0;
@@ -750,6 +753,7 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q,
   const float scale_l2 = scale * kLog2e;
   const bool masked = FEAT && f.masked();
   const bool drop = FEAT && f.dropout > 0.f;
+  if (drop) load_seed(f);
   const int* seg = FEAT && f.seg != nullptr
                        ? f.seg + static_cast<int64_t>(b) * S : nullptr;
   const int seg_a = seg != nullptr && key_a < S ? seg[key_a] : 0;
@@ -994,6 +998,7 @@ flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int key = k0 + r;
   const bool masked = FEAT && f.masked();
   const bool drop = FEAT && f.dropout > 0.f;
+  if (drop) load_seed(f);
   load_rows_f32(k_s, k + b * ks.b + kvh * ks.h, ks.s, k0, S, D, LD, tid);
   load_rows_f32(v_s, v + b * vs.b + kvh * vs.h, vs.s, k0, S, D, LD, tid);
 
@@ -1087,6 +1092,7 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int row = q0 + r;
   const bool masked = FEAT && f.masked();
   const bool drop = FEAT && f.dropout > 0.f;
+  if (drop) load_seed(f);
   load_rows_f32(q_s, q + b * qs.b + h * qs.h, qs.s, q0, S, D, LD, tid);
   load_rows_f32(do_s, dout + b * dos.b + h * dos.h, dos.s, q0, S, D, LD,
                 tid);
@@ -1297,7 +1303,8 @@ int run_d(bool dkv, int d, int dtype, const Args& a) {
 
 int run(bool dkv, int d, int dtype, const Args& a) {
   if (a.b <= 0 || a.h <= 0 || a.h_kv <= 0 || a.h % a.h_kv != 0 ||
-      a.s <= 0 || !(a.f.dropout >= 0.f && a.f.dropout < 1.f))
+      a.s <= 0 || !(a.f.dropout >= 0.f && a.f.dropout < 1.f) ||
+      (a.f.dropout > 0.f && a.f.seed_ptr == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   return a.f.any() ? run_d<true>(dkv, d, dtype, a)
                    : run_d<false>(dkv, d, dtype, a);
@@ -1347,7 +1354,7 @@ extern "C" int ptt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  int causal, int dtype, const void* mask,
                                  const long long* mask_strides,
                                  const void* seg, float dropout,
-                                 float keep_div, unsigned int seed,
+                                 float keep_div, const void* seed,
                                  void* stream) {
   Args a{};
   a.q = q; a.k = k; a.v = v; a.dout = dout;
@@ -1371,7 +1378,7 @@ extern "C" int ptt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 int causal, int dtype, const void* mask,
                                 const long long* mask_strides,
                                 const void* seg, float dropout,
-                                float keep_div, unsigned int seed,
+                                float keep_div, const void* seed,
                                 void* stream) {
   Args a{};
   a.q = q; a.k = k; a.v = v; a.dout = dout;

@@ -99,6 +99,7 @@ flash_fwd_mma(const T* __restrict__ q, const T* __restrict__ k,
   const int g = lane >> 2, t4 = lane & 3;
   const bool masked = FEAT && f.masked();
   const bool drop = FEAT && f.dropout > 0.f;
+  if (drop) load_seed(f);
 
   const T* qg = q + b * qs.b + h * qs.h + q0 * qs.s;
   const T* kg = k + b * ks.b + kvh * ks.h;
@@ -302,6 +303,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int row = q0 + r;
   const bool masked = FEAT && f.masked();
   const bool drop = FEAT && f.dropout > 0.f;
+  if (drop) load_seed(f);
 
   const float* qg = q + b * qs.b + h * qs.h;
   const float* kg = k + b * ks.b + kvh * ks.h;
@@ -475,6 +477,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
   const float scale_l2 = scale * kLog2e;
   const bool masked = FEAT && f.masked();
   const bool drop = FEAT && f.dropout > 0.f;
+  if (drop) load_seed(f);
   const int* seg = FEAT && f.seg != nullptr
                        ? f.seg + static_cast<int64_t>(b) * S : nullptr;
   const int seg_a = seg != nullptr && ra < S ? seg[ra] : 0;
@@ -833,16 +836,20 @@ __global__ void dropout_rescale_kernel(const float* __restrict__ x,
 // mask_strides[0..2] (0 on a broadcast dim; keys contiguous) or null; for
 // 16-bit D 64 and 128 its non-broadcast strides positive multiples of 4
 // elements and its base 16-byte aligned; `seg` int32 [B, S] or null;
-// `dropout` in [0, 1) with `keep_div` = (float)(1 - dropout) and `seed`.
+// `dropout` in [0, 1) with `keep_div` = (float)(1 - dropout) and `seed`,
+// with dropout a pointer to the seed in device memory (the low 32 bits of
+// an int32 or int64; every kernel reads it when it runs, so a captured
+// launch takes the value the caller wrote before the replay).
 extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
                              void* out, void* lse, int b, int h, int h_kv,
                              int s, int d, const long long* strides,
                              float scale, int causal, int dtype,
                              const void* mask, const long long* mask_strides,
                              const void* seg, float dropout, float keep_div,
-                             unsigned int seed, void* stream) {
+                             const void* seed, void* stream) {
   if (b <= 0 || h <= 0 || h_kv <= 0 || h % h_kv != 0 || s <= 0 ||
-      !(dropout >= 0.f && dropout < 1.f))
+      !(dropout >= 0.f && dropout < 1.f) ||
+      (dropout > 0.f && seed == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   Call a{};
   a.q = q; a.k = k; a.v = v; a.out = out;
@@ -867,7 +874,7 @@ extern "C" int ptt_flash_dropout_rescale(const void* x, void* out,
   if (n <= 0 || !(dropout >= 0.f && dropout < 1.f))
     return static_cast<int>(cudaErrorInvalidValue);
   const Features f =
-      make_features(nullptr, nullptr, nullptr, dropout, keep_div, 0);
+      make_features(nullptr, nullptr, nullptr, dropout, keep_div, nullptr);
   const long long blocks = (n + 255) / 256;
   dropout_rescale_kernel<<<static_cast<unsigned>(blocks < 4096 ? blocks
                                                                : 4096),

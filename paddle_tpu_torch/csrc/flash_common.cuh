@@ -175,7 +175,11 @@ struct Features {
   int64_t mask_b, mask_h, mask_q;
   const int* seg;      // int32 segment ids [B, S], contiguous; nullptr: none
   float dropout;       // the drop probability; 0: none
-  uint32_t seed;       // the call's dropout seed
+  // the call's dropout seed: the low 32 bits of an int32 or int64 in
+  // device memory (a CUDA graph replays the launch, and the caller
+  // rewrites the value between replays), read by `load_seed` into `seed`
+  const uint32_t* seed_ptr;
+  uint32_t seed;
   uint32_t keep_min;   // ceil(dropout 2^24): the least kept (hash >> 8)
   double keep_rcp;     // 1 / (double)keep_div, rounded once: the
                        // survivors' factor (keep_div = (float)(1 - p))
@@ -189,7 +193,7 @@ struct Features {
 inline Features make_features(const void* mask,
                               const long long* mask_strides,
                               const void* seg, float dropout,
-                              float keep_div, unsigned int seed) {
+                              float keep_div, const void* seed) {
   Features f{};
   f.mask = static_cast<const float*>(mask);
   if (mask != nullptr) {
@@ -199,11 +203,18 @@ inline Features make_features(const void* mask,
   }
   f.seg = static_cast<const int*>(seg);
   f.dropout = dropout;
-  f.seed = seed;
+  f.seed_ptr = static_cast<const uint32_t*>(seed);
+  f.seed = 0;
   f.keep_min = static_cast<uint32_t>(
       std::ceil(static_cast<double>(dropout) * 16777216.0));
   f.keep_rcp = 1.0 / static_cast<double>(keep_div);
   return f;
+}
+
+// The seed of a call with dropout, read once by each thread at the start
+// of a kernel body (little-endian: the low word of an int64 comes first).
+__device__ __forceinline__ void load_seed(Features& f) {
+  f.seed = *f.seed_ptr;
 }
 
 // The Pallas kernels' counter hash (_dropout_uniform), bit for bit, over

@@ -36,9 +36,15 @@ versions (``_apply_masks`` and ``_dropout_uniform``):
 - ``dropout`` with a uint32 ``seed``: the keep-mask of `dropout_uniform`,
   keyed by (seed, ``b * H + q head``, absolute q and key positions), the
   Pallas hash bit for bit; ``l`` sums the undropped p, the survivors are
-  divided by ``(float)(1 - p)``.  The public op draws the seed from an
-  explicit CPU ``torch.Generator`` (no device sync, the same seed on the
-  CPU and the card); the autograd function keeps it for the backward.
+  divided by ``(float)(1 - p)``.  The kernels read the seed from device
+  memory (a 0-dim int64 tensor, its low 32 bits), so a captured
+  launch takes whatever value the caller wrote before the replay; the
+  wrappers also take a Python int, which they write into such a tensor.
+  The public op draws the seed from an explicit CPU ``torch.Generator``
+  (no device sync, the same seed on the CPU and the card) and writes it
+  with `graph_state.device_seed`, which inside a captured train
+  step hands out a persistent slot refilled with the same draw before
+  every replay; the autograd function keeps the seed for the backward.
 
 Like the Pallas kernels these give no mask gradient: the public op
 refuses a mask that requires grad.  Each feature variant counts its own
@@ -56,6 +62,7 @@ from types import SimpleNamespace
 import torch
 
 from . import _build, dtype_code
+from . import graph_state
 
 NEG_INF = -1e30
 SUPPORTED_HEAD_DIMS = (32, 64, 128)
@@ -326,17 +333,32 @@ def _strides(tensors, head_major):
 
 
 #: the C entry points' trailing feature arguments: mask, its strides,
-#: segment ids, dropout, keep divisor, seed
+#: segment ids, dropout, keep divisor, the seed's device address
 _FEATURE_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                 ctypes.c_float, ctypes.c_float, ctypes.c_uint32]
+                 ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+
+
+def seed_tensor(seed, device):
+    """The seed as the kernels read it: a 0-dim int64 tensor on ``device``
+    (returned as it is), or a Python int written into a new one (a fill
+    in stream order)."""
+    if torch.is_tensor(seed):
+        if seed.dim() != 0 or seed.dtype != torch.int64 \
+                or seed.device != device:
+            raise ValueError(f"seed must be a 0-dim int64 on {device} "
+                             f"({seed.dtype} {tuple(seed.shape)} "
+                             f"{seed.device})")
+        return seed
+    return torch.full((), int(seed) & _M32, dtype=torch.int64, device=device)
 
 
 def _features(name, q, b, h, s, mask, segment_ids, dropout, seed):
-    """Checks the features of a CUDA call → (mask, segment_ids, the C
-    arguments); the mask keeps its shape, read with stride 0 on a
-    broadcast batch or head dim."""
+    """Checks the features of a CUDA call → (mask, segment_ids, the seed
+    tensor or None, the C arguments); the mask keeps its shape, read with
+    stride 0 on a broadcast batch or head dim."""
     if not 0.0 <= dropout < 1.0:
         raise ValueError(f"{name}: dropout {dropout} outside [0, 1)")
+    seed_t = seed_tensor(seed, q.device) if dropout > 0.0 else None
     mask_ptr = seg_ptr = None
     mask_st = (ctypes.c_longlong * 3)(0, 0, 0)
     if mask is not None:
@@ -361,8 +383,8 @@ def _features(name, q, b, h, s, mask, segment_ids, dropout, seed):
         segment_ids = segment_ids.contiguous()
         seg_ptr = _build.ptr(segment_ids)
     args = [mask_ptr, mask_st, seg_ptr, float(dropout), float(1.0 - dropout),
-            int(seed) & _M32]
-    return mask, segment_ids, args
+            None if seed_t is None else _build.ptr(seed_t)]
+    return mask, segment_ids, seed_t, args
 
 
 def _count(fn, variant, mask, segment_ids, dropout):
@@ -386,7 +408,8 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None, head_major=False,
                          f"{q.device}")
     b, h, h_kv, s, d = _geometry(q, k, v, head_major)
     _check_cuda_call("flash_attention_fwd", q, k, v, d)
-    mask, segment_ids, feats = _features("flash_attention_fwd", q, b, h, s,
+    mask, segment_ids, _seed, feats = _features("flash_attention_fwd", q, b,
+                                                h, s,
                                          _tma_mask(mask), segment_ids,
                                          dropout, seed)
     q, k, v = _prep(q), _prep(k), _prep(v)
@@ -424,7 +447,7 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, causal, scale, head_major,
         return flash_bwd_dkv_ref(q, k, v, dout, lse, delta, causal, scale,
                                  head_major, mask, segment_ids, dropout, seed)
     b, h, h_kv, s, d = _geometry(q, k, v, head_major)
-    mask, segment_ids, feats = _features("flash_bwd_dkv", q, b, h, s,
+    mask, segment_ids, _seed, feats = _features("flash_bwd_dkv", q, b, h, s,
                                          _tma_mask(mask), segment_ids,
                                          dropout, seed)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -455,7 +478,7 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, causal, scale, head_major,
         return flash_bwd_dq_ref(q, k, v, dout, lse, delta, causal, scale,
                                 head_major, mask, segment_ids, dropout, seed)
     b, h, h_kv, s, d = _geometry(q, k, v, head_major)
-    mask, segment_ids, feats = _features("flash_bwd_dq", q, b, h, s,
+    mask, segment_ids, _seed, feats = _features("flash_bwd_dq", q, b, h, s,
                                          _tma_mask(mask), segment_ids,
                                          dropout, seed)
     dq = torch.empty_like(q)
@@ -571,6 +594,8 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal=False, scale=None,
     if not q.numel():
         return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = flash_bwd_delta(out, dout, head_major)
+    if dropout > 0.0:                    # one seed tensor for both kernels
+        seed = seed_tensor(seed, q.device)
     feats = (_tma_mask(mask), segment_ids, dropout, seed)
     dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, causal, scale,
                            head_major, *feats)
@@ -632,7 +657,8 @@ def flash_attention(query, key, value, attn_mask=None, dropout=0.0,
         raise NotImplementedError(_MASK_GRAD)
     mask = additive_mask(attn_mask)
     seg = None if segment_ids is None else segment_ids.to(torch.int32)
-    seed = draw_seed(generator) if dropout > 0.0 else 0
+    seed = graph_state.device_seed(lambda: draw_seed(generator),
+                                  query.device) if dropout > 0.0 else 0
     d = query.shape[-1]
     sc = _scale(scale, d)
     if torch.is_grad_enabled() and any(

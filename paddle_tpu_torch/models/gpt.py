@@ -9,7 +9,13 @@ with in-kernel attention dropout (``attn_dropout``), residual and
 embedding dropout (``dropout``), and ``labels=`` giving ``(logits,
 loss)``.  The model owns its random streams, both seeded from the
 constructor's ``seed``: a CPU generator for the flash kernels' dropout
-seeds and one on its device for the `Dropout` layers.
+seeds and one on its device for the `Dropout` layers.  Both are
+capturable: a seed reaches the kernels through device memory
+(`kernels.graph_state.device_seed`: under a captured train step a
+persistent slot per attention call, refilled with this generator's next
+draw before every replay, in the eager order), and the device generator
+is registered with the step's graph, so replays draw what eager steps
+draw.
 """
 from __future__ import annotations
 

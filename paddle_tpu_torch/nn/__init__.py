@@ -1,6 +1,10 @@
-"""Layers and functional ops of the port's serving and training paths."""
+"""Layers, functional ops and gradient clips of the port's serving and
+training paths."""
 from . import functional
+from .clip import (ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue,
+                   clip_grad_norm_)
 from .layers import Dropout, Embedding, LayerNorm, Linear, RMSNorm
 
-__all__ = ["functional", "Dropout", "Embedding", "LayerNorm", "Linear",
-           "RMSNorm"]
+__all__ = ["functional", "ClipGradByGlobalNorm", "ClipGradByNorm",
+           "ClipGradByValue", "clip_grad_norm_", "Dropout", "Embedding",
+           "LayerNorm", "Linear", "RMSNorm"]

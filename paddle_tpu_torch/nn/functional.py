@@ -7,6 +7,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels import flash_attention as _fa
+from ..kernels import graph_state
 from ..kernels import rms_norm as _rms
 
 
@@ -71,7 +72,9 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
     """``upscale_in_train`` dropout: each element kept with probability
     ``1 - p`` (a uniform draw from ``generator``, a ``torch.Generator`` on
     x's device) and divided by ``1 - p``; the identity when not training
-    or ``p == 0``."""
+    or ``p == 0``.  Capturable: a captured train step registers the
+    generator with its graph (`kernels.graph_state.note_generator`), so a
+    replay draws the mask an eager step would draw."""
     if not training or p == 0.0:
         return x
     if mode != "upscale_in_train" or axis is not None:
@@ -79,6 +82,7 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
             f"dropout: mode={mode!r}, axis={axis!r}: only upscale_in_train "
             "over every element is ported")
     gen = default_generator(x.device) if generator is None else generator
+    graph_state.note_generator(gen)
     keep = torch.rand(x.shape, device=x.device, generator=gen) < 1.0 - p
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype,
                                                         device=x.device))

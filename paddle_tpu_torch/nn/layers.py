@@ -106,7 +106,8 @@ class LayerNorm(nn.Module):
 class Dropout(nn.Module):
     """``upscale_in_train`` dropout while training, the identity in
     ``eval()``; the mask is drawn from ``generator`` (a ``torch.Generator``
-    on the input's device; None: the package's default for the device)."""
+    on the input's device; None: the package's default for the device).
+    Capturable in a CUDA graph (`functional.dropout`)."""
 
     def __init__(self, p=0.5, generator=None):
         super().__init__()

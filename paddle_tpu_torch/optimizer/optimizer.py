@@ -4,24 +4,43 @@
 State mirrors the JAX package: per parameter ``moment1``/``moment2`` (fp32)
 and, for bf16/fp16 parameters under ``multi_precision``, an fp32 ``master``
 copy that the update runs on; the parameter gets the master rounded to its
-own dtype.  The update of each parameter is one call of
-`kernels.adam.adam_update`: on the card the fused Adam kernel
-(``csrc/adam.cu``, the port of the Pallas ``adam_update_pallas`` that the
-JAX package takes by default), on the CPU its plain version; both are the
-JAX package's fp32 op sequence, bitwise.  Moments and masters are updated
-in place (JAX rebinds new arrays).
+own dtype; and ``_step_tensor``, the fp32 count of applied updates, a 0-dim
+tensor on the parameters' device (saved as ``step_tensor``).  The learning
+rate is a float or an `lr.LRScheduler` (``get_lr`` reads its ``last_lr``).
+
+One update entry serves both lanes: `Optimizer._apply_update` takes the
+learning rate and the step counter as device scalars and an optional
+device skip flag.  The eager `step` writes the rate into the optimizer's
+device scalar, counts the step on the device and calls it; the compiled
+train step (`framework.train_step`) calls it inside its captured body.
+Each parameter's update is one call of `kernels.adam.adam_update`: on the
+card the fused Adam kernel (``csrc/adam.cu``, the port of the Pallas
+``adam_update_pallas`` that the JAX package takes by default), on the CPU
+its plain version; both are the JAX package's fp32 op sequence, bitwise.
+Moments, masters and the step counter are updated in place (JAX rebinds
+new arrays), so their addresses hold across steps and a captured graph
+keeps reading them.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..kernels.adam import adam_update
+from ..kernels.adam import adam_scalars, adam_update
+from .lr import LRScheduler
+
+
+def lr_scale(p):
+    """A parameter's learning-rate multiplier: its ``optimize_attr
+    ["learning_rate"]`` as in the JAX package (torch parameters carry an
+    ``optimize_attr`` only if the caller set one), else 1."""
+    return float(getattr(p, "optimize_attr", {}).get("learning_rate", 1.0))
 
 
 class Optimizer:
     """Base class: ``step()``, ``clear_grad()``, ``state_dict()`` /
-    ``set_state_dict()``; subclasses name their state and update one
+    ``set_state_dict()``, ``get_lr()`` / ``set_lr()`` /
+    ``set_lr_scheduler()``; subclasses name their state and update one
     parameter in `_update`."""
 
     def __init__(self, learning_rate=0.001, parameters=None,
@@ -34,12 +53,33 @@ class Optimizer:
         self._use_master_weights = multi_precision
         self._weight_decay = weight_decay          # a float or None
         self._state = {}
-        self._step_count = 0     # step() calls
-        self._step_t = 0.0       # updates applied (bias correction)
+        self._step_count = 0         # step() calls
+        self._step_tensor = None     # device fp32: updates applied
+        self._lr_tensor = None       # device fp32: the rate of this step
 
+    # ---------------- lr ----------------
     def get_lr(self):
+        if isinstance(self._learning_rate, LRScheduler):
+            return self._learning_rate.last_lr
         return float(self._learning_rate)
 
+    def set_lr(self, value):
+        self._learning_rate = float(value)
+
+    def set_lr_scheduler(self, scheduler):
+        self._learning_rate = scheduler
+
+    def _device(self):
+        return self._parameter_list[0].device if self._parameter_list \
+            else torch.device("cpu")
+
+    def _write_lr(self):
+        """``get_lr()`` into the device scalar the update reads: a fill in
+        stream order (no host buffer a queued kernel could still read)."""
+        self._lr_tensor.fill_(self.get_lr())
+        return self._lr_tensor
+
+    # ---------------- state ----------------
     def _all_params(self):
         return self._parameter_list
 
@@ -52,6 +92,12 @@ class Optimizer:
         return []
 
     def _ensure_state(self):
+        if self._step_tensor is None:
+            dev = self._device()
+            self._step_tensor = torch.zeros((), dtype=torch.float32,
+                                            device=dev)
+            self._lr_tensor = torch.zeros((), dtype=torch.float32,
+                                          device=dev)
         if self._state:
             return
         with torch.no_grad():
@@ -69,8 +115,11 @@ class Optimizer:
             return bool(fn(getattr(p, "name", "")))
         return True
 
+    # ---------------- update ----------------
     @torch.no_grad()
     def step(self):
+        """The eager step: clip, count the update on the device, write the
+        rate, `_apply_update`."""
         self._ensure_state()
         self._step_count += 1
         params_grads = [(p, p.grad) for p in self._parameter_list
@@ -79,17 +128,33 @@ class Optimizer:
             return
         if self._grad_clip is not None:
             params_grads = self._grad_clip(params_grads)
-        grads = {id(p): g for p, g in params_grads}
-        self._step_t += 1.0
-        lr = self.get_lr()
+        self._step_tensor.add_(1.0)
+        self._apply_update(params_grads, self._write_lr(), self._step_tensor)
+
+    @torch.no_grad()
+    def _apply_update(self, params_grads, lr, step, skip=None):
+        """Update every ``(param, grad)`` in place with the device scalars
+        ``lr`` and ``step`` (the counter after this update, fp32 0-dim);
+        with ``skip`` (a 0-dim bool on the device) set, nothing changes.
+        Returns nothing and reads nothing back."""
+        self._ensure_state()
+        grads = {id(p): g for p, g in params_grads if g is not None}
+        scalars = {}
         for i, p in enumerate(self._parameter_list):
             g = grads.get(id(p))
             if g is None:
                 continue
+            s = lr_scale(p)
+            if s not in scalars:
+                scalars[s] = self._scalars(lr, step, s)
             state = {name: vals[i] for name, vals in self._state.items()}
-            self._update(p, g, state, lr, self._wd_applies(p))
+            self._update(p, g, state, scalars[s], self._wd_applies(p), skip)
 
-    def _update(self, p, g, state, lr, use_wd):
+    def _scalars(self, lr, step, scale):
+        """The device scalars `_update` takes for one ``lr_scale``."""
+        raise NotImplementedError
+
+    def _update(self, p, g, state, scal, use_wd, skip=None):
         raise NotImplementedError
 
     def clear_grad(self, set_to_zero=True):
@@ -103,27 +168,35 @@ class Optimizer:
             else:
                 p.grad = None
 
+    # ---------------- checkpoint ----------------
     def state_dict(self):
-        """``{"step_count": int, "step_tensor": float, "<name>.<i>":
-        tensor}``: the JAX package's keys, ``i`` the parameter's index."""
+        """``{"step_count": int, "step_tensor": 0-dim tensor, "<name>.<i>":
+        tensor, "LR_Scheduler": dict}``: the JAX package's keys, ``i`` the
+        parameter's index, the scheduler's state when there is one."""
         self._ensure_state()
-        sd = {"step_count": self._step_count, "step_tensor": self._step_t}
+        sd = {"step_count": self._step_count,
+              "step_tensor": self._step_tensor.clone()}
         for name, vals in self._state.items():
             for i, v in enumerate(vals):
                 if v is not None:
                     sd[f"{name}.{i}"] = v
+        if isinstance(self._learning_rate, LRScheduler):
+            sd["LR_Scheduler"] = self._learning_rate.state_dict()
         return sd
 
     @torch.no_grad()
     def set_state_dict(self, state):
         """Adopt a state dict of this class or of the JAX package (values
-        may be tensors, numpy arrays or the JAX package's Tensors taken to
-        numpy); copied onto each parameter's device."""
+        may be tensors, numpy arrays or Python numbers).  Values are copied
+        into the existing tensors, whose addresses a captured step reads;
+        a state slot that does not exist yet is made on its parameter's
+        device."""
         self._ensure_state()
         self._step_count = int(state.get("step_count", 0))
         step_t = state.get("step_tensor", self._step_count)
-        self._step_t = float(np.asarray(
-            step_t.cpu() if torch.is_tensor(step_t) else step_t))
+        self._step_tensor.copy_(torch.from_numpy(
+            np.array(step_t.cpu() if torch.is_tensor(step_t) else step_t,
+                     dtype=np.float32)))
         for name, vals in self._state.items():
             for i, p in enumerate(self._parameter_list):
                 key = f"{name}.{i}"
@@ -135,8 +208,14 @@ class Optimizer:
                 if tuple(t.shape) != tuple(p.shape):
                     raise ValueError(f"{key}: shape {tuple(t.shape)} != "
                                      f"parameter {tuple(p.shape)}")
-                vals[i] = t.to(device=p.device, dtype=torch.float32,
-                               copy=True)
+                if vals[i] is None:
+                    vals[i] = t.to(device=p.device, dtype=torch.float32,
+                                   copy=True)
+                else:
+                    vals[i].copy_(t)
+        if "LR_Scheduler" in state and isinstance(self._learning_rate,
+                                                  LRScheduler):
+            self._learning_rate.set_state_dict(state["LR_Scheduler"])
 
 
 class Adam(Optimizer):
@@ -161,18 +240,13 @@ class Adam(Optimizer):
                                       if self._master_weight_needed(p)
                                       else None))]
 
-    def _bias_corrections(self):
-        """``1 - beta ** step`` in fp32, as the JAX update computes them
-        from its fp32 step counter."""
-        t = np.float32(self._step_t)
-        return (float(np.float32(1.0) - np.float32(self._beta1) ** t),
-                float(np.float32(1.0) - np.float32(self._beta2) ** t))
+    def _scalars(self, lr, step, scale):
+        return adam_scalars(lr, step, self._beta1, self._beta2, scale)
 
-    def _update(self, p, g, state, lr, use_wd):
+    def _update(self, p, g, state, scal, use_wd, skip=None):
         """One parameter: the JAX package's update (optimizer.py
         ``Adam._fused_update``) through `adam_update`, on the fp32 master
         when there is one."""
-        bc1, bc2 = self._bias_corrections()
         mw = state["master"]
         if mw is not None:
             w, out = mw, p
@@ -180,10 +254,10 @@ class Adam(Optimizer):
             w, out = p, None
         else:                        # a 16-bit parameter without a master
             w, out = p.detach().float(), p
-        adam_update(w, g, state["moment1"], state["moment2"], out, lr, bc1,
-                    bc2, b1=self._beta1, b2=self._beta2, eps=self._epsilon,
+        adam_update(w, g, state["moment1"], state["moment2"], out, scal,
+                    b1=self._beta1, b2=self._beta2, eps=self._epsilon,
                     wd=float(self._weight_decay) if use_wd else 0.0,
-                    decoupled=self._decoupled)
+                    decoupled=self._decoupled, skip=skip)
 
 
 class AdamW(Adam):

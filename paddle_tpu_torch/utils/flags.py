@@ -16,6 +16,10 @@ defaults:
   own.  Either way a seeded request's draws come from its key stream
   ``fold_in(PRNGKey(seed), n_generated)``, so the flag changes no token
   (the JAX engine's off state draws seeded rows from its global RNG).
+- ``FLAGS_compiled_train_step`` (True): `framework.train_step.
+  CompiledTrainStep` runs each training step after the first as one
+  captured program (one CUDA graph replay on the card).  Off: every step
+  runs the eager step.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ from typing import Any
 _FLAGS: dict[str, Any] = {
     "FLAGS_compiled_tick": True,
     "FLAGS_serving_fused_sampling": True,
+    "FLAGS_compiled_train_step": True,
 }
 
 

@@ -428,9 +428,10 @@ def test_flag_off_builds_no_tick(pair, flags):
 
 
 def test_flags_registry_and_environment(monkeypatch, flags):
-    """The port declares the two flags it reads with the JAX registry's
-    defaults, reads ``FLAGS_*`` overrides from the environment at import,
-    and coerces set_flags values as the JAX registry does."""
+    """The port declares the flags it reads (the tick's two and the
+    compiled train step's) with the JAX registry's defaults, reads
+    ``FLAGS_*`` overrides from the environment at import, and coerces
+    set_flags values as the JAX registry does."""
     import importlib
     monkeypatch.setenv("FLAGS_compiled_tick", "0")
     try:
@@ -440,9 +441,10 @@ def test_flags_registry_and_environment(monkeypatch, flags):
     finally:
         monkeypatch.delenv("FLAGS_compiled_tick")
         importlib.reload(tflags)
-    assert tflags.get_flags() == {k: True for k in TICK_FLAGS}
-    jflags.set_flags({k: True for k in TICK_FLAGS})
-    assert tflags.get_flags() == jflags.get_flags(list(TICK_FLAGS))
+    declared = TICK_FLAGS + ("FLAGS_compiled_train_step",)
+    assert tflags.get_flags() == {k: True for k in declared}
+    jflags.set_flags({k: True for k in declared})
+    assert tflags.get_flags() == jflags.get_flags(list(declared))
     for value in ("yes", 0, "false", 1):
         tflags.set_flags({"FLAGS_serving_fused_sampling": value})
         jflags.set_flags({"FLAGS_serving_fused_sampling": value})

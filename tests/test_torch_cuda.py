@@ -9,8 +9,9 @@ import numpy as np
 import pytest
 import torch
 
-from paddle_tpu_torch import kernels
+from paddle_tpu_torch import amp, kernels
 from paddle_tpu_torch import quantization as Q
+from paddle_tpu_torch.framework import CompiledTrainStep
 from paddle_tpu_torch.incubate.nn import functional as IF
 from paddle_tpu_torch.kernels import adam
 from paddle_tpu_torch.kernels import flash_attention as fa
@@ -18,9 +19,13 @@ from paddle_tpu_torch.kernels import lora as kl
 from paddle_tpu_torch.kernels import paged_decode as pd
 from paddle_tpu_torch.kernels import rms_norm as rn
 from paddle_tpu_torch.kernels import rope as rp
-from paddle_tpu_torch.models import LlamaForCausalLM, llama_config
+from paddle_tpu_torch.models import (GPTForCausalLM, LlamaForCausalLM,
+                                     llama_config)
+from paddle_tpu_torch.models.gpt import GPTConfig
 from paddle_tpu_torch.nn import RMSNorm
+from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
 from paddle_tpu_torch.optimizer import AdamW
+from paddle_tpu_torch.optimizer import lr as lrs
 from paddle_tpu_torch.serving import (AdapterPool, Engine, SamplingParams,
                                       ServingConfig)
 from paddle_tpu_torch.utils import flags as tick_flags
@@ -510,8 +515,9 @@ def test_adam_kernel_on_card(card, p_dtype, master, decoupled, wd):
             else:
                 ww, p = ww.to(p_dtype).float(), torch.empty(
                     n, device=card, dtype=p_dtype)
-            fn(ww, grad, a, b, p, 3e-4, 0.271, 0.002997, b1=0.9, b2=0.999,
-               eps=1e-8, wd=wd, decoupled=decoupled)
+            scal = torch.tensor([3e-4, 0.271, 0.002997], device=card)
+            fn(ww, grad, a, b, p, scal, b1=0.9, b2=0.999, eps=1e-8, wd=wd,
+               decoupled=decoupled)
             outs.append([t for t in (ww, a, b, p) if t is not None])
         for got, want in zip(*outs):
             assert torch.equal(got, want), (n, offset)
@@ -1284,3 +1290,183 @@ def test_adapter_hot_loaded_after_capture_reaches_the_replay_on_card(card):
     finally:
         tick_flags.set_flags({"FLAGS_compiled_tick": True})
     np.testing.assert_array_equal(adapted, want)
+
+
+@pytest.mark.cuda
+def test_adam_device_scalars_and_skip_flag_on_card(card):
+    """The kernel reads [lr, bc1, bc2] from the device (`adam_scalars` of a
+    device step counter) and equals its plain version bit for bit; with
+    the skip flag set neither writes anything; with it clear both equal
+    the flagless update."""
+    g = torch.Generator(device=card).manual_seed(9)
+    n = 4096 + 5
+    w = torch.randn(n, device=card, generator=g)
+    m1 = 1e-2 * torch.randn(n, device=card, generator=g)
+    m2 = 1e-4 * torch.rand(n, device=card, generator=g)
+    grad = torch.randn(n, device=card, generator=g).bfloat16()
+    scal = adam.adam_scalars(torch.full((), 1e-3, device=card),
+                             torch.full((), 7.0, device=card), 0.9, 0.999)
+    assert scal.device.type == "cuda" and scal.dtype == torch.float32
+    hyper = dict(b1=0.9, b2=0.999, eps=1e-8, wd=0.01, decoupled=True)
+
+    def state():
+        return [w.clone(), grad, m1.clone(), m2.clone(),
+                torch.empty(n, device=card, dtype=torch.bfloat16)]
+    plain = state()
+    adam.adam_update(*plain[:4], plain[4], scal, **hyper)
+    for flag in (True, False):
+        skip = torch.full((), flag, device=card)
+        for fn in (adam.adam_update, adam.adam_update_ref):
+            got = state()
+            fn(*got[:4], got[4], scal, skip=skip, **hyper)
+            for a, b, o in zip(got[:4], plain[:4], state()[:4]):
+                assert torch.equal(a, o if flag else b), (fn, flag)
+    ref = state()
+    adam.adam_update_ref(*ref[:4], ref[4], scal, **hyper)
+    for a, b in zip(plain, ref):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_flash_seed_from_device_memory_on_card(card):
+    """The dropout seed (2^31 + 3) as a host int and as a 0-dim device
+    int64 gives the same forward, dK/dV and dQ bits; seed + 1 gives
+    another forward; a seed tensor of another dtype or shape raises."""
+    q, k, v, do = _attn_inputs(card, 2, 4, 4, 200, 64, torch.bfloat16, True,
+                               12)
+    seed = 2 ** 31 + 3
+
+    def run(sd):
+        out, lse = fa.flash_attention_fwd(q, k, v, True, None, True,
+                                          dropout=0.1, seed=sd)
+        return (out, lse) + fa.flash_attention_bwd(
+            q, k, v, out, lse, do, True, None, True, dropout=0.1, seed=sd)
+    host = run(seed)
+    on_card = torch.full((), seed, dtype=torch.int64, device=card)
+    for a, b in zip(run(on_card), host):
+        assert torch.equal(a, b)
+    other = run(on_card + 1)
+    assert not torch.equal(other[0], host[0])
+    for bad in (on_card.to(torch.int32), on_card.reshape(1)):
+        with pytest.raises(ValueError, match="0-dim int64"):
+            run(bad)
+
+
+def _tiny_gpt_lane(card, compiled, batches, dtype=torch.float32,
+                   scaler_kw=None, sched=False, accum=1):
+    """A 2-layer GPT (D 64) with attention and residual dropout 0.1 built
+    on the card from seed 4: eager or compiled over ``batches``; returns
+    (losses, step counters, parameters and optimizer state, scaler state,
+    the step object)."""
+    cfg = GPTConfig(vocab_size=512, hidden_size=128, num_layers=2,
+                    num_heads=2, max_seq_len=64, attn_dropout=0.1,
+                    dropout=0.1)
+    model = GPTForCausalLM(cfg, device=card, seed=4)
+    opt = AdamW(learning_rate=1e-3, parameters=model.parameters(),
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    if dtype != torch.float32:
+        model, opt = amp.decorate(model, opt, level="O2", dtype=dtype)
+    schedule = lrs.StepDecay(1e-3, step_size=1, gamma=0.5) if sched else None
+    if schedule is not None:
+        opt.set_lr_scheduler(schedule)
+    scaler = amp.GradScaler(**scaler_kw) if scaler_kw else None
+    opt._ensure_state()
+
+    def fwd(x, y):
+        loss = model(x, labels=y)[1]
+        return loss * torch.where(y[0, 0] == -100, 1e4, 1.0)
+    cs = CompiledTrainStep(fwd, opt, scaler=scaler, network=model,
+                           accumulate_grad_batches=accum)
+    losses, steps = [], []
+    for i, (x, y) in enumerate(batches):
+        update = (i + 1) % accum == 0
+        if compiled:
+            loss = cs(x, y, update)
+        else:
+            loss = cs._default_eager_step(x, y, update)
+        if schedule is not None and update:
+            schedule.step()
+        losses.append(loss.detach().float().reshape(1))
+        steps.append(opt._step_tensor.clone())
+    cs.sync_scaler()
+    state = [p.detach().clone() for p in model.parameters()]
+    state += [v.clone() for vals in opt._state.values() for v in vals
+              if v is not None]
+    return (torch.cat(losses), torch.stack(steps), state,
+            scaler.state_dict() if scaler else None, cs)
+
+
+def _gpt_batches(card, n, marked=None, b=2, s=64):
+    rng = np.random.default_rng(6)
+    out = []
+    for i in range(n):
+        ids = torch.from_numpy(rng.integers(0, 512, (b, s + 1))).to(card)
+        x, y = ids[:, :-1].contiguous(), ids[:, 1:].contiguous()
+        if i == marked:
+            y[0, 0] = -100            # the loss x 1e4: fp16 overflows
+        out.append((x, y))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["fp32", "fp16-scaler-skip", "accum"])
+def test_compiled_train_step_replay_equals_eager_on_card(card, case):
+    """Replays equal the eager step bit for bit: losses, step counters,
+    every parameter, moment and master; with attention and residual
+    dropout (the flash seeds refilled, the dropout generator registered);
+    in fp16 under a GradScaler whose fourth step overflows (skipped: the
+    counter stays, the scale halves from 2^17 to 2^16 and grows back
+    after two good steps, ``sync_scaler`` equals the eager scaler); with
+    two-batch accumulation (a micro graph and a full graph)."""
+    kw = {"fp32": dict(),
+          "fp16-scaler-skip": dict(dtype=torch.float16, sched=True,
+                                   scaler_kw=dict(init_loss_scaling=2.0 ** 16,
+                                                  incr_every_n_steps=2)),
+          "accum": dict(accum=2)}[case]
+    batches = _gpt_batches(card, 6, marked=3 if "scaler_kw" in kw else None)
+    eager = _tiny_gpt_lane(card, False, batches, **kw)
+    comp = _tiny_gpt_lane(card, True, batches, **kw)
+    cs = comp[4]
+    assert cs.compiled and cs.fallbacks == 0, cs.fallback_reason
+    assert torch.equal(eager[0], comp[0]) and torch.equal(eager[1], comp[1])
+    for a, b in zip(eager[2], comp[2]):
+        assert torch.equal(a, b)
+    assert eager[3] == comp[3]
+    stats = cs.graph_stats()
+    assert all(c == 1 for c, _, _ in stats.values()), stats
+    assert len(stats) == (2 if case == "accum" else 1), stats
+    if "scaler_kw" in kw:
+        st = comp[1].tolist()
+        assert st[3] == st[2] and st[4] == st[2] + 1, st
+        assert comp[3] == {"scale": 2.0 ** 17, "good_steps": 0,
+                           "bad_steps": 0}, comp[3]
+
+
+@pytest.mark.cuda
+def test_compiled_train_step_schedule_and_loss_on_card(card):
+    """A scheduler's new rate reaches the next replay (the device lr
+    scalar is rewritten before it), and the loss returned by replay n
+    survives replay n + 1 (a clone of the graph's output)."""
+    batches = _gpt_batches(card, 5)
+    cfg = GPTConfig(vocab_size=512, hidden_size=128, num_layers=2,
+                    num_heads=2, max_seq_len=64)
+    model = GPTForCausalLM(cfg, device=card, seed=4)
+    sched = lrs.StepDecay(1e-2, step_size=1, gamma=0.1)
+    opt = AdamW(learning_rate=sched, parameters=model.parameters())
+    cs = CompiledTrainStep(lambda x, y: model(x, labels=y)[1], opt)
+    held, deltas = [], []
+    for x, y in batches:
+        before = model.gpt.wte.weight.detach().clone()
+        loss = cs(x, y)
+        held.append((loss, loss.item()))
+        deltas.append(float((model.gpt.wte.weight.detach() - before).abs()
+                            .max()))
+        assert float(opt._lr_tensor) == np.float32(sched.last_lr)
+        sched.step()
+    assert cs.compiled
+    for loss, value in held:
+        assert loss.item() == value
+    assert len({v for _, v in held}) == len(held)
+    # each replay's step ~ lr: a tenth of the previous one's
+    for a, b in zip(deltas[1:], deltas[2:]):
+        assert b < 0.3 * a, deltas

@@ -160,9 +160,10 @@ def test_adamw_update_matches_jax_lane(dtype):
              "moment2": torch.from_numpy(m2.copy()),
              "master": None if master is None else
              torch.from_numpy(master.copy())}
-    topt._step_t = step
+    topt._step_tensor.fill_(step)
+    scal = topt._scalars(torch.full((), 3e-4), topt._step_tensor, 1.0)
     with torch.no_grad():
-        topt._update(tp, torch.from_numpy(g).to(tdt), state, 3e-4, True)
+        topt._update(tp, torch.from_numpy(g).to(tdt), state, scal, True)
     tol = dict(rtol=2e-7, atol=1e-9)
     np.testing.assert_allclose(state["moment1"].numpy(),
                                np.asarray(st["moment1"][0]), **tol)
@@ -187,7 +188,7 @@ def test_resume_from_converted_jax_optimizer_state():
     np_state = {k: (v.numpy() if hasattr(v, "numpy") else v)
                 for k, v in jopt.state_dict().items()}
     convert.load_paddle_tpu_optimizer_state(topt, np_state)
-    assert topt._step_count == 2 and topt._step_t == 2.0
+    assert topt._step_count == 2 and float(topt._step_tensor) == 2.0
     np.testing.assert_array_equal(topt.state_dict()["moment1.0"].numpy(),
                                   np_state["moment1.0"])
     j_loss = _jax_steps(jm, jopt, ids, labels, 1)
