@@ -21,9 +21,13 @@ last line:
             fully masked row, segment ids) at GPT-2's training shape;
             the dropout seed read from device memory (a 0-dim int64
             tensor) equal to the host int's bits, seed + 1 rejected;
-            Adam with its [lr, bc1, bc2] made on the card from a device
-            step counter, bit for bit, the skip flag set writing nothing,
-            the fourth step's scalars rejected;
+            Adam with its [lr, bc1, bc2, gscale] made on the card from a
+            device step counter, bit for bit, the skip flag set writing
+            nothing, the fourth step's scalars rejected; adam_clip: the
+            global-norm clip's scale (gscale < 1) applied as the kernel
+            loads a bf16 gradient, bit for bit with the plain version and
+            with the clip applied first, the unclipped update and the
+            scale without the rounding to bf16 rejected;
             paged decode's split plan for each case, a 32-row batch and
             offsets on the split's edges; RMS norm's launch plan for each
             case, its staged and generic paths, dw bit-identical over two
@@ -68,7 +72,8 @@ last line:
             amp.decorate, AdamW with fp32 master weights and global-norm
             clipping, B1 x S4096, in two lanes on the same weights and
             batch: eager (2 warm-up and 6 timed steps: step ms, tokens/s,
-            MFU, peak memory, every training kernel's launch count checked
+            MFU, peak memory, the forward, backward, clip and AdamW +
+            clear_grad apart, every training kernel's launch count checked
             against the steps taken, the loss falling; torch.profiler over
             one step), then, the eager model freed, CompiledTrainStep
             (call 1 eager, call 2 captures; the same measures, the first
@@ -85,7 +90,10 @@ last line:
             dropout 0.1, (c) (b) in fp16 O2 under a GradScaler and a
             LinearWarmup + cosine schedule with an overflowing batch
             (skipped, the scale halved, sync_scaler equal), (d) (a) with
-            two-batch accumulation; (a)'s card losses against the CPU's
+            two-batch accumulation, (e) (a) with a clip of 1e-3 (its
+            scale < 1), (f) (a) with an L2Decay that apply_decay_param_fun
+            refuses for every name but one parameter's regularizer
+            applies; (a)'s card losses against the CPU's
 9. train-gpt2  GPT-2 124M, nothing cut (12 layers, hidden 768, vocab
             50304), attention and residual dropout 0.1, bf16 O2 AdamW, B8
             x S1024, in the train phase's two lanes (the compiled model
@@ -99,6 +107,15 @@ last line:
             dropout, flash_attention with segment ids, variable-length
             attention with an additive mask), forward and backward,
             against their plain versions through the masked variants
+12. train-optimizers  GPT-2 124M as in phase 9 with a global-norm clip
+            of 1.0 under SGD, Momentum (Nesterov), Adagrad, RMSProp
+            (centered, momentum 0.9), Adadelta, Adamax and Lamb: each
+            lane 2 + 3 steps eager, then rebuilt from the seed through
+            CompiledTrainStep (losses equal bit for bit, one capture,
+            launches a replay equal to the eager lane's a step, the
+            compiled step ms p50); LBFGS on a 2-layer fp32 model for 2
+            closure steps (the loss falls; the compiled step falls back
+            with one warning)
 
 The second-to-last line is the kernels' JSON summary, the last line
 ``{"ok": true, "device": {...}}``.  ``--phases`` runs a subset.
@@ -136,6 +153,7 @@ from paddle_tpu_torch.models import (GPTForCausalLM, LlamaForCausalLM,
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
 from paddle_tpu_torch.framework import CompiledTrainStep
+from paddle_tpu_torch import optimizer as optim
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.optimizer import lr as lrs
 from paddle_tpu_torch.quantization import (KV_QUANT_DTYPES, dequantize_kv,
@@ -148,7 +166,8 @@ PEAK_OPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
             torch.float32: 67e12}           # dense; fp32 outside tensor cores
 PHASES = ("device", "build", "kernels", "serve", "serve-lora-int8",
           "serve-tick", "parity", "train", "train-parity",
-          "train-compiled-parity", "train-gpt2", "gpt2-parity", "attn-ops")
+          "train-compiled-parity", "train-gpt2", "gpt2-parity", "attn-ops",
+          "train-optimizers")
 TRAIN_KERNELS = ("rms_norm", "rms_norm_bwd", "rope", "flash_fwd",
                  "flash_bwd_dkv", "flash_bwd_dq", "flash_bwd_delta", "adam")
 FLASH = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
@@ -1038,6 +1057,81 @@ def adam_case(dev, n, p_dtype, master, decoupled, wd, gen, timer=None,
     return 0.0, res
 
 
+def adam_clip_case(dev, n, gen, timer):
+    """The global-norm clip's scale inside the Adam kernel: a bf16
+    gradient with its fp32 master under AdamW, ``gscale`` = 0.3712 (a
+    clip below the norm) as the fourth device scalar.  Kernel against
+    `adam_update_ref` bit for bit (w, m1, m2, the bf16 parameter); and
+    against the clip applied first (`ClipGradByGlobalNorm.__call__`'s
+    ``(g.float() * s).to(bf16)``) then the unclipped update.  Controls
+    that must be rejected: the unclipped update (``gscale`` 1), and the
+    scale applied without the rounding to bf16.  (A ``gscale`` one fp32
+    ulp off is no control here: a bf16 g has 8 significant bits, so no
+    product g·s lies within 2^-24 of a bf16 rounding boundary and the
+    rounding absorbs the change.)
+    Returns the kernel's timing (the Llama step's Adam launches all carry
+    the clip's scale)."""
+    w = torch.randn(n, device=dev, generator=gen)
+    m1 = 1e-2 * torch.randn(n, device=dev, generator=gen)
+    m2 = 1e-4 * torch.rand(n, device=dev, generator=gen)
+    g = (1e-2 * torch.randn(n, device=dev, generator=gen)).bfloat16()
+    lr_t = torch.full((), 3e-4, dtype=torch.float32, device=dev)
+    step_t = torch.full((), 3.0, dtype=torch.float32, device=dev)
+    gs = torch.full((), 0.3712, dtype=torch.float32, device=dev)
+    hyper = dict(b1=0.9, b2=0.999, eps=1e-8, wd=0.01, decoupled=True)
+
+    def scal(s=gs):
+        return adam_scalars(lr_t, step_t, 0.9, 0.999, gscale=s)
+
+    def state(grad=g):
+        return [w.clone(), grad, m1.clone(), m2.clone(),
+                torch.empty(n, device=dev, dtype=torch.bfloat16)]
+    name = "adam_clip[4096 x 11008 bf16 + fp32 master AdamW, gscale 0.3712]"
+
+    def same(label, xs, ys):
+        for part, a, b in zip(("w", "g", "m1", "m2", "p"), xs, ys):
+            if part != "g" and not torch.equal(a, b):
+                raise AssertionError(f"{name} {label} {part}: differs by "
+                                     f"{max_err(a, b)}")
+    got, want = state(), state()
+    adam_update(*got, scal(), **hyper)
+    torch.cuda.synchronize()
+    adam_update_ref(*want, scal(), **hyper)
+    same("kernel against the plain version", got, want)
+    first = state((g.float() * gs).to(torch.bfloat16))
+    adam_update_ref(*first, scal(None), **hyper)
+    same("kernel against the clip applied first", got, first)
+    del first
+    for label, other in (
+            ("the unclipped update (gscale 1)", (state(), scal(None))),
+            ("the scale without the rounding to bf16",
+             (state((g.float() * gs)), scal(None)))):
+        st, sc = other
+        adam_update_ref(*st, sc, **hyper)
+        expect_rejected(f"{name} against {label}",
+                        lambda: same(f"kernel against {label}", got, st))
+        del st
+    log(f"[kernels] {name}: bit for bit with the plain version and with "
+        f"the clip applied first")
+    b_ms, b_by = bound(24 * n + 2 * n + 2 * n, 16 * n, torch.float32)
+    # the library yardstick: torch._fused_adamw_ with grad_scale = 1 / s
+    # (it divides each gradient by it) on the fp32 master and moments and
+    # an fp32 gradient; it writes no bf16 parameter
+    lib = [[w.clone()], [g.float()], [m1.clone()], [m2.clone()], [],
+           [torch.tensor(3.0, device=dev)]]
+    inv = 1.0 / gs
+
+    def fused_adamw():
+        torch._fused_adamw_(*lib, lr=3e-4, beta1=0.9, beta2=0.999,
+                            weight_decay=0.01, eps=1e-8, amsgrad=False,
+                            maximize=False, grad_scale=inv)
+    sc = scal()                         # made once: its own launches untimed
+    res = dict(ms=timer(lambda: adam_update(*got, sc, **hyper)),
+               plain_ms=timer(lambda: adam_update_ref(*want, sc, **hyper)),
+               library_ms=timer(fused_adamw), bound_ms=b_ms, bound_by=b_by)
+    return 0.0, res
+
+
 def quant_pools(dev, name, pool_pages, psz, h_kv, d, gen):
     """int8 / fp8 pools holding the codes of N(0, 1) rows, each token's
     row scaled by its own U(0.2, 5) factor so that neighbouring rows'
@@ -1329,8 +1423,13 @@ def phase_kernels(dev):
     # with a ragged tail under L2-coupled Adam; a misaligned fp16 one
     err, res = adam_case(dev, 4096 * 11008, torch.bfloat16, True, True, 0.01,
                          gen, timer)
-    log(f"[kernels] adam 4096 x 11008 bf16 + fp32 master AdamW: bitwise "
-        f"equal; {fmt(res)}")
+    log(f"[kernels] adam 4096 x 11008 bf16 + fp32 master AdamW, gscale 1: "
+        f"bitwise equal; {fmt(res)}")
+    timed[("adam", "unclipped")] = res
+    err, res = adam_clip_case(dev, 4096 * 11008, gen, timer)
+    log(f"[kernels] adam_clip 4096 x 11008 bf16 + fp32 master AdamW, gscale "
+        f"< 1: bitwise equal; {fmt(res)} (library: torch._fused_adamw_ with "
+        f"grad_scale)")
     timed[("adam", "train")] = res
     adam_case(dev, 4096 + 3, torch.float32, False, False, 0.1, gen)
     adam_case(dev, 1001, torch.float16, True, True, 0.0, gen, offset=1)
@@ -1980,8 +2079,10 @@ def train_batch(vocab, seq, seed=0):
 
 
 def train_step(model, opt, ids, labels, marks=None):
-    """One eager training step; with ``marks`` (four CUDA events) the
-    forward, backward and optimizer are timed on the card's timeline."""
+    """One eager training step; with ``marks`` (five CUDA events) the
+    forward, backward, the global-norm clip (its `scale`, wrapped for the
+    step by two event records; without that clip the span is empty) and
+    the update + ``clear_grad`` are timed on the card's timeline."""
     if marks:
         marks[0].record()
     _, loss = model(ids, labels=labels)
@@ -1990,10 +2091,25 @@ def train_step(model, opt, ids, labels, marks=None):
     loss.backward()
     if marks:
         marks[2].record()
-    opt.step()
+    clip = opt._grad_clip
+    timed = marks and isinstance(clip, ClipGradByGlobalNorm)
+    if timed:
+        def scale(params_grads):
+            marks[2].record()
+            s = ClipGradByGlobalNorm.scale(clip, params_grads)
+            marks[3].record()
+            return s
+        clip.scale = scale
+    try:
+        opt.step()
+    finally:
+        if timed:
+            del clip.scale
+    if marks and not timed:
+        marks[3].record()
     opt.clear_grad()
     if marks:
-        marks[3].record()
+        marks[4].record()
     return float(loss.detach())
 
 
@@ -2013,6 +2129,7 @@ def kernel_groups(rows, per=1):
         k = key.lower()
         group = ("flash attention (ours)" if "flash_" in k else
                  "adam (ours)" if "adam_kernel" in k else
+                 "clip norm (torch _foreach_norm)" if "lpnorm" in k else
                  "paged decode + lora delta (ours)" if any(t in k for t in (
                      "paged_decode", "lora")) else
                  "rms norm + rope (ours)" if any(t in k for t in (
@@ -2057,14 +2174,14 @@ def eager_lane(tag, model, opt, ids, labels, dev, warmup, steps):
     before = kernels.launch_counts()
     losses, times, parts = [], [], []
     for i in range(warmup + steps):
-        marks = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
         t1 = time.monotonic()
         losses.append(train_step(model, opt, ids, labels, marks))
         torch.cuda.synchronize()
         times.append((time.monotonic() - t1) * 1e3)
         if i >= warmup:
             parts.append([marks[j].elapsed_time(marks[j + 1])
-                          for j in range(3)])
+                          for j in range(4)])
     after = kernels.launch_counts()
     return dict(losses=losses, times=times, parts=parts,
                 peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
@@ -2205,10 +2322,11 @@ def phase_train(dev, warmup=2, steps=6):
     flops = 6 * n_matmul * tokens + \
         6 * tokens * seq * cfg.hidden_size * cfg.num_layers
     lane_line("train", "eager", eager, warmup, steps, tokens, flops)
-    fwd_ms, bwd_ms, opt_ms = np.median(np.asarray(eager["parts"]), axis=0)
+    fwd_ms, bwd_ms, clip_ms, opt_ms = np.median(np.asarray(eager["parts"]),
+                                                axis=0)
     log(f"[train] eager step parts p50 (CUDA events): forward + loss "
-        f"{fwd_ms:.1f} ms, backward {bwd_ms:.1f} ms, clip + AdamW + "
-        f"clear_grad {opt_ms:.1f} ms")
+        f"{fwd_ms:.1f} ms, backward {bwd_ms:.1f} ms, clip {clip_ms:.2f} ms, "
+        f"AdamW + clear_grad {opt_ms:.1f} ms")
     log(f"[train] eager launches {counts} (needed >= {need})")
     profile_train_step(model, opt, ids, labels)
     del model, opt
@@ -2365,8 +2483,12 @@ def phase_train_compiled_parity(dev, cpu_losses=None, steps=4):
     CosineAnnealingDecay schedule, one batch marked so that its loss is
     multiplied by 1e4 and a gradient overflows: that step is skipped (the
     counter stays), the scale halves and ``sync_scaler()`` equals the
-    eager scaler; (d) (a) with accumulate_grad_batches=2.  Then (a)'s
-    card losses against the CPU's under train-parity's tolerance."""
+    eager scaler; (d) (a) with accumulate_grad_batches=2; (e) (a) with a
+    clip of 1e-3, whose scale (checked < 1 on the first batch) the Adam
+    kernel applies; (f) (a) with `L2Decay` weight decay that
+    ``apply_decay_param_fun`` refuses for every name and one parameter's
+    ``regularizer`` turns on.  Then (a)'s card losses against the CPU's
+    under train-parity's tolerance."""
     t0 = time.monotonic()
     cfg = llama_config("llama2-7b", num_layers=2, max_seq_len=256)
     cpu_model, cpu_opt = make_trainer(cfg, "cpu", torch.float32, seed=1)
@@ -2394,6 +2516,39 @@ def phase_train_compiled_parity(dev, cpu_losses=None, steps=4):
     d = {c: parity_lane(llama, batches, c, accum=2) for c in (False, True)}
     compare_lanes("(d) (a) with accumulate_grad_batches=2", d[False],
                   d[True])
+
+    def llama_with(clip_norm, decay):
+        """(a)'s model with AdamW(clip ``clip_norm``) and, with ``decay``,
+        weight decay as an `L2Decay` that no name passes
+        (``apply_decay_param_fun``) but one parameter's ``regularizer``."""
+        def build():
+            model, _, fwd, _ = llama()
+            kw = {}
+            if decay:
+                kw = dict(weight_decay=optim.L2Decay(0.01),
+                          apply_decay_param_fun=lambda name: False)
+                model.llama.layers[0].mlp.down_proj.weight.regularizer = \
+                    optim.L2Decay(0.01)
+            opt = AdamW(learning_rate=3e-4, parameters=model.parameters(),
+                        grad_clip=ClipGradByGlobalNorm(clip_norm), **kw)
+            return model, opt, fwd, None
+        return build
+    model, _, fwd, _ = llama()
+    fwd(*batches[0]).backward()
+    scale = float(ClipGradByGlobalNorm(1e-3).scale(
+        [(p, p.grad) for p in model.parameters()]))
+    del model, fwd
+    if not scale < 1.0:
+        raise AssertionError(f"(e) the clip's scale {scale} is not < 1")
+    e = {c: parity_lane(llama_with(1e-3, False), batches, c)
+         for c in (False, True)}
+    compare_lanes(f"(e) (a) with clip 1e-3 (the first step's scale "
+                  f"{scale:.4e})", e[False], e[True])
+    f = {c: parity_lane(llama_with(1.0, True), batches, c)
+         for c in (False, True)}
+    compare_lanes("(f) (a) with L2Decay(0.01), apply_decay_param_fun "
+                  "False for every name, one parameter's regularizer",
+                  f[False], f[True])
     del init
     gcfg = gpt_config("gpt2-124m", num_layers=2, max_seq_len=256,
                       attn_dropout=0.1, dropout=0.1)
@@ -2505,10 +2660,11 @@ def phase_train_gpt2(dev, warmup=2, steps=6):
     flops = 6 * n_params * tokens + \
         6 * tokens * seq * cfg.hidden_size * cfg.num_layers
     lane_line("train-gpt2", "eager", eager, warmup, steps, tokens, flops)
-    fwd_ms, bwd_ms, opt_ms = np.median(np.asarray(eager["parts"]), axis=0)
+    fwd_ms, bwd_ms, _, opt_ms = np.median(np.asarray(eager["parts"]),
+                                          axis=0)
     log(f"[train-gpt2] eager step parts p50 (CUDA events): forward + loss "
         f"{fwd_ms:.1f} ms, backward {bwd_ms:.1f} ms, AdamW + clear_grad "
-        f"{opt_ms:.1f} ms")
+        f"{opt_ms:.1f} ms (no clip)")
     log(f"[train-gpt2] eager launches {counts} (needed >= {need})")
     profile_train_step(model, opt, ids, labels, "train-gpt2-profile")
     del model, opt
@@ -2529,6 +2685,107 @@ def phase_train_gpt2(dev, warmup=2, steps=6):
     del model, opt, comp
     torch.cuda.empty_cache()
     return main_counts
+
+
+#: the train-optimizers phase's lanes: GPT-2 124M with each optimizer
+#: the JAX package has besides Adam/AdamW (their options non-default)
+OTHER_OPTIMIZERS = {
+    "SGD": lambda ps: optim.SGD(0.1, parameters=ps, weight_decay=0.01),
+    "Momentum": lambda ps: optim.Momentum(0.01, 0.9, parameters=ps,
+                                          use_nesterov=True),
+    "Adagrad": lambda ps: optim.Adagrad(0.01, parameters=ps,
+                                        initial_accumulator_value=0.1),
+    "RMSProp": lambda ps: optim.RMSProp(1e-4, centered=True, momentum=0.9,
+                                        parameters=ps),
+    "Adadelta": lambda ps: optim.Adadelta(1.0, parameters=ps),
+    "Adamax": lambda ps: optim.Adamax(1e-3, parameters=ps,
+                                      weight_decay=0.01),
+    "Lamb": lambda ps: optim.Lamb(1e-3, parameters=ps),
+}
+
+
+def phase_train_optimizers(dev, warmup=2, steps=3):
+    """GPT-2 124M (nothing cut, dropouts 0.1, bf16 O2, B8 x S1024) with
+    `ClipGradByGlobalNorm(1.0)` under each other optimizer: a lane rebuilt
+    from seed 0, 2 + 3 eager steps, then the model rebuilt from seed 0
+    through `CompiledTrainStep`.  Losses finite, compiled equal to eager
+    bit for bit, one capture, launches a replay equal to the eager lane's
+    a step.  Then `LBFGS` on a 2-layer GPT-2-width fp32 model (dropout
+    off: the closure must give the same loss for the same weights) for
+    2 closure steps: the loss falls, and `CompiledTrainStep` falls back
+    with one warning."""
+    import warnings
+    cfg = gpt_config("gpt2-124m", max_seq_len=1024, attn_dropout=0.1,
+                     dropout=0.1)
+    b, seq = 8, 1024
+    ids, labels = (t.to(dev) for t in gpt2_batch(cfg.vocab_size, b, seq))
+    n = warmup + steps
+
+    def build(name):
+        model = GPTForCausalLM(cfg, device=dev, dtype=torch.float32, seed=0)
+        opt = OTHER_OPTIMIZERS[name](model.parameters())
+        opt._grad_clip = ClipGradByGlobalNorm(1.0)
+        return amp.decorate(model, opt, level="O2", dtype=torch.bfloat16)
+    rows = {}
+    for name in OTHER_OPTIMIZERS:
+        tag = f"train-optimizers {name}"
+        model, opt = build(name)
+        kernels.reset_launch_counts()
+        eager = eager_lane(tag, model, opt, ids, labels, dev, warmup, steps)
+        del model, opt
+        torch.cuda.empty_cache()
+        model, opt = build(name)
+        comp = compiled_lane(tag, model, opt, ids, labels, dev, warmup,
+                             steps)
+        if not all(np.isfinite(eager["losses"])) or \
+                comp["losses"] != eager["losses"]:
+            raise AssertionError(f"[{tag}] losses: eager {eager['losses']}, "
+                                 f"compiled {comp['losses']}")
+        check_replay_launches(tag, eager["counts"], n, comp["cs"])
+        step_ms = float(np.median(comp["times"][warmup:]))
+        eager_ms = float(np.median(eager["times"][warmup:]))
+        rows[name] = step_ms
+        log(f"[train-optimizers] {name}: losses {eager['losses']} equal in "
+            f"both lanes; eager {eager_ms:.2f} ms, compiled {step_ms:.2f} "
+            f"ms p50 a step; peak {comp['peak_gb']:.2f} GB")
+        del model, opt, comp, eager
+        torch.cuda.empty_cache()
+    log(f"[train-optimizers] compiled step ms p50 by optimizer: "
+        f"{ {k: round(v, 2) for k, v in rows.items()} }")
+    small = gpt_config("gpt2-124m", num_layers=2, max_seq_len=256)
+    model = GPTForCausalLM(small, device=dev, dtype=torch.float32, seed=1)
+    x, y = (t.to(dev) for t in gpt2_batch(small.vocab_size, 2, 256, seed=1))
+    opt = optim.LBFGS(learning_rate=1.0, max_iter=4, history_size=10,
+                      line_search_fn="strong_wolfe",
+                      parameters=model.parameters())
+
+    def closure():
+        opt.clear_grad()
+        loss = model(x, labels=y)[1]
+        loss.backward()
+        return loss
+    with torch.no_grad():
+        first = float(model(x, labels=y)[1])
+    losses = [float(opt.step(closure)) for _ in range(2)]
+    with torch.no_grad():
+        last = float(model(x, labels=y)[1])
+    if not last < first or not all(np.isfinite(losses)):
+        raise AssertionError(f"[train-optimizers] LBFGS: loss {first} -> "
+                             f"{losses} -> {last}")
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        cs = CompiledTrainStep(lambda a, c: model(a, labels=c)[1], opt,
+                               network=model)
+    fell = [w for w in rec if "LBFGS.step is overridden" in str(w.message)]
+    if len(fell) != 1 or cs.compiled or cs.fallback_reason is None:
+        raise AssertionError(f"[train-optimizers] LBFGS: the compiled step "
+                             f"did not fall back once: {rec}, "
+                             f"{cs.fallback_reason}")
+    log(f"[train-optimizers] LBFGS 2-layer fp32 (strong_wolfe, 4 "
+        f"iterations a step): loss {first:.4f} -> {last:.4f}; compiled "
+        f"step: one warning, fallback {cs.fallback_reason!r}")
+    del model, opt, cs
+    torch.cuda.empty_cache()
 
 
 def phase_gpt2_parity(dev, steps=3, lr=3e-4):
@@ -2691,6 +2948,8 @@ def main(argv=None):
         run("gpt2-parity", phase_gpt2_parity, dev)
     if "attn-ops" in phases:
         ops_counts = run("attn-ops", phase_attn_ops, dev)
+    if "train-optimizers" in phases:
+        run("train-optimizers", phase_train_optimizers, dev)
     if timed and None not in (counts, lora_counts, train_counts, gpt2_counts,
                               ops_counts):
         # launches: the serving run's for its two kernels, the training

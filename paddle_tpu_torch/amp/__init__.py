@@ -1,42 +1,173 @@
 """Automatic mixed precision (port of paddle_tpu/amp/__init__.py:
-``auto_cast``, ``decorate``, ``GradScaler``).
+``auto_cast`` / ``amp_guard``, ``decorate``, ``GradScaler``,
+``is_bfloat16_supported``, ``is_float16_supported``; `amp_lists` as it
+is).
 
 O2 is the training path: `decorate` casts the model's floating parameters
 to bf16 (or fp16) and the optimizer keeps fp32 master weights, so the whole
 forward and backward run in the low-precision type except where an op keeps
 fp32 itself (RMS-norm statistics, the attention softmax, the cross-entropy).
-`auto_cast` with ``level="O1"`` casts matrix products through
-``torch.autocast``; under O2 it changes nothing (the parameters already
-carry the type).  `GradScaler` is dynamic loss scaling for fp16; with
+
+`auto_cast` sets the level, the type and the custom lists that the port's
+op entries read through `amp_op`, the counterpart of the JAX package's
+``_amp_cast`` hook (core/dispatch.py): under O1 an op on the white list
+(``amp_lists.WHITE_LIST`` or the custom white list) runs with its
+floating inputs cast to the amp type, one on the black list in fp32;
+under O2 every op not on a black list runs in the amp type.  The routed
+entries, under the JAX op names, are `ROUTED_OPS`; inside one the hook
+alone decides the types (``torch.autocast`` is held off).  Everything
+else is torch's own: under O1 ``torch.autocast`` casts torch's matrix
+products and convolutions, under O2 nothing (`decorate` cast the
+parameters).  A custom list naming an op that is not routed raises.
+`GradScaler` is dynamic loss scaling for fp16; with
 ``init_loss_scaling=1.0`` (bf16) it passes everything through.
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import torch
 
 from ..device import to_torch_dtype
+from . import amp_lists
+
+#: the port's op entries that apply the lists, under the JAX op names
+#: (nn/functional.py: linear, rms_norm, layer_norm, cross_entropy;
+#: flash_attention and scaled_dot_product_attention as "flash_attention")
+ROUTED_OPS = frozenset({"linear", "rms_norm", "layer_norm", "cross_entropy",
+                        "flash_attention"})
+_NOT_ROUTED = ("auto_cast: the port has no op entry that applies a custom "
+               "{} list to {!r}; the JAX package's other ops are ROADMAP "
+               "A9")
+
+
+class _AmpState:
+    """What `auto_cast` set: level (None: off), type and custom lists."""
+    level = None
+    dtype = torch.bfloat16
+    white = frozenset()
+    black = frozenset()
+
+
+_STATE = _AmpState()
+
+
+def _check_lists(white, black, level):
+    if level not in ("O1", "O2"):
+        return
+    for kind, names in (("white", white), ("black", black)):
+        for name in sorted(names - ROUTED_OPS):
+            raise NotImplementedError(_NOT_ROUTED.format(kind, name))
+
+
+def _autocast_contexts(stack, dt, enabled):
+    stack.enter_context(torch.autocast("cpu", dtype=dt, enabled=enabled))
+    if torch.cuda.is_available():
+        stack.enter_context(torch.autocast("cuda", dtype=dt,
+                                           enabled=enabled))
 
 
 @contextlib.contextmanager
-def auto_cast(enable=True, level="O1", dtype="bfloat16"):
-    if not enable or level != "O1":
+def auto_cast(enable=True, custom_white_list=None, custom_black_list=None,
+              level="O1", dtype="bfloat16", use_promote=True):
+    """Mixed precision for the ops run inside: sets the level, type and
+    custom lists `amp_op` reads (restored on exit) and, at O1, enters
+    ``torch.autocast`` for torch's own products.  ``enable=False`` leaves
+    whatever an outer context set, as JAX's does.  ``use_promote`` is
+    accepted, as in JAX.  Raises `NotImplementedError` for a custom list
+    entry the port cannot honour."""
+    white = frozenset(custom_white_list or ())
+    black = frozenset(custom_black_list or ())
+    if not enable:
         yield
         return
+    _check_lists(white, black, level)
     dt = to_torch_dtype(dtype)
-    with contextlib.ExitStack() as stack:
-        stack.enter_context(torch.autocast("cpu", dtype=dt))
-        if torch.cuda.is_available():
-            stack.enter_context(torch.autocast("cuda", dtype=dt))
-        yield
+    prev = (_STATE.level, _STATE.dtype, _STATE.white, _STATE.black)
+    _STATE.level, _STATE.dtype, _STATE.white, _STATE.black = \
+        level, dt, white, black
+    try:
+        with contextlib.ExitStack() as stack:
+            if level == "O1":
+                _autocast_contexts(stack, dt, True)
+            yield
+    finally:
+        _STATE.level, _STATE.dtype, _STATE.white, _STATE.black = prev
+
+
+amp_guard = auto_cast
+
+
+def op_dtype(name):
+    """The type the hook casts op ``name``'s floating inputs to: the amp
+    type, fp32, or None (inputs left as they are).  JAX's ``_amp_cast``
+    rule: white = on a white list, black = on a black list; O2 makes
+    every op not black white; black wins."""
+    st = _STATE
+    white = name in amp_lists.WHITE_LIST or name in st.white
+    black = name in amp_lists.BLACK_LIST or name in st.black
+    if st.level == "O2":
+        white = not black
+    if black:
+        return torch.float32
+    return st.dtype if white else None
+
+
+def _cast(x, dt):
+    if torch.is_tensor(x) and x.dtype in (torch.float32, torch.float16,
+                                          torch.bfloat16):
+        return x.to(dt)
+    return x
+
+
+def amp_op(name):
+    """Decorator of a port op entry: under an O1/O2 `auto_cast`, its
+    floating tensor arguments are cast by `op_dtype` (``name`` the JAX
+    op's) and its body runs with ``torch.autocast`` off, so the types are
+    the hook's alone; with amp off it is a plain call."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            if _STATE.level not in ("O1", "O2"):
+                return fn(*args, **kwargs)
+            dt = op_dtype(name)
+            if dt is not None:
+                args = [_cast(a, dt) for a in args]
+                kwargs = {k: _cast(v, dt) for k, v in kwargs.items()}
+            with contextlib.ExitStack() as stack:
+                _autocast_contexts(stack, _STATE.dtype, False)
+                return fn(*args, **kwargs)
+        return wrapper
+    return deco
+
+
+def _on_card(device):
+    """Whether ``device`` (None: the card when there is one, else the CPU)
+    is a card that is there."""
+    if device is None:
+        return torch.cuda.is_available()
+    return torch.device(device).type == "cuda" and torch.cuda.is_available()
+
+
+def is_bfloat16_supported(device=None):
+    """bf16 on ``device``: the CPU always, as the JAX package answers on
+    every platform; a card when torch says so."""
+    return torch.cuda.is_bf16_supported() if _on_card(device) else True
+
+
+def is_float16_supported(device=None):
+    """fp16 on ``device``: a card yes, the CPU no (the JAX package answers
+    True on an accelerator, False on the CPU)."""
+    return _on_card(device)
 
 
 def decorate(models, optimizers=None, level="O2", dtype="bfloat16",
-             master_weight=None):
+             master_weight=None, save_dtype=None):
     """O2: cast every floating parameter of ``models`` to ``dtype`` in
     place; the optimizers keep fp32 master weights unless
-    ``master_weight=False``.  Returns ``models`` (and ``optimizers``)."""
+    ``master_weight=False``.  ``save_dtype`` is accepted, as in JAX.
+    Returns ``models`` (and ``optimizers``)."""
     target = to_torch_dtype(dtype)
     single = not isinstance(models, (list, tuple))
     model_list = [models] if single else list(models)

@@ -6,11 +6,19 @@
 // Replaces: paddle_tpu/pallas/fused.py _adam_kernel / adam_update_pallas.
 //
 // Scalars on the device.  As the Pallas kernel reads scal_ref, the kernel
-// reads [lr * lr_scale, bc1, bc2] (fp32, bc = 1 - beta^t) from device
-// memory, and an optional device skip flag (one byte; nullptr: none): when
-// it is set, the kernel writes nothing.  So one launch serves every step of
-// a CUDA graph: the step counter, the schedule's lr and the loss scaler's
-// found-inf decision all live on the card (kernels/adam.py adam_scalars).
+// reads [lr * lr_scale, bc1, bc2, gscale] (fp32, bc = 1 - beta^t) from
+// device memory, and an optional device skip flag (one byte; nullptr:
+// none): when it is set, the kernel writes nothing.  So one launch serves
+// every step of a CUDA graph: the step counter, the schedule's lr, the
+// global-norm clip's scale and the loss scaler's found-inf decision all
+// live on the card (kernels/adam.py adam_scalars).
+//
+// The clip's scale.  gscale = clip_norm / max(norm, clip_norm) (1 without
+// a global-norm clip) is applied as g is loaded: float(G(float(g) * s)),
+// the JAX clip's (g.astype(f32) * s).astype(g.dtype) then the update's
+// astype(f32), one rounding to g's type.  So the clip reads each gradient
+// once for its norm and writes nothing; at s = 1 the product and the
+// rounding are exact and the update is the unclipped one, bit for bit.
 //
 // Bound on the H100 (3.35 TB/s): bytes.  Each element reads and writes w,
 // m1 and m2 (24 B), reads g and, for a 16-bit parameter with a master,
@@ -38,7 +46,7 @@ namespace {
 enum Decay : int { kNoDecay = 0, kCoupled = 1, kDecoupled = 2 };
 
 struct AdamArgs {
-  float lr, bc1, bc2;   // read from the device by each thread (`scalars`)
+  float lr, bc1, bc2, gs;  // read from the device by each thread (`scalars`)
   float b1, omb1, b2, omb2, eps, wd;               // omb = fp32(1 - beta)
   int decay;
 };
@@ -51,7 +59,15 @@ __device__ __forceinline__ bool scalars(AdamArgs& a,
   a.lr = scal[0];
   a.bc1 = scal[1];
   a.bc2 = scal[2];
+  a.gs = scal[3];
   return true;
+}
+
+// g as the update reads it: scaled by the clip's gscale in fp32, rounded to
+// g's own type, widened back
+template <typename G>
+__device__ __forceinline__ float load_g(G g, float gs) {
+  return ptt::to_f32(ptt::from_f32<G>(__fmul_rn(ptt::to_f32(g), gs)));
 }
 
 template <typename T, int V>
@@ -89,7 +105,7 @@ __global__ void adam_kernel(float* __restrict__ w, const G* __restrict__ g,
     Pack<P, V> pv;
 #pragma unroll
     for (int k = 0; k < V; ++k) {
-      adam_elem(wv.v[k], ptt::to_f32(gv.v[k]), av.v[k], bv.v[k], a);
+      adam_elem(wv.v[k], load_g(gv.v[k], a.gs), av.v[k], bv.v[k], a);
       if (kHasP) pv.v[k] = ptt::from_f32<P>(wv.v[k]);
     }
     reinterpret_cast<Pack<float, V>*>(w)[i] = wv;
@@ -99,7 +115,7 @@ __global__ void adam_kernel(float* __restrict__ w, const G* __restrict__ g,
   } else {
     for (int64_t j = base; j < n; ++j) {
       float wj = w[j], aj = m1[j], bj = m2[j];
-      adam_elem(wj, ptt::to_f32(g[j]), aj, bj, a);
+      adam_elem(wj, load_g(g[j], a.gs), aj, bj, a);
       w[j] = wj;
       m1[j] = aj;
       m2[j] = bj;
@@ -155,8 +171,8 @@ int dispatch_p(float* w, const void* g, float* m1, float* m2, void* p,
 }  // namespace
 
 // w, m1, m2: fp32 [n], updated in place; g: [n] of g_dtype; p: [n] of
-// p_dtype written with w's new value rounded, or null.  scal: fp32 [3] on
-// the device, [lr * lr_scale, 1 - b1^t, 1 - b2^t]; skip: one byte on the
+// p_dtype written with w's new value rounded, or null.  scal: fp32 [4] on
+// the device, [lr * lr_scale, 1 - b1^t, 1 - b2^t, gscale]; skip: one byte on the
 // device or null, nonzero to write nothing.  decay: 0 none, 1 L2-coupled
 // (Adam), 2 decoupled (AdamW).  omb1/omb2 are fp32(1 - beta), computed by
 // the caller as the JAX lane computes them.
@@ -168,7 +184,7 @@ extern "C" int ptt_adam_update(void* w, const void* g, void* m1, void* m2,
                                void* stream) {
   if (n <= 0 || scal == nullptr || decay < kNoDecay || decay > kDecoupled)
     return static_cast<int>(cudaErrorInvalidValue);
-  const AdamArgs a{0.f, 0.f, 0.f, b1, omb1, b2, omb2, eps, wd, decay};
+  const AdamArgs a{0.f, 0.f, 0.f, 1.f, b1, omb1, b2, omb2, eps, wd, decay};
   const float* sc = static_cast<const float*>(scal);
   const uint8_t* sk = static_cast<const uint8_t*>(skip);
   cudaStream_t st = static_cast<cudaStream_t>(stream);

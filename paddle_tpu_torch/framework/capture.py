@@ -16,7 +16,9 @@ body reads and writes in place.  `CapturedStep`:
 2. captures the body into a graph on the side stream, with a memory
    pool of its own (one pool per owner, shared by its graphs), and with
    the device generators its owner lists registered, so a replay draws
-   the random numbers an eager run would draw at that point;
+   the random numbers an eager run would draw at that point; Python's
+   garbage collector is off during the capture (a collection there can
+   destroy an unreachable graph, which invalidates the capture);
 3. replays the graph on the current stream.
 
 A body is capturable when every tensor it reads or writes keeps its
@@ -56,6 +58,7 @@ raises; nothing falls back to the eager body.
 from __future__ import annotations
 
 import contextlib
+import gc
 import warnings
 
 import torch
@@ -186,10 +189,21 @@ class CapturedStep:
                                         device=self.device)
                             for _ in range(self.recorded.seeds)]
         before = kernels.launch_counts()
-        with capturing(self), torch.cuda.graph(
-                graph, pool=self.pool, stream=self.stream,
-                capture_error_mode="thread_local"):
-            self.fn()
+        # no garbage collection inside the capture: a collection there can
+        # destroy another CUDA graph that sat in unreachable objects
+        # (cudaGraphExecDestroy), which a capture forbids in its thread; the
+        # capture is then invalidated and its next launch fails.  What is
+        # unreachable now is collected after the capture.
+        gc_was_on = gc.isenabled()
+        gc.disable()
+        try:
+            with capturing(self), torch.cuda.graph(
+                    graph, pool=self.pool, stream=self.stream,
+                    capture_error_mode="thread_local"):
+                self.fn()
+        finally:
+            if gc_was_on:
+                gc.enable()
         after = kernels.launch_counts()
         self.launches = {k: after[k] - before[k] for k in after
                          if after[k] != before[k]}

@@ -28,10 +28,11 @@ the learning rate and the staged batch.
 - **The body** mirrors JAX's ``_traced_body`` and ``_update_tail`` op for
   op: the loss times the device scale and ``1 / accumulate_grad_batches``,
   backward, unscale, found-inf (armed at a scale other than 1 or with
-  ``always_check_found_inf``), the clip, the optimizer's update with the
-  found-inf flag as its skip flag, the step counter kept on a skipped
-  step, the scaler vector's update (`amp.scaler_update`), the gradients
-  zeroed in place.  Every op is the eager step's, so on the card the two
+  ``always_check_found_inf``), the clip (`Optimizer._clip`: a global-norm
+  clip only computes its device scale, which the update applies), the
+  optimizer's update with the found-inf flag as its skip flag, the step
+  counter kept on a skipped step, the scaler vector's update
+  (`amp.scaler_update`), the gradients zeroed in place.  Every op is the eager step's, so on the card the two
   lanes agree bit for bit.
 
 The step runs eagerly, warns once and latches ``fallback_reason`` when
@@ -369,12 +370,11 @@ class CompiledTrainStep:
             found = amp.found_inf(grads)
             if not self._scaler._always_check:
                 found = found & (svec[0] != 1.0)
-        params_grads = [(p, p.grad) for p in self._params]
-        if opt._grad_clip is not None:
-            params_grads = opt._grad_clip(params_grads)
+        params_grads, gscale = opt._clip([(p, p.grad) for p in self._params])
         step = opt._step_tensor
         new_step = step + 1.0
-        opt._apply_update(params_grads, opt._lr_tensor, new_step, skip=found)
+        opt._apply_update(params_grads, opt._lr_tensor, new_step, skip=found,
+                          gscale=gscale)
         step.copy_(new_step if found is None
                    else torch.where(found, step, new_step))
         if svec is not None:

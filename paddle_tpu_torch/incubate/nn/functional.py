@@ -18,7 +18,7 @@ import math
 
 import torch
 
-from ...kernels.flash_attention import flash_attention
+from ...nn.functional import flash_attention
 from ...kernels.paged_decode import gather_pages, paged_decode_attention
 from ...kernels.rope import RopeFunction, rope
 from ...quantization import (as_bytes, dequantize_kv, qmax_of,

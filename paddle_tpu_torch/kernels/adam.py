@@ -11,11 +11,16 @@ own, so they agree bitwise with each other and with the Pallas kernel,
 which is bitwise equal to that lane by its own contract.
 
 The step's scalars live on the device, as the Pallas kernel's ``scal_ref``:
-``scal`` is an fp32 ``[3]`` tensor on w's device, ``[lr * lr_scale, 1 -
-b1^t, 1 - b2^t]`` (`adam_scalars` makes it from the device step counter),
-and ``skip``, when given, a 0-dim bool tensor there: set, the update writes
-nothing (a loss-scaled step whose gradients overflowed).  Nothing is read
-back to the host, so one launch serves every replay of a CUDA graph.
+``scal`` is an fp32 ``[4]`` tensor on w's device, ``[lr * lr_scale, 1 -
+b1^t, 1 - b2^t, gscale]`` (`adam_scalars` makes it from the device step
+counter), and ``skip``, when given, a 0-dim bool tensor there: set, the
+update writes nothing (a loss-scaled step whose gradients overflowed).
+``gscale`` is the global-norm clip's scale (1 without one): both versions
+read the gradient as ``float(G(float(g) * gscale))``, the JAX clip's
+``(g.astype(f32) * s).astype(g.dtype)`` followed by the update's cast to
+fp32, so the clip writes no scaled copy of any gradient; at ``gscale ==
+1`` the product and the rounding are exact.  Nothing is read back to the
+host, so one launch serves every replay of a CUDA graph.
 """
 from __future__ import annotations
 
@@ -45,13 +50,15 @@ def bias_correction(beta, step):
     return 1.0 - torch.pow(base, step.double()).float()
 
 
-def adam_scalars(lr, step, b1, b2, lr_scale=1.0):
-    """The kernel's device scalars ``[lr * lr_scale, 1 - b1^t, 1 - b2^t]``
-    (fp32 ``[3]``) from the 0-dim fp32 tensors ``lr`` and ``step`` (the
-    updated counter), on their device; no host read."""
+def adam_scalars(lr, step, b1, b2, lr_scale=1.0, gscale=None):
+    """The kernel's device scalars ``[lr * lr_scale, 1 - b1^t, 1 - b2^t,
+    gscale]`` (fp32 ``[4]``) from the 0-dim fp32 tensors ``lr``, ``step``
+    (the updated counter) and ``gscale`` (the clip's scale; None: 1), on
+    their device; no host read."""
     lr_s = lr * float(lr_scale) if lr_scale != 1.0 else lr
+    gs = torch.ones_like(lr) if gscale is None else gscale
     return torch.stack([lr_s, bias_correction(b1, step),
-                        bias_correction(b2, step)])
+                        bias_correction(b2, step), gs])
 
 
 def adam_update_ref(w, g, m1, m2, p, scal, *, b1, b2, eps, wd, decoupled,
@@ -61,11 +68,13 @@ def adam_update_ref(w, g, m1, m2, p, scal, *, b1, b2, eps, wd, decoupled,
     multiplied by its reciprocal, one rounding more than the JAX lane's
     division); with ``skip`` set every tensor keeps its value (a select,
     no host read)."""
-    lr, bc1, bc2 = scal[0], scal[1], scal[2]
+    lr, bc1, bc2, gs = scal[0], scal[1], scal[2], scal[3]
     outs = [t for t in (w, m1, m2, p) if t is not None]
     old = [t.clone() for t in outs] if skip is not None else None
     decay = _decay(wd, decoupled)
-    gf = g.float()
+    gf = g.float() * gs
+    if g.dtype != torch.float32:
+        gf = gf.to(g.dtype).float()
     if decay == _COUPLED:
         gf = gf + wd * w
     m1.mul_(b1).add_(gf * (1 - b1))
@@ -99,9 +108,9 @@ def adam_update(w, g, m1, m2, p, scal, *, b1, b2, eps, wd, decoupled,
                              f"{n} elements ({t.dtype}, {t.numel()})")
     if g.numel() != n or (p is not None and p.numel() != n):
         raise ValueError(f"adam_update: g / p must have w's {n} elements")
-    if scal.dtype != torch.float32 or scal.shape != (3,) \
+    if scal.dtype != torch.float32 or scal.shape != (4,) \
             or scal.device != w.device:
-        raise ValueError(f"adam_update: scal must be fp32 [3] on {w.device}"
+        raise ValueError(f"adam_update: scal must be fp32 [4] on {w.device}"
                          f" ({scal.dtype} {tuple(scal.shape)} "
                          f"{scal.device})")
     if skip is not None and (skip.dtype != torch.bool or skip.numel() != 1

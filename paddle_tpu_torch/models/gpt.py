@@ -26,8 +26,8 @@ import torch
 from torch import nn
 
 from ..device import resolve_device, to_torch_dtype
-from ..kernels.flash_attention import flash_attention
 from ..nn import functional as F
+from ..nn.functional import flash_attention
 from ..nn.layers import Dropout, Embedding, LayerNorm, Linear
 
 _NO_CACHE = ("GPT with caches= (GPT serving) is not ported (ROADMAP Queue "

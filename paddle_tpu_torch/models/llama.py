@@ -18,8 +18,8 @@ from torch import nn
 
 from ..device import resolve_device, to_torch_dtype
 from ..incubate.nn import functional as IF
-from ..kernels.flash_attention import flash_attention
 from ..nn import functional as F
+from ..nn.functional import flash_attention
 from ..nn.layers import Embedding, Linear, RMSNorm
 
 

@@ -1,10 +1,11 @@
 """Gradient clipping (port of paddle_tpu/nn/clip.py: ``ClipGradByValue``,
 ``ClipGradByNorm``, ``ClipGradByGlobalNorm``, ``clip_grad_norm_``).
 
-The three classes are called by the optimizer with ``[(param, grad),
-...]`` and return new gradients, leaving ``param.grad`` untouched, as the
-JAX package does; they compute on the device and read nothing back, so a
-captured train step runs them.  `clip_grad_norm_` reads its norm to the
+The three classes are called with ``[(param, grad), ...]`` and return
+new gradients, leaving ``param.grad`` untouched, as the JAX package does;
+the optimizer calls `ClipGradByGlobalNorm.scale` instead and applies that
+scale inside its update.  They compute on the device and read nothing
+back, so a captured train step runs them.  `clip_grad_norm_` reads its norm to the
 host, as JAX's does: it is for eager loops only.
 """
 from __future__ import annotations
@@ -53,21 +54,42 @@ class ClipGradByNorm(ClipGradBase):
 class ClipGradByGlobalNorm(ClipGradBase):
     """``g * clip_norm / max(global_norm, clip_norm)`` for every gradient:
     gradients are left as they are while the norm is within ``clip_norm``.
-    One global L2 norm over every gradient, in fp32."""
+    ``group_name`` and ``auto_skip_clip`` are stored, as the JAX package
+    stores them; neither changes the result.
 
-    def __init__(self, clip_norm):
+    The optimizers take only `scale`, one device scalar, and apply it as
+    they read each gradient (the Adam kernel as it loads g), so no scaled
+    copy of any gradient is written.  ``__call__`` returns the scaled
+    gradients for a caller that clips by hand."""
+
+    def __init__(self, clip_norm, group_name="default_group",
+                 auto_skip_clip=False):
         self.clip_norm = float(clip_norm)
+        self.group_name = group_name
+        self.auto_skip_clip = auto_skip_clip
 
-    def __call__(self, params_grads):
+    def scale(self, params_grads):
+        """``clip_norm / max(norm, clip_norm)`` (JAX nn/clip.py
+        ``scale_fn``'s ``s``, a true fp32 division) as an fp32 0-dim
+        tensor on the gradients' device, or None without gradients;
+        nothing is read back to the host.  The global L2 norm is one
+        `torch._foreach_norm` pass that reads each gradient once in its
+        own dtype and sums in fp32 (no fp32 copy of a gradient; a fixed
+        order of partial sums, so the same bits on every run), then the
+        norm of those norms."""
         grads = [g for _, g in params_grads if g is not None]
         if not grads:
+            return None
+        norms = torch._foreach_norm(grads, 2.0, dtype=torch.float32)
+        denom = torch.clamp_min(torch.linalg.vector_norm(torch.stack(norms)),
+                                self.clip_norm)
+        return torch.full_like(denom, self.clip_norm) / denom
+
+    def __call__(self, params_grads):
+        s = self.scale(params_grads)
+        if s is None:
             return params_grads
-        sq = torch.zeros((), dtype=torch.float32, device=grads[0].device)
-        for g in grads:
-            sq = sq + g.float().square().sum()
-        norm = torch.sqrt(sq)
-        scale = self.clip_norm / torch.clamp_min(norm, self.clip_norm)
-        return [(p, None if g is None else (g.float() * scale).to(g.dtype))
+        return [(p, None if g is None else (g.float() * s).to(g.dtype))
                 for p, g in params_grads]
 
 

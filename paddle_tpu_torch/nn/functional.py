@@ -1,16 +1,23 @@
 """Functional ops of the serving and training paths (port of
 paddle_tpu/nn/functional.py: ``rms_norm``, ``layer_norm``, ``silu``,
 ``gelu``, ``dropout``, ``linear``, ``cross_entropy``,
-``scaled_dot_product_attention``)."""
+``scaled_dot_product_attention``; and the public ``flash_attention`` of
+paddle_tpu/pallas/flash_attention.py).
+
+``linear``, ``rms_norm``, ``layer_norm``, ``cross_entropy`` and the two
+attention entries apply `amp.auto_cast`'s lists under the JAX op names
+(`amp.amp_op`), as the JAX package's dispatch hook applies them."""
 from __future__ import annotations
 
 import torch
 
+from .. import amp
 from ..kernels import flash_attention as _fa
 from ..kernels import graph_state
 from ..kernels import rms_norm as _rms
 
 
+@amp.amp_op("rms_norm")
 def rms_norm(x, weight, epsilon=1e-6):
     """x / rms(x) * weight: the RMS-norm kernels on the card, their plain
     versions on the CPU.  When autograd needs a gradient the call goes
@@ -21,6 +28,7 @@ def rms_norm(x, weight, epsilon=1e-6):
     return _rms.rms_norm(x, weight, epsilon)
 
 
+@amp.amp_op("layer_norm")
 def layer_norm(x, normalized_shape=None, weight=None, bias=None,
                epsilon=1e-5):
     """The JAX package's rounding order, not ``F.layer_norm``'s: the
@@ -88,6 +96,7 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
                                                         device=x.device))
 
 
+@amp.amp_op("linear")
 def linear(x, weight, bias=None):
     """y = x @ W + b with W in Paddle's ``[in, out]`` layout."""
     y = torch.matmul(x, weight)
@@ -128,6 +137,7 @@ class _SoftmaxXent(torch.autograd.Function):
         return d.to(logits.dtype), None, None
 
 
+@amp.amp_op("cross_entropy")
 def cross_entropy(input, label, ignore_index=-100):  # noqa: A002
     """Hard-label softmax cross-entropy over the last axis (the LM-head
     case of paddle_tpu's ``cross_entropy``, ``reduction="mean"``): fp32
@@ -138,6 +148,10 @@ def cross_entropy(input, label, ignore_index=-100):  # noqa: A002
     return loss.sum() / count.clamp_min(1.0)
 
 
+flash_attention = amp.amp_op("flash_attention")(_fa.flash_attention)
+
+
+@amp.amp_op("flash_attention")
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
                                  training=True, generator=None):

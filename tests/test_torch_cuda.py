@@ -24,6 +24,7 @@ from paddle_tpu_torch.models import (GPTForCausalLM, LlamaForCausalLM,
 from paddle_tpu_torch.models.gpt import GPTConfig
 from paddle_tpu_torch.nn import RMSNorm
 from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+from paddle_tpu_torch import optimizer as optim
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.optimizer import lr as lrs
 from paddle_tpu_torch.serving import (AdapterPool, Engine, SamplingParams,
@@ -515,7 +516,7 @@ def test_adam_kernel_on_card(card, p_dtype, master, decoupled, wd):
             else:
                 ww, p = ww.to(p_dtype).float(), torch.empty(
                     n, device=card, dtype=p_dtype)
-            scal = torch.tensor([3e-4, 0.271, 0.002997], device=card)
+            scal = torch.tensor([3e-4, 0.271, 0.002997, 1.0], device=card)
             fn(ww, grad, a, b, p, scal, b1=0.9, b2=0.999, eps=1e-8, wd=wd,
                decoupled=decoupled)
             outs.append([t for t in (ww, a, b, p) if t is not None])
@@ -1470,3 +1471,184 @@ def test_compiled_train_step_schedule_and_loss_on_card(card):
     # each replay's step ~ lr: a tenth of the previous one's
     for a, b in zip(deltas[1:], deltas[2:]):
         assert b < 0.3 * a, deltas
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g_dtype", [torch.bfloat16, torch.float16,
+                                     torch.float32])
+def test_adam_clip_scale_on_card(card, g_dtype):
+    """The global-norm clip's scale as the fourth device scalar: the
+    kernel loads ``float(G(float(g) * gscale))`` and equals its plain
+    version bit for bit, and the clip applied first (``(g.float() *
+    s).to(G)``) followed by the unclipped update; ``gscale`` 1 is the
+    update without a scale."""
+    g = torch.Generator(device=card).manual_seed(10)
+    n = 4096 * 3 + 7
+    w = torch.randn(n, device=card, generator=g)
+    m1 = 1e-2 * torch.randn(n, device=card, generator=g)
+    m2 = 1e-4 * torch.rand(n, device=card, generator=g)
+    grad = torch.randn(n, device=card, generator=g).to(g_dtype)
+    lr = torch.full((), 1e-3, device=card)
+    step = torch.full((), 4.0, device=card)
+    gs = torch.full((), 0.2917, device=card)
+    hyper = dict(b1=0.9, b2=0.999, eps=1e-8, wd=0.01, decoupled=True)
+    p_dtype = torch.bfloat16 if g_dtype == torch.float32 else g_dtype
+
+    def state(gr=grad):
+        return [w.clone(), gr, m1.clone(), m2.clone(),
+                torch.empty(n, device=card, dtype=p_dtype)]
+    runs = []
+    for fn, gr, s in ((adam.adam_update, grad, gs),
+                      (adam.adam_update_ref, grad, gs),
+                      (adam.adam_update, (grad.float() * gs).to(g_dtype),
+                       None)):
+        st = state(gr)
+        fn(*st, adam.adam_scalars(lr, step, 0.9, 0.999, gscale=s), **hyper)
+        runs.append(st)
+    for other in runs[1:]:
+        for i in (0, 2, 3, 4):
+            assert torch.equal(runs[0][i], other[i]), i
+    one, none = state(), state()
+    adam.adam_update(*one, adam.adam_scalars(
+        lr, step, 0.9, 0.999, gscale=torch.ones((), device=card)), **hyper)
+    adam.adam_update(*none, adam.adam_scalars(lr, step, 0.9, 0.999),
+                     **hyper)
+    for i in (0, 2, 3, 4):
+        assert torch.equal(one[i], none[i])
+    assert not torch.equal(one[0], runs[0][0])
+
+
+OTHER_OPTIMIZERS = {
+    "SGD": lambda ps, clip: optim.SGD(0.1, parameters=ps, grad_clip=clip,
+                                      weight_decay=0.01),
+    "Momentum": lambda ps, clip: optim.Momentum(
+        0.05, 0.9, parameters=ps, use_nesterov=True, grad_clip=clip),
+    "Adagrad": lambda ps, clip: optim.Adagrad(
+        0.05, parameters=ps, initial_accumulator_value=0.1, grad_clip=clip),
+    "RMSProp": lambda ps, clip: optim.RMSProp(
+        1e-3, centered=True, momentum=0.9, parameters=ps, grad_clip=clip),
+    "Adadelta": lambda ps, clip: optim.Adadelta(1.0, parameters=ps,
+                                                grad_clip=clip),
+    "Adamax": lambda ps, clip: optim.Adamax(1e-3, parameters=ps,
+                                            grad_clip=clip),
+    "Lamb": lambda ps, clip: optim.Lamb(1e-3, parameters=ps, grad_clip=clip),
+}
+
+
+def _optimizer_lane(card, name, dtype, compiled, batches):
+    """The tiny GPT of `_tiny_gpt_lane` (attention and residual dropout
+    0.1, seed 4) under optimizer ``name`` with a global-norm clip of 0.5
+    (its scale < 1): eager or compiled; (losses, state, the step)."""
+    cfg = GPTConfig(vocab_size=512, hidden_size=128, num_layers=2,
+                    num_heads=2, max_seq_len=64, attn_dropout=0.1,
+                    dropout=0.1)
+    model = GPTForCausalLM(cfg, device=card, seed=4)
+    opt = OTHER_OPTIMIZERS[name](model.parameters(),
+                                 ClipGradByGlobalNorm(0.5))
+    if dtype != torch.float32:
+        model, opt = amp.decorate(model, opt, level="O2", dtype=dtype)
+    opt._ensure_state()
+    cs = CompiledTrainStep(lambda x, y: model(x, labels=y)[1], opt,
+                           network=model)
+    losses = []
+    for x, y in batches:
+        loss = cs(x, y) if compiled else cs._default_eager_step(x, y, True)
+        losses.append(loss.detach().float().reshape(1))
+    state = [p.detach().clone() for p in model.parameters()]
+    state += [v.clone() for vals in opt._state.values() for v in vals
+              if v is not None]
+    return torch.cat(losses), state, cs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(OTHER_OPTIMIZERS))
+def test_optimizer_compiled_replay_equals_eager_on_card(card, name, dtype):
+    """Each optimizer besides Adam/AdamW under `CompiledTrainStep`: one
+    capture, and replays equal to the eager step bit for bit (losses,
+    parameters, every state tensor, fp32 masters in bf16)."""
+    batches = _gpt_batches(card, 5)
+    eager = _optimizer_lane(card, name, dtype, False, batches)
+    comp = _optimizer_lane(card, name, dtype, True, batches)
+    cs = comp[2]
+    assert cs.compiled and cs.fallbacks == 0, cs.fallback_reason
+    assert [c for c, _, _ in cs.graph_stats().values()] == [1]
+    assert torch.isfinite(eager[0]).all()
+    assert torch.equal(eager[0], comp[0])
+    for a, b in zip(eager[1], comp[1]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_lbfgs_on_card_falls_back_with_one_warning(card):
+    """LBFGS steps on the card (the loss falls over 2 closure steps);
+    `CompiledTrainStep` falls back for it with one warning."""
+    cfg = GPTConfig(vocab_size=512, hidden_size=128, num_layers=2,
+                    num_heads=2, max_seq_len=64)
+    model = GPTForCausalLM(cfg, device=card, seed=4)
+    (x, y), = _gpt_batches(card, 1)
+    opt = optim.LBFGS(learning_rate=1.0, max_iter=4, history_size=5,
+                      line_search_fn="strong_wolfe",
+                      parameters=model.parameters())
+
+    def closure():
+        opt.clear_grad()
+        loss = model(x, labels=y)[1]
+        loss.backward()
+        return loss
+    first = float(closure())
+    for _ in range(2):
+        opt.step(closure)
+    assert float(closure()) < first
+    with pytest.warns(UserWarning, match="LBFGS.step is overridden") as rec:
+        cs = CompiledTrainStep(lambda a, b: model(a, labels=b)[1], opt,
+                               network=model)
+    assert len(rec) == 1 and not cs.compiled
+
+
+@pytest.mark.cuda
+def test_capture_keeps_garbage_collection_out_on_card(card):
+    """A CUDA graph left in a reference cycle is destroyed when the
+    garbage collector finds it; a collection inside another graph's
+    capture destroyed one there and invalidated the capture (the card
+    tests' full run failed so, in the schedule test above).  `CapturedStep`
+    keeps the collector off during the capture: the captured forward
+    sees it off, leaves a graph in a new cycle (collected at every
+    allocation otherwise), and the step captures, replays and turns the
+    collector back on; the cycle goes after the capture."""
+    import gc
+    import weakref
+    x = torch.zeros(4, device=card)
+    stale = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(stale):
+        x.add_(1.0)
+    stale.replay()
+    gone = weakref.ref(stale)
+    holder = [stale]
+    del stale
+    seen = []
+    cfg = GPTConfig(vocab_size=512, hidden_size=128, num_layers=2,
+                    num_heads=2, max_seq_len=64)
+    model = GPTForCausalLM(cfg, device=card, seed=4)
+    opt = AdamW(learning_rate=1e-3, parameters=model.parameters())
+
+    def fwd(a, b):
+        if torch.cuda.is_current_stream_capturing():
+            seen.append(gc.isenabled())
+            cycle = [holder.pop()]
+            cycle.append(cycle)             # unreachable at return
+        return model(a, labels=b)[1]
+    cs = CompiledTrainStep(fwd, opt)
+    old = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        for a, b in _gpt_batches(card, 3):
+            loss = cs(a, b)
+    finally:
+        gc.set_threshold(*old)
+    assert seen == [False]
+    assert cs.compiled and torch.isfinite(loss).all()
+    assert [c for c, _, _ in cs.graph_stats().values()] == [1]
+    assert gc.isenabled()
+    gc.collect()
+    assert gone() is None

@@ -1,0 +1,496 @@
+"""The port's optimizers against the JAX package's on the CPU: tiny fp32
+(and bf16 + fp32 master) parameters made from a numpy seed, the same
+gradients fed to both packages for 3 steps; every weight, every state
+tensor and the step counter compared.
+
+Tolerances.  Both packages run the same fp32 ops in the same order, but
+one op rounds differently: XLA:CPU contracts each ``a * b + c`` of the
+jitted update (``w - lr * g``, ``b1 * m + (1 - b1) * g``, ...) into one
+fused multiply-add, rounded once, where torch rounds the product and the
+sum apart (as the port's CUDA Adam kernel and the Pallas kernel do).  So
+the JAX comparisons hold ``rtol=1e-6, atol=1e-7`` (an ulp or two after 3
+steps); Lamb's two norms (``jnp.linalg.norm`` against
+``torch.linalg.vector_norm``, sums in another order) stay within it too.
+LBFGS's dot products (the same reason, amplified by the two-loop
+recursion) are held at ``rtol=1e-5`` after 2 closure steps.  AdamW with a
+global-norm clip: the norm (XLA's sum of squares against torch's
+``_foreach_norm``, a norm of norms) scales every gradient, so it is held
+at ``tests/test_torch_train.py``'s ``PARAM_RTOL``.  Within the port
+everything is bit for bit: the clip's scale fused into the update against
+the clip applied first, and the compiled body against the eager step.
+"""
+import inspect
+import warnings
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+import paddle_tpu as paddle
+from paddle_tpu import regularizer as jreg
+from paddle_tpu.core.tensor import Tensor
+from paddle_tpu.framework.train_step import \
+    CompiledTrainStep as JaxCompiledTrainStep
+from paddle_tpu_torch import optimizer as topt
+from paddle_tpu_torch import regularizer as treg
+from paddle_tpu_torch.framework import CompiledTrainStep
+from paddle_tpu_torch.nn import Linear
+from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm, ClipGradByNorm
+
+SHAPES = ((8, 4), (16,), (3, 5))
+STEPS = 3
+TOL = dict(rtol=1e-6, atol=1e-7)
+PARAM_ATOL, PARAM_RTOL = 2e-5, 1e-2     # tests/test_torch_train.py's
+
+
+def _data(seed, steps=STEPS):
+    rng = np.random.default_rng(seed)
+    params = [rng.normal(size=s).astype(np.float32) for s in SHAPES]
+    grads = [[rng.normal(size=s).astype(np.float32) for s in SHAPES]
+             for _ in range(steps)]
+    return params, grads
+
+
+def _jnp(t):
+    return np.asarray(t._data.astype(jnp.float32))
+
+
+def _pair(params, dtype="float32"):
+    """The same parameters in both packages, named ``w0``, ``w1``, ...
+    (`_name`)."""
+    jps, tps = [], []
+    for i, a in enumerate(params):
+        jp = paddle.Parameter(a.copy(), name=f"w{i}")
+        tp = torch.nn.Parameter(torch.from_numpy(a.copy()))
+        tp.param_name = f"w{i}"
+        if dtype == "bfloat16":
+            jp._data = jp._data.astype(jnp.bfloat16)
+            tp.data = tp.data.bfloat16()
+        jps.append(jp)
+        tps.append(tp)
+    return jps, tps
+
+
+def _name(p):
+    """``p.name`` in the JAX package, ``p.param_name`` in the port (torch
+    reserves ``Tensor.name``)."""
+    return p.param_name if torch.is_tensor(p) else p.name
+
+
+def _set_grads(jps, tps, grads, dtype="float32"):
+    for jp, tp, g in zip(jps, tps, grads):
+        jp.grad = Tensor(jnp.asarray(g).astype(dtype))
+        tp.grad = torch.from_numpy(g.copy()).to(
+            torch.bfloat16 if dtype == "bfloat16" else torch.float32)
+
+
+def _assert_same(jo, to, jps, tps, tol=TOL):
+    """Weights, every state tensor (the JAX package's names) and the step
+    counter: within ``tol`` (None: bit for bit)."""
+    def check(got, want, what):
+        if tol is None:
+            np.testing.assert_array_equal(got, want, err_msg=what)
+        else:
+            np.testing.assert_allclose(got, want, err_msg=what, **tol)
+    for i, (jp, tp) in enumerate(zip(jps, tps)):
+        check(tp.detach().float().numpy(), _jnp(jp), f"param {i}")
+    assert set(to._state) == set(jo._state), (set(to._state),
+                                             set(jo._state))
+    for name, vals in jo._state.items():
+        for i, (jv, tv) in enumerate(zip(vals, to._state[name])):
+            assert (jv is None) == (tv is None), f"{name}.{i}"
+            if jv is not None:
+                check(tv.numpy(), _jnp(jv), f"{name}.{i}")
+    assert float(to._step_tensor) == float(jo._step_tensor._data)
+    assert to._step_count == jo._step_count
+
+
+def _run(make, params, grads, dtype="float32", setup=None):
+    """``make(opt_module, reg_module, params)`` → an optimizer of either
+    package; the same gradients into both for every step of ``grads``."""
+    jps, tps = _pair(params, dtype)
+    if setup is not None:
+        setup(jps, tps)
+    jo = make(paddle.optimizer, jreg, jps)
+    to = make(topt, treg, tps)
+    for gs in grads:
+        _set_grads(jps, tps, gs, dtype)
+        jo.step()
+        to.step()
+    return jo, to, jps, tps
+
+
+# name: (make, tolerance)
+CASES = {
+    "sgd": lambda o, r, ps: o.SGD(0.1, parameters=ps),
+    "sgd-wd-float": lambda o, r, ps: o.SGD(0.1, parameters=ps,
+                                           weight_decay=0.05),
+    "momentum": lambda o, r, ps: o.Momentum(0.05, 0.9, parameters=ps),
+    "momentum-nesterov-l2": lambda o, r, ps: o.Momentum(
+        0.05, 0.9, parameters=ps, use_nesterov=True,
+        weight_decay=r.L2Decay(0.02)),
+    "adam-l1": lambda o, r, ps: o.Adam(0.01, parameters=ps,
+                                       weight_decay=r.L1Decay(0.05)),
+    "adamw": lambda o, r, ps: o.AdamW(0.01, parameters=ps,
+                                      weight_decay=0.01),
+    "adagrad-init-acc": lambda o, r, ps: o.Adagrad(
+        0.1, parameters=ps, initial_accumulator_value=0.1,
+        weight_decay=0.01),
+    "rmsprop": lambda o, r, ps: o.RMSProp(0.01, parameters=ps),
+    "rmsprop-centered-momentum": lambda o, r, ps: o.RMSProp(
+        0.01, centered=True, momentum=0.9, parameters=ps,
+        weight_decay=r.L2Decay(0.01)),
+    "adadelta-l1": lambda o, r, ps: o.Adadelta(
+        1.0, parameters=ps, weight_decay=r.L1Decay(0.01)),
+    "adamax": lambda o, r, ps: o.Adamax(0.01, parameters=ps,
+                                        weight_decay=0.01),
+    "lamb-exclude": lambda o, r, ps: o.Lamb(
+        0.01, parameters=ps,
+        exclude_from_weight_decay_fn=lambda p: _name(p) == "w1"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_optimizer_matches_jax(case):
+    """Three steps of fp32 parameters (weight decay as a float, as
+    `L2Decay` and as `L1Decay`, read as an L2 coefficient in both
+    packages), against the JAX package."""
+    params, grads = _data(1)
+    _assert_same(*_run(CASES[case], params, grads))
+
+
+@pytest.mark.parametrize("case", ["sgd", "momentum-nesterov-l2", "adamw",
+                                  "adagrad-init-acc",
+                                  "rmsprop-centered-momentum",
+                                  "adadelta-l1", "adamax", "lamb-exclude"])
+def test_bf16_params_with_fp32_masters_match_jax(case):
+    """bf16 parameters and gradients: the update runs on the fp32
+    master and the parameter gets it rounded once, in both packages."""
+    params, grads = _data(2)
+    jo, to, jps, tps = _run(CASES[case], params, grads, dtype="bfloat16")
+    assert all(p.dtype == torch.bfloat16 for p in tps)
+    assert all(m is not None and m.dtype == torch.float32
+               for m in to._state["master"])
+    _assert_same(jo, to, jps, tps)
+
+
+@pytest.mark.parametrize("case", ["momentum", "adamw", "rmsprop",
+                                  "adamax"])
+def test_lr_scale_and_regularizer_match_jax(case):
+    """A parameter's ``optimize_attr["learning_rate"]`` (its own device
+    scalars) and ``regularizer`` (decay applies whatever
+    ``apply_decay_param_fun`` says), which receives each parameter's
+    ``name``."""
+    seen = {"jax": [], "port": []}
+
+    def setup(jps, tps):
+        for side, ps in (("jax", jps), ("port", tps)):
+            ps[1].optimize_attr = {"learning_rate": 0.5}
+        jps[0].regularizer = jreg.L2Decay(0.3)
+        tps[0].regularizer = treg.L2Decay(0.3)
+
+    def make(o, r, ps):
+        side = "port" if o is topt else "jax"
+
+        def fn(name):
+            seen[side].append(name)
+            return name == "w2"
+        opt = CASES[case](o, r, ps)
+        opt._weight_decay = r.L2Decay(0.05)
+        opt._apply_decay_param_fun = fn
+        return opt
+    params, grads = _data(3)
+    _assert_same(*_run(make, params, grads, setup=setup))
+    assert seen["port"] == seen["jax"] and set(seen["port"]) == {"w1",
+                                                                 "w2"}
+
+
+@pytest.mark.parametrize("case", ["sgd", "momentum-nesterov-l2", "adamw",
+                                  "adagrad-init-acc",
+                                  "rmsprop-centered-momentum",
+                                  "adadelta-l1", "adamax", "lamb-exclude"])
+def test_jax_state_dict_adopted_and_resumed(case):
+    """Two JAX steps; the JAX weights and ``state_dict()`` (as numpy)
+    into fresh port objects by ``set_state_dict``; one more step on each
+    side."""
+    params, grads = _data(4)
+    jps, _ = _pair(params)
+    jo = CASES[case](paddle.optimizer, jreg, jps)
+    for gs in grads[:2]:
+        for jp, g in zip(jps, gs):
+            jp.grad = Tensor(jnp.asarray(g))
+        jo.step()
+    sd = {k: (np.asarray(v._data) if isinstance(v, Tensor) else v)
+          for k, v in jo.state_dict().items()}
+    _, tps = _pair([_jnp(p) for p in jps])
+    to = CASES[case](topt, treg, tps)
+    to.set_state_dict(sd)
+    _set_grads(jps, tps, grads[2])
+    jo.step()
+    to.step()
+    _assert_same(jo, to, jps, tps)
+
+
+OPTIMIZERS = ("Optimizer", "SGD", "Momentum", "Adam", "AdamW", "Adagrad",
+              "RMSProp", "Lamb", "Adadelta", "Adamax", "LBFGS")
+
+
+@pytest.mark.parametrize("name", OPTIMIZERS)
+def test_constructor_signatures_match_jax(name):
+    """Parameter for parameter, in JAX's positional order, with JAX's
+    defaults (``name``, ``lazy_mode``, ``lr_ratio``, ``**kwargs`` where
+    JAX has them)."""
+    def sig(cls):
+        return [(p.name, p.kind, p.default) for p in
+                inspect.signature(cls.__init__).parameters.values()]
+    assert sig(getattr(topt, name)) == sig(getattr(paddle.optimizer, name))
+
+
+def test_positional_construction_and_decay_objects():
+    """JAX's positional order reaches the same slots; a float decay
+    becomes `L2Decay`; `AdamW(weight_decay=L2Decay(0.01))` steps (it
+    raised before); `regularizer` re-exports the two classes."""
+    p = torch.nn.Parameter(torch.ones(4))
+    clip = ClipGradByGlobalNorm(1.0)
+    o = topt.AdamW(0.01, 0.8, 0.99, 1e-7, [p], 0.02, 0.5, None, clip, True,
+                   False, "adamw_0")
+    assert (o._beta1, o._beta2, o._epsilon) == (0.8, 0.99, 1e-7)
+    assert isinstance(o._weight_decay, treg.L2Decay)
+    assert o._weight_decay.coeff == 0.02 and o._grad_clip is clip
+    assert o._use_master_weights is False
+    a = topt.Adam(0.01, 0.9, 0.999, 1e-8, [p], None, None, True, False,
+                  "adam_0", None, extra=1)
+    assert a._use_master_weights is False
+    w = topt.AdamW(learning_rate=0.1, parameters=[p],
+                   weight_decay=treg.L2Decay(0.01))
+    p.grad = torch.ones(4)
+    w.step()
+    assert torch.all(p.detach() < 1.0)
+    assert treg.L1Decay is topt.L1Decay and treg.L2Decay is topt.L2Decay
+    import paddle_tpu_torch
+    assert paddle_tpu_torch.regularizer is treg
+
+
+def test_apply_decay_param_fun_gets_the_name():
+    """``apply_decay_param_fun`` receives the parameter's name, as the JAX
+    package passes ``p.name``: ``p.param_name`` (None for a parameter
+    without one)."""
+    ps = [torch.nn.Parameter(torch.ones(2)) for _ in range(2)]
+    ps[0].param_name = "linear_0.w_0"
+    seen = []
+    o = topt.AdamW(0.1, parameters=ps,
+                   apply_decay_param_fun=lambda n: seen.append(n) or True)
+    for p in ps:
+        p.grad = torch.ones(2)
+    o.step()
+    assert seen == ["linear_0.w_0", None]
+
+
+# ------------------------------------------------- clip scale in the update
+
+def _clip_lane(params, grads, fused, dtype, cls="AdamW"):
+    """The port alone: the clip's scale fused into the update, or the
+    clip applied first (`ClipGradByGlobalNorm.__call__`) and an
+    unclipped update."""
+    _, tps = _pair(params, dtype)
+    clip = ClipGradByGlobalNorm(0.5)
+    kw = dict(weight_decay=0.01) if cls == "AdamW" else {}
+    opt = getattr(topt, cls)(0.01, parameters=tps,
+                             grad_clip=clip if fused else None, **kw)
+    for gs in grads:
+        for tp, g in zip(tps, gs):
+            tp.grad = torch.from_numpy(g * 4).to(tp.dtype)
+        if not fused:
+            with torch.no_grad():
+                for tp, (_, cg) in zip(tps, clip([(p, p.grad)
+                                                  for p in tps])):
+                    tp.grad = cg
+        opt.step()
+    return tps, opt
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("cls", ["AdamW", "Momentum", "Lamb"])
+def test_fused_clip_scale_equals_clip_then_update(cls, dtype):
+    """The scale < 1 (the norm ~4x the clip norm): applied inside the
+    update as g is read (``float(G(float(g) * s))``) equals the clip's
+    scaled copy followed by the update, bit for bit; in bf16 that needs
+    the rounding to g's dtype."""
+    params, grads = _data(5)
+    a, oa = _clip_lane(params, grads, True, dtype, cls)
+    b, ob = _clip_lane(params, grads, False, dtype, cls)
+    for x, y in zip(a, b):
+        assert torch.equal(x.detach(), y.detach())
+    for name, vals in oa._state.items():
+        for x, y in zip(vals, ob._state[name]):
+            assert (x is None and y is None) or torch.equal(x, y), name
+
+
+def test_adamw_with_global_norm_clip_matches_jax():
+    """AdamW + `ClipGradByGlobalNorm` with the scale < 1, the port's fused
+    path against JAX's clip then update: PARAM_RTOL (the norm's sums in
+    another order); the scale itself within 1e-6."""
+    params, grads = _data(6)
+    grads = [[g * 4 for g in gs] for gs in grads]
+
+    def make(o, r, ps):
+        clip = (ClipGradByGlobalNorm if o is topt else
+                paddle.nn.ClipGradByGlobalNorm)(0.5)
+        return o.AdamW(0.01, parameters=ps, weight_decay=0.01,
+                       grad_clip=clip)
+    jo, to, jps, tps = _run(make, params, grads)
+    for jp, tp in zip(jps, tps):
+        np.testing.assert_allclose(tp.detach().numpy(), _jnp(jp),
+                                   rtol=PARAM_RTOL, atol=PARAM_ATOL)
+    pg = [(None, torch.from_numpy(g)) for g in grads[0]]
+    s = ClipGradByGlobalNorm(0.5).scale(pg)
+    assert s.dtype == torch.float32 and s.dim() == 0 and float(s) < 0.5
+    jout = paddle.nn.ClipGradByGlobalNorm(0.5)(
+        [(None, Tensor(jnp.asarray(g))) for g in grads[0]])
+    np.testing.assert_allclose(
+        float(s), float(_jnp(jout[0][1])[0, 0] / grads[0][0][0, 0]),
+        rtol=1e-6)
+
+
+def test_other_clips_still_return_new_gradients():
+    """A clip other than the global norm runs as before (new gradients,
+    no scale); with none there is nothing to do."""
+    ps = [torch.nn.Parameter(torch.ones(3))]
+    ps[0].grad = torch.full((3,), 10.0)
+    o = topt.SGD(0.1, parameters=ps, grad_clip=ClipGradByNorm(1.0))
+    pg, gs = o._clip([(ps[0], ps[0].grad)])
+    assert gs is None and torch.allclose(pg[0][1].norm(), torch.ones(()))
+    o2 = topt.SGD(0.1, parameters=ps)
+    assert o2._clip([(ps[0], ps[0].grad)]) == ([(ps[0], ps[0].grad)], None)
+
+
+# ------------------------------------------------ compiled body, LBFGS
+
+def _tiny_model(seed=0):
+    torch.manual_seed(seed)
+    m = torch.nn.Sequential(Linear(8, 16, device="cpu"),
+                            Linear(16, 4, device="cpu"))
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for layer in m:
+            layer.reset_parameters(g)
+            layer.bias.normal_(0.0, 0.1, generator=g)
+    return m
+
+
+COMPILED = {
+    "SGD": lambda ps: topt.SGD(0.1, parameters=ps, weight_decay=0.01),
+    "Momentum": lambda ps: topt.Momentum(0.05, 0.9, parameters=ps,
+                                         use_nesterov=True),
+    "Adagrad": lambda ps: topt.Adagrad(0.1, parameters=ps,
+                                       initial_accumulator_value=0.1),
+    "RMSProp": lambda ps: topt.RMSProp(0.01, centered=True, momentum=0.9,
+                                       parameters=ps),
+    "Adadelta": lambda ps: topt.Adadelta(1.0, parameters=ps),
+    "Adamax": lambda ps: topt.Adamax(0.01, parameters=ps),
+    "Lamb": lambda ps: topt.Lamb(0.01, parameters=ps),
+}
+
+
+@pytest.mark.parametrize("name", sorted(COMPILED))
+def test_compiled_body_equals_eager_step(name):
+    """`CompiledTrainStep`'s body (the CPU route: no graph, the same
+    `_update_tail`) against the eager loop, bit for bit, with a global-norm
+    clip whose scale is < 1."""
+    rng = np.random.default_rng(7)
+    batches = [(torch.from_numpy(rng.normal(size=(4, 8)).astype(np.float32)),
+                torch.from_numpy(rng.normal(size=(4, 4)).astype(np.float32)))
+               for _ in range(4)]
+
+    def lane(compiled):
+        m = _tiny_model()
+        opt = COMPILED[name](list(m.parameters()))
+        opt._grad_clip = ClipGradByGlobalNorm(0.1)
+
+        def fwd(x, y):
+            return ((m(x) - y) ** 2).mean()
+        cs = CompiledTrainStep(fwd, opt, network=m) if compiled else None
+        losses = []
+        for x, y in batches:
+            if compiled:
+                loss = cs(x, y)
+            else:
+                loss = fwd(x, y)
+                loss.backward()
+                opt.step()
+                opt.clear_grad()
+            losses.append(float(loss))
+        if compiled:
+            assert cs.compiled and cs.fallbacks == 0, cs.fallback_reason
+        state = [p.detach().clone() for p in m.parameters()]
+        state += [v for vals in opt._state.values() for v in vals
+                  if v is not None]
+        return losses, state, float(opt._step_tensor)
+    eager, comp = lane(False), lane(True)
+    assert eager[0] == comp[0] and eager[2] == comp[2] == 4.0
+    for a, b in zip(eager[1], comp[1]):
+        assert torch.equal(a, b)
+
+
+def _lbfgs_problem(seed=8):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(16, 6)).astype(np.float32)
+    y = rng.normal(size=(16, 1)).astype(np.float32)
+    w = rng.normal(size=(6, 1)).astype(np.float32)
+    return x, y, w
+
+
+@pytest.mark.parametrize("line_search_fn", [None, "strong_wolfe"])
+def test_lbfgs_matches_jax(line_search_fn):
+    """Two closure steps of least squares (history 3, 4 iterations a
+    step), with and without the Armijo search: rtol 1e-5 (dot products
+    summed in another order); the loss falls."""
+    x, y, w0 = _lbfgs_problem()
+    jw = paddle.Parameter(w0.copy())
+    tw = torch.nn.Parameter(torch.from_numpy(w0.copy()))
+    jx, jy = Tensor(jnp.asarray(x)), Tensor(jnp.asarray(y))
+    tx, ty = torch.from_numpy(x), torch.from_numpy(y)
+    kw = dict(learning_rate=0.5, max_iter=4, history_size=3,
+              line_search_fn=line_search_fn)
+    jo = paddle.optimizer.LBFGS(parameters=[jw], **kw)
+    to = topt.LBFGS(parameters=[tw], **kw)
+
+    def jclosure():
+        d = paddle.matmul(jx, jw) - jy
+        loss = (d * d).mean()
+        loss.backward()
+        return loss
+
+    def tclosure():
+        loss = ((tx @ tw - ty) ** 2).mean()
+        loss.backward()
+        return loss
+    first = float(tclosure())
+    tw.grad = None
+    for _ in range(2):
+        jl = float(jo.step(jclosure))
+        tl = float(to.step(tclosure))
+    np.testing.assert_allclose(tw.detach().numpy(), _jnp(jw), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(tl, jl, rtol=1e-5)
+    assert tl < first
+    with pytest.raises(RuntimeError, match="closure"):
+        to.step()
+
+
+def test_lbfgs_compiled_step_falls_back_with_one_warning():
+    """LBFGS overrides ``step``: `CompiledTrainStep` warns once and
+    latches the reason the JAX package gives."""
+    m = _tiny_model()
+    opt = topt.LBFGS(parameters=list(m.parameters()))
+    with pytest.warns(UserWarning, match="LBFGS.step is overridden") as rec:
+        cs = CompiledTrainStep(lambda x, y: m(x).sum(), opt, network=m)
+    assert len(rec) == 1 and not cs.compiled
+    jw = paddle.Parameter(np.ones(3, np.float32))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        jcs = JaxCompiledTrainStep(lambda x, y: x,
+                                   paddle.optimizer.LBFGS(parameters=[jw]))
+    assert cs.fallback_reason == jcs.fallback_reason == \
+        "LBFGS.step is overridden (closure-style optimizers run eagerly)"

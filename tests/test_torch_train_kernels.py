@@ -209,7 +209,7 @@ def test_adam_ref_matches_pallas(interpret, decoupled, wd):
         jnp.float32(lr), jnp.float32(bc1), jnp.float32(bc2), b1=b1, b2=b2,
         eps=eps, wd=wd, decoupled=decoupled)
     tw, tm1, tm2 = _t(w.copy()), _t(m1.copy()), _t(m2.copy())
-    scal = torch.tensor([lr, bc1, bc2], dtype=torch.float32)
+    scal = torch.tensor([lr, bc1, bc2, 1.0], dtype=torch.float32)
     adam.adam_update(tw, _t(g), tm1, tm2, None, scal, b1=b1, b2=b2,
                      eps=eps, wd=wd, decoupled=decoupled)
     f = np.float32
@@ -233,7 +233,7 @@ def test_adam_ref_writes_the_rounded_parameter():
     update."""
     rng = np.random.default_rng(11)
     w, g = (rng.normal(size=(5, 7)).astype(np.float32) for _ in range(2))
-    args = dict(scal=torch.tensor([1e-3, 0.1, 0.001]), b1=0.9, b2=0.999,
+    args = dict(scal=torch.tensor([1e-3, 0.1, 0.001, 1.0]), b1=0.9, b2=0.999,
                 eps=1e-8, wd=0.01, decoupled=True)
     w32, m1, m2 = _t(w.copy()), torch.zeros(5, 7), torch.zeros(5, 7)
     adam.adam_update_ref(w32, _t(g).bfloat16().float(), m1, m2, None,
@@ -257,7 +257,8 @@ def test_cpu_route_leaves_every_launch_count_at_zero():
     rp.rope(torch.randn(1, 4, 2, 8), torch.ones(4, 8), torch.zeros(4, 8))
     w = torch.randn(3, 5)
     adam.adam_update(w, torch.randn(3, 5), torch.zeros(3, 5),
-                     torch.zeros(3, 5), None, torch.tensor([1e-3, 0.1, 0.001]),
+                     torch.zeros(3, 5), None,
+                     torch.tensor([1e-3, 0.1, 0.001, 1.0]),
                      b1=0.9, b2=0.999, eps=1e-8, wd=0.01, decoupled=True)
     counts = kernels.launch_counts()
     assert {"flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "rms_norm_bwd",
