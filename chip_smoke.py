@@ -117,6 +117,38 @@ last line:
             closure steps (the loss falls; the compiled step falls back
             with one warning)
 
+13. serve-gpt  GPT-3 6.7B, nothing cut (32 layers, hidden 4096, 32
+            heads, max_seq_len 2048, vocab 50304; bf16, random weights
+            from seed 0) behind the paged Engine with its defaults and
+            the tick on: the serve phase's 8 requests, every decode step
+            a compiled tick (no fallback) launching paged decode in every
+            layer; decode ms/step, TTFT, tokens/s, peak memory, KV pages
+            peak, and one replay's device ms against its bound (every
+            weight read once but the position table's unread rows)
+14. gpt-parity  a 2-layer fp32 GPT at GPT-3 6.7B width on the CPU and the
+            card: the engine's greedy and seeded outputs identical (tick
+            on), int8 pools under a 2-adapter pool too (the adapters'
+            tokens differ from the base's, paged_decode_int8 and
+            lora_delta launch); on the card generate with the cache equal
+            to generate without it and to the engine's greedy output,
+            speculative_generate (K 4, a 1-layer draft) equal to greedy
+            generate; beam_search (4 beams) equal on both devices; a
+            2-layer GQA Llama at 7B width (8 kv heads): generate with and
+            without the cache equal to the engine's output, its dense
+            caches holding the kv heads only
+15. generate-gpt  serve-gpt's model (GPT-3 6.7B, bf16): generate with the
+            cache, each step's last-position logits against the full
+            forward of the same ids (teacher-forced), row by row within
+            GEN_ROW_TOL (a control: the logits of the step before must be
+            rejected); ms a generated token and peak memory
+16. train-gpt2-recompute  train-gpt2 with use_recompute=True in both
+            lanes: losses equal to the lanes without recompute bit for
+            bit, the flash forward kernels launched twice a block a step,
+            the backward once; step ms and peak memory beside
+            train-gpt2's.  attn-ops adds a learned bias that requires
+            grad: no flash kernel launches, the plain route is counted,
+            and the bias gradient matches an fp64 autograd reference
+
 The second-to-last line is the kernels' JSON summary, the last line
 ``{"ok": true, "device": {...}}``.  ``--phases`` runs a subset.
 """
@@ -149,7 +181,7 @@ from paddle_tpu_torch.kernels.rope import rope, rope_ref
 from paddle_tpu_torch.incubate.nn.functional import \
     variable_length_memory_efficient_attention
 from paddle_tpu_torch.models import (GPTForCausalLM, LlamaForCausalLM,
-                                     gpt_config, llama_config)
+                                     generation, gpt_config, llama_config)
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
 from paddle_tpu_torch.framework import CompiledTrainStep
@@ -167,7 +199,17 @@ PEAK_OPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
 PHASES = ("device", "build", "kernels", "serve", "serve-lora-int8",
           "serve-tick", "parity", "train", "train-parity",
           "train-compiled-parity", "train-gpt2", "gpt2-parity", "attn-ops",
-          "train-optimizers")
+          "train-optimizers", "serve-gpt", "gpt-parity", "generate-gpt",
+          "train-gpt2-recompute")
+#: generate-gpt: the worst row error (relative to the row's norm) allowed
+#: between the cached path's last-position logits and the full forward's
+#: at GPT-3 6.7B in bf16.  Both paths round every activation to bf16 (a
+#: relative step of 2^-8) and differ in where: the cached attention runs
+#: over fp32 caches and rounds its output once, the flash kernel's p·V
+#: sums in another order.  Each of the 2 L = 64 residual updates may then
+#: round a value to the other side (at most 2^-8 of it), and these
+#: independent flips add as a random walk: sqrt(64) * 2^-8 = 0.031.
+GEN_ROW_TOL = 0.03125
 TRAIN_KERNELS = ("rms_norm", "rms_norm_bwd", "rope", "flash_fwd",
                  "flash_bwd_dkv", "flash_bwd_dq", "flash_bwd_delta", "adam")
 FLASH = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
@@ -1960,17 +2002,28 @@ def phase_serve_tick(dev, model):
     time_replays(model, tick_steps)
 
 
-def time_replays(model, steps, reps=20):
+def decode_weight_bytes(model, rows=4):
+    """Bytes of weights a decode step of ``rows`` rows must read: every
+    parameter once, but of a table only gathered (Llama's token
+    embedding, GPT's position table; GPT's token table is also its head,
+    read whole) only the ``rows`` rows it gathers."""
+    gathered = model.gpt.wpe.weight if isinstance(model, GPTForCausalLM) \
+        else model.llama.embed_tokens.weight
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    return weight_bytes - (gathered.shape[0] - rows) * gathered.shape[1] * \
+        gathered.element_size()
+
+
+def time_replays(model, steps, reps=20, tag="serve-tick"):
     """Device time of one replay of each mode's graph (CUDA events over
     ``reps`` replays, after the engine stopped: every row dead, the same
     kernels at the same shapes), by kernel group (`profile_replays`: 5,
     whose kernels must be the recorded launches), beside the step's
-    bound: every weight but the embedding table read once."""
-    cfg = model.config
-    weight_bytes = sum(p.numel() * p.element_size()
-                       for p in model.parameters())
-    weight_bytes -= (cfg.vocab_size - 4) * cfg.hidden_size * 2
+    bound: every weight but a gathered table's unread rows read once."""
+    weight_bytes = decode_weight_bytes(model)
     bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+    times = {}
     for mode, step in sorted(steps.items()):
         graph = step.graph
         graph.replay()
@@ -1983,13 +2036,15 @@ def time_replays(model, steps, reps=20):
         end.record()
         end.synchronize()
         ms = start.elapsed_time(end) / reps
+        times[mode] = (ms, bound_ms)
         groups = kernel_groups(profile_replays(step), per=5)
-        log(f"[serve-tick] one {mode} replay: {ms:.3f} ms device (CUDA "
+        log(f"[{tag}] one {mode} replay: {ms:.3f} ms device (CUDA "
             f"events, {reps} replays); bound {bound_ms:.3f} ms "
             f"({weight_bytes / 1e9:.2f} GB of weights / 3.35 TB/s), "
             f"{100 * bound_ms / ms:.1f}% of it; by group "
             f"{fmt_groups(groups, 3)} (profiled, a replay; its kernels = "
             f"the recorded launches {step.launches})")
+    return times
 
 
 def phase_parity(dev):
@@ -2682,9 +2737,11 @@ def phase_train_gpt2(dev, warmup=2, steps=6):
         f"lane's bit for bit")
     check_replay_launches("train-gpt2", counts, n, comp["cs"])
     profile_compiled(comp["cs"], ids, labels, "train-gpt2-profile")
+    lanes = {label: {k: lane[k] for k in ("losses", "step_ms", "peak_gb")}
+             for label, lane in (("eager", eager), ("compiled", comp))}
     del model, opt, comp
     torch.cuda.empty_cache()
-    return main_counts
+    return main_counts, lanes
 
 
 #: the train-optimizers phase's lanes: GPT-2 124M with each optimizer
@@ -2895,7 +2952,409 @@ def phase_attn_ops(dev):
     counts = kernels.launch_counts()
     check_launches(counts, {k_: len(cases) for k_ in MASKED_KERNELS})
     log(f"[attn-ops] launches {counts}")
+    trainable_mask_case(dev, gen)
     return counts
+
+
+def trainable_mask_case(dev, gen, b=2):
+    """A learned bias ``[1, H, S, S]`` that requires grad at GPT-2's H, S
+    and D (bf16 q, k, v; B 2): the op takes its plain version, launches no
+    kernel and counts the route; the bias gradient against an fp64
+    autograd reference on the same bf16 inputs and the same bf16 output
+    gradient (the plain version sums in fp32: the largest error within
+    1e-5 of the largest element), and a control (the bias gradient of the
+    non-causal call) rejected."""
+    g2 = GPT2_SHAPE
+    h, s, d = g2["h"], g2["s"], g2["d"]
+    q, k, v, do = (torch.randn(b, s, h, d, device=dev, generator=gen)
+                   .bfloat16() for _ in range(4))
+    bias = torch.randn(1, h, s, s, device=dev, generator=gen)
+
+    def reference(causal):
+        rb = bias.double().requires_grad_(True)
+        qd, kd, vd = (t.double().transpose(1, 2) for t in (q, k, v))
+        logits = qd @ kd.transpose(-1, -2) / d ** 0.5 + rb
+        if causal:
+            logits = logits.masked_fill(~torch.ones(
+                s, s, dtype=torch.bool, device=dev).tril(), float("-inf"))
+        out = (torch.softmax(logits, dim=-1) @ vd).transpose(1, 2)
+        (out * do.double()).sum().backward()
+        return out, rb.grad
+    before = kernels.launch_counts()
+    routes = fa.flash_attention.plain_routes
+    tb = bias.clone().requires_grad_(True)
+    out = fa.flash_attention(q, k, v, attn_mask=tb, causal=True)
+    out.backward(do)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    if after != before or fa.flash_attention.plain_routes != routes + 1:
+        raise AssertionError(f"[attn-ops] trainable mask: launches "
+                             f"{ {k_: after[k_] - before[k_] for k_ in after} }"
+                             f", plain routes {routes} -> "
+                             f"{fa.flash_attention.plain_routes}")
+    ref_out, ref_grad = reference(True)
+
+    def grad_err(want):
+        # the largest error against the gradient's largest element
+        return float((tb.grad.double() - want).abs().max()
+                     / want.abs().max())
+    err = grad_err(ref_grad)
+    out_err = max_err(out, ref_out)
+    if err > 1e-5 or out_err > 2e-2:
+        raise AssertionError(f"[attn-ops] trainable mask: bias gradient "
+                             f"{err:.3e} relative, output {out_err:.3e}")
+    control = grad_err(reference(False)[1])
+    if control <= 1e-5:
+        raise AssertionError(f"[controls] trainable mask: the non-causal "
+                             f"gradient passed ({control:.3e})")
+    log(f"[attn-ops] trainable bias [1, {h}, {s}, {s}] (B{b}, bf16 q/k/v): "
+        f"no flash launch, plain routes {routes} -> "
+        f"{fa.flash_attention.plain_routes}; bias gradient against fp64 "
+        f"autograd: max error {err:.3e} of its largest element (tolerance "
+        f"1e-5), output max abs err "
+        f"{out_err:.3e}")
+    log(f"[controls] trainable mask: the non-causal gradient rejected "
+        f"({control:.3e})")
+
+
+# ---------------------------------------------------------------------------
+# GPT serving, generation and recompute
+# ---------------------------------------------------------------------------
+
+def build_gpt_6_7b(dev):
+    cfg = gpt_config("gpt3-6.7b", max_seq_len=2048)
+    t0 = time.monotonic()
+    model = GPTForCausalLM(cfg, device=dev, dtype=torch.bfloat16,
+                           seed=0).eval()
+    torch.cuda.synchronize()
+    log(f"[serve-gpt] GPT-3 6.7B ({cfg.num_layers} layers, hidden "
+        f"{cfg.hidden_size}, {cfg.num_heads} heads, max_seq_len "
+        f"{cfg.max_seq_len}, vocab {cfg.vocab_size}; "
+        f"{model.num_params(non_embedding=False) / 1e9:.2f} B params, bf16,"
+        f" random weights, seed 0) built in {time.monotonic() - t0:.1f} s")
+    return model
+
+
+def phase_serve_gpt(dev, model):
+    """The serve phase's 8 requests through the engine's defaults (paged
+    KV, chunked prefill, prefix cache; 4 slots, bf16 pools, the model's
+    2048-token context) with the tick on: every decode step a compiled
+    tick, paged decode launched in every layer of every step; then one
+    replay of each tick graph against its bound."""
+    cfg = model.config
+    prompts, sampling = serve_requests(cfg.vocab_size)
+    scfg = ServingConfig(num_slots=4, cache_dtype="bfloat16")
+    outs, st, counts, wall, peak_gb, eng = serve_run(
+        model, dev, scfg, prompts, sampling)
+    decode_steps = st["decode_steps"]
+    need = {"paged_decode": cfg.num_layers * decode_steps}
+    check_launches(counts, need)
+    # every decode step is a replay of a graph that launches paged decode
+    # once a layer
+    per_replay = {mode: launches for mode, (_, _, launches)
+                  in eng._tick.graph_stats().items()}
+    if any(launches.get("paged_decode") != cfg.num_layers
+           for launches in per_replay.values()):
+        raise AssertionError(f"a tick graph's launches {per_replay}: not "
+                             f"{cfg.num_layers} paged decodes a replay")
+    if st.get("prefix_cache_hits", 0) < 1:
+        raise AssertionError("the shared 64-token prefix was not reused")
+    log(f"[serve-gpt] 8 requests ({sum(p.size for p in prompts)} prompt "
+        f"tokens, {st['tokens_generated']} generated) in {wall:.2f} s: TTFT "
+        f"p50 {st['ttft_ms_p50']:.1f} ms, {fmt_decode(st)}, "
+        f"{st['tokens_generated'] / wall:.1f} tokens/s wall "
+        f"({st['tokens_per_sec']:.1f} engine), peak memory {peak_gb:.2f} GB,"
+        f" KV pages peak {st['kv_pages_peak']} of 16 tokens, prefix hits "
+        f"{st['prefix_cache_hits']}")
+    log(f"[serve-gpt] launches {counts} (needed >= {need}; the graphs' "
+        f"launches a replay {per_replay})")
+    log(f"[serve-gpt] compiled ticks {st['tick_compiled_hits']} of "
+        f"{decode_steps} decode steps, fallbacks {st['tick_fallbacks']}; "
+        f"graphs {fmt_graphs(eng)}")
+    times = time_replays(model, eng._tick.steps, tag="serve-gpt")
+    return counts, st, times
+
+
+def _cpu_and_card(build, dev):
+    cpu = build("cpu").eval()
+    card = build(dev).eval()
+    card.load_state_dict(cpu.state_dict())
+    return cpu, card
+
+
+def _gpt_adapter(model, seed, rank, std=0.02):
+    return adapter_spec(model, seed, rank,
+                        ("qkv_proj", "out_proj", "fc_in", "fc_out"), std=std)
+
+
+def _engine_outputs(model, scfg, subs, max_new=8):
+    with Engine(model, scfg) as eng:
+        futs = [eng.submit(p, max_new_tokens=max_new, sampling=sp,
+                           adapter_id=a) for p, sp, a in subs]
+        outs = [f.result(timeout=600).output_ids for f in futs]
+    st = eng.stats()
+    if st["tick_compiled_hits"] == 0 or st["tick_fallbacks"] or \
+            st["tick_compiled_hits"] != st["decode_steps"]:
+        raise AssertionError(f"compiled ticks {st['tick_compiled_hits']} of "
+                             f"{st['decode_steps']}, fallbacks "
+                             f"{st['tick_fallbacks']}")
+    return outs
+
+
+def _same(label, a, b):
+    for x, y in zip(a, b):
+        if not np.array_equal(np.asarray(x), np.asarray(y)):
+            raise AssertionError(f"[gpt-parity] {label}: {np.asarray(x)} != "
+                                 f"{np.asarray(y)}")
+
+
+def _generate_checks(tag, model, dev, prompts, engine_outs, max_new=8):
+    """On the card: generate with the cache equals generate without it
+    and the engine's greedy tokens, prompt by prompt."""
+    for p, want in zip(prompts, engine_outs):
+        ids = torch.from_numpy(p[None].astype(np.int64)).to(dev)
+        cached = model.generate(ids, max_new)[0, p.size:].cpu().numpy()
+        full = model.generate(ids, max_new, use_cache=False)[0, p.size:] \
+            .cpu().numpy()
+        _same(f"{tag} generate cache / full", [cached], [full])
+        _same(f"{tag} generate / engine", [cached], [want])
+
+
+def phase_gpt_parity(dev):
+    """A 2-layer fp32 GPT at GPT-3 6.7B width (and a GQA Llama at 7B
+    width), the same weights on the CPU and on the card."""
+    t0 = time.monotonic()
+    cfg = gpt_config("gpt3-6.7b", num_layers=2, max_seq_len=256)
+    cpu, card = _cpu_and_card(
+        lambda d: GPTForCausalLM(cfg, device=d, seed=1), dev)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in (5, 40, 23)]
+    greedy = [(p, SamplingParams(), None) for p in prompts]
+    subs = greedy + [
+        (prompts[1], SamplingParams(temperature=0.8, top_k=50, top_p=0.95,
+                                    seed=3), None),
+        (prompts[2], SamplingParams(temperature=1.0, top_p=0.9,
+                                    repetition_penalty=1.1, seed=6), None)]
+    kernels.reset_launch_counts()
+    outs = {}
+    for label, model in (("cpu", cpu), ("card", card)):
+        outs[label] = _engine_outputs(model, ServingConfig(num_slots=4),
+                                      subs)
+    float_counts = kernels.launch_counts()
+    _same("engine greedy + seeded cpu / card", outs["cpu"], outs["card"])
+    log(f"[gpt-parity] engine, tick on, float pools: greedy and seeded "
+        f"outputs identical on the CPU and the card for 3 + 2 requests: "
+        f"{[o.tolist() for o in outs['card']]}")
+    specs = {"a": _gpt_adapter(cpu, 7, 16, std=0.05),
+             "b": _gpt_adapter(cpu, 8, 8, std=0.05)}
+    scfg = ServingConfig(num_slots=4, cache_dtype="int8", max_adapters=2,
+                         adapter_rank_pool=16, adapters=specs)
+    lsubs = [(prompts[1], SamplingParams(), a) for a in (None, "a", "b")]
+    kernels.reset_launch_counts()
+    louts = {label: _engine_outputs(model, scfg, lsubs)
+             for label, model in (("cpu", cpu), ("card", card))}
+    lora_counts = kernels.launch_counts()
+    _same("int8 + adapters cpu / card", louts["cpu"], louts["card"])
+    base, a_out, b_out = louts["card"]
+    if np.array_equal(base, a_out) or np.array_equal(base, b_out):
+        raise AssertionError("an adapter request decoded the base tokens")
+    skipped = [k for k in ("paged_decode_int8", "lora_delta")
+               if lora_counts[k] == 0]
+    if skipped or float_counts["paged_decode"] == 0:
+        raise AssertionError(f"the card runs skipped {skipped}: "
+                             f"{float_counts}, {lora_counts}")
+    log(f"[gpt-parity] int8 pools + 2-adapter pool: identical on the CPU "
+        f"and the card: base {base.tolist()}, a {a_out.tolist()}, b "
+        f"{b_out.tolist()}; card launches paged_decode "
+        f"{float_counts['paged_decode']} (float run), paged_decode_int8 "
+        f"{lora_counts['paged_decode_int8']}, lora_delta "
+        f"{lora_counts['lora_delta']}")
+    kernels.reset_launch_counts()
+    _generate_checks("gpt", card, dev, prompts, outs["card"][:3])
+    gen_counts = kernels.launch_counts()
+    if gen_counts["flash_fwd"] == 0:
+        raise AssertionError(f"generate without the cache launched no flash "
+                             f"forward: {gen_counts}")
+    dcfg = gpt_config("gpt3-6.7b", num_layers=1, max_seq_len=256)
+    draft = GPTForCausalLM(dcfg, device=dev, seed=2).eval()
+    ids = torch.from_numpy(np.stack([prompts[1][:23], prompts[2]])
+                           .astype(np.int64)).to(dev)
+    want = card.generate(ids, 12)
+    spec = generation.speculative_generate(card, draft, ids, 12,
+                                           speculation_k=4)
+    _same("speculative_generate / generate", [spec.cpu()], [want.cpu()])
+    bid = torch.from_numpy(prompts[0][None].astype(np.int64))
+    beams = {"cpu": generation.beam_search(cpu, bid, 4, num_beams=4),
+             "card": generation.beam_search(card, bid.to(dev), 4,
+                                            num_beams=4).cpu()}
+    _same("beam_search cpu / card", [beams["cpu"]], [beams["card"]])
+    log(f"[gpt-parity] card: generate with the cache = without it = the "
+        f"engine's greedy tokens for 3 prompts (flash_fwd launches "
+        f"{gen_counts['flash_fwd']}); speculative_generate (K 4, 1-layer "
+        f"draft, B2, 12 tokens) = greedy generate "
+        f"{want[:, -12:].tolist()}; beam_search (4 beams, 4 tokens) equal "
+        f"on the CPU and the card {beams['card'][0, -4:].tolist()}")
+    del cpu, card, draft
+    torch.cuda.empty_cache()
+    lcfg = llama_config("llama2-7b", num_layers=2, num_kv_heads=8,
+                        max_seq_len=256)
+    l_cpu, l_card = _cpu_and_card(
+        lambda d: LlamaForCausalLM(lcfg, device=d, seed=3), dev)
+    prompts = [p % lcfg.vocab_size for p in prompts]
+    greedy = [(p, SamplingParams(), None) for p in prompts]
+    louts = {label: _engine_outputs(model, ServingConfig(num_slots=4),
+                                    greedy)
+             for label, model in (("cpu", l_cpu), ("card", l_card))}
+    _same("GQA Llama engine cpu / card", louts["cpu"], louts["card"])
+    made = []
+    real = generation.init_kv_caches
+
+    def spy(*a, **kw):
+        made.append(real(*a, **kw))
+        return made[-1]
+    generation.init_kv_caches = spy
+    try:
+        _generate_checks("GQA Llama", l_card, dev, prompts, louts["card"])
+    finally:
+        generation.init_kv_caches = real
+    shapes = {tuple(c["k"].shape) for caches in made for c in caches}
+    if any(sh[2] != lcfg.num_kv_heads for sh in shapes):
+        raise AssertionError(f"dense caches {shapes}: not "
+                             f"{lcfg.num_kv_heads} kv heads")
+    log(f"[gpt-parity] GQA Llama (32 heads, 8 kv heads, 2 layers, 7B "
+        f"width): engine identical on the CPU and the card, card generate "
+        f"with the cache = without it = the engine's tokens; dense caches "
+        f"{sorted(shapes)} ({time.monotonic() - t0:.1f} s in all)")
+    del l_cpu, l_card
+    torch.cuda.empty_cache()
+
+
+def phase_generate_gpt(dev, model, b=2, prompt_len=64, new=16):
+    """generate with the cache at GPT-3 6.7B in bf16: each step's
+    last-position logits (recorded by a forward hook) against the full
+    forward of the ids generate returned, teacher-forced, row by row
+    within GEN_ROW_TOL; a control shifts the steps by one."""
+    cfg = model.config
+    rng = np.random.default_rng(12)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, prompt_len))
+                           ).to(dev)
+    model.generate(ids, 2)                              # warm
+    steps = []
+    hook = model.register_forward_hook(
+        lambda m, a, out: steps.append(out[:, -1, :].float()))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.monotonic()
+    try:
+        out = model.generate(ids, new)
+        torch.cuda.synchronize()
+    finally:
+        hook.remove()
+    ms = (time.monotonic() - t0) * 1e3
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    if out.shape != (b, prompt_len + new) or len(steps) != new:
+        raise AssertionError(f"generate gave {tuple(out.shape)} with "
+                             f"{len(steps)} model calls")
+    with torch.no_grad():
+        full = model(out[:, :-1]).float()
+    want = full[:, prompt_len - 1:, :]                 # [B, new, V]
+    got = torch.stack(steps, dim=1)
+    pairs = [(f"step {i}", got[:, i], want[:, i]) for i in range(new)]
+    errs = [row_err(g, w) for _, g, w in pairs]
+    worst = max(errs)
+    if not worst <= GEN_ROW_TOL or not torch.isfinite(got).all():
+        raise AssertionError(f"[generate-gpt] cached logits off the full "
+                             f"forward's: worst row {worst:.3e} > "
+                             f"{GEN_ROW_TOL} ({[f'{e:.2e}' for e in errs]})")
+    shifted = max(row_err(got[:, i], want[:, i - 1]) for i in range(1, new))
+    if shifted <= GEN_ROW_TOL:
+        raise AssertionError(f"[controls] generate-gpt: the logits of the "
+                             f"step before passed ({shifted:.3e})")
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    log(f"[generate-gpt] GPT-3 6.7B bf16, B{b}, {prompt_len}-token prompts, "
+        f"{new} new tokens (fp32 dense caches): {ms / new:.2f} ms a token "
+        f"({ms:.1f} ms in all), peak memory {peak_gb:.2f} GB; each step's "
+        f"logits against the teacher-forced full forward: worst row "
+        f"{worst:.3e} of its norm (tolerance {GEN_ROW_TOL}), argmax equal "
+        f"in {100 * agree:.1f}% of rows")
+    log(f"[controls] generate-gpt: the step before's logits rejected, worst "
+        f"row {shifted:.3e}")
+    return ms / new, peak_gb
+
+
+def phase_train_gpt2_recompute(dev, plain=None, warmup=2, steps=6):
+    """train-gpt2 (GPT-2 124M, dropouts 0.1, bf16 O2, AdamW(1e-4), B8 x
+    S1024) with ``use_recompute=True``: the eager lane, then the model
+    rebuilt from the same seed through `CompiledTrainStep`.  Each lane's
+    losses must equal the lanes without recompute bit for bit (``plain``:
+    train-gpt2's results; without them its eager lane runs here), the
+    flash forward kernels launch twice a block a step and the backward
+    ones once."""
+    base = dict(max_seq_len=1024, attn_dropout=0.1, dropout=0.1)
+    cfg = gpt_config("gpt2-124m", **base, use_recompute=True)
+    b, seq = 8, 1024
+    ids, labels = (t.to(dev) for t in gpt2_batch(cfg.vocab_size, b, seq))
+    n = warmup + steps
+    if plain is None:
+        model, opt = make_gpt_trainer(gpt_config("gpt2-124m", **base), dev,
+                                      torch.bfloat16, seed=0, lr=1e-4)
+        lane = eager_lane("train-gpt2", model, opt, ids, labels, dev,
+                          warmup, steps)
+        plain = dict(eager=lane, compiled=dict(losses=lane["losses"],
+                                               step_ms=None, peak_gb=None))
+        del model, opt
+        torch.cuda.empty_cache()
+    model, opt = make_gpt_trainer(cfg, dev, torch.bfloat16, seed=0, lr=1e-4)
+    kernels.reset_launch_counts()
+    eager = eager_lane("train-gpt2-recompute", model, opt, ids, labels, dev,
+                       warmup, steps)
+    counts = eager["counts"]
+    need = {"flash_fwd_dropout": 2 * cfg.num_layers * n,
+            "flash_bwd_dkv_dropout": cfg.num_layers * n,
+            "flash_bwd_dq_dropout": cfg.num_layers * n}
+    if any(counts[k] != v for k, v in need.items()):
+        raise AssertionError(f"[train-gpt2-recompute] eager launches "
+                             f"{counts}, expected {need}")
+    if eager["losses"] != plain["eager"]["losses"]:
+        raise AssertionError(f"[train-gpt2-recompute] eager losses "
+                             f"{eager['losses']} differ from train-gpt2's "
+                             f"{plain['eager']['losses']}")
+    tokens = ids.numel()
+    n_params = model.num_params()
+    flops = 6 * n_params * tokens + \
+        6 * tokens * seq * cfg.hidden_size * cfg.num_layers
+    lane_line("train-gpt2-recompute", "eager", eager, warmup, steps, tokens,
+              flops)
+    del model, opt
+    torch.cuda.empty_cache()
+    model, opt = make_gpt_trainer(cfg, dev, torch.bfloat16, seed=0, lr=1e-4)
+    kernels.reset_launch_counts()
+    comp = compiled_lane("train-gpt2-recompute", model, opt, ids, labels,
+                         dev, warmup, steps)
+    main_counts = kernels.launch_counts()
+    if any(main_counts[k] != v for k, v in need.items()):
+        raise AssertionError(f"[train-gpt2-recompute] compiled launches "
+                             f"{main_counts}, expected {need}")
+    lane_line("train-gpt2-recompute", "compiled", comp, warmup, steps,
+              tokens, flops)
+    check_compiled_losses("train-gpt2-recompute", comp["losses"],
+                          plain["compiled"]["losses"])
+    check_replay_launches("train-gpt2-recompute", counts, n, comp["cs"])
+    for label, lane in (("eager", eager), ("compiled", comp)):
+        ref = plain[label]
+        diff = "" if ref.get("step_ms") is None else (
+            f"; train-gpt2 {ref['step_ms']:.2f} ms, {ref['peak_gb']:.2f} GB"
+            f" (step {lane['step_ms'] - ref['step_ms']:+.2f} ms, peak "
+            f"{lane['peak_gb'] - ref['peak_gb']:+.2f} GB)")
+        log(f"[train-gpt2-recompute] {label}: losses equal to train-gpt2's "
+            f"bit for bit; {lane['step_ms']:.2f} ms a step p50, peak "
+            f"{lane['peak_gb']:.2f} GB{diff}")
+    log(f"[train-gpt2-recompute] launches (compiled lane: call 1 eager + "
+        f"replays) {main_counts}: the flash forward twice a block a step")
+    del model, opt, comp
+    torch.cuda.empty_cache()
+    return main_counts
 
 
 def main(argv=None):
@@ -2930,8 +3389,18 @@ def main(argv=None):
             run("serve-tick", phase_serve_tick, dev, model)
         del model
         torch.cuda.empty_cache()
+    if {"serve-gpt", "generate-gpt"} & set(phases):
+        model = build_gpt_6_7b(dev)
+        if "serve-gpt" in phases:
+            run("serve-gpt", phase_serve_gpt, dev, model)
+        if "generate-gpt" in phases:
+            run("generate-gpt", phase_generate_gpt, dev, model)
+        del model
+        torch.cuda.empty_cache()
     if "parity" in phases:
         run("parity", phase_parity, dev)
+    if "gpt-parity" in phases:
+        run("gpt-parity", phase_gpt_parity, dev)
     train_counts = None
     if "train" in phases:
         train_counts = run("train", phase_train, dev)
@@ -2941,9 +3410,12 @@ def main(argv=None):
     if "train-compiled-parity" in phases:
         run("train-compiled-parity", phase_train_compiled_parity, dev,
             cpu_losses)
-    gpt2_counts = ops_counts = None
+    gpt2_counts = gpt2_lanes = ops_counts = None
     if "train-gpt2" in phases:
-        gpt2_counts = run("train-gpt2", phase_train_gpt2, dev)
+        gpt2_counts, gpt2_lanes = run("train-gpt2", phase_train_gpt2, dev)
+    if "train-gpt2-recompute" in phases:
+        run("train-gpt2-recompute", phase_train_gpt2_recompute, dev,
+            gpt2_lanes)
     if "gpt2-parity" in phases:
         run("gpt2-parity", phase_gpt2_parity, dev)
     if "attn-ops" in phases:

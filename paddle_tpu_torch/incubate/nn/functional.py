@@ -10,7 +10,9 @@ positions (the serving engine's slots) stay plain PyTorch, as they stay
 jnp there.  The prefill chunk's attention is plain PyTorch too; the
 single-token decode read goes through the paged-decode kernel (its plain
 version on the CPU), over float pools or int8/fp8 pools with per-row
-scales.
+scales.  Attention against a dense cache (`masked_multihead_attention`,
+the cache of `models.generation`) is plain PyTorch, as the JAX package
+computes it outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -138,6 +140,44 @@ def _cache_attend(qa, ck, cv, off, scale):
         out = torch.einsum("bhrqk,bkhd->bqhrd", probs.to(cv.dtype),
                            cv).reshape(b, s, h_q, d)
     return out.to(qa.dtype)
+
+
+def masked_multihead_attention(q, k, v, cache_k, cache_v, offset,
+                               scale=None):
+    """Decode or prefill attention against a dense KV cache (the cache of
+    `models.generation.generate`).
+
+    q/k/v: [B, S, H, D] new tokens; cache_k/cache_v: [B, S_max, Hkv, D]
+    (GQA: the cache holds the kv heads only); offset: the tokens already
+    cached, an int scalar or an int32 ``[B]`` vector of per-row offsets.
+    Writes the new K/V at ``offset..offset+S`` of each row and attends
+    causally through `_cache_attend`, the computation of the paged
+    prefill.  A host offset (a Python int or a CPU tensor) is checked
+    against the capacity; an offset on the card is the caller's bound.
+
+    Unlike the JAX op, which returns new cache arrays, the caches are
+    written IN PLACE and returned as the same tensors ``(out, cache_k,
+    cache_v)``: `generate` owns them and drops nothing it would need."""
+    b, s_new = q.shape[:2]
+    s_cap = cache_k.shape[1]
+    off = torch.as_tensor(offset)
+    if off.device.type == "cpu" and \
+            bool((off.long() + s_new > s_cap).any()):
+        raise ValueError(
+            f"KV cache overflow: offset {off.tolist()} + {s_new} new tokens"
+            f" > cache capacity {s_cap}")
+    off = off.to(device=q.device, dtype=torch.long)
+    pos = torch.arange(s_new, device=q.device)
+    if off.dim() == 1:
+        rows = torch.arange(b, device=q.device)[:, None]
+        idx = off[:, None] + pos[None, :]                     # [B, S]
+        cache_k[rows, idx] = k.to(cache_k.dtype)
+        cache_v[rows, idx] = v.to(cache_v.dtype)
+    else:
+        idx = off + pos
+        cache_k.index_copy_(1, idx, k.to(cache_k.dtype))
+        cache_v.index_copy_(1, idx, v.to(cache_v.dtype))
+    return _cache_attend(q, cache_k, cache_v, off, scale), cache_k, cache_v
 
 
 def paged_masked_multihead_attention(q, k, v, k_pool, v_pool, page_table,

@@ -46,8 +46,13 @@ versions (``_apply_masks`` and ``_dropout_uniform``):
   step hands out a persistent slot refilled with the same draw before
   every replay; the autograd function keeps the seed for the backward.
 
-Like the Pallas kernels these give no mask gradient: the public op
-refuses a mask that requires grad.  Each feature variant counts its own
+Like the Pallas kernels these give no mask gradient.  A mask that
+requires grad (a learned bias) therefore takes the plain version under
+autograd, which gives the mask its gradient: the reference's own
+semantics, since the JAX op sends such a mask to its XLA attention
+(``mask_trainable``).  That route launches no kernel, on the card too,
+and counts in ``flash_attention.plain_routes``; every other call launches
+the kernels or raises.  Each feature variant counts its own
 launches (``VARIANT_LAUNCHES``): ``*_dropout`` (dropout alone) and
 ``*_masked`` (a mask or segment ids, with or without dropout).  The two
 backward kernels sum the GQA heads of a kv head inside one block (no
@@ -70,9 +75,6 @@ SUPPORTED_HEAD_DIMS = (32, 64, 128)
 VARIANT_LAUNCHES = {name: SimpleNamespace(launches=0) for name in (
     "flash_fwd_dropout", "flash_bwd_dkv_dropout", "flash_bwd_dq_dropout",
     "flash_fwd_masked", "flash_bwd_dkv_masked", "flash_bwd_dq_masked")}
-_MASK_GRAD = ("flash_attention: a mask that requires grad is not ported "
-              "(ROADMAP Queue A: the flash mask gradient); the kernels, like "
-              "the Pallas ones, give no mask gradient")
 
 #: the public op's seeds when the caller passes no generator (the JAX
 #: package's ``next_rng_key`` state; never torch's global RNG)
@@ -651,16 +653,23 @@ def flash_attention(query, key, value, attn_mask=None, dropout=0.0,
     inside the kernels; the dropout seed comes from ``generator``, a CPU
     ``torch.Generator`` (None: this module's own, never torch's global
     RNG).  Differentiable (`FlashAttentionFunction`) whenever an input
-    requires grad under grad mode; a mask that requires grad raises."""
+    requires grad under grad mode.  A mask that requires grad takes
+    `flash_attention_ref` under autograd (the mask gets its gradient; no
+    kernel runs) and adds one to ``flash_attention.plain_routes``."""
     dropout = float(dropout) if training else 0.0
-    if attn_mask is not None and attn_mask.requires_grad:
-        raise NotImplementedError(_MASK_GRAD)
     mask = additive_mask(attn_mask)
     seg = None if segment_ids is None else segment_ids.to(torch.int32)
-    seed = graph_state.device_seed(lambda: draw_seed(generator),
-                                  query.device) if dropout > 0.0 else 0
+    # a recomputed region (activation recompute) takes its first run's
+    # seed back instead of drawing one
+    seed = graph_state.logged_draw(lambda: graph_state.device_seed(
+        lambda: draw_seed(generator), query.device)) if dropout > 0.0 else 0
     d = query.shape[-1]
     sc = _scale(scale, d)
+    if attn_mask is not None and attn_mask.requires_grad:
+        flash_attention.plain_routes += 1
+        return flash_attention_ref(query, key, value, bool(causal), sc,
+                                   bool(head_major), mask, seg, dropout,
+                                   seed)[0]
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (query, key, value)):
         return FlashAttentionFunction.apply(query, key, value, bool(causal),
@@ -668,3 +677,7 @@ def flash_attention(query, key, value, attn_mask=None, dropout=0.0,
                                             dropout, seed)
     return flash_attention_fwd(query, key, value, causal, sc, head_major,
                                mask, seg, dropout, seed)[0]
+
+
+#: calls routed to the plain version because their mask requires grad
+flash_attention.plain_routes = 0

@@ -13,6 +13,12 @@ functional ops import nothing of the framework.
   run eagerly, which the capture of that body then provides for.
 - `allow_host_reads`: a scope whose host reads are made on purpose (a
   seed's draw); the capture's host-read probe does not report them.
+- `logged_draw` and `draw_log`: the random draws of a region that
+  activation recompute runs twice (`distributed.fleet.utils.recompute`):
+  the first run records each draw (a flash seed, a dropout mask), the
+  recompute takes them back in the same order and draws nothing, so the
+  generators move once and the recomputed region sees the first run's
+  seeds and masks.
 """
 from __future__ import annotations
 
@@ -27,6 +33,8 @@ _capturing = None
 _recording = None
 #: > 0 while a host read is allowed (a draw made on purpose)
 _allowed = 0
+#: the `DrawLog` of the innermost `draw_log` scope, or None
+_draws = None
 
 
 def host_reads_allowed():
@@ -102,3 +110,47 @@ def recording():
         yield _recording
     finally:
         _recording = outer
+
+
+class DrawLog:
+    """The random draws of one region's first run, in order; a recompute
+    of the region reads them back from the start (`draw_log`)."""
+
+    def __init__(self):
+        self.values = []
+        #: the next value a recompute takes; None while recording
+        self.replay_at = None
+
+
+@contextlib.contextmanager
+def draw_log(log, replay=False):
+    """The scope of one run of a recomputed region: the first run
+    (``replay=False``) records its draws into ``log``, a recompute
+    (``replay=True``) takes them back."""
+    global _draws
+    outer, _draws = _draws, log
+    log.replay_at = 0 if replay else None
+    try:
+        yield log
+    finally:
+        _draws = outer
+
+
+def logged_draw(draw):
+    """``draw()``, a random value an op draws (a seed, a dropout mask):
+    inside a `draw_log` scope recorded on the first run and taken back,
+    without a draw, by the recompute."""
+    log = _draws
+    if log is None:
+        return draw()
+    if log.replay_at is None:
+        value = draw()
+        log.values.append(value)
+        return value
+    if log.replay_at >= len(log.values):
+        raise RuntimeError(
+            "recompute: the recomputed region draws more random values "
+            f"than its first run ({len(log.values)})")
+    value = log.values[log.replay_at]
+    log.replay_at += 1
+    return value

@@ -4,10 +4,23 @@ head tied to the token embedding, with the JAX package's parameter names
 and ``[in, out]`` Linear layout so its state dicts load unchanged
 (``convert.py``).
 
-The forward is the training path: causal head-major flash attention
-with in-kernel attention dropout (``attn_dropout``), residual and
-embedding dropout (``dropout``), and ``labels=`` giving ``(logits,
-loss)``.  The model owns its random streams, both seeded from the
+Two paths, as in the JAX package.  Without caches the forward is the
+training path: causal head-major flash attention with in-kernel attention
+dropout (``attn_dropout``), residual and embedding dropout (``dropout``),
+``labels=`` giving ``(logits, loss)``, and with ``use_recompute`` each
+block under activation recompute (`distributed.fleet.utils.recompute`).
+With ``caches=`` attention reads a KV cache: a paged one (the serving
+engine, ``"page_table"`` in the dict) or a dense one (`generate`), and
+the positions start at the cache's offset, a scalar or one per row.
+
+Positions are looked up in the learned table ``wpe`` (``max_seq_len``
+rows).  Without caches a longer input raises.  With caches a position
+past the table is clamped to its last row: such rows are ones whose
+output is thrown away (the overshoot of `speculative_generate`'s verify
+window), where JAX's ``jnp.take`` would read a NaN fill and torch's
+``embedding`` on the card would fail a device assert.  The serving engine
+refuses at construction a KV capacity past the table
+(``position_rows``), so no row it uses is clamped.  The model owns its random streams, both seeded from the
 constructor's ``seed``: a CPU generator for the flash kernels' dropout
 seeds and one on its device for the `Dropout` layers.  Both are
 capturable: a seed reaches the kernels through device memory
@@ -26,14 +39,11 @@ import torch
 from torch import nn
 
 from ..device import resolve_device, to_torch_dtype
+from ..distributed.fleet.utils import recompute
+from ..incubate.nn import functional as IF
 from ..nn import functional as F
 from ..nn.functional import flash_attention
 from ..nn.layers import Dropout, Embedding, LayerNorm, Linear
-
-_NO_CACHE = ("GPT with caches= (GPT serving) is not ported (ROADMAP Queue "
-             "A: GPT serving)")
-_NO_RECOMPUTE = ("GPTConfig.use_recompute is not ported (ROADMAP Queue A: "
-                 "activation recompute)")
 
 
 @dataclass
@@ -90,11 +100,18 @@ class GPTAttention(nn.Module):
         self.generator = None
 
     def forward(self, x, cache=None):
-        if cache is not None:
-            raise NotImplementedError(_NO_CACHE)
         cfg = self.config
         b, s, h = x.shape
         qkv = self.qkv_proj(x).reshape(b, s, 3, cfg.num_heads, cfg.head_dim)
+        if cache is not None:
+            q, k, v = qkv.unbind(dim=2)
+            if "page_table" in cache:
+                # the serving engine's paged pools (float or int8/fp8)
+                out = IF.paged_cache_attention(q, k, v, cache)
+            else:
+                out, cache["k"], cache["v"] = IF.masked_multihead_attention(
+                    q, k, v, cache["k"], cache["v"], cache["offset"])
+            return self.out_proj(out.reshape(b, s, h))
         # head-major strided views of the [B, S, 3, H, D] projection: the
         # kernels read them through their strides, no copy
         q, k, v = (t.transpose(1, 2) for t in qkv.unbind(dim=2))
@@ -150,17 +167,36 @@ class GPTModel(nn.Module):
                               dtype=dtype)
 
     def forward(self, input_ids, position_ids=None, caches=None):
-        if caches is not None:
-            raise NotImplementedError(_NO_CACHE)
-        if self.config.use_recompute:
-            raise NotImplementedError(_NO_RECOMPUTE)
-        s = input_ids.shape[1]
+        cfg = self.config
+        b, s = input_ids.shape
         if position_ids is None:
-            position_ids = torch.arange(s, device=input_ids.device)
+            position_ids = self._positions(b, s, input_ids.device, caches)
         x = self.drop(self.wte(input_ids) + self.wpe(position_ids))
-        for block in self.h:
-            x = block(x)
+        for i, block in enumerate(self.h):
+            if cfg.use_recompute and caches is None and x.requires_grad:
+                x = recompute(block, x)
+            else:
+                x = block(x, cache=None if caches is None else caches[i])
         return self.ln_f(x)
+
+    def _positions(self, b, s, device, caches):
+        """``arange(S)``; with caches from the offset: ``[B, S]`` from a
+        ``[B]`` offset (each serving row at its own age), ``arange(S) +
+        offset`` from a scalar one.  The offset is read where it lies (the
+        compiled tick's device offsets: no host read); with caches a
+        position past the table is clamped (see the module's note)."""
+        rows = self.config.max_seq_len
+        pos = torch.arange(s, device=device)
+        if caches is None:
+            if s > rows:
+                raise ValueError(f"GPT: {s} positions > the {rows} rows of "
+                                 "the learned position table (max_seq_len)")
+            return pos
+        off = torch.as_tensor(caches[0]["offset"]).to(device=device,
+                                                     dtype=torch.long)
+        pos = off.reshape(b, 1) + pos.reshape(1, s) if off.dim() == 1 \
+            else pos + off
+        return pos.clamp(max=rows - 1)
 
 
 class GPTForCausalLM(nn.Module):
@@ -212,6 +248,44 @@ class GPTForCausalLM(nn.Module):
                                    labels.reshape(-1))
             return logits, loss
         return logits
+
+    @property
+    def position_rows(self):
+        """Rows of the learned position table ``wpe``: the longest context
+        a cache may hold (the serving engine checks its capacity)."""
+        return self.config.max_seq_len
+
+    def generate(self, input_ids, max_new_tokens=32, temperature=0.0,
+                 top_k=None, top_p=None, repetition_penalty=None,
+                 use_cache=True, eos_token_id=None, generator=None):
+        """Incremental decoding over dense KV caches
+        (`models.generation.generate`)."""
+        from .generation import generate
+        return generate(self, input_ids, max_new_tokens=max_new_tokens,
+                        temperature=temperature, top_k=top_k, top_p=top_p,
+                        repetition_penalty=repetition_penalty,
+                        use_cache=use_cache, eos_token_id=eos_token_id,
+                        generator=generator)
+
+    @staticmethod
+    def generate_step(model, input_ids, temperature=1.0, top_k=None,
+                      generator=None):
+        """One greedy or sampled step over the full forward: ``[B]`` next
+        tokens (JAX ``GPTForCausalLM.generate_step``).  Sampling draws
+        from ``generator`` (a ``torch.Generator`` on the model's device;
+        None: the package's own, never torch's global RNG)."""
+        next_logits = model(input_ids)[:, -1, :]
+        if temperature == 0.0:
+            return torch.argmax(next_logits, dim=-1)
+        next_logits = next_logits / temperature
+        if top_k is not None:
+            minv = torch.topk(next_logits, top_k, dim=-1).values[:, -1:]
+            next_logits = next_logits.masked_fill(next_logits < minv,
+                                                  float("-inf"))
+        probs = torch.softmax(next_logits, dim=-1)
+        gen = generator if generator is not None else \
+            F.default_generator(probs.device)
+        return torch.multinomial(probs, 1, generator=gen)
 
     def num_params(self, non_embedding=True):
         """Every parameter, less the position table ``wpe`` when

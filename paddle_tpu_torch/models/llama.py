@@ -3,10 +3,12 @@ pre-norm, rotary position embeddings, SwiGLU MLP, grouped-query
 attention, with the JAX package's parameter names and ``[in, out]``
 Linear layout so its state dicts load unchanged (``convert.py``).
 
-Two paths, as in the JAX package: with ``caches=`` (the serving engine)
-attention reads the paged KV cache; without, the forward is the training
-path: rope through the rope kernel and causal head-major flash attention,
-with ``labels=`` giving ``(logits, loss)``.
+Two paths, as in the JAX package: with ``caches=`` attention reads a KV
+cache, the serving engine's paged one (``"page_table"`` in the dict) or
+the dense one of `generate`, at rope positions from the cache's offset;
+without, the forward is the training path: rope through the rope kernel
+and causal head-major flash attention, with ``labels=`` giving
+``(logits, loss)``.
 """
 from __future__ import annotations
 
@@ -103,7 +105,7 @@ class LlamaAttention(nn.Module):
                                   v.transpose(1, 2), causal=True,
                                   training=self.training, head_major=True)
             return self.o_proj(out.transpose(1, 2).reshape(b, s, h))
-        off = cache["offset"]
+        off = torch.as_tensor(cache["offset"]).to(x.device)
         pos = torch.arange(s, dtype=torch.int32, device=x.device)
         if off.dim() == 1:
             # per-slot offsets (serving): [B, S] rope positions
@@ -114,11 +116,11 @@ class LlamaAttention(nn.Module):
             q, k, position_ids=pos, rotary_emb_base=cfg.rope_theta)
         # the cache stores PRE-repeat K/V (num_kv_heads): the attention
         # groups the query heads natively
-        if "page_table" not in cache:
-            raise NotImplementedError(
-                "only the paged KV cache is ported; the dense slot cache "
-                "(kv_layout='slots') is not")
-        out = IF.paged_cache_attention(q, k, v, cache)
+        if "page_table" in cache:
+            out = IF.paged_cache_attention(q, k, v, cache)
+        else:
+            out, cache["k"], cache["v"] = IF.masked_multihead_attention(
+                q, k, v, cache["k"], cache["v"], cache["offset"])
         return self.o_proj(out.reshape(b, s, h))
 
 
@@ -210,5 +212,25 @@ class LlamaForCausalLM(nn.Module):
             return logits, loss
         return logits
 
+    def generate(self, input_ids, max_new_tokens=32, temperature=0.0,
+                 top_k=None, top_p=None, repetition_penalty=None,
+                 use_cache=True, eos_token_id=None, generator=None):
+        """Incremental decoding over dense KV caches
+        (`models.generation.generate`)."""
+        from .generation import generate
+        return generate(self, input_ids, max_new_tokens=max_new_tokens,
+                        temperature=temperature, top_k=top_k, top_p=top_p,
+                        repetition_penalty=repetition_penalty,
+                        use_cache=use_cache, eos_token_id=eos_token_id,
+                        generator=generator)
+
     def num_params(self):
         return sum(p.numel() for p in self.parameters())
+
+    def flops_per_token(self, seq_len=None):
+        """Train-step FLOPs a token (forward and backward), the PaLM
+        appendix formula 6 N + 12 L H S."""
+        cfg = self.config
+        s = seq_len or cfg.max_seq_len
+        return 6 * self.num_params() + \
+            12 * cfg.num_layers * cfg.hidden_size * s

@@ -90,8 +90,12 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
             f"dropout: mode={mode!r}, axis={axis!r}: only upscale_in_train "
             "over every element is ported")
     gen = default_generator(x.device) if generator is None else generator
-    graph_state.note_generator(gen)
-    keep = torch.rand(x.shape, device=x.device, generator=gen) < 1.0 - p
+
+    def draw():
+        graph_state.note_generator(gen)
+        return torch.rand(x.shape, device=x.device, generator=gen) < 1.0 - p
+    # a recomputed region takes its first run's mask back (no draw)
+    keep = graph_state.logged_draw(draw)
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype,
                                                         device=x.device))
 

@@ -108,11 +108,24 @@ class Engine:
         model.eval()                # serving never wants dropout
         self.device = next(model.parameters()).device
         self.max_len = self.scfg.max_seq_len or self.cfg.max_seq_len
-        self._kv_heads = self.cfg.num_kv_heads
+        # GPT has no num_kv_heads: every head is a kv head
+        self._kv_heads = getattr(self.cfg, "num_kv_heads", self.cfg.num_heads)
         # a quantized page packs 2x the baseline page's tokens in half its
         # bytes: the pages in use at equal token load halve
         quant = kv_quant_params(self.scfg.cache_dtype) is not None
         self._page_size = self.scfg.page_size * (2 if quant else 1)
+        # a learned position table (GPT's wpe) must cover every position a
+        # slot can hold, the left-shifted last prefill chunk included: the
+        # JAX engine reads a NaN fill past it, torch's embedding on the
+        # card fails a device assert that poisons the context
+        rows = getattr(model, "position_rows", None)
+        capacity = -(-self.max_len // self._page_size) * self._page_size
+        if rows is not None and capacity > rows:
+            raise ValueError(
+                f"KV capacity of {capacity} tokens a slot (max_seq_len "
+                f"{self.max_len} rounded up to whole pages of "
+                f"{self._page_size}) exceeds the model's {rows} learned "
+                "positions; lower ServingConfig.max_seq_len or page_size")
         self._stats = ServingStats()
         self._queue: deque[_Request] = deque()
         self._active: dict[int, _Request] = {}

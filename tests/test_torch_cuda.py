@@ -555,9 +555,13 @@ def test_flash_attention_refuses_what_it_does_not_take(card):
     with pytest.raises(ValueError, match="head_dim 48"):
         fa.flash_attention(q, q, q, causal=True)
     q = torch.zeros(1, 16, 2, 64, device=card, dtype=torch.bfloat16)
+    # a mask that requires grad takes the plain version: no kernel runs
     mask = torch.zeros(1, 1, 16, 16, device=card, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="mask gradient"):
-        fa.flash_attention(q, q, q, attn_mask=mask)
+    before = kernels.launch_counts()
+    routes = fa.flash_attention.plain_routes
+    fa.flash_attention(q, q, q, attn_mask=mask)
+    assert kernels.launch_counts() == before
+    assert fa.flash_attention.plain_routes == routes + 1
     with pytest.raises(ValueError, match="mask"):
         fa.flash_attention_fwd(q, q, q, mask=torch.zeros(1, 3, 16, 16,
                                                          device=card))
@@ -1354,14 +1358,15 @@ def test_flash_seed_from_device_memory_on_card(card):
 
 
 def _tiny_gpt_lane(card, compiled, batches, dtype=torch.float32,
-                   scaler_kw=None, sched=False, accum=1):
+                   scaler_kw=None, sched=False, accum=1, recompute=False):
     """A 2-layer GPT (D 64) with attention and residual dropout 0.1 built
-    on the card from seed 4: eager or compiled over ``batches``; returns
-    (losses, step counters, parameters and optimizer state, scaler state,
-    the step object)."""
+    on the card from seed 4 (``recompute``: each block under activation
+    recompute): eager or compiled over ``batches``; returns (losses, step
+    counters, parameters and optimizer state, scaler state, the step
+    object)."""
     cfg = GPTConfig(vocab_size=512, hidden_size=128, num_layers=2,
                     num_heads=2, max_seq_len=64, attn_dropout=0.1,
-                    dropout=0.1)
+                    dropout=0.1, use_recompute=recompute)
     model = GPTForCausalLM(cfg, device=card, seed=4)
     opt = AdamW(learning_rate=1e-3, parameters=model.parameters(),
                 grad_clip=ClipGradByGlobalNorm(1.0))
@@ -1652,3 +1657,151 @@ def test_capture_keeps_garbage_collection_out_on_card(card):
     assert gc.isenabled()
     gc.collect()
     assert gone() is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_recompute_equals_plain_eager_and_compiled_on_card(card, dtype):
+    """`use_recompute` with attention and residual dropout 0.1: eager and
+    compiled lanes with recompute equal the eager lane without it bit for
+    bit (losses, counters, parameters, moments, masters); the recompute
+    runs each block's flash forward twice a step and its backward once."""
+    batches = _gpt_batches(card, 4)
+    plain = _tiny_gpt_lane(card, False, batches, dtype=dtype)
+    kernels.reset_launch_counts()
+    eager = _tiny_gpt_lane(card, False, batches, dtype=dtype,
+                           recompute=True)
+    counts = kernels.launch_counts()
+    comp = _tiny_gpt_lane(card, True, batches, dtype=dtype, recompute=True)
+    assert comp[4].compiled and comp[4].fallbacks == 0
+    for lane in (eager, comp):
+        assert torch.equal(lane[0], plain[0]) and \
+            torch.equal(lane[1], plain[1])
+        for a, b in zip(lane[2], plain[2]):
+            assert torch.equal(a, b)
+    n = 2 * len(batches)                    # 2 layers a step
+    assert counts["flash_fwd_dropout"] == 2 * n, counts
+    assert counts["flash_bwd_dq_dropout"] == n, counts
+    assert all(c == 1 for c, _, _ in comp[4].graph_stats().values())
+
+
+@pytest.mark.cuda
+def test_flash_trainable_mask_gradient_on_card(card):
+    """A learned bias that requires grad, bf16 q/k/v at GPT-2's head dim:
+    the op takes the plain version (no kernel launch, ``plain_routes``
+    counted), and the bias gets the gradient of an fp64 autograd reference
+    on the same bf16 inputs and the same bf16 gradient of the output (the
+    plain version's fp32 sums: 1e-4 relative, 1e-5 absolute); the output
+    is rounded to bf16 once."""
+    g = torch.Generator(device=card).manual_seed(9)
+    b, s, h, d = 2, 128, 4, 64
+    q, k, v, do = (torch.randn(b, s, h, d, device=card, generator=g)
+                   for _ in range(4))
+    bias = torch.randn(1, h, s, s, device=card, generator=g)
+    before = kernels.launch_counts()
+    routes = fa.flash_attention.plain_routes
+    tb = bias.clone().requires_grad_(True)
+    out = fa.flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(),
+                             attn_mask=tb, causal=True)
+    (out.float() * do).sum().backward()
+    assert kernels.launch_counts() == before
+    assert fa.flash_attention.plain_routes == routes + 1
+    ref_b = bias.double().requires_grad_(True)
+    qd, kd, vd = (t.bfloat16().double().transpose(1, 2) for t in (q, k, v))
+    logits = qd @ kd.transpose(-1, -2) / d ** 0.5
+    logits = logits.masked_fill(
+        ~torch.ones(s, s, dtype=torch.bool, device=card).tril(),
+        float("-inf")) + ref_b
+    ref = (torch.softmax(logits, dim=-1) @ vd).transpose(1, 2)
+    # out is bf16, so the gradient reaching it is do rounded to bf16
+    (ref * do.bfloat16().double()).sum().backward()
+    torch.testing.assert_close(out.double(), ref, rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(tb.grad.double(), ref_b.grad, rtol=1e-4,
+                               atol=1e-5)
+
+
+def _gpt_on(card, cfg, seed):
+    cpu = GPTForCausalLM(cfg, device="cpu", seed=seed).eval()
+    on_card = GPTForCausalLM(cfg, device=card, seed=seed).eval()
+    on_card.load_state_dict(cpu.state_dict())
+    return cpu, on_card
+
+
+@pytest.mark.cuda
+def test_gpt_engine_on_card_equals_cpu(card):
+    """The tiny GPT (fp32) behind the engine with the compiled tick on the
+    card and on the CPU: greedy and seeded tokens equal; with int8 pools
+    under a 2-adapter pool too, the adapter request differing from the
+    base one; the card runs launch paged decode (float and int8) and the
+    LoRA delta."""
+    cfg = GPTConfig(vocab_size=512, hidden_size=128, num_layers=2,
+                    num_heads=2, max_seq_len=64)
+    cpu, on_card = _gpt_on(card, cfg, 3)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, 512, (n,)).astype(np.int32)
+               for n in (5, 40, 23)]
+    subs = [(p, SamplingParams()) for p in prompts] + [
+        (prompts[1], SamplingParams(temperature=0.8, top_k=50, seed=3))]
+    spec = {n: {"A": rng.normal(0, 0.1, (m.weight.shape[0], 4)),
+                "B": rng.normal(0, 0.1, (4, m.weight.shape[1])),
+                "rank": 4, "alpha": 4.0}
+            for n, m in cpu.named_modules()
+            if n.rsplit(".", 1)[-1] in ("qkv_proj", "out_proj", "fc_in",
+                                         "fc_out")}
+    runs = {}
+    for label, model in (("cpu", cpu), ("card", on_card)):
+        kernels.reset_launch_counts()
+        with Engine(model, ServingConfig(num_slots=4)) as eng:
+            outs = [eng.submit(p, max_new_tokens=6, sampling=sp)
+                    for p, sp in subs]
+            outs = [f.result(timeout=300).output_ids for f in outs]
+            st = eng.stats()
+        assert st["tick_compiled_hits"] == st["decode_steps"] > 0
+        kv = ServingConfig(num_slots=2, cache_dtype="int8", max_adapters=2,
+                           adapter_rank_pool=4, adapters={"a": spec})
+        with Engine(model, kv) as eng:
+            futs = [eng.submit(prompts[1], max_new_tokens=6, adapter_id=a)
+                    for a in (None, "a")]
+            outs += [f.result(timeout=300).output_ids for f in futs]
+        runs[label] = (outs, kernels.launch_counts())
+    for a, b in zip(runs["cpu"][0], runs["card"][0]):
+        np.testing.assert_array_equal(a, b)
+    assert not np.array_equal(runs["card"][0][-2], runs["card"][0][-1])
+    counts = runs["card"][1]
+    assert min(counts["paged_decode"], counts["paged_decode_int8"],
+               counts["lora_delta"]) > 0, counts
+
+
+@pytest.mark.cuda
+def test_generation_on_card_equals_cpu(card):
+    """fp32 tiny GPT and GQA Llama: `generate` (cache and full forward),
+    `speculative_generate` (K 3, a 1-layer draft) and `beam_search` give
+    the same ids on the card as on the CPU, and the card's dense caches
+    hold the kv heads only."""
+    from paddle_tpu_torch.models import generation
+    cfg = GPTConfig(vocab_size=512, hidden_size=128, num_layers=2,
+                    num_heads=2, max_seq_len=64)
+    cpu, on_card = _gpt_on(card, cfg, 5)
+    dcfg = GPTConfig(vocab_size=512, hidden_size=128, num_layers=1,
+                     num_heads=2, max_seq_len=64)
+    d_cpu, d_card = _gpt_on(card, dcfg, 6)
+    ids = torch.from_numpy(np.random.default_rng(3).integers(0, 512, (2, 9)))
+    for a, b in ((cpu, on_card),):
+        want = a.generate(ids, 8)
+        assert torch.equal(b.generate(ids.to(card), 8).cpu(), want)
+        assert torch.equal(b.generate(ids.to(card), 8,
+                                      use_cache=False).cpu(), want)
+        assert torch.equal(generation.speculative_generate(
+            b, d_card, ids.to(card), 8, speculation_k=3).cpu(), want)
+        assert torch.equal(generation.beam_search(b, ids.to(card), 4).cpu(),
+                           generation.beam_search(a, ids, 4))
+    lcfg = llama_config("tiny", max_seq_len=64)
+    l_cpu = LlamaForCausalLM(lcfg, device="cpu", seed=7).eval()
+    l_card = LlamaForCausalLM(lcfg, device=card, seed=7).eval()
+    l_card.load_state_dict(l_cpu.state_dict())
+    caches = generation.init_kv_caches(lcfg.num_layers, 2, 17,
+                                       lcfg.num_kv_heads, lcfg.head_dim,
+                                       device=card)
+    assert caches[0]["k"].shape == (2, 17, 2, lcfg.head_dim)
+    assert torch.equal(l_card.generate(ids.to(card), 8).cpu(),
+                       l_cpu.generate(ids, 8))

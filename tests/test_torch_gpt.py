@@ -24,6 +24,7 @@ from paddle_tpu_torch.nn import Dropout, LayerNorm
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
 from paddle_tpu_torch.optimizer import AdamW
+from paddle_tpu_torch.serving import Engine, ServingConfig
 
 SEQ = 128
 LR = 1e-3
@@ -167,13 +168,15 @@ def test_gpt_draws_its_own_seeds():
 
 
 def test_gpt_refuses_what_is_not_ported():
+    """What GPT serving still refuses: the engine's speculation (ROADMAP
+    A4) and the dense slot layout (A6).  ``caches=`` and ``use_recompute``
+    are ported (tests/test_torch_gpt_serving.py,
+    tests/test_torch_generation.py)."""
     m = GPTForCausalLM(gpt_config("gpt2-124m", **TINY), device="cpu")
-    ids = torch.zeros(1, 8, dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
-        m(ids, caches=[{}])
-    m.config.use_recompute = True
-    with pytest.raises(NotImplementedError, match="recompute"):
-        m(ids)
+    for kw in (dict(speculation_k=2), dict(draft_model=m),
+               dict(kv_layout="slots")):
+        with pytest.raises(NotImplementedError):
+            Engine(m, ServingConfig(**kw))
 
 
 def test_gpt_o2_bf16_trains_on_cpu():

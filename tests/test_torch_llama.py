@@ -129,8 +129,9 @@ def test_llama_cache_path_matches_jax(pair):
 def test_llama_without_cache_raises(pair, monkeypatch):
     """Without a cache the forward runs flash attention (the training
     path, tests/test_torch_train.py).  Attention dropout runs inside it;
-    what it does not port, a mask that requires grad (no mask gradient),
-    raises, named after its ROADMAP item."""
+    a mask that requires grad takes the op's plain route (counted in
+    ``plain_routes``), which gives the mask its gradient, as the JAX op
+    sends such a mask to its XLA attention."""
     jm, tm = pair
     ids = np.random.default_rng(4).integers(0, 512, (1, 12)).astype(np.int32)
     with torch.no_grad():
@@ -148,8 +149,12 @@ def test_llama_without_cache_raises(pair, monkeypatch):
     mask = torch.zeros(1, 1, 4, 4, requires_grad=True)
     monkeypatch.setattr(port_llama, "flash_attention",
                         lambda *a, **kw: real(*a, attn_mask=mask, **kw))
-    with pytest.raises(NotImplementedError, match="mask.*ROADMAP"):
-        tm(torch.zeros(1, 4, dtype=torch.int32))
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    routes = fa.flash_attention.plain_routes
+    tm(torch.zeros(1, 4, dtype=torch.int32)).sum().backward()
+    assert fa.flash_attention.plain_routes == routes + \
+        tm.config.num_layers
+    assert mask.grad is not None and mask.grad.abs().sum() > 0
 
 
 def test_convert_raises_on_key_and_shape_mismatch(pair):

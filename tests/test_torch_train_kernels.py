@@ -111,14 +111,20 @@ def test_flash_op_differentiates_on_cpu():
 
 
 def test_flash_op_refuses_unported_features():
-    """The one feature left unported is the mask gradient: a mask that
-    requires grad is refused (the kernels, like the Pallas ones, give
-    none), on the CPU as on the card; a mask that does not is taken.
-    Dropout outside training is no dropout, as in the JAX op."""
+    """The kernels, like the Pallas ones, give no mask gradient: a mask
+    that requires grad takes the plain version under autograd (the JAX
+    op's XLA route), counted in ``plain_routes``, on the CPU as on the
+    card, and the mask gets its gradient; a mask that does not is taken
+    by the kernels' route.  Dropout outside training is no dropout, as in
+    the JAX op."""
     q, k, v, _ = (_t(a) for a in _attn_inputs(12, False, s=8))
     mask = torch.zeros(1, 1, 8, 8, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="mask.*ROADMAP"):
-        fa.flash_attention(q, k, v, attn_mask=mask)
+    routes = fa.flash_attention.plain_routes
+    out = fa.flash_attention(q, k, v, attn_mask=mask)
+    assert fa.flash_attention.plain_routes == routes + 1
+    assert torch.equal(out, fa.flash_attention_ref(q, k, v, mask=mask)[0])
+    out.square().sum().backward()
+    assert mask.grad is not None and mask.grad.abs().sum() > 0
     assert torch.equal(fa.flash_attention(q, k, v, attn_mask=mask.detach()),
                        fa.flash_attention(q, k, v))
     assert torch.equal(fa.flash_attention(q, k, v, dropout=0.1,
