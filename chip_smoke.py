@@ -148,6 +148,34 @@ last line:
             train-gpt2's.  attn-ops adds a learned bias that requires
             grad: no flash kernel launches, the plain route is counted,
             and the bias gradient matches an fp64 autograd reference
+17. fit-gpt2  GPT-2 124M, nothing cut, bf16 O2 (``prepare(amp_configs=
+            "O2")``), AdamW(1e-4, wd 0.01), B8 x S1024 through
+            ``hapi.Model.fit`` with CrossEntropyLoss over
+            ``data.pipeline(ds).shard(0, 1).shuffle(seed=0).batch(8)
+            .device_prefetch(2)`` (``ds``: rows of seeded random ids):
+            (a) at dropout 0.1, 2 + 6 fit steps: the losses equal the
+            same ``_forward_loss`` driven by hand through
+            CompiledTrainStep bit for bit, one capture, no fallback, the
+            launches a replay equal (12 of each flash dropout variant,
+            148 Adam); (b) at dropout 0, 2 epochs of 6 steps in child
+            processes: SIGTERM after step 4 through PreemptionHandler
+            exits 101 and leaves a committed checkpoint, a second child
+            resumes with ``fit(resume=True)``, and the losses equal an
+            uninterrupted child's bit for bit; (c) the state's bytes, a
+            synchronous save's ms, how long an async ModelCheckpoint
+            blocks the step loop, ``restore_latest``'s ms; the newest
+            checkpoint truncated, the older one restored (equal to a
+            synchronous checkpoint of its state); (d) fit's step ms p50
+            beside the hand lane's, goodput (input-bound share, starved
+            steps) and the device busy share of 3 fit steps
+18. fit-llama  Llama-2 7B width, 8 of 32 layers (train's cut), bf16 O2,
+            AdamW(3e-4, wd 0.01, ClipGradByGlobalNorm(1.0)), B1 x S4096,
+            through ``Model.fit`` over an ``io.DataLoader`` of seeded rows
+            for 2 + 4 steps: losses equal to the hand-driven compiled lane
+            bit for bit, launches a replay equal (17 RMS norm forward and
+            backward, 32 rope, 8 of each flash kernel, 75 Adam); fit's and
+            the hand lane's step ms p50, the busy share of 3 fit steps.
+            No checkpoint (~24 GB of state)
 
 The second-to-last line is the kernels' JSON summary, the last line
 ``{"ok": true, "device": {...}}``.  ``--phases`` runs a subset.
@@ -156,14 +184,24 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import shutil
+import signal
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from paddle_tpu_torch import amp, kernels
+from paddle_tpu_torch import data as pdata
+from paddle_tpu_torch.distributed.fleet.elastic import ELASTIC_EXIT_CODE
+from paddle_tpu_torch.framework.checkpoint_manager import (CheckpointManager,
+                                                           step_dir_name)
+from paddle_tpu_torch.hapi import Callback, Model, ModelCheckpoint
+from paddle_tpu_torch.io import DataLoader, TensorDataset
 from paddle_tpu_torch.kernels import _build
 from paddle_tpu_torch.kernels.adam import (adam_scalars, adam_update,
                                            adam_update_ref)
@@ -182,6 +220,7 @@ from paddle_tpu_torch.incubate.nn.functional import \
     variable_length_memory_efficient_attention
 from paddle_tpu_torch.models import (GPTForCausalLM, LlamaForCausalLM,
                                      generation, gpt_config, llama_config)
+from paddle_tpu_torch.nn import CrossEntropyLoss
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
 from paddle_tpu_torch.framework import CompiledTrainStep
@@ -200,7 +239,7 @@ PHASES = ("device", "build", "kernels", "serve", "serve-lora-int8",
           "serve-tick", "parity", "train", "train-parity",
           "train-compiled-parity", "train-gpt2", "gpt2-parity", "attn-ops",
           "train-optimizers", "serve-gpt", "gpt-parity", "generate-gpt",
-          "train-gpt2-recompute")
+          "train-gpt2-recompute", "fit-gpt2", "fit-llama")
 #: generate-gpt: the worst row error (relative to the row's norm) allowed
 #: between the cached path's last-position logits and the full forward's
 #: at GPT-3 6.7B in bf16.  Both paths round every activation to bf16 (a
@@ -3357,11 +3396,408 @@ def phase_train_gpt2_recompute(dev, plain=None, warmup=2, steps=6):
     return main_counts
 
 
+# ---------------------------------------------------------------- fit
+class TokenRows:
+    """``n`` rows of ``seq + 1`` random token ids from a numpy seed; a row
+    is ``(ids, labels)``, the labels the ids shifted by one."""
+
+    def __init__(self, n, vocab, seq, seed=0):
+        rng = np.random.default_rng(seed)
+        self.rows = rng.integers(0, vocab, (n, seq + 1))
+
+    def __len__(self):
+        return len(self.rows)
+
+    def __getitem__(self, i):
+        return self.rows[i, :-1], self.rows[i, 1:]
+
+
+class StepLog(Callback):
+    """Each step's loss (fit reads it back at ``log_freq=1``) and the
+    host time between step ends; with ``sigterm_at`` it sends this
+    process SIGTERM after that step (a preemption notice), and with
+    ``path`` it appends each loss to that file."""
+
+    def __init__(self, sigterm_at=None, path=None):
+        super().__init__()
+        self.losses, self.times = [], []
+        self.sigterm_at, self.path = sigterm_at, path
+        self._t = None
+        self._it = 0
+
+    def on_train_batch_begin(self, step, logs=None):
+        if self._t is None:
+            self._t = time.monotonic()
+
+    def on_train_batch_end(self, step, logs=None):
+        now = time.monotonic()
+        self.times.append((now - self._t) * 1e3)
+        self._t = now
+        self.losses.append(logs["loss"])
+        if self.path:
+            with open(self.path, "a") as f:
+                f.write(repr(logs["loss"]) + "\n")
+        if self._it == self.sigterm_at:
+            os.kill(os.getpid(), signal.SIGTERM)
+        self._it += 1
+
+
+def fit_gpt2_model(dev, dropout, seed=0):
+    """GPT-2 124M (nothing cut) behind ``hapi.Model``: bf16 O2 through
+    ``prepare(amp_configs="O2")``, AdamW(1e-4, wd 0.01), CrossEntropyLoss."""
+    cfg = gpt_config("gpt2-124m", max_seq_len=1024, attn_dropout=dropout,
+                     dropout=dropout)
+    net = GPTForCausalLM(cfg, device=dev, dtype=torch.float32, seed=seed)
+    opt = AdamW(learning_rate=1e-4, parameters=net.parameters(),
+                weight_decay=0.01)
+    return Model(net).prepare(opt, CrossEntropyLoss(), amp_configs="O2")
+
+
+def gpt2_pipeline(rows, prefetch=True):
+    pipe = pdata.pipeline(TokenRows(rows, 50304, 1024)).shard(0, 1) \
+        .shuffle(seed=0).batch(8)
+    return pipe.device_prefetch(2) if prefetch else pipe
+
+
+def hand_lane(model, batches, dev):
+    """``model._forward_loss`` driven by hand through `CompiledTrainStep`
+    over ``batches`` (host tensors, put on the card first): the losses,
+    each step's host ms (to the loss read back) and the step object."""
+    cs = CompiledTrainStep(model._forward_loss, model._optimizer,
+                           network=model.network)
+    staged = [tuple(t.to(dev) for t in b) for b in batches]
+    torch.cuda.synchronize()
+    losses, times = [], []
+    for x, y in staged:
+        t0 = time.monotonic()
+        losses.append(float(cs(x, y)))
+        times.append((time.monotonic() - t0) * 1e3)
+    if not cs.compiled or cs.fallbacks:
+        raise AssertionError(f"the hand lane fell back: {cs.fallback_reason}")
+    return losses, times, cs
+
+
+def replay_launches(cs):
+    (label, (captures, _replays, per)), = [
+        kv for kv in cs.graph_stats().items() if kv[0].startswith("full")]
+    return captures, per
+
+
+def fit_graph(tag, cs):
+    """fit's compiled step ``cs``, which must not have fallen back: its
+    graphs and ``(captures, launches a replay)``."""
+    if not cs or not cs.compiled or cs.fallbacks or \
+            cs.fallback_reason is not None:
+        raise AssertionError(f"[{tag}] fit's compiled step fell back: "
+                             f"{cs and cs.fallback_reason}")
+    return cs.graph_stats(), replay_launches(cs)
+
+
+def check_fit_step(tag, graph, hand_cs, want):
+    """fit's compiled step (`fit_graph`) captured once and launches a
+    replay what the hand lane's does, with ``want`` among them."""
+    stats, (captures, per) = graph
+    hand_captures, hand_per = replay_launches(hand_cs)
+    if captures != 1 or hand_captures != 1 or per != hand_per:
+        raise AssertionError(f"[{tag}] fit: {captures} captures, {per} a "
+                             f"replay; hand lane {hand_captures}, {hand_per}")
+    wrong = {k: per.get(k) for k, n in want.items() if per.get(k) != n}
+    if wrong:
+        raise AssertionError(f"[{tag}] launches a replay {per}: {wrong} "
+                             f"differ from {want}")
+    log(f"[{tag}] fit's graph {stats}; launches a replay equal the hand "
+        f"lane's")
+
+
+def same_losses(tag, got, want):
+    if got != want or not all(np.isfinite(got)):
+        raise AssertionError(f"[{tag}] losses {got} differ from {want}")
+
+
+def profile_fit_steps(model, pipe, tag, n=3):
+    """torch.profiler over ``n`` fit steps after one (all replays): the
+    device's busy share of their wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    prof = profile(activities=[ProfilerActivity.CUDA], acc_events=True)
+    marks = {}
+
+    class Window(Callback):
+        def on_train_batch_begin(self, step, logs=None):
+            if step == 1:
+                torch.cuda.synchronize()
+                prof.start()
+                marks["t0"] = time.monotonic()
+
+        def on_train_batch_end(self, step, logs=None):
+            if step == n:
+                torch.cuda.synchronize()
+                marks["wall"] = (time.monotonic() - marks["t0"]) * 1e3
+                prof.stop()
+
+    model.fit(pipe, epochs=1, num_iters=n + 1, verbose=0, log_freq=1,
+              callbacks=[Window()])
+    rows = device_rows(prof)
+    busy = sum(r[1] for r in rows)
+    log(f"[{tag}] {n} fit steps: wall {marks['wall'] / n:.2f} ms a step, "
+        f"device busy {busy / n:.2f} ms ({100 * busy / marks['wall']:.1f}%)")
+    log(f"[{tag}] by group a step: " + fmt_groups(kernel_groups(rows, n), 2))
+    return busy / marks["wall"]
+
+
+def fit_child(mode, outdir, dev=None):
+    """fit-gpt2 (b)'s child: 2 epochs of 6 steps at dropout 0 with a
+    ModelCheckpoint in ``outdir/ckpt``; ``preempt`` sends SIGTERM after
+    step 4 (fit saves and exits with ELASTIC_EXIT_CODE), ``resume``
+    continues from the newest checkpoint.  Each loss is appended to
+    ``outdir/losses.log``."""
+    model = fit_gpt2_model(dev or torch.device("cuda", 0), dropout=0.0)
+    cb = StepLog(sigterm_at=3 if mode == "preempt" else None,
+                 path=os.path.join(outdir, "losses.log"))
+    model.fit(gpt2_pipeline(48), epochs=2, verbose=0, log_freq=1,
+              callbacks=[cb], save_dir=os.path.join(outdir, "ckpt"),
+              max_to_keep=1, resume=mode == "resume")
+
+
+def run_children(jobs, timeout=600):
+    """Start every ``(mode, outdir)`` child of `fit_child` together and
+    wait for all; returns their exit codes (a child past ``timeout`` is
+    killed)."""
+    procs = [(subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--fit-child", mode,
+         outdir], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True), mode) for mode, outdir in jobs]
+    codes = []
+    for p, mode in procs:
+        try:
+            out, _ = p.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            out, _ = p.communicate()
+        codes.append(p.returncode)
+        if p.returncode not in (0, ELASTIC_EXIT_CODE):
+            log(f"[fit-gpt2] child {mode} exited {p.returncode}:\n"
+                + out[-3000:])
+    return codes
+
+
+def read_losses(path):
+    with open(path) as f:
+        return f.read().split()
+
+
+def state_bytes(state):
+    total = 0
+    for v in (state.values() if isinstance(state, dict) else state):
+        if torch.is_tensor(v):
+            total += v.numel() * v.element_size()
+        elif isinstance(v, (dict, list, tuple)):
+            total += state_bytes(v)
+    return total
+
+
+def checkpoint_numbers(model, batch, root):
+    """fit-gpt2 (c): the state's bytes, a synchronous save's ms, how long
+    an async save blocks the step loop (alone, and while the one before
+    is still writing), ``restore_latest``'s ms; the newest checkpoint
+    truncated, ``restore_latest`` must restore the older one, which must
+    equal the synchronous checkpoint of the same state."""
+    dev = model._device()
+    sync = ModelCheckpoint(save_dir=os.path.join(root, "sync"))
+    sync.set_model(model)
+    state, _ = sync._state(1)
+    nbytes = state_bytes(state)
+    del state
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    sync.save_now(1)
+    sync_ms = (time.monotonic() - t0) * 1e3
+    acb = ModelCheckpoint(save_dir=os.path.join(root, "async"),
+                          async_save=True)
+    acb.set_model(model)
+    t0 = time.monotonic()
+    acb.save_now(1)
+    first_block = (time.monotonic() - t0) * 1e3
+    step_ms = []
+    for _ in range(3):                  # steps while the save writes
+        t0 = time.monotonic()
+        model.train_batch([batch[0]], [batch[1]])
+        step_ms.append((time.monotonic() - t0) * 1e3)
+    t0 = time.monotonic()
+    acb.save_now(2)
+    second_block = (time.monotonic() - t0) * 1e3
+    waited = acb.manager.last_blocked_ms
+    acb.manager.wait()
+    log(f"[fit-gpt2] checkpoint state {nbytes / 1e9:.3f} GB (bf16 params, "
+        f"fp32 masters and moments); sync save {sync_ms:.1f} ms "
+        f"(manager {sync.manager.last_save_ms:.1f} ms); async save blocks "
+        f"the loop {first_block:.2f} ms, then {second_block:.1f} ms "
+        f"({waited:.1f} ms of it waiting for the previous save); steps "
+        f"while it wrote {[round(t, 1) for t in step_ms]} ms")
+    mgr = CheckpointManager(os.path.join(root, "async"), map_location=dev)
+    t0 = time.monotonic()
+    _, step = mgr.restore_latest()
+    torch.cuda.synchronize()
+    restore_ms = (time.monotonic() - t0) * 1e3
+    newest = os.path.join(root, "async", step_dir_name(step), "state.pkl")
+    with open(newest, "r+b") as f:
+        f.truncate(os.path.getsize(newest) // 2)
+    got = mgr.restore_latest()
+    want = CheckpointManager(os.path.join(root, "sync"),
+                             map_location=dev).restore_latest()[0]
+    if got is None or got[1] != step - 1:
+        raise AssertionError(f"[fit-gpt2] truncated ckpt-{step}: restored "
+                             f"{got and got[1]}, expected {step - 1}")
+    for k, v in want["model"].items():
+        if not torch.equal(got[0]["model"][k], v):
+            raise AssertionError(f"[fit-gpt2] async checkpoint's {k} differs"
+                                 f" from the synchronous one of that state")
+    log(f"[fit-gpt2] restore_latest {restore_ms:.1f} ms; ckpt-{step} "
+        f"truncated: skipped, ckpt-{step - 1} restored, equal to the sync "
+        f"checkpoint of its state")
+    return dict(bytes=nbytes, sync_ms=sync_ms, first_block_ms=first_block,
+                second_block_ms=second_block, restore_ms=restore_ms)
+
+
+def phase_fit_gpt2(dev, warmup=2, steps=6):
+    """GPT-2 124M, nothing cut, bf16 O2, AdamW(1e-4, wd 0.01), B8 x S1024
+    through ``hapi.Model.fit`` over ``data.pipeline(ds).shard(0, 1)
+    .shuffle(seed=0).batch(8).device_prefetch(2)``: (a) at dropout 0.1
+    the losses and launches a replay of 2 + 6 fit steps equal the same
+    ``_forward_loss`` driven by hand through CompiledTrainStep; (b) at
+    dropout 0, SIGTERM after step 4 of 2 x 6 in a child: exit 101 and a
+    committed checkpoint, a second child resumes, the losses equal an
+    uninterrupted child's; (c) the checkpoint's numbers; (d) fit's step
+    ms beside the hand lane's, goodput, the busy share of 3 fit steps."""
+    n = warmup + steps
+    t0 = time.monotonic()
+    model = fit_gpt2_model(dev, dropout=0.1)
+    log(f"[fit-gpt2] GPT-2 124M, dropout 0.1, bf16 O2 (prepare), AdamW(1e-4,"
+        f" wd 0.01), B8 x S1024, data.pipeline ... device_prefetch(2); built"
+        f" in {time.monotonic() - t0:.1f} s")
+    clock = StepLog()
+    pipe = gpt2_pipeline(8 * n)
+    kernels.reset_launch_counts()
+    model.fit(pipe, epochs=1, verbose=0, log_freq=1, callbacks=[clock])
+    counts = kernels.launch_counts()
+    need = {k: 12 * n for k in DROPOUT_KERNELS}
+    need["adam"] = 148 * n
+    check_launches(counts, need)
+    good = pipe.goodput.snapshot()
+    hand = fit_gpt2_model(dev, dropout=0.1)
+    hand_losses, hand_times, hand_cs = hand_lane(
+        hand, list(gpt2_pipeline(8 * n, prefetch=False)), dev)
+    same_losses("fit-gpt2", clock.losses, hand_losses)
+    check_fit_step("fit-gpt2", fit_graph("fit-gpt2", model._compiled_step),
+                   hand_cs,
+                   dict({k: 12 for k in DROPOUT_KERNELS}, adam=148))
+    del hand, hand_cs
+    torch.cuda.empty_cache()
+    fit_ms = float(np.median(clock.times[warmup:]))
+    hand_ms = float(np.median(hand_times[warmup:]))
+    log(f"[fit-gpt2] (a) {n} fit steps: losses {clock.losses}, equal to the "
+        f"hand lane's bit for bit; launches {counts}")
+    log(f"[fit-gpt2] (d) step {fit_ms:.2f} ms p50 through fit (all: "
+        f"{[round(t, 1) for t in clock.times]}), hand lane {hand_ms:.2f} ms "
+        f"(all: {[round(t, 1) for t in hand_times]}); goodput {good}")
+    clock.set_model(None)               # the callback held the model
+    busy = profile_fit_steps(model, gpt2_pipeline(40), "fit-gpt2-profile")
+    root = tempfile.mkdtemp(prefix="fit-gpt2-")
+    try:
+        batch = next(iter(gpt2_pipeline(8, prefetch=False)))
+        ckpt = checkpoint_numbers(model, [t.to(dev) for t in batch], root)
+        del model
+        torch.cuda.empty_cache()
+        full, pre = (os.path.join(root, d) for d in ("full", "preempt"))
+        for d in (full, pre):
+            os.makedirs(d)
+        codes = run_children([("full", full), ("preempt", pre)])
+        if codes != [0, ELASTIC_EXIT_CODE]:
+            raise AssertionError(f"[fit-gpt2] (b) children exited {codes}, "
+                                 f"expected [0, {ELASTIC_EXIT_CODE}]")
+        first = read_losses(os.path.join(pre, "losses.log"))
+        committed = CheckpointManager(os.path.join(pre, "ckpt")).latest_step()
+        if len(first) != 4 or committed is None:
+            raise AssertionError(f"[fit-gpt2] (b) preempted child: "
+                                 f"{len(first)} steps, checkpoint {committed}")
+        codes = run_children([("resume", pre)])
+        if codes != [0]:
+            raise AssertionError(f"[fit-gpt2] (b) resumed child exited "
+                                 f"{codes}")
+        resumed = read_losses(os.path.join(pre, "losses.log"))
+        whole = read_losses(os.path.join(full, "losses.log"))
+        if resumed != whole or len(whole) != 12:
+            raise AssertionError(f"[fit-gpt2] (b) preempted + resumed "
+                                 f"{resumed} != uninterrupted {whole}")
+        log(f"[fit-gpt2] (b) SIGTERM after step 4: exit "
+            f"{ELASTIC_EXIT_CODE}, ckpt-{committed} committed; resumed, the "
+            f"12 losses equal the uninterrupted run's bit for bit: {whole}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return dict(fit_ms=fit_ms, hand_ms=hand_ms, busy=busy, goodput=good,
+                **ckpt)
+
+
+def phase_fit_llama(dev, warmup=2, steps=4):
+    """Llama-2 7B width, 8 of 32 layers (phase 7's cut), bf16 O2,
+    AdamW(3e-4, wd 0.01, ClipGradByGlobalNorm(1.0)), B1 x S4096, through
+    ``Model.fit`` over a DataLoader of seeded rows for 2 + 4 steps (then
+    the busy share of 3 more fit steps); then the same model from the
+    same seed driven by hand through CompiledTrainStep (the two do not
+    fit on the card together): equal losses and launches a replay."""
+    cfg = llama_config("llama2-7b", num_layers=8)
+    n = warmup + steps
+    rows = TokenRows(n, cfg.vocab_size, 4096).rows
+    loader = DataLoader(TensorDataset([rows[:, :-1], rows[:, 1:]]),
+                        batch_size=1, shuffle=False)
+
+    def build():
+        net = LlamaForCausalLM(cfg, device=dev, dtype=torch.float32, seed=0)
+        opt = AdamW(learning_rate=3e-4, parameters=net.parameters(),
+                    weight_decay=0.01, grad_clip=ClipGradByGlobalNorm(1.0))
+        return Model(net).prepare(opt, CrossEntropyLoss(),
+                                  amp_configs="O2")
+    model = build()
+    clock = StepLog()
+    kernels.reset_launch_counts()
+    model.fit(loader, epochs=1, verbose=0, log_freq=1, shuffle=False,
+              callbacks=[clock])
+    counts = kernels.launch_counts()
+    need = {k: cfg.num_layers * n for k in TRAIN_KERNELS}
+    need["adam"] = 75 * n
+    check_launches(counts, need)
+    graph = fit_graph("fit-llama", model._compiled_step)
+    fit_ms = float(np.median(clock.times[warmup:]))
+    clock.set_model(None)
+    busy = profile_fit_steps(model, loader, "fit-llama-profile")
+    del model                    # with its compiled step and graph pool
+    torch.cuda.empty_cache()
+    hand = build()
+    hand_losses, hand_times, hand_cs = hand_lane(hand, list(loader), dev)
+    same_losses("fit-llama", clock.losses, hand_losses)
+    check_fit_step("fit-llama", graph, hand_cs,
+                   dict(rms_norm=17, rms_norm_bwd=17, rope=32, flash_fwd=8,
+                        flash_bwd_dkv=8, flash_bwd_dq=8, adam=75))
+    hand_ms = float(np.median(hand_times[warmup:]))
+    log(f"[fit-llama] {n} fit steps: losses {clock.losses}, equal to the "
+        f"hand lane's bit for bit; launches {counts}")
+    log(f"[fit-llama] step {fit_ms:.2f} ms p50 through fit (all: "
+        f"{[round(t, 1) for t in clock.times]}), hand lane {hand_ms:.2f} ms "
+        f"(all: {[round(t, 1) for t in hand_times]})")
+    del hand, hand_cs
+    torch.cuda.empty_cache()
+    return dict(fit_ms=fit_ms, hand_ms=hand_ms, busy=busy)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES))
+    ap.add_argument("--fit-child", nargs=2, metavar=("MODE", "DIR"),
+                    help=argparse.SUPPRESS)   # fit-gpt2 (b)'s children
     args = ap.parse_args(argv)
+    if args.fit_child:
+        fit_child(*args.fit_child)
+        return
     phases = args.phases.split(",")
     name, card = phase_device()
     dev = torch.device("cuda", 0)
@@ -3422,6 +3858,10 @@ def main(argv=None):
         ops_counts = run("attn-ops", phase_attn_ops, dev)
     if "train-optimizers" in phases:
         run("train-optimizers", phase_train_optimizers, dev)
+    if "fit-gpt2" in phases:
+        run("fit-gpt2", phase_fit_gpt2, dev)
+    if "fit-llama" in phases:
+        run("fit-llama", phase_fit_llama, dev)
     if timed and None not in (counts, lora_counts, train_counts, gpt2_counts,
                               ops_counts):
         # launches: the serving run's for its two kernels, the training

@@ -1,16 +1,30 @@
 """paddle_tpu_torch: the PyTorch/CUDA port of paddle_tpu for NVIDIA Hopper.
 
-Two paths are ported, in plain PyTorch around hand-written CUDA kernels
-(``kernels/``, sources in ``csrc/``): serving (``serving.Engine`` over
-``models.LlamaForCausalLM`` with a paged KV cache; RMS norm and paged
-decode attention) and training (``LlamaForCausalLM(ids, labels=...)``
-under ``amp.decorate`` with ``optimizer.AdamW`` or any other of
-paddle_tpu's optimizers; RMS norm forward and backward, rope, flash
-attention forward, dK/dV and dQ, the fused Adam update).  Every entry
-point runs on the card unless the caller passes ``device="cpu"``; on the
-CPU each kernel wrapper takes its plain PyTorch version.
+Ported, in plain PyTorch around hand-written CUDA kernels (``kernels/``,
+sources in ``csrc/``):
+
+- serving: ``serving.Engine`` over ``models.LlamaForCausalLM`` or
+  ``models.GPTForCausalLM`` with a paged KV cache and a compiled
+  scheduler tick; ``models.generation`` (``generate``, ``beam_search``,
+  ``speculative_generate``);
+- training by hand: ``model(ids, labels=...)`` under ``amp.decorate``
+  with any of paddle_tpu's optimizers, one step at a time or through
+  ``framework.CompiledTrainStep`` (one CUDA graph replay a step);
+- the training runtime: ``hapi.Model(net).prepare(...).fit(...)`` with
+  ``hapi.callbacks``, `save` / `load` (which read the JAX package's
+  files too), ``framework.checkpoint_manager.CheckpointManager``
+  (atomic, retained, resumable checkpoints), ``io.DataLoader`` and the
+  checkpointable ``data.pipeline`` with device prefetch.
+
+The kernels: RMS norm forward and backward, rope, flash attention
+forward, dK/dV and dQ, the fused Adam update, paged decode attention and
+the gathered LoRA delta.  Every entry point runs on the card unless the
+caller passes ``device="cpu"`` (``map_location="cpu"`` for `load`); on
+the CPU each kernel wrapper takes its plain PyTorch version.
 """
 from .device import resolve_device, to_torch_dtype
 from . import optimizer, regularizer  # noqa: E402
+from .framework.io import load, save  # noqa: E402
 
-__all__ = ["resolve_device", "to_torch_dtype", "optimizer", "regularizer"]
+__all__ = ["resolve_device", "to_torch_dtype", "optimizer", "regularizer",
+           "save", "load"]

@@ -1,0 +1,77 @@
+"""Goodput accounting for the input pipeline (port of
+paddle_tpu/data/goodput.py): is the card waiting on the host?
+
+`GoodputMeter` keeps, as attributes (the JAX package's metrics registry
+is not ported, ROADMAP A6):
+
+* ``batches``        — batches handed to the consumer
+* ``starved_steps``  — consumer arrivals that found the prefetch buffer
+  empty and had to block
+* the prefetch buffer's fill (0..1) when the consumer last arrived
+* `input_bound`      — EMA fraction of the step interval spent blocked
+  on data; ~0 is compute-bound, →1 is input-bound
+* the EMA of the host's time to produce a batch
+
+`snapshot` returns them as one dict.
+"""
+from __future__ import annotations
+
+import time
+
+
+_EMA = 0.2  # smoothing for the input-bound gauge
+
+
+class GoodputMeter:
+    def __init__(self):
+        self.batches = 0
+        self.starved_steps = 0
+        self._ema_wait_ms = 0.0
+        self._ema_interval_ms = 0.0
+        self._ema_fetch_ms = 0.0
+        self._last_consume = None
+        self._occupancy = 0.0
+
+    def record_fetch(self, ms):
+        ms = float(ms)
+        self._ema_fetch_ms = (ms if self._ema_fetch_ms == 0.0
+                              else (1 - _EMA) * self._ema_fetch_ms
+                              + _EMA * ms)
+
+    def record_consume(self, wait_ms, occupancy):
+        """One consumer arrival: how long it blocked and how full the
+        prefetch buffer was when it arrived."""
+        now = time.perf_counter()
+        wait_ms = float(wait_ms)
+        self.batches += 1
+        self._occupancy = float(occupancy)
+        if occupancy <= 0.0 and wait_ms > 0.0:
+            self.starved_steps += 1
+        if self._last_consume is not None:
+            interval_ms = (now - self._last_consume) * 1e3
+            self._ema_interval_ms = (
+                interval_ms if self._ema_interval_ms == 0.0
+                else (1 - _EMA) * self._ema_interval_ms
+                + _EMA * interval_ms)
+            self._ema_wait_ms = ((1 - _EMA) * self._ema_wait_ms
+                                 + _EMA * wait_ms)
+        self._last_consume = now
+
+    @property
+    def input_bound(self):
+        """EMA fraction of the inter-batch interval spent blocked on
+        the pipeline; 0.0 until two batches have been consumed."""
+        if self._ema_interval_ms <= 0.0:
+            return 0.0
+        return max(0.0, min(1.0,
+                            self._ema_wait_ms / self._ema_interval_ms))
+
+    def snapshot(self):
+        return {
+            "batches": int(self.batches),
+            "starved_steps": int(self.starved_steps),
+            "prefetch_occupancy": round(self._occupancy, 4),
+            "fetch_ms_ema": round(self._ema_fetch_ms, 3),
+            "wait_ms_ema": round(self._ema_wait_ms, 3),
+            "input_bound": round(self.input_bound, 4),
+        }

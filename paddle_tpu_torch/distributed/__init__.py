@@ -1,2 +1,19 @@
 """Distributed training utilities of the port (paddle_tpu/distributed):
-so far only ``fleet.utils.recompute``."""
+``fleet.utils.recompute``, ``fleet.elastic.PreemptionHandler``, and the
+rank and world size the input pipeline and ``hapi.Model`` read."""
+
+
+def get_rank(group=None):
+    """This process's rank: ``torch.distributed``'s when it is
+    initialised, else 0."""
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_available() and \
+        dist.is_initialized() else 0
+
+
+def get_world_size(group=None):
+    """The number of processes: ``torch.distributed``'s when it is
+    initialised, else 1."""
+    import torch.distributed as dist
+    return dist.get_world_size() if dist.is_available() and \
+        dist.is_initialized() else 1

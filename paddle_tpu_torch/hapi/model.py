@@ -1,0 +1,466 @@
+"""Keras-like high-level Model API (port of paddle_tpu/hapi/model.py):
+``Model(network).prepare(optimizer, loss, metrics, amp_configs)``, then
+``fit`` / ``evaluate`` / ``predict`` (or ``train_batch`` / ``eval_batch``
+/ ``predict_batch``) and ``save`` / ``load``.
+
+Every training step goes through `framework.train_step.
+CompiledTrainStep` (one CUDA graph replay a step on the card after the
+eager first step) unless ``FLAGS_compiled_train_step`` is off or a
+subclass overrides the step; the loss stays on the device between log
+points.  A batch is moved to the network's device, unless it is there
+already (``data.Pipeline.device_prefetch`` puts it there ahead of the
+step).
+
+Checkpointing: with ``save_dir`` (or a `hapi.callbacks.ModelCheckpoint`)
+fit saves through `framework.checkpoint_manager.CheckpointManager`
+(model, optimizer, the next epoch and a ``data.Pipeline``'s position),
+installs a `distributed.fleet.elastic.PreemptionHandler` (SIGTERM saves
+at the next step boundary and exits with ``ELASTIC_EXIT_CODE``), and
+``fit(resume=True)`` continues from the newest valid checkpoint, one the
+JAX package wrote too.
+
+Not ported, each raising `NotImplementedError` with its ROADMAP label:
+the training sentinel (``FLAGS_sentinel``, A2d), ``prepare(jit=True)``
+(A9), a world size above 1, a manifest with a shard layout and
+``FLAGS_hot_spare`` (A8), ``summary`` (A9).  The JAX package's
+``StepMetrics`` and step FLOPs (A6) are left out: fit sets no
+``step_metrics``.
+"""
+from __future__ import annotations
+
+import os
+import weakref
+
+import numpy as np
+import torch
+
+from .. import distributed as dist_env
+from ..io import DataLoader
+from ..metric import Metric
+from ..utils.flags import flag as _flag
+from .callbacks import config_callbacks
+
+_SENTINEL = ("FLAGS_sentinel: the training sentinel is not ported "
+             "(ROADMAP A2d)")
+_JIT = "prepare(jit=True): to_static is not ported (ROADMAP A9, jit)"
+_WORLD = ("hapi.Model with a world size above 1: the dp lanes are not "
+          "ported (ROADMAP A8)")
+_LAYOUT = ("resume from a checkpoint with a shard layout: resharded "
+           "restore is not ported (ROADMAP A8)")
+_HOT_SPARE = ("FLAGS_hot_spare: hot-spare recovery is not ported "
+              "(ROADMAP A8)")
+_SUMMARY = "Model.summary is not ported (ROADMAP A9)"
+
+
+def _to(t, device):
+    return t.to(device) if torch.is_tensor(t) and t.device != device else t
+
+
+class Model:
+    def __init__(self, network, inputs=None, labels=None):
+        self.network = network
+        self._optimizer = None
+        self._loss = None
+        self._metrics = []
+        self.stop_training = False
+        self._amp_level = "O0"
+        self._amp_dtype = "bfloat16"
+        self._amp_lists = (None, None)
+        self._scaler = None
+        self._nranks = 1
+        self._rank = 0
+        # the data.Pipeline fit trains on: its position rides checkpoints
+        self._data_pipeline = None
+        self._compiled_step = None
+        self._accum_steps = 1
+
+    def _device(self):
+        for p in self.network.parameters():
+            return p.device
+        return torch.device("cpu")
+
+    # ---- configuration ----
+    def prepare(self, optimizer=None, loss=None, metrics=None,
+                amp_configs=None, jit=False):
+        if jit:
+            raise NotImplementedError(_JIT)
+        self._nranks = dist_env.get_world_size()
+        self._rank = dist_env.get_rank()
+        if self._nranks > 1:
+            raise NotImplementedError(_WORLD)
+        self._loss = loss
+        metrics = metrics or []
+        if isinstance(metrics, Metric):
+            metrics = [metrics]
+        self._metrics = metrics
+
+        # "O1"/"O2", or a dict of auto_cast and GradScaler knobs
+        scaler_kw = {}
+        if amp_configs:
+            if isinstance(amp_configs, str):
+                self._amp_level = amp_configs
+            else:
+                cfg = dict(amp_configs)
+                self._amp_level = cfg.pop("level", "O1")
+                self._amp_dtype = cfg.pop("dtype", "bfloat16")
+                self._amp_lists = (cfg.pop("custom_white_list", None),
+                                   cfg.pop("custom_black_list", None))
+                scaler_kw = cfg
+            if self._amp_level not in ("O0", "O1", "O2"):
+                raise ValueError(
+                    f"amp level must be O0/O1/O2, got {self._amp_level!r}")
+        from .. import amp as amp_pkg
+        if self._amp_level == "O2" and optimizer is not None:
+            # parameters in the amp type; the optimizer keeps fp32 masters
+            self.network, optimizer = amp_pkg.decorate(
+                self.network, optimizer, level="O2", dtype=self._amp_dtype)
+        if self._amp_level != "O0" and (
+                self._amp_dtype in ("float16", "fp16") or scaler_kw):
+            # bf16 needs no loss scaling: a scaler only for fp16 or when
+            # scaling knobs are passed
+            self._scaler = amp_pkg.GradScaler(**scaler_kw)
+        self._optimizer = optimizer
+        # the compiled train step is built at the first train batch;
+        # None = not yet decided, False = ruled out
+        self._compiled_step = None
+        self._accum_steps = 1
+        return self
+
+    # ---- steps ----
+    def _compute_loss(self, outputs, labels):
+        if self._loss is None:
+            raise RuntimeError("prepare(loss=...) before fit/evaluate")
+        return self._loss(outputs, labels)
+
+    def _autocast(self):
+        from .. import amp as amp_pkg
+        return amp_pkg.auto_cast(enable=self._amp_level != "O0",
+                                 level=self._amp_level,
+                                 dtype=self._amp_dtype,
+                                 custom_white_list=self._amp_lists[0],
+                                 custom_black_list=self._amp_lists[1])
+
+    def _forward_loss(self, x, y):
+        """Forward and loss under autocast: the only user code the
+        compiled train step captures."""
+        with self._autocast():
+            out = self.network(x)
+            return self._compute_loss(out, y)
+
+    def _train_step(self, x, y, update=True):
+        with self._autocast():
+            out = self.network(x)
+            loss = self._compute_loss(out, y)
+        bwd = loss
+        if self._scaler is not None:
+            bwd = self._scaler.scale(bwd)
+        if self._accum_steps > 1:
+            # each micro-batch scaled so the accumulated gradient is the
+            # mean over the window
+            bwd = bwd * (1.0 / self._accum_steps)
+        bwd.backward()
+        if not update:
+            return loss, out
+        if self._scaler is not None:
+            self._scaler.step(self._optimizer)
+        else:
+            self._optimizer.step()
+        self._optimizer.clear_grad()
+        return loss, out
+
+    def _ensure_compiled_step(self):
+        """The CompiledTrainStep of this model, or None for the eager
+        lane.  None stays undecided while the flag is off; False latches
+        ineligibility."""
+        if self._compiled_step is False:
+            return None
+        if self._compiled_step is not None:
+            return self._compiled_step
+        if not _flag("FLAGS_compiled_train_step", True):
+            return None
+        if (self._loss is None or self._optimizer is None
+                or type(self).train_batch is not Model.train_batch
+                or type(self)._train_step is not Model._train_step
+                or type(self)._forward_loss is not Model._forward_loss):
+            self._compiled_step = False
+            return None
+        from ..framework.train_step import CompiledTrainStep
+        # the step holds this model weakly: no reference cycle keeps a
+        # dropped model, its step and the graph's memory pool alive
+        ref = weakref.ref(self)
+        cs = CompiledTrainStep(
+            lambda x, y: ref()._forward_loss(x, y), self._optimizer,
+            scaler=self._scaler, network=self.network,
+            accumulate_grad_batches=self._accum_steps,
+            eager_step=lambda x, y, update:
+                ref()._train_step(x, y, update)[0])
+        if cs.fallback_reason is not None:
+            self._compiled_step = False   # structurally eager
+            return None
+        self._compiled_step = cs
+        return cs
+
+    def _inputs(self, inputs, labels):
+        dev = self._device()
+        x = inputs[0] if isinstance(inputs, (list, tuple)) else inputs
+        y = labels[0] if isinstance(labels, (list, tuple)) else labels
+        return _to(x, dev), _to(y, dev)
+
+    def _train_batch_device(self, inputs, labels=None, update=True):
+        """One train step; the loss stays on the device (no host read)."""
+        self.network.train()
+        x, y = self._inputs(inputs, labels)
+        cs = self._ensure_compiled_step()
+        if cs is not None:
+            return cs(x, y, update=update)
+        loss, _ = self._train_step(x, y, update)
+        return loss
+
+    def train_batch(self, inputs, labels=None, update=True):
+        return [float(self._train_batch_device(inputs, labels,
+                                               update).detach())]
+
+    def eval_batch(self, inputs, labels=None):
+        self.network.eval()
+        x, y = self._inputs(inputs, labels)
+        with torch.no_grad(), self._autocast():
+            out = self.network(x)
+            loss = self._compute_loss(out, y)
+        return [float(loss)], out
+
+    def predict_batch(self, inputs):
+        self.network.eval()
+        x, _ = self._inputs(inputs, None)
+        with torch.no_grad(), self._autocast():
+            return self.network(x)
+
+    # ---- loops ----
+    def _as_loader(self, data, batch_size, shuffle):
+        from ..data import Pipeline
+        if data is None or isinstance(data, (DataLoader, Pipeline)):
+            # a data.Pipeline carries its own shard, shuffle and batch
+            # stages and a checkpointable position
+            return data
+        return DataLoader(data, batch_size=batch_size, shuffle=shuffle)
+
+    def fit(self, train_data=None, eval_data=None, batch_size=1, epochs=1,
+            eval_freq=1, log_freq=10, save_dir=None, save_freq=1,
+            verbose=2, drop_last=False, shuffle=True, num_workers=0,
+            callbacks=None, accumulate_grad_batches=1, num_iters=None,
+            resume=None, max_to_keep=None):
+        """Train; returns ``{"loss": [each epoch's last logged loss]}``.
+        ``resume=True`` (with ``save_dir``) or ``resume=<dir>`` restores
+        the model, optimizer, epoch and a data.Pipeline's position from
+        the newest valid checkpoint; torn checkpoints are skipped.  While
+        checkpointing, SIGTERM saves at the next step boundary and exits
+        with ``ELASTIC_EXIT_CODE``."""
+        from ..data import Pipeline
+        from .callbacks import ModelCheckpoint
+        if _flag("FLAGS_sentinel", False):
+            raise NotImplementedError(_SENTINEL)
+        if _flag("FLAGS_hot_spare", False):
+            raise NotImplementedError(_HOT_SPARE)
+        loader = self._as_loader(train_data, batch_size, shuffle)
+        eval_loader = self._as_loader(eval_data, batch_size, False)
+        self._data_pipeline = loader if isinstance(loader, Pipeline) \
+            else None
+        try:
+            steps = len(loader)
+        except TypeError:
+            steps = None
+        accumulate_grad_batches = max(int(accumulate_grad_batches or 1), 1)
+        if accumulate_grad_batches != self._accum_steps:
+            self._accum_steps = accumulate_grad_batches
+            self._compiled_step = None   # rebuilt for the new window
+        cbs = config_callbacks(callbacks, self, epochs=epochs, steps=steps,
+                               verbose=verbose, save_freq=save_freq,
+                               save_dir=save_dir,
+                               metrics=[m.name() for m in self._metrics],
+                               max_to_keep=max_to_keep, log_freq=log_freq)
+        ckpt_cb = next((c for c in cbs.callbacks
+                        if isinstance(c, ModelCheckpoint)), None)
+
+        initial_epoch = 0
+        if resume:
+            initial_epoch = self._resume_from(resume, save_dir, ckpt_cb)
+
+        handler = None
+        if ckpt_cb is not None and ckpt_cb.save_dir:
+            from ..distributed.fleet.elastic import PreemptionHandler
+            handler = PreemptionHandler().install()
+
+        self.stop_training = False
+        cbs.call("on_train_begin")
+        history = {"loss": []}
+        it = 0
+        logs = {}
+        try:
+            epoch = initial_epoch
+            while epoch < epochs:
+                cbs.call("on_epoch_begin", epoch)
+                sampler = getattr(loader, "batch_sampler", None)
+                if sampler is not None and hasattr(sampler, "set_epoch"):
+                    # a resumed fit shuffles epoch N as the uninterrupted
+                    # run did
+                    sampler.set_epoch(epoch)
+                for m in self._metrics:
+                    m.reset()
+                logs = {}
+                loss_t = None
+                for step, batch in enumerate(loader):
+                    x, y = self._split_batch(batch)
+                    cbs.call("on_train_batch_begin", step)
+                    update = (accumulate_grad_batches <= 1
+                              or (it + 1) % accumulate_grad_batches == 0)
+                    loss_t = self._train_batch_device(x, y, update=update)
+                    # the loss stays on the device between log points
+                    if step % log_freq == 0 or self._metrics:
+                        logs["loss"] = float(loss_t.detach())
+                    for m in self._metrics:
+                        out = self.predict_batch(x)
+                        m.update(*m.compute(out, y))
+                        logs[m.name()] = m.accumulate()
+                    cbs.call("on_train_batch_end", step, logs)
+                    if handler is not None and handler.preempted():
+                        # save at the step boundary, then ask for a
+                        # relaunch; a data.Pipeline resumes mid-epoch
+                        self._sync_compiled_state()
+                        ckpt_cb.save_now(next_epoch=epoch)
+                        ckpt_cb.manager.wait()
+                        handler.uninstall()
+                        handler.exit_for_relaunch()
+                    it += 1
+                    if num_iters and it >= num_iters:
+                        break
+                if loss_t is not None:
+                    logs["loss"] = float(loss_t.detach())
+                self._sync_compiled_state()
+                history["loss"].append(logs.get("loss"))
+                if eval_loader is not None and (epoch + 1) % eval_freq == 0:
+                    eval_logs = self.evaluate(eval_loader, verbose=0,
+                                              _callbacks=cbs)
+                    logs.update({f"eval_{k}": v
+                                 for k, v in eval_logs.items()})
+                cbs.call("on_epoch_end", epoch, logs)
+                epoch += 1
+                if self.stop_training or (num_iters and it >= num_iters):
+                    break
+        finally:
+            if handler is not None:
+                handler.uninstall()
+        cbs.call("on_train_end", logs)
+        return history
+
+    def _sync_compiled_state(self):
+        """Write the compiled step's device-held loss-scaling state back
+        into the GradScaler before a save or at an epoch's end."""
+        cs = self._compiled_step
+        if cs is not None and cs is not False:
+            cs.sync_scaler()
+
+    def _resume_from(self, resume, save_dir, ckpt_cb):
+        """Restore the model, optimizer and a data.Pipeline's position
+        from the newest valid checkpoint; returns the epoch to continue
+        from (0 when there is nothing to restore).  Parameters and
+        optimizer state are copied into the existing tensors, whose
+        addresses a captured train step reads."""
+        from ..framework.checkpoint_manager import (CheckpointManager,
+                                                    read_manifest,
+                                                    scan_steps)
+        if _flag("FLAGS_hot_spare", False):
+            raise NotImplementedError(_HOT_SPARE)
+        resume_dir = resume if isinstance(resume, (str, os.PathLike)) \
+            else (save_dir or (ckpt_cb.save_dir if ckpt_cb else None))
+        if not resume_dir:
+            raise ValueError(
+                "fit(resume=True) needs save_dir (or resume=<dir>)")
+        for _step, path in scan_steps(str(resume_dir)):
+            manifest = read_manifest(path)
+            if manifest is None:
+                continue
+            if manifest.get("layout"):
+                raise NotImplementedError(_LAYOUT)
+            break
+        restored = CheckpointManager(
+            str(resume_dir), map_location=self._device()).restore_latest()
+        if restored is None:
+            return 0
+        state, _step = restored
+        self.network.load_state_dict(state["model"])
+        if self._optimizer is not None and state.get("optimizer"):
+            self._optimizer.set_state_dict(state["optimizer"])
+        pipe = self._data_pipeline
+        if pipe is not None and state.get("data_pipeline"):
+            pipe.load_state_dict(state["data_pipeline"])
+        return int(state.get("next_epoch", 0))
+
+    def evaluate(self, eval_data, batch_size=1, log_freq=10, verbose=2,
+                 num_workers=0, callbacks=None, num_samples=None,
+                 _callbacks=None):
+        loader = self._as_loader(eval_data, batch_size, False)
+        cbs = _callbacks or config_callbacks(callbacks, self,
+                                             verbose=verbose)
+        cbs.call("on_eval_begin")
+        for m in self._metrics:
+            m.reset()
+        losses = []
+        for step, batch in enumerate(loader):
+            x, y = self._split_batch(batch)
+            loss, out = self.eval_batch(x, y)
+            losses.append(loss[0])
+            for m in self._metrics:
+                m.update(*m.compute(out, y))
+            cbs.call("on_eval_batch_end", step, {"loss": loss[0]})
+        logs = {"loss": float(np.mean(losses)) if losses else 0.0}
+        for m in self._metrics:
+            logs[m.name()] = m.accumulate()
+        cbs.call("on_eval_end", logs)
+        return logs
+
+    def predict(self, test_data, batch_size=1, num_workers=0,
+                stack_outputs=False, verbose=1, callbacks=None):
+        loader = self._as_loader(test_data, batch_size, False)
+        outs = []
+        for batch in loader:
+            x, _ = self._split_batch(batch, allow_no_label=True)
+            outs.append(self.predict_batch(x))
+        if stack_outputs:
+            return torch.cat(outs)
+        return outs
+
+    @staticmethod
+    def _split_batch(batch, allow_no_label=False):
+        if isinstance(batch, (list, tuple)):
+            if len(batch) >= 2:
+                return batch[0], batch[1]
+            if allow_no_label:
+                return batch[0], None
+        return batch, None
+
+    # ---- persistence ----
+    def save(self, path, training=True):
+        from ..framework.io import save
+        d = os.path.dirname(path)
+        if d:
+            os.makedirs(d, exist_ok=True)
+        save(self.network.state_dict(), path + ".pdparams")
+        if training and self._optimizer is not None:
+            save(self._optimizer.state_dict(), path + ".pdopt")
+
+    def load(self, path, skip_mismatch=False, reset_optimizer=False):
+        """Copy a `save`d state (either package's) into the network and
+        optimizer in place, on the network's device."""
+        from ..framework.io import load
+        dev = self._device()
+        self.network.load_state_dict(load(path + ".pdparams",
+                                          map_location=dev))
+        opt_path = path + ".pdopt"
+        if not reset_optimizer and self._optimizer is not None \
+                and os.path.exists(opt_path):
+            self._optimizer.set_state_dict(load(opt_path, map_location=dev))
+
+    def parameters(self, *args, **kwargs):
+        return self.network.parameters(*args, **kwargs)
+
+    def summary(self, input_size=None, dtype=None):
+        raise NotImplementedError(_SUMMARY)

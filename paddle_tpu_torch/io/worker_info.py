@@ -1,0 +1,27 @@
+"""Worker introspection (port of paddle_tpu/io/worker_info.py): inside a
+DataLoader worker it describes the worker; elsewhere it returns None.
+The port's workers are threads, so the description is thread-local."""
+from __future__ import annotations
+
+import threading
+from dataclasses import dataclass
+from typing import Any
+
+
+@dataclass
+class WorkerInfo:
+    id: int  # noqa: A003
+    num_workers: int
+    dataset: Any = None
+    seed: int = 0
+
+
+_LOCAL = threading.local()
+
+
+def get_worker_info():
+    return getattr(_LOCAL, "info", None)
+
+
+def _set_worker_info(info):
+    _LOCAL.info = info

@@ -141,15 +141,75 @@ class _SoftmaxXent(torch.autograd.Function):
         return d.to(logits.dtype), None, None
 
 
+def _reduce(loss, reduction):
+    if reduction == "mean":
+        return loss.mean()
+    if reduction == "sum":
+        return loss.sum()
+    return loss
+
+
 @amp.amp_op("cross_entropy")
-def cross_entropy(input, label, ignore_index=-100):  # noqa: A002
-    """Hard-label softmax cross-entropy over the last axis (the LM-head
-    case of paddle_tpu's ``cross_entropy``, ``reduction="mean"``): fp32
-    whatever the logits' dtype, averaged over the labels that are not
-    ``ignore_index``."""
-    loss = _SoftmaxXent.apply(input, label, ignore_index)
-    count = (label != ignore_index).sum().to(loss.dtype)
-    return loss.sum() / count.clamp_min(1.0)
+def cross_entropy(input, label, weight=None, ignore_index=-100,  # noqa: A002
+                  reduction="mean", soft_label=False, axis=-1,
+                  use_softmax=True, label_smoothing=0.0, name=None):
+    """paddle_tpu's ``cross_entropy``: log-softmax in fp32 whatever the
+    logits' dtype.  Hard labels on the last axis without weight or
+    smoothing (the LM head) take the fused softmax cross-entropy, the
+    mean over the labels that are not ``ignore_index``; ``weight``,
+    ``soft_label``, another ``axis``, ``use_softmax=False`` and
+    ``label_smoothing`` take plain torch ops in the JAX package's
+    order."""
+    if (use_softmax and not soft_label and label_smoothing == 0.0
+            and weight is None and axis in (-1, input.dim() - 1)):
+        lbl = label
+        if lbl.dim() == input.dim():
+            lbl = lbl.squeeze(axis)
+        loss = _SoftmaxXent.apply(input, lbl, ignore_index)
+        if reduction == "mean":
+            count = (lbl != ignore_index).sum().to(loss.dtype)
+            return loss.sum() / count.clamp_min(1.0)
+        return _reduce(loss, reduction)
+    x = input.float() if input.dtype in (torch.bfloat16, torch.float16) \
+        else input
+    if use_softmax:
+        logp = torch.log_softmax(x, dim=axis)
+    else:
+        logp = torch.log(x.clamp_min(1e-30))
+    if soft_label:
+        lbl = label.to(logp.dtype)
+        if label_smoothing > 0.0:
+            n = logp.shape[axis]
+            lbl = lbl * (1 - label_smoothing) + label_smoothing / n
+        return _reduce(-(lbl * logp).sum(dim=axis), reduction)
+    lbl = label
+    if lbl.dim() == logp.dim():
+        lbl = lbl.squeeze(axis)
+    lbl_clipped = lbl.clamp(0, logp.shape[axis] - 1).long()
+    picked = torch.take_along_dim(logp, lbl_clipped[..., None],
+                                  dim=axis)[..., 0]
+    if label_smoothing > 0.0:
+        smooth = logp.mean(dim=axis)
+        loss = -(1 - label_smoothing) * picked - label_smoothing * smooth
+    else:
+        loss = -picked
+    mask = lbl != ignore_index
+    zero = torch.zeros((), dtype=loss.dtype, device=loss.device)
+    loss = torch.where(mask, loss, zero)
+    if weight is not None:
+        w = weight.to(loss.device)[lbl_clipped]
+        loss = loss * w
+        if reduction == "mean":
+            denom = torch.where(mask, w, torch.zeros_like(w)).sum()
+            return loss.sum() / denom.clamp_min(1e-12)
+    if reduction == "mean":
+        return loss.sum() / mask.sum().to(loss.dtype).clamp_min(1.0)
+    return _reduce(loss, reduction)
+
+
+def mse_loss(input, label, reduction="mean", name=None):  # noqa: A002
+    """paddle_tpu's ``mse_loss``: the squared difference, reduced."""
+    return _reduce(torch.square(input - label), reduction)
 
 
 flash_attention = amp.amp_op("flash_attention")(_fa.flash_attention)

@@ -1,0 +1,222 @@
+"""Flag-driven fault injection (port of the points of
+paddle_tpu/utils/fault_injection.py that the training runtime reaches).
+
+``FLAGS_fault_inject`` holds a spec string::
+
+    spec       := point_spec (";" point_spec)*
+    point_spec := POINT ":" param ("," param)*
+    param      := KEY "=" VALUE
+
+e.g. ``"ckpt_write:after_bytes=128"`` truncates the next checkpoint
+payload write after 128 bytes and hard-exits (a torn write), and
+``"step:sigterm_at=3"`` delivers SIGTERM when a training loop reports
+step 3.  Unknown points or keys and unparseable values raise
+`FaultSpecError`: a malformed spec never silently injects nothing.
+
+The points, with the JAX package's parameters:
+
+- ``ckpt_write`` (`write_bytes`): every checkpoint payload goes through it;
+- ``step`` (`check_step`): a preemption notice at a training step;
+- ``data_slow`` / ``data_corrupt`` (`data_fetch_delay`,
+  `data_record_corrupt`): the input pipeline's record fetch.
+
+The JAX package's other points (the training sentinel's ``bad_batch``,
+``loss_spike`` and ``grad_bitflip``, the serving fleet's rpc points, the
+collective and hot-spare drills) belong to modules the port does not
+have; naming one raises `FaultSpecError`.  So do the JAX ``step``
+point's ``crash_at``, ``exit``, ``rank`` and ``once_file`` keys: they
+serve multi-rank runs (A8) and the hot-spare drills, which are not
+ported.  With the flag unset every
+helper returns on one falsy check.
+"""
+from __future__ import annotations
+
+import os
+import re
+import signal
+import time
+
+from .flags import flag
+
+#: the points the port consults, with their typed params.  ``mode``
+#: selects crash semantics: "exit" hard-kills the process by os._exit
+#: (subprocess drills), "raise" raises InjectedFault in-process.
+KNOWN_POINTS = {
+    "ckpt_write": {"after_bytes": int, "mode": str, "file": str,
+                   "exit": int},
+    "step": {"sigterm_at": int},
+    "data_slow": {"delay_s": float, "every": int, "count": int},
+    "data_corrupt": {"at_sample": int, "every": int, "count": int},
+}
+
+_IDENT = re.compile(r"^[A-Za-z_][A-Za-z0-9_]*$")
+
+#: exit code distinct from ELASTIC_EXIT_CODE: an injected crash must look
+#: like a hard fault, not a cooperative relaunch request.
+DEFAULT_EXIT_CODE = 23
+
+
+class FaultSpecError(ValueError):
+    """Malformed FLAGS_fault_inject value."""
+
+
+class InjectedFault(RuntimeError):
+    """Raised by an armed injection point in ``mode=raise``."""
+
+
+def parse(spec):
+    """``spec`` string → {point: {key: typed value}}.  Raises
+    FaultSpecError on anything it does not fully understand."""
+    out = {}
+    if not spec or not spec.strip():
+        return out
+    for item in spec.split(";"):
+        item = item.strip()
+        if not item:
+            raise FaultSpecError(
+                f"FLAGS_fault_inject: empty point spec in {spec!r}")
+        name, sep, rest = item.partition(":")
+        name = name.strip()
+        if not _IDENT.match(name):
+            raise FaultSpecError(
+                f"FLAGS_fault_inject: bad point name {name!r} in {item!r}")
+        if name not in KNOWN_POINTS:
+            raise FaultSpecError(
+                f"FLAGS_fault_inject: unknown point {name!r} "
+                f"(known: {sorted(KNOWN_POINTS)})")
+        if not sep or not rest.strip():
+            raise FaultSpecError(
+                f"FLAGS_fault_inject: point {name!r} needs "
+                f"'key=value' params (got {item!r})")
+        params = {}
+        for param in rest.split(","):
+            key, psep, value = param.partition("=")
+            key, value = key.strip(), value.strip()
+            if not psep or not _IDENT.match(key) or not value:
+                raise FaultSpecError(
+                    f"FLAGS_fault_inject: bad param {param!r} for point "
+                    f"{name!r} (want key=value)")
+            want = KNOWN_POINTS[name].get(key)
+            if want is None:
+                raise FaultSpecError(
+                    f"FLAGS_fault_inject: unknown key {key!r} for point "
+                    f"{name!r} (known: {sorted(KNOWN_POINTS[name])})")
+            try:
+                params[key] = want(value)
+            except ValueError:
+                raise FaultSpecError(
+                    f"FLAGS_fault_inject: {name}:{key} wants "
+                    f"{want.__name__}, got {value!r}") from None
+        out[name] = params
+    return out
+
+
+_PARSED = ("", {})  # (raw string, parsed): re-parsed only when raw changes
+
+
+def active(name):
+    """Params dict for ``name`` if that point is armed, else None."""
+    raw = flag("FLAGS_fault_inject", "") or ""
+    if not raw:
+        return None
+    global _PARSED
+    if _PARSED[0] != raw:
+        _PARSED = (raw, parse(raw))
+    return _PARSED[1].get(name)
+
+
+def _crash(params):
+    os._exit(int(params.get("exit", DEFAULT_EXIT_CODE)))
+
+
+def write_bytes(f, data, filename=None):
+    """Write ``data`` to the open binary file ``f``: the one point every
+    checkpoint payload goes through.  When ``ckpt_write`` is armed
+    (optionally filtered to paths containing ``file=<substr>``), writes
+    only ``after_bytes`` bytes, fsyncs the torn prefix, then crashes
+    (``mode=exit``, the default) or raises InjectedFault
+    (``mode=raise``)."""
+    params = active("ckpt_write")
+    if params is not None and "after_bytes" in params:
+        substr = params.get("file")
+        if substr is None or substr in (filename or getattr(f, "name", "")):
+            n = max(0, params["after_bytes"])
+            f.write(data[:n])
+            f.flush()
+            os.fsync(f.fileno())
+            if params.get("mode", "exit") == "raise":
+                raise InjectedFault(
+                    f"ckpt_write: injected torn write after {n} bytes "
+                    f"of {filename or getattr(f, 'name', '?')}")
+            _crash(params)
+    f.write(data)
+
+
+def check_step(step):
+    """Training loops call this once a step.  ``sigterm_at=N`` delivers
+    SIGTERM to this process at step N (a preemption notice), so an
+    installed PreemptionHandler runs end to end."""
+    params = active("step")
+    if params is not None and params.get("sigterm_at") == step:
+        os.kill(os.getpid(), signal.SIGTERM)
+
+
+#: fetch counter and remaining-fire budgets of the data points; re-armed
+#: when the spec string changes.
+_DATA_STATE = {"raw": "", "counts": {}, "fetches": 0}
+
+
+def _data_point(point):
+    params = active(point)
+    if params is None:
+        return None
+    raw = flag("FLAGS_fault_inject", "") or ""
+    if _DATA_STATE["raw"] != raw:
+        _DATA_STATE["raw"] = raw
+        _DATA_STATE["counts"] = {}
+        _DATA_STATE["fetches"] = 0
+    return params
+
+
+def _data_spend(point, params):
+    if "count" not in params:
+        return True
+    left = _DATA_STATE["counts"].get(point, params["count"])
+    if left <= 0:
+        return False
+    _DATA_STATE["counts"][point] = left - 1
+    return True
+
+
+def data_fetch_delay():
+    """The ``data_slow`` point: the pipeline's source calls this once a
+    record fetch.  Armed, it sleeps ``delay_s`` (default 0.05) on every
+    ``every``-th fetch: a slow storage host."""
+    params = _data_point("data_slow")
+    if params is None:
+        return
+    seq = _DATA_STATE["fetches"]
+    _DATA_STATE["fetches"] = seq + 1
+    if seq % max(params.get("every", 1), 1) != 0:
+        return
+    if not _data_spend("data_slow", params):
+        return
+    time.sleep(params.get("delay_s", 0.05))
+
+
+def data_record_corrupt(sample_id):
+    """The ``data_corrupt`` point: True when the record at dataset index
+    ``sample_id`` is to be treated as corrupt (``at_sample`` one index,
+    ``every`` each index divisible by it).  Matching is on the dataset
+    index, so a resumed run skips the same records."""
+    params = _data_point("data_corrupt")
+    if params is None:
+        return False
+    sid = int(sample_id)
+    if "at_sample" in params:
+        if params["at_sample"] != sid:
+            return False
+    elif "every" in params:
+        if sid % max(params["every"], 1) != 0:
+            return False
+    return _data_spend("data_corrupt", params)

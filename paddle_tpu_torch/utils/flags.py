@@ -20,6 +20,13 @@ defaults:
   CompiledTrainStep` runs each training step after the first as one
   captured program (one CUDA graph replay on the card).  Off: every step
   runs the eager step.
+- ``FLAGS_fault_inject`` (""): the fault-injection spec
+  (`utils.fault_injection`): checkpoint torn writes, a preemption
+  signal at a training step, slow or corrupt data records.  Empty: every
+  injection point returns at once.
+- ``FLAGS_sentinel`` and ``FLAGS_hot_spare`` (False): read by
+  `hapi.Model.fit`, which raises `NotImplementedError` when either is on
+  (the training sentinel and hot-spare recovery are not ported).
 """
 from __future__ import annotations
 
@@ -30,6 +37,9 @@ _FLAGS: dict[str, Any] = {
     "FLAGS_compiled_tick": True,
     "FLAGS_serving_fused_sampling": True,
     "FLAGS_compiled_train_step": True,
+    "FLAGS_fault_inject": "",
+    "FLAGS_sentinel": False,
+    "FLAGS_hot_spare": False,
 }
 
 

@@ -442,9 +442,16 @@ def test_flags_registry_and_environment(monkeypatch, flags):
         monkeypatch.delenv("FLAGS_compiled_tick")
         importlib.reload(tflags)
     declared = TICK_FLAGS + ("FLAGS_compiled_train_step",)
-    assert tflags.get_flags() == {k: True for k in declared}
+    runtime = ("FLAGS_fault_inject", "FLAGS_sentinel", "FLAGS_hot_spare")
+    assert tflags.get_flags() == dict(
+        {k: True for k in declared}, FLAGS_fault_inject="",
+        FLAGS_sentinel=False, FLAGS_hot_spare=False)
     jflags.set_flags({k: True for k in declared})
-    assert tflags.get_flags() == jflags.get_flags(list(declared))
+    assert tflags.get_flags(list(declared)) == \
+        jflags.get_flags(list(declared))
+    # the training runtime's flags, with the JAX defaults
+    assert {k: tflags.flag(k) for k in runtime} == \
+        {k: jflags.flag(k) for k in runtime}
     for value in ("yes", 0, "false", 1):
         tflags.set_flags({"FLAGS_serving_fused_sampling": value})
         jflags.set_flags({"FLAGS_serving_fused_sampling": value})

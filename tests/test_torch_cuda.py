@@ -1805,3 +1805,140 @@ def test_generation_on_card_equals_cpu(card):
     assert caches[0]["k"].shape == (2, 17, 2, lcfg.head_dim)
     assert torch.equal(l_card.generate(ids.to(card), 8).cpu(),
                        l_cpu.generate(ids, 8))
+
+
+# ---- the training runtime on the card ----
+
+class _Ids:
+    def __init__(self, n, seq, vocab=512, seed=0):
+        rng = np.random.default_rng(seed)
+        self.rows = rng.integers(0, vocab, (n, seq + 1))
+
+    def __len__(self):
+        return len(self.rows)
+
+    def __getitem__(self, i):
+        return self.rows[i, :-1], self.rows[i, 1:]
+
+
+@pytest.mark.cuda
+def test_device_prefetch_equals_host_batches_under_a_busy_stream(card):
+    """200 prefetched batches equal the host batches while a long matmul
+    chain keeps the consumer's stream busy and each batch is read on that
+    stream after the chain (the memory ``record_stream`` keeps).  A busy
+    consumer hides a missing wait on the copy's event: the next test
+    holds that wait."""
+    from paddle_tpu_torch import data as D
+    mk = lambda: D.pipeline(_Ids(800, 255)).shuffle(seed=1).batch(4)  # noqa
+    host = [tuple(t.clone() for t in b) for b in mk()]
+    pipe = mk().device_prefetch(3)
+    a = torch.randn(2048, 2048, device=card)
+    got = []
+    for x, y in pipe:
+        for _ in range(8):                 # the step the copy overlaps
+            a = torch.tanh(a @ a)
+        got.append((x + 0, y + 0))         # read on the current stream
+    assert len(got) == len(host) == 200
+    for (gx, gy), (hx, hy) in zip(got, host):
+        assert gx.device.type == "cuda"
+        assert torch.equal(gx.cpu(), hx) and torch.equal(gy.cpu(), hy)
+    assert pipe.goodput.batches == 200
+
+
+@pytest.mark.cuda
+def test_device_prefetch_waits_for_a_slow_copy_on_an_idle_stream(
+        card, monkeypatch):
+    """Each copy is held back on the side stream by a sleep kernel queued
+    before it (~15 ms a call, three calls a batch), and the consumer reads
+    each batch at once on its idle stream: the batches still equal the
+    host batches, because that stream waits on the copy's event.  Without
+    the wait the first read takes memory not yet written."""
+    from paddle_tpu_torch import data as D
+    from paddle_tpu_torch.data import prefetch
+    copy = prefetch.to_device_batch
+
+    def slow(batch, device, non_blocking=False):
+        torch.cuda._sleep(30_000_000)      # on the producer's side stream
+        return copy(batch, device, non_blocking)
+
+    monkeypatch.setattr(prefetch, "to_device_batch", slow)
+    mk = lambda: D.pipeline(_Ids(80, 255, seed=4)).shuffle(seed=2).batch(4)  # noqa
+    host = [tuple(t.clone() for t in b) for b in mk()]
+    torch.cuda.synchronize()
+    got = [(x + 0, y + 0) for x, y in mk().device_prefetch(2)]
+    assert len(got) == len(host) == 20
+    for (gx, gy), (hx, hy) in zip(got, host):
+        assert torch.equal(gx.cpu(), hx) and torch.equal(gy.cpu(), hy)
+
+
+def _hapi_gpt(card, seed=0):
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    cfg = GPTConfig(vocab_size=512, hidden_size=128, num_layers=2,
+                    num_heads=4, max_seq_len=128)
+    net = GPTForCausalLM(cfg, device=card, seed=seed)
+    return Model(net).prepare(AdamW(1e-3, parameters=net.parameters()),
+                              CrossEntropyLoss(), amp_configs="O2")
+
+
+@pytest.mark.cuda
+def test_async_model_checkpoint_holds_its_step_on_card(card, tmp_path):
+    """An async checkpoint of a compiled model holds the state of the
+    step it was taken at although 3 replays run before its thread ends;
+    its payload equals a synchronous save of that state."""
+    from paddle_tpu_torch.hapi import ModelCheckpoint
+    from paddle_tpu_torch.framework.checkpoint_manager import \
+        CheckpointManager
+    model = _hapi_gpt(card)
+    ds = _Ids(8, 128)
+    x, y = (torch.from_numpy(np.stack(v)).to(card)
+            for v in zip(*[ds[i] for i in range(4)]))
+    for _ in range(3):
+        model.train_batch([x], [y])
+    cb = ModelCheckpoint(save_dir=str(tmp_path / "async"), async_save=True)
+    cb.set_model(model)
+    gate = __import__("threading").Event()
+    state, ready = cb._state(next_epoch=1)
+    want = {k: v.detach().clone().cpu()
+            for k, v in model.network.state_dict().items()}
+    cb.manager.save(state, before_write=lambda: (gate.wait(),
+                                                 ready.synchronize()))
+    for _ in range(3):                     # replays while the save waits
+        model.train_batch([x], [y])
+    torch.cuda.synchronize()
+    gate.set()
+    cb.manager.wait()
+    got, _ = CheckpointManager(str(tmp_path / "async"),
+                               map_location="cpu").restore_latest()
+    for k, v in want.items():
+        assert torch.equal(got["model"][k].view(torch.int16),
+                           v.view(torch.int16)), k
+    changed = [k for k, v in model.network.state_dict().items()
+               if not torch.equal(v.cpu(), want[k])]
+    assert changed                         # training moved on
+    assert model._compiled_step.compiled
+
+
+@pytest.mark.cuda
+def test_model_fit_compiled_step_captures_once(card):
+    from paddle_tpu_torch import data as D
+    model = _hapi_gpt(card)
+    pipe = D.pipeline(_Ids(24, 128)).shuffle(seed=0).batch(4) \
+        .device_prefetch(2)
+    hist = model.fit(pipe, epochs=2, verbose=0, log_freq=1)
+    cs = model._compiled_step
+    assert cs.compiled and cs.fallbacks == 0 and cs.fallback_reason is None
+    stats = cs.graph_stats()
+    assert len(stats) == 1
+    (captures, replays, _), = stats.values()
+    assert captures == 1 and replays == 11    # 12 steps, call 1 eager
+    assert all(np.isfinite(hist["loss"]))
+
+
+@pytest.mark.cuda
+def test_load_map_location_none_lands_on_cuda(card, tmp_path):
+    import paddle_tpu_torch as pt
+    pt.save({"w": torch.ones(3).bfloat16(), "n": 1}, str(tmp_path / "s"))
+    out = pt.load(str(tmp_path / "s"))
+    assert out["w"].device.type == "cuda" and out["w"].dtype == \
+        torch.bfloat16 and out["n"] == 1

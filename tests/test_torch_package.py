@@ -86,3 +86,30 @@ def test_nvcc_missing_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.nvcc_path()
+
+
+def test_runtime_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """A ``Model`` of a default-device network, a ``device_prefetch`` and
+    a ``CheckpointManager`` restore with no device given raise without
+    CUDA instead of running on the CPU."""
+    import numpy as np
+    from paddle_tpu_torch import data as Dt
+    from paddle_tpu_torch import load, save
+    from paddle_tpu_torch.framework.checkpoint_manager import \
+        CheckpointManager
+    from paddle_tpu_torch.hapi import Model
+    CheckpointManager(str(tmp_path), map_location="cpu").save(
+        {"w": torch.ones(2)}, step=0)
+    save({"w": torch.ones(2)}, str(tmp_path / "s.pkl"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Model(LlamaForCausalLM(llama_config("tiny")))
+    pipe = Dt.pipeline(np.arange(8)).batch(2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        pipe.device_prefetch(2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        CheckpointManager(str(tmp_path)).restore_latest()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        load(str(tmp_path / "s.pkl"))
+    assert CheckpointManager(str(tmp_path), map_location="cpu") \
+        .restore_latest()[1] == 0
