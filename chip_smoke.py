@@ -176,6 +176,32 @@ last line:
             backward, 32 rope, 8 of each flash kernel, 75 Adam); fit's and
             the hand lane's step ms p50, the busy share of 3 fit steps.
             No checkpoint (~24 GB of state)
+19. sentinel-gpt2  GPT-2 124M, nothing cut, dropout 0.1, B8 x S1024,
+            through ``Model.fit`` on CompiledTrainStep under the training
+            sentinel (checks and anchors every 8 steps): (a) 16 steps on
+            against off, losses and weights bit for bit, the step's two
+            graphs (full; cadence, with the squared norm) captured once
+            each; (e) that run's train.step_time_ms, tokens/s and
+            train.mfu against the phase's CUDA-event step times (MFU
+            within 2 points, at most 1), the exporter's lines through
+            ``tools/check_telemetry.py --snapshots``; (d) a replay with and
+            without the sentinel, an anchor in host memory and through
+            CheckpointManager, a rollback; (b) a finite loss spike the data
+            carries (batch 20 of 32): one rollback into the captured
+            graphs, 20 quarantined, the dump through ``--sentinel-dump``,
+            the weights equal a clean run without batch 20 bit for bit;
+            (c) the eager lane: loss_spike at 12 (rollback) equal to the
+            clean run without batch 12, grad_bitflip at 12 (skipped,
+            quarantined) equal to a clean run that draws batch 12's
+            dropout masks without training on it
+20. lora-llama  Llama-2 7B width, 8 of 32 layers, attach_lora(rank 16)
+            on the seven projections, the base frozen, bf16 O2, AdamW over
+            the factors, B1 x S4096, 2 + 4 fit steps: step ms, MFU, peak
+            memory, launches a replay; the eager lane's losses equal bit
+            for bit; merge / unmerge bit for bit; save_adapter, then the
+            base served with the adapter in the Engine's pool: prefill
+            logits within LORA_FLOOR_MULT x the model's bf16 floor of the
+            wrapped model's forward and of the fp32 adapted model
 
 The second-to-last line is the kernels' JSON summary, the last line
 ``{"ok": true, "device": {...}}``.  ``--phases`` runs a subset.
@@ -239,7 +265,8 @@ PHASES = ("device", "build", "kernels", "serve", "serve-lora-int8",
           "serve-tick", "parity", "train", "train-parity",
           "train-compiled-parity", "train-gpt2", "gpt2-parity", "attn-ops",
           "train-optimizers", "serve-gpt", "gpt-parity", "generate-gpt",
-          "train-gpt2-recompute", "fit-gpt2", "fit-llama")
+          "train-gpt2-recompute", "fit-gpt2", "fit-llama", "sentinel-gpt2",
+          "lora-llama")
 #: generate-gpt: the worst row error (relative to the row's norm) allowed
 #: between the cached path's last-position logits and the full forward's
 #: at GPT-3 6.7B in bf16.  Both paths round every activation to bf16 (a
@@ -3442,13 +3469,13 @@ class StepLog(Callback):
         self._it += 1
 
 
-def fit_gpt2_model(dev, dropout, seed=0):
+def fit_gpt2_model(dev, dropout, seed=0, lr=1e-4):
     """GPT-2 124M (nothing cut) behind ``hapi.Model``: bf16 O2 through
-    ``prepare(amp_configs="O2")``, AdamW(1e-4, wd 0.01), CrossEntropyLoss."""
+    ``prepare(amp_configs="O2")``, AdamW(lr, wd 0.01), CrossEntropyLoss."""
     cfg = gpt_config("gpt2-124m", max_seq_len=1024, attn_dropout=dropout,
                      dropout=dropout)
     net = GPTForCausalLM(cfg, device=dev, dtype=torch.float32, seed=seed)
-    opt = AdamW(learning_rate=1e-4, parameters=net.parameters(),
+    opt = AdamW(learning_rate=lr, parameters=net.parameters(),
                 weight_decay=0.01)
     return Model(net).prepare(opt, CrossEntropyLoss(), amp_configs="O2")
 
@@ -3788,6 +3815,552 @@ def phase_fit_llama(dev, warmup=2, steps=4):
     return dict(fit_ms=fit_ms, hand_ms=hand_ms, busy=busy)
 
 
+# ------------------------------------------------ the sentinel and LoRA
+#: sentinel-gpt2's flags: a check every 8 steps, an anchor at most every 8,
+#: the loss z-score over the last 8 accepted losses (at least 4)
+SENTINEL_FLAGS = {"FLAGS_sentinel_check_every": 8,
+                  "FLAGS_sentinel_anchor_every": 8,
+                  "FLAGS_sentinel_window": 8}
+#: lora-llama: the served adapter's prefill logits may differ from the
+#: wrapped model's forward, and from the fp32 adapted model, by this many
+#: times the model's bf16 floor, measured in the same run: the worst row
+#: error (relative to its norm) of the bf16 base's logits against the fp32
+#: base's.  Both bf16 paths round every activation (and the wrapped one the
+#: weight W + A B s, the pool x W + (x A) B s) as the base does, in other
+#: places, so each sits about one floor from the fp32 function; two floors
+#: bound their distance.  A pool that dropped the adapter sits as far from
+#: the adapted model as the base does (the control).
+LORA_FLOOR_MULT = 2.0
+
+
+class SentinelLog(Callback):
+    """Each step's loss (``log_freq=1``), the fit's sentinel, and a pair of
+    CUDA events around each step (batch begin to batch end, on the
+    current stream): the phase's own device step times."""
+
+    def __init__(self):
+        super().__init__()
+        self.losses, self.events = [], []
+        self.sentinel = None
+
+    def on_train_batch_begin(self, step, logs=None):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.events.append([ev])
+
+    def on_train_batch_end(self, step, logs=None):
+        self.losses.append(logs["loss"])
+        self.sentinel = self.model._sentinel
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.events[-1].append(ev)
+
+    def step_ms(self):
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.events]
+
+
+def spike_loader(steps, vocab, spike=None, skip=(), seed=0):
+    """A DataLoader of ``steps`` batches of 8 x 1024 tokens: every batch the
+    same 8 seeded rows (the model learns them and the loss falls), batch
+    ``spike`` 8 other random rows (random ids, random labels: a finite loss
+    spike the data carries), the batches in ``skip`` left out (a clean
+    run)."""
+    rng = np.random.default_rng(seed)
+    same = rng.integers(0, vocab, (8, 1025))
+    other = rng.integers(0, vocab, (8, 1025))
+    skip = {skip} if isinstance(skip, int) else set(skip)
+    rows = np.concatenate([other if k == spike else same
+                           for k in range(steps) if k not in skip])
+    return DataLoader(TensorDataset([rows[:, :-1], rows[:, 1:]]),
+                      batch_size=8, shuffle=False)
+
+
+def sentinel_fit(model, data, tag, sentinel, compiled=True, fault="",
+                 callbacks=(), dump=None):
+    """``model.fit(data)`` for one epoch (the loss read each step) with
+    FLAGS_sentinel, the compiled step and the fault spec set; returns the
+    `SentinelLog` (its ``sentinel`` the fit's, or None)."""
+    port_flags.set_flags(dict(SENTINEL_FLAGS, FLAGS_sentinel=sentinel,
+                              FLAGS_compiled_train_step=compiled,
+                              FLAGS_fault_inject=fault,
+                              FLAGS_sentinel_dump_path=dump or ""))
+    rec = SentinelLog()
+    try:
+        model.fit(data, epochs=1, verbose=0, log_freq=1, shuffle=False,
+                  callbacks=[rec, *callbacks])
+    finally:
+        port_flags.set_flags({"FLAGS_sentinel": False,
+                              "FLAGS_compiled_train_step": True,
+                              "FLAGS_fault_inject": ""})
+    if not all(np.isfinite(rec.losses)):
+        raise AssertionError(f"[{tag}] non-finite logged losses {rec.losses}")
+    return rec
+
+
+def weights(model):
+    return {k: v.detach().clone() for k, v in
+            model.network.state_dict().items()}
+
+
+def same_weights(tag, got, want):
+    bad = [k for k, v in want.items()
+           if not torch.equal(got[k].view(torch.uint8)
+                              if got[k].dtype == torch.bfloat16 else got[k],
+                              v.view(torch.uint8)
+                              if v.dtype == torch.bfloat16 else v)]
+    if bad:
+        worst = max(float((got[k].float() - want[k].float()).abs().max())
+                    for k in bad)
+        raise AssertionError(f"[{tag}] {len(bad)} of {len(want)} tensors "
+                             f"differ (worst {worst:.3e}): {bad[:4]}")
+
+
+def check_dump(tag, path):
+    """``tools/check_telemetry.py --sentinel-dump`` on ``path``; returns the
+    dump's action."""
+    out = subprocess.run([sys.executable, os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "tools",
+        "check_telemetry.py"), "--sentinel-dump", path],
+        capture_output=True, text=True, timeout=120)
+    if out.returncode != 0:
+        raise AssertionError(f"[{tag}] check_telemetry --sentinel-dump "
+                             f"{path}: {out.stdout}{out.stderr}")
+    with open(path) as f:
+        return json.load(f)["sentinel"]["action"]
+
+
+def graph_ms(step, n=10):
+    """The device ms of one replay of a `CapturedStep`'s graph: ``n``
+    replays between two CUDA events (no seed refill: timing only)."""
+    step.graph.replay()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(n):
+        step.graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def host_ms(fn):
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.monotonic() - t0) * 1e3, out
+
+
+def sentinel_graphs(tag, cs):
+    """The sentinel step's graphs: a full and a cadence (``+health``) graph
+    of one batch signature, each captured once; returns {label: step}."""
+    stats = cs.graph_stats()
+    caps = {k: v[0] for k, v in stats.items()}
+    if len(caps) != 2 or set(caps.values()) != {1} or cs.fallbacks or \
+            not cs.compiled:
+        raise AssertionError(f"[{tag}] graphs {stats}, fallbacks "
+                             f"{cs.fallbacks}")
+    return {("health" if key[3] else "full"): st
+            for key, st in cs._steps.items()}
+
+
+def phase_sentinel_gpt2(dev, n=16):
+    """GPT-2 124M, nothing cut, dropout 0.1, bf16 O2, AdamW, B8 x S1024,
+    through ``Model.fit`` on CompiledTrainStep under the training sentinel
+    (check and anchor every 8 steps, z-score window 8):
+    (a) 16 steps with FLAGS_sentinel on against off: losses and weights
+    bit for bit, no anomaly, each of the step's two graphs (full, and the
+    cadence one with the squared norm) captured once; (e) the same run's
+    telemetry: train.step_time_ms p50, tokens/s and train.mfu against the
+    phase's own CUDA-event step times, the exporter's lines through
+    ``tools/check_telemetry.py --snapshots``; (b) a spike the data carries
+    (batch 20 of 32 random rows after 20 batches of one memorised set):
+    one rollback into the captured graphs (no new capture), 20
+    quarantined, the dump through ``--sentinel-dump``, the weights equal
+    to a clean run without batch 20; (c) the eager lane: ``loss_spike``
+    at 12 (a rollback) against the clean run without batch 12, and
+    ``grad_bitflip`` at 12 (skipped by the unit-scale scaler's found-inf,
+    quarantined) against a clean run that draws batch 12's dropout masks
+    without training on it; (d) the sentinel's cost: one replay of each
+    graph against the run without it, an anchor in host memory and
+    through CheckpointManager, a rollback."""
+    from paddle_tpu_torch.framework.checkpoint_manager import \
+        validate_finite_state
+    from paddle_tpu_torch.observability import REGISTRY, exporter
+    vocab = 50304
+    root = tempfile.mkdtemp(prefix="sentinel-gpt2-")
+    out = {}
+    try:
+        # (a) healthy, on against off
+        kernels.reset_launch_counts()
+        off = fit_gpt2_model(dev, dropout=0.1)
+        rec_off = sentinel_fit(off, gpt2_pipeline(8 * n), "sentinel-gpt2",
+                               sentinel=False)
+        w_off = weights(off)
+        (_, off_step), = [kv for kv in off._compiled_step._steps.items()]
+        off_ms = graph_ms(off_step)
+        del off, off_step
+        torch.cuda.empty_cache()
+        snap_path = os.path.join(root, "metrics.jsonl")
+        REGISTRY.get("train.step_time_ms").reset()
+        port_flags.set_flags({"FLAGS_metrics_export_path": snap_path})
+        on = fit_gpt2_model(dev, dropout=0.1)
+        kernels.reset_launch_counts()
+        try:
+            rec_on = sentinel_fit(on, gpt2_pipeline(8 * n), "sentinel-gpt2",
+                                  sentinel=True)
+        finally:
+            port_flags.set_flags({"FLAGS_metrics_export_path": ""})
+            exporter.stop_exporter()
+        counts = kernels.launch_counts()
+        check_launches(counts, dict({k: 12 * n for k in DROPOUT_KERNELS},
+                                    adam=148 * n))
+        rep = rec_on.sentinel.report()
+        if rep["anomalies"] or rep["rollbacks"] or rep["skips"]:
+            raise AssertionError(f"[sentinel-gpt2] (a) healthy run: {rep}")
+        same_losses("sentinel-gpt2", rec_on.losses, rec_off.losses)
+        same_weights("sentinel-gpt2", weights(on), w_off)
+        graphs = sentinel_graphs("sentinel-gpt2", on._compiled_step)
+        log(f"[sentinel-gpt2] (a) {n} fit steps, sentinel on = off bit for "
+            f"bit: losses {rec_on.losses}; {len(w_off)} tensors equal; "
+            f"report {rep}; graphs {on._compiled_step.graph_stats()}; "
+            f"launches {counts}")
+        # (e) the telemetry of the run under the sentinel
+        sm = on.step_metrics.snapshot()
+        ev_ms = rec_on.step_ms()[2:]
+        ev_p50 = float(np.median(ev_ms))
+        flops = sm["flops_per_step"]
+        peak = on.step_metrics.peak_flops()
+        ev_mfu = flops / (ev_p50 / 1e3) / peak
+        hist = sm["step_time_ms"]
+        p50 = hist["p50"]
+        tok_s = sm["tokens_per_sec"]
+        if not (sm["mfu"] <= 1.0 and abs(sm["mfu"] - ev_mfu) < 0.02):
+            raise AssertionError(f"[sentinel-gpt2] (e) train.mfu {sm['mfu']}"
+                                 f" against the phase's {ev_mfu}")
+        chk = subprocess.run([sys.executable, os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "tools", "check_telemetry.py"),
+            "--snapshots", snap_path], capture_output=True, text=True,
+            timeout=120)
+        if chk.returncode != 0:
+            raise AssertionError(f"[sentinel-gpt2] (e) --snapshots: "
+                                 f"{chk.stdout}{chk.stderr}")
+        log(f"[sentinel-gpt2] (e) train.step_time_ms p50 {p50:.3f} ms (the "
+            f"registry's estimate within a bucket of 3 a decade; min "
+            f"{hist['min']:.3f}, avg {hist['avg']:.3f}, max {hist['max']:.3f}"
+            f" over {hist['count']} steps) against the phase's CUDA events: "
+            f"p50 {ev_p50:.3f} (all "
+            f"{[round(t, 2) for t in ev_ms]}); train.tokens_per_sec "
+            f"{tok_s:.0f} (last step); step FLOPs {flops:.4e} (the "
+            f"counter); train.mfu {sm['mfu']:.4f} against the phase's "
+            f"{ev_mfu:.4f} (peak {peak:.4e}); memory "
+            f"{sm['memory']}; exporter lines pass --snapshots: "
+            f"{chk.stdout.strip()}")
+        # (d) the sentinel's costs
+        full_ms = graph_ms(graphs["full"])
+        health_ms = graph_ms(graphs["health"])
+        snap_ms, state = host_ms(on._sentinel_snapshot)
+        valid_ms, _ = host_ms(lambda: validate_finite_state(state))
+        mgr = CheckpointManager(os.path.join(root, "anchor"),
+                                map_location=dev)
+        disk_ms, _ = host_ms(lambda: mgr.save_anchor(state, step=1))
+        restore_ms, _ = host_ms(lambda: on._sentinel_restore(state))
+        disk_restore_ms, _ = host_ms(
+            lambda: on._sentinel_restore(mgr.restore_anchor()[0]))
+        del state
+        log(f"[sentinel-gpt2] (d) one replay: without the sentinel "
+            f"{off_ms:.3f} ms, with it {full_ms:.3f} ms (+{full_ms - off_ms:.3f}"
+            f"), a cadence replay {health_ms:.3f} ms (+{health_ms - off_ms:.3f}"
+            f"); an anchor in host memory {snap_ms:.1f} ms snapshot + "
+            f"{valid_ms:.1f} ms finiteness check; through CheckpointManager "
+            f"{disk_ms:.1f} ms more; a rollback from host memory "
+            f"{restore_ms:.1f} ms, from the anchor dir {disk_restore_ms:.1f}"
+            f" ms")
+        out.update(off_ms=off_ms, full_ms=full_ms, health_ms=health_ms,
+                   snap_ms=snap_ms + valid_ms, disk_ms=disk_ms,
+                   restore_ms=restore_ms, disk_restore_ms=disk_restore_ms,
+                   p50=p50, ev_p50=ev_p50, mfu=sm["mfu"], ev_mfu=ev_mfu,
+                   tok_s=tok_s)
+        del on, graphs
+        torch.cuda.empty_cache()
+        # (b) a spike the data carries, the compiled lane
+        k, nb = 20, 32
+        dump = os.path.join(root, "b.json")
+        model = fit_gpt2_model(dev, dropout=0.1, lr=3e-4)
+        rec = sentinel_fit(model, spike_loader(nb, vocab, spike=k),
+                           "sentinel-gpt2", sentinel=True, dump=dump)
+        rep = rec.sentinel.report()
+        quarantined = rep["quarantined"]
+        if rep["rollbacks"] != 1 or k not in quarantined or \
+                rep["anomalies"][0]["step"] != k or \
+                rep["anomalies"][0]["signal"] != "loss_spike":
+            raise AssertionError(f"[sentinel-gpt2] (b) {rep}; losses "
+                                 f"{rec.losses}")
+        sentinel_graphs("sentinel-gpt2 (b)", model._compiled_step)
+        action = check_dump("sentinel-gpt2", dump)
+        w_b = weights(model)
+        del model
+        torch.cuda.empty_cache()
+        clean = fit_gpt2_model(dev, dropout=0.1, lr=3e-4)
+        rec_clean = sentinel_fit(clean, spike_loader(nb, vocab, spike=k,
+                                                     skip=quarantined),
+                                 "sentinel-gpt2", sentinel=False)
+        same_weights("sentinel-gpt2 (b)", w_b, weights(clean))
+        log(f"[sentinel-gpt2] (b) batch {k} of {nb} random: {rep}; dump "
+            f"'{action}' passes --sentinel-dump; each graph captured once; "
+            f"weights equal the clean run without batches {quarantined} bit "
+            f"for bit (its losses {[round(v, 4) for v in rec_clean.losses]});"
+            f" the run's losses {[round(v, 4) for v in rec.losses]}")
+        del clean, w_b
+        torch.cuda.empty_cache()
+        # (c) the eager lane's seams
+        k, nc = 12, 24
+        dump = os.path.join(root, "c.json")
+        model = fit_gpt2_model(dev, dropout=0.1, lr=3e-4)
+        rec = sentinel_fit(model, spike_loader(nc, vocab), "sentinel-gpt2",
+                           sentinel=True, compiled=False, dump=dump,
+                           fault=f"loss_spike:at_step={k},scale=1e6")
+        rep = rec.sentinel.report()
+        quarantined = rep["quarantined"]
+        if rep["rollbacks"] != 1 or k not in quarantined or \
+                rep["anomalies"][0]["step"] != k:
+            raise AssertionError(f"[sentinel-gpt2] (c) loss_spike {rep}")
+        action = check_dump("sentinel-gpt2", dump)
+        w_c = weights(model)
+        del model
+        clean = fit_gpt2_model(dev, dropout=0.1, lr=3e-4)
+        sentinel_fit(clean, spike_loader(nc, vocab, skip=quarantined),
+                     "sentinel-gpt2", sentinel=False, compiled=False)
+        same_weights("sentinel-gpt2 (c) loss_spike", w_c, weights(clean))
+        log(f"[sentinel-gpt2] (c) eager loss_spike at {k}: {rep}; dump "
+            f"'{action}'; weights equal the clean run without batches "
+            f"{quarantined}")
+        del clean
+        clean = fit_gpt2_model(dev, dropout=0.1, lr=3e-4)
+        sentinel_fit(clean, spike_loader(nc, vocab, skip=k), "sentinel-gpt2",
+                     sentinel=False, compiled=False)
+        w_clean = weights(clean)
+        del clean
+        model = fit_gpt2_model(dev, dropout=0.1, lr=3e-4)
+        rec = sentinel_fit(model, spike_loader(nc, vocab), "sentinel-gpt2",
+                           sentinel=True, compiled=False,
+                           fault=f"grad_bitflip:at_step={k}")
+        rep = rec.sentinel.report()
+        if rep["rollbacks"] or rep["skips"] != 1 or rep["quarantined"] != [k]:
+            raise AssertionError(f"[sentinel-gpt2] (c) grad_bitflip {rep}")
+        w_f = weights(model)
+        del model
+        diff = max(float((w_f[key].float() - v.float()).abs().max())
+                   for key, v in w_clean.items())
+        batch_k = next(b for i, b in enumerate(spike_loader(nc, vocab))
+                       if i == k)
+
+        class DrawMasks(Callback):
+            """After step k - 1, a no-grad forward of batch k in training
+            mode: it draws the dropout masks and flash seeds the skipped
+            step drew, and trains nothing."""
+
+            def on_train_batch_end(self, step, logs=None):
+                if step == k - 1:
+                    with torch.no_grad(), self.model._autocast():
+                        self.model.network(batch_k[0].to(dev))
+        ref = fit_gpt2_model(dev, dropout=0.1, lr=3e-4)
+        sentinel_fit(ref, spike_loader(nc, vocab, skip=k), "sentinel-gpt2",
+                     sentinel=False, compiled=False, callbacks=[DrawMasks()])
+        same_weights("sentinel-gpt2 (c) grad_bitflip", w_f, weights(ref))
+        log(f"[sentinel-gpt2] (c) eager grad_bitflip at {k}: {rep}; weights "
+            f"equal a clean run that draws batch {k}'s masks without training "
+            f"on it, bit for bit; against the clean run that never draws "
+            f"them: max difference {diff:.3e} (the skipped step's dropout "
+            f"draws, ROADMAP Queue C)")
+        out["bitflip_vs_clean"] = diff
+        del ref
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def phase_lora_llama(dev, warmup=2, steps=4):
+    """Llama-2 7B width, 8 of 32 layers (train's cut), ``attach_lora(rank
+    16)`` on the seven default projections, ``mark_only_lora_trainable``,
+    bf16 O2, AdamW(1e-3, wd 0.01) over the factors, B1 x S4096, through
+    ``Model.fit`` on CompiledTrainStep for 2 + 4 steps: the step ms, MFU
+    (the FLOPs counter), peak memory and launches a replay; the eager
+    lane's losses equal bit for bit; ``merge`` then ``unmerge`` restores
+    every weight bit for bit (the merged forward equal to the unmerged);
+    ``save_adapter`` / ``load_adapter_state``; the same 8-layer base served
+    by the Engine with the adapter in its pool (one request under it, one
+    without), and the pool's prefill logits against the wrapped model's
+    forward and the fp32 adapted model within LORA_FLOOR_MULT x the bf16
+    floor."""
+    from paddle_tpu_torch.nn import (attach_lora, load_adapter,
+                                     load_adapter_state, lora_layers,
+                                     mark_only_lora_trainable, save_adapter)
+    cfg = llama_config("llama2-7b", num_layers=8)
+    n = warmup + steps
+    rows = TokenRows(n, cfg.vocab_size, 4096).rows
+    loader = DataLoader(TensorDataset([rows[:, :-1], rows[:, 1:]]),
+                        batch_size=1, shuffle=False)
+
+    def build():
+        net = LlamaForCausalLM(cfg, device=dev, dtype=torch.float32, seed=0)
+        names = attach_lora(net, rank=16)
+        mark_only_lora_trainable(net)
+        opt = AdamW(learning_rate=1e-3, weight_decay=0.01,
+                    parameters=[p for p in net.parameters()
+                                if p.requires_grad])
+        return Model(net).prepare(opt, CrossEntropyLoss(),
+                                  amp_configs="O2"), names
+    model, names = build()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    clock = StepLog()
+    model.fit(loader, epochs=1, verbose=0, log_freq=1, shuffle=False,
+              callbacks=[clock])
+    counts = kernels.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    need = {k: cfg.num_layers * n for k in TRAIN_KERNELS}
+    need["adam"] = 2 * len(names) * n
+    check_launches(counts, need)
+    cs = model._compiled_step
+    stats = cs.graph_stats()
+    if not cs.compiled or cs.fallbacks or len(stats) != 1:
+        raise AssertionError(f"[lora-llama] compiled step {stats}, "
+                             f"{cs.fallback_reason}")
+    sm = model.step_metrics.snapshot()
+    fit_ms = float(np.median(clock.times[warmup:]))
+    compiled_losses = clock.losses
+    clock.set_model(None)
+    del model, cs
+    torch.cuda.empty_cache()
+    log(f"[lora-llama] {len(names)} projections wrapped (rank 16), "
+        f"{2 * len(names)} factors train; {n} fit steps: losses "
+        f"{compiled_losses}; step {fit_ms:.2f} ms p50 (all "
+        f"{[round(t, 1) for t in clock.times]}), train.step_time_ms p50 "
+        f"{sm['step_time_ms']['p50']:.2f}, train.mfu {sm['mfu']:.4f} (FLOPs "
+        f"{sm['flops_per_step']:.4e} a step), peak {peak_gb:.2f} GB; graph "
+        f"{stats}; launches {counts}")
+    port_flags.set_flags({"FLAGS_compiled_train_step": False})
+    try:
+        model, _ = build()
+        eager = StepLog()
+        model.fit(loader, epochs=1, verbose=0, log_freq=1, shuffle=False,
+                  callbacks=[eager])
+    finally:
+        port_flags.set_flags({"FLAGS_compiled_train_step": True})
+    same_losses("lora-llama", compiled_losses, eager.losses)
+    eager.set_model(None)
+    net = model.network
+    net.eval()
+    prompt = torch.from_numpy(rows[:1, :512]).to(dev)
+    layers = lora_layers(net)
+    before = {k: lyr.weight.detach().clone() for k, lyr in layers.items()}
+    with torch.no_grad():
+        want = net(prompt)
+        for lyr in layers.values():
+            lyr.merge()
+        merged = net(prompt)
+        for lyr in layers.values():
+            lyr.unmerge()
+    if not torch.equal(merged, want):
+        raise AssertionError("[lora-llama] the merged forward differs")
+    for k, lyr in layers.items():
+        if not torch.equal(lyr.weight.view(torch.int16),
+                           before[k].view(torch.int16)):
+            raise AssertionError(f"[lora-llama] unmerge did not restore {k}")
+    root = tempfile.mkdtemp(prefix="lora-llama-")
+    try:
+        save_adapter(net, root)
+        spec = load_adapter_state(root)
+        log(f"[lora-llama] the eager lane's {n} losses equal the compiled "
+            f"lane's bit for bit; merge then unmerge restores all "
+            f"{len(layers)} weights bit for bit, the merged forward equal to "
+            f"the unmerged; save_adapter -> load_adapter_state: {len(spec)} "
+            f"layers")
+        return serve_lora(dev, cfg, rows, n, net, spec, root, prompt, want,
+                          dict(fit_ms=fit_ms, mfu=sm["mfu"], peak_gb=peak_gb,
+                               per_replay=stats))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def serve_lora(dev, cfg, rows, n, net, spec, root, prompt, want, out):
+    """lora-llama's serving half: the trained adapter (``spec``, saved in
+    ``root``) in the Engine's pool over the same base, and its prefill
+    logits against the wrapped model's forward ``want`` and the fp32
+    adapted model."""
+    from paddle_tpu_torch.nn import attach_lora, load_adapter
+    # the fp32 reference: the same base in fp32, the trained factors (their
+    # exact fp32 values) on it; without the factors (B = 0: W + A 0 s is W)
+    # it is the base, whose bf16 run gives the model's bf16 floor
+    ref = LlamaForCausalLM(cfg, device=dev, dtype=torch.float32, seed=0)
+    attach_lora(ref, rank=16)
+    ref.eval()
+    with torch.no_grad():
+        ref_base = ref(prompt).float()
+        load_adapter(ref, root)
+        ref_lora = ref(prompt).float()
+    del ref
+    base = LlamaForCausalLM(cfg, device=dev, dtype=torch.float32, seed=0)
+    with torch.no_grad():
+        for p in base.parameters():
+            p.data = p.data.to(torch.bfloat16)
+    frozen = {k: v for k, v in net.state_dict().items()
+              if k.rsplit(".", 1)[-1] not in ("lora_A", "lora_B")}
+    same_weights("lora-llama base", base.state_dict(), frozen)
+    base.eval()
+    prompts = [rows[0, :300].astype(np.int32), rows[1 % n, :200]
+               .astype(np.int32)]
+    scfg = ServingConfig(num_slots=2, max_seq_len=1024, max_adapters=2,
+                         adapter_rank_pool=16, adapters={"trained": spec})
+    outs, st, scounts, wall, speak, eng = serve_run(
+        base, dev, scfg, prompts, [SamplingParams()] * 2,
+        ["trained", None], max_new=16)
+    pool = eng.adapter_pool
+    slot = pool.acquire("trained")
+    try:
+        with torch.no_grad(), pool.activate(pool.row_tensor([slot])):
+            got = base(prompt)
+    finally:
+        pool.release("trained")
+    with torch.no_grad():
+        plain = base(prompt)
+    floor = row_err(plain, ref_base)
+    tol = LORA_FLOOR_MULT * floor
+    err = row_err(got, want)
+    err_ref = row_err(got, ref_lora)
+    err_wrapped = row_err(want, ref_lora)
+    err_base = row_err(plain, ref_lora)
+    if not (err <= tol and err_ref <= tol) or not torch.isfinite(got).all():
+        raise AssertionError(
+            f"[lora-llama] served prefill logits: row error {err:.3e} "
+            f"against the wrapped forward, {err_ref:.3e} against fp32; "
+            f"tolerance {tol:.3e} ({LORA_FLOOR_MULT} x the bf16 floor "
+            f"{floor:.3e})")
+    if not err_base > tol:
+        raise AssertionError(f"[lora-llama] control: the base without the "
+                             f"adapter is {err_base:.3e} from the fp32 "
+                             f"adapted model, within {tol:.3e}")
+    check_launches(scounts, {
+        "lora_delta": len(spec) * (st["decode_steps"] + st["prefill_calls"]),
+        "paged_decode": cfg.num_layers * st["decode_steps"]})
+    log(f"[lora-llama] served from the engine's pool: 2 requests x 16 "
+        f"tokens ({st['decode_ms_p50']:.2f} ms/step p50, launches "
+        f"lora_delta {scounts['lora_delta']}, paged_decode "
+        f"{scounts['paged_decode']}); prefill logits of a 512-token prompt, "
+        f"worst row error of its norm: served against the wrapped model's "
+        f"forward {err:.3e}, against the fp32 adapted model {err_ref:.3e} "
+        f"(the wrapped forward {err_wrapped:.3e}); tolerance {tol:.3e} = "
+        f"{LORA_FLOOR_MULT} x the bf16 floor {floor:.3e} (the bf16 base "
+        f"against the fp32 base); control: the base without the adapter "
+        f"{err_base:.3e} from the fp32 adapted model")
+    del eng, pool, base
+    torch.cuda.empty_cache()
+    return dict(out, err=err, err_ref=err_ref, floor=floor,
+                err_base=err_base)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -3862,6 +4435,10 @@ def main(argv=None):
         run("fit-gpt2", phase_fit_gpt2, dev)
     if "fit-llama" in phases:
         run("fit-llama", phase_fit_llama, dev)
+    if "sentinel-gpt2" in phases:
+        run("sentinel-gpt2", phase_sentinel_gpt2, dev)
+    if "lora-llama" in phases:
+        run("lora-llama", phase_lora_llama, dev)
     if timed and None not in (counts, lora_counts, train_counts, gpt2_counts,
                               ops_counts):
         # launches: the serving run's for its two kernels, the training

@@ -14,7 +14,11 @@ sources in ``csrc/``):
   ``hapi.callbacks``, `save` / `load` (which read the JAX package's
   files too), ``framework.checkpoint_manager.CheckpointManager``
   (atomic, retained, resumable checkpoints), ``io.DataLoader`` and the
-  checkpointable ``data.pipeline`` with device prefetch.
+  checkpointable ``data.pipeline`` with device prefetch;
+- the training sentinel (``framework.sentinel``, under ``FLAGS_sentinel``),
+  the telemetry fit runs under (``observability``: the metrics registry,
+  ``StepMetrics``, the exporter, the flight recorder; ``ops.flops``) and
+  LoRA training (``nn.attach_lora``, ``nn.save_adapter``).
 
 The kernels: RMS norm forward and backward, rope, flash attention
 forward, dK/dV and dQ, the fused Adam update, paged decode attention and

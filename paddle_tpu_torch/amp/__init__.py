@@ -30,6 +30,7 @@ import functools
 import torch
 
 from ..device import to_torch_dtype
+from ..utils import monitor as _monitor
 from . import amp_lists
 
 #: the port's op entries that apply the lists, under the JAX op names
@@ -198,7 +199,16 @@ class GradScaler:
     back to the host, unless ``defer_found_inf`` keeps it on the device
     (`_found_inf_tensor`).  The compiled train step keeps ``[scale, good,
     bad]`` on the device instead and updates it with `scaler_update`;
-    its ``sync_scaler()`` writes the vector back here."""
+    its ``sync_scaler()`` writes the vector back here.
+
+    The training sentinel wraps a run without loss scaling in a unit-scale
+    scaler (``init_loss_scaling=1.0``, ``always_check_found_inf=True``;
+    ``_sentinel_wrapper`` marks it), so a non-finite step is skipped.  Its
+    fused health pass plants its device found-inf flag in
+    ``_planted_found_inf``, which the next ``unscale_`` takes instead of
+    reducing every gradient again.  `update` keeps the consecutive
+    found-inf count for every enabled scaler and publishes it
+    (``amp.found_inf_streak`` gauge, ``amp.found_inf_total`` counter)."""
 
     def __init__(self, enable=True, init_loss_scaling=2.0 ** 15,
                  incr_ratio=2.0, decr_ratio=0.5, incr_every_n_steps=2000,
@@ -219,6 +229,8 @@ class GradScaler:
         self._found_inf_dev = None
         self._found_inf_streak = 0
         self._unscaled = False
+        self._planted_found_inf = None
+        self._sentinel_wrapper = False
 
     def scale(self, loss):
         if not self._enable or self._scale == 1.0:
@@ -241,8 +253,10 @@ class GradScaler:
             for g in grads:
                 g.mul_(inv)
         found = False
+        bad, self._planted_found_inf = self._planted_found_inf, None
         if grads and (self._scale != 1.0 or self._always_check):
-            bad = found_inf(grads)
+            if bad is None:
+                bad = found_inf(grads)
             if defer_found_inf:
                 self._found_inf_dev = bad
             else:
@@ -273,8 +287,11 @@ class GradScaler:
             return
         if self._found_inf:
             self._found_inf_streak += 1
-        else:
+            _monitor.incr("amp.found_inf_total")
+            _monitor.set_value("amp.found_inf_streak", self._found_inf_streak)
+        elif self._found_inf_streak:
             self._found_inf_streak = 0
+            _monitor.set_value("amp.found_inf_streak", 0)
         if not self._dynamic or self._scale == 1.0:
             return
         if self._found_inf:

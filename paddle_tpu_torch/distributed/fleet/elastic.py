@@ -1,8 +1,9 @@
 """Cooperative preemption (port of ``PreemptionHandler`` and
 ``ELASTIC_EXIT_CODE`` of paddle_tpu/distributed/fleet/elastic.py).
 
-SIGTERM (a preemptible machine's eviction notice) sets a flag; the
-training loop checkpoints at its next step boundary and exits with
+SIGTERM (a preemptible machine's eviction notice) sets a flag and dumps
+the flight recorder (`observability.flight_recorder`, once a process);
+the training loop checkpoints at its next step boundary and exits with
 ``ELASTIC_EXIT_CODE`` so a launcher relaunches it into auto-resume
 (``Model.fit(resume=True)``).  The JAX module's node stores, scale
 events and the relaunch controller are not ported (ROADMAP A8).
@@ -49,6 +50,14 @@ class PreemptionHandler:
 
     def _on_signal(self, signum, frame):
         self._event.set()
+        # a post-mortem trail now: the eviction's grace window may end
+        # before the loop reaches its next step boundary
+        try:
+            from ...observability import flight_recorder as _fr
+            _fr.record("preemption", f"signal_{signum}")
+            _fr.dump_on_preemption()
+        except Exception:
+            pass                  # telemetry must never mask SIGTERM
         for fn in list(self._callbacks):
             threading.Thread(target=self._run_callback, args=(fn,),
                              daemon=True).start()

@@ -32,8 +32,21 @@ the learning rate and the staged batch.
   clip only computes its device scale, which the update applies), the
   optimizer's update with the found-inf flag as its skip flag, the step
   counter kept on a skipped step, the scaler vector's update
-  (`amp.scaler_update`), the gradients zeroed in place.  Every op is the eager step's, so on the card the two
-  lanes agree bit for bit.
+  (`amp.scaler_update`), the gradients zeroed in place.  Every op is the
+  eager step's, so on the card the two lanes agree bit for bit.
+- **Sentinel mode** (``sentinel=True``, JAX's ``_update_tail`` under its
+  ``_sentinel``): found-inf is armed for runs without a scaler too and
+  feeds the update's skip flag, and each full call gives a health vector
+  ``[grad_norm_sq, skipped]`` (fp32, on the device) in ``last_health``,
+  a clone of the graph's output, so a window of calls holds a record
+  each.  The squared norm of the unscaled gradients (one
+  ``torch._foreach_norm`` pass, summed in fp32) is taken only on the
+  sentinel's cadence calls, ``calls % FLAGS_sentinel_check_every == 1``;
+  the other calls carry -1.0.  A graph cannot branch on a device value,
+  so a cadence call replays a second graph of its signature (the key
+  gains the flag; both share the staged batch, the pool and every
+  persistent tensor).  The health pass writes nothing the update reads:
+  the trajectory is bit for bit the one without the sentinel.
 
 The step runs eagerly, warns once and latches ``fallback_reason`` when
 ``FLAGS_compiled_train_step`` is off, the network has forward hooks, a
@@ -57,8 +70,6 @@ from . import capture
 
 _MESH = ("CompiledTrainStep(mesh=...): the dp/mp mesh lanes are not ported "
          "(ROADMAP Queue A8)")
-_SENTINEL = ("CompiledTrainStep(sentinel=True): the training sentinel is not "
-             "ported (ROADMAP Queue A2d)")
 
 
 def _signature(t):
@@ -90,8 +101,6 @@ class CompiledTrainStep:
                  sentinel=False):
         if mesh is not None:
             raise NotImplementedError(_MESH)
-        if sentinel:
-            raise NotImplementedError(_SENTINEL)
         self._forward = forward_fn
         self._opt = optimizer
         self._scaler = scaler
@@ -100,6 +109,11 @@ class CompiledTrainStep:
         self._eager_step = eager_step  # None: `_default_eager_step`
         self._device = optimizer._device() if optimizer is not None \
             else torch.device("cpu")
+        self._sentinel = bool(sentinel)
+        self._health_every = max(
+            int(_flag("FLAGS_sentinel_check_every", 8) or 1), 1)
+        #: the last full call's device ``[grad_norm_sq, skipped]`` (sentinel)
+        self.last_health = None
         self._micro = 0               # position within the accum window
         self._calls = 0
         self._fallback_reason = None
@@ -111,6 +125,7 @@ class CompiledTrainStep:
         self._steps = {}              # signature -> CapturedStep
         self._inputs = {}             # signature -> staged (x, y)
         self._outputs = {}            # signature -> the body's last loss
+        self._health = {}             # signature -> its health vector
         self._svec = None             # device [scale, good, bad] fp32
         self._pool = self._stream = None
         #: eager steps taken because the step is not (or no longer) eligible
@@ -155,13 +170,25 @@ class CompiledTrainStep:
         self._scaler._good_steps = int(good)
         self._scaler._bad_steps = int(bad)
 
+    def load_scaler(self):
+        """Write the Python ``GradScaler``'s state into the device vector
+        the graphs read, in place (after a rollback restored the scaler;
+        a new tensor would leave the graphs reading the old one)."""
+        if self._scaler is None or self._svec is None:
+            return
+        sc = self._scaler
+        self._svec.copy_(torch.tensor(
+            [sc._scale, float(sc._good_steps), float(sc._bad_steps)],
+            dtype=torch.float32))
+
     def graph_stats(self):
         """{signature label: (captures, replays, launches per replay)}; a
         signature is captured once, at its first compiled call on the
         card."""
         out = {}
-        for (update, xs, ys), st in self._steps.items():
+        for (update, xs, ys, cadence), st in self._steps.items():
             label = ("full" if update else "micro") + \
+                ("+health" if cadence else "") + \
                 f" x{list(xs[0])} {str(xs[1]).replace('torch.', '')}"
             out[label] = (int(st.graph is not None), st.replays,
                           dict(st.launches))
@@ -220,6 +247,7 @@ class CompiledTrainStep:
         if self._svec is not None:
             self.sync_scaler()
             self._svec = None
+        self.last_health = None       # no stale record for this step
         return (self._eager_step or self._default_eager_step)(x, y, update)
 
     def _call_forward(self, x, y):
@@ -311,8 +339,10 @@ class CompiledTrainStep:
                 dst.copy_(src)
 
     def _run_compiled(self, x, y, update):
-        key = (bool(update), _signature(x), _signature(y))
-        self._stage(key[1:], x, y)
+        cadence = bool(self._sentinel and update
+                       and self._calls % self._health_every == 1)
+        key = (bool(update), _signature(x), _signature(y), cadence)
+        self._stage(key[1:3], x, y)
         if self._scaler is not None and self._scaler._enable and \
                 self._svec is None:
             sc = self._scaler
@@ -332,13 +362,15 @@ class CompiledTrainStep:
         step()
         if update:
             self._opt._step_count += 1
+            if self._sentinel:
+                self.last_health = self._health[key].clone()
         return self._outputs[key].clone()
 
     def _body(self, key):
         """The graph's body: forward, backward and, for an update, the
         step tail; reads and writes persistent tensors only."""
         update = key[0]
-        xs, ys = self._inputs[key[1:]]
+        xs, ys = self._inputs[key[1:3]]
         svec = self._svec
         with torch.enable_grad():
             loss = self._forward(xs, ys)
@@ -351,12 +383,13 @@ class CompiledTrainStep:
         self._outputs[key] = loss.detach()
         if update:
             with torch.no_grad():
-                self._update_tail(svec)
+                self._health[key] = self._update_tail(svec, key[3])
 
-    def _update_tail(self, svec):
+    def _update_tail(self, svec, cadence=False):
         """Unscale, found-inf, clip, the update with its skip flag, the
         step counter, the scaler vector, zeroed gradients: JAX's
-        ``_update_tail`` with the eager step's ops."""
+        ``_update_tail`` with the eager step's ops.  Returns the sentinel's
+        health vector (None without the sentinel)."""
         opt = self._opt
         grads = [p.grad for p in self._params]
         found = None
@@ -370,6 +403,16 @@ class CompiledTrainStep:
             found = amp.found_inf(grads)
             if not self._scaler._always_check:
                 found = found & (svec[0] != 1.0)
+        health = None
+        if self._sentinel:
+            if found is None:         # no scaler: the sentinel arms it
+                found = amp.found_inf(grads)
+            if cadence:
+                norms = torch._foreach_norm(grads, 2.0, dtype=torch.float32)
+                gnorm_sq = torch.stack(norms).square().sum()
+            else:
+                gnorm_sq = torch.full((), -1.0, device=self._device)
+            health = torch.stack([gnorm_sq, found.float()])
         params_grads, gscale = opt._clip([(p, p.grad) for p in self._params])
         step = opt._step_tensor
         new_step = step + 1.0
@@ -380,3 +423,4 @@ class CompiledTrainStep:
         if svec is not None:
             svec.copy_(amp.scaler_update(self._scaler, svec, found))
         torch._foreach_zero_(grads)
+        return health

@@ -19,12 +19,28 @@ at the next step boundary and exits with ``ELASTIC_EXIT_CODE``), and
 ``fit(resume=True)`` continues from the newest valid checkpoint, one the
 JAX package wrote too.
 
+Telemetry: fit runs under `observability.StepMetrics` (``step_metrics``,
+prefix ``train.``: step time from CUDA events on the card, examples and
+tokens per second, MFU, memory watermarks), with the step's FLOPs
+counted once on the first batch (`ops.flops.FlopsCounter`, one extra
+forward under ``no_grad`` that leaves every generator as it found it),
+a ``data.Pipeline``'s goodput attached, and the metrics exporter started
+when ``FLAGS_metrics_export_path`` is set.
+
+The training sentinel (``FLAGS_sentinel``, `framework.sentinel`): fit
+wraps a run without loss scaling in a unit-scale ``GradScaler`` that
+always checks found-inf, builds the compiled step with its health
+output, pins anchors (`_sentinel_snapshot`: the model, the optimizer,
+the scaler, the generators' states and a pipeline's position; in host
+memory, or in the ``ModelCheckpoint``'s ``CheckpointManager``), and after
+a rollback (`_sentinel_restore`, which copies into the tensors the
+captured graphs read) replays the anchor's epoch without the quarantined
+iterations.  The fault points ``bad_batch`` (the batch before the step),
+``loss_spike`` and ``grad_bitflip`` (the eager step) are its drills.
+
 Not ported, each raising `NotImplementedError` with its ROADMAP label:
-the training sentinel (``FLAGS_sentinel``, A2d), ``prepare(jit=True)``
-(A9), a world size above 1, a manifest with a shard layout and
-``FLAGS_hot_spare`` (A8), ``summary`` (A9).  The JAX package's
-``StepMetrics`` and step FLOPs (A6) are left out: fit sets no
-``step_metrics``.
+``prepare(jit=True)`` (A9), a world size above 1, a manifest with a
+shard layout and ``FLAGS_hot_spare`` (A8), ``summary`` (A9).
 """
 from __future__ import annotations
 
@@ -37,11 +53,11 @@ import torch
 from .. import distributed as dist_env
 from ..io import DataLoader
 from ..metric import Metric
+from ..nn import functional as F
+from ..utils import fault_injection as _fault_injection
 from ..utils.flags import flag as _flag
 from .callbacks import config_callbacks
 
-_SENTINEL = ("FLAGS_sentinel: the training sentinel is not ported "
-             "(ROADMAP A2d)")
 _JIT = "prepare(jit=True): to_static is not ported (ROADMAP A9, jit)"
 _WORLD = ("hapi.Model with a world size above 1: the dp lanes are not "
           "ported (ROADMAP A8)")
@@ -54,6 +70,35 @@ _SUMMARY = "Model.summary is not ported (ROADMAP A9)"
 
 def _to(t, device):
     return t.to(device) if torch.is_tensor(t) and t.device != device else t
+
+
+def _batch_counts(x):
+    """(examples, tokens) of a batch: examples its leading dimension,
+    tokens its element count when it holds integers (token ids), else
+    None."""
+    shape = tuple(getattr(x, "shape", ()) or ())
+    if not shape:
+        return 0, None
+    integer = torch.is_tensor(x) and not x.is_floating_point() and \
+        not x.is_complex()
+    return int(shape[0]), (int(np.prod(shape)) if integer else None)
+
+
+def _generators(network):
+    """The torch generators ``network``'s forward draws from (each module's
+    attributes, then the package's default dropout generators), in a
+    fixed order."""
+    seen, out = set(), []
+    for mod in network.modules():
+        for v in vars(mod).values():
+            if isinstance(v, torch.Generator) and id(v) not in seen:
+                seen.add(id(v))
+                out.append(v)
+    for _, gen in sorted(F._generators.items(), key=lambda kv: str(kv[0])):
+        if id(gen) not in seen:
+            seen.add(id(gen))
+            out.append(gen)
+    return out
 
 
 class Model:
@@ -73,6 +118,12 @@ class Model:
         self._data_pipeline = None
         self._compiled_step = None
         self._accum_steps = 1
+        # the training sentinel fit installs under FLAGS_sentinel (None:
+        # every seam is one attribute read)
+        self._sentinel = None
+        # the global iteration the sentinel's fault points read (fit sets it)
+        self._fi_step = None
+        self.step_metrics = None
 
     def _device(self):
         for p in self.network.parameters():
@@ -151,6 +202,8 @@ class Model:
         with self._autocast():
             out = self.network(x)
             loss = self._compute_loss(out, y)
+        if self._fi_step is not None:
+            loss = _fault_injection.spike_loss(loss, self._fi_step)
         bwd = loss
         if self._scaler is not None:
             bwd = self._scaler.scale(bwd)
@@ -159,10 +212,22 @@ class Model:
             # mean over the window
             bwd = bwd * (1.0 / self._accum_steps)
         bwd.backward()
+        if self._fi_step is not None:
+            _fault_injection.corrupt_grads(self._optimizer, self._fi_step)
         if not update:
             return loss, out
+        if self._sentinel is not None:
+            found = self._sentinel.note_eager(self._optimizer)
+            sc = self._scaler
+            if found is not None and sc is not None and sc._scale == 1.0 \
+                    and sc._always_check:
+                # the unit-scale wrapper takes the health pass's flag
+                # instead of reducing every gradient again
+                sc._planted_found_inf = found
         if self._scaler is not None:
             self._scaler.step(self._optimizer)
+            if self._sentinel is not None:
+                self._sentinel.note_eager_skip(self._scaler._found_inf)
         else:
             self._optimizer.step()
         self._optimizer.clear_grad()
@@ -175,7 +240,11 @@ class Model:
         if self._compiled_step is False:
             return None
         if self._compiled_step is not None:
-            return self._compiled_step
+            if self._compiled_step._sentinel == (self._sentinel is not None):
+                return self._compiled_step
+            # the sentinel was turned on or off: rebuilt with or without
+            # the health output
+            self._compiled_step = None
         if not _flag("FLAGS_compiled_train_step", True):
             return None
         if (self._loss is None or self._optimizer is None
@@ -192,6 +261,7 @@ class Model:
             lambda x, y: ref()._forward_loss(x, y), self._optimizer,
             scaler=self._scaler, network=self.network,
             accumulate_grad_batches=self._accum_steps,
+            sentinel=self._sentinel is not None,
             eager_step=lambda x, y, update:
                 ref()._train_step(x, y, update)[0])
         if cs.fallback_reason is not None:
@@ -255,9 +325,8 @@ class Model:
         checkpointing, SIGTERM saves at the next step boundary and exits
         with ``ELASTIC_EXIT_CODE``."""
         from ..data import Pipeline
+        from ..observability import StepMetrics, maybe_start_exporter
         from .callbacks import ModelCheckpoint
-        if _flag("FLAGS_sentinel", False):
-            raise NotImplementedError(_SENTINEL)
         if _flag("FLAGS_hot_spare", False):
             raise NotImplementedError(_HOT_SPARE)
         loader = self._as_loader(train_data, batch_size, shuffle)
@@ -289,13 +358,30 @@ class Model:
             from ..distributed.fleet.elastic import PreemptionHandler
             handler = PreemptionHandler().install()
 
+        sentinel = self._install_sentinel(ckpt_cb)
+
+        # telemetry: the step metrics, the exporter thread when its flag
+        # names a path; the step's FLOPs counted once, on the first batch
+        maybe_start_exporter()
+        self.step_metrics = StepMetrics(prefix="train.",
+                                        device=self._device())
+        if self._data_pipeline is not None:
+            self.step_metrics.attach_data(self._data_pipeline.goodput)
+        flops_pending = True
+
         self.stop_training = False
         cbs.call("on_train_begin")
         history = {"loss": []}
         it = 0
         logs = {}
+        if sentinel is not None:
+            sentinel.begin(it=0, epoch=initial_epoch)
         try:
             epoch = initial_epoch
+            # after a rollback: redo the anchor's epoch, passing over (not
+            # training on) the batches before the anchor; the loader's
+            # fixed order maps an iteration to the same batch on a replay
+            replay_epoch, replay_from = None, -1
             while epoch < epochs:
                 cbs.call("on_epoch_begin", epoch)
                 sampler = getattr(loader, "batch_sampler", None)
@@ -307,12 +393,27 @@ class Model:
                     m.reset()
                 logs = {}
                 loss_t = None
+                rollback = None
                 for step, batch in enumerate(loader):
+                    if replay_epoch == epoch and step < replay_from:
+                        continue       # fast-forward to the anchor
                     x, y = self._split_batch(batch)
+                    if sentinel is not None and sentinel.quarantined(it):
+                        it += 1        # a quarantined batch is never fed
+                        continue       # again
+                    if _fault_injection.active("bad_batch") is not None:
+                        x = _fault_injection.corrupt_batch(x, it)
+                    self._fi_step = it
                     cbs.call("on_train_batch_begin", step)
+                    if flops_pending:
+                        flops_pending = False
+                        self._measure_step_flops(x)
+                    examples, tokens = _batch_counts(x)
                     update = (accumulate_grad_batches <= 1
                               or (it + 1) % accumulate_grad_batches == 0)
+                    self.step_metrics.begin_step()
                     loss_t = self._train_batch_device(x, y, update=update)
+                    self.step_metrics.end_step(examples, tokens)
                     # the loss stays on the device between log points
                     if step % log_freq == 0 or self._metrics:
                         logs["loss"] = float(loss_t.detach())
@@ -329,9 +430,26 @@ class Model:
                         ckpt_cb.manager.wait()
                         handler.uninstall()
                         handler.exit_for_relaunch()
+                    if sentinel is not None:
+                        rollback = sentinel.after_step(it, epoch, step,
+                                                       loss_t, update)
                     it += 1
+                    if rollback is not None:
+                        break
                     if num_iters and it >= num_iters:
                         break
+                if rollback is None and sentinel is not None:
+                    rollback = sentinel.flush()
+                if rollback is not None:
+                    it = rollback.it
+                    epoch = rollback.epoch
+                    replay_epoch = rollback.epoch
+                    # a data.Pipeline was rewound onto the anchor's position
+                    # by the restore: nothing to pass over
+                    replay_from = (0 if self._data_pipeline is not None
+                                   else rollback.next_step)
+                    continue           # redo from the anchor
+                replay_epoch, replay_from = None, -1
                 if loss_t is not None:
                     logs["loss"] = float(loss_t.detach())
                 self._sync_compiled_state()
@@ -348,6 +466,9 @@ class Model:
         finally:
             if handler is not None:
                 handler.uninstall()
+            self.step_metrics.flush()
+            self._sentinel = None
+            self._fi_step = None
         cbs.call("on_train_end", logs)
         return history
 
@@ -357,6 +478,97 @@ class Model:
         cs = self._compiled_step
         if cs is not None and cs is not False:
             cs.sync_scaler()
+
+    # ---- the training sentinel (framework/sentinel.py) ----
+    def _install_sentinel(self, ckpt_cb):
+        """The fit's `TrainingSentinel` when ``FLAGS_sentinel`` is on, else
+        None.  A run without loss scaling gets a unit-scale GradScaler
+        that always checks found-inf, so a non-finite step is skipped (in
+        the compiled lane as the update's skip flag, no host read)."""
+        from ..framework.sentinel import TrainingSentinel, sentinel_enabled
+        if not sentinel_enabled():
+            if getattr(self._scaler, "_sentinel_wrapper", False):
+                self._scaler = None     # the sentinel was turned off since
+            self._sentinel = None       # the last fit installed its wrapper
+            return None
+        from .. import amp as amp_pkg
+        if self._scaler is None:
+            self._scaler = amp_pkg.GradScaler(
+                enable=True, init_loss_scaling=1.0,
+                use_dynamic_loss_scaling=False, always_check_found_inf=True)
+            self._scaler._sentinel_wrapper = True
+        manager = None
+        if ckpt_cb is not None and ckpt_cb.save_dir:
+            manager = ckpt_cb.manager
+        self._sentinel = TrainingSentinel(self, manager=manager,
+                                          nranks=self._nranks)
+        return self._sentinel
+
+    def _rng_states(self):
+        return [g.get_state() for g in _generators(self.network)]
+
+    def _set_rng_states(self, states):
+        for g, st in zip(_generators(self.network), states):
+            g.set_state(torch.as_tensor(np.asarray(st), dtype=torch.uint8))
+
+    def _sentinel_snapshot(self):
+        """Host copies of the model, the optimizer, the scaler, the
+        generators' states and a pipeline's position: the sentinel's
+        anchor (the compiled step rewrites the device tensors in place)."""
+        self._sync_compiled_state()
+
+        def host(sd):
+            return {k: (v.detach().to("cpu", copy=True)
+                        if torch.is_tensor(v) else v)
+                    for k, v in sd.items()}
+
+        state = {"model": host(self.network.state_dict()),
+                 "rng": [st.numpy() for st in self._rng_states()]}
+        if self._optimizer is not None:
+            state["optimizer"] = host(self._optimizer.state_dict())
+        if self._scaler is not None:
+            state["scaler"] = dict(self._scaler.state_dict())
+        if self._data_pipeline is not None:
+            state["data_pipeline"] = self._data_pipeline.state_dict()
+        return state
+
+    def _sentinel_restore(self, state):
+        """Roll the live model back onto an anchor: every value is copied
+        into the existing tensor (the parameters, the optimizer's moments,
+        masters and step, the scaler's device vector), whose address the
+        captured graphs read, and the generators take the anchor's
+        states, so a replay draws the masks the clean run draws."""
+        self.network.load_state_dict(state["model"])
+        if self._optimizer is not None and state.get("optimizer"):
+            self._optimizer.set_state_dict(state["optimizer"])
+        if self._scaler is not None and state.get("scaler"):
+            self._scaler.load_state_dict(dict(state["scaler"]))
+            self._scaler._found_inf = False
+            self._scaler._unscaled = False
+        cs = self._compiled_step
+        if cs is not None and cs is not False:
+            cs.load_scaler()
+            cs.last_health = None
+        if "rng" in state:
+            self._set_rng_states(state["rng"])
+        if self._data_pipeline is not None and state.get("data_pipeline"):
+            self._data_pipeline.load_state_dict(state["data_pipeline"])
+
+    def _measure_step_flops(self, x):
+        """The analytic FLOPs of one train step (`ops.flops.FlopsCounter`,
+        3 × one forward under ``no_grad``), once a fit, for ``train.mfu``.
+        The generators the forward draws from are put back, so the fit's
+        trajectory is the one without the measurement."""
+        from ..ops.flops import FlopsCounter
+        states = self._rng_states()
+        x = _to(x, self._device())
+        try:
+            with torch.no_grad(), self._autocast(), FlopsCounter() as fc:
+                self.network(x)
+        finally:
+            self._set_rng_states(states)
+        if fc.forward_flops:
+            self.step_metrics.set_flops_per_step(fc.train_step_flops)
 
     def _resume_from(self, resume, save_dir, ckpt_cb):
         """Restore the model, optimizer and a data.Pipeline's position

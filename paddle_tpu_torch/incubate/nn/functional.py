@@ -21,6 +21,7 @@ import math
 import torch
 
 from ...nn.functional import flash_attention
+from ...ops.flops import counted
 from ...kernels.paged_decode import gather_pages, paged_decode_attention
 from ...kernels.rope import RopeFunction, rope
 from ...quantization import (as_bytes, dequantize_kv, qmax_of,
@@ -48,6 +49,7 @@ def _apply_rope(q, k, v, cos, sin, use_neox):
     return rot(q), rot(k), rot(v)
 
 
+@counted("fused_rope")
 def fused_rotary_position_embedding(q, k=None, v=None, sin=None, cos=None,
                                     position_ids=None,
                                     use_neox_rotary_style=True,

@@ -15,8 +15,10 @@ from .. import amp
 from ..kernels import flash_attention as _fa
 from ..kernels import graph_state
 from ..kernels import rms_norm as _rms
+from ..ops.flops import counted
 
 
+@counted("rms_norm")
 @amp.amp_op("rms_norm")
 def rms_norm(x, weight, epsilon=1e-6):
     """x / rms(x) * weight: the RMS-norm kernels on the card, their plain
@@ -28,6 +30,7 @@ def rms_norm(x, weight, epsilon=1e-6):
     return _rms.rms_norm(x, weight, epsilon)
 
 
+@counted("layer_norm")
 @amp.amp_op("layer_norm")
 def layer_norm(x, normalized_shape=None, weight=None, bias=None,
                epsilon=1e-5):
@@ -50,10 +53,24 @@ def layer_norm(x, normalized_shape=None, weight=None, bias=None,
     return out
 
 
+@counted("embedding")
+def embedding(ids, weight):
+    """Rows of ``weight`` at integer ``ids``.  Floating ids raise
+    ``ValueError`` before anything is launched, as the JAX package's
+    ``jnp.take`` refuses them (a ``bad_batch`` fault scales token ids
+    into floats; cast to int64 they would index past the table, which
+    fails a device assert that poisons the CUDA context)."""
+    if ids.is_floating_point() or ids.is_complex():
+        raise ValueError("indices must have an integer type")
+    return torch.nn.functional.embedding(ids.long(), weight)
+
+
+@counted("silu")
 def silu(x):
     return torch.nn.functional.silu(x)
 
 
+@counted("gelu")
 def gelu(x, approximate=False):
     """GELU; ``approximate=True`` is the tanh form (GPT-2's), as
     ``jax.nn.gelu(approximate=True)``."""
@@ -89,8 +106,12 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
         raise NotImplementedError(
             f"dropout: mode={mode!r}, axis={axis!r}: only upscale_in_train "
             "over every element is ported")
-    gen = default_generator(x.device) if generator is None else generator
+    return _dropout(x, p, default_generator(x.device) if generator is None
+                    else generator)
 
+
+@counted("dropout")
+def _dropout(x, p, gen):
     def draw():
         graph_state.note_generator(gen)
         return torch.rand(x.shape, device=x.device, generator=gen) < 1.0 - p
@@ -100,6 +121,7 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
                                                         device=x.device))
 
 
+@counted("linear")
 @amp.amp_op("linear")
 def linear(x, weight, bias=None):
     """y = x @ W + b with W in Paddle's ``[in, out]`` layout."""
@@ -149,6 +171,7 @@ def _reduce(loss, reduction):
     return loss
 
 
+@counted("cross_entropy")
 @amp.amp_op("cross_entropy")
 def cross_entropy(input, label, weight=None, ignore_index=-100,  # noqa: A002
                   reduction="mean", soft_label=False, axis=-1,
@@ -212,9 +235,11 @@ def mse_loss(input, label, reduction="mean", name=None):  # noqa: A002
     return _reduce(torch.square(input - label), reduction)
 
 
-flash_attention = amp.amp_op("flash_attention")(_fa.flash_attention)
+flash_attention = counted("flash_attention", ("causal", "head_major"))(
+    amp.amp_op("flash_attention")(_fa.flash_attention))
 
 
+@counted("flash_attention", ("is_causal",))
 @amp.amp_op("flash_attention")
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,

@@ -59,7 +59,7 @@ class Embedding(nn.Module):
         self.weight.normal_(0.0, self.std, generator=generator)
 
     def forward(self, ids):
-        return torch.nn.functional.embedding(ids.long(), self.weight)
+        return F.embedding(ids, self.weight)
 
 
 class RMSNorm(nn.Module):

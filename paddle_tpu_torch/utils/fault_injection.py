@@ -18,10 +18,17 @@ The points, with the JAX package's parameters:
 - ``ckpt_write`` (`write_bytes`): every checkpoint payload goes through it;
 - ``step`` (`check_step`): a preemption notice at a training step;
 - ``data_slow`` / ``data_corrupt`` (`data_fetch_delay`,
-  `data_record_corrupt`): the input pipeline's record fetch.
+  `data_record_corrupt`): the input pipeline's record fetch;
+- the training sentinel's drills, each filtered on fit's global
+  iteration (``at_step``) and the rank, with a ``count`` budget of fires
+  (re-armed when the spec changes): ``bad_batch`` (`corrupt_batch`, the
+  batch before the step, so it rides the compiled lane too),
+  ``loss_spike`` (`spike_loss`, after the forward) and ``grad_bitflip``
+  (`corrupt_grads`, after the backward).  The last two are seams of the
+  eager step: the compiled step's graph replays neither, in the JAX
+  package too.
 
-The JAX package's other points (the training sentinel's ``bad_batch``,
-``loss_spike`` and ``grad_bitflip``, the serving fleet's rpc points, the
+The JAX package's other points (the serving fleet's rpc points, the
 collective and hot-spare drills) belong to modules the port does not
 have; naming one raises `FaultSpecError`.  So do the JAX ``step``
 point's ``crash_at``, ``exit``, ``rank`` and ``once_file`` keys: they
@@ -36,6 +43,8 @@ import re
 import signal
 import time
 
+import torch
+
 from .flags import flag
 
 #: the points the port consults, with their typed params.  ``mode``
@@ -47,6 +56,12 @@ KNOWN_POINTS = {
     "step": {"sigterm_at": int},
     "data_slow": {"delay_s": float, "every": int, "count": int},
     "data_corrupt": {"at_sample": int, "every": int, "count": int},
+    "bad_batch": {"at_step": int, "rank": int, "mode": str,
+                  "scale": float, "count": int},
+    "loss_spike": {"at_step": int, "rank": int, "scale": float,
+                   "count": int},
+    "grad_bitflip": {"at_step": int, "rank": int, "value": float,
+                     "param": int, "count": int},
 }
 
 _IDENT = re.compile(r"^[A-Za-z_][A-Za-z0-9_]*$")
@@ -159,6 +174,76 @@ def check_step(step):
     params = active("step")
     if params is not None and params.get("sigterm_at") == step:
         os.kill(os.getpid(), signal.SIGTERM)
+
+
+#: remaining-fire budgets of the sentinel points; re-armed when the spec
+#: string changes
+_SENTINEL_STATE = {"raw": "", "counts": {}}
+
+
+def _sentinel_point(point, step):
+    """Params of an armed sentinel point firing at global iteration
+    ``step`` on this rank, else None (one dict lookup with the flag
+    unset)."""
+    params = active(point)
+    if params is None or step is None:
+        return None
+    if "at_step" in params and params["at_step"] != int(step):
+        return None
+    if "rank" in params:
+        if params["rank"] != int(os.environ.get("PADDLE_TRAINER_ID", "0")):
+            return None
+    raw = flag("FLAGS_fault_inject", "") or ""
+    if _SENTINEL_STATE["raw"] != raw:
+        _SENTINEL_STATE["raw"] = raw
+        _SENTINEL_STATE["counts"] = {}
+    if "count" in params:
+        left = _SENTINEL_STATE["counts"].get(point, params["count"])
+        if left <= 0:
+            return None
+        _SENTINEL_STATE["counts"][point] = left - 1
+    return params
+
+
+def corrupt_batch(x, step):
+    """The ``bad_batch`` seam: fit passes every input batch through here
+    with its global iteration.  Armed, it returns a corrupted copy:
+    ``mode=scale`` (default) times ``scale`` (default 1e6), ``mode=nan``
+    times NaN.  As in the JAX package the product of integer token ids
+    is floating, which the embedding refuses with ``ValueError``."""
+    params = _sentinel_point("bad_batch", step)
+    if params is None:
+        return x
+    if params.get("mode", "scale") == "nan":
+        return x * float("nan")
+    return x * params.get("scale", 1e6)
+
+
+def spike_loss(loss, step):
+    """The ``loss_spike`` seam (the eager step, after the forward): armed,
+    the loss times ``scale`` (default 1e6), so the backward applies a
+    finite but huge update."""
+    params = _sentinel_point("loss_spike", step)
+    if params is None:
+        return loss
+    return loss * params.get("scale", 1e6)
+
+
+def corrupt_grads(optimizer, step):
+    """The ``grad_bitflip`` seam (the eager step, after the backward):
+    armed, element 0 of gradient ``param`` (an index into the parameters
+    with a gradient, default 0) becomes ``value`` (default +inf), a
+    flipped exponent bit.  Returns True when it fired."""
+    params = _sentinel_point("grad_bitflip", step)
+    if params is None:
+        return False
+    with_grads = [p for p in optimizer._all_params() if p.grad is not None]
+    if not with_grads:
+        return False
+    p = with_grads[min(params.get("param", 0), len(with_grads) - 1)]
+    with torch.no_grad():
+        p.grad[(0,) * p.grad.dim()] = params.get("value", float("inf"))
+    return True
 
 
 #: fetch counter and remaining-fire budgets of the data points; re-armed

@@ -24,9 +24,23 @@ defaults:
   (`utils.fault_injection`): checkpoint torn writes, a preemption
   signal at a training step, slow or corrupt data records.  Empty: every
   injection point returns at once.
-- ``FLAGS_sentinel`` and ``FLAGS_hot_spare`` (False): read by
-  `hapi.Model.fit`, which raises `NotImplementedError` when either is on
-  (the training sentinel and hot-spare recovery are not ported).
+- ``FLAGS_sentinel`` (False) and its knobs ``FLAGS_sentinel_window``
+  (32), ``_spike_zscore`` (6.0), ``_check_every`` (8), ``_max_skips``
+  (3), ``_rollback_after`` (1), ``_anchor_every`` (32), ``_grad_factor``
+  (100.0), ``_max_rollbacks`` (3), ``_dump_path`` (""): the training
+  sentinel `hapi.Model.fit` installs (`framework.sentinel`).  Off:
+  training is bit for bit what it is without the module.
+- ``FLAGS_hot_spare`` (False): `hapi.Model.fit` raises
+  `NotImplementedError` when it is on (hot-spare recovery is not
+  ported, ROADMAP A8).
+- ``FLAGS_metrics_export_path`` ("") and
+  ``FLAGS_metrics_export_interval_s`` (10.0): the exporter's snapshot
+  file (`observability.exporter`); empty starts no thread.
+- ``FLAGS_peak_flops`` (0.0): the peak FLOP/s `observability.StepMetrics`
+  divides by for MFU; 0 takes the card's from its table.
+- ``FLAGS_flight_recorder_size`` (512), ``FLAGS_flight_recorder_path``
+  ("") and ``FLAGS_dump_dir`` (".paddle_tpu_dumps"): the flight
+  recorder's ring and where it and the sentinel dump.
 """
 from __future__ import annotations
 
@@ -39,7 +53,22 @@ _FLAGS: dict[str, Any] = {
     "FLAGS_compiled_train_step": True,
     "FLAGS_fault_inject": "",
     "FLAGS_sentinel": False,
+    "FLAGS_sentinel_window": 32,
+    "FLAGS_sentinel_spike_zscore": 6.0,
+    "FLAGS_sentinel_check_every": 8,
+    "FLAGS_sentinel_max_skips": 3,
+    "FLAGS_sentinel_rollback_after": 1,
+    "FLAGS_sentinel_anchor_every": 32,
+    "FLAGS_sentinel_grad_factor": 100.0,
+    "FLAGS_sentinel_max_rollbacks": 3,
+    "FLAGS_sentinel_dump_path": "",
     "FLAGS_hot_spare": False,
+    "FLAGS_metrics_export_path": "",
+    "FLAGS_metrics_export_interval_s": 10.0,
+    "FLAGS_peak_flops": 0.0,
+    "FLAGS_flight_recorder_size": 512,
+    "FLAGS_flight_recorder_path": "",
+    "FLAGS_dump_dir": ".paddle_tpu_dumps",
 }
 
 

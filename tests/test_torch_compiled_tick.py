@@ -428,8 +428,9 @@ def test_flag_off_builds_no_tick(pair, flags):
 
 
 def test_flags_registry_and_environment(monkeypatch, flags):
-    """The port declares the flags it reads (the tick's two and the
-    compiled train step's) with the JAX registry's defaults, reads
+    """The port declares the flags it reads (the tick's two, the compiled
+    train step's, the runtime's, the sentinel's and the telemetry's) with
+    the JAX registry's defaults, reads
     ``FLAGS_*`` overrides from the environment at import, and coerces
     set_flags values as the JAX registry does."""
     import importlib
@@ -442,10 +443,28 @@ def test_flags_registry_and_environment(monkeypatch, flags):
         monkeypatch.delenv("FLAGS_compiled_tick")
         importlib.reload(tflags)
     declared = TICK_FLAGS + ("FLAGS_compiled_train_step",)
-    runtime = ("FLAGS_fault_inject", "FLAGS_sentinel", "FLAGS_hot_spare")
+    # the training runtime's, the sentinel's and the telemetry's flags
+    runtime = ("FLAGS_fault_inject", "FLAGS_sentinel", "FLAGS_hot_spare",
+               "FLAGS_sentinel_window", "FLAGS_sentinel_spike_zscore",
+               "FLAGS_sentinel_check_every", "FLAGS_sentinel_max_skips",
+               "FLAGS_sentinel_rollback_after",
+               "FLAGS_sentinel_anchor_every", "FLAGS_sentinel_grad_factor",
+               "FLAGS_sentinel_max_rollbacks", "FLAGS_sentinel_dump_path",
+               "FLAGS_metrics_export_path",
+               "FLAGS_metrics_export_interval_s", "FLAGS_peak_flops",
+               "FLAGS_flight_recorder_size", "FLAGS_flight_recorder_path",
+               "FLAGS_dump_dir")
     assert tflags.get_flags() == dict(
         {k: True for k in declared}, FLAGS_fault_inject="",
-        FLAGS_sentinel=False, FLAGS_hot_spare=False)
+        FLAGS_sentinel=False, FLAGS_hot_spare=False,
+        FLAGS_sentinel_window=32, FLAGS_sentinel_spike_zscore=6.0,
+        FLAGS_sentinel_check_every=8, FLAGS_sentinel_max_skips=3,
+        FLAGS_sentinel_rollback_after=1, FLAGS_sentinel_anchor_every=32,
+        FLAGS_sentinel_grad_factor=100.0, FLAGS_sentinel_max_rollbacks=3,
+        FLAGS_sentinel_dump_path="", FLAGS_metrics_export_path="",
+        FLAGS_metrics_export_interval_s=10.0, FLAGS_peak_flops=0.0,
+        FLAGS_flight_recorder_size=512, FLAGS_flight_recorder_path="",
+        FLAGS_dump_dir=".paddle_tpu_dumps")
     jflags.set_flags({k: True for k in declared})
     assert tflags.get_flags(list(declared)) == \
         jflags.get_flags(list(declared))

@@ -1942,3 +1942,130 @@ def test_load_map_location_none_lands_on_cuda(card, tmp_path):
     out = pt.load(str(tmp_path / "s"))
     assert out["w"].device.type == "cuda" and out["w"].dtype == \
         torch.bfloat16 and out["n"] == 1
+
+
+def _sentinel_gpt(card, dropout=0.1):
+    """A 2-layer GPT with dropout behind hapi.Model, with the training
+    sentinel installed as fit installs it (the unit-scale scaler and a
+    compiled step with the health output)."""
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    cfg = GPTConfig(vocab_size=512, hidden_size=128, num_layers=2,
+                    num_heads=4, max_seq_len=128, dropout=dropout,
+                    attn_dropout=dropout)
+    net = GPTForCausalLM(cfg, device=card, seed=0)
+    model = Model(net).prepare(AdamW(1e-3, parameters=net.parameters()),
+                               CrossEntropyLoss(), amp_configs="O2")
+    saved = tick_flags.get_flags(["FLAGS_sentinel"])
+    tick_flags.set_flags({"FLAGS_sentinel": True})
+    try:
+        model._install_sentinel(None)
+    finally:
+        tick_flags.set_flags(saved)
+    return model
+
+
+def _id_batches(card, n, seed=0):
+    ds = _Ids(4 * n, 128, seed=seed)
+    return [tuple(torch.from_numpy(np.stack(v)).to(card)
+                  for v in zip(*[ds[4 * i + j] for j in range(4)]))
+            for i in range(n)]
+
+
+@pytest.mark.cuda
+def test_sentinel_restore_into_the_graph_on_card(card):
+    """A rollback writes the anchor into the tensors the captured graphs
+    read (parameters, masters, moments, step, the scaler vector) and puts
+    the generators back: the replays after it give the losses of the
+    replays after the snapshot, bit for bit, with dropout on and no new
+    capture (both graphs, the full and the cadence one, exist before the
+    snapshot; the cadence falls on other steps after the restore, which
+    changes no loss: the health pass writes nothing the update reads)."""
+    model = _sentinel_gpt(card)
+    batches = _id_batches(card, 14)
+    for x, y in batches[:10]:
+        model.train_batch([x], [y])
+    cs = model._compiled_step
+    svec_ptr = cs._svec.data_ptr()
+    state = model._sentinel_snapshot()
+    first = [model.train_batch([x], [y])[0] for x, y in batches[10:]]
+    stats = {k: v[0] for k, v in cs.graph_stats().items()}
+    model._sentinel_restore(state)
+    again = [model.train_batch([x], [y])[0] for x, y in batches[10:]]
+    assert again == first and all(np.isfinite(first))
+    assert model._compiled_step is cs and cs._svec.data_ptr() == svec_ptr
+    assert {k: v[0] for k, v in cs.graph_stats().items()} == stats
+    assert len(stats) == 2 and all(n == 1 for n in stats.values())
+    assert cs.fallbacks == 0
+
+
+@pytest.mark.cuda
+def test_sentinel_health_per_call_on_card(card):
+    """Each full call's health vector is its own tensor: read after ten
+    calls, record k still holds call k's values (-1 off the cadence, the
+    squared norm on call 9; the NaN batch of call 6 flagged and its update
+    skipped)."""
+    model = _sentinel_gpt(card, dropout=0.0)
+    cs = None
+    records = []
+    batches = _id_batches(card, 10, seed=1)
+    for i, (x, y) in enumerate(batches):
+        if i == 5:
+            w = model.network.gpt.wte.weight.detach().clone()
+            with torch.no_grad():         # a NaN embedding row for this batch
+                model.network.gpt.wte.weight[int(x[0, 0])] = float("nan")
+            model._train_batch_device([x], [y])
+            with torch.no_grad():
+                model.network.gpt.wte.weight.copy_(w)
+        else:
+            model._train_batch_device([x], [y])
+        cs = model._compiled_step
+        records.append(cs.last_health)
+    assert records[0] is None              # call 1 is eager
+    vals = [r.tolist() for r in records[1:]]
+    ptrs = {r.data_ptr() for r in records[1:]}
+    assert len(ptrs) == 9
+    for call, (gsq, skipped) in enumerate(vals, start=2):
+        if call == 9:
+            assert gsq > 0 and np.isfinite(gsq)
+        elif call != 6:
+            assert gsq == -1.0
+        assert skipped == (1.0 if call == 6 else 0.0), (call, vals)
+    assert all(n == 1 for _, (n, _r, _l) in cs.graph_stats().items())
+
+
+@pytest.mark.cuda
+def test_step_metrics_read_the_device_step_on_card(card):
+    """StepMetrics times the device step with CUDA events read a step
+    later: a step whose host call returns at once but whose kernel runs
+    ~20 ms reads ~20 ms, not the launch time, and the pending steps are
+    read without a host sync until ``flush``."""
+    from paddle_tpu_torch.observability import MetricsRegistry, StepMetrics
+    sm = StepMetrics(prefix="card.", registry=MetricsRegistry(),
+                     device=card, peak_flops=1e15)
+    sm.set_flops_per_step(1e12)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    start.record()
+    torch.cuda._sleep(int(2e7))
+    end.record()
+    end.synchronize()
+    per = start.elapsed_time(end)          # ms of one sleep kernel
+    cycles = int(2e7 * 20.0 / per)
+    import time
+    host = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        sm.begin_step()
+        torch.cuda._sleep(cycles)
+        sm.end_step(examples=8, tokens=1024)
+        host.append((time.perf_counter() - t0) * 1e3)
+    assert sm.step_time_ms.count < 4      # not all read back yet
+    snap = sm.snapshot()                   # flush: waits for the rest
+    assert snap["steps"] == 4 and snap["step_time_ms"]["count"] == 4
+    assert 15.0 < snap["step_time_ms"]["p50"] < 40.0, snap
+    assert max(host) < 5.0, host
+    mfu = 1e12 / (snap["step_time_ms"]["p50"] / 1e3) / 1e15
+    assert abs(snap["mfu"] - mfu) < 0.1 * mfu
+    assert snap["memory"]["device0"]["peak_bytes"] > 0

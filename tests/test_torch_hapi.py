@@ -571,9 +571,12 @@ def test_out_of_slice_names_raise(tmp_path):
         model.summary()
     x, y = _data(rows=2)
     ds = TensorDataset([x, y])
+    # the training sentinel is ported: fit runs under it, in a unit-scale
+    # scaler, on a compiled step with the health output
     port_flags.set_flags({"FLAGS_sentinel": True})
-    with pytest.raises(NotImplementedError, match="A2d"):
-        model.fit(ds, verbose=0)
+    model.fit(ds, verbose=0)
+    assert model._scaler._sentinel_wrapper
+    assert model._compiled_step._sentinel
     port_flags.set_flags({"FLAGS_sentinel": False, "FLAGS_hot_spare": True})
     with pytest.raises(NotImplementedError, match="A8"):
         model.fit(ds, verbose=0)

@@ -393,8 +393,19 @@ def test_unported_options_raise():
     net, opt = _mlp()
     with pytest.raises(NotImplementedError, match="Queue A8"):
         CompiledTrainStep(lambda x, y: x, opt, mesh=object())
-    with pytest.raises(NotImplementedError, match="Queue A2d"):
-        CompiledTrainStep(lambda x, y: x, opt, sentinel=True)
+    # sentinel=True is ported: each full call leaves its own health vector
+    cs = CompiledTrainStep(lambda x, y: ((net(x) - y) ** 2).mean(), opt,
+                           sentinel=True)
+    rng = np.random.default_rng(0)
+    healths = []
+    for _ in range(3):
+        x = torch.from_numpy(rng.standard_normal((4, 8)).astype(np.float32))
+        y = torch.from_numpy(rng.standard_normal((4, 4)).astype(np.float32))
+        cs(x, y)
+        healths.append(cs.last_health)
+    assert healths[0] is None            # call 1 is the eager step
+    assert [h.shape for h in healths[1:]] == [(2,), (2,)]
+    assert healths[1][1] == 0.0 and healths[1][0] == -1.0
 
 
 # ------------------------------------------------- GradScaler and clips
