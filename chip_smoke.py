@@ -63,6 +63,43 @@ last line:
             captures, each mode's first tick (warm-up + capture), replays
             and kernel launches a replay, checked against 5 profiled
             replays
+5c. serve-spec  the same model with speculation_k 4 (the compiled tick is
+            off while speculation is configured): the serve phase's
+            requests all greedy with (a) the target as its own draft (its
+            own draft cache), (b) a 2-layer early-exit draft holding
+            copies of the target's embedding, layers 0-1, final norm and
+            head, (c) (a) with int8 pools, and (d) the serve traffic as it
+            is (two seeded-sampled requests: their iterations take the
+            plain step); each against the plain compiled lane on the same
+            requests: greedy tokens equal before each request's first
+            near tie (the plain lane's top-two logit margin under tau =
+            2 x the largest logit difference between the plain step's
+            route and the batch-4 step or the verify call's, measured by
+            teacher-forced replays; a control: a changed token is
+            rejected), acceptance >= 90% in (a) and <= 5% in (b), every
+            draft page returned and the target's pages equal to the
+            prefix tree's, paged decode and RMS norm launched at least as
+            the windows and steps need; ms a window, tokens a window, the
+            draft / verify / rollback ms, ms a generated token beside the
+            plain lane's, peak memory.  Exact lanes: fp32, 2 layers at
+            Llama-2 7B and GPT-3 6.7B width (GPT at max_seq_len 2044 = its
+            2048 positions less K; 2048 with K refused), 1-layer
+            early-exit drafts: spec tokens equal the plain ones
+5d. serve-resilience  the same model, bf16, 4 slots: (1) drain under the
+            compiled tick (two requests decoding finish, three waiting on
+            the pool's pages fail with EngineShutdownError, a submit after
+            it raises; the drain's ms); (2) the same drill in a child
+            (``--serve-child``, 2 layers at 7B width) on SIGTERM through
+            install_preemption_drain, exit 0; (3) the tick's 2nd call
+            stalls 30 s under step_timeout_s 5: SchedulerStallError
+            within 10 s, a stall dump, a new tick captured, the next
+            request's tokens equal a fresh engine's; (4) a model call
+            raises: every outstanding future fails with it, one restart,
+            served again; (5) three more restarts: memory allocated after
+            each within 1% of the first; (6) kv_layout="slots" on the
+            serve traffic: greedy tokens equal the paged lane's under the
+            tie rule (tau from the slot lane's replay), decode ms/step,
+            and exactly in fp32 at 2 layers
 6. parity   a 2-layer model at the 7B widths in fp32 with the same
             weights served on the CPU (plain versions, the tick's eager
             body) and on the card (kernels, the tick's graphs): greedy and
@@ -209,6 +246,7 @@ The second-to-last line is the kernels' JSON summary, the last line
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import shutil
@@ -217,6 +255,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -254,15 +293,19 @@ from paddle_tpu_torch import optimizer as optim
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.optimizer import lr as lrs
 from paddle_tpu_torch.quantization import (KV_QUANT_DTYPES, dequantize_kv,
-                                           quantize_kv_rows)
-from paddle_tpu_torch.serving import Engine, SamplingParams, ServingConfig
+                                           kv_quant_params, quantize_kv_rows)
+from paddle_tpu_torch.serving import (Engine, EngineShutdownError,
+                                      PagedKVCache, SamplingParams,
+                                      SchedulerStallError, ServingConfig,
+                                      SlotKVCache)
+from paddle_tpu_torch.serving.compiled_tick import CompiledServingTick
 from paddle_tpu_torch.utils import flags as port_flags
 
 HBM_BYTES_PER_S = 3.35e12                   # H100 SXM data sheet
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
             torch.float32: 67e12}           # dense; fp32 outside tensor cores
 PHASES = ("device", "build", "kernels", "serve", "serve-lora-int8",
-          "serve-tick", "parity", "train", "train-parity",
+          "serve-tick", "serve-spec", "serve-resilience", "parity", "train", "train-parity",
           "train-compiled-parity", "train-gpt2", "gpt2-parity", "attn-ops",
           "train-optimizers", "serve-gpt", "gpt-parity", "generate-gpt",
           "train-gpt2-recompute", "fit-gpt2", "fit-llama", "sentinel-gpt2",
@@ -1701,18 +1744,22 @@ def build_7b(dev):
 
 
 def serve_run(model, dev, scfg, prompts, sampling, adapter_ids=None,
-              max_new=32, tick=True):
+              max_new=32, tick=True, bind=None):
     """One Engine run over the requests, from launch counts at 0, with
     FLAGS_compiled_tick set to ``tick``: returns (outputs, stats, launch
     counts, wall s, peak GB, the engine); every request must give
-    ``max_new``
-    in-vocab tokens, and with the tick on every decode step must be a
-    compiled tick (no fallback)."""
+    ``max_new`` in-vocab tokens, and with the tick on every decode step
+    must be a compiled tick (no fallback) unless the configuration blocks
+    the tick statically (speculation, the slot layout: one
+    TickFallbackWarning at start).  ``bind(engine)`` runs before the
+    engine starts."""
     vocab = model.config.vocab_size
     adapter_ids = adapter_ids or [None] * len(prompts)
     port_flags.set_flags({"FLAGS_compiled_tick": tick})
     try:
         eng = Engine(model, scfg)
+        if bind is not None:
+            bind(eng)
         torch.cuda.reset_peak_memory_stats(dev)
         kernels.reset_launch_counts()
         t0 = time.monotonic()
@@ -1728,7 +1775,9 @@ def serve_run(model, dev, scfg, prompts, sampling, adapter_ids=None,
     st = eng.stats()
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     hits, falls = st["tick_compiled_hits"], st["tick_fallbacks"]
-    if tick and (hits == 0 or hits != st["decode_steps"] or falls):
+    static = eng._tick is not None and eng._tick.fallback_reason
+    if tick and not static and (hits == 0 or hits != st["decode_steps"]
+                                or falls):
         raise AssertionError(f"compiled ticks {hits} of {st['decode_steps']}"
                              f" decode steps, fallbacks {falls}")
     if not tick and (hits or eng._tick is not None):
@@ -2066,6 +2115,794 @@ def phase_serve_tick(dev, model):
     log("[serve-tick] every request's 32 tokens equal in both lanes "
         "(6 greedy, 2 seeded-sampled)")
     time_replays(model, tick_steps)
+
+
+# ---------------------------------------------------------- serve-spec
+#: draft tokens a speculative window (ServingConfig.speculation_k)
+SPEC_K = 4
+#: the serve phases' slot capacity
+SERVE_LEN = 1024
+
+
+def serve_cfg(**kw):
+    return ServingConfig(num_slots=4, max_seq_len=SERVE_LEN,
+                         cache_dtype="bfloat16", **kw)
+
+
+def early_exit_draft(model, layers, dev):
+    """The self-speculative draft of Draft & Verify (Zhang et al., ACL
+    2024) and LayerSkip (Elhoushi et al., 2024): a model of ``layers``
+    blocks at the target's width holding copies of its embeddings, first
+    ``layers`` blocks, final norm and head."""
+    cfg = dataclasses.replace(model.config, num_layers=layers)
+    draft = type(model)(cfg, device=dev,
+                        dtype=next(model.parameters()).dtype).eval()
+    keys = set(draft.state_dict())
+    draft.load_state_dict({k: v for k, v in model.state_dict().items()
+                           if k in keys})
+    return draft
+
+
+def hist(eng, name):
+    return eng._stats._hists.get(name, [])
+
+
+def decode_ms_per_token(eng, st, n_requests):
+    """Decode-side ms a generated token: the decode steps' and the
+    speculative windows' wall time over the tokens they emitted (each
+    request's first token comes from its prefill)."""
+    ms = sum(sum(hist(eng, n)) for n in (
+        "decode_ms", "spec_draft_ms", "spec_verify_ms", "spec_rollback_ms"))
+    return ms / max(st["tokens_generated"] - n_requests, 1)
+
+
+def replay_logits(model, prompt, tokens, dtype="bfloat16", window=1, rows=1,
+                  slots=False):
+    """Teacher-forced last-position logits of ``tokens`` after ``prompt``
+    through the engine's cache routes, fp32 ``[len(tokens), V]`` (row j
+    predicts tokens[j]).  Paged: the prompt prefilled by 32-token chunk
+    calls, then ``tokens[:-1]`` fed ``window`` at a time: 1 is the plain
+    decode step (the paged-decode kernel), SPEC_K + 1 the verify call (the
+    gather route); ``rows`` copies of the sequence fill a batch of that
+    size.  ``slots``: the slot lane, a batch-1 prefill into a dense cache
+    written into a SlotKVCache, then [rows, 1] steps at per-row offsets."""
+    cfg = model.config
+    dev = next(model.parameters()).device
+    h_kv = getattr(cfg, "num_kv_heads", cfg.num_heads)
+    seq = list(prompt) + list(tokens)
+    out = []
+    with torch.no_grad():
+        if slots:
+            cache = SlotKVCache(cfg.num_layers, rows, SERVE_LEN, h_kv,
+                                cfg.head_dim, dtype=dtype, device=dev)
+            pre = generation.init_kv_caches(
+                cfg.num_layers, 1, SERVE_LEN, h_kv, cfg.head_dim,
+                dtype=dtype, device=dev)
+            logits = model(torch.tensor(prompt[None], device=dev),
+                           caches=pre)
+            out.append(logits[0, -1].float())
+            for r in range(rows):
+                cache.allocate()
+                cache.write_prefill(r, pre, prompt.size)
+            del pre
+        else:
+            psz = 16 * (1 if kv_quant_params(dtype) is None else 2)
+            cache = PagedKVCache(cfg.num_layers, rows, SERVE_LEN + SPEC_K,
+                                 h_kv, cfg.head_dim, page_size=psz,
+                                 dtype=dtype, device=dev)
+            for _ in range(rows):
+                cache.allocate(cache.pages_per_slot)
+            off = 0
+            while off < prompt.size:
+                seg = prompt[off:off + 32]
+                tok = np.zeros((rows, 32), np.int32)
+                tok[:, :seg.size] = seg
+                for r in range(rows):
+                    cache.ensure_capacity(r, off + seg.size - 1)
+                views = cache.prefill_view(list(range(rows)), [off] * rows)
+                logits = model(torch.tensor(tok, device=dev), caches=views)
+                off += seg.size
+            out.append(logits[0, seg.size - 1].float())
+            for r in range(rows):
+                cache.set_offset(r, prompt.size)
+        pos = prompt.size
+        while pos < len(seq) - 1:
+            w = 1 if slots else min(window, len(seq) - 1 - pos)
+            tok = np.tile(np.asarray(seq[pos:pos + w], np.int32), (rows, 1))
+            if not slots:
+                for r in range(rows):
+                    cache.ensure_capacity(r, pos + w - 1)
+            logits = model(torch.tensor(tok, device=dev),
+                           caches=cache.layer_caches())
+            out.extend(logits[0, i].float() for i in range(w))
+            pos += w
+            if slots:
+                cache.advance(range(rows))
+            else:
+                for r in range(rows):
+                    cache.set_offset(r, pos)
+    return torch.stack(out)
+
+
+def margins_of(logits):
+    top2 = logits.topk(2, dim=-1).values
+    return (top2[:, 0] - top2[:, 1]).cpu().numpy()
+
+
+def gap_shift(a, b, top=5):
+    """The largest change, from route ``a``'s logits to route ``b``'s, of
+    the gaps between ``a``'s top token and its next ``top - 1`` at each
+    position: how far the other route moves the decisions at the head of
+    the distribution (a token flips only where its gap is below this)."""
+    idx = a.topk(top, dim=-1).indices
+    ga = a.gather(1, idx[:, :1]) - a.gather(1, idx[:, 1:])
+    gb = b.gather(1, idx[:, :1]) - b.gather(1, idx[:, 1:])
+    return float((ga - gb).abs().max())
+
+
+def tie_margin(tag, model, prompts, outs, dtype, route):
+    """The tie margin tau: the plain lane decodes in batches of 4, the
+    other lane through ``route`` (keyword arguments of `replay_logits`),
+    so a decision can move between them by at most the largest `gap_shift`
+    from the batch-1 plain replay to the batch-4 one plus the largest to
+    the route's, measured on requests 0 and 1 (17 and 600 prompt tokens)
+    teacher-forced with the plain lane's tokens.  Returns tau and those
+    two requests' plain top-two margins ({i: [T]}); the largest |logit|
+    difference is logged beside each shift."""
+    base = {i: replay_logits(model, prompts[i], outs[i].output_ids, dtype)
+            for i in (0, 1)}
+    shifts, diffs = {}, {}
+    for name, kw in (("batch 4", dict(rows=4)), route):
+        other = {i: replay_logits(model, prompts[i], outs[i].output_ids,
+                                  dtype, **kw) for i in base}
+        shifts[name] = max(gap_shift(base[i], other[i]) for i in base)
+        diffs[name] = max(float((base[i] - other[i]).abs().max())
+                          for i in base)
+    tau = sum(shifts.values())
+    margins = {i: margins_of(b) for i, b in base.items()}
+    allm = np.concatenate(list(margins.values()))
+    log(f"[{tag}] {dtype} routes against the batch-1 plain step, the "
+        f"largest shift of a top gap (of a logit): "
+        + ", ".join(f"{k} {shifts[k]:.4f} ({diffs[k]:.4f})" for k in shifts)
+        + f"; tie margin tau = {tau:.4f}; requests 0 and 1's top-two "
+        f"margins: median {np.median(allm):.4f}, "
+        f"{100 * np.mean(allm < tau):.1f}% under tau")
+    return tau, margins
+
+
+def plain_margins(model, prompts, plain, lanes, dtype, have):
+    """The plain lane's top-two margins ({i: [L]}) of each greedy request
+    up to the furthest first divergence of any of ``lanes`` (lists of
+    outputs; None for a request not compared), from batch-1 replays, or
+    from ``have`` where it reaches that far: the tie rule reads a margin
+    only where a lane leaves the plain lane."""
+    out = {}
+    for i, ref in enumerate(plain):
+        firsts = [np.flatnonzero(o[i].output_ids != ref.output_ids)
+                  for o in lanes if o[i] is not None]
+        need = max([int(d[0]) + 1 for d in firsts if d.size], default=0)
+        if not firsts:
+            continue
+        if i in have and len(have[i]) >= need:
+            out[i] = have[i]
+        elif need:
+            out[i] = margins_of(replay_logits(
+                model, prompts[i], ref.output_ids[:need], dtype))
+        else:
+            out[i] = np.zeros(0)
+    return out
+
+
+def tie_rule(want, got, margins, tau):
+    """The first position where ``got`` leaves ``want`` must be a near
+    tie of the plain lane (top-two margin under ``tau``): before it the
+    two sequences share their history, so a divergence where the margin
+    is wider is a fault.  Returns (the offending position or None, the
+    positions compared: up to and including the first divergence)."""
+    want, got = np.asarray(want), np.asarray(got)
+    diff = np.flatnonzero(want != got)
+    if not diff.size:
+        return None, len(want)
+    j = int(diff[0])
+    return (j if margins[j] >= tau else None), j + 1
+
+
+def check_ties(tag, lane, plain, outs, margins, tau):
+    """Every greedy request of ``outs`` (None for one not compared)
+    against the plain lane's under `tie_rule` (``margins`` reach each
+    request's first divergence); logs the positions compared and each
+    first divergence with its margin."""
+    compared = total = 0
+    firsts = []
+    for i, o in enumerate(outs):
+        if o is None:
+            continue
+        want, got, m = plain[i].output_ids, o.output_ids, margins[i]
+        bad, n = tie_rule(want, got, m, tau)
+        if bad is not None:
+            raise AssertionError(
+                f"[{tag}] {lane}: request {i} leaves the plain lane at token "
+                f"{bad}, where its margin {m[bad]:.4f} >= tau {tau:.4f}: "
+                f"{got.tolist()} != {want.tolist()}")
+        compared += n
+        total += len(want)
+        diverged = n < len(want) or got[-1] != want[-1]
+        firsts.append(f"{i}:{n - 1} ({m[n - 1]:.3f})" if diverged
+                      else f"{i}:-")
+    log(f"[{tag}] {lane}: every greedy request equals the plain lane's "
+        f"tokens up to a divergence at a near tie ({compared} of {total} "
+        f"positions compared); first divergence (margin) by request "
+        f"{', '.join(firsts)}")
+
+
+def tie_control(tag, plain, margins, tau, vocab):
+    """The rule must reject a token changed where the plain lane's margin
+    is wide: the first such position of the requests in ``margins``."""
+    for i, m in margins.items():
+        wide = np.flatnonzero(m >= tau)
+        if wide.size:
+            break
+    else:
+        raise AssertionError(f"[{tag}] no margin reaches tau {tau:.4f}: "
+                             "the rule would accept any divergence")
+    j = int(wide[0])
+    wrong = [None] * len(plain)
+    ids = plain[i].output_ids.copy()
+    ids[j] = (ids[j] + 1) % vocab
+    wrong[i] = types.SimpleNamespace(output_ids=ids)
+    expect_rejected(f"{tag} tie rule, request {i}'s token {j} changed "
+                    f"(margin {m[j]:.4f})",
+                    lambda: check_ties(tag, "control", plain, wrong,
+                                       {i: m}, tau))
+
+
+class VerifyLog(torch.nn.Module):
+    """Wraps a speculative engine's target: after each verify call (K + 1
+    tokens a row) it finds, from the engine's offsets, each active row's
+    usable proposals and records, where the window rejected one, the gap
+    between the target's token and the rejected proposal in the verify
+    logits.  With the target as its own draft a rejection is a near tie
+    of the two routes: the gap stays under the tie margin."""
+
+    def __init__(self, inner):
+        super().__init__()
+        self.inner = inner
+        self.config = inner.config
+        self.eng = None
+        self.gaps = []
+        self.rejected = 0       # proposals rejected, the tail after a gap
+
+    def forward(self, ids, caches=None):
+        logits = self.inner(ids, caches=caches)
+        eng = self.eng
+        if eng is not None and ids.shape[1] == SPEC_K + 1:
+            top = logits.argmax(-1).cpu().numpy()
+            tok = ids.cpu().numpy()
+            for s in eng._active:
+                # the draft took K steps from its offset before this call
+                lag = int(eng.cache.offsets[s]) - (
+                    int(eng.draft_cache.offsets[s]) - SPEC_K)
+                cap = max(0, SPEC_K - lag)
+                a = 0
+                while a < cap and tok[s, a + 1] == top[s, a]:
+                    a += 1
+                if a < cap:
+                    self.rejected += cap - a
+                    row = logits[s, a].float()
+                    self.gaps.append(float(row[top[s, a]]
+                                           - row[tok[s, a + 1]]))
+        return logits
+
+
+def check_spec_launches(tag, lane, cfg, dcfg, st, counts, quant=False,
+                        norms=True):
+    """A speculative run's launches against lower bounds: the draft's K
+    steps a window and the plain steps launch paged decode in every
+    layer; with ``norms`` (Llama), every draft step, verify call and plain
+    step launches the RMS norm 2 L + 1 times."""
+    windows, steps = st["spec_windows"], st.get("decode_steps", 0)
+    name = "paged_decode_int8" if quant else "paged_decode"
+    need = {name: dcfg.num_layers * SPEC_K * windows
+            + cfg.num_layers * steps}
+    if norms:
+        need["rms_norm"] = (2 * dcfg.num_layers + 1) * SPEC_K * windows \
+            + (2 * cfg.num_layers + 1) * (windows + steps)
+    check_launches(counts, need)
+    got = {k: counts[k] for k in need}
+    log(f"[{tag}] {lane} launches {got} (needed >= {need})")
+
+
+def spec_line(tag, lane, eng, st, wall, peak_gb, n_req, plain_ms):
+    """Logs a speculative lane: windows, ms and (all-greedy lanes) tokens a
+    window, acceptance, the three phases' averages, ms a generated token
+    against the plain compiled lane's, TTFT, tokens/s, peak memory."""
+    windows = st["spec_windows"]
+    spec_ms = sum(sum(hist(eng, n)) for n in (
+        "spec_draft_ms", "spec_verify_ms", "spec_rollback_ms"))
+    per_tok = decode_ms_per_token(eng, st, n_req)
+    win = ""
+    if windows:
+        if not st.get("decode_steps", 0):
+            # every slot step was a window's: each active row emitted its
+            # accepted run plus one token
+            rows = st["slot_steps_active"]
+            emitted = st["spec_accepted_tokens"] + rows
+            win = (f"{emitted / windows:.2f} tokens a window over "
+                   f"{rows / windows:.2f} active slots "
+                   f"({emitted / rows:.2f} a slot), ")
+        rate = st["spec_acceptance_rate"]
+        win = (f"{windows} windows, {spec_ms / windows:.2f} ms a window, "
+               f"{win}acceptance "
+               f"{'-' if rate is None else format(rate, '.4f')} "
+               f"({st['spec_accepted_tokens']} of "
+               f"{st['spec_proposed_tokens']}), draft / verify / rollback "
+               f"{st['spec_draft_ms_avg']:.2f} / "
+               f"{st['spec_verify_ms_avg']:.2f} / "
+               f"{st['spec_rollback_ms_avg']:.3f} ms avg, ")
+    log(f"[{tag}] {lane}: {win}{st.get('decode_steps', 0)} plain steps, "
+        f"{per_tok:.2f} ms a generated token (plain compiled "
+        f"{plain_ms:.2f}, x{per_tok / plain_ms:.2f}), TTFT p50 "
+        f"{st['ttft_ms_p50']:.1f} ms, {st['tokens_generated'] / wall:.1f} "
+        f"tokens/s wall, peak {peak_gb:.2f} GB")
+
+
+def check_pages(tag, lane, eng):
+    tree = eng.prefix_tree.cached_pages() if eng.prefix_tree else 0
+    d_use = eng.draft_cache.pages_in_use if eng.draft_cache else 0
+    if d_use or eng.cache.pages_in_use != tree:
+        raise AssertionError(f"[{tag}] {lane}: draft pages in use {d_use}, "
+                             f"target {eng.cache.pages_in_use}, tree {tree}")
+
+
+def exact_lanes(tag, dev, prompts, layers=2, gpt=False):
+    """fp32 models at full width, 2 layers, fp32 pools: the speculative
+    lane with a 1-layer early-exit draft and, for Llama, with the target
+    as its own draft (acceptance >= 90%: in fp32 the two routes' logits
+    agree far inside a top-two margin) gives the plain compiled lane's
+    tokens for every request, with no tolerance.  GPT serves at
+    max_seq_len 2048 - K, its KV capacity exactly its 2048 learned
+    positions; 2048 with K is refused."""
+    if gpt:
+        cfg = gpt_config("gpt3-6.7b", num_layers=layers, max_seq_len=2048)
+        model = GPTForCausalLM(cfg, device=dev, seed=1).eval()
+        max_len = cfg.max_seq_len - SPEC_K
+    else:
+        cfg = llama_config("llama2-7b", num_layers=layers)
+        model = LlamaForCausalLM(cfg, device=dev, seed=1).eval()
+        max_len = SERVE_LEN
+    name = "GPT-3 6.7B" if gpt else "Llama-2 7B"
+    greedy = [SamplingParams()] * len(prompts)
+    base = dict(num_slots=4, max_seq_len=max_len, cache_dtype="float32")
+    plain = serve_run(model, dev, ServingConfig(**base), prompts, greedy)[0]
+    drafts = [("a 1-layer early-exit draft", early_exit_draft(model, 1, dev))]
+    if not gpt:
+        drafts.append(("the target as its own draft", model))
+    for label, draft in drafts:
+        outs, st, counts, _, _, eng = serve_run(model, dev, ServingConfig(
+            draft_model=draft, speculation_k=SPEC_K, **base), prompts,
+            greedy)
+        for a, b in zip(plain, outs):
+            if not np.array_equal(a.output_ids, b.output_ids):
+                raise AssertionError(
+                    f"[{tag}] {name} fp32, {label}, request {a.request_id}:"
+                    f" spec {b.output_ids.tolist()} != plain "
+                    f"{a.output_ids.tolist()}")
+        check_pages(tag, f"{name} fp32", eng)
+        check_spec_launches(tag, f"{name} fp32, {label}", cfg, draft.config,
+                            st, counts, norms=not gpt)
+        rate = st["spec_acceptance_rate"]
+        if draft is model and rate < 0.9:
+            raise AssertionError(f"[{tag}] {name} fp32 agreeing draft: "
+                                 f"acceptance {rate:.4f} (>= 0.9 needed)")
+        log(f"[{tag}] {name} width, {layers} layers, fp32 pools, {label}, "
+            f"max_seq_len {max_len}: every request's {len(prompts)} x 32 "
+            f"tokens equal the plain lane's (acceptance {rate:.4f}, "
+            f"{st['spec_windows']} windows)")
+    if gpt:
+        try:
+            Engine(model, ServingConfig(
+                num_slots=4, max_seq_len=cfg.max_seq_len,
+                speculation_k=SPEC_K, draft_model=drafts[0][1]))
+        except ValueError as e:
+            log(f"[{tag}] {name}: max_seq_len {cfg.max_seq_len} with K "
+                f"{SPEC_K} refused ({e})")
+        else:
+            raise AssertionError(f"[{tag}] GPT served past its positions")
+
+
+def phase_serve_spec(dev, model):
+    """Llama-2 7B, bf16, 4 slots, context 1024, K 4, the serve phase's 8
+    requests with 32 new tokens: (a) the target as its own draft (own draft
+    cache), (b) a 2-layer early-exit draft, (c) (a) with int8 pools, all
+    greedy; (d) the serve traffic as it is (two seeded-sampled requests:
+    speculation disengages while they decode).  Greedy tokens against the
+    plain compiled lane's under the tie rule; acceptance, pages, launches,
+    ms a window and a token, peak memory.  Then the exact fp32 lanes."""
+    tag = "serve-spec"
+    cfg = model.config
+    prompts, sampling = serve_requests(cfg.vocab_size)
+    greedy = [SamplingParams()] * len(prompts)
+    n = len(prompts)
+    plain = {}
+    for label, dtype, samp in (("bf16", "bfloat16", greedy),
+                               ("int8", "int8", greedy),
+                               ("as-is", "bfloat16", sampling)):
+        outs, st, _, wall, peak, eng = serve_run(
+            model, dev, ServingConfig(num_slots=4, max_seq_len=SERVE_LEN,
+                                      cache_dtype=dtype), prompts, samp)
+        plain[label] = (outs, decode_ms_per_token(eng, st, n))
+        log(f"[{tag}] plain compiled lane, {label}: {fmt_decode(st)}, "
+            f"{plain[label][1]:.2f} ms a generated token, peak {peak:.2f} GB")
+    draft2 = early_exit_draft(model, 2, dev)
+    # the agreeing lanes' target is wrapped to record each rejection's gap
+    # in the verify logits (and is its own draft, wrapped alike)
+    lanes = (("(a) agreeing", None, "bfloat16", greedy, "bf16"),
+             ("(b) early exit", draft2, "bfloat16", greedy, "bf16"),
+             ("(c) agreeing int8", None, "int8", greedy, "int8"),
+             ("(d) serve traffic", model, "bfloat16", sampling, "as-is"))
+    results, gaps = {}, {}
+    for lane, draft, dtype, samp, ref in lanes:
+        target = VerifyLog(model) if draft is None else model
+        outs, st, counts, wall, peak, eng = serve_run(
+            target, dev, ServingConfig(num_slots=4, max_seq_len=SERVE_LEN,
+                                       cache_dtype=dtype,
+                                       draft_model=draft or target,
+                                       speculation_k=SPEC_K), prompts, samp,
+            bind=lambda e: setattr(target, "eng", e) if draft is None
+            else None)
+        results[lane] = [o if samp[i].greedy else None
+                         for i, o in enumerate(outs)], st
+        if isinstance(target, VerifyLog):
+            rejected = st["spec_proposed_tokens"] - st["spec_accepted_tokens"]
+            if target.rejected != rejected:
+                raise AssertionError(
+                    f"[{tag}] {lane}: {target.rejected} rejected proposals "
+                    f"recorded of {rejected}")
+            gaps[lane] = np.asarray(target.gaps)
+            target.eng = None
+        spec_line(tag, lane, eng, st, wall, peak, n, plain[ref][1])
+        check_spec_launches(tag, lane, cfg, (draft or target).config, st,
+                            counts, quant=dtype == "int8")
+        check_pages(tag, lane, eng)
+        del eng, target
+    # the tie margins: tau from the verify route on requests 0 and 1, the
+    # plain lanes' margins where a lane leaves them
+    verify = ("verify windows", dict(window=SPEC_K + 1))
+    tau, m0 = tie_margin(tag, model, prompts, plain["bf16"][0], "bfloat16",
+                         verify)
+    tau8, m08 = tie_margin(tag, model, prompts, plain["int8"][0], "int8",
+                           verify)
+    tie_control(tag, plain["bf16"][0], m0, tau, cfg.vocab_size)
+    refs = {"bf16": ("bfloat16", m0, tau), "int8": ("int8", m08, tau8),
+            "as-is": ("bfloat16", {}, tau)}
+    margins = {}
+    for ref, (dtype, have, _) in refs.items():
+        margins[ref] = plain_margins(
+            model, prompts, plain[ref][0],
+            [results[lane][0] for lane, _, _, _, r in lanes if r == ref],
+            dtype, have)
+    for lane, _, dtype, samp, ref in lanes:
+        t = refs[ref][2]
+        if lane in gaps:
+            g = gaps[lane]
+            if (g >= t).any():
+                raise AssertionError(f"[{tag}] {lane}: verify gaps "
+                                     f"{np.sort(g)[-5:]} (tau {t:.4f})")
+            log(f"[{tag}] {lane}: each of the {g.size} windows that "
+                f"rejected a proposal of the target's own draft did so at a "
+                f"near tie: the verify logits' gap from the target's token "
+                f"to the proposal {float(g.max()) if g.size else 0:.4f} at "
+                f"most (median {float(np.median(g)) if g.size else 0:.4f})"
+                f" < tau {t:.4f}")
+        check_ties(tag, lane, plain[ref][0], results[lane][0],
+                   margins[ref], t)
+    results = {lane: st for lane, (_, st) in results.items()}
+    acc_b = results["(b) early exit"]["spec_acceptance_rate"]
+    if acc_b > 0.05:
+        raise AssertionError(f"[{tag}] acceptance (b) {acc_b:.4f} (<= 0.05 "
+                             "needed)")
+    st_d = results["(d) serve traffic"]
+    if not (st_d["spec_windows"] and st_d.get("decode_steps", 0)):
+        raise AssertionError(f"[{tag}] (d): {st_d['spec_windows']} windows, "
+                             f"{st_d.get('decode_steps', 0)} plain steps")
+    del draft2
+    torch.cuda.empty_cache()
+    exact_lanes(tag, dev, prompts)
+    torch.cuda.empty_cache()
+    gpt_prompts, _ = serve_requests(50257)
+    exact_lanes(tag, dev, gpt_prompts, gpt=True)
+    torch.cuda.empty_cache()
+    return plain["as-is"][0], margins["as-is"]
+
+
+# ---------------------------------------------------- serve-resilience
+class FailOnce(torch.nn.Module):
+    """Wraps a model: the first forward after ``arm`` is set raises."""
+
+    def __init__(self, inner):
+        super().__init__()
+        self.inner = inner
+        self.config = inner.config
+        self.arm = False
+
+    def forward(self, ids, caches=None):
+        if self.arm:
+            self.arm = False
+            raise RuntimeError("injected model failure")
+        return self.inner(ids, caches=caches)
+
+
+def drain_setup(vocab, seed=4, n=5, plen=100, max_new=32):
+    """``n`` distinct ``plen``-token prompts and a pool of exactly two
+    requests' pages (prompt + max_new at 16 tokens a page): two decode,
+    the rest wait on pages however many slots are free."""
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, vocab, (plen,)).astype(np.int32)
+               for _ in range(n)]
+    return prompts, 2 * (-(-(plen + max_new) // 16))
+
+
+def drain_drill(eng, prompts, max_new, kill=None):
+    """Two requests decoding, three queued behind them; then ``kill()``
+    (a SIGTERM) or `Engine.drain`.  Returns the facts: the in-flight
+    tokens, the queued failures, whether a later submit raised, the
+    drain's ms."""
+    inflight = [eng.submit(p, max_new_tokens=max_new) for p in prompts[:2]]
+    t0 = time.monotonic()
+    while eng.stats().get("active_slots", 0) < 2:
+        if time.monotonic() - t0 > 300:
+            raise AssertionError("two requests never decoded together")
+        time.sleep(0.002)
+    queued = [eng.submit(p, max_new_tokens=max_new) for p in prompts[2:]]
+    t0 = time.monotonic()
+    if kill is None:
+        eng.drain(deadline_s=120)
+    else:
+        kill()
+    res = {"tokens": [], "queued_failed": 0, "rejected": 0, "errors": []}
+    for f in inflight:
+        try:
+            o = f.result(timeout=300)
+            res["tokens"].append(int(o.output_ids.size))
+        except Exception as e:          # noqa: BLE001 - reported
+            res["errors"].append(f"{type(e).__name__}: {e}")
+    for f in queued:
+        try:
+            f.result(timeout=300)
+            res["errors"].append("a queued request completed")
+        except EngineShutdownError:
+            res["queued_failed"] += 1
+        except Exception as e:          # noqa: BLE001 - reported
+            res["errors"].append(f"{type(e).__name__}: {e}")
+    while eng._thread is not None and time.monotonic() - t0 < 300:
+        time.sleep(0.002)               # the drain's shutdown
+    res["drain_ms"] = (time.monotonic() - t0) * 1e3
+    try:
+        eng.submit(prompts[0])
+        res["errors"].append("a submit after the drain was accepted")
+    except EngineShutdownError:
+        res["rejected"] = 1
+    return res
+
+
+def check_drain(tag, res, max_new):
+    want = {"tokens": [max_new] * 2, "queued_failed": 3, "rejected": 1,
+            "errors": []}
+    got = {k: res[k] for k in want}
+    if got != want:
+        raise AssertionError(f"[{tag}] drain: {got}, expected {want}")
+
+
+def serve_child(outdir, dev=None):
+    """serve-resilience's SIGTERM child: a 2-layer model at Llama-2 7B
+    width (bf16, seed 0) behind an Engine with `install_preemption_drain`;
+    two requests decode, three wait, then the process sends itself
+    SIGTERM.  The drill's facts go to ``outdir/drain.json``."""
+    dev = dev or torch.device("cuda", 0)
+    model = LlamaForCausalLM(llama_config("llama2-7b", num_layers=2),
+                             device=dev, dtype=torch.bfloat16, seed=0).eval()
+    prompts, pool = drain_setup(model.config.vocab_size, max_new=64)
+    eng = Engine(model, serve_cfg(kv_pool_pages=pool)).start()
+    handler = eng.install_preemption_drain(deadline_s=120)
+    res = drain_drill(eng, prompts, 64,
+                      kill=lambda: os.kill(os.getpid(), signal.SIGTERM))
+    res["preempted"] = handler.preempted()
+    res["cancelled_drain"] = eng.stats()["requests_cancelled_drain"]
+    with open(os.path.join(outdir, "drain.json"), "w") as f:
+        json.dump(res, f)
+
+
+def stalled_run(orig, calls):
+    """`CompiledServingTick._run` whose 2nd call sleeps 30 s in slices an
+    asynchronous exception can land between."""
+    def run(self):
+        calls.append(time.monotonic())
+        if len(calls) == 2:
+            t0 = time.monotonic()
+            while time.monotonic() - t0 < 30.0:
+                time.sleep(0.01)
+        return orig(self)
+    return run
+
+
+def phase_serve_resilience(dev, model, plain=None, margins=None):
+    """The serve phase's model, bf16, 4 slots: (1) drain under the
+    compiled tick; (2) a SIGTERM drill in a child; (3) a stalled tick;
+    (4) a crash; (5) memory across three restarts; (6) the slot layout."""
+    tag = "serve-resilience"
+    cfg = model.config
+    vocab = cfg.vocab_size
+    fr_path = os.path.join(tempfile.mkdtemp(prefix="serve-resil-"),
+                           "flight.json")
+    port_flags.set_flags({"FLAGS_flight_recorder_path": fr_path})
+    # (1) drain: two decode, three wait on the pool's pages
+    prompts, pool = drain_setup(vocab)
+    eng = Engine(model, serve_cfg(kv_pool_pages=pool)).start()
+    kernels.reset_launch_counts()
+    res = drain_drill(eng, prompts, 32)
+    counts = kernels.launch_counts()
+    check_drain(tag, res, 32)
+    st = eng.stats()
+    if st["tick_compiled_hits"] != st.get("decode_steps", 0) or \
+            not st.get("decode_steps", 0):
+        raise AssertionError(f"[{tag}] drain: {st['tick_compiled_hits']} "
+                             f"ticks of {st.get('decode_steps', 0)} steps")
+    check_launches(counts, {"paged_decode": cfg.num_layers
+                            * st.get("decode_steps", 0),
+                            "rms_norm": (2 * cfg.num_layers + 1)
+                            * (st.get("decode_steps", 0)
+                               + st["prefill_calls"])})
+    log(f"[{tag}] (1) drain under the compiled tick: 2 in-flight requests "
+        f"finished with 32 tokens, 3 queued failed (EngineShutdownError), "
+        f"a later submit raised; drain {res['drain_ms']:.1f} ms; "
+        f"{st['tick_compiled_hits']} compiled ticks; launches paged_decode "
+        f"{counts['paged_decode']}, rms_norm {counts['rms_norm']}")
+    # (2) SIGTERM in a child
+    d = tempfile.mkdtemp(prefix="serve-child-")
+    t0 = time.monotonic()
+    env = dict(os.environ,
+               FLAGS_flight_recorder_path=os.path.join(d, "flight.json"))
+    p = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--serve-child", d], capture_output=True, text=True,
+                       timeout=600, env=env)
+    if p.returncode != 0:
+        raise AssertionError(f"[{tag}] child exited {p.returncode}:\n"
+                             + (p.stdout + p.stderr)[-3000:])
+    with open(os.path.join(d, "drain.json")) as f:
+        child = json.load(f)
+    check_drain(tag, child, 64)
+    with open(os.path.join(d, "flight.json")) as fh:
+        reason = json.load(fh)["reason"]
+    if not child["preempted"] or child["cancelled_drain"] != 3 or \
+            reason != "sigterm":
+        raise AssertionError(f"[{tag}] child: {child}, dump {reason}")
+    log(f"[{tag}] (2) SIGTERM child (2 layers at 7B width, "
+        f"install_preemption_drain): 2 in-flight finished with 64 tokens, 3 "
+        f"queued failed, a later submit raised, exit 0; drain "
+        f"{child['drain_ms']:.1f} ms; {time.monotonic() - t0:.1f} s with "
+        "the child's start")
+    # (3) a stalled tick
+    short = serve_requests(vocab)[0][0]           # 17 prompt tokens
+    calls = []
+    orig = CompiledServingTick._run
+    CompiledServingTick._run = stalled_run(orig, calls)
+    try:
+        eng = Engine(model, serve_cfg(step_timeout_s=5.0,
+                                      max_scheduler_restarts=2)).start()
+        tick0 = eng._tick
+        t0 = time.monotonic()
+        f = eng.submit(short, max_new_tokens=8)
+        exc = f.exception(timeout=60)
+        fail_s = time.monotonic() - t0
+        if not isinstance(exc, SchedulerStallError) or fail_s > 10:
+            raise AssertionError(f"[{tag}] stall: {exc!r} after "
+                                 f"{fail_s:.1f} s")
+        t1 = time.monotonic()
+        out = eng.generate(short, max_new_tokens=8, timeout=300)
+        again_s = time.monotonic() - t1
+        st = eng.stats()
+        graphs = eng._tick.graph_stats()
+        captures = 1 if dev.type == "cuda" else 0   # a CPU tick runs eagerly
+        if eng._tick is tick0 or graphs.get("greedy", (-1,))[0] != captures:
+            raise AssertionError(f"[{tag}] stall: the tick was not rebuilt "
+                                 f"and captured again ({graphs})")
+        eng.shutdown()
+    finally:
+        CompiledServingTick._run = orig
+    with Engine(model, serve_cfg()) as fresh:
+        want = fresh.generate(short, max_new_tokens=8).output_ids
+    if not np.array_equal(out.output_ids, want):
+        raise AssertionError(f"[{tag}] after the stall {out.output_ids} != "
+                             f"a fresh engine's {want}")
+    with open(fr_path) as fh:
+        dump = json.load(fh)
+    if dump["reason"] != "serving-stall" or not dump["stall"]["threads"]:
+        raise AssertionError(f"[{tag}] stall dump: {dump.get('reason')}")
+    log(f"[{tag}] (3) tick call 2 stalled 30 s, step_timeout_s 5: the future "
+        f"failed with SchedulerStallError after {fail_s:.2f} s, stalls "
+        f"{st['scheduler_stalls']}, restarts {st['scheduler_restarts']}; the "
+        f"new tick captured again (graphs {graphs}) and served the next "
+        f"request in {again_s:.2f} s, its tokens equal a fresh engine's; "
+        f"the dump holds {len(dump['stall']['threads'])} threads' stacks")
+    # (4) a crash, (5) memory across three more restarts
+    wrapped = FailOnce(model)
+    eng = Engine(wrapped, serve_cfg(max_scheduler_restarts=4)).start()
+    try:
+        wrapped.arm = True
+        futs = [eng.submit(p, max_new_tokens=8) for p in
+                serve_requests(vocab)[0][:3]]
+        errs = [f.exception(timeout=300) for f in futs]
+        if not all(isinstance(e, RuntimeError) and "injected" in str(e)
+                   for e in errs):
+            raise AssertionError(f"[{tag}] crash: {errs}")
+        if eng.stats()["scheduler_restarts"] != 1:
+            raise AssertionError(f"[{tag}] crash: restarts "
+                                 f"{eng.stats()['scheduler_restarts']}")
+        out = eng.generate(short, max_new_tokens=8, timeout=300)
+        if not np.array_equal(out.output_ids, want):
+            raise AssertionError(f"[{tag}] after the crash {out.output_ids}"
+                                 f" != {want}")
+        log(f"[{tag}] (4) a model call raised: all 3 outstanding futures "
+            f"failed with it, scheduler_restarts 1, the engine served again "
+            f"(tokens equal a fresh engine's)")
+        levels = []
+        for _ in range(3):
+            wrapped.arm = True
+            f = eng.submit(short, max_new_tokens=8)
+            if "injected" not in str(f.exception(timeout=300)):
+                raise AssertionError(f"[{tag}] restart: no crash")
+            eng.generate(short, max_new_tokens=8, timeout=300)
+            torch.cuda.synchronize()
+            levels.append(torch.cuda.memory_allocated(dev))
+        st = eng.stats()
+    finally:
+        eng.shutdown()
+    spread = max(abs(lv - levels[0]) for lv in levels) / levels[0]
+    if spread > 0.01 or st["scheduler_restarts"] != 4:
+        raise AssertionError(f"[{tag}] memory after restarts {levels} "
+                             f"(spread {spread:.4%}), restarts "
+                             f"{st['scheduler_restarts']}")
+    log(f"[{tag}] (5) three more restarts, each serving a request through a "
+        f"new cache and a new captured tick: memory allocated after each "
+        f"{[round(lv / 1e9, 4) for lv in levels]} GB (spread "
+        f"{100 * spread:.4f}%)")
+    # (6) the slot layout
+    prompts, sampling = serve_requests(vocab)
+    n = len(prompts)
+    if plain is None:
+        plain = serve_run(model, dev, serve_cfg(), prompts, sampling)[0]
+    outs, st, counts, wall, peak, eng = serve_run(
+        model, dev, serve_cfg(kv_layout="slots"), prompts, sampling)
+    outs = [o if sampling[i].greedy else None for i, o in enumerate(outs)]
+    tau, _ = tie_margin(tag, model, prompts, plain, "bfloat16",
+                        ("slot lane", dict(slots=True)))
+    margins = plain_margins(model, prompts, plain, [outs], "bfloat16",
+                            margins or {})
+    check_ties(tag, "slots", plain, outs, margins, tau)
+    check_launches(counts, {"rms_norm": (2 * cfg.num_layers + 1) * (
+        st.get("decode_steps", 0) + st["prefill_calls"])})
+    log(f"[{tag}] (6) kv_layout='slots' on the serve traffic: "
+        f"{fmt_decode(st)}, TTFT p50 {st['ttft_ms_p50']:.1f} ms, "
+        f"{st['tokens_generated'] / wall:.1f} tokens/s wall, peak "
+        f"{peak:.2f} GB, tick fallbacks {st['tick_fallbacks']}, rms_norm "
+        f"launches {counts['rms_norm']}")
+    small = LlamaForCausalLM(llama_config("llama2-7b", num_layers=2),
+                             device=dev, seed=1).eval()
+    greedy = [SamplingParams()] * n
+    a = serve_run(small, dev, ServingConfig(num_slots=4,
+                                            max_seq_len=SERVE_LEN),
+                  prompts, greedy)[0]
+    b = serve_run(small, dev, ServingConfig(num_slots=4,
+                                            max_seq_len=SERVE_LEN,
+                                            kv_layout="slots"),
+                  prompts, greedy)[0]
+    for x, y in zip(a, b):
+        if not np.array_equal(x.output_ids, y.output_ids):
+            raise AssertionError(f"[{tag}] fp32 slots {y.output_ids} != "
+                                 f"paged {x.output_ids}")
+    log(f"[{tag}] (6) fp32, 2 layers at 7B width: the slot lane's tokens "
+        f"equal the paged lane's for all {n} requests")
+    port_flags.set_flags({"FLAGS_flight_recorder_path": ""})
 
 
 def decode_weight_bytes(model, rows=4):
@@ -4367,9 +5204,14 @@ def main(argv=None):
                     help="comma-separated subset of " + ",".join(PHASES))
     ap.add_argument("--fit-child", nargs=2, metavar=("MODE", "DIR"),
                     help=argparse.SUPPRESS)   # fit-gpt2 (b)'s children
+    ap.add_argument("--serve-child", metavar="DIR",
+                    help=argparse.SUPPRESS)   # serve-resilience (2)'s child
     args = ap.parse_args(argv)
     if args.fit_child:
         fit_child(*args.fit_child)
+        return
+    if args.serve_child:
+        serve_child(args.serve_child)
         return
     phases = args.phases.split(",")
     name, card = phase_device()
@@ -4386,7 +5228,8 @@ def main(argv=None):
     if "kernels" in phases:
         errs, timed = run("kernels", phase_kernels, dev)
     counts = lora_counts = fp8_counts = None
-    if {"serve", "serve-lora-int8", "serve-tick"} & set(phases):
+    if {"serve", "serve-lora-int8", "serve-tick", "serve-spec",
+            "serve-resilience"} & set(phases):
         model = build_7b(dev)
         float_st = None
         if "serve" in phases:
@@ -4396,6 +5239,13 @@ def main(argv=None):
                                           dev, model, float_st)
         if "serve-tick" in phases:
             run("serve-tick", phase_serve_tick, dev, model)
+        spec_plain = spec_margins = None
+        if "serve-spec" in phases:
+            spec_plain, spec_margins = run("serve-spec", phase_serve_spec,
+                                           dev, model)
+        if "serve-resilience" in phases:
+            run("serve-resilience", phase_serve_resilience, dev, model,
+                spec_plain, spec_margins)
         del model
         torch.cuda.empty_cache()
     if {"serve-gpt", "generate-gpt"} & set(phases):

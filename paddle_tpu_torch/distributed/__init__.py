@@ -1,6 +1,8 @@
 """Distributed training utilities of the port (paddle_tpu/distributed):
-``fleet.utils.recompute``, ``fleet.elastic.PreemptionHandler``, and the
-rank and world size the input pipeline and ``hapi.Model`` read."""
+``fleet.utils.recompute``, ``fleet.elastic.PreemptionHandler``, the
+watchdog's thread helpers (``watchdog.async_raise``,
+``watchdog.all_thread_stacks``), and the rank and world size the input
+pipeline and ``hapi.Model`` read."""
 
 
 def get_rank(group=None):

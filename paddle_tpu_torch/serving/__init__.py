@@ -1,17 +1,20 @@
 """Serving engine of the port: paged KV cache (float, int8 or fp8 pools),
 chunked prefill, prefix cache, continuous batching, multi-LoRA adapter
-pool, and the compiled scheduler tick (one CUDA graph replay a decode
-step, `compiled_tick`)."""
+pool, the compiled scheduler tick (one CUDA graph replay a decode step,
+`compiled_tick`), speculative decoding with a draft model, the dense slot
+layout (`kv_slots`), and the engine's resilience: drain, the preemption
+drain, the stall watchdog and bounded scheduler restarts."""
 from .adapters import AdapterPool
 from .api import (AdapterConfigError, DeadlineExceededError,
                   EngineShutdownError, QueueFullError, RequestCancelledError,
-                  RequestOutput, SamplingParams, ServingConfig, ServingError,
-                  UnknownAdapterError)
+                  RequestOutput, SamplingParams, SchedulerStallError,
+                  ServingConfig, ServingError, UnknownAdapterError)
 from .engine import Engine
+from .kv_slots import SlotKVCache
 from .paged_kv import PagedKVCache, PrefixTree
 
 __all__ = ["AdapterConfigError", "AdapterPool", "DeadlineExceededError",
            "Engine", "EngineShutdownError", "PagedKVCache", "PrefixTree",
            "QueueFullError", "RequestCancelledError", "RequestOutput",
-           "SamplingParams", "ServingConfig", "ServingError",
-           "UnknownAdapterError"]
+           "SamplingParams", "SchedulerStallError", "ServingConfig",
+           "ServingError", "SlotKVCache", "UnknownAdapterError"]

@@ -6,15 +6,17 @@ then the sync ``generate()`` or async ``submit() -> Future``.  A bounded
 queue rejects with `QueueFullError` instead of buffering without limit,
 and per-request deadlines evict the slot (`DeadlineExceededError`).
 
-Options of the JAX engine that this port does not carry yet raise
-``NotImplementedError`` from `ServingConfig.validate` (ROADMAP Queue A):
-speculation, prefill/decode roles and the dense slot layout.
+`ServingConfig.validate` makes the JAX package's checks word for word.
+The one JAX option the port does not carry yet, a prefill or decode
+``role`` (disaggregation, ROADMAP A7), raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import numpy as np
+
+from ..quantization import kv_quant_params
 
 
 class ServingError(RuntimeError):
@@ -37,6 +39,12 @@ class EngineShutdownError(ServingError):
 class RequestCancelledError(ServingError):
     """The request was cancelled via ``Engine.cancel`` before it
     finished; its slot, KV pages and adapter pin were released."""
+
+
+class SchedulerStallError(ServingError):
+    """One scheduler iteration exceeded ``ServingConfig.step_timeout_s``;
+    the engine failed every outstanding future and restarted its loop
+    (bounded by ``max_scheduler_restarts``)."""
 
 
 class AdapterConfigError(ServingError):
@@ -114,7 +122,22 @@ class ServingConfig:
                              tokens in half the bytes of a bf16 page, so
                              the pages in use at equal load halve
     idle_wait_s              scheduler sleep when no work is queued
-    kv_layout                "paged" (the only layout ported)
+    drain_grace_s            `Engine.drain`'s deadline when none is
+                             passed: how long in-flight slots may run on
+                             before the engine shuts down anyway (the
+                             SIGTERM path)
+    step_timeout_s           scheduler-iteration watchdog budget: an
+                             iteration exceeding it fails every
+                             outstanding future with SchedulerStallError
+                             and restarts the loop; 0 (default) disables
+                             the watchdog
+    max_scheduler_restarts   bounded restarts of the scheduler loop after
+                             a crash or a stall before the engine gives up
+                             and stops accepting work
+    kv_layout                "paged" (default): KV pages with lazy growth,
+                             prefix reuse and chunked prefill; "slots":
+                             fixed [num_slots, max_seq_len] stripes a
+                             layer, a batch-1 prefill a request
     page_size                tokens per KV page
     kv_pool_pages            physical pages in the pool; None →
                              num_slots * ceil(max_seq_len / page_size)
@@ -135,9 +158,20 @@ class ServingConfig:
                              artifact directory or an adapter_spec dict,
                              validated at Engine construction; more via
                              Engine.register_adapter
-    draft_model, speculation_k, role
-                             JAX-engine options not ported yet: anything
-                             but their defaults raises
+    draft_model              small proposer model for speculative
+                             decoding (same vocab as the target; its
+                             config.max_seq_len must cover max_seq_len).
+                             None (default) = no speculation
+    speculation_k            draft tokens proposed a slot a window; the
+                             target verifies all K+1 positions in ONE
+                             batched call and the rejected tail is rolled
+                             back (paged layout only; 0 = off, the plain
+                             decode loop).  Speculation engages when every
+                             active request is greedy without a
+                             repetition penalty; other iterations take the
+                             plain step
+    role                     JAX-engine disaggregation role, not ported:
+                             anything but "mixed" raises
     """
 
     num_slots: int = 4
@@ -148,6 +182,9 @@ class ServingConfig:
     deadline_policy: str = "evict"
     cache_dtype: str = "float32"
     idle_wait_s: float = 0.005
+    drain_grace_s: float = 30.0
+    step_timeout_s: float = 0.0
+    max_scheduler_restarts: int = 2
     kv_layout: str = "paged"
     page_size: int = 16
     kv_pool_pages: int | None = None
@@ -161,26 +198,26 @@ class ServingConfig:
     adapters: dict | None = None
 
     def validate(self):
-        if self.cache_dtype not in CACHE_DTYPES:
-            raise ValueError(f"cache_dtype must be one of {CACHE_DTYPES}, "
-                             f"got {self.cache_dtype!r}")
-        if self.kv_layout != "paged":
-            raise NotImplementedError(
-                f"kv_layout={self.kv_layout!r}: only the paged layout is "
-                "ported")
-        if self.speculation_k != 0 or self.draft_model is not None:
-            raise NotImplementedError(
-                "speculative decoding is not ported yet (ROADMAP Queue A)")
+        if self.role not in ("mixed", "prefill", "decode"):
+            raise ValueError(
+                "role must be 'mixed', 'prefill' or 'decode', got "
+                f"{self.role!r}")
         if self.role != "mixed":
             raise NotImplementedError(
                 f"role={self.role!r}: prefill/decode disaggregation is not "
-                "ported yet (ROADMAP Queue A)")
+                "ported yet (ROADMAP A7)")
+        if self.cache_dtype not in CACHE_DTYPES:
+            raise ValueError(f"cache_dtype must be one of {CACHE_DTYPES}, "
+                             f"got {self.cache_dtype!r}")
         if self.num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got "
                              f"{self.num_slots}")
         if self.max_queue < 1:
             raise ValueError(f"max_queue must be >= 1, got "
                              f"{self.max_queue}")
+        if self.kv_layout not in ("paged", "slots"):
+            raise ValueError("kv_layout must be 'paged' or 'slots', "
+                             f"got {self.kv_layout!r}")
         if self.page_size < 1:
             raise ValueError(f"page_size must be >= 1, got "
                              f"{self.page_size}")
@@ -194,16 +231,46 @@ class ServingConfig:
             raise ValueError(
                 "deadline_policy must be 'evict' or 'ignore', got "
                 f"{self.deadline_policy!r}")
+        if self.drain_grace_s < 0:
+            raise ValueError(f"drain_grace_s must be >= 0, got "
+                             f"{self.drain_grace_s}")
+        if self.step_timeout_s < 0:
+            raise ValueError(f"step_timeout_s must be >= 0, got "
+                             f"{self.step_timeout_s}")
+        if self.max_scheduler_restarts < 0:
+            raise ValueError(f"max_scheduler_restarts must be >= 0, "
+                             f"got {self.max_scheduler_restarts}")
+        if kv_quant_params(self.cache_dtype) is not None and \
+                self.kv_layout != "paged":
+            raise ValueError(
+                f"cache_dtype={self.cache_dtype!r} (quantized KV with "
+                "per-page scales) requires kv_layout='paged'")
+        if self.speculation_k < 0:
+            raise ValueError(f"speculation_k must be >= 0, got "
+                             f"{self.speculation_k}")
+        if self.speculation_k > 0:
+            if self.draft_model is None:
+                raise ValueError(
+                    "speculation_k > 0 needs a draft_model to propose "
+                    "tokens; pass ServingConfig(draft_model=...)")
+            if self.kv_layout != "paged":
+                raise ValueError(
+                    "speculative decoding requires kv_layout='paged' "
+                    "(accept-mask rollback is a page-table/offset move)")
         if self.max_adapters < 0:
             raise ValueError(f"max_adapters must be >= 0, got "
                              f"{self.max_adapters}")
         if self.adapter_rank_pool < 1:
             raise ValueError(f"adapter_rank_pool must be >= 1, got "
                              f"{self.adapter_rank_pool}")
+        if self.max_adapters > 0 and self.kv_layout != "paged":
+            raise ValueError(
+                "max_adapters > 0 (multi-tenant LoRA serving) requires "
+                "kv_layout='paged'")
         if self.adapters and self.max_adapters == 0:
             raise ValueError(
-                "ServingConfig.adapters given but max_adapters == 0: set "
-                "max_adapters to the concurrent-adapter budget")
+                "ServingConfig.adapters given but max_adapters == 0 — "
+                "set max_adapters to the concurrent-adapter budget")
         return self
 
 

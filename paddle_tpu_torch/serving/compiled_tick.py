@@ -23,15 +23,24 @@ device-resident scheduler state:
   and deadline eviction (a wall-clock decision) are the only times token
   buffers cross to the host.
 
-The typed blockers latch the uncompiled iteration for the tick with a
-`TickFallbackWarning`, once per kind, and count ``tick.fallbacks``:
-forward hooks installed (the adapter pool's own LoRA hooks excepted), and
-non-greedy sampling without a per-request ``SamplingParams.seed`` (the
-in-program draw is keyed by ``fold_in(PRNGKey(seed), n_generated)``; an
-unseeded request's generator cannot be replayed).  The JAX package's
-static blockers (the slot layout, speculation) cannot arise:
-`ServingConfig.validate` refuses both.  Unlike the JAX tick, a capture or
-replay failure is not turned into the uncompiled lane: it raises.
+Typed blockers send an iteration to the uncompiled lane with a
+`TickFallbackWarning`, once per kind, and count ``tick.fallbacks`` each
+iteration that consulted the tick:
+
+- static ones, known when the tick is built, latch the fallback for the
+  tick's life and warn at construction: ``kv_layout="slots"`` (the tick
+  runs on the paged cache) and speculation (a draft model with
+  ``speculation_k > 0``; an all-greedy speculative engine never consults
+  the tick, its iterations run `Engine._spec_step`);
+- per iteration: forward hooks installed (the adapter pool's own LoRA
+  hooks excepted), and non-greedy sampling without a per-request
+  ``SamplingParams.seed`` (the in-program draw is keyed by
+  ``fold_in(PRNGKey(seed), n_generated)``; an unseeded request's
+  generator cannot be replayed).
+
+Unlike the JAX tick, a capture or replay failure is not turned into the
+uncompiled lane: it raises, and the engine's restart wrapper rebuilds the
+cache and the tick.
 """
 from __future__ import annotations
 
@@ -158,14 +167,26 @@ class CompiledServingTick:
 
     def __init__(self, engine):
         self.eng = weakref.proxy(engine)
+        self._warned = set()
+        #: mode ("greedy", "mixed") -> its `CapturedStep`
+        self.steps = {}
+        #: mode -> ms of its first tick (on the card: warm-up and capture,
+        #: which the live requests wait for, then the first replay)
+        self.first_tick_ms = {}
+        self._ahead = False            # device tokens not yet on the host
+        #: the static blocker's reason: this tick never runs
+        self.fallback_reason = None
+        blk = self._static_blocker()
+        if blk is not None:
+            self._note_fallback(*blk)
+            self.fallback_reason = blk[1]
+            return
         cache = engine.cache
         ns, width = cache.num_slots, engine.max_len
         dev = engine.device
-        self._warned = set()
         self._rep = {}                 # slot -> request at the last rebuild
         self._mut_seen = -1            # engine mutation count synced
         self._h_counts = np.zeros(ns, np.int64)   # host mirror of counts
-        self._ahead = False            # device tokens not yet on the host
         self._stale = True             # device state must be rebuilt
 
         def zeros(*shape, dtype=torch.int32):
@@ -180,16 +201,11 @@ class CompiledServingTick:
             "seen": zeros(ns, engine.cfg.vocab_size, dtype=torch.bool),
             "out": zeros(ns, width), "fin": zeros(ns)}
         self._rows = torch.arange(ns, device=dev)
-        #: mode ("greedy", "mixed") -> its `CapturedStep`
-        self.steps = {}
-        #: mode -> ms of its first tick (on the card: warm-up and capture,
-        #: which the live requests wait for, then the first replay)
-        self.first_tick_ms = {}
         self._pool = self._stream = None
         self._fin_host = self._event = None
         if dev.type == "cuda":
             self._pool = torch.cuda.graph_pool_handle()
-            self._stream = torch.cuda.Stream(dev)
+            self._stream = engine._tick_stream
             self._fin_host = torch.empty(ns, dtype=torch.int32,
                                          pin_memory=True)
             self._event = torch.cuda.Event()
@@ -205,6 +221,18 @@ class CompiledServingTick:
             warnings.warn(
                 f"compiled serving tick disabled ({reason}); running the "
                 "uncompiled scheduler iteration", TickFallbackWarning)
+
+    def _static_blocker(self):
+        """(kind, reason) for a configuration the tick can never host,
+        known when it is built; None otherwise."""
+        eng = self.eng
+        if not eng._paged:
+            return ("layout", "kv_layout='slots' — the compiled tick runs "
+                    "on the paged cache")
+        if eng._spec:
+            return ("spec", "speculative decoding configured "
+                    "(draft_model + speculation_k > 0)")
+        return None
 
     def _blocker(self):
         """(kind, reason) for the current scheduler state, or None when
@@ -271,8 +299,12 @@ class CompiledServingTick:
             mutable = [st[k] for k in ("last", "counts", "alive", "seen",
                                        "out", "fin")]
             mutable.append(self.eng.cache.device_offsets)
+            # the graph's body holds the tick weakly: no reference cycle
+            # keeps a dropped tick and its graphs' pool alive (a restart
+            # drops the tick before it captures a new one)
+            ref = weakref.ref(self)
             step = self.steps[mode] = CapturedStep(
-                lambda: self._body(mode), mutable, self.eng.device,
+                lambda: ref()._body(mode), mutable, self.eng.device,
                 pool=self._pool, stream=self._stream)
         return step
 
@@ -358,6 +390,9 @@ class CompiledServingTick:
         eng = self.eng
         if not _flag("FLAGS_compiled_tick", True):
             self.flush_to_host()        # flag flipped mid-run
+            return False
+        if self.fallback_reason is not None:
+            eng._stats.incr("tick.fallbacks")
             return False
         blk = self._blocker()
         if blk is not None:

@@ -1,7 +1,8 @@
-"""Continuous-batching inference engine with a paged KV cache (port of
-paddle_tpu/serving/engine.py, the ``kv_layout="paged"`` scheduler).
+"""Continuous-batching inference engine (port of
+paddle_tpu/serving/engine.py): a paged KV cache by default, or the dense
+slot layout (``kv_layout="slots"``, `kv_slots.SlotKVCache`).
 
-A background scheduler thread, in each iteration:
+A background scheduler thread, in each iteration of the paged layout:
 
 1. admits queued requests into free slots, matching each prompt against
    the prefix tree so shared prompt pages are reused, not recomputed;
@@ -16,6 +17,16 @@ A background scheduler thread, in each iteration:
    active request is greedy, one fused sampling call when each is greedy
    or seeded, and per-row sampling otherwise;
 4. completes futures on EOS, max-tokens, slot capacity or deadline.
+
+With a ``draft_model`` and ``speculation_k = K > 0``, step 3 is a
+speculative window (`_spec_step`) whenever every active request is greedy
+without a repetition penalty: K ``[num_slots, 1]`` draft steps on the
+draft's own paged cache, one ``[num_slots, K+1]`` verify call of the
+target, the accepted run plus the bonus token, and `PagedKVCache.rollback`
+of both caches.  Both caches hold ``max_seq_len + K`` tokens a slot; the
+compiled tick is off while speculation is configured, as in JAX.  The
+slot layout prefills each request in one batch-1 call and runs the
+uncompiled decode step.
 
 A seeded request (``SamplingParams.seed``) draws token n from
 ``categorical(fold_in(PRNGKey(seed), n))``, the JAX engine's key stream
@@ -33,33 +44,48 @@ model: ``submit(..., adapter_id=...)`` pins the adapter's pool slot for
 the request's lifetime, every model call adds each row's gathered delta,
 and prefix-tree entries are scoped by adapter id.
 
-The JAX engine's speculation, migration/drain, stall watchdog, scheduler
-restarts and tracing are not ported yet (ROADMAP Queue A).  A crash of
-the scheduler fails every outstanding future with the error and stops
-the engine.
+Resilience: `drain` (and `install_preemption_drain`, on SIGTERM) stops
+admissions, fails the queue and lets the in-flight slots finish; with
+``step_timeout_s > 0`` a watchdog thread fails every outstanding future
+of an iteration past its budget with `SchedulerStallError` and raises
+into the scheduler thread; a crash or a stall restarts the loop with a
+fresh cache and tick, up to ``max_scheduler_restarts`` times, after
+failing every outstanding future with the error.  The flight recorder
+gets ``drain_begin``/``drain_end``, ``scheduler_restart`` and
+``scheduler_stall`` (with a ``serving-stall`` dump of every thread's
+stack).  The JAX engine's KV-page migration (``drain(migrate=True)``,
+roles, ``submit_resume``) and request tracing are not ported (ROADMAP
+A7, A6).
 """
 from __future__ import annotations
 
 import contextlib
+import gc
 import itertools
 import threading
 import time
+import traceback
 from collections import deque
 from concurrent.futures import Future
 
 import numpy as np
 import torch
 
-from ..models.generation import sample_next_token
+from ..distributed.fleet.elastic import PreemptionHandler
+from ..distributed.watchdog import all_thread_stacks, async_raise
+from ..models.generation import init_kv_caches, sample_next_token
+from ..observability import flight_recorder as _fr
+from ..observability.exporter import maybe_start_exporter
 from ..quantization import kv_quant_params
 from ..utils.flags import flag as _flag
 from .adapters import AdapterPool
 from .api import (AdapterConfigError, DeadlineExceededError,
                   EngineShutdownError, QueueFullError, RequestCancelledError,
-                  RequestOutput, SamplingParams, ServingConfig,
-                  UnknownAdapterError)
+                  RequestOutput, SamplingParams, SchedulerStallError,
+                  ServingConfig, UnknownAdapterError)
 from .compiled_tick import (CompiledServingTick, fused_sample_call,
                             request_key, sampling_hostable)
+from .kv_slots import SlotKVCache
 from .paged_kv import PagedKVCache, PrefixTree
 from .stats import ServingStats
 
@@ -68,8 +94,9 @@ class _Request:
     __slots__ = ("id", "prompt", "max_new_tokens", "sampling",
                  "eos_token_id", "deadline", "future", "submit_t",
                  "ttft_ms", "tokens", "seen", "last_token", "slot",
-                 "prefill_pos", "shared_len", "prefix_nodes", "first_tok",
-                 "generator", "adapter_id", "adapter_slot")
+                 "prefill_pos", "shared_len", "prefix_nodes",
+                 "draft_prefill_pos", "first_tok", "generator",
+                 "adapter_id", "adapter_slot")
 
     def __init__(self, rid, prompt, max_new_tokens, sampling,
                  eos_token_id, deadline, generator):
@@ -89,6 +116,7 @@ class _Request:
         self.prefill_pos = 0        # next prompt token to prefill
         self.shared_len = 0         # prompt tokens reused from the tree
         self.prefix_nodes = []      # tree nodes this request references
+        self.draft_prefill_pos = 0  # draft-model prefill progress (spec)
         self.first_tok = None       # sampled first token, not yet appended
         self.generator = generator  # unseeded sampling's own stream
         self.adapter_id = None      # LoRA adapter this request decodes
@@ -99,7 +127,8 @@ class Engine:
     """``Engine(model, config).start()``; then `submit` (async, returns a
     ``Future[RequestOutput]``) or `generate` (sync).  `shutdown` stops the
     scheduler and fails every queued or in-flight future with
-    `EngineShutdownError`.  The engine runs on the model's device."""
+    `EngineShutdownError`; `drain` first lets the in-flight slots finish.
+    The engine runs on the model's device (the draft model's too)."""
 
     def __init__(self, model, config: ServingConfig | None = None):
         self.model = model
@@ -114,18 +143,47 @@ class Engine:
         # bytes: the pages in use at equal token load halve
         quant = kv_quant_params(self.scfg.cache_dtype) is not None
         self._page_size = self.scfg.page_size * (2 if quant else 1)
+        self._paged = self.scfg.kv_layout == "paged"
+        self._spec_k = int(self.scfg.speculation_k)
+        self._spec = bool(self._paged and self._spec_k > 0
+                          and self.scfg.draft_model is not None)
+        draft = self.scfg.draft_model if self._spec else None
+        if draft is not None:
+            if hasattr(draft, "eval"):
+                draft.eval()
+            dcfg = draft.config
+            if dcfg.max_seq_len < self.max_len:
+                raise ValueError(
+                    f"draft_model.config.max_seq_len {dcfg.max_seq_len} "
+                    f"< serving max_seq_len {self.max_len}; the draft "
+                    "must cover every position it proposes for")
+            if dcfg.vocab_size != self.cfg.vocab_size:
+                raise ValueError(
+                    f"draft_model vocab {dcfg.vocab_size} != target "
+                    f"vocab {self.cfg.vocab_size}")
         # a learned position table (GPT's wpe) must cover every position a
-        # slot can hold, the left-shifted last prefill chunk included: the
-        # JAX engine reads a NaN fill past it, torch's embedding on the
-        # card fails a device assert that poisons the context
-        rows = getattr(model, "position_rows", None)
-        capacity = -(-self.max_len // self._page_size) * self._page_size
-        if rows is not None and capacity > rows:
-            raise ValueError(
-                f"KV capacity of {capacity} tokens a slot (max_seq_len "
-                f"{self.max_len} rounded up to whole pages of "
-                f"{self._page_size}) exceeds the model's {rows} learned "
-                "positions; lower ServingConfig.max_seq_len or page_size")
+        # slot can hold: the left-shifted last prefill chunk and, with
+        # speculation, the verify window's K tokens past the last real
+        # one (the target's and the draft's table).  The JAX engine reads
+        # a NaN fill past it; the port would clamp a position whose
+        # logits are kept
+        if self._paged:
+            psz = self._page_size
+            capacity = -(-(self.max_len + self._spec_k) // psz) * psz
+            what = (f"max_seq_len {self.max_len} + speculation_k "
+                    f"{self._spec_k} rounded up to whole pages of {psz}")
+        else:
+            capacity = self.max_len
+            what = f"max_seq_len {self.max_len}"
+        for name, m in (("model", model), ("draft_model", draft)):
+            rows = getattr(m, "position_rows", None)
+            if rows is not None and capacity > rows:
+                raise ValueError(
+                    f"KV capacity of {capacity} tokens a slot ({what}) "
+                    f"exceeds the {name}'s {rows} learned positions; lower "
+                    "ServingConfig.max_seq_len, page_size or "
+                    "speculation_k")
+        self.draft_cache = None
         self._stats = ServingStats()
         self._queue: deque[_Request] = deque()
         self._active: dict[int, _Request] = {}
@@ -141,6 +199,7 @@ class Engine:
         self._lock = threading.RLock()
         self._work = threading.Condition(self._lock)
         self._running = False
+        self._draining = False
         self._thread = None
         self._ids = itertools.count()
         self._cancels: set[int] = set()
@@ -151,6 +210,19 @@ class Engine:
         # when its device mirror must be rebuilt.
         self._tick = None
         self._mut = 0
+        # the side stream every tick of this engine warms up and captures
+        # on: cuBLAS keeps a workspace for each stream it ran on, so a tick
+        # rebuilt by a restart on a stream of its own would leave one more
+        self._tick_stream = torch.cuda.Stream(self.device) \
+            if self.device.type == "cuda" else None
+        # the scheduler watchdog (step_timeout_s > 0) and restarts
+        self._sched_tid = None
+        self._iter_deadline = None
+        self._restarts = 0
+        self._monitor = None
+        self._monitor_stop = threading.Event()
+        self._stall_swept = False
+        self._preemption_handler = None
         # multi-tenant LoRA: A/B/scale stacks per target projection and
         # the per-slot adapter index, built (and the registry validated)
         # here; None without max_adapters, and then every model call is
@@ -165,6 +237,7 @@ class Engine:
 
     # ---------------- lifecycle ----------------
     def start(self):
+        maybe_start_exporter()          # a no-op unless its flag names a path
         with self._lock:
             if self._running:
                 return self
@@ -174,16 +247,34 @@ class Engine:
             self._tick = self._make_tick()
             self._max_active = 0
             self._running = True
+            self._draining = False
+            self._restarts = 0
+            self._stall_swept = False
         self._thread = threading.Thread(
             target=self._loop, name="paddle-tpu-torch-serving", daemon=True)
         self._thread.start()
+        if self.scfg.step_timeout_s > 0:
+            self._monitor_stop.clear()
+            self._monitor = threading.Thread(
+                target=self._stall_monitor,
+                name="paddle-tpu-torch-serving-watchdog", daemon=True)
+            self._monitor.start()
         return self
 
     def _new_cache(self):
+        """Fresh KV storage (and prefix tree, and the draft model's mirror
+        cache when speculating) for a (re)started loop."""
+        if not self._paged:
+            return SlotKVCache(
+                self.cfg.num_layers, self.scfg.num_slots, self.max_len,
+                self._kv_heads, self.cfg.head_dim,
+                dtype=self.scfg.cache_dtype, device=self.device)
+        # + speculation_k positions of headroom: a verify window writes K
+        # tokens past the last real one before the rollback rewinds them
         cache = PagedKVCache(
-            self.cfg.num_layers, self.scfg.num_slots, self.max_len,
-            self._kv_heads, self.cfg.head_dim, page_size=self._page_size,
-            num_pages=self.scfg.kv_pool_pages,
+            self.cfg.num_layers, self.scfg.num_slots,
+            self.max_len + self._spec_k, self._kv_heads, self.cfg.head_dim,
+            page_size=self._page_size, num_pages=self.scfg.kv_pool_pages,
             dtype=self.scfg.cache_dtype, device=self.device)
         self.prefix_tree = PrefixTree(self._page_size) \
             if self.scfg.enable_prefix_cache else None
@@ -191,6 +282,16 @@ class Engine:
         self._chunk = min(self.scfg.prefill_chunk_tokens, cache.capacity)
         self._prefilling.clear()
         self._pages_peak = 0
+        if self._spec:
+            dcfg = self.scfg.draft_model.config
+            # fully preallocated: the draft prefills every prompt itself
+            # (no shared pages), so its pool never holds admission back
+            self.draft_cache = PagedKVCache(
+                dcfg.num_layers, self.scfg.num_slots,
+                self.max_len + self._spec_k,
+                getattr(dcfg, "num_kv_heads", dcfg.num_heads),
+                dcfg.head_dim, page_size=self._page_size, num_pages=None,
+                dtype=self.scfg.cache_dtype, device=self.device)
         return cache
 
     def _make_tick(self):
@@ -206,6 +307,7 @@ class Engine:
         with self._work:
             self._running = False
             self._work.notify_all()
+        self._monitor_stop.set()
         t = self._thread
         if t is not None:
             t.join(wait_s)
@@ -216,7 +318,67 @@ class Engine:
                     "serving scheduler thread failed to stop within "
                     f"{wait_s}s")
         self._thread = None
+        m = self._monitor
+        if m is not None:
+            m.join(wait_s)
+            self._monitor = None
+        # the loop's finally already failed everything; this covers a
+        # shutdown racing a never-started or crashed loop
         self._fail_all(EngineShutdownError("engine shut down"))
+
+    def drain(self, deadline_s=None, migrate=False):
+        """Graceful shutdown (the preemption / SIGTERM path): stop
+        admissions at once, fail every still-queued request with
+        `EngineShutdownError`, let the slots already decoding run to
+        completion within `deadline_s` (default
+        ``ServingConfig.drain_grace_s``), then shut the engine down;
+        whatever is unfinished at the deadline fails as in `shutdown`.
+        Idempotent; safe from any thread.  ``migrate=True`` (KV pages
+        streamed to a surviving replica) is not ported (ROADMAP A7)."""
+        if migrate:
+            raise NotImplementedError(
+                "drain(migrate=True): KV-page migration is not ported yet "
+                "(ROADMAP A7)")
+        deadline_s = self.scfg.drain_grace_s if deadline_s is None \
+            else float(deadline_s)
+        with self._work:
+            if not self._running:
+                return
+            already = self._draining
+            self._draining = True
+            queued = list(self._queue)
+            self._queue.clear()
+            self._stats.set_value("queue_depth", 0)
+            self._work.notify_all()
+        if already:
+            return
+        _fr.record("serving", "drain_begin", queued=len(queued),
+                   active=len(self._active),
+                   deadline_s=round(deadline_s, 3))
+        for req in queued:
+            self._fail(req, EngineShutdownError(
+                f"engine draining: request {req.id} was still queued"))
+            self._stats.incr("requests_cancelled_drain")
+        deadline = time.monotonic() + deadline_s
+        # a poll of the two containers' sizes: no host read of the device,
+        # so it never races a replay of the compiled tick
+        while (self._active or self._prefilling) and \
+                time.monotonic() < deadline:
+            time.sleep(0.01)
+        _fr.record("serving", "drain_end", unfinished=len(self._active))
+        self.shutdown()
+
+    def install_preemption_drain(self, handler=None, deadline_s=None):
+        """Wire `drain` to the preemption notice: on SIGTERM the engine
+        stops admitting, finishes the in-flight requests within
+        `deadline_s` and fails the queue, instead of dying mid-token.
+        Installs a fresh `PreemptionHandler` when none is passed; returns
+        the handler, so co-located training code can share it."""
+        if handler is None:
+            handler = PreemptionHandler().install()
+        handler.add_callback(lambda: self.drain(deadline_s))
+        self._preemption_handler = handler
+        return handler
 
     def __enter__(self):
         return self.start()
@@ -246,17 +408,19 @@ class Engine:
         if max_new < 1:
             raise ValueError(f"max_new_tokens must be >= 1, got "
                              f"{max_new}")
-        # infeasible requests are rejected up front: admission
-        # backpressure only helps when the pool could EVER fit it
-        psz = self._page_size
-        pool = self.scfg.kv_pool_pages or \
-            self.scfg.num_slots * (-(-self.max_len // psz))
-        need = -(-min(prompt.size + max_new, self.max_len) // psz)
-        if need > pool:
-            raise ValueError(
-                f"request needs {need} KV pages (prompt {prompt.size} + "
-                f"max_new {max_new}) but the pool holds {pool}; raise "
-                "ServingConfig.kv_pool_pages")
+        if self._paged:
+            # infeasible requests are rejected up front: admission
+            # backpressure only helps when the pool could EVER fit it
+            psz = self._page_size
+            pool = self.scfg.kv_pool_pages or self.scfg.num_slots * \
+                (-(-(self.max_len + self._spec_k) // psz))
+            need = -(-(min(prompt.size + max_new, self.max_len)
+                       + self._spec_k) // psz)
+            if need > pool:
+                raise ValueError(
+                    f"request needs {need} KV pages (prompt {prompt.size} "
+                    f"+ max_new {max_new}) but the pool holds {pool}; "
+                    "raise ServingConfig.kv_pool_pages")
         if adapter_id is not None:
             known = self.adapter_pool.known_ids() \
                 if self.adapter_pool is not None else []
@@ -284,6 +448,10 @@ class Engine:
             if not self._running:
                 raise EngineShutdownError(
                     "engine is not running (call start())")
+            if self._draining:
+                raise EngineShutdownError(
+                    "engine is draining (preemption notice); not "
+                    "accepting new requests")
             if len(self._queue) >= self.scfg.max_queue:
                 self._stats.incr("requests_rejected_queue_full")
                 raise QueueFullError(
@@ -382,20 +550,64 @@ class Engine:
 
     # ---------------- scheduler ----------------
     def _loop(self):
+        """Restart wrapper: a crashed or stalled iteration fails every
+        outstanding future (clients see the real error, never a silent
+        hang) and the loop restarts with a fresh cache and a fresh tick,
+        up to ``max_scheduler_restarts`` times."""
+        self._sched_tid = threading.get_ident()
         try:
-            with torch.no_grad():
-                self._loop_once()
-        except BaseException as exc:   # noqa: BLE001 - reported, re-raised
-            with self._work:
-                self._running = False
-            self._fail_all(exc)
-            raise
+            while not self._run_loop():
+                # the crash may have left slots and pages torn mid-write,
+                # or a tick graph mid-replay: rebuild rather than trust
+                # them.  The old cache, draft cache and tick (its graphs
+                # and their pool) are dropped and collected before the new
+                # ones are allocated, so a restart does not hold two of
+                # each (on the card a dropped tick can sit in a reference
+                # cycle until the next collection)
+                self.cache = self.draft_cache = self._tick = None
+                gc.collect()
+                self.cache = self._new_cache()
+                self._tick = self._make_tick()
         finally:
+            self._iter_deadline = None
             self._fail_all(EngineShutdownError("engine shut down"))
             self._stats.set_value("active_slots", 0)
             self._stats.set_value("queue_depth", 0)
 
+    def _run_loop(self):
+        """`_loop_once` until a clean shutdown (True) or a crash the
+        engine may restart from (False); past ``max_scheduler_restarts``
+        the error propagates and the engine stops accepting work."""
+        try:
+            with torch.no_grad():
+                self._loop_once()
+            return True
+        except BaseException as exc:    # noqa: BLE001 - reported, re-raised
+            with self._work:
+                running = self._running
+            if not running:
+                return True                 # a shutdown racing a crash
+            # the futures keep the error and its traceback: its frames'
+            # locals (the cache's views, a logits tensor) go, so the old
+            # cache is free to go before the restart allocates a new one
+            traceback.clear_frames(exc.__traceback__)
+            # the stall monitor already failed the stalled batch: a request
+            # submitted since is healthy work for the restarted loop
+            swept, self._stall_swept = self._stall_swept, False
+            if not (swept and isinstance(exc, SchedulerStallError)):
+                self._fail_all(exc)
+            self._stats.incr("scheduler_restarts")
+            _fr.record("serving", "scheduler_restart",
+                       error=type(exc).__name__, restarts=self._restarts + 1)
+            if self._restarts >= self.scfg.max_scheduler_restarts:
+                with self._work:
+                    self._running = False
+                raise
+            self._restarts += 1
+            return False
+
     def _loop_once(self):
+        budget = self.scfg.step_timeout_s
         while True:
             with self._work:
                 if not self._running:
@@ -406,29 +618,71 @@ class Engine:
                 self._expire_queued_locked()
                 admits = []
                 while self._queue and self.cache.free_slots:
-                    slot = self._try_admit_paged(self._queue[0])
-                    if slot is None:
-                        break           # page backpressure: FIFO
+                    if self._paged:
+                        slot = self._try_admit_paged(self._queue[0])
+                        if slot is None:
+                            break       # page backpressure: FIFO
+                    else:
+                        slot = self.cache.allocate()
                     admits.append((self._queue.popleft(), slot))
                 self._stats.set_value("queue_depth", len(self._queue))
                 if not admits and not self._active \
                         and not self._prefilling:
+                    self._iter_deadline = None
                     self._work.wait(self.scfg.idle_wait_s)
                     continue
+            if budget > 0:
+                self._iter_deadline = time.monotonic() + budget
             t_tick = time.monotonic()
-            for req, slot in admits:
-                self._start_prefill(req, slot)
-            # ONE batched chunk call covers every prefilling request,
-            # then the decode step runs: a long prompt never blocks the
-            # in-flight streams for more than a chunk
-            if self._prefilling:
-                self._prefill_round()
+            if self._paged:
+                for req, slot in admits:
+                    self._start_prefill(req, slot)
+                # ONE batched chunk call covers every prefilling request,
+                # then the decode step runs: a long prompt never blocks
+                # the in-flight streams for more than a chunk
+                if self._prefilling:
+                    self._prefill_round()
+            else:
+                for req, slot in admits:
+                    self._prefill(req, slot)
             if self._active:
-                if self._tick is None or not self._tick.step():
+                if self._can_speculate():
+                    self._spec_step()
+                elif self._tick is None or not self._tick.step():
                     self._decode_step()
-            self._publish_pool_stats()
+            if self._paged:
+                self._publish_pool_stats()
             self._stats.observe("tick_ms",
                                 (time.monotonic() - t_tick) * 1e3)
+            self._iter_deadline = None
+
+    def _stall_monitor(self):
+        """The scheduler-iteration watchdog (``step_timeout_s > 0``): when
+        one iteration blows its budget, fail every outstanding future at
+        once (clients unblock even while the scheduler is wedged in a
+        device call) and raise `SchedulerStallError` into the scheduler
+        thread, so the restart wrapper rebuilds the loop."""
+        budget = self.scfg.step_timeout_s
+        poll = max(min(budget / 4.0, 0.25), 0.005)
+        while not self._monitor_stop.wait(poll):
+            deadline = self._iter_deadline
+            if deadline is None or time.monotonic() < deadline:
+                continue
+            self._iter_deadline = None
+            exc = SchedulerStallError(
+                f"scheduler iteration exceeded its step_timeout_s="
+                f"{budget:g}s budget; failing all outstanding requests and "
+                "restarting the decode loop")
+            self._stats.incr("scheduler_stalls")
+            _fr.record("serving", "scheduler_stall", budget_s=budget)
+            _fr.dump(reason="serving-stall", error=exc, once=True,
+                     extra={"stall": {"op": "serving::step", "seq": None,
+                                      "budget_s": budget,
+                                      "threads": all_thread_stacks()}})
+            self._stall_swept = True
+            self._fail_all(exc)
+            if self._sched_tid is not None:
+                async_raise(self._sched_tid, SchedulerStallError)
 
     def _expire_queued_locked(self):
         if self.scfg.deadline_policy != "evict":
@@ -445,13 +699,43 @@ class Engine:
                 keep.append(req)
         self._queue = keep
 
+    def _prefill(self, req, slot):
+        """The slot layout's batch-1 prompt pass into the slot's rows, and
+        the request's first token."""
+        t0 = time.monotonic()
+        caches = init_kv_caches(
+            self.cfg.num_layers, 1, self.max_len, self._kv_heads,
+            self.cfg.head_dim, dtype=self.scfg.cache_dtype,
+            device=self.device)
+        logits = self.model(torch.tensor(req.prompt[None, :],
+                                         device=self.device), caches=caches)
+        self.cache.write_prefill(slot, caches, req.prompt.size)
+        if req.sampling.uses_penalty:
+            seen = np.zeros(self.cfg.vocab_size, bool)
+            seen[req.prompt] = True
+            req.seen = seen
+        tok = self._sample_row(logits[:, -1, :], req)
+        now = time.monotonic()
+        req.ttft_ms = (now - req.submit_t) * 1e3
+        self._stats.observe("ttft_ms", req.ttft_ms)
+        self._stats.observe("prefill_ms", (now - t0) * 1e3)
+        self._stats.incr("prefill_steps")
+        self._stats.incr("prefill_calls")
+        req.slot = slot
+        self._active[slot] = req
+        self._append_token(req, tok)
+        self._stats.set_value("active_slots", len(self._active))
+
     def _try_admit_paged(self, req):
         """Reserve a slot and the request's worst-case page budget (under
         the lock).  The prefix tree's shared pages shrink the
         reservation; LRU zero-ref tree pages are evicted under pressure.
         Returns the slot, or None (the request stays queued)."""
         psz = self._page_size
-        total = min(req.prompt.size + req.max_new_tokens, self.max_len)
+        # + speculation_k: a verify window writes past the last real token
+        # before the rollback, so the reservation covers it
+        total = min(req.prompt.size + req.max_new_tokens, self.max_len) \
+            + self._spec_k
         if req.adapter_id is not None:
             # pin (hot-loading first if cold) the adapter's pool slot for
             # the request's lifetime; None = every slot is pinned by
@@ -479,6 +763,16 @@ class Engine:
             if req.adapter_id is not None:
                 self.adapter_pool.release(req.adapter_id)
             return None
+        if self._spec:
+            # mirror the slot in the draft cache: the same free-slot stack
+            # on both sides keeps the indices equal, and the draft pool is
+            # fully preallocated, so this cannot fail
+            dslot = self.draft_cache.allocate(
+                self.draft_cache.pages_per_slot)
+            if dslot != slot:       # pragma: no cover - invariant
+                raise RuntimeError(
+                    f"draft cache slot {dslot} diverged from target "
+                    f"slot {slot}")
         if self.prefix_tree is not None:
             self._stats.incr("prefix_cache_hits" if pages
                              else "prefix_cache_misses")
@@ -490,7 +784,9 @@ class Engine:
 
     def _start_prefill(self, req, slot):
         """Arm chunked prefill: the slot's clock starts at the shared
-        prefix length, whose pages came from the tree."""
+        prefix length, whose pages came from the tree.  The draft model
+        (speculation) always prefills from 0: shared pages belong to the
+        target's cache."""
         req.slot = slot
         req.prefill_pos = req.shared_len
         req.first_tok = None
@@ -503,6 +799,9 @@ class Engine:
                 self._stats.incr_labeled("requests_routed_adapter",
                                          "adapter", req.adapter_id)
         self.cache.set_offset(slot, req.shared_len)
+        if self._spec:
+            req.draft_prefill_pos = 0
+            self.draft_cache.set_offset(slot, 0)
         self._prefilling.append(req)
 
     def _prefill_round(self):
@@ -528,7 +827,7 @@ class Engine:
         tgt = [r for r in reqs if r.prefill_pos < r.prompt.size]
         if tgt:
             logits, starts = self._prefill_chunk_call(
-                tgt, [r.prefill_pos for r in tgt])
+                self.model, self.cache, tgt, [r.prefill_pos for r in tgt])
             for row, req in enumerate(tgt):
                 plen = req.prompt.size
                 start = starts[row]
@@ -551,19 +850,40 @@ class Engine:
                     self.prefix_tree.insert(req.prompt, self.cache,
                                             req.slot, req.prefix_nodes,
                                             scope=req.adapter_id)
+        if self._spec:
+            # the draft's own chunked prefill, at the same cadence: its
+            # cache must hold the whole prompt before the request can
+            # decode speculatively (no shared pages on the draft side)
+            dr = [r for r in reqs if r.draft_prefill_pos < r.prompt.size]
+            if dr:
+                _, dstarts = self._prefill_chunk_call(
+                    self.scfg.draft_model, self.draft_cache, dr,
+                    [r.draft_prefill_pos for r in dr])
+                for row, req in enumerate(dr):
+                    req.draft_prefill_pos = min(dstarts[row] + chunk,
+                                                req.prompt.size)
+                    self.draft_cache.set_offset(req.slot,
+                                                req.draft_prefill_pos)
+        # a request activates when every cache it decodes against holds
+        # its prompt (the target's; the draft's too when speculating)
         for req in reqs:
             if req.prefill_pos < req.prompt.size or req.first_tok is None:
                 continue
-            self._prefilling.remove(req)
+            if self._spec and req.draft_prefill_pos < req.prompt.size:
+                continue
+            try:
+                self._prefilling.remove(req)
+            except ValueError:
+                continue    # a concurrent stall sweep already swept it
             tok, req.first_tok = req.first_tok, None
             self._active[req.slot] = req
             self._append_token(req, tok)
         self._stats.set_value("active_slots", len(self._active))
 
-    def _prefill_chunk_call(self, reqs, offs):
-        """One batched ``[num_slots, chunk]`` prefill-chunk call for
-        `reqs` at per-request progress `offs`; returns (logits, starts)."""
-        cache = self.cache
+    def _prefill_chunk_call(self, model, cache, reqs, offs):
+        """One batched ``[num_slots, chunk]`` prefill-chunk call of `model`
+        against `cache` for `reqs` at per-request progress `offs`; returns
+        (logits, starts)."""
         chunk = self._chunk
         cap = cache.capacity
         tokens = np.zeros((cache.num_slots, chunk), np.int32)
@@ -577,16 +897,17 @@ class Engine:
             starts.append(start)
         t0 = time.monotonic()
         # the call batches by ROW, not scheduler slot: its adapter index
-        # is row-ordered (surplus rows ride the identity slot 0)
-        idx = None
-        if self.adapter_pool is not None:
+        # is row-ordered (surplus rows ride the identity slot 0).  The
+        # draft model's calls are never adapted
+        lora = contextlib.nullcontext()
+        if self.adapter_pool is not None and model is self.model:
             rows = np.zeros(cache.num_slots, np.int32)
             rows[:len(reqs)] = [r.adapter_slot for r in reqs]
-            idx = self.adapter_pool.row_tensor(rows)
+            lora = self._lora_ctx(self.adapter_pool.row_tensor(rows))
         views = cache.prefill_view([r.slot for r in reqs], starts)
-        with self._lora_ctx(idx):
-            logits = self.model(torch.tensor(tokens, device=self.device),
-                                caches=views)
+        with lora:
+            logits = model(torch.tensor(tokens, device=self.device),
+                           caches=views)
         cache.absorb_view(views)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)   # time the device work
@@ -610,10 +931,12 @@ class Engine:
         n_active = len(self._active)
         self._max_active = max(self._max_active, n_active)
         self._stats.set_value("max_active_slots", self._max_active)
-        # page-by-page growth: a fresh page only when a row's write
-        # position crosses a page boundary (reserved at admission)
-        for slot in self._active:
-            self.cache.ensure_capacity(slot, int(self.cache.offsets[slot]))
+        if self._paged:
+            # page-by-page growth: a fresh page only when a row's write
+            # position crosses a page boundary (reserved at admission)
+            for slot in self._active:
+                self.cache.ensure_capacity(slot,
+                                           int(self.cache.offsets[slot]))
         tok_in = np.zeros((self.cache.num_slots, 1), np.int32)
         for slot, req in self._active.items():
             tok_in[slot, 0] = req.last_token
@@ -635,6 +958,140 @@ class Engine:
         self._stats.observe("decode_ms", (time.monotonic() - t0) * 1e3)
         self._stats.incr("decode_steps")
         self._stats.incr("slot_steps", self.cache.num_slots)
+        self._stats.incr("slot_steps_active", n_active)
+        self._stats.set_value("active_slots", len(self._active))
+
+    # ---------------- speculative decoding (speculation_k > 0) ----------
+    def _can_speculate(self):
+        """Speculation engages when every active request samples greedily
+        without a repetition penalty (acceptance is an exact argmax match)
+        and the verify window's K+1 writes fit every slot's table;
+        otherwise the iteration takes the plain step, and the draft's
+        teacher forcing (`_known_token`) absorbs the lag."""
+        if not self._spec:
+            return False
+        if self.adapter_pool is not None and any(
+                r.adapter_id is not None for r in self._active.values()):
+            # the draft has no adapter pool: its proposals would come from
+            # the base while the target verifies under the adapter
+            return False
+        K = self._spec_k
+        for req in self._active.values():
+            sp = req.sampling
+            if not sp.greedy or sp.uses_penalty:
+                return False
+            if int(self.cache.offsets[req.slot]) + K >= self.cache.capacity:
+                return False
+        return True
+
+    @staticmethod
+    def _known_token(req, pos):
+        """The true token at `pos` of a request's sequence (prompt, then
+        the emitted tokens): the teacher-forced input of draft positions
+        the engine has already committed."""
+        if pos < req.prompt.size:
+            return int(req.prompt[pos])
+        return int(req.tokens[pos - req.prompt.size])
+
+    def _spec_step(self):
+        """One speculative window over the continuous batch:
+
+        1. **draft**: K ``[num_slots, 1]`` steps of the draft model on its
+           mirror cache propose K tokens a slot.  Positions the engine
+           already knows (a draft lagging after a bonus token or a plain
+           step) are teacher-forced, so the draft re-converges;
+        2. **verify**: ONE ``[num_slots, K+1]`` target call scores
+           ``[last_token, d_1..d_K]``; its K+1 argmaxes are the true next
+           tokens at every window position;
+        3. **accept + rollback**: per slot, the leading run of drafts
+           matching the target is accepted, plus the bonus token after it
+           (a+1 tokens a window).  Offsets move to the accept boundary
+           and `PagedKVCache.rollback` returns the pages wholly past the
+           new horizon; rejected K/V left below it stays behind the
+           causal bound until overwritten.
+
+        The host reads one argmax after each draft step and one after the
+        verify call, and nothing else."""
+        K = self._spec_k
+        ns = self.cache.num_slots
+        active = dict(self._active)
+        n_active = len(active)
+        self._max_active = max(self._max_active, n_active)
+        self._stats.set_value("max_active_slots", self._max_active)
+        tgt_off = {s: int(self.cache.offsets[s]) for s in active}
+        d_off0 = {s: int(self.draft_cache.offsets[s]) for s in active}
+        draft = self.scfg.draft_model
+
+        # --- draft: K proposer steps on the mirror cache ---
+        t0 = time.monotonic()
+        prev_out = {s: 0 for s in active}
+        draft_out = {s: [] for s in active}
+        for j in range(K):
+            tok_in = np.zeros((ns, 1), np.int32)
+            for s, req in active.items():
+                p = d_off0[s] + j
+                tok_in[s, 0] = self._known_token(req, p) \
+                    if p <= tgt_off[s] else prev_out[s]
+                self.draft_cache.ensure_capacity(s, p)
+            logits = draft(torch.tensor(tok_in, device=self.device),
+                           caches=self.draft_cache.layer_caches())
+            self.draft_cache.advance(active.keys())
+            toks = torch.argmax(logits[:, -1, :], dim=-1).cpu().numpy()
+            for s in active:
+                prev_out[s] = int(toks[s])
+                draft_out[s].append(int(toks[s]))
+        self._stats.observe("spec_draft_ms", (time.monotonic() - t0) * 1e3)
+
+        # --- verify: one batched K+1 target call ---
+        t0 = time.monotonic()
+        tok_in = np.zeros((ns, K + 1), np.int32)
+        caps = {}
+        proposed = 0
+        for s, req in active.items():
+            # a lagging draft yields fewer usable proposals this window;
+            # the tail positions are padding the accept cap rejects
+            lag = tgt_off[s] - d_off0[s]
+            cap = max(0, K - lag)
+            caps[s] = cap
+            tok_in[s, 0] = req.last_token
+            for i in range(1, K + 1):
+                tok_in[s, i] = draft_out[s][lag + i - 1] \
+                    if i <= cap else req.last_token
+            proposed += cap
+            self.cache.ensure_capacity(s, tgt_off[s] + K)
+        logits = self.model(torch.tensor(tok_in, device=self.device),
+                            caches=self.cache.layer_caches())
+        t = torch.argmax(logits, dim=-1).cpu().numpy()      # [ns, K+1]
+        self._stats.observe("spec_verify_ms", (time.monotonic() - t0) * 1e3)
+
+        # --- accept mask + rollback ---
+        t0 = time.monotonic()
+        accepted = 0
+        for s, req in active.items():
+            a = 0
+            while a < caps[s] and tok_in[s, a + 1] == t[s, a]:
+                a += 1
+            accepted += a
+            for i in range(a + 1):
+                self._append_token(req, int(t[s, i]))
+                if req.slot is None:    # eos/length/deadline mid-window
+                    break               # truncates the rest of it
+            if req.slot is None:
+                continue                # _release returned the pages
+            new_off = tgt_off[s] + a + 1
+            self.cache.set_offset(s, new_off)
+            self.cache.rollback(s, new_off)
+            # the draft cache is valid through the accepted prefix it
+            # wrote itself (never past what IT cached this window)
+            d_new = min(d_off0[s] + K, new_off)
+            self.draft_cache.set_offset(s, d_new)
+            self.draft_cache.rollback(s, d_new)
+        self._stats.observe("spec_rollback_ms",
+                            (time.monotonic() - t0) * 1e3)
+        self._stats.incr("spec_windows")
+        self._stats.incr("spec_proposed_tokens", proposed)
+        self._stats.incr("spec_accepted_tokens", accepted)
+        self._stats.incr("slot_steps", ns)
         self._stats.incr("slot_steps_active", n_active)
         self._stats.set_value("active_slots", len(self._active))
 
@@ -761,13 +1218,18 @@ class Engine:
         if self._tick is not None:
             self._tick.flush_to_host()
         self._mut += 1          # slot membership changed: the tick rebuilds
-        if self._active.get(req.slot) is req:
+        in_active = self._active.get(req.slot) is req
+        if in_active:
             del self._active[req.slot]
-        # paged requests hold pages from admission on, prefill included
-        self.cache.release(req.slot)
-        if req.prefix_nodes and self.prefix_tree is not None:
-            self.prefix_tree.release(req.prefix_nodes)
-            req.prefix_nodes = []
+        if in_active or self._paged:
+            # paged requests hold pages from admission on (prefill
+            # included); a slot-layout request owns its slot once active
+            self.cache.release(req.slot)
+            if self._spec:
+                self.draft_cache.release(req.slot)
+            if req.prefix_nodes and self.prefix_tree is not None:
+                self.prefix_tree.release(req.prefix_nodes)
+                req.prefix_nodes = []
         if self.adapter_pool is not None:
             self.adapter_pool.clear_row(req.slot)
             if req.adapter_id is not None:

@@ -19,7 +19,8 @@ paddle_tpu/serving/paged_kv.py).
 
 Admission-time reservations make growth safe: `allocate` records how many
 pages the request may still claim, and `available_pages` subtracts them,
-so `ensure_capacity` can never fail mid-decode.
+so `ensure_capacity` can never fail mid-decode; `rollback` (speculative
+decoding) returns the pages of a rejected tail and re-credits them.
 
 The model writes K/V into the pools in place (``incubate.nn.functional``),
 so a prefill view shares the pool tensors and `absorb_view` has nothing to
@@ -177,6 +178,34 @@ class PagedKVCache:
     def set_offset(self, slot, off):
         self.offsets[slot] = int(off)
         self._dirty = True
+
+    def rollback(self, slot, new_off):
+        """Speculative decoding's accept-mask rollback: after a verify
+        window wrote K/V past the accepted tokens, private pages lying
+        wholly past the new write horizon (`new_off` is where the next
+        token lands, so its page stays) return to the free list and the
+        slot's reservation is re-credited, one for one, so
+        ``available_pages`` is unchanged and `ensure_capacity` still
+        cannot fail.  The rejected tokens' K/V in the pages that remain
+        stay behind the causal bound until overwritten.  Tree-owned
+        (shared) pages are never touched: they hold prompt tokens, always
+        behind the horizon.  The host table row is zeroed past the kept
+        pages and the cache marked dirty, so the persistent
+        ``device_table`` is rewritten at the next `_flush`."""
+        shared = self._shared.get(slot, 0)
+        keep = max(int(new_off) // self.page_size + 1, shared)
+        priv = self._private[slot]
+        while shared + len(priv) > keep:
+            idx = shared + len(priv) - 1
+            page = priv.pop()
+            if page != self.table[slot, idx]:   # pragma: no cover
+                raise RuntimeError(
+                    f"slot {slot} page-table tail {self.table[slot, idx]}"
+                    f" does not match private ownership {page}")
+            self.table[slot, idx] = 0
+            self._free_pages.append(page)
+            self._reserved[slot] += 1
+            self._dirty = True
 
     def advance(self, slots):
         """Bump the offsets of `slots` by one decoded token."""

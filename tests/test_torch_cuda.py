@@ -2069,3 +2069,103 @@ def test_step_metrics_read_the_device_step_on_card(card):
     mfu = 1e12 / (snap["step_time_ms"]["p50"] / 1e3) / 1e15
     assert abs(snap["mfu"] - mfu) < 0.1 * mfu
     assert snap["memory"]["device0"]["peak_bytes"] > 0
+
+
+def _llama_on(card, seed, **over):
+    """A tiny fp32 Llama built on the CPU and copied onto the card (the
+    generators differ: a seed alone gives other weights there)."""
+    cfg = llama_config("tiny", max_seq_len=64, **over)
+    cpu = LlamaForCausalLM(cfg, device="cpu", seed=seed).eval()
+    on_card = LlamaForCausalLM(cfg, device=card, seed=seed).eval()
+    on_card.load_state_dict(cpu.state_dict())
+    return cpu, on_card
+
+
+@pytest.mark.cuda
+def test_spec_and_slot_engines_on_card_equal_cpu_plain(card):
+    """Speculation (K 3, the target as its own draft, fp32 and int8
+    pools) and the slot layout on the card give the CPU plain engine's
+    greedy tokens; the draft steps launch paged decode, every model call
+    the RMS-norm kernel, and both caches return every page."""
+    import warnings
+    cpu, on_card = _llama_on(card, 4)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, 512, (n,)).astype(np.int32)
+               for n in (7, 30, 19)]
+
+    def serve(model, cfg):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")   # the tick's static fallback
+            with Engine(model, cfg) as eng:
+                futs = [eng.submit(p, max_new_tokens=9) for p in prompts]
+                outs = [f.result(timeout=300).output_ids for f in futs]
+                return outs, eng.stats(), eng
+
+    want, _, _ = serve(cpu, ServingConfig(num_slots=2))
+    for kw in (dict(speculation_k=3, draft_model=on_card),
+               dict(speculation_k=3, draft_model=on_card,
+                    cache_dtype="int8"),
+               dict(kv_layout="slots")):
+        kernels.reset_launch_counts()
+        got, st, eng = serve(on_card, ServingConfig(num_slots=2, **kw))
+        counts = kernels.launch_counts()
+        if kw.get("cache_dtype") != "int8":
+            for a, b in zip(got, want):
+                np.testing.assert_array_equal(a, b)
+        assert counts["rms_norm"] > 0
+        if "speculation_k" in kw:
+            assert st["spec_windows"] > 0
+            assert st["spec_acceptance_rate"] > 0.5
+            name = "paged_decode_int8" if "cache_dtype" in kw \
+                else "paged_decode"
+            assert counts[name] >= 2 * 3 * st["spec_windows"], counts
+            assert eng.draft_cache.pages_in_use == 0
+            assert eng.cache.pages_in_use == \
+                eng.prefix_tree.cached_pages()
+
+
+class _FailOnce(torch.nn.Module):
+    """A model whose next forward raises once ``arm`` is set."""
+
+    def __init__(self, inner):
+        super().__init__()
+        self.inner = inner
+        self.config = inner.config
+        self.arm = False
+
+    def forward(self, ids, caches=None):
+        if self.arm:
+            self.arm = False
+            raise RuntimeError("injected model failure")
+        return self.inner(ids, caches=caches)
+
+
+@pytest.mark.cuda
+def test_restarts_keep_memory_flat_on_card(card):
+    """Three crashes in a row, each followed by a served request through
+    the rebuilt cache and a newly captured tick: the memory allocated
+    after each stays within 1% of the level after the first, so the old
+    cache, tick and graphs are freed before the new ones are allocated."""
+    _, on_card = _llama_on(card, 4)
+    model = _FailOnce(on_card)
+    prompt = np.arange(1, 20, dtype=np.int32)
+    eng = Engine(model, ServingConfig(num_slots=2,
+                                      max_scheduler_restarts=3)).start()
+    try:
+        want = eng.generate(prompt, max_new_tokens=6).output_ids
+        levels = []
+        for _ in range(3):
+            model.arm = True
+            fut = eng.submit(prompt, max_new_tokens=6)
+            assert "injected" in str(fut.exception(timeout=60))
+            out = eng.generate(prompt, max_new_tokens=6)
+            np.testing.assert_array_equal(out.output_ids, want)
+            torch.cuda.synchronize()
+            levels.append(torch.cuda.memory_allocated(card))
+        st = eng.stats()
+        assert eng._tick.steps and st["tick_compiled_hits"] > 0
+    finally:
+        eng.shutdown()
+    assert st["scheduler_restarts"] == 3
+    for lv in levels[1:]:
+        assert abs(lv - levels[0]) <= 0.01 * levels[0], levels

@@ -5,6 +5,8 @@ the dropouts off and with attention dropout 0.1 inside the flash kernels
 (the JAX side's Pallas kernels in interpret mode, both sides on one
 seed); and its layers (``layer_norm``, ``gelu``, ``Dropout``) against the
 JAX package's ops."""
+import warnings
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -168,15 +170,29 @@ def test_gpt_draws_its_own_seeds():
 
 
 def test_gpt_refuses_what_is_not_ported():
-    """What GPT serving still refuses: the engine's speculation (ROADMAP
-    A4) and the dense slot layout (A6).  ``caches=`` and ``use_recompute``
-    are ported (tests/test_torch_gpt_serving.py,
-    tests/test_torch_generation.py)."""
-    m = GPTForCausalLM(gpt_config("gpt2-124m", **TINY), device="cpu")
-    for kw in (dict(speculation_k=2), dict(draft_model=m),
+    """GPT serves with speculation and with the dense slot layout (ROADMAP
+    A4, A6): greedy tokens equal `generate`'s in both.  What the engine
+    still refuses is a KV capacity past GPT's learned positions: with
+    speculation it is max_seq_len + speculation_k in whole pages, held
+    against the target's table and the draft's
+    (tests/test_torch_spec_serving.py holds both against the JAX engine)."""
+    m = GPTForCausalLM(gpt_config("gpt2-124m", **TINY), device="cpu").eval()
+    d = GPTForCausalLM(gpt_config("gpt2-124m", **dict(TINY, num_layers=1)),
+                       device="cpu", seed=1).eval()
+    prompt = np.arange(3, 12, dtype=np.int32)
+    want = m.generate(torch.from_numpy(prompt[None].astype(np.int64)),
+                      6)[0, prompt.size:].numpy()
+    for kw in (dict(speculation_k=2, draft_model=d, max_seq_len=48),
                dict(kv_layout="slots")):
-        with pytest.raises(NotImplementedError):
-            Engine(m, ServingConfig(**kw))
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")   # the tick's static fallback
+            with Engine(m, ServingConfig(num_slots=2, **kw)) as eng:
+                out = eng.generate(prompt, max_new_tokens=6)
+                st = eng.stats()
+        np.testing.assert_array_equal(out.output_ids, want)
+        assert (st["spec_windows"] > 0) == ("speculation_k" in kw)
+    with pytest.raises(ValueError, match="learned positions"):
+        Engine(m, ServingConfig(speculation_k=2, draft_model=d))
 
 
 def test_gpt_o2_bf16_trains_on_cpu():

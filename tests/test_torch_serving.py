@@ -1,8 +1,10 @@
 """The port's serving engine (paddle_tpu_torch/serving/): greedy outputs
 identical to the JAX engine on the same tiny Llama, plus the scheduler's
 own contract: prefix reuse, seeded sampling, admission, cancellation,
-deadlines, shutdown and the options not ported yet (quantized KV and
-LoRA adapters: tests/test_torch_kv_quant.py, test_torch_lora_serving.py)."""
+deadlines, shutdown and the option not ported yet, a disaggregation role
+(quantized KV and LoRA adapters: tests/test_torch_kv_quant.py,
+test_torch_lora_serving.py; speculation, the slot layout and resilience:
+test_torch_spec_serving.py, test_torch_serving_resilience.py)."""
 import numpy as np
 import pytest
 import torch
@@ -134,8 +136,7 @@ def test_admission_cancel_deadline_shutdown(model):
         Engine(model).start().submit(np.arange(64))
 
 
-@pytest.mark.parametrize("kw", [
-    dict(speculation_k=2), dict(role="prefill"), dict(kv_layout="slots")])
+@pytest.mark.parametrize("kw", [dict(role="prefill")])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError):
         ServingConfig(**kw).validate()
