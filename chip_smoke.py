@@ -68,9 +68,9 @@ last line:
             requests all greedy with (a) the target as its own draft (its
             own draft cache), (b) a 2-layer early-exit draft holding
             copies of the target's embedding, layers 0-1, final norm and
-            head, (c) (a) with int8 pools, and (d) the serve traffic as it
-            is (two seeded-sampled requests: their iterations take the
-            plain step); each against the plain compiled lane on the same
+            head, (c) (a) with int8 pools on the first 4 requests, and
+            (d) the serve traffic as it is (two seeded-sampled requests:
+            their iterations take the plain step); each against the plain compiled lane on the same
             requests: greedy tokens equal before each request's first
             near tie (the plain lane's top-two logit margin under tau =
             2 x the largest logit difference between the plain step's
@@ -100,6 +100,23 @@ last line:
             serve traffic: greedy tokens equal the paged lane's under the
             tie rule (tau from the slot lane's replay), decode ms/step,
             and exactly in fp32 at 2 layers
+5e. serve-telemetry  the same model: (a) the serve traffic under the
+            compiled tick with request tracing on (FLAGS_trace_dir, every
+            trace kept) and the exporter on: each request's trace one
+            engine.request root with its engine.queue, engine.prefill and
+            engine.decode spans, one decision, one winner;
+            tools/trace_analyze.py --strict and check_telemetry --trace /
+            --trace-report on the spools; the merged chrome trace (a span
+            event each, a flow for each cross-process parent); greedy
+            tokens equal the serve phase's (the tie rule where they part);
+            every decode step a compiled tick; tracing's cost: the serve
+            prompts' first 64 tokens, all greedy, tracing off / on / on /
+            off; (b) the registry's exposition through check_telemetry
+            --serving-tick --require-series (the families the run moves)
+            and the exporter's file through --snapshots; (c) a 2-layer
+            model at 7B width whose decode forward calls .item(): one
+            TickFallbackWarning, fallbacks counted, no compiled tick, the
+            flag-off lane's tokens, memory within 1 MiB of its run's
 6. parity   a 2-layer model at the 7B widths in fp32 with the same
             weights served on the CPU (plain versions, the tick's eager
             body) and on the card (kernels, the tick's graphs): greedy and
@@ -202,7 +219,8 @@ last line:
             synchronous save's ms, how long an async ModelCheckpoint
             blocks the step loop, ``restore_latest``'s ms; the newest
             checkpoint truncated, the older one restored (equal to a
-            synchronous checkpoint of its state); (d) fit's step ms p50
+            synchronous checkpoint of its state), the exposition's ckpt
+            families through check_telemetry; (d) fit's step ms p50
             beside the hand lane's, goodput (input-bound share, starved
             steps) and the device busy share of 3 fit steps
 18. fit-llama  Llama-2 7B width, 8 of 32 layers (train's cut), bf16 O2,
@@ -211,8 +229,9 @@ last line:
             for 2 + 4 steps: losses equal to the hand-driven compiled lane
             bit for bit, launches a replay equal (17 RMS norm forward and
             backward, 32 rope, 8 of each flash kernel, 75 Adam); fit's and
-            the hand lane's step ms p50, the busy share of 3 fit steps.
-            No checkpoint (~24 GB of state)
+            the hand lane's step ms p50, the busy share of 3 fit steps;
+            the exposition's io family through check_telemetry.  No
+            checkpoint (~24 GB of state)
 19. sentinel-gpt2  GPT-2 124M, nothing cut, dropout 0.1, B8 x S1024,
             through ``Model.fit`` on CompiledTrainStep under the training
             sentinel (checks and anchors every 8 steps): (a) 16 steps on
@@ -221,7 +240,9 @@ last line:
             each; (e) that run's train.step_time_ms, tokens/s and
             train.mfu against the phase's CUDA-event step times (MFU
             within 2 points, at most 1), the exporter's lines through
-            ``tools/check_telemetry.py --snapshots``; (d) a replay with and
+            ``tools/check_telemetry.py --snapshots``, the exposition's jit
+            and data families through ``--prometheus --data``; (d) a
+            replay with and
             without the sentinel, an anchor in host memory and through
             CheckpointManager, a rollback; (b) a finite loss spike the data
             carries (batch 20 of 32): one rollback into the captured
@@ -247,6 +268,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import os
 import shutil
@@ -256,6 +278,7 @@ import sys
 import tempfile
 import time
 import types
+import warnings
 
 import numpy as np
 import torch
@@ -288,6 +311,7 @@ from paddle_tpu_torch.models import (GPTForCausalLM, LlamaForCausalLM,
 from paddle_tpu_torch.nn import CrossEntropyLoss
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+from paddle_tpu_torch.observability import exporter, registry, tracing
 from paddle_tpu_torch.framework import CompiledTrainStep
 from paddle_tpu_torch import optimizer as optim
 from paddle_tpu_torch.optimizer import AdamW
@@ -298,14 +322,18 @@ from paddle_tpu_torch.serving import (Engine, EngineShutdownError,
                                       PagedKVCache, SamplingParams,
                                       SchedulerStallError, ServingConfig,
                                       SlotKVCache)
-from paddle_tpu_torch.serving.compiled_tick import CompiledServingTick
+from paddle_tpu_torch.serving import stats as sstats
+from paddle_tpu_torch.serving.compiled_tick import (CompiledServingTick,
+                                                    TickFallbackWarning)
 from paddle_tpu_torch.utils import flags as port_flags
+from paddle_tpu_torch.utils import monitor
 
 HBM_BYTES_PER_S = 3.35e12                   # H100 SXM data sheet
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
             torch.float32: 67e12}           # dense; fp32 outside tensor cores
 PHASES = ("device", "build", "kernels", "serve", "serve-lora-int8",
-          "serve-tick", "serve-spec", "serve-resilience", "parity", "train", "train-parity",
+          "serve-tick", "serve-spec", "serve-resilience", "serve-telemetry",
+          "parity", "train", "train-parity",
           "train-compiled-parity", "train-gpt2", "gpt2-parity", "attn-ops",
           "train-optimizers", "serve-gpt", "gpt-parity", "generate-gpt",
           "train-gpt2-recompute", "fit-gpt2", "fit-llama", "sentinel-gpt2",
@@ -1688,7 +1716,7 @@ def profile_decode(model, dev, vocab, tick=True, tag="profile", top=12):
                 for f in futs:
                     f.result(timeout=300)
                 wall_ms = (time.monotonic() - t0) * 1e3
-            st = eng.stats()
+            st = serve_stats(eng)
     finally:
         port_flags.set_flags({"FLAGS_compiled_tick": True})
     rows = device_rows(prof)
@@ -1732,6 +1760,74 @@ def profile_long(model, dev, vocab, prompt_len=900, steps=16):
         log(f"[profile-long]   {ms:9.3f} ms  {count:6d}x  {key[:90]}")
 
 
+class ServeRecord:
+    """Every observation an engine makes through
+    ``paddle_tpu_torch.serving.stats.observe``, kept by the script in lists
+    (the registry's histograms keep bucket counts, three a decade, so
+    their percentiles are estimates) and cleared when an engine's start
+    resets the serving families: the exact decode, tick, TTFT and prefill
+    percentiles the serving phases report.  `install` wraps the two
+    module functions for the script's run; the engine keeps no list."""
+
+    def __init__(self):
+        self.hists = {}
+        self._installed = False
+
+    def install(self):
+        if self._installed:
+            return
+        self._installed = True
+        observe, reset = sstats.observe, sstats.reset_serving_stats
+
+        def record(name, value):
+            self.hists.setdefault(name, []).append(float(value))
+            observe(name, value)
+
+        def reset_all():
+            self.hists = {}
+            reset()
+        sstats.observe = record
+        sstats.reset_serving_stats = reset_all
+
+
+SERVE_RECORD = ServeRecord()
+#: the engine's histograms (`serving.stats` names)
+SERVE_HISTS = ("ttft_ms", "prefill_ms", "prefill_chunk_ms", "decode_ms",
+               "tick_ms", "spec_draft_ms", "spec_verify_ms",
+               "spec_rollback_ms", "adapter.adapter_load_ms")
+
+
+def serve_stats(eng):
+    """``eng.stats()`` (the registry's ``serving_stats()``, read before the
+    next engine starts) with, from `SERVE_RECORD`, each histogram's exact
+    ``_avg`` / ``_p50`` / ``_p99`` (None before its first observation)
+    and ``prefill_calls`` (one ``prefill_ms`` observation a prefill model
+    call), and from the registry the raw ``slot_steps`` /
+    ``slot_steps_active`` counters and the per-adapter series of
+    ``requests_routed_adapter`` as ``requests_routed_adapter_by_adapter``."""
+    st = dict(eng.stats())
+    for name in SERVE_HISTS:
+        vals = np.asarray(SERVE_RECORD.hists.get(name, ()), np.float64)
+        key = name.rsplit(".", 1)[-1]
+        for suffix, fn in (("_avg", np.mean), ("_p50", np.median),
+                           ("_p99", lambda a: np.percentile(a, 99))):
+            st[key + suffix] = float(fn(vals)) if vals.size else None
+    st["prefill_calls"] = len(SERVE_RECORD.hists.get("prefill_ms", ()))
+    for name in ("slot_steps", "slot_steps_active"):    # occupancy's parts
+        st[name] = monitor.get_monitor_value("serving." + name)
+    prefix = "serving.adapter.requests_routed_adapter{adapter="
+    st["requests_routed_adapter_by_adapter"] = {
+        k[len(prefix):-1]: int(v) for k, v in monitor.all_stats().items()
+        if k.startswith(prefix)}
+    return st
+
+
+def jit_fallbacks():
+    """The process's ``jit.compiled_step_fallback`` count: eager steps a
+    compiled train step took because it was not eligible."""
+    return monitor.get_monitor_value("jit.compiled_step_fallback")
+
+
 def build_7b(dev):
     cfg = llama_config("llama2-7b")
     t0 = time.monotonic()
@@ -1749,10 +1845,10 @@ def serve_run(model, dev, scfg, prompts, sampling, adapter_ids=None,
     FLAGS_compiled_tick set to ``tick``: returns (outputs, stats, launch
     counts, wall s, peak GB, the engine); every request must give
     ``max_new`` in-vocab tokens, and with the tick on every decode step
-    must be a compiled tick (no fallback) unless the configuration blocks
-    the tick statically (speculation, the slot layout: one
-    TickFallbackWarning at start).  ``bind(engine)`` runs before the
-    engine starts."""
+    must be a compiled tick (no fallback, none latched at run time)
+    unless the configuration blocks the tick statically (speculation, the
+    slot layout: one TickFallbackWarning at start, no compiled tick).
+    ``bind(engine)`` runs before the engine starts."""
     vocab = model.config.vocab_size
     adapter_ids = adapter_ids or [None] * len(prompts)
     port_flags.set_flags({"FLAGS_compiled_tick": tick})
@@ -1772,14 +1868,21 @@ def serve_run(model, dev, scfg, prompts, sampling, adapter_ids=None,
     finally:
         port_flags.set_flags({"FLAGS_compiled_tick": True})
     counts = kernels.launch_counts()
-    st = eng.stats()
+    st = serve_stats(eng)
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     hits, falls = st["tick_compiled_hits"], st["tick_fallbacks"]
-    static = eng._tick is not None and eng._tick.fallback_reason
+    # a static blocker is known from the configuration; a fallback latched
+    # at run time (a mode's first call failed) fails the run
+    static = eng._tick is not None and eng._tick._static_blocker()
+    reason = eng._tick is not None and eng._tick.fallback_reason
+    if tick and static and (hits or reason != static[1]):
+        raise AssertionError(f"the tick is blocked by {static[1]!r}, yet "
+                             f"{hits} compiled ticks, fallback {reason!r}")
     if tick and not static and (hits == 0 or hits != st["decode_steps"]
-                                or falls):
+                                or falls or reason):
         raise AssertionError(f"compiled ticks {hits} of {st['decode_steps']}"
-                             f" decode steps, fallbacks {falls}")
+                             f" decode steps, fallbacks {falls}, fallback "
+                             f"{reason!r}")
     if not tick and (hits or eng._tick is not None):
         raise AssertionError(f"FLAGS_compiled_tick off, yet {hits} ticks")
     for o in outs:
@@ -1901,7 +2004,7 @@ def phase_serve(dev, model):
         f"graphs {fmt_graphs(eng)}")
     profile_decode(model, dev, cfg.vocab_size)
     profile_long(model, dev, cfg.vocab_size)
-    return counts, st
+    return counts, st, outs
 
 
 def adapter_spec(model, seed, rank, targets, alpha=None, std=0.02):
@@ -2048,7 +2151,7 @@ def lane_switch_run(model, scfg, prompts, sampling, ids, want):
                  for p, s, a in list(zip(prompts, sampling, ids))[4:]]
         outs = [f.result(timeout=900) for f in futs]
         xout = xfut.result(timeout=900)
-    st = eng.stats()
+    st = serve_stats(eng)
     counts = kernels.launch_counts()
     for w, g in zip(want, outs):
         if not np.array_equal(w.output_ids, g.output_ids):
@@ -2143,15 +2246,15 @@ def early_exit_draft(model, layers, dev):
     return draft
 
 
-def hist(eng, name):
-    return eng._stats._hists.get(name, [])
+def hist(name):
+    return SERVE_RECORD.hists.get(name, [])
 
 
 def decode_ms_per_token(eng, st, n_requests):
     """Decode-side ms a generated token: the decode steps' and the
     speculative windows' wall time over the tokens they emitted (each
     request's first token comes from its prefill)."""
-    ms = sum(sum(hist(eng, n)) for n in (
+    ms = sum(sum(hist(n)) for n in (
         "decode_ms", "spec_draft_ms", "spec_verify_ms", "spec_rollback_ms"))
     return ms / max(st["tokens_generated"] - n_requests, 1)
 
@@ -2417,7 +2520,7 @@ def spec_line(tag, lane, eng, st, wall, peak_gb, n_req, plain_ms):
     window, acceptance, the three phases' averages, ms a generated token
     against the plain compiled lane's, TTFT, tokens/s, peak memory."""
     windows = st["spec_windows"]
-    spec_ms = sum(sum(hist(eng, n)) for n in (
+    spec_ms = sum(sum(hist(n)) for n in (
         "spec_draft_ms", "spec_verify_ms", "spec_rollback_ms"))
     per_tok = decode_ms_per_token(eng, st, n_req)
     win = ""
@@ -2513,8 +2616,8 @@ def exact_lanes(tag, dev, prompts, layers=2, gpt=False):
 def phase_serve_spec(dev, model):
     """Llama-2 7B, bf16, 4 slots, context 1024, K 4, the serve phase's 8
     requests with 32 new tokens: (a) the target as its own draft (own draft
-    cache), (b) a 2-layer early-exit draft, (c) (a) with int8 pools, all
-    greedy; (d) the serve traffic as it is (two seeded-sampled requests:
+    cache), (b) a 2-layer early-exit draft, (c) (a) with int8 pools on
+    the first 4 requests, all greedy; (d) the serve traffic as it is (two seeded-sampled requests:
     speculation disengages while they decode).  Greedy tokens against the
     plain compiled lane's under the tie rule; acceptance, pages, launches,
     ms a window and a token, peak memory.  Then the exact fp32 lanes."""
@@ -2536,9 +2639,10 @@ def phase_serve_spec(dev, model):
     draft2 = early_exit_draft(model, 2, dev)
     # the agreeing lanes' target is wrapped to record each rejection's gap
     # in the verify logits (and is its own draft, wrapped alike)
+    # (c) serves the first 4 requests only: the script's time budget
     lanes = (("(a) agreeing", None, "bfloat16", greedy, "bf16"),
              ("(b) early exit", draft2, "bfloat16", greedy, "bf16"),
-             ("(c) agreeing int8", None, "int8", greedy, "int8"),
+             ("(c) agreeing int8", None, "int8", greedy[:4], "int8"),
              ("(d) serve traffic", model, "bfloat16", sampling, "as-is"))
     results, gaps = {}, {}
     for lane, draft, dtype, samp, ref in lanes:
@@ -2547,11 +2651,14 @@ def phase_serve_spec(dev, model):
             target, dev, ServingConfig(num_slots=4, max_seq_len=SERVE_LEN,
                                        cache_dtype=dtype,
                                        draft_model=draft or target,
-                                       speculation_k=SPEC_K), prompts, samp,
+                                       speculation_k=SPEC_K),
+            prompts[:len(samp)], samp,
             bind=lambda e: setattr(target, "eng", e) if draft is None
             else None)
+        # requests a lane did not serve are not compared (None)
         results[lane] = [o if samp[i].greedy else None
-                         for i, o in enumerate(outs)], st
+                         for i, o in enumerate(outs)] \
+            + [None] * (n - len(outs)), st
         if isinstance(target, VerifyLog):
             rejected = st["spec_proposed_tokens"] - st["spec_accepted_tokens"]
             if target.rejected != rejected:
@@ -2560,7 +2667,7 @@ def phase_serve_spec(dev, model):
                     f"recorded of {rejected}")
             gaps[lane] = np.asarray(target.gaps)
             target.eng = None
-        spec_line(tag, lane, eng, st, wall, peak, n, plain[ref][1])
+        spec_line(tag, lane, eng, st, wall, peak, len(samp), plain[ref][1])
         check_spec_launches(tag, lane, cfg, (draft or target).config, st,
                             counts, quant=dtype == "int8")
         check_pages(tag, lane, eng)
@@ -2742,7 +2849,7 @@ def phase_serve_resilience(dev, model, plain=None, margins=None):
     res = drain_drill(eng, prompts, 32)
     counts = kernels.launch_counts()
     check_drain(tag, res, 32)
-    st = eng.stats()
+    st = serve_stats(eng)
     if st["tick_compiled_hits"] != st.get("decode_steps", 0) or \
             not st.get("decode_steps", 0):
         raise AssertionError(f"[{tag}] drain: {st['tick_compiled_hits']} "
@@ -2800,7 +2907,7 @@ def phase_serve_resilience(dev, model, plain=None, margins=None):
         t1 = time.monotonic()
         out = eng.generate(short, max_new_tokens=8, timeout=300)
         again_s = time.monotonic() - t1
-        st = eng.stats()
+        st = serve_stats(eng)
         graphs = eng._tick.graph_stats()
         captures = 1 if dev.type == "cuda" else 0   # a CPU tick runs eagerly
         if eng._tick is tick0 or graphs.get("greedy", (-1,))[0] != captures:
@@ -2854,7 +2961,7 @@ def phase_serve_resilience(dev, model, plain=None, margins=None):
             eng.generate(short, max_new_tokens=8, timeout=300)
             torch.cuda.synchronize()
             levels.append(torch.cuda.memory_allocated(dev))
-        st = eng.stats()
+        st = serve_stats(eng)
     finally:
         eng.shutdown()
     spread = max(abs(lv - levels[0]) for lv in levels) / levels[0]
@@ -2903,6 +3010,301 @@ def phase_serve_resilience(dev, model, plain=None, margins=None):
     log(f"[{tag}] (6) fp32, 2 layers at 7B width: the slot lane's tokens "
         f"equal the paged lane's for all {n} requests")
     port_flags.set_flags({"FLAGS_flight_recorder_path": ""})
+
+
+def run_check_telemetry(tag, *args):
+    """``tools/check_telemetry.py`` with ``args``; the phase fails unless it
+    exits 0.  Returns its output."""
+    chk = subprocess.run([sys.executable, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tools", "check_telemetry.py"), *args],
+        capture_output=True, text=True, timeout=120)
+    if chk.returncode != 0:
+        raise AssertionError(f"[{tag}] check_telemetry {' '.join(args)}: "
+                             f"{chk.stdout}{chk.stderr}")
+    return chk.stdout
+
+
+def check_exposition(tag, series, *flags):
+    """The registry's Prometheus exposition, written to a file, through
+    ``check_telemetry --prometheus`` with ``flags`` and every name of
+    ``series`` required; returns the file's path."""
+    path = os.path.join(tempfile.mkdtemp(prefix="metrics-"), "metrics.prom")
+    with open(path, "w") as f:
+        f.write(registry.render_prometheus())
+    out = run_check_telemetry(tag, "--prometheus", path, *flags,
+                              "--require-series", *series)
+    log(f"[{tag}] exposition through check_telemetry "
+        f"{' '.join(flags)} with {len(series)} required series: "
+        f"{out.strip().splitlines()[0]}")
+    return path
+
+
+#: the span names of one request's trace (observability/tracing.py)
+TRACE_SPANS = ("engine.request", "engine.queue", "engine.prefill",
+               "engine.decode")
+#: the serving families serve-telemetry's run moves, as the exposition
+#: names them
+TELEMETRY_SERIES = (
+    "serving_requests_submitted", "serving_requests_completed",
+    "serving_tokens_generated", "serving_ttft_ms", "serving_decode_ms",
+    "serving_tick_ms", "serving_tick_compiled_hits", "serving_kv_pages_peak",
+    "serving_kv_pages_in_use", "serving_prefix_cache_hits",
+    "serving_request_tokens", "serving_trace_spans",
+    "serving_trace_decisions")
+
+
+def check_traces(tag, merged, n):
+    """Every one of ``n`` traces: one decision, one ``engine.request``
+    root and its ``engine.queue`` / ``engine.prefill`` / ``engine.decode``
+    children, the root the one winner."""
+    traces = merged["traces"]
+    if len(traces) != n:
+        raise AssertionError(f"[{tag}] {len(traces)} traces for {n} requests")
+    for tr in traces:
+        spans = tr.get("spans") or []
+        roots = [s for s in spans if s["parent"] is None]
+        winners = [s for s in spans if s.get("winner")]
+        names = sorted(s["name"] for s in spans)
+        if tr["decision_count"] != 1 or names != sorted(TRACE_SPANS) or \
+                len(roots) != 1 or roots[0]["name"] != "engine.request" or \
+                [w["span"] for w in winners] != [roots[0]["span"]] or \
+                any(s["parent"] != roots[0]["span"] for s in spans
+                    if s is not roots[0]):
+            raise AssertionError(f"[{tag}] trace {tr['trace_id']}: "
+                                 f"{tr['decision_count']} decisions, spans "
+                                 f"{[(s['name'], s['parent']) for s in spans]}")
+
+
+class HostRead(torch.nn.Module):
+    """A model whose decode forward reads one value to the host (a
+    ``.item()``), which one captured tick cannot hold."""
+
+    def __init__(self, inner):
+        super().__init__()
+        self.inner = inner
+        self.config = inner.config
+        self.reads = 0
+
+    def forward(self, ids, caches=None):
+        logits = self.inner(ids, caches=caches)
+        if ids.shape[1] == 1:
+            float(logits[0, -1, 0].item())                  # the host read
+            self.reads += 1
+        return logits
+
+
+def allocated_and_workspaces(dev):
+    """(``memory_allocated`` without cuBLAS's workspaces, the workspaces'
+    bytes) after a collection.  torch keeps a cuBLAS workspace for each
+    stream cuBLAS ran on (32 MiB on an H100) for the process's life; they
+    are read, then cleared, so that the next lane starts with none."""
+    gc.collect()
+    torch.cuda.synchronize()
+    raw = torch.cuda.memory_allocated(dev)
+    torch._C._cuda_clearCublasWorkspaces()
+    clean = torch.cuda.memory_allocated(dev)
+    return clean, raw - clean
+
+
+#: bytes by which the memory left after the fallback lane may differ from
+#: the flag-off lane's (cuBLAS's workspaces apart)
+FALLBACK_MEM_SLACK = 2 ** 20
+
+
+def tick_fallback_drill(tag, dev, prompts):
+    """serve-telemetry (c): a 2-layer model at 7B width whose decode
+    forward reads the host serves two greedy requests with the defaults,
+    the tick off and then on: one TickFallbackWarning, fallbacks counted
+    and no compiled tick, the requests complete with the flag-off lane's
+    tokens.  Memory (`allocated_and_workspaces`, each engine alive) is
+    read from before the model is built: after the fallback lane it must
+    be within ``FALLBACK_MEM_SLACK`` of the flag-off lane's, and the
+    fallback lane may hold one cuBLAS workspace more than the flag-off
+    lane's, for its engine's one side stream (the tick's warm-up runs
+    there), and no more."""
+    base = allocated_and_workspaces(dev)[0]
+    model = HostRead(LlamaForCausalLM(
+        llama_config("llama2-7b", num_layers=2), device=dev,
+        dtype=torch.bfloat16, seed=2).eval())
+    lanes = {}
+    for tick in (False, True):
+        port_flags.set_flags({"FLAGS_compiled_tick": tick})
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                eng = Engine(model, ServingConfig())
+                with eng:
+                    outs = [eng.generate(p, max_new_tokens=16)
+                            for p in prompts]
+                st = eng.stats()
+        finally:
+            port_flags.set_flags({"FLAGS_compiled_tick": True})
+        mem, ws = allocated_and_workspaces(dev)
+        warned = [w for w in caught
+                  if issubclass(w.category, TickFallbackWarning)]
+        lanes[tick] = (outs, st, mem - base, ws, warned, eng._tick)
+        del eng
+    (off, _, mem_off, ws_off, _, _), (on, st, mem_on, ws_on, warned, tick) \
+        = lanes[False], lanes[True]
+    if len(warned) != 1 or st["tick_fallbacks"] <= 0 or \
+            st["tick_compiled_hits"] != 0 or tick.fallback_reason is None \
+            or tick.steps:
+        raise AssertionError(f"[{tag}] (c) warnings "
+                             f"{[str(w.message) for w in warned]}, "
+                             f"fallbacks {st['tick_fallbacks']}, hits "
+                             f"{st['tick_compiled_hits']}")
+    for a, b in zip(off, on):
+        if b.finish_reason != "length" or \
+                not np.array_equal(a.output_ids, b.output_ids):
+            raise AssertionError(f"[{tag}] (c) {b.output_ids} "
+                                 f"({b.finish_reason}) != flag off "
+                                 f"{a.output_ids}")
+    if abs(mem_on - mem_off) > FALLBACK_MEM_SLACK or ws_off <= 0 or \
+            ws_on - ws_off > ws_off:
+        raise AssertionError(f"[{tag}] (c) memory after the fallback run "
+                             f"{mem_on} B above the model's start (cuBLAS "
+                             f"workspaces {ws_on} B) against the flag-off "
+                             f"run's {mem_off} B (workspaces {ws_off} B)")
+    log(f"[{tag}] (c) a decode forward that reads the host "
+        f"({model.reads} reads): one TickFallbackWarning "
+        f"({str(warned[0].message)[:110]}...), {st['tick_fallbacks']} "
+        f"fallbacks, 0 compiled ticks, {len(on)} requests complete with the "
+        f"flag-off lane's tokens; memory allocated after the run above the "
+        f"model's start {mem_on} B against {mem_off} B flag off "
+        f"({mem_on - mem_off:+d} B, limit {FALLBACK_MEM_SLACK} B), cuBLAS "
+        f"workspaces {ws_on} B against {ws_off} B flag off")
+
+
+def tracing_overhead(tag, model, dev, prompts, trace_dir, pairs=2):
+    """The serve prompts cut to their first 64 tokens, all greedy (every
+    tick the greedy graph: the serve traffic's two seeded requests make
+    its decode times a mixture of the greedy and the mixed replay), in
+    ``pairs`` pairs of lanes with tracing off and on, the order turning
+    each pair (off, on, on, off, ...): each lane's decode ms/step p50 and
+    avg, and on - off."""
+    prompts = [p[:64] for p in prompts]
+    greedy = [SamplingParams()] * len(prompts)
+    lanes = []
+    for rep in range(pairs):
+        for on in ((False, True) if rep % 2 == 0 else (True, False)):
+            tracing.reset()
+            port_flags.set_flags({
+                "FLAGS_trace_dir": trace_dir if on else "",
+                "FLAGS_trace_latency_threshold_ms": 0.0})
+            try:
+                st = serve_run(model, dev, serve_cfg(), prompts, greedy)[1]
+            finally:
+                port_flags.set_flags({
+                    "FLAGS_trace_dir": "",
+                    "FLAGS_trace_latency_threshold_ms": 250.0})
+            if st["trace_spans"] != (4 * len(prompts) if on else 0):
+                raise AssertionError(f"[{tag}] tracing {on}: "
+                                     f"{st['trace_spans']} spans")
+            lanes.append((on, st["decode_ms_p50"], st["decode_ms_avg"]))
+    tracing.reset()
+    p50 = {on: np.mean([p for o, p, _ in lanes if o == on])
+           for on in (False, True)}
+    order = "/".join("on" if o else "off" for o, _, _ in lanes)
+    log(f"[{tag}] (a) tracing's cost, the serve prompts' first 64 tokens, "
+        f"all greedy, lanes {order}: decode ms/step p50 {[round(p, 3) for _, p, _ in lanes]} (avg "
+        f"{[round(a, 3) for _, _, a in lanes]}); on - off "
+        f"{p50[True] - p50[False]:+.3f} ms "
+        f"({100 * (p50[True] - p50[False]) / p50[False]:+.2f}%)")
+
+
+def phase_serve_telemetry(dev, model, plain=None, serve_st=None,
+                          margins=None):
+    """The serve phase's model and traffic with request tracing on: (a)
+    every request's trace, trace_analyze --strict, the merged chrome
+    trace, the tokens against the serve phase's under the tie rule, every
+    decode step a compiled tick; (b) the exposition and the exporter's
+    snapshots through check_telemetry; (c) the tick's fallback."""
+    tag = "serve-telemetry"
+    cfg = model.config
+    prompts, sampling = serve_requests(cfg.vocab_size)
+    if plain is None or serve_st is None:
+        plain, serve_st = serve_run(model, dev, serve_cfg(), prompts,
+                                    sampling)[:2]
+    root = tempfile.mkdtemp(prefix="serve-telemetry-")
+    trace_dir = os.path.join(root, "traces")
+    snap_path = os.path.join(root, "metrics.jsonl")
+    tracing.reset()
+    port_flags.set_flags({"FLAGS_trace_dir": trace_dir,
+                          "FLAGS_trace_latency_threshold_ms": 0.0,
+                          "FLAGS_metrics_export_path": snap_path})
+    try:
+        outs, st, counts, wall, peak_gb, eng = serve_run(
+            model, dev, serve_cfg(), prompts, sampling)
+    finally:
+        port_flags.set_flags({"FLAGS_trace_dir": "",
+                              "FLAGS_trace_latency_threshold_ms": 250.0,
+                              "FLAGS_metrics_export_path": ""})
+        exporter.stop_exporter()        # its last snapshot
+    # (a) the traces
+    merged = tracing.merge_spools(trace_dir)
+    check_traces(tag, merged, len(prompts))
+    merged_path = tracing.write_merged(merged, os.path.join(root,
+                                                            "merged.json"))
+    report_path = os.path.join(root, "report.json")
+    ana = subprocess.run([sys.executable, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tools", "trace_analyze.py"),
+        "--trace-dir", trace_dir, "--strict", "--out", report_path],
+        capture_output=True, text=True, timeout=120)
+    if ana.returncode != 0:
+        raise AssertionError(f"[{tag}] trace_analyze --strict: "
+                             f"{ana.stdout}{ana.stderr}")
+    run_check_telemetry(tag, "--trace", merged_path, "--trace-report",
+                        report_path)
+    chrome = tracing.export_chrome(merged, os.path.join(root, "chrome.json"))
+    with open(chrome) as f:
+        events = json.load(f)["traceEvents"]
+    spans = {s["span"]: s for tr in merged["traces"] for s in tr["spans"]}
+    cross = sum(1 for s in spans.values() if s["parent"] in spans and
+                (spans[s["parent"]]["proc"], spans[s["parent"]]["pid"])
+                != (s["proc"], s["pid"]))
+    flows = sum(1 for e in events if e["ph"] == "s")
+    boxes = sum(1 for e in events if e["ph"] == "X")
+    if flows != cross or boxes != len(spans):
+        raise AssertionError(f"[{tag}] chrome trace: {boxes} spans of "
+                             f"{len(spans)}, {flows} flows for {cross} "
+                             "cross-process parents")
+    greedy = [o if sampling[i].greedy else None for i, o in enumerate(outs)]
+    if any(o is not None and not np.array_equal(o.output_ids,
+                                                plain[i].output_ids)
+           for i, o in enumerate(greedy)):
+        tau, have = tie_margin(tag, model, prompts, plain, "bfloat16",
+                               ("traced tick", dict(rows=4)))
+        check_ties(tag, "traced", plain, greedy, plain_margins(
+            model, prompts, plain, [greedy], "bfloat16",
+            {**have, **(margins or {})}), tau)
+        same = "the serve phase's under the tie rule"
+    else:
+        same = "the serve phase's exactly"
+    spool_bytes = sum(os.path.getsize(os.path.join(trace_dir, f))
+                      for f in os.listdir(trace_dir))
+    log(f"[{tag}] (a) the serve traffic traced (threshold 0: every trace "
+        f"kept) in {wall:.2f} s: {fmt_decode(st)}; tracing off (serve) "
+        f"{serve_st['decode_ms_p50']:.2f} ms/step p50; TTFT p50 "
+        f"{st['ttft_ms_p50']:.1f} ms; {st['trace_spans']} spans, "
+        f"{st['trace_decisions_kept']} of "
+        f"{st['trace_decisions']} decisions kept, {st['trace_spools']} "
+        f"spool(s), {spool_bytes} spool bytes; every trace one root, its "
+        f"queue, prefill and decode spans, one decision, one winner; "
+        f"trace_analyze --strict: {ana.stdout.strip().splitlines()[0]}; "
+        f"chrome trace {boxes} spans, {flows} flows ({cross} cross-process "
+        f"parents); greedy tokens equal {same}; compiled ticks "
+        f"{st['tick_compiled_hits']} of {st['decode_steps']} decode steps; "
+        f"launches rms_norm {counts['rms_norm']}, paged_decode "
+        f"{counts['paged_decode']}; peak {peak_gb:.2f} GB")
+    # (b) the exposition and the exporter's snapshots
+    check_exposition(tag, TELEMETRY_SERIES, "--serving-tick")
+    snaps = run_check_telemetry(tag, "--snapshots", snap_path)
+    log(f"[{tag}] (b) exporter snapshots of the run: "
+        f"{snaps.strip().splitlines()[0]}")
+    tracing_overhead(tag, model, dev, prompts, os.path.join(root, "ab"))
+    shutil.rmtree(root, ignore_errors=True)
+    # (c) the tick's fallback
+    tick_fallback_drill(tag, dev, prompts[:2])
 
 
 def decode_weight_bytes(model, rows=4):
@@ -2974,7 +3376,7 @@ def phase_parity(dev):
             futs = [eng.submit(p, max_new_tokens=8, sampling=sp)
                     for p, sp in subs]
             outs[label] = [f.result(timeout=600).output_ids for f in futs]
-        st = eng.stats()
+        st = serve_stats(eng)
         if st["tick_compiled_hits"] == 0 or st["tick_fallbacks"]:
             raise AssertionError(f"{label}: compiled ticks "
                                  f"{st['tick_compiled_hits']}, fallbacks "
@@ -3153,13 +3555,14 @@ def compiled_lane(tag, model, opt, ids, labels, dev, warmup, steps):
     torch.cuda.reset_peak_memory_stats(dev)
     cs = CompiledTrainStep(lambda x, y: model(x, labels=y)[1], opt,
                            network=model)
+    fallbacks = jit_fallbacks()
     losses, times = [], []
     for _ in range(warmup + steps):
         t1 = time.monotonic()
         losses.append(float(cs(ids, labels)))
         torch.cuda.synchronize()
         times.append((time.monotonic() - t1) * 1e3)
-    if not cs.compiled or cs.fallbacks:
+    if not cs.compiled or jit_fallbacks() != fallbacks:
         raise AssertionError(f"[{tag}] the compiled lane fell back: "
                              f"{cs.fallback_reason}")
     return dict(losses=losses, times=times, cs=cs,
@@ -3384,6 +3787,7 @@ def parity_lane(build, batches, compiled, accum=1, scaler_kw=None):
                            accumulate_grad_batches=accum) \
         if compiled else None
     losses, steps = [], []
+    fallbacks = jit_fallbacks()
     for i, (x, y) in enumerate(batches):
         update = (i + 1) % accum == 0
         loss = cs(x, y, update) if compiled else \
@@ -3394,7 +3798,7 @@ def parity_lane(build, batches, compiled, accum=1, scaler_kw=None):
         steps.append(opt._step_tensor.clone())
     if compiled:
         cs.sync_scaler()
-        if not cs.compiled or cs.fallbacks:
+        if not cs.compiled or jit_fallbacks() != fallbacks:
             raise AssertionError(f"the compiled lane fell back: "
                                  f"{cs.fallback_reason}")
     state = {f"param {n}": p.detach().clone()
@@ -3995,7 +4399,7 @@ def _engine_outputs(model, scfg, subs, max_new=8):
         futs = [eng.submit(p, max_new_tokens=max_new, sampling=sp,
                            adapter_id=a) for p, sp, a in subs]
         outs = [f.result(timeout=600).output_ids for f in futs]
-    st = eng.stats()
+    st = serve_stats(eng)
     if st["tick_compiled_hits"] == 0 or st["tick_fallbacks"] or \
             st["tick_compiled_hits"] != st["decode_steps"]:
         raise AssertionError(f"compiled ticks {st['tick_compiled_hits']} of "
@@ -4331,12 +4735,13 @@ def hand_lane(model, batches, dev):
                            network=model.network)
     staged = [tuple(t.to(dev) for t in b) for b in batches]
     torch.cuda.synchronize()
+    fallbacks = jit_fallbacks()
     losses, times = [], []
     for x, y in staged:
         t0 = time.monotonic()
         losses.append(float(cs(x, y)))
         times.append((time.monotonic() - t0) * 1e3)
-    if not cs.compiled or cs.fallbacks:
+    if not cs.compiled or jit_fallbacks() != fallbacks:
         raise AssertionError(f"the hand lane fell back: {cs.fallback_reason}")
     return losses, times, cs
 
@@ -4347,10 +4752,11 @@ def replay_launches(cs):
     return captures, per
 
 
-def fit_graph(tag, cs):
-    """fit's compiled step ``cs``, which must not have fallen back: its
-    graphs and ``(captures, launches a replay)``."""
-    if not cs or not cs.compiled or cs.fallbacks or \
+def fit_graph(tag, cs, fallbacks):
+    """fit's compiled step ``cs``, which must not have fallen back (no
+    ``jit.compiled_step_fallback`` counted over the fit, ``fallbacks``):
+    its graphs and ``(captures, launches a replay)``."""
+    if not cs or not cs.compiled or fallbacks or \
             cs.fallback_reason is not None:
         raise AssertionError(f"[{tag}] fit's compiled step fell back: "
                              f"{cs and cs.fallback_reason}")
@@ -4472,9 +4878,11 @@ def checkpoint_numbers(model, batch, root):
     nbytes = state_bytes(state)
     del state
     torch.cuda.synchronize()
+    save_sum = monitor.get_monitor_value("ckpt.save_ms.sum")
     t0 = time.monotonic()
     sync.save_now(1)
     sync_ms = (time.monotonic() - t0) * 1e3
+    manager_ms = monitor.get_monitor_value("ckpt.save_ms.sum") - save_sum
     acb = ModelCheckpoint(save_dir=os.path.join(root, "async"),
                           async_save=True)
     acb.set_model(model)
@@ -4486,14 +4894,16 @@ def checkpoint_numbers(model, batch, root):
         t0 = time.monotonic()
         model.train_batch([batch[0]], [batch[1]])
         step_ms.append((time.monotonic() - t0) * 1e3)
+    blocked_sum = monitor.get_monitor_value("ckpt.save_blocked_ms.sum")
     t0 = time.monotonic()
     acb.save_now(2)
     second_block = (time.monotonic() - t0) * 1e3
-    waited = acb.manager.last_blocked_ms
+    waited = monitor.get_monitor_value("ckpt.save_blocked_ms.sum") - \
+        blocked_sum
     acb.manager.wait()
     log(f"[fit-gpt2] checkpoint state {nbytes / 1e9:.3f} GB (bf16 params, "
         f"fp32 masters and moments); sync save {sync_ms:.1f} ms "
-        f"(manager {sync.manager.last_save_ms:.1f} ms); async save blocks "
+        f"(manager {manager_ms:.1f} ms); async save blocks "
         f"the loop {first_block:.2f} ms, then {second_block:.1f} ms "
         f"({waited:.1f} ms of it waiting for the previous save); steps "
         f"while it wrote {[round(t, 1) for t in step_ms]} ms")
@@ -4541,7 +4951,9 @@ def phase_fit_gpt2(dev, warmup=2, steps=6):
     clock = StepLog()
     pipe = gpt2_pipeline(8 * n)
     kernels.reset_launch_counts()
+    fallbacks = jit_fallbacks()
     model.fit(pipe, epochs=1, verbose=0, log_freq=1, callbacks=[clock])
+    fallbacks = jit_fallbacks() - fallbacks
     counts = kernels.launch_counts()
     need = {k: 12 * n for k in DROPOUT_KERNELS}
     need["adam"] = 148 * n
@@ -4551,7 +4963,8 @@ def phase_fit_gpt2(dev, warmup=2, steps=6):
     hand_losses, hand_times, hand_cs = hand_lane(
         hand, list(gpt2_pipeline(8 * n, prefetch=False)), dev)
     same_losses("fit-gpt2", clock.losses, hand_losses)
-    check_fit_step("fit-gpt2", fit_graph("fit-gpt2", model._compiled_step),
+    check_fit_step("fit-gpt2", fit_graph("fit-gpt2", model._compiled_step,
+                                         fallbacks),
                    hand_cs,
                    dict({k: 12 for k in DROPOUT_KERNELS}, adam=148))
     del hand, hand_cs
@@ -4569,6 +4982,9 @@ def phase_fit_gpt2(dev, warmup=2, steps=6):
     try:
         batch = next(iter(gpt2_pipeline(8, prefetch=False)))
         ckpt = checkpoint_numbers(model, [t.to(dev) for t in batch], root)
+        check_exposition("fit-gpt2 (c)", ("ckpt_save_ms", "ckpt_saves",
+                                          "ckpt_restores",
+                                          "ckpt_save_blocked_ms"))
         del model
         torch.cuda.empty_cache()
         full, pre = (os.path.join(root, d) for d in ("full", "preempt"))
@@ -4623,13 +5039,17 @@ def phase_fit_llama(dev, warmup=2, steps=4):
     model = build()
     clock = StepLog()
     kernels.reset_launch_counts()
+    fallbacks = jit_fallbacks()
     model.fit(loader, epochs=1, verbose=0, log_freq=1, shuffle=False,
               callbacks=[clock])
     counts = kernels.launch_counts()
     need = {k: cfg.num_layers * n for k in TRAIN_KERNELS}
     need["adam"] = 75 * n
     check_launches(counts, need)
-    graph = fit_graph("fit-llama", model._compiled_step)
+    graph = fit_graph("fit-llama", model._compiled_step,
+                      jit_fallbacks() - fallbacks)
+    # fit-llama's input is the io.DataLoader: its families on the registry
+    check_exposition("fit-llama", ("io_batches_fetched", "io_fetch_ms"))
     fit_ms = float(np.median(clock.times[warmup:]))
     clock.set_model(None)
     busy = profile_fit_steps(model, loader, "fit-llama-profile")
@@ -4671,14 +5091,17 @@ LORA_FLOOR_MULT = 2.0
 
 
 class SentinelLog(Callback):
-    """Each step's loss (``log_freq=1``), the fit's sentinel, and a pair of
-    CUDA events around each step (batch begin to batch end, on the
-    current stream): the phase's own device step times."""
+    """Each step's loss (``log_freq=1``), the fit's sentinel (its
+    ``report()`` kept as ``report`` once the fit ends, when
+    `sentinel_fit` drops the log's references to the model: a log kept
+    for its losses must not keep a model and its graphs' pool alive), and
+    a pair of CUDA events around each step (batch begin to batch end, on
+    the current stream): the phase's own device step times."""
 
     def __init__(self):
         super().__init__()
         self.losses, self.events = [], []
-        self.sentinel = None
+        self.sentinel = self.report = None
 
     def on_train_batch_begin(self, step, logs=None):
         ev = torch.cuda.Event(enable_timing=True)
@@ -4723,9 +5146,15 @@ def sentinel_fit(model, data, tag, sentinel, compiled=True, fault="",
                               FLAGS_fault_inject=fault,
                               FLAGS_sentinel_dump_path=dump or ""))
     rec = SentinelLog()
+    fallbacks = jit_fallbacks()
     try:
         model.fit(data, epochs=1, verbose=0, log_freq=1, shuffle=False,
                   callbacks=[rec, *callbacks])
+        rec.jit_fallbacks = jit_fallbacks() - fallbacks
+        if rec.sentinel is not None:
+            rec.report = rec.sentinel.report()
+        rec.sentinel = None
+        rec.set_model(None)
     finally:
         port_flags.set_flags({"FLAGS_sentinel": False,
                               "FLAGS_compiled_train_step": True,
@@ -4756,13 +5185,7 @@ def same_weights(tag, got, want):
 def check_dump(tag, path):
     """``tools/check_telemetry.py --sentinel-dump`` on ``path``; returns the
     dump's action."""
-    out = subprocess.run([sys.executable, os.path.join(
-        os.path.dirname(os.path.abspath(__file__)), "tools",
-        "check_telemetry.py"), "--sentinel-dump", path],
-        capture_output=True, text=True, timeout=120)
-    if out.returncode != 0:
-        raise AssertionError(f"[{tag}] check_telemetry --sentinel-dump "
-                             f"{path}: {out.stdout}{out.stderr}")
+    run_check_telemetry(tag, "--sentinel-dump", path)
     with open(path) as f:
         return json.load(f)["sentinel"]["action"]
 
@@ -4788,15 +5211,17 @@ def host_ms(fn):
     return (time.monotonic() - t0) * 1e3, out
 
 
-def sentinel_graphs(tag, cs):
+def sentinel_graphs(tag, cs, fallbacks):
     """The sentinel step's graphs: a full and a cadence (``+health``) graph
-    of one batch signature, each captured once; returns {label: step}."""
+    of one batch signature, each captured once, and no
+    ``jit.compiled_step_fallback`` over its fit (``fallbacks``); returns
+    {label: step}."""
     stats = cs.graph_stats()
     caps = {k: v[0] for k, v in stats.items()}
-    if len(caps) != 2 or set(caps.values()) != {1} or cs.fallbacks or \
+    if len(caps) != 2 or set(caps.values()) != {1} or fallbacks or \
             not cs.compiled:
         raise AssertionError(f"[{tag}] graphs {stats}, fallbacks "
-                             f"{cs.fallbacks}")
+                             f"{fallbacks}")
     return {("health" if key[3] else "full"): st
             for key, st in cs._steps.items()}
 
@@ -4852,12 +5277,13 @@ def phase_sentinel_gpt2(dev, n=16):
         counts = kernels.launch_counts()
         check_launches(counts, dict({k: 12 * n for k in DROPOUT_KERNELS},
                                     adam=148 * n))
-        rep = rec_on.sentinel.report()
+        rep = rec_on.report
         if rep["anomalies"] or rep["rollbacks"] or rep["skips"]:
             raise AssertionError(f"[sentinel-gpt2] (a) healthy run: {rep}")
         same_losses("sentinel-gpt2", rec_on.losses, rec_off.losses)
         same_weights("sentinel-gpt2", weights(on), w_off)
-        graphs = sentinel_graphs("sentinel-gpt2", on._compiled_step)
+        graphs = sentinel_graphs("sentinel-gpt2", on._compiled_step,
+                                 rec_on.jit_fallbacks)
         log(f"[sentinel-gpt2] (a) {n} fit steps, sentinel on = off bit for "
             f"bit: losses {rec_on.losses}; {len(w_off)} tensors equal; "
             f"report {rep}; graphs {on._compiled_step.graph_stats()}; "
@@ -4875,13 +5301,12 @@ def phase_sentinel_gpt2(dev, n=16):
         if not (sm["mfu"] <= 1.0 and abs(sm["mfu"] - ev_mfu) < 0.02):
             raise AssertionError(f"[sentinel-gpt2] (e) train.mfu {sm['mfu']}"
                                  f" against the phase's {ev_mfu}")
-        chk = subprocess.run([sys.executable, os.path.join(os.path.dirname(
-            os.path.abspath(__file__)), "tools", "check_telemetry.py"),
-            "--snapshots", snap_path], capture_output=True, text=True,
-            timeout=120)
-        if chk.returncode != 0:
-            raise AssertionError(f"[sentinel-gpt2] (e) --snapshots: "
-                                 f"{chk.stdout}{chk.stderr}")
+        snaps = run_check_telemetry("sentinel-gpt2 (e)", "--snapshots",
+                                    snap_path)
+        check_exposition("sentinel-gpt2 (e)", (
+            "jit_compiled_step_hit", "jit_compiled_step_compile",
+            "data_batches", "data_fetch_ms", "data_starved_steps",
+            "data_prefetch_occupancy", "data_input_bound"), "--data")
         log(f"[sentinel-gpt2] (e) train.step_time_ms p50 {p50:.3f} ms (the "
             f"registry's estimate within a bucket of 3 a decade; min "
             f"{hist['min']:.3f}, avg {hist['avg']:.3f}, max {hist['max']:.3f}"
@@ -4892,7 +5317,7 @@ def phase_sentinel_gpt2(dev, n=16):
             f"counter); train.mfu {sm['mfu']:.4f} against the phase's "
             f"{ev_mfu:.4f} (peak {peak:.4e}); memory "
             f"{sm['memory']}; exporter lines pass --snapshots: "
-            f"{chk.stdout.strip()}")
+            f"{snaps.strip()}")
         # (d) the sentinel's costs
         full_ms = graph_ms(graphs["full"])
         health_ms = graph_ms(graphs["health"])
@@ -4926,14 +5351,15 @@ def phase_sentinel_gpt2(dev, n=16):
         model = fit_gpt2_model(dev, dropout=0.1, lr=3e-4)
         rec = sentinel_fit(model, spike_loader(nb, vocab, spike=k),
                            "sentinel-gpt2", sentinel=True, dump=dump)
-        rep = rec.sentinel.report()
+        rep = rec.report
         quarantined = rep["quarantined"]
         if rep["rollbacks"] != 1 or k not in quarantined or \
                 rep["anomalies"][0]["step"] != k or \
                 rep["anomalies"][0]["signal"] != "loss_spike":
             raise AssertionError(f"[sentinel-gpt2] (b) {rep}; losses "
                                  f"{rec.losses}")
-        sentinel_graphs("sentinel-gpt2 (b)", model._compiled_step)
+        sentinel_graphs("sentinel-gpt2 (b)", model._compiled_step,
+                        rec.jit_fallbacks)
         action = check_dump("sentinel-gpt2", dump)
         w_b = weights(model)
         del model
@@ -4957,7 +5383,7 @@ def phase_sentinel_gpt2(dev, n=16):
         rec = sentinel_fit(model, spike_loader(nc, vocab), "sentinel-gpt2",
                            sentinel=True, compiled=False, dump=dump,
                            fault=f"loss_spike:at_step={k},scale=1e6")
-        rep = rec.sentinel.report()
+        rep = rec.report
         quarantined = rep["quarantined"]
         if rep["rollbacks"] != 1 or k not in quarantined or \
                 rep["anomalies"][0]["step"] != k:
@@ -4982,7 +5408,7 @@ def phase_sentinel_gpt2(dev, n=16):
         rec = sentinel_fit(model, spike_loader(nc, vocab), "sentinel-gpt2",
                            sentinel=True, compiled=False,
                            fault=f"grad_bitflip:at_step={k}")
-        rep = rec.sentinel.report()
+        rep = rec.report
         if rep["rollbacks"] or rep["skips"] != 1 or rep["quarantined"] != [k]:
             raise AssertionError(f"[sentinel-gpt2] (c) grad_bitflip {rep}")
         w_f = weights(model)
@@ -5053,8 +5479,10 @@ def phase_lora_llama(dev, warmup=2, steps=4):
     torch.cuda.reset_peak_memory_stats(dev)
     kernels.reset_launch_counts()
     clock = StepLog()
+    fallbacks = jit_fallbacks()
     model.fit(loader, epochs=1, verbose=0, log_freq=1, shuffle=False,
               callbacks=[clock])
+    fallbacks = jit_fallbacks() - fallbacks
     counts = kernels.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     need = {k: cfg.num_layers * n for k in TRAIN_KERNELS}
@@ -5062,7 +5490,7 @@ def phase_lora_llama(dev, warmup=2, steps=4):
     check_launches(counts, need)
     cs = model._compiled_step
     stats = cs.graph_stats()
-    if not cs.compiled or cs.fallbacks or len(stats) != 1:
+    if not cs.compiled or fallbacks or len(stats) != 1:
         raise AssertionError(f"[lora-llama] compiled step {stats}, "
                              f"{cs.fallback_reason}")
     sm = model.step_metrics.snapshot()
@@ -5207,6 +5635,7 @@ def main(argv=None):
     ap.add_argument("--serve-child", metavar="DIR",
                     help=argparse.SUPPRESS)   # serve-resilience (2)'s child
     args = ap.parse_args(argv)
+    SERVE_RECORD.install()
     if args.fit_child:
         fit_child(*args.fit_child)
         return
@@ -5229,11 +5658,12 @@ def main(argv=None):
         errs, timed = run("kernels", phase_kernels, dev)
     counts = lora_counts = fp8_counts = None
     if {"serve", "serve-lora-int8", "serve-tick", "serve-spec",
-            "serve-resilience"} & set(phases):
+            "serve-resilience", "serve-telemetry"} & set(phases):
         model = build_7b(dev)
-        float_st = None
+        float_st = serve_outs = None
         if "serve" in phases:
-            counts, float_st = run("serve", phase_serve, dev, model)
+            counts, float_st, serve_outs = run("serve", phase_serve, dev,
+                                               model)
         if "serve-lora-int8" in phases:
             lora_counts, fp8_counts = run("serve-lora-int8", phase_serve_lora,
                                           dev, model, float_st)
@@ -5246,6 +5676,9 @@ def main(argv=None):
         if "serve-resilience" in phases:
             run("serve-resilience", phase_serve_resilience, dev, model,
                 spec_plain, spec_margins)
+        if "serve-telemetry" in phases:
+            run("serve-telemetry", phase_serve_telemetry, dev, model,
+                serve_outs, float_st, spec_margins)
         del model
         torch.cuda.empty_cache()
     if {"serve-gpt", "generate-gpt"} & set(phases):

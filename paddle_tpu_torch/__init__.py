@@ -18,7 +18,11 @@ sources in ``csrc/``):
 - the training sentinel (``framework.sentinel``, under ``FLAGS_sentinel``),
   the telemetry fit runs under (``observability``: the metrics registry,
   ``StepMetrics``, the exporter, the flight recorder; ``ops.flops``) and
-  LoRA training (``nn.attach_lora``, ``nn.save_adapter``).
+  LoRA training (``nn.attach_lora``, ``nn.save_adapter``);
+- telemetry under every slice: the serving, checkpoint, input and
+  compiled-step families on the metrics registry
+  (``serving.serving_stats``), and request tracing
+  (``observability.tracing``, under ``FLAGS_trace_dir``).
 
 The kernels: RMS norm forward and backward, rope, flash attention
 forward, dK/dV and dQ, the fused Adam update, paged decode attention and
@@ -27,8 +31,16 @@ caller passes ``device="cpu"`` (``map_location="cpu"`` for `load`); on
 the CPU each kernel wrapper takes its plain PyTorch version.
 """
 from .device import resolve_device, to_torch_dtype
-from . import optimizer, regularizer  # noqa: E402
+from . import (amp, data, device, distributed, framework,  # noqa: E402
+               hapi, incubate, io, metric, models, nn, observability,
+               optimizer, profiler, quantization, regularizer, serving,
+               utils)
 from .framework.io import load, save  # noqa: E402
+from .hapi import Model  # noqa: E402
+from .utils.flags import get_flags, set_flags  # noqa: E402
 
-__all__ = ["resolve_device", "to_torch_dtype", "optimizer", "regularizer",
-           "save", "load"]
+__all__ = ["Model", "amp", "data", "device", "distributed", "framework",
+           "get_flags", "hapi", "incubate", "io", "load", "metric", "models",
+           "nn", "observability", "optimizer", "profiler", "quantization",
+           "regularizer", "resolve_device", "save", "serving", "set_flags",
+           "to_torch_dtype", "utils"]

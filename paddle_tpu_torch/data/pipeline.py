@@ -21,8 +21,10 @@ so a checkpoint re-shards to any dp degree.
 Batches are host data: without ``device_prefetch`` a batch is CPU
 tensors (``hapi.Model`` moves them to the network's device); with it,
 tensors on the card, copied ahead on a side stream (`data.prefetch`).
-The JAX package's ``data.records_skipped`` and ``data.docs_truncated``
-counters are the attributes ``records_skipped`` and ``docs_truncated``.
+Records skipped as corrupt and documents truncated by packing count
+``data.records_skipped`` and ``data.docs_truncated`` (`utils.monitor`), as
+in JAX; the pipeline's `GoodputMeter` publishes the ``data.*`` input
+families.
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ import time
 import numpy as np
 
 from ..utils import fault_injection as _fi
+from ..utils import monitor as _monitor
 from .goodput import GoodputMeter
 
 _SKIP = object()
@@ -97,6 +100,7 @@ class _SourceStage:
         except Exception as e:  # noqa: BLE001 — corrupt-record policy
             self.records_skipped += 1
             self._last_error = f"sample {sample_id}: {type(e).__name__}: {e}"
+            _monitor.incr("data.records_skipped")
             if self.records_skipped > self.corrupt_threshold:
                 raise CorruptRecordError(
                     self.records_skipped, self.corrupt_threshold,
@@ -335,8 +339,6 @@ class Pipeline:
         self._prefetch = None
         self._max_rank = 0
         self.goodput = GoodputMeter()
-        #: documents longer than a packed row, truncated
-        self.docs_truncated = 0
         self._committed = None  # filled lazily: state after last batch
 
     # -- builders ----------------------------------------------------------
@@ -527,7 +529,7 @@ class Pipeline:
             p._carry_tokens = None
             p._carry_slot = None
             if len(doc) > S:
-                self.docs_truncated += 1
+                _monitor.incr("data.docs_truncated")
             place(doc)
         while used < S:
             nxt = self._next_sample()
@@ -542,7 +544,7 @@ class Pipeline:
             if len(doc) > S - used:
                 if used == 0:
                     # longer than a whole row: truncate in place
-                    self.docs_truncated += 1
+                    _monitor.incr("data.docs_truncated")
                     place(doc)
                 else:
                     p._carry_tokens = doc

@@ -3,6 +3,7 @@
 watchdog's thread helpers (``watchdog.async_raise``,
 ``watchdog.all_thread_stacks``), and the rank and world size the input
 pipeline and ``hapi.Model`` read."""
+from . import fleet, watchdog  # noqa: E402,F401
 
 
 def get_rank(group=None):

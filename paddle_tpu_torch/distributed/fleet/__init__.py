@@ -1,1 +1,5 @@
 """Fleet utilities of the port (paddle_tpu/distributed/fleet)."""
+from . import utils
+from .utils import recompute
+
+__all__ = ["recompute", "utils"]

@@ -145,6 +145,7 @@ class CapturedStep:
         self.refills = []
         self._free_slots = []
         self.replays = 0
+        self._warmed = False
 
     def take_slot(self, draw):
         """The next seed slot (allocated before the capture) for a draw the
@@ -170,17 +171,24 @@ class CapturedStep:
         self.replays += 1
         kernels.add_launch_counts(self.launches)
 
-    def capture(self):
+    def warm_up(self):
+        """Run the body once on the side stream and restore the tensors it
+        mutated (the first half of `capture`; an owner may run it alone,
+        under a probe, before it captures)."""
         current = torch.cuda.current_stream(self.device)
-        if self.warmup:
-            saved = [t.clone() for t in self.mutable]
-            self.stream.wait_stream(current)
-            with torch.cuda.stream(self.stream), recording() as rec:
-                self.fn()                           # warm-up
-            current.wait_stream(self.stream)
-            for t, s in zip(self.mutable, saved):
-                t.copy_(s)
-            self.recorded = rec
+        saved = [t.clone() for t in self.mutable]
+        self.stream.wait_stream(current)
+        with torch.cuda.stream(self.stream), recording() as rec:
+            self.fn()
+        current.wait_stream(self.stream)
+        for t, s in zip(self.mutable, saved):
+            t.copy_(s)
+        self.recorded = rec
+        self._warmed = True
+
+    def capture(self):
+        if self.warmup and not self._warmed:
+            self.warm_up()
         graph = torch.cuda.CUDAGraph()
         for gen in self.recorded.generators:
             graph.register_generator_state(gen)

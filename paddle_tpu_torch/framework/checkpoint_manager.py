@@ -18,13 +18,13 @@ manifest, or whose files fail their size and crc32, is torn:
 falls back to the next-newest valid one.  Retention keeps the newest
 ``max_to_keep`` valid checkpoints and never deletes the last valid one.
 
-The JAX package's metrics registry (the ``ckpt.save_ms`` and
-``ckpt.save_blocked_ms`` histograms) and flight recorder are not ported
-(ROADMAP A6, A9).  Their counters are plain attributes of the manager:
-``saves``, ``restores``, ``anchor_saves``, ``torn_skipped``, ``torn_gcd``,
-``retention_deleted``, and ``last_save_ms`` / ``last_blocked_ms`` (the
-last save's time and how long the last async ``save`` waited for the one
-before it).
+Telemetry, at the JAX package's points: the counters ``ckpt.saves``,
+``ckpt.restores``, ``ckpt.anchor_saves``, ``ckpt.torn_skipped``,
+``ckpt.torn_gcd`` and ``ckpt.retention_deleted`` (`utils.monitor`), the
+``ckpt.save_ms`` histogram (each committed save) and, with
+``async_save``, ``ckpt.save_blocked_ms`` (how long a ``save`` waited for
+the one in flight; declared at construction), and a flight-recorder
+``ckpt`` / ``save`` event per committed save.
 """
 from __future__ import annotations
 
@@ -36,6 +36,10 @@ import shutil
 import threading
 import time
 import zlib
+
+from ..observability import flight_recorder as _fr
+from ..observability import registry as _registry
+from ..utils import monitor as _monitor
 
 MANIFEST_NAME = "manifest.json"
 MANIFEST_VERSION = 1
@@ -229,10 +233,14 @@ class CheckpointManager:
         self._lock = threading.Lock()   # serialises save and GC
         self._thread = None
         self._error = None
-        self.saves = self.restores = self.anchor_saves = 0
-        self.torn_skipped = self.torn_gcd = self.retention_deleted = 0
-        self.last_save_ms = self.last_blocked_ms = None
         os.makedirs(self.root, exist_ok=True)
+        if async_save:
+            # at 0 from the start: a save that waits for the one in flight
+            # stalls the step loop, and that shows as its own series
+            _registry.histogram(
+                "ckpt.save_blocked_ms",
+                "step-loop stall waiting for the prior async "
+                "checkpoint save")
 
     def _default_load(self, dirpath):
         from .io import load
@@ -265,8 +273,9 @@ class CheckpointManager:
             blocked = self._thread is not None and self._thread.is_alive()
             t0 = time.perf_counter()
             self.wait()       # one save in flight at a time
-            self.last_blocked_ms = \
-                (time.perf_counter() - t0) * 1e3 if blocked else 0.0
+            if blocked:
+                _registry.histogram("ckpt.save_blocked_ms").observe(
+                    (time.perf_counter() - t0) * 1e3)
         if step is None:
             # after the wait: the save in flight has made its ckpt-N,
             # so this one takes N + 1 and does not overwrite it
@@ -305,7 +314,7 @@ class CheckpointManager:
                 raise
             _rmtree_quiet(final)
             os.replace(tmp, final)
-            self.anchor_saves += 1
+            _monitor.incr("ckpt.anchor_saves")
             return final
 
     def restore_anchor(self):
@@ -347,8 +356,10 @@ class CheckpointManager:
                 # checkpoint restore_latest handles
                 _rmtree_quiet(final)
                 raise
-            self.saves += 1
-            self.last_save_ms = (time.perf_counter() - t0) * 1e3
+            _monitor.incr("ckpt.saves")
+            save_ms = (time.perf_counter() - t0) * 1e3
+            _monitor.observe("ckpt.save_ms", save_ms)
+            _fr.record("ckpt", "save", step=step, dur_ms=round(save_ms, 3))
             self._retain()
             return final
 
@@ -378,7 +389,7 @@ class CheckpointManager:
             if not verify_checkpoint(path):
                 _log.warning("checkpoint %s is torn/corrupt; skipping%s",
                              path, " and removing" if gc_invalid else "")
-                self.torn_skipped += 1
+                _monitor.incr("ckpt.torn_skipped")
                 if gc_invalid:
                     with self._lock:
                         _rmtree_quiet(path)
@@ -388,9 +399,9 @@ class CheckpointManager:
             except Exception as e:
                 _log.warning("checkpoint %s failed to load (%s); skipping",
                              path, e)
-                self.torn_skipped += 1
+                _monitor.incr("ckpt.torn_skipped")
                 continue
-            self.restores += 1
+            _monitor.incr("ckpt.restores")
             return state, step
         return None
 
@@ -426,10 +437,10 @@ class CheckpointManager:
                 kept_valid += 1
                 if kept_valid > self.max_to_keep:
                     _rmtree_quiet(path)
-                    self.retention_deleted += 1
+                    _monitor.incr("ckpt.retention_deleted")
             elif kept_valid >= 1:
                 _rmtree_quiet(path)
-                self.torn_gcd += 1
+                _monitor.incr("ckpt.torn_gcd")
 
 
 def _default_save_fn(state, dirpath):

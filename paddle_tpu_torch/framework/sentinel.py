@@ -110,6 +110,12 @@ def decide_blame(health, min_anomalies=BLAME_MIN_ANOMALIES):
     return None
 
 
+class SentinelError(RuntimeError):
+    """JAX's exit signal for a rank blamed for local gradient corruption;
+    the port runs one rank (the blame exchange is ROADMAP A8), so it is
+    exported for callers' ``except`` clauses and not raised yet."""
+
+
 class TrainingSentinel:
     """Per-fit watchdog over the loss and gradient stream.
 

@@ -54,6 +54,15 @@ parameter has gradient hooks, the optimizer has no device update, or the
 forward reads the host.  A capture or replay error raises: nothing falls
 back to the eager body after it.  On CPU parameters there is no graph:
 each call after the first runs the body with the kernels' plain versions.
+
+Telemetry, as JAX's counters (`utils.monitor`): ``jit.compiled_step_hit``
+counts the compiled calls, ``jit.compiled_step_fallback`` the calls the
+eager lane took because the step is not (or no longer) eligible, and
+``jit.compiled_step_compile`` each graph made for a new signature.  JAX's
+``ragged_fallback`` (dp sharding, ROADMAP A8) and ``alias_fallback``
+(buffer donation, which torch has no counterpart of: the graph updates
+its tensors in place) have no event here, so no counter is made for
+them.
 """
 from __future__ import annotations
 
@@ -65,6 +74,7 @@ import torch
 
 from .. import amp
 from ..optimizer.optimizer import Optimizer
+from ..utils import monitor as _monitor
 from ..utils.flags import flag as _flag
 from . import capture
 
@@ -128,8 +138,6 @@ class CompiledTrainStep:
         self._health = {}             # signature -> its health vector
         self._svec = None             # device [scale, good, bad] fp32
         self._pool = self._stream = None
-        #: eager steps taken because the step is not (or no longer) eligible
-        self.fallbacks = 0
         self.check_static_eligibility()
 
     # ------------------------------------------------------------------
@@ -149,12 +157,13 @@ class CompiledTrainStep:
             update = (self._micro + 1) >= self._accum
         self._calls += 1
         if self._fallback_reason is not None or not self._eligible_now():
-            self.fallbacks += 1
+            _monitor.incr("jit.compiled_step_fallback")
             loss = self._run_eager(x, y, update)
         elif not self._built:
             loss = self._warm_up(x, y, update)
         else:
             loss = self._run_compiled(x, y, update)
+            _monitor.incr("jit.compiled_step_hit")
         self._micro = 0 if update else self._micro + 1
         return loss
 
@@ -359,6 +368,7 @@ class CompiledTrainStep:
             step = self._steps[key] = capture.CapturedStep(
                 lambda: ref()._body(key), (), self._device, pool=self._pool,
                 stream=self._stream, warmup=False, recorded=self._recorded)
+            _monitor.incr("jit.compiled_step_compile")
         step()
         if update:
             self._opt._step_count += 1

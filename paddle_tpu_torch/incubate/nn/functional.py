@@ -22,6 +22,7 @@ import torch
 
 from ...nn.functional import flash_attention
 from ...ops.flops import counted
+from ...kernels.graph_state import allow_host_reads
 from ...kernels.paged_decode import gather_pages, paged_decode_attention
 from ...kernels.rope import RopeFunction, rope
 from ...quantization import (as_bytes, dequantize_kv, qmax_of,
@@ -144,6 +145,13 @@ def _cache_attend(qa, ck, cv, off, scale):
     return out.to(qa.dtype)
 
 
+def _overflows(offset, s_new, s_cap):
+    """Whether a CPU offset leaves no room for ``s_new`` tokens: a host
+    read of a host tensor, which the capture probe lets through."""
+    with allow_host_reads():
+        return bool((offset.long() + s_new > s_cap).any())
+
+
 def masked_multihead_attention(q, k, v, cache_k, cache_v, offset,
                                scale=None):
     """Decode or prefill attention against a dense KV cache (the cache of
@@ -163,8 +171,7 @@ def masked_multihead_attention(q, k, v, cache_k, cache_v, offset,
     b, s_new = q.shape[:2]
     s_cap = cache_k.shape[1]
     off = torch.as_tensor(offset)
-    if off.device.type == "cpu" and \
-            bool((off.long() + s_new > s_cap).any()):
+    if off.device.type == "cpu" and _overflows(off, s_new, s_cap):
         raise ValueError(
             f"KV cache overflow: offset {off.tolist()} + {s_new} new tokens"
             f" > cache capacity {s_cap}")
@@ -211,8 +218,7 @@ def paged_masked_multihead_attention(q, k, v, k_pool, v_pool, page_table,
     b, s_new, _, d = q.shape
     n_pages = page_table.shape[1]
     s_cap = n_pages * psz
-    if offset.device.type == "cpu" and \
-            bool((offset.long() + s_new > s_cap).any()):
+    if offset.device.type == "cpu" and _overflows(offset, s_new, s_cap):
         # on the card this check would read the offsets back every
         # layer; PagedKVCache checks its host copy before each upload
         raise ValueError(

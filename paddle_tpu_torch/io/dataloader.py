@@ -15,17 +15,20 @@ inside it.  The JAX package's worker processes over a shared-memory ring
 queue (a host C++ extension) are not ported (ROADMAP A8):
 ``use_shared_memory=True`` takes the threaded lane and raises a
 `DataLoaderWarning` once, as the JAX loader takes it when the queue
-cannot be built.
+cannot be built.  Each fetched batch counts ``io.batches_fetched`` and
+observes its cost in the ``io.fetch_ms`` histogram (`utils.monitor`).
 """
 from __future__ import annotations
 
 import queue
 import threading
+import time
 import warnings
 
 import numpy as np
 import torch
 
+from ..utils import monitor as _monitor
 from . import worker_info as _wi
 from .dataset import IterableDataset
 from .sampler import BatchSampler
@@ -103,8 +106,6 @@ class DataLoader:
         self.worker_init_fn = worker_init_fn
         self.prefetch_factor = max(prefetch_factor, 2)
         self.timeout = float(timeout or 0)
-        #: batches fetched (the JAX loader's ``io.batches_fetched``)
-        self.batches_fetched = 0
         if self.timeout < 0:
             raise ValueError(f"DataLoader(timeout={timeout}): must be >= 0")
         if persistent_workers:
@@ -129,8 +130,13 @@ class DataLoader:
         return len(self.batch_sampler)
 
     def _fetch(self, indices):
-        self.batches_fetched += 1
-        return self.collate_fn([self.dataset[i] for i in indices])
+        _monitor.incr("io.batches_fetched")
+        t0 = time.perf_counter()
+        batch = self.collate_fn([self.dataset[i] for i in indices])
+        # the reader's cost, a registry histogram: it says whether the
+        # input pipeline or the card bounds a training run
+        _monitor.observe("io.fetch_ms", (time.perf_counter() - t0) * 1e3)
+        return batch
 
     def _iter_iterable(self):
         batch = []

@@ -1,6 +1,8 @@
 """Model families of the port."""
-from .gpt import GPTConfig, GPTForCausalLM, gpt_config
-from .llama import LlamaConfig, LlamaForCausalLM, llama_config
+from .gpt import (GPT2_124M, GPT2_350M, GPT3_1_3B, GPT3_6_7B, GPT3_13B,
+                  GPTConfig, GPTForCausalLM, GPTModel, gpt_config)
+from .llama import LlamaConfig, LlamaForCausalLM, LlamaModel, llama_config
 
-__all__ = ["GPTConfig", "GPTForCausalLM", "gpt_config", "LlamaConfig",
-           "LlamaForCausalLM", "llama_config"]
+__all__ = ["GPT2_124M", "GPT2_350M", "GPT3_1_3B", "GPT3_6_7B", "GPT3_13B",
+           "GPTConfig", "GPTForCausalLM", "GPTModel", "gpt_config",
+           "LlamaConfig", "LlamaForCausalLM", "LlamaModel", "llama_config"]

@@ -43,7 +43,8 @@ from ..distributed.fleet.utils import recompute
 from ..incubate.nn import functional as IF
 from ..nn import functional as F
 from ..nn.functional import flash_attention
-from ..nn.layers import Dropout, Embedding, LayerNorm, Linear
+from ..nn.layers import (Dropout, Embedding, LayerNorm, Linear,
+                         deferred_init)
 
 
 @dataclass
@@ -151,8 +152,14 @@ class GPTBlock(nn.Module):
 
 
 class GPTModel(nn.Module):
-    def __init__(self, config: GPTConfig, device, dtype):
+    """``GPTModel(config)``, as JAX's; ``device`` (None: the card) and
+    ``dtype`` as the causal-LM wrapper takes them.  Built alone, its layers
+    draw their own init (`nn.layers.init_generator`), not the wrapper's."""
+
+    def __init__(self, config: GPTConfig, device=None, dtype=torch.float32):
         super().__init__()
+        device = resolve_device(device)
+        dtype = to_torch_dtype(dtype)
         self.config = config
         std = config.initializer_range
         self.wte = Embedding(config.vocab_size, config.hidden_size, std=std,
@@ -213,10 +220,11 @@ class GPTForCausalLM(nn.Module):
         dev = resolve_device(device)
         dtype = to_torch_dtype(dtype)
         self.config = config
-        self.gpt = GPTModel(config, dev, dtype)
-        self.lm_head = None if config.tie_word_embeddings else Linear(
-            config.hidden_size, config.vocab_size, bias=False, device=dev,
-            dtype=dtype)
+        with deferred_init():       # every parameter drawn below
+            self.gpt = GPTModel(config, dev, dtype)
+            self.lm_head = None if config.tie_word_embeddings else Linear(
+                config.hidden_size, config.vocab_size, bias_attr=False,
+                device=dev, dtype=dtype)
         gen = torch.Generator(device=dev)
         gen.manual_seed(int(seed))
         with torch.no_grad():

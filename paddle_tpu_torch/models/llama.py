@@ -22,7 +22,7 @@ from ..device import resolve_device, to_torch_dtype
 from ..incubate.nn import functional as IF
 from ..nn import functional as F
 from ..nn.functional import flash_attention
-from ..nn.layers import Embedding, Linear, RMSNorm
+from ..nn.layers import Embedding, Linear, RMSNorm, deferred_init
 
 
 @dataclass
@@ -82,7 +82,7 @@ class LlamaAttention(nn.Module):
         kv = config.num_kv_heads * d
         std = config.initializer_range
         out_std = std / math.sqrt(2 * config.num_layers)
-        kw = dict(bias=False, device=device, dtype=dtype)
+        kw = dict(bias_attr=False, device=device, dtype=dtype)
         self.q_proj = Linear(h, h, std=std, **kw)
         self.k_proj = Linear(h, kv, std=std, **kw)
         self.v_proj = Linear(h, kv, std=std, **kw)
@@ -132,7 +132,7 @@ class LlamaMLP(nn.Module):
         h, m = config.hidden_size, config.intermediate_size
         std = config.initializer_range
         out_std = std / math.sqrt(2 * config.num_layers)
-        kw = dict(bias=False, device=device, dtype=dtype)
+        kw = dict(bias_attr=False, device=device, dtype=dtype)
         self.gate_proj = Linear(h, m, std=std, **kw)
         self.up_proj = Linear(h, m, std=std, **kw)
         self.down_proj = Linear(m, h, std=out_std, **kw)
@@ -157,8 +157,14 @@ class LlamaBlock(nn.Module):
 
 
 class LlamaModel(nn.Module):
-    def __init__(self, config: LlamaConfig, device, dtype):
+    """``LlamaModel(config)``, as JAX's; ``device`` (None: the card) and
+    ``dtype`` as the causal-LM wrapper takes them.  Built alone, its layers
+    draw their own init (`nn.layers.init_generator`), not the wrapper's."""
+
+    def __init__(self, config: LlamaConfig, device=None, dtype=torch.float32):
         super().__init__()
+        device = resolve_device(device)
+        dtype = to_torch_dtype(dtype)
         self.config = config
         self.embed_tokens = Embedding(config.vocab_size, config.hidden_size,
                                       std=config.initializer_range,
@@ -186,10 +192,11 @@ class LlamaForCausalLM(nn.Module):
         dev = resolve_device(device)
         dtype = to_torch_dtype(dtype)
         self.config = config
-        self.llama = LlamaModel(config, dev, dtype)
-        self.lm_head = None if config.tie_word_embeddings else Linear(
-            config.hidden_size, config.vocab_size, bias=False, device=dev,
-            dtype=dtype)
+        with deferred_init():       # every parameter drawn below
+            self.llama = LlamaModel(config, dev, dtype)
+            self.lm_head = None if config.tie_word_embeddings else Linear(
+                config.hidden_size, config.vocab_size, bias_attr=False,
+                device=dev, dtype=dtype)
         gen = torch.Generator(device=dev)
         gen.manual_seed(int(seed))
         with torch.no_grad():

@@ -54,15 +54,20 @@ def layer_norm(x, normalized_shape=None, weight=None, bias=None,
 
 
 @counted("embedding")
-def embedding(ids, weight):
-    """Rows of ``weight`` at integer ``ids``.  Floating ids raise
-    ``ValueError`` before anything is launched, as the JAX package's
-    ``jnp.take`` refuses them (a ``bad_batch`` fault scales token ids
-    into floats; cast to int64 they would index past the table, which
-    fails a device assert that poisons the CUDA context)."""
+def embedding(ids, weight, padding_idx=None, sparse=False, name=None):
+    """Rows of ``weight`` at integer ``ids``; with ``padding_idx`` the rows
+    of ids equal to it are multiplied by 0 (so is their gradient), as the
+    JAX package masks them.  Floating ids raise ``ValueError`` before
+    anything is launched, as the JAX package's ``jnp.take`` refuses them
+    (a ``bad_batch`` fault scales token ids into floats; cast to int64
+    they would index past the table, which fails a device assert that
+    poisons the CUDA context)."""
     if ids.is_floating_point() or ids.is_complex():
         raise ValueError("indices must have an integer type")
-    return torch.nn.functional.embedding(ids.long(), weight)
+    out = torch.nn.functional.embedding(ids.long(), weight)
+    if padding_idx is not None:
+        out = out * (ids != padding_idx)[..., None].to(out.dtype)
+    return out
 
 
 @counted("silu")
@@ -105,7 +110,7 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
     if mode != "upscale_in_train" or axis is not None:
         raise NotImplementedError(
             f"dropout: mode={mode!r}, axis={axis!r}: only upscale_in_train "
-            "over every element is ported")
+            "over every element is ported (ROADMAP A9)")
     return _dropout(x, p, default_generator(x.device) if generator is None
                     else generator)
 

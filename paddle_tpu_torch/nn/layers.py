@@ -3,14 +3,27 @@ paddle_tpu/nn/layers_common.py ``Linear``, ``Embedding``, ``RMSNorm``,
 ``LayerNorm``, ``Dropout``), with the same parameter names and layouts so
 state dicts cross unchanged: ``Linear.weight`` is ``[in, out]``.
 
-Parameters are allocated uninitialised on the requested device and filled
-by `reset_parameters` (under ``torch.no_grad()``) from an explicit
-``torch.Generator``.  ``device=None`` means the card (`resolve_device`):
-without CUDA a layer raises unless it was asked for ``"cpu"``.
+The positional parameters are JAX's (``Linear(in, out, weight_attr,
+bias_attr, name)``, ``Embedding(n, d, padding_idx, sparse, weight_attr,
+name)``, ``Dropout(p, axis, mode, name)``); the port's own ones (``std``,
+``device``, ``dtype``, ``generator``) are keyword-only.  A parameter
+attribute other than ``bias_attr=False`` raises `NotImplementedError`:
+``ParamAttr`` is not ported (ROADMAP A9).
+
+A layer fills its parameters at construction, as JAX's do, by
+`reset_parameters` (under ``torch.no_grad()``) from the package's init
+generator for the device (`init_generator`, seeded 0; never torch's
+global RNG).  A model that draws every parameter from a generator of its
+own builds its layers under `deferred_init`, which leaves them for its
+``reset_parameters`` pass.  ``device=None`` means the card
+(`resolve_device`): without CUDA a layer raises unless it was asked for
+``"cpu"``.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 from torch import nn
@@ -19,13 +32,58 @@ from ..device import resolve_device
 from . import functional as F
 
 
-class Linear(nn.Module):
-    """y = x W + b, W: ``[in_features, out_features]``.  ``std`` is the
-    normal init's deviation; None is Paddle's default Xavier normal."""
+_init_generators = {}
+_defer = threading.local()
 
-    def __init__(self, in_features, out_features, bias=True, std=None,
-                 device=None, dtype=torch.float32):
+
+def init_generator(device):
+    """The package's generator for layer init on ``device`` (seed 0)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    if dev not in _init_generators:
+        _init_generators[dev] = torch.Generator(device=dev).manual_seed(0)
+    return _init_generators[dev]
+
+
+@contextlib.contextmanager
+def deferred_init():
+    """Layers built in this scope (on this thread) leave their parameters
+    uninitialised: their owner fills them by ``reset_parameters``."""
+    depth = getattr(_defer, "depth", 0)
+    _defer.depth = depth + 1
+    try:
+        yield
+    finally:
+        _defer.depth = depth
+
+
+def _init(layer):
+    if not getattr(_defer, "depth", 0):
+        with torch.no_grad():
+            layer.reset_parameters(init_generator(layer.weight.device))
+
+
+def _no_param_attr(layer, **attrs):
+    for name, value in attrs.items():
+        if value is not None:
+            raise NotImplementedError(
+                f"{layer}({name}={value!r}): ParamAttr is not ported yet "
+                "(ROADMAP A9)")
+
+
+class Linear(nn.Module):
+    """y = x W + b, W: ``[in_features, out_features]``.  ``bias_attr=False``
+    builds no bias.  ``std`` is the normal init's deviation; None is
+    Paddle's default Xavier normal."""
+
+    def __init__(self, in_features, out_features, weight_attr=None,
+                 bias_attr=None, name=None, *, std=None, device=None,
+                 dtype=torch.float32):
         super().__init__()
+        bias = bias_attr is not False
+        _no_param_attr("Linear", weight_attr=weight_attr,
+                       bias_attr=bias_attr if bias else None)
         device = resolve_device(device)
         self.in_features = in_features
         self.out_features = out_features
@@ -34,6 +92,7 @@ class Linear(nn.Module):
             in_features, out_features, device=device, dtype=dtype))
         self.bias = nn.Parameter(torch.empty(
             out_features, device=device, dtype=dtype)) if bias else None
+        _init(self)
 
     def reset_parameters(self, generator):
         std = self.std if self.std is not None else \
@@ -47,19 +106,34 @@ class Linear(nn.Module):
 
 
 class Embedding(nn.Module):
-    def __init__(self, num_embeddings, embedding_dim, std=1.0, device=None,
-                 dtype=torch.float32):
+    """Rows of ``weight`` ``[num_embeddings, embedding_dim]``, N(0, std²)
+    at init.  With ``padding_idx`` the row is zeroed at init and every
+    lookup of that id reads 0 (`functional.embedding`), as in JAX; a
+    negative ``padding_idx`` zeroes that row from the end, and, as in
+    JAX, masks no id (an id is never negative).  ``sparse`` is accepted
+    and ignored, as JAX does."""
+
+    def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
+                 sparse=False, weight_attr=None, name=None, *, std=1.0,
+                 device=None, dtype=torch.float32):
         super().__init__()
+        _no_param_attr("Embedding", weight_attr=weight_attr)
         device = resolve_device(device)
+        self.num_embeddings = num_embeddings
+        self.embedding_dim = embedding_dim
+        self.padding_idx = padding_idx
         self.std = std
         self.weight = nn.Parameter(torch.empty(
             num_embeddings, embedding_dim, device=device, dtype=dtype))
+        _init(self)
 
     def reset_parameters(self, generator):
         self.weight.normal_(0.0, self.std, generator=generator)
+        if self.padding_idx is not None:
+            self.weight[self.padding_idx] = 0.0
 
     def forward(self, ids):
-        return F.embedding(ids, self.weight)
+        return F.embedding(ids, self.weight, padding_idx=self.padding_idx)
 
 
 class RMSNorm(nn.Module):
@@ -70,6 +144,7 @@ class RMSNorm(nn.Module):
         self._epsilon = epsilon
         self.weight = nn.Parameter(torch.empty(
             hidden_size, device=device, dtype=dtype))
+        _init(self)
 
     def reset_parameters(self, generator=None):
         self.weight.fill_(1.0)
@@ -93,6 +168,7 @@ class LayerNorm(nn.Module):
             self._normalized_shape, device=device, dtype=dtype))
         self.bias = nn.Parameter(torch.empty(
             self._normalized_shape, device=device, dtype=dtype))
+        _init(self)
 
     def reset_parameters(self, generator=None):
         self.weight.fill_(1.0)
@@ -107,11 +183,19 @@ class Dropout(nn.Module):
     """``upscale_in_train`` dropout while training, the identity in
     ``eval()``; the mask is drawn from ``generator`` (a ``torch.Generator``
     on the input's device; None: the package's default for the device).
-    Capturable in a CUDA graph (`functional.dropout`)."""
+    Capturable in a CUDA graph (`functional.dropout`).  An ``axis`` or
+    another ``mode`` raises `NotImplementedError` (ROADMAP A9)."""
 
-    def __init__(self, p=0.5, generator=None):
+    def __init__(self, p=0.5, axis=None, mode="upscale_in_train", name=None,
+                 *, generator=None):
         super().__init__()
+        if axis is not None or mode != "upscale_in_train":
+            raise NotImplementedError(
+                f"Dropout(axis={axis!r}, mode={mode!r}): only "
+                "upscale_in_train over every element is ported (ROADMAP A9)")
         self.p = p
+        self.axis = axis
+        self.mode = mode
         self.generator = generator
 
     def forward(self, x):

@@ -9,10 +9,10 @@
   card), examples and tokens per second, MFU from the analytic FLOPs
   (`ops.flops`), memory watermarks; ``hapi.Model.fit`` runs under it;
 - `flight_recorder`: a bounded ring of recent events dumped on an
-  unhandled exception and on SIGTERM.
-
-The JAX package's request tracing (``tracing``) is not ported (ROADMAP
-A6)."""
+  unhandled exception and on SIGTERM;
+- `tracing`: request tracing with tail-based sampling (``TraceContext``,
+  ``Span``), spooled under ``FLAGS_trace_dir`` (nothing while it is
+  empty) and merged and exported as chrome traces."""
 from . import registry  # noqa: F401
 from .registry import (  # noqa: F401
     Counter, Gauge, Histogram, MetricsRegistry, REGISTRY,
@@ -27,3 +27,5 @@ from . import step_metrics  # noqa: F401
 from .step_metrics import StepMetrics, sample_memory_watermarks  # noqa: F401
 from . import flight_recorder  # noqa: F401
 from .flight_recorder import FlightRecorder  # noqa: F401
+from . import tracing  # noqa: F401
+from .tracing import TraceContext, Span  # noqa: F401

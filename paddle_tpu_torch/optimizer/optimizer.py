@@ -277,6 +277,14 @@ class Optimizer:
 
     clear_gradients = clear_grad
 
+    def minimize(self, loss, startup_program=None, parameters=None,
+                 no_grad_set=None):
+        """``loss.backward()``, `step` and `clear_grad`, as JAX's; the
+        static-graph arguments are accepted and ignored, as there."""
+        loss.backward()
+        self.step()
+        self.clear_grad()
+
     # ---------------- checkpoint ----------------
     def state_dict(self):
         """``{"step_count": int, "step_tensor": 0-dim tensor, "<name>.<i>":

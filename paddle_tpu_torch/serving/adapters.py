@@ -37,6 +37,7 @@ import torch
 from ..kernels.lora import lora_delta
 from ..nn.layers import Linear
 from ..nn.lora import DEFAULT_TARGETS, load_adapter_state
+from . import stats
 from .api import AdapterConfigError
 
 # .value: the (pool, idx) of the calling thread's active scope, or absent
@@ -93,12 +94,13 @@ class AdapterPool:
     batch (the engine's slots).  `register` validates an adapter against
     the base model's projection shapes; `acquire`/`release` pin slots
     around in-flight requests; LRU eviction recycles only unpinned slots.
-    ``stats`` (a `ServingStats`) receives ``adapters_loaded``,
-    ``adapter_evictions`` and ``adapter_load_ms``.
+    Hot-loads and evictions publish ``serving.adapter.adapters_loaded``,
+    ``adapter_evictions`` and the ``adapter_load_ms`` histogram
+    (`stats`), as JAX's pool does.
     """
 
     def __init__(self, model, max_adapters, rank_pool, num_rows,
-                 targets=None, stats=None):
+                 targets=None):
         max_adapters = int(max_adapters)
         rank_pool = int(rank_pool)
         if max_adapters < 1:
@@ -111,7 +113,6 @@ class AdapterPool:
         self.max_adapters = max_adapters
         self.rank_pool = rank_pool
         self.pool_size = max_adapters + 1
-        self._stats = stats
         targets = tuple(targets) if targets is not None else DEFAULT_TARGETS
         self._stacks = {}
         device = None
@@ -231,7 +232,7 @@ class AdapterPool:
             slot = min(victims, key=lambda s: self._last_use[s])
             del self._slot_of[self._slot_ids[slot]]
             self._slot_ids[slot] = None
-            self._incr("adapter_evictions")
+            stats.incr("adapter.adapter_evictions")
         t0 = time.perf_counter()
         for name, stk in self._stacks.items():
             # in place: the slot's rows are zeroed (an adapter that leaves
@@ -247,18 +248,13 @@ class AdapterPool:
                 stk.A[slot, :, :r].copy_(torch.tensor(A))
                 stk.B[slot, :r, :].copy_(torch.tensor(B))
             stk.scale[slot] = sc
-        if self._stats is not None:
-            self._stats.observe("adapter_load_ms",
-                                (time.perf_counter() - t0) * 1e3)
-        self._incr("adapters_loaded")
+        stats.observe("adapter.adapter_load_ms",
+                      (time.perf_counter() - t0) * 1e3)
+        stats.incr("adapter.adapters_loaded")
         self._slot_ids[slot] = adapter_id
         self._slot_of[adapter_id] = slot
         self._refs[slot] = 0
         return slot
-
-    def _incr(self, name):
-        if self._stats is not None:
-            self._stats.incr(name)
 
     # ---------------- per-row index ----------------
     def set_row(self, row, pool_slot):

@@ -36,11 +36,18 @@ iteration that consulted the tick:
   hooks excepted), and non-greedy sampling without a per-request
   ``SamplingParams.seed`` (the in-program draw is keyed by
   ``fold_in(PRNGKey(seed), n_generated)``; an unseeded request's
-  generator cannot be replayed).
+  generator cannot be replayed);
+- a mode's first call (`_first_call`), on every device: the body runs
+  under `framework.capture.host_read_probe`.  A host read, or an
+  exception from the warm-up or the capture, restores what the call
+  wrote and latches the uncompiled lane for the tick's life, as the JAX
+  tick does on a capture or trace failure: serving never dies on the
+  capture.
 
-Unlike the JAX tick, a capture or replay failure is not turned into the
-uncompiled lane: it raises, and the engine's restart wrapper rebuilds the
-cache and the tick.
+A replay failure after a mode was captured raises, as JAX's
+post-donation failure does, and the engine's restart wrapper rebuilds the
+cache and the tick.  The tick publishes ``serving.tick.compiled_hits``,
+``tick.fallbacks`` and the decode families through `stats`.
 """
 from __future__ import annotations
 
@@ -52,9 +59,10 @@ import numpy as np
 import torch
 
 from ..framework import prng
-from ..framework.capture import CapturedStep
+from ..framework.capture import CapturedStep, host_read_probe
 from ..utils.flags import flag as _flag
-from .api import DeadlineExceededError
+from . import stats
+from .api import DeadlineExceededError, SchedulerStallError
 
 
 class TickFallbackWarning(UserWarning):
@@ -174,12 +182,12 @@ class CompiledServingTick:
         #: which the live requests wait for, then the first replay)
         self.first_tick_ms = {}
         self._ahead = False            # device tokens not yet on the host
-        #: the static blocker's reason: this tick never runs
+        #: why this tick latched the uncompiled lane for its life (a static
+        #: blocker, or a mode's first call that failed), or None
         self.fallback_reason = None
         blk = self._static_blocker()
         if blk is not None:
-            self._note_fallback(*blk)
-            self.fallback_reason = blk[1]
+            self._note_fallback(*blk, permanent=True)
             return
         cache = engine.cache
         ns, width = cache.num_slots, engine.max_len
@@ -214,8 +222,10 @@ class CompiledServingTick:
     # eligibility and fallback accounting
     # ------------------------------------------------------------------
 
-    def _note_fallback(self, kind, reason):
-        self.eng._stats.incr("tick.fallbacks")
+    def _note_fallback(self, kind, reason, permanent=False):
+        stats.incr("tick.fallbacks")
+        if permanent:
+            self.fallback_reason = reason
         if kind not in self._warned:
             self._warned.add(kind)
             warnings.warn(
@@ -383,6 +393,83 @@ class CompiledServingTick:
         self._stale = False
 
     # ------------------------------------------------------------------
+    # a mode's first call and its fallback
+    # ------------------------------------------------------------------
+
+    def _first_call(self, mode):
+        """A mode's first tick.  On the card the body's warm-up runs under
+        the host-read probe, then the graph is captured and replayed; on
+        the CPU the body itself, the tick, runs under the probe.  A host
+        read, or an exception from the warm-up or the capture, abandons
+        the tick (`_abandon`) and latches the uncompiled lane with one
+        `TickFallbackWarning`.  Returns whether the tick ran."""
+        step = self._step_for(mode)
+        saved = self._snapshot()
+        try:
+            with host_read_probe(self.eng.device) as probe:
+                if self._stream is None:
+                    step()
+                else:
+                    step.warm_up()
+            found = probe.found
+            if found is None and self._stream is not None:
+                step()                  # capture, then the first replay
+        except SchedulerStallError:
+            raise       # the watchdog's, for the restart wrapper
+        except Exception as exc:  # noqa: BLE001 - latched and warned
+            found = f"{type(exc).__name__}: {exc}"
+        if found is None:
+            return True
+        self._abandon(saved)
+        self._note_fallback("capture", f"tick capture failed ({mode}): "
+                            f"{found}", permanent=True)
+        return False
+
+    def _snapshot(self):
+        """Copies of what a tick writes: the tick's mutable state, the
+        device offsets, and each slot's cache row at its offset (K, V and,
+        quantized, their scales) in every layer."""
+        st, cache = self._state, self.eng.cache
+        tensors = [st[k] for k in ("last", "counts", "alive", "seen", "out",
+                                   "fin")] + [cache.device_offsets]
+        saved = [(t, None, t.clone()) for t in tensors]
+        off = cache.device_offsets.long()
+        page = cache.device_table.long().gather(
+            1, (off // cache.page_size)[:, None])[:, 0]
+        at = (page, off % cache.page_size)
+        for lay in cache.layers:
+            for name in ("k_pool", "v_pool", "k_scale", "v_scale"):
+                t = lay.get(name)
+                if t is not None:
+                    # float8 rows through a byte view, as the cache stores
+                    t = t.view(torch.uint8) if t.element_size() == 1 else t
+                    saved.append((t, at, t[at].clone()))
+        return saved
+
+    def _abandon(self, saved):
+        """Undo a failed first call: wait for the side stream, put back
+        what `_snapshot` copied, bring earlier ticks' tokens to the host,
+        and drop the tick's graphs, their memory pool and its state, so
+        that the uncompiled lane reads the cache as the tick found it."""
+        eng = self.eng
+        if self._stream is not None:
+            torch.cuda.current_stream(eng.device).wait_stream(self._stream)
+            with torch.cuda.stream(self._stream):
+                if torch.cuda.is_current_stream_capturing():
+                    raise RuntimeError("the tick's side stream is still "
+                                       "capturing after a failed capture")
+        for t, at, copy in saved:
+            if at is None:
+                t.copy_(copy)
+            else:
+                t[at] = copy
+        self.flush_to_host()
+        self.steps = {}
+        self._pool = None
+        self._state = None
+        self._rep = {}
+
+    # ------------------------------------------------------------------
     # one tick
     # ------------------------------------------------------------------
 
@@ -392,7 +479,7 @@ class CompiledServingTick:
             self.flush_to_host()        # flag flipped mid-run
             return False
         if self.fallback_reason is not None:
-            eng._stats.incr("tick.fallbacks")
+            stats.incr("tick.fallbacks")
             return False
         blk = self._blocker()
         if blk is not None:
@@ -407,7 +494,6 @@ class CompiledServingTick:
     def _run(self):
         eng = self.eng
         cache = eng.cache
-        stats = eng._stats
         # decode_ms spans the replay and the fin read, as the JAX tick's
         # does; a flush and rebuild before it count in tick_ms only
         t0 = time.monotonic()
@@ -424,7 +510,11 @@ class CompiledServingTick:
             r.sampling.greedy and not r.sampling.uses_penalty
             for r in active.values()) else "mixed"
         first = mode not in self.steps
-        self._step_for(mode)()
+        if first:
+            if not self._first_call(mode):
+                return False
+        else:
+            self.steps[mode]()
         fin = self._state["fin"]
         if self._fin_host is not None:
             # the tick's one device→host read, through pinned memory

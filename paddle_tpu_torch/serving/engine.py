@@ -53,9 +53,18 @@ fresh cache and tick, up to ``max_scheduler_restarts`` times, after
 failing every outstanding future with the error.  The flight recorder
 gets ``drain_begin``/``drain_end``, ``scheduler_restart`` and
 ``scheduler_stall`` (with a ``serving-stall`` dump of every thread's
-stack).  The JAX engine's KV-page migration (``drain(migrate=True)``,
-roles, ``submit_resume``) and request tracing are not ported (ROADMAP
-A7, A6).
+stack), and ``request_done`` / ``request_failed`` for each request.
+
+Telemetry: the engine publishes through `stats` into the process's
+metrics registry under ``serving.`` (`start` resets and declares the
+families; `stats()` is `stats.serving_stats()`).  With
+``FLAGS_trace_dir`` set each request records an ``engine.request`` root
+span with ``engine.queue``, ``engine.prefill`` (its chunks and first
+token as events) and ``engine.decode`` children, ended on every terminal
+path, where the engine makes the trace's one tail-sampling decision
+(`observability.tracing`); `shutdown` spools them.  The JAX engine's
+KV-page migration (``drain(migrate=True)``, roles, ``submit_resume``) and
+its transfer and remote spans are not ported (ROADMAP A7).
 """
 from __future__ import annotations
 
@@ -75,9 +84,11 @@ from ..distributed.fleet.elastic import PreemptionHandler
 from ..distributed.watchdog import all_thread_stacks, async_raise
 from ..models.generation import init_kv_caches, sample_next_token
 from ..observability import flight_recorder as _fr
+from ..observability import tracing
 from ..observability.exporter import maybe_start_exporter
 from ..quantization import kv_quant_params
 from ..utils.flags import flag as _flag
+from . import stats
 from .adapters import AdapterPool
 from .api import (AdapterConfigError, DeadlineExceededError,
                   EngineShutdownError, QueueFullError, RequestCancelledError,
@@ -87,7 +98,6 @@ from .compiled_tick import (CompiledServingTick, fused_sample_call,
                             request_key, sampling_hostable)
 from .kv_slots import SlotKVCache
 from .paged_kv import PagedKVCache, PrefixTree
-from .stats import ServingStats
 
 
 class _Request:
@@ -96,7 +106,7 @@ class _Request:
                  "ttft_ms", "tokens", "seen", "last_token", "slot",
                  "prefill_pos", "shared_len", "prefix_nodes",
                  "draft_prefill_pos", "first_tok", "generator",
-                 "adapter_id", "adapter_slot")
+                 "adapter_id", "adapter_slot", "trace")
 
     def __init__(self, rid, prompt, max_new_tokens, sampling,
                  eos_token_id, deadline, generator):
@@ -121,6 +131,38 @@ class _Request:
         self.generator = generator  # unseeded sampling's own stream
         self.adapter_id = None      # LoRA adapter this request decodes
         self.adapter_slot = 0       # its pool slot (0 = base identity)
+        self.trace = None           # _ReqTrace (tracing armed)
+
+
+class _ReqTrace:
+    """A request's spans, made only with ``FLAGS_trace_dir`` set: the
+    ``engine.request`` root and the phase spans under it (queue wait,
+    chunked prefill, decode).  ``owns_root`` marks a trace the engine
+    minted (no context bound by a caller): only then does the engine end
+    it with the tail-sampling decision and mark its winner."""
+
+    __slots__ = ("root", "queue", "prefill", "decode", "owns_root")
+
+    def __init__(self, root, owns_root):
+        self.root = root
+        self.owns_root = owns_root
+        self.queue = None
+        self.prefill = None
+        self.decode = None
+
+    def finish(self, status, latency_ms, **attrs):
+        """Terminal close: end every phase span still open with the
+        request's outcome (``end`` is idempotent: closed spans keep their
+        own status), end the root, and decide iff the engine owns it."""
+        for sp in (self.queue, self.prefill, self.decode):
+            if sp is not None:
+                sp.end(status=status)
+        self.root.end(status=status,
+                      winner=True if self.owns_root and status == "ok"
+                      else None, **attrs)
+        if self.owns_root:
+            tracing.decide(self.root.ctx.trace_id, status=status,
+                           latency_ms=latency_ms)
 
 
 class Engine:
@@ -184,7 +226,6 @@ class Engine:
                     "ServingConfig.max_seq_len, page_size or "
                     "speculation_k")
         self.draft_cache = None
-        self._stats = ServingStats()
         self._queue: deque[_Request] = deque()
         self._active: dict[int, _Request] = {}
         # requests holding a slot whose prompt is mid-(chunked-)prefill
@@ -192,6 +233,8 @@ class Engine:
         self.prefix_tree = None
         self._max_active = 0
         self._pages_peak = 0
+        self._pool_pub = None           # the pool gauges last published
+        self._pool_iters = 0
         # EVERY unresolved request, from submit() until its future
         # resolves: the audit set _fail_all drains (a request popped for
         # admission is in neither _queue nor _active)
@@ -231,7 +274,7 @@ class Engine:
         if self.scfg.max_adapters > 0:
             self.adapter_pool = AdapterPool(
                 model, self.scfg.max_adapters, self.scfg.adapter_rank_pool,
-                self.scfg.num_slots, stats=self._stats)
+                self.scfg.num_slots)
             for aid, source in (self.scfg.adapters or {}).items():
                 self.adapter_pool.register(aid, source)
 
@@ -241,11 +284,16 @@ class Engine:
         with self._lock:
             if self._running:
                 return self
-            self._stats.reset()
-            self._stats.declare_tick_stats()
+            stats.reset_serving_stats()
+            stats.declare_tick_stats()
+            stats.declare_migration_stats()
+            stats.declare_adapter_stats()
+            stats.declare_trace_stats()
             self.cache = self._new_cache()
             self._tick = self._make_tick()
             self._max_active = 0
+            self._pool_pub = None
+            self._pool_iters = 0
             self._running = True
             self._draining = False
             self._restarts = 0
@@ -325,6 +373,8 @@ class Engine:
         # the loop's finally already failed everything; this covers a
         # shutdown racing a never-started or crashed loop
         self._fail_all(EngineShutdownError("engine shut down"))
+        if tracing.enabled():
+            tracing.spool_now()     # the spans, for the collector
 
     def drain(self, deadline_s=None, migrate=False):
         """Graceful shutdown (the preemption / SIGTERM path): stop
@@ -348,7 +398,7 @@ class Engine:
             self._draining = True
             queued = list(self._queue)
             self._queue.clear()
-            self._stats.set_value("queue_depth", 0)
+            stats.set_value("queue_depth", 0)
             self._work.notify_all()
         if already:
             return
@@ -358,7 +408,7 @@ class Engine:
         for req in queued:
             self._fail(req, EngineShutdownError(
                 f"engine draining: request {req.id} was still queued"))
-            self._stats.incr("requests_cancelled_drain")
+            stats.incr("requests_cancelled_drain")
         deadline = time.monotonic() + deadline_s
         # a poll of the two containers' sizes: no host read of the device,
         # so it never races a replay of the compiled tick
@@ -444,6 +494,17 @@ class Engine:
                        eos_token_id, deadline, gen)
         if adapter_id is not None:
             req.adapter_id = str(adapter_id)
+        if tracing.enabled():
+            # a caller that bound a context (`tracing.bind`) makes the
+            # engine span its child and keeps the decision; with none the
+            # engine mints the root and owns the decision
+            parent = tracing.current()
+            root = tracing.start_span(
+                "engine.request", parent=parent, rid=req.id,
+                prompt_tokens=int(prompt.size))
+            req.trace = _ReqTrace(root, owns_root=parent is None)
+            req.trace.queue = tracing.start_span(
+                "engine.queue", parent=root)
         with self._work:
             if not self._running:
                 raise EngineShutdownError(
@@ -453,15 +514,15 @@ class Engine:
                     "engine is draining (preemption notice); not "
                     "accepting new requests")
             if len(self._queue) >= self.scfg.max_queue:
-                self._stats.incr("requests_rejected_queue_full")
+                stats.incr("requests_rejected_queue_full")
                 raise QueueFullError(
                     f"request queue is full ({self.scfg.max_queue} "
                     "waiting); retry later or raise "
                     "ServingConfig.max_queue")
             self._queue.append(req)
             self._pending[req.id] = req
-            self._stats.incr("requests_submitted")
-            self._stats.set_value("queue_depth", len(self._queue))
+            stats.incr("requests_submitted")
+            stats.set_value("queue_depth", len(self._queue))
             self._work.notify()
         req.future.request_id = req.id       # cancel()'s handle
         return req.future
@@ -494,8 +555,8 @@ class Engine:
                 return True
             self._fail(req, RequestCancelledError(
                 f"request {req.id} cancelled while queued"))
-            self._stats.incr("requests_cancelled")
-            self._stats.set_value("queue_depth", len(self._queue))
+            stats.incr("requests_cancelled")
+            stats.set_value("queue_depth", len(self._queue))
             return True
 
     def _process_cancels_locked(self):
@@ -514,13 +575,14 @@ class Engine:
                 pass
             self._fail(req, RequestCancelledError(
                 f"request {req.id} cancelled"))
-            self._stats.incr("requests_cancelled")
+            stats.incr("requests_cancelled")
             self._release(req)
-        self._stats.set_value("active_slots", len(self._active))
+        stats.set_value("active_slots", len(self._active))
 
     def stats(self):
-        """A snapshot of the engine's counters (`ServingStats.snapshot`)."""
-        return self._stats.snapshot()
+        """`stats.serving_stats()`: the process's serving families, which
+        this engine's `start` reset."""
+        return stats.serving_stats()
 
     # ---------------- multi-tenant LoRA ----------------
     def register_adapter(self, adapter_id, source):
@@ -571,8 +633,10 @@ class Engine:
         finally:
             self._iter_deadline = None
             self._fail_all(EngineShutdownError("engine shut down"))
-            self._stats.set_value("active_slots", 0)
-            self._stats.set_value("queue_depth", 0)
+            stats.set_value("active_slots", 0)
+            stats.set_value("queue_depth", 0)
+            if self._paged and self.cache is not None:
+                self._publish_pool_stats(force=True)
 
     def _run_loop(self):
         """`_loop_once` until a clean shutdown (True) or a crash the
@@ -596,7 +660,7 @@ class Engine:
             swept, self._stall_swept = self._stall_swept, False
             if not (swept and isinstance(exc, SchedulerStallError)):
                 self._fail_all(exc)
-            self._stats.incr("scheduler_restarts")
+            stats.incr("scheduler_restarts")
             _fr.record("serving", "scheduler_restart",
                        error=type(exc).__name__, restarts=self._restarts + 1)
             if self._restarts >= self.scfg.max_scheduler_restarts:
@@ -625,7 +689,7 @@ class Engine:
                     else:
                         slot = self.cache.allocate()
                     admits.append((self._queue.popleft(), slot))
-                self._stats.set_value("queue_depth", len(self._queue))
+                stats.set_value("queue_depth", len(self._queue))
                 if not admits and not self._active \
                         and not self._prefilling:
                     self._iter_deadline = None
@@ -652,7 +716,7 @@ class Engine:
                     self._decode_step()
             if self._paged:
                 self._publish_pool_stats()
-            self._stats.observe("tick_ms",
+            stats.observe("tick_ms",
                                 (time.monotonic() - t_tick) * 1e3)
             self._iter_deadline = None
 
@@ -673,7 +737,7 @@ class Engine:
                 f"scheduler iteration exceeded its step_timeout_s="
                 f"{budget:g}s budget; failing all outstanding requests and "
                 "restarting the decode loop")
-            self._stats.incr("scheduler_stalls")
+            stats.incr("scheduler_stalls")
             _fr.record("serving", "scheduler_stall", budget_s=budget)
             _fr.dump(reason="serving-stall", error=exc, once=True,
                      extra={"stall": {"op": "serving::step", "seq": None,
@@ -694,7 +758,7 @@ class Engine:
                 self._fail(req, DeadlineExceededError(
                     f"request {req.id} expired after "
                     f"{now - req.submit_t:.3f}s in queue"))
-                self._stats.incr("requests_evicted_deadline")
+                stats.incr("requests_evicted_deadline")
             else:
                 keep.append(req)
         self._queue = keep
@@ -702,6 +766,13 @@ class Engine:
     def _prefill(self, req, slot):
         """The slot layout's batch-1 prompt pass into the slot's rows, and
         the request's first token."""
+        tr = req.trace
+        if tr is not None:
+            if tr.queue is not None:
+                tr.queue.end(slot=slot)
+            tr.prefill = tracing.start_span(
+                "engine.prefill", parent=tr.root, slot=slot,
+                prompt_tokens=int(req.prompt.size))
         t0 = time.monotonic()
         caches = init_kv_caches(
             self.cfg.num_layers, 1, self.max_len, self._kv_heads,
@@ -717,14 +788,18 @@ class Engine:
         tok = self._sample_row(logits[:, -1, :], req)
         now = time.monotonic()
         req.ttft_ms = (now - req.submit_t) * 1e3
-        self._stats.observe("ttft_ms", req.ttft_ms)
-        self._stats.observe("prefill_ms", (now - t0) * 1e3)
-        self._stats.incr("prefill_steps")
-        self._stats.incr("prefill_calls")
+        stats.observe("ttft_ms", req.ttft_ms)
+        stats.observe("prefill_ms", (now - t0) * 1e3)
+        stats.incr("prefill_steps")
         req.slot = slot
         self._active[slot] = req
+        if tr is not None:
+            tr.prefill.event("first_token", ttft_ms=round(req.ttft_ms, 3))
+            tr.prefill.end()
+            tr.decode = tracing.start_span(
+                "engine.decode", parent=tr.root, slot=slot)
         self._append_token(req, tok)
-        self._stats.set_value("active_slots", len(self._active))
+        stats.set_value("active_slots", len(self._active))
 
     def _try_admit_paged(self, req):
         """Reserve a slot and the request's worst-case page budget (under
@@ -755,7 +830,7 @@ class Engine:
         if short > 0 and self.prefix_tree is not None:
             freed = self.prefix_tree.evict(short, self.cache.reclaim)
             if freed:
-                self._stats.incr("prefix_cache_evictions", freed)
+                stats.incr("prefix_cache_evictions", freed)
         slot = self.cache.allocate(need, pages)
         if slot is None:
             if nodes:
@@ -774,10 +849,10 @@ class Engine:
                     f"draft cache slot {dslot} diverged from target "
                     f"slot {slot}")
         if self.prefix_tree is not None:
-            self._stats.incr("prefix_cache_hits" if pages
+            stats.incr("prefix_cache_hits" if pages
                              else "prefix_cache_misses")
             if pages:
-                self._stats.incr("prefix_cache_hit_tokens", len(pages) * psz)
+                stats.incr("prefix_cache_hit_tokens", len(pages) * psz)
         req.prefix_nodes = nodes
         req.shared_len = len(pages) * psz
         return slot
@@ -790,14 +865,26 @@ class Engine:
         req.slot = slot
         req.prefill_pos = req.shared_len
         req.first_tok = None
+        tr = req.trace
+        if tr is not None:
+            if tr.queue is not None:
+                tr.queue.end(slot=slot)
+            tr.prefill = tracing.start_span(
+                "engine.prefill", parent=tr.root, slot=slot,
+                prompt_tokens=int(req.prompt.size),
+                shared_len=req.shared_len)
+            if req.adapter_id is not None:
+                # the pool slot was pinned at admission (a cold adapter
+                # paid its hot-load there)
+                tr.prefill.event("adapter_acquire",
+                                 adapter_id=req.adapter_id,
+                                 pool_slot=req.adapter_slot)
         if self.adapter_pool is not None:
             # the slot's row of the persistent index vector now points at
             # the request's pool slot (0 for a base request)
             self.adapter_pool.set_row(slot, req.adapter_slot)
             if req.adapter_id is not None:
-                self._stats.incr("requests_routed_adapter")
-                self._stats.incr_labeled("requests_routed_adapter",
-                                         "adapter", req.adapter_id)
+                stats.adapter_observe(req.adapter_id)
         self.cache.set_offset(slot, req.shared_len)
         if self._spec:
             req.draft_prefill_pos = 0
@@ -818,7 +905,7 @@ class Engine:
                         f"request {req.id} exceeded its deadline "
                         f"mid-prefill at {req.prefill_pos}/"
                         f"{req.prompt.size} tokens"))
-                    self._stats.incr("requests_evicted_deadline")
+                    stats.incr("requests_evicted_deadline")
                     self._release(req)
         if not self._prefilling:
             return
@@ -833,6 +920,9 @@ class Engine:
                 start = starts[row]
                 req.prefill_pos = min(start + chunk, plen)
                 self.cache.set_offset(req.slot, req.prefill_pos)
+                if req.trace is not None and req.trace.prefill is not None:
+                    req.trace.prefill.event("chunk", start=int(start),
+                                            pos=int(req.prefill_pos))
                 if req.prefill_pos < plen:
                     continue
                 # prompt fully cached: sample the first token from the
@@ -844,8 +934,11 @@ class Engine:
                 req.first_tok = self._sample_row(
                     logits[row:row + 1, plen - 1 - start, :], req)
                 req.ttft_ms = (time.monotonic() - req.submit_t) * 1e3
-                self._stats.observe("ttft_ms", req.ttft_ms)
-                self._stats.incr("prefill_steps")
+                stats.observe("ttft_ms", req.ttft_ms)
+                stats.incr("prefill_steps")
+                if req.trace is not None and req.trace.prefill is not None:
+                    req.trace.prefill.event("first_token",
+                                            ttft_ms=round(req.ttft_ms, 3))
                 if self.prefix_tree is not None:
                     self.prefix_tree.insert(req.prompt, self.cache,
                                             req.slot, req.prefix_nodes,
@@ -877,8 +970,15 @@ class Engine:
                 continue    # a concurrent stall sweep already swept it
             tok, req.first_tok = req.first_tok, None
             self._active[req.slot] = req
+            tr = req.trace
+            if tr is not None:
+                if tr.prefill is not None:
+                    tr.prefill.end()
+                tr.decode = tracing.start_span(
+                    "engine.decode", parent=tr.root, slot=req.slot,
+                    spec=self._spec)
             self._append_token(req, tok)
-        self._stats.set_value("active_slots", len(self._active))
+        stats.set_value("active_slots", len(self._active))
 
     def _prefill_chunk_call(self, model, cache, reqs, offs):
         """One batched ``[num_slots, chunk]`` prefill-chunk call of `model`
@@ -912,25 +1012,34 @@ class Engine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)   # time the device work
         dt_ms = (time.monotonic() - t0) * 1e3
-        self._stats.observe("prefill_chunk_ms", dt_ms)
-        self._stats.observe("prefill_ms", dt_ms)
-        self._stats.incr("prefill_chunks", len(reqs))
-        self._stats.incr("prefill_calls")
+        stats.observe("prefill_chunk_ms", dt_ms)
+        stats.observe("prefill_ms", dt_ms)
+        stats.incr("prefill_chunks", len(reqs))
         return logits, starts
 
-    def _publish_pool_stats(self):
+    # the pool gauges' forced cadence: a decode stretch whose page counts
+    # do not move publishes once in this many iterations, not every tick
+    _POOL_PUBLISH_EVERY = 64
+
+    def _publish_pool_stats(self, force=False):
         in_use = self.cache.pages_in_use
         self._pages_peak = max(self._pages_peak, in_use)
-        self._stats.set_value("kv_pages_in_use", in_use)
-        self._stats.set_value("kv_pages_free", self.cache.free_page_count)
-        self._stats.set_value("kv_pages_peak", self._pages_peak)
+        snap = (in_use, self.cache.free_page_count, self._pages_peak)
+        self._pool_iters += 1
+        if not force and snap == self._pool_pub and \
+                self._pool_iters % self._POOL_PUBLISH_EVERY:
+            return
+        self._pool_pub = snap
+        stats.set_value("kv_pages_in_use", in_use)
+        stats.set_value("kv_pages_free", self.cache.free_page_count)
+        stats.set_value("kv_pages_peak", self._pages_peak)
 
     def _decode_step(self):
         """One batched step over ALL slots: the continuous batch."""
         t0 = time.monotonic()
         n_active = len(self._active)
         self._max_active = max(self._max_active, n_active)
-        self._stats.set_value("max_active_slots", self._max_active)
+        stats.set_value("max_active_slots", self._max_active)
         if self._paged:
             # page-by-page growth: a fresh page only when a row's write
             # position crosses a page boundary (reserved at admission)
@@ -955,11 +1064,11 @@ class Engine:
             tok = int(toks[slot]) if toks is not None else \
                 self._sample_row(last[slot:slot + 1, :], req)
             self._append_token(req, tok)
-        self._stats.observe("decode_ms", (time.monotonic() - t0) * 1e3)
-        self._stats.incr("decode_steps")
-        self._stats.incr("slot_steps", self.cache.num_slots)
-        self._stats.incr("slot_steps_active", n_active)
-        self._stats.set_value("active_slots", len(self._active))
+        stats.observe("decode_ms", (time.monotonic() - t0) * 1e3)
+        stats.incr("decode_steps")
+        stats.incr("slot_steps", self.cache.num_slots)
+        stats.incr("slot_steps_active", n_active)
+        stats.set_value("active_slots", len(self._active))
 
     # ---------------- speculative decoding (speculation_k > 0) ----------
     def _can_speculate(self):
@@ -1017,7 +1126,7 @@ class Engine:
         active = dict(self._active)
         n_active = len(active)
         self._max_active = max(self._max_active, n_active)
-        self._stats.set_value("max_active_slots", self._max_active)
+        stats.set_value("max_active_slots", self._max_active)
         tgt_off = {s: int(self.cache.offsets[s]) for s in active}
         d_off0 = {s: int(self.draft_cache.offsets[s]) for s in active}
         draft = self.scfg.draft_model
@@ -1040,7 +1149,7 @@ class Engine:
             for s in active:
                 prev_out[s] = int(toks[s])
                 draft_out[s].append(int(toks[s]))
-        self._stats.observe("spec_draft_ms", (time.monotonic() - t0) * 1e3)
+        stats.observe("spec_draft_ms", (time.monotonic() - t0) * 1e3)
 
         # --- verify: one batched K+1 target call ---
         t0 = time.monotonic()
@@ -1062,7 +1171,7 @@ class Engine:
         logits = self.model(torch.tensor(tok_in, device=self.device),
                             caches=self.cache.layer_caches())
         t = torch.argmax(logits, dim=-1).cpu().numpy()      # [ns, K+1]
-        self._stats.observe("spec_verify_ms", (time.monotonic() - t0) * 1e3)
+        stats.observe("spec_verify_ms", (time.monotonic() - t0) * 1e3)
 
         # --- accept mask + rollback ---
         t0 = time.monotonic()
@@ -1086,14 +1195,14 @@ class Engine:
             d_new = min(d_off0[s] + K, new_off)
             self.draft_cache.set_offset(s, d_new)
             self.draft_cache.rollback(s, d_new)
-        self._stats.observe("spec_rollback_ms",
+        stats.observe("spec_rollback_ms",
                             (time.monotonic() - t0) * 1e3)
-        self._stats.incr("spec_windows")
-        self._stats.incr("spec_proposed_tokens", proposed)
-        self._stats.incr("spec_accepted_tokens", accepted)
-        self._stats.incr("slot_steps", ns)
-        self._stats.incr("slot_steps_active", n_active)
-        self._stats.set_value("active_slots", len(self._active))
+        stats.incr("spec_windows")
+        stats.incr("spec_proposed_tokens", proposed)
+        stats.incr("spec_accepted_tokens", accepted)
+        stats.incr("slot_steps", ns)
+        stats.incr("slot_steps_active", n_active)
+        stats.set_value("active_slots", len(self._active))
 
     def _fused_sampling_ok(self):
         """Whether ONE fused call can sample every active slot this
@@ -1165,14 +1274,14 @@ class Engine:
         req.last_token = tok
         if req.seen is not None:
             req.seen[tok] = True
-        self._stats.incr("tokens_generated")
+        stats.incr("tokens_generated")
         now = time.monotonic()
         if self.scfg.deadline_policy == "evict" and \
                 req.deadline is not None and now > req.deadline:
             self._fail(req, DeadlineExceededError(
                 f"request {req.id} exceeded its deadline after "
                 f"{len(req.tokens)} token(s)"))
-            self._stats.incr("requests_evicted_deadline")
+            stats.incr("requests_evicted_deadline")
             self._release(req)
             return
         reason = None
@@ -1200,7 +1309,20 @@ class Engine:
             req.future.set_result(out)
         except Exception:       # noqa: BLE001 - lost a race to _fail
             return
-        self._stats.incr("requests_completed")
+        stats.incr("requests_completed")
+        if req.trace is not None:
+            if req.trace.decode is not None:
+                req.trace.decode.set(tokens=len(req.tokens))
+            req.trace.finish("ok", out.latency_ms, finish_reason=reason,
+                             tokens=len(req.tokens))
+        # labelled by the id the request span carries (``rid``), so one
+        # request's trace and metrics join
+        stats.request_observe("request_tokens", req.id, len(req.tokens),
+                              help="tokens generated per request")
+        _fr.record("serving", "request_done", request_id=req.id,
+                   reason=reason, tokens=len(req.tokens),
+                   ttft_ms=round(req.ttft_ms, 3)
+                   if req.ttft_ms is not None else None)
 
     def _fail(self, req, exc):
         with self._lock:
@@ -1211,6 +1333,12 @@ class Engine:
             req.future.set_exception(exc)
         except Exception:       # noqa: BLE001 - resolved concurrently
             return
+        if req.trace is not None:
+            req.trace.finish(type(exc).__name__,
+                             (time.monotonic() - req.submit_t) * 1e3,
+                             error=str(exc)[:200])
+        _fr.record("serving", "request_failed", request_id=req.id,
+                   error=type(exc).__name__)
 
     def _release(self, req):
         if req.slot is None:
@@ -1251,4 +1379,4 @@ class Engine:
         for req in reqs:
             if not req.future.done():
                 self._fail(req, exc)
-                self._stats.incr("requests_cancelled_shutdown")
+                stats.incr("requests_cancelled_shutdown")

@@ -41,6 +41,21 @@ defaults:
 - ``FLAGS_flight_recorder_size`` (512), ``FLAGS_flight_recorder_path``
   ("") and ``FLAGS_dump_dir`` (".paddle_tpu_dumps"): the flight
   recorder's ring and where it and the sentinel dump.
+- ``FLAGS_trace_dir`` (""): request tracing (`observability.tracing`)
+  records spans and spools them under this directory as atomic JSONL.
+  Empty: no context objects, no spans, no I/O; each instrumented seam
+  pays one falsy check.
+- ``FLAGS_trace_sample_rate`` (0.05): the tail sampler's floor, the
+  share of fast, healthy traces kept anyway (by a hash of the trace id,
+  so a rerun keeps the same ones).  Errors, evictions and traces slower
+  than ``FLAGS_trace_latency_threshold_ms`` (250.0; 0 keeps every trace)
+  are always kept.
+- ``FLAGS_trace_buffer_cap`` (4096): a process's span ring; completed
+  spans past it are dropped oldest first, and counted.
+- ``FLAGS_serving_request_label_cap`` (1024): at most this many
+  ``request_id``-labelled children a serving family keeps
+  (`serving.stats.request_observe`; the oldest request's child goes
+  first), so a long-lived engine's registry stops growing.
 """
 from __future__ import annotations
 
@@ -69,6 +84,11 @@ _FLAGS: dict[str, Any] = {
     "FLAGS_flight_recorder_size": 512,
     "FLAGS_flight_recorder_path": "",
     "FLAGS_dump_dir": ".paddle_tpu_dumps",
+    "FLAGS_trace_dir": "",
+    "FLAGS_trace_sample_rate": 0.05,
+    "FLAGS_trace_latency_threshold_ms": 250.0,
+    "FLAGS_trace_buffer_cap": 4096,
+    "FLAGS_serving_request_label_cap": 1024,
 }
 
 

@@ -2,14 +2,18 @@
 paddle_tpu/utils/log.py): one ``logging.Logger`` ("paddle_tpu") whose
 lines carry the rank (``PADDLE_TRAINER_ID``, else the ``torch.distributed``
 rank when a process group is up, else "-"), its level from
-``PADDLE_LOG_LEVEL``."""
+``PADDLE_LOG_LEVEL`` or `set_log_level`; `log_every_n` logs every n-th
+call of one message site (the glog idiom)."""
 from __future__ import annotations
 
 import logging
 import os
 import sys
+import threading
 
 _LOGGERS: dict = {}
+_COUNTS: dict = {}
+_COUNTS_LOCK = threading.Lock()
 
 
 def _rank():
@@ -56,3 +60,19 @@ def get_logger(name="paddle_tpu"):
         _LOGGERS[name] = logger
     return logger
 
+
+
+def set_log_level(level):
+    get_logger().setLevel(
+        level.upper() if isinstance(level, str) else level)
+
+
+def log_every_n(level, msg, n=100, *args):
+    """Emit the 1st, (n+1)-th, ... call of this (level, message) site."""
+    key = f"{level}:{msg}"
+    with _COUNTS_LOCK:
+        c = _COUNTS.get(key, 0)
+        _COUNTS[key] = c + 1
+    if c % n == 0:
+        get_logger().log(getattr(logging, level.upper(), logging.INFO),
+                         msg, *args)

@@ -28,6 +28,7 @@ from paddle_tpu_torch import convert, kernels
 from paddle_tpu_torch.framework import prng
 from paddle_tpu_torch.framework.capture import CapturedStep
 from paddle_tpu_torch.models import LlamaForCausalLM, llama_config
+from paddle_tpu_torch.observability.registry import REGISTRY, Histogram
 from paddle_tpu_torch.serving import (DeadlineExceededError, Engine,
                                       PagedKVCache, RequestCancelledError,
                                       SamplingParams, ServingConfig)
@@ -357,6 +358,70 @@ def test_forward_hooks_block_the_tick_but_not_the_adapter_pool(pair, flags):
     assert outs[0].output_ids.size == 4
 
 
+class _HostReadLlama(LlamaForCausalLM):
+    """The tiny Llama whose decode forward reads one value to the host."""
+
+    def forward(self, input_ids, labels=None, caches=None):
+        out = super().forward(input_ids, labels=labels, caches=caches)
+        if input_ids.shape[1] == 1:
+            self.reads.append(float(out[0, 0, 0].item()))
+        return out
+
+
+class _JaxHostReadLlama(JaxLlama):
+    def forward(self, input_ids, labels=None, caches=None):
+        out = super().forward(input_ids, labels=labels, caches=caches)
+        if input_ids.shape[1] == 1:
+            self.reads.append(float(out[0, 0, 0].item()))
+        return out
+
+
+def test_host_read_in_the_decode_forward_falls_back_as_jax(pair, flags):
+    """A decode forward that reads the host cannot be one captured tick:
+    on a mode's first call the port's probe finds the read, the tick
+    latches the uncompiled lane with ONE TickFallbackWarning, as the JAX
+    tick does when its trace fails, and every request completes.  The
+    fallback count, the warning and the tokens equal the JAX engine's,
+    and the tokens equal the port's flag-off lane's.  (The parent raised
+    from the capture on the card and, on the CPU, ran the read.)"""
+    jm, _ = pair
+    jflags.set_flags({k: True for k in TICK_FLAGS})
+    tflags.set_flags({k: True for k in TICK_FLAGS})
+    jh = _JaxHostReadLlama(jax_llama_config("tiny", max_seq_len=64))
+    jh.set_state_dict(jm.state_dict())
+    jh.eval()
+    jh.reads = []
+    th = _HostReadLlama(llama_config("tiny", max_seq_len=64), device="cpu")
+    convert.load_paddle_tpu_state(
+        th, {k: v.numpy() for k, v in jm.state_dict().items()})
+    th.reads = []
+    subs = [(p, 6, None, None) for p in _prompts([5, 9], seed=11)]
+    runs = {}
+    for name, cls, scfg, model, SP in (
+            ("jax", JaxEngine, JaxServingConfig, jh, JaxSamplingParams),
+            ("port", Engine, ServingConfig, th, SamplingParams)):
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            outs, snap, tick = _serve(cls, scfg(num_slots=2), model, subs)
+        mod = jct if name == "jax" else tct
+        tw = [x for x in w if issubclass(x.category, mod.TickFallbackWarning)]
+        runs[name] = (outs, snap, tick, tw)
+    (jouts, jsnap, jtick, jtw), (touts, tsnap, ttick, ttw) = \
+        runs["jax"], runs["port"]
+    assert len(jtw) == len(ttw) == 1, [str(x.message) for x in ttw]
+    assert "host read" in str(ttw[0].message)
+    assert ttick.fallback_reason is not None and ttick.steps == {}
+    assert jtick.fallback_reason is not None
+    assert tsnap["tick_compiled_hits"] == jsnap["tick_compiled_hits"] == 0
+    assert tsnap["tick_fallbacks"] == jsnap["tick_fallbacks"] > 0
+    tflags.set_flags({"FLAGS_compiled_tick": False})
+    off, _, _ = _serve(Engine, ServingConfig(num_slots=2), th, subs)
+    for j, t, o in zip(jouts, touts, off):
+        assert t.finish_reason == j.finish_reason == "length"
+        np.testing.assert_array_equal(t.output_ids, j.output_ids)
+        np.testing.assert_array_equal(t.output_ids, o.output_ids)
+
+
 def _wait_hits(eng, n, timeout=60.0):
     t0 = time.monotonic()
     while eng.stats()["tick_compiled_hits"] < n:
@@ -397,15 +462,18 @@ def test_deadline_eviction_and_cancel_under_the_tick(pair, flags):
 
 def test_tick_stats_declared_at_start(pair, flags):
     """tick_compiled_hits and tick_fallbacks read 0 and tick_ms None
-    before the first iteration; then the hits count decode steps, and the
-    mode's first tick is timed."""
+    before the first iteration, and the registry holds the empty
+    ``serving.tick_ms`` histogram; then the hits count decode steps, and
+    the mode's first tick is timed."""
     _, tm = pair
     eng = Engine(tm, ServingConfig(num_slots=2)).start()
     try:
         snap = eng.stats()
         assert snap["tick_compiled_hits"] == 0
         assert snap["tick_fallbacks"] == 0
-        assert snap["tick_ms_avg"] is None and snap["tick_ms_p50"] is None
+        assert snap["tick_ms_avg"] is None
+        hist = REGISTRY.get("serving.tick_ms")
+        assert isinstance(hist, Histogram) and hist.count == 0
         eng.generate(_prompts([5])[0], max_new_tokens=4)
         snap = eng.stats()
     finally:
@@ -453,7 +521,9 @@ def test_flags_registry_and_environment(monkeypatch, flags):
                "FLAGS_metrics_export_path",
                "FLAGS_metrics_export_interval_s", "FLAGS_peak_flops",
                "FLAGS_flight_recorder_size", "FLAGS_flight_recorder_path",
-               "FLAGS_dump_dir")
+               "FLAGS_dump_dir", "FLAGS_trace_dir", "FLAGS_trace_sample_rate",
+               "FLAGS_trace_latency_threshold_ms", "FLAGS_trace_buffer_cap",
+               "FLAGS_serving_request_label_cap")
     assert tflags.get_flags() == dict(
         {k: True for k in declared}, FLAGS_fault_inject="",
         FLAGS_sentinel=False, FLAGS_hot_spare=False,
@@ -464,7 +534,9 @@ def test_flags_registry_and_environment(monkeypatch, flags):
         FLAGS_sentinel_dump_path="", FLAGS_metrics_export_path="",
         FLAGS_metrics_export_interval_s=10.0, FLAGS_peak_flops=0.0,
         FLAGS_flight_recorder_size=512, FLAGS_flight_recorder_path="",
-        FLAGS_dump_dir=".paddle_tpu_dumps")
+        FLAGS_dump_dir=".paddle_tpu_dumps", FLAGS_trace_dir="",
+        FLAGS_trace_sample_rate=0.05, FLAGS_trace_latency_threshold_ms=250.0,
+        FLAGS_trace_buffer_cap=4096, FLAGS_serving_request_label_cap=1024)
     jflags.set_flags({k: True for k in declared})
     assert tflags.get_flags(list(declared)) == \
         jflags.get_flags(list(declared))

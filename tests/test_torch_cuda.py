@@ -30,6 +30,13 @@ from paddle_tpu_torch.optimizer import lr as lrs
 from paddle_tpu_torch.serving import (AdapterPool, Engine, SamplingParams,
                                       ServingConfig)
 from paddle_tpu_torch.utils import flags as tick_flags
+from paddle_tpu_torch.utils import monitor
+
+
+def _jit_fallbacks():
+    """The process's ``jit.compiled_step_fallback`` count: the eager steps
+    compiled train steps took because they were not eligible."""
+    return monitor.get_monitor_value("jit.compiled_step_fallback")
 
 
 def paged_inputs(seed=0, B=3, H=8, Hkv=2, D=16, psz=8, N=4,
@@ -1431,9 +1438,10 @@ def test_compiled_train_step_replay_equals_eager_on_card(card, case):
           "accum": dict(accum=2)}[case]
     batches = _gpt_batches(card, 6, marked=3 if "scaler_kw" in kw else None)
     eager = _tiny_gpt_lane(card, False, batches, **kw)
+    fallbacks = _jit_fallbacks()
     comp = _tiny_gpt_lane(card, True, batches, **kw)
     cs = comp[4]
-    assert cs.compiled and cs.fallbacks == 0, cs.fallback_reason
+    assert cs.compiled and _jit_fallbacks() == fallbacks, cs.fallback_reason
     assert torch.equal(eager[0], comp[0]) and torch.equal(eager[1], comp[1])
     for a, b in zip(eager[2], comp[2]):
         assert torch.equal(a, b)
@@ -1574,9 +1582,10 @@ def test_optimizer_compiled_replay_equals_eager_on_card(card, name, dtype):
     parameters, every state tensor, fp32 masters in bf16)."""
     batches = _gpt_batches(card, 5)
     eager = _optimizer_lane(card, name, dtype, False, batches)
+    fallbacks = _jit_fallbacks()
     comp = _optimizer_lane(card, name, dtype, True, batches)
     cs = comp[2]
-    assert cs.compiled and cs.fallbacks == 0, cs.fallback_reason
+    assert cs.compiled and _jit_fallbacks() == fallbacks, cs.fallback_reason
     assert [c for c, _, _ in cs.graph_stats().values()] == [1]
     assert torch.isfinite(eager[0]).all()
     assert torch.equal(eager[0], comp[0])
@@ -1672,8 +1681,9 @@ def test_recompute_equals_plain_eager_and_compiled_on_card(card, dtype):
     eager = _tiny_gpt_lane(card, False, batches, dtype=dtype,
                            recompute=True)
     counts = kernels.launch_counts()
+    fallbacks = _jit_fallbacks()
     comp = _tiny_gpt_lane(card, True, batches, dtype=dtype, recompute=True)
-    assert comp[4].compiled and comp[4].fallbacks == 0
+    assert comp[4].compiled and _jit_fallbacks() == fallbacks
     for lane in (eager, comp):
         assert torch.equal(lane[0], plain[0]) and \
             torch.equal(lane[1], plain[1])
@@ -1925,9 +1935,11 @@ def test_model_fit_compiled_step_captures_once(card):
     model = _hapi_gpt(card)
     pipe = D.pipeline(_Ids(24, 128)).shuffle(seed=0).batch(4) \
         .device_prefetch(2)
+    fallbacks = _jit_fallbacks()
     hist = model.fit(pipe, epochs=2, verbose=0, log_freq=1)
     cs = model._compiled_step
-    assert cs.compiled and cs.fallbacks == 0 and cs.fallback_reason is None
+    assert cs.compiled and _jit_fallbacks() == fallbacks
+    assert cs.fallback_reason is None
     stats = cs.graph_stats()
     assert len(stats) == 1
     (captures, replays, _), = stats.values()
@@ -1983,6 +1995,7 @@ def test_sentinel_restore_into_the_graph_on_card(card):
     changes no loss: the health pass writes nothing the update reads)."""
     model = _sentinel_gpt(card)
     batches = _id_batches(card, 14)
+    fallbacks = _jit_fallbacks()
     for x, y in batches[:10]:
         model.train_batch([x], [y])
     cs = model._compiled_step
@@ -1996,7 +2009,7 @@ def test_sentinel_restore_into_the_graph_on_card(card):
     assert model._compiled_step is cs and cs._svec.data_ptr() == svec_ptr
     assert {k: v[0] for k, v in cs.graph_stats().items()} == stats
     assert len(stats) == 2 and all(n == 1 for n in stats.values())
-    assert cs.fallbacks == 0
+    assert _jit_fallbacks() == fallbacks
 
 
 @pytest.mark.cuda
@@ -2169,3 +2182,95 @@ def test_restarts_keep_memory_flat_on_card(card):
     assert st["scheduler_restarts"] == 3
     for lv in levels[1:]:
         assert abs(lv - levels[0]) <= 0.01 * levels[0], levels
+
+
+class _HostRead(torch.nn.Module):
+    """A model whose decode forward reads one value to the host."""
+
+    def __init__(self, inner):
+        super().__init__()
+        self.inner = inner
+        self.config = inner.config
+
+    def forward(self, ids, caches=None):
+        logits = self.inner(ids, caches=caches)
+        if ids.shape[1] == 1:
+            float(logits[0, -1, 0].item())
+        return logits
+
+
+@pytest.mark.cuda
+def test_tick_falls_back_on_a_host_read_on_card(card):
+    """A decode forward that reads the host: the tick's first call finds
+    the read in its warm-up, latches the uncompiled lane with one
+    TickFallbackWarning and counts fallbacks; no graph or side-stream
+    capture is left, the requests complete with the flag-off lane's
+    tokens, and the memory allocated after the run (the engine alive,
+    cuBLAS's workspaces cleared) is within 1 MiB of the flag-off run's."""
+    import gc
+    import warnings
+    from paddle_tpu_torch.serving import TickFallbackWarning
+    model = _HostRead(_tiny_llama(card).eval())
+    subs = [(p, 6, None, None) for p in _tick_prompts()]
+    lanes = {}
+    for tick in (False, True):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            outs, eng = _serve_lane(model, ServingConfig(num_slots=2), subs,
+                                    tick)
+        gc.collect()
+        torch.cuda.synchronize()
+        # torch keeps a cuBLAS workspace for each stream cuBLAS ran on; the
+        # tick's warm-up ran on the engine's side stream, the flag-off run
+        # on none
+        torch._C._cuda_clearCublasWorkspaces()
+        warned = [w for w in caught
+                  if issubclass(w.category, TickFallbackWarning)]
+        with torch.cuda.stream(eng._tick_stream):
+            capturing = torch.cuda.is_current_stream_capturing()
+        # measured with this lane's engine alive and the other lane's gone
+        lanes[tick] = (outs, eng.stats(), torch.cuda.memory_allocated(card),
+                       warned, eng._tick, capturing)
+        del eng
+    off, _, mem_off, _, _, _ = lanes[False]
+    on, st, mem_on, warned, tick, capturing = lanes[True]
+    assert len(warned) == 1 and "host read" in str(warned[0].message)
+    assert st["tick_compiled_hits"] == 0 and st["tick_fallbacks"] > 0
+    assert tick.fallback_reason is not None and tick.steps == {}
+    assert not capturing
+    for a, b in zip(off, on):
+        np.testing.assert_array_equal(a, b)
+    assert abs(mem_on - mem_off) <= 2 ** 20, (mem_on, mem_off)
+
+
+@pytest.mark.cuda
+def test_traced_serve_on_card(card, tmp_path):
+    """Request tracing under the compiled tick on the card: every decode
+    step a replay, the tokens of the untraced run, and each request's
+    trace one root with its queue, prefill and decode spans, one
+    decision and one winner."""
+    from paddle_tpu_torch.observability import tracing
+    model = _tiny_llama(card).eval()
+    subs = [(p, 8, None, None) for p in _tick_prompts(seed=3)]
+    want, _ = _serve_lane(model, ServingConfig(num_slots=2), subs, True)
+    tracing.reset()
+    tick_flags.set_flags({"FLAGS_trace_dir": str(tmp_path),
+                          "FLAGS_trace_latency_threshold_ms": 0.0})
+    try:
+        got, eng = _serve_lane(model, ServingConfig(num_slots=2), subs, True)
+        st = eng.stats()
+        merged = tracing.merge_spools(str(tmp_path))
+    finally:
+        tick_flags.set_flags({"FLAGS_trace_dir": "",
+                              "FLAGS_trace_latency_threshold_ms": 250.0})
+        tracing.reset()
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(a, b)
+    assert st["tick_compiled_hits"] == st["decode_steps"] > 0
+    assert len(merged["traces"]) == len(subs)
+    for tr in merged["traces"]:
+        assert tr["decision_count"] == 1
+        (root,) = [s for s in tr["spans"] if s["parent"] is None]
+        assert root["name"] == "engine.request" and root.get("winner")
+        assert sorted(s["name"] for s in tr["spans"] if s is not root) == \
+            ["engine.decode", "engine.prefill", "engine.queue"]

@@ -20,6 +20,7 @@ from paddle_tpu_torch import convert
 from paddle_tpu_torch.models import GPTForCausalLM, gpt_config
 from paddle_tpu_torch.serving import Engine, SamplingParams, ServingConfig
 from paddle_tpu_torch.utils import flags as tflags
+from paddle_tpu_torch.utils import monitor
 
 TINY = dict(num_layers=2, hidden_size=128, num_heads=4, vocab_size=512,
             max_seq_len=64)
@@ -141,13 +142,14 @@ def test_gpt_slot_at_the_tables_last_rows_beside_a_prefill(pair):
         a = eng.submit(long_p, max_new_tokens=8)
         b = eng.submit(mid_p, max_new_tokens=3)
         a, b = a.result(timeout=300), b.result(timeout=300)
-        st = eng.stats()
+        # the engine's prefill model calls: one prefill_ms observation each
+        prefill_calls = monitor.get_monitor_value("serving.prefill_ms.count")
     assert a.output_ids.size == 4 and a.finish_reason == "length"
     for out, p in ((a, long_p), (b, mid_p)):
         want = tm.generate(torch.from_numpy(p[None]), out.output_ids.size,
                            use_cache=False)[0, p.size:]
         np.testing.assert_array_equal(out.output_ids, want.numpy())
-    assert st["prefill_calls"] >= 2
+    assert prefill_calls >= 2
 
 
 def test_gpt_engine_refuses_capacity_past_the_position_table(pair):

@@ -35,7 +35,7 @@ from paddle_tpu_torch.framework.checkpoint_manager import (
     scan_steps, step_dir_name, validate_finite_state, verify_checkpoint)
 from paddle_tpu_torch.nn import Linear
 from paddle_tpu_torch.optimizer import SGD, AdamW
-from paddle_tpu_torch.utils import fault_injection, flags
+from paddle_tpu_torch.utils import fault_injection, flags, monitor
 from paddle_tpu_torch.utils.fault_injection import (FaultSpecError,
                                                     InjectedFault)
 
@@ -207,11 +207,12 @@ def test_restore_latest_skips_and_gcs_torn_checkpoint(tmp_path):
     mgr.save(_state(1.0), step=0)
     mgr.save(_state(2.0), step=1)
     (tmp_path / step_dir_name(1) / "manifest.json").unlink()
+    before = monitor.get_monitor_value("ckpt.torn_skipped")
     state, step = mgr.restore_latest()
     assert step == 0
     assert torch.equal(state["w"], torch.full((4, 4), 1.0))
     assert not (tmp_path / step_dir_name(1)).exists()
-    assert mgr.torn_skipped == 1
+    assert monitor.get_monitor_value("ckpt.torn_skipped") == before + 1
 
 
 def test_crc_mismatch_detected_as_corrupt(tmp_path):
@@ -229,10 +230,11 @@ def test_crc_mismatch_detected_as_corrupt(tmp_path):
 
 def test_retention_keeps_last_n(tmp_path):
     mgr = _mgr(tmp_path, max_to_keep=2)
+    before = monitor.get_monitor_value("ckpt.retention_deleted")
     for s in range(5):
         mgr.save(_state(float(s)), step=s)
     assert mgr.all_steps(valid_only=False) == [3, 4]
-    assert mgr.retention_deleted == 3
+    assert monitor.get_monitor_value("ckpt.retention_deleted") == before + 3
 
 
 def test_retention_never_deletes_last_valid(tmp_path):
@@ -426,13 +428,14 @@ def test_loaded_state_survives_donating_compiled_step(tmp_path):
 
 def test_anchor_survives_retention(tmp_path):
     mgr = _mgr(tmp_path, max_to_keep=1)
+    before = monitor.get_monitor_value("ckpt.anchor_saves")
     mgr.save_anchor(_state(9.0), step=3)
     for s in range(4):
         mgr.save(_state(float(s)), step=s)
     assert mgr.all_steps(valid_only=False) == [3]
     state, step = mgr.restore_anchor()
     assert step == 3 and torch.equal(state["w"], torch.full((4, 4), 9.0))
-    assert mgr.anchor_saves == 1
+    assert monitor.get_monitor_value("ckpt.anchor_saves") == before + 1
 
 
 def test_validate_finite_refuses_nan(tmp_path):

@@ -37,6 +37,7 @@ from paddle_tpu_torch import regularizer as treg
 from paddle_tpu_torch.framework import CompiledTrainStep
 from paddle_tpu_torch.nn import Linear
 from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm, ClipGradByNorm
+from paddle_tpu_torch.utils import monitor
 
 SHAPES = ((8, 4), (16,), (3, 5))
 STEPS = 3
@@ -119,6 +120,15 @@ def _run(make, params, grads, dtype="float32", setup=None):
         jo.step()
         to.step()
     return jo, to, jps, tps
+
+
+def _quad_loss(ps, coefs, to_tensor):
+    """sum_i sum(p_i * p_i * c_i): its gradient, 2 p c, moves with p."""
+    loss = None
+    for p, c in zip(ps, coefs):
+        term = (p * p * to_tensor(c)).sum()
+        loss = term if loss is None else loss + term
+    return loss
 
 
 # name: (make, tolerance)
@@ -411,6 +421,7 @@ def test_compiled_body_equals_eager_step(name):
         def fwd(x, y):
             return ((m(x) - y) ** 2).mean()
         cs = CompiledTrainStep(fwd, opt, network=m) if compiled else None
+        fallbacks = monitor.get_monitor_value("jit.compiled_step_fallback")
         losses = []
         for x, y in batches:
             if compiled:
@@ -422,7 +433,8 @@ def test_compiled_body_equals_eager_step(name):
                 opt.clear_grad()
             losses.append(float(loss))
         if compiled:
-            assert cs.compiled and cs.fallbacks == 0, cs.fallback_reason
+            assert cs.compiled and monitor.get_monitor_value("jit.compiled_step_fallback") == fallbacks, \
+                cs.fallback_reason
         state = [p.detach().clone() for p in m.parameters()]
         state += [v for vals in opt._state.values() for v in vals
                   if v is not None]
@@ -494,3 +506,28 @@ def test_lbfgs_compiled_step_falls_back_with_one_warning():
                                    paddle.optimizer.LBFGS(parameters=[jw]))
     assert cs.fallback_reason == jcs.fallback_reason == \
         "LBFGS.step is overridden (closure-style optimizers run eagerly)"
+
+
+@pytest.mark.parametrize("name", ["sgd", "adamw"])
+def test_minimize_matches_jax(name):
+    """``opt.minimize(loss)`` is ``loss.backward()``, `step` and
+    `clear_grad`, as JAX's ``Optimizer.minimize``: 3 steps of a loss whose
+    gradient depends on the weights give JAX's weights and state, and
+    leave every gradient zeroed (ROADMAP Queue C 3: the port had no
+    ``minimize``)."""
+    params, _ = _data(7)
+    rng = np.random.default_rng(8)
+    coefs = [[rng.normal(size=s).astype(np.float32) for s in SHAPES]
+             for _ in range(STEPS)]
+    jps, tps = _pair(params)
+    jo = CASES[name](paddle.optimizer, jreg, jps)
+    to = CASES[name](topt, treg, tps)
+    for cs in coefs:
+        jo.minimize(_quad_loss(jps, cs, paddle.to_tensor),
+                    startup_program=None, parameters=None, no_grad_set=None)
+        to.minimize(_quad_loss(tps, cs, torch.from_numpy),
+                    startup_program=None, parameters=None, no_grad_set=None)
+        for jp, tp in zip(jps, tps):
+            assert not tp.grad.any()
+            assert not np.asarray(jp.grad._data).any()
+    _assert_same(jo, to, jps, tps)

@@ -2,6 +2,7 @@
 its entry points refuse to fall back to the CPU on their own, and its
 kernel build is keyed by the sources' content."""
 import ast
+import importlib
 from pathlib import Path
 
 import pytest
@@ -113,3 +114,75 @@ def test_runtime_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         load(str(tmp_path / "s.pkl"))
     assert CheckpointManager(str(tmp_path), map_location="cpu") \
         .restore_latest()[1] == 0
+
+
+def _jax_init_exports():
+    """(port package, name) for every name a paddle_tpu package's
+    ``__init__`` imports from one of its own modules (``from .m import
+    X``, ``from . import m``) whose port counterpart exists and defines it:
+    read from the JAX package's source, so no JAX is imported."""
+    jax_root = ROOT / "paddle_tpu"
+    port_root = Path(paddle_tpu_torch.__file__).parent
+    out = []
+    for init in sorted(jax_root.rglob("__init__.py")):
+        rel = init.parent.relative_to(jax_root)
+        if not (port_root / rel / "__init__.py").exists():
+            continue
+        pkg = ".".join(("paddle_tpu_torch",) + rel.parts)
+        for node in ast.parse(init.read_text()).body:
+            if not isinstance(node, ast.ImportFrom) or node.level != 1:
+                continue
+            for alias in node.names:
+                name = alias.asname or alias.name
+                if name.startswith("_") or alias.name == "*":
+                    continue
+                mod = node.module or alias.name
+                path = port_root.joinpath(*rel.parts, *mod.split("."))
+                if not (path.with_suffix(".py").exists()
+                        or (path / "__init__.py").exists()):
+                    continue
+                if node.module is not None and not hasattr(
+                        importlib.import_module(f"{pkg}.{node.module}"),
+                        alias.name):
+                    continue        # not ported yet (ROADMAP queues)
+                out.append((pkg, name))
+    return out
+
+
+def test_packages_export_what_jax_exports():
+    """Each ported package exports what its JAX ``__init__`` exports from
+    a module the port has (ROADMAP Queue C 4: ``framework``'s checkpoint
+    and sentinel names, ``models``' ``GPTModel`` / ``LlamaModel`` and the
+    presets, ``utils``' ``set_flags`` / ``get_flags``, ``serving``'s
+    stats, ...)."""
+    pairs = _jax_init_exports()
+    assert ("paddle_tpu_torch.framework", "CheckpointManager") in pairs
+    missing = [f"{pkg}.{name}" for pkg, name in pairs
+               if not hasattr(importlib.import_module(pkg), name)]
+    assert not missing, missing
+
+
+def test_log_level_and_log_every_n():
+    """`utils.log.set_log_level` and `log_every_n`, as JAX's: the 1st,
+    4th and 7th of 7 calls of one site are emitted at n = 3."""
+    import logging
+    from paddle_tpu_torch.utils import log
+    logger = log.get_logger()
+    old = logger.level
+    seen = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            seen.append(record.getMessage())
+    handler = Keep()
+    logger.addHandler(handler)
+    try:
+        log.set_log_level("warning")
+        assert logger.level == logging.WARNING
+        log.set_log_level(logging.INFO)
+        for i in range(7):
+            log.log_every_n("info", "every-n site %d", 3, i)
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(old)
+    assert seen == ["every-n site 0", "every-n site 3", "every-n site 6"]

@@ -128,6 +128,7 @@ def test_drain_completes_inflight_fails_queued(pair, flags, tick):
     queued = [eng.submit(PROMPT, max_new_tokens=25) for _ in range(3)]
     n_begin = len(_events("drain_begin"))
     eng.drain(deadline_s=60)
+    st = eng.stats()        # before _greedy's engine resets the families
     want = _greedy(tm, PROMPT, 25)
     for f in inflight:
         out = f.result(timeout=1)
@@ -138,7 +139,6 @@ def test_drain_completes_inflight_fails_queued(pair, flags, tick):
             f.result(timeout=1)
     with pytest.raises(EngineShutdownError):
         eng.submit(PROMPT)
-    st = eng.stats()
     assert st["requests_cancelled_drain"] == 3
     assert (st["tick_compiled_hits"] == st["decode_steps"] > 0) == tick
     assert len(_events("drain_begin")) == n_begin + 1
