@@ -68,9 +68,10 @@ last line:
             requests all greedy with (a) the target as its own draft (its
             own draft cache), (b) a 2-layer early-exit draft holding
             copies of the target's embedding, layers 0-1, final norm and
-            head, (c) (a) with int8 pools on the first 4 requests, and
-            (d) the serve traffic as it is (two seeded-sampled requests:
-            their iterations take the plain step); each against the plain compiled lane on the same
+            head, (c) (a) with int8 pools, and (d) the serve traffic as it
+            is (request 3 seeded-sampled: its iterations take the plain
+            step), (b)-(d) on the first 4 requests; each against the plain
+            compiled lane on the same
             requests: greedy tokens equal before each request's first
             near tie (the plain lane's top-two logit margin under tau =
             2 x the largest logit difference between the plain step's
@@ -81,7 +82,8 @@ last line:
             prefix tree's, paged decode and RMS norm launched at least as
             the windows and steps need; ms a window, tokens a window, the
             draft / verify / rollback ms, ms a generated token beside the
-            plain lane's, peak memory.  Exact lanes: fp32, 2 layers at
+            plain lane's, peak memory.  Exact lanes (the first 4
+            requests): fp32, 2 layers at
             Llama-2 7B and GPT-3 6.7B width (GPT at max_seq_len 2044 = its
             2048 positions less K; 2048 with K refused), 1-layer
             early-exit drafts: spec tokens equal the plain ones
@@ -117,6 +119,34 @@ last line:
             model at 7B width whose decode forward calls .item(): one
             TickFallbackWarning, fallbacks counted, no compiled tick, the
             flag-off lane's tokens, memory within 1 MiB of its run's
+5f. serve-fleet  prefill/decode disaggregation across processes on the
+            one card (`ServingFleet`, the ``spawn`` context, a router with
+            disaggregation on; each replica builds its model from seed 0
+            and the weights' checksums must agree): (a) Llama-2 7B, bf16,
+            4 slots, context 1024, the tick on, prefill replica-0 ->
+            decode replica-1 over the serve traffic (request 5 submitted
+            once request 2's prompt pages are in the prefill replica's
+            tree): no migration fallback, every request decoded by
+            replica-1, no paged decode on replica-0, replica-1's launches
+            during the traffic = its replays x its graphs' launches (32
+            paged decodes a replay), every decode step a tick, greedy
+            tokens equal the serve phase's under the tie rule (tau and the
+            margins computed before the serve model is freed), every slot
+            free and every page back; migrations, pages and bytes,
+            migrate_ms p50 and max, TTFT p50, the decode replica's ms/step,
+            the fleet's start, each replica's peak memory; (b) int8 pools
+            at 2 layers of 7B width in fp32 (prefill replica-0, decode
+            replicas 1 and 2), requests 0-3: tokens equal one int8
+            engine's bit for bit, the adopted pages and scales hash equal
+            to the sender's rows; (d) that run traced: each request one
+            trace over the three processes (router root, prefill,
+            engine.migrate, the resumed request), trace_analyze --strict,
+            check_telemetry; (c) drills with 48-token prompts and 900 new
+            tokens: drain_replica of a decode replica mid-decode (its
+            slots finish on the other, no prompt prefilled again, none
+            resubmitted), SIGKILL of the other mid-decode (every request
+            recovered), flip_role of replica-0 to decode (rejoins at a
+            bumped generation)
 6. parity   a 2-layer model at the 7B widths in fp32 with the same
             weights served on the CPU (plain versions, the tick's eager
             body) and on the card (kernels, the tick's graphs): greedy and
@@ -268,7 +298,9 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import gc
+import hashlib
 import json
 import os
 import shutil
@@ -319,9 +351,10 @@ from paddle_tpu_torch.optimizer import lr as lrs
 from paddle_tpu_torch.quantization import (KV_QUANT_DTYPES, dequantize_kv,
                                            kv_quant_params, quantize_kv_rows)
 from paddle_tpu_torch.serving import (Engine, EngineShutdownError,
-                                      PagedKVCache, SamplingParams,
+                                      PagedKVCache, ReplicaConfig,
+                                      RouterConfig, SamplingParams,
                                       SchedulerStallError, ServingConfig,
-                                      SlotKVCache)
+                                      ServingFleet, SlotKVCache)
 from paddle_tpu_torch.serving import stats as sstats
 from paddle_tpu_torch.serving.compiled_tick import (CompiledServingTick,
                                                     TickFallbackWarning)
@@ -333,7 +366,7 @@ PEAK_OPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
             torch.float32: 67e12}           # dense; fp32 outside tensor cores
 PHASES = ("device", "build", "kernels", "serve", "serve-lora-int8",
           "serve-tick", "serve-spec", "serve-resilience", "serve-telemetry",
-          "parity", "train", "train-parity",
+          "serve-fleet", "parity", "train", "train-parity",
           "train-compiled-parity", "train-gpt2", "gpt2-parity", "attn-ops",
           "train-optimizers", "serve-gpt", "gpt-parity", "generate-gpt",
           "train-gpt2-recompute", "fit-gpt2", "fit-llama", "sentinel-gpt2",
@@ -2355,7 +2388,8 @@ def tie_margin(tag, model, prompts, outs, dtype, route):
     base = {i: replay_logits(model, prompts[i], outs[i].output_ids, dtype)
             for i in (0, 1)}
     shifts, diffs = {}, {}
-    for name, kw in (("batch 4", dict(rows=4)), route):
+    # a route that is the batch-4 step itself is replayed once
+    for name, kw in dict((("batch 4", dict(rows=4)), route)).items():
         other = {i: replay_logits(model, prompts[i], outs[i].output_ids,
                                   dtype, **kw) for i in base}
         shifts[name] = max(gap_shift(base[i], other[i]) for i in base)
@@ -2616,9 +2650,10 @@ def exact_lanes(tag, dev, prompts, layers=2, gpt=False):
 def phase_serve_spec(dev, model):
     """Llama-2 7B, bf16, 4 slots, context 1024, K 4, the serve phase's 8
     requests with 32 new tokens: (a) the target as its own draft (own draft
-    cache), (b) a 2-layer early-exit draft, (c) (a) with int8 pools on
-    the first 4 requests, all greedy; (d) the serve traffic as it is (two seeded-sampled requests:
-    speculation disengages while they decode).  Greedy tokens against the
+    cache), all greedy; on the first 4 requests (b) a 2-layer early-exit
+    draft and (c) (a) with int8 pools, all greedy, and (d) the traffic as
+    it is (request 3 seeded-sampled: speculation disengages while it
+    decodes).  Greedy tokens against the
     plain compiled lane's under the tie rule; acceptance, pages, launches,
     ms a window and a token, peak memory.  Then the exact fp32 lanes."""
     tag = "serve-spec"
@@ -2639,11 +2674,13 @@ def phase_serve_spec(dev, model):
     draft2 = early_exit_draft(model, 2, dev)
     # the agreeing lanes' target is wrapped to record each rejection's gap
     # in the verify logits (and is its own draft, wrapped alike)
-    # (c) serves the first 4 requests only: the script's time budget
+    # (b), (c) and (d) serve the first 4 requests only (request 3 is
+    # seeded-sampled): the script's time budget
     lanes = (("(a) agreeing", None, "bfloat16", greedy, "bf16"),
-             ("(b) early exit", draft2, "bfloat16", greedy, "bf16"),
+             ("(b) early exit", draft2, "bfloat16", greedy[:4], "bf16"),
              ("(c) agreeing int8", None, "int8", greedy[:4], "int8"),
-             ("(d) serve traffic", model, "bfloat16", sampling, "as-is"))
+             ("(d) serve traffic", model, "bfloat16", sampling[:4],
+              "as-is"))
     results, gaps = {}, {}
     for lane, draft, dtype, samp, ref in lanes:
         target = VerifyLog(model) if draft is None else model
@@ -2714,10 +2751,11 @@ def phase_serve_spec(dev, model):
                              f"{st_d.get('decode_steps', 0)} plain steps")
     del draft2
     torch.cuda.empty_cache()
-    exact_lanes(tag, dev, prompts)
+    # the exact lanes serve the first 4 requests: the script's time budget
+    exact_lanes(tag, dev, prompts[:4])
     torch.cuda.empty_cache()
     gpt_prompts, _ = serve_requests(50257)
-    exact_lanes(tag, dev, gpt_prompts, gpt=True)
+    exact_lanes(tag, dev, gpt_prompts[:4], gpt=True)
     torch.cuda.empty_cache()
     return plain["as-is"][0], margins["as-is"]
 
@@ -3305,6 +3343,540 @@ def phase_serve_telemetry(dev, model, plain=None, serve_st=None,
     shutil.rmtree(root, ignore_errors=True)
     # (c) the tick's fallback
     tick_fallback_drill(tag, dev, prompts[:2])
+
+
+# ----------------------------------------------------------- serve-fleet
+#: the int8 lane's and the drills' depth (2 of Llama-2 7B's 32 layers)
+FLEET_LAYERS = 2
+#: the drills' requests: the first 48 tokens of the int8 lane's prompts,
+#: then 900 new tokens, so that every request is still decoding on a
+#: 2-layer replica when a drill lands (a SIGTERM is seen within 0.25 s)
+DRILL_PROMPT, DRILL_NEW = 48, 900
+
+
+def fleet_factory(dev, dtype, layers=None):
+    """The replicas' model factory: a picklable partial of the port's
+    class, so each spawned replica builds the model itself on the card
+    from seed 0 (this script is the spawned processes' main module, but
+    the factory needs nothing of it)."""
+    kw = {} if layers is None else {"num_layers": layers}
+    return functools.partial(LlamaForCausalLM, llama_config("llama2-7b", **kw),
+                             device=str(dev), dtype=dtype, seed=0)
+
+
+def weights_digest(model, chunk=1 << 22):
+    """Each parameter's sum and sum of squares in fp64, read in one
+    transfer: the checksum two processes compare before any token.  Taken
+    in chunks of ``chunk`` elements, so its fp64 copies stay small beside
+    the replica's peak memory."""
+    out = []
+    with torch.no_grad():
+        for p in model.parameters():
+            acc = torch.zeros(2, dtype=torch.float64, device=p.device)
+            for c in p.detach().reshape(-1).split(chunk):
+                c = c.double()
+                acc += torch.stack([c.sum(), c.square().sum()])
+            out.append(acc)
+        return torch.stack(out).cpu().tolist()
+
+
+def _pages_digest(parts):
+    h = hashlib.sha256()
+    for t in parts:
+        if t is not None:
+            h.update(t.contiguous().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def log_pages(eng):
+    """From now on, hash every slot's pages the engine's cache exports
+    (the bytes of the sender's pool rows) and, after each adoption, the
+    adopted pages read back from the receiver's pools: equal hashes mean
+    equal bytes."""
+    cache, log_ = eng.cache, []
+    export, adopt = cache.export_pages, cache.adopt_pages
+
+    def export_pages(slot):
+        out = export(slot)
+        log_.append(("sent", _pages_digest(out[1:])))
+        return out
+
+    def adopt_pages(*a, **kw):
+        slot = adopt(*a, **kw)
+        if slot is not None:
+            log_.append(("adopted", _pages_digest(export(slot)[1:])))
+        return slot
+    cache.export_pages, cache.adopt_pages = export_pages, adopt_pages
+    eng.page_log = log_
+
+
+def fleet_probe(name, op="read", arg=None):
+    """An rpc target run inside replica ``name``'s process: ``"reset"``
+    zeroes the kernels' launch counts and the exact histograms (installing
+    `SERVE_RECORD` there), ``"digest"`` returns `weights_digest`,
+    ``"pages"`` starts `log_pages`, ``"flags"`` sets flags, ``"cached"``
+    whether the prefix tree holds ``arg``'s full pages (read-only),
+    ``"read"`` returns what the phase checks."""
+    from paddle_tpu_torch.serving import fleet as sfleet
+    eng = sfleet._REPLICAS[name].engine
+    SERVE_RECORD.install()
+    if op == "reset":
+        SERVE_RECORD.hists = {}
+        kernels.reset_launch_counts()
+        return None
+    if op == "digest":
+        return weights_digest(eng.model)
+    if op == "pages":
+        return log_pages(eng)
+    if op == "flags":
+        return port_flags.set_flags(arg)
+    if op == "cached":
+        tree, node = eng.prefix_tree, None
+        with eng._lock:
+            node = tree.root
+            for i in range(len(arg) // tree.page_size):
+                node = node.children.get(tree._page_key(arg, i))
+                if node is None:
+                    return False
+        return True
+    hists = {k: list(v) for k, v in SERVE_RECORD.hists.items()}
+    return {"counts": kernels.launch_counts(), "stats": dict(eng.stats()),
+            "hists": hists, "graphs": eng._tick.graph_stats()
+            if eng._tick is not None else {},
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9
+            if torch.cuda.is_available() else 0.0,
+            "pages_in_use": eng.cache.pages_in_use,
+            "free_slots": eng.cache.free_slots,
+            "num_slots": eng.cache.num_slots,
+            "tree_pages": eng.prefix_tree.cached_pages()
+            if eng.prefix_tree is not None else 0,
+            "active": len(eng._active), "pending": len(eng._pending),
+            "page_log": list(getattr(eng, "page_log", ()))}
+
+
+def probe(names, op="read", arg=None):
+    from paddle_tpu_torch.distributed import rpc
+    return {n: rpc.rpc_sync(n, fleet_probe, args=(n, op, arg), timeout=120)
+            for n in names}
+
+
+def fleet_reference(dev, model, plain=None):
+    """What the fleet's 7B tokens are held to, as host data kept after the
+    model is freed: the serve phase's single-engine outputs (run here when
+    the serve phase did not), the tie margin tau (the largest shift of a
+    top gap from the plain step at batch 1 to batch 4, teacher-forced),
+    each greedy request's top-two margins over its tokens, and the
+    weights' digest."""
+    tag = "serve-fleet"
+    prompts, sampling = serve_requests(model.config.vocab_size)
+    if plain is None:
+        plain = serve_run(model, dev, serve_cfg(), prompts, sampling)[0]
+    # the replicas run the serve phase's shapes: a [4, 32] prefill chunk
+    # call and a 4-slot tick, so the one route is the batch-4 step
+    tau, have = tie_margin(tag, model, prompts, plain, "bfloat16",
+                           ("batch 4", dict(rows=4)))
+    margins = {i: have[i] if i in have else margins_of(replay_logits(
+        model, prompts[i], plain[i].output_ids, "bfloat16"))
+        for i, s in enumerate(sampling) if s.greedy}
+    return {"plain": [types.SimpleNamespace(output_ids=o.output_ids.copy())
+                      for o in plain],
+            "tau": tau, "margins": margins, "digest": weights_digest(model)}
+
+
+def start_fleet(factory, roles, scfg, warmup=None, ttl=10.0):
+    """A `ServingFleet` of ``roles`` behind a disaggregating router (leases
+    of ``ttl`` s); returns it and the seconds from spawn to every replica
+    ``ready``."""
+    fleet = ServingFleet(
+        factory, len(roles), scfg,
+        ReplicaConfig(heartbeat_interval_s=0.5, heartbeat_ttl_s=ttl),
+        RouterConfig(heartbeat_ttl_s=ttl, poll_interval_s=0.1,
+                     disaggregation=True, rpc_timeout_s=600.0,
+                     request_timeout_s=600.0),
+        warmup_prompt=warmup, roles=roles)
+    t0 = time.monotonic()
+    try:
+        fleet.start(warmup_timeout_s=600)
+    except BaseException:
+        fleet.shutdown()
+        raise
+    return fleet, time.monotonic() - t0
+
+
+def check_digests(tag, digests, want=None):
+    vals = list(digests.values()) + ([want] if want is not None else [])
+    if any(v != vals[0] for v in vals):
+        diff = max(abs(x - y) for v in vals for a, b in zip(v, vals[0])
+                   for x, y in zip(a, b))
+        raise AssertionError(f"[{tag}] the replicas' weights differ: {diff}")
+
+
+def pct(vals, q):
+    return float(np.percentile(np.asarray(vals, np.float64), q)) \
+        if len(vals) else float("nan")
+
+
+def fleet_main_path(tag, dev, ref):
+    """(a) Llama-2 7B, bf16, 4 slots, context 1024, the tick on: prefill
+    replica-0 → decode replica-1 over the serve traffic."""
+    cfg = llama_config("llama2-7b")
+    prompts, sampling = serve_requests(cfg.vocab_size)
+    warm = np.arange(1, 40, dtype=np.int32)
+    fleet, start_s = start_fleet(fleet_factory(dev, torch.bfloat16),
+                                 ["prefill", "decode"], serve_cfg(), warm)
+    names = ["replica-0", "replica-1"]
+    try:
+        check_digests(tag, probe(names, "digest"), ref["digest"])
+        # both tick modes captured on the decode replica before the counts
+        # start: a greedy and a seeded, penalised request migrate there
+        for sp in (SamplingParams(), SamplingParams(
+                temperature=1.0, top_p=0.9, repetition_penalty=1.1, seed=1)):
+            fleet.generate(warm, max_new_tokens=4, sampling=sp, timeout=600)
+        probe(names, "reset")
+        before = probe(names)
+        # request 5 once request 2's prompt pages are in the prefill
+        # replica's tree: that replica frees a slot as soon as a prompt's
+        # pages have moved (not after its 32 tokens, as the single engine
+        # does), so it could admit request 5 before request 2's prefill ends
+        t0 = time.monotonic()
+        futs = {i: fleet.submit(prompts[i], max_new_tokens=32,
+                                sampling=sampling[i])
+                for i in range(len(prompts)) if i != 5}
+        wait_for(tag, "request 2's prompt pages in the prefill replica's "
+                 "tree", lambda: probe(["replica-0"], "cached",
+                                       prompts[2][:64])["replica-0"],
+                 timeout=600)
+        futs[5] = fleet.submit(prompts[5], max_new_tokens=32,
+                               sampling=sampling[5])
+        outs = [futs[i].result(timeout=600) for i in range(len(prompts))]
+        wall = time.monotonic() - t0
+        after = probe(names)
+        route = list(SERVE_RECORD.hists.get("router.route_latency_ms",
+                                            ()))[-len(prompts):]
+    finally:
+        fleet.shutdown()
+    p, d = after["replica-0"], after["replica-1"]
+    dp = {k: d["stats"][k] - before["replica-1"]["stats"][k]
+          for k in ("decode_steps", "tick_compiled_hits", "prefill_chunks")}
+    pp = {k: p["stats"][k] - before["replica-0"]["stats"][k]
+          for k in ("migration_fallbacks", "migrations", "prefix_cache_hits",
+                    "migration_pages_sent", "prefill_chunks")}
+    replays = {m: (g[0] - before["replica-1"]["graphs"].get(m, (0, 0))[0],
+                   g[1] - before["replica-1"]["graphs"].get(m, (0, 0))[1],
+                   g[2]) for m, g in d["graphs"].items()}
+    bad = [o.request_id for o in outs if o.decoded_by != "replica-1"]
+    if bad or pp["migration_fallbacks"] or pp["migrations"] != 8:
+        raise AssertionError(f"[{tag}] (a) requests {bad} not decoded by "
+                             f"replica-1; {pp}")
+    if p["counts"]["paged_decode"]:
+        raise AssertionError(f"[{tag}] (a) the prefill replica launched "
+                             f"{p['counts']['paged_decode']} paged decodes")
+    if not (dp["tick_compiled_hits"] == dp["decode_steps"] > 0) or \
+            dp["prefill_chunks"]:
+        raise AssertionError(f"[{tag}] (a) decode replica {dp}")
+    need = {k: sum(r * launches.get(k, 0) for _, r, launches
+                   in replays.values()) for k in ("paged_decode", "rms_norm")}
+    if any(c for c, _, _ in replays.values()) or \
+            need["paged_decode"] != cfg.num_layers * sum(
+                r for _, r, _ in replays.values()) or \
+            {k: d["counts"][k] for k in need} != need:
+        raise AssertionError(f"[{tag}] (a) decode replica launches "
+                             f"{d['counts']} for replays {replays}")
+    if pp["prefix_cache_hits"] < 1:
+        raise AssertionError(f"[{tag}] (a) no prefix hit on the prefill "
+                             "replica")
+    # every slot free and every page back: in the free list or held by a
+    # prefix tree (the prefill replica's prompts; the decode replica's own
+    # warm-up prompt: adopted pages never enter a tree)
+    for r in (p, d):
+        if r["free_slots"] != r["num_slots"] or r["active"] or \
+                r["pages_in_use"] != r["tree_pages"]:
+            raise AssertionError(f"[{tag}] (a) pages left: prefill "
+                                 f"{p['pages_in_use']} (tree "
+                                 f"{p['tree_pages']}), decode "
+                                 f"{d['pages_in_use']} (tree "
+                                 f"{d['tree_pages']})")
+    greedy = [o if sampling[i].greedy else None for i, o in enumerate(outs)]
+    check_ties(tag, "(a) fleet", ref["plain"], greedy, ref["margins"],
+               ref["tau"])
+    for i, o in enumerate(outs):
+        if o.output_ids.size != 32 or not (
+                (o.output_ids >= 0) & (o.output_ids < cfg.vocab_size)).all():
+            raise AssertionError(f"[{tag}] (a) request {i}: {o.output_ids}")
+    mig = p["hists"].get("migration.migrate_ms", [])
+    dec = d["hists"].get("decode_ms", [])
+    # a bf16 page: K and V of 16 tokens in every layer
+    page_bytes = cfg.num_layers * 2 * 16 * cfg.num_kv_heads * \
+        cfg.head_dim * 2
+    ttft = [o.ttft_ms for o in outs]
+    log(f"[{tag}] (a) Llama-2 7B bf16 prefill replica-0 -> decode "
+        f"replica-1 (4 slots each, context 1024, one card, two processes): "
+        f"fleet start (spawn -> both ready, warm-up included) {start_s:.1f} "
+        f"s; 8 requests in {wall:.2f} s; {pp['migrations']} migrations, "
+        f"{pp['migration_pages_sent']} pages, "
+        f"{pp['migration_pages_sent'] * page_bytes / 1e9:.3f} GB sent; "
+        f"migrate_ms p50 {pct(mig, 50):.1f} max {max(mig):.1f} ("
+        f"{pp['migration_pages_sent'] * page_bytes / sum(mig) / 1e6:.3f} "
+        f"GB/s over the transfers' sum); TTFT p50 at "
+        f"the router {pct(ttft, 50):.1f} ms (the prefill replica's first "
+        f"token); router route latency p50 {pct(route, 50):.1f} ms; decode "
+        f"replica {pct(dec, 50):.2f} ms/step p50, {pct(dec, 99):.2f} p99 "
+        f"over {dp['decode_steps']} steps (time-sliced with the prefill "
+        f"replica's work); fallbacks 0; prefix hits "
+        f"{pp['prefix_cache_hits']} (prefill replica; its tree keeps "
+        f"{p['tree_pages']} pages); peak memory prefill {p['peak_gb']:.2f}"
+        f" GB, decode {d['peak_gb']:.2f} GB")
+    log(f"[{tag}] (a) decode replica: compiled ticks "
+        f"{dp['tick_compiled_hits']} of {dp['decode_steps']} decode steps, "
+        f"graphs (captures, replays, launches a replay) during the traffic "
+        f"{replays}, launches {({k: d['counts'][k] for k in need})} = "
+        f"{need}; prefill replica: paged_decode 0, rms_norm "
+        f"{p['counts']['rms_norm']} over {pp['prefill_chunks']} chunk rows;"
+        f" every slot free, every page back (in use only the trees' pages: "
+        f"prefill {p['tree_pages']}, decode {d['tree_pages']} of its own "
+        f"warm-up)")
+    return {"paged_decode": d["counts"]["paged_decode"],
+            "rms_norm": d["counts"]["rms_norm"] + p["counts"]["rms_norm"]}
+
+
+def fleet_int8_reference(tag, dev, prompts, sampling, max_new):
+    """The 2-layer fp32 model behind one int8 engine: ({max_new: the
+    tokens the int8 fleet must equal bit for bit}, the weights' digest)."""
+    model = fleet_factory(dev, torch.float32, FLEET_LAYERS)()
+    digest = weights_digest(model)
+    with Engine(model, ServingConfig(num_slots=4, max_seq_len=SERVE_LEN,
+                                     cache_dtype="int8")) as eng:
+        futs = [eng.submit(p, max_new_tokens=max_new, sampling=s)
+                for p, s in zip(prompts, sampling)]
+        outs = {max_new: [f.result(timeout=600).output_ids for f in futs]}
+    del model
+    torch.cuda.empty_cache()
+    return outs, digest
+
+
+def wait_for(tag, what, cond, timeout=120.0):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"[{tag}] timed out waiting for {what}")
+        time.sleep(0.02)
+
+
+def fleet_drills(tag, dev):
+    """(b) int8 pools at 2 layers in fp32, (d) traced, then (c) the
+    drills, on one fleet: prefill replica-0, decode replicas 1 and 2."""
+    prompts, sampling = serve_requests(llama_config("llama2-7b").vocab_size)
+    prompts, sampling = prompts[:4], sampling[:4]
+    drill = [p[:DRILL_PROMPT] for p in prompts]
+    ref, digest = fleet_int8_reference(tag, dev, prompts, sampling, 32)
+    ref[DRILL_NEW] = fleet_int8_reference(tag, dev, drill, sampling,
+                                          DRILL_NEW)[0][DRILL_NEW]
+    root = tempfile.mkdtemp(prefix="serve-fleet-")
+    trace_dir = os.path.join(root, "traces")
+    env = {"FLAGS_trace_dir": trace_dir,
+           "FLAGS_trace_latency_threshold_ms": "0"}
+    tracing.reset()
+    port_flags.set_flags({"FLAGS_trace_dir": trace_dir,
+                          "FLAGS_trace_latency_threshold_ms": 0.0})
+    os.environ.update(env)              # the replicas read it at import
+    try:
+        fleet, start_s = start_fleet(
+            fleet_factory(dev, torch.float32, FLEET_LAYERS),
+            ["prefill", "decode", "decode"],
+            ServingConfig(num_slots=4, max_seq_len=SERVE_LEN,
+                          cache_dtype="int8"), ttl=3.0)
+    finally:
+        for k in env:
+            os.environ.pop(k, None)
+    names = ["replica-0", "replica-1", "replica-2"]
+    try:
+        check_digests(tag, probe(names, "digest"), digest)
+        probe(names, "pages")
+        # (b) + (d)
+        futs = [fleet.submit(p, max_new_tokens=32, sampling=s)
+                for p, s in zip(prompts, sampling)]
+        outs = [f.result(timeout=600) for f in futs]
+        for i, (o, want) in enumerate(zip(outs, ref[32])):
+            if not np.array_equal(o.output_ids, want) or \
+                    o.decoded_by not in names[1:]:
+                raise AssertionError(f"[{tag}] (b) request {i} by "
+                                     f"{o.decoded_by}: {o.output_ids} != "
+                                     f"{want}")
+        st = probe(names)
+        sent = [h for n in names for k, h in st[n]["page_log"]
+                if k == "sent"]
+        adopted = [h for n in names for k, h in st[n]["page_log"]
+                   if k == "adopted"]
+        if len(sent) != 4 or sorted(sent) != sorted(adopted):
+            raise AssertionError(f"[{tag}] (b) pages sent {sent} != adopted "
+                                 f"{adopted}")
+        log(f"[{tag}] (b) int8 pools, 2 layers at 7B width, fp32 (prefill "
+            f"replica-0, decode replicas 1 and 2; start {start_s:.1f} s): "
+            f"requests 0-3's tokens equal one int8 engine's bit for bit, "
+            f"decoded by {[o.decoded_by for o in outs]}; the adopted pages "
+            f"and scales read back from the receivers' pools hash equal to "
+            f"the sender's exported rows ({len(sent)} of {len(sent)})")
+        fleet.collect_traces(out_path=os.path.join(root, "merged.json"))
+        probe(names, "flags", {"FLAGS_trace_dir": ""})
+        port_flags.set_flags({"FLAGS_trace_dir": "",
+                              "FLAGS_trace_latency_threshold_ms": 250.0})
+        check_fleet_traces(tag, root, len(prompts))
+        # (c2) drain of a decode replica mid-decode: its slots go to the
+        # other decode replica (the drain's peer pick ranks decode first)
+        base = fleet.stats()
+        r = probe(names)
+        resumed0 = {n: r[n]["stats"]["migration_resumed_requests"]
+                    for n in names}
+        futs = [fleet.submit(p, max_new_tokens=DRILL_NEW, sampling=s)
+                for p, s in zip(drill, sampling)]
+
+        def adopted():
+            r.update(probe(names[1:]))
+            return sum(r[n]["stats"]["migration_resumed_requests"]
+                       - resumed0[n] for n in names[1:]) == 4
+        wait_for(tag, "the 4 requests adopted by the decode replicas",
+                 adopted)
+        drained = max(names[1:], key=lambda n: r[n]["active"])
+        survivor = next(n for n in names[1:] if n != drained)
+        r = probe(names)
+        chunks = r["replica-0"]["stats"]["prefill_chunks"]
+        resumed = r[survivor]["stats"]["migration_resumed_requests"]
+        in_flight = r[drained]["active"]
+        proc = fleet._procs[drained]
+        fleet.drain_replica(drained)
+        outs = [f.result(timeout=600) for f in futs]
+        proc.join(120)
+        check_drill(tag, "(c2) drain", outs, ref[DRILL_NEW])
+        after = fleet.stats()
+        # a request's decoded_by names the replica that adopted it from
+        # the prefill replica; the drained slots' second hop shows in the
+        # survivor's resumed requests
+        r = probe(["replica-0", survivor])
+        moved = r[survivor]["stats"]["migration_resumed_requests"] - resumed
+        if r["replica-0"]["stats"]["prefill_chunks"] != chunks or \
+                not 0 < moved == in_flight or proc.exitcode != 0 or \
+                after["router_resubmissions"] != base["router_resubmissions"]:
+            raise AssertionError(
+                f"[{tag}] (c2) prefill chunks {chunks} -> "
+                f"{r['replica-0']['stats']['prefill_chunks']}, {moved} of "
+                f"{in_flight} slots moved, resubmissions "
+                f"{after['router_resubmissions']}, exit {proc.exitcode}")
+        log(f"[{tag}] (c2) drain of {drained} with {in_flight} requests "
+            f"decoding: all {moved} migrated to {survivor} and finished "
+            f"there, tokens equal the int8 engine's; no request lost or "
+            f"resubmitted, no prompt prefilled again (replica-0's prefill "
+            f"chunk rows {chunks} before and after); {drained} exited 0")
+        # (c1) SIGKILL of the other decode replica mid-decode
+        base = fleet.stats()
+        resumed = probe([survivor])[survivor]["stats"][
+            "migration_resumed_requests"]
+        futs = [fleet.submit(p, max_new_tokens=DRILL_NEW, sampling=s)
+                for p, s in zip(drill, sampling)]
+
+        def holds_all():
+            r = probe([survivor])[survivor]
+            return r["stats"]["migration_resumed_requests"] - resumed == 4
+        wait_for(tag, f"the 4 requests adopted by {survivor}", holds_all)
+        busy = probe([survivor])[survivor]["active"]
+        fleet.kill_replica(survivor)
+        outs = [f.result(timeout=600) for f in futs]
+        check_drill(tag, "(c1) kill", outs, ref[DRILL_NEW])
+        after = fleet.stats()
+        log(f"[{tag}] (c1) SIGKILL of {survivor} with {busy} requests "
+            f"decoding: every request recovered, tokens equal the int8 "
+            f"engine's; decoded by {[o.decoded_by for o in outs]}; router "
+            f"failovers {after['router_failovers'] - base['router_failovers']}"
+            f", resubmissions "
+            f"{after['router_resubmissions'] - base['router_resubmissions']}")
+        # (c3) a role flip
+        gen0 = fleet.replica_states(detail=True)["replica-0"]["gen"]
+        t0 = time.monotonic()
+        fleet.flip_role("replica-0", "decode", warmup_timeout_s=300)
+        flip_s = time.monotonic() - t0
+        info = fleet.replica_states(detail=True)["replica-0"]
+        wait_for(tag, "the flipped replica in the ring",
+                 lambda: "replica-0" in fleet.router.ring.members)
+        out = fleet.generate(prompts[0], max_new_tokens=32,
+                             sampling=sampling[0], timeout=600)
+        if info["gen"] <= gen0 or info["role"] != "decode" or \
+                not np.array_equal(out.output_ids, ref[32][0]):
+            raise AssertionError(f"[{tag}] (c3) after the flip {info} "
+                                 f"(generation was {gen0}): {out}")
+        log(f"[{tag}] (c3) flip_role replica-0 prefill -> decode in "
+            f"{flip_s:.1f} s: rejoined as {info['role']} at generation "
+            f"{info['gen']} (was {gen0}), serves request 0 with the same "
+            "tokens")
+    finally:
+        port_flags.set_flags({"FLAGS_trace_dir": "",
+                              "FLAGS_trace_latency_threshold_ms": 250.0})
+        tracing.reset()
+        fleet.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def check_drill(tag, what, outs, want):
+    for i, (o, w) in enumerate(zip(outs, want)):
+        if not np.array_equal(o.output_ids, w):
+            raise AssertionError(f"[{tag}] {what}: request {i} by "
+                                 f"{o.decoded_by}: {o.output_ids} != {w}")
+
+
+def check_fleet_traces(tag, root, n):
+    """(d) The merged spools of the router's and the replicas'
+    processes: each routed request one trace across three processes
+    (the router's root, the prefill replica's engine.request with its
+    prefill and engine.migrate spans, the decode replica's resumed
+    engine.request with its decode); trace_analyze --strict and
+    check_telemetry on it."""
+    merged_path = os.path.join(root, "merged.json")
+    with open(merged_path) as f:
+        traces = json.load(f)["traces"]
+    routed = [tr for tr in traces if any(
+        s["name"].startswith("router.") and s["parent"] is None
+        for s in tr.get("spans") or [])]
+    if len(routed) != n:
+        raise AssertionError(f"[{tag}] (d) {len(routed)} routed traces for "
+                             f"{n} requests")
+    for tr in routed:
+        spans = tr["spans"]
+        names = {s["name"] for s in spans}
+        procs = {s["proc"] for s in spans}
+        resumed = [s for s in spans if s["name"] == "engine.request"
+                   and (s.get("attrs") or {}).get("resumed")]
+        if tr["decision_count"] != 1 or len(procs) != 3 or len(resumed) != 1 \
+                or not {"engine.prefill", "engine.migrate",
+                        "engine.decode"} <= names:
+            raise AssertionError(f"[{tag}] (d) trace {tr['trace_id']}: "
+                                 f"{sorted((s['name'], s['proc']) for s in spans)}")
+        mig = [s for s in spans if s["name"] == "engine.migrate"]
+        if resumed[0]["parent"] != mig[0]["span"]:
+            raise AssertionError(f"[{tag}] (d) the resumed request's parent "
+                                 "is not the transfer span")
+    report = os.path.join(root, "report.json")
+    ana = subprocess.run([sys.executable, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tools", "trace_analyze.py"),
+        "--trace", merged_path, "--strict", "--out", report],
+        capture_output=True, text=True, timeout=120)
+    if ana.returncode != 0:
+        raise AssertionError(f"[{tag}] (d) trace_analyze --strict: "
+                             f"{ana.stdout}{ana.stderr}")
+    run_check_telemetry(tag, "--trace", merged_path, "--trace-report", report)
+    log(f"[{tag}] (d) {n} routed requests, each one trace over "
+        f"{len({s['proc'] for tr in routed for s in tr['spans']})} processes"
+        f" (router root -> prefill -> engine.migrate -> the resumed "
+        f"request's decode), one decision each; trace_analyze --strict: "
+        f"{ana.stdout.strip().splitlines()[0]}; check_telemetry passed")
+
+
+def phase_serve_fleet(dev, ref):
+    """Prefill/decode disaggregation across processes on one card: (a) the
+    7B main path, (b) int8 at 2 layers bit for bit, (d) one traced run,
+    (c) the drills.  Returns the decode replica's launch counts of (a)."""
+    tag = "serve-fleet"
+    counts = fleet_main_path(tag, dev, ref)
+    torch.cuda.empty_cache()
+    fleet_drills(tag, dev)
+    return counts
 
 
 def decode_weight_bytes(model, rows=4):
@@ -4816,7 +5388,10 @@ def profile_fit_steps(model, pipe, tag, n=3):
 
 def fit_child(mode, outdir, dev=None):
     """fit-gpt2 (b)'s child: 2 epochs of 6 steps at dropout 0 with a
-    ModelCheckpoint in ``outdir/ckpt``; ``preempt`` sends SIGTERM after
+    ModelCheckpoint in ``outdir/ckpt``, but for ``full``, the uninterrupted
+    reference run (its 1.74 GB saves would only lengthen the phase; the
+    SIGTERM handler is armed only while fit checkpoints, which it does not
+    need); ``preempt`` sends SIGTERM after
     step 4 (fit saves and exits with ELASTIC_EXIT_CODE), ``resume``
     continues from the newest checkpoint.  Each loss is appended to
     ``outdir/losses.log``."""
@@ -4824,7 +5399,9 @@ def fit_child(mode, outdir, dev=None):
     cb = StepLog(sigterm_at=3 if mode == "preempt" else None,
                  path=os.path.join(outdir, "losses.log"))
     model.fit(gpt2_pipeline(48), epochs=2, verbose=0, log_freq=1,
-              callbacks=[cb], save_dir=os.path.join(outdir, "ckpt"),
+              callbacks=[cb],
+              save_dir=None if mode == "full" else os.path.join(outdir,
+                                                                "ckpt"),
               max_to_keep=1, resume=mode == "resume")
 
 
@@ -5657,8 +6234,9 @@ def main(argv=None):
     if "kernels" in phases:
         errs, timed = run("kernels", phase_kernels, dev)
     counts = lora_counts = fp8_counts = None
+    fleet_ref = None
     if {"serve", "serve-lora-int8", "serve-tick", "serve-spec",
-            "serve-resilience", "serve-telemetry"} & set(phases):
+            "serve-resilience", "serve-telemetry", "serve-fleet"} & set(phases):
         model = build_7b(dev)
         float_st = serve_outs = None
         if "serve" in phases:
@@ -5679,8 +6257,13 @@ def main(argv=None):
         if "serve-telemetry" in phases:
             run("serve-telemetry", phase_serve_telemetry, dev, model,
                 serve_outs, float_st, spec_margins)
+        if "serve-fleet" in phases:
+            fleet_ref = run("serve-fleet reference", fleet_reference, dev,
+                            model, serve_outs)
         del model
         torch.cuda.empty_cache()
+    if "serve-fleet" in phases:
+        run("serve-fleet", phase_serve_fleet, dev, fleet_ref)
     if {"serve-gpt", "generate-gpt"} & set(phases):
         model = build_gpt_6_7b(dev)
         if "serve-gpt" in phases:

@@ -1,8 +1,10 @@
-"""Distributed training utilities of the port (paddle_tpu/distributed):
+"""Distributed utilities of the port (paddle_tpu/distributed):
 ``fleet.utils.recompute``, ``fleet.elastic.PreemptionHandler``, the
 watchdog's thread helpers (``watchdog.async_raise``,
-``watchdog.all_thread_stacks``), and the rank and world size the input
-pipeline and ``hapi.Model`` read."""
+``watchdog.all_thread_stacks``), the rank and world size the input
+pipeline and ``hapi.Model`` read, and the serving fleet's transports:
+the rpc plane (`rpc`) and the key-value stores (`store`: `TCPStore` over
+``csrc/tcp_store.cpp``, `FileKVStore`, `TCPElasticStore`)."""
 from . import fleet, watchdog  # noqa: E402,F401
 
 

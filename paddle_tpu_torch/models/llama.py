@@ -159,7 +159,9 @@ class LlamaBlock(nn.Module):
 class LlamaModel(nn.Module):
     """``LlamaModel(config)``, as JAX's; ``device`` (None: the card) and
     ``dtype`` as the causal-LM wrapper takes them.  Built alone, its layers
-    draw their own init (`nn.layers.init_generator`), not the wrapper's."""
+    draw the model init (each layer gets its ``std``) from
+    `nn.layers.init_generator`; the causal-LM wrapper draws the same
+    distributions from its own seeded generator."""
 
     def __init__(self, config: LlamaConfig, device=None, dtype=torch.float32):
         super().__init__()

@@ -3,8 +3,10 @@ paddle_tpu/observability/tracing.py): it answers "why was THIS p99
 request slow?", which the registry's histograms cannot.
 
 - A `TraceContext` (trace_id, span_id, parent_span_id, sampled) is
-  minted at ``Engine.submit``; `wire` / `from_wire` give the compact form
-  that JAX's rpc envelope carries (the rpc plane is ROADMAP A7).
+  minted at ``ServingRouter.submit`` / ``Engine.submit`` and carried by
+  the rpc plane's envelope (`current_wire` / `bind_wire`; across the
+  raw-bytes path inside the migration meta dict), so a routed, migrated
+  or resubmitted request stays one trace across processes.
 - Each hop records `Span` objects into a bounded per-process ring
   (``FLAGS_trace_buffer_cap``); every span carries both clocks
   (``time.time()`` at start, ``time.monotonic()`` t0 and t1) so dumps of
@@ -51,6 +53,7 @@ _ids = itertools.count(1)
 _buffer: deque = deque()          # completed span/decision records
 _spooled: list = []               # drained records awaiting/already on disk
 _decided: dict = {}               # trace_id -> decision record (first wins)
+_proc_name: str | None = None
 _decisions_since_spool = 0
 
 
@@ -59,11 +62,20 @@ def enabled():
     return bool(_flag("FLAGS_trace_dir"))
 
 
+def set_process_name(name, default=False):
+    """Stamp this process's row label in spans and spool names (a
+    replica's name).  ``default=True`` sets only an unset label: the
+    router claims its host process that way without clobbering a
+    replica's label when both share one process (thread-mode fleets)."""
+    global _proc_name
+    if default and _proc_name is not None:
+        return
+    _proc_name = str(name) if name else None
+
+
 def _proc():
-    """This process's row label in spans and spool names.  JAX's
-    ``set_process_name`` (a replica's name, set by the fleet) comes with
-    the router (ROADMAP A7)."""
-    return f"pid{os.getpid()}"
+    """This process's row label in spans and spool names."""
+    return _proc_name or f"pid{os.getpid()}"
 
 
 def _incr(name, value=1):

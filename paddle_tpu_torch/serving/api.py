@@ -7,8 +7,9 @@ queue rejects with `QueueFullError` instead of buffering without limit,
 and per-request deadlines evict the slot (`DeadlineExceededError`).
 
 `ServingConfig.validate` makes the JAX package's checks word for word.
-The one JAX option the port does not carry yet, a prefill or decode
-``role`` (disaggregation, ROADMAP A7), raises ``NotImplementedError``.
+The fleet's errors: `NoReplicaError` (the router found no ready replica),
+`QueueFullError` with the router's ``retry_after_s`` hint, and
+`PageMigrationError` (a KV-page payload the target's pool cannot adopt).
 """
 from __future__ import annotations
 
@@ -24,7 +25,21 @@ class ServingError(RuntimeError):
 
 
 class QueueFullError(ServingError):
-    """Admission rejected: the bounded request queue is at capacity."""
+    """Admission rejected: the bounded request queue is at capacity.
+
+    When the serving router sheds a request because every ready replica
+    is at capacity, ``retry_after_s`` carries the suggested client
+    backoff (the fleet's analog of an HTTP 429 Retry-After header)."""
+
+    def __init__(self, *args, retry_after_s=None):
+        super().__init__(*args)
+        self.retry_after_s = retry_after_s
+
+
+class NoReplicaError(ServingError):
+    """The router found no ready replica to route to (none registered,
+    all dead, or all draining) and the request's deadline or patience ran
+    out: the loud alternative to a client hanging on a dead fleet."""
 
 
 class DeadlineExceededError(ServingError):
@@ -33,7 +48,8 @@ class DeadlineExceededError(ServingError):
 
 
 class EngineShutdownError(ServingError):
-    """The engine stopped while the request was queued or in flight."""
+    """The engine stopped (or is draining) while the request was queued
+    or in flight."""
 
 
 class RequestCancelledError(ServingError):
@@ -59,6 +75,13 @@ class UnknownAdapterError(ServingError):
     """A request named an ``adapter_id`` absent from the engine's
     registry.  Delivered by failing THAT request's future; the scheduler
     never sees the request."""
+
+
+class PageMigrationError(ServingError):
+    """A KV-page migration payload cannot be adopted by the target
+    replica's pool: another page size, dtype or layer geometry, a bad
+    wire version or frame count, or an inconsistent offset.  The sending
+    replica treats it as a dead target and decodes locally."""
 
 
 @dataclass(frozen=True)
@@ -170,8 +193,14 @@ class ServingConfig:
                              active request is greedy without a
                              repetition penalty; other iterations take the
                              plain step
-    role                     JAX-engine disaggregation role, not ported:
-                             anything but "mixed" raises
+    role                     the disaggregation role this engine's
+                             replica advertises to the fleet: "mixed"
+                             (default), "prefill" (prefers prefill work
+                             and hands a finished prompt's KV pages to a
+                             decode replica) or "decode" (adopts migrated
+                             pages and decodes).  Roles are routing
+                             preferences, never fences: a replica of any
+                             role serves what the router sends it
     """
 
     num_slots: int = 4
@@ -202,10 +231,6 @@ class ServingConfig:
             raise ValueError(
                 "role must be 'mixed', 'prefill' or 'decode', got "
                 f"{self.role!r}")
-        if self.role != "mixed":
-            raise NotImplementedError(
-                f"role={self.role!r}: prefill/decode disaggregation is not "
-                "ported yet (ROADMAP A7)")
         if self.cache_dtype not in CACHE_DTYPES:
             raise ValueError(f"cache_dtype must be one of {CACHE_DTYPES}, "
                              f"got {self.cache_dtype!r}")
@@ -284,6 +309,9 @@ class RequestOutput:
     finish_reason: str              # "eos" | "length"
     ttft_ms: float                  # submit → first token
     latency_ms: float               # submit → completion
+    #: the replica that decoded the request's tail (fleet only): the
+    #: submit target unless KV-page migration resumed it elsewhere
+    decoded_by: str | None = None
 
     @property
     def ids(self):

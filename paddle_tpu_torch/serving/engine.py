@@ -62,9 +62,25 @@ families; `stats()` is `stats.serving_stats()`).  With
 span with ``engine.queue``, ``engine.prefill`` (its chunks and first
 token as events) and ``engine.decode`` children, ended on every terminal
 path, where the engine makes the trace's one tail-sampling decision
-(`observability.tracing`); `shutdown` spools them.  The JAX engine's
-KV-page migration (``drain(migrate=True)``, roles, ``submit_resume``) and
-its transfer and remote spans are not ported (ROADMAP A7).
+(`observability.tracing`); `shutdown` spools them.
+
+Live KV-page migration (prefill/decode disaggregation, driven by
+`fleet.ReplicaServer`): ``submit(handoff=...)`` names a decode replica;
+once the request's prompt is cached and its first token sampled, the
+engine exports the slot's pages (`migration.export_slot`) and a
+background thread hands them to the installed ``migrator`` (phase 1:
+transfer and remote adoption, timed as ``migration.migrate_ms``, span
+``engine.migrate``), releases the slot, then waits on the
+``migration_awaiter`` for the remote stream (phase 2, span
+``engine.remote_wait``); the future resolves with
+``RequestOutput.decoded_by`` naming the decode replica.  A phase-1
+failure decodes the request locally (``migration.fallbacks``): a handoff
+can slow a request, never lose it.  `submit_resume` is the receive side:
+the request adopts its pages at admission and joins the decode batch
+where the sender stopped (its tokens, penalty state and key-stream
+position), so its first decode step is the tick's replay like any other
+slot's.  ``drain(migrate=True)`` migrates the in-flight slots the same
+way.
 """
 from __future__ import annotations
 
@@ -90,10 +106,11 @@ from ..quantization import kv_quant_params
 from ..utils.flags import flag as _flag
 from . import stats
 from .adapters import AdapterPool
+from ..utils import fault_injection as _fi
 from .api import (AdapterConfigError, DeadlineExceededError,
-                  EngineShutdownError, QueueFullError, RequestCancelledError,
-                  RequestOutput, SamplingParams, SchedulerStallError,
-                  ServingConfig, UnknownAdapterError)
+                  EngineShutdownError, PageMigrationError, QueueFullError,
+                  RequestCancelledError, RequestOutput, SamplingParams,
+                  SchedulerStallError, ServingConfig, UnknownAdapterError)
 from .compiled_tick import (CompiledServingTick, fused_sample_call,
                             request_key, sampling_hostable)
 from .kv_slots import SlotKVCache
@@ -106,7 +123,8 @@ class _Request:
                  "ttft_ms", "tokens", "seen", "last_token", "slot",
                  "prefill_pos", "shared_len", "prefix_nodes",
                  "draft_prefill_pos", "first_tok", "generator",
-                 "adapter_id", "adapter_slot", "trace")
+                 "handoff", "resume", "adapter_id", "adapter_slot",
+                 "trace")
 
     def __init__(self, rid, prompt, max_new_tokens, sampling,
                  eos_token_id, deadline, generator):
@@ -129,6 +147,8 @@ class _Request:
         self.draft_prefill_pos = 0  # draft-model prefill progress (spec)
         self.first_tok = None       # sampled first token, not yet appended
         self.generator = generator  # unseeded sampling's own stream
+        self.handoff = None         # decode-replica target (disagg)
+        self.resume = None          # migrated-page payload
         self.adapter_id = None      # LoRA adapter this request decodes
         self.adapter_slot = 0       # its pool slot (0 = base identity)
         self.trace = None           # _ReqTrace (tracing armed)
@@ -137,11 +157,13 @@ class _Request:
 class _ReqTrace:
     """A request's spans, made only with ``FLAGS_trace_dir`` set: the
     ``engine.request`` root and the phase spans under it (queue wait,
-    chunked prefill, decode).  ``owns_root`` marks a trace the engine
-    minted (no context bound by a caller): only then does the engine end
-    it with the tail-sampling decision and mark its winner."""
+    chunked prefill, decode, the migration transfer and the remote wait).
+    ``owns_root`` marks a trace the engine minted (no context bound by a
+    caller, such as the router's on the rpc envelope): only then does the
+    engine end it with the tail-sampling decision and mark its winner."""
 
-    __slots__ = ("root", "queue", "prefill", "decode", "owns_root")
+    __slots__ = ("root", "queue", "prefill", "decode", "transfer",
+                 "remote", "owns_root")
 
     def __init__(self, root, owns_root):
         self.root = root
@@ -149,12 +171,15 @@ class _ReqTrace:
         self.queue = None
         self.prefill = None
         self.decode = None
+        self.transfer = None
+        self.remote = None
 
     def finish(self, status, latency_ms, **attrs):
         """Terminal close: end every phase span still open with the
         request's outcome (``end`` is idempotent: closed spans keep their
         own status), end the root, and decide iff the engine owns it."""
-        for sp in (self.queue, self.prefill, self.decode):
+        for sp in (self.queue, self.prefill, self.decode, self.transfer,
+                   self.remote):
             if sp is not None:
                 sp.end(status=status)
         self.root.end(status=status,
@@ -266,6 +291,21 @@ class Engine:
         self._monitor_stop = threading.Event()
         self._stall_swept = False
         self._preemption_handler = None
+        # live KV-page migration: the hosting ReplicaServer installs
+        # `migrator(req, header, blobs, target) -> ack` (phase 1: transfer
+        # and remote adoption; once it returns the local pages are free)
+        # and `migration_awaiter(req, ack) -> payload` (phase 2: the remote
+        # decode's result, holding nothing locally).  None: this engine
+        # never migrates
+        self.migrator = None
+        self.migration_awaiter = None
+        self._migrating_out: dict[int, _Request] = {}
+        self._migration_results: deque = deque()
+        self._migrate_failed: set[int] = set()
+        self._drain_migrate = False
+        # the hosting replica's name, which the `engine_slow` fault point
+        # filters on
+        self.fault_name = None
         # multi-tenant LoRA: A/B/scale stacks per target projection and
         # the per-slot adapter index, built (and the registry validated)
         # here; None without max_adapters, and then every model call is
@@ -383,18 +423,20 @@ class Engine:
         completion within `deadline_s` (default
         ``ServingConfig.drain_grace_s``), then shut the engine down;
         whatever is unfinished at the deadline fails as in `shutdown`.
-        Idempotent; safe from any thread.  ``migrate=True`` (KV pages
-        streamed to a surviving replica) is not ported (ROADMAP A7)."""
-        if migrate:
-            raise NotImplementedError(
-                "drain(migrate=True): KV-page migration is not ported yet "
-                "(ROADMAP A7)")
+        Idempotent; safe from any thread.
+
+        ``migrate=True`` (needs an installed `migrator`): the in-flight
+        slots' KV pages (prompt and the tokens emitted so far) go to a
+        surviving replica, where each request resumes with its cache
+        intact; a failed transfer finishes the request here instead."""
         deadline_s = self.scfg.drain_grace_s if deadline_s is None \
             else float(deadline_s)
         with self._work:
             if not self._running:
                 return
             already = self._draining
+            self._drain_migrate = bool(migrate) and \
+                self.migrator is not None and self._paged
             self._draining = True
             queued = list(self._queue)
             self._queue.clear()
@@ -410,10 +452,12 @@ class Engine:
                 f"engine draining: request {req.id} was still queued"))
             stats.incr("requests_cancelled_drain")
         deadline = time.monotonic() + deadline_s
-        # a poll of the two containers' sizes: no host read of the device,
-        # so it never races a replay of the compiled tick
-        while (self._active or self._prefilling) and \
-                time.monotonic() < deadline:
+        # a poll of the unresolved requests: no host read of the device,
+        # so it never races a replay of the compiled tick.  The audit set,
+        # not the scheduler's containers: a request moving from the active
+        # set to a migration (its pages being exported) sits in neither
+        # for a moment, but stays pending until its future resolves
+        while self._pending and time.monotonic() < deadline:
             time.sleep(0.01)
         _fr.record("serving", "drain_end", unfinished=len(self._active))
         self.shutdown()
@@ -438,10 +482,15 @@ class Engine:
 
     # ---------------- client API ----------------
     def submit(self, prompt_ids, max_new_tokens=None, sampling=None,
-               eos_token_id=None, deadline_s=None, adapter_id=None):
+               eos_token_id=None, deadline_s=None, handoff=None,
+               adapter_id=None):
         """Enqueue one request; returns a ``Future[RequestOutput]``.
         Raises `QueueFullError` when the bounded queue is full and
-        ``ValueError`` for prompts a slot cannot hold.  ``adapter_id``
+        ``ValueError`` for prompts a slot cannot hold.  ``handoff``
+        (disaggregation) is a migration target the installed `migrator`
+        understands: on a paged engine the request's pages go there once
+        its prompt is cached, and it decodes there; a failed migration
+        decodes it here.  ``adapter_id``
         decodes under that registered LoRA adapter; an id absent from the
         registry fails THIS request's future with `UnknownAdapterError`
         (the scheduler never sees it)."""
@@ -494,10 +543,13 @@ class Engine:
                        eos_token_id, deadline, gen)
         if adapter_id is not None:
             req.adapter_id = str(adapter_id)
+        if handoff is not None and self._paged:
+            req.handoff = handoff
         if tracing.enabled():
-            # a caller that bound a context (`tracing.bind`) makes the
-            # engine span its child and keeps the decision; with none the
-            # engine mints the root and owns the decision
+            # a caller that bound a context (`tracing.bind`, or the
+            # router's attempt span on the rpc envelope) makes the engine
+            # span its child and keeps the decision; with none the engine
+            # mints the root and owns the decision
             parent = tracing.current()
             root = tracing.start_span(
                 "engine.request", parent=parent, rid=req.id,
@@ -536,14 +588,106 @@ class Engine:
                           deadline_s=deadline_s, adapter_id=adapter_id)
         return fut.result(timeout or self.scfg.request_timeout_s)
 
+    def submit_resume(self, prompt_ids, prior_tokens, pages,
+                      max_new_tokens=None, sampling=None,
+                      eos_token_id=None, deadline_s=None, ttft_ms=None):
+        """Resume a migrated request from its transferred KV pages: the
+        receive side of disaggregation and of a drained replica's
+        recovery.  ``pages`` is `migration.unpack`'s dict (the
+        layer-pooled K/V pages, their scales, the offset) and
+        ``prior_tokens`` the tokens the sender already emitted (at least
+        one: the prefill replica samples the first token).  The request
+        is queued like any other; once the pool adopts its pages it
+        decodes from where the sender stopped, with the prompt never
+        recomputed.  Raises `PageMigrationError` for payloads this
+        engine's pool can never hold."""
+        if not self._paged:
+            raise PageMigrationError(
+                "page adoption requires kv_layout='paged'")
+        prompt = np.asarray(prompt_ids).astype(np.int32).reshape(-1)
+        prior = [int(t) for t in np.asarray(prior_tokens).reshape(-1)]
+        if prompt.size == 0 or not prior:
+            raise ValueError("resume needs a prompt and >= 1 prior token")
+        sampling = (sampling or SamplingParams()).validate()
+        max_new = int(self.scfg.default_max_new_tokens
+                      if max_new_tokens is None else max_new_tokens)
+        if len(prior) >= max_new:
+            raise ValueError(
+                f"{len(prior)} prior tokens already exhaust the "
+                f"max_new_tokens={max_new} budget — nothing to resume")
+        if prompt.size + len(prior) >= self.max_len:
+            raise ValueError(
+                f"prompt {prompt.size} + {len(prior)} prior tokens "
+                f"leave no room to decode in a {self.max_len}-token slot")
+        if int(pages["offset"]) != prompt.size + len(prior) - 1:
+            raise PageMigrationError(
+                f"offset {pages['offset']} inconsistent with prompt "
+                f"{prompt.size} + {len(prior)} prior tokens (expected "
+                f"{prompt.size + len(prior) - 1} cached positions)")
+        psz = self._page_size
+        pool = self.scfg.kv_pool_pages or self.scfg.num_slots * \
+            (-(-(self.max_len + self._spec_k) // psz))
+        need = -(-(min(prompt.size + max_new, self.max_len)
+                   + self._spec_k) // psz)
+        if need > pool:
+            raise PageMigrationError(
+                f"resumed request needs {need} KV pages but the pool "
+                f"holds {pool}")
+        gen = None
+        if not sampling.greedy and sampling.seed is None:
+            gen = torch.Generator(device=self.device)
+            gen.seed()
+        deadline = (time.monotonic() + deadline_s) \
+            if deadline_s is not None else None
+        req = _Request(next(self._ids), prompt, max_new, sampling,
+                       eos_token_id, deadline, gen)
+        req.resume = dict(pages)
+        req.tokens = prior
+        req.last_token = prior[-1]
+        req.ttft_ms = ttft_ms
+        if tracing.enabled():
+            # the adopting side: the replica binds the SENDER's transfer
+            # span before calling here, so the resumed decode is its child
+            # and the whole hop chain stays one trace
+            parent = tracing.current()
+            root = tracing.start_span(
+                "engine.request", parent=parent, rid=req.id,
+                resumed=True, prior_tokens=len(prior),
+                prompt_tokens=int(prompt.size))
+            req.trace = _ReqTrace(root, owns_root=parent is None)
+            req.trace.queue = tracing.start_span(
+                "engine.queue", parent=root)
+        with self._work:
+            if not self._running:
+                raise EngineShutdownError(
+                    "engine is not running (call start())")
+            if self._draining:
+                raise EngineShutdownError(
+                    "engine is draining; not adopting migrated requests")
+            if len(self._queue) >= self.scfg.max_queue:
+                stats.incr("requests_rejected_queue_full")
+                raise QueueFullError(
+                    f"request queue is full ({self.scfg.max_queue} "
+                    "waiting); the sender should fall back or retry")
+            self._queue.append(req)
+            self._pending[req.id] = req
+            stats.incr("requests_submitted")
+            stats.set_value("queue_depth", len(self._queue))
+            self._work.notify()
+        req.future.request_id = req.id       # cancel()'s handle
+        return req.future
+
     def cancel(self, request_id):
         """Cancel one pending request (``future.request_id``).  A queued
         request fails with `RequestCancelledError` here; a slot-resident
         one is unwound by the scheduler in its next iteration.  Returns
-        False when the request is unknown or already resolved."""
+        False when the request is unknown, already resolved, or
+        mid-migration (it resolves through the migration)."""
         with self._work:
             req = self._pending.get(request_id)
             if req is None or req.future.done():
+                return False
+            if req.id in self._migrating_out:
                 return False
             try:
                 self._queue.remove(req)
@@ -567,7 +711,7 @@ class Engine:
             self._tick.flush_to_host()
         for cid in cancels:
             req = self._pending.get(cid)
-            if req is None:
+            if req is None or req.id in self._migrating_out:
                 continue
             try:
                 self._prefilling.remove(req)
@@ -678,6 +822,7 @@ class Engine:
                     if self._tick is not None:
                         self._tick.flush_to_host()
                     break
+                self._process_migration_results_locked()
                 self._process_cancels_locked()
                 self._expire_queued_locked()
                 admits = []
@@ -698,9 +843,20 @@ class Engine:
             if budget > 0:
                 self._iter_deadline = time.monotonic() + budget
             t_tick = time.monotonic()
+            if _fi.active("engine_slow") is not None:
+                # gray-failure drill: a stall each iteration on this
+                # replica while its heartbeats stay healthy
+                _fi.check_rpc("engine_slow", self.fault_name or "")
+            if self._paged and self._drain_migrate:
+                # preemption recovery: the still-decoding slots' pages go
+                # to survivors instead of racing the drain deadline
+                self._migrate_out_active()
             if self._paged:
                 for req, slot in admits:
-                    self._start_prefill(req, slot)
+                    if req.resume is not None:
+                        self._activate_resumed(req, slot)
+                    else:
+                        self._start_prefill(req, slot)
                 # ONE batched chunk call covers every prefilling request,
                 # then the decode step runs: a long prompt never blocks
                 # the in-flight streams for more than a chunk
@@ -819,6 +975,30 @@ class Engine:
             if pool_slot is None:
                 return None
             req.adapter_slot = pool_slot
+        if req.resume is not None:
+            # a migrated request adopts its transferred pages (slot-
+            # private) instead of reserving for a prefill it never runs;
+            # the reservation covers the growth still ahead of the offset
+            pay = req.resume
+            n = int(pay["k_pages"].shape[1])
+            reserve = max(0, -(-total // psz) - n)
+            slot = self.cache.adopt_pages(
+                reserve, pay["offset"], pay["k_pages"], pay["v_pages"],
+                pay["k_scales"], pay["v_scales"])
+            if slot is None:
+                return None         # pool backpressure: stays queued
+            if self._spec:
+                dslot = self.draft_cache.allocate(
+                    self.draft_cache.pages_per_slot)
+                if dslot != slot:   # pragma: no cover - invariant
+                    raise RuntimeError(
+                        f"draft cache slot {dslot} diverged from "
+                        f"target slot {slot}")
+                # the draft never saw this prompt: teacher forcing
+                # re-converges it from position 0
+                self.draft_cache.set_offset(slot, 0)
+            stats.incr("migration.pages_received", n)
+            return slot
         nodes, pages = [], []
         if self.prefix_tree is not None:
             # scoped by adapter id: a prompt prefilled under one adapter
@@ -969,6 +1149,17 @@ class Engine:
             except ValueError:
                 continue    # a concurrent stall sweep already swept it
             tok, req.first_tok = req.first_tok, None
+            if self._migrate_ready(req, tok):
+                # disaggregation handoff: the prompt's pages are hot;
+                # they go to the decode replica instead of joining this
+                # replica's decode batch
+                req.tokens = [tok]
+                req.last_token = tok
+                if req.seen is not None:
+                    req.seen[tok] = True
+                stats.incr("tokens_generated")
+                self._begin_migration(req)
+                continue
             self._active[req.slot] = req
             tr = req.trace
             if tr is not None:
@@ -1016,6 +1207,224 @@ class Engine:
         stats.observe("prefill_ms", dt_ms)
         stats.incr("prefill_chunks", len(reqs))
         return logits, starts
+
+    # ---------------- live KV-page migration (disaggregation) ------------
+    def _migrate_ready(self, req, tok):
+        """Whether this just-prefilled request hands off: a target was
+        assigned, a migrator is installed, and the request neither
+        finishes on this very token nor has blown its deadline."""
+        if req.handoff is None or self.migrator is None:
+            return False
+        if req.adapter_id is not None:
+            # the resume path carries no adapter state, and the target
+            # may not have the adapter hot: decode where it is pinned
+            return False
+        if req.max_new_tokens <= 1:
+            return False
+        if req.eos_token_id is not None and tok == req.eos_token_id:
+            return False
+        if req.prompt.size + 1 >= self.max_len:
+            return False
+        if self.scfg.deadline_policy == "evict" and \
+                req.deadline is not None and \
+                time.monotonic() > req.deadline:
+            return False
+        return True
+
+    def _begin_migration(self, req):
+        """Export the slot's pages (on the scheduler thread, the only
+        cache writer; the copy to the host is complete when this returns)
+        and ship them from a background thread, so the transfer never
+        stalls the other slots' decode.  The slot and its pages stay held
+        until the outcome lands: success releases them, failure
+        re-activates the request here with nothing lost."""
+        from . import migration
+        header, blobs = migration.export_slot(self.cache, req.slot)
+        self._migrating_out[req.id] = req
+        self._mut += 1          # the slot left the active set
+        tr = req.trace
+        if tr is not None:
+            # close the request's phase (a prefill handoff, or a drain's
+            # mid-decode) and open the transfer span BEFORE the migrator
+            # runs: the fleet ships this span's context in the meta dict,
+            # so the remote resumed decode is its child
+            if tr.prefill is not None:
+                tr.prefill.end()
+            if tr.decode is not None:
+                tr.decode.end(status="migrated", tokens=len(req.tokens))
+                tr.decode = None
+            tr.transfer = tracing.start_span(
+                "engine.migrate", parent=tr.root,
+                target=str((req.handoff or {}).get("name")),
+                pages=int(header["num_pages"]), tokens=len(req.tokens))
+        stats.incr("migration.pages_sent", header["num_pages"])
+        threading.Thread(
+            target=self._migrate_async,
+            args=(req, header, blobs, req.handoff),
+            name=f"migrate-{req.id}", daemon=True).start()
+
+    def _migrate_async(self, req, header, blobs, target):
+        """The transfer thread.  Phase 1 (`migrator`): ship the frames and
+        the remote adoption, timed as ``migrate_ms``; a failure falls back
+        (the local slot still holds everything).  Phase 2
+        (`migration_awaiter`): wait for the remote decode holding nothing
+        here; a failure (the target died mid-decode) fails the future
+        with `EngineShutdownError`, which the router answers with an
+        idempotent resubmission."""
+        tr = req.trace
+        t0 = time.monotonic()
+        try:
+            ack = self.migrator(req, header, blobs, target)
+        except Exception as e:              # noqa: BLE001
+            stats.observe("migration.migrate_ms",
+                          (time.monotonic() - t0) * 1e3)
+            if tr is not None and tr.transfer is not None:
+                tr.transfer.end(status=type(e).__name__)
+            self._post_migration(req, "fail", e)
+            return
+        stats.observe("migration.migrate_ms", (time.monotonic() - t0) * 1e3)
+        if tr is not None and tr.transfer is not None:
+            tr.transfer.end()
+        if self.migration_awaiter is None:
+            # a single-phase migrator: phase 1 returned the result
+            self._post_migration(req, "done", ack)
+            return
+        self._post_migration(req, "sent", None)
+        if tr is not None:
+            tr.remote = tracing.start_span(
+                "engine.remote_wait", parent=tr.root)
+        try:
+            payload = self.migration_awaiter(req, ack)
+        except Exception as e:              # noqa: BLE001
+            if tr is not None and tr.remote is not None:
+                tr.remote.end(status=type(e).__name__)
+            self._post_migration(req, "lost", e)
+            return
+        if tr is not None and tr.remote is not None:
+            tr.remote.end()
+        self._post_migration(req, "done", payload)
+
+    def _post_migration(self, req, kind, val):
+        with self._work:
+            self._migration_results.append((req, kind, val))
+            self._work.notify()
+
+    def _process_migration_results_locked(self):
+        """Land transfer outcomes (scheduler thread, under the lock):
+
+        ``sent``  the target adopted the pages: release the local slot
+        ``done``  the remote stream arrived: complete the future (and
+                  free the slot if no ``sent`` preceded)
+        ``fail``  phase 1 failed: re-activate the request here
+        ``lost``  the target died after adopting: fail the future loudly
+                  (the router resubmits under the same request id)
+        """
+        while self._migration_results:
+            req, kind, val = self._migration_results.popleft()
+            if req.id not in self._migrating_out:
+                continue        # swept by _fail_all or shutdown already
+            if kind == "sent":
+                self._release(req)      # keeps riding _migrating_out
+                continue
+            del self._migrating_out[req.id]
+            if kind == "fail":
+                stats.incr("migration.fallbacks")
+                _fr.record("serving", "migration_fallback",
+                           request_id=req.id, error=type(val).__name__)
+                self._migrate_failed.add(req.id)
+                self._active[req.slot] = req
+                self._mut += 1
+                tr = req.trace
+                if tr is not None:
+                    # the failed transfer span closed with its error; the
+                    # local decode resumes under the same trace
+                    tr.root.event("migration_fallback",
+                                  error=type(val).__name__)
+                    tr.decode = tracing.start_span(
+                        "engine.decode", parent=tr.root, slot=req.slot,
+                        fallback=True)
+                continue
+            if kind == "lost":
+                stats.incr("migration.remote_failures")
+                self._fail(req, EngineShutdownError(
+                    f"request {req.id}: migration target died after "
+                    f"adopting its pages ({type(val).__name__}: {val}); "
+                    "resubmit"))
+                continue
+            self._complete_migrated(req, val)
+            self._release(req)
+
+    def _complete_migrated(self, req, payload):
+        """Resolve a handed-off request's future with the stream the
+        decode replica produced (the prior tokens included)."""
+        out = RequestOutput(
+            request_id=req.id, prompt_ids=req.prompt,
+            output_ids=np.asarray(payload["output_ids"], np.int32),
+            finish_reason=payload["finish_reason"], ttft_ms=req.ttft_ms,
+            latency_ms=(time.monotonic() - req.submit_t) * 1e3,
+            decoded_by=payload.get("replica"))
+        with self._lock:
+            self._pending.pop(req.id, None)
+        try:
+            if not req.future.done():
+                req.future.set_result(out)
+        except Exception:       # noqa: BLE001 - lost a race to _fail
+            return
+        stats.incr("requests_completed")
+        stats.incr("migration.migrations")
+        if req.trace is not None:
+            req.trace.finish("ok", out.latency_ms,
+                             finish_reason=payload["finish_reason"],
+                             migrated_to=payload.get("replica"))
+        _fr.record("serving", "request_done", request_id=req.id,
+                   reason=payload["finish_reason"],
+                   tokens=int(np.asarray(payload["output_ids"]).size),
+                   migrated_to=payload.get("replica"))
+
+    def _activate_resumed(self, req, slot):
+        """Receive side: the adopted request joins the decode batch where
+        the sender stopped: its tokens, last token, penalty state, key
+        stream position (the count of its tokens) and cache offset all
+        continue, and the tick rebuilds its state from them."""
+        req.slot = slot
+        if req.sampling.uses_penalty:
+            seen = np.zeros(self.cfg.vocab_size, bool)
+            seen[req.prompt] = True
+            seen[np.asarray(req.tokens, np.int32)] = True
+            req.seen = seen
+        req.resume = None
+        self._active[slot] = req
+        self._mut += 1
+        tr = req.trace
+        if tr is not None:
+            if tr.queue is not None:
+                tr.queue.end(slot=slot)
+            tr.decode = tracing.start_span(
+                "engine.decode", parent=tr.root, slot=slot,
+                resumed=True, prior_tokens=len(req.tokens))
+        stats.incr("migration.resumed_requests")
+        stats.set_value("active_slots", len(self._active))
+
+    def _migrate_out_active(self):
+        """Drain-time recovery: every slot still decoding is exported and
+        resumed on a survivor, its emitted tokens riding along, so a drain
+        costs one page transfer instead of a prompt run elsewhere."""
+        if self._tick is not None:
+            # the tick keeps the tokens on the device; the export ships
+            # req.tokens
+            self._tick.flush_to_host()
+        now = time.monotonic()
+        for slot, req in list(self._active.items()):
+            if req.id in self._migrate_failed:
+                continue        # one failed transfer: decode it out here
+            if self.scfg.deadline_policy == "evict" and \
+                    req.deadline is not None and now > req.deadline:
+                continue        # about to be evicted anyway
+            if len(req.tokens) >= req.max_new_tokens:
+                continue        # finishing this iteration regardless
+            del self._active[slot]
+            self._begin_migration(req)
+        stats.set_value("active_slots", len(self._active))
 
     # the pool gauges' forced cadence: a decode stretch whose page counts
     # do not move publishes once in this many iterations, not every tick
@@ -1375,6 +1784,8 @@ class Engine:
             self._queue.clear()
             self._active.clear()
             self._prefilling.clear()
+            self._migrating_out.clear()
+            self._migration_results.clear()
             self._cancels.clear()
         for req in reqs:
             if not req.future.done():

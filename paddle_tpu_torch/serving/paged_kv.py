@@ -28,16 +28,61 @@ copy back.  The decode step's page table ``[num_slots, N]`` and offsets
 ``[num_slots]`` are persistent int32 tensors too, allocated once: host
 mutations are copied into them in place, so a captured decode step (the
 compiled tick's CUDA graph) reads them at the same addresses every replay.
+
+Live KV-page migration (prefill/decode disaggregation, `migration`):
+`export_pages` gathers a slot's pages of every layer on the device and
+copies each pool's gather to the host in one transfer; `adopt_pages`
+installs received pages into free pages of the existing pools in place
+(``index_copy_`` over the adopted ids), so the tick's graphs keep reading
+the same tensors.  Adopted pages are slot-private: a shared prefix
+migrates as a copy, and the sender's tree keeps its pages.
 """
 from __future__ import annotations
 
 import itertools
+import warnings
 
 import numpy as np
 import torch
 
 from ..device import resolve_device, to_torch_dtype
-from ..quantization import kv_quant_params
+from ..quantization import as_bytes, kv_quant_params
+
+#: the wire's dtype names (the JAX package's numpy names) of pool dtypes
+_DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16",
+                torch.float16: "float16", torch.int8: "int8",
+                torch.float8_e4m3fn: "float8_e4m3fn"}
+#: numpy has no bfloat16 or float8: such arrays (ml_dtypes') come in
+#: through an integer view of their bytes
+_NP_VIEWS = {"bfloat16": (np.int16, torch.bfloat16),
+             "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn)}
+
+
+def dtype_name(dtype):
+    """The wire name of a pool dtype (``"bfloat16"``, ``"int8"``, ...)."""
+    return _DTYPE_NAMES[dtype]
+
+
+def dtype_of(name):
+    """The torch dtype of a wire dtype name."""
+    for dt, nm in _DTYPE_NAMES.items():
+        if nm == name:
+            return dt
+    raise ValueError(f"unknown KV pool dtype {name!r}")
+
+
+def _host_tensor(a):
+    """A torch tensor of a page payload given as a tensor or an array."""
+    if isinstance(a, torch.Tensor):
+        return a
+    a = np.ascontiguousarray(a)
+    view = _NP_VIEWS.get(a.dtype.name)
+    with warnings.catch_warnings():
+        # a payload over a received frame is read-only; it is only read
+        warnings.filterwarnings("ignore", message=".*not writable")
+        if view is not None:
+            return torch.from_numpy(a.view(view[0])).view(view[1])
+        return torch.from_numpy(a)
 
 
 class PagedKVCache:
@@ -239,6 +284,104 @@ class PagedKVCache:
     def reclaim(self, page):
         """Return a tree-owned page to the free pool (LRU eviction)."""
         self._free_pages.append(int(page))
+
+    # ---------------- live page migration (serving/migration.py) --------
+    def adopt_pages(self, reserve_pages, offset, k_pages, v_pages,
+                    k_scales=None, v_scales=None):
+        """Install migrated KV pages into free pool pages: the receive side
+        of prefill/decode disaggregation.  ``k_pages`` / ``v_pages`` are
+        ``[num_layers, n, page_size, H, D]`` host tensors or arrays (the
+        sender's pool rows, bit for bit), ``offset`` the migrated
+        sequence's cached-token count, ``reserve_pages`` how many more
+        pages the resumed request may claim while it decodes.
+
+        The pages are written into the existing pool tensors (one copy of
+        each frame to the device, then ``index_copy_`` a layer), never a
+        new pool.  They are slot-private.  Returns the slot, or None when
+        no slot or too few uncommitted pages remain (admission
+        backpressure, as `allocate`).  A geometry or dtype mismatch raises
+        `PageMigrationError`: the sender then decodes locally."""
+        from .api import PageMigrationError
+        k_pages, v_pages = _host_tensor(k_pages), _host_tensor(v_pages)
+        pool = self.layers[0]["k_pool"]
+        want = (len(self.layers),) + tuple(pool.shape[1:])
+        if k_pages.dim() != 5 or k_pages.shape[0] != want[0] or \
+                tuple(k_pages.shape[2:]) != want[1:] or \
+                v_pages.shape != k_pages.shape:
+            raise PageMigrationError(
+                f"page payload {tuple(k_pages.shape)}/"
+                f"{tuple(v_pages.shape)} does not fit a [{want[0]}, n, "
+                f"{want[1]}, {want[2]}, {want[3]}] pool (layers/page_size/"
+                "heads/head_dim mismatch)")
+        if k_pages.dtype != pool.dtype or v_pages.dtype != pool.dtype:
+            raise PageMigrationError(
+                f"page payload dtype {dtype_name(k_pages.dtype)} != pool "
+                f"dtype {dtype_name(pool.dtype)} (sender and receiver must "
+                "share ServingConfig.cache_dtype)")
+        quant = self.quant_dtype is not None
+        if quant != (k_scales is not None):
+            raise PageMigrationError(
+                "per-page scales "
+                + ("missing for a quantized pool"
+                   if quant else "sent to an unquantized pool"))
+        n = int(k_pages.shape[1])
+        if n < 1 or n > self.pages_per_slot:
+            raise PageMigrationError(
+                f"{n} pages do not fit a {self.pages_per_slot}-page "
+                "table row")
+        if -(-int(offset) // self.page_size) > n:
+            raise PageMigrationError(
+                f"offset {offset} claims more cached tokens than the "
+                f"{n} migrated pages hold")
+        if not self._free_slots or \
+                n + int(reserve_pages) > self.available_pages:
+            return None                     # backpressure, never a crash
+        slot = self._free_slots.pop()
+        pages = [self._free_pages.pop() for _ in range(n)]
+        self.table[slot, :] = 0
+        self.table[slot, :n] = pages
+        self._private[slot] = list(pages)
+        self._shared[slot] = 0
+        self._reserved[slot] = int(reserve_pages)
+        self.offsets[slot] = int(offset)
+        ids = torch.tensor(pages, dtype=torch.long, device=self.device)
+        frames = {"k_pool": k_pages, "v_pool": v_pages}
+        if quant:
+            frames["k_scale"] = _host_tensor(k_scales)
+            frames["v_scale"] = _host_tensor(v_scales)
+        for name, frame in frames.items():
+            dev = as_bytes(frame.to(self.device))
+            for li, lay in enumerate(self.layers):
+                as_bytes(lay[name]).index_copy_(0, ids, dev[li])
+        self._dirty = True
+        return slot
+
+    def export_pages(self, slot):
+        """Host copy of the slot's cached pages, layer-pooled: the send
+        side of live migration.  Returns ``(offset, k, v, k_scales,
+        v_scales)``, ``k`` / ``v`` contiguous CPU tensors ``[num_layers,
+        n, page_size, H, D]`` covering every page the offset has written
+        (shared tree pages included: the copy migrates, the tree keeps its
+        pages), the scales ``[num_layers, n, page_size]`` float32 or None
+        for float pools.  Each pool is gathered on the device into one
+        tensor and copied to the host in one synchronous transfer, so the
+        slot's pages may be released as soon as this returns."""
+        off = int(self.offsets[slot])
+        n = max(1, -(-off // self.page_size))
+        ids = torch.from_numpy(self.table[slot, :n].astype(np.int64)) \
+            .to(self.device)
+
+        def gather(name):
+            pool = as_bytes(self.layers[0][name])
+            out = torch.empty((len(self.layers), n) + tuple(pool.shape[1:]),
+                              dtype=pool.dtype, device=self.device)
+            for li, lay in enumerate(self.layers):
+                torch.index_select(as_bytes(lay[name]), 0, ids, out=out[li])
+            return out.cpu().view(self.layers[0][name].dtype)
+        k, v = gather("k_pool"), gather("v_pool")
+        if self.quant_dtype is None:
+            return off, k, v, None, None
+        return off, k, v, gather("k_scale"), gather("v_scale")
 
     # ---------------- device views ----------------
     def layer_caches(self):

@@ -11,9 +11,10 @@ prefix, into the process's one metrics registry
 their observations.  `Engine.start` resets the families and declares
 them at 0; `serving_stats()` derives the dashboard quantities at read
 time.  Engines in one process share the families, as in JAX.  The
-router's families (``serving.router.*``) and their publishers are not
-ported (ROADMAP A7): `serving_stats()` reads them as 0, as JAX's does
-without a router.
+router's families (``serving.router.*``: `route_observe`,
+`health_observe`, `declare_router_stats`, `reset_router_stats`) reset
+only with the router, and the migration families (``serving.migration.*``)
+are fed by the engines' KV-page handoffs.
 """
 from __future__ import annotations
 
@@ -53,11 +54,42 @@ def observe(name, value):
     monitor.observe(PREFIX + name, value)
 
 
+def route_observe(replica, role="mixed"):
+    """One routed request: the per-replica labeled counter
+    ``serving.router.requests_routed{replica=...}``, the per-role
+    ``serving.router.requests_routed_role{role=...}`` disaggregation
+    view, plus the flat total the snapshot reads."""
+    from ..observability import registry as _registry
+    _registry.counter(ROUTER_PREFIX + "requests_routed",
+                      "requests routed per replica",
+                      labelnames=("replica",)) \
+        .labels(replica=str(replica)).inc()
+    _registry.counter(ROUTER_PREFIX + "requests_routed_role",
+                      "requests routed per replica role",
+                      labelnames=("role",)) \
+        .labels(role=str(role or "mixed")).inc()
+    monitor.incr(ROUTER_PREFIX + "requests_routed_total")
+
+
+def health_observe(replica, score):
+    """Publish one replica's current health score (EWMA-latency-based,
+    error-inflated — serving/router.py `_ReplicaHealth`) as the
+    ``serving.router.replica_health_score{replica=...}`` gauge the
+    gray-failure dashboard plots against the ejection threshold."""
+    from ..observability import registry as _registry
+    _registry.gauge(ROUTER_PREFIX + "replica_health_score",
+                    "per-replica health score (EWMA latency ms, "
+                    "error-inflated); outliers vs the fleet median "
+                    "are ejected",
+                    labelnames=("replica",)) \
+        .labels(replica=str(replica)).set(float(score))
+
+
 def reset_serving_stats():
     """Clear every ``serving.*`` counter EXCEPT the router's (engine
     start does this so each engine run's snapshot is self-contained;
     the router outlives engine restarts across the fleet, so its
-    counters reset only with the router, ROADMAP A7)."""
+    counters reset only with the router: `reset_router_stats`)."""
     for key in monitor.all_stats():
         if key.startswith(PREFIX) and not key.startswith(ROUTER_PREFIX):
             monitor.reset(key)
@@ -152,6 +184,65 @@ def declare_trace_stats():
                       "probabilistic floor)")
     _registry.counter(PREFIX + "trace.spools",
                       "atomic JSONL spool writes under FLAGS_trace_dir")
+
+
+def declare_router_stats():
+    """Get-or-create every ``serving.router.*`` metric family so the
+    Prometheus exposition carries the full fleet schema from router
+    start — a dashboard must see ``requests_shed`` at 0, not a missing
+    series, before the first shed (tools/check_telemetry.py --router
+    gates on exactly this)."""
+    from ..observability import registry as _registry
+    _registry.counter(ROUTER_PREFIX + "requests_routed",
+                      "requests routed per replica",
+                      labelnames=("replica",))
+    _registry.counter(ROUTER_PREFIX + "requests_routed_role",
+                      "requests routed per replica role",
+                      labelnames=("role",))
+    for name, doc in (
+            ("requests_routed_total", "requests routed, all replicas"),
+            ("requests_shed", "fail-fast rejections: every ready "
+                              "replica at capacity"),
+            ("failovers", "replica deaths detected mid-request"),
+            ("resubmissions", "re-sends under the same idempotent id"),
+            ("requests_recovered", "requests completed after >= 1 "
+                                   "resubmission"),
+            ("replicas_lost", "replicas marked sticky-dead"),
+            ("ejections", "replicas ejected by the gray-failure "
+                          "guardian (health-score outliers; reversible, "
+                          "unlike sticky-dead)"),
+            ("readmissions", "ejected replicas readmitted after "
+                             "sustained canary recovery"),
+            ("hedges", "hedge requests fired past the latency "
+                       "percentile (same idempotent rid)"),
+            ("hedge_wins", "requests whose hedge answered before the "
+                           "primary attempt"),
+            ("breaker_open", "circuit-breaker closed->open transitions "
+                             "(per-replica rpc breakers)"),
+            ("retry_budget_exhausted", "resubmissions refused by the "
+                                       "fleet-wide token-bucket retry "
+                                       "budget")):
+        _registry.counter(ROUTER_PREFIX + name, doc)
+    _registry.gauge(ROUTER_PREFIX + "replicas_alive",
+                    "ready replicas in the routing ring")
+    _registry.gauge(ROUTER_PREFIX + "replica_health_score",
+                    "per-replica health score (EWMA latency ms, "
+                    "error-inflated); outliers vs the fleet median "
+                    "are ejected",
+                    labelnames=("replica",))
+    _registry.histogram(ROUTER_PREFIX + "route_latency_ms",
+                        "submit-to-completion through the fleet (ms)")
+
+
+def reset_router_stats():
+    """Clear the ``serving.router.*`` counters (router start).  Labeled
+    children (``requests_routed{replica=...}``) reset with their family
+    — ``monitor.reset`` resolves the flat key back to the registry
+    metric."""
+    declare_router_stats()
+    for key in monitor.all_stats():
+        if key.startswith(ROUTER_PREFIX):
+            monitor.reset(key)
 
 
 def adapter_observe(adapter_id):

@@ -1,5 +1,6 @@
 """Flag-driven fault injection (port of the points of
-paddle_tpu/utils/fault_injection.py that the training runtime reaches).
+paddle_tpu/utils/fault_injection.py that the training runtime and the
+serving fleet reach).
 
 ``FLAGS_fault_inject`` holds a spec string::
 
@@ -26,11 +27,17 @@ The points, with the JAX package's parameters:
   ``loss_spike`` (`spike_loss`, after the forward) and ``grad_bitflip``
   (`corrupt_grads`, after the backward).  The last two are seams of the
   eager step: the compiled step's graph replays neither, in the JAX
-  package too.
+  package too;
+- the serving fleet's drills (`check_rpc`), each filtered on a substring
+  of the target worker's name (``to``), with a ``count`` budget and a
+  ``once_file``: ``rpc_drop`` and ``rpc_delay`` at the rpc client's
+  connect (before a call could have been delivered), ``rpc_slow`` in the
+  call after the request went out, and ``engine_slow`` once a scheduler
+  iteration of the engine whose replica the name matches.
 
-The JAX package's other points (the serving fleet's rpc points, the
-collective and hot-spare drills) belong to modules the port does not
-have; naming one raises `FaultSpecError`.  So do the JAX ``step``
+The JAX package's other points (the collective and hot-spare drills)
+belong to modules the port does not have; naming one raises
+`FaultSpecError`.  So do the JAX ``step``
 point's ``crash_at``, ``exit``, ``rank`` and ``once_file`` keys: they
 serve multi-rank runs (A8) and the hot-spare drills, which are not
 ported.  With the flag unset every
@@ -62,6 +69,13 @@ KNOWN_POINTS = {
                    "count": int},
     "grad_bitflip": {"at_step": int, "rank": int, "value": float,
                      "param": int, "count": int},
+    "rpc_drop": {"to": str, "count": int, "once_file": str},
+    "rpc_delay": {"to": str, "delay_s": float, "count": int,
+                  "once_file": str},
+    "rpc_slow": {"to": str, "delay_s": float, "count": int,
+                 "once_file": str},
+    "engine_slow": {"to": str, "delay_s": float, "count": int,
+                    "once_file": str},
 }
 
 _IDENT = re.compile(r"^[A-Za-z_][A-Za-z0-9_]*$")
@@ -165,6 +179,47 @@ def write_bytes(f, data, filename=None):
                     f"of {filename or getattr(f, 'name', '?')}")
             _crash(params)
     f.write(data)
+
+
+#: the rpc points' remaining fires; re-armed whenever the spec string
+#: changes, so one test's spent `count` cannot leak into the next
+_RPC_STATE = {"raw": "", "counts": {}}
+
+
+def check_rpc(point, worker_name):
+    """Consult an armed rpc point for ``worker_name``: ``rpc_drop`` and
+    ``rpc_delay`` from the rpc client before it dials, ``rpc_slow`` from
+    ``rpc_sync`` after the request went out, ``engine_slow`` from each
+    scheduler iteration (``worker_name`` is then the hosting replica's).
+    Returns True when an armed ``rpc_drop`` says this connect must fail
+    (the caller raises ``ConnectionError``), else False; the delay points
+    sleep ``delay_s`` here and return False."""
+    params = active(point)
+    if params is None:
+        return False
+    substr = params.get("to")
+    if substr is not None and substr not in str(worker_name):
+        return False
+    raw = flag("FLAGS_fault_inject", "") or ""
+    if _RPC_STATE["raw"] != raw:
+        _RPC_STATE["raw"] = raw
+        _RPC_STATE["counts"] = {}
+    if "count" in params:
+        left = _RPC_STATE["counts"].get(point, params["count"])
+        if left <= 0:
+            return False
+        _RPC_STATE["counts"][point] = left - 1
+    once = params.get("once_file")
+    if once:
+        try:
+            fd = os.open(once, os.O_CREAT | os.O_EXCL | os.O_WRONLY)
+            os.close(fd)
+        except FileExistsError:
+            return False
+    if point in ("rpc_delay", "rpc_slow", "engine_slow"):
+        time.sleep(float(params.get("delay_s", 0.0)))
+        return False
+    return True
 
 
 def check_step(step):

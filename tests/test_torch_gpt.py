@@ -285,3 +285,37 @@ def test_dropout_layer_keep_share_and_eval_identity():
     assert abs(float((j != 0).mean()) - 0.9) < 0.005
     with pytest.raises(NotImplementedError, match="upscale_in_train"):
         F.dropout(x, 0.1, mode="downscale_in_infer")
+
+
+def _init_stats_match(jax_model, port_model):
+    """Each parameter's mean and standard deviation in the port's bare
+    model against JAX's bare model.  Tolerance: the sampling error of the
+    statistic, 6 sigma (std: sigma / sqrt(2 n); mean: sigma / sqrt(n));
+    constant parameters (biases, norm weights) are equal exactly."""
+    js = {k: np.asarray(v.numpy(), np.float64)
+          for k, v in jax_model.state_dict().items()}
+    ts = {k: v.detach().double().numpy()
+          for k, v in port_model.state_dict().items()}
+    assert set(js) == set(ts)
+    for k, j in js.items():
+        t = ts[k]
+        assert j.shape == t.shape, k
+        sigma, n = j.std(), j.size
+        if sigma == 0:
+            np.testing.assert_array_equal(t, j, err_msg=k)
+            continue
+        assert abs(t.std() - sigma) < 6 * sigma / np.sqrt(2 * n), k
+        assert abs(t.mean() - j.mean()) < 6 * sigma / np.sqrt(n), k
+
+
+def test_bare_gpt_model_draws_the_model_init():
+    """A bare ``GPTModel(cfg)`` (hidden 256, 2 layers) draws JAX's model
+    init: embeddings and projections N(0, 0.02), the output projections
+    N(0, 0.02 / sqrt(2 L)), zero biases, layer norms at 1 and 0."""
+    from paddle_tpu.models.gpt import GPTModel as JaxGPTModel
+    from paddle_tpu_torch.models import GPTModel
+    kw = dict(num_layers=2, hidden_size=256, num_heads=4, vocab_size=1024,
+              max_seq_len=128)
+    paddle.seed(0)
+    _init_stats_match(JaxGPTModel(jax_gpt_config("gpt2-124m", **kw)),
+                      GPTModel(gpt_config("gpt2-124m", **kw), device="cpu"))

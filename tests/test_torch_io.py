@@ -318,7 +318,8 @@ def test_back_to_back_async_saves_take_distinct_default_steps(tmp_path):
     "step:sigterm_at=1,rank=0",
     "step:sigterm_at=1,once_file=x",
     ":after_bytes=1",
-    "rpc_drop:count=1",               # a JAX point the port does not have
+    "rpc_drop:count=x",               # an rpc point with a bad value
+    "collective_delay:delay_s=1",     # a JAX point the port does not have
     "loss_spike:at_step=x",           # a sentinel point with a bad value
 ])
 def test_fault_spec_rejects_malformed(bad):

@@ -184,3 +184,18 @@ def test_state_dict_layout_is_paddles(pair):
         {"w": np.ones((2, 3), np.float32)}, device="cpu",
         dtype="bfloat16")
     assert sd["w"].dtype == torch.bfloat16 and sd["w"].shape == (2, 3)
+
+
+def test_bare_llama_model_draws_the_model_init():
+    """A bare ``LlamaModel(cfg)`` (hidden 256, 2 layers) draws JAX's model
+    init, parameter by parameter: each one's mean and standard deviation
+    within 6 sigma of its sampling error of JAX's (tests/test_torch_gpt.py
+    `_init_stats_match`), norm weights at 1."""
+    from paddle_tpu.models.llama import LlamaModel as JaxLlamaModel
+    from paddle_tpu_torch.models import LlamaModel
+    from test_torch_gpt import _init_stats_match
+    kw = dict(num_layers=2, hidden_size=256, num_heads=4, num_kv_heads=2,
+              vocab_size=1024, max_seq_len=128)
+    paddle.seed(0)
+    _init_stats_match(JaxLlamaModel(jax_llama_config("tiny", **kw)),
+                      LlamaModel(llama_config("tiny", **kw), device="cpu"))

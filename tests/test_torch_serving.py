@@ -1,8 +1,8 @@
 """The port's serving engine (paddle_tpu_torch/serving/): greedy outputs
 identical to the JAX engine on the same tiny Llama, plus the scheduler's
 own contract: prefix reuse, seeded sampling, admission, cancellation,
-deadlines, shutdown and the option not ported yet, a disaggregation role
-(quantized KV and LoRA adapters: tests/test_torch_kv_quant.py,
+deadlines, shutdown and the disaggregation role's validation (quantized
+KV and LoRA adapters: tests/test_torch_kv_quant.py,
 test_torch_lora_serving.py; speculation, the slot layout and resilience:
 test_torch_spec_serving.py, test_torch_serving_resilience.py)."""
 import numpy as np
@@ -136,10 +136,20 @@ def test_admission_cancel_deadline_shutdown(model):
         Engine(model).start().submit(np.arange(64))
 
 
-@pytest.mark.parametrize("kw", [dict(role="prefill")])
-def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError):
-        ServingConfig(**kw).validate()
+@pytest.mark.parametrize("role", ["mixed", "prefill", "decode", "bogus"])
+def test_role_validation_matches_jax(role):
+    """A disaggregation role validates as in JAX: the three roles pass,
+    an unknown one raises ``ValueError`` with JAX's message."""
+    want = got = None
+    try:
+        JaxServingConfig(role=role).validate()
+    except ValueError as e:
+        want = str(e)
+    try:
+        assert ServingConfig(role=role).validate().role == role
+    except ValueError as e:
+        got = str(e)
+    assert got == want and (got is None) == (role != "bogus")
 
 
 def test_bf16_pools_serve(model):

@@ -4,7 +4,8 @@ tests/test_compiled_tick.py's tick cases): `Engine.drain`, a SIGTERM drill
 through `install_preemption_drain` in a child process, a crash and a stall
 each restarting the loop with a fresh cache and tick, the give-up past
 ``max_scheduler_restarts``, the exporter `Engine.start` starts, the tick's
-static blockers, ``kv_layout="slots"`` against the JAX slot engine,
+static blockers, ``drain(migrate=True)`` moving an in-flight slot to a
+survivor engine, ``kv_layout="slots"`` against the JAX slot engine,
 `SlotKVCache` against JAX's, and the watchdog's thread helpers.  The
 models are the tiny Llama (fp32, CPU), weights carried by
 `convert.load_paddle_tpu_state` where JAX runs too."""
@@ -146,12 +147,46 @@ def test_drain_completes_inflight_fails_queued(pair, flags, tick):
     eng.drain()                         # idempotent on a stopped engine
 
 
-def test_drain_migrate_is_not_ported(pair):
+@pytest.mark.parametrize("tick", [True, False])
+def test_drain_migrate_moves_an_inflight_slot(pair, flags, tick):
+    """``drain(migrate=True)`` with an installed migrator: the decoding
+    slot's pages and tokens go to a survivor engine, which finishes the
+    request (the full stream equal to an undisturbed run) without running
+    its prompt again; the drained engine ends with every page free."""
+    from paddle_tpu_torch.serving import migration
     _, tm = pair
-    with Engine(tm, ServingConfig(num_slots=1)) as eng:
-        with pytest.raises(NotImplementedError, match="A7"):
-            eng.drain(migrate=True)
-        assert eng.generate(PROMPT, max_new_tokens=2).output_ids.size == 2
+    want = _greedy(tm, PROMPT, 40)
+    flags.set_flags({"FLAGS_compiled_tick": tick})
+    survivor = Engine(tm, ServingConfig(num_slots=2)).start()
+    # 10 ms a model call: the request is mid-decode when the drain lands
+    eng = Engine(_Faulty(tm, step_s=0.01), ServingConfig(num_slots=2)).start()
+    try:
+        def migrate(req, header, blobs, target):
+            out = survivor.submit_resume(
+                req.prompt, list(req.tokens),
+                migration.unpack(header, *blobs),
+                max_new_tokens=req.max_new_tokens,
+                sampling=req.sampling).result(timeout=120)
+            return {"replica": "survivor", "output_ids": out.output_ids,
+                    "finish_reason": out.finish_reason}
+        eng.migrator = migrate
+        fut = eng.submit(PROMPT, max_new_tokens=40)
+        deadline = time.monotonic() + 60
+        while not eng._active:
+            assert time.monotonic() < deadline, "never decoded"
+            time.sleep(0.002)
+        eng.drain(deadline_s=60, migrate=True)
+        out = fut.result(timeout=60)
+        st = eng.stats()
+        pages_left = eng.cache.pages_in_use
+    finally:
+        eng.shutdown()
+        survivor.shutdown()
+    np.testing.assert_array_equal(out.output_ids, want)
+    assert out.decoded_by == "survivor"
+    assert st["migrations"] == st["migration_resumed_requests"] == 1
+    assert st["migration_pages_received"] == st["migration_pages_sent"] >= 1
+    assert st["migration_fallbacks"] == 0 and pages_left == 0
 
 
 WORKER = r'''
