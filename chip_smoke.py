@@ -19,6 +19,9 @@ last line:
             the checks must reject; the flash kernels' feature variants
             (dropout 0.1, an additive bias, a key-padding mask with a
             fully masked row, segment ids) at GPT-2's training shape;
+            the flash kernels' dropout hash on global rows and heads
+            (offsets 0 = none bit for bit, a dp x mp split's parts = the
+            global call's slices, one part against the plain versions);
             the dropout seed read from device memory (a 0-dim int64
             tensor) equal to the host int's bits, seed + 1 rejected;
             Adam with its [lr, bc1, bc2, gscale] made on the card from a
@@ -290,6 +293,26 @@ last line:
             base served with the adapter in the Engine's pool: prefill
             logits within LORA_FLOOR_MULT x the model's bf16 floor of the
             wrapped model's forward and of the fp32 adapted model
+21. train-hybrid  the collectives and the hybrid dp x mp step; the
+            ranks are children of this script (``--hybrid-child``) over
+            NCCL (HYBRID_BACKEND; ranks that share the card through its
+            socket transport): (a) Llama-2 7B width, 8 layers, mp 2, bf16
+            O2, AdamW + clip 1.0, B1 x S4096 through fleet.init ->
+            distributed_model -> CompiledTrainStep(mesh), eager then
+            compiled: losses finite, falling, compiled = eager bit for
+            bit, the norms' copies equal across ranks, the training
+            kernels launched on every rank; step ms, MFU against one
+            card, peaks, collectives and bytes a step, graphs, the busy
+            share of 3 replays; (b) 2 layers at 7B width fp32, mp 2
+            against one rank on the same weights
+            (convert.shard_paddle_tpu_state), 3 AdamW steps, and the
+            clip's global norm of the first step's gradients; (d) generate
+            with a dense and a paged cache = the one rank's tokens; (c)
+            GPT-2 124M dp 2 x mp 2, dropout 0.1, bf16 O2: hapi fit over a
+            DistributedBatchSampler = the hand-driven CompiledTrainStep on
+            the global batches bit for bit, the dp replicas bit for bit,
+            the 4 ranks' flash parts (the hash's offsets) = the one-rank
+            call
 
 The second-to-last line is the kernels' JSON summary, the last line
 ``{"ok": true, "device": {...}}``.  ``--phases`` runs a subset.
@@ -370,7 +393,7 @@ PHASES = ("device", "build", "kernels", "serve", "serve-lora-int8",
           "train-compiled-parity", "train-gpt2", "gpt2-parity", "attn-ops",
           "train-optimizers", "serve-gpt", "gpt-parity", "generate-gpt",
           "train-gpt2-recompute", "fit-gpt2", "fit-llama", "sentinel-gpt2",
-          "lora-llama")
+          "lora-llama", "train-hybrid")
 #: generate-gpt: the worst row error (relative to the row's norm) allowed
 #: between the cached path's last-position logits and the full forward's
 #: at GPT-3 6.7B in bf16.  Both paths round every activation to bf16 (a
@@ -1066,7 +1089,7 @@ def feature_case(dev, kind, b, h, s, d, dtype, gen, timer, controls=False):
                                            dtype))
         keep_of = fa._keep
 
-        def head_only(seed, p, b_, h_, s_, device):
+        def head_only(seed, p, b_, h_, s_, device, offsets=None):
             return keep_of(seed, p, 1, h_, s_, device).expand(b_, h_, s_, s_)
         fa._keep = head_only
         try:
@@ -1188,6 +1211,71 @@ def seed_case(dev, b, h, s, d, gen):
                         lambda: same(other, "seed + 1"))
         log(f"[kernels] {name}: fwd, dK/dV, dQ equal bit for bit with the "
             f"seed as a host int and as a device int64")
+
+
+def offsets_case(dev, b, h, s, d, gen, dp=2, mp=2):
+    """The flash kernels' dropout hash on global indices (the offsets of
+    a dp x mp rank's part) at GPT-2's shape, bf16, dropout 0.1: offsets
+    ``(0, 0, H)`` give the bits of none (fwd out and lse, dK, dV, dQ);
+    each of the dp x mp parts (its rows and heads, offsets ``(rows before
+    it, heads before it, H)``) equals its slice of the global call bit for
+    bit, fwd and backward; one part against the plain versions with its
+    offsets, row by row.  Controls: a part with the local index (no
+    offsets) must differ from its slice of the global call, and the plain
+    version with the offsets shifted by a row must be rejected."""
+    def mk():
+        return torch.randn(b, h, s, d, device=dev, generator=gen).bfloat16()
+    q, k, v, do = mk(), mk(), mk(), mk()
+    feats = dict(dropout=0.1, seed=987)
+
+    def run(q, k, v, do, **kw):
+        out, lse = fa.flash_attention_fwd(q, k, v, True, None, True,
+                                          **feats, **kw)
+        dq, dk, dv = fa.flash_attention_bwd(q, k, v, out, lse, do, True,
+                                            None, True, **feats, **kw)
+        return dict(out=out, lse=lse, dq=dq, dk=dk, dv=dv)
+    whole = run(q, k, v, do)
+    zero = run(q, k, v, do, offsets=(0, 0, h))
+    for part, t in zero.items():
+        if not torch.equal(t, whole[part]):
+            raise AssertionError(f"flash offsets (0, 0, {h}): {part} "
+                                 f"differs from no offsets")
+    rb, hb = b // dp, h // mp
+    name = f"flash dropout offsets [B{b} H{h} S{s} D{d}, dp {dp} x mp {mp}]"
+
+    def slices(r, m, got):
+        for part, t in got.items():
+            want = whole[part][r * rb:(r + 1) * rb, m * hb:(m + 1) * hb]
+            if not torch.equal(t, want):
+                raise AssertionError(f"{name} part ({r}, {m}) {part}: "
+                                     f"differs from the global call's slice")
+    for r in range(dp):
+        for m in range(mp):
+            part = [t[r * rb:(r + 1) * rb, m * hb:(m + 1) * hb]
+                    for t in (q, k, v, do)]
+            slices(r, m, run(*part, offsets=(r * rb, m * hb, h)))
+    part = [t[rb:, hb:] for t in (q, k, v, do)]
+    off = (rb, hb, h)
+    got = run(*part, offsets=off)
+    ref_out, ref_lse = fa.flash_attention_ref(*part[:3], True, None, True,
+                                              **feats, offsets=off)
+    ref_grads = fa.flash_attention_bwd_ref(*part[:3], got["out"],
+                                           got["lse"], part[3], True, None,
+                                           True, **feats, offsets=off)
+    err, row = check_rows(name, [("out", got["out"], ref_out)] + [
+        (n, got[n], w) for n, w in zip(("dq", "dk", "dv"), ref_grads)],
+        torch.bfloat16)
+    expect_rejected(f"{name}: a part with the local index", lambda: slices(
+        1, 1, run(*part)))
+    wrong, _ = fa.flash_attention_ref(*part[:3], True, None, True, **feats,
+                                      offsets=(rb + 1, hb, h))
+    expect_rejected(f"{name}: the plain version a row off", lambda:
+                    check_rows(name, [("out", got["out"], wrong)],
+                               torch.bfloat16))
+    log(f"[kernels] {name}: offsets (0, 0, {h}) = none bit for bit; the "
+        f"{dp * mp} parts = their slices of the global call bit for bit "
+        f"(fwd, dK, dV, dQ); part (1, 1) against the plain versions: max "
+        f"abs err {err:.3e}, worst row {row:.3e}")
 
 
 def adam_case(dev, n, p_dtype, master, decoupled, wd, gen, timer=None,
@@ -1630,6 +1718,7 @@ def phase_kernels(dev):
         for kname, r in res.items():
             timed[(kname, kind)] = r
     seed_case(dev, g2["b"], g2["h"], g2["s"], g2["d"], gen)
+    offsets_case(dev, g2["b"], g2["h"], g2["s"], g2["d"], gen)
     # Adam: the 7B-width MLP weight (4096 x 11008) in bf16 with its fp32
     # master under AdamW, as the train phase updates it; an fp32 parameter
     # with a ragged tail under L2-coupled Adam; a misaligned fp16 one
@@ -1958,6 +2047,15 @@ REPLAY_KERNELS = {
 }
 
 
+#: idle seconds on each side of a profiled window's edges.  The profiler
+#: keeps a kernel's record only when its start and end, taken on the card's
+#: clock and converted to the host's, fall inside the window that the host
+#: opened and closed; without the idle time kernels next to an edge were
+#: dropped (serve-gpt's 5 replays once counted 147 paged decodes of 160;
+#: scripts/profile_window_check.py counts such windows with and without it)
+PROFILE_EDGE_S = 0.1
+
+
 def profile_replays(step, n=5):
     """`device_rows` of ``n`` replays of a captured tick graph, profiled
     after one warm-up replay under the profiler (its tracing set up, not
@@ -1969,9 +2067,11 @@ def profile_replays(step, n=5):
                  schedule=schedule(wait=0, warmup=1, active=1),
                  acc_events=True) as prof:
         for reps in (1, n):
+            time.sleep(PROFILE_EDGE_S)
             for _ in range(reps):
                 step.graph.replay()
             torch.cuda.synchronize()
+            time.sleep(PROFILE_EDGE_S)
             prof.step()
     rows = device_rows(prof)
     covered = {w for names in REPLAY_KERNELS for w in names}
@@ -2648,14 +2748,14 @@ def exact_lanes(tag, dev, prompts, layers=2, gpt=False):
 
 
 def phase_serve_spec(dev, model):
-    """Llama-2 7B, bf16, 4 slots, context 1024, K 4, the serve phase's 8
-    requests with 32 new tokens: (a) the target as its own draft (own draft
-    cache), all greedy; on the first 4 requests (b) a 2-layer early-exit
-    draft and (c) (a) with int8 pools, all greedy, and (d) the traffic as
-    it is (request 3 seeded-sampled: speculation disengages while it
-    decodes).  Greedy tokens against the
-    plain compiled lane's under the tie rule; acceptance, pages, launches,
-    ms a window and a token, peak memory.  Then the exact fp32 lanes."""
+    """Llama-2 7B, bf16, 4 slots, context 1024, K 4, the first 4 of the
+    serve phase's requests with 32 new tokens: (a) the target as its own
+    draft (own draft cache), all greedy; (b) a 2-layer early-exit draft and
+    (c) (a) with int8 pools, all greedy, and (d) the traffic as it is
+    (request 3 seeded-sampled: speculation disengages while it decodes).
+    Greedy tokens against the plain compiled lane's under the tie rule;
+    acceptance, pages, launches, ms a window and a token, peak memory.
+    Then the exact fp32 lanes."""
     tag = "serve-spec"
     cfg = model.config
     prompts, sampling = serve_requests(cfg.vocab_size)
@@ -2674,9 +2774,9 @@ def phase_serve_spec(dev, model):
     draft2 = early_exit_draft(model, 2, dev)
     # the agreeing lanes' target is wrapped to record each rejection's gap
     # in the verify logits (and is its own draft, wrapped alike)
-    # (b), (c) and (d) serve the first 4 requests only (request 3 is
+    # the lanes serve the first 4 requests only (request 3 is
     # seeded-sampled): the script's time budget
-    lanes = (("(a) agreeing", None, "bfloat16", greedy, "bf16"),
+    lanes = (("(a) agreeing", None, "bfloat16", greedy[:4], "bf16"),
              ("(b) early exit", draft2, "bfloat16", greedy[:4], "bf16"),
              ("(c) agreeing int8", None, "int8", greedy[:4], "int8"),
              ("(d) serve traffic", model, "bfloat16", sampling[:4],
@@ -4059,7 +4159,8 @@ def kernel_groups(rows, per=1):
     groups = {}
     for key, ms, _ in rows:
         k = key.lower()
-        group = ("flash attention (ours)" if "flash_" in k else
+        group = ("collectives (NCCL)" if "nccl" in k else
+                 "flash attention (ours)" if "flash_" in k else
                  "adam (ours)" if "adam_kernel" in k else
                  "clip norm (torch _foreach_norm)" if "lpnorm" in k else
                  "paged decode + lora delta (ours)" if any(t in k for t in (
@@ -4156,30 +4257,36 @@ def lane_line(tag, label, lane, warmup, steps, tokens, flops):
     return step_ms
 
 
-def profile_compiled(cs, ids, labels, tag, n=3):
+def profile_compiled(cs, ids, labels, tag, n=3, groups=None):
     """torch.profiler over ``n`` compiled steps after one warm-up step
     under the profiler (its tracing set up, not recorded): the device's
-    busy share of their wall time and the time by group."""
+    busy share of their wall time and the time by group (into the dict
+    ``groups`` too, ms a step, when given)."""
     from torch.profiler import ProfilerActivity, profile, schedule
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1),
                  acc_events=True) as prof:
         for reps in (1, n):
+            time.sleep(PROFILE_EDGE_S)
             t0 = time.monotonic()
             for _ in range(reps):
                 cs(ids, labels)
             torch.cuda.synchronize()
             wall_ms = (time.monotonic() - t0) * 1e3
+            time.sleep(PROFILE_EDGE_S)
             prof.step()
     rows = device_rows(prof)
     busy_ms = sum(r[1] for r in rows)
     log(f"[{tag}] {n} replays: wall {wall_ms / n:.2f} ms a step, device "
         f"busy {busy_ms / n:.2f} ms ({100 * busy_ms / wall_ms:.1f}%)")
-    log(f"[{tag}] by group a step: " + fmt_groups(kernel_groups(rows, n), 2))
+    by_group = kernel_groups(rows, n)
+    log(f"[{tag}] by group a step: " + fmt_groups(by_group, 2))
     for key, ms, count in sorted(rows, key=lambda r: -r[1])[:8]:
         log(f"[{tag}]   {ms / n:9.3f} ms  {count / n:7.1f}x a step  "
             f"{key[:80]}")
+    if groups is not None:
+        groups.update(by_group, wall=wall_ms / n)
     return busy_ms / wall_ms
 
 
@@ -6203,6 +6310,633 @@ def serve_lora(dev, cfg, rows, n, net, spec, root, prompt, want, out):
                 err_base=err_base)
 
 
+# ---------------------------------------------------------- train-hybrid
+#: train-hybrid's process groups: NCCL.  Ranks that share one card (the
+#: usual case here: one H100) each take an NCCL host id of their own and
+#: NCCL's socket transport on the loopback interface
+#: (`distributed.env.one_card_nccl_env`, which `init_parallel_env` sets
+#: when the ranks name their card and outnumber the cards;
+#: tools/torch_nccl_one_card.py shows every collective and an all_reduce
+#: captured in a CUDA graph working so, and torch's NCCL barrier and
+#: process-group teardown hang such ranks: they end with a token
+#: all-reduce and exit without a teardown).
+#: With a card a rank, plain NCCL.  gloo is not a lane on the card: it
+#: takes no CUDA tensors there and cannot be captured.
+HYBRID_BACKEND = "nccl"
+#: the one-card train phase's compiled step on the same model and batch
+#: (PR 13 final, phase 7): the single-card figure train-hybrid (a) is set
+#: against
+TRAIN_ONE_CARD_MS = 106.06
+
+
+def hybrid_strategy(dp, mp):
+    from paddle_tpu_torch.distributed import fleet
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs = {"dp_degree": dp, "mp_degree": mp}
+    return s
+
+
+def hybrid_init(dev, world, dp, mp, outdir, lane):
+    """This rank joins ``lane``'s process group (a file rendezvous in
+    ``outdir``) and the dp x mp topology."""
+    from paddle_tpu_torch.distributed import env, fleet
+    env.init_parallel_env(
+        backend=HYBRID_BACKEND, device=dev, world_size=world,
+        rank=int(os.environ["RANK"]),
+        init_method="file://" + os.path.join(outdir, f"rdzv-{lane}"))
+    return fleet.init(is_collective=True, strategy=hybrid_strategy(dp, mp),
+                      backend=HYBRID_BACKEND, device=dev)
+
+
+def collective_counts():
+    """{op: (calls, bytes)} of the registry's ``dist.collective_*``."""
+    calls = registry.REGISTRY.get("dist.collective_calls")
+    nbytes = registry.REGISTRY.get("dist.collective_bytes")
+    if calls is None:
+        return {}
+    out = {}
+    for op in ("all_reduce", "all_gather", "reduce_scatter", "broadcast",
+               "barrier"):
+        c = calls.labels(op=op).value
+        if c:
+            out[op] = (c, nbytes.labels(op=op).value)
+    return out
+
+
+def per_step(after, before, n):
+    return {op: ((c - before.get(op, (0, 0))[0]) / n,
+                 (b - before.get(op, (0, 0))[1]) / n)
+            for op, (c, b) in after.items()
+            if c != before.get(op, (0, 0))[0]}
+
+
+def replicated_digest(model):
+    """sha256 of the parameters every mp rank holds a copy of (the
+    norms): equal across the ranks when the copies stayed in step."""
+    h = hashlib.sha256()
+    for name, p in model.named_parameters():
+        if not getattr(p, "mp_split", False):
+            h.update(name.encode())
+            h.update(p.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def params_digest(model):
+    h = hashlib.sha256()
+    for name, p in model.named_parameters():
+        h.update(name.encode())
+        h.update(p.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def timed_steps(step, ids, labels, n):
+    losses, times = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        losses.append(float(step(ids, labels)))
+        torch.cuda.synchronize()
+        times.append((time.monotonic() - t0) * 1e3)
+    return losses, times
+
+
+def hybrid_llama_lane(dev, rank, world, outdir, warmup=2, steps=3):
+    """(a) Llama-2 7B width, 8 layers (phase 7's cut), mp = world, bf16
+    O2, AdamW(3e-4, wd 0.01, clip 1.0), B1 x S4096: the eager lane
+    (CompiledTrainStep with FLAGS_compiled_train_step off: call after call
+    `_default_eager_step`'s mesh tail), then, the model freed, the same
+    seed through the compiled lane; (b) and (d) on the same ranks after."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.models import ParallelLlamaForCausalLM
+    hcg = hybrid_init(dev, world, 1, world, outdir, "llama")
+    cfg = llama_config("llama2-7b", num_layers=8)
+    seq = 4096
+    ids, labels = (t.to(dev) for t in train_batch(cfg.vocab_size, seq))
+    out = {"rank": rank, "mp_rank": hcg.get_model_parallel_rank()}
+
+    def build():
+        model = fleet.distributed_model(ParallelLlamaForCausalLM(
+            cfg, device=dev, dtype=torch.float32, seed=0))
+        opt = AdamW(learning_rate=3e-4, parameters=model.parameters(),
+                    weight_decay=0.01, grad_clip=ClipGradByGlobalNorm(1.0))
+        return amp.decorate(model, opt, level="O2", dtype=torch.bfloat16)
+
+    for lane in ("eager", "compiled"):
+        model, opt = build()
+        n_global = model.num_params()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        port_flags.set_flags({"FLAGS_compiled_train_step":
+                              lane == "compiled"})
+        cs = CompiledTrainStep(lambda x, y: model(x, labels=y)[1], opt,
+                               network=model, mesh=hcg.mesh)
+        kernels.reset_launch_counts()
+        before = collective_counts()
+        losses, times = timed_steps(cs, ids, labels, warmup + steps)
+        counts = kernels.launch_counts()
+        res = dict(losses=losses, times=times,
+                   peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+                   launches={k: v for k, v in counts.items() if v},
+                   coll=per_step(collective_counts(), before,
+                                 warmup + steps),
+                   compiled=cs.compiled, digest=replicated_digest(model))
+        if lane == "compiled":
+            res["graphs"] = {k: [c, r, l] for k, (c, r, l) in
+                             cs.graph_stats().items()}
+            res["groups"] = {}
+            res["busy"] = profile_compiled(cs, ids, labels,
+                                           f"train-hybrid r{rank}",
+                                           groups=res["groups"])
+        out[lane] = res
+        del model, opt, cs
+        gc.collect()
+        torch.cuda.empty_cache()
+    port_flags.set_flags({"FLAGS_compiled_train_step": True})
+    out["n_params"] = n_global
+    if rank == 0:                     # the gpt lane's ranks may start
+        open(os.path.join(outdir, "a-done"), "w").close()
+    out.update(hybrid_parity(dev, rank, hcg))
+    return out
+
+
+def first_grad_norm(model, ids, labels):
+    """The clip's global norm of ``model``'s gradients on one batch
+    (`nn.clip.global_norm`: a split model's shards summed over mp, its
+    copies counted once) and the copies' share of the norm's square; the
+    gradients are dropped after."""
+    from paddle_tpu_torch.nn.clip import global_norm
+    model(ids, labels=labels)[1].backward()
+    params = [p for p in model.parameters() if p.grad is not None]
+    norm = float(global_norm([(p, p.grad) for p in params]))
+    rep = sum(float(p.grad.float().square().sum()) for p in params
+              if not getattr(p, "mp_split", False))
+    for p in params:
+        p.grad = None
+    return norm, rep / norm ** 2
+
+
+def hybrid_parity(dev, rank, hcg, steps=3, new=8):
+    """(b) and (d): Llama-2 7B width, 2 layers, fp32, S256.  Every rank
+    draws the one-rank model (seed 1) and takes its state; rank 0 runs it
+    (generate with a dense and a paged cache, then 3 AdamW steps); the mp
+    ranks load their shards of the same state
+    (`convert.shard_paddle_tpu_state`), generate the same ways, train the
+    same 3 steps through the compiled mesh lane, and the global state is
+    gathered to rank 0, which compares."""
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.models import ParallelLlamaForCausalLM
+    cfg = llama_config("llama2-7b", num_layers=2, max_seq_len=256)
+    ids, labels = (t.to(dev) for t in train_batch(cfg.vocab_size, 256,
+                                                  seed=1))
+    prompt = ids[:, :32].repeat(2, 1)
+    one, opt = make_trainer(cfg, dev, torch.float32, seed=1)
+    state = {k: v.detach().cpu().numpy().copy() for k, v in
+             one.state_dict().items()}
+    ref = {}
+    if rank == 0:
+        one.eval()
+        ref["dense"] = one.generate(prompt, new).cpu().tolist()
+        ref["paged"] = one.generate(prompt, new, page_size=16).cpu().tolist()
+        one.train()
+        ref["norm"] = first_grad_norm(one, ids, labels)[0]
+        ref["losses"] = [train_step(one, opt, ids, labels)
+                         for _ in range(steps)]
+        ref["state"] = {k: v.detach().cpu().numpy() for k, v in
+                        one.state_dict().items()}
+    del one, opt
+    torch.cuda.empty_cache()
+    tp = fleet.distributed_model(ParallelLlamaForCausalLM(
+        cfg, device=dev, dtype=torch.float32, seed=1))
+    convert.load_paddle_tpu_state(tp, convert.shard_paddle_tpu_state(state,
+                                                                     tp))
+    del state
+    tp.eval()
+    kernels.reset_launch_counts()
+    got = {"dense": tp.generate(prompt, new).cpu().tolist()}
+    mid = kernels.launch_counts()["paged_decode"]
+    got["paged"] = tp.generate(prompt, new, page_size=16).cpu().tolist()
+    got["paged_decodes"] = kernels.launch_counts()["paged_decode"] - mid
+    got["heads"] = tp.cache_kv_heads
+    tp.train()
+    got["norm"], got["rep_share"] = first_grad_norm(tp, ids, labels)
+    opt = AdamW(learning_rate=3e-4, parameters=tp.parameters(),
+                weight_decay=0.01, grad_clip=ClipGradByGlobalNorm(1.0))
+    cs = CompiledTrainStep(lambda x, y: tp(x, labels=y)[1], opt, network=tp,
+                           mesh=hcg.mesh)
+    got["losses"] = [float(cs(ids, labels)) for _ in range(steps)]
+    final = convert.gather_paddle_tpu_state(tp, dst=0)
+    out = {"parity": got}
+    if rank == 0:
+        lr = 3e-4
+        worst, frac, name_worst = 0.0, 0.0, None
+        for name, want in ref["state"].items():
+            err = np.abs(final[name] - want)
+            frac = max(frac, float(np.mean(err > 1e-5)))
+            if float(err.max()) > worst:
+                worst, name_worst = float(err.max()), name
+        got.update(ref_dense=ref["dense"], ref_paged=ref["paged"],
+                   ref_losses=ref["losses"], ref_norm=ref["norm"],
+                   worst=worst, frac=frac,
+                   worst_name=name_worst, bound=2 * lr * steps)
+    return out
+
+
+class LocalLogits(torch.nn.Module):
+    """A parallel GPT's logits as its loss reads them: the rank's
+    vocabulary slice (``ParallelGPTForCausalLM.forward`` with labels,
+    without the loss), so ``hapi.Model`` drives the model with the loss
+    on the slice (`LocalLMLoss`) and no gather."""
+
+    def __init__(self, lm):
+        super().__init__()
+        self.lm = lm
+
+    def forward(self, ids):
+        from paddle_tpu_torch.distributed import topology
+        from paddle_tpu_torch.distributed.fleet.mp_layers import copy_to_mp
+        hidden = self.lm.gpt(ids)
+        return F.linear(copy_to_mp(hidden, topology.mp_group()),
+                        self.lm.gpt.wte.weight.T)
+
+
+class LocalLMLoss:
+    """The parallel GPT's loss on `LocalLogits`: the masked mean of
+    `ParallelCrossEntropy` (JAX ``_masked_parallel_ce``)."""
+
+    def __init__(self, lm):
+        self.fn = lm.loss_fn
+
+    def __call__(self, logits, labels):
+        from paddle_tpu_torch.models.gpt_parallel import _masked_parallel_ce
+        return _masked_parallel_ce(self.fn, logits, labels)
+
+
+def hybrid_gpt_model(dev, lr=1e-4):
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.models import ParallelGPTForCausalLM
+    cfg = gpt_config("gpt2-124m", max_seq_len=1024, attn_dropout=0.1,
+                     dropout=0.1)
+    lm = fleet.distributed_model(ParallelGPTForCausalLM(
+        cfg, device=dev, dtype=torch.float32, seed=0))
+    net = LocalLogits(lm)
+    opt = AdamW(learning_rate=lr, parameters=net.parameters(),
+                weight_decay=0.01)
+    return Model(net).prepare(opt, LocalLMLoss(lm), amp_configs="O2")
+
+
+def hybrid_gpt_lane(dev, rank, world, outdir, n=8, per_rank=4):
+    """(c) GPT-2 124M, dp 2 x mp 2, dropout 0.1, bf16 O2 (prepare), AdamW
+    (1e-4, wd 0.01), B8 x S1024 (4 rows a dp rank): ``fit`` over a
+    DistributedBatchSampler, then the same ``_forward_loss`` by hand
+    through CompiledTrainStep on the global batches (the dp ranks' rows),
+    from the same seed; the masks of a flash call split over dp and mp
+    (module 13) hashed for the parent."""
+    from paddle_tpu_torch.io import DistributedBatchSampler
+    hcg = hybrid_init(dev, world, 2, world // 2, outdir, "gpt")
+    dp_rank, mp_rank = (hcg.get_data_parallel_rank(),
+                        hcg.get_model_parallel_rank())
+    rows = TokenRows(2 * per_rank * n, 50304, 1024)
+    out = {"rank": rank, "dp_rank": dp_rank, "mp_rank": mp_rank}
+    model = hybrid_gpt_model(dev)
+    # started beside the llama lane's (b) and (d): the steps wait for it
+    wait_for_file(os.path.join(outdir, "llama-done"))
+    clock = StepLog()
+    kernels.reset_launch_counts()
+    fallbacks = jit_fallbacks()
+    model.fit(rows, batch_size=per_rank, epochs=1, shuffle=False, verbose=0,
+              log_freq=1, callbacks=[clock])
+    cs = model._compiled_step
+    out["fit"] = dict(losses=clock.losses, times=clock.times,
+                      launches={k: v for k, v in
+                                kernels.launch_counts().items() if v},
+                      fallbacks=jit_fallbacks() - fallbacks,
+                      compiled=bool(cs and cs.compiled),
+                      graphs={k: [c, r, l] for k, (c, r, l) in
+                              cs.graph_stats().items()},
+                      digest=params_digest(model.network))
+    clock.set_model(None)
+    del model, cs
+    gc.collect()
+    torch.cuda.empty_cache()
+    hand = hybrid_gpt_model(dev)
+    cs = CompiledTrainStep(hand._forward_loss, hand._optimizer,
+                           network=hand.network, mesh=hcg.mesh)
+    samplers = [list(DistributedBatchSampler(rows, per_rank, num_replicas=2,
+                                             rank=r)) for r in range(2)]
+    losses, times, coll = [], [], None
+    for k in range(n):
+        before = collective_counts()
+        idx = samplers[0][k] + samplers[1][k]
+        x = torch.from_numpy(np.stack([rows[i][0] for i in idx])).to(dev)
+        y = torch.from_numpy(np.stack([rows[i][1] for i in idx])).to(dev)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        losses.append(float(cs(x, y)))
+        times.append((time.monotonic() - t0) * 1e3)
+        if coll is None:              # call 1, the eager step
+            coll = per_step(collective_counts(), before, 1)
+    out["hand"] = dict(losses=losses, times=times, compiled=cs.compiled,
+                       digest=params_digest(hand.network), coll=coll)
+    del hand, cs
+    torch.cuda.empty_cache()
+    # the flash masks of this rank's part of a global call: rows
+    # 4 dp .. 4 dp + 3, heads 6 mp .. 6 mp + 5 of [8, 12, 1024, 64]
+    g = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = (torch.randn(8, 12, 1024, 64, device=dev, generator=g)
+               .to(torch.bfloat16) for _ in range(3))
+    part = [t[4 * dp_rank:4 * dp_rank + 4, 6 * mp_rank:6 * mp_rank + 6]
+            for t in (q, k, v)]
+    o, _ = fa.flash_attention_fwd(*part, True, None, True, dropout=0.1,
+                                  seed=1234,
+                                  offsets=(4 * dp_rank, 6 * mp_rank, 12))
+    out["mask_part"] = hashlib.sha256(
+        o.float().cpu().numpy().tobytes()).hexdigest()[:16]
+    return out
+
+
+HYBRID_LANES = {"llama": (hybrid_llama_lane, 2),
+                "gpt": (hybrid_gpt_lane, 4)}
+
+
+def hybrid_child(lane, outdir):
+    """A rank of ``lane`` (RANK in the environment): its card is its own
+    when the host has one a rank, else card 0; writes its results to
+    ``outdir/<lane>-<rank>.json`` and ends with a token all-reduce and
+    an exit without a process-group teardown (see HYBRID_BACKEND)."""
+    fn, world = HYBRID_LANES[lane]
+    rank = int(os.environ["RANK"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    idx = rank if torch.cuda.device_count() >= world else 0
+    dev = torch.device("cuda", idx)
+    torch.cuda.set_device(dev)
+    code = 0
+    try:
+        res = fn(dev, rank, world, outdir)
+        from paddle_tpu_torch.distributed import collective
+        collective.barrier()
+    except BaseException:  # noqa: BLE001 — written for the parent
+        import traceback
+        res = {"error": traceback.format_exc()}
+        code = 1
+    with open(os.path.join(outdir, f"{lane}-{rank}.json"), "w") as f:
+        json.dump(res, f)
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)
+
+
+def wait_for_file(path, procs=(), timeout=600):
+    """Wait until ``path`` exists (False: one of ``procs`` ended first)."""
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{path} did not appear in {timeout} s")
+        if any(p.poll() is not None for p, _ in procs):
+            return os.path.exists(path)
+        time.sleep(0.2)
+    return True
+
+
+def start_hybrid(lane, outdir):
+    """Start ``lane``'s ranks (children of this script); returns them."""
+    _, world = HYBRID_LANES[lane]
+    procs = []
+    for r in range(world):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
+                   PYTHONUNBUFFERED="1")
+        logf = open(os.path.join(outdir, f"{lane}-{r}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--hybrid-child",
+             lane, outdir], stdout=logf, stderr=subprocess.STDOUT,
+            env=env), logf))
+    return procs
+
+
+def wait_hybrid(lane, outdir, procs, timeout=600):
+    """Wait for ``lane``'s ranks, echo each rank's output and return the
+    ranks' results."""
+    _, world = HYBRID_LANES[lane]
+    deadline = time.monotonic() + timeout
+    codes = []
+    for p, logf in procs:
+        try:
+            codes.append(p.wait(timeout=max(deadline - time.monotonic(), 1)))
+        except subprocess.TimeoutExpired:
+            for q, _ in procs:
+                q.kill()
+            codes.append("timeout")
+        logf.close()
+    outs = []
+    for r in range(world):
+        with open(os.path.join(outdir, f"{lane}-{r}.log")) as f:
+            for line in f.read().splitlines()[-40:]:
+                log(f"[train-hybrid {lane} r{r}] {line}")
+        path = os.path.join(outdir, f"{lane}-{r}.json")
+        outs.append(json.load(open(path)) if os.path.exists(path) else
+                    {"error": f"no result (exit {codes[r]})"})
+    bad = [(r, o["error"]) for r, o in enumerate(outs) if "error" in o]
+    if bad or any(c != 0 for c in codes):
+        raise AssertionError(f"[train-hybrid] {lane}: exits {codes}; "
+                             f"{bad[0][1] if bad else ''}")
+    return outs
+
+
+def fmt_coll(coll):
+    return ", ".join(f"{op} {c:g} calls {b / 1e6:.1f} MB"
+                     for op, (c, b) in sorted(coll.items()))
+
+
+def check_hybrid_llama(outs, warmup=2, steps=3):
+    """(a), (b), (d) from the ranks of the llama lane."""
+    tag = "train-hybrid"
+    cfg = llama_config("llama2-7b", num_layers=8)
+    seq = 4096
+    for o in outs:
+        e, c = o["eager"], o["compiled"]
+        if not all(np.isfinite(c["losses"])) or \
+                not c["losses"][-1] < c["losses"][0]:
+            raise AssertionError(f"[{tag}] (a) r{o['rank']}: losses "
+                                 f"{c['losses']} not finite and falling")
+        if c["losses"] != e["losses"] or not c["compiled"]:
+            raise AssertionError(f"[{tag}] (a) r{o['rank']}: compiled "
+                                 f"{c['losses']} (compiled {c['compiled']})"
+                                 f" != eager {e['losses']}")
+        need = {k: cfg.num_layers * (warmup + steps) for k in
+                ("rms_norm", "rms_norm_bwd", "rope", "flash_fwd",
+                 "flash_bwd_dkv", "flash_bwd_dq")}
+        need["adam"] = 75 * (warmup + steps)
+        for lane in (e, c):
+            short = {k: lane["launches"].get(k, 0) for k, n in need.items()
+                     if lane["launches"].get(k, 0) < n}
+            if short:
+                raise AssertionError(f"[{tag}] (a) r{o['rank']}: launches "
+                                     f"{short} below {need}")
+    digests = {o["compiled"]["digest"] for o in outs} | \
+        {o["eager"]["digest"] for o in outs}
+    if len(digests) != 1:
+        raise AssertionError(f"[{tag}] (a) the mp ranks' copies of the "
+                             f"replicated parameters differ: {digests}")
+    tokens = seq
+    flops = 6 * (outs[0]["n_params"] - cfg.vocab_size * cfg.hidden_size) * \
+        tokens + 6 * tokens * seq * cfg.hidden_size * cfg.num_layers
+    for lane in ("eager", "compiled"):
+        ms = [float(np.median(o[lane]["times"][warmup:])) for o in outs]
+        step_ms = max(ms)
+        mfu = flops / (step_ms / 1e3) / PEAK_OPS[torch.bfloat16]
+        losses = [round(x, 4) for x in outs[0][lane]["losses"]]
+        times = [round(t, 1) for t in outs[0][lane]["times"]]
+        log(f"[{tag}] (a) {lane}: losses {losses}; step {step_ms:.2f} ms "
+            f"p50 (ranks {[round(m, 2) for m in ms]}, all r0 {times}), "
+            f"{tokens / (step_ms / 1e3):.0f} tokens/s, MFU {100 * mfu:.1f}% "
+            f"of one card's 989 TFLOP/s ({flops / 1e12:.2f} TFLOP a step; "
+            f"the one-card train phase: {TRAIN_ONE_CARD_MS} ms, PR 13); "
+            f"peak {[round(o[lane]['peak_gb'], 2) for o in outs]} GB by rank")
+    for o in outs:
+        c = o["compiled"]
+        grp = dict(c["groups"])
+        wall = grp.pop("wall")
+        nccl = grp.pop("collectives (NCCL)", 0.0)
+        log(f"[{tag}] (a) r{o['rank']}: collectives a step (eager lane) "
+            f"{fmt_coll(o['eager']['coll'])}; graphs {c['graphs']}; "
+            f"launches {c['launches']}; 3 profiled replays: {wall:.1f} ms "
+            f"a step, busy {100 * c['busy']:.1f}% of it with its own "
+            f"kernels, of which NCCL's {nccl:.1f} ms (they wait for the "
+            f"other rank and the transfer), the rest "
+            f"{sum(grp.values()):.1f} ms ({fmt_groups(grp, 1)})")
+    log(f"[{tag}] (a) compiled = eager bit for bit on every rank; the "
+        f"replicated parameters equal on every rank ({digests.pop()})")
+    p = outs[0]["parity"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(p["losses"],
+                                                  p["ref_losses"]))
+    if rel > 1e-4 or p["frac"] > 1e-4 or p["worst"] > p["bound"]:
+        raise AssertionError(f"[{tag}] (b) mp 2 vs one rank: losses "
+                             f"{p['losses']} vs {p['ref_losses']} (rel "
+                             f"{rel:.2e}), params worst {p['worst']:.2e} "
+                             f"({p['worst_name']}), {p['frac']:.2e} of "
+                             f"elements above 1e-5")
+    norm_rel = max(abs(o["parity"]["norm"] - p["ref_norm"]) / p["ref_norm"]
+                   for o in outs)
+    # 1e-5: the two sums take the same squares in other orders (fp32,
+    # ~1e-7 apart); a copy counted twice moves the norm by half the
+    # copies' share of its square (6.5e-5 here), a shard not summed over
+    # mp by ~29%
+    if not norm_rel <= 1e-5:
+        raise AssertionError(f"[{tag}] (b) the clip's global norm of the "
+                             f"first step's gradients: mp 2 "
+                             f"{[o['parity']['norm'] for o in outs]} vs one "
+                             f"rank {p['ref_norm']} (rel {norm_rel:.2e})")
+    log(f"[{tag}] (b) the clip's global norm of the first step's "
+        f"gradients: {p['norm']:.6e} on every mp rank vs one rank "
+        f"{p['ref_norm']:.6e} (rel {norm_rel:.2e} <= 1e-5; shards not "
+        f"summed over mp would move it by ~29%, the replicated copies, "
+        f"{p['rep_share']:.2e} of its square, counted twice by "
+        f"{p['rep_share'] / 2:.2e})")
+    log(f"[{tag}] (b) fp32, 2 layers at 7B width, 3 AdamW steps: losses "
+        f"{p['losses']} vs one rank {p['ref_losses']} (worst rel "
+        f"{rel:.2e} <= 1e-4); gathered parameters: worst {p['worst']:.2e} "
+        f"({p['worst_name']}) <= 2 lr x 3 = {p['bound']:.1e}, "
+        f"{p['frac']:.2e} of elements above 1e-5 (<= 1e-4)")
+    for o in outs:
+        q = o["parity"]
+        if q["dense"] != p["ref_dense"] or q["paged"] != p["ref_paged"] or \
+                q["paged_decodes"] != 2 * 7 or q["heads"] != 16:
+            raise AssertionError(f"[{tag}] (d) r{o['rank']}: tokens "
+                                 f"{q['dense']} / {q['paged']} vs one rank "
+                                 f"{p['ref_dense']} / {p['ref_paged']}; "
+                                 f"paged decodes {q['paged_decodes']}, heads "
+                                 f"{q['heads']}")
+    log(f"[{tag}] (d) generate, fp32, 2 layers at 7B width, mp 2: the "
+        f"dense and the paged cache (14 paged decodes a rank on 16 local "
+        f"heads) give the one-rank model's tokens on both ranks: "
+        f"{p['ref_dense'][0][-8:]}")
+
+
+def check_hybrid_gpt(outs, dev, warmup=2, n=8):
+    tag = "train-hybrid"
+    need = dict({k: 12 * n for k in DROPOUT_KERNELS}, adam=148 * n)
+    for o in outs:
+        f, h = o["fit"], o["hand"]
+        short = {k: f["launches"].get(k, 0) for k, m in need.items()
+                 if f["launches"].get(k, 0) < m}
+        if short:
+            raise AssertionError(f"[{tag}] (c) r{o['rank']}: fit launches "
+                                 f"{short} below {need}")
+        if f["losses"] != h["losses"] or not f["compiled"] or \
+                not h["compiled"] or f["fallbacks"]:
+            raise AssertionError(f"[{tag}] (c) r{o['rank']}: fit "
+                                 f"{f['losses']} != hand {h['losses']} (or "
+                                 f"fell back: {f['fallbacks']})")
+        if f["digest"] != h["digest"]:
+            raise AssertionError(f"[{tag}] (c) r{o['rank']}: fit's "
+                                 f"parameters differ from the hand lane's")
+    by = {(o["dp_rank"], o["mp_rank"]): o for o in outs}
+    for m in (0, 1):
+        if by[(0, m)]["fit"]["digest"] != by[(1, m)]["fit"]["digest"]:
+            raise AssertionError(f"[{tag}] (c) the dp replicas of mp rank "
+                                 f"{m} differ after the steps")
+    g = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = (torch.randn(8, 12, 1024, 64, device=dev, generator=g)
+               .to(torch.bfloat16) for _ in range(3))
+    whole, _ = fa.flash_attention_fwd(q, k, v, True, None, True,
+                                      dropout=0.1, seed=1234)
+    for (dp, mp), o in by.items():
+        part = whole[4 * dp:4 * dp + 4, 6 * mp:6 * mp + 6]
+        want = hashlib.sha256(part.float().cpu().numpy().tobytes()) \
+            .hexdigest()[:16]
+        if o["mask_part"] != want:
+            raise AssertionError(f"[{tag}] (c) rank dp {dp} mp {mp}: its "
+                                 f"flash part differs from the one-rank "
+                                 f"call's (the dropout masks)")
+    fit_ms = [float(np.median(o["fit"]["times"][warmup:])) for o in outs]
+    hand_ms = [float(np.median(o["hand"]["times"][warmup:])) for o in outs]
+    r0 = by[(0, 0)]
+    log(f"[{tag}] (c) GPT-2 124M dp 2 x mp 2, dropout 0.1, bf16 O2: fit "
+        f"losses {[round(x, 4) for x in r0['fit']['losses']]} equal the "
+        f"hand lane's bit for bit on every rank, the dp replicas equal bit "
+        f"for bit; step p50 fit {max(fit_ms):.2f} ms, hand "
+        f"{max(hand_ms):.2f} ms (ranks {[round(m, 1) for m in fit_ms]}); "
+        f"graphs r0 {r0['fit']['graphs']}; collectives of an eager step "
+        f"{fmt_coll(r0['hand']['coll'])}")
+    log(f"[{tag}] (c) the 4 ranks' flash parts (dropout 0.1, rows and heads "
+        f"by the hash's offsets) equal the one-rank call's bit for bit")
+
+
+def phase_train_hybrid(dev):
+    """train-hybrid: (a) Llama-2 7B width, 8 layers, mp 2 (two ranks on
+    the card), bf16 O2 training through fleet.init -> distributed_model ->
+    CompiledTrainStep(mesh), both lanes; (b) mp 2 against one rank in
+    fp32; (d) TP generate; (c) GPT-2 124M dp 2 x mp 2 with dropout through
+    hapi fit and by hand.  No number here is a two-card one: the ranks
+    time-slice one card."""
+    cards = torch.cuda.device_count()
+    log(f"[train-hybrid] backend {HYBRID_BACKEND} ("
+        + ("a card a rank" if cards >= 4 else "ranks sharing a card: "
+           "NCCL's socket transport on lo, one host id a rank")
+        + f"); {cards} card(s); worlds: llama 2 (dp 1 x mp 2), gpt 4 (dp 2"
+        f" x mp 2)")
+    root = tempfile.mkdtemp(prefix="train-hybrid-")
+    llama = gpt = None
+    try:
+        llama = start_hybrid("llama", root)
+        # the gpt lane's ranks start (import, process group, model) once
+        # (a) is timed, beside (b) and (d), and train after them
+        if wait_for_file(os.path.join(root, "a-done"), llama):
+            gpt = start_hybrid("gpt", root)
+        outs = wait_hybrid("llama", root, llama)
+        open(os.path.join(root, "llama-done"), "w").close()
+        check_hybrid_llama(outs)
+        if gpt is None:
+            gpt = start_hybrid("gpt", root)
+        check_hybrid_gpt(wait_hybrid("gpt", root, gpt), dev)
+    finally:
+        for p, _ in (llama or []) + (gpt or []):
+            if p.poll() is None:
+                p.kill()
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -6211,7 +6945,12 @@ def main(argv=None):
                     help=argparse.SUPPRESS)   # fit-gpt2 (b)'s children
     ap.add_argument("--serve-child", metavar="DIR",
                     help=argparse.SUPPRESS)   # serve-resilience (2)'s child
+    ap.add_argument("--hybrid-child", nargs=2, metavar=("LANE", "DIR"),
+                    help=argparse.SUPPRESS)   # train-hybrid's ranks
     args = ap.parse_args(argv)
+    if args.hybrid_child:
+        hybrid_child(*args.hybrid_child)
+        return
     SERVE_RECORD.install()
     if args.fit_child:
         fit_child(*args.fit_child)
@@ -6305,6 +7044,8 @@ def main(argv=None):
         run("sentinel-gpt2", phase_sentinel_gpt2, dev)
     if "lora-llama" in phases:
         run("lora-llama", phase_lora_llama, dev)
+    if "train-hybrid" in phases:
+        run("train-hybrid", phase_train_hybrid, dev)
     if timed and None not in (counts, lora_counts, train_counts, gpt2_counts,
                               ops_counts):
         # launches: the serving run's for its two kernels, the training

@@ -88,3 +88,130 @@ def load_paddle_tpu_scaler_state(scaler, state):
     scaler.load_state_dict({k: np.asarray(state[k]).item()
                             for k in ("scale", "good_steps", "bad_steps")})
     return scaler
+
+
+# ---------------------------------------------------------------------------
+# a model split over mp (the tensor-parallel layers)
+# ---------------------------------------------------------------------------
+
+def _splits(model):
+    """``{parameter name: (dim, chunks)}`` of ``model``'s parameters that a
+    tensor-parallel layer splits over mp (the rest are copies)."""
+    from .distributed.fleet.mp_layers import _MPLayer
+    out = {}
+    for prefix, mod in model.named_modules():
+        if isinstance(mod, _MPLayer):
+            for pname, (dim, chunks) in mod._split.items():
+                if dim is not None and getattr(mod, pname, None) is not None:
+                    out[f"{prefix}.{pname}" if prefix else pname] = \
+                        (dim, chunks)
+    return out
+
+
+def _mp():
+    from .distributed import topology
+    g = topology.mp_group()
+    return g, (1 if g is None else g.nranks), (0 if g is None else g.rank)
+
+
+def shard_paddle_tpu_state(np_state, model):
+    """A paddle_tpu state dict of the global model (numpy, JAX names) →
+    this rank's part: each parameter that a tensor-parallel layer of
+    ``model`` splits cut by its placement (`distributed.fleet.mp_layers.
+    shard_of`), the others whole.  Load it with `load_paddle_tpu_state`."""
+    from .distributed.fleet.mp_layers import shard_of
+    splits = _splits(model)
+    _, n, r = _mp()
+    out = {}
+    for name, arr in np_state.items():
+        arr = np.asarray(arr)
+        if name in splits and n > 1:
+            dim, chunks = splits[name]
+            arr = shard_of(torch.from_numpy(np.ascontiguousarray(arr)), dim,
+                           n, r, chunks).numpy()
+        out[name] = arr
+    return out
+
+
+def _gather_part(t, split):
+    """The global tensor of a part ``t`` split as ``split`` (every rank of
+    the mp group takes part)."""
+    from .distributed import collective
+    from .distributed.fleet.mp_layers import unshard
+    g, n, _ = _mp()
+    if split is None or n <= 1:
+        return t
+    dim, chunks = split
+    parts = collective.all_gather(None, t.contiguous(), group=g)
+    return unshard(list(parts), dim, chunks)
+
+
+def gather_paddle_tpu_state(model, dst=None):
+    """The global model's state dict as numpy arrays (JAX names), put
+    together over the mp group: on every rank, or with ``dst`` (a global
+    rank) on that rank only (the others get None).  Every rank of the
+    group calls it."""
+    from .distributed import env
+    splits = _splits(model)
+    out = {}
+    for name, t in model.state_dict().items():
+        full = _gather_part(t.detach(), splits.get(name))
+        if full.dtype == torch.bfloat16:     # numpy has no bf16: its
+            full = full.float()              # values exactly, in fp32
+        out[name] = full.cpu().numpy()
+    if dst is not None and env.get_rank() != dst:
+        return None
+    return out
+
+
+def _param_splits(model, optimizer):
+    """The split of each of the optimizer's parameters (by position)."""
+    splits = _splits(model)
+    by_id = {id(p): splits.get(name) for name, p in model.named_parameters()}
+    return [by_id.get(id(p)) for p in optimizer._all_params()]
+
+
+def shard_paddle_tpu_optimizer_state(np_state, model, optimizer):
+    """A paddle_tpu optimizer state of the global model → this rank's
+    part: each per-parameter tensor (``moment1.<i>``, ``master.<i>``, ...)
+    whose shape is its parameter's global one cut as the parameter is.
+    Load it with `load_paddle_tpu_optimizer_state`."""
+    from .distributed.fleet.mp_layers import shard_of
+    splits = _param_splits(model, optimizer)
+    params = optimizer._all_params()
+    _, n, r = _mp()
+    out = {}
+    for key, val in np_state.items():
+        name, _, idx = key.rpartition(".")
+        if n > 1 and idx.isdigit() and int(idx) < len(params) \
+                and splits[int(idx)] is not None:
+            arr = np.asarray(val)
+            dim, chunks = splits[int(idx)]
+            p = params[int(idx)]
+            if arr.ndim == p.dim() and arr.shape[dim] == p.shape[dim] * n:
+                val = shard_of(torch.from_numpy(np.ascontiguousarray(arr)),
+                               dim, n, r, chunks).numpy()
+        out[key] = val
+    return out
+
+
+def gather_paddle_tpu_optimizer_state(model, optimizer, dst=None):
+    """The optimizer's state for the global model (numpy, JAX keys), put
+    together over the mp group as `gather_paddle_tpu_state` does."""
+    from .distributed import env
+    splits = _param_splits(model, optimizer)
+    params = optimizer._all_params()
+    out = {}
+    for key, val in optimizer.state_dict().items():
+        name, _, idx = key.rpartition(".")
+        if torch.is_tensor(val):
+            split = None
+            if idx.isdigit() and int(idx) < len(params):
+                p = params[int(idx)]
+                if tuple(val.shape) == tuple(p.shape):
+                    split = splits[int(idx)]
+            val = _gather_part(val.detach(), split).cpu().numpy()
+        out[key] = val
+    if dst is not None and env.get_rank() != dst:
+        return None
+    return out

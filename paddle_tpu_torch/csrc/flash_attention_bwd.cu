@@ -191,7 +191,7 @@ flash_bwd_dkv_mma(const T* __restrict__ q, const T* __restrict__ k,
         float dp = dpt[nt][e];
         if (drop) {
           // dV takes the dropped p; dS the undropped p and dropped dp
-          const bool keep = kept(f, b * H + h, qi, key);
+          const bool keep = kept(f, global_head(f, b, h), qi, key);
           st_[nt][e] = survivor(f, keep, p);
           dp = survivor(f, keep, dp);
         } else {
@@ -353,7 +353,7 @@ flash_bwd_dq_mma(const T* __restrict__ q, const T* __restrict__ k,
         float p = live ? expf(x - (e < 2 ? lse_a : lse_b)) : 0.f;
         if (masked) p = guard(p, x);
         float dpv = dp[nt][e];
-        if (drop) dpv = dropped(f, bh, row, col, dpv);
+        if (drop) dpv = dropped(f, global_head(f, b, h), row, col, dpv);
         dp[nt][e] = p * (dpv - (e < 2 ? dl_a : dl_b)) * scale;
       }
     }
@@ -590,7 +590,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
       uint32_t keep = 0;                   // the hash runs beside dP
       if (drop)
         keep = keep_bits<KT / 2>(
-            f, hash_head(f, static_cast<uint32_t>(bh)),
+            f, hash_head(f, global_head(f, b, h)),
             [&](int i, uint32_t& qh, uint32_t& kh) {
               qh = i & 2 ? qh_b : qh_a;
               kh = hash_k(k0 + 8 * (i >> 2) + 2 * t4 + (i & 1));
@@ -842,7 +842,7 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q,
       uint32_t keep = 0;                   // the hash runs beside dP^T
       if (drop)
         keep = keep_bits<QT / 2>(
-            f, hash_head(f, static_cast<uint32_t>(b * H + h)),
+            f, hash_head(f, global_head(f, b, h)),
             [&](int i, uint32_t& qh, uint32_t& kh) {
               qh = hash_q(q0 + 8 * (i >> 2) + 2 * t4 + (i & 1));
               kh = i & 2 ? kh_b : kh_a;
@@ -1034,7 +1034,7 @@ flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
         if (masked) p = guard(p, x);
         float pv = p, dpv = dp;
         if (drop) {
-          const bool keep = kept(f, b * H + h, qi, key);
+          const bool keep = kept(f, global_head(f, b, h), qi, key);
           pv = survivor(f, keep, p);
           dpv = survivor(f, keep, dp);
         }
@@ -1123,7 +1123,8 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
       if (masked && live) x = feature_score(f, x, b, h, S, row, col);
       float p = live ? expf(x - lse_r) : 0.f;
       if (masked) p = guard(p, x);
-      const float dpv = drop ? dropped(f, bh, row, col, dp) : dp;
+      const float dpv = drop ? dropped(f, global_head(f, b, h), row, col, dp)
+                             : dp;
       ds_s[r * (F + 1) + kl] = p * (dpv - dl_r) * scale;
     }
     __syncwarp();
@@ -1355,6 +1356,7 @@ extern "C" int ptt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  const long long* mask_strides,
                                  const void* seg, float dropout,
                                  float keep_div, const void* seed,
+                                 int hash_b0, int hash_h0, int hash_heads,
                                  void* stream) {
   Args a{};
   a.q = q; a.k = k; a.v = v; a.dout = dout;
@@ -1365,7 +1367,8 @@ extern "C" int ptt_flash_bwd_dkv(const void* q, const void* k, const void* v,
   a.qs = at(strides, 0); a.ks = at(strides, 1); a.vs = at(strides, 2);
   a.dos = at(strides, 3); a.dks = at(strides, 4); a.dvs = at(strides, 5);
   a.scale = scale; a.causal = causal != 0;
-  a.f = make_features(mask, mask_strides, seg, dropout, keep_div, seed);
+  a.f = make_features(mask, mask_strides, seg, dropout, keep_div, seed,
+                      hash_b0, hash_h0, hash_heads);
   a.stream = static_cast<cudaStream_t>(stream);
   return run(true, d, dtype, a);
 }
@@ -1379,6 +1382,7 @@ extern "C" int ptt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const long long* mask_strides,
                                 const void* seg, float dropout,
                                 float keep_div, const void* seed,
+                                int hash_b0, int hash_h0, int hash_heads,
                                 void* stream) {
   Args a{};
   a.q = q; a.k = k; a.v = v; a.dout = dout;
@@ -1389,7 +1393,8 @@ extern "C" int ptt_flash_bwd_dq(const void* q, const void* k, const void* v,
   a.qs = at(strides, 0); a.ks = at(strides, 1); a.vs = at(strides, 2);
   a.dos = at(strides, 3); a.dqs = at(strides, 4);
   a.scale = scale; a.causal = causal != 0;
-  a.f = make_features(mask, mask_strides, seg, dropout, keep_div, seed);
+  a.f = make_features(mask, mask_strides, seg, dropout, keep_div, seed,
+                      hash_b0, hash_h0, hash_heads);
   a.stream = static_cast<cudaStream_t>(stream);
   return run(false, d, dtype, a);
 }

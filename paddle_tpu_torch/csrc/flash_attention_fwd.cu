@@ -219,7 +219,7 @@ flash_fwd_mma(const T* __restrict__ q, const T* __restrict__ k,
       for (int nt = 0; nt < BK / 8; ++nt) {
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          s[nt][e] = dropped(f, bh, e < 2 ? row_a : row_b,
+          s[nt][e] = dropped(f, global_head(f, b, h), e < 2 ? row_a : row_b,
                              k0 + nt * 8 + 2 * t4 + (e & 1), s[nt][e]);
       }
     }
@@ -357,7 +357,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
       float p = expf(s[i] - mn);
       if (masked) p = guard(p, s[i]);
       rs += p;
-      if (drop) p = dropped(f, bh, row, k0 + c + 4 * i, p);
+      if (drop) p = dropped(f, global_head(f, b, h), row, k0 + c + 4 * i, p);
       p_s[r * (FK + 1) + c + 4 * i] = p;
     }
     rs += __shfl_xor_sync(0xffffffffu, rs, 1);
@@ -538,7 +538,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
       static_assert(KT / 2 <= 32, "one keep bit a score of the thread");
       if (drop)
         keep = keep_bits<KT / 2>(
-            f, hash_head(f, static_cast<uint32_t>(bh)),
+            f, hash_head(f, global_head(f, b, h)),
             [&](int i, uint32_t& qh, uint32_t& kh) {
               qh = i & 2 ? qh_b : qh_a;
               kh = hash_k(k0 + 8 * (i >> 2) + 2 * t4 + (i & 1));
@@ -846,7 +846,8 @@ extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
                              float scale, int causal, int dtype,
                              const void* mask, const long long* mask_strides,
                              const void* seg, float dropout, float keep_div,
-                             const void* seed, void* stream) {
+                             const void* seed, int hash_b0, int hash_h0,
+                             int hash_heads, void* stream) {
   if (b <= 0 || h <= 0 || h_kv <= 0 || h % h_kv != 0 || s <= 0 ||
       !(dropout >= 0.f && dropout < 1.f) ||
       (dropout > 0.f && seed == nullptr))
@@ -861,7 +862,8 @@ extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
   a.os = Strides{strides[9], strides[10], strides[11]};
   a.scale = scale;
   a.causal = causal != 0;
-  a.f = make_features(mask, mask_strides, seg, dropout, keep_div, seed);
+  a.f = make_features(mask, mask_strides, seg, dropout, keep_div, seed,
+                      hash_b0, hash_h0, hash_heads);
   a.stream = static_cast<cudaStream_t>(stream);
   return a.f.any() ? run<true>(d, dtype, a) : run<false>(d, dtype, a);
 }
@@ -874,7 +876,8 @@ extern "C" int ptt_flash_dropout_rescale(const void* x, void* out,
   if (n <= 0 || !(dropout >= 0.f && dropout < 1.f))
     return static_cast<int>(cudaErrorInvalidValue);
   const Features f =
-      make_features(nullptr, nullptr, nullptr, dropout, keep_div, nullptr);
+      make_features(nullptr, nullptr, nullptr, dropout, keep_div, nullptr,
+                    0, 0, 0);
   const long long blocks = (n + 255) / 256;
   dropout_rescale_kernel<<<static_cast<unsigned>(blocks < 4096 ? blocks
                                                                : 4096),

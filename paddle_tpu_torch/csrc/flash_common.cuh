@@ -183,6 +183,11 @@ struct Features {
   uint32_t keep_min;   // ceil(dropout 2^24): the least kept (hash >> 8)
   double keep_rcp;     // 1 / (double)keep_div, rounded once: the
                        // survivors' factor (keep_div = (float)(1 - p))
+  // the hash's head index of (batch row b, q head h) is (b + hash_b0) *
+  // hash_heads + hash_h0 + h: a call over a part of a larger batch or
+  // head range (a dp or mp rank's) draws the masks of its global rows
+  // and heads; (0, 0, H) is the local b * H + h
+  int hash_b0, hash_h0, hash_heads;
   __host__ __device__ bool masked() const {
     return mask != nullptr || seg != nullptr;
   }
@@ -193,7 +198,8 @@ struct Features {
 inline Features make_features(const void* mask,
                               const long long* mask_strides,
                               const void* seg, float dropout,
-                              float keep_div, const void* seed) {
+                              float keep_div, const void* seed,
+                              int hash_b0, int hash_h0, int hash_heads) {
   Features f{};
   f.mask = static_cast<const float*>(mask);
   if (mask != nullptr) {
@@ -208,6 +214,9 @@ inline Features make_features(const void* mask,
   f.keep_min = static_cast<uint32_t>(
       std::ceil(static_cast<double>(dropout) * 16777216.0));
   f.keep_rcp = 1.0 / static_cast<double>(keep_div);
+  f.hash_b0 = hash_b0;
+  f.hash_h0 = hash_h0;
+  f.hash_heads = hash_heads;
   return f;
 }
 
@@ -219,7 +228,8 @@ __device__ __forceinline__ void load_seed(Features& f) {
 
 // The Pallas kernels' counter hash (_dropout_uniform), bit for bit, over
 // (seed, head, q position, key position), all uint32 with wrapping
-// products; `head` is the flattened b * H + q head and the positions are
+// products; `head` is the flattened b * H + q head (`global_head`: of the
+// global batch and heads) and the positions are
 // absolute, so the keep-mask depends on neither the tiling nor the kernel.
 // It is split for a tile: `qh` = q position x 0x9E3779B1 and `kh` = key
 // position x 0x85EBCA77 (once per row and per column), `sh` = seed + head
@@ -230,6 +240,13 @@ __device__ __forceinline__ uint32_t hash_q(int qp) {
 }
 __device__ __forceinline__ uint32_t hash_k(int kp) {
   return static_cast<uint32_t>(kp) * 0x85EBCA77u;
+}
+// The hash's head index of batch row b, q head h of a call.
+__device__ __forceinline__ uint32_t global_head(const Features& f, int b,
+                                                int h) {
+  return static_cast<uint32_t>(b + f.hash_b0) *
+             static_cast<uint32_t>(f.hash_heads) +
+         static_cast<uint32_t>(f.hash_h0 + h);
 }
 __device__ __forceinline__ uint32_t hash_head(const Features& f,
                                               uint32_t head) {

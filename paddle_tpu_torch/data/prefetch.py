@@ -22,8 +22,10 @@ only when its batch is yielded to the caller, so prefetched batches that
 were never consumed are produced again on resume.
 
 The JAX package places a batch with a ``NamedSharding`` over the dp mesh
-axis; the port's dp lanes are ROADMAP A8: with a world size above 1,
-`_dp_batch_sharding` raises.
+axis.  Here a rank holds its own rows: with a mesh whose dp axis is
+above 1 (`distributed.get_mesh`, `fleet.init` sets it), each array whose
+rows divide by dp is cut to this rank's dp rows before its copy, and the
+others (as JAX replicates them) go whole (`_dp_rows`).
 """
 from __future__ import annotations
 
@@ -38,14 +40,35 @@ from ..device import resolve_device
 
 
 def _dp_batch_sharding():
-    """None with one process; a dp world raises (the dp lanes are not
-    ported)."""
-    from .. import distributed as dist
-    if dist.get_world_size() > 1:
-        raise NotImplementedError(
-            "device_prefetch with a world size above 1: placing a batch "
-            "over the dp axis is not ported (ROADMAP A8)")
-    return None
+    """``(dp rank, dp size)`` of the active mesh's dp axis, or None when
+    no mesh with a dp axis above 1 is live."""
+    from ..distributed import mesh as _mesh
+    m = _mesh.get_mesh()
+    if m is None or "dp" not in m.dim_names or m.get_dim_size("dp") <= 1:
+        return None
+    return m.get_coord("dp"), m.get_dim_size("dp")
+
+
+def _dp_rows(batch, sharding):
+    """This dp rank's rows of each array of ``batch`` whose leading dim
+    divides by dp (the others whole), the structure kept.  Whole, as JAX's
+    ``_put_leaf`` replicates such an array rather than refusing it: a
+    side input that is not batch-shaped, or a short last batch, which
+    every dp rank then trains on whole.  `CompiledTrainStep._rows` raises
+    on a global batch that does not split, as JAX's compiled step does
+    (its batch is placed over dp)."""
+    if sharding is None:
+        return batch
+    if isinstance(batch, (list, tuple)):
+        return type(batch)(_dp_rows(b, sharding) for b in batch)
+    if isinstance(batch, dict):
+        return {k: _dp_rows(v, sharding) for k, v in batch.items()}
+    rank, dp = sharding
+    n = batch.shape[0] if getattr(batch, "ndim", 0) >= 1 else 0
+    if not n or n % dp:
+        return batch
+    per = n // dp
+    return batch[rank * per:(rank + 1) * per]
 
 
 def _leaf_tensor(x):
@@ -122,7 +145,7 @@ class DevicePrefetch:
         stop = threading.Event()
         dev = self.device
         cuda = dev.type == "cuda"
-        _dp_batch_sharding()
+        sharding = _dp_batch_sharding()
 
         def _put(item):
             while not stop.is_set():
@@ -140,6 +163,7 @@ class DevicePrefetch:
                     torch.cuda.set_device(dev)
                     stream = torch.cuda.Stream(dev)
                 for host_batch, state in pipe._host_batches():
+                    host_batch = _dp_rows(host_batch, sharding)
                     event = None
                     if cuda:
                         with torch.cuda.stream(stream):

@@ -1,0 +1,141 @@
+"""Fleet facade (port of paddle_tpu/distributed/fleet/base.py): ``init``,
+``distributed_model``, ``distributed_optimizer``.
+
+`init` joins the process group (`distributed.env.init_parallel_env`,
+which reads the JAX package's variables) and builds the hybrid topology
+(`distributed.topology.HybridCommunicateGroup`: the mesh, the dp and mp
+groups) from the strategy's degrees.  `distributed_model` puts a model on
+this rank: every tensor-parallel layer keeps only its shard (a layer
+built before `init`, holding the global parameters, is split now; one
+built after is checked), and a model with its own hook
+(``_bind_topology``) takes its rank's place.  The gradient sync over dp
+and the mp-aware clip are the train step's (`framework.train_step.
+CompiledTrainStep` with the mesh, or `hapi.Model`), so
+`distributed_optimizer` returns the optimizer as JAX's does.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+from .. import env as _env
+from ..topology import (HybridCommunicateGroup, get_hybrid_communicate_group,
+                        set_hybrid_communicate_group)
+
+
+@dataclasses.dataclass
+class HybridConfig:
+    dp_degree: int = -1
+    mp_degree: int = 1
+    pp_degree: int = 1
+    sharding_degree: int = 1
+    sep_degree: int = 1
+
+
+class DistributedStrategy:
+    """reference: fleet/base/distributed_strategy.py:121."""
+
+    def __init__(self):
+        self.hybrid_configs = {"dp_degree": -1, "mp_degree": 1,
+                               "pp_degree": 1, "sharding_degree": 1,
+                               "sep_degree": 1}
+        self.amp = False
+        self.amp_configs = {"init_loss_scaling": 32768.0,
+                            "use_pure_bf16": True}
+        self.recompute = False
+        self.recompute_configs = {}
+        self.sharding = False
+        self.sharding_configs = {"sharding_degree": 1, "stage": 1}
+        self.pipeline = False
+        self.pipeline_configs = {"accumulate_steps": 1,
+                                 "micro_batch_size": 1}
+        self.gradient_merge = False
+        self.gradient_merge_configs = {"k_steps": 1}
+        self.lamb = False
+        self.localsgd = False
+        self.find_unused_parameters = False
+
+    def __repr__(self):
+        return f"DistributedStrategy(hybrid={self.hybrid_configs})"
+
+
+_fleet_state = {"initialized": False, "strategy": None}
+
+
+def init(role_maker=None, is_collective=True, strategy=None,
+         log_level="INFO", backend=None, device=None):
+    """reference: fleet/fleet.py:169.  ``backend`` and ``device`` (the
+    port's) go to `init_parallel_env`; every rank calls it alike."""
+    _env.init_parallel_env(backend=backend, device=device)
+    strategy = strategy or DistributedStrategy()
+    if strategy.sharding or strategy.sharding_configs.get("stage", 1) >= 3:
+        raise NotImplementedError("DistributedStrategy.sharding: ZeRO "
+                                  "sharding (fleet/sharding) is not ported "
+                                  "(ROADMAP A8)")
+    cfg = strategy.hybrid_configs
+    hcg = HybridCommunicateGroup(
+        dp_degree=cfg.get("dp_degree", -1),
+        mp_degree=cfg.get("mp_degree", 1),
+        pp_degree=cfg.get("pp_degree", 1),
+        sharding_degree=cfg.get("sharding_degree", 1),
+        sep_degree=cfg.get("sep_degree", 1))
+    set_hybrid_communicate_group(hcg)
+    _fleet_state["initialized"] = True
+    _fleet_state["strategy"] = strategy
+    return hcg
+
+
+def get_hybrid_communicate_group_():
+    return get_hybrid_communicate_group()
+
+
+def distributed_model(model):
+    """reference: fleet/model.py:31.  Splits (or checks) every
+    tensor-parallel layer's parameters over the topology's mp group and
+    lets the model bind its rank (``_bind_topology``); returns the model
+    (``fleet.init`` first when it was not called)."""
+    from .mp_layers import _MPLayer
+    if not _fleet_state["initialized"]:
+        init()
+    hcg = get_hybrid_communicate_group()
+    group = hcg.get_model_parallel_group()
+    for layer in model.modules():
+        if isinstance(layer, _MPLayer):
+            layer.shard_(group)
+    bind = getattr(model, "_bind_topology", None)
+    if bind is not None:
+        bind(hcg)
+    return model
+
+
+def distributed_optimizer(optimizer, strategy=None):
+    """reference: fleet/fleet.py:1059.  The optimizer as it is: each rank
+    updates its own shards; the dp average and the clip across mp run in
+    the train step."""
+    return optimizer
+
+
+class UserDefinedRoleMaker:
+    def __init__(self, **kwargs):
+        self.kwargs = kwargs
+
+
+class PaddleCloudRoleMaker:
+    def __init__(self, is_collective=True, **kwargs):
+        self.is_collective = is_collective
+
+
+def worker_index():
+    return _env.get_rank()
+
+
+def worker_num():
+    return _env.get_world_size()
+
+
+def is_first_worker():
+    return _env.get_rank() == 0
+
+
+def barrier_worker():
+    from ..collective import barrier
+    barrier()

@@ -5,8 +5,9 @@ The serving engine's stall monitor (`serving.engine.Engine`, armed by
 ``ServingConfig.step_timeout_s``) uses them: it raises into a wedged
 scheduler thread and dumps every thread's stack with the flight recorder.
 The collective guardian of the JAX module (``CollectiveWatchdog``, blame
-across ranks, stall dumps of collectives) is not ported: it waits for the
-port's collectives (ROADMAP A8).
+across ranks, stall dumps of collectives) is not ported yet (ROADMAP A8,
+the head of its queue): the port's collectives
+(`distributed.collective`) run without it.
 """
 from __future__ import annotations
 

@@ -48,6 +48,26 @@ the learning rate and the staged batch.
   persistent tensor).  The health pass writes nothing the update reads:
   the trajectory is bit for bit the one without the sentinel.
 
+- **The mesh lanes** (``mesh=ProcessMesh(...)`` with a dp or mp axis
+  above 1; JAX's ``_resolve_mesh``): ``step(x, y)`` takes the global
+  batch and each rank takes its dp rows (``local_batch=True``: the
+  caller feeds the rank's rows, as `hapi.Model` does).  The tail
+  all-reduces the gradients over dp and averages them, in buckets of
+  25 MB (`distributed.parallel.allreduce_gradients`;
+  sequence-parallel gradients summed over mp first), right after the
+  unscale; the scaler's found-inf becomes one fp32 scalar all-reduced
+  over the world (JAX hapi's ``_sync_grads``); the global-norm clip sums
+  the squares of the mp-split gradients over mp and counts the copies
+  once (`nn.clip.ClipGradByGlobalNorm.scale`).  The eager lane runs the
+  same ops in the same order (`distributed.parallel.mesh_update`), so
+  the lanes agree bit for bit.  A `DataParallel` network raises: the
+  step syncs itself.  Capture
+  takes the NCCL collectives into the graph (the communicators exist
+  after call 1); a process group that cannot be captured (gloo) raises
+  `NotImplementedError` at the capture.  An axis other than dp and mp
+  above 1 raises with JAX's wording, and so does the sentinel with the
+  mesh (the sentinel across ranks is ROADMAP A8).
+
 The step runs eagerly, warns once and latches ``fallback_reason`` when
 ``FLAGS_compiled_train_step`` is off, the network has forward hooks, a
 parameter has gradient hooks, the optimizer has no device update, or the
@@ -59,10 +79,10 @@ Telemetry, as JAX's counters (`utils.monitor`): ``jit.compiled_step_hit``
 counts the compiled calls, ``jit.compiled_step_fallback`` the calls the
 eager lane took because the step is not (or no longer) eligible, and
 ``jit.compiled_step_compile`` each graph made for a new signature.  JAX's
-``ragged_fallback`` (dp sharding, ROADMAP A8) and ``alias_fallback``
+``ragged_fallback`` (a batch that does not divide dp) and ``alias_fallback``
 (buffer donation, which torch has no counterpart of: the graph updates
 its tensors in place) have no event here, so no counter is made for
-them.
+them: a batch whose rows do not split over dp raises.
 """
 from __future__ import annotations
 
@@ -73,13 +93,14 @@ import weakref
 import torch
 
 from .. import amp
+from ..distributed import parallel as _parallel
 from ..optimizer.optimizer import Optimizer
 from ..utils import monitor as _monitor
 from ..utils.flags import flag as _flag
 from . import capture
 
-_MESH = ("CompiledTrainStep(mesh=...): the dp/mp mesh lanes are not ported "
-         "(ROADMAP Queue A8)")
+_SENTINEL_MESH = ("CompiledTrainStep(sentinel=True, mesh=...): the sentinel "
+                  "across ranks is not ported (ROADMAP A8)")
 
 
 def _signature(t):
@@ -98,6 +119,8 @@ class CompiledTrainStep:
     network=None, accumulate_grad_batches=1, mesh=None, eager_step=None,
     sentinel=False)``.
 
+    ``mesh`` (a `distributed.ProcessMesh` with dp and mp axes) and
+    ``local_batch`` make the mesh lanes.
     ``forward_fn(x, y) -> loss`` is the only user code in the graph;
     everything after the loss is the framework's step tail.
     ``eager_step(x, y, update) -> loss`` is the eager lane, run at call 1
@@ -108,9 +131,7 @@ class CompiledTrainStep:
 
     def __init__(self, forward_fn, optimizer, *, scaler=None, network=None,
                  accumulate_grad_batches=1, mesh=None, eager_step=None,
-                 sentinel=False):
-        if mesh is not None:
-            raise NotImplementedError(_MESH)
+                 sentinel=False, local_batch=False):
         self._forward = forward_fn
         self._opt = optimizer
         self._scaler = scaler
@@ -138,7 +159,39 @@ class CompiledTrainStep:
         self._health = {}             # signature -> its health vector
         self._svec = None             # device [scale, good, bad] fp32
         self._pool = self._stream = None
+        self._local_batch = bool(local_batch)
+        self._meshed = False
+        self._dp, self._dp_rank = 1, 0
+        self._dp_group = self._mp_group = None
+        if mesh is not None:
+            self._resolve_mesh(mesh)
         self.check_static_eligibility()
+
+    def _resolve_mesh(self, mesh):
+        """The dp and mp groups of ``mesh`` (JAX ``_resolve_mesh``): any
+        other axis above 1 raises; a mesh of ones is no mesh."""
+        names = mesh.dim_names
+        for name in names:
+            if name not in ("dp", "mp") and mesh.get_dim_size(name) != 1:
+                raise NotImplementedError(
+                    f"mesh axis '{name}' cannot run inside one compiled "
+                    "program (pipeline schedules, ZeRO resharding and "
+                    "context parallel keep their own lanes)")
+        dp = mesh.get_dim_size("dp") if "dp" in names else 1
+        mp = mesh.get_dim_size("mp") if "mp" in names else 1
+        if dp <= 1 and mp <= 1:
+            return
+        if self._sentinel:
+            raise NotImplementedError(_SENTINEL_MESH)
+        _parallel.refuse_data_parallel(self._network,
+                                       "CompiledTrainStep(mesh=...)")
+        self._meshed = True
+        if dp > 1:
+            self._dp = dp
+            self._dp_group = mesh.get_group("dp")
+            self._dp_rank = mesh.get_coord("dp")
+        if mp > 1:
+            self._mp_group = mesh.get_group("mp")
 
     # ------------------------------------------------------------------
     # public surface
@@ -155,6 +208,23 @@ class CompiledTrainStep:
     def __call__(self, x, y=None, update=None):
         if update is None:
             update = (self._micro + 1) >= self._accum
+        if self._meshed:
+            x, y = self._rows(x), self._rows(y)
+        return self._call(x, y, update)
+
+    def _rows(self, t):
+        """This dp rank's rows of a global batch (the batch as it is with
+        ``local_batch`` or without a dp axis)."""
+        if t is None or self._dp <= 1 or self._local_batch:
+            return t
+        n = t.shape[0]
+        if n % self._dp:
+            raise ValueError(f"CompiledTrainStep: a batch of {n} rows does "
+                             f"not split over the {self._dp} dp ranks")
+        per = n // self._dp
+        return t[self._dp_rank * per:(self._dp_rank + 1) * per]
+
+    def _call(self, x, y, update):
         self._calls += 1
         if self._fallback_reason is not None or not self._eligible_now():
             _monitor.incr("jit.compiled_step_fallback")
@@ -277,7 +347,11 @@ class CompiledTrainStep:
             bwd = bwd * (1.0 / self._accum)
         bwd.backward()
         if update:
-            if self._scaler is not None:
+            if self._meshed:
+                _parallel.mesh_update(self._opt, self._scaler,
+                                      self._dp_group, self._mp_group,
+                                      self._device)
+            elif self._scaler is not None:
                 self._scaler.step(self._opt)   # unscale, found-inf, update
             else:
                 self._opt.step()
@@ -361,6 +435,8 @@ class CompiledTrainStep:
         if update:
             self._opt._write_lr()
         step = self._steps.get(key)
+        if step is None and self._meshed and self._device.type == "cuda":
+            self._check_capturable()
         if step is None:
             # the graph's body holds the step weakly: no reference cycle
             # keeps a dropped step, its model and its graph pool alive
@@ -375,6 +451,20 @@ class CompiledTrainStep:
             if self._sentinel:
                 self.last_health = self._health[key].clone()
         return self._outputs[key].clone()
+
+    def _check_capturable(self):
+        """Every process group of the tail must be capturable (NCCL)."""
+        import torch.distributed as dist
+        for group in (self._dp_group, self._mp_group, None):
+            if group is not None and group.nranks <= 1:
+                continue
+            backend = dist.get_backend(
+                None if group is None else group.process_group)
+            if backend != "nccl":
+                raise NotImplementedError(
+                    f"CompiledTrainStep(mesh=...) on the card over a "
+                    f"{backend} process group: {backend} collectives "
+                    "cannot be captured in a CUDA graph (use nccl)")
 
     def _body(self, key):
         """The graph's body: forward, backward and, for an update, the
@@ -413,6 +503,11 @@ class CompiledTrainStep:
             found = amp.found_inf(grads)
             if not self._scaler._always_check:
                 found = found & (svec[0] != 1.0)
+        if self._meshed:
+            _parallel.allreduce_gradients(self._params, self._dp_group,
+                                          self._mp_group)
+            if found is not None:
+                found = _parallel.all_ranks_found_inf(found, self._device)
         health = None
         if self._sentinel:
             if found is None:         # no scaler: the sentinel arms it

@@ -38,9 +38,23 @@ captured graphs read) replays the anchor's epoch without the quarantined
 iterations.  The fault points ``bad_batch`` (the batch before the step),
 ``loss_spike`` and ``grad_bitflip`` (the eager step) are its drills.
 
+Data parallelism (a world size above 1, JAX's ``_sync_grads``): each
+rank trains on its rows, its dp share of a dataset through a
+`io.DistributedBatchSampler` over the dp ranks (a ``data.Pipeline`` or
+a ``DataLoader`` is taken as it is: it yields the rank's rows).  The dp
+group is the hybrid topology's when `fleet.init` built one (the mp ranks
+of a dp rank read the same rows), else the world.  The eager step
+unscales with the found-inf kept on the device, averages the gradients
+over dp in buckets, makes the found-inf the world's (one scalar
+all-reduce) and updates (`distributed.parallel.mesh_update`); the
+compiled step runs the same tail (`CompiledTrainStep` with the mesh,
+``local_batch=True``).  The network is the bare model: a `DataParallel`
+raises (the step averages over dp itself).
+
 Not ported, each raising `NotImplementedError` with its ROADMAP label:
-``prepare(jit=True)`` (A9), a world size above 1, a manifest with a
-shard layout and ``FLAGS_hot_spare`` (A8), ``summary`` (A9).
+``prepare(jit=True)`` (A9), a manifest with a shard layout,
+``FLAGS_hot_spare``, a ``ModelCheckpoint`` and the sentinel with more
+than one rank (A8), ``summary`` (A9).
 """
 from __future__ import annotations
 
@@ -59,8 +73,6 @@ from ..utils.flags import flag as _flag
 from .callbacks import config_callbacks
 
 _JIT = "prepare(jit=True): to_static is not ported (ROADMAP A9, jit)"
-_WORLD = ("hapi.Model with a world size above 1: the dp lanes are not "
-          "ported (ROADMAP A8)")
 _LAYOUT = ("resume from a checkpoint with a shard layout: resharded "
            "restore is not ported (ROADMAP A8)")
 _HOT_SPARE = ("FLAGS_hot_spare: hot-spare recovery is not ported "
@@ -114,6 +126,11 @@ class Model:
         self._scaler = None
         self._nranks = 1
         self._rank = 0
+        # the dp lane's (world > 1): the mesh, the dp and mp groups, this
+        # rank's dp index and the dp size
+        self._mesh = None
+        self._dp_group = self._mp_group = None
+        self._dp_rank, self._dp_size = 0, 1
         # the data.Pipeline fit trains on: its position rides checkpoints
         self._data_pipeline = None
         self._compiled_step = None
@@ -138,7 +155,7 @@ class Model:
         self._nranks = dist_env.get_world_size()
         self._rank = dist_env.get_rank()
         if self._nranks > 1:
-            raise NotImplementedError(_WORLD)
+            self._bind_world()
         self._loss = loss
         metrics = metrics or []
         if isinstance(metrics, Metric):
@@ -176,6 +193,24 @@ class Model:
         self._compiled_step = None
         self._accum_steps = 1
         return self
+
+    def _bind_world(self):
+        """The dp lane's groups: the hybrid topology's, else dp over the
+        world."""
+        from ..distributed import parallel, topology
+        from ..distributed.mesh import init_mesh
+        parallel.refuse_data_parallel(self.network, "hapi.Model")
+        hcg = topology.get_hybrid_communicate_group()
+        if hcg is not None:
+            self._mesh = hcg.mesh
+            self._dp_group = hcg.get_data_parallel_group()
+            self._mp_group = hcg.get_model_parallel_group()
+            self._dp_rank = hcg.get_data_parallel_rank()
+            self._dp_size = hcg.get_data_parallel_world_size()
+        else:
+            self._mesh = init_mesh([self._nranks], ["dp"])
+            self._dp_group = self._mesh.get_group("dp")
+            self._dp_rank, self._dp_size = self._rank, self._nranks
 
     # ---- steps ----
     def _compute_loss(self, outputs, labels):
@@ -224,12 +259,17 @@ class Model:
                 # the unit-scale wrapper takes the health pass's flag
                 # instead of reducing every gradient again
                 sc._planted_found_inf = found
-        if self._scaler is not None:
+        if self._nranks > 1:
+            from ..distributed import parallel
+            parallel.mesh_update(self._optimizer, self._scaler,
+                                 self._dp_group, self._mp_group,
+                                 self._device())
+        elif self._scaler is not None:
             self._scaler.step(self._optimizer)
-            if self._sentinel is not None:
-                self._sentinel.note_eager_skip(self._scaler._found_inf)
         else:
             self._optimizer.step()
+        if self._sentinel is not None and self._scaler is not None:
+            self._sentinel.note_eager_skip(self._scaler._found_inf)
         self._optimizer.clear_grad()
         return loss, out
 
@@ -261,7 +301,8 @@ class Model:
             lambda x, y: ref()._forward_loss(x, y), self._optimizer,
             scaler=self._scaler, network=self.network,
             accumulate_grad_batches=self._accum_steps,
-            sentinel=self._sentinel is not None,
+            sentinel=self._sentinel is not None, mesh=self._mesh,
+            local_batch=True,
             eager_step=lambda x, y, update:
                 ref()._train_step(x, y, update)[0])
         if cs.fallback_reason is not None:
@@ -311,6 +352,14 @@ class Model:
             # a data.Pipeline carries its own shard, shuffle and batch
             # stages and a checkpointable position
             return data
+        if self._nranks > 1:
+            # each dp rank reads its share (JAX hapi's
+            # DistributedBatchSampler); the mp ranks of a dp rank alike
+            from ..io import DistributedBatchSampler
+            sampler = DistributedBatchSampler(
+                data, batch_size=batch_size, num_replicas=self._dp_size,
+                rank=self._dp_rank, shuffle=shuffle)
+            return DataLoader(data, batch_sampler=sampler)
         return DataLoader(data, batch_size=batch_size, shuffle=shuffle)
 
     def fit(self, train_data=None, eval_data=None, batch_size=1, epochs=1,

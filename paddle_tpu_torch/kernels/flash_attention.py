@@ -35,9 +35,13 @@ versions (``_apply_masks`` and ``_dropout_uniform``):
   ~-1e30 and zero gradients.
 - ``dropout`` with a uint32 ``seed``: the keep-mask of `dropout_uniform`,
   keyed by (seed, ``b * H + q head``, absolute q and key positions), the
-  Pallas hash bit for bit; ``l`` sums the undropped p, the survivors are
-  divided by ``(float)(1 - p)``.  The kernels read the seed from device
-  memory (a 0-dim int64 tensor, its low 32 bits), so a captured
+  Pallas hash bit for bit; ``offsets = (b0, h0, heads)`` keys row b, head
+  h as ``(b + b0) * heads + h0 + h`` instead, so a call over a dp rank's
+  rows and an mp rank's heads draws the masks of their places in the
+  global batch and heads (None: ``(0, 0, H)``, the local index); ``l``
+  sums the undropped p, the survivors are divided by ``(float)(1 -
+  p)``.  The kernels read the seed from device memory (a 0-dim int64
+  tensor, its low 32 bits), so a captured
   launch takes whatever value the caller wrote before the replay; the
   wrappers also take a Python int, which they write into such a tensor.
   The public op draws the seed from an explicit CPU ``torch.Generator``
@@ -115,9 +119,23 @@ def dropout_uniform(seed, head, q_pos, k_pos):
     return (x >> 8).float() * (1.0 / (1 << 24))
 
 
-def _keep(seed, dropout, b, h, s, device):
+def _offsets(offsets, h):
+    """``(b0, h0, heads)`` of the hash's head index (None: local)."""
+    if offsets is None:
+        return 0, 0, h
+    b0, h0, heads = (int(v) for v in offsets)
+    if b0 < 0 or h0 < 0 or h0 + h > heads:
+        raise ValueError(f"dropout offsets {offsets}: need b0 >= 0 and "
+                         f"0 <= h0 <= heads - {h}")
+    return b0, h0, heads
+
+
+def _keep(seed, dropout, b, h, s, device, offsets=None):
     """The keep-mask ``[B, H, S, S]`` of a call: ``u >= (float)p``."""
-    head = torch.arange(b * h, device=device).reshape(b, h, 1, 1)
+    b0, h0, heads = _offsets(offsets, h)
+    head = ((torch.arange(b, device=device) + b0) * heads)[:, None] + \
+        h0 + torch.arange(h, device=device)[None, :]
+    head = head.reshape(b, h, 1, 1)
     pos = torch.arange(s, device=device)
     u = dropout_uniform(seed, head, pos[:, None], pos[None, :])
     return u >= torch.full((), dropout, dtype=torch.float32, device=device)
@@ -183,7 +201,8 @@ def _masked_logits(logits, causal, mask, segment_ids):
 
 
 def flash_attention_ref(q, k, v, causal=False, scale=None, head_major=False,
-                        mask=None, segment_ids=None, dropout=0.0, seed=0):
+                        mask=None, segment_ids=None, dropout=0.0, seed=0,
+                        offsets=None):
     """Plain PyTorch forward → (out like q, fp32 lse [B, H, S]): logits,
     softmax and ``p @ v`` in fp32 (K/V heads repeated for GQA), one
     rounding to q's dtype; the features as the Pallas forward applies
@@ -202,14 +221,16 @@ def flash_attention_ref(q, k, v, causal=False, scale=None, head_major=False,
         p = torch.where(logits > NEG_INF * 0.5, p, _zero(p))
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)  # noqa: E741
     if dropout > 0.0:
-        p = _drop(p, _keep(seed, dropout, b, h, s, q.device), dropout)
+        p = _drop(p, _keep(seed, dropout, b, h, s, q.device, offsets),
+                  dropout)
     out = torch.matmul(p, vh) / l
     lse = (m + torch.log(l)).squeeze(-1)
     return _head_major(out.to(q.dtype), head_major), lse
 
 
 def _bwd_ref(q, k, v, dout, lse, delta, causal, scale, head_major, want_dq,
-             want_dkv, mask=None, segment_ids=None, dropout=0.0, seed=0):
+             want_dkv, mask=None, segment_ids=None, dropout=0.0, seed=0,
+             offsets=None):
     """The Pallas backward kernels' math in plain PyTorch, fp32: p
     recomputed from ``lse``, ``dS = p (dP - delta) scale``; the GQA heads
     sharing a kv head are summed into its dK/dV.  With dropout, dV takes
@@ -234,7 +255,7 @@ def _bwd_ref(q, k, v, dout, lse, delta, causal, scale, head_major, want_dq,
     dp = torch.matmul(doh, vh.transpose(-1, -2))
     p_v = p
     if dropout > 0.0:
-        keep = _keep(seed, dropout, b, h, s, q.device)
+        keep = _keep(seed, dropout, b, h, s, q.device, offsets)
         p_v, dp = _drop(p, keep, dropout), _drop(dp, keep, dropout)
     ds = p * (dp - delta[..., None]) * sc
     dq = dk = dv = None
@@ -253,18 +274,20 @@ def _bwd_ref(q, k, v, dout, lse, delta, causal, scale, head_major, want_dq,
 
 def flash_bwd_dkv_ref(q, k, v, dout, lse, delta, causal=False, scale=None,
                       head_major=False, mask=None, segment_ids=None,
-                      dropout=0.0, seed=0):
+                      dropout=0.0, seed=0, offsets=None):
     """Plain version of the dK/dV kernel → (dk like k, dv like v)."""
     return _bwd_ref(q, k, v, dout, lse, delta, causal, scale, head_major,
-                    False, True, mask, segment_ids, dropout, seed)[1:]
+                    False, True, mask, segment_ids, dropout, seed,
+                    offsets)[1:]
 
 
 def flash_bwd_dq_ref(q, k, v, dout, lse, delta, causal=False, scale=None,
                      head_major=False, mask=None, segment_ids=None,
-                     dropout=0.0, seed=0):
+                     dropout=0.0, seed=0, offsets=None):
     """Plain version of the dQ kernel → dq like q."""
     return _bwd_ref(q, k, v, dout, lse, delta, causal, scale, head_major,
-                    True, False, mask, segment_ids, dropout, seed)[0]
+                    True, False, mask, segment_ids, dropout, seed,
+                    offsets)[0]
 
 
 def _delta(out, dout, head_major):
@@ -276,12 +299,13 @@ def _delta(out, dout, head_major):
 
 def flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=False,
                             scale=None, head_major=False, mask=None,
-                            segment_ids=None, dropout=0.0, seed=0):
+                            segment_ids=None, dropout=0.0, seed=0,
+                            offsets=None):
     """Plain PyTorch backward → (dq, dk, dv): ``delta = rowsum(dO * O)``,
     then the two kernels' plain versions in one pass."""
     return _bwd_ref(q, k, v, dout, lse, _delta(out, dout, head_major), causal,
                     scale, head_major, True, True, mask, segment_ids, dropout,
-                    seed)
+                    seed, offsets)
 
 
 def _prep(t, rows16=False):
@@ -335,9 +359,11 @@ def _strides(tensors, head_major):
 
 
 #: the C entry points' trailing feature arguments: mask, its strides,
-#: segment ids, dropout, keep divisor, the seed's device address
+#: segment ids, dropout, keep divisor, the seed's device address, the
+#: hash's batch offset, head offset and head count
 _FEATURE_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                 ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+                 ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+                 ctypes.c_int, ctypes.c_int, ctypes.c_int]
 
 
 def seed_tensor(seed, device):
@@ -354,7 +380,8 @@ def seed_tensor(seed, device):
     return torch.full((), int(seed) & _M32, dtype=torch.int64, device=device)
 
 
-def _features(name, q, b, h, s, mask, segment_ids, dropout, seed):
+def _features(name, q, b, h, s, mask, segment_ids, dropout, seed,
+              offsets=None):
     """Checks the features of a CUDA call → (mask, segment_ids, the seed
     tensor or None, the C arguments); the mask keeps its shape, read with
     stride 0 on a broadcast batch or head dim."""
@@ -385,7 +412,8 @@ def _features(name, q, b, h, s, mask, segment_ids, dropout, seed):
         segment_ids = segment_ids.contiguous()
         seg_ptr = _build.ptr(segment_ids)
     args = [mask_ptr, mask_st, seg_ptr, float(dropout), float(1.0 - dropout),
-            None if seed_t is None else _build.ptr(seed_t)]
+            None if seed_t is None else _build.ptr(seed_t),
+            *_offsets(offsets, h)]
     return mask, segment_ids, seed_t, args
 
 
@@ -399,12 +427,13 @@ def _count(fn, variant, mask, segment_ids, dropout):
 
 
 def flash_attention_fwd(q, k, v, causal=False, scale=None, head_major=False,
-                        mask=None, segment_ids=None, dropout=0.0, seed=0):
+                        mask=None, segment_ids=None, dropout=0.0, seed=0,
+                        offsets=None):
     """→ (out like q, fp32 lse [B, H, S]).  CPU tensors take
     `flash_attention_ref`; CUDA tensors launch the forward kernel."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal, scale, head_major, mask,
-                                   segment_ids, dropout, seed)
+                                   segment_ids, dropout, seed, offsets)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_fwd: unsupported device "
                          f"{q.device}")
@@ -413,7 +442,7 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None, head_major=False,
     mask, segment_ids, _seed, feats = _features("flash_attention_fwd", q, b,
                                                 h, s,
                                          _tma_mask(mask), segment_ids,
-                                         dropout, seed)
+                                         dropout, seed, offsets)
     q, k, v = _prep(q), _prep(k), _prep(v)
     out = torch.empty_like(q)
     lse = torch.empty(b, h, s, dtype=torch.float32, device=q.device)
@@ -441,17 +470,19 @@ _BWD_ARGS = [ctypes.c_void_p] * 6
 
 
 def flash_bwd_dkv(q, k, v, dout, lse, delta, causal, scale, head_major,
-                  mask=None, segment_ids=None, dropout=0.0, seed=0):
+                  mask=None, segment_ids=None, dropout=0.0, seed=0,
+                  offsets=None):
     """The dK/dV kernel → (dk like k, dv like v).  CPU tensors take
     `flash_bwd_dkv_ref`; CUDA tensors must come as `flash_attention_bwd`
     prepares them."""
     if q.device.type == "cpu":
         return flash_bwd_dkv_ref(q, k, v, dout, lse, delta, causal, scale,
-                                 head_major, mask, segment_ids, dropout, seed)
+                                 head_major, mask, segment_ids, dropout, seed,
+                                 offsets)
     b, h, h_kv, s, d = _geometry(q, k, v, head_major)
     mask, segment_ids, _seed, feats = _features("flash_bwd_dkv", q, b, h, s,
                                          _tma_mask(mask), segment_ids,
-                                         dropout, seed)
+                                         dropout, seed, offsets)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     fn = _build.function("ptt_flash_bwd_dkv", _BWD_ARGS + [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
@@ -474,15 +505,17 @@ flash_bwd_dkv.launches = 0
 
 
 def flash_bwd_dq(q, k, v, dout, lse, delta, causal, scale, head_major,
-                 mask=None, segment_ids=None, dropout=0.0, seed=0):
+                 mask=None, segment_ids=None, dropout=0.0, seed=0,
+                 offsets=None):
     """The dQ kernel → dq like q.  CPU tensors take `flash_bwd_dq_ref`."""
     if q.device.type == "cpu":
         return flash_bwd_dq_ref(q, k, v, dout, lse, delta, causal, scale,
-                                head_major, mask, segment_ids, dropout, seed)
+                                head_major, mask, segment_ids, dropout, seed,
+                                offsets)
     b, h, h_kv, s, d = _geometry(q, k, v, head_major)
     mask, segment_ids, _seed, feats = _features("flash_bwd_dq", q, b, h, s,
                                          _tma_mask(mask), segment_ids,
-                                         dropout, seed)
+                                         dropout, seed, offsets)
     dq = torch.empty_like(q)
     fn = _build.function("ptt_flash_bwd_dq", _BWD_ARGS + [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -573,7 +606,7 @@ dropout_rescale.launches = 0
 
 def flash_attention_bwd(q, k, v, out, lse, dout, causal=False, scale=None,
                         head_major=False, mask=None, segment_ids=None,
-                        dropout=0.0, seed=0):
+                        dropout=0.0, seed=0, offsets=None):
     """→ (dq, dk, dv) like q, k, v.  CPU tensors take
     `flash_attention_bwd_ref`; CUDA tensors launch the delta pass
     (`flash_bwd_delta`), then the dK/dV and dQ kernels with the forward's
@@ -581,7 +614,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal=False, scale=None,
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, out, lse, dout, causal,
                                        scale, head_major, mask, segment_ids,
-                                       dropout, seed)
+                                       dropout, seed, offsets)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: unsupported device "
                          f"{q.device}")
@@ -598,7 +631,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal=False, scale=None,
     delta = flash_bwd_delta(out, dout, head_major)
     if dropout > 0.0:                    # one seed tensor for both kernels
         seed = seed_tensor(seed, q.device)
-    feats = (_tma_mask(mask), segment_ids, dropout, seed)
+    feats = (_tma_mask(mask), segment_ids, dropout, seed, offsets)
     dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, causal, scale,
                            head_major, *feats)
     dq = flash_bwd_dq(q, k, v, dout, lse, delta, causal, scale, head_major,
@@ -614,12 +647,13 @@ class FlashAttentionFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, head_major, mask, segment_ids,
-                dropout, seed):
+                dropout, seed, offsets):
         out, lse = flash_attention_fwd(q, k, v, causal, scale, head_major,
-                                       mask, segment_ids, dropout, seed)
+                                       mask, segment_ids, dropout, seed,
+                                       offsets)
         ctx.save_for_backward(q, k, v, out, lse, mask, segment_ids)
         ctx.cfg = (causal, scale, head_major)
-        ctx.drop = (dropout, seed)
+        ctx.drop = (dropout, seed, offsets)
         return out
 
     @staticmethod
@@ -627,7 +661,7 @@ class FlashAttentionFunction(torch.autograd.Function):
         q, k, v, out, lse, mask, seg = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, *ctx.cfg,
                                          mask, seg, *ctx.drop)
-        return dq, dk, dv, None, None, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None, None, None
 
 
 def additive_mask(attn_mask):
@@ -645,7 +679,8 @@ def additive_mask(attn_mask):
 
 def flash_attention(query, key, value, attn_mask=None, dropout=0.0,
                     causal=False, training=True, scale=None,
-                    segment_ids=None, head_major=False, generator=None):
+                    segment_ids=None, head_major=False, generator=None,
+                    dropout_offsets=None):
     """Public op: ``[B, S, H, D]`` (or ``[B, H, S, D]`` with
     ``head_major``) → attention output like ``query``; GQA when k/v carry
     fewer heads.  ``attn_mask`` (bool or additive, ``[B|1, H|1, S, S]``),
@@ -655,7 +690,10 @@ def flash_attention(query, key, value, attn_mask=None, dropout=0.0,
     RNG).  Differentiable (`FlashAttentionFunction`) whenever an input
     requires grad under grad mode.  A mask that requires grad takes
     `flash_attention_ref` under autograd (the mask gets its gradient; no
-    kernel runs) and adds one to ``flash_attention.plain_routes``."""
+    kernel runs) and adds one to ``flash_attention.plain_routes``.
+    ``dropout_offsets`` ``(b0, h0, heads)``: the dropout hash keys batch
+    row b and head h as ``(b + b0) * heads + h0 + h`` (a dp rank's rows
+    and an mp rank's heads draw their global masks; None: local)."""
     dropout = float(dropout) if training else 0.0
     mask = additive_mask(attn_mask)
     seg = None if segment_ids is None else segment_ids.to(torch.int32)
@@ -669,14 +707,14 @@ def flash_attention(query, key, value, attn_mask=None, dropout=0.0,
         flash_attention.plain_routes += 1
         return flash_attention_ref(query, key, value, bool(causal), sc,
                                    bool(head_major), mask, seg, dropout,
-                                   seed)[0]
+                                   seed, dropout_offsets)[0]
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (query, key, value)):
         return FlashAttentionFunction.apply(query, key, value, bool(causal),
                                             sc, bool(head_major), mask, seg,
-                                            dropout, seed)
+                                            dropout, seed, dropout_offsets)
     return flash_attention_fwd(query, key, value, causal, sc, head_major,
-                               mask, seg, dropout, seed)[0]
+                               mask, seg, dropout, seed, dropout_offsets)[0]
 
 
 #: calls routed to the plain version because their mask requires grad

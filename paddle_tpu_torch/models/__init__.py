@@ -1,8 +1,14 @@
 """Model families of the port."""
 from .gpt import (GPT2_124M, GPT2_350M, GPT3_1_3B, GPT3_6_7B, GPT3_13B,
                   GPTConfig, GPTForCausalLM, GPTModel, gpt_config)
+from .gpt_parallel import (ParallelGPTBlock, ParallelGPTForCausalLM,
+                           ParallelGPTModel)
 from .llama import LlamaConfig, LlamaForCausalLM, LlamaModel, llama_config
+from .llama_parallel import ParallelLlamaForCausalLM, ParallelLlamaModel
 
 __all__ = ["GPT2_124M", "GPT2_350M", "GPT3_1_3B", "GPT3_6_7B", "GPT3_13B",
-           "GPTConfig", "GPTForCausalLM", "GPTModel", "gpt_config",
-           "LlamaConfig", "LlamaForCausalLM", "LlamaModel", "llama_config"]
+           "GPTConfig", "GPTForCausalLM", "GPTModel", "LlamaConfig",
+           "LlamaForCausalLM", "LlamaModel", "ParallelGPTBlock",
+           "ParallelGPTForCausalLM", "ParallelGPTModel",
+           "ParallelLlamaForCausalLM", "ParallelLlamaModel", "gpt_config",
+           "llama_config"]

@@ -138,20 +138,50 @@ def _model_device(model):
     return next(model.parameters()).device
 
 
-def _kv_heads(cfg):
-    # GQA caches hold num_kv_heads rows; GPT has none: every head
+def _kv_heads(model):
+    """The heads a cache of ``model`` holds: a tensor-parallel model's
+    local ones (``cache_kv_heads``), else num_kv_heads (GQA) or, for GPT,
+    every head."""
+    local = getattr(model, "cache_kv_heads", None)
+    if local is not None:
+        return local
+    cfg = model.config
     return getattr(cfg, "num_kv_heads", cfg.num_heads)
+
+
+def init_paged_caches(num_layers, batch, max_len, num_heads, head_dim,
+                      page_size=16, dtype="float32", device=None):
+    """Per-layer paged caches in the serving engine's layout (`serving.
+    PagedKVCache`'s layer dicts): ``[1 + B * N, page_size, H, D]`` pools
+    (page 0 the scratch page), row b owning pages ``1 + b N .. (b + 1)
+    N`` (``N = ceil(max_len / page_size)``), one int32 ``[B]`` offset on
+    ``device`` shared by the layers (decode reads it there)."""
+    dev = resolve_device(device)
+    dt = to_torch_dtype(dtype)
+    n = -(-max_len // page_size)
+    table = (1 + torch.arange(batch * n, dtype=torch.int32,
+                              device=dev)).reshape(batch, n)
+    offset = torch.zeros(batch, dtype=torch.int32, device=dev)
+    shape = (1 + batch * n, page_size, num_heads, head_dim)
+    return [{"k_pool": torch.zeros(shape, dtype=dt, device=dev),
+             "v_pool": torch.zeros(shape, dtype=dt, device=dev),
+             "page_table": table, "offset": offset, "page_size": page_size}
+            for _ in range(num_layers)]
 
 
 def generate(model, input_ids, max_new_tokens=32, temperature=0.0,
              top_k=None, top_p=None, repetition_penalty=None,
-             use_cache=True, eos_token_id=None, generator=None):
+             use_cache=True, eos_token_id=None, generator=None,
+             page_size=None):
     """Autoregressive decoding → ``[B, S + n]`` token ids like
     ``input_ids``, at most ``max_seq_len`` long.
 
     ``use_cache=True`` prefills fp32 dense caches with the prompt, then
     runs one ``[B, 1]`` step a token through `masked_multihead_attention`;
     ``use_cache=False`` runs the full forward a token (the parity path).
+    ``page_size`` (the port's) decodes over fp32 paged caches instead
+    (`init_paged_caches`: a prefill through the gather route, then the
+    paged-decode kernel a token).
     With ``eos_token_id`` a finished row pads with eos, and decoding stops
     once every row has emitted it.  Sampling (``temperature > 0``) draws
     from ``generator``."""
@@ -192,8 +222,14 @@ def generate(model, input_ids, max_new_tokens=32, temperature=0.0,
                     break
             return ids
 
-        caches = init_kv_caches(cfg.num_layers, b, max_len, _kv_heads(cfg),
-                                cfg.head_dim, dtype="float32", device=dev)
+        if page_size:
+            caches = init_paged_caches(cfg.num_layers, b, max_len,
+                                       _kv_heads(model), cfg.head_dim,
+                                       page_size, device=dev)
+        else:
+            caches = init_kv_caches(cfg.num_layers, b, max_len,
+                                    _kv_heads(model), cfg.head_dim,
+                                    dtype="float32", device=dev)
         logits = model(input_ids, caches=caches)           # prefill
         _advance(caches, s)
         pieces = [input_ids]
@@ -257,10 +293,11 @@ def speculative_generate(model, draft_model, input_ids, max_new_tokens=32,
             c["offset"] = off_t
 
     with torch.no_grad():
-        caches = init_kv_caches(cfg.num_layers, b, cap, _kv_heads(cfg),
+        caches = init_kv_caches(cfg.num_layers, b, cap, _kv_heads(model),
                                 cfg.head_dim, per_row_offsets=True,
                                 device=dev)
-        d_caches = init_kv_caches(dcfg.num_layers, b, cap, _kv_heads(dcfg),
+        d_caches = init_kv_caches(dcfg.num_layers, b, cap,
+                                  _kv_heads(draft_model),
                                   dcfg.head_dim, per_row_offsets=True,
                                   device=_model_device(draft_model))
         ids_np = input_ids.cpu().numpy().astype(np.int32)

@@ -223,15 +223,16 @@ class LlamaForCausalLM(nn.Module):
 
     def generate(self, input_ids, max_new_tokens=32, temperature=0.0,
                  top_k=None, top_p=None, repetition_penalty=None,
-                 use_cache=True, eos_token_id=None, generator=None):
-        """Incremental decoding over dense KV caches
-        (`models.generation.generate`)."""
+                 use_cache=True, eos_token_id=None, generator=None,
+                 page_size=None):
+        """Incremental decoding over dense KV caches, or paged ones with
+        ``page_size`` (`models.generation.generate`)."""
         from .generation import generate
         return generate(self, input_ids, max_new_tokens=max_new_tokens,
                         temperature=temperature, top_k=top_k, top_p=top_p,
                         repetition_penalty=repetition_penalty,
                         use_cache=use_cache, eos_token_id=eos_token_id,
-                        generator=generator)
+                        generator=generator, page_size=page_size)
 
     def num_params(self):
         return sum(p.numel() for p in self.parameters())

@@ -72,17 +72,11 @@ class ClipGradByGlobalNorm(ClipGradBase):
         """``clip_norm / max(norm, clip_norm)`` (JAX nn/clip.py
         ``scale_fn``'s ``s``, a true fp32 division) as an fp32 0-dim
         tensor on the gradients' device, or None without gradients;
-        nothing is read back to the host.  The global L2 norm is one
-        `torch._foreach_norm` pass that reads each gradient once in its
-        own dtype and sums in fp32 (no fp32 copy of a gradient; a fixed
-        order of partial sums, so the same bits on every run), then the
-        norm of those norms."""
-        grads = [g for _, g in params_grads if g is not None]
-        if not grads:
+        nothing is read back to the host.  The norm is `global_norm`'s."""
+        norm = global_norm(params_grads)
+        if norm is None:
             return None
-        norms = torch._foreach_norm(grads, 2.0, dtype=torch.float32)
-        denom = torch.clamp_min(torch.linalg.vector_norm(torch.stack(norms)),
-                                self.clip_norm)
+        denom = torch.clamp_min(norm, self.clip_norm)
         return torch.full_like(denom, self.clip_norm) / denom
 
     def __call__(self, params_grads):
@@ -91,6 +85,45 @@ class ClipGradByGlobalNorm(ClipGradBase):
             return params_grads
         return [(p, None if g is None else (g.float() * s).to(g.dtype))
                 for p, g in params_grads]
+
+
+def global_norm(params_grads):
+    """The global L2 norm of the gradients, an fp32 0-dim tensor (None
+    without gradients).  One `torch._foreach_norm` pass reads each
+    gradient once in its own dtype and sums in fp32 (no fp32 copy of a
+    gradient; a fixed order of partial sums, so the same bits on every
+    run), then the norm of those norms.  A model split over mp: each rank
+    holds the gradients of its shards (parameters marked ``mp_split``)
+    and copies of the others; the shards' squared norms are summed over
+    the group they are split over (the parameter's ``mp_group``: one fp32
+    all-reduce), the copies' counted once.  Shards without a group, or
+    over two groups, raise."""
+    grads = [g for _, g in params_grads if g is not None]
+    if not grads:
+        return None
+    split = [(p, g) for p, g in params_grads
+             if g is not None and getattr(p, "mp_split", False)]
+    if not split:
+        norms = torch._foreach_norm(grads, 2.0, dtype=torch.float32)
+        return torch.linalg.vector_norm(torch.stack(norms))
+    groups = {getattr(p, "mp_group", None) for p, _ in split}
+    if None in groups or len(groups) > 1:
+        raise ValueError(
+            "ClipGradByGlobalNorm: gradients split over mp (mp_split) must "
+            f"name the one group they are split over, not {groups}")
+    from ..distributed import collective
+    sq = _sq_sum([g for _, g in split])
+    collective.all_reduce(sq, group=groups.pop())
+    rest = [g for p, g in params_grads
+            if g is not None and not getattr(p, "mp_split", False)]
+    if rest:
+        sq = sq + _sq_sum(rest)
+    return sq.sqrt()
+
+
+def _sq_sum(grads):
+    norms = torch._foreach_norm(grads, 2.0, dtype=torch.float32)
+    return torch.stack(norms).square().sum()
 
 
 @torch.no_grad()

@@ -2274,3 +2274,119 @@ def test_traced_serve_on_card(card, tmp_path):
         assert root["name"] == "engine.request" and root.get("winner")
         assert sorted(s["name"] for s in tr["spans"] if s is not root) == \
             ["engine.decode", "engine.prefill", "engine.queue"]
+
+
+# ---------------------------------------------------------------------------
+# the dropout hash on global indices; the collectives on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hm", [True, False])
+def test_flash_dropout_offsets_on_card(card, hm):
+    """The flash kernels with the hash's batch and head offsets: offsets
+    ``(0, 0, H)`` give the bits of no offsets (forward out and lse, and
+    the three gradients, bit for bit); nonzero offsets against the plain
+    versions with the same offsets (row by row within ROW_TOL); and the
+    dp x mp parts of a global call (2 rows of 2, 4 heads of 8, each with
+    its offsets) put together equal the global call bit for bit."""
+    dtype = torch.bfloat16
+    b, h, s, d = 4, 8, 200, 64
+    q, k, v, do = _attn_inputs(card, b, h, h, s, d, dtype, hm, 31)
+    feats = dict(dropout=0.1, seed=777)
+    out, lse = fa.flash_attention_fwd(q, k, v, True, None, hm, **feats)
+    out0, lse0 = fa.flash_attention_fwd(q, k, v, True, None, hm, **feats,
+                                        offsets=(0, 0, h))
+    assert torch.equal(out, out0) and torch.equal(lse, lse0)
+    g = fa.flash_attention_bwd(q, k, v, out, lse, do, True, None, hm,
+                               **feats)
+    g0 = fa.flash_attention_bwd(q, k, v, out, lse, do, True, None, hm,
+                                **feats, offsets=(0, 0, h))
+    assert all(torch.equal(a, c) for a, c in zip(g, g0))
+    off = (6, 8, 16)
+    out1, lse1 = fa.flash_attention_fwd(q, k, v, True, None, hm, **feats,
+                                        offsets=off)
+    want, want_lse = fa.flash_attention_ref(q, k, v, True, None, hm,
+                                            **feats, offsets=off)
+    assert not torch.equal(out1, out)
+    assert _row_err(out1, want) < ROW_TOL[dtype]
+    torch.testing.assert_close(lse1, want_lse, rtol=1e-3, atol=1e-3)
+    grads = fa.flash_attention_bwd(q, k, v, out1, lse1, do, True, None, hm,
+                                   **feats, offsets=off)
+    wants = fa.flash_attention_bwd_ref(q, k, v, out1, lse1, do, True, None,
+                                       hm, **feats, offsets=off)
+    scale = max(_rms_row_norm(w) for w in wants)
+    for got, w in zip(grads, wants):
+        assert _row_err(got, w, scale) < ROW_TOL[dtype]
+    hd = 1 if hm else 2                      # the head dim of the layout
+    for r in range(2):                       # dp rank: rows 2r, 2r + 1
+        for m in range(2):                   # mp rank: heads 4m .. 4m + 3
+            part = [t[2 * r:2 * r + 2].narrow(hd, 4 * m, 4)
+                    for t in (q, k, v, do)]
+            po, pl = fa.flash_attention_fwd(*part[:3], True, None, hm,
+                                            **feats, offsets=(2 * r, 4 * m, h))
+            assert torch.equal(po, out[2 * r:2 * r + 2].narrow(hd, 4 * m, 4))
+            assert torch.equal(pl, lse[2 * r:2 * r + 2, 4 * m:4 * m + 4])
+            pg = fa.flash_attention_bwd(*part[:3], po, pl, part[3], True,
+                                        None, hm, **feats,
+                                        offsets=(2 * r, 4 * m, h))
+            for got, whole in zip(pg, g):
+                assert torch.equal(
+                    got, whole[2 * r:2 * r + 2].narrow(hd, 4 * m, 4))
+
+
+@pytest.mark.cuda
+def test_world_one_nccl_collectives_on_card(card, tmp_path):
+    """A world of one over NCCL on the card (a child process): every
+    collective of `distributed.collective` leaves its tensor as the world
+    of one computes it, and a CUDA graph replays a captured all_reduce."""
+    import pathlib
+    import subprocess
+    import sys
+    root = str(pathlib.Path(__file__).resolve().parent.parent)
+    script = tmp_path / "one.py"
+    script.write_text(
+        "import sys, torch\n"
+        f"sys.path.insert(0, {root!r})\n"
+        "from paddle_tpu_torch.distributed import env, collective as C\n"
+        "env.init_parallel_env(backend='nccl', init_method="
+        f"'file://{tmp_path}/rdzv', world_size=1, rank=0)\n"
+        "x = torch.arange(4., device='cuda')\n"
+        "for op in ('sum', 'max', 'min', 'prod', 'avg'):\n"
+        "    C.all_reduce(x, op=op)\n"
+        "assert torch.equal(x, torch.arange(4., device='cuda'))\n"
+        "assert torch.equal(C.all_gather(None, x)[0], x)\n"
+        "C.broadcast(x, src=0); C.reduce(x, dst=0); C.barrier()\n"
+        "t = torch.arange(3, device='cuda'); C.all_reduce(t, op='avg')\n"
+        "assert t.dtype == torch.float32\n"
+        "g = torch.cuda.CUDAGraph(); s = torch.cuda.Stream()\n"
+        "s.wait_stream(torch.cuda.current_stream())\n"
+        "with torch.cuda.graph(g, stream=s):\n"
+        "    x.mul_(2); C.all_reduce(x)\n"
+        "g.replay(); torch.cuda.synchronize()\n"
+        "assert torch.equal(x, 2 * torch.arange(4., device='cuda'))\n"
+        "print('ok')\n")
+    res = subprocess.run([sys.executable, str(script)], capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+@pytest.fixture
+def two_cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA cards")
+
+
+@pytest.mark.cuda
+def test_hybrid_phase_on_two_cards(two_cards):
+    """chip_smoke's train-hybrid phase with a card a rank for the first
+    two ranks (plain NCCL between them): (a) compiled = eager bit for bit,
+    (b) within its tolerance, (c) fit = the hand lane, (d) the tokens."""
+    import pathlib
+    import subprocess
+    import sys
+    root = pathlib.Path(__file__).resolve().parent.parent
+    res = subprocess.run(
+        [sys.executable, str(root / "chip_smoke.py"), "--phases",
+         "device,build,train-hybrid"], capture_output=True, text=True,
+        timeout=1200, cwd=str(root))
+    assert res.returncode == 0, res.stdout[-4000:] + res.stderr[-4000:]

@@ -394,9 +394,18 @@ def test_ineligible_step_warns_once_and_stays_eager(why):
 
 
 def test_unported_options_raise():
+    """The mesh lanes run dp and mp (tests/test_torch_hybrid.py): a pp,
+    sharding or sep axis above 1 still raises (JAX's wording), and so does
+    the sentinel across ranks (ROADMAP A8)."""
+    from paddle_tpu_torch.distributed import ProcessMesh
     net, opt = _mlp()
-    with pytest.raises(NotImplementedError, match="Queue A8"):
-        CompiledTrainStep(lambda x, y: x, opt, mesh=object())
+    for axis in ("pp", "sharding", "sep"):
+        mesh = ProcessMesh(np.arange(2).reshape(1, 2), ["dp", axis])
+        with pytest.raises(NotImplementedError, match=f"mesh axis '{axis}'"):
+            CompiledTrainStep(lambda x, y: x, opt, mesh=mesh)
+    mesh = ProcessMesh(np.arange(2).reshape(2, 1), ["dp", "mp"])
+    with pytest.raises(NotImplementedError, match="A8"):
+        CompiledTrainStep(lambda x, y: x, opt, mesh=mesh, sentinel=True)
     # sentinel=True is ported: each full call leaves its own health vector
     cs = CompiledTrainStep(lambda x, y: ((net(x) - y) ** 2).mean(), opt,
                            sentinel=True)
