@@ -313,6 +313,25 @@ last line:
             the global batches bit for bit, the dp replicas bit for bit,
             the 4 ranks' flash parts (the hash's offsets) = the one-rank
             call
+22. train-guard  the hang and failure guardian, the launcher and the
+            sentinel across ranks: GPT-2 124M, dp 2 (two ranks on the
+            card, NCCL), dropout 0.1, bf16 O2, AdamW, the eager lane,
+            B4 x S1024 a rank, launched by the port's CollectiveController
+            (the ranks are this script's ``--guard-child``; every generator
+            reseeded from (step, rank)); rank 0 checkpoints every 2 steps:
+            (a) 6 steps with the guardian armed, off, armed again: losses
+            bit for bit, each lane's step p50, store writes a step, the
+            flash and Adam launches a rank; (b) rank_crash on rank 1 inside
+            step 4: rank 0 exits 101 with PeerFailureError carrying the
+            InjectedFault, the relaunch resumes at step 4 and both ranks'
+            losses equal (a)'s bit for bit, the time from the crash to the
+            resumed first step; (c) collective_delay on rank 1, timeout 3 s:
+            rank 0's stall dump through check_telemetry --stall-dump (the
+            op, the seq, missing_ranks [1], waited_s < 6 s), the job ends
+            nonzero within the timeout and both graces; (d) beside (c):
+            grad_bitflip on rank 1 twice under FLAGS_sentinel: both ranks
+            skip, rank 1 blamed, SentinelError, the relaunch on one worker
+            with PADDLE_ELASTIC_RESIZED=2:1
 
 The second-to-last line is the kernels' JSON summary, the last line
 ``{"ok": true, "device": {...}}``.  ``--phases`` runs a subset.
@@ -331,6 +350,7 @@ import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import types
 import warnings
@@ -393,7 +413,7 @@ PHASES = ("device", "build", "kernels", "serve", "serve-lora-int8",
           "train-compiled-parity", "train-gpt2", "gpt2-parity", "attn-ops",
           "train-optimizers", "serve-gpt", "gpt-parity", "generate-gpt",
           "train-gpt2-recompute", "fit-gpt2", "fit-llama", "sentinel-gpt2",
-          "lora-llama", "train-hybrid")
+          "lora-llama", "train-hybrid", "train-guard")
 #: generate-gpt: the worst row error (relative to the row's norm) allowed
 #: between the cached path's last-position logits and the full forward's
 #: at GPT-3 6.7B in bf16.  Both paths round every activation to bf16 (a
@@ -6937,6 +6957,510 @@ def phase_train_hybrid(dev):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ----------------------------------------------------------- train-guard
+#: train-guard's workload: GPT-2 124M at full width, dp 2 (two ranks on
+#: the card), the eager lane, 6 steps of GUARD_ROWS rows a rank (train-
+#: gpt2's B 8 over the two ranks), rank 0 checkpointing every 2 steps
+GUARD_STEPS = 6
+GUARD_ROWS = 4
+GUARD_SAVE_EVERY = 2
+#: (c)'s collective timeout, seconds, and the controller's graces
+GUARD_TIMEOUT_S = 3.0
+GUARD_PEER_GRACE_S = 5.0
+GUARD_TERM_GRACE_S = 5.0
+
+
+def guard_batch(step, rank, dev):
+    """The rows of ``rank`` at ``step``: a numpy seed keyed on both, so a
+    resumed incarnation replays the same batch."""
+    rows = np.random.default_rng(1000 * step + rank).integers(
+        0, 50304, (GUARD_ROWS, 1025))
+    return (torch.from_numpy(rows[:, :-1]).to(dev),
+            torch.from_numpy(rows[:, 1:]).to(dev))
+
+
+def guard_reseed(model, step, rank):
+    """Seed every generator the forward draws from (the flash seeds', the
+    dropout masks') from (step, rank): a step's randomness depends on no
+    earlier step, so a resumed run draws what an uninterrupted one did."""
+    from paddle_tpu_torch.hapi.model import _generators
+    for i, g in enumerate(_generators(model.network)):
+        g.manual_seed(1_000_003 * step + 1009 * rank + i)
+
+
+def guard_steps(model, start, rank, dev, log_path, mgr=None,
+                stop=GUARD_STEPS, before=None):
+    """Steps ``start`` .. ``stop`` - 1 of the eager dp lane (``before(step)``
+    first, when given): each step's loss (this rank's, read back), host ms
+    to the read and wall time go to ``log_path`` (a JSON line a step);
+    rank 0 saves every GUARD_SAVE_EVERY steps (not after the last); a
+    barrier closes each step.  Returns (losses, ms, the watchdog's (seq
+    at the step's start, seq at its end) of its dp all-reduces' group,
+    which the fault points' at_seq counts)."""
+    from paddle_tpu_torch.distributed import collective, watchdog
+
+    def dp_seq():
+        wd = watchdog._WATCHDOG
+        return wd._seq.get(model._dp_group.id, 0) if wd else None
+
+    losses, times, seqs = [], [], []
+    opt = model._optimizer
+    for step in range(start, stop):
+        if before is not None:
+            before(step)
+        seq0 = dp_seq()
+        guard_reseed(model, step, rank)
+        x, y = guard_batch(step, rank, dev)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        loss = float(model._train_batch_device(x, y).detach())
+        times.append((time.monotonic() - t0) * 1e3)
+        losses.append(loss)
+        seqs.append((seq0, dp_seq()))
+        with open(log_path, "a") as f:
+            f.write(json.dumps({"step": step, "loss": loss, "t": time.time(),
+                                "start": start}) + "\n")
+        if mgr is not None and rank == 0 and \
+                (step + 1) % GUARD_SAVE_EVERY == 0 and step + 1 < stop:
+            mgr.save({"model": model.network.state_dict(),
+                      "optimizer": opt.state_dict(), "step": step},
+                     step=step)
+            mgr.wait()
+        collective.barrier()
+    return losses, times, seqs
+
+
+def guard_switch(armed, timeout, writes):
+    """Arm the guardian (the launcher's trap store, ``timeout``; its store
+    writes counted into ``writes[0]``) or turn it off (no trap, no
+    timeout: ``begin`` returns None)."""
+    from paddle_tpu_torch.distributed import watchdog
+    port_flags.set_flags({"FLAGS_collective_timeout_s":
+                          timeout if armed else 0.0})
+    if not armed:
+        watchdog.configure(store=None)
+        return
+    watchdog.reset()
+    store = watchdog.get_watchdog().trap.store    # the env's, anew
+    store_set = store.set
+
+    def counted(key, value):
+        writes[0] += 1
+        return store_set(key, value)
+
+    store.set = counted
+
+
+def guard_call_us(n=100):
+    """Host microseconds of one guarded call's begin, preflight and end
+    (its arrival record, the peer check; no collective) on a probe group
+    (``tokens``: whether ``begin`` returned one)."""
+    from paddle_tpu_torch.distributed import watchdog
+
+    class Probe:
+        id, ranks, nranks = "probe", [0, 1], 2
+
+    t0 = time.perf_counter()
+    for _ in range(n):
+        tok = watchdog.begin("all_reduce", Probe)
+        watchdog.preflight(tok)
+        watchdog.end(tok)
+    return (time.perf_counter() - t0) / n * 1e6, tok is not None
+
+
+def guard_drain():
+    """The armed watchdog's entries after a sync and its next poll (they
+    stay in flight until the poll sees their events complete)."""
+    from paddle_tpu_torch.distributed import watchdog
+    wd = watchdog.get_watchdog()
+    torch.cuda.synchronize()
+    deadline = time.monotonic() + 3 * wd._interval()
+    while wd.in_flight() and time.monotonic() < deadline:
+        time.sleep(0.05)
+    return wd.in_flight()
+
+
+def guard_train(mode, outdir, rank, dev):
+    """(a) ``clean``: steps 0 .. 2 GUARD_STEPS - 2 with the guardian armed
+    (step 0, the process's warm-up) then off and armed by turns (the two
+    share the process's drift), then a guarded call's host cost; (b), (c)
+    ``drill``: the guardian armed throughout, rank 0 checkpointing,
+    resumed from its newest checkpoint."""
+    model = fit_gpt2_model(dev, dropout=0.1)
+    timeout = port_flags.flag("FLAGS_collective_timeout_s")
+    writes = [0]
+    if mode == "clean":
+        labels = (["armed"] + ["off", "armed"] * GUARD_STEPS)[
+            :2 * GUARD_STEPS - 1]
+        kernels.reset_launch_counts()
+        losses, times, seqs = guard_steps(
+            model, 0, rank, dev, os.path.join(outdir, f"steps.{rank}.jsonl"),
+            stop=len(labels), before=lambda step: guard_switch(
+                labels[step] == "armed", timeout, writes))
+        launches = {k: v for k, v in kernels.launch_counts().items() if v}
+        in_flight = guard_drain()
+        call_us = {}
+        for lane in ("off", "armed"):
+            guard_switch(lane == "armed", timeout, [0])
+            call_us[lane] = guard_call_us()
+        return dict(losses=losses, times=times, labels=labels,
+                    seqs=[b - a for (a, b), k in zip(seqs, labels)
+                          if k == "armed"],
+                    writes=writes[0] / labels.count("armed"),
+                    in_flight=in_flight, launches=launches, call_us=call_us)
+    guard_switch(True, timeout, writes)
+    mgr = CheckpointManager(os.path.join(outdir, "ckpt"), max_to_keep=2,
+                            map_location=dev)
+    start = 0
+    restored = mgr.restore_latest()
+    if restored is not None:
+        state, _ = restored
+        model.network.load_state_dict(state["model"])
+        model._optimizer.set_state_dict(state["optimizer"])
+        start = int(state["step"]) + 1
+    with open(os.path.join(outdir, f"incarnations.{rank}.log"), "a") as f:
+        f.write(f"{start}\n")
+    losses, times, seqs = guard_steps(
+        model, start, rank, dev, os.path.join(outdir, f"steps.{rank}.jsonl"),
+        mgr)
+    return dict(losses=losses, times=times, in_flight=guard_drain())
+
+
+def guard_flaky(outdir, rank, dev):
+    """(d): fit under the sentinel (the environment's flags) while
+    grad_bitflip corrupts rank 1's gradients; its escalation leaves the
+    process (`SentinelError`)."""
+    model = fit_gpt2_model(dev, dropout=0.1)
+    rows = TokenRows(2 * GUARD_ROWS * GUARD_STEPS, 50304, 1024)
+    model.fit(rows, batch_size=GUARD_ROWS, epochs=1, shuffle=False,
+              verbose=0)
+    return {"completed": True}
+
+
+def guard_child(mode, outdir):
+    """A rank of train-guard, started by the port's launcher (its
+    ``PADDLE_TRAINER_*`` contract, ``FLAGS_selected_gpus`` on this card):
+    ``clean`` / ``drill`` / ``flaky``.  Writes ``<mode>.<rank>.json``; an
+    exception goes through ``sys.excepthook`` (the guardian's trap: the
+    record for the peers, exit 101 for a peer's failure), and the rank
+    exits without a process-group teardown (see HYBRID_BACKEND)."""
+    rank = int(os.environ["PADDLE_TRAINER_ID"])
+    if os.environ.get("PADDLE_ELASTIC_RESIZED"):
+        # the quarantine relaunch: the world without the blamed rank
+        with open(os.path.join(outdir, f"relaunch.{rank}.json"), "w") as f:
+            json.dump({"world": int(os.environ["PADDLE_TRAINERS_NUM"]),
+                       "resized": os.environ["PADDLE_ELASTIC_RESIZED"]}, f)
+        os._exit(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from paddle_tpu_torch.distributed import env
+    try:
+        env.init_parallel_env()
+        dev = env.current_device()
+        res = guard_flaky(outdir, rank, dev) if mode == "flaky" else \
+            guard_train(mode, outdir, rank, dev)
+        with open(os.path.join(outdir, f"{mode}.{rank}.json"), "w") as f:
+            json.dump(res, f)
+    except BaseException as e:  # noqa: BLE001 — the guardian's hooks
+        sys.stdout.flush()
+        sys.excepthook(type(e), e, e.__traceback__)
+        sys.stderr.flush()
+        os._exit(1)
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
+
+
+def guard_controller(tag, mode, outdir, max_restart, extra_env):
+    """The port's CollectiveController over this script's ``--guard-child
+    MODE DIR`` ranks (two on this card), keeping each incarnation's exit
+    codes and trapped records (time stamps included: the controller
+    clears them at a relaunch) and the blame it quarantined on."""
+    from paddle_tpu_torch.distributed.launch.context import (Context,
+                                                             parse_args)
+    from paddle_tpu_torch.distributed.launch.controller import \
+        CollectiveController
+    from paddle_tpu_torch.framework.sentinel import read_blame
+
+    class GuardController(CollectiveController):
+        def __init__(self, ctx):
+            super().__init__(ctx)
+            self._extra_env = dict(extra_env)
+            self.codes, self.records, self.blames = [], [], []
+
+        def _watch(self):
+            codes = super()._watch()
+            self.codes.append(list(codes))
+            return codes
+
+        def _guardian_blame(self):
+            errs = super()._guardian_blame()
+            self.records.append(errs)
+            return errs
+
+        def _apply_quarantine(self):
+            self.blames.append(read_blame(self._trap.store, self._trap.job))
+            super()._apply_quarantine()
+
+    os.makedirs(outdir, exist_ok=True)
+    args = parse_args(["--nproc_per_node", "2", "--max_restart",
+                       str(max_restart), "--job_id", tag, "--log_dir",
+                       os.path.join(outdir, "logs"), os.path.abspath(__file__),
+                       "--guard-child", mode, outdir])
+    ctl = GuardController(Context(args=args))
+    t0 = time.time()
+    code = ctl.run()
+    return code, ctl, t0, time.time()
+
+
+def guard_logs(outdir, rank):
+    with open(os.path.join(outdir, "logs", f"worker.{rank}.log"),
+              errors="replace") as f:
+        return f.read()
+
+
+def guard_results(outdir, mode):
+    outs = []
+    for r in range(2):
+        path = os.path.join(outdir, f"{mode}.{r}.json")
+        if not os.path.exists(path):
+            raise AssertionError(f"[train-guard] {mode}: rank {r} wrote no "
+                                 f"result; its log:\n"
+                                 f"{guard_logs(outdir, r)[-3000:]}")
+        outs.append(json.load(open(path)))
+    return outs
+
+
+def guard_step_losses(outdir, rank):
+    """{step: [losses]} of ``rank`` over every incarnation, and the wall
+    time of each incarnation's first step: {start: t}."""
+    by, first = {}, {}
+    with open(os.path.join(outdir, f"steps.{rank}.jsonl")) as f:
+        for line in f:
+            rec = json.loads(line)
+            by.setdefault(rec["step"], []).append(rec["loss"])
+            first.setdefault(rec["start"], rec["t"])
+    return by, first
+
+
+def guard_stall(root, base, at, tag="train-guard"):
+    """(c): rank 1 stalls (collective_delay) in the all_reduce at seq
+    ``at``; rank 0's stall dump, the job's end."""
+    c_dir = os.path.join(root, "c")
+    code, ctl, t0, t1 = guard_controller(
+        "c", "drill", c_dir, 0, dict(
+            base, FLAGS_collective_timeout_s=str(GUARD_TIMEOUT_S),
+            FLAGS_stall_dump_path=os.path.join(c_dir, "stall.json"),
+            FLAGS_fault_inject=f"collective_delay:op=all_reduce,"
+            f"at_seq={at},delay_s=120,rank=1"))
+    dump = os.path.join(c_dir, "stall.rank0.json")
+    if code == 0 or not os.path.exists(dump):
+        raise AssertionError(f"[{tag}] (c) exit {code} {ctl.codes}, "
+                             f"dump {os.path.exists(dump)}; rank 0:\n"
+                             f"{guard_logs(c_dir, 0)[-3000:]}")
+    run_check_telemetry(f"{tag} (c)", "--stall-dump", dump)
+    stall = json.load(open(dump))
+    st = stall["stall"]
+    began = stall["ts"] - st["waited_s"]
+    limit = GUARD_TIMEOUT_S + GUARD_PEER_GRACE_S + GUARD_TERM_GRACE_S
+    if (st["op"], st["seq"], st["missing_ranks"]) != \
+            ("all_reduce", at, [1]) or \
+            not st["waited_s"] < 2 * GUARD_TIMEOUT_S or \
+            not t1 - began <= limit:
+        raise AssertionError(f"[{tag}] (c) dump op {st['op']} seq "
+                             f"{st['seq']} missing {st['missing_ranks']}"
+                             f" waited {st['waited_s']} s; the job ended "
+                             f"{t1 - began:.1f} s after the stall began "
+                             f"(limit {limit:g})")
+    log(f"[{tag}] (c) rank 1 stalled in all_reduce seq {at}: rank 0's "
+        f"stall dump passes check_stall_dump (op {st['op']}, seq "
+        f"{st['seq']}, missing_ranks {st['missing_ranks']}, waited_s "
+        f"{st['waited_s']} < 2 x {GUARD_TIMEOUT_S:g}); codes {ctl.codes}"
+        f", the job ended {t1 - began:.1f} s after the stall began "
+        f"(timeout + both graces {limit:g} s)")
+
+
+def guard_flaky_drill(root, base, tag="train-guard"):
+    """(d): grad_bitflip on rank 1 twice under the sentinel; the blame,
+    SentinelError and the quarantine relaunch on one worker."""
+    d_dir = os.path.join(root, "d")
+    code, ctl, t0, t1 = guard_controller(
+        "d", "flaky", d_dir, 1, dict(
+            base, FLAGS_collective_timeout_s="60", FLAGS_sentinel="1",
+            FLAGS_sentinel_check_every="1", FLAGS_sentinel_max_skips="2",
+            FLAGS_sentinel_dump_path=os.path.join(d_dir, "sentinel.json"),
+            FLAGS_fault_inject="grad_bitflip:rank=1,count=2"))
+    dumps = {}
+    for r in range(2):
+        p = os.path.join(d_dir, f"sentinel.rank{r}.json")
+        if os.path.exists(p):
+            run_check_telemetry(f"{tag} (d)", "--sentinel-dump", p)
+            dumps[r] = json.load(open(p))["sentinel"]
+    types = sorted({e.get("type") for e in ctl.records[0]}) \
+        if ctl.records else []
+    relaunch = os.path.join(d_dir, "relaunch.0.json")
+    blamed = [b.get("rank") for b in ctl.blames if b]
+    if code != 0 or blamed != [1] or "SentinelError" not in types or \
+            not os.path.exists(relaunch) or \
+            json.load(open(relaunch)) != {"world": 1, "resized": "2:1"} \
+            or os.path.exists(os.path.join(d_dir, "relaunch.1.json")) \
+            or sorted(dumps) != [0, 1] or \
+            any(d["quarantined"] != [0, 1] for d in dumps.values()) or \
+            1 not in {d["blamed_rank"] for d in dumps.values()}:
+        raise AssertionError(f"[{tag}] (d) exit {code}, codes "
+                             f"{ctl.codes}, blame {ctl.blames}, records "
+                             f"{types}, dumps {dumps}; rank 1:\n"
+                             f"{guard_logs(d_dir, 1)[-3000:]}")
+    log(f"[{tag}] (d) grad_bitflip on rank 1 at iterations 0 and 1: both "
+        f"ranks skipped them (quarantined {dumps[0]['quarantined']}); "
+        f"blame on rank {blamed[0]} (the dumps' blamed_rank "
+        f"{[dumps[r]['blamed_rank'] for r in (0, 1)]}), the trapped "
+        f"errors {types}, codes {ctl.codes}; relaunched on one worker "
+        f"with PADDLE_ELASTIC_RESIZED=2:1; job {t1 - t0:.1f} s")
+
+
+def phase_train_guard(dev):
+    """train-guard: GPT-2 124M dp 2 (two ranks on the card, NCCL) under the
+    hang and failure guardian, launched by the port's launcher: (a) clean,
+    the guardian off and armed by turns; (b) rank 1 crashes inside step 4 -> relaunch, resume;
+    (c) a stalled all_reduce -> stall dump, abort; (d) a flaky rank ->
+    skip, blame, SentinelError, quarantine relaunch on one worker."""
+    tag = "train-guard"
+    root = tempfile.mkdtemp(prefix="train-guard-")
+    saved = {k: os.environ.get(k) for k in (
+        "PADDLE_GUARDIAN_PEER_GRACE_S", "PADDLE_GUARDIAN_TERM_GRACE_S",
+        "PADDLE_ELASTIC_FAULT_TOLERANC_LEVEL")}
+    base = {"FLAGS_compiled_train_step": "0", "PYTHONUNBUFFERED": "1",
+            "FLAGS_flight_recorder_path": os.path.join(root, "fr.json")}
+    try:
+        os.environ["PADDLE_GUARDIAN_TERM_GRACE_S"] = str(GUARD_TERM_GRACE_S)
+        # (a) clean: the guardian (a timeout set, the trap store on) armed
+        # and off by turns, in each rank
+        a_dir = os.path.join(root, "a")
+        code, ctl, t0, t1 = guard_controller(
+            "a", "clean", a_dir, 0,
+            dict(base, FLAGS_collective_timeout_s="60"))
+        if code != 0:
+            raise AssertionError(f"[{tag}] (a) exit {code} {ctl.codes}; "
+                                 f"{guard_logs(a_dir, 0)[-3000:]}")
+        clean = guard_results(a_dir, "clean")
+        n = len(clean[0]["losses"])
+        per_step = clean[0]["seqs"]
+        for r, o in enumerate(clean):
+            if [o["call_us"][k][1] for k in ("armed", "off")] != \
+                    [True, False] or not all(np.isfinite(o["losses"])) or \
+                    o["in_flight"] or len(set(o["seqs"])) != 1:
+                raise AssertionError(
+                    f"[{tag}] (a) r{r}: losses {o['losses']}, tokens "
+                    f"{o['call_us']}, in flight after a sync and a poll "
+                    f"{o['in_flight']}, dp collectives a step {o['seqs']}")
+        if clean[0]["losses"] == clean[1]["losses"]:
+            raise AssertionError(f"[{tag}] (a) the ranks' losses are equal: "
+                                 "their rows are not their own")
+        need = dict({k: 12 * n for k in DROPOUT_KERNELS}, adam=148 * n)
+        for o in clean:
+            check_launches(dict.fromkeys(need, 0) | o["launches"], need)
+        p50 = {lane: [float(np.median([t for t, k in zip(
+            o["times"][1:], o["labels"][1:]) if k == lane])) for o in clean]
+            for lane in ("off", "armed")}
+        call_us = [{k: v[0] for k, v in o["call_us"].items()} for o in clean]
+        log(f"[{tag}] (a) GPT-2 124M dp 2 (two ranks on one card, NCCL "
+            f"socket), dropout 0.1, bf16 O2, AdamW, B{GUARD_ROWS} x S1024 a "
+            f"rank, the eager lane: {n} steps, the guardian armed at step "
+            f"0, then off and armed by turns; job {t1 - t0:.1f} s")
+        for r, o in enumerate(clean):
+            log(f"[{tag}] (a) r{r} losses {o['losses']}; launches "
+                f"{o['launches']}")
+        fmt_ms = {k: [round(m, 2) for m in v] for k, v in p50.items()}
+        calls = per_step[0] + 1               # and the step's barrier
+        log(f"[{tag}] (a) step p50 (steps 2-{n}, host ms to the loss read) "
+            f"by rank: off {fmt_ms['off']}, armed {fmt_ms['armed']}: the "
+            f"guardian's cost {max(p50['armed']) - max(p50['off']):+.2f} ms "
+            f"a step (slowest rank); a guarded call's host time (begin, "
+            f"preflight, end; no collective) "
+            f"{[round(c['armed'], 1) for c in call_us]} us armed, "
+            f"{[round(c['off'], 2) for c in call_us]} us off, x {calls} "
+            f"calls a step = "
+            f"{max(c['armed'] for c in call_us) * calls / 1e3:.2f} ms; dp "
+            f"collectives a step {per_step[0]} and a barrier; store writes "
+            f"{[o['writes'] for o in clean]} an armed step by rank; every "
+            f"entry retired after a sync and one poll")
+        want = {r: clean[r]["losses"][:GUARD_STEPS] for r in range(2)}
+        seqs = [k * per_step[0] for k in range(GUARD_STEPS)]
+
+        # (b) rank 1 crashes at a collective inside step 4 (once)
+        b_dir = os.path.join(root, "b")
+        at = seqs[4] + (seqs[5] - seqs[4]) // 2   # step 4's middle one
+        os.environ["PADDLE_GUARDIAN_PEER_GRACE_S"] = "20"
+        code, ctl, t0, t1 = guard_controller(
+            "b", "drill", b_dir, 1, dict(
+                base, FLAGS_collective_timeout_s="60",
+                FLAGS_fault_inject=f"rank_crash:op=all_reduce,at_seq={at},"
+                f"rank=1,"
+                f"once_file={os.path.join(b_dir, 'crashed')}"))
+        log0 = guard_logs(b_dir, 0)
+        if code != 0 or len(ctl.codes) != 2 or \
+                ctl.codes[0][0] != ELASTIC_EXIT_CODE or \
+                "PeerFailureError" not in log0 or "InjectedFault" not in log0:
+            raise AssertionError(f"[{tag}] (b) exit {code}, incarnations' "
+                                 f"codes {ctl.codes}; rank 0's log:\n"
+                                 f"{log0[-3000:]}")
+        crash = [e for e in ctl.records[0] if e.get("type") == "InjectedFault"]
+        resumed_at = {}
+        for r in range(2):
+            starts = [int(x) for x in open(os.path.join(
+                b_dir, f"incarnations.{r}.log")).read().split()]
+            by, first = guard_step_losses(b_dir, r)
+            got = [by[s][-1] for s in range(GUARD_STEPS)]
+            twice = {s: v for s, v in by.items() if len(set(v)) > 1}
+            if starts[0] != 0 or len(starts) != 2 or starts[1] < 1 or \
+                    got != want[r] or twice:
+                raise AssertionError(f"[{tag}] (b) r{r}: incarnations "
+                                     f"{starts}, losses {got} vs (a) "
+                                     f"{want[r]} (steps run twice and "
+                                     f"parted: {twice})")
+            resumed_at[r] = first[starts[1]]
+        if len(crash) != 1:
+            raise AssertionError(f"[{tag}] (b) trapped records "
+                                 f"{ctl.records}")
+        back_s = min(resumed_at.values()) - crash[0]["ts"]
+        log(f"[{tag}] (b) rank 1 crashed at collective seq {at} (inside "
+            f"step 4): rank 0 exit {ctl.codes[0][0]} with PeerFailureError "
+            f"carrying the InjectedFault, codes {ctl.codes}; incarnations "
+            f"start at {starts}; both ranks' losses equal (a)'s bit for "
+            f"bit (armed throughout against off and armed by turns); crash "
+            f"-> the resumed first step {back_s:.1f} s; job {t1 - t0:.1f} s")
+
+        # (c) rank 1 stalls at step 1's first all_reduce, beside (d)
+        # grad_bitflip on rank 1 twice under the sentinel (a job of its
+        # own: a thread)
+        os.environ["PADDLE_GUARDIAN_PEER_GRACE_S"] = str(GUARD_PEER_GRACE_S)
+        os.environ["PADDLE_ELASTIC_FAULT_TOLERANC_LEVEL"] = "1"
+        flaky = {}
+
+        def run_flaky():
+            try:
+                guard_flaky_drill(root, base)
+            except BaseException as e:  # noqa: BLE001 — raised below
+                flaky["error"] = e
+
+        th = threading.Thread(target=run_flaky, name="train-guard-d")
+        th.start()
+        try:
+            guard_stall(root, base, seqs[1])
+        finally:
+            th.join()
+        if "error" in flaky:
+            raise flaky["error"]
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -6947,9 +7471,14 @@ def main(argv=None):
                     help=argparse.SUPPRESS)   # serve-resilience (2)'s child
     ap.add_argument("--hybrid-child", nargs=2, metavar=("LANE", "DIR"),
                     help=argparse.SUPPRESS)   # train-hybrid's ranks
+    ap.add_argument("--guard-child", nargs=2, metavar=("MODE", "DIR"),
+                    help=argparse.SUPPRESS)   # train-guard's ranks
     args = ap.parse_args(argv)
     if args.hybrid_child:
         hybrid_child(*args.hybrid_child)
+        return
+    if args.guard_child:
+        guard_child(*args.guard_child)
         return
     SERVE_RECORD.install()
     if args.fit_child:
@@ -7046,6 +7575,8 @@ def main(argv=None):
         run("lora-llama", phase_lora_llama, dev)
     if "train-hybrid" in phases:
         run("train-hybrid", phase_train_hybrid, dev)
+    if "train-guard" in phases:
+        run("train-guard", phase_train_guard, dev)
     if timed and None not in (counts, lora_counts, train_counts, gpt2_counts,
                               ops_counts):
         # launches: the serving run's for its two kernels, the training

@@ -1,12 +1,15 @@
 """Distributed training of the port (paddle_tpu/distributed): the
-process-group environment (`env`), the collectives (`collective`), the
-mesh, placements and hybrid topology, `DataParallel`, ``fleet`` (init,
-distributed_model, the tensor-parallel layers, ``recompute``,
-``elastic.PreemptionHandler``), the watchdog's thread helpers
-(``watchdog.async_raise``, ``watchdog.all_thread_stacks``), and the
-serving fleet's transports: the rpc plane (`rpc`) and the key-value
-stores (`store`: `TCPStore` over ``csrc/tcp_store.cpp``, `FileKVStore`,
-`TCPElasticStore`)."""
+process-group environment (`env`), the collectives (`collective`) under
+the hang and failure guardian (`watchdog`: the collective watchdog, the
+cross-rank error trap, the desync check; `host_collectives`, the store
+lane), the launcher (`launch`: ``python -m
+paddle_tpu_torch.distributed.launch``, the restart and quarantine loop)
+and `spawn`, the mesh, placements and hybrid topology, `DataParallel`,
+``fleet`` (init, distributed_model, the tensor-parallel layers,
+``recompute``, ``elastic``: `ElasticManager` and `PreemptionHandler`),
+and the serving fleet's transports: the rpc plane (`rpc`) and the
+key-value stores (`store`: `TCPStore` over ``csrc/tcp_store.cpp``,
+`FileKVStore`, `TCPElasticStore`)."""
 from . import env, watchdog  # noqa: E402,F401
 from .collective import (Group, P2POp, ReduceOp, all_gather, all_reduce,
                          all_to_all, barrier, batch_isend_irecv, broadcast,
@@ -19,9 +22,16 @@ from .parallel import DataParallel
 from .placement import Partial, Placement, Replicate, Shard
 from .topology import (HybridCommunicateGroup, get_hybrid_communicate_group,
                        set_hybrid_communicate_group)
+from .watchdog import (CollectiveTimeoutError, DesyncError, GuardianError,
+                       PeerFailureError)
 from . import fleet  # noqa: E402,F401
+from . import launch  # noqa: E402,F401
+from . import spawn as spawn_mod  # noqa: E402,F401
+from .spawn import spawn  # noqa: E402,F401
 
-__all__ = ["DataParallel", "Group", "HybridCommunicateGroup", "P2POp",
+__all__ = ["CollectiveTimeoutError", "DataParallel", "DesyncError",
+           "Group", "GuardianError", "HybridCommunicateGroup", "P2POp",
+           "PeerFailureError",
            "ParallelEnv", "Partial", "Placement", "ProcessMesh", "ReduceOp",
            "Replicate", "Shard", "all_gather", "all_reduce", "all_to_all",
            "barrier", "batch_isend_irecv", "broadcast", "device_count",
@@ -30,4 +40,4 @@ __all__ = ["DataParallel", "Group", "HybridCommunicateGroup", "P2POp",
            "init_parallel_env", "irecv", "is_initialized", "isend",
            "local_device_count", "new_group", "recv", "reduce",
            "reduce_scatter", "scatter", "send", "set_hybrid_communicate_group",
-           "set_mesh", "watchdog"]
+           "set_mesh", "spawn", "watchdog"]

@@ -3,11 +3,26 @@ over ``torch.distributed`` process groups.
 
 A rank is a process (`distributed.env.init_parallel_env`), and a `Group`
 an ordered subset of the world's ranks backed by a torch process group:
-NCCL on the card, gloo on the CPU.  The JAX module runs each collective
-as a small cross-process XLA program or, where the backend cannot, on a
-host lane through its store (``FLAGS_collective_backend``); here the
-process group is the one lane, so that flag has nothing to select and
-is not read.
+NCCL on the card, gloo on the CPU.
+
+**One choke point** (JAX's ``_multiproc_collective``): every multi-rank
+op goes through `_collective`, which runs the hang guardian
+(`distributed.watchdog`) around it: ``begin`` → ``preflight`` (fault
+points, the fail-fast peer check, the arrival and desync records) → the
+op → ``end`` (on the card: an event after the enqueue, so the entry
+stays in flight until the transfer ran), with ``translate`` on the way
+out.  With the guardian off ``begin`` returns None after a few lookups.
+A call inside a CUDA graph capture is not registered (its replays run
+without Python).  Point-to-point ops register under their pair of ranks
+(op ``p2p``), as JAX's broadcasts over a pair group.
+
+**Backends** (``FLAGS_collective_backend``): ``auto`` (the default) and
+``xla`` run every op on the process group; ``host`` routes the ops the
+JAX module's host lane serves (all_reduce, all_gather, broadcast,
+reduce, scatter, reduce_scatter, all_to_all, barrier) through the
+store-mediated gather of `distributed.host_collectives` (16-bit floats
+travel and reduce as fp32, then round once); send and recv keep the
+process group.
 
 Every call takes the JAX package's argument names and its semantics: a
 collective updates its tensor in place and returns it; a group of one
@@ -24,10 +39,13 @@ with the same ranks, in the same order.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..utils.flags import flag as _flag
 from . import env as _env
+from . import watchdog as _wd
 
 
 class ReduceOp:
@@ -157,23 +175,139 @@ _reduce_scatter_single = getattr(dist, "reduce_scatter_single", None) or \
     dist.reduce_scatter_tensor
 
 
+# ---------------------------------------------------------------------------
+# the choke point
+# ---------------------------------------------------------------------------
+
+
+def _np_reduce(op, stacked):
+    """Reduce a host-gathered ``[nranks, ...]`` stack with JAX's dtype
+    rule: sum, max, min and prod keep the dtype, the mean of integers is
+    float32."""
+    reducers = {ReduceOp.SUM: np.sum, ReduceOp.MAX: np.max,
+                ReduceOp.MIN: np.min, ReduceOp.PROD: np.prod,
+                ReduceOp.AVG: np.mean}
+    if op not in reducers:
+        raise ValueError(f"unknown ReduceOp {op!r}")
+    res = np.asarray(reducers[op](stacked, axis=0))
+    if op == ReduceOp.AVG and stacked.dtype.kind not in "fc":
+        return res.astype(np.float32)
+    return res.astype(stacked.dtype)
+
+
+def _host_lane():
+    return str(_flag("FLAGS_collective_backend", "auto")) == "host"
+
+
+def _to_host(t):
+    """``t`` as a numpy array for the store (16-bit floats as fp32)."""
+    t = t.detach().cpu()
+    if t.dtype in (torch.bfloat16, torch.float16):
+        t = t.float()
+    return t.numpy()
+
+
+def _from_host(arr, like):
+    """``arr`` on ``like``'s device, in ``like``'s dtype unless the host
+    rule changed the dtype (AVG of integers: float32)."""
+    out = torch.from_numpy(np.ascontiguousarray(arr)).to(like.device)
+    return out.to(like.dtype) if out.dtype == _host_dtype(like) else out
+
+
+def _host_dtype(t):
+    return {torch.bfloat16: torch.float32,
+            torch.float16: torch.float32}.get(t.dtype, t.dtype)
+
+
+def _host_gather(group, local):
+    """The group's ``local`` arrays stacked ``[nranks, ...]`` through the
+    store (`host_collectives.HostCollectives.gather`)."""
+    from . import host_collectives as _hc
+    host = _hc.bootstrap()
+    if host is None:
+        raise RuntimeError(
+            "FLAGS_collective_backend=host: no store to gather through; "
+            "launch through paddle_tpu_torch.distributed.launch (the "
+            "guardian store) or join a process group first")
+    return host.gather(group, local)
+
+
+def _done_event(tensor):
+    """A CUDA event recorded on the current stream after ``tensor``'s op
+    was enqueued (torch makes that stream wait for the collective's), or
+    None off the card."""
+    if tensor is None or not tensor.is_cuda:
+        return None
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(tensor.device))
+    return ev
+
+
+def _collective(name, group, tensor, run):
+    """Run ``run()`` (one multi-rank op of ``group`` on ``tensor``) under
+    the hang guardian: begin, preflight, the op, end, with translate on
+    the way out (JAX's ``_multiproc_collective``)."""
+    if tensor is not None and tensor.is_cuda and \
+            torch.cuda.is_current_stream_capturing():
+        return run()                # replays run without Python
+    token = _wd.begin(name, group)
+    if token is None:
+        return run()
+    try:
+        _wd.preflight(token)
+        out = run()
+    except BaseException as exc:
+        rich = _wd.translate(token, exc)
+        _wd.end(token)
+        if rich is exc:
+            raise
+        # a bare asynchronously raised class becomes its rich instance; a
+        # backend error keeps its cause under the peer's
+        raise rich from (None if isinstance(exc, _wd.GuardianError)
+                         else exc)
+    _wd.end(token, _done_event(tensor))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# collectives
+# ---------------------------------------------------------------------------
+
+
 def all_reduce(tensor, op=ReduceOp.SUM, group=None, sync_op=True):
     """In-place all-reduce of ``tensor`` across the group (reference:
     communication/all_reduce.py)."""
     _count("all_reduce", tensor)
     group = _resolve(group)
+    avg_int = op == ReduceOp.AVG and not tensor.is_floating_point()
     if group.nranks <= 1:
-        if op == ReduceOp.AVG and not tensor.is_floating_point():
+        if avg_int:
             _set(tensor, tensor.float())
         return tensor
-    avg_int = op == ReduceOp.AVG and not tensor.is_floating_point()
-    buf = tensor.double() if avg_int else tensor
-    dist.all_reduce(buf, op=_torch_op(op), group=group.process_group)
-    if op == ReduceOp.AVG:
-        if avg_int:
-            return _set(tensor, (buf / group.nranks).float())
-        buf.div_(group.nranks)
-    return tensor
+    _torch_op(op)                   # an unknown op raises before the call
+
+    def run():
+        if _host_lane():
+            res = _np_reduce(op, _host_gather(group, _to_host(tensor)))
+            return _set(tensor, _from_host(res, tensor))
+        buf = tensor.double() if avg_int else tensor
+        dist.all_reduce(buf, op=_torch_op(op), group=group.process_group)
+        if op == ReduceOp.AVG:
+            if avg_int:
+                return _set(tensor, (buf / group.nranks).float())
+            buf.div_(group.nranks)
+        return tensor
+    return _collective("all_reduce", group, tensor, run)
+
+
+def _gathered(group, src):
+    """``[nranks, *src.shape]``: every rank's ``src`` in group order."""
+    if _host_lane():
+        return _from_host(_host_gather(group, _to_host(src)), src)
+    stacked = torch.empty((group.nranks,) + tuple(src.shape),
+                          dtype=src.dtype, device=src.device)
+    _all_gather_single(stacked, src.unsqueeze(0), group=group.process_group)
+    return stacked
 
 
 def all_gather(tensor_list, tensor, group=None, sync_op=True, axis=0):
@@ -188,10 +322,8 @@ def all_gather(tensor_list, tensor, group=None, sync_op=True, axis=0):
     if group.nranks <= 1:
         out.append(tensor.clone())
         return out
-    src = tensor.contiguous().unsqueeze(0)
-    stacked = torch.empty((group.nranks,) + tuple(src.shape[1:]),
-                          dtype=src.dtype, device=src.device)
-    _all_gather_single(stacked, src, group=group.process_group)
+    stacked = _collective("all_gather", group, tensor,
+                          lambda: _gathered(group, tensor.contiguous()))
     out.extend(stacked.unbind(0))
     return out
 
@@ -204,10 +336,16 @@ def all_gather_concat(tensor, axis=0, group=None):
     if group.nranks <= 1:
         return tensor
     src = tensor.movedim(axis, 0).contiguous()
-    out = torch.empty((group.nranks * src.shape[0],) + tuple(src.shape[1:]),
-                      dtype=src.dtype, device=src.device)
-    _all_gather_single(out, src, group=group.process_group)
-    return out.movedim(0, axis)
+
+    def run():
+        if _host_lane():
+            return _gathered(group, src).flatten(0, 1)
+        out = torch.empty((group.nranks * src.shape[0],)
+                          + tuple(src.shape[1:]),
+                          dtype=src.dtype, device=src.device)
+        _all_gather_single(out, src, group=group.process_group)
+        return out
+    return _collective("all_gather", group, tensor, run).movedim(0, axis)
 
 
 def broadcast(tensor, src=0, group=None, sync_op=True):
@@ -219,8 +357,14 @@ def broadcast(tensor, src=0, group=None, sync_op=True):
         return tensor
     if src not in group.ranks:
         raise ValueError(f"broadcast src={src} is not a member of {group}")
-    dist.broadcast(tensor, src=src, group=group.process_group)
-    return tensor
+
+    def run():
+        if _host_lane():             # JAX's: an all-gather, src's part
+            parts = _gathered(group, tensor.contiguous())
+            return _set(tensor, parts[group.get_group_rank(src)])
+        dist.broadcast(tensor, src=src, group=group.process_group)
+        return tensor
+    return _collective("broadcast", group, tensor, run)
 
 
 def reduce(tensor, dst=0, op=ReduceOp.SUM, group=None, sync_op=True):
@@ -233,16 +377,24 @@ def reduce(tensor, dst=0, op=ReduceOp.SUM, group=None, sync_op=True):
     if dst not in group.ranks:
         raise ValueError(f"reduce dst={dst} is not a member of {group}")
     mine = _env.get_rank() == dst
-    buf = tensor.clone() if not mine else tensor
     avg_int = op == ReduceOp.AVG and not tensor.is_floating_point()
-    if avg_int:
-        buf = buf.double()
-    dist.reduce(buf, dst=dst, op=_torch_op(op), group=group.process_group)
-    if mine and op == ReduceOp.AVG:
+
+    def run():
+        if _host_lane():
+            res = _np_reduce(op, _host_gather(group, _to_host(tensor)))
+            return _set(tensor, _from_host(res, tensor)) if mine \
+                else tensor
+        buf = tensor.clone() if not mine else tensor
         if avg_int:
-            return _set(tensor, (buf / group.nranks).float())
-        tensor.div_(group.nranks)
-    return tensor
+            buf = buf.double()
+        dist.reduce(buf, dst=dst, op=_torch_op(op),
+                    group=group.process_group)
+        if mine and op == ReduceOp.AVG:
+            if avg_int:
+                return _set(tensor, (buf / group.nranks).float())
+            tensor.div_(group.nranks)
+        return tensor
+    return _collective("reduce", group, tensor, run)
 
 
 def scatter(tensor, tensor_list=None, src=0, group=None, sync_op=True):
@@ -254,11 +406,21 @@ def scatter(tensor, tensor_list=None, src=0, group=None, sync_op=True):
         if tensor_list:
             tensor.copy_(tensor_list[0])
         return tensor
-    parts = None
-    if _env.get_rank() == src:
-        parts = [t.contiguous() for t in tensor_list]
-    dist.scatter(tensor, parts, src=src, group=group.process_group)
-    return tensor
+    is_src = _env.get_rank() == src
+
+    def run():
+        if _host_lane():             # JAX's: src's stack, broadcast
+            stacked = torch.stack([t.to(tensor.dtype) for t in tensor_list]) \
+                if is_src and tensor_list else \
+                torch.zeros((group.nranks,) + tuple(tensor.shape),
+                            dtype=tensor.dtype, device=tensor.device)
+            parts = _gathered(group, stacked)
+            return _set(tensor, parts[group.get_group_rank(src)]
+                        [group.rank])
+        parts = [t.contiguous() for t in tensor_list] if is_src else None
+        dist.scatter(tensor, parts, src=src, group=group.process_group)
+        return tensor
+    return _collective("scatter", group, tensor, run)
 
 
 def reduce_scatter(tensor, tensor_list, op=ReduceOp.SUM, group=None,
@@ -271,17 +433,22 @@ def reduce_scatter(tensor, tensor_list, op=ReduceOp.SUM, group=None,
         return _set(tensor, tensor_list[0].clone())
     stacked = torch.stack([t.to(tensor.dtype) for t in tensor_list])
     avg_int = op == ReduceOp.AVG and not tensor.is_floating_point()
-    if avg_int:
-        stacked = stacked.double()
-    out = torch.empty_like(stacked[:1])
-    _reduce_scatter_single(out, stacked.contiguous(), op=_torch_op(op),
-                           group=group.process_group)
-    out = out[0]
-    if op == ReduceOp.AVG:
-        out = out / group.nranks
-        if avg_int:
-            out = out.float()
-    return _set(tensor, out)
+
+    def run():
+        if _host_lane():
+            res = _np_reduce(op, _host_gather(group, _to_host(stacked)))
+            return _set(tensor, _from_host(res[group.rank], tensor))
+        src = stacked.double() if avg_int else stacked
+        out = torch.empty_like(src[:1])
+        _reduce_scatter_single(out, src.contiguous(), op=_torch_op(op),
+                               group=group.process_group)
+        out = out[0]
+        if op == ReduceOp.AVG:
+            out = out / group.nranks
+            if avg_int:
+                out = out.float()
+        return _set(tensor, out)
+    return _collective("reduce_scatter", group, tensor, run)
 
 
 def reduce_scatter_concat(tensor, axis=0, group=None):
@@ -296,31 +463,61 @@ def reduce_scatter_concat(tensor, axis=0, group=None):
         raise ValueError(f"reduce_scatter_concat: dim {axis} of size "
                          f"{src.shape[0]} does not split over "
                          f"{group.nranks} ranks")
-    out = torch.empty((src.shape[0] // group.nranks,) + tuple(src.shape[1:]),
-                      dtype=src.dtype, device=src.device)
-    _reduce_scatter_single(out, src, op=dist.ReduceOp.SUM,
-                           group=group.process_group)
-    return out.movedim(0, axis)
+    rows = src.shape[0] // group.nranks
+
+    def run():
+        if _host_lane():
+            res = _np_reduce(ReduceOp.SUM, _host_gather(group,
+                                                        _to_host(src)))
+            part = res[group.rank * rows:(group.rank + 1) * rows]
+            return _from_host(part, src)
+        out = torch.empty((rows,) + tuple(src.shape[1:]), dtype=src.dtype,
+                          device=src.device)
+        _reduce_scatter_single(out, src, op=dist.ReduceOp.SUM,
+                               group=group.process_group)
+        return out
+    return _collective("reduce_scatter", group, tensor, run).movedim(0,
+                                                                     axis)
 
 
 def all_to_all(out_tensor_list, in_tensor_list, group=None, sync_op=True):
     """Rank i sends ``in_tensor_list[j]`` to rank j and receives rank j's
     ``in_tensor_list[i]`` as ``out_tensor_list[j]`` (reference:
     communication/all_to_all.py)."""
-    _count("all_to_all", in_tensor_list[0] if in_tensor_list else None)
+    first = in_tensor_list[0] if in_tensor_list else None
+    _count("all_to_all", first)
     group = _resolve(group)
     if group.nranks <= 1:
         out_tensor_list.extend(t.clone() for t in in_tensor_list)
         return out_tensor_list
-    outs = [torch.empty_like(t) for t in in_tensor_list]
-    dist.all_to_all(outs, [t.contiguous() for t in in_tensor_list],
-                    group=group.process_group)
-    out_tensor_list.extend(outs)
+
+    def run():
+        if _host_lane():
+            stacked = torch.stack(list(in_tensor_list))
+            st = _host_gather(group, _to_host(stacked))
+            res = _from_host(np.swapaxes(st, 0, 1)[group.rank], stacked)
+            return list(res.unbind(0))
+        outs = [torch.empty_like(t) for t in in_tensor_list]
+        dist.all_to_all(outs, [t.contiguous() for t in in_tensor_list],
+                        group=group.process_group)
+        return outs
+    out_tensor_list.extend(_collective("all_to_all", group, first, run))
     return out_tensor_list
 
 
 #: world-of-one send/recv queues: (group id, destination) -> payloads
 _P2P_BUF: dict = {}
+
+
+class _Pair:
+    """The guardian's view of a point-to-point link: its two global ranks
+    (JAX's cached pair group, keyed the same on both ends)."""
+
+    def __init__(self, a, b):
+        lo, hi = min(a, b), max(a, b)
+        self.id = f"p{lo}.{hi}"
+        self.ranks = [lo, hi]
+        self.nranks = 2
 
 
 def send(tensor, dst=0, group=None, sync_op=True):
@@ -332,7 +529,9 @@ def send(tensor, dst=0, group=None, sync_op=True):
     if group.nranks <= 1:
         _P2P_BUF.setdefault((id(group), dst), []).append(tensor.clone())
         return tensor
-    dist.send(tensor.contiguous(), dst=dst, group=group.process_group)
+    src = tensor.contiguous()
+    _collective("p2p", _Pair(_env.get_rank(), dst), src,
+                lambda: dist.send(src, dst=dst, group=group.process_group))
     return tensor
 
 
@@ -345,7 +544,9 @@ def recv(tensor, src=0, group=None, sync_op=True):
         if q:
             tensor.copy_(q.pop(0))
         return tensor
-    dist.recv(tensor, src=src, group=group.process_group)
+    _collective("p2p", _Pair(_env.get_rank(), src), tensor,
+                lambda: dist.recv(tensor, src=src,
+                                  group=group.process_group))
     return tensor
 
 
@@ -368,9 +569,15 @@ def barrier(group=None):
     if group.nranks <= 1:
         return
     tok = torch.zeros(1, device=_env.current_device())
-    dist.all_reduce(tok, group=group.process_group)
-    if tok.is_cuda:
-        torch.cuda.current_stream(tok.device).synchronize()
+
+    def run():
+        if _host_lane():
+            _host_gather(group, _to_host(tok))
+            return
+        dist.all_reduce(tok, group=group.process_group)
+        if tok.is_cuda:
+            torch.cuda.current_stream(tok.device).synchronize()
+    _collective("barrier", group, tok, run)
 
 
 class P2POp:
@@ -392,7 +599,8 @@ def irecv(tensor, src, group=None):
 def batch_isend_irecv(p2p_op_list):
     """Issue the sends and receives together (no ordering deadlock
     between peers that send to each other) and wait for them; returns
-    the finished works (a world of one: none, its queues)."""
+    the finished works (a world of one: none, its queues).  Each op
+    registers with the guardian under its pair of ranks."""
     if not p2p_op_list:
         return []
     group = _resolve(p2p_op_list[0].group)
@@ -400,14 +608,34 @@ def batch_isend_irecv(p2p_op_list):
         for op in p2p_op_list:
             op.op(op.tensor, op.peer, group=op.group)
         return []
-    ops = []
-    for op in p2p_op_list:
-        is_send = op.op in (send, isend)
-        _count("send" if is_send else "recv", op.tensor)
-        ops.append(dist.P2POp(dist.isend if is_send else dist.irecv,
-                              op.tensor, op.peer,
-                              group=_resolve(op.group).process_group))
-    works = dist.batch_isend_irecv(ops)
-    for w in works:
-        w.wait()
+    me = _env.get_rank()
+    ops, tokens = [], []
+    try:
+        for op in p2p_op_list:
+            is_send = op.op in (send, isend)
+            _count("send" if is_send else "recv", op.tensor)
+            capturing = op.tensor.is_cuda and \
+                torch.cuda.is_current_stream_capturing()
+            token = None if capturing else _wd.begin(
+                "p2p", _Pair(me, op.peer))
+            tokens.append(token)
+            _wd.preflight(token)
+            ops.append(dist.P2POp(dist.isend if is_send else dist.irecv,
+                                  op.tensor, op.peer,
+                                  group=_resolve(op.group).process_group))
+        works = dist.batch_isend_irecv(ops)
+        for w in works:
+            w.wait()
+    except BaseException as exc:
+        live = [t for t in tokens if t is not None]
+        rich = _wd.translate(live[0], exc) if live else exc
+        for token in live:
+            _wd.end(token)
+        if rich is exc:
+            raise
+        raise rich from (None if isinstance(exc, _wd.GuardianError)
+                         else exc)
+    for token, op in zip(tokens, p2p_op_list):
+        _wd.end(token, _done_event(op.tensor) if token is not None
+                else None)
     return works

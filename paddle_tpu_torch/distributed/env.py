@@ -24,6 +24,27 @@ with local rank r on ``cuda:r`` (the local rank from ``LOCAL_RANK`` or
   card for each).
 
 A world of one needs no master: its group lives in a ``HashStore``.
+With ``device`` None, ``FLAGS_selected_gpus`` (a card index, which the
+launcher exports when this host's ranks outnumber its cards) names the
+card as an explicit ``device`` would.
+
+**The hang guardian** (`distributed.watchdog`) is armed by the launch
+contract: the guardian store ``PADDLE_GUARDIAN_DIR`` or
+``PADDLE_GUARDIAN_STORE`` (the launcher exports one to every rank), or
+``FLAGS_collective_timeout_s`` above 0.  Armed, `init_parallel_env`
+installs the error trap (and its ``sys.excepthook`` chain) before the
+first collective, and keeps torch's own NCCL error handling from
+deciding first, so that the guardian, not torch, sets the exit code
+(101 after a peer's failure, 107 after a timeout):
+
+- ``TORCH_NCCL_ASYNC_ERROR_HANDLING=0`` unless the caller set it: torch's
+  NCCL watchdog otherwise tears the process down with SIGABRT when the
+  socket transport sees a dead peer's connection close, or when an op
+  outlives the group's timeout, racing the guardian's poll;
+- the process group's ``timeout``, when the caller passes none, is the
+  larger of torch's default (1800 s gloo, 600 s NCCL) and four times
+  ``FLAGS_collective_timeout_s``: a gloo op blocked past it raises in C,
+  which must come after the guardian's abort.
 """
 from __future__ import annotations
 
@@ -81,6 +102,9 @@ def init_parallel_env(backend=None, device=None, init_method=None,
                            "the nccl backend; pass backend='gloo' to run "
                            "the ranks on the CPU")
     local = _env_int("LOCAL_RANK", "PADDLE_LOCAL_RANK", default=rank)
+    selected = _env_int("FLAGS_selected_gpus")
+    if device is None and selected is not None and backend == "nccl":
+        device = torch.device("cuda", selected)
     named = device is not None
     if device is None:
         if backend == "nccl":
@@ -102,6 +126,12 @@ def init_parallel_env(backend=None, device=None, init_method=None,
                 default=world) > torch.cuda.device_count():
             for key, val in one_card_nccl_env(rank).items():
                 os.environ.setdefault(key, val)
+    armed = _guardian_armed()
+    if armed and timeout is None:
+        timeout = max(1800.0 if backend == "gloo" else 600.0,
+                      4 * _guardian_timeout())
+    if armed and backend == "nccl":
+        os.environ.setdefault("TORCH_NCCL_ASYNC_ERROR_HANDLING", "0")
     kw = {}
     if timeout is not None:
         kw["timeout"] = datetime.timedelta(seconds=float(timeout))
@@ -121,7 +151,25 @@ def init_parallel_env(backend=None, device=None, init_method=None,
         kw["init_method"] = init_method
     dist.init_process_group(backend, world_size=world, rank=rank, **kw)
     _state.update(initialized=True, device=device, local_rank=local)
+    if armed:
+        from . import watchdog
+        watchdog.get_watchdog()      # the trap and its excepthook, now
     return ParallelEnv()
+
+
+def _guardian_timeout():
+    from ..utils.flags import flag
+    try:
+        return float(flag("FLAGS_collective_timeout_s", 0) or 0)
+    except (TypeError, ValueError):
+        return 0.0
+
+
+def _guardian_armed():
+    """Whether the launch contract or the flags arm the hang guardian."""
+    return bool(os.environ.get("PADDLE_GUARDIAN_STORE")
+                or os.environ.get("PADDLE_GUARDIAN_DIR")
+                or _guardian_timeout() > 0)
 
 
 def get_rank(group=None):

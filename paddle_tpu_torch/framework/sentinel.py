@@ -1,6 +1,6 @@
 """Training sentinel (port of paddle_tpu/framework/sentinel.py): anomaly
 detection, last-known-good rollback and the quarantine of the batches
-that caused it, for single-process training.
+and of the ranks that caused it.
 
 1. **Detection.**  The compiled train step (`framework.train_step`,
    ``sentinel=True``) gives each call a health vector ``[grad_norm_sq,
@@ -23,16 +23,27 @@ that caused it, for single-process training.
 3. **Dumps.**  Each action writes a flight-recorder dump with reason
    ``sentinel`` (`dump`; ``tools/check_telemetry.py --sentinel-dump``).
 
-Blame across ranks (the JAX package's ``publish_health``, ``read_health``,
-``publish_blame``, ``read_blame``, ``clear_blame``) needs a store shared
-by the ranks, which is ROADMAP A8: a world size above 1 raises, and so
-does ``FLAGS_hot_spare`` (the peer snapshot a rollback may prefer).
-`decide_blame`, the rule the store would feed, is here as the pure
-function it is.
+4. **Blame across ranks.**  With more than one rank each check publishes
+   the rank's health (local anomaly count, skips, the gradient norm's
+   EMA) under ``{job}/sentinel/health/r{rank}`` on the guardian store
+   (`distributed.watchdog`'s trap; `publish_health`, `read_health`).  A
+   non-finite step counts as local only when the rank's own gradients
+   (taken before the dp all-reduce) were non-finite (`_local_source`).
+   A rank that shows repeated local anomalies while every peer is clean
+   is blamed (`decide_blame`) under ``{job}/sentinel/blame``
+   (`publish_blame`) and named in a dump; there is no world-wide rewind,
+   so a rollback's escalation raises `SentinelError` on a rank that
+   knows the blame, and the launch controller relaunches without the
+   blamed rank (`distributed.launch.controller._apply_quarantine`).
+
+``FLAGS_hot_spare`` (the peer snapshot a rollback may prefer) raises:
+hot-spare recovery is not ported (ROADMAP A8).
 """
 from __future__ import annotations
 
+import json
 import os
+import time
 from collections import deque
 
 import numpy as np
@@ -46,8 +57,6 @@ from ..utils.flags import flag as _flag
 from ..utils.log import get_logger
 
 BLAME_MIN_ANOMALIES = 2
-_WORLD = ("TrainingSentinel with a world size above 1: per-rank health and "
-          "blame need the store of ROADMAP A8")
 _HOT_SPARE = ("FLAGS_hot_spare: the sentinel's peer-snapshot rung is not "
               "ported (ROADMAP A8)")
 
@@ -65,14 +74,20 @@ def _eager_health(grads):
     return torch.stack(norms).square().sum(), found_inf(grads)
 
 
-def sentinel_dump_path():
-    """Where a sentinel dump goes: ``FLAGS_sentinel_dump_path``, else
-    ``sentinel_dump.<pid>.json`` under ``FLAGS_dump_dir``."""
+def sentinel_dump_path(rank=0, nranks=1):
+    """Where a sentinel dump goes: ``FLAGS_sentinel_dump_path`` (with
+    ``.rank<R>`` before the extension when there are several ranks, as
+    the stall dump), else ``sentinel_dump.<pid>.json`` under
+    ``FLAGS_dump_dir``."""
     p = str(_flag("FLAGS_sentinel_dump_path", "") or "")
-    if p:
+    if not p:
+        return os.path.join(os.getcwd(),
+                            str(_flag("FLAGS_dump_dir") or "."),
+                            f"sentinel_dump.{os.getpid()}.json")
+    if nranks <= 1:
         return p
-    return os.path.join(os.getcwd(), str(_flag("FLAGS_dump_dir") or "."),
-                        f"sentinel_dump.{os.getpid()}.json")
+    root, ext = os.path.splitext(p)
+    return f"{root}.rank{rank}{ext or '.json'}"
 
 
 class RollbackDirective:
@@ -94,6 +109,68 @@ class RollbackDirective:
                 f"next_step={self.next_step}, reason={self.reason!r})")
 
 
+# ---------------------------------------------------------------------------
+# blame records over the guardian store (JAX's keys and JSON)
+# ---------------------------------------------------------------------------
+
+
+def _loads(val):
+    return json.loads(val if isinstance(val, str) else bytes(val).decode())
+
+
+def publish_health(trap, record):
+    """Write this rank's health record (never raises: telemetry)."""
+    try:
+        trap.store.set(f"{trap.job}/sentinel/health/r{trap.rank}",
+                       json.dumps(record))
+    except Exception:
+        pass
+
+
+def read_health(trap):
+    """{rank: health record} of every rank that published one."""
+    try:
+        raw = trap.store.list_prefix(f"{trap.job}/sentinel/health/")
+    except Exception:
+        return {}
+    out = {}
+    for key, val in raw.items():
+        try:
+            out[int(key.rsplit("/r", 1)[-1])] = _loads(val)
+        except (ValueError, TypeError):
+            continue
+    return out
+
+
+def publish_blame(trap, rank, info=None):
+    try:
+        payload = dict(info or {}, rank=int(rank), ts=time.time())
+        trap.store.set(f"{trap.job}/sentinel/blame", json.dumps(payload))
+    except Exception:
+        pass
+
+
+def read_blame(store, job="default"):
+    """The recorded blame record (``{"rank": ...}``), or None."""
+    try:
+        raw = store.get(f"{job}/sentinel/blame")
+    except Exception:
+        return None
+    if not raw:
+        return None
+    try:
+        return _loads(raw)
+    except (ValueError, TypeError):
+        return None
+
+
+def clear_blame(store, job="default"):
+    try:
+        store.delete_key(f"{job}/sentinel/blame")
+    except Exception:
+        pass
+
+
 def decide_blame(health, min_anomalies=BLAME_MIN_ANOMALIES):
     """The rank to quarantine, or None: exactly one rank shows
     ``min_anomalies`` or more local anomalies while every other shows
@@ -111,9 +188,8 @@ def decide_blame(health, min_anomalies=BLAME_MIN_ANOMALIES):
 
 
 class SentinelError(RuntimeError):
-    """JAX's exit signal for a rank blamed for local gradient corruption;
-    the port runs one rank (the blame exchange is ROADMAP A8), so it is
-    exported for callers' ``except`` clauses and not raised yet."""
+    """A persistent anomaly with a blamed rank in a world above one rank:
+    the rank exits so the controller relaunches without the blamed one."""
 
 
 class TrainingSentinel:
@@ -123,15 +199,19 @@ class TrainingSentinel:
     ``_sentinel_snapshot()`` / ``_sentinel_restore()``); ``manager`` an
     optional `framework.checkpoint_manager.CheckpointManager` whose
     ``save_anchor`` pins the anchor on disk (without one, anchors are
-    host-memory copies: the same semantics, not crash-persistent)."""
+    host-memory copies: the same semantics, not crash-persistent);
+    ``nranks`` and ``rank`` the world and this rank; ``trap`` the
+    guardian's `distributed.watchdog.ErrorTrap` (None: the process's,
+    read at the first exchange)."""
 
-    def __init__(self, model=None, manager=None, nranks=1):
-        if int(nranks) > 1:
-            raise NotImplementedError(_WORLD)
+    def __init__(self, model=None, manager=None, nranks=1, rank=0,
+                 trap=None):
         if _flag("FLAGS_hot_spare", False):
             raise NotImplementedError(_HOT_SPARE)
         self.model = model
         self.manager = manager
+        self.nranks = int(nranks)
+        self.rank = int(rank)
         self.enabled = True
         self.window = int(_flag("FLAGS_sentinel_window", 32))
         self.check_every = max(int(_flag("FLAGS_sentinel_check_every", 8)),
@@ -158,6 +238,17 @@ class TrainingSentinel:
         self._last_anchor_it = None
         self._last_gnorm_dev = None   # eager lane stash (device scalar)
         self._last_skip = None        # eager lane stash (host bool)
+        self._trap_obj = trap
+        self._trap_tried = trap is not None
+        self._blamed = None
+
+    # ---- guardian store ------------------------------------------------
+    def _trap(self):
+        if not self._trap_tried:
+            self._trap_tried = True
+            from ..distributed.watchdog import get_watchdog
+            self._trap_obj = get_watchdog().trap
+        return self._trap_obj
 
     # ---- anchors -------------------------------------------------------
     def begin(self, it=0, epoch=0, next_step=0):
@@ -288,7 +379,8 @@ class TrainingSentinel:
                 self._skip_streak += 1
                 self._skips_total += 1
                 self._quarantine.add(it)
-                self._note_anomaly(it, "nonfinite_step", gnorm or loss)
+                self._note_anomaly(it, "nonfinite_step", gnorm or loss,
+                                   local=self._local_source(gsq))
                 _monitor.incr("train.anomaly.steps_skipped")
                 if self._skip_streak >= self.max_skips:
                     rollback_reason = rollback_reason or "skip_streak"
@@ -312,7 +404,7 @@ class TrainingSentinel:
                 # weights are suspect from this iteration on
                 self._quarantine.add(it)
                 self._applied_since_anchor += 1
-                self._note_anomaly(it, signal, value)
+                self._note_anomaly(it, signal, value, local=True)
                 if self._applied_since_anchor >= self.rollback_after:
                     rollback_reason = rollback_reason or signal
                 continue
@@ -325,6 +417,8 @@ class TrainingSentinel:
                 _monitor.set_value("train.anomaly.grad_norm_ema",
                                    self._gema)
             last_healthy = rec
+        if self.nranks > 1:
+            self._exchange_health(recs[-1]["it"])
         if rollback_reason is not None:
             return self._escalate(rollback_reason, recs[-1])
         if last_healthy is not None and last_healthy is recs[-1] \
@@ -335,6 +429,14 @@ class TrainingSentinel:
                               recs[-1]["step"] + 1)
         return None
 
+    def _local_source(self, gsq):
+        """Whether THIS rank's own gradients look like the source of a
+        non-finite step (not a peer's Inf that arrived through the dp
+        all-reduce).  One rank: always."""
+        if self.nranks <= 1:
+            return True
+        return gsq is not None and not np.isfinite(gsq)
+
     def _zscore(self, loss):
         if len(self._losses) < max(self.window // 4, 4):
             return None
@@ -344,12 +446,13 @@ class TrainingSentinel:
         _monitor.set_value("train.anomaly.loss_zscore", float(z))
         return z
 
-    def _note_anomaly(self, it, signal, value):
+    def _note_anomaly(self, it, signal, value, local):
         rec = {"step": int(it), "signal": str(signal),
                "value": None if value is None else float(value)}
         self._anomalies.append(rec)
         del self._anomalies[:-64]
-        self._local_anomalies += 1    # one rank: every anomaly is local
+        if local:
+            self._local_anomalies += 1
         _registry.counter("train.anomaly.detected",
                           "sentinel anomalies by signal",
                           labelnames=("signal",)) \
@@ -359,6 +462,30 @@ class TrainingSentinel:
         self._log.warning(
             "sentinel: anomaly at iteration %d: %s (value=%s)", it,
             signal, value)
+
+    # ---- blame ---------------------------------------------------------
+    def _exchange_health(self, it):
+        trap = self._trap()
+        if trap is None:
+            return
+        publish_health(trap, {
+            "local_anomalies": self._local_anomalies,
+            "skips": self._skips_total,
+            "grad_norm_ema": self._gema,
+            "it": int(it), "ts": time.time()})
+        health = read_health(trap)
+        blamed = decide_blame(health)
+        if blamed is not None and self._blamed != blamed:
+            self._blamed = blamed
+            publish_blame(trap, blamed,
+                          {"anomalies": health.get(blamed, {})
+                           .get("local_anomalies"), "by": self.rank})
+            _monitor.incr("train.anomaly.ranks_blamed")
+            self._log.warning(
+                "sentinel: rank %d blamed for repeated local gradient "
+                "anomalies (health=%s)", blamed, health)
+            self.dump(action="blame", step=it, per_rank=health,
+                      blamed_rank=blamed)
 
     # ---- escalation ----------------------------------------------------
     def _escalate(self, reason, last_rec):
@@ -371,10 +498,24 @@ class TrainingSentinel:
                 "(%s); sentinel standing down: investigate the data "
                 "pipeline or the hardware", self._rollbacks, reason)
             return None
-        if self.model is None:
-            self.dump(action="quarantine", step=it)
+        if self.nranks > 1 or self.model is None:
+            # more than one rank: no world-wide rewind; the recovery is
+            # skip, blame and the controller's quarantine relaunch
+            trap = self._trap()
+            if trap is not None:
+                blame = read_blame(trap.store, trap.job)
+                if blame is not None:
+                    self._blamed = int(blame.get("rank", -1))
+            self.dump(action="quarantine", step=it,
+                      blamed_rank=self._blamed)
             self._applied_since_anchor = 0   # re-arm instead of
             self._skip_streak = 0            # escalating every check
+            if self.nranks > 1 and self._blamed is not None:
+                raise SentinelError(
+                    f"persistent training anomaly ({reason}); rank "
+                    f"{self._blamed} blamed for local gradient "
+                    "corruption: exiting so the controller can relaunch "
+                    "without it")
             return None
         anchor = self._load_anchor()
         if anchor is None:
@@ -424,8 +565,8 @@ class TrainingSentinel:
             "recent_losses": [float(v) for v in list(self._losses)[-8:]],
         }
         try:
-            return _fr.dump(path=sentinel_dump_path(), reason="sentinel",
-                            extra={"sentinel": section})
+            return _fr.dump(path=sentinel_dump_path(self.rank, self.nranks),
+                            reason="sentinel", extra={"sentinel": section})
         except Exception:
             return None
 
@@ -438,6 +579,6 @@ class TrainingSentinel:
             "rollbacks": self._rollbacks,
             "skips": self._skips_total,
             "local_anomalies": self._local_anomalies,
-            "blamed_rank": None,          # blame needs A8's store
+            "blamed_rank": self._blamed,
             "anchor_it": self._last_anchor_it,
         }

@@ -65,8 +65,11 @@ the learning rate and the staged batch.
   takes the NCCL collectives into the graph (the communicators exist
   after call 1); a process group that cannot be captured (gloo) raises
   `NotImplementedError` at the capture.  An axis other than dp and mp
-  above 1 raises with JAX's wording, and so does the sentinel with the
-  mesh (the sentinel across ranks is ROADMAP A8).
+  above 1 raises with JAX's wording.  With ``sentinel=True`` the health
+  vector is taken after the dp all-reduce, from the world's gradients
+  (JAX's compiled step under its mesh): it carries the step's health
+  across ranks and no further; the per-rank blame reads the eager lane's
+  local gradients (`framework.sentinel`).
 
 The step runs eagerly, warns once and latches ``fallback_reason`` when
 ``FLAGS_compiled_train_step`` is off, the network has forward hooks, a
@@ -98,10 +101,6 @@ from ..optimizer.optimizer import Optimizer
 from ..utils import monitor as _monitor
 from ..utils.flags import flag as _flag
 from . import capture
-
-_SENTINEL_MESH = ("CompiledTrainStep(sentinel=True, mesh=...): the sentinel "
-                  "across ranks is not ported (ROADMAP A8)")
-
 
 def _signature(t):
     if t is None:
@@ -181,8 +180,6 @@ class CompiledTrainStep:
         mp = mesh.get_dim_size("mp") if "mp" in names else 1
         if dp <= 1 and mp <= 1:
             return
-        if self._sentinel:
-            raise NotImplementedError(_SENTINEL_MESH)
         _parallel.refuse_data_parallel(self._network,
                                        "CompiledTrainStep(mesh=...)")
         self._meshed = True

@@ -51,10 +51,17 @@ compiled step runs the same tail (`CompiledTrainStep` with the mesh,
 ``local_batch=True``).  The network is the bare model: a `DataParallel`
 raises (the step averages over dp itself).
 
+With more than one rank the sentinel runs on every rank with the world
+and the rank (JAX's): each check publishes the rank's health on the
+guardian store and the blame follows (`framework.sentinel`); it gets no
+``CheckpointManager`` (no rollback anchor crosses ranks), so a
+persistent anomaly skips, blames and raises `SentinelError` for the
+launch controller's quarantine relaunch.
+
 Not ported, each raising `NotImplementedError` with its ROADMAP label:
 ``prepare(jit=True)`` (A9), a manifest with a shard layout,
-``FLAGS_hot_spare``, a ``ModelCheckpoint`` and the sentinel with more
-than one rank (A8), ``summary`` (A9).
+``FLAGS_hot_spare``, a ``ModelCheckpoint`` with more than one rank (A8),
+``summary`` (A9).
 """
 from __future__ import annotations
 
@@ -547,10 +554,11 @@ class Model:
                 use_dynamic_loss_scaling=False, always_check_found_inf=True)
             self._scaler._sentinel_wrapper = True
         manager = None
-        if ckpt_cb is not None and ckpt_cb.save_dir:
+        if ckpt_cb is not None and ckpt_cb.save_dir and self._nranks == 1:
             manager = ckpt_cb.manager
         self._sentinel = TrainingSentinel(self, manager=manager,
-                                          nranks=self._nranks)
+                                          nranks=self._nranks,
+                                          rank=self._rank)
         return self._sentinel
 
     def _rng_states(self):

@@ -35,12 +35,22 @@ The points, with the JAX package's parameters:
   call after the request went out, and ``engine_slow`` once a scheduler
   iteration of the engine whose replica the name matches.
 
-The JAX package's other points (the collective and hot-spare drills)
-belong to modules the port does not have; naming one raises
-`FaultSpecError`.  So do the JAX ``step``
-point's ``crash_at``, ``exit``, ``rank`` and ``once_file`` keys: they
-serve multi-rank runs (A8) and the hot-spare drills, which are not
-ported.  With the flag unset every
+- the hang guardian's drills (`distributed.watchdog`), consulted in
+  each guarded collective before it starts and filtered on its ``op``,
+  its per-group sequence number (``at_seq``) and the global ``rank``,
+  each with a ``once_file``: ``collective_delay`` stalls the call for
+  ``delay_s`` seconds (in short sleeps the watchdog's asynchronous
+  exception can interrupt), ``rank_crash`` records an `InjectedFault`
+  in the cross-rank error trap and hard-exits with ``exit`` (or raises
+  it, ``mode=raise``).
+
+The ``step`` point takes JAX's keys: ``crash_at`` hard-exits with
+``exit`` at that step, ``sigterm_at`` sends SIGTERM, ``rank`` filters on
+the global rank and ``once_file`` fires once a path (a relaunched
+incarnation that resumes at the step does not die there again).  The
+JAX package's hot-spare drills (``peer_snap_drop``, ``buddy_crash``)
+belong to a module the port does not have (ROADMAP A8): naming one
+raises `FaultSpecError` with that label.  With the flag unset every
 helper returns on one falsy check.
 """
 from __future__ import annotations
@@ -60,7 +70,8 @@ from .flags import flag
 KNOWN_POINTS = {
     "ckpt_write": {"after_bytes": int, "mode": str, "file": str,
                    "exit": int},
-    "step": {"sigterm_at": int},
+    "step": {"crash_at": int, "sigterm_at": int, "exit": int,
+             "rank": int, "once_file": str},
     "data_slow": {"delay_s": float, "every": int, "count": int},
     "data_corrupt": {"at_sample": int, "every": int, "count": int},
     "bad_batch": {"at_step": int, "rank": int, "mode": str,
@@ -69,6 +80,10 @@ KNOWN_POINTS = {
                    "count": int},
     "grad_bitflip": {"at_step": int, "rank": int, "value": float,
                      "param": int, "count": int},
+    "collective_delay": {"op": str, "at_seq": int, "delay_s": float,
+                         "rank": int, "once_file": str},
+    "rank_crash": {"op": str, "at_seq": int, "rank": int, "exit": int,
+                   "mode": str, "once_file": str},
     "rpc_drop": {"to": str, "count": int, "once_file": str},
     "rpc_delay": {"to": str, "delay_s": float, "count": int,
                   "once_file": str},
@@ -76,6 +91,12 @@ KNOWN_POINTS = {
                  "once_file": str},
     "engine_slow": {"to": str, "delay_s": float, "count": int,
                     "once_file": str},
+}
+
+#: the JAX package's points that stay refused, with their label
+_NOT_PORTED = {
+    "peer_snap_drop": "hot-spare recovery is not ported (ROADMAP A8)",
+    "buddy_crash": "hot-spare recovery is not ported (ROADMAP A8)",
 }
 
 _IDENT = re.compile(r"^[A-Za-z_][A-Za-z0-9_]*$")
@@ -109,6 +130,9 @@ def parse(spec):
         if not _IDENT.match(name):
             raise FaultSpecError(
                 f"FLAGS_fault_inject: bad point name {name!r} in {item!r}")
+        if name in _NOT_PORTED:
+            raise FaultSpecError(
+                f"FLAGS_fault_inject: point {name!r}: {_NOT_PORTED[name]}")
         if name not in KNOWN_POINTS:
             raise FaultSpecError(
                 f"FLAGS_fault_inject: unknown point {name!r} "
@@ -210,24 +234,44 @@ def check_rpc(point, worker_name):
             return False
         _RPC_STATE["counts"][point] = left - 1
     once = params.get("once_file")
-    if once:
-        try:
-            fd = os.open(once, os.O_CREAT | os.O_EXCL | os.O_WRONLY)
-            os.close(fd)
-        except FileExistsError:
-            return False
+    if once and not claim_once(once):
+        return False
     if point in ("rpc_delay", "rpc_slow", "engine_slow"):
         time.sleep(float(params.get("delay_s", 0.0)))
         return False
     return True
 
 
+def claim_once(path):
+    """True the first time ``path`` is claimed (the file is created then),
+    False after: a ``once_file`` fires once a path, across processes."""
+    try:
+        fd = os.open(path, os.O_CREAT | os.O_EXCL | os.O_WRONLY)
+    except FileExistsError:
+        return False
+    os.close(fd)
+    return True
+
+
 def check_step(step):
-    """Training loops call this once a step.  ``sigterm_at=N`` delivers
+    """Training loops call this once a step.  ``crash_at=N`` hard-exits
+    at step N (a hard fault) with ``exit``; ``sigterm_at=N`` delivers
     SIGTERM to this process at step N (a preemption notice), so an
-    installed PreemptionHandler runs end to end."""
+    installed PreemptionHandler runs end to end.  ``rank=R`` filters on
+    the global rank and ``once_file=PATH`` fires once a path (JAX's
+    `check_step`)."""
     params = active("step")
-    if params is not None and params.get("sigterm_at") == step:
+    if params is None:
+        return
+    if "rank" in params:
+        if params["rank"] != int(os.environ.get("PADDLE_TRAINER_ID", "0")):
+            return
+    if params.get("crash_at") == step or params.get("sigterm_at") == step:
+        path = params.get("once_file")
+        if path and not claim_once(path):
+            return
+        if params.get("crash_at") == step:
+            _crash(params)
         os.kill(os.getpid(), signal.SIGTERM)
 
 

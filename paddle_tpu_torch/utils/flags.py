@@ -33,6 +33,18 @@ defaults:
 - ``FLAGS_hot_spare`` (False): `hapi.Model.fit` raises
   `NotImplementedError` when it is on (hot-spare recovery is not
   ported, ROADMAP A8).
+- ``FLAGS_collective_timeout_s`` (0.0): a collective stuck longer than
+  this gets a stall dump and a `CollectiveTimeoutError`, then the rank's
+  hard abort (`distributed.watchdog`); 0 with no guardian store and no
+  collective fault point leaves the guardian off.
+  ``FLAGS_collective_hard_abort`` (True): exit with the abort code when
+  the blocked thread does not unwind; ``FLAGS_stall_dump_path`` (""):
+  the dump's file (``.rank<R>`` inserted; empty: under
+  ``FLAGS_dump_dir``); ``FLAGS_desync_check_every`` (16): every N-th
+  collective of a group compares the peers' arrival records.
+- ``FLAGS_collective_backend`` ("auto"): ``host`` routes the collectives
+  through the store-mediated gather (`distributed.host_collectives`);
+  ``auto`` and ``xla`` run them on the process group.
 - ``FLAGS_metrics_export_path`` ("") and
   ``FLAGS_metrics_export_interval_s`` (10.0): the exporter's snapshot
   file (`observability.exporter`); empty starts no thread.
@@ -78,6 +90,11 @@ _FLAGS: dict[str, Any] = {
     "FLAGS_sentinel_max_rollbacks": 3,
     "FLAGS_sentinel_dump_path": "",
     "FLAGS_hot_spare": False,
+    "FLAGS_collective_timeout_s": 0.0,
+    "FLAGS_collective_hard_abort": True,
+    "FLAGS_stall_dump_path": "",
+    "FLAGS_desync_check_every": 16,
+    "FLAGS_collective_backend": "auto",
     "FLAGS_metrics_export_path": "",
     "FLAGS_metrics_export_interval_s": 10.0,
     "FLAGS_peak_flops": 0.0,

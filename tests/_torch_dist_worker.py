@@ -7,6 +7,8 @@ JAX package).
 
     from _torch_dist_worker import run_ranks
     outs = run_ranks(4, "hybrid_llama", tmp_path, inputs)   # [rank0, ...]
+    outs = run_ranks(2, "many", tmp_path, {"cases": [(key, case, inputs),
+                                                     ...]})
 """
 from __future__ import annotations
 
@@ -151,6 +153,45 @@ def case_collectives(rank, world, inputs):
     out["bytes"] = registry.REGISTRY.get("dist.collective_bytes").labels(
         op="broadcast").value
     return out
+
+
+def case_guarded_collectives(rank, world, inputs):
+    """`case_collectives` three times: the guardian off, armed (a trap
+    over ``inputs["guard_dir"]``, a timeout, the desync check on every
+    call) and on the host lane (``FLAGS_collective_backend=host``, the
+    gather through the same store); then what the watchdog saw."""
+    from paddle_tpu_torch.distributed import host_collectives, watchdog
+    from paddle_tpu_torch.distributed.store import FileKVStore
+    from paddle_tpu_torch.utils.flags import set_flags
+    out = {}
+    watchdog.reset()
+    out["off"] = case_collectives(rank, world, inputs)
+    out["off_token"] = watchdog.begin("all_reduce", _Probe())
+    store = FileKVStore(inputs["guard_dir"])
+    wd = watchdog.configure(store=store, job="j", rank=rank)
+    set_flags({"FLAGS_collective_timeout_s": 30.0,
+               "FLAGS_desync_check_every": 1})
+    try:
+        out["armed"] = case_collectives(rank, world, inputs)
+        out["armed_seq"] = dict(wd._seq)
+        out["armed_in_flight"] = wd.in_flight()
+        out["armed_recent"] = len(wd.recent())
+        host_collectives.reset()
+        import os
+        os.environ["PADDLE_GUARDIAN_DIR"] = inputs["guard_dir"]
+        set_flags({"FLAGS_collective_backend": "host"})
+        out["host"] = case_collectives(rank, world, inputs)
+        out["host_keys"] = len(store.list_prefix("default/hc/"))
+    finally:
+        set_flags({"FLAGS_collective_timeout_s": 0.0,
+                   "FLAGS_desync_check_every": 16,
+                   "FLAGS_collective_backend": "auto"})
+        watchdog.reset()
+    return out
+
+
+class _Probe:
+    id, ranks, nranks = 0, [0, 1], 2
 
 
 # ---------------------------------------------------------------------------
@@ -455,6 +496,57 @@ def case_hapi_fit(rank, world, inputs):
             "compiled": bool(cs and cs.compiled)}
 
 
+def case_sentinel_fit(rank, world, inputs):
+    """hapi ``fit`` on the dp ranks through the compiled mesh step, first
+    without the sentinel, then under it with the guardian's trap over
+    ``inputs["guard_dir"]`` (the health exchange every check)."""
+    from paddle_tpu_torch.distributed import watchdog
+    from paddle_tpu_torch.distributed.store import FileKVStore
+    from paddle_tpu_torch.framework.sentinel import read_health
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.nn import MSELoss
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.utils import flags
+    out = {}
+    for lane in ("off", "on"):
+        flags.set_flags({"FLAGS_sentinel": lane == "on",
+                         "FLAGS_sentinel_check_every": 2})
+        if lane == "on":
+            trap = watchdog.configure(store=FileKVStore(inputs["guard_dir"]),
+                                      job="j", rank=rank).trap
+        net = _mlp(0)
+        with torch.no_grad():
+            for p, v in zip(net.parameters(), inputs["params"]):
+                p.copy_(torch.tensor(v))
+        model = Model(net).prepare(AdamW(1e-2, parameters=net.parameters()),
+                                   MSELoss())
+        held = {}
+        orig = Model._install_sentinel
+
+        def grab(self, cb, held=held, orig=orig):
+            held["s"] = orig(self, cb)
+            return held["s"]
+
+        Model._install_sentinel = grab
+        try:
+            hist = model.fit(_Rows(inputs["x"], inputs["y"]),
+                             batch_size=inputs["batch"], epochs=2,
+                             shuffle=False, verbose=0, log_freq=1)
+        finally:
+            Model._install_sentinel = orig
+        cs = model._compiled_step
+        out[lane] = {"params": [_np(p) for p in net.parameters()],
+                     "loss": hist["loss"], "meshed": cs._meshed,
+                     "sentinel": cs._sentinel, "compiled": cs.compiled}
+        if lane == "on":
+            out["report"] = held["s"].report()
+            out["health"] = read_health(trap)
+    flags.set_flags({"FLAGS_sentinel": False,
+                     "FLAGS_sentinel_check_every": 8})
+    watchdog.reset()
+    return out
+
+
 def case_clip_norm(rank, world, inputs):
     """The global-norm clip at dp 2 x mp 2 on known gradients: each dp
     rank holds the global gradient plus or minus a part that the dp mean
@@ -503,7 +595,16 @@ def case_clip_norm(rank, world, inputs):
     return out
 
 
+def case_many(rank, world, inputs):
+    """Several cases on the same ranks, one after the other (one spawned
+    group for a test module's cases): ``inputs["cases"]`` is a list of
+    ``(key, case, its inputs)``; returns ``{key: result}``."""
+    return {key: CASES[case](rank, world, case_inputs)
+            for key, case, case_inputs in inputs["cases"]}
+
+
 CASES = {
+    "many": case_many,
     "collectives": case_collectives,
     "mp_layers": case_mp_layers,
     "hybrid_llama": case_hybrid_llama,
@@ -513,4 +614,6 @@ CASES = {
     "data_parallel": case_data_parallel,
     "hapi_fit": case_hapi_fit,
     "clip_norm": case_clip_norm,
+    "guarded_collectives": case_guarded_collectives,
+    "sentinel_fit": case_sentinel_fit,
 }

@@ -497,8 +497,8 @@ def test_flag_off_builds_no_tick(pair, flags):
 
 def test_flags_registry_and_environment(monkeypatch, flags):
     """The port declares the flags it reads (the tick's two, the compiled
-    train step's, the runtime's, the sentinel's and the telemetry's) with
-    the JAX registry's defaults, reads
+    train step's, the runtime's, the sentinel's, the telemetry's and the
+    hang guardian's) with the JAX registry's defaults, reads
     ``FLAGS_*`` overrides from the environment at import, and coerces
     set_flags values as the JAX registry does."""
     import importlib
@@ -523,7 +523,10 @@ def test_flags_registry_and_environment(monkeypatch, flags):
                "FLAGS_flight_recorder_size", "FLAGS_flight_recorder_path",
                "FLAGS_dump_dir", "FLAGS_trace_dir", "FLAGS_trace_sample_rate",
                "FLAGS_trace_latency_threshold_ms", "FLAGS_trace_buffer_cap",
-               "FLAGS_serving_request_label_cap")
+               "FLAGS_serving_request_label_cap",
+               "FLAGS_collective_timeout_s", "FLAGS_collective_hard_abort",
+               "FLAGS_stall_dump_path", "FLAGS_desync_check_every",
+               "FLAGS_collective_backend")
     assert tflags.get_flags() == dict(
         {k: True for k in declared}, FLAGS_fault_inject="",
         FLAGS_sentinel=False, FLAGS_hot_spare=False,
@@ -536,7 +539,10 @@ def test_flags_registry_and_environment(monkeypatch, flags):
         FLAGS_flight_recorder_size=512, FLAGS_flight_recorder_path="",
         FLAGS_dump_dir=".paddle_tpu_dumps", FLAGS_trace_dir="",
         FLAGS_trace_sample_rate=0.05, FLAGS_trace_latency_threshold_ms=250.0,
-        FLAGS_trace_buffer_cap=4096, FLAGS_serving_request_label_cap=1024)
+        FLAGS_trace_buffer_cap=4096, FLAGS_serving_request_label_cap=1024,
+        FLAGS_collective_timeout_s=0.0, FLAGS_collective_hard_abort=True,
+        FLAGS_stall_dump_path="", FLAGS_desync_check_every=16,
+        FLAGS_collective_backend="auto")
     jflags.set_flags({k: True for k in declared})
     assert tflags.get_flags(list(declared)) == \
         jflags.get_flags(list(declared))

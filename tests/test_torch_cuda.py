@@ -2390,3 +2390,105 @@ def test_hybrid_phase_on_two_cards(two_cards):
          "device,build,train-hybrid"], capture_output=True, text=True,
         timeout=1200, cwd=str(root))
     assert res.returncode == 0, res.stdout[-4000:] + res.stderr[-4000:]
+
+
+def _launch_two(tmp_path, body, env_extra, timeout=300):
+    """The port's launcher (``python -m paddle_tpu_torch.distributed.launch``)
+    over two ranks of ``body`` sharing the card (``FLAGS_selected_gpus``,
+    NCCL's socket transport); each rank gets ``tmp_path`` as its argument
+    and leaves without a process-group teardown."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+    root = str(pathlib.Path(__file__).resolve().parent.parent)
+    script = tmp_path / "rank.py"
+    script.write_text(
+        "import json, os, sys, time, torch\n"
+        "from paddle_tpu_torch.distributed import collective as C\n"
+        "from paddle_tpu_torch.distributed import env, watchdog\n"
+        "from paddle_tpu_torch.utils.flags import set_flags\n"
+        "env.init_parallel_env()\n"
+        "rank, dev, out = env.get_rank(), env.current_device(), sys.argv[1]\n"
+        "x = torch.ones(1 << 20, device=dev)\n"
+        "C.all_reduce(x)\n"
+        "torch.cuda.synchronize()\n"
+        + body +
+        "sys.stdout.flush(); sys.stderr.flush(); os._exit(0)\n")
+    env = dict(os.environ, PYTHONPATH=root,
+               FLAGS_flight_recorder_path=str(tmp_path / "fr.json"),
+               **env_extra)
+    return subprocess.run(
+        [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+         "--nproc_per_node", "2", "--max_restart", "0", "--log_dir",
+         str(tmp_path / "logs"), str(script), str(tmp_path)],
+        env=env, cwd=root, capture_output=True, text=True, timeout=timeout)
+
+
+@pytest.mark.cuda
+def test_guarded_nccl_all_reduce_stays_in_flight_until_its_event(card,
+                                                                 tmp_path):
+    """NCCL returns at the enqueue: rank 0's guarded all_reduce, whose peer
+    arrives 2 s late, is still in flight when the call returns, and is
+    retired once its event completed (no host sync in the call)."""
+    import json
+    res = _launch_two(tmp_path, (
+        "C.barrier()\n"
+        "if rank == 1:\n"
+        "    time.sleep(2.0)       # late, outside the guardian\n"
+        "C.all_reduce(x)\n"
+        "res = {}\n"
+        "if rank == 0:\n"
+        "    wd = watchdog.get_watchdog()\n"
+        "    res['returned'] = wd.in_flight()\n"
+        "    torch.cuda.synchronize()\n"
+        "    deadline = time.monotonic() + 10\n"
+        "    while wd.in_flight() and time.monotonic() < deadline:\n"
+        "        time.sleep(0.05)\n"
+        "    res['synced'] = wd.in_flight()\n"
+        "    res['recent'] = wd.recent()[-1]\n"
+        "    res['value'] = float(x[0])\n"
+        "C.barrier()\n"
+        "json.dump(res, open(f'{out}/r{rank}.json', 'w'))\n"),
+        {"FLAGS_collective_timeout_s": "30"})
+    assert res.returncode == 0, res.stderr[-4000:]
+    got = json.load(open(tmp_path / "r0.json"))
+    late = got["recent"]                 # the late call, once retired
+    assert late["op"] == "all_reduce" and late["duration_s"] >= 1.0, got
+    assert ["all_reduce", late["seq"]] in got["returned"], got
+    assert got["synced"] == [] and got["value"] == 4.0, got
+
+
+@pytest.mark.cuda
+def test_stalled_nccl_peer_stall_dump_and_exit_107(card, tmp_path):
+    """Rank 1 never arrives (its guardian off); rank 0 returns from the
+    all_reduce's enqueue and blocks in C reading the result: its watchdog
+    writes the stall dump blaming rank 1 and hard-exits 107, and the
+    launcher's job ends with that code."""
+    import json
+    import os
+    import sys
+    res = _launch_two(tmp_path, (
+        "if rank == 1:\n"
+        "    watchdog.configure(store=None)\n"
+        "    set_flags({'FLAGS_collective_timeout_s': 0.0})\n"
+        "    time.sleep(120)\n"
+        "C.all_reduce(x)\n"
+        "print(float(x[0]))\n"),
+        {"FLAGS_collective_timeout_s": "2",
+         "FLAGS_stall_dump_path": str(tmp_path / "stall.json"),
+         "PADDLE_GUARDIAN_TERM_GRACE_S": "5"})
+    assert res.returncode == 107, res.stderr[-4000:]
+    dump = tmp_path / "stall.rank0.json"
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, os.path.join(root, "tools"))
+    try:
+        from check_telemetry import check_stall_dump
+    finally:
+        sys.path.pop(0)
+    assert check_stall_dump(str(dump)) == []
+    st = json.load(open(dump))["stall"]
+    assert (st["op"], st["missing_ranks"]) == ("all_reduce", [1])
+    assert 2.0 <= st["waited_s"] < 4.0
+    log0 = open(tmp_path / "logs" / "worker.0.log").read()
+    assert "hard-aborting with exit code 107" in log0

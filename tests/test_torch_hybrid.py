@@ -139,7 +139,9 @@ def test_communicate_topology_matches_jax():
 
 def test_compiled_step_refuses_other_axes_and_the_sentinel():
     """The mesh lanes run dp and mp: another axis above 1 raises with
-    JAX's wording, the sentinel across ranks with its A8 label."""
+    JAX's wording.  The sentinel with a mesh is ported (its health on 2
+    ranks: tests/test_torch_sentinel_ranks.py): in a world of one it gets
+    as far as the step without it, the dp group this world cannot hold."""
     opt = SGD(0.1, parameters=Linear(2, 2, device="cpu").parameters())
     for name in ("pp", "sharding", "sep"):
         mesh = ProcessMesh(np.arange(2).reshape(2, 1), [name, "dp"])
@@ -148,8 +150,10 @@ def test_compiled_step_refuses_other_axes_and_the_sentinel():
                                  "one compiled program"):
             CompiledTrainStep(lambda x, y: x, opt, mesh=mesh)
     mesh = ProcessMesh(np.arange(2).reshape(2, 1), ["dp", "mp"])
-    with pytest.raises(NotImplementedError, match="A8"):
-        CompiledTrainStep(lambda x, y: x, opt, mesh=mesh, sentinel=True)
+    for sentinel in (False, True):
+        with pytest.raises(ValueError, match="outside the world of 1"):
+            CompiledTrainStep(lambda x, y: x, opt, mesh=mesh,
+                              sentinel=sentinel)
     one = ProcessMesh(np.arange(1).reshape(1, 1), ["dp", "mp"])
     assert not CompiledTrainStep(lambda x, y: x, opt, mesh=one)._meshed
 
@@ -527,17 +531,66 @@ def _one_rank_mlp(params):
     return net
 
 
-def test_data_parallel_matches_one_rank(tmp_path):
+def _dp_inputs():
+    rng = np.random.default_rng(1)
+    return dict(params=_mlp_params(),
+                batches=[(rng.standard_normal((8, 8)).astype(np.float32),
+                          rng.standard_normal((8, 4)).astype(np.float32))
+                         for _ in range(3)])
+
+
+def _fit_inputs(compiled):
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((16, 8)).astype(np.float32)
+    y = rng.standard_normal((16, 4)).astype(np.float32)
+    return dict(params=_mlp_params(1), x=x, y=y, batch=4, compiled=compiled)
+
+
+def _convert_inputs():
+    paddle.seed(3)
+    cfg = dict(GPT_CFG)
+    jm = JaxPGPT(jax_gpt_config("gpt2-124m", **cfg))
+    state = {k: np.asarray(v._data_).copy()
+             for k, v in jm.state_dict().items()}
+    rng = np.random.default_rng(4)
+    opt_state = {"step_count": 3, "step_tensor": np.float32(3.0)}
+    for i, v in enumerate(state.values()):
+        opt_state[f"moment1.{i}"] = rng.standard_normal(v.shape).astype(
+            np.float32)
+        opt_state[f"moment2.{i}"] = np.abs(rng.standard_normal(
+            v.shape)).astype(np.float32)
+    return dict(cfg=cfg, state=state, opt_state=opt_state)
+
+
+_TWO_RANKS = {}
+
+
+@pytest.fixture(scope="module")
+def two_ranks(tmp_path_factory):
+    """(inputs, results) of the 2-rank cases that need no topology (the
+    `DataParallel` MLP, hapi fit in both lanes), then the conversion's
+    (mp 2), on one spawned group of ranks, run once."""
+    if not _TWO_RANKS:
+        inputs = {"data_parallel": _dp_inputs(),
+                  "fit_True": _fit_inputs(True),
+                  "fit_False": _fit_inputs(False),
+                  "convert": _convert_inputs()}
+        cases = [(k, "hapi_fit" if k.startswith("fit") else k, v)
+                 for k, v in inputs.items()]
+        outs = run_ranks(2, "many", tmp_path_factory.mktemp("two"),
+                         {"cases": cases})
+        _TWO_RANKS.update(inputs=inputs, results={
+            k: [o[k] for o in outs] for k in inputs})
+    return _TWO_RANKS
+
+
+def test_data_parallel_matches_one_rank(two_ranks):
     """`DataParallel` on 2 ranks (each its half of the rows, the gradient
     average in several buckets after each backward) equals one rank on
     the global batch."""
-    rng = np.random.default_rng(1)
-    params = _mlp_params()
-    batches = [(rng.standard_normal((8, 8)).astype(np.float32),
-                rng.standard_normal((8, 4)).astype(np.float32))
-               for _ in range(3)]
-    outs = run_ranks(2, "data_parallel", tmp_path,
-                     dict(params=params, batches=batches))
+    params = two_ranks["inputs"]["data_parallel"]["params"]
+    batches = two_ranks["inputs"]["data_parallel"]["batches"]
+    outs = two_ranks["results"]["data_parallel"]
     net = _one_rank_mlp(params)
     opt = AdamW(1e-2, parameters=net.parameters())
     for x, y in batches:
@@ -552,7 +605,7 @@ def test_data_parallel_matches_one_rank(tmp_path):
 
 
 @pytest.mark.parametrize("compiled", [True, False])
-def test_hapi_fit_two_ranks_matches_one_rank(tmp_path, compiled):
+def test_hapi_fit_two_ranks_matches_one_rank(two_ranks, compiled):
     """hapi ``fit`` on 2 ranks (a `DistributedBatchSampler` over the dp
     ranks: rank r reads rows r, r + 2, ...) through the compiled step or
     the eager lane equals the one-rank fit on the global batches (the two
@@ -561,13 +614,9 @@ def test_hapi_fit_two_ranks_matches_one_rank(tmp_path, compiled):
     from paddle_tpu_torch.io import DataLoader, TensorDataset
     from paddle_tpu_torch.nn import MSELoss
     from paddle_tpu_torch.utils import flags
-    rng = np.random.default_rng(2)
-    x = rng.standard_normal((16, 8)).astype(np.float32)
-    y = rng.standard_normal((16, 4)).astype(np.float32)
-    params = _mlp_params(1)
-    outs = run_ranks(2, "hapi_fit", tmp_path,
-                     dict(params=params, x=x, y=y, batch=4,
-                          compiled=compiled))
+    inputs = two_ranks["inputs"][f"fit_{compiled}"]
+    x, y, params = inputs["x"], inputs["y"], inputs["params"]
+    outs = two_ranks["results"][f"fit_{compiled}"]
     # the global batch k: rank 0's rows then rank 1's
     order = np.concatenate([np.concatenate([np.arange(r, 16, 2)[4 * k:4 * k
                                                                  + 4]
@@ -592,25 +641,14 @@ def test_hapi_fit_two_ranks_matches_one_rank(tmp_path, compiled):
         np.testing.assert_array_equal(a, b)
 
 
-def test_convert_round_trip_bit_for_bit(tmp_path):
+def test_convert_round_trip_bit_for_bit(two_ranks):
     """`shard_paddle_tpu_state` then `gather_paddle_tpu_state` gives the
     global state back bit for bit on every rank (``dst`` only on it), and
     the optimizer's moments the same way; each rank's part has its
     shard's shape."""
-    paddle.seed(3)
-    cfg = dict(GPT_CFG)
-    jm = JaxPGPT(jax_gpt_config("gpt2-124m", **cfg))
-    state = {k: np.asarray(v._data_).copy()
-             for k, v in jm.state_dict().items()}
-    rng = np.random.default_rng(4)
-    opt_state = {"step_count": 3, "step_tensor": np.float32(3.0)}
-    for i, v in enumerate(state.values()):
-        opt_state[f"moment1.{i}"] = rng.standard_normal(v.shape).astype(
-            np.float32)
-        opt_state[f"moment2.{i}"] = np.abs(rng.standard_normal(
-            v.shape)).astype(np.float32)
-    outs = run_ranks(2, "convert", tmp_path,
-                     dict(cfg=cfg, state=state, opt_state=opt_state))
+    state = two_ranks["inputs"]["convert"]["state"]
+    opt_state = two_ranks["inputs"]["convert"]["opt_state"]
+    outs = two_ranks["results"]["convert"]
     for r, res in enumerate(outs):
         assert res["only0"] == (r == 0)
         for k, v in state.items():

@@ -314,12 +314,12 @@ def test_back_to_back_async_saves_take_distinct_default_steps(tmp_path):
     "ckpt_write:after_bytes=xyz",
     "ckpt_write:nope=1",
     "step:sigterm_at=1;;",
-    "step:crash_at=1",                # JAX step keys the port leaves out
-    "step:sigterm_at=1,rank=0",
-    "step:sigterm_at=1,once_file=x",
+    "step:crash_at=x",                # a JAX step key with a bad value
+    "step:sigterm_at=1,bogus=0",
+    "rank_crash:at_seq=xyz",          # a guardian point with a bad value
     ":after_bytes=1",
     "rpc_drop:count=x",               # an rpc point with a bad value
-    "collective_delay:delay_s=1",     # a JAX point the port does not have
+    "peer_snap_drop:at_step=1",       # a JAX point the port does not have
     "loss_spike:at_step=x",           # a sentinel point with a bad value
 ])
 def test_fault_spec_rejects_malformed(bad):

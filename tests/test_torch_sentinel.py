@@ -3,8 +3,8 @@ the sentinel seams of hapi/model.py and framework/train_step.py, the
 fault points of utils/fault_injection.py) against the JAX package's on
 the CPU.
 
-The fit drills are tests/test_sentinel.py's (through its blame and
-controller drills, which wait for ROADMAP A8): a 2-layer fp32 MLP on 48
+The fit drills are tests/test_sentinel.py's (its blame and controller
+drills are in tests/test_torch_sentinel_ranks.py): a 2-layer fp32 MLP on 48
 seeded rows, batch 4, one epoch, the same weights in both packages
 (``convert``), the same flags and fault spec.  Each drill runs in both
 packages and holds the port to JAX:
@@ -25,7 +25,8 @@ detection units, ``decide_blame``, the dump's schema
 (``tools/check_telemetry.py --sentinel-dump``), the fault specs, the
 GradScaler's unit-scale wrapper, the anchors' retention and finiteness,
 a rollback through a ``data.Pipeline``, ``bad_batch`` on token ids
-(``ValueError`` in both packages), and what still raises (A8).
+(``ValueError`` in both packages), and what still raises (A8: the
+hot-spare rung).
 """
 import json
 import os
@@ -376,9 +377,15 @@ def test_bad_batch_on_token_ids_raises_like_jax(flags):
 
 
 def test_multi_rank_and_hot_spare_raise(flags):
-    with pytest.raises(NotImplementedError, match="A8"):
-        TrainingSentinel(model=None, nranks=2)
+    """A world above one rank is ported (the blame exchange:
+    tests/test_torch_sentinel_ranks.py); the hot-spare rung still raises,
+    in a world of one or of two."""
+    sen = TrainingSentinel(model=None, nranks=2, rank=1)
+    assert (sen.nranks, sen.rank, sen.report()["blamed_rank"]) == (2, 1,
+                                                                  None)
     flags({"FLAGS_sentinel": True, "FLAGS_hot_spare": True})
+    with pytest.raises(NotImplementedError, match="A8"):
+        TrainingSentinel(model=None, nranks=2, rank=1)
     with pytest.raises(NotImplementedError, match="A8"):
         TrainingSentinel(model=None)
     model, _ = _port_model()

@@ -395,8 +395,10 @@ def test_ineligible_step_warns_once_and_stays_eager(why):
 
 def test_unported_options_raise():
     """The mesh lanes run dp and mp (tests/test_torch_hybrid.py): a pp,
-    sharding or sep axis above 1 still raises (JAX's wording), and so does
-    the sentinel across ranks (ROADMAP A8)."""
+    sharding or sep axis above 1 still raises (JAX's wording).  The
+    sentinel with a mesh is ported (tests/test_torch_sentinel_ranks.py):
+    in a world of one it resolves the mesh as the step without it does,
+    up to the dp group this world cannot hold."""
     from paddle_tpu_torch.distributed import ProcessMesh
     net, opt = _mlp()
     for axis in ("pp", "sharding", "sep"):
@@ -404,8 +406,10 @@ def test_unported_options_raise():
         with pytest.raises(NotImplementedError, match=f"mesh axis '{axis}'"):
             CompiledTrainStep(lambda x, y: x, opt, mesh=mesh)
     mesh = ProcessMesh(np.arange(2).reshape(2, 1), ["dp", "mp"])
-    with pytest.raises(NotImplementedError, match="A8"):
-        CompiledTrainStep(lambda x, y: x, opt, mesh=mesh, sentinel=True)
+    for sentinel in (False, True):
+        with pytest.raises(ValueError, match="outside the world of 1"):
+            CompiledTrainStep(lambda x, y: x, opt, mesh=mesh,
+                              sentinel=sentinel)
     # sentinel=True is ported: each full call leaves its own health vector
     cs = CompiledTrainStep(lambda x, y: ((net(x) - y) ** 2).mean(), opt,
                            sentinel=True)
