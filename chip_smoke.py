@@ -244,15 +244,17 @@ last line:
             same ``_forward_loss`` driven by hand through
             CompiledTrainStep bit for bit, one capture, no fallback, the
             launches a replay equal (12 of each flash dropout variant,
-            148 Adam); (b) at dropout 0, 2 epochs of 6 steps in child
-            processes: SIGTERM after step 4 through PreemptionHandler
-            exits 101 and leaves a committed checkpoint, a second child
-            resumes with ``fit(resume=True)``, and the losses equal an
-            uninterrupted child's bit for bit; (c) the state's bytes, a
+            148 Adam); (b) at dropout 0, 2 epochs of 3 steps in child
+            processes: SIGTERM after step 2 through PreemptionHandler
+            exits 101 and leaves a committed checkpoint, a child started
+            beside it resumes with ``fit(resume=True)`` once it exited
+            and trains into the reshuffled second epoch, and the losses
+            equal an uninterrupted child's bit for bit; (c) the state's
+            bytes, a
             synchronous save's ms, how long an async ModelCheckpoint
             blocks the step loop, ``restore_latest``'s ms; the newest
-            checkpoint truncated, the older one restored (equal to a
-            synchronous checkpoint of its state), the exposition's ckpt
+            checkpoint truncated, the older one restored (equal to the
+            state a synchronous checkpoint saved), the exposition's ckpt
             families through check_telemetry; (d) fit's step ms p50
             beside the hand lane's, goodput (input-bound share, starved
             steps) and the device busy share of 3 fit steps
@@ -318,20 +320,38 @@ last line:
             card, NCCL), dropout 0.1, bf16 O2, AdamW, the eager lane,
             B4 x S1024 a rank, launched by the port's CollectiveController
             (the ranks are this script's ``--guard-child``; every generator
-            reseeded from (step, rank)); rank 0 checkpoints every 2 steps:
-            (a) 6 steps with the guardian armed, off, armed again: losses
-            bit for bit, each lane's step p50, store writes a step, the
-            flash and Adam launches a rank; (b) rank_crash on rank 1 inside
-            step 4: rank 0 exits 101 with PeerFailureError carrying the
-            InjectedFault, the relaunch resumes at step 4 and both ranks'
-            losses equal (a)'s bit for bit, the time from the crash to the
-            resumed first step; (c) collective_delay on rank 1, timeout 3 s:
+            reseeded from (step, rank)); (b), (e), (f) run side by side,
+            then (c) and (d): (a) 13 steps: the guardian armed, then 4
+            turns of off, armed, and armed with a hot-spare snapshot (a
+            warm capture timed in the step, the stream before it waited
+            out ahead of it): losses bit for bit, each lane's step p50, store writes
+            a step, the agent's captures, skips and transfers, the flash
+            and Adam launches a rank; (b) through fit, epochs of 2 steps,
+            a sharded ModelCheckpoint each epoch (a shard file a rank),
+            FLAGS_hot_spare every 2 updates: rank_crash on rank 1 inside
+            step 4 -> rank 0 exits 101 with PeerFailureError carrying the
+            InjectedFault and parks its snapshot and rank 1's replica ->
+            the relaunch restores rank 1 from its buddy's memory (peer)
+            and rank 0 from its own parked copy (self), both ranks' losses
+            equal (a)'s bit for bit; crash -> resumed first step, snapshot
+            bytes, transfer ms, cadences skipped, park ms and bytes;
+            (c) collective_delay on rank 1, timeout 3 s:
             rank 0's stall dump through check_telemetry --stall-dump (the
             op, the seq, missing_ranks [1], waited_s < 6 s), the job ends
-            nonzero within the timeout and both graces; (d) beside (c):
-            grad_bitflip on rank 1 twice under FLAGS_sentinel: both ranks
-            skip, rank 1 blamed, SentinelError, the relaunch on one worker
-            with PADDLE_ELASTIC_RESIZED=2:1
+            nonzero within the timeout and both graces; (d) grad_bitflip
+            on rank 1 twice under FLAGS_sentinel: both ranks skip, rank 1
+            blamed, SentinelError, the relaunch on one worker with
+            PADDLE_ELASTIC_RESIZED=2:1 resumes (b)'s last dp 2 checkpoint
+            resharded onto a world of one (its state equal to the saved
+            one bit for bit) and trains an epoch; (e) (b) with
+            buddy_crash on rank 1 over 4 steps, crashing inside step 2
+            after its snapshot of iteration 2 was committed at its buddy
+            -> a PeerRestoreWarning, both ranks from the sharded
+            checkpoint, losses equal (a)'s; (f) GPT-2 124M at dp 1 x mp
+            2 through fit saves a sharded
+            checkpoint (each rank its parts), a world-one job resumes it
+            equal to the gathered shards bit for bit and its next epoch's
+            losses equal a world-one run started from that state
 
 The second-to-last line is the kernels' JSON summary, the last line
 ``{"ok": true, "device": {...}}``.  ``--phases`` runs a subset.
@@ -4409,9 +4429,9 @@ def phase_train(dev, warmup=2, steps=6):
     return main_counts
 
 
-def phase_train_parity(dev, steps=3):
+def phase_train_parity(dev, steps=2):
     """The same fp32 2-layer model at the 7B widths, the same weights and
-    batch, 3 AdamW steps on the CPU (plain versions) and on the card
+    batch, 2 AdamW steps on the CPU (plain versions) and on the card
     (kernels).  Tolerances: losses 1e-4 relative (fp32 sums in other
     orders); parameters: AdamW moves an element by ~lr whatever its
     gradient's size, so an element whose gradient is at the fp32 noise
@@ -5514,32 +5534,40 @@ def profile_fit_steps(model, pipe, tag, n=3):
 
 
 def fit_child(mode, outdir, dev=None):
-    """fit-gpt2 (b)'s child: 2 epochs of 6 steps at dropout 0 with a
-    ModelCheckpoint in ``outdir/ckpt``, but for ``full``, the uninterrupted
-    reference run (its 1.74 GB saves would only lengthen the phase; the
-    SIGTERM handler is armed only while fit checkpoints, which it does not
-    need); ``preempt`` sends SIGTERM after
-    step 4 (fit saves and exits with ELASTIC_EXIT_CODE), ``resume``
-    continues from the newest checkpoint.  Each loss is appended to
-    ``outdir/losses.log``."""
+    """fit-gpt2 (b)'s child: 2 epochs of 3 steps at dropout 0 with a
+    ModelCheckpoint in ``outdir/ckpt`` saving every second epoch, but for
+    ``full``, the uninterrupted reference run (its 1.74 GB saves would
+    only lengthen the phase; the SIGTERM handler is armed only while fit
+    checkpoints, which it does not need); ``preempt`` sends SIGTERM after
+    step 2 (fit saves and exits with ELASTIC_EXIT_CODE), ``resume``
+    continues from the newest checkpoint, the rest of the first epoch and
+    the second, reshuffled (the pipeline's next epoch).  Each loss is
+    appended to ``outdir/losses.log``."""
     model = fit_gpt2_model(dev or torch.device("cuda", 0), dropout=0.0)
-    cb = StepLog(sigterm_at=3 if mode == "preempt" else None,
+    if mode == "resume":
+        # started beside the preempted child: built, it waits for the
+        # parent's word that the preempted child's checkpoint is in
+        wait_for_file(os.path.join(outdir, "go"))
+    cb = StepLog(sigterm_at=1 if mode == "preempt" else None,
                  path=os.path.join(outdir, "losses.log"))
-    model.fit(gpt2_pipeline(48), epochs=2, verbose=0, log_freq=1,
+    model.fit(gpt2_pipeline(24), epochs=2, verbose=0, log_freq=1,
               callbacks=[cb],
               save_dir=None if mode == "full" else os.path.join(outdir,
                                                                 "ckpt"),
-              max_to_keep=1, resume=mode == "resume")
+              save_freq=2, max_to_keep=1, resume=mode == "resume")
 
 
-def run_children(jobs, timeout=600):
-    """Start every ``(mode, outdir)`` child of `fit_child` together and
-    wait for all; returns their exit codes (a child past ``timeout`` is
-    killed)."""
-    procs = [(subprocess.Popen(
+def start_children(jobs):
+    """Start every ``(mode, outdir)`` child of `fit_child` together."""
+    return [(subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--fit-child", mode,
          outdir], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True), mode) for mode, outdir in jobs]
+
+
+def wait_children(procs, timeout=600):
+    """Wait for `start_children`'s ``procs``; returns their exit codes (a
+    child past ``timeout`` is killed)."""
     codes = []
     for p, mode in procs:
         try:
@@ -5581,6 +5609,9 @@ def checkpoint_numbers(model, batch, root):
     state, _ = sync._state(1)
     nbytes = state_bytes(state)
     del state
+    # the state the sync and the first async checkpoint hold
+    want = {k: v.detach().cpu().clone()
+            for k, v in model.network.state_dict().items()}
     torch.cuda.synchronize()
     save_sum = monitor.get_monitor_value("ckpt.save_ms.sum")
     t0 = time.monotonic()
@@ -5620,18 +5651,16 @@ def checkpoint_numbers(model, batch, root):
     with open(newest, "r+b") as f:
         f.truncate(os.path.getsize(newest) // 2)
     got = mgr.restore_latest()
-    want = CheckpointManager(os.path.join(root, "sync"),
-                             map_location=dev).restore_latest()[0]
     if got is None or got[1] != step - 1:
         raise AssertionError(f"[fit-gpt2] truncated ckpt-{step}: restored "
                              f"{got and got[1]}, expected {step - 1}")
-    for k, v in want["model"].items():
-        if not torch.equal(got[0]["model"][k], v):
+    for k, v in want.items():
+        if not torch.equal(got[0]["model"][k].cpu(), v):
             raise AssertionError(f"[fit-gpt2] async checkpoint's {k} differs"
                                  f" from the synchronous one of that state")
     log(f"[fit-gpt2] restore_latest {restore_ms:.1f} ms; ckpt-{step} "
-        f"truncated: skipped, ckpt-{step - 1} restored, equal to the sync "
-        f"checkpoint of its state")
+        f"truncated: skipped, ckpt-{step - 1} restored, equal to the state "
+        f"the sync checkpoint saved")
     return dict(bytes=nbytes, sync_ms=sync_ms, first_block_ms=first_block,
                 second_block_ms=second_block, restore_ms=restore_ms)
 
@@ -5642,8 +5671,9 @@ def phase_fit_gpt2(dev, warmup=2, steps=6):
     .shuffle(seed=0).batch(8).device_prefetch(2)``: (a) at dropout 0.1
     the losses and launches a replay of 2 + 6 fit steps equal the same
     ``_forward_loss`` driven by hand through CompiledTrainStep; (b) at
-    dropout 0, SIGTERM after step 4 of 2 x 6 in a child: exit 101 and a
-    committed checkpoint, a second child resumes, the losses equal an
+    dropout 0, SIGTERM after step 2 of 2 epochs of 3 in a child: exit 101
+    and a committed checkpoint, a child started beside it resumes once it
+    exited and crosses into the second epoch, the losses equal an
     uninterrupted child's; (c) the checkpoint's numbers; (d) fit's step
     ms beside the hand lane's, goodput, the busy share of 3 fit steps."""
     n = warmup + steps
@@ -5694,27 +5724,36 @@ def phase_fit_gpt2(dev, warmup=2, steps=6):
         full, pre = (os.path.join(root, d) for d in ("full", "preempt"))
         for d in (full, pre):
             os.makedirs(d)
-        codes = run_children([("full", full), ("preempt", pre)])
-        if codes != [0, ELASTIC_EXIT_CODE]:
-            raise AssertionError(f"[fit-gpt2] (b) children exited {codes}, "
-                                 f"expected [0, {ELASTIC_EXIT_CODE}]")
-        first = read_losses(os.path.join(pre, "losses.log"))
-        committed = CheckpointManager(os.path.join(pre, "ckpt")).latest_step()
-        if len(first) != 4 or committed is None:
-            raise AssertionError(f"[fit-gpt2] (b) preempted child: "
-                                 f"{len(first)} steps, checkpoint {committed}")
-        codes = run_children([("resume", pre)])
-        if codes != [0]:
-            raise AssertionError(f"[fit-gpt2] (b) resumed child exited "
-                                 f"{codes}")
+        procs = start_children([("full", full), ("preempt", pre),
+                                ("resume", pre)])
+        try:
+            codes = wait_children(procs[1:2])
+            first = read_losses(os.path.join(pre, "losses.log"))
+            committed = CheckpointManager(
+                os.path.join(pre, "ckpt")).latest_step()
+            if codes != [ELASTIC_EXIT_CODE] or len(first) != 2 or \
+                    committed is None:
+                raise AssertionError(
+                    f"[fit-gpt2] (b) preempted child: exit {codes}, "
+                    f"{len(first)} steps, checkpoint {committed}")
+            open(os.path.join(pre, "go"), "w").close()
+            codes = wait_children([procs[0], procs[2]])
+        finally:
+            for p, _ in procs:
+                if p.poll() is None:
+                    p.kill()
+        if codes != [0, 0]:
+            raise AssertionError(f"[fit-gpt2] (b) the uninterrupted and "
+                                 f"the resumed child exited {codes}")
         resumed = read_losses(os.path.join(pre, "losses.log"))
         whole = read_losses(os.path.join(full, "losses.log"))
-        if resumed != whole or len(whole) != 12:
+        if resumed != whole or len(whole) != 6:
             raise AssertionError(f"[fit-gpt2] (b) preempted + resumed "
                                  f"{resumed} != uninterrupted {whole}")
-        log(f"[fit-gpt2] (b) SIGTERM after step 4: exit "
-            f"{ELASTIC_EXIT_CODE}, ckpt-{committed} committed; resumed, the "
-            f"12 losses equal the uninterrupted run's bit for bit: {whole}")
+        log(f"[fit-gpt2] (b) SIGTERM after step 2 of 2 epochs of 3: exit "
+            f"{ELASTIC_EXIT_CODE}, ckpt-{committed} committed; resumed "
+            f"mid-epoch and trained into the reshuffled second epoch, the "
+            f"6 losses equal the uninterrupted run's bit for bit: {whole}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return dict(fit_ms=fit_ms, hand_ms=hand_ms, busy=busy, goodput=good,
@@ -6605,7 +6644,13 @@ def hybrid_gpt_model(dev, lr=1e-4):
     return Model(net).prepare(opt, LocalLMLoss(lm), amp_configs="O2")
 
 
-def hybrid_gpt_lane(dev, rank, world, outdir, n=8, per_rank=4):
+#: train-hybrid (c)'s steps a lane: 2 warm-up (the eager call, the
+#: capture) and 2 replays
+HYBRID_GPT_STEPS = 4
+
+
+def hybrid_gpt_lane(dev, rank, world, outdir, n=HYBRID_GPT_STEPS,
+                    per_rank=4):
     """(c) GPT-2 124M, dp 2 x mp 2, dropout 0.1, bf16 O2 (prepare), AdamW
     (1e-4, wd 0.01), B8 x S1024 (4 rows a dp rank): ``fit`` over a
     DistributedBatchSampler, then the same ``_forward_loss`` by hand
@@ -6873,7 +6918,7 @@ def check_hybrid_llama(outs, warmup=2, steps=3):
         f"{p['ref_dense'][0][-8:]}")
 
 
-def check_hybrid_gpt(outs, dev, warmup=2, n=8):
+def check_hybrid_gpt(outs, dev, warmup=2, n=HYBRID_GPT_STEPS):
     tag = "train-hybrid"
     need = dict({k: 12 * n for k in DROPOUT_KERNELS}, adam=148 * n)
     for o in outs:
@@ -6960,10 +7005,17 @@ def phase_train_hybrid(dev):
 # ----------------------------------------------------------- train-guard
 #: train-guard's workload: GPT-2 124M at full width, dp 2 (two ranks on
 #: the card), the eager lane, 6 steps of GUARD_ROWS rows a rank (train-
-#: gpt2's B 8 over the two ranks), rank 0 checkpointing every 2 steps
+#: gpt2's B 8 over the two ranks); (b) and (e) through fit, an epoch of
+#: GUARD_SAVE_EVERY steps, a sharded checkpoint each epoch and a hot-spare
+#: snapshot every GUARD_SPARE_EVERY updates
 GUARD_STEPS = 6
 GUARD_ROWS = 4
 GUARD_SAVE_EVERY = 2
+GUARD_SPARE_EVERY = 2
+#: (a)'s lanes by turns after its first step (armed): the guardian off,
+#: armed, armed with a hot-spare snapshot (a capture) after the step
+GUARD_LANES = ("off", "armed", "spare")
+GUARD_TURNS = 4
 #: (c)'s collective timeout, seconds, and the controller's graces
 GUARD_TIMEOUT_S = 3.0
 GUARD_PEER_GRACE_S = 5.0
@@ -6989,9 +7041,10 @@ def guard_reseed(model, step, rank):
 
 
 def guard_steps(model, start, rank, dev, log_path, mgr=None,
-                stop=GUARD_STEPS, before=None):
+                stop=GUARD_STEPS, before=None, after=None):
     """Steps ``start`` .. ``stop`` - 1 of the eager dp lane (``before(step)``
-    first, when given): each step's loss (this rank's, read back), host ms
+    first, when given, ``after(step)`` inside the step's timing once its
+    loss is read): each step's loss (this rank's, read back), host ms
     to the read and wall time go to ``log_path`` (a JSON line a step);
     rank 0 saves every GUARD_SAVE_EVERY steps (not after the last); a
     barrier closes each step.  Returns (losses, ms, the watchdog's (seq
@@ -7014,6 +7067,8 @@ def guard_steps(model, start, rank, dev, log_path, mgr=None,
         torch.cuda.synchronize()
         t0 = time.monotonic()
         loss = float(model._train_batch_device(x, y).detach())
+        if after is not None:
+            after(step)
         times.append((time.monotonic() - t0) * 1e3)
         losses.append(loss)
         seqs.append((seq0, dp_seq()))
@@ -7081,24 +7136,48 @@ def guard_drain():
 
 
 def guard_train(mode, outdir, rank, dev):
-    """(a) ``clean``: steps 0 .. 2 GUARD_STEPS - 2 with the guardian armed
-    (step 0, the process's warm-up) then off and armed by turns (the two
-    share the process's drift), then a guarded call's host cost; (b), (c)
-    ``drill``: the guardian armed throughout, rank 0 checkpointing,
-    resumed from its newest checkpoint."""
+    """(a) ``clean``: GUARD_TURNS turns of GUARD_LANES after a first step
+    with the guardian armed (the process's warm-up), the lanes sharing
+    the process's drift; a ``spare`` step is an armed step followed, in
+    its timing, by the hot-spare agent's snapshot (the capture at the
+    step boundary; the stream to the buddy runs on its thread).  The
+    pinned host buffers are filled once before the first turn, and the
+    stream of the snapshot before is waited out ahead of each spare step
+    (both outside the timing), so every spare step times a warm capture,
+    never a skipped cadence; then a guarded call's host cost.  (c) ``drill``: the guardian armed
+    throughout, rank 0 checkpointing, resumed from its newest
+    checkpoint."""
     model = fit_gpt2_model(dev, dropout=0.1)
     timeout = port_flags.flag("FLAGS_collective_timeout_s")
     writes = [0]
     if mode == "clean":
-        labels = (["armed"] + ["off", "armed"] * GUARD_STEPS)[
-            :2 * GUARD_STEPS - 1]
+        from paddle_tpu_torch.distributed import collective
+        from paddle_tpu_torch.framework import hot_spare
+        labels = ["armed"] + list(GUARD_LANES) * GUARD_TURNS
+        agent = hot_spare.arm(rank=rank, world=2, every=1)
+
+        def before(step):
+            guard_switch(labels[step] != "off", timeout, writes)
+            if step == 1:
+                agent.capture(model._hot_spare_state())   # the buffers
+            if labels[step] == "spare":
+                agent.wait()
+
+        def snapshot(step):
+            if labels[step] == "spare":
+                agent.maybe_snapshot(step + 1, model._hot_spare_state,
+                                     {"it": step + 1, "epoch": 0,
+                                      "next_step": step + 1})
         kernels.reset_launch_counts()
         losses, times, seqs = guard_steps(
             model, 0, rank, dev, os.path.join(outdir, f"steps.{rank}.jsonl"),
-            stop=len(labels), before=lambda step: guard_switch(
-                labels[step] == "armed", timeout, writes))
+            stop=len(labels), before=before, after=snapshot)
         launches = {k: v for k, v in kernels.launch_counts().items() if v}
         in_flight = guard_drain()
+        agent.wait(60)
+        collective.barrier()        # the buddy's stream to this rank ended
+        spare = dict(agent.stats)
+        agent.close(park=False)
         call_us = {}
         for lane in ("off", "armed"):
             guard_switch(lane == "armed", timeout, [0])
@@ -7106,8 +7185,9 @@ def guard_train(mode, outdir, rank, dev):
         return dict(losses=losses, times=times, labels=labels,
                     seqs=[b - a for (a, b), k in zip(seqs, labels)
                           if k == "armed"],
-                    writes=writes[0] / labels.count("armed"),
-                    in_flight=in_flight, launches=launches, call_us=call_us)
+                    writes=writes[0] / (len(labels) - labels.count("off")),
+                    in_flight=in_flight, launches=launches, call_us=call_us,
+                    spare=spare)
     guard_switch(True, timeout, writes)
     mgr = CheckpointManager(os.path.join(outdir, "ckpt"), max_to_keep=2,
                             map_location=dev)
@@ -7126,6 +7206,286 @@ def guard_train(mode, outdir, rank, dev):
     return dict(losses=losses, times=times, in_flight=guard_drain())
 
 
+class GuardRows:
+    """fit's dataset of ``rank``'s rows: item ``i`` is row ``i %
+    GUARD_ROWS`` of step ``i // GUARD_ROWS`` (guard_batch's rows)."""
+
+    def __init__(self, rank):
+        self.rank = rank
+        self._step = self._rows = None
+
+    def __len__(self):
+        return 4 * GUARD_STEPS * GUARD_ROWS
+
+    def __getitem__(self, i):
+        step, row = divmod(int(i), GUARD_ROWS)
+        if step != self._step:
+            self._step, self._rows = step, np.random.default_rng(
+                1000 * step + self.rank).integers(0, 50304,
+                                                  (GUARD_ROWS, 1025))
+        return self._rows[row, :-1], self._rows[row, 1:]
+
+
+class GuardEpochs:
+    """fit's batch sampler: epoch ``e`` is steps ``(e + first) *
+    GUARD_SAVE_EVERY`` .. + GUARD_SAVE_EVERY - 1 (fit sets the epoch)."""
+
+    def __init__(self, first=0):
+        self.first, self.epoch = first, 0
+
+    def set_epoch(self, epoch):
+        self.epoch = int(epoch)
+
+    def __len__(self):
+        return GUARD_SAVE_EVERY
+
+    def __iter__(self):
+        for k in range(GUARD_SAVE_EVERY):
+            step = (self.epoch + self.first) * GUARD_SAVE_EVERY + k
+            yield [step * GUARD_ROWS + j for j in range(GUARD_ROWS)]
+
+
+def guard_loader(rank, first=0):
+    return DataLoader(GuardRows(rank), batch_sampler=GuardEpochs(first))
+
+
+class GuardFitLog(Callback):
+    """A guard job's fit: every generator reseeded from (step,
+    ``seed_rank``) before each step (guard_reseed), each step's loss and
+    host ms to its read logged to ``steps.<rank>.jsonl`` (guard_steps'
+    lines), the incarnation's first step and where it resumed from
+    appended to ``incarnations.<rank>.log``; ``check(model)`` runs at the
+    start of training (after the resume).  The armed hot-spare agent's
+    stats go to ``spare.<rank>.json`` at the end of training and on the
+    guardian's exits.  With ``GUARD_SETTLE_AT`` (the environment) the
+    agent's transfer in flight is waited out before that step, and the
+    stats dumped: a replica then stands at the buddy when the step
+    starts."""
+
+    def __init__(self, outdir, rank, seed_rank=None, first=0, check=None):
+        super().__init__()
+        self.outdir, self.rank, self.first = outdir, rank, first
+        self.settle_at = int(os.environ.get("GUARD_SETTLE_AT", "-1"))
+        self.seed_rank = rank if seed_rank is None else seed_rank
+        self.check, self.checked = check, None
+        self.losses, self.times = [], []
+        self.epoch, self.start, self.agent = 0, None, None
+
+    def on_train_begin(self, logs=None):
+        from paddle_tpu_torch.distributed import watchdog
+        from paddle_tpu_torch.framework import hot_spare
+        self.agent = hot_spare.current_agent()
+        if self.agent is not None:
+            watchdog.add_exit_hook(self.dump_spare)
+        if self.check is not None:
+            self.checked = self.check(self.model)
+
+    def dump_spare(self):
+        if self.agent is not None:
+            path = os.path.join(self.outdir,
+                                f"spare.{self.rank}.{self.start}.json")
+            with open(path + ".tmp", "w") as f:
+                json.dump(self.agent.stats, f)
+            os.replace(path + ".tmp", path)
+
+    def on_epoch_begin(self, epoch, logs=None):
+        self.epoch = epoch
+
+    def on_train_batch_begin(self, step, logs=None):
+        g = (self.epoch + self.first) * GUARD_SAVE_EVERY + step
+        if self.start is None:
+            self.start = g
+            src = (self.model.last_resume or {}).get("source") or "none"
+            with open(os.path.join(self.outdir,
+                                   f"incarnations.{self.rank}.log"),
+                      "a") as f:
+                f.write(f"{g} {src}\n")
+        if g == self.settle_at and self.agent is not None:
+            self.agent.wait()
+            self.dump_spare()
+        guard_reseed(self.model, g, self.seed_rank)
+        self.g = g
+        torch.cuda.synchronize()
+        self.t0 = time.monotonic()
+
+    def on_train_batch_end(self, step, logs=None):
+        self.times.append((time.monotonic() - self.t0) * 1e3)
+        self.losses.append(logs["loss"])
+        with open(os.path.join(self.outdir, f"steps.{self.rank}.jsonl"),
+                  "a") as f:
+            f.write(json.dumps({"step": self.g, "loss": logs["loss"],
+                                "t": time.time(), "start": self.start})
+                    + "\n")
+        self.dump_spare()          # a crash ends this rank without hooks
+
+    def on_train_end(self, logs=None):
+        self.dump_spare()
+
+    def result(self):
+        r = self.model.last_resume or {}
+        return dict(losses=self.losses, times=self.times, start=self.start,
+                    launches={k: v for k, v in
+                              kernels.launch_counts().items() if v},
+                    source=r.get("source"), it=r.get("it"),
+                    restore_s=r.get("seconds"),
+                    arrays_resharded=(r.get("report") or {}).get(
+                        "arrays_resharded"),
+                    checked=self.checked)
+
+
+def guard_fit(outdir, rank, dev):
+    """(b), (e): ``GUARD_EPOCHS`` (the environment) epochs of
+    GUARD_SAVE_EVERY steps through fit under the guardian (armed
+    throughout), with a sharded
+    ModelCheckpoint (a shard file a rank) at each epoch's end, the
+    hot-spare agent under the environment's FLAGS_hot_spare; a relaunch
+    resumes through the ladder."""
+    model = fit_gpt2_model(dev, dropout=0.1)
+    guard_switch(True, port_flags.flag("FLAGS_collective_timeout_s"), [0])
+    cb = GuardFitLog(outdir, rank)
+    kernels.reset_launch_counts()
+    model.fit(guard_loader(rank), epochs=int(os.environ["GUARD_EPOCHS"]),
+              verbose=0, log_freq=1, save_dir=os.path.join(outdir, "ckpt"),
+              max_to_keep=1, resume=True, callbacks=[cb])
+    return dict(cb.result(), in_flight=guard_drain())
+
+
+def restored_against_shard(path):
+    """A check for GuardFitLog: the model's restored parameters and
+    optimizer state equal rank 0's shard file of the checkpoint at
+    ``path`` (read on its own), bit for bit; returns how many tensors."""
+    from paddle_tpu_torch.distributed import reshard
+
+    def check(model):
+        layout = reshard.read_layout(path)
+        shard = reshard._load_shard(os.path.join(
+            path, layout["rank_files"]["0"]))
+        saved = {k: reshard._host_tensor(v)
+                 for k, v in shard["arrays"].items()}
+        live = {f"model.{k}": v for k, v in
+                model.network.state_dict().items()}
+        live.update({f"optimizer.{k}": v for k, v in
+                     model._optimizer.state_dict().items()
+                     if torch.is_tensor(v)})
+        bad = [k for k, v in live.items() if k not in saved or
+               not torch.equal(v.detach().cpu(), saved[k])]
+        if bad or len(live) != len(saved):
+            raise AssertionError(f"restored state differs from {path}'s "
+                                 f"shard file: {bad[:5]}, {len(live)} "
+                                 f"tensors against {len(saved)}")
+        return len(live)
+    return check
+
+
+def guard_resize(outdir, rank, dev):
+    """(d)'s relaunch on one worker (PADDLE_ELASTIC_RESIZED): resumes (b)'s
+    dp 2 sharded checkpoint (GUARD_RESUME_DIR) resharded onto a world of
+    one, its restored state checked against the saved one bit for bit,
+    and trains the next epoch to the end."""
+    from paddle_tpu_torch.framework.checkpoint_manager import scan_steps
+    root = os.environ["GUARD_RESUME_DIR"]
+    model = fit_gpt2_model(dev, dropout=0.1)
+    cb = GuardFitLog(outdir, rank, check=restored_against_shard(
+        scan_steps(root)[0][1]))
+    kernels.reset_launch_counts()
+    model.fit(guard_loader(rank),
+              epochs=GUARD_STEPS // GUARD_SAVE_EVERY + 1, verbose=0,
+              log_freq=1, resume=root, callbacks=[cb])
+    return dict(cb.result(), world=int(os.environ["PADDLE_TRAINERS_NUM"]),
+                resized=os.environ["PADDLE_ELASTIC_RESIZED"])
+
+
+def world1_gpt_model(dev):
+    """hybrid_gpt_model's model in a world of one: the same parameters,
+    names and loss, nothing split."""
+    from paddle_tpu_torch.models import ParallelGPTForCausalLM
+    cfg = gpt_config("gpt2-124m", max_seq_len=1024, attn_dropout=0.1,
+                     dropout=0.1)
+    lm = ParallelGPTForCausalLM(cfg, device=dev, dtype=torch.float32, seed=0)
+    net = LocalLogits(lm)
+    opt = AdamW(learning_rate=1e-4, parameters=net.parameters(),
+                weight_decay=0.01)
+    return Model(net).prepare(opt, LocalLMLoss(lm), amp_configs="O2")
+
+
+def guard_mp2(outdir, rank, dev):
+    """(f): GPT-2 124M at dp 1 x mp 2 (train-hybrid (c)'s model) through
+    fit, one epoch of GUARD_SAVE_EVERY steps on dp rank 0's rows, a
+    sharded ModelCheckpoint at its end (each rank its parts, "mp" their
+    partition); rank 0 then writes the global state gathered over mp
+    (`convert.gather_paddle_tpu_state` and its optimizer twin) for the
+    world-one job."""
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.distributed import collective, fleet
+    from paddle_tpu_torch.framework import io as fio
+    fleet.init(is_collective=True, strategy=hybrid_strategy(1, 2),
+               backend=HYBRID_BACKEND, device=dev)
+    model = hybrid_gpt_model(dev)
+    cb = GuardFitLog(outdir, rank, seed_rank=0)
+    kernels.reset_launch_counts()
+    model.fit(guard_loader(0), epochs=1, verbose=0, log_freq=1,
+              save_dir=os.path.join(outdir, "ckpt"), callbacks=[cb])
+    out = cb.result()
+    params = convert.gather_paddle_tpu_state(model.network, dst=0)
+    moments = convert.gather_paddle_tpu_optimizer_state(
+        model.network, model._optimizer, dst=0)
+    if rank == 0:
+        fio.save({"model": params, "optimizer": moments},
+                 os.path.join(outdir, "gathered.pkl"))
+    collective.barrier()
+    return out
+
+
+def guard_mp2_resume(outdir, dev):
+    """(f)'s world-one job: (A) resumes the mp 2 checkpoint (the restored
+    parameters and moments checked against the gathered state bit for
+    bit) and trains the next epoch; (B) a world-one model started from
+    the gathered state trains the same epoch; their losses must be
+    equal bit for bit."""
+    from paddle_tpu_torch.framework import io as fio
+    gathered = fio.load(os.path.join(outdir, "gathered.pkl"),
+                        map_location="cpu")
+
+    def against_gathered(model):
+        bad, n = [], 0
+        for k, v in model.network.state_dict().items():
+            n += 1
+            want = torch.as_tensor(np.asarray(gathered["model"][k]))
+            if not torch.equal(v.detach().float().cpu(), want.float()):
+                bad.append(k)
+        for k, v in model._optimizer.state_dict().items():
+            if torch.is_tensor(v):
+                n += 1
+                want = torch.as_tensor(np.asarray(gathered["optimizer"][k]))
+                if not torch.equal(v.detach().cpu(), want.to(v.dtype)):
+                    bad.append(k)
+        if bad:
+            raise AssertionError(f"(f) restored tensors differ from the "
+                                 f"gathered state: {bad[:5]}")
+        return n
+
+    model = world1_gpt_model(dev)
+    a = GuardFitLog(outdir, 0, seed_rank=0, check=against_gathered)
+    kernels.reset_launch_counts()
+    model.fit(guard_loader(0), epochs=2, verbose=0, log_freq=1,
+              resume=os.path.join(outdir, "ckpt"), callbacks=[a])
+    res_a = a.result()
+    del model, a
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = world1_gpt_model(dev)
+    with torch.no_grad():
+        for k, v in model.network.state_dict().items():
+            v.copy_(torch.as_tensor(np.asarray(gathered["model"][k])))
+    model._optimizer.set_state_dict(gathered["optimizer"])
+    b = GuardFitLog(os.path.join(outdir, "b"), 0, seed_rank=0, first=1)
+    os.makedirs(b.outdir, exist_ok=True)
+    kernels.reset_launch_counts()
+    model.fit(guard_loader(0, first=1), epochs=1, verbose=0, log_freq=1,
+              callbacks=[b])
+    return dict(a=res_a, b=b.result())
+
+
 def guard_flaky(outdir, rank, dev):
     """(d): fit under the sentinel (the environment's flags) while
     grad_bitflip corrupts rank 1's gradients; its escalation leaves the
@@ -7137,28 +7497,35 @@ def guard_flaky(outdir, rank, dev):
     return {"completed": True}
 
 
+GUARD_MODES = {"flaky": guard_flaky, "fit": guard_fit, "mp2": guard_mp2,
+               "resize": guard_resize}
+
+
 def guard_child(mode, outdir):
     """A rank of train-guard, started by the port's launcher (its
     ``PADDLE_TRAINER_*`` contract, ``FLAGS_selected_gpus`` on this card):
-    ``clean`` / ``drill`` / ``flaky``.  Writes ``<mode>.<rank>.json``; an
+    ``clean`` / ``drill`` (guard_train), ``fit``, ``flaky``, ``mp2``, and
+    ``resize`` for a quarantine relaunch; ``mp2-resume`` runs alone (a
+    world of one, no launcher).  Writes ``<mode>.<rank>.json``; an
     exception goes through ``sys.excepthook`` (the guardian's trap: the
     record for the peers, exit 101 for a peer's failure), and the rank
     exits without a process-group teardown (see HYBRID_BACKEND)."""
-    rank = int(os.environ["PADDLE_TRAINER_ID"])
+    rank = int(os.environ.get("PADDLE_TRAINER_ID", "0"))
     if os.environ.get("PADDLE_ELASTIC_RESIZED"):
-        # the quarantine relaunch: the world without the blamed rank
-        with open(os.path.join(outdir, f"relaunch.{rank}.json"), "w") as f:
-            json.dump({"world": int(os.environ["PADDLE_TRAINERS_NUM"]),
-                       "resized": os.environ["PADDLE_ELASTIC_RESIZED"]}, f)
-        os._exit(0)
+        mode = "resize"           # the quarantine relaunch: one worker
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from paddle_tpu_torch.distributed import env
     try:
-        env.init_parallel_env()
-        dev = env.current_device()
-        res = guard_flaky(outdir, rank, dev) if mode == "flaky" else \
-            guard_train(mode, outdir, rank, dev)
+        if mode == "mp2-resume":
+            dev = torch.device("cuda", 0)
+            res = guard_mp2_resume(outdir, dev)
+        else:
+            env.init_parallel_env()
+            dev = env.current_device()
+            fn = GUARD_MODES.get(mode)
+            res = fn(outdir, rank, dev) if fn is not None else \
+                guard_train(mode, outdir, rank, dev)
         with open(os.path.join(outdir, f"{mode}.{rank}.json"), "w") as f:
             json.dump(res, f)
     except BaseException as e:  # noqa: BLE001 — the guardian's hooks
@@ -7175,7 +7542,9 @@ def guard_controller(tag, mode, outdir, max_restart, extra_env):
     """The port's CollectiveController over this script's ``--guard-child
     MODE DIR`` ranks (two on this card), keeping each incarnation's exit
     codes and trapped records (time stamps included: the controller
-    clears them at a relaunch) and the blame it quarantined on."""
+    clears them at a relaunch) and the blame it quarantined on; its
+    graces are the environment's (``PADDLE_GUARDIAN_PEER_GRACE_S``, one
+    value for the jobs that run at once)."""
     from paddle_tpu_torch.distributed.launch.context import (Context,
                                                              parse_args)
     from paddle_tpu_torch.distributed.launch.controller import \
@@ -7280,16 +7649,19 @@ def guard_stall(root, base, at, tag="train-guard"):
         f"(timeout + both graces {limit:g} s)")
 
 
-def guard_flaky_drill(root, base, tag="train-guard"):
+def guard_flaky_drill(root, base, resume_dir, tag="train-guard"):
     """(d): grad_bitflip on rank 1 twice under the sentinel; the blame,
-    SentinelError and the quarantine relaunch on one worker."""
+    SentinelError and the quarantine relaunch on one worker, which resumes
+    (b)'s dp 2 sharded checkpoint (``resume_dir``) resharded onto a world
+    of one and trains the next epoch."""
     d_dir = os.path.join(root, "d")
     code, ctl, t0, t1 = guard_controller(
         "d", "flaky", d_dir, 1, dict(
             base, FLAGS_collective_timeout_s="60", FLAGS_sentinel="1",
             FLAGS_sentinel_check_every="1", FLAGS_sentinel_max_skips="2",
             FLAGS_sentinel_dump_path=os.path.join(d_dir, "sentinel.json"),
-            FLAGS_fault_inject="grad_bitflip:rank=1,count=2"))
+            FLAGS_fault_inject="grad_bitflip:rank=1,count=2",
+            GUARD_RESUME_DIR=resume_dir))
     dumps = {}
     for r in range(2):
         p = os.path.join(d_dir, f"sentinel.rank{r}.json")
@@ -7298,34 +7670,235 @@ def guard_flaky_drill(root, base, tag="train-guard"):
             dumps[r] = json.load(open(p))["sentinel"]
     types = sorted({e.get("type") for e in ctl.records[0]}) \
         if ctl.records else []
-    relaunch = os.path.join(d_dir, "relaunch.0.json")
+    relaunch = os.path.join(d_dir, "resize.0.json")
     blamed = [b.get("rank") for b in ctl.blames if b]
+    res = json.load(open(relaunch)) if os.path.exists(relaunch) else {}
+    n = len(res.get("losses", []))
     if code != 0 or blamed != [1] or "SentinelError" not in types or \
-            not os.path.exists(relaunch) or \
-            json.load(open(relaunch)) != {"world": 1, "resized": "2:1"} \
-            or os.path.exists(os.path.join(d_dir, "relaunch.1.json")) \
+            (res.get("world"), res.get("resized")) != (1, "2:1") \
+            or os.path.exists(os.path.join(d_dir, "resize.1.json")) \
             or sorted(dumps) != [0, 1] or \
             any(d["quarantined"] != [0, 1] for d in dumps.values()) or \
-            1 not in {d["blamed_rank"] for d in dumps.values()}:
+            1 not in {d["blamed_rank"] for d in dumps.values()} or \
+            res.get("source") != "disk" or not res.get("checked") or \
+            not res.get("arrays_resharded") or \
+            n != GUARD_SAVE_EVERY or not all(np.isfinite(res["losses"])):
         raise AssertionError(f"[{tag}] (d) exit {code}, codes "
                              f"{ctl.codes}, blame {ctl.blames}, records "
-                             f"{types}, dumps {dumps}; rank 1:\n"
-                             f"{guard_logs(d_dir, 1)[-3000:]}")
+                             f"{types}, dumps {dumps}, relaunch {res}; "
+                             f"rank 1:\n{guard_logs(d_dir, 1)[-3000:]}\n"
+                             f"relaunch:\n{guard_logs(d_dir, 0)[-3000:]}")
+    check_launches(dict.fromkeys(DROPOUT_KERNELS + ("adam",), 0) |
+                   res["launches"],
+                   dict({k: 12 * n for k in DROPOUT_KERNELS}, adam=148 * n))
     log(f"[{tag}] (d) grad_bitflip on rank 1 at iterations 0 and 1: both "
         f"ranks skipped them (quarantined {dumps[0]['quarantined']}); "
         f"blame on rank {blamed[0]} (the dumps' blamed_rank "
         f"{[dumps[r]['blamed_rank'] for r in (0, 1)]}), the trapped "
         f"errors {types}, codes {ctl.codes}; relaunched on one worker "
-        f"with PADDLE_ELASTIC_RESIZED=2:1; job {t1 - t0:.1f} s")
+        f"with PADDLE_ELASTIC_RESIZED=2:1: it resumed (b)'s dp 2 sharded "
+        f"checkpoint resharded onto a world of one "
+        f"({res['arrays_resharded']} arrays resharded, restore "
+        f"{res['restore_s']:.2f} s; its {res['checked']} parameter and "
+        f"optimizer tensors equal rank 0's shard file bit for bit) and "
+        f"trained steps {res['start']}-{res['start'] + n - 1}: losses "
+        f"{res['losses']}; launches {res['launches']}; job "
+        f"{t1 - t0:.1f} s")
+
+
+def guard_incarnations(outdir, rank):
+    """[(first step, restored from)] of ``rank``'s incarnations."""
+    with open(os.path.join(outdir, f"incarnations.{rank}.log")) as f:
+        return [(int(a), b) for a, b in (ln.split() for ln in f)]
+
+
+def guard_spare_drill(root, base, at, want, sub, buddy_crash, steps,
+                      settle_at=None, tag="train-guard"):
+    """(b) / (e): fit under the guardian with a sharded ModelCheckpoint
+    each epoch and FLAGS_hot_spare (a snapshot every GUARD_SPARE_EVERY
+    updates); rank_crash on rank 1 at the all-reduce ``at`` -> rank 0
+    exits 101 (PeerFailureError), parking its own snapshot and rank 1's
+    replica -> the relaunch climbs the ladder: (b) rank 1 from its
+    buddy's memory, rank 0 from its own parked copy; (e) ``buddy_crash``
+    on rank 1: a PeerRestoreWarning and both ranks from the sharded
+    checkpoint although the replica stood (``settle_at``: the step
+    before which each rank waits out its transfer, so rank 1's is
+    committed at the crash).  ``steps`` (a whole number of epochs) are
+    trained; every step's losses must equal (a)'s.  Returns the drill's
+    numbers and its timeline (the first step, the crash, the resumed
+    first step, the last step and the job's end, seconds from the job's
+    start)."""
+    d = os.path.join(root, sub)
+    fault = (f"rank_crash:op=all_reduce,at_seq={at},rank=1,"
+             f"once_file={os.path.join(d, 'crashed')}")
+    if buddy_crash:
+        fault += ";buddy_crash:rank=1"
+    env = dict(base, FLAGS_collective_timeout_s="60", FLAGS_hot_spare="1",
+               FLAGS_hot_spare_every=str(GUARD_SPARE_EVERY),
+               FLAGS_fault_inject=fault,
+               GUARD_EPOCHS=str(steps // GUARD_SAVE_EVERY))
+    if settle_at is not None:
+        env["GUARD_SETTLE_AT"] = str(settle_at)
+    code, ctl, t0, t1 = guard_controller(sub, "fit", d, 1, env)
+    log0 = guard_logs(d, 0)
+    if code != 0 or len(ctl.codes) != 2 or \
+            ctl.codes[0][0] != ELASTIC_EXIT_CODE or \
+            "PeerFailureError" not in log0 or "InjectedFault" not in log0:
+        raise AssertionError(f"[{tag}] ({sub}) exit {code}, incarnations' "
+                             f"codes {ctl.codes}; rank 0's log:\n"
+                             f"{log0[-3000:]}\nrank 1's log:\n"
+                             f"{guard_logs(d, 1)[-3000:]}")
+    crash = [e for e in ctl.records[0] if e.get("type") == "InjectedFault"]
+    if len(crash) != 1:
+        raise AssertionError(f"[{tag}] ({sub}) trapped records "
+                             f"{ctl.records}")
+    incs, resumed_at, last = {}, {}, 0.0
+    for r in range(2):
+        incs[r] = guard_incarnations(d, r)
+        by, first = guard_step_losses(d, r)
+        with open(os.path.join(d, f"steps.{r}.jsonl")) as f:
+            last = max([last] + [json.loads(ln)["t"] for ln in f])
+        got = [by[s][-1] for s in range(steps)]
+        twice = {s: v for s, v in by.items() if len(set(v)) > 1}
+        if [a for a, _ in incs[r]][:1] != [0] or len(incs[r]) != 2 or \
+                incs[r][1][0] < 1 or got != want[r][:steps] or twice:
+            raise AssertionError(f"[{tag}] ({sub}) r{r}: incarnations "
+                                 f"{incs[r]}, losses {got} vs (a) "
+                                 f"{want[r]} (steps run twice and parted: "
+                                 f"{twice})")
+        resumed_at[r] = first[incs[r][1][0]]
+    sources = {r: incs[r][1][1] for r in range(2)}
+    want_src = {0: "disk", 1: "disk"} if buddy_crash else \
+        {0: "self", 1: "peer"}
+    warned = "PeerRestoreWarning" in guard_logs(d, 1)
+    if sources != want_src or warned != buddy_crash or \
+            incs[0][1][0] != incs[1][1][0]:
+        raise AssertionError(f"[{tag}] ({sub}) restored from {sources} "
+                             f"(want {want_src}) at steps "
+                             f"{[incs[r][1][0] for r in range(2)]}; "
+                             f"PeerRestoreWarning in rank 1's log: "
+                             f"{warned}\n{guard_logs(d, 1)[-3000:]}")
+    res = guard_results(d, "fit")          # the relaunch's
+    start = incs[0][1][0]
+    n = steps - start
+    for o in res:
+        check_launches(dict.fromkeys(DROPOUT_KERNELS + ("adam",), 0) |
+                       o["launches"],
+                       dict({k: 12 * n for k in DROPOUT_KERNELS},
+                            adam=148 * n))
+    spare = {}
+    for r in range(2):
+        path = os.path.join(d, f"spare.{r}.0.json")
+        spare[r] = json.load(open(path)) if os.path.exists(path) else {}
+    if settle_at is not None and not spare[1].get("transfer_ms"):
+        raise AssertionError(f"[{tag}] ({sub}) rank 1 committed no "
+                             f"transfer to its buddy before the crash: "
+                             f"{spare[1]}")
+    firsts = guard_step_losses(d, 0)[1]
+    timeline = [round(x - t0, 1) for x in (
+        firsts[0], crash[0]["ts"], min(resumed_at.values()), last, t1)]
+    return dict(back_s=min(resumed_at.values()) - crash[0]["ts"],
+                job_s=t1 - t0, codes=ctl.codes, start=start,
+                sources=sources, spare=spare, relaunch=res,
+                seq=crash[0].get("seq"), timeline=timeline)
+
+
+def guard_mp2_drill(root, base, tag="train-guard"):
+    """(f): GPT-2 124M at dp 1 x mp 2 through fit saves a sharded
+    checkpoint (each rank its parts); a world-one job resumes it: the
+    restored parameters and moments equal the gathered shards bit for
+    bit, and its next epoch's losses equal a world-one run started from
+    that gathered state bit for bit."""
+    from paddle_tpu_torch.distributed.reshard import read_layout
+    from paddle_tpu_torch.framework.checkpoint_manager import scan_steps
+    f_dir = os.path.join(root, "f")
+    code, ctl, t0, t1 = guard_controller(
+        "f", "mp2", f_dir, 0, dict(base, FLAGS_collective_timeout_s="60"))
+    if code != 0:
+        raise AssertionError(f"[{tag}] (f) mp 2 job exit {code} {ctl.codes}"
+                             f"; rank 0:\n{guard_logs(f_dir, 0)[-3000:]}")
+    mp2 = guard_results(f_dir, "mp2")
+    n = GUARD_SAVE_EVERY
+    for o in mp2:
+        check_launches(dict.fromkeys(DROPOUT_KERNELS + ("adam",), 0) |
+                       o["launches"],
+                       dict({k: 12 * n for k in DROPOUT_KERNELS},
+                            adam=148 * n))
+    layout = read_layout(scan_steps(os.path.join(f_dir, "ckpt"))[0][1])
+    split = sorted(k for k, m in layout["arrays"].items()
+                   if "mp" in m["partition"])
+    t2 = time.time()
+    p = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--guard-child", "mp2-resume", f_dir],
+                       env=dict(os.environ, **base), capture_output=True,
+                       text=True, timeout=600)
+    out = os.path.join(f_dir, "mp2-resume.0.json")
+    if p.returncode != 0 or not os.path.exists(out):
+        raise AssertionError(f"[{tag}] (f) world-one job exit "
+                             f"{p.returncode}:\n{p.stdout[-3000:]}\n"
+                             f"{p.stderr[-3000:]}")
+    res = json.load(open(out))
+    a, b = res["a"], res["b"]
+    if not a["checked"] or not a["arrays_resharded"] or \
+            a["losses"] != b["losses"] or len(a["losses"]) != n or \
+            not all(np.isfinite(a["losses"])) or a["source"] != "disk":
+        raise AssertionError(f"[{tag}] (f) world one: resumed {a}, from the "
+                             f"gathered state {b}")
+    for o in (a, b):
+        check_launches(dict.fromkeys(DROPOUT_KERNELS + ("adam",), 0) |
+                       o["launches"],
+                       dict({k: 12 * n for k in DROPOUT_KERNELS},
+                            adam=148 * n))
+    log(f"[{tag}] (f) GPT-2 124M dp 1 x mp 2 (train-hybrid (c)'s model), "
+        f"bf16 O2, dropout 0.1: fit's {n} steps (losses "
+        f"{[round(x, 4) for x in mp2[0]['losses']]}) saved a sharded "
+        f"checkpoint over {layout['mesh']}: {len(split)} of "
+        f"{len(layout['arrays'])} arrays split \"mp\" (each rank its part;"
+        f" the fused q/k/v projections whole); job {t1 - t0:.1f} s.  A "
+        f"world-one job resumed it ({a['arrays_resharded']} arrays "
+        f"resharded, restore {a['restore_s']:.2f} s): its {a['checked']} "
+        f"parameter and optimizer tensors equal the gathered shards bit for "
+        f"bit, and its next {n} steps' losses {a['losses']} equal a "
+        f"world-one run started from the gathered state bit for bit; "
+        f"launches {a['launches']}; {time.time() - t2:.1f} s")
+
+
+def side_by_side(*jobs):
+    """Run each ``(key, fn)`` on a thread of its own (each a job of its
+    own on the card) and wait for all; raises the first failure."""
+    errors = {}
+
+    def run(key, fn):
+        try:
+            fn()
+        except BaseException as e:  # noqa: BLE001 — raised below
+            errors[key] = e
+    threads = [threading.Thread(target=run, args=job,
+                                name=f"train-guard-{job[0]}")
+               for job in jobs]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    for key, _ in jobs:
+        if key in errors:
+            raise errors[key]
 
 
 def phase_train_guard(dev):
     """train-guard: GPT-2 124M dp 2 (two ranks on the card, NCCL) under the
-    hang and failure guardian, launched by the port's launcher: (a) clean,
-    the guardian off and armed by turns; (b) rank 1 crashes inside step 4 -> relaunch, resume;
-    (c) a stalled all_reduce -> stall dump, abort; (d) a flaky rank ->
-    skip, blame, SentinelError, quarantine relaunch on one worker."""
+    hang and failure guardian, launched by the port's launcher: (a) the
+    guardian off, armed and armed with hot-spare snapshots by turns; (b)
+    through fit with sharded checkpoints and the hot spare, rank 1
+    crashes inside step 4 -> relaunch, rank 1 restored from its buddy's
+    memory; (c) a stalled all_reduce -> stall dump, abort; (d) a flaky
+    rank -> skip, blame, SentinelError, the quarantine relaunch on one
+    worker resuming (b)'s checkpoint resharded; (e) (b) with buddy_crash
+    -> the disk; (f) an mp 2 checkpoint restored at world one."""
     tag = "train-guard"
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the jobs' checkpoints, parked snapshots and logs
     root = tempfile.mkdtemp(prefix="train-guard-")
     saved = {k: os.environ.get(k) for k in (
         "PADDLE_GUARDIAN_PEER_GRACE_S", "PADDLE_GUARDIAN_TERM_GRACE_S",
@@ -7333,9 +7906,13 @@ def phase_train_guard(dev):
     base = {"FLAGS_compiled_train_step": "0", "PYTHONUNBUFFERED": "1",
             "FLAGS_flight_recorder_path": os.path.join(root, "fr.json")}
     try:
+        log(f"[{tag}] the jobs' files under {os.path.dirname(root)} "
+            f"({shutil.disk_usage(root).free / 1e9:.1f} GB free)")
         os.environ["PADDLE_GUARDIAN_TERM_GRACE_S"] = str(GUARD_TERM_GRACE_S)
-        # (a) clean: the guardian (a timeout set, the trap store on) armed
-        # and off by turns, in each rank
+        # any failure relaunches (up to each job's max_restart)
+        os.environ["PADDLE_ELASTIC_FAULT_TOLERANC_LEVEL"] = "1"
+        # (a) clean: the guardian (a timeout set, the trap store on) off,
+        # armed, and armed with a hot-spare snapshot by turns, in each rank
         a_dir = os.path.join(root, "a")
         code, ctl, t0, t1 = guard_controller(
             "a", "clean", a_dir, 0,
@@ -7347,111 +7924,155 @@ def phase_train_guard(dev):
         n = len(clean[0]["losses"])
         per_step = clean[0]["seqs"]
         for r, o in enumerate(clean):
+            sp = o["spare"]
             if [o["call_us"][k][1] for k in ("armed", "off")] != \
                     [True, False] or not all(np.isfinite(o["losses"])) or \
-                    o["in_flight"] or len(set(o["seqs"])) != 1:
+                    o["in_flight"] or len(set(o["seqs"])) != 1 or \
+                    sp["skipped"] or sp["failures"] or \
+                    len(sp["capture_ms"]) != GUARD_TURNS:
                 raise AssertionError(
                     f"[{tag}] (a) r{r}: losses {o['losses']}, tokens "
                     f"{o['call_us']}, in flight after a sync and a poll "
-                    f"{o['in_flight']}, dp collectives a step {o['seqs']}")
+                    f"{o['in_flight']}, dp collectives a step {o['seqs']}, "
+                    f"hot spare {sp}")
         if clean[0]["losses"] == clean[1]["losses"]:
             raise AssertionError(f"[{tag}] (a) the ranks' losses are equal: "
                                  "their rows are not their own")
         need = dict({k: 12 * n for k in DROPOUT_KERNELS}, adam=148 * n)
         for o in clean:
             check_launches(dict.fromkeys(need, 0) | o["launches"], need)
+        labels = clean[0]["labels"]
         p50 = {lane: [float(np.median([t for t, k in zip(
-            o["times"][1:], o["labels"][1:]) if k == lane])) for o in clean]
-            for lane in ("off", "armed")}
+            o["times"][1:], labels[1:]) if k == lane])) for o in clean]
+            for lane in GUARD_LANES}
         call_us = [{k: v[0] for k, v in o["call_us"].items()} for o in clean]
         log(f"[{tag}] (a) GPT-2 124M dp 2 (two ranks on one card, NCCL "
             f"socket), dropout 0.1, bf16 O2, AdamW, B{GUARD_ROWS} x S1024 a "
             f"rank, the eager lane: {n} steps, the guardian armed at step "
-            f"0, then off and armed by turns; job {t1 - t0:.1f} s")
+            f"0, then {GUARD_TURNS} turns of {'/'.join(GUARD_LANES)}; job "
+            f"{t1 - t0:.1f} s")
         for r, o in enumerate(clean):
             log(f"[{tag}] (a) r{r} losses {o['losses']}; launches "
                 f"{o['launches']}")
         fmt_ms = {k: [round(m, 2) for m in v] for k, v in p50.items()}
         calls = per_step[0] + 1               # and the step's barrier
-        log(f"[{tag}] (a) step p50 (steps 2-{n}, host ms to the loss read) "
-            f"by rank: off {fmt_ms['off']}, armed {fmt_ms['armed']}: the "
-            f"guardian's cost {max(p50['armed']) - max(p50['off']):+.2f} ms "
-            f"a step (slowest rank); a guarded call's host time (begin, "
-            f"preflight, end; no collective) "
+        cap = [float(np.median(o["spare"]["capture_ms"])) for o in clean]
+        log(f"[{tag}] (a) step p50 (steps 2-{n}, host ms to the loss read; "
+            f"a spare step's includes its snapshot's warm capture) by rank: "
+            f"off {fmt_ms['off']}, armed {fmt_ms['armed']}, spare "
+            f"{fmt_ms['spare']}: the guardian's cost "
+            f"{max(p50['armed']) - max(p50['off']):+.2f} ms a step, a "
+            f"snapshot step's over an armed one "
+            f"{max(p50['spare']) - max(p50['armed']):+.2f} ms (slowest "
+            f"rank; the capture alone p50 {[round(c, 1) for c in cap]} ms "
+            f"by rank; the stream ran under the off and armed steps after "
+            f"it and was waited out before the next spare step, outside "
+            f"the timing); a guarded call's host time "
+            f"(begin, preflight, end; no collective) "
             f"{[round(c['armed'], 1) for c in call_us]} us armed, "
             f"{[round(c['off'], 2) for c in call_us]} us off, x {calls} "
             f"calls a step = "
             f"{max(c['armed'] for c in call_us) * calls / 1e3:.2f} ms; dp "
             f"collectives a step {per_step[0]} and a barrier; store writes "
-            f"{[o['writes'] for o in clean]} an armed step by rank; every "
-            f"entry retired after a sync and one poll")
+            f"{[round(o['writes'], 2) for o in clean]} an armed step by "
+            f"rank; every entry retired after a sync and one poll")
+        for r, o in enumerate(clean):
+            sp = o["spare"]
+            log(f"[{tag}] (a) r{r} hot spare: {sp['snapshots']} snapshots "
+                f"of {sp['bytes'] / 1e9:.3f} GB over {GUARD_TURNS} spare "
+                f"steps (the pinned buffers filled before the first), "
+                f"capture {[round(x, 1) for x in sp['capture_ms']]} ms, "
+                f"transfer to the buddy "
+                f"{[round(x, 1) for x in sp['transfer_ms']]} ms, "
+                f"{sp['failures']} failed")
         want = {r: clean[r]["losses"][:GUARD_STEPS] for r in range(2)}
         seqs = [k * per_step[0] for k in range(GUARD_STEPS)]
-
-        # (b) rank 1 crashes at a collective inside step 4 (once)
-        b_dir = os.path.join(root, "b")
         at = seqs[4] + (seqs[5] - seqs[4]) // 2   # step 4's middle one
+
+        # (b) through fit: sharded checkpoints, the hot spare; rank 1
+        # crashes at a collective inside step 4 (once); beside it (e), the
+        # same with buddy_crash over 4 steps, rank 1 crashing inside step 2
+        # (the disk rung against the peer's, under the same load), and (f)
+        # mp 2 -> world one
+        def drill_b():
+            b = guard_spare_drill(root, base, at, want, "b", False,
+                                  GUARD_STEPS)
+            sp = b["spare"]
+            tms = [t for r in sp for t in sp[r].get("transfer_ms", [])]
+            rel = {r: o for r, o in enumerate(b["relaunch"])}
+            log(f"[{tag}] (b) fit, a sharded ModelCheckpoint every "
+                f"{GUARD_SAVE_EVERY} steps, FLAGS_hot_spare_every "
+                f"{GUARD_SPARE_EVERY}: rank 1 crashed at collective seq "
+                f"{b['seq']} (inside step 4): rank 0 exit "
+                f"{b['codes'][0][0]} with PeerFailureError carrying the "
+                f"InjectedFault, codes {b['codes']}; the relaunch restored "
+                f"rank 1 from its buddy's memory (restored_from="
+                f"{b['sources'][1]}) and rank 0 from its own parked copy "
+                f"({b['sources'][0]}) at iteration {rel[1]['it']}, resuming "
+                f"at step {b['start']}; both ranks' losses equal (a)'s bit "
+                f"for bit; crash -> the resumed first step "
+                f"{b['back_s']:.1f} s (from disk before the hot spare: "
+                f"13.9-22.1 s, PERF.md); job "
+                f"{b['job_s']:.1f} s (the first step ended, the crash, the "
+                f"resumed first step ended, the last step ended, the job "
+                f"ended at {b['timeline']} s)")
+            log(f"[{tag}] (b) hot spare before the crash: snapshots "
+                f"{[sp[r].get('snapshots') for r in (0, 1)]} of "
+                f"{[round(sp[r].get('bytes', 0) / 1e9, 3) for r in (0, 1)]}"
+                f" GB, cadences skipped "
+                f"{[sp[r].get('skipped') for r in (0, 1)]}, capture ms "
+                f"{[[round(x, 1) for x in sp[r].get('capture_ms', [])] for r in (0, 1)]}"
+                f", ckpt.peer.transfer_ms p50 "
+                f"{float(np.median(tms)) if tms else float('nan'):.1f} (all "
+                f"{[round(x, 1) for x in tms]}); rank 0's park "
+                f"{sp[0].get('park_ms') or float('nan'):.1f} ms, "
+                f"{sp[0].get('park_bytes', 0) / 1e9:.3f} GB; the peer "
+                f"restore {[round(rel[r]['restore_s'], 2) for r in (0, 1)]}"
+                f" s by rank; step p50 with the agent on (the relaunch, "
+                f"fit) "
+                f"{[round(float(np.median(rel[r]['times'])), 1) for r in (0, 1)]}"
+                f" ms")
+            shutil.rmtree(os.path.join(root, "b", "logs", "guardian"),
+                          ignore_errors=True)
+
+        def drill_e():
+            # rank 1's snapshot of iteration 2 committed at its buddy
+            # before step 2, which it crashes inside: the fall-through is
+            # buddy_crash's, not a missing replica's
+            at_e = seqs[2] + (seqs[3] - seqs[2]) // 2
+            e = guard_spare_drill(root, base, at_e, want, "e", True, 4,
+                                  settle_at=2)
+            sp1 = e["spare"][1]
+            log(f"[{tag}] (e) buddy_crash on rank 1's relaunch: its "
+                f"replica stood at the buddy ({len(sp1['transfer_ms'])} "
+                f"committed transfer(s) before the crash, "
+                f"{[round(x, 1) for x in sp1['transfer_ms']]} ms), yet a "
+                f"PeerRestoreWarning in its log, every rank fell back to the "
+                f"sharded checkpoint (restored_from {e['sources']}, "
+                f"{[o['arrays_resharded'] for o in e['relaunch']]} arrays "
+                f"resharded: the same dp 2 layout, the fast path; restore "
+                f"{[round(o['restore_s'], 2) for o in e['relaunch']]} s by "
+                f"rank), rank 1 crashed at seq {e['seq']} (inside step 2), "
+                f"resuming at step {e['start']}; both ranks' losses equal "
+                f"(a)'s bit for bit; crash -> the resumed first step "
+                f"{e['back_s']:.1f} s; job {e['job_s']:.1f} s (timeline "
+                f"{e['timeline']} s)")
+            shutil.rmtree(os.path.join(root, "e"), ignore_errors=True)
+        # (f) never fails: the grace is (b)'s and (e)'s
         os.environ["PADDLE_GUARDIAN_PEER_GRACE_S"] = "20"
-        code, ctl, t0, t1 = guard_controller(
-            "b", "drill", b_dir, 1, dict(
-                base, FLAGS_collective_timeout_s="60",
-                FLAGS_fault_inject=f"rank_crash:op=all_reduce,at_seq={at},"
-                f"rank=1,"
-                f"once_file={os.path.join(b_dir, 'crashed')}"))
-        log0 = guard_logs(b_dir, 0)
-        if code != 0 or len(ctl.codes) != 2 or \
-                ctl.codes[0][0] != ELASTIC_EXIT_CODE or \
-                "PeerFailureError" not in log0 or "InjectedFault" not in log0:
-            raise AssertionError(f"[{tag}] (b) exit {code}, incarnations' "
-                                 f"codes {ctl.codes}; rank 0's log:\n"
-                                 f"{log0[-3000:]}")
-        crash = [e for e in ctl.records[0] if e.get("type") == "InjectedFault"]
-        resumed_at = {}
-        for r in range(2):
-            starts = [int(x) for x in open(os.path.join(
-                b_dir, f"incarnations.{r}.log")).read().split()]
-            by, first = guard_step_losses(b_dir, r)
-            got = [by[s][-1] for s in range(GUARD_STEPS)]
-            twice = {s: v for s, v in by.items() if len(set(v)) > 1}
-            if starts[0] != 0 or len(starts) != 2 or starts[1] < 1 or \
-                    got != want[r] or twice:
-                raise AssertionError(f"[{tag}] (b) r{r}: incarnations "
-                                     f"{starts}, losses {got} vs (a) "
-                                     f"{want[r]} (steps run twice and "
-                                     f"parted: {twice})")
-            resumed_at[r] = first[starts[1]]
-        if len(crash) != 1:
-            raise AssertionError(f"[{tag}] (b) trapped records "
-                                 f"{ctl.records}")
-        back_s = min(resumed_at.values()) - crash[0]["ts"]
-        log(f"[{tag}] (b) rank 1 crashed at collective seq {at} (inside "
-            f"step 4): rank 0 exit {ctl.codes[0][0]} with PeerFailureError "
-            f"carrying the InjectedFault, codes {ctl.codes}; incarnations "
-            f"start at {starts}; both ranks' losses equal (a)'s bit for "
-            f"bit (armed throughout against off and armed by turns); crash "
-            f"-> the resumed first step {back_s:.1f} s; job {t1 - t0:.1f} s")
+        side_by_side(("b", drill_b), ("e", drill_e),
+                     ("f", lambda: guard_mp2_drill(root, base)))
+        shutil.rmtree(os.path.join(root, "f"), ignore_errors=True)
 
         # (c) rank 1 stalls at step 1's first all_reduce, beside (d)
-        # grad_bitflip on rank 1 twice under the sentinel (a job of its
-        # own: a thread)
+        # grad_bitflip on rank 1 twice under the sentinel and its
+        # quarantine relaunch on (b)'s last checkpoint (three jobs at once
+        # is what the card's memory holds)
         os.environ["PADDLE_GUARDIAN_PEER_GRACE_S"] = str(GUARD_PEER_GRACE_S)
-        os.environ["PADDLE_ELASTIC_FAULT_TOLERANC_LEVEL"] = "1"
-        flaky = {}
-
-        def run_flaky():
-            try:
-                guard_flaky_drill(root, base)
-            except BaseException as e:  # noqa: BLE001 — raised below
-                flaky["error"] = e
-
-        th = threading.Thread(target=run_flaky, name="train-guard-d")
-        th.start()
-        try:
-            guard_stall(root, base, seqs[1])
-        finally:
-            th.join()
-        if "error" in flaky:
-            raise flaky["error"]
+        side_by_side(
+            ("c", lambda: guard_stall(root, base, seqs[1])),
+            ("d", lambda: guard_flaky_drill(
+                root, base, os.path.join(root, "b", "ckpt"))))
     finally:
         for k, v in saved.items():
             if v is None:

@@ -9,7 +9,8 @@ and `spawn`, the mesh, placements and hybrid topology, `DataParallel`,
 ``recompute``, ``elastic``: `ElasticManager` and `PreemptionHandler`),
 and the serving fleet's transports: the rpc plane (`rpc`) and the
 key-value stores (`store`: `TCPStore` over ``csrc/tcp_store.cpp``,
-`FileKVStore`, `TCPElasticStore`)."""
+`FileKVStore`, `TCPElasticStore`), and sharded checkpoints with the
+elastic reshard (`checkpoint`, `reshard`)."""
 from . import env, watchdog  # noqa: E402,F401
 from .collective import (Group, P2POp, ReduceOp, all_gather, all_reduce,
                          all_to_all, barrier, batch_isend_irecv, broadcast,
@@ -24,14 +25,26 @@ from .topology import (HybridCommunicateGroup, get_hybrid_communicate_group,
                        set_hybrid_communicate_group)
 from .watchdog import (CollectiveTimeoutError, DesyncError, GuardianError,
                        PeerFailureError)
+from . import checkpoint  # noqa: E402,F401
+from .checkpoint import (CheckpointManager, DistributedSaver,  # noqa: E402
+                         load_state_dict, restore_latest, save_checkpoint,
+                         save_state_dict)
+from .reshard import (LayoutError, LayoutMismatchError,  # noqa: E402
+                      MeshSpec, ShardedCheckpointer, offer_shards,
+                      restore_latest_resharded, restore_resharded)
 from . import fleet  # noqa: E402,F401
 from . import launch  # noqa: E402,F401
 from . import spawn as spawn_mod  # noqa: E402,F401
 from .spawn import spawn  # noqa: E402,F401
 
-__all__ = ["CollectiveTimeoutError", "DataParallel", "DesyncError",
-           "Group", "GuardianError", "HybridCommunicateGroup", "P2POp",
-           "PeerFailureError",
+__all__ = ["CheckpointManager", "CollectiveTimeoutError", "DataParallel",
+           "DesyncError", "DistributedSaver",
+           "Group", "GuardianError", "HybridCommunicateGroup",
+           "LayoutError", "LayoutMismatchError", "MeshSpec", "P2POp",
+           "PeerFailureError", "ShardedCheckpointer", "checkpoint",
+           "load_state_dict", "offer_shards", "restore_latest",
+           "restore_latest_resharded", "restore_resharded",
+           "save_checkpoint", "save_state_dict",
            "ParallelEnv", "Partial", "Placement", "ProcessMesh", "ReduceOp",
            "Replicate", "Shard", "all_gather", "all_reduce", "all_to_all",
            "barrier", "batch_isend_irecv", "broadcast", "device_count",

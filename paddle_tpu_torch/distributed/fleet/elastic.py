@@ -7,9 +7,15 @@ node liveness, scale events and the relaunch protocol (reference:
 TCP store when ``PADDLE_ELASTIC_SERVER`` names one), and its `watch`
 turns a membership change into ``ElasticStatus.RESTART``, whose
 `exit_code` is ``ELASTIC_EXIT_CODE``: the launch controller's restart
-loop (`distributed.launch.controller`) relaunches on it.  The JAX
-module's ``plan_topology``, ``resized_worlds`` and ``reshard_mesh_for``
-belong to the elastic reshard, which is not ported (ROADMAP A8).
+loop (`distributed.launch.controller`) relaunches on it.
+
+The resize planner (`plan_topology`, `resized_worlds`, `reshard_mesh_for`)
+names the dp×mp mesh a relaunched world reshards its checkpoint onto
+(`distributed.reshard`): ``PADDLE_RESHARD_MESH`` first, else pure dp over
+the new world.  JAX plans a ``model_desc`` through
+``cost_model.plan_layout``, which is not ported: a description raises
+`NotImplementedError` (ROADMAP A8) rather than falling back to pure dp as
+if none had been given.
 
 Cooperative preemption (`PreemptionHandler`):
 SIGTERM (a preemptible machine's eviction notice) sets a flag and dumps
@@ -35,6 +41,49 @@ import threading
 import time
 
 ELASTIC_EXIT_CODE = 101
+_PLAN = ("plan_topology(model_desc=...): the auto-layout planner "
+         "(cost_model.plan_layout) is not ported (ROADMAP A8)")
+
+
+def plan_topology(world_size, model_desc=None):
+    """The dp×mp factorisation of a (resized) world: pure dp without a
+    model description; a description raises (its planner is not
+    ported)."""
+    world_size = int(world_size)
+    if model_desc:
+        raise NotImplementedError(_PLAN)
+    return {"dp": world_size, "mp": 1}
+
+
+def resized_worlds():
+    """``(old_world, new_world)`` when this incarnation was relaunched
+    after an elastic resize (the controller exports
+    ``PADDLE_ELASTIC_RESIZED="old:new"``), else None."""
+    raw = os.environ.get("PADDLE_ELASTIC_RESIZED", "")
+    if not raw or ":" not in raw:
+        return None
+    old, _, new = raw.partition(":")
+    try:
+        return int(old), int(new)
+    except ValueError:
+        return None
+
+
+def reshard_mesh_for(world_size, model_desc=None):
+    """The `distributed.reshard.MeshSpec` a resumed job reshards onto:
+    ``PADDLE_RESHARD_MESH`` (JSON ``{"axes": .., "shape": ..}``) wins,
+    else `plan_topology`'s for ``world_size``."""
+    import json
+
+    from ..reshard import MeshSpec
+    raw = os.environ.get("PADDLE_RESHARD_MESH")
+    if raw:
+        obj = json.loads(raw)
+        return MeshSpec(obj["axes"], obj["shape"])
+    plan = plan_topology(world_size, model_desc=model_desc)
+    if plan.get("mp", 1) > 1:
+        return MeshSpec(("dp", "mp"), (plan["dp"], plan["mp"]))
+    return MeshSpec(("dp",), (int(world_size),))
 
 
 class PreemptionHandler:

@@ -29,8 +29,10 @@ collective never hangs the controller.  A rank the training sentinel
 blamed (``{job}/sentinel/blame``) is quarantined at the relaunch: the
 world shrinks by one and the workers get ``PADDLE_ELASTIC_RESIZED``.
 
-The hot-spare buddy map (`_advertise_hot_spare`) is not ported: with
-``FLAGS_hot_spare`` set it raises (ROADMAP A8), else it does nothing.
+Each incarnation's hot-spare buddy ring (`framework.hot_spare`) is
+advertised in the guardian store (`_advertise_hot_spare`), with the old
+world when the sentinel's quarantine resized it, so a relaunched worker
+knows which rank holds its replica before its own mesh exists.
 """
 from __future__ import annotations
 
@@ -44,8 +46,6 @@ import time
 from .context import Context, free_port
 
 ELASTIC_EXIT_CODE = 101  # reference: fleet/elastic/manager.py:32
-_HOT_SPARE = ("FLAGS_hot_spare: the hot-spare buddy map is not ported "
-              "(ROADMAP A8)")
 
 
 def _fault_level():
@@ -98,12 +98,31 @@ class CollectiveController:
         sys.stderr.flush()
         return errs
 
+    def _hot_spare_store(self):
+        """The store the buddy map is advertised in: the guardian store
+        the workers dial."""
+        return self._trap.store if self._trap is not None else None
+
     def _advertise_hot_spare(self, world):
-        """JAX publishes the hot-spare buddy ring of the incarnation here;
-        the port has no hot-spare layer (ROADMAP A8)."""
-        from ...utils.flags import flag
-        if flag("FLAGS_hot_spare", False):
-            raise NotImplementedError(_HOT_SPARE)
+        """Publish this incarnation's hot-spare buddy ring (always: the
+        flag lives in the workers, and a map nobody reads is a few
+        bytes).  A store that cannot be reached is reported, not
+        fatal: the workers' ladder then falls through to the disk,
+        loudly."""
+        from ...framework.hot_spare import advertise_buddy_map
+        store = self._hot_spare_store()
+        if store is None:
+            return
+        resized = getattr(self, "_extra_env", {}).get(
+            "PADDLE_ELASTIC_RESIZED")
+        old = int(resized.split(":")[0]) if resized else None
+        try:
+            advertise_buddy_map(store, self.ctx.args.job_id, world,
+                                resized_from=old)
+        except (OSError, ConnectionError, TimeoutError) as e:
+            sys.stderr.write(
+                f"[launch] hot-spare buddy-map advertise failed: {e}\n")
+            sys.stderr.flush()
 
     def _device_env(self, local_rank, nlocal):
         """``LOCAL_WORLD_SIZE``, and the card of a rank that shares one."""
@@ -290,6 +309,19 @@ class ElasticCollectiveController(CollectiveController):
         # pods may share no filesystem: workers dial the rendezvous TCP
         # store (the KV the KVMaster heartbeat loop polls)
         return {"PADDLE_GUARDIAN_STORE": self.master}
+
+    def _hot_spare_store(self):
+        # the TCP store the workers' guardian_store() dials: the parked
+        # snapshots live in the master's memory
+        from ..store import TCPStore
+        host, _, port = str(self.master).partition(":")
+        try:
+            return TCPStore(host, int(port), timeout=5.0)
+        except (OSError, ConnectionError, TimeoutError) as e:
+            sys.stderr.write(f"[launch] hot-spare store {self.master} "
+                             f"unreachable: {e}\n")
+            sys.stderr.flush()
+            return None
 
     def _guardian_blame(self):
         errs = self.kv.peer_errors()

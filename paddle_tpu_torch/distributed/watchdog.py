@@ -580,6 +580,7 @@ class CollectiveWatchdog:
             f"with exit code {e.exit_code} so the controller can reap "
             "this rank\n")
         sys.stderr.flush()
+        run_exit_hooks()
         os._exit(e.exit_code)
 
     def _write_stall_dump(self, e, exc):
@@ -636,6 +637,28 @@ def _auto_trap():
                      rank=_guardian_rank())
 
 
+#: callables run before the guardian ends a rank by ``os._exit`` (a
+#: peer's failure, a hard abort): the hot-spare agent's park
+_EXIT_HOOKS = []
+
+
+def add_exit_hook(fn):
+    """Run ``fn()`` before the guardian ends this rank (once each)."""
+    if fn not in _EXIT_HOOKS:
+        _EXIT_HOOKS.append(fn)
+
+
+def run_exit_hooks():
+    """Run the exit hooks; a failing one is reported and the next runs."""
+    for fn in list(_EXIT_HOOKS):
+        try:
+            fn()
+        except Exception as e:  # noqa: BLE001 — the rank exits anyway
+            sys.stderr.write(f"[guardian] exit hook "
+                             f"{getattr(fn, '__name__', fn)} failed: {e}\n")
+            sys.stderr.flush()
+
+
 def _install_trap_hook(trap):
     """Chain ``sys.excepthook``: any unhandled exception is recorded for
     the peers before the process dies (the cross-rank error trap)."""
@@ -659,6 +682,7 @@ def _install_trap_hook(trap):
             # cooperative relaunch code makes the controller restart the
             # job instead of counting a second independent fault
             sys.stderr.flush()
+            run_exit_hooks()
             os._exit(ELASTIC_EXIT_CODE)
 
     sys.excepthook = _hook

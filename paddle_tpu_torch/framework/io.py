@@ -11,8 +11,11 @@ every other type are stored as numpy arrays of their own type.
 `load` reads the port's files and the JAX package's: its unpickler maps
 ``paddle_tpu.framework.io._TensorState`` to the port's class and reads
 an ``ml_dtypes`` array (how the JAX package pickles bfloat16) through
-its bits, so neither JAX nor ``ml_dtypes`` is imported.  Any other
-global of ``paddle_tpu``, ``jax`` or ``ml_dtypes`` is refused.
+its bits, so neither JAX nor ``ml_dtypes`` is imported; a sharded
+checkpoint's files (`distributed.reshard`) name the JAX package's
+``_ArrayRef`` and the ``ml_dtypes`` types through ``importlib`` /
+``getattr`` reductions, which it reads the same way.  Any other global
+of ``paddle_tpu``, ``jax`` or ``ml_dtypes`` is refused.
 """
 from __future__ import annotations
 
@@ -172,6 +175,47 @@ def _np_dtype(obj, align=False, copy=False):
     return np.dtype(obj, align, copy)
 
 
+def _np_frombuffer(buf, dtype, shape, order):
+    """numpy's ``_frombuffer`` (protocol 5 arrays); an ``ml_dtypes`` type
+    reads as its bits (`_RawArray`)."""
+    if isinstance(dtype, _PendingDtype):
+        r = _RawArray()
+        bits = np.frombuffer(buf, dtype=_BIT_TYPES[dtype.name][1])
+        r.bits = bits.reshape(shape, order=order)
+        r.dtype_name = dtype.name
+        return r
+    return np.frombuffer(buf, dtype=dtype).reshape(shape, order=order)
+
+
+class _ModuleRef:
+    """``importlib.import_module(name)`` in a pickle, never imported: the
+    port writes the JAX package's globals this way
+    (`distributed.reshard`)."""
+
+    _READABLE = ("ml_dtypes", "paddle_tpu.distributed.reshard")
+
+    def __init__(self, name):
+        if name not in self._READABLE:
+            raise pickle.UnpicklingError(
+                f"refusing to import module {name!r} from a pickle")
+        self.name = name
+
+
+def _getattr(obj, name):
+    """``getattr(module, name)`` in a pickle: a module of `_ModuleRef`'s
+    list only."""
+    if not isinstance(obj, _ModuleRef):
+        raise pickle.UnpicklingError(
+            f"refusing getattr({type(obj).__name__}, {name!r}) in a pickle")
+    if obj.name == "ml_dtypes":
+        return _MlType(name)
+    if name == "_ArrayRef":
+        from ..distributed.reshard import _ArrayRef
+        return _ArrayRef
+    raise pickle.UnpicklingError(
+        f"refusing to load the global {obj.name}.{name}")
+
+
 def _np_scalar(dtype, raw=None):
     if isinstance(dtype, _PendingDtype):
         r = _RawArray()
@@ -189,6 +233,17 @@ class _Unpickler(pickle.Unpickler):
     def find_class(self, module, name):
         if (module, name) == ("paddle_tpu.framework.io", "_TensorState"):
             return _TensorState
+        if (module, name) == ("paddle_tpu.distributed.reshard",
+                              "_ArrayRef"):
+            from ..distributed.reshard import _ArrayRef
+            return _ArrayRef
+        if (module, name) == ("importlib", "import_module"):
+            return _ModuleRef
+        if (module, name) == ("builtins", "getattr"):
+            return _getattr
+        if module in ("numpy._core.numeric", "numpy.core.numeric") and \
+                name == "_frombuffer":
+            return _np_frombuffer
         if module == "ml_dtypes":
             return _MlType(name)
         if module in ("numpy._core.multiarray", "numpy.core.multiarray"):

@@ -36,8 +36,11 @@ and of the ranks that caused it.
    knows the blame, and the launch controller relaunches without the
    blamed rank (`distributed.launch.controller._apply_quarantine`).
 
-``FLAGS_hot_spare`` (the peer snapshot a rollback may prefer) raises:
-hot-spare recovery is not ported (ROADMAP A8).
+5. **The peer-snapshot rung.**  With ``FLAGS_hot_spare`` a rollback
+   prefers the hot-spare agent's newest validated own snapshot over the
+   anchor when it is fresher (`_peer_candidate`,
+   `framework.hot_spare.sentinel_candidate`; ``ckpt.peer.restores``); a
+   staler one is skipped and counted (``ckpt.peer.stale_skipped``).
 """
 from __future__ import annotations
 
@@ -57,8 +60,6 @@ from ..utils.flags import flag as _flag
 from ..utils.log import get_logger
 
 BLAME_MIN_ANOMALIES = 2
-_HOT_SPARE = ("FLAGS_hot_spare: the sentinel's peer-snapshot rung is not "
-              "ported (ROADMAP A8)")
 
 
 def sentinel_enabled():
@@ -206,8 +207,6 @@ class TrainingSentinel:
 
     def __init__(self, model=None, manager=None, nranks=1, rank=0,
                  trap=None):
-        if _flag("FLAGS_hot_spare", False):
-            raise NotImplementedError(_HOT_SPARE)
         self.model = model
         self.manager = manager
         self.nranks = int(nranks)
@@ -518,6 +517,20 @@ class TrainingSentinel:
                     "without it")
             return None
         anchor = self._load_anchor()
+        # the hot-spare rung: a validated own snapshot fresher than the
+        # anchor redoes fewer iterations; a staler one never rewinds past
+        # the anchor
+        restored_from = "anchor"
+        candidate = self._peer_candidate()
+        if candidate is not None:
+            cand_it = int(candidate[1].get("it", 0))
+            anchor_it = int(anchor[1].get("it", -1)) if anchor else -1
+            if cand_it > anchor_it:
+                anchor = candidate
+                restored_from = "peer-snapshot"
+                _registry.counter("ckpt.peer.restores").inc()
+            else:
+                _registry.counter("ckpt.peer.stale_skipped").inc()
         if anchor is None:
             self.dump(action="no-anchor", step=it)
             self._log.warning("sentinel: rollback wanted (%s) but no "
@@ -536,10 +549,20 @@ class TrainingSentinel:
                                       book.get("next_step", 0), reason)
         self.dump(action="rollback", step=it, anchor_step=directive.it)
         self._log.warning(
-            "sentinel: %s at iteration %d: rolled back to the anchor "
+            "sentinel: %s at iteration %d: rolled back to the %s "
             "(it=%d, epoch=%d), %d iteration(s) quarantined", reason, it,
-            directive.it, directive.epoch, len(self._quarantine))
+            restored_from, directive.it, directive.epoch,
+            len(self._quarantine))
         return directive
+
+    def _peer_candidate(self):
+        """The hot-spare agent's newest validated own snapshot as
+        ``(state, book)``, or None (the flag off, no agent, no snapshot,
+        or a failed check, which warned)."""
+        if not _flag("FLAGS_hot_spare", False):
+            return None
+        from . import hot_spare
+        return hot_spare.sentinel_candidate()
 
     # ---- dump ----------------------------------------------------------
     def dump(self, action, step, anchor_step=None, per_rank=None,

@@ -10,9 +10,6 @@ import time
 
 import torch
 
-_A8 = ("ModelCheckpoint with more than one rank: the sharded checkpointer "
-       "is not ported (ROADMAP A8)")
-
 
 class Callback:
     def __init__(self):
@@ -112,6 +109,17 @@ class ModelCheckpoint(Callback):
     crash or preemption; ``max_to_keep`` bounds the directory.
     ``final.pdparams`` is written at the end of training.
 
+    With more than one rank every rank writes its own shard file into one
+    ``ckpt-N`` directory and rank 0 commits the manifest with its layout
+    section (`distributed.reshard.ShardedCheckpointer` over the model's
+    `Model._checkpoint_mesh_spec`), so a resized relaunch reshards on
+    resume.  At mp 1 every rank writes the full state (JAX's layout); at
+    mp above 1 a rank writes its own part of each tensor a
+    tensor-parallel layer splits (``local``), with the split as its
+    partition, and a fused projection's tensors (q, k and v in each part)
+    gathered whole.  A sharded save is synchronous; ``final.pdparams`` is
+    rank 0's, at mp 1 only.
+
     With ``async_save`` the manager writes on a background thread while
     training goes on.  The compiled train step updates the parameters,
     masters and moments in place, so `_state` clones every tensor of the
@@ -132,14 +140,24 @@ class ModelCheckpoint(Callback):
     @property
     def manager(self):
         if self._manager is None and self.save_dir:
-            if getattr(self.model, "_nranks", 1) > 1:
-                raise NotImplementedError(_A8)
+            if self._sharded():
+                from ..distributed.reshard import ShardedCheckpointer
+                spec = self.model._checkpoint_mesh_spec()
+                self._manager = ShardedCheckpointer(
+                    self.save_dir, spec, rank=self.model._rank,
+                    partition_fn=self.model._checkpoint_partition(spec),
+                    local=True, max_to_keep=self.max_to_keep,
+                    map_location=self.model._device())
+                return self._manager
             from ..framework.checkpoint_manager import CheckpointManager
             self._manager = CheckpointManager(
                 self.save_dir, max_to_keep=self.max_to_keep,
                 async_save=self.async_save,
                 map_location=self.model._device())
         return self._manager
+
+    def _sharded(self):
+        return getattr(self.model, "_nranks", 1) > 1
 
     def _state(self, next_epoch):
         """``(state, ready)``: the checkpoint's state and, for an async
@@ -155,6 +173,8 @@ class ModelCheckpoint(Callback):
             # a few ints: the input resumes mid-epoch from these
             state["data_pipeline"] = pipe.state_dict()
         ready = None
+        if self._sharded():
+            return self.model._gather_fused(state), None
         if self.async_save:
             state = _clone_tensors(state)
             dev = self.model._device()
@@ -168,7 +188,7 @@ class ModelCheckpoint(Callback):
         boundary after SIGTERM)."""
         if self.manager is not None:
             state, ready = self._state(next_epoch)
-            if self.async_save:
+            if self.async_save and not self._sharded():
                 self.manager.save(
                     state, before_write=None if ready is None
                     else ready.synchronize)
@@ -183,7 +203,9 @@ class ModelCheckpoint(Callback):
         if self.save_dir:
             if self._manager is not None:
                 self._manager.wait()
-            self.model.save(os.path.join(self.save_dir, "final"))
+            if not self._sharded() or (self.model._rank == 0 and
+                                       not self.model._checkpoint_splits()):
+                self.model.save(os.path.join(self.save_dir, "final"))
 
 
 class EarlyStopping(Callback):

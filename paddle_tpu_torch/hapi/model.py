@@ -58,10 +58,28 @@ guardian store and the blame follows (`framework.sentinel`); it gets no
 persistent anomaly skips, blames and raises `SentinelError` for the
 launch controller's quarantine relaunch.
 
+Sharded checkpoints and the elastic reshard: with more than one rank the
+``ModelCheckpoint`` writes a shard file a rank (`distributed.reshard`)
+over `_checkpoint_mesh_spec` (the mesh's axes above size 1, else dp over
+the world), and ``fit(resume=...)`` restores the newest valid one
+resharded onto `_resume_target_mesh` (``PADDLE_RESHARD_MESH`` first):
+the same layout takes the fast path, a resized world or another dp×mp
+factorisation assembles each tensor, and a layout that cannot map raises
+`LayoutMismatchError`; a checkpoint without a layout loads whole.  Values
+are copied into the existing tensors, so a captured step still reads
+them; ``last_resume`` records the source, the report and the seconds.
+
+Hot-spare recovery (``FLAGS_hot_spare``, `framework.hot_spare`): fit arms
+the process's agent, snapshots ``_hot_spare_state`` every
+``FLAGS_hot_spare_every`` updates at the step boundary (streamed to the
+ring buddy), parks on a preemption or a peer's failure (not at a
+finished fit's end, unlike JAX: nothing relaunches, and the snapshot is
+older than the last checkpoint), and a resume climbs the ladder: the
+peer's copy (every rank must restore the same iteration, else all of
+them go to the disk, loudly), then the disk.
+
 Not ported, each raising `NotImplementedError` with its ROADMAP label:
-``prepare(jit=True)`` (A9), a manifest with a shard layout,
-``FLAGS_hot_spare``, a ``ModelCheckpoint`` with more than one rank (A8),
-``summary`` (A9).
+``prepare(jit=True)`` (A9), ``summary`` (A9).
 """
 from __future__ import annotations
 
@@ -80,10 +98,6 @@ from ..utils.flags import flag as _flag
 from .callbacks import config_callbacks
 
 _JIT = "prepare(jit=True): to_static is not ported (ROADMAP A9, jit)"
-_LAYOUT = ("resume from a checkpoint with a shard layout: resharded "
-           "restore is not ported (ROADMAP A8)")
-_HOT_SPARE = ("FLAGS_hot_spare: hot-spare recovery is not ported "
-              "(ROADMAP A8)")
 _SUMMARY = "Model.summary is not ported (ROADMAP A9)"
 
 
@@ -148,6 +162,10 @@ class Model:
         # the global iteration the sentinel's fault points read (fit sets it)
         self._fi_step = None
         self.step_metrics = None
+        # the last resume: {"source", "report", "seconds", "step"}
+        self.last_resume = None
+        # (epoch, batches to pass over) after a resume mid-epoch
+        self._resume_skip = None
 
     def _device(self):
         for p in self.network.parameters():
@@ -383,8 +401,6 @@ class Model:
         from ..data import Pipeline
         from ..observability import StepMetrics, maybe_start_exporter
         from .callbacks import ModelCheckpoint
-        if _flag("FLAGS_hot_spare", False):
-            raise NotImplementedError(_HOT_SPARE)
         loader = self._as_loader(train_data, batch_size, shuffle)
         eval_loader = self._as_loader(eval_data, batch_size, False)
         self._data_pipeline = loader if isinstance(loader, Pipeline) \
@@ -406,8 +422,10 @@ class Model:
                         if isinstance(c, ModelCheckpoint)), None)
 
         initial_epoch = 0
+        self._resume_skip = None
         if resume:
-            initial_epoch = self._resume_from(resume, save_dir, ckpt_cb)
+            initial_epoch = self._resume_from(resume, save_dir, ckpt_cb,
+                                              steps=steps)
 
         handler = None
         if ckpt_cb is not None and ckpt_cb.save_dir:
@@ -415,6 +433,9 @@ class Model:
             handler = PreemptionHandler().install()
 
         sentinel = self._install_sentinel(ckpt_cb)
+        # hot-spare recovery: None with the flag off (one attribute read
+        # a step)
+        hot_spare_agent = self._install_hot_spare()
 
         # telemetry: the step metrics, the exporter thread when its flag
         # names a path; the step's FLOPs counted once, on the first batch
@@ -432,12 +453,15 @@ class Model:
         logs = {}
         if sentinel is not None:
             sentinel.begin(it=0, epoch=initial_epoch)
+        finished = False
         try:
             epoch = initial_epoch
             # after a rollback: redo the anchor's epoch, passing over (not
             # training on) the batches before the anchor; the loader's
-            # fixed order maps an iteration to the same batch on a replay
-            replay_epoch, replay_from = None, -1
+            # fixed order maps an iteration to the same batch on a replay.
+            # A peer resume mid-epoch passes over the epoch's batches the
+            # snapshot had trained on the same way.
+            replay_epoch, replay_from = self._resume_skip or (None, -1)
             while epoch < epochs:
                 cbs.call("on_epoch_begin", epoch)
                 sampler = getattr(loader, "batch_sampler", None)
@@ -484,6 +508,10 @@ class Model:
                         self._sync_compiled_state()
                         ckpt_cb.save_now(next_epoch=epoch)
                         ckpt_cb.manager.wait()
+                        if hot_spare_agent is not None:
+                            # memory dies with the relaunch: park every
+                            # snapshot held in the guardian store
+                            hot_spare_agent.park()
                         handler.uninstall()
                         handler.exit_for_relaunch()
                     if sentinel is not None:
@@ -492,6 +520,13 @@ class Model:
                     it += 1
                     if rollback is not None:
                         break
+                    if hot_spare_agent is not None:
+                        # the step just completed is inside the snapshot:
+                        # a peer restore resumes at `it`
+                        hot_spare_agent.maybe_snapshot(
+                            it, self._hot_spare_state,
+                            {"it": it, "epoch": epoch,
+                             "next_step": step + 1, "next_epoch": epoch})
                     if num_iters and it >= num_iters:
                         break
                 if rollback is None and sentinel is not None:
@@ -519,9 +554,16 @@ class Model:
                 epoch += 1
                 if self.stop_training or (num_iters and it >= num_iters):
                     break
+            finished = True
         finally:
             if handler is not None:
                 handler.uninstall()
+            if hot_spare_agent is not None:
+                # an exit into a relaunch (an exception, a preemption)
+                # parks what the agent holds; a finished fit has nothing
+                # to relaunch into, and its snapshot is older than its
+                # last checkpoint
+                hot_spare_agent.close(park=not finished)
             self.step_metrics.flush()
             self._sentinel = None
             self._fi_step = None
@@ -561,6 +603,14 @@ class Model:
                                           rank=self._rank)
         return self._sentinel
 
+    def _install_hot_spare(self):
+        """The fit's armed hot-spare agent when ``FLAGS_hot_spare`` is on,
+        else None."""
+        if not _flag("FLAGS_hot_spare", False):
+            return None
+        from ..framework import hot_spare
+        return hot_spare.arm(rank=self._rank, world=self._nranks)
+
     def _rng_states(self):
         return [g.get_state() for g in _generators(self.network)]
 
@@ -583,6 +633,20 @@ class Model:
                  "rng": [st.numpy() for st in self._rng_states()]}
         if self._optimizer is not None:
             state["optimizer"] = host(self._optimizer.state_dict())
+        if self._scaler is not None:
+            state["scaler"] = dict(self._scaler.state_dict())
+        if self._data_pipeline is not None:
+            state["data_pipeline"] = self._data_pipeline.state_dict()
+        return state
+
+    def _hot_spare_state(self):
+        """The sentinel anchor's state with the live tensors (the
+        hot-spare agent copies them to its host buffers itself)."""
+        self._sync_compiled_state()
+        state = {"model": dict(self.network.state_dict()),
+                 "rng": [st.numpy() for st in self._rng_states()]}
+        if self._optimizer is not None:
+            state["optimizer"] = self._optimizer.state_dict()
         if self._scaler is not None:
             state["scaler"] = dict(self._scaler.state_dict())
         if self._data_pipeline is not None:
@@ -627,40 +691,214 @@ class Model:
         if fc.forward_flops:
             self.step_metrics.set_flops_per_step(fc.train_step_flops)
 
-    def _resume_from(self, resume, save_dir, ckpt_cb):
-        """Restore the model, optimizer and a data.Pipeline's position
-        from the newest valid checkpoint; returns the epoch to continue
-        from (0 when there is nothing to restore).  Parameters and
-        optimizer state are copied into the existing tensors, whose
-        addresses a captured train step reads."""
-        from ..framework.checkpoint_manager import (CheckpointManager,
-                                                    read_manifest,
-                                                    scan_steps)
-        if _flag("FLAGS_hot_spare", False):
-            raise NotImplementedError(_HOT_SPARE)
+    # ---- sharded checkpoints and the elastic reshard ----
+    def _mp_size(self):
+        return 1 if self._mp_group is None else int(self._mp_group.nranks)
+
+    def _checkpoint_mesh_spec(self):
+        """The rank factorisation sharded checkpoints use to save and to
+        resume: the mesh's axes of size above 1 when one besides dp is
+        (the hybrid topology's), else pure dp over the world.  Ranks are
+        row-major over those axes (the topology's order)."""
+        from ..distributed.mesh import get_mesh
+        from ..distributed.reshard import LayoutError, MeshSpec
+        mesh = self._mesh if self._mesh is not None else get_mesh()
+        if mesh is not None and any(
+                mesh.get_dim_size(n) > 1 for n in mesh.dim_names
+                if n != "dp"):
+            axes = [n for n in mesh.dim_names if mesh.get_dim_size(n) > 1]
+            spec = MeshSpec(tuple(axes),
+                            tuple(mesh.get_dim_size(n) for n in axes))
+            coords = mesh.coord(self._rank)
+            mine = {n: c for n, c in zip(mesh.dim_names, coords)
+                    if n in axes}
+            if spec.world != self._nranks or spec.coords(self._rank) != mine:
+                raise LayoutError(
+                    f"the mesh {mesh} does not lay its ranks out row-major "
+                    f"over {spec!r}: rank {self._rank} sits at {mine}")
+            return spec
+        return MeshSpec(("dp",), (max(self._nranks, 1),))
+
+    def _resume_target_mesh(self):
+        """The mesh this incarnation reshards a checkpoint onto:
+        ``PADDLE_RESHARD_MESH`` (JSON ``{"axes", "shape"}``) first, then
+        `_checkpoint_mesh_spec`, which is what ModelCheckpoint saves (a
+        resume on the same topology takes the fast path)."""
+        import json
+        from ..distributed.reshard import MeshSpec
+        raw = os.environ.get("PADDLE_RESHARD_MESH")
+        if raw:
+            obj = json.loads(raw)
+            return MeshSpec(obj["axes"], obj["shape"])
+        return self._checkpoint_mesh_spec()
+
+    def _checkpoint_splits(self):
+        """``{checkpoint key: (dim, chunks)}`` of the model's and the
+        optimizer's tensors a tensor-parallel layer splits over mp (keys
+        as `distributed.reshard.flatten_state` names them); empty at mp
+        1."""
+        if self._mp_size() <= 1:
+            return {}
+        from ..convert import _param_splits, _splits
+        out = {f"model.{k}": v for k, v in _splits(self.network).items()}
+        opt = self._optimizer
+        if opt is not None:
+            params = opt._all_params()
+            splits = _param_splits(self.network, opt)
+            for key, val in opt.state_dict().items():
+                name, _, idx = key.rpartition(".")
+                if torch.is_tensor(val) and idx.isdigit() and \
+                        int(idx) < len(params) and \
+                        splits[int(idx)] is not None and \
+                        tuple(val.shape) == tuple(params[int(idx)].shape):
+                    out[f"optimizer.{key}"] = splits[int(idx)]
+        return out
+
+    @staticmethod
+    def _mp_partition(splits, key, ndim):
+        """"mp" on the split dim of a tensor a tensor-parallel layer
+        splits in one piece, else whole (a fused projection's are
+        gathered whole by `_gather_fused`)."""
+        p = [None] * ndim
+        sp = splits.get(key)
+        if sp is not None and sp[1] == 1:
+            p[sp[0] % ndim] = "mp"
+        return tuple(p)
+
+    def _checkpoint_partition(self, spec):
+        """The partition of each saved (local) tensor over ``spec``."""
+        splits = self._checkpoint_splits() if "mp" in spec.axes else {}
+        return lambda key, arr: self._mp_partition(splits, key, arr.ndim)
+
+    def _gather_fused(self, state):
+        """``state`` with each fused projection's part (``chunks`` above
+        1: this rank's q, k and v) replaced by the whole tensor, gathered
+        over mp (every mp rank calls it)."""
+        fused = {k: v for k, v in self._checkpoint_splits().items()
+                 if v[1] > 1}
+        if not fused:
+            return state
+        from ..convert import _gather_part
+        for group in ("model", "optimizer"):
+            sd = state.get(group) or {}
+            for k in list(sd):
+                sp = fused.get(f"{group}.{k}")
+                if sp is not None:
+                    sd[k] = _gather_part(sd[k].detach(), sp)
+        return state
+
+    def _reshard_to_parts(self, state):
+        """A restored state's whole fused tensors cut to this rank's part
+        (`distributed.fleet.mp_layers.shard_of`)."""
+        fused = {k: v for k, v in self._checkpoint_splits().items()
+                 if v[1] > 1}
+        if not fused:
+            return state
+        from ..distributed.fleet.mp_layers import shard_of
+        g = self._mp_group
+        for group in ("model", "optimizer"):
+            sd = state.get(group) or {}
+            for k in list(sd):
+                sp = fused.get(f"{group}.{k}")
+                if sp is not None:
+                    sd[k] = shard_of(sd[k], sp[0], g.nranks, g.rank, sp[1])
+        return state
+
+    def _target_partition(self):
+        """The partition a resume restores each tensor in: this rank's mp
+        part of a tensor split in one piece, else whole (None at mp 1)."""
+        splits = self._checkpoint_splits()
+        if not splits:
+            return None
+        return lambda key, meta: self._mp_partition(
+            splits, key, len(meta["global_shape"]))
+
+    def _agree_on_peer(self, got):
+        """With more than one rank, every rank must restore the same
+        iteration from the peer rung; otherwise every rank falls to the
+        disk (a `PeerRestoreWarning`).  One all-reduce of ``(it, -it)``."""
+        if self._nranks <= 1:
+            return got
+        import warnings
+        from ..distributed import collective
+        from ..framework.hot_spare import PeerRestoreWarning
+        it = int(got[1].get("it", -1)) if got is not None else -1
+        t = torch.tensor([it, -it], dtype=torch.int64,
+                         device=self._device())
+        collective.all_reduce(t, op=collective.ReduceOp.MAX)
+        hi, lo = int(t[0]), -int(t[1])
+        if hi == lo and (got is not None or hi < 0):
+            return got          # the same iteration everywhere, or none
+        msg = (f"hot-spare: the ranks' peer snapshots disagree (iterations "
+               f"{lo}..{hi}, this rank {it}); every rank falls back to "
+               "disk")
+        warnings.warn(msg, PeerRestoreWarning, stacklevel=2)
+        import sys
+        print(f"PeerRestoreWarning: {msg}", file=sys.stderr, flush=True)
+        return None
+
+    def _resume_position(self, book, steps):
+        """The epoch a peer snapshot resumes at, and the batches of it to
+        pass over (a snapshot at an epoch's last batch resumes at the
+        next epoch's start)."""
+        epoch = int(book.get("epoch", book.get("next_epoch", 0)))
+        nxt = int(book.get("next_step", 0))
+        if steps is not None and nxt >= steps:
+            return epoch + 1, None
+        if nxt > 0 and self._data_pipeline is None:
+            return epoch, (epoch, nxt)
+        return epoch, None
+
+    def _resume_from(self, resume, save_dir, ckpt_cb, steps=None):
+        """Restore the model, the optimizer and a data.Pipeline's position
+        and return the epoch to continue from (0 when there is nothing
+        to restore).  With ``FLAGS_hot_spare`` the peer rung comes first;
+        then the newest valid checkpoint, resharded onto
+        `_resume_target_mesh`.  Values are copied into the existing
+        tensors, whose addresses a captured train step reads."""
+        import time
         resume_dir = resume if isinstance(resume, (str, os.PathLike)) \
             else (save_dir or (ckpt_cb.save_dir if ckpt_cb else None))
         if not resume_dir:
             raise ValueError(
                 "fit(resume=True) needs save_dir (or resume=<dir>)")
-        for _step, path in scan_steps(str(resume_dir)):
-            manifest = read_manifest(path)
-            if manifest is None:
-                continue
-            if manifest.get("layout"):
-                raise NotImplementedError(_LAYOUT)
-            break
-        restored = CheckpointManager(
-            str(resume_dir), map_location=self._device()).restore_latest()
+        t0 = time.perf_counter()
+        if _flag("FLAGS_hot_spare", False):
+            from ..framework import hot_spare
+            got = self._agree_on_peer(hot_spare.restore_with_ladder(
+                os.environ.get("PADDLE_JOB_ID", "default"), self._rank,
+                disk_fn=None))
+            if got is not None:
+                state, book, source = got
+                self._sentinel_restore(state)
+                epoch, self._resume_skip = self._resume_position(book,
+                                                                 steps)
+                self.last_resume = {
+                    "source": source, "report": None, "step": None,
+                    "it": int(book.get("it", 0)),
+                    "seconds": time.perf_counter() - t0}
+                return epoch
+        from ..distributed.reshard import restore_latest_resharded
+        restored = restore_latest_resharded(
+            str(resume_dir), self._resume_target_mesh(), self._rank,
+            target_partition_fn=self._target_partition(),
+            map_location="cpu", gc_invalid=self._rank == 0)
         if restored is None:
+            self.last_resume = {"source": None, "report": None,
+                                "step": None,
+                                "seconds": time.perf_counter() - t0}
             return 0
-        state, _step = restored
+        state, step, report = restored
+        state = self._reshard_to_parts(state)
         self.network.load_state_dict(state["model"])
         if self._optimizer is not None and state.get("optimizer"):
             self._optimizer.set_state_dict(state["optimizer"])
         pipe = self._data_pipeline
         if pipe is not None and state.get("data_pipeline"):
             pipe.load_state_dict(state["data_pipeline"])
+        self.last_resume = {"source": "disk", "report": report,
+                            "step": step,
+                            "seconds": time.perf_counter() - t0}
         return int(state.get("next_epoch", 0))
 
     def evaluate(self, eval_data, batch_size=1, log_freq=10, verbose=2,

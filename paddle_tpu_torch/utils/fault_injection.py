@@ -44,14 +44,18 @@ The points, with the JAX package's parameters:
   in the cross-rank error trap and hard-exits with ``exit`` (or raises
   it, ``mode=raise``).
 
+- the hot-spare drills (`framework.hot_spare`), each filtered on fit's
+  iteration (``at_step``) and the global ``rank`` with a ``count``
+  budget: ``peer_snap_drop`` (`check_peer_snap_drop`) stops a snapshot
+  stream after ``after_chunks`` chunks (default 1) without a commit;
+  ``buddy_crash`` (`check_buddy_crash`) makes the peer-restore rung see a
+  dead buddy, so the ladder falls through to the disk.
+
 The ``step`` point takes JAX's keys: ``crash_at`` hard-exits with
 ``exit`` at that step, ``sigterm_at`` sends SIGTERM, ``rank`` filters on
 the global rank and ``once_file`` fires once a path (a relaunched
-incarnation that resumes at the step does not die there again).  The
-JAX package's hot-spare drills (``peer_snap_drop``, ``buddy_crash``)
-belong to a module the port does not have (ROADMAP A8): naming one
-raises `FaultSpecError` with that label.  With the flag unset every
-helper returns on one falsy check.
+incarnation that resumes at the step does not die there again).  With
+the flag unset every helper returns on one falsy check.
 """
 from __future__ import annotations
 
@@ -91,12 +95,9 @@ KNOWN_POINTS = {
                  "once_file": str},
     "engine_slow": {"to": str, "delay_s": float, "count": int,
                     "once_file": str},
-}
-
-#: the JAX package's points that stay refused, with their label
-_NOT_PORTED = {
-    "peer_snap_drop": "hot-spare recovery is not ported (ROADMAP A8)",
-    "buddy_crash": "hot-spare recovery is not ported (ROADMAP A8)",
+    "peer_snap_drop": {"at_step": int, "rank": int, "count": int,
+                       "after_chunks": int},
+    "buddy_crash": {"at_step": int, "rank": int, "count": int},
 }
 
 _IDENT = re.compile(r"^[A-Za-z_][A-Za-z0-9_]*$")
@@ -130,9 +131,6 @@ def parse(spec):
         if not _IDENT.match(name):
             raise FaultSpecError(
                 f"FLAGS_fault_inject: bad point name {name!r} in {item!r}")
-        if name in _NOT_PORTED:
-            raise FaultSpecError(
-                f"FLAGS_fault_inject: point {name!r}: {_NOT_PORTED[name]}")
         if name not in KNOWN_POINTS:
             raise FaultSpecError(
                 f"FLAGS_fault_inject: unknown point {name!r} "
@@ -404,3 +402,47 @@ def data_record_corrupt(sample_id):
         if sid % max(params["every"], 1) != 0:
             return False
     return _data_spend("data_corrupt", params)
+
+
+#: remaining-fire budgets of the hot-spare points; re-armed when the spec
+#: string changes
+_LADDER_STATE = {"raw": "", "counts": {}}
+
+
+def _ladder_point(point, step):
+    """Params of an armed hot-spare point, else None: the sentinel points'
+    ``at_step`` / ``rank`` / ``count`` rules, except that ``step=None`` (a
+    restore, where no step exists yet) matches a point without
+    ``at_step``."""
+    params = active(point)
+    if params is None:
+        return None
+    if "at_step" in params:
+        if step is None or params["at_step"] != int(step):
+            return None
+    if "rank" in params:
+        if params["rank"] != int(os.environ.get("PADDLE_TRAINER_ID", "0")):
+            return None
+    raw = flag("FLAGS_fault_inject", "") or ""
+    if _LADDER_STATE["raw"] != raw:
+        _LADDER_STATE["raw"] = raw
+        _LADDER_STATE["counts"] = {}
+    if "count" in params:
+        left = _LADDER_STATE["counts"].get(point, params["count"])
+        if left <= 0:
+            return None
+        _LADDER_STATE["counts"][point] = left - 1
+    return params
+
+
+def check_peer_snap_drop(step):
+    """The ``peer_snap_drop`` seam (a snapshot stream): not None makes the
+    sender stop after ``after_chunks`` chunks (default 1) without a
+    commit, which the buddy's double buffer must survive."""
+    return _ladder_point("peer_snap_drop", step)
+
+
+def check_buddy_crash(step=None):
+    """The ``buddy_crash`` seam (the peer-restore rung): not None means
+    the buddy holding this rank's replica is to be treated as dead."""
+    return _ladder_point("buddy_crash", step)

@@ -30,9 +30,16 @@ defaults:
   (100.0), ``_max_rollbacks`` (3), ``_dump_path`` (""): the training
   sentinel `hapi.Model.fit` installs (`framework.sentinel`).  Off:
   training is bit for bit what it is without the module.
-- ``FLAGS_hot_spare`` (False): `hapi.Model.fit` raises
-  `NotImplementedError` when it is on (hot-spare recovery is not
-  ported, ROADMAP A8).
+- ``FLAGS_hot_spare`` (False): hot-spare recovery (`framework.
+  hot_spare`): `hapi.Model.fit` snapshots the rank's state every
+  ``FLAGS_hot_spare_every`` (8) steps and streams it to its ring buddy
+  in ``FLAGS_hot_spare_chunk_kb`` (1024) KiB chunks, each rpc bounded by
+  ``FLAGS_hot_spare_timeout_s`` (10.0); a relaunch restores from the
+  buddy's memory before the disk.  Off: training and resume are what
+  they are without the module.
+- ``FLAGS_reshard_on_resume`` (True): a resume may reshard a checkpoint
+  saved on another mesh (`distributed.reshard`); off, any layout change
+  raises `LayoutMismatchError` naming both layouts.
 - ``FLAGS_collective_timeout_s`` (0.0): a collective stuck longer than
   this gets a stall dump and a `CollectiveTimeoutError`, then the rank's
   hard abort (`distributed.watchdog`); 0 with no guardian store and no
@@ -90,6 +97,10 @@ _FLAGS: dict[str, Any] = {
     "FLAGS_sentinel_max_rollbacks": 3,
     "FLAGS_sentinel_dump_path": "",
     "FLAGS_hot_spare": False,
+    "FLAGS_hot_spare_every": 8,
+    "FLAGS_hot_spare_chunk_kb": 1024,
+    "FLAGS_hot_spare_timeout_s": 10.0,
+    "FLAGS_reshard_on_resume": True,
     "FLAGS_collective_timeout_s": 0.0,
     "FLAGS_collective_hard_abort": True,
     "FLAGS_stall_dump_path": "",

@@ -595,6 +595,39 @@ def case_clip_norm(rank, world, inputs):
     return out
 
 
+def case_sharded_fit(rank, world, inputs):
+    """hapi ``fit`` of a tiny (parallel) GPT at ``inputs["dp"]`` ×
+    ``inputs["mp"]`` with a ModelCheckpoint each epoch into
+    ``inputs["save_dir"]`` (a sharded checkpoint: a shard file a rank);
+    returns the rank's state and optimizer state and the global ones put
+    together over mp (`convert.gather_paddle_tpu_state` and its optimizer
+    twin), all numpy."""
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.models import ParallelGPTForCausalLM, gpt_config
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import AdamW
+    if inputs["mp"] > 1:
+        _hybrid_init(inputs["dp"], inputs["mp"])
+    net = fleet.distributed_model(ParallelGPTForCausalLM(
+        gpt_config("gpt2-124m", **inputs["cfg"]), device="cpu", seed=0)) \
+        if inputs["mp"] > 1 else ParallelGPTForCausalLM(
+            gpt_config("gpt2-124m", **inputs["cfg"]), device="cpu", seed=0)
+    opt = AdamW(1e-3, parameters=net.parameters())
+    model = Model(net).prepare(opt, CrossEntropyLoss())
+    model.fit(_Rows(inputs["x"], inputs["y"]), batch_size=inputs["batch"],
+              epochs=inputs["epochs"], shuffle=False, verbose=0,
+              save_dir=inputs["save_dir"])
+    np_opt = {k: (_np(v) if torch.is_tensor(v) else v)
+              for k, v in opt.state_dict().items()}
+    return {"state": {k: _np(v) for k, v in net.state_dict().items()},
+            "opt": np_opt,
+            "global": convert.gather_paddle_tpu_state(net),
+            "global_opt": convert.gather_paddle_tpu_optimizer_state(net,
+                                                                    opt)}
+
+
 def case_many(rank, world, inputs):
     """Several cases on the same ranks, one after the other (one spawned
     group for a test module's cases): ``inputs["cases"]`` is a list of
@@ -616,4 +649,5 @@ CASES = {
     "clip_norm": case_clip_norm,
     "guarded_collectives": case_guarded_collectives,
     "sentinel_fit": case_sentinel_fit,
+    "sharded_fit": case_sharded_fit,
 }

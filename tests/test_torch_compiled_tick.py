@@ -526,7 +526,9 @@ def test_flags_registry_and_environment(monkeypatch, flags):
                "FLAGS_serving_request_label_cap",
                "FLAGS_collective_timeout_s", "FLAGS_collective_hard_abort",
                "FLAGS_stall_dump_path", "FLAGS_desync_check_every",
-               "FLAGS_collective_backend")
+               "FLAGS_collective_backend", "FLAGS_hot_spare_every",
+               "FLAGS_hot_spare_chunk_kb", "FLAGS_hot_spare_timeout_s",
+               "FLAGS_reshard_on_resume")
     assert tflags.get_flags() == dict(
         {k: True for k in declared}, FLAGS_fault_inject="",
         FLAGS_sentinel=False, FLAGS_hot_spare=False,
@@ -542,7 +544,9 @@ def test_flags_registry_and_environment(monkeypatch, flags):
         FLAGS_trace_buffer_cap=4096, FLAGS_serving_request_label_cap=1024,
         FLAGS_collective_timeout_s=0.0, FLAGS_collective_hard_abort=True,
         FLAGS_stall_dump_path="", FLAGS_desync_check_every=16,
-        FLAGS_collective_backend="auto")
+        FLAGS_collective_backend="auto", FLAGS_hot_spare_every=8,
+        FLAGS_hot_spare_chunk_kb=1024, FLAGS_hot_spare_timeout_s=10.0,
+        FLAGS_reshard_on_resume=True)
     jflags.set_flags({k: True for k in declared})
     assert tflags.get_flags(list(declared)) == \
         jflags.get_flags(list(declared))

@@ -2492,3 +2492,55 @@ def test_stalled_nccl_peer_stall_dump_and_exit_107(card, tmp_path):
     assert 2.0 <= st["waited_s"] < 4.0
     log0 = open(tmp_path / "logs" / "worker.0.log").read()
     assert "hard-aborting with exit code 107" in log0
+
+
+@pytest.mark.cuda
+def test_hot_spare_snapshot_is_its_step_while_replays_run(card, monkeypatch):
+    """A hot-spare snapshot taken at step k equals the state after step k
+    bit for bit while later steps run: the compiled step replays into the
+    same parameter and moment tensors as the stream thread packs (slowed
+    here), and the capture was finished at the step boundary."""
+    import time
+
+    from paddle_tpu_torch.framework import hot_spare
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    make_record = hot_spare.make_record
+
+    def slow(*a, **kw):
+        time.sleep(0.5)
+        return make_record(*a, **kw)
+    monkeypatch.setattr(hot_spare, "make_record", slow)
+    cfg = GPTConfig(vocab_size=512, hidden_size=128, num_layers=2,
+                    num_heads=4, max_seq_len=128, dropout=0.1,
+                    attn_dropout=0.1)
+    net = GPTForCausalLM(cfg, device=card, dtype=torch.float32, seed=0)
+    model = Model(net).prepare(AdamW(1e-3, parameters=net.parameters()),
+                               CrossEntropyLoss(), amp_configs="O2")
+    agent = hot_spare.HotSpareAgent("card", 0, 1, store=None, every=3,
+                                    serve=False)
+    g = torch.Generator().manual_seed(0)
+    want = {}
+    for it in range(1, 10):
+        ids = torch.randint(0, 512, (4, 129), generator=g).to(card)
+        model._train_batch_device(ids[:, :-1], ids[:, 1:])
+        if agent.maybe_snapshot(it, model._hot_spare_state, {"it": it}):
+            want[it] = {k: v.clone() for k, v in
+                        model._hot_spare_state()["optimizer"].items()
+                        if torch.is_tensor(v)}
+            want[it].update({f"p.{k}": v.clone()
+                             for k, v in net.state_dict().items()})
+        if it in (4, 7):
+            agent.wait()
+            state, book = hot_spare.validated_state(agent.latest_record())
+            ref = want[book["it"]]
+            for k, v in ref.items():
+                got = state["model"][k[2:]] if k.startswith("p.") \
+                    else state["optimizer"][k]
+                assert torch.equal(got, v.cpu()), (it, k)
+                live = net.state_dict()[k[2:]] if k.startswith("p.") \
+                    else model._optimizer.state_dict()[k]
+                if k.startswith("p."):
+                    assert not torch.equal(live.cpu(), v.cpu()), (it, k)
+    assert sorted(want) == [3, 6, 9] and model._compiled_step.compiled
+    agent.close(park=False)

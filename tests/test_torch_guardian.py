@@ -111,9 +111,14 @@ def test_ported_fault_specs_parse_to_jax_dict(spec):
 
 @pytest.mark.parametrize("point", ["peer_snap_drop", "buddy_crash"])
 def test_hot_spare_fault_points_stay_refused(point):
-    jfi.parse(f"{point}:at_step=1")          # JAX has them
-    with pytest.raises(fi.FaultSpecError, match="ROADMAP A8"):
-        fi.parse(f"{point}:at_step=1")
+    """The hot-spare points were refused until hot-spare recovery was
+    ported; now they parse to JAX's dict, and only a bad key or value is
+    refused."""
+    spec = f"{point}:at_step=1,rank=0,count=2"
+    assert fi.parse(spec) == jfi.parse(spec)
+    for bad in (f"{point}:nope=1", f"{point}:at_step=x", point):
+        with pytest.raises(fi.FaultSpecError):
+            fi.parse(bad)
 
 
 def test_step_point_crash_rank_and_once_file(tmp_path):

@@ -319,7 +319,7 @@ def test_back_to_back_async_saves_take_distinct_default_steps(tmp_path):
     "rank_crash:at_seq=xyz",          # a guardian point with a bad value
     ":after_bytes=1",
     "rpc_drop:count=x",               # an rpc point with a bad value
-    "peer_snap_drop:at_step=1",       # a JAX point the port does not have
+    "peer_snap_drop:at_step=x",       # a hot-spare point with a bad value
     "loss_spike:at_step=x",           # a sentinel point with a bad value
 ])
 def test_fault_spec_rejects_malformed(bad):

@@ -5,6 +5,7 @@ parser and the worker environment against the JAX package's key for key
 (the package root on PYTHONPATH apart), what the controller adds for
 ranks that share a card, and the controller's sentinel quarantine and
 hot-spare refusal."""
+import json
 import os
 
 import pytest
@@ -136,16 +137,32 @@ def test_spawn_single_process():
 
 
 def test_hot_spare_advertisement_raises_only_with_its_flag(tmp_path):
+    """The buddy map was refused under FLAGS_hot_spare until hot-spare
+    recovery was ported; now the controller advertises it in the guardian
+    store for each incarnation, flag or not, with the old world after a
+    quarantine's resize, and JAX's reader reads it."""
+    from paddle_tpu.framework import hot_spare as jhs
+    from paddle_tpu_torch.framework import hot_spare
     from paddle_tpu_torch.utils.flags import set_flags
     c = CollectiveController(Context(args=parse_args(
-        ["--nproc_per_node", "2", "--log_dir", str(tmp_path), "w.py"])))
-    c._advertise_hot_spare(2)            # off: nothing to advertise
-    set_flags({"FLAGS_hot_spare": True})
-    try:
-        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        ["--nproc_per_node", "2", "--log_dir", str(tmp_path), "--job_id",
+         "hs", "w.py"])))
+    c._advertise_hot_spare(2)            # no guardian store yet: nothing
+    c._guardian_env()
+    store = c._hot_spare_store()
+    for on in (False, True):
+        set_flags({"FLAGS_hot_spare": on})
+        try:
             c._advertise_hot_spare(2)
-    finally:
-        set_flags({"FLAGS_hot_spare": False})
+        finally:
+            set_flags({"FLAGS_hot_spare": False})
+        assert hot_spare.read_buddy_map(store, "hs") == {0: 1, 1: 0}
+        assert jhs.read_buddy_map(store, "hs") == {0: 1, 1: 0}
+    c._extra_env = {"PADDLE_ELASTIC_RESIZED": "2:1"}
+    c._advertise_hot_spare(1)
+    doc = json.loads(store.get("hs/hot_spare/buddies"))
+    assert doc == {"schema": 1, "world": 1, "buddies": {},
+                   "resized_from": 2}
 
 
 @pytest.mark.parametrize("armed", [True, False])

@@ -25,8 +25,8 @@ detection units, ``decide_blame``, the dump's schema
 (``tools/check_telemetry.py --sentinel-dump``), the fault specs, the
 GradScaler's unit-scale wrapper, the anchors' retention and finiteness,
 a rollback through a ``data.Pipeline``, ``bad_batch`` on token ids
-(``ValueError`` in both packages), and what still raises (A8: the
-hot-spare rung).
+(``ValueError`` in both packages), and the hot-spare rung (the
+fresher own snapshot: tests/test_torch_hot_spare.py).
 """
 import json
 import os
@@ -378,19 +378,28 @@ def test_bad_batch_on_token_ids_raises_like_jax(flags):
 
 def test_multi_rank_and_hot_spare_raise(flags):
     """A world above one rank is ported (the blame exchange:
-    tests/test_torch_sentinel_ranks.py); the hot-spare rung still raises,
-    in a world of one or of two."""
+    tests/test_torch_sentinel_ranks.py).  The hot-spare rung raised until
+    hot-spare recovery was ported: now the sentinel builds with it in a
+    world of one or of two, and fit under the sentinel with the agent
+    armed trains bit for bit as without it (the agent's snapshots copy,
+    they never write)."""
+    from paddle_tpu_torch.framework import hot_spare
     sen = TrainingSentinel(model=None, nranks=2, rank=1)
     assert (sen.nranks, sen.rank, sen.report()["blamed_rank"]) == (2, 1,
                                                                   None)
     flags({"FLAGS_sentinel": True, "FLAGS_hot_spare": True})
-    with pytest.raises(NotImplementedError, match="A8"):
-        TrainingSentinel(model=None, nranks=2, rank=1)
-    with pytest.raises(NotImplementedError, match="A8"):
-        TrainingSentinel(model=None)
-    model, _ = _port_model()
-    with pytest.raises(NotImplementedError, match="A8"):
-        model.fit(ToyData(), batch_size=BS, verbose=0)
+    assert TrainingSentinel(model=None, nranks=2, rank=1).nranks == 2
+    assert TrainingSentinel(model=None)._peer_candidate() is None
+    weights = {}
+    for on in (True, False):
+        flags({"FLAGS_hot_spare": on})
+        model, _ = _port_model()
+        model.fit(ToyData(), batch_size=BS, verbose=0, shuffle=False)
+        weights[on] = {k: v.clone()
+                       for k, v in model.network.state_dict().items()}
+    for k in weights[False]:
+        assert torch.equal(weights[True][k], weights[False][k]), k
+    assert hot_spare.current_agent() is None       # closed by the fit
 
 
 def test_sentinel_off_removes_its_wrapper(flags):
