@@ -73,8 +73,8 @@ last line:
             copies of the target's embedding, layers 0-1, final norm and
             head, (c) (a) with int8 pools, and (d) the serve traffic as it
             is (request 3 seeded-sampled: its iterations take the plain
-            step), (b)-(d) on the first 4 requests; each against the plain
-            compiled lane on the same
+            step), (a)-(d) on the first 4 requests with 16 new tokens; each
+            against the plain compiled lane's first 16 on the same
             requests: greedy tokens equal before each request's first
             near tie (the plain lane's top-two logit margin under tau =
             2 x the largest logit difference between the plain step's
@@ -102,7 +102,8 @@ last line:
             raises: every outstanding future fails with it, one restart,
             served again; (5) three more restarts: memory allocated after
             each within 1% of the first; (6) kv_layout="slots" on the
-            serve traffic: greedy tokens equal the paged lane's under the
+            serve traffic's first 4 requests: greedy tokens equal the
+            paged lane's under the
             tie rule (tau from the slot lane's replay), decode ms/step,
             and exactly in fp32 at 2 layers
 5e. serve-telemetry  the same model: (a) the serve traffic under the
@@ -149,7 +150,26 @@ last line:
             slots finish on the other, no prompt prefilled again, none
             resubmitted), SIGKILL of the other mid-decode (every request
             recovered), flip_role of replica-0 to decode (rejoins at a
-            bumped generation)
+            bumped generation); (g) a tensor-parallel decode replica: 7B
+            width at 2 layers in bf16, prefill replica-0 (tp 1) -> decode
+            replica-1 (tp 2: two ranks, one process each, sharing the card
+            through NCCL's socket transport on lo; the leader schedules
+            and broadcasts each call's descriptor over gloo, the follower
+            replays it), the first 4 serve requests x 32 tokens: the
+            gathered weights' digest equal to the tp 1 replica's, greedy
+            tokens equal one engine's over the same model under the tie
+            rule (the fleet reference's tau), every step a tick replayed on
+            both ranks (each rank's launches: 2 paged decodes at 16 local
+            heads and 5 RMS norms a replay), paged decode at the local
+            shape against its plain version; decode ms/step p50 beside the
+            descriptor's broadcast and a tp 1 replica's step, collective
+            calls and bytes a step a rank; a drain of the tp 2 replica
+            mid-decode onto a tp 1 decode replica (the first slot; the rest
+            there or on a second tp 2 replica, as the gossip's loads show:
+            all migrated, none resubmitted), a SIGKILL of that tp 2
+            replica's follower
+            mid-decode (the leader leaves the ring and exits 101, every
+            request finishes elsewhere; the time to the lease lapsing)
 6. parity   a 2-layer model at the 7B widths in fp32 with the same
             weights served on the CPU (plain versions, the tick's eager
             body) and on the card (kernels, the tick's graphs): greedy and
@@ -321,7 +341,7 @@ last line:
             B4 x S1024 a rank, launched by the port's CollectiveController
             (the ranks are this script's ``--guard-child``; every generator
             reseeded from (step, rank)); (b), (e), (f) run side by side,
-            then (c) and (d): (a) 13 steps: the guardian armed, then 4
+            then (c) and (d): (a) 7 steps: the guardian armed, then 2
             turns of off, armed, and armed with a hot-spare snapshot (a
             warm capture timed in the step, the stream before it waited
             out ahead of it): losses bit for bit, each lane's step p50, store writes
@@ -2396,6 +2416,9 @@ def phase_serve_tick(dev, model):
 # ---------------------------------------------------------- serve-spec
 #: draft tokens a speculative window (ServingConfig.speculation_k)
 SPEC_K = 4
+#: the speculative lanes' new tokens (the plain lanes keep the serve
+#: phase's 32: serve-resilience and serve-telemetry take them)
+SPEC_NEW = 16
 #: the serve phases' slot capacity
 SERVE_LEN = 1024
 
@@ -2789,7 +2812,8 @@ def exact_lanes(tag, dev, prompts, layers=2, gpt=False):
 
 def phase_serve_spec(dev, model):
     """Llama-2 7B, bf16, 4 slots, context 1024, K 4, the first 4 of the
-    serve phase's requests with 32 new tokens: (a) the target as its own
+    serve phase's requests with SPEC_NEW new tokens (the plain lanes: the
+    8 requests with 32, the first SPEC_NEW compared): (a) the target as its own
     draft (own draft cache), all greedy; (b) a 2-layer early-exit draft and
     (c) (a) with int8 pools, all greedy, and (d) the traffic as it is
     (request 3 seeded-sampled: speculation disengages while it decodes).
@@ -2829,7 +2853,7 @@ def phase_serve_spec(dev, model):
                                        cache_dtype=dtype,
                                        draft_model=draft or target,
                                        speculation_k=SPEC_K),
-            prompts[:len(samp)], samp,
+            prompts[:len(samp)], samp, max_new=SPEC_NEW,
             bind=lambda e: setattr(target, "eng", e) if draft is None
             else None)
         # requests a lane did not serve are not compared (None)
@@ -2859,10 +2883,13 @@ def phase_serve_spec(dev, model):
     tie_control(tag, plain["bf16"][0], m0, tau, cfg.vocab_size)
     refs = {"bf16": ("bfloat16", m0, tau), "int8": ("int8", m08, tau8),
             "as-is": ("bfloat16", {}, tau)}
+    # the lanes' SPEC_NEW tokens against the plain lanes' first SPEC_NEW
+    head = {ref: [types.SimpleNamespace(output_ids=o.output_ids[:SPEC_NEW])
+                  for o in plain[ref][0]] for ref in refs}
     margins = {}
     for ref, (dtype, have, _) in refs.items():
         margins[ref] = plain_margins(
-            model, prompts, plain[ref][0],
+            model, prompts, head[ref],
             [results[lane][0] for lane, _, _, _, r in lanes if r == ref],
             dtype, have)
     for lane, _, dtype, samp, ref in lanes:
@@ -2878,8 +2905,7 @@ def phase_serve_spec(dev, model):
                 f"to the proposal {float(g.max()) if g.size else 0:.4f} at "
                 f"most (median {float(np.median(g)) if g.size else 0:.4f})"
                 f" < tau {t:.4f}")
-        check_ties(tag, lane, plain[ref][0], results[lane][0],
-                   margins[ref], t)
+        check_ties(tag, lane, head[ref], results[lane][0], margins[ref], t)
     results = {lane: st for lane, (_, st) in results.items()}
     acc_b = results["(b) early exit"]["spec_acceptance_rate"]
     if acc_b > 0.05:
@@ -3151,11 +3177,12 @@ def phase_serve_resilience(dev, model, plain=None, margins=None):
         f"new cache and a new captured tick: memory allocated after each "
         f"{[round(lv / 1e9, 4) for lv in levels]} GB (spread "
         f"{100 * spread:.4f}%)")
-    # (6) the slot layout
+    # (6) the slot layout, on the first 4 requests (the script's time)
     prompts, sampling = serve_requests(vocab)
-    n = len(prompts)
     if plain is None:
         plain = serve_run(model, dev, serve_cfg(), prompts, sampling)[0]
+    prompts, sampling, plain = prompts[:4], sampling[:4], plain[:4]
+    n = len(prompts)
     outs, st, counts, wall, peak, eng = serve_run(
         model, dev, serve_cfg(kv_layout="slots"), prompts, sampling)
     outs = [o if sampling[i].greedy else None for i, o in enumerate(outs)]
@@ -3504,20 +3531,43 @@ def fleet_factory(dev, dtype, layers=None):
                              device=str(dev), dtype=dtype, seed=0)
 
 
+def tensor_digest(t, chunk=1 << 22):
+    """``t``'s sum and sum of squares in fp64 (a device tensor), taken in
+    chunks of ``chunk`` elements, so its fp64 copies stay small beside the
+    replica's peak memory."""
+    acc = torch.zeros(2, dtype=torch.float64, device=t.device)
+    for c in t.detach().reshape(-1).split(chunk):
+        c = c.double()
+        acc += torch.stack([c.sum(), c.square().sum()])
+    return acc
+
+
 def weights_digest(model, chunk=1 << 22):
-    """Each parameter's sum and sum of squares in fp64, read in one
-    transfer: the checksum two processes compare before any token.  Taken
-    in chunks of ``chunk`` elements, so its fp64 copies stay small beside
-    the replica's peak memory."""
-    out = []
+    """Each parameter's `tensor_digest`, read in one transfer: the
+    checksum two processes compare before any token."""
     with torch.no_grad():
-        for p in model.parameters():
-            acc = torch.zeros(2, dtype=torch.float64, device=p.device)
-            for c in p.detach().reshape(-1).split(chunk):
-                c = c.double()
-                acc += torch.stack([c.sum(), c.square().sum()])
-            out.append(acc)
-        return torch.stack(out).cpu().tolist()
+        return torch.stack([tensor_digest(p, chunk)
+                            for p in model.parameters()]).cpu().tolist()
+
+
+def tp_fleet_model(dtype, layers):
+    """(g)'s model factory (top-level: a spawned replica imports this
+    script as its main module): Llama-2 7B width at ``layers`` layers as
+    `ParallelLlamaForCausalLM` from seed 0 on the card, each rank its part
+    of the global draw.  ``gathered_digest`` is the global weights'
+    digest, each parameter gathered over mp as it is built (at mp 1 the
+    whole model's): equal digests mean the ranks hold one model."""
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.models import ParallelLlamaForCausalLM
+    model = ParallelLlamaForCausalLM(
+        llama_config("llama2-7b", num_layers=layers), device="cuda",
+        dtype=dtype, seed=0)
+    splits = convert._splits(model)
+    with torch.no_grad():
+        model.gathered_digest = torch.stack([
+            tensor_digest(convert._gather_part(p, splits.get(n)))
+            for n, p in model.named_parameters()]).cpu().tolist()
+    return model
 
 
 def _pages_digest(parts):
@@ -3557,15 +3607,21 @@ def fleet_probe(name, op="read", arg=None):
     ``"pages"`` starts `log_pages`, ``"flags"`` sets flags, ``"cached"``
     whether the prefix tree holds ``arg``'s full pages (read-only),
     ``"read"`` returns what the phase checks."""
+    from paddle_tpu_torch.distributed import collective
     from paddle_tpu_torch.serving import fleet as sfleet
+    from paddle_tpu_torch.serving import tp_replica
     eng = sfleet._REPLICAS[name].engine
     SERVE_RECORD.install()
     if op == "reset":
         SERVE_RECORD.hists = {}
         kernels.reset_launch_counts()
+        if eng.mirror is not None:
+            eng.mirror.send_ms.clear()
         return None
     if op == "digest":
         return weights_digest(eng.model)
+    if op == "gdigest":
+        return eng.model.gathered_digest
     if op == "pages":
         return log_pages(eng)
     if op == "flags":
@@ -3591,7 +3647,15 @@ def fleet_probe(name, op="read", arg=None):
             "tree_pages": eng.prefix_tree.cached_pages()
             if eng.prefix_tree is not None else 0,
             "active": len(eng._active), "pending": len(eng._pending),
-            "page_log": list(getattr(eng, "page_log", ()))}
+            "page_log": list(getattr(eng, "page_log", ())),
+            "collectives": collective.counts(),
+            "graph_collectives": eng._tick.graph_collectives()
+            if eng._tick is not None else {},
+            "descriptors": None if eng.mirror is None else eng.mirror.seq,
+            "send_ms": [] if eng.mirror is None else list(eng.mirror.send_ms),
+            "follower": None if eng.mirror is None else (tp_replica.peer_stats(
+                sfleet._REPLICAS[name].store, eng.mirror.ctx.key, 1)
+                or {}).get("stats")}
 
 
 def probe(names, op="read", arg=None):
@@ -3623,17 +3687,24 @@ def fleet_reference(dev, model, plain=None):
             "tau": tau, "margins": margins, "digest": weights_digest(model)}
 
 
-def start_fleet(factory, roles, scfg, warmup=None, ttl=10.0):
-    """A `ServingFleet` of ``roles`` behind a disaggregating router (leases
-    of ``ttl`` s); returns it and the seconds from spawn to every replica
+def replica_cfg(ttl, tp=1):
+    return ReplicaConfig(heartbeat_interval_s=0.5, heartbeat_ttl_s=ttl,
+                         tensor_parallel_degree=tp)
+
+
+def start_fleet(factory, roles, scfg, warmup=None, ttl=10.0, tps=None):
+    """A `ServingFleet` of ``roles`` (tensor-parallel degrees ``tps``, one
+    a replica; None: 1 each) behind a disaggregating router (leases of
+    ``ttl`` s); returns it and the seconds from spawn to every replica
     ``ready``."""
     fleet = ServingFleet(
-        factory, len(roles), scfg,
-        ReplicaConfig(heartbeat_interval_s=0.5, heartbeat_ttl_s=ttl),
+        factory, len(roles), scfg, replica_cfg(ttl),
         RouterConfig(heartbeat_ttl_s=ttl, poll_interval_s=0.1,
                      disaggregation=True, rpc_timeout_s=600.0,
                      request_timeout_s=600.0),
-        warmup_prompt=warmup, roles=roles)
+        warmup_prompt=warmup, roles=roles,
+        replica_configs=None if tps is None
+        else [replica_cfg(ttl, t) for t in tps])
     t0 = time.monotonic()
     try:
         fleet.start(warmup_timeout_s=600)
@@ -4008,14 +4079,316 @@ def check_fleet_traces(tag, root, n):
         f"{ana.stdout.strip().splitlines()[0]}; check_telemetry passed")
 
 
+#: (g)'s drain and kill requests: the drill prompts, this many new tokens
+TP_DRILL_NEW = 256
+
+
+def smi_card():
+    """The card's name and power limit as nvidia-smi reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def graph_delta(after, before):
+    """{mode: replays since ``before``} of a rank's tick graphs (a
+    `CompiledServingTick.graph_stats` as the probe or the beat reads it:
+    mode -> (captures, replays, launches))."""
+    return {m: g[1] - (before or {}).get(m, (0, 0, {}))[1]
+            for m, g in (after or {}).items()}
+
+
+def per_step_traffic(after, before, replays, graph_coll, steps):
+    """{op: (calls, bytes) a decode step}: the eager collectives counted
+    between ``before`` and ``after`` plus each graph's collectives a
+    replay times its replays, over ``steps``."""
+    out = {}
+    for op, (c, b) in (after or {}).items():
+        c0, b0 = (before or {}).get(op, (0, 0))
+        out[op] = [c - c0, b - b0]
+    for mode, n in replays.items():
+        for op, (c, b) in (graph_coll or {}).get(mode, {}).items():
+            acc = out.setdefault(op, [0, 0])
+            acc[0] += n * c
+            acc[1] += n * b
+    return {op: (c / steps, b / steps) for op, (c, b) in out.items() if c}
+
+
+def fmt_traffic(t):
+    return ", ".join(f"{op} {c:.2f} calls {b / 1024:.1f} KiB"
+                     for op, (c, b) in sorted(t.items()))
+
+
+def router_idle(fleet):
+    """Whether the router's view of every replica shows no queued or
+    active request (its least-loaded decode pick then falls to the name
+    order)."""
+    with fleet.router._lock:
+        loads = [v.load for v in fleet.router._replicas.values()]
+    return all(ld.get("queue_depth", 0) + ld.get("active_slots", 0) == 0
+               for ld in loads)
+
+
+def synced_follower(name):
+    """The leader's probe once its follower's beat has caught up with
+    every descriptor the leader sent."""
+    deadline = time.monotonic() + 60
+    while True:
+        r = probe([name])[name]
+        fol = r["follower"]
+        if fol is not None and fol["calls"] == r["descriptors"]:
+            return r
+        if time.monotonic() > deadline:
+            raise AssertionError(f"[serve-fleet] (g) {name}'s follower ran "
+                                 f"{fol and fol['calls']} of "
+                                 f"{r['descriptors']} descriptors")
+        time.sleep(0.1)
+
+
+def fleet_tp_drill(tag, dev, ref):
+    """(g) A tensor-parallel replica: Llama-2 7B width in bf16 at
+    FLEET_LAYERS layers, a tp 1 prefill replica-0 and a tp 2 decode
+    replica-1 whose two ranks share the card through NCCL's socket
+    transport on ``lo``; the first 4 serve requests, 32 new tokens, the
+    tick on.  Checked: the gathered weights' digest equals the tp 1
+    replica's and this process's; greedy tokens equal the tp 1 lane's
+    (one engine over the same model here) but at near ties (the fleet
+    reference's tau); the decode replica's every step a tick replay on
+    both ranks, each rank's rms_norm and paged_decode launches; paged
+    decode at the local shape (B 4, H = H_kv = 16, D 128, page 16) against
+    its plain version.  Then a drain of the tp 2 replica mid-decode onto
+    the tp 1 decode replica-2 (its first slot; the others there or on a
+    second tp 2 replica-3, as the gossip's loads show), and a SIGKILL of
+    replica-3's follower mid-decode once it decodes alone (the four
+    replicas start together): nothing lost; the time from the kill to
+    the lease lapsing.  Printed: decode ms/step p50 and the collective calls
+    and bytes a step a rank, beside the card's name and power limit."""
+    cfg = llama_config("llama2-7b", num_layers=FLEET_LAYERS)
+    L = cfg.num_layers
+    prompts, sampling = serve_requests(cfg.vocab_size)
+    prompts, sampling = prompts[:4], sampling[:4]
+    drill = [p[:DRILL_PROMPT] for p in prompts]
+    factory = functools.partial(tp_fleet_model, torch.bfloat16, FLEET_LAYERS)
+    model = factory()                   # mp 1: replica-0's model
+    plain = serve_run(model, dev, serve_cfg(), prompts, sampling)[0]
+    margins = {i: margins_of(replay_logits(model, prompts[i],
+                                           plain[i].output_ids, "bfloat16"))
+               for i, s in enumerate(sampling) if s.greedy}
+    digest = model.gathered_digest
+    del model
+    torch.cuda.empty_cache()
+    warm = np.arange(1, 40, dtype=np.int32)
+    # every replica the drill needs starts at once: the tp 2 decode
+    # replica-1, a tp 1 decode replica-2 (the drain's survivor) and a tp 2
+    # replica-3 (the follower kill's); with the router's view idle, its
+    # least-loaded decode pick falls to the name order, replica-1 first
+    fleet, start_s = start_fleet(factory, ["prefill", "decode", "decode",
+                                           "decode"], serve_cfg(), warm,
+                                 ttl=3.0, tps=[1, 2, 1, 2])
+    names = ["replica-0", "replica-1"]
+    idle = functools.partial(wait_for, tag, "the router's view idle",
+                             lambda: router_idle(fleet))
+    try:
+        check_digests(tag, probe([f"replica-{i}" for i in range(4)],
+                                 "gdigest"), digest)
+        for sp in (SamplingParams(), SamplingParams(
+                temperature=1.0, top_p=0.9, repetition_penalty=1.1, seed=1)):
+            idle()
+            fleet.generate(warm, max_new_tokens=4, sampling=sp, timeout=600)
+        idle()
+        probe(names, "reset")
+        before = synced_follower("replica-1")
+        t0 = time.monotonic()
+        futs = [fleet.submit(p, max_new_tokens=32, sampling=s)
+                for p, s in zip(prompts, sampling)]
+        outs = [f.result(timeout=600) for f in futs]
+        wall = time.monotonic() - t0
+        after = synced_follower("replica-1")
+        lead0 = probe(["replica-0"])["replica-0"]
+        # the drain of the tp 2 replica-1 mid-decode: each slot goes to the
+        # decode peer least loaded in the gossip, then by name, so the
+        # first to the tp 1 replica-2 and the rest to it or the tp 2
+        # replica-3 as their loads show
+        decoders = ["replica-1", "replica-2", "replica-3"]
+        idle()
+        base = fleet.stats()
+        r = probe(decoders)
+        adopted0 = {n: r[n]["stats"]["migration_resumed_requests"]
+                    for n in decoders}
+        futs = [fleet.submit(p, max_new_tokens=TP_DRILL_NEW, sampling=s)
+                for p, s in zip(drill, sampling)]
+
+        def all_adopted():
+            r.update(probe(decoders))
+            return sum(r[n]["stats"]["migration_resumed_requests"]
+                       - adopted0[n] for n in decoders) == len(drill)
+        wait_for(tag, "the drill requests adopted by the decode replicas",
+                 all_adopted)
+        survivors = ["replica-2", "replica-3"]
+        r = probe(["replica-1"] + survivors)
+        in_flight = r["replica-1"]["active"]
+        resumed0 = {n: r[n]["stats"]["migration_resumed_requests"]
+                    for n in survivors}
+        ranks = fleet._ranks["replica-1"]
+        fleet.drain_replica("replica-1")
+        douts = [f.result(timeout=600) for f in futs]
+        for p in ranks:
+            p.join(120)
+        r = probe(survivors)
+        moved = {n: r[n]["stats"]["migration_resumed_requests"]
+                 - resumed0[n] for n in survivors}
+        tp1_dec = r["replica-2"]["hists"].get("decode_ms", [])
+        dstats = fleet.stats()
+        # replica-3 alone decodes once replica-2 drained; its follower is
+        # SIGKILLed mid-decode
+        fleet.drain_replica("replica-2")
+        fleet._procs["replica-2"].join(120)
+        wait_for(tag, "replica-3 alone beside the prefill replica",
+                 lambda: sorted(fleet.router.ring.members)
+                 == ["replica-0", "replica-3"], timeout=600)
+        kbase = fleet.stats()
+        adopted0 = probe(["replica-3"])["replica-3"]["stats"][
+            "migration_resumed_requests"]
+        futs = [fleet.submit(p, max_new_tokens=TP_DRILL_NEW, sampling=s)
+                for p, s in zip(drill, sampling)]
+        wait_for(tag, "the drill requests adopted by replica-3", lambda:
+                 probe(["replica-3"])["replica-3"]["stats"][
+                     "migration_resumed_requests"] - adopted0 == len(drill))
+        busy = probe(["replica-3"])["replica-3"]["active"]
+        t_kill = time.monotonic()
+        fleet.kill_replica("replica-3", rank=1)
+        wait_for(tag, "replica-3's lease to lapse", lambda: "replica-3"
+                 not in fleet.replica_states(), timeout=120)
+        lapse_s = time.monotonic() - t_kill
+        kouts = [f.result(timeout=600) for f in futs]
+        leader3 = fleet._procs["replica-3"]
+        leader3.join(60)
+        kstats = fleet.stats()
+    finally:
+        fleet.shutdown()
+    d = after
+    steps = d["stats"]["decode_steps"] - before["stats"]["decode_steps"]
+    hits = d["stats"]["tick_compiled_hits"] - \
+        before["stats"]["tick_compiled_hits"]
+    bad = [o.request_id for o in outs if o.decoded_by != "replica-1"]
+    if bad or not (hits == steps > 0) or \
+            d["stats"]["prefill_chunks"] != before["stats"]["prefill_chunks"]:
+        raise AssertionError(f"[{tag}] (g) requests {bad} not decoded by the "
+                             f"tp 2 replica; ticks {hits} of {steps} steps")
+    for i, o in enumerate(outs):
+        if o.output_ids.size != 32 or not (
+                (o.output_ids >= 0) & (o.output_ids < cfg.vocab_size)).all():
+            raise AssertionError(f"[{tag}] (g) request {i}: {o.output_ids}")
+    greedy = [o if sampling[i].greedy else None for i, o in enumerate(outs)]
+    check_ties(tag, "(g) tp 2 decode replica", plain, greedy, margins,
+               ref["tau"])
+    # replays on both ranks, and each rank's launches: L paged decodes and
+    # 2 L + 1 RMS norms a replay (adopted pages: no prefill here)
+    ranks_seen = {"leader": (d["graphs"], before["graphs"], d["counts"],
+                             None),
+                  "follower": (d["follower"]["graphs"],
+                               before["follower"]["graphs"],
+                               d["follower"]["launches"],
+                               before["follower"]["launches"])}
+    replays, launched = {}, {}
+    for rank, (g1, g0, c1, c0) in ranks_seen.items():
+        replays[rank] = graph_delta(g1, g0)
+        n = sum(replays[rank].values())
+        launched[rank] = {k: c1.get(k, 0) - (c0 or {}).get(k, 0)
+                          for k in ("paged_decode", "rms_norm")}
+        want = {"paged_decode": L * n, "rms_norm": (2 * L + 1) * n}
+        if n != steps or launched[rank] != want:
+            raise AssertionError(f"[{tag}] (g) {rank}: replays "
+                                 f"{replays[rank]} for {steps} steps, "
+                                 f"launches {launched[rank]} != {want}")
+    if replays["leader"] != replays["follower"]:
+        raise AssertionError(f"[{tag}] (g) the ranks' replays differ: "
+                             f"{replays}")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    offs = [int(p.size) + 31 for p in prompts]
+    err, _ = paged_case(dev, 4, 16, 16, 128, 16, max(offs) // 16 + 1, offs,
+                        torch.bfloat16, gen)
+    traffic = {
+        "leader": per_step_traffic(d["collectives"], before["collectives"],
+                                   replays["leader"], d["graph_collectives"],
+                                   steps),
+        "follower": per_step_traffic(
+            d["follower"]["collectives"], before["follower"]["collectives"],
+            replays["follower"], d["follower"]["graph_collectives"], steps)}
+    dec = d["hists"].get("decode_ms", [])
+    send = d["send_ms"]
+    pre_launches = {k: lead0["counts"].get(k, 0)
+                    for k in ("paged_decode", "rms_norm")}
+    card = smi_card()
+    log(f"[{tag}] (g) Llama-2 7B width, {L} layers, bf16: prefill replica-0 "
+        f"(tp 1) -> decode replica-1 (tp 2: two ranks of 16 of 32 heads "
+        f"and 5504 of 11008 MLP columns each, NCCL's socket transport on lo"
+        f", one card), 4 requests x 32 new tokens: fleet start (replicas "
+        f"0-3, tp 1, 2, 1, 2) {start_s:.1f} s; gathered weights' digests "
+        f"equal to the tp 1 replicas'; "
+        f"{len(prompts)} requests in {wall:.2f} s, decoded by replica-1; "
+        f"decode replica {pct(dec, 50):.2f} ms/step p50, "
+        f"{pct(dec, 99):.2f} p99 over {steps} steps, every one a compiled "
+        f"tick, of which the leader's descriptor broadcast (gloo) "
+        f"{pct(send, 50):.2f} ms p50 over {len(send)} descriptors; the tp 1 "
+        f"decode replica-2 of the drain below {pct(tp1_dec, 50):.2f} ms/step"
+        f" p50 over {len(tp1_dec)} steps; {card}")
+    log(f"[{tag}] (g) replays a rank {replays['leader']}; launches "
+        f"leader {launched['leader']}, follower {launched['follower']} "
+        f"({L} paged_decode and {2 * L + 1} rms_norm a replay on each "
+        f"rank); paged_decode[B=4 H=Hkv=16 D=128 psz=16 bf16] at offsets "
+        f"{offs}: max |err| {err:.3e} against its plain version; the prefill"
+        f" replica's launches {pre_launches}")
+    log(f"[{tag}] (g) collective traffic a decode step (registry "
+        f"dist.collective_*, graphs' collectives a replay x replays): "
+        f"leader {fmt_traffic(traffic['leader'])}; follower "
+        f"{fmt_traffic(traffic['follower'])}; {card}")
+    lost = [i for i, o in enumerate(douts)
+            if o.output_ids.size != TP_DRILL_NEW]
+    if lost or moved["replica-2"] < 1 or \
+            sum(moved.values()) != in_flight or \
+            [p.exitcode for p in ranks] != [0, 0] or \
+            dstats["router_resubmissions"] != base["router_resubmissions"]:
+        raise AssertionError(
+            f"[{tag}] (g) drain: short {lost}, {moved} of {in_flight} slots "
+            f"moved by survivor, exits {[p.exitcode for p in ranks]}, "
+            f"resubmissions "
+            f"{base['router_resubmissions']} -> "
+            f"{dstats['router_resubmissions']}")
+    lost = [i for i, o in enumerate(kouts)
+            if o.output_ids.size != TP_DRILL_NEW]
+    if lost or leader3.exitcode != ELASTIC_EXIT_CODE:
+        raise AssertionError(f"[{tag}] (g) follower kill: short {lost}, "
+                             f"replica-3's leader exit {leader3.exitcode}")
+    log(f"[{tag}] (g) drain of the tp 2 replica-1 with {in_flight} requests "
+        f"decoding: all migrated (both ranks' heads gathered into global "
+        f"pages), {moved['replica-2']} to the tp 1 replica-2 and "
+        f"{moved['replica-3']} to the tp 2 replica-3 (its ranks keeping "
+        f"their heads), and finished there, {TP_DRILL_NEW} tokens each; no "
+        f"resubmission; both ranks exited 0."
+        f" SIGKILL of the tp 2 replica-3's follower with {busy} requests "
+        f"decoding: the leader left the ring {lapse_s:.2f} s after the kill "
+        f"(lease ttl 3.0 s) and exited {leader3.exitcode}; every request "
+        f"finished elsewhere ({TP_DRILL_NEW} tokens), router failovers "
+        f"{kstats['router_failovers'] - kbase['router_failovers']}, "
+        f"resubmissions "
+        f"{kstats['router_resubmissions'] - kbase['router_resubmissions']}")
+    return {"paged_decode": launched, "traffic": traffic,
+            "decode_ms_p50": pct(dec, 50)}
+
+
 def phase_serve_fleet(dev, ref):
     """Prefill/decode disaggregation across processes on one card: (a) the
     7B main path, (b) int8 at 2 layers bit for bit, (d) one traced run,
-    (c) the drills.  Returns the decode replica's launch counts of (a)."""
+    (c) the drills, (g) a tensor-parallel decode replica.  Returns the
+    decode replica's launch counts of (a)."""
     tag = "serve-fleet"
     counts = fleet_main_path(tag, dev, ref)
     torch.cuda.empty_cache()
     fleet_drills(tag, dev)
+    torch.cuda.empty_cache()
+    fleet_tp_drill(tag, dev, ref)
     return counts
 
 
@@ -7015,7 +7388,7 @@ GUARD_SPARE_EVERY = 2
 #: (a)'s lanes by turns after its first step (armed): the guardian off,
 #: armed, armed with a hot-spare snapshot (a capture) after the step
 GUARD_LANES = ("off", "armed", "spare")
-GUARD_TURNS = 4
+GUARD_TURNS = 2
 #: (c)'s collective timeout, seconds, and the controller's graces
 GUARD_TIMEOUT_S = 3.0
 GUARD_PEER_GRACE_S = 5.0

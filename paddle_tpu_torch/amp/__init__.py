@@ -282,6 +282,11 @@ class GradScaler:
         self.update()
         self._unscaled = False
 
+    def minimize(self, optimizer, scaled_loss):
+        """Paddle's ``scaler.minimize(opt, scaled)``: the loss was scaled and
+        its backward taken by the caller, so this is `step`."""
+        self.step(optimizer)
+
     def update(self):
         if not self._enable:
             return

@@ -384,7 +384,7 @@ class Pipeline:
         self._batch = _BatchStage(batch_size, drop_last)
         return self
 
-    def device_prefetch(self, depth=2, device=None):
+    def device_prefetch(self, depth=2, *, device=None):
         """Copy each batch to ``device`` (None: the card; ``"cpu"`` must
         be asked for) up to ``depth`` batches ahead (`data.prefetch`)."""
         self._admit("device_prefetch")

@@ -100,11 +100,14 @@ def _tensors(batch):
             yield from _tensors(b)
 
 
-def to_device_batch(batch, device, non_blocking=False):
-    """A host batch on ``device`` (tensors already there are kept), the
-    structure kept.  With ``non_blocking`` each array goes through
-    pinned memory first, so the copy is asynchronous on the current
-    stream."""
+def to_device_batch(batch, device=None, non_blocking=False):
+    """A host batch on ``device`` (None: the card, under the Devices rule;
+    tensors already there are kept), the structure kept.  With
+    ``non_blocking`` each array goes through pinned memory first, so the
+    copy is asynchronous on the current stream."""
+    device = resolve_device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
     if isinstance(batch, (list, tuple)):
         return type(batch)(to_device_batch(b, device, non_blocking)
                            for b in batch)
@@ -122,7 +125,7 @@ def to_device_batch(batch, device, non_blocking=False):
 class DevicePrefetch:
     name = "device_prefetch"
 
-    def __init__(self, depth=2, device=None):
+    def __init__(self, depth=2, *, device=None):
         if int(depth) < 1:
             raise ValueError(f"device_prefetch(depth={depth}): need >= 1")
         self.depth = int(depth)

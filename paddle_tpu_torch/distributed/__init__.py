@@ -10,7 +10,9 @@ and `spawn`, the mesh, placements and hybrid topology, `DataParallel`,
 and the serving fleet's transports: the rpc plane (`rpc`) and the
 key-value stores (`store`: `TCPStore` over ``csrc/tcp_store.cpp``,
 `FileKVStore`, `TCPElasticStore`), and sharded checkpoints with the
-elastic reshard (`checkpoint`, `reshard`)."""
+elastic reshard (`checkpoint`, `reshard`); `compat`: the object
+collectives, `alltoall`, `gather`, the backend calls and the gloo shims
+(its `isend` / `irecv` return a task, as JAX's exports do)."""
 from . import env, watchdog  # noqa: E402,F401
 from .collective import (Group, P2POp, ReduceOp, all_gather, all_reduce,
                          all_to_all, barrier, batch_isend_irecv, broadcast,
@@ -36,6 +38,13 @@ from . import fleet  # noqa: E402,F401
 from . import launch  # noqa: E402,F401
 from . import spawn as spawn_mod  # noqa: E402,F401
 from .spawn import spawn  # noqa: E402,F401
+from . import compat  # noqa: E402,F401
+from .compat import (  # noqa: E402,F401
+    CountFilterEntry, DistAttr, ParallelMode, ProbabilityEntry,
+    ShowClickEntry, all_gather_object, alltoall, alltoall_single,
+    broadcast_object_list, destroy_process_group, gather, get_backend,
+    gloo_barrier, gloo_init_parallel_env, gloo_release, irecv, is_available,
+    isend, scatter_object_list, split, wait)
 
 __all__ = ["CheckpointManager", "CollectiveTimeoutError", "DataParallel",
            "DesyncError", "DistributedSaver",
@@ -53,4 +62,10 @@ __all__ = ["CheckpointManager", "CollectiveTimeoutError", "DataParallel",
            "init_parallel_env", "irecv", "is_initialized", "isend",
            "local_device_count", "new_group", "recv", "reduce",
            "reduce_scatter", "scatter", "send", "set_hybrid_communicate_group",
-           "set_mesh", "spawn", "watchdog"]
+           "set_mesh", "spawn", "watchdog",
+           "CountFilterEntry", "DistAttr", "ParallelMode", "ProbabilityEntry",
+           "ShowClickEntry", "all_gather_object", "alltoall",
+           "alltoall_single", "broadcast_object_list", "compat",
+           "destroy_process_group", "gather", "get_backend", "gloo_barrier",
+           "gloo_init_parallel_env", "gloo_release", "is_available",
+           "scatter_object_list", "split", "wait"]

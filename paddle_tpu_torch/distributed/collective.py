@@ -74,7 +74,7 @@ class Group:
 
     _next_id = 0
 
-    def __init__(self, ranks, process_group=None):
+    def __init__(self, ranks, *, process_group=None):
         self.ranks = list(ranks)
         self.nranks = len(self.ranks)
         self.process_group = process_group
@@ -122,7 +122,7 @@ def new_group(ranks=None, backend=None, timeout=None) -> Group:
     if len(ranks) > 1 and len(ranks) < world:
         kw = {} if timeout is None else {"timeout": timeout}
         pg = dist.new_group(ranks, backend=backend, **kw)
-    return Group(ranks, pg)
+    return Group(ranks, process_group=pg)
 
 
 def get_group(gid=0):
@@ -147,6 +147,15 @@ def _count(op, tensor=None):
     if tensor is not None:
         _COUNTERS["bytes"].labels(op=op).inc(
             tensor.numel() * tensor.element_size())
+
+
+def counts():
+    """{op: (calls, bytes)} of ``dist.collective_calls`` /
+    ``dist.collective_bytes`` so far (ops never called are left out)."""
+    if not _COUNTERS:
+        return {}
+    return {key[0]: (child.value, _COUNTERS["bytes"].labels(op=key[0]).value)
+            for key, child in list(_COUNTERS["calls"]._children.items())}
 
 
 def _resolve(group):

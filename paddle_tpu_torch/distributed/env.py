@@ -84,10 +84,30 @@ def _master():
     return f"{host}:{port}" if host and port else None
 
 
-def init_parallel_env(backend=None, device=None, init_method=None,
-                      world_size=None, rank=None, timeout=None):
+def init_parallel_env(coordinator_address=None, num_processes=None,
+                      process_id=None, *, backend=None, device=None,
+                      init_method=None, world_size=None, rank=None,
+                      timeout=None):
     """Join the process group (once; a later call returns the same
-    `ParallelEnv`).  ``timeout`` in seconds (None: torch's default)."""
+    `ParallelEnv`).  JAX's ``coordinator_address`` (``host:port``),
+    ``num_processes`` and ``process_id`` are the master, the world size and
+    the rank, as ``init_method="tcp://host:port"``, ``world_size`` and
+    ``rank`` (naming a fact both ways raises).  ``timeout`` in seconds
+    (None: torch's default)."""
+    for jax_name, val, name, other in (
+            ("coordinator_address", coordinator_address, "init_method",
+             init_method),
+            ("num_processes", num_processes, "world_size", world_size),
+            ("process_id", process_id, "rank", rank)):
+        if val is not None and other is not None:
+            raise ValueError(f"init_parallel_env: pass {jax_name} or {name},"
+                             " not both")
+    if coordinator_address is not None:
+        init_method = f"tcp://{coordinator_address}"
+    if num_processes is not None:
+        world_size = int(num_processes)
+    if process_id is not None:
+        rank = int(process_id)
     if _state["initialized"] or (dist.is_available()
                                  and dist.is_initialized()):
         _state["initialized"] = True

@@ -62,7 +62,7 @@ _fleet_state = {"initialized": False, "strategy": None}
 
 
 def init(role_maker=None, is_collective=True, strategy=None,
-         log_level="INFO", backend=None, device=None):
+         log_level="INFO", *, backend=None, device=None):
     """reference: fleet/fleet.py:169.  ``backend`` and ``device`` (the
     port's) go to `init_parallel_env`; every rank calls it alike."""
     _env.init_parallel_env(backend=backend, device=device)

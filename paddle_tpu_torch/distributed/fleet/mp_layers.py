@@ -398,14 +398,14 @@ class VocabParallelEmbedding(_MPLayer):
                         device=self.weight.device, dtype=self.weight.dtype)
         self._fill("weight", w.normal_(0.0, self.std, generator=generator))
 
-    def forward(self, ids):
+    def forward(self, x):
         if self.world_size <= 1:
-            return F.embedding(ids, self.weight)
-        if ids.is_floating_point() or ids.is_complex():
+            return F.embedding(x, self.weight)
+        if x.is_floating_point() or x.is_complex():
             raise ValueError("indices must have an integer type")
         rows = self.weight.shape[0]
         start = self.rank * rows
-        local = ids.long() - start
+        local = x.long() - start
         outside = (local < 0) | (local >= rows)
         out = F.embedding(local.masked_fill(outside, 0), self.weight)
         out = out * (~outside)[..., None].to(out.dtype)

@@ -34,10 +34,14 @@ def _capturing():
         torch.cuda.is_current_stream_capturing()
 
 
-def recompute(function, *args, preserve_rng_state=True, **kwargs):
+def recompute(function, *args, use_reentrant=True, preserve_rng_state=True,
+              **kwargs):
     """``function(*args, **kwargs)`` with activation checkpointing: the
     same outputs, its intermediates rebuilt in the backward instead of
-    kept.  ``preserve_rng_state=False`` lets the recompute draw anew
+    kept.  ``use_reentrant`` is accepted as JAX accepts it and changes
+    nothing: the region always runs under torch's non-reentrant
+    checkpoint, which gives the same gradients and takes keyword
+    arguments.  ``preserve_rng_state=False`` lets the recompute draw anew
     (torch's semantics), so dropout inside the region then disagrees
     between the two runs."""
     if not preserve_rng_state:

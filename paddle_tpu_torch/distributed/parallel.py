@@ -205,6 +205,6 @@ class DataParallel(nn.Module):
     load_state_dict = set_state_dict
 
 
-def init_parallel_env(backend=None, device=None):
+def init_parallel_env(*, backend=None, device=None):
     """`env.init_parallel_env`, returning its `ParallelEnv`."""
     return _env.init_parallel_env(backend=backend, device=device)

@@ -406,7 +406,7 @@ def flatten_state(state):
     return tree, arrays
 
 
-def rebuild_state(tree, arrays, device=None):
+def rebuild_state(tree, arrays, *, device=None):
     """Inverse of `flatten_state`: tensors on ``device`` (None: where the
     arrays are)."""
     return _rebuild(tree, arrays, device)
@@ -505,7 +505,7 @@ def global_shapes_of(arrays, mesh: MeshSpec, rank, partition_fn=None,
 
 
 def build_layout(arrays, mesh: MeshSpec, partition_fn=None, nonce=None,
-                 global_shapes=None):
+                 *, global_shapes=None):
     """The manifest layout section for ``arrays`` (flat {key: tensor or
     ndarray}) partitioned by ``partition_fn(key, arr) -> partition``; an
     array's global shape is ``global_shapes[key]`` when given, else its
@@ -536,7 +536,7 @@ def build_layout(arrays, mesh: MeshSpec, partition_fn=None, nonce=None,
 
 def save_sharded(dirpath, state, mesh: MeshSpec, rank, partition_fn=None,
                  step=None, meta=None, barrier_timeout_s=120.0,
-                 coordinator_rank=0, local=False, global_shapes=None):
+                 coordinator_rank=0, *, local=False, global_shapes=None):
     """One rank's half of a sharded checkpoint save into ``dirpath``.
 
     ``local=False`` (JAX's): ``state`` holds the FULL state and
@@ -722,7 +722,7 @@ def _check_format(dirpath, layout):
 
 def restore_resharded(dirpath, target_mesh: MeshSpec, target_rank,
                       target_partition_fn=None, store=None,
-                      fetch_timeout_s=60.0, map_location=None):
+                      fetch_timeout_s=60.0, *, map_location=None):
     """Restore ``target_rank``'s state slice under ``target_mesh`` from a
     layout-bearing checkpoint directory, resharding as needed; tensors
     on ``map_location`` (None: the card).
@@ -858,7 +858,7 @@ def restore_resharded(dirpath, target_mesh: MeshSpec, target_rank,
 
 def restore_latest_resharded(root, target_mesh: MeshSpec, target_rank,
                              target_partition_fn=None, store=None,
-                             strict_layout=False, map_location=None,
+                             strict_layout=False, *, map_location=None,
                              gc_invalid=False):
     """``(state, step, report)`` from the newest VALID checkpoint under
     ``root``, resharded onto ``target_mesh`` / ``target_rank`` when the
@@ -930,7 +930,7 @@ class ShardedCheckpointer:
 
     def __init__(self, root, mesh: MeshSpec, rank, partition_fn=None,
                  max_to_keep=None, barrier_timeout_s=120.0,
-                 coordinator_rank=0, store=None, local=False,
+                 coordinator_rank=0, store=None, *, local=False,
                  global_shapes=None, map_location=None):
         self.root = str(root)
         self.mesh = mesh

@@ -129,7 +129,10 @@ class CapturedStep:
     ``pool`` (a `torch.cuda.graph_pool_handle`) and ``stream`` (the side
     stream of warm-up and capture) may be shared by the steps of one
     owner.  ``replays`` counts; ``launches`` is the per-replay launch delta
-    by kernel name; ``refills`` the `device_seed` slots and their draws."""
+    by kernel name; ``collectives`` the per-replay ``{op: (calls,
+    bytes)}`` of `distributed.collective` (counted once, at the capture:
+    the replays run them without Python); ``refills`` the `device_seed`
+    slots and their draws."""
 
     def __init__(self, fn, mutable, device, pool=None, stream=None,
                  warmup=True, recorded=None):
@@ -142,6 +145,7 @@ class CapturedStep:
         self.recorded = recorded or Recording()
         self.graph = None
         self.launches = {}
+        self.collectives = {}
         self.refills = []
         self._free_slots = []
         self.replays = 0
@@ -197,6 +201,8 @@ class CapturedStep:
                                         device=self.device)
                             for _ in range(self.recorded.seeds)]
         before = kernels.launch_counts()
+        from ..distributed import collective
+        coll_before = collective.counts()
         # no garbage collection inside the capture: a collection there can
         # destroy another CUDA graph that sat in unreachable objects
         # (cudaGraphExecDestroy), which a capture forbids in its thread; the
@@ -215,6 +221,12 @@ class CapturedStep:
         after = kernels.launch_counts()
         self.launches = {k: after[k] - before[k] for k in after
                          if after[k] != before[k]}
+        # the collectives the graph replays (counted once, at the capture)
+        self.collectives = {
+            op: (c - coll_before.get(op, (0, 0))[0],
+                 b - coll_before.get(op, (0, 0))[1])
+            for op, (c, b) in collective.counts().items()
+            if c != coll_before.get(op, (0, 0))[0]}
         # recording launched nothing: the replays add the delta
         kernels.add_launch_counts({k: -n for k, n in self.launches.items()})
         self.graph = graph

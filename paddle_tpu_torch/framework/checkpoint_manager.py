@@ -223,7 +223,7 @@ class CheckpointManager:
     """
 
     def __init__(self, root, max_to_keep=5, async_save=False,
-                 save_fn=None, load_fn=None, map_location=None):
+                 save_fn=None, load_fn=None, *, map_location=None):
         self.root = str(root)
         self.max_to_keep = max_to_keep  # None/0 = keep everything
         self.async_save = async_save
@@ -257,7 +257,7 @@ class CheckpointManager:
 
     # ---- save ----
     def save(self, state, step=None, meta=None, layout=None,
-             validate_finite=False, before_write=None):
+             validate_finite=False, *, before_write=None):
         """Checkpoint ``state`` as step ``step`` (default: one past the
         newest existing step).  ``validate_finite`` refuses a payload
         holding a NaN or Inf (`NonFiniteCheckpointError`) before anything

@@ -301,7 +301,7 @@ def chunk_crcs(payload, chunk_bytes):
     return crcs, whole
 
 
-def make_record(owner, step, book, state, chunk_bytes=None):
+def make_record(owner, step, book, state, *, chunk_bytes=None):
     """A snapshot record; with ``chunk_bytes`` it also keeps each chunk's
     crc (``chunk_crcs``) for the stream, the whole crc combined from them
     instead of read again."""

@@ -274,7 +274,7 @@ def _resolve(obj):
     return obj
 
 
-def load(path, map_location=None, **configs):
+def load(path, *, map_location=None, **configs):
     """The state `save` (or the JAX package's ``paddle_tpu.save``) wrote,
     with every tensor on ``map_location``: None means the card, as every
     entry point of the port; ``"cpu"`` must be asked for."""

@@ -54,8 +54,10 @@ def _apply_rope(q, k, v, cos, sin, use_neox):
 def fused_rotary_position_embedding(q, k=None, v=None, sin=None, cos=None,
                                     position_ids=None,
                                     use_neox_rotary_style=True,
+                                    time_major=False,
                                     rotary_emb_base=10000.0):
-    """Rotary embedding of ``[B, S, H, D]`` q/k/v.  Positions are
+    """Rotary embedding of ``[B, S, H, D]`` q/k/v (``time_major`` is taken
+    in JAX's place and, as in JAX, not read).  Positions are
     ``position_ids`` (``[B, S]`` per-row, the serving path, or ``[S]``)
     or ``arange(S)``; sin/cos default to the standard rope table.
     Returns ``(q, k, v)`` with None where an input was None."""
@@ -153,7 +155,7 @@ def _overflows(offset, s_new, s_cap):
 
 
 def masked_multihead_attention(q, k, v, cache_k, cache_v, offset,
-                               scale=None):
+                               scale=None, name=None):
     """Decode or prefill attention against a dense KV cache (the cache of
     `models.generation.generate`).
 
@@ -191,7 +193,7 @@ def masked_multihead_attention(q, k, v, cache_k, cache_v, offset,
 
 def paged_masked_multihead_attention(q, k, v, k_pool, v_pool, page_table,
                                      offset, page_size, scale=None,
-                                     k_scale=None, v_scale=None):
+                                     k_scale=None, v_scale=None, name=None):
     """Decode or chunked-prefill attention against a paged KV cache.
 
     q/k/v: [B, S, H, D] new tokens; k_pool/v_pool: [P, page_size, Hkv, D]

@@ -67,7 +67,7 @@ def apply_logit_processors(logits_last, temperature=1.0, top_k=None,
 
 
 def sample_next_token(logits_last, temperature=0.0, top_k=None, top_p=None,
-                      repetition_penalty=None, seen=None, generator=None):
+                      repetition_penalty=None, seen=None, *, generator=None):
     """[B, V] → [B] next tokens: `apply_logit_processors`, then argmax
     (temperature 0) or a multinomial draw from ``generator``."""
     logits_last = apply_logit_processors(
@@ -80,7 +80,7 @@ def sample_next_token(logits_last, temperature=0.0, top_k=None, top_p=None,
 
 
 def init_kv_caches(num_layers, batch, max_len, num_heads, head_dim,
-                   dtype="float32", per_row_offsets=False, device=None):
+                   dtype="float32", per_row_offsets=False, *, device=None):
     """Per-layer ``{"k", "v", "offset"}`` dicts: ``[B, max_len, H, D]``
     caches on ``device`` (None → the card) and one shared CPU int32
     offset, a scalar or, with ``per_row_offsets``, a ``[B]`` vector (one
@@ -171,7 +171,7 @@ def init_paged_caches(num_layers, batch, max_len, num_heads, head_dim,
 
 def generate(model, input_ids, max_new_tokens=32, temperature=0.0,
              top_k=None, top_p=None, repetition_penalty=None,
-             use_cache=True, eos_token_id=None, generator=None,
+             use_cache=True, eos_token_id=None, *, generator=None,
              page_size=None):
     """Autoregressive decoding → ``[B, S + n]`` token ids like
     ``input_ids``, at most ``max_seq_len`` long.

@@ -89,7 +89,7 @@ def gpt_config(name: str, **overrides) -> GPTConfig:
 
 
 class GPTAttention(nn.Module):
-    def __init__(self, config: GPTConfig, device, dtype):
+    def __init__(self, config: GPTConfig, *, device, dtype):
         super().__init__()
         self.config = config
         h = config.hidden_size
@@ -123,7 +123,7 @@ class GPTAttention(nn.Module):
 
 
 class GPTMLP(nn.Module):
-    def __init__(self, config: GPTConfig, device, dtype):
+    def __init__(self, config: GPTConfig, *, device, dtype):
         super().__init__()
         h, m = config.hidden_size, config.intermediate_size
         std = config.initializer_range
@@ -136,13 +136,13 @@ class GPTMLP(nn.Module):
 
 
 class GPTBlock(nn.Module):
-    def __init__(self, config: GPTConfig, device, dtype):
+    def __init__(self, config: GPTConfig, *, device, dtype):
         super().__init__()
         kw = dict(epsilon=config.layer_norm_eps, device=device, dtype=dtype)
         self.ln_1 = LayerNorm(config.hidden_size, **kw)
-        self.attn = GPTAttention(config, device, dtype)
+        self.attn = GPTAttention(config, device=device, dtype=dtype)
         self.ln_2 = LayerNorm(config.hidden_size, **kw)
-        self.mlp = GPTMLP(config, device, dtype)
+        self.mlp = GPTMLP(config, device=device, dtype=dtype)
         self.dropout = Dropout(config.dropout)
 
     def forward(self, x, cache=None):
@@ -158,7 +158,7 @@ class GPTModel(nn.Module):
     `nn.layers.init_generator`; the causal-LM wrapper draws the same
     distributions from its own seeded generator."""
 
-    def __init__(self, config: GPTConfig, device=None, dtype=torch.float32):
+    def __init__(self, config: GPTConfig, *, device=None, dtype=torch.float32):
         super().__init__()
         device = resolve_device(device)
         dtype = to_torch_dtype(dtype)
@@ -169,7 +169,7 @@ class GPTModel(nn.Module):
         self.wpe = Embedding(config.max_seq_len, config.hidden_size, std=std,
                              device=device, dtype=dtype)
         self.drop = Dropout(config.dropout)
-        self.h = nn.ModuleList([GPTBlock(config, device, dtype)
+        self.h = nn.ModuleList([GPTBlock(config, device=device, dtype=dtype)
                                 for _ in range(config.num_layers)])
         self.ln_f = LayerNorm(config.hidden_size,
                               epsilon=config.layer_norm_eps, device=device,
@@ -216,14 +216,14 @@ class GPTForCausalLM(nn.Module):
     at 1 and 0).  ``flash_generator`` (CPU) and ``dropout_generator`` (on
     the device) are seeded with ``seed`` too."""
 
-    def __init__(self, config: GPTConfig, device=None, dtype=torch.float32,
+    def __init__(self, config: GPTConfig, *, device=None, dtype=torch.float32,
                  seed=0):
         super().__init__()
         dev = resolve_device(device)
         dtype = to_torch_dtype(dtype)
         self.config = config
         with deferred_init():       # every parameter drawn below
-            self.gpt = GPTModel(config, dev, dtype)
+            self.gpt = GPTModel(config, device=dev, dtype=dtype)
             self.lm_head = None if config.tie_word_embeddings else Linear(
                 config.hidden_size, config.vocab_size, bias_attr=False,
                 device=dev, dtype=dtype)
@@ -267,7 +267,7 @@ class GPTForCausalLM(nn.Module):
 
     def generate(self, input_ids, max_new_tokens=32, temperature=0.0,
                  top_k=None, top_p=None, repetition_penalty=None,
-                 use_cache=True, eos_token_id=None, generator=None,
+                 use_cache=True, eos_token_id=None, *, generator=None,
                  page_size=None):
         """Incremental decoding over dense KV caches, or paged ones with
         ``page_size`` (`models.generation.generate`)."""
@@ -280,7 +280,7 @@ class GPTForCausalLM(nn.Module):
 
     @staticmethod
     def generate_step(model, input_ids, temperature=1.0, top_k=None,
-                      generator=None):
+                      *, generator=None):
         """One greedy or sampled step over the full forward: ``[B]`` next
         tokens (JAX ``GPTForCausalLM.generate_step``).  Sampling draws
         from ``generator`` (a ``torch.Generator`` on the model's device;

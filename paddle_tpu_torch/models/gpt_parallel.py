@@ -109,7 +109,7 @@ def _row(sp):
 
 class ParallelGPTAttention(nn.Module):
     def __init__(self, config: GPTConfig, use_ring_attention=False,
-                 sequence_parallel=False, *, device=None,
+                 *, sequence_parallel=False, device=None,
                  dtype=torch.float32):
         super().__init__()
         if use_ring_attention:
@@ -154,7 +154,7 @@ class ParallelGPTAttention(nn.Module):
 
 
 class ParallelGPTMLP(nn.Module):
-    def __init__(self, config: GPTConfig, sequence_parallel=False, *,
+    def __init__(self, config: GPTConfig, *, sequence_parallel=False,
                  device=None, dtype=torch.float32):
         super().__init__()
         h, m = config.hidden_size, config.intermediate_size
@@ -181,12 +181,12 @@ class ParallelGPTBlock(nn.Module):
         self.use_recompute = config.use_recompute
         kw = dict(epsilon=config.layer_norm_eps, device=device, dtype=dtype)
         self.ln_1 = LayerNorm(config.hidden_size, **kw)
-        self.attn = ParallelGPTAttention(config, use_ring_attention,
-                                         sequence_parallel, device=device,
-                                         dtype=dtype)
+        self.attn = ParallelGPTAttention(
+            config, use_ring_attention, sequence_parallel=sequence_parallel,
+            device=device, dtype=dtype)
         self.ln_2 = LayerNorm(config.hidden_size, **kw)
-        self.mlp = ParallelGPTMLP(config, sequence_parallel, device=device,
-                                  dtype=dtype)
+        self.mlp = ParallelGPTMLP(config, sequence_parallel=sequence_parallel,
+                                  device=device, dtype=dtype)
         self.dropout = Dropout(config.dropout)
         if sequence_parallel:
             for ln in (self.ln_1, self.ln_2):
@@ -324,7 +324,7 @@ class ParallelGPTForCausalLM(nn.Module):
 
     def generate(self, input_ids, max_new_tokens=32, temperature=0.0,
                  top_k=None, top_p=None, repetition_penalty=None,
-                 use_cache=True, eos_token_id=None, generator=None,
+                 use_cache=True, eos_token_id=None, *, generator=None,
                  page_size=None):
         """Incremental decoding (`models.generation.generate`) on the
         rank's heads; every rank of the mp group returns the same ids."""

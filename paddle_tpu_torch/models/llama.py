@@ -75,7 +75,7 @@ def llama_config(name: str, **overrides) -> LlamaConfig:
 
 
 class LlamaAttention(nn.Module):
-    def __init__(self, config: LlamaConfig, device, dtype):
+    def __init__(self, config: LlamaConfig, *, device, dtype):
         super().__init__()
         self.config = config
         h, d = config.hidden_size, config.head_dim
@@ -127,7 +127,7 @@ class LlamaAttention(nn.Module):
 class LlamaMLP(nn.Module):
     """SwiGLU: down(silu(gate(x)) * up(x))."""
 
-    def __init__(self, config: LlamaConfig, device, dtype):
+    def __init__(self, config: LlamaConfig, *, device, dtype):
         super().__init__()
         h, m = config.hidden_size, config.intermediate_size
         std = config.initializer_range
@@ -142,13 +142,13 @@ class LlamaMLP(nn.Module):
 
 
 class LlamaBlock(nn.Module):
-    def __init__(self, config: LlamaConfig, device, dtype):
+    def __init__(self, config: LlamaConfig, *, device, dtype):
         super().__init__()
         kw = dict(epsilon=config.rms_norm_eps, device=device, dtype=dtype)
         self.input_layernorm = RMSNorm(config.hidden_size, **kw)
-        self.self_attn = LlamaAttention(config, device, dtype)
+        self.self_attn = LlamaAttention(config, device=device, dtype=dtype)
         self.post_attention_layernorm = RMSNorm(config.hidden_size, **kw)
-        self.mlp = LlamaMLP(config, device, dtype)
+        self.mlp = LlamaMLP(config, device=device, dtype=dtype)
 
     def forward(self, x, cache=None):
         x = x + self.self_attn(self.input_layernorm(x), cache=cache)
@@ -163,7 +163,8 @@ class LlamaModel(nn.Module):
     `nn.layers.init_generator`; the causal-LM wrapper draws the same
     distributions from its own seeded generator."""
 
-    def __init__(self, config: LlamaConfig, device=None, dtype=torch.float32):
+    def __init__(self, config: LlamaConfig, *, device=None,
+                 dtype=torch.float32):
         super().__init__()
         device = resolve_device(device)
         dtype = to_torch_dtype(dtype)
@@ -171,8 +172,9 @@ class LlamaModel(nn.Module):
         self.embed_tokens = Embedding(config.vocab_size, config.hidden_size,
                                       std=config.initializer_range,
                                       device=device, dtype=dtype)
-        self.layers = nn.ModuleList([LlamaBlock(config, device, dtype)
-                                     for _ in range(config.num_layers)])
+        self.layers = nn.ModuleList([
+            LlamaBlock(config, device=device, dtype=dtype)
+            for _ in range(config.num_layers)])
         self.norm = RMSNorm(config.hidden_size, epsilon=config.rms_norm_eps,
                             device=device, dtype=dtype)
 
@@ -188,14 +190,14 @@ class LlamaForCausalLM(nn.Module):
     parameters are made on ``device`` (None → the card) and drawn from a
     ``torch.Generator`` seeded with ``seed``."""
 
-    def __init__(self, config: LlamaConfig, device=None, dtype=torch.float32,
-                 seed=0):
+    def __init__(self, config: LlamaConfig, *, device=None,
+                 dtype=torch.float32, seed=0):
         super().__init__()
         dev = resolve_device(device)
         dtype = to_torch_dtype(dtype)
         self.config = config
         with deferred_init():       # every parameter drawn below
-            self.llama = LlamaModel(config, dev, dtype)
+            self.llama = LlamaModel(config, device=dev, dtype=dtype)
             self.lm_head = None if config.tie_word_embeddings else Linear(
                 config.hidden_size, config.vocab_size, bias_attr=False,
                 device=dev, dtype=dtype)
@@ -223,7 +225,7 @@ class LlamaForCausalLM(nn.Module):
 
     def generate(self, input_ids, max_new_tokens=32, temperature=0.0,
                  top_k=None, top_p=None, repetition_penalty=None,
-                 use_cache=True, eos_token_id=None, generator=None,
+                 use_cache=True, eos_token_id=None, *, generator=None,
                  page_size=None):
         """Incremental decoding over dense KV caches, or paged ones with
         ``page_size`` (`models.generation.generate`)."""

@@ -58,7 +58,7 @@ def _repeat_kv(x, n_rep):
 
 class ParallelLlamaAttention(nn.Module):
     def __init__(self, config: LlamaConfig, use_ring_attention=False,
-                 sequence_parallel=False, *, device=None,
+                 *, sequence_parallel=False, device=None,
                  dtype=torch.float32):
         super().__init__()
         if use_ring_attention:
@@ -128,7 +128,7 @@ class ParallelLlamaAttention(nn.Module):
 
 
 class ParallelLlamaMLP(nn.Module):
-    def __init__(self, config: LlamaConfig, sequence_parallel=False, *,
+    def __init__(self, config: LlamaConfig, *, sequence_parallel=False,
                  device=None, dtype=torch.float32):
         super().__init__()
         h, m = config.hidden_size, config.intermediate_size
@@ -156,11 +156,12 @@ class ParallelLlamaBlock(nn.Module):
         kw = dict(epsilon=config.rms_norm_eps, device=device, dtype=dtype)
         self.input_layernorm = RMSNorm(config.hidden_size, **kw)
         self.self_attn = ParallelLlamaAttention(
-            config, use_ring_attention, sequence_parallel, device=device,
-            dtype=dtype)
+            config, use_ring_attention, sequence_parallel=sequence_parallel,
+            device=device, dtype=dtype)
         self.post_attention_layernorm = RMSNorm(config.hidden_size, **kw)
-        self.mlp = ParallelLlamaMLP(config, sequence_parallel, device=device,
-                                    dtype=dtype)
+        self.mlp = ParallelLlamaMLP(config,
+                                    sequence_parallel=sequence_parallel,
+                                    device=device, dtype=dtype)
         if sequence_parallel:
             for norm in (self.input_layernorm,
                          self.post_attention_layernorm):
@@ -261,7 +262,7 @@ class ParallelLlamaForCausalLM(nn.Module):
 
     def generate(self, input_ids, max_new_tokens=32, temperature=0.0,
                  top_k=None, top_p=None, repetition_penalty=None,
-                 use_cache=True, eos_token_id=None, generator=None,
+                 use_cache=True, eos_token_id=None, *, generator=None,
                  page_size=None):
         """Incremental decoding (`models.generation.generate`) on the
         rank's heads, dense or paged (``page_size``) caches; every rank of

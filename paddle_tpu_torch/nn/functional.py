@@ -20,11 +20,17 @@ from ..ops.flops import counted
 
 @counted("rms_norm")
 @amp.amp_op("rms_norm")
-def rms_norm(x, weight, epsilon=1e-6):
+def rms_norm(x, weight=None, epsilon=1e-6, name=None):
     """x / rms(x) * weight: the RMS-norm kernels on the card, their plain
     versions on the CPU.  When autograd needs a gradient the call goes
     through `RMSNormFunction` (forward kernel, then the backward kernel);
-    otherwise (serving, ``torch.no_grad()``) only the forward runs."""
+    otherwise (serving, ``torch.no_grad()``) only the forward runs.
+    Without ``weight`` no kernel backs it, as in the JAX package: the
+    statistics in fp32 for a 16-bit ``x``, rounded once to x's dtype."""
+    if weight is None:
+        xf = x.float() if x.dtype in (torch.bfloat16, torch.float16) else x
+        ms = xf.square().mean(dim=-1, keepdim=True)
+        return (xf * torch.rsqrt(ms + epsilon)).to(x.dtype)
     if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
         return _rms.RMSNormFunction.apply(x, weight, epsilon)
     return _rms.rms_norm(x, weight, epsilon)
@@ -33,7 +39,7 @@ def rms_norm(x, weight, epsilon=1e-6):
 @counted("layer_norm")
 @amp.amp_op("layer_norm")
 def layer_norm(x, normalized_shape=None, weight=None, bias=None,
-               epsilon=1e-5):
+               epsilon=1e-5, name=None):
     """The JAX package's rounding order, not ``F.layer_norm``'s: the
     statistics and the normalised value in fp32 for a 16-bit ``x``, that
     value rounded to x's dtype, then ``* weight + bias`` in x's dtype (the
@@ -54,29 +60,29 @@ def layer_norm(x, normalized_shape=None, weight=None, bias=None,
 
 
 @counted("embedding")
-def embedding(ids, weight, padding_idx=None, sparse=False, name=None):
-    """Rows of ``weight`` at integer ``ids``; with ``padding_idx`` the rows
-    of ids equal to it are multiplied by 0 (so is their gradient), as the
+def embedding(x, weight, padding_idx=None, sparse=False, name=None):
+    """Rows of ``weight`` at integer ids ``x``; with ``padding_idx`` the
+    rows of ids equal to it are multiplied by 0 (so is their gradient), as the
     JAX package masks them.  Floating ids raise ``ValueError`` before
     anything is launched, as the JAX package's ``jnp.take`` refuses them
     (a ``bad_batch`` fault scales token ids into floats; cast to int64
     they would index past the table, which fails a device assert that
     poisons the CUDA context)."""
-    if ids.is_floating_point() or ids.is_complex():
+    if x.is_floating_point() or x.is_complex():
         raise ValueError("indices must have an integer type")
-    out = torch.nn.functional.embedding(ids.long(), weight)
+    out = torch.nn.functional.embedding(x.long(), weight)
     if padding_idx is not None:
-        out = out * (ids != padding_idx)[..., None].to(out.dtype)
+        out = out * (x != padding_idx)[..., None].to(out.dtype)
     return out
 
 
 @counted("silu")
-def silu(x):
+def silu(x, name=None):
     return torch.nn.functional.silu(x)
 
 
 @counted("gelu")
-def gelu(x, approximate=False):
+def gelu(x, approximate=False, name=None):
     """GELU; ``approximate=True`` is the tanh form (GPT-2's), as
     ``jax.nn.gelu(approximate=True)``."""
     return torch.nn.functional.gelu(
@@ -98,7 +104,7 @@ def default_generator(device):
 
 
 def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
-            generator=None):
+            name=None, *, generator=None):
     """``upscale_in_train`` dropout: each element kept with probability
     ``1 - p`` (a uniform draw from ``generator``, a ``torch.Generator`` on
     x's device) and divided by ``1 - p``; the identity when not training
@@ -128,7 +134,7 @@ def _dropout(x, p, gen):
 
 @counted("linear")
 @amp.amp_op("linear")
-def linear(x, weight, bias=None):
+def linear(x, weight, bias=None, name=None):
     """y = x @ W + b with W in Paddle's ``[in, out]`` layout."""
     y = torch.matmul(x, weight)
     if bias is not None:
@@ -248,7 +254,8 @@ flash_attention = counted("flash_attention", ("causal", "head_major"))(
 @amp.amp_op("flash_attention")
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
-                                 training=True, generator=None):
+                                 training=True, name=None, *,
+                                 generator=None):
     """``[B, S, H, D]`` attention through the flash kernels
     (`kernels.flash_attention.flash_attention`), as the JAX package routes
     it to its Pallas kernels: a boolean or additive ``attn_mask``,

@@ -132,14 +132,19 @@ class Embedding(nn.Module):
         if self.padding_idx is not None:
             self.weight[self.padding_idx] = 0.0
 
-    def forward(self, ids):
-        return F.embedding(ids, self.weight, padding_idx=self.padding_idx)
+    def forward(self, x):
+        return F.embedding(x, self.weight, padding_idx=self.padding_idx)
 
 
 class RMSNorm(nn.Module):
-    def __init__(self, hidden_size, epsilon=1e-6, device=None,
-                 dtype=torch.float32):
+    """``weight`` (ones) over the last axis.  ``weight_attr`` and ``name``
+    sit in JAX's places; a ParamAttr other than None raises (ROADMAP
+    A9)."""
+
+    def __init__(self, hidden_size, epsilon=1e-6, weight_attr=None,
+                 name=None, *, device=None, dtype=torch.float32):
         super().__init__()
+        _no_param_attr("RMSNorm", weight_attr=weight_attr)
         device = resolve_device(device)
         self._epsilon = epsilon
         self.weight = nn.Parameter(torch.empty(
@@ -154,25 +159,38 @@ class RMSNorm(nn.Module):
 
 
 class LayerNorm(nn.Module):
-    """``weight`` (ones) and ``bias`` (zeros) over ``normalized_shape``."""
+    """``weight`` (ones) and ``bias`` (zeros) over ``normalized_shape``;
+    ``weight_attr=False`` or ``bias_attr=False`` builds the norm without
+    that parameter, as in JAX (another ParamAttr raises, ROADMAP A9)."""
 
-    def __init__(self, normalized_shape, epsilon=1e-5, device=None,
+    def __init__(self, normalized_shape, epsilon=1e-5, weight_attr=None,
+                 bias_attr=None, name=None, *, device=None,
                  dtype=torch.float32):
         super().__init__()
+        _no_param_attr("LayerNorm",
+                       weight_attr=None if weight_attr is False
+                       else weight_attr,
+                       bias_attr=None if bias_attr is False else bias_attr)
         device = resolve_device(device)
         if isinstance(normalized_shape, int):
             normalized_shape = [normalized_shape]
         self._normalized_shape = list(normalized_shape)
         self._epsilon = epsilon
-        self.weight = nn.Parameter(torch.empty(
-            self._normalized_shape, device=device, dtype=dtype))
-        self.bias = nn.Parameter(torch.empty(
-            self._normalized_shape, device=device, dtype=dtype))
-        _init(self)
+
+        def param():
+            return nn.Parameter(torch.empty(
+                self._normalized_shape, device=device, dtype=dtype))
+        self.weight = param() if weight_attr is not False else None
+        self.bias = param() if bias_attr is not False else None
+        if not getattr(_defer, "depth", 0):
+            with torch.no_grad():
+                self.reset_parameters()
 
     def reset_parameters(self, generator=None):
-        self.weight.fill_(1.0)
-        self.bias.zero_()
+        if self.weight is not None:
+            self.weight.fill_(1.0)
+        if self.bias is not None:
+            self.bias.zero_()
 
     def forward(self, x):
         return F.layer_norm(x, self._normalized_shape, self.weight,

@@ -52,13 +52,14 @@ def _default_generator(device):
 class LoRALinear(nn.Module):
     """A `Linear` with a trainable low-rank residual ``A @ B * scaling``.
 
-    ``LoRALinear(base, rank=8, alpha=None, generator=None)`` adopts
-    ``base``'s ``weight`` and ``bias``.  ``lora_A`` is drawn from N(0,
+    ``LoRALinear(base, rank=8, alpha=None, name=None, *, generator=None)``
+    adopts ``base``'s ``weight`` and ``bias``.  ``lora_A`` is drawn from N(0,
     0.02) with ``generator`` (a ``torch.Generator`` on the weight's
     device; None: one seeded 0), ``lora_B`` is zeros, so the adapter
     starts as the identity.  ``alpha`` defaults to ``rank``."""
 
-    def __init__(self, base, rank=8, alpha=None, generator=None):
+    def __init__(self, base, rank=8, alpha=None, name=None, *,
+                 generator=None):
         super().__init__()
         if not isinstance(base, Linear):
             raise TypeError(
@@ -125,7 +126,7 @@ class LoRALinear(nn.Module):
                 f"alpha={self.alpha}, merged={self._merged}")
 
 
-def attach_lora(model, rank=8, alpha=None, targets=None, generator=None):
+def attach_lora(model, rank=8, alpha=None, targets=None, *, generator=None):
     """Replace ``model``'s `Linear` attributes named in ``targets`` by
     `LoRALinear` wrappers, in place, drawing every ``lora_A`` from
     ``generator`` in module order (None: one seeded 0 on each weight's

@@ -62,7 +62,7 @@ _MAX_PENDING = 64
 
 class StepMetrics:
     def __init__(self, prefix="train.", registry=None, peak_flops=None,
-                 tokens_per_example=None, memory_every=16, device=None):
+                 tokens_per_example=None, memory_every=16, *, device=None):
         reg = registry or _registry.REGISTRY
         self.registry = reg
         self.prefix = prefix

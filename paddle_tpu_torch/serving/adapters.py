@@ -8,11 +8,13 @@ weight's dtype, with ``P = max_adapters + 1``.  Pool slot 0 stays zero, so
 index 0 is the exact identity and base requests ride the same batch as
 adapter requests.  An adapter of rank r <= rank_pool is zero-padded into
 its slot (the padding multiplies into exact zeros).  A per-row int32
-index vector picks each batch row's slot, and the projection adds
+index vector picks each batch row's slot, and the projection's output
+becomes JAX's
 
-    lora_delta(x, A, B, scale, idx)  =  (x @ A[idx]) @ B[idx] * scale[idx]
+    lora_delta(y, x, A, B, scale, idx)
+        =  y + (x @ A[idx]) @ B[idx] * scale[idx]
 
-through the kernel of ``kernels/lora.py``.  Hot-loading writes a slot of
+whose delta is the kernel of ``kernels/lora.py``.  Hot-loading writes a slot of
 the stacks in place; no tensor is ever rebound, so the index vector and
 the stacks keep their device addresses.
 
@@ -34,11 +36,19 @@ import time
 import numpy as np
 import torch
 
-from ..kernels.lora import lora_delta
+from ..kernels import lora as _lora_kernel
 from ..nn.layers import Linear
 from ..nn.lora import DEFAULT_TARGETS, load_adapter_state
 from . import stats
 from .api import AdapterConfigError
+
+def lora_delta(y, x, a_stack, b_stack, scale, idx):
+    """``y + (x @ A[idx]) @ B[idx] * scale[idx]`` per batch row (JAX's
+    contract): the delta from the CUDA kernel on the card (its plain
+    version on the CPU), rounded once to x's dtype, then added to the
+    projection's output ``y``."""
+    return y + _lora_kernel.lora_delta(x, a_stack, b_stack, scale, idx)
+
 
 # .value: the (pool, idx) of the calling thread's active scope, or absent
 _ACTIVE = threading.local()
@@ -78,7 +88,7 @@ def _patch_linear(layer, qual_name):
         ent = act.pool._stacks.get(_name)
         if ent is None:
             return y
-        return y + lora_delta(args[0], ent.A, ent.B, ent.scale, act.idx)
+        return lora_delta(y, args[0], ent.A, ent.B, ent.scale, act.idx)
 
     # the hook's id lets the compiled tick tell the pool's hooks from
     # others (which block it)

@@ -21,7 +21,12 @@ device-resident scheduler state:
 - **host boundary**: each tick reads back ONE ``[num_slots]`` finish-code
   vector, through a pinned buffer and an event.  Admission, completion
   and deadline eviction (a wall-clock decision) are the only times token
-  buffers cross to the host.
+  buffers cross to the host.  A tensor-parallel replica's leader
+  (``Engine.mirror``, `tp_replica`) also reads the ``[num_slots]`` last
+  tokens after the finish codes, for its followers' desync check, and
+  hands each tick's mode and a rebuild's host-staged arrays to its
+  followers before the replay; each rank replays its own graph, the
+  model's mp all-reduces and logits gather inside it.
 
 Typed blockers send an iteration to the uncompiled lane with a
 `TickFallbackWarning`, once per kind, and count ``tick.fallbacks`` each
@@ -29,9 +34,11 @@ iteration that consulted the tick:
 
 - static ones, known when the tick is built, latch the fallback for the
   tick's life and warn at construction: ``kv_layout="slots"`` (the tick
-  runs on the paged cache) and speculation (a draft model with
+  runs on the paged cache), speculation (a draft model with
   ``speculation_k > 0``; an all-greedy speculative engine never consults
-  the tick, its iterations run `Engine._spec_step`);
+  the tick, its iterations run `Engine._spec_step`), and on the card a
+  tensor-parallel model whose mp group is not NCCL (gloo collectives
+  cannot be captured, as `framework.train_step` refuses them);
 - per iteration: forward hooks installed (the adapter pool's own LoRA
   hooks excepted), and non-greedy sampling without a per-request
   ``SamplingParams.seed`` (the in-program draw is keyed by
@@ -182,6 +189,9 @@ class CompiledServingTick:
         #: which the live requests wait for, then the first replay)
         self.first_tick_ms = {}
         self._ahead = False            # device tokens not yet on the host
+        #: the host arrays of the last rebuild, not yet sent to a tensor
+        #: parallel replica's other ranks (None: nothing to send)
+        self.staged = None
         #: why this tick latched the uncompiled lane for its life (a static
         #: blocker, or a mode's first call that failed), or None
         self.fallback_reason = None
@@ -242,6 +252,16 @@ class CompiledServingTick:
         if eng._spec:
             return ("spec", "speculative decoding configured "
                     "(draft_model + speculation_k > 0)")
+        if eng.device.type == "cuda":
+            import torch.distributed as dist
+
+            from ..distributed import topology
+            mp = topology.mp_group()
+            if mp is not None and mp.nranks > 1 and \
+                    dist.get_backend(mp.process_group) != "nccl":
+                return ("capture", f"the model's mp collectives run on "
+                        f"{dist.get_backend(mp.process_group)}, which "
+                        "cannot be captured in a CUDA graph (use nccl)")
         return None
 
     def _blocker(self):
@@ -324,6 +344,11 @@ class CompiledServingTick:
         return {m: (int(s.graph is not None), s.replays, dict(s.launches))
                 for m, s in self.steps.items()}
 
+    def graph_collectives(self):
+        """{mode: {op: (calls, bytes) per replay}}: a tensor-parallel
+        model's collectives inside each mode's graph."""
+        return {m: dict(s.collectives) for m, s in self.steps.items()}
+
     # ------------------------------------------------------------------
     # host <-> device state sync
     # ------------------------------------------------------------------
@@ -387,6 +412,9 @@ class CompiledServingTick:
                 host["seen"][slot] = req.seen
         for name, arr in host.items():
             self._state[name].copy_(torch.from_numpy(arr))
+        # a tensor-parallel replica's other ranks copy the same arrays
+        # into their ticks' state (`tp_replica`)
+        self.staged = host if eng.mirror is not None else None
         self._h_counts = host["counts"].astype(np.int64)
         self._rep = dict(eng._active)
         self._mut_seen = eng._mut
@@ -510,6 +538,10 @@ class CompiledServingTick:
             r.sampling.greedy and not r.sampling.uses_penalty
             for r in active.values()) else "mixed"
         first = mode not in self.steps
+        mirror = eng.mirror
+        if mirror is not None:
+            mirror.tick(mode, self.staged, cache, slots)
+            self.staged = None
         if first:
             if not self._first_call(mode):
                 return False
@@ -524,6 +556,10 @@ class CompiledServingTick:
             fin_np = self._fin_host.numpy().copy()
         else:
             fin_np = fin.numpy().copy()
+        if mirror is not None:
+            last = self._state["last"].cpu().numpy()
+            mirror.sampled({s: int(last[s]) for s in slots},
+                           fin={s: int(fin_np[s]) for s in slots})
         # the device offsets advanced in place; the host mirror follows
         cache.absorb_tick(slots)
         self._h_counts[slots] += 1

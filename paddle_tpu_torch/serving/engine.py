@@ -81,6 +81,15 @@ where the sender stopped (its tokens, penalty state and key-stream
 position), so its first decode step is the tick's replay like any other
 slot's.  ``drain(migrate=True)`` migrates the in-flight slots the same
 way.
+
+A tensor-parallel model (``cache_kv_heads``: `ParallelLlamaForCausalLM`,
+`ParallelGPTForCausalLM`) sizes the pools by the rank's kv heads.  Its
+replica (`tp_replica`) installs ``Engine.mirror``: the one seam through
+which every model call (a prefill chunk, the uncompiled decode step, the
+compiled tick) and every write to the cache's device state (a
+migration's page reads and adoption) is first handed to the replica's
+other ranks.  With no mirror (one rank) nothing is sent and a decode
+step launches what it launches without it.
 """
 from __future__ import annotations
 
@@ -98,7 +107,8 @@ import torch
 
 from ..distributed.fleet.elastic import PreemptionHandler
 from ..distributed.watchdog import all_thread_stacks, async_raise
-from ..models.generation import init_kv_caches, sample_next_token
+from ..models.generation import _kv_heads, init_kv_caches, \
+    sample_next_token
 from ..observability import flight_recorder as _fr
 from ..observability import tracing
 from ..observability.exporter import maybe_start_exporter
@@ -204,8 +214,9 @@ class Engine:
         model.eval()                # serving never wants dropout
         self.device = next(model.parameters()).device
         self.max_len = self.scfg.max_seq_len or self.cfg.max_seq_len
-        # GPT has no num_kv_heads: every head is a kv head
-        self._kv_heads = getattr(self.cfg, "num_kv_heads", self.cfg.num_heads)
+        # a tensor-parallel model's cache holds its rank's kv heads; GPT
+        # has no num_kv_heads: every head is a kv head
+        self._kv_heads = _kv_heads(model)
         # a quantized page packs 2x the baseline page's tokens in half its
         # bytes: the pages in use at equal token load halve
         quant = kv_quant_params(self.scfg.cache_dtype) is not None
@@ -300,6 +311,11 @@ class Engine:
         self.migrator = None
         self.migration_awaiter = None
         self._migrating_out: dict[int, _Request] = {}
+        # the seam of a tensor-parallel replica (`tp_replica.StepMirror`):
+        # every model call and every write to the cache's device state is
+        # sent to the replica's other ranks first, which run it on their
+        # shards.  None (one rank): nothing is sent
+        self.mirror = None
         self._migration_results: deque = deque()
         self._migrate_failed: set[int] = set()
         self._drain_migrate = False
@@ -795,6 +811,11 @@ class Engine:
                 running = self._running
             if not running:
                 return True                 # a shutdown racing a crash
+            if self.mirror is not None:
+                # the other ranks' caches and graphs cannot be rebuilt in
+                # lockstep: the replica goes down before any future fails,
+                # so the router sees a lost replica and fails over
+                self.mirror.fatal(exc)
             # the futures keep the error and its traceback: its frames'
             # locals (the cache's views, a logits tensor) go, so the old
             # cache is free to go before the restart allocates a new one
@@ -982,11 +1003,18 @@ class Engine:
             pay = req.resume
             n = int(pay["k_pages"].shape[1])
             reserve = max(0, -(-total // psz) - n)
+            k, v = pay["k_pages"], pay["v_pages"]
+            if self.mirror is not None:
+                # the wire holds every head: this rank keeps its own
+                k, v = self.mirror.local_heads(k), self.mirror.local_heads(v)
             slot = self.cache.adopt_pages(
-                reserve, pay["offset"], pay["k_pages"], pay["v_pages"],
-                pay["k_scales"], pay["v_scales"])
+                reserve, pay["offset"], k, v, pay["k_scales"],
+                pay["v_scales"])
             if slot is None:
                 return None         # pool backpressure: stays queued
+            if self.mirror is not None:
+                self.mirror.adopt(self.cache.table[slot, :n].copy(),
+                                  pay["k_pages"], pay["v_pages"])
             if self._spec:
                 dslot = self.draft_cache.allocate(
                     self.draft_cache.pages_per_slot)
@@ -1095,6 +1123,7 @@ class Engine:
         if tgt:
             logits, starts = self._prefill_chunk_call(
                 self.model, self.cache, tgt, [r.prefill_pos for r in tgt])
+            sampled = {}
             for row, req in enumerate(tgt):
                 plen = req.prompt.size
                 start = starts[row]
@@ -1113,6 +1142,7 @@ class Engine:
                     req.seen = seen
                 req.first_tok = self._sample_row(
                     logits[row:row + 1, plen - 1 - start, :], req)
+                sampled[row] = req.first_tok
                 req.ttft_ms = (time.monotonic() - req.submit_t) * 1e3
                 stats.observe("ttft_ms", req.ttft_ms)
                 stats.incr("prefill_steps")
@@ -1123,6 +1153,8 @@ class Engine:
                     self.prefix_tree.insert(req.prompt, self.cache,
                                             req.slot, req.prefix_nodes,
                                             scope=req.adapter_id)
+            if self.mirror is not None:
+                self.mirror.sampled(sampled)
         if self._spec:
             # the draft's own chunked prefill, at the same cadence: its
             # cache must hold the whole prompt before the request can
@@ -1195,7 +1227,11 @@ class Engine:
             rows = np.zeros(cache.num_slots, np.int32)
             rows[:len(reqs)] = [r.adapter_slot for r in reqs]
             lora = self._lora_ctx(self.adapter_pool.row_tensor(rows))
-        views = cache.prefill_view([r.slot for r in reqs], starts)
+        rows = cache.prefill_rows([r.slot for r in reqs], starts)
+        if self.mirror is not None:
+            self.mirror.prefill(tokens, rows, self._first_token_rows(
+                reqs, starts))
+        views = cache.rows_view(*rows)
         with lora:
             logits = model(torch.tensor(tokens, device=self.device),
                            caches=views)
@@ -1207,6 +1243,25 @@ class Engine:
         stats.observe("prefill_ms", dt_ms)
         stats.incr("prefill_chunks", len(reqs))
         return logits, starts
+
+    def _first_token_rows(self, reqs, starts):
+        """{row: (position, knobs)} of the rows whose prompt this chunk
+        call completes: where the first token is read and how it is drawn
+        (`_sampling_knobs`, the prompt as the penalty's seen set; None for
+        a request's own generator), for a tensor-parallel replica's other
+        ranks to draw it too."""
+        out = {}
+        for row, (req, start) in enumerate(zip(reqs, starts)):
+            plen = req.prompt.size
+            if min(start + self._chunk, plen) < plen:
+                continue
+            knobs = None
+            if sampling_hostable(req.sampling):
+                knobs = self._sampling_knobs([req])
+                if req.sampling.uses_penalty:
+                    knobs["seen"][0, req.prompt] = True
+            out[row] = (plen - 1 - start, knobs)
+        return out
 
     # ---------------- live KV-page migration (disaggregation) ------------
     def _migrate_ready(self, req, tok):
@@ -1239,7 +1294,11 @@ class Engine:
         until the outcome lands: success releases them, failure
         re-activates the request here with nothing lost."""
         from . import migration
-        header, blobs = migration.export_slot(self.cache, req.slot)
+        if self.mirror is not None:
+            # the ranks' head slices, gathered into the global pages
+            header, blobs = self.mirror.export_slot(self.cache, req.slot)
+        else:
+            header, blobs = migration.export_slot(self.cache, req.slot)
         self._migrating_out[req.id] = req
         self._mut += 1          # the slot left the active set
         tr = req.trace
@@ -1458,9 +1517,15 @@ class Engine:
         tok_in = np.zeros((self.cache.num_slots, 1), np.int32)
         for slot, req in self._active.items():
             tok_in[slot, 0] = req.last_token
+        caches = self.cache.layer_caches()
+        if self.mirror is not None:
+            self.mirror.decode(tok_in, self.cache, {
+                slot: (0, self._sampling_knobs([req])
+                       if sampling_hostable(req.sampling) else None)
+                for slot, req in self._active.items()})
         with self._lora_ctx():
             logits = self.model(torch.tensor(tok_in, device=self.device),
-                                caches=self.cache.layer_caches())
+                                caches=caches)
         self.cache.advance(self._active.keys())
         last = logits[:, -1, :]                      # [num_slots, V]
         toks = None
@@ -1469,10 +1534,14 @@ class Engine:
             toks = torch.argmax(last, dim=-1).cpu().numpy()  # one argmax
         elif self._fused_sampling_ok():
             toks = self._fused_sample(last)     # one call for every slot
+        chosen = {}
         for slot, req in list(self._active.items()):
             tok = int(toks[slot]) if toks is not None else \
                 self._sample_row(last[slot:slot + 1, :], req)
+            chosen[slot] = tok
             self._append_token(req, tok)
+        if self.mirror is not None:
+            self.mirror.sampled(chosen)
         stats.observe("decode_ms", (time.monotonic() - t0) * 1e3)
         stats.incr("decode_steps")
         stats.incr("slot_steps", self.cache.num_slots)

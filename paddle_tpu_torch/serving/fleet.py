@@ -31,8 +31,13 @@ calls through its migrator hooks.  A role-specialized replica's drain
 migrates its in-flight slots to a survivor (``migrate_on_drain``), and
 `ServingFleet.flip_role` rides drain and the bumped-generation rejoin.
 
-``tensor_parallel_degree > 1`` (a replica sharded over an ``"mp"`` mesh)
-raises ``NotImplementedError``: the mesh is ROADMAP A8.
+``tensor_parallel_degree`` N > 1 serves one replica id from N processes,
+one a rank of the replica's own process group, with the hybrid topology
+at mp = N and dp = 1 installed before the model factory runs (JAX's
+``"mp"`` mesh; `tp_replica`): rank 0 hosts the `ReplicaServer` and
+schedules, the other ranks run its calls on their shards in lockstep.
+``kill_replica``, ``drain_replica``, ``flip_role`` and ``shutdown`` act
+on the whole replica.
 """
 from __future__ import annotations
 
@@ -43,10 +48,11 @@ import threading
 import time
 from collections import OrderedDict
 from concurrent.futures import TimeoutError as FuturesTimeout
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 
+from ..distributed.watchdog import DesyncError, PeerFailureError
 from ..observability import tracing
 from .api import EngineShutdownError, SamplingParams, ServingConfig
 from .router import INFO_PREFIX, RouterConfig, ServingRouter
@@ -61,9 +67,9 @@ class ReplicaConfig:
                             margin (a missed beat must not look dead)
     drain_deadline_s        SIGTERM → how long in-flight slots may
                             finish before the replica exits anyway
-    tensor_parallel_degree  >1 would shard the replica's model over an
-                            "mp" mesh of that many local devices; it
-                            raises (the mesh is ROADMAP A8)
+    tensor_parallel_degree  >1 shards the replica's model over an "mp"
+                            group of that many ranks, one process each
+                            (one replica id, one engine, N shards)
     dedup_results           how many request-id → future entries the
                             idempotency cache keeps (resubmits of a
                             known rid re-await instead of re-decoding)
@@ -74,6 +80,10 @@ class ReplicaConfig:
                             with its cache intact, never recomputing
                             the prompt.  Mixed replicas keep the
                             finish-in-place drain
+    device                  (keyword-only, the port's) where a tensor
+                            parallel replica's ranks run: None is the
+                            card (NCCL), "cpu" gloo; the model factory
+                            builds on the same device
     """
 
     heartbeat_interval_s: float = 0.5
@@ -82,6 +92,7 @@ class ReplicaConfig:
     tensor_parallel_degree: int = 1
     dedup_results: int = 512
     migrate_on_drain: bool = True
+    device: str | None = field(default=None, kw_only=True)
 
     def validate(self):
         if self.heartbeat_interval_s <= 0:
@@ -94,11 +105,6 @@ class ReplicaConfig:
         if self.tensor_parallel_degree < 1:
             raise ValueError(f"tensor_parallel_degree must be >= 1, "
                              f"got {self.tensor_parallel_degree}")
-        if self.tensor_parallel_degree > 1:
-            raise NotImplementedError(
-                f"tensor_parallel_degree={self.tensor_parallel_degree}: a "
-                "replica sharded over an mp mesh is not ported yet "
-                "(ROADMAP A8)")
         if self.dedup_results < 1:
             raise ValueError(f"dedup_results must be >= 1, got "
                              f"{self.dedup_results}")
@@ -207,7 +213,11 @@ class ReplicaServer:
 
     def __init__(self, name, model, store, serving_config=None,
                  config: ReplicaConfig | None = None,
-                 warmup_prompt=None):
+                 warmup_prompt=None, *, mirror=None):
+        """``mirror`` (the port's): the `tp_replica.StepMirror` of a
+        tensor-parallel replica's leader, whose followers run every
+        engine call with it; a lost rank takes the replica down
+        (`_die`)."""
         from ..distributed import rpc
         from ..distributed.store import TCPElasticStore
         from .engine import Engine
@@ -225,6 +235,9 @@ class ReplicaServer:
         self._dedup_lock = threading.Lock()
         self._store_lock = threading.Lock()
         self.engine = Engine(model, serving_config)
+        if mirror is not None:
+            mirror.fatal_hook = self._die
+            mirror.attach(self.engine)
         # name the engine for the `engine_slow` gray-failure point (the
         # `to=` filter targets one replica of a thread-mode fleet too)
         self.engine.fault_name = name
@@ -524,17 +537,42 @@ class ReplicaServer:
         except Exception:
             pass
         self.engine.shutdown()
+        if self.engine.mirror is not None:
+            self.engine.mirror.stop()
         self.rpc_server.close()
         if _REPLICAS.get(self.name) is self:
             del _REPLICAS[self.name]
 
+    def _die(self, exc):
+        """A tensor-parallel replica lost a rank (or its lockstep): leave
+        the ring at once and exit, as a SIGKILLed replica would; the
+        router resubmits the in-flight requests elsewhere."""
+        import sys
+
+        from ..distributed.watchdog import ELASTIC_EXIT_CODE
+        sys.stderr.write(f"[fleet] replica {self.name} goes down: "
+                         f"{type(exc).__name__}: {exc}\n")
+        sys.stderr.flush()
+        self._stop.set()
+        try:
+            self.membership.deregister(self.name)
+            self.store.delete_key(INFO_PREFIX + self.name)
+        except Exception:
+            pass
+        os._exit(ELASTIC_EXIT_CODE)
+
 
 def _replica_proc_main(name, store_spec, serving_config, replica_config,
-                       model_factory, warmup_prompt=None):
+                       model_factory, warmup_prompt=None, *, tp_rank=0,
+                       tp_init=None):
     """Subprocess entry: host one replica until SIGTERM (drain) or the
     parent kills us.  `model_factory` must be a picklable top-level
     callable (a ``functools.partial`` of a model class with its config,
-    device and seed, say); it builds the model on its device."""
+    device and seed, say); it builds the model on its device, and runs
+    after a tensor-parallel replica's topology is installed, so a
+    parallel model finds its mp group.  ``tp_rank`` and ``tp_init``
+    (``(init_method, key)``) place a tensor-parallel replica's rank; a
+    rank above 0 runs the follower loop (`_follower_main`)."""
     stop = {"mode": None}
     evt = threading.Event()
 
@@ -542,12 +580,29 @@ def _replica_proc_main(name, store_spec, serving_config, replica_config,
         stop["mode"] = "drain"
         evt.set()
 
-    signal.signal(signal.SIGTERM, _sigterm)
     cfg = (replica_config or ReplicaConfig()).validate()
+    ctx = None
+    if cfg.tensor_parallel_degree > 1:
+        from . import tp_replica
+        ctx = tp_replica.init_ranks(cfg.tensor_parallel_degree, tp_rank,
+                                    tp_init[0], tp_init[1], cfg.device)
+    if tp_rank > 0:
+        # a follower leaves with its leader, never on its own SIGTERM
+        signal.signal(signal.SIGTERM, signal.SIG_IGN)
+        _follower_main(ctx, store_spec, serving_config, cfg, model_factory)
+    signal.signal(signal.SIGTERM, _sigterm)
     store = _open_store(store_spec)
+    mirror = None
+    if ctx is not None:
+        mirror = tp_replica.StepMirror(ctx)
+        tp_replica.start_beat(
+            ctx, _open_store(store_spec), cfg.heartbeat_interval_s,
+            cfg.heartbeat_ttl_s, lambda r, age: mirror.fatal(
+                PeerFailureError(f"rank {r} of replica {name} stopped "
+                                 f"beating {age:.1f} s ago", rank=r)))
     model = model_factory()
     rep = ReplicaServer(name, model, store, serving_config, cfg,
-                        warmup_prompt=warmup_prompt)
+                        warmup_prompt=warmup_prompt, mirror=mirror)
     try:
         while not evt.wait(0.25):
             pass
@@ -564,6 +619,43 @@ def _replica_proc_main(name, store_spec, serving_config, replica_config,
     os._exit(0)
 
 
+def _follower_main(ctx, store_spec, serving_config, cfg, model_factory):
+    """A tensor-parallel replica's rank above 0: build the model's shard,
+    run the leader's calls until it stops (exit 0), goes (its channel
+    closes or its beat goes stale: exit 101), or this rank diverges
+    (`DesyncError`, exit 1)."""
+    import sys
+    import traceback
+
+    from ..distributed.watchdog import ELASTIC_EXIT_CODE
+    from . import tp_replica
+
+    def _lost(rank, age):
+        sys.stderr.write(f"[fleet] tp rank {ctx.rank}: the leader stopped "
+                         f"beating {age:.1f} s ago\n")
+        sys.stderr.flush()
+        os._exit(ELASTIC_EXIT_CODE)
+    held = {}
+    tp_replica.start_beat(ctx, _open_store(store_spec),
+                          cfg.heartbeat_interval_s, cfg.heartbeat_ttl_s,
+                          _lost, lambda: tp_replica.follower_stats(
+                              held.get("follower")))
+    code = 0
+    try:
+        held["follower"] = tp_replica.StepFollower(ctx, model_factory(),
+                                                   serving_config)
+        held["follower"].run()
+    except DesyncError:
+        traceback.print_exc()
+        code = 1
+    except BaseException:                # noqa: BLE001 - the leader is gone
+        traceback.print_exc()
+        code = ELASTIC_EXIT_CODE
+    ctx.beat.stop()
+    sys.stderr.flush()
+    os._exit(code)
+
+
 class ServingFleet:
     """Local multi-process fleet: membership store + N replica
     processes + router, one object.  The chaos bench and CI drive this;
@@ -576,7 +668,10 @@ class ServingFleet:
                  replica_config: ReplicaConfig | None = None,
                  router_config: RouterConfig | None = None,
                  warmup_prompt=None, name_prefix="replica",
-                 roles=None):
+                 roles=None, *, replica_configs=None):
+        """``replica_configs`` (the port's): a `ReplicaConfig` a replica,
+        positional like ``roles`` (a tp 1 prefill replica beside a tp 2
+        decode replica, say); None gives each ``replica_config``."""
         self.model_factory = model_factory
         self.num_replicas = int(num_replicas)
         self.scfg = serving_config
@@ -594,9 +689,21 @@ class ServingFleet:
             raise ValueError(
                 f"{len(self.roles)} roles for {self.num_replicas} "
                 "replicas")
+        self.rcfgs = [c.validate() for c in replica_configs] \
+            if replica_configs is not None else None
+        if self.rcfgs is not None and \
+                len(self.rcfgs) != self.num_replicas:
+            raise ValueError(
+                f"{len(self.rcfgs)} replica configs for "
+                f"{self.num_replicas} replicas")
         self.router: ServingRouter | None = None
         self._store = None
+        #: name -> the replica's process (its leader, rank 0)
         self._procs: dict[str, object] = {}
+        #: name -> every process of the replica (tensor parallel: a rank
+        #: each, the leader first)
+        self._ranks: dict[str, list] = {}
+        self._rcfg_of: dict[str, ReplicaConfig] = {}
         self._configs: dict[str, ServingConfig | None] = {}
         self._next_idx = 0
         self._ctx = None
@@ -621,25 +728,48 @@ class ServingFleet:
         self._store_spec = ("tcp", "127.0.0.1", self._store.port)
         self._ctx = mp.get_context("spawn")
         for i in range(self.num_replicas):
-            self._spawn(role=self.roles[i] if self.roles else None)
+            self._spawn(role=self.roles[i] if self.roles else None,
+                        replica_config=self.rcfgs[i] if self.rcfgs
+                        else None)
         self.wait_ready(self.num_replicas, timeout=warmup_timeout_s)
         self.router = ServingRouter(self._store,
                                     self.router_cfg).start()
         return self
 
-    def _spawn(self, role=None, serving_config=None, name=None):
+    def _spawn(self, role=None, serving_config=None, name=None, *,
+               replica_config=None):
         if name is None:
             name = f"{self.name_prefix}-{self._next_idx}"
             self._next_idx += 1
         scfg = self._role_config(role, serving_config)
         self._configs[name] = scfg
-        p = self._ctx.Process(
-            target=_replica_proc_main,
-            args=(name, self._store_spec, scfg, self.rcfg,
-                  self.model_factory, self.warmup_prompt),
-            name=name)
-        p.start()
-        self._procs[name] = p
+        rcfg = (replica_config or self._rcfg_of.get(name)
+                or self.rcfg).validate()
+        self._rcfg_of[name] = rcfg
+        tp = rcfg.tensor_parallel_degree
+        tp_init = None
+        if tp > 1:
+            # the replica's own process group: a rendezvous port and a
+            # beat key of this incarnation
+            import socket
+            import uuid
+            with socket.socket() as sock:
+                sock.bind(("127.0.0.1", 0))
+                port = sock.getsockname()[1]
+            tp_init = (f"tcp://127.0.0.1:{port}",
+                       f"{name}-{uuid.uuid4().hex[:12]}")
+        ranks = []
+        for r in range(tp):
+            p = self._ctx.Process(
+                target=_replica_proc_main,
+                args=(name, self._store_spec, scfg, rcfg,
+                      self.model_factory, self.warmup_prompt),
+                kwargs={"tp_rank": r, "tp_init": tp_init},
+                name=name if r == 0 else f"{name}-rank{r}")
+            p.start()
+            ranks.append(p)
+        self._procs[name] = ranks[0]
+        self._ranks[name] = ranks
         return name
 
     def wait_ready(self, n, timeout=300.0):
@@ -650,11 +780,12 @@ class ServingFleet:
                      if state == "ready"]
             if len(ready) >= n:
                 return ready
-            for name, p in self._procs.items():
-                if p.exitcode not in (None, 0):
-                    raise RuntimeError(
-                        f"replica {name} died during warmup "
-                        f"(exitcode {p.exitcode})")
+            for name, ranks in self._ranks.items():
+                for p in ranks:
+                    if p.exitcode not in (None, 0):
+                        raise RuntimeError(
+                            f"replica {name} died during warmup "
+                            f"({p.name} exitcode {p.exitcode})")
             if time.time() > deadline:
                 raise TimeoutError(
                     f"only {len(ready)}/{n} replicas ready within "
@@ -663,9 +794,9 @@ class ServingFleet:
 
     def replica_states(self, detail=False):
         """{name: state} snapshot from the gossip, or — ``detail=True``
-        — {name: {"state", "role", "gen", "pid"}} so asymmetric-fleet
-        tests and the disagg bench can assert role assignment
-        directly."""
+        — {name: {"state", "role", "gen", "pid", "tp"}} so asymmetric-
+        fleet tests and the disagg bench can assert role assignment and
+        each replica's tensor-parallel degree directly."""
         out = {}
         for key, val in self._store.list_prefix(INFO_PREFIX).items():
             try:
@@ -675,7 +806,8 @@ class ServingFleet:
                         "state": info.get("state", "?"),
                         "role": info.get("role", "mixed"),
                         "gen": info.get("gen", 0),
-                        "pid": info.get("pid")}
+                        "pid": info.get("pid"),
+                        "tp": info.get("tp", 1)}
                 else:
                     out[info["name"]] = info.get("state", "?")
             except (ValueError, KeyError):
@@ -747,26 +879,43 @@ class ServingFleet:
         return merged
 
     # ---------------- chaos / elasticity ----------------
-    def kill_replica(self, name, sig=signal.SIGKILL):
+    def kill_replica(self, name, sig=signal.SIGKILL, *, rank=None):
         """SIGKILL (default) = chaos: no drain, no deregistration — the
-        router must detect the death itself."""
-        p = self._procs[name]
-        os.kill(p.pid, sig)
-        return p.pid
+        router must detect the death itself.  A tensor-parallel replica
+        is killed whole; ``rank`` (the port's) signals that rank alone
+        (a lost follower takes its replica down).  SIGTERM goes to the
+        leader, which drains and then releases its followers.  Returns
+        the pid signalled (the leader's for the whole replica)."""
+        ranks = self._ranks[name]
+        if rank is not None:
+            targets = [ranks[rank]]
+        elif sig == signal.SIGTERM:
+            targets = ranks[:1]
+        else:
+            targets = ranks
+        for p in targets:
+            try:
+                os.kill(p.pid, sig)
+            except ProcessLookupError:
+                pass
+        return targets[0].pid
 
     def drain_replica(self, name):
         """SIGTERM = graceful scale-down: the replica drains and leaves
         the ring before the deadline."""
         return self.kill_replica(name, sig=signal.SIGTERM)
 
-    def add_replica(self, role=None, serving_config=None, name=None):
+    def add_replica(self, role=None, serving_config=None, name=None, *,
+                    replica_config=None):
         """Scale up: spawn a fresh replica; it registers, warms, and
         the router's watcher rings it in.  ``role`` stamps a
         disaggregation role onto the fleet's serving config (or pass a
         full per-replica ``serving_config``) so chaos tests and the
-        bench can build asymmetric fleets directly."""
+        bench can build asymmetric fleets directly; ``replica_config``
+        (the port's) gives it its own `ReplicaConfig` (its
+        tensor-parallel degree, say)."""
         return self._spawn(role=role, serving_config=serving_config,
-                           name=name)
+                           name=name, replica_config=replica_config)
 
     def flip_role(self, name, role, serving_config=None,
                   warmup_timeout_s=300.0):
@@ -777,13 +926,14 @@ class ServingFleet:
         generation counter bumps, so the router admits the rejoin
         through its anti-flap protocol.  Zero requests are lost
         across the flip."""
-        proc = self._procs[name]
+        ranks = self._ranks[name]
         self.drain_replica(name)
-        proc.join(self.rcfg.drain_deadline_s + 30)
-        if proc.is_alive():                   # pragma: no cover
-            raise RuntimeError(
-                f"replica {name} did not exit within the drain "
-                "deadline; refusing to respawn its name")
+        for proc in ranks:
+            proc.join(self._rcfg_of[name].drain_deadline_s + 30)
+            if proc.is_alive():               # pragma: no cover
+                raise RuntimeError(
+                    f"replica {name} ({proc.name}) did not exit within the "
+                    "drain deadline; refusing to respawn its name")
         self._spawn(role=role, serving_config=serving_config, name=name)
         deadline = time.time() + warmup_timeout_s
         while True:
@@ -813,14 +963,16 @@ class ServingFleet:
                     os.kill(p.pid, signal.SIGTERM)
                 except ProcessLookupError:
                     pass
+        every = [p for ranks in self._ranks.values() for p in ranks]
         deadline = time.time() + timeout
-        for name, p in self._procs.items():
+        for p in every:
             p.join(max(0.1, deadline - time.time()))
-        for name, p in self._procs.items():
+        for p in every:
             if p.is_alive():                 # pragma: no cover
                 os.kill(p.pid, signal.SIGKILL)
                 p.join(5.0)
         self._procs.clear()
+        self._ranks.clear()
         if self._store is not None:
             self._store.close()
             self._store = None

@@ -36,7 +36,7 @@ class SlotKVCache:
     """
 
     def __init__(self, num_layers, num_slots, max_len, num_kv_heads,
-                 head_dim, dtype="float32", device=None):
+                 head_dim, dtype="float32", *, device=None):
         self.device = resolve_device(device)
         self.num_slots = int(num_slots)
         self.max_len = int(max_len)

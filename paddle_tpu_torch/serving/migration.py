@@ -45,7 +45,14 @@ def _frame(t):
 def export_slot(cache, slot):
     """Snapshot ``slot``'s cached pages from ``cache`` (a `PagedKVCache`)
     into ``(header, blobs)`` for the rpc raw-bytes path."""
-    off, k, v, ks, vs = cache.export_pages(slot)
+    return pack(cache, *cache.export_pages(slot))
+
+
+def pack(cache, off, k, v, ks=None, vs=None):
+    """``(header, blobs)`` of exported pages: ``k`` / ``v`` ``[num_layers,
+    n, page_size, H, D]`` host tensors (the global heads: a tensor
+    parallel replica gathers its ranks' heads first), the scales or
+    None, ``off`` the cached-token count."""
     header = {
         "version": WIRE_VERSION,
         "page_size": cache.page_size,

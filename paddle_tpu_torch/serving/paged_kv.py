@@ -94,7 +94,7 @@ class PagedKVCache:
 
     def __init__(self, num_layers, num_slots, max_len, num_kv_heads,
                  head_dim, page_size=16, num_pages=None, dtype="float32",
-                 device=None):
+                 *, device=None):
         self.device = resolve_device(device)
         self.num_slots = int(num_slots)
         self.page_size = int(page_size)
@@ -344,15 +344,11 @@ class PagedKVCache:
         self._shared[slot] = 0
         self._reserved[slot] = int(reserve_pages)
         self.offsets[slot] = int(offset)
-        ids = torch.tensor(pages, dtype=torch.long, device=self.device)
         frames = {"k_pool": k_pages, "v_pool": v_pages}
         if quant:
-            frames["k_scale"] = _host_tensor(k_scales)
-            frames["v_scale"] = _host_tensor(v_scales)
-        for name, frame in frames.items():
-            dev = as_bytes(frame.to(self.device))
-            for li, lay in enumerate(self.layers):
-                as_bytes(lay[name]).index_copy_(0, ids, dev[li])
+            frames["k_scale"] = k_scales
+            frames["v_scale"] = v_scales
+        self.write_pages(pages, frames)
         self._dirty = True
         return slot
 
@@ -368,20 +364,9 @@ class PagedKVCache:
         slot's pages may be released as soon as this returns."""
         off = int(self.offsets[slot])
         n = max(1, -(-off // self.page_size))
-        ids = torch.from_numpy(self.table[slot, :n].astype(np.int64)) \
-            .to(self.device)
-
-        def gather(name):
-            pool = as_bytes(self.layers[0][name])
-            out = torch.empty((len(self.layers), n) + tuple(pool.shape[1:]),
-                              dtype=pool.dtype, device=self.device)
-            for li, lay in enumerate(self.layers):
-                torch.index_select(as_bytes(lay[name]), 0, ids, out=out[li])
-            return out.cpu().view(self.layers[0][name].dtype)
-        k, v = gather("k_pool"), gather("v_pool")
-        if self.quant_dtype is None:
-            return off, k, v, None, None
-        return off, k, v, gather("k_scale"), gather("v_scale")
+        got = self.read_pages(self.table[slot, :n].astype(np.int64))
+        return (off, got["k_pool"], got["v_pool"], got.get("k_scale"),
+                got.get("v_scale"))
 
     # ---------------- device views ----------------
     def layer_caches(self):
@@ -389,18 +374,57 @@ class PagedKVCache:
         self._flush()
         return self.layers
 
-    def prefill_view(self, slots, starts):
-        """Per-layer cache dicts for one batched prefill-chunk call of
-        ``[num_slots]`` rows: row i carries `slots[i]`'s table row at
-        write offset `starts[i]`; surplus rows point at the scratch page."""
+    def prefill_rows(self, slots, starts):
+        """The host page table and offsets of one batched prefill-chunk
+        call of ``[num_slots]`` rows: row i carries `slots[i]`'s table row
+        at write offset `starts[i]`; surplus rows point at the scratch
+        page."""
         table = np.zeros_like(self.table)
         off = np.zeros(self.num_slots, np.int32)
         for row, (slot, start) in enumerate(zip(slots, starts)):
             table[row] = self.table[slot]
             off[row] = start
+        return table, off
+
+    def prefill_view(self, slots, starts):
+        """Per-layer cache dicts for one batched prefill-chunk call (the
+        pools, the `prefill_rows` table and offsets)."""
+        return self.rows_view(*self.prefill_rows(slots, starts))
+
+    def rows_view(self, table, offsets):
+        """Per-layer cache dicts over the pools with a host page table
+        ``[num_slots, N]`` and offsets ``[num_slots]`` of the caller's."""
         pt = torch.tensor(table, device=self.device)
-        offt = torch.tensor(off, device=self.device)
+        offt = torch.tensor(offsets, device=self.device)
         return [dict(lay, page_table=pt, offset=offt) for lay in self.layers]
+
+    def write_pages(self, ids, frames):
+        """Write page frames into the pools at page ``ids``, in place:
+        ``frames`` maps a pool name (``k_pool``, ``v_pool``, ``k_scale``,
+        ``v_scale``) to a host tensor ``[num_layers, len(ids), ...]``."""
+        ids = torch.as_tensor(ids, dtype=torch.long).to(self.device)
+        for name, frame in frames.items():
+            dev = as_bytes(_host_tensor(frame).to(self.device))
+            for li, lay in enumerate(self.layers):
+                as_bytes(lay[name]).index_copy_(0, ids, dev[li])
+
+    def read_pages(self, ids):
+        """Host copies ``[num_layers, len(ids), ...]`` of every pool at page
+        ``ids`` (the K and V pools, and the scales of a quantized one),
+        each gathered on the device and copied in one transfer."""
+        ids = torch.as_tensor(ids, dtype=torch.long).to(self.device)
+        out = {}
+        for name in ("k_pool", "v_pool", "k_scale", "v_scale"):
+            if name not in self.layers[0]:
+                continue
+            pool = as_bytes(self.layers[0][name])
+            buf = torch.empty((len(self.layers), len(ids))
+                              + tuple(pool.shape[1:]), dtype=pool.dtype,
+                              device=self.device)
+            for li, lay in enumerate(self.layers):
+                torch.index_select(as_bytes(lay[name]), 0, ids, out=buf[li])
+            out[name] = buf.cpu().view(self.layers[0][name].dtype)
+        return out
 
     def absorb_view(self, views):
         """Adopt the pools (and scales) of a `prefill_view` call (the same

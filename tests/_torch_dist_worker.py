@@ -18,6 +18,7 @@ import sys
 import time
 import traceback
 
+import numpy as np
 import torch
 
 # the repository root, for the spawned ranks that import the port
@@ -628,6 +629,47 @@ def case_sharded_fit(rank, world, inputs):
                                                                     opt)}
 
 
+def case_compat(rank, world, inputs):
+    """`distributed.compat`'s collectives on the world and on an explicit
+    gloo group (the serving replica's descriptor channel)."""
+    import torch.distributed as dist
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import compat
+    out = {}
+    objs = []
+    compat.all_gather_object(objs, {"rank": rank, "data": [rank] * (rank + 1)})
+    out["all_gather_object"] = objs
+    lst = [f"from-{rank}", {"n": rank}] if rank == 1 else [None, None]
+    compat.broadcast_object_list(lst, src=1)
+    out["broadcast_object_list"] = lst
+    got = []
+    compat.scatter_object_list(got, ["a", {"b": 2}] if rank == 0 else None,
+                               src=0)
+    out["scatter_object_list"] = got
+    ins = [torch.tensor([rank * 10.0 + j]) for j in range(world)]
+    out["alltoall"] = [t.tolist() for t in compat.alltoall([], ins)]
+    single = torch.empty(2 * world)
+    compat.alltoall_single(single, torch.arange(2.0 * world) + 100 * rank)
+    out["alltoall_single"] = single.tolist()
+    gl = []
+    compat.gather(torch.tensor([float(rank)]), gl, dst=0)
+    out["gather"] = [t.tolist() for t in gl]
+    out["backend"] = compat.get_backend()
+    pg = dist.new_group(list(range(world)), backend="gloo")
+    grp = C.Group(list(range(world)), process_group=pg)
+    desc = [{"kind": "decode", "tokens": np.arange(4) + 7}] if rank == 0 \
+        else [None]
+    compat.broadcast_object_list(desc, src=0, group=grp)
+    out["descriptor"] = desc[0]["tokens"].tolist()
+    out["group_backend"] = compat.get_backend(grp)
+    compat.destroy_process_group()
+    t = torch.ones(1)
+    C.all_reduce(t)
+    out["after_destroy"] = float(t)
+    compat.wait(t)
+    return out
+
+
 def case_many(rank, world, inputs):
     """Several cases on the same ranks, one after the other (one spawned
     group for a test module's cases): ``inputs["cases"]`` is a list of
@@ -638,6 +680,7 @@ def case_many(rank, world, inputs):
 
 CASES = {
     "many": case_many,
+    "compat": case_compat,
     "collectives": case_collectives,
     "mp_layers": case_mp_layers,
     "hybrid_llama": case_hybrid_llama,
@@ -651,3 +694,41 @@ CASES = {
     "sentinel_fit": case_sentinel_fit,
     "sharded_fit": case_sharded_fit,
 }
+
+
+# ---------------------------------------------------------------------------
+# a serving fleet's model factory (spawned replica processes import it)
+# ---------------------------------------------------------------------------
+
+def tp_llama(cfg_kwargs, state_path=None, seed=0):
+    """The tiny Llama as `ParallelLlamaForCausalLM` on the CPU: this rank's
+    part of the JAX state at ``state_path`` (an ``.npz`` of the global
+    arrays by state-dict name), or of the seed's draw; at mp 1 the whole
+    model."""
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.models import ParallelLlamaForCausalLM, llama_config
+    model = ParallelLlamaForCausalLM(llama_config("tiny", **cfg_kwargs),
+                                     device="cpu", seed=seed)
+    if state_path is not None:
+        with np.load(state_path) as f:
+            state = {k: f[k] for k in f.files}
+        convert.load_paddle_tpu_state(
+            model, convert.shard_paddle_tpu_state(state, model))
+    return model.eval()
+
+
+def replica_probe(name):
+    """An rpc target run inside replica ``name``'s process: its engine's
+    serving stats, active slots, tick hits and the descriptors its mirror
+    sent (None for a replica of one rank)."""
+    from paddle_tpu_torch.serving import fleet as sfleet
+    from paddle_tpu_torch.serving import tp_replica
+    rep = sfleet._REPLICAS[name]
+    eng = rep.engine
+    follower = None if eng.mirror is None else tp_replica.peer_stats(
+        rep.store, eng.mirror.ctx.key, 1)
+    return {"stats": dict(eng.stats()), "active": len(eng._active),
+            "pending": len(eng._pending),
+            "descriptors": None if eng.mirror is None else eng.mirror.seq,
+            "follower": None if follower is None else follower["stats"],
+            "kv_heads": eng._kv_heads}

@@ -15,7 +15,10 @@ unwinds, and the relaunch climbs the ladder.
 Each incarnation appends ``rank:world:first_step:restored_from`` to
 ``incarnations.log`` (``restored_from``: ``peer``, ``self``, ``disk`` or
 ``none``); every step appends ``{"step", "loss"}`` to
-``losses.<rank>.jsonl``.
+``losses.<rank>.jsonl``.  With ``HOT_SPARE_SETTLE_AT`` (the environment)
+each rank waits out its agent's transfer in flight before that step, so
+a committed replica stands at the buddy when the step starts (as
+chip_smoke.py's ``GUARD_SETTLE_AT``).
 """
 import json
 import os
@@ -28,6 +31,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from paddle_tpu_torch import distributed as dist  # noqa: E402
+from paddle_tpu_torch.framework import hot_spare  # noqa: E402
 from paddle_tpu_torch.hapi import Model  # noqa: E402
 from paddle_tpu_torch.hapi.callbacks import Callback  # noqa: E402
 from paddle_tpu_torch.hapi.model import _generators  # noqa: E402
@@ -78,6 +82,7 @@ class Drill(Callback):
         super().__init__()
         self.outdir, self.rank, self.world = outdir, rank, world
         self.epoch, self.first = 0, True
+        self.settle_at = int(os.environ.get("HOT_SPARE_SETTLE_AT", "-1"))
 
     def on_epoch_begin(self, epoch, logs=None):
         self.epoch = epoch
@@ -90,6 +95,10 @@ class Drill(Callback):
             with open(os.path.join(self.outdir, "incarnations.log"),
                       "a") as f:
                 f.write(f"{self.rank}:{self.world}:{g}:{src}\n")
+        if g == self.settle_at:
+            agent = hot_spare.current_agent()
+            if agent is not None:
+                agent.wait()
         fault_injection.check_step(g)
         for i, gen in enumerate(_generators(self.model.network)):
             gen.manual_seed(1_000_003 * g + 1009 * self.rank + i)

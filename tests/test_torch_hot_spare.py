@@ -420,7 +420,8 @@ def test_ladder_points_fire_as_jax(flags, monkeypatch):
 # two-process drills through the launcher
 # ---------------------------------------------------------------------------
 
-def _launch(outdir, monkeypatch, fault=None, max_restart=0, limit_s=150):
+def _launch(outdir, monkeypatch, fault=None, max_restart=0, limit_s=150,
+            settle_at=None):
     from paddle_tpu_torch.distributed.launch.context import (Context,
                                                              parse_args)
     from paddle_tpu_torch.distributed.launch.controller import \
@@ -429,7 +430,9 @@ def _launch(outdir, monkeypatch, fault=None, max_restart=0, limit_s=150):
            "FLAGS_fault_inject": fault or "",
            "PADDLE_ELASTIC_FAULT_TOLERANC_LEVEL": "1",
            "PADDLE_GUARDIAN_PEER_GRACE_S": "20",
-           "FLAGS_flight_recorder_path": str(outdir / "fr.json")}
+           "FLAGS_flight_recorder_path": str(outdir / "fr.json"),
+           "HOT_SPARE_SETTLE_AT": "-1" if settle_at is None
+           else str(settle_at)}
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     ctl = CollectiveController(Context(args=parse_args(
@@ -472,16 +475,19 @@ def reference(tmp_path_factory):
 
 @pytest.mark.parametrize("buddy_crash", [False, True])
 def test_hot_spare_drill(tmp_path, monkeypatch, reference, buddy_crash):
-    """Rank 1 is hard-killed at the top of step 3; the relaunch resumes
-    from the buddy's memory (or, with ``buddy_crash`` on rank 1, from the
-    sharded disk checkpoint after a PeerRestoreWarning) and every step's
-    loss equals the uninterrupted run's bit for bit."""
+    """Rank 1 is hard-killed at the top of step 3, after each rank waited
+    out its snapshot's transfer in flight (a loaded machine could crash
+    rank 1 before its buddy held a committed replica); the relaunch
+    resumes from the buddy's memory (or, with ``buddy_crash`` on rank 1,
+    from the sharded disk checkpoint after a PeerRestoreWarning) and
+    every step's loss equals the uninterrupted run's bit for bit."""
     d = tmp_path / ("bc" if buddy_crash else "peer")
     d.mkdir()
     fault = f"step:crash_at=3,rank=1,once_file={d / 'crash.once'}"
     if buddy_crash:
         fault += ";buddy_crash:rank=1"
-    assert _launch(d, monkeypatch, fault=fault, max_restart=1) == 0
+    assert _launch(d, monkeypatch, fault=fault, max_restart=1,
+                   settle_at=3) == 0
     lines = [ln.split(":") for ln in
              (d / "incarnations.log").read_text().splitlines()]
     assert len(lines) == 4, lines

@@ -186,3 +186,117 @@ def test_log_level_and_log_every_n():
         logger.removeHandler(handler)
         logger.setLevel(old)
     assert seen == ["every-n site 0", "every-n site 3", "every-n site 6"]
+
+
+#: each deliberate difference of a shared callable's parameters from JAX's
+#: (ROADMAP Queue C records each one)
+SIGNATURE_ALLOW = {
+    # JAX places a batch by a sharding; a torch process by a device
+    "data.prefetch.to_device_batch",
+    # a torch store wrapped where JAX wraps its coordination client
+    "distributed.host_collectives.CoordKVStore.__init__",
+    # NCCL returns at the enqueue: the entry ends with the op's CUDA event
+    "distributed.watchdog.CollectiveWatchdog.end",
+    "distributed.watchdog.end",
+    # JAX's hand-off from a jitted program; the port's tick advances the
+    # device offsets in place and the host mirror follows
+    "serving.paged_kv.PagedKVCache.absorb_tick",
+    # open: the build options of JAX's `load` (ROADMAP A9, cpp_extension)
+    "utils.cpp_extension.load",
+}
+
+
+def _sig_fault(jax_fn, port_fn):
+    """Why ``port_fn``'s parameters do not begin with ``jax_fn``'s, in
+    JAX's order, with its extras keyword-only; None when they do."""
+    import inspect
+    kinds = (inspect.Parameter.POSITIONAL_ONLY,
+             inspect.Parameter.POSITIONAL_OR_KEYWORD)
+    try:
+        jp = list(inspect.signature(jax_fn).parameters.values())
+        pp = list(inspect.signature(port_fn).parameters.values())
+    except (TypeError, ValueError):
+        return None
+    jp = [p for p in jp if p.name not in ("self", "cls")]
+    pp = [p for p in pp if p.name not in ("self", "cls")]
+    jpos = [p.name for p in jp if p.kind in kinds]
+    ppos = [p.name for p in pp if p.kind in kinds]
+    if ppos != jpos:
+        return f"positional {ppos} != JAX's {jpos}"
+    star = inspect.Parameter.VAR_POSITIONAL
+    if any(p.kind == star for p in jp) != any(p.kind == star for p in pp):
+        return "*args differ"
+    kw_only = inspect.Parameter.KEYWORD_ONLY
+    missing = {p.name for p in jp if p.kind == kw_only} - \
+        {p.name for p in pp if p.kind == kw_only}
+    if missing and not any(p.kind == inspect.Parameter.VAR_KEYWORD
+                           for p in pp):
+        return f"keyword-only {sorted(missing)} missing"
+    return None
+
+
+def _shared_callables():
+    """(name, JAX callable, port callable) of every public function and
+    class (its ``__init__`` and public methods) that the port defines and
+    the JAX module or package of the same path has under the same name
+    (a package pairs what both ``__init__`` files export).  Named by the
+    port module that defines it."""
+    import inspect
+    import pkgutil
+    seen = set()
+    mods = [("", paddle_tpu_torch)]
+    for info in pkgutil.walk_packages(paddle_tpu_torch.__path__,
+                                      "paddle_tpu_torch."):
+        if not info.name.endswith("__main__"):
+            mods.append((info.name[len("paddle_tpu_torch."):],
+                         importlib.import_module(info.name)))
+    for rel, port in mods:
+        try:
+            ref = importlib.import_module(
+                "paddle_tpu" + ("." + rel if rel else ""))
+        except ImportError:
+            continue                    # no JAX module of that path
+        for attr in dir(port):
+            obj, jobj = getattr(port, attr), getattr(ref, attr, None)
+            where = getattr(obj, "__module__", None) or ""
+            if attr.startswith("_") or jobj is None or id(obj) in seen or \
+                    not where.startswith("paddle_tpu_torch."):
+                continue
+            name = f"{where[len('paddle_tpu_torch.'):]}.{attr}"
+            if inspect.isclass(obj) and inspect.isclass(jobj):
+                seen.add(id(obj))
+                yield f"{name}.__init__", jobj.__init__, obj.__init__
+                for meth, fn in vars(obj).items():
+                    jfn = inspect.getattr_static(jobj, meth, None)
+                    if meth.startswith("_") or jfn is None or \
+                            isinstance(fn, property) or \
+                            isinstance(jfn, property) or \
+                            not callable(getattr(obj, meth)) or \
+                            not callable(getattr(jobj, meth)):
+                        continue
+                    yield (f"{name}.{meth}", getattr(jobj, meth),
+                           getattr(obj, meth))
+            elif inspect.isfunction(obj) and callable(jobj) and \
+                    not inspect.isclass(jobj):
+                seen.add(id(obj))
+                yield name, jobj, obj
+
+
+def test_shared_callables_bind_as_jax():
+    """A call written for ``paddle_tpu`` binds on the port as it binds on
+    JAX: for each public callable a port module shares with its JAX
+    module, the port's parameters begin with JAX's, in JAX's order, and
+    its extras are keyword-only (ROADMAP Queue C; `SIGNATURE_ALLOW` names
+    each deliberate difference)."""
+    found, faults = set(), []
+    for name, jax_fn, port_fn in _shared_callables():
+        found.add(name)
+        fault = _sig_fault(jax_fn, port_fn)
+        if fault is not None and name not in SIGNATURE_ALLOW:
+            faults.append(f"{name}: {fault}")
+    assert not faults, "\n".join(faults)
+    assert SIGNATURE_ALLOW <= found, SIGNATURE_ALLOW - found
+    for name in ("nn.functional.rms_norm", "nn.layers.LayerNorm.__init__",
+                 "serving.adapters.lora_delta",
+                 "distributed.env.init_parallel_env"):
+        assert name in found
