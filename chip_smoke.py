@@ -372,6 +372,28 @@ last line:
             checkpoint (each rank its parts), a world-one job resumes it
             equal to the gathered shards bit for bit and its next epoch's
             losses equal a world-one run started from that state
+23. train-zero  ZeRO sharding and the semi-auto parallel API: four ranks
+            sharing the card over NCCL's socket transport (this script's
+            ``--hybrid-child zero``), sharding 2 x mp 2 (dp -1 -> 1):
+            (a) benchmarks/run.py config 3 call for call (fleet.init with
+            strategy.sharding at stage 3, distributed_model(ParallelGPT),
+            AdamW(1e-4), group_sharded_parallel(level="p_g_os"),
+            distributed_optimizer) at GPT-3 1.3B width, ZERO_LAYERS of 24
+            layers, bf16 O2 (amp.decorate), the [8, 2048] batch placed by
+            shard_tensor: losses finite and equal on the 4 ranks, every
+            parameter's placements JAX's rule, the flash and Adam kernels
+            launched on every rank and no Adam launch on its scalar path;
+            step p50 (the slowest rank), collectives and bytes a step,
+            launches a step, resident parameter and optimizer-state bytes
+            against sharding 1, peaks; (b) 2 layers at the same width in
+            fp32: levels os, os_g, p_g_os against one rank (3 AdamW steps
+            with the clip: losses and the next batch's within
+            ZERO_LOSS_RTOL, the gathered parameters within 2 lr x steps)
+            and the api moves bit for bit; (c) save_group_sharded_model
+            after (b)'s p_g_os, loaded into one rank's GPTForCausalLM:
+            its next-batch loss against the stage-3 run's.  With
+            train-hybrid in the run, the ranks start beside its gpt lane
+            and wait for this phase (their imports overlapped)
 
 The second-to-last line is the kernels' JSON summary, the last line
 ``{"ok": true, "device": {...}}``.  ``--phases`` runs a subset.
@@ -453,7 +475,7 @@ PHASES = ("device", "build", "kernels", "serve", "serve-lora-int8",
           "train-compiled-parity", "train-gpt2", "gpt2-parity", "attn-ops",
           "train-optimizers", "serve-gpt", "gpt-parity", "generate-gpt",
           "train-gpt2-recompute", "fit-gpt2", "fit-llama", "sentinel-gpt2",
-          "lora-llama", "train-hybrid", "train-guard")
+          "lora-llama", "train-hybrid", "train-zero", "train-guard")
 #: generate-gpt: the worst row error (relative to the row's norm) allowed
 #: between the cached path's last-position logits and the full forward's
 #: at GPT-3 6.7B in bf16.  Both paths round every activation to bf16 (a
@@ -7152,7 +7174,7 @@ def start_hybrid(lane, outdir):
     return procs
 
 
-def wait_hybrid(lane, outdir, procs, timeout=600):
+def wait_hybrid(lane, outdir, procs, timeout=600, tag="train-hybrid"):
     """Wait for ``lane``'s ranks, echo each rank's output and return the
     ranks' results."""
     _, world = HYBRID_LANES[lane]
@@ -7170,13 +7192,13 @@ def wait_hybrid(lane, outdir, procs, timeout=600):
     for r in range(world):
         with open(os.path.join(outdir, f"{lane}-{r}.log")) as f:
             for line in f.read().splitlines()[-40:]:
-                log(f"[train-hybrid {lane} r{r}] {line}")
+                log(f"[{tag} {lane} r{r}] {line}")
         path = os.path.join(outdir, f"{lane}-{r}.json")
         outs.append(json.load(open(path)) if os.path.exists(path) else
                     {"error": f"no result (exit {codes[r]})"})
     bad = [(r, o["error"]) for r, o in enumerate(outs) if "error" in o]
     if bad or any(c != 0 for c in codes):
-        raise AssertionError(f"[train-hybrid] {lane}: exits {codes}; "
+        raise AssertionError(f"[{tag}] {lane}: exits {codes}; "
                              f"{bad[0][1] if bad else ''}")
     return outs
 
@@ -7341,13 +7363,15 @@ def check_hybrid_gpt(outs, dev, warmup=2, n=HYBRID_GPT_STEPS):
         f"by the hash's offsets) equal the one-rank call's bit for bit")
 
 
-def phase_train_hybrid(dev):
+def phase_train_hybrid(dev, zero=None):
     """train-hybrid: (a) Llama-2 7B width, 8 layers, mp 2 (two ranks on
     the card), bf16 O2 training through fleet.init -> distributed_model ->
     CompiledTrainStep(mesh), both lanes; (b) mp 2 against one rank in
     fp32; (d) TP generate; (c) GPT-2 124M dp 2 x mp 2 with dropout through
     hapi fit and by hand.  No number here is a two-card one: the ranks
-    time-slice one card."""
+    time-slice one card.  ``zero`` (``{"root", "procs"}``): train-zero's
+    ranks are started beside the gpt lane's, to import and wait for that
+    phase's go."""
     cards = torch.cuda.device_count()
     log(f"[train-hybrid] backend {HYBRID_BACKEND} ("
         + ("a card a rank" if cards >= 4 else "ranks sharing a card: "
@@ -7362,6 +7386,8 @@ def phase_train_hybrid(dev):
         # (a) is timed, beside (b) and (d), and train after them
         if wait_for_file(os.path.join(root, "a-done"), llama):
             gpt = start_hybrid("gpt", root)
+            if zero is not None:
+                zero["procs"] = start_hybrid("zero", zero["root"])
         outs = wait_hybrid("llama", root, llama)
         open(os.path.join(root, "llama-done"), "w").close()
         check_hybrid_llama(outs)
@@ -7373,6 +7399,412 @@ def phase_train_hybrid(dev):
             if p.poll() is None:
                 p.kill()
         shutil.rmtree(root, ignore_errors=True)
+
+
+# ------------------------------------------------------------ train-zero
+#: train-zero (a): GPT-3 1.3B width (hidden 2048, 16 heads, FFN 8192,
+#: vocab 50304, S 2048), depth cut from 24 to ZERO_LAYERS layers; the
+#: recipe's [8, 2048] batch; ZERO_STEPS eager steps (the first a warm-up)
+ZERO_LAYERS = 4
+ZERO_STEPS = 4
+ZERO_BATCH = (8, 2048)
+#: (b) and (c): 2 layers at the same width, fp32, ZERO_ROWS x ZERO_SEQ
+#: tokens, ZERO_PARITY_STEPS AdamW steps (lr 1e-4, wd 0.01, clip 1.0)
+ZERO_ROWS, ZERO_SEQ, ZERO_PARITY_STEPS, ZERO_LR = 4, 512, 3, 1e-4
+#: (b)'s tolerances against the one rank: the losses (sums in other
+#: orders over mp and the ZeRO averages) and each parameter within
+#: 2 lr x steps (AdamW moves an element by at most ~lr a step, whatever
+#: its gradient's size, so two runs part by at most twice that)
+ZERO_LOSS_RTOL = 1e-4
+ZERO_LEVELS = ("os", "os_g", "p_g_os")
+#: the parameters JAX's rule splits Shard(0) over sharding in the
+#: parallel GPT (dim 0 tiles and mp does not split dim 0), and those mp
+#: splits on dim 1 (the rest of the mp-split ones on dim 0)
+ZERO3_SHARDED = ("ln_1.weight", "ln_1.bias", "ln_2.weight", "ln_2.bias",
+                 "qkv_proj.weight", "out_proj.bias", "fc_in.weight",
+                 "fc_out.bias", "ln_f.weight", "ln_f.bias")
+MP_DIM1 = ("qkv_proj.weight", "fc_in.weight")
+MP_DIM0 = ("qkv_proj.bias", "fc_in.bias", "out_proj.weight",
+           "fc_out.weight", "wte.weight", "wpe.weight")
+
+
+def zero_rule(name):
+    """JAX's placements of the parallel GPT's parameter ``name`` on the
+    hybrid mesh (pp, dp, sharding, sep, mp) at stage 3."""
+    pl = ["Replicate()"] * 5
+    if name.endswith(ZERO3_SHARDED):
+        pl[2] = "Shard(dim=0)"
+    if name.endswith(MP_DIM1):
+        pl[4] = "Shard(dim=1)"
+    elif name.endswith(MP_DIM0):
+        pl[4] = "Shard(dim=0)"
+    return pl
+
+
+def zero_strategy(stage3):
+    from paddle_tpu_torch.distributed import fleet
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs = {"dp_degree": -1, "sharding_degree": 2,
+                        "mp_degree": 2}
+    if stage3:
+        s.sharding = True
+        s.sharding_configs = {"stage": 3}
+    return s
+
+
+def zero_batch(mesh, ids):
+    """``ids`` placed as the recipe places it: Shard(0) on dp, replicated
+    on the other axes."""
+    import paddle_tpu_torch.distributed as dist
+    return dist.shard_tensor(ids, mesh, [
+        dist.Shard(0) if n == "dp" else dist.Replicate()
+        for n in mesh.dim_names], stop_gradient=True)
+
+
+def zero_recipe(dev):
+    """(a) benchmarks/run.py config 3 call for call, at full width and
+    bf16 O2: distributed_model(ParallelGPTForCausalLM), AdamW(1e-4),
+    group_sharded_parallel(level="p_g_os"), distributed_optimizer,
+    amp.decorate, the [8, 2048] batch by shard_tensor, eager steps."""
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.models import ParallelGPTForCausalLM
+    cfg = gpt_config("gpt3-1.3b", max_seq_len=2048, num_layers=ZERO_LAYERS)
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = fleet.distributed_model(ParallelGPTForCausalLM(
+        cfg, device=dev, dtype=torch.float32, seed=0))
+    opt = AdamW(1e-4, parameters=model.parameters())
+    model, opt, _ = fleet.group_sharded_parallel(model, opt, level="p_g_os")
+    opt = fleet.distributed_optimizer(opt)
+    model, opt = amp.decorate(model, opt, level="O2", dtype=torch.bfloat16)
+    b, s = ZERO_BATCH
+    ids = zero_batch(dist.get_mesh(), torch.from_numpy(
+        np.random.default_rng(0).integers(0, cfg.vocab_size, (b, s))).to(dev))
+    kernels.reset_launch_counts()
+    before = collective_counts()
+    losses, times, split = [], [], []
+    for _ in range(ZERO_STEPS):
+        marks = []
+
+        def mark():
+            torch.cuda.synchronize()
+            marks.append(time.monotonic())
+        mark()
+        _, loss = model(ids, labels=ids)
+        mark()
+        loss.backward()
+        mark()
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss.detach()))
+        mark()
+        times.append((marks[-1] - marks[0]) * 1e3)
+        split.append([(b - a) * 1e3 for a, b in zip(marks, marks[1:])])
+    counts = kernels.launch_counts()
+    zero = opt._zero
+    pbytes, sbytes = zero.resident_bytes(opt)
+    full = [int(np.prod(zero.full_shape(p))) for p in opt._all_params()]
+    return dict(
+        losses=losses, times=times, rows=int(ids.shape[0]),
+        split=np.median(split[1:], axis=0).tolist(),
+        launches={k: v for k, v in counts.items() if v},
+        scalar_adam=adam_update.scalar_launches,
+        coll=per_step(collective_counts(), before, ZERO_STEPS),
+        peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+        param_bytes=pbytes, state_bytes=sbytes,
+        # the same rank at sharding 1: bf16 parameters, fp32 m1, m2, master
+        param_bytes_1=2 * sum(full), state_bytes_1=12 * sum(full),
+        n_params=model.num_params(non_embedding=False),
+        placements={n: [repr(q) for q in p.placements]
+                    for n, p in model.named_parameters()},
+        kinds=sorted({zero.kind(p)[0] for p in opt._all_params()}))
+
+
+def zero_moves(dev, mesh, rank):
+    """The api.py moves on the card, bit for bit: Shard -> Replicate ->
+    Shard(j) over both axes, an all-to-all on one axis, unshard_dtensor."""
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed.placement import local_slice
+    S, R = dist.Shard, dist.Replicate
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn(1024, 2048, device=dev, generator=g)
+    first = [R(), R(), S(0), R(), S(1)]
+    other = [R(), R(), S(1), R(), S(0)]
+    t = dist.shard_tensor(x, mesh, first)
+    whole = dist.reshard(t, mesh, [R()] * 5)
+    t2 = dist.reshard(whole, mesh, other)
+    a2a = dist.reshard(dist.shard_tensor(x, mesh, [R(), R(), S(0), R(), R()]),
+                       mesh, [R(), R(), S(1), R(), R()])
+    return dict(
+        part=bool(torch.equal(t, local_slice(x, mesh, first))),
+        whole=bool(torch.equal(whole, x)),
+        part2=bool(torch.equal(t2, local_slice(x, mesh, other))),
+        a2a=bool(torch.equal(a2a, local_slice(
+            x, mesh, [R(), R(), S(1), R(), R()]))),
+        unshard=bool(torch.equal(dist.unshard_dtensor(t2), x)))
+
+
+def zero_parity(dev, rank, strategy, outdir):
+    """(b) and (c): 2 layers at 1.3B width, fp32.  Rank 0 trains the
+    one-rank GPTForCausalLM (seed 1) ZERO_PARITY_STEPS AdamW steps with
+    the clip and takes its next batch's loss; then every level on the 4
+    ranks from the same seed (ParallelGPTForCausalLM draws the one-rank
+    model's weights, each rank keeping its parts), its gathered state to
+    rank 0, which compares; after p_g_os, save_group_sharded_model, and
+    rank 0 loads the file into a plain GPTForCausalLM."""
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.framework import io as pio
+    from paddle_tpu_torch.models import ParallelGPTForCausalLM
+    cfg = gpt_config("gpt3-1.3b", max_seq_len=2048, num_layers=2)
+    rng = np.random.default_rng(3)
+    batches = []
+    for _ in range(ZERO_PARITY_STEPS + 1):
+        ids = rng.integers(0, cfg.vocab_size, (ZERO_ROWS, ZERO_SEQ))
+        labels = np.roll(ids, -1, axis=1)
+        labels[:, -1] = -100
+        batches.append((torch.from_numpy(ids).to(dev),
+                        torch.from_numpy(labels).to(dev)))
+    clock = [("start", time.monotonic())]
+    out = {"moves": zero_moves(dev, dist.get_mesh(), rank)}
+    clock.append(("moves", time.monotonic()))
+    ref = None
+    if rank == 0:
+        one = GPTForCausalLM(cfg, device=dev, dtype=torch.float32, seed=1)
+        opt = AdamW(ZERO_LR, parameters=one.parameters(), weight_decay=0.01,
+                    grad_clip=ClipGradByGlobalNorm(1.0))
+        losses = []
+        for ids, labels in batches[:-1]:
+            _, loss = one(ids, labels=labels)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            losses.append(float(loss.detach()))
+        with torch.no_grad():
+            nxt = float(one(*batches[-1][:1], labels=batches[-1][1])[1])
+        ref = dict(losses=losses, next=nxt,
+                   state={k: v.detach().clone() for k, v in
+                          one.state_dict().items()})
+        del one, opt
+        torch.cuda.empty_cache()
+    clock.append(("one rank", time.monotonic()))
+    mesh = dist.get_mesh()
+    path = os.path.join(outdir, "zero-c")
+    for level in ZERO_LEVELS:
+        strategy.sharding = level == "p_g_os"
+        strategy.sharding_configs = {"stage": 3 if strategy.sharding else 1}
+        model = fleet.distributed_model(ParallelGPTForCausalLM(
+            cfg, device=dev, dtype=torch.float32, seed=1))
+        opt = AdamW(ZERO_LR, parameters=model.parameters(),
+                    weight_decay=0.01, grad_clip=ClipGradByGlobalNorm(1.0))
+        model, opt, _ = fleet.group_sharded_parallel(model, opt, level=level)
+        opt = fleet.distributed_optimizer(opt)
+        before = collective_counts()
+        losses = []
+        for ids, labels in batches[:-1]:
+            _, loss = model(zero_batch(mesh, ids),
+                            labels=zero_batch(mesh, labels))
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            losses.append(float(loss.detach()))
+        coll = per_step(collective_counts(), before, ZERO_PARITY_STEPS)
+        clock.append((f"{level} steps", time.monotonic()))
+        with torch.no_grad():
+            nxt = float(model(zero_batch(mesh, batches[-1][0]),
+                              labels=zero_batch(mesh, batches[-1][1]))[1])
+        state = convert.gather_paddle_tpu_state(model, dst=0)
+        res = dict(losses=losses, next=nxt, coll=coll)
+        if rank == 0:
+            worst, name_worst = 0.0, None
+            for name, want in ref["state"].items():
+                err = float((torch.from_numpy(state[name]).to(dev)
+                             - want).abs().max())
+                if err > worst:
+                    worst, name_worst = err, name
+            res.update(ref_losses=ref["losses"], ref_next=ref["next"],
+                       worst=worst, worst_name=name_worst,
+                       bound=2 * ZERO_LR * ZERO_PARITY_STEPS)
+        del state
+        clock.append((f"{level} gather", time.monotonic()))
+        if level == "p_g_os":
+            out["saved"] = fleet.save_group_sharded_model(model, path)
+            clock.append(("save", time.monotonic()))
+        out[level] = res
+        del model, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+    if rank == 0:
+        plain = GPTForCausalLM(cfg, device=dev, dtype=torch.float32, seed=2)
+        convert.load_paddle_tpu_state(plain, {
+            k: v.cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+            for k, v in pio.load(out["saved"], map_location=dev).items()})
+        with torch.no_grad():
+            out["c_loss"] = float(plain(batches[-1][0],
+                                        labels=batches[-1][1])[1])
+        os.remove(out["saved"])
+        clock.append(("load", time.monotonic()))
+    out["clock"] = [(k, round(t - a, 1)) for (_, a), (k, t) in
+                    zip(clock, clock[1:])]
+    return out
+
+
+def zero_lane(dev, rank, world, outdir):
+    """The four ranks of train-zero: sharding 2 x mp 2 (dp -1: 1), the
+    JAX recipe (a), then (b) and (c)."""
+    from paddle_tpu_torch.distributed import env, fleet
+    # started early (beside train-hybrid's gpt lane), the ranks wait here
+    wait_for_file(os.path.join(outdir, "zero-go"), timeout=1200)
+    marks = [time.monotonic()]
+    env.init_parallel_env(
+        backend=HYBRID_BACKEND, device=dev, world_size=world, rank=rank,
+        init_method="file://" + os.path.join(outdir, "rdzv-zero"))
+    strategy = zero_strategy(True)
+    hcg = fleet.init(is_collective=True, strategy=strategy,
+                     backend=HYBRID_BACKEND, device=dev)
+    out = {"rank": rank, "sharding_rank": hcg.get_sharding_parallel_rank(),
+           "mp_rank": hcg.get_model_parallel_rank(),
+           "dp": hcg.get_data_parallel_world_size()}
+    marks.append(time.monotonic())
+    out["a"] = zero_recipe(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    marks.append(time.monotonic())
+    out["b"] = zero_parity(dev, rank, strategy, outdir)
+    marks.append(time.monotonic())
+    out["seconds"] = [b - a for a, b in zip(marks, marks[1:])]
+    return out
+
+
+HYBRID_LANES["zero"] = (zero_lane, 4)
+
+
+def check_zero(outs):
+    """(a), (b), (c) from the four ranks."""
+    tag = "train-zero"
+    b, s = ZERO_BATCH
+    losses = [o["a"]["losses"] for o in outs]
+    if any(x != losses[0] for x in losses) or \
+            not all(np.isfinite(losses[0])):
+        raise AssertionError(f"[{tag}] (a) losses not finite and equal on "
+                             f"the 4 ranks: {losses}")
+    for o in outs:
+        a = o["a"]
+        bad = {n: pl for n, pl in a["placements"].items()
+               if pl != zero_rule(n)}
+        if bad:
+            raise AssertionError(f"[{tag}] (a) r{o['rank']}: placements "
+                                 f"other than JAX's rule: {bad}")
+        short = [k for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq",
+                             "adam") if a["launches"].get(k, 0) <= 0]
+        if short or a["scalar_adam"]:
+            raise AssertionError(f"[{tag}] (a) r{o['rank']}: no launch of "
+                                 f"{short} or {a['scalar_adam']} Adam "
+                                 f"launches on the scalar path")
+    steps = np.max([o["a"]["times"] for o in outs], axis=0)[1:]
+    p50 = float(np.median(steps))
+    a0 = outs[0]["a"]
+    log(f"[{tag}] (a) GPT-3 1.3B width, {ZERO_LAYERS} of 24 layers, "
+        f"sharding 2 x mp 2 (dp 1), level p_g_os, bf16 O2, AdamW(1e-4), "
+        f"[{b}, {s}] by shard_tensor ({a0['rows']} rows a rank), "
+        f"{a0['n_params'] / 1e6:.1f}M parameters: losses "
+        f"{[round(x, 4) for x in losses[0]]} equal on the 4 ranks; step "
+        f"p50 {p50:.1f} ms (the slowest rank's, {ZERO_STEPS - 1} steps "
+        f"after the first; ranks "
+        f"{[round(float(np.median(o['a']['times'][1:])), 1) for o in outs]}"
+        f"), {b * s / p50 * 1e3:.0f} tokens/s; placements = JAX's rule on "
+        f"every rank (kinds {a0['kinds']})")
+    for o in outs:
+        a = o["a"]
+        per = {k: v / ZERO_STEPS for k, v in sorted(a["launches"].items())}
+        log(f"[{tag}] (a) r{o['rank']} (sharding {o['sharding_rank']}, mp "
+            f"{o['mp_rank']}): collectives a step {fmt_coll(a['coll'])}; "
+            f"launches a step {per}, scalar-path Adam {a['scalar_adam']}; "
+            f"resident parameters {a['param_bytes'] / 1e6:.1f} MB + "
+            f"optimizer state {a['state_bytes'] / 1e6:.1f} MB against "
+            f"{a['param_bytes_1'] / 1e6:.1f} + "
+            f"{a['state_bytes_1'] / 1e6:.1f} MB at sharding 1 ("
+            f"{(a['param_bytes'] + a['state_bytes']) / (a['param_bytes_1'] + a['state_bytes_1']):.3f}"
+            f"); peak {a['peak_gb']:.2f} GB; a step's forward / backward / "
+            f"step + clear_grad p50 "
+            f"{' / '.join(f'{x:.1f}' for x in a['split'])} ms")
+    for o in outs:
+        mv = o["b"]["moves"]
+        if not all(mv.values()):
+            raise AssertionError(f"[{tag}] (b) r{o['rank']}: an api move "
+                                 f"differs from the local slice: {mv}")
+    r0 = outs[0]["b"]
+    for level in ZERO_LEVELS:
+        res = r0[level]
+        rel = max(abs(x - y) / abs(y) for x, y in
+                  zip(res["losses"] + [res["next"]],
+                      res["ref_losses"] + [res["ref_next"]]))
+        if rel > ZERO_LOSS_RTOL or res["worst"] > res["bound"]:
+            raise AssertionError(
+                f"[{tag}] (b) {level}: losses {res['losses']} vs one rank "
+                f"{res['ref_losses']} (rel {rel:.2e} > {ZERO_LOSS_RTOL}) or "
+                f"{res['worst_name']} off by {res['worst']:.3e} > "
+                f"{res['bound']:.1e}")
+        log(f"[{tag}] (b) {level}: fp32 2 layers at 1.3B width, sharding 2 "
+            f"x mp 2 vs one rank, {ZERO_PARITY_STEPS} AdamW steps + clip "
+            f"1.0: losses {[round(x, 5) for x in res['losses']]} vs "
+            f"{[round(x, 5) for x in res['ref_losses']]} (worst rel "
+            f"{rel:.2e}, next batch included), parameters within "
+            f"{res['worst']:.2e} ({res['worst_name']}; bound "
+            f"{res['bound']:.1e}); collectives a step "
+            f"{fmt_coll(res['coll'])}")
+    log(f"[{tag}] (b) api moves on the card bit for bit on every rank "
+        f"(Shard -> Replicate -> Shard(j) over sharding and mp, an "
+        f"all-to-all, unshard_dtensor)")
+    c = r0["c_loss"]
+    want = r0["p_g_os"]["next"]
+    if abs(c - want) > ZERO_LOSS_RTOL * abs(want):
+        raise AssertionError(f"[{tag}] (c) the saved model's loss {c} != "
+                             f"the stage-3 run's next loss {want}")
+    log(f"[{tag}] (c) save_group_sharded_model after p_g_os, loaded into "
+        f"one rank's GPTForCausalLM: next-batch loss {c:.6f} vs the "
+        f"stage-3 run's {want:.6f} (one rank's {r0['p_g_os']['ref_next']:.6f})")
+    log(f"[{tag}] rank 0's seconds: the process group and topology "
+        f"{outs[0]['seconds'][0]:.1f}, (a) {outs[0]['seconds'][1]:.1f}, (b) "
+        f"and (c) {outs[0]['seconds'][2]:.1f} ({r0['clock']})")
+
+
+def phase_train_zero(dev, early=None):
+    """train-zero: ZeRO sharding and the semi-auto API on four ranks that
+    share the card over NCCL's socket transport (the ranks are this
+    script's ``--hybrid-child zero``): (a) the JAX recipe of
+    benchmarks/run.py config 3 at GPT-3 1.3B width, (b) each level at 2
+    layers in fp32 against one rank and the api moves, (c) the saved
+    model into one rank.  No number here is a four-card one: the ranks
+    time-slice one card.  ``early`` (``{"root", "procs"}``): ranks that
+    train-hybrid started, waiting for this phase's go."""
+    # the ranks' ~50 GB must not meet this process's cached blocks of the
+    # earlier phases
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    log(f"[train-zero] the card: {free / 1e9:.1f} of {total / 1e9:.1f} GB "
+        f"free at the start (this process holds "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB)")
+    own = early is None or not early["procs"]
+    root = tempfile.mkdtemp(prefix="train-zero-") if early is None \
+        else early["root"]
+    procs = None if own else early["procs"]
+    try:
+        if own:
+            procs = start_hybrid("zero", root)
+        open(os.path.join(root, "zero-go"), "w").close()
+        check_zero(wait_hybrid("zero", root, procs, tag="train-zero"))
+    finally:
+        stop_ranks(procs or [])
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def stop_ranks(procs):
+    for p, _ in procs:
+        if p.poll() is None:
+            p.kill()
 
 
 # ----------------------------------------------------------- train-guard
@@ -7727,13 +8159,15 @@ def restored_against_shard(path):
     """A check for GuardFitLog: the model's restored parameters and
     optimizer state equal rank 0's shard file of the checkpoint at
     ``path`` (read on its own), bit for bit; returns how many tensors."""
-    from paddle_tpu_torch.distributed import reshard
+    from paddle_tpu_torch.distributed.reshard import (_host_tensor,
+                                                      _load_shard,
+                                                      read_layout)
 
     def check(model):
-        layout = reshard.read_layout(path)
-        shard = reshard._load_shard(os.path.join(
+        layout = read_layout(path)
+        shard = _load_shard(os.path.join(
             path, layout["rank_files"]["0"]))
-        saved = {k: reshard._host_tensor(v)
+        saved = {k: _host_tensor(v)
                  for k, v in shard["arrays"].items()}
         live = {f"model.{k}": v for k, v in
                 model.network.state_dict().items()}
@@ -8567,8 +9001,18 @@ def main(argv=None):
         run("sentinel-gpt2", phase_sentinel_gpt2, dev)
     if "lora-llama" in phases:
         run("lora-llama", phase_lora_llama, dev)
-    if "train-hybrid" in phases:
-        run("train-hybrid", phase_train_hybrid, dev)
+    early = None
+    if {"train-hybrid", "train-zero"} <= set(phases):
+        early = {"root": tempfile.mkdtemp(prefix="train-zero-"), "procs": []}
+    try:
+        if "train-hybrid" in phases:
+            run("train-hybrid", phase_train_hybrid, dev, early)
+        if "train-zero" in phases:
+            run("train-zero", phase_train_zero, dev, early)
+    finally:
+        if early is not None:
+            stop_ranks(early["procs"])
+            shutil.rmtree(early["root"], ignore_errors=True)
     if "train-guard" in phases:
         run("train-guard", phase_train_guard, dev)
     if timed and None not in (counts, lora_counts, train_counts, gpt2_counts,

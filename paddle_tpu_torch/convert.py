@@ -17,6 +17,13 @@ the JAX package's order).  The step counter lands in the optimizer's
 device tensor and the schedule's state in its `LRScheduler`;
 `load_paddle_tpu_scaler_state` adopts a ``GradScaler.state_dict()``.  A
 run resumed so continues as the JAX compiled step does.
+
+A model split over mp (the tensor-parallel layers) or sharded by ZeRO
+(`distributed.fleet.sharding`) holds a part of each such parameter:
+`shard_paddle_tpu_state` cuts the global arrays to the rank's parts
+(mp first, then the rows over the sharding group) and
+`gather_paddle_tpu_state` joins them back (the rows, then mp) bit for
+bit; the optimizer's state the same way, its ZeRO rows included.
 """
 from __future__ import annotations
 
@@ -102,7 +109,8 @@ def _splits(model):
     for prefix, mod in model.named_modules():
         if isinstance(mod, _MPLayer):
             for pname, (dim, chunks) in mod._split.items():
-                if dim is not None and getattr(mod, pname, None) is not None:
+                if dim is not None and \
+                        mod._parameters.get(pname) is not None:
                     out[f"{prefix}.{pname}" if prefix else pname] = \
                         (dim, chunks)
     return out
@@ -114,13 +122,44 @@ def _mp():
     return g, (1 if g is None else g.nranks), (0 if g is None else g.rank)
 
 
+def _gather_steps(model):
+    """``{parameter name: gather steps}`` of the parameters ``model``
+    gathers on use (ZeRO stage 3, `distributed.api.shard_layer`): the
+    ``(group, dim)`` joins from the rank's part to the parameter its
+    module reads."""
+    return {name: p._gather_slot.steps for name, p in model.named_parameters()
+            if getattr(p, "_gather_slot", None) is not None}
+
+
+def _cut(arr, steps):
+    """The rank's part of ``arr`` (numpy) under gather ``steps``
+    (outermost join first)."""
+    from .distributed.placement import shard_bounds
+    for group, dim in reversed(steps):
+        lo, hi = shard_bounds(arr.shape[dim], group.nranks, group.rank)
+        arr = np.take(arr, np.arange(lo, hi), axis=dim)
+    return arr
+
+
+def _join(t, steps):
+    """The parameter ``t`` (a part) makes under gather ``steps``."""
+    from .distributed import collective
+    for group, dim in steps:
+        t = collective.all_gather_concat(t.contiguous(), axis=dim,
+                                         group=group)
+    return t
+
+
 def shard_paddle_tpu_state(np_state, model):
     """A paddle_tpu state dict of the global model (numpy, JAX names) →
     this rank's part: each parameter that a tensor-parallel layer of
     ``model`` splits cut by its placement (`distributed.fleet.mp_layers.
-    shard_of`), the others whole.  Load it with `load_paddle_tpu_state`."""
+    shard_of`), then each that ``model`` gathers on use (ZeRO stage 3)
+    cut to its rows; the others whole.  Load it with
+    `load_paddle_tpu_state`."""
     from .distributed.fleet.mp_layers import shard_of
     splits = _splits(model)
+    steps = _gather_steps(model)
     _, n, r = _mp()
     out = {}
     for name, arr in np_state.items():
@@ -129,6 +168,8 @@ def shard_paddle_tpu_state(np_state, model):
             dim, chunks = splits[name]
             arr = shard_of(torch.from_numpy(np.ascontiguousarray(arr)), dim,
                            n, r, chunks).numpy()
+        if name in steps:
+            arr = np.ascontiguousarray(_cut(arr, steps[name]))
         out[name] = arr
     return out
 
@@ -153,15 +194,18 @@ def gather_paddle_tpu_state(model, dst=None):
     group calls it."""
     from .distributed import env
     splits = _splits(model)
+    steps = _gather_steps(model)
+    keep = dst is None or env.get_rank() == dst
     out = {}
     for name, t in model.state_dict().items():
-        full = _gather_part(t.detach(), splits.get(name))
+        t = _join(t.detach(), steps.get(name, ()))
+        full = _gather_part(t, splits.get(name))
+        if not keep:
+            continue
         if full.dtype == torch.bfloat16:     # numpy has no bf16: its
             full = full.float()              # values exactly, in fp32
         out[name] = full.cpu().numpy()
-    if dst is not None and env.get_rank() != dst:
-        return None
-    return out
+    return out if keep else None
 
 
 def _param_splits(model, optimizer):
@@ -179,20 +223,33 @@ def shard_paddle_tpu_optimizer_state(np_state, model, optimizer):
     from .distributed.fleet.mp_layers import shard_of
     splits = _param_splits(model, optimizer)
     params = optimizer._all_params()
+    zero = getattr(optimizer, "_zero", None)
     _, n, r = _mp()
     out = {}
     for key, val in np_state.items():
         name, _, idx = key.rpartition(".")
-        if n > 1 and idx.isdigit() and int(idx) < len(params) \
-                and splits[int(idx)] is not None:
+        if not (idx.isdigit() and int(idx) < len(params)):
+            out[key] = val
+            continue
+        p = params[int(idx)]
+        local = _local_shape(zero, p)
+        if n > 1 and splits[int(idx)] is not None:
             arr = np.asarray(val)
             dim, chunks = splits[int(idx)]
-            p = params[int(idx)]
-            if arr.ndim == p.dim() and arr.shape[dim] == p.shape[dim] * n:
+            if arr.ndim == p.dim() and arr.shape[dim] == local[dim] * n:
                 val = shard_of(torch.from_numpy(np.ascontiguousarray(arr)),
                                dim, n, r, chunks).numpy()
+        if zero is not None and np.shape(val) == local and \
+                zero.kind(p)[0] != "whole":
+            g = zero.group
+            val = np.ascontiguousarray(_cut(np.asarray(val), [(g, 0)]))
         out[key] = val
     return out
+
+
+def _local_shape(zero, p):
+    """The shape of ``p`` whole on this rank's mp part."""
+    return tuple(p.shape) if zero is None else zero.full_shape(p)
 
 
 def gather_paddle_tpu_optimizer_state(model, optimizer, dst=None):
@@ -201,16 +258,22 @@ def gather_paddle_tpu_optimizer_state(model, optimizer, dst=None):
     from .distributed import env
     splits = _param_splits(model, optimizer)
     params = optimizer._all_params()
+    zero = getattr(optimizer, "_zero", None)
     out = {}
     for key, val in optimizer.state_dict().items():
         name, _, idx = key.rpartition(".")
         if torch.is_tensor(val):
             split = None
+            val = val.detach()
             if idx.isdigit() and int(idx) < len(params):
                 p = params[int(idx)]
-                if tuple(val.shape) == tuple(p.shape):
+                if zero is not None and val.dim() and \
+                        zero.kind(p)[0] != "whole" and \
+                        tuple(val.shape) == tuple(zero.state_view(p).shape):
+                    val = _join(val, [(zero.group, 0)])
+                if tuple(val.shape) == _local_shape(zero, p):
                     split = splits[int(idx)]
-            val = _gather_part(val.detach(), split).cpu().numpy()
+            val = _gather_part(val, split).cpu().numpy()
         out[key] = val
     if dst is not None and env.get_rank() != dst:
         return None

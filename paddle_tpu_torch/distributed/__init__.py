@@ -22,7 +22,10 @@ from .env import (ParallelEnv, device_count, get_rank, get_world_size,
                   init_parallel_env, is_initialized, local_device_count)
 from .mesh import ProcessMesh, get_mesh, init_mesh, set_mesh
 from .parallel import DataParallel
-from .placement import Partial, Placement, Replicate, Shard
+from .placement import (Partial, Placement, Replicate, Shard,
+                        placements_to_spec, spec_to_placements)
+from .api import (dtensor_from_fn, reshard, shard_constraint, shard_layer,
+                  shard_tensor, unshard_dtensor)
 from .topology import (HybridCommunicateGroup, get_hybrid_communicate_group,
                        set_hybrid_communicate_group)
 from .watchdog import (CollectiveTimeoutError, DesyncError, GuardianError,
@@ -34,6 +37,10 @@ from .checkpoint import (CheckpointManager, DistributedSaver,  # noqa: E402
 from .reshard import (LayoutError, LayoutMismatchError,  # noqa: E402
                       MeshSpec, ShardedCheckpointer, offer_shards,
                       restore_latest_resharded, restore_resharded)
+# importing .reshard rebinds this package's `reshard` to the module; the
+# public distributed.reshard(tensor, mesh, placements) stays the move (the
+# module imports by its path, through sys.modules), as in JAX
+from .api import reshard  # noqa: E402,F811
 from . import fleet  # noqa: E402,F401
 from . import launch  # noqa: E402,F401
 from . import spawn as spawn_mod  # noqa: E402,F401
@@ -62,7 +69,9 @@ __all__ = ["CheckpointManager", "CollectiveTimeoutError", "DataParallel",
            "init_parallel_env", "irecv", "is_initialized", "isend",
            "local_device_count", "new_group", "recv", "reduce",
            "reduce_scatter", "scatter", "send", "set_hybrid_communicate_group",
-           "set_mesh", "spawn", "watchdog",
+           "set_mesh", "spawn", "watchdog", "dtensor_from_fn",
+           "placements_to_spec", "shard_constraint", "shard_layer",
+           "shard_tensor", "spec_to_placements", "unshard_dtensor",
            "CountFilterEntry", "DistAttr", "ParallelMode", "ProbabilityEntry",
            "ShowClickEntry", "all_gather_object", "alltoall",
            "alltoall_single", "broadcast_object_list", "compat",

@@ -337,23 +337,28 @@ def all_gather(tensor_list, tensor, group=None, sync_op=True, axis=0):
     return out
 
 
-def all_gather_concat(tensor, axis=0, group=None):
+def all_gather_concat(tensor, axis=0, group=None, *, out=None):
     """The group's tensors joined along ``axis``, in group order (one
-    all-gather into one buffer)."""
+    all-gather into one buffer; ``out``, a contiguous tensor of the
+    joined shape, receives it when ``axis`` is 0)."""
     _count("all_gather", tensor)
     group = _resolve(group)
+    if out is not None and (axis != 0 or not out.is_contiguous()):
+        raise ValueError("all_gather_concat: out= takes axis 0 into a "
+                         "contiguous tensor")
     if group.nranks <= 1:
-        return tensor
+        return tensor if out is None else out.copy_(tensor)
     src = tensor.movedim(axis, 0).contiguous()
 
     def run():
         if _host_lane():
-            return _gathered(group, src).flatten(0, 1)
-        out = torch.empty((group.nranks * src.shape[0],)
-                          + tuple(src.shape[1:]),
-                          dtype=src.dtype, device=src.device)
-        _all_gather_single(out, src, group=group.process_group)
-        return out
+            joined = _gathered(group, src).flatten(0, 1)
+            return joined if out is None else out.copy_(joined)
+        dst = out if out is not None else torch.empty(
+            (group.nranks * src.shape[0],) + tuple(src.shape[1:]),
+            dtype=src.dtype, device=src.device)
+        _all_gather_single(dst, src, group=group.process_group)
+        return dst
     return _collective("all_gather", group, tensor, run).movedim(0, axis)
 
 

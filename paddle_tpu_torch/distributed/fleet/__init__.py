@@ -1,28 +1,37 @@
 """Fleet: the hybrid-parallel training facade of the port
 (paddle_tpu/distributed/fleet): ``init``, ``distributed_model``,
-``distributed_optimizer``, the tensor-parallel layers, ``recompute``."""
-from . import mp_layers, utils
+``distributed_optimizer``, the tensor-parallel layers, ZeRO sharding
+(``group_sharded_parallel``, `ShardingParallel`), ``recompute``."""
+from . import meta_parallel, mp_layers, sharding, utils
 from .base import (DistributedStrategy, HybridConfig, PaddleCloudRoleMaker,
                    UserDefinedRoleMaker, barrier_worker, distributed_model,
                    distributed_optimizer, init, is_first_worker,
                    worker_index, worker_num)
+from .meta_parallel import ShardingParallel
 from .mp_layers import (ColumnParallelLinear, ColumnSequenceParallelLinear,
                         GatherOp, ParallelCrossEntropy, RowParallelLinear,
                         RowSequenceParallelLinear, ScatterOp,
                         VocabParallelEmbedding,
                         mark_as_sequence_parallel_parameter)
+from .sharding import (DygraphShardingOptimizer, group_sharded_parallel,
+                       save_group_sharded_model, shard_optimizer_states,
+                       shard_parameters)
 from ..topology import (CommunicateTopology, HybridCommunicateGroup,
                         get_hybrid_communicate_group,
                         set_hybrid_communicate_group)
 from .utils import recompute
 
 __all__ = ["ColumnParallelLinear", "ColumnSequenceParallelLinear",
-           "CommunicateTopology", "DistributedStrategy", "GatherOp",
+           "CommunicateTopology", "DistributedStrategy",
+           "DygraphShardingOptimizer", "GatherOp",
            "HybridCommunicateGroup", "HybridConfig", "PaddleCloudRoleMaker",
            "ParallelCrossEntropy", "RowParallelLinear",
-           "RowSequenceParallelLinear", "ScatterOp", "UserDefinedRoleMaker",
-           "VocabParallelEmbedding", "barrier_worker", "distributed_model",
-           "distributed_optimizer", "get_hybrid_communicate_group", "init",
+           "RowSequenceParallelLinear", "ScatterOp", "ShardingParallel",
+           "UserDefinedRoleMaker", "VocabParallelEmbedding",
+           "barrier_worker", "distributed_model", "distributed_optimizer",
+           "get_hybrid_communicate_group", "group_sharded_parallel", "init",
            "is_first_worker", "mark_as_sequence_parallel_parameter",
-           "mp_layers", "recompute", "set_hybrid_communicate_group",
+           "meta_parallel", "mp_layers", "recompute",
+           "save_group_sharded_model", "set_hybrid_communicate_group",
+           "shard_optimizer_states", "shard_parameters", "sharding",
            "utils", "worker_index", "worker_num"]

@@ -8,16 +8,24 @@ groups) from the strategy's degrees.  `distributed_model` puts a model on
 this rank: every tensor-parallel layer keeps only its shard (a layer
 built before `init`, holding the global parameters, is split now; one
 built after is checked), and a model with its own hook
-(``_bind_topology``) takes its rank's place.  The gradient sync over dp
-and the mp-aware clip are the train step's (`framework.train_step.
-CompiledTrainStep` with the mesh, or `hapi.Model`), so
-`distributed_optimizer` returns the optimizer as JAX's does.
+(``_bind_topology``) takes its rank's place.  Every parameter then
+records its placements (`_commit_params`, JAX's rule); under a strategy
+with ``sharding`` (or ``sharding_configs["stage"] >= 3``) that is the
+ZeRO-3 layout: the rank keeps the rows of each parameter whose dim 0
+tiles over the sharding axis and is not split by mp, gathered on use
+(`fleet.sharding`).  The gradient sync over dp and the mp-aware clip
+are the train step's (`framework.train_step.CompiledTrainStep` with the
+mesh, or `hapi.Model`) or, under ZeRO, the optimizer's
+(`fleet.group_sharded_parallel`), so `distributed_optimizer` returns
+the optimizer as JAX's does.
 """
 from __future__ import annotations
 
 import dataclasses
 
 from .. import env as _env
+from ..mesh import get_mesh
+from ..placement import commit_param, held_placements
 from ..topology import (HybridCommunicateGroup, get_hybrid_communicate_group,
                         set_hybrid_communicate_group)
 
@@ -67,10 +75,6 @@ def init(role_maker=None, is_collective=True, strategy=None,
     port's) go to `init_parallel_env`; every rank calls it alike."""
     _env.init_parallel_env(backend=backend, device=device)
     strategy = strategy or DistributedStrategy()
-    if strategy.sharding or strategy.sharding_configs.get("stage", 1) >= 3:
-        raise NotImplementedError("DistributedStrategy.sharding: ZeRO "
-                                  "sharding (fleet/sharding) is not ported "
-                                  "(ROADMAP A8)")
     cfg = strategy.hybrid_configs
     hcg = HybridCommunicateGroup(
         dp_degree=cfg.get("dp_degree", -1),
@@ -88,11 +92,36 @@ def get_hybrid_communicate_group_():
     return get_hybrid_communicate_group()
 
 
+def _commit_params(model, mesh, shard_axis=None):
+    """Commit every parameter to the mesh (JAX's rule): a tensor-parallel
+    layer's by its ``mp_placement``, the others replicated; with
+    ``shard_axis`` each also ``Shard(0)`` over it when dim 0 tiles evenly
+    and mp does not split dim 0 (`sharding.shard_parameters`), its rows
+    kept and gathered on use."""
+    for _, p in model.named_parameters():
+        placements = held_placements(p, mesh)
+        ann = getattr(p, "mp_placement", None)
+        if ann is not None and ann[0] in mesh.dim_names:
+            placements[mesh.dim_names.index(ann[0])] = ann[1]
+        commit_param(p, mesh, placements)
+    if shard_axis is not None and shard_axis in mesh.dim_names:
+        from .sharding import shard_parameters
+        shard_parameters(list(model.parameters()), shard_axis, mesh,
+                         layer=model)
+    return model
+
+
+def _stage3(strategy):
+    return strategy is not None and (
+        strategy.sharding or strategy.sharding_configs.get("stage", 0) >= 3)
+
+
 def distributed_model(model):
     """reference: fleet/model.py:31.  Splits (or checks) every
-    tensor-parallel layer's parameters over the topology's mp group and
-    lets the model bind its rank (``_bind_topology``); returns the model
-    (``fleet.init`` first when it was not called)."""
+    tensor-parallel layer's parameters over the topology's mp group, lets
+    the model bind its rank (``_bind_topology``) and commits every
+    parameter's placements (the ZeRO-3 layout under a sharding strategy);
+    returns the model (``fleet.init`` first when it was not called)."""
     from .mp_layers import _MPLayer
     if not _fleet_state["initialized"]:
         init()
@@ -104,6 +133,8 @@ def distributed_model(model):
     bind = getattr(model, "_bind_topology", None)
     if bind is not None:
         bind(hcg)
+    _commit_params(model, get_mesh(),
+                   "sharding" if _stage3(_fleet_state["strategy"]) else None)
     return model
 
 

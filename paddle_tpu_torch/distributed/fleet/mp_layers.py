@@ -247,7 +247,7 @@ class _MPLayer(nn.Module):
         n, r = _nranks(group), _rank(group)
         held = self.world_size
         for name, (dim, chunks) in self._split.items():
-            p = getattr(self, name, None)
+            p = self._parameters.get(name)
             if p is None or dim is None:
                 continue
             if held == n and (n == 1 or group is self.mp_group):
@@ -260,7 +260,7 @@ class _MPLayer(nn.Module):
                 p.data = shard_of(p.data, dim, n, r, chunks)
         self.mp_group, self.world_size, self.rank = group, n, r
         for name, (dim, _) in self._split.items():
-            p = getattr(self, name, None)
+            p = self._parameters.get(name)
             if p is not None:
                 self._mark(p, dim)
         return self

@@ -912,6 +912,25 @@ def restore_latest_resharded(root, target_mesh: MeshSpec, target_rank,
 # manager-shaped wrapper
 # ---------------------------------------------------------------------------
 
+def partition_from_tensor(t, mesh: MeshSpec):
+    """The on-disk partition of a distributed tensor from the placements
+    it records (`placement.commit_param`, `api.shard_tensor`): a tuple
+    with an entry a dim, the first axis of ``mesh`` that splits it or
+    None; a plain tensor is replicated (JAX's, reshard.py:803)."""
+    placements = getattr(t, "placements", None)
+    pmesh = getattr(t, "process_mesh", None)
+    ndim = len(getattr(t, "shape", ()) or ())
+    part = [None] * ndim
+    if placements and pmesh is not None:
+        for axis_idx, p in enumerate(placements):
+            if getattr(p, "is_shard", lambda *_: False)():
+                d = p.dim if p.dim >= 0 else p.dim + ndim
+                name = pmesh.dim_names[axis_idx]
+                if name in mesh.axes and part[d] is None:
+                    part[d] = name
+    return tuple(part)
+
+
 class ShardedCheckpointer:
     """Multi-rank, layout-aware sibling of `framework.checkpoint_manager.
     CheckpointManager`: the same step-numbered directories, manifest

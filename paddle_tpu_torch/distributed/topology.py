@@ -1,14 +1,14 @@
 """Hybrid-parallel topology (port of paddle_tpu/distributed/topology.py):
 the degrees of each axis, the mesh of ranks over them and, unlike JAX
 (where an axis group is a mesh axis name), the torch process groups of
-the data-parallel and model-parallel axes.
+the data-parallel, sharding (ZeRO) and model-parallel axes.
 
 The axes are JAX's, outermost to innermost: ``pp``, ``dp``,
-``sharding``, ``sep``, ``mp``; rank = dp index × mp + mp index, so the
-ranks of one mp group are neighbours (on a multi-card host, the cards
-that share the most links).  The port runs dp and mp: a ``pp``,
-``sharding`` or ``sep`` degree above 1 raises `NotImplementedError`
-naming its ROADMAP A8 item.
+``sharding``, ``sep``, ``mp``; rank = (dp index × sharding + sharding
+index) × mp + mp index, so the ranks of one mp group are neighbours (on
+a multi-card host, the cards that share the most links).  The port runs
+dp, sharding and mp: a ``pp`` or ``sep`` degree above 1 raises
+`NotImplementedError` naming its ROADMAP A8 item.
 """
 from __future__ import annotations
 
@@ -25,8 +25,6 @@ HYBRID_AXES = ("pp", "dp", "sharding", "sep", "mp")
 _UNPORTED = {
     "pp": "pp_degree > 1: pipeline parallelism (fleet/meta_parallel) is "
           "not ported (ROADMAP A8)",
-    "sharding": "sharding_degree > 1: ZeRO sharding (fleet/sharding) is "
-                "not ported (ROADMAP A8)",
     "sep": "sep_degree > 1: context parallelism (context_parallel) is not "
            "ported (ROADMAP A8)",
 }
@@ -57,8 +55,8 @@ def hybrid_degrees(ndev, dp_degree=-1, mp_degree=1, pp_degree=1,
 class HybridCommunicateGroup:
     """reference: fleet/base/topology.py:174.  ``devices`` (a list, one
     rank each) sizes the topology; None: the world.  Builds the mesh
-    (set as the default, as JAX's does) and the dp and mp groups, so
-    every rank constructs it alike."""
+    (set as the default, as JAX's does) and the dp, mp and sharding
+    groups, in that order, so every rank constructs it alike."""
 
     def __init__(self, dp_degree=-1, mp_degree=1, pp_degree=1,
                  sharding_degree=1, sep_degree=1, devices=None):
@@ -80,6 +78,7 @@ class HybridCommunicateGroup:
         # every rank builds the groups in this order
         self._dp_group = self.mesh.get_group("dp")
         self._mp_group = self.mesh.get_group("mp")
+        self._sharding_group = self.mesh.get_group("sharding")
         set_mesh(self.mesh)
 
     # ---- degrees (reference: topology.py:180-184) ----
@@ -109,12 +108,18 @@ class HybridCommunicateGroup:
     def get_model_parallel_rank(self):
         return self.mesh.get_coord("mp")
 
+    def get_sharding_parallel_rank(self):
+        return self.mesh.get_coord("sharding")
+
     # ---- groups (JAX: the axis names; here the process groups) ----
     def get_data_parallel_group(self):
         return self._dp_group
 
     def get_model_parallel_group(self):
         return self._mp_group
+
+    def get_sharding_parallel_group(self):
+        return self._sharding_group
 
     def get_check_parallel_group(self):
         return tuple(a for a, d in self._degrees.items() if d > 1)
@@ -142,6 +147,13 @@ def mp_group():
     one)."""
     hcg = _HCG[0]
     return None if hcg is None else hcg.get_model_parallel_group()
+
+
+def sharding_group():
+    """The sharding (ZeRO) group of the current topology (None without
+    one)."""
+    hcg = _HCG[0]
+    return None if hcg is None else hcg.get_sharding_parallel_group()
 
 
 def dp_group():

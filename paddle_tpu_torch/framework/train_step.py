@@ -64,8 +64,12 @@ the learning rate and the staged batch.
   step syncs itself.  Capture
   takes the NCCL collectives into the graph (the communicators exist
   after call 1); a process group that cannot be captured (gloo) raises
-  `NotImplementedError` at the capture.  An axis other than dp and mp
-  above 1 raises with JAX's wording.  With ``sentinel=True`` the health
+  `NotImplementedError` at the capture.  A ``sharding`` axis above 1
+  takes JAX's route: the eager lane, with one `MeshFallbackWarning`
+  naming the axis (a ZeRO optimizer, ``fleet.group_sharded_parallel``,
+  is refused first with JAX's "ZeRO-sharded accumulators" reason); its
+  step syncs the gradients itself.  A ``pp`` or ``sep`` axis above 1
+  raises with JAX's wording.  With ``sentinel=True`` the health
   vector is taken after the dp all-reduce, from the world's gradients
   (JAX's compiled step under its mesh): it carries the step's health
   across ranks and no further; the per-rank blame reads the eager lane's
@@ -101,6 +105,17 @@ from ..optimizer.optimizer import Optimizer
 from ..utils import monitor as _monitor
 from ..utils.flags import flag as _flag
 from . import capture
+
+class MeshFallbackWarning(UserWarning):
+    """Warned once when the mesh carries an axis the one-program train
+    step cannot host (ZeRO sharding); the message names the axis that
+    forced the eager fallback (JAX's)."""
+
+
+_MESH_BLOCKED = ("mesh axis '{}' cannot run inside one compiled program "
+                 "(pipeline schedules, ZeRO resharding and context "
+                 "parallel keep their own lanes)")
+
 
 def _signature(t):
     if t is None:
@@ -162,20 +177,24 @@ class CompiledTrainStep:
         self._meshed = False
         self._dp, self._dp_rank = 1, 0
         self._dp_group = self._mp_group = None
+        self._blocked = None          # the mesh axis that forces eager
         if mesh is not None:
             self._resolve_mesh(mesh)
         self.check_static_eligibility()
+        if self._blocked is not None and self._fallback_reason is None:
+            self._set_fallback(_MESH_BLOCKED.format(self._blocked),
+                               MeshFallbackWarning)
 
     def _resolve_mesh(self, mesh):
-        """The dp and mp groups of ``mesh`` (JAX ``_resolve_mesh``): any
+        """The dp and mp groups of ``mesh`` (JAX ``_resolve_mesh``): a
+        ``sharding`` axis above 1 blocks the graph (the eager lane), any
         other axis above 1 raises; a mesh of ones is no mesh."""
         names = mesh.dim_names
         for name in names:
             if name not in ("dp", "mp") and mesh.get_dim_size(name) != 1:
-                raise NotImplementedError(
-                    f"mesh axis '{name}' cannot run inside one compiled "
-                    "program (pipeline schedules, ZeRO resharding and "
-                    "context parallel keep their own lanes)")
+                if name != "sharding":
+                    raise NotImplementedError(_MESH_BLOCKED.format(name))
+                self._blocked = name
         dp = mesh.get_dim_size("dp") if "dp" in names else 1
         mp = mesh.get_dim_size("mp") if "mp" in names else 1
         if dp <= 1 and mp <= 1:
@@ -274,7 +293,7 @@ class CompiledTrainStep:
     # eligibility and fallback
     # ------------------------------------------------------------------
 
-    def _set_fallback(self, reason):
+    def _set_fallback(self, reason, category=UserWarning):
         self.sync_scaler()
         self._svec = None
         self._fallback_reason = reason
@@ -282,7 +301,7 @@ class CompiledTrainStep:
             self._warned = True
             warnings.warn(f"compiled train step disabled ({reason}); "
                           "running the eager step for this model",
-                          UserWarning, stacklevel=3)
+                          category, stacklevel=3)
 
     def check_static_eligibility(self):
         """One-time structural checks; returns None when eligible, else
@@ -295,6 +314,8 @@ class CompiledTrainStep:
                                "(closure-style optimizers run eagerly)")
         elif type(opt)._update is Optimizer._update:
             self._set_fallback(f"{type(opt).__name__} has no fused update")
+        elif getattr(opt, "_zero", None) is not None:
+            self._set_fallback("ZeRO-sharded accumulators (fleet.sharding)")
         return self._fallback_reason
 
     def _eligible_now(self):
@@ -344,7 +365,12 @@ class CompiledTrainStep:
             bwd = bwd * (1.0 / self._accum)
         bwd.backward()
         if update:
-            if self._meshed:
+            if getattr(self._opt, "_zero", None) is not None:
+                # ZeRO syncs its gradients in its step; the scaler's
+                # found-inf is made the world's first
+                _parallel.mesh_update(self._opt, self._scaler, None, None,
+                                      self._device)
+            elif self._meshed:
                 _parallel.mesh_update(self._opt, self._scaler,
                                       self._dp_group, self._mp_group,
                                       self._device)

@@ -57,8 +57,10 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts():
+    from .adam import adam_update
     for fn in _wrappers().values():
         fn.launches = 0
+    adam_update.scalar_launches = 0
 
 
 def add_launch_counts(delta: dict):

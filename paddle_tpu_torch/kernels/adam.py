@@ -118,6 +118,8 @@ def adam_update(w, g, m1, m2, p, scal, *, b1, b2, eps, wd, decoupled,
         raise ValueError(f"adam_update: skip must be one bool on {w.device}")
     if not n:
         return
+    if not vector_path(w, g, m1, m2, p):
+        adam_update.scalar_launches += 1
     scal = scal.contiguous()
     fn = _build.function("ptt_adam_update", [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -136,3 +138,14 @@ def adam_update(w, g, m1, m2, p, scal, *, b1, b2, eps, wd, decoupled,
 
 
 adam_update.launches = 0
+#: launches that took the kernel's scalar path (a pointer off alignment)
+adam_update.scalar_launches = 0
+
+
+def vector_path(w, g, m1, m2, p=None):
+    """Whether the kernel takes its 4-wide vector path for these tensors
+    (``csrc/adam.cu`` ``launch``): w, m1 and m2 16-byte aligned, g and p
+    aligned to four of their elements."""
+    return all(t.data_ptr() % 16 == 0 for t in (w, m1, m2)) and \
+        g.data_ptr() % (4 * g.element_size()) == 0 and \
+        (p is None or p.data_ptr() % (4 * p.element_size()) == 0)

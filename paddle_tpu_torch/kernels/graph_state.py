@@ -136,6 +136,12 @@ def draw_log(log, replay=False):
         _draws = outer
 
 
+def recomputing():
+    """Whether the code runs inside a recompute of a region (the second
+    run of `draw_log`'s scope)."""
+    return _draws is not None and _draws.replay_at is not None
+
+
 def logged_draw(draw):
     """``draw()``, a random value an op draws (a seed, a dropout mask):
     inside a `draw_log` scope recorded on the first run and taken back,

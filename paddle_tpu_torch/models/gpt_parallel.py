@@ -80,11 +80,16 @@ def _masked_parallel_ce(loss_fn, logits, labels, vocab_size=None):
 
 def _global_count(module):
     """Parameters of the global model: a split parameter counts for every
-    rank of its group."""
+    rank of its group (mp, and the groups a ZeRO-3 part is gathered
+    over)."""
     n = 0
     for p in module.parameters():
-        n += p.numel() * (_mp().nranks if getattr(p, "mp_split",
-                                                  False) else 1)
+        k = p.numel() * (_mp().nranks if getattr(p, "mp_split",
+                                                 False) else 1)
+        slot = getattr(p, "_gather_slot", None)
+        for group, _ in (slot.steps if slot is not None else ()):
+            k *= group.nranks
+        n += k
     return n
 
 

@@ -92,33 +92,53 @@ def global_norm(params_grads):
     without gradients).  One `torch._foreach_norm` pass reads each
     gradient once in its own dtype and sums in fp32 (no fp32 copy of a
     gradient; a fixed order of partial sums, so the same bits on every
-    run), then the norm of those norms.  A model split over mp: each rank
-    holds the gradients of its shards (parameters marked ``mp_split``)
-    and copies of the others; the shards' squared norms are summed over
-    the group they are split over (the parameter's ``mp_group``: one fp32
-    all-reduce), the copies' counted once.  Shards without a group, or
-    over two groups, raise."""
+    run), then the norm of those norms.  A gradient may be a part of the
+    global one: of a parameter split over mp (``mp_split``: the group is
+    its ``mp_group``), or the rows a ZeRO optimizer reads of it over the
+    sharding group (``zero_group``), or both.  Each part's squared norm
+    is summed over the groups that split it (one fp32 all-reduce of the
+    stacked sums a group), and copies are counted once.  An mp-split
+    parameter without its group raises."""
     grads = [g for _, g in params_grads if g is not None]
     if not grads:
         return None
-    split = [(p, g) for p, g in params_grads
-             if g is not None and getattr(p, "mp_split", False)]
-    if not split:
+    cats = {}
+    for p, g in params_grads:
+        if g is not None:
+            cats.setdefault(_split_groups(p), []).append(g)
+    if not any(cats):
         norms = torch._foreach_norm(grads, 2.0, dtype=torch.float32)
         return torch.linalg.vector_norm(torch.stack(norms))
-    groups = {getattr(p, "mp_group", None) for p, _ in split}
-    if None in groups or len(groups) > 1:
-        raise ValueError(
-            "ClipGradByGlobalNorm: gradients split over mp (mp_split) must "
-            f"name the one group they are split over, not {groups}")
     from ..distributed import collective
-    sq = _sq_sum([g for _, g in split])
-    collective.all_reduce(sq, group=groups.pop())
-    rest = [g for p, g in params_grads
-            if g is not None and not getattr(p, "mp_split", False)]
-    if rest:
-        sq = sq + _sq_sum(rest)
-    return sq.sqrt()
+    keys = list(cats)
+    sums = [_sq_sum(cats[k]) for k in keys]
+    groups = []
+    for k in keys:
+        groups += [g for g in k if all(g is not h for h in groups)]
+    for group in groups:
+        idx = [i for i, k in enumerate(keys) if any(g is group for g in k)]
+        v = torch.stack([sums[i] for i in idx])
+        collective.all_reduce(v, group=group)
+        for j, i in enumerate(idx):
+            sums[i] = v[j]
+    return torch.stack(sums).sum().sqrt()
+
+
+def _split_groups(p):
+    """The groups a parameter's gradient is split over: its ZeRO group,
+    then its mp group (groups of one rank left out)."""
+    out = []
+    zg = getattr(p, "zero_group", None)
+    if zg is not None and zg.nranks > 1:
+        out.append(zg)
+    if getattr(p, "mp_split", False):
+        mg = getattr(p, "mp_group", None)
+        if mg is None:
+            raise ValueError(
+                "ClipGradByGlobalNorm: gradients split over mp (mp_split) "
+                "must name the one group they are split over (mp_group)")
+        out.append(mg)
+    return tuple(out)
 
 
 def _sq_sum(grads):

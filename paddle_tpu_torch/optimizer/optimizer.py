@@ -26,6 +26,13 @@ expressions in torch ops, in the same order, each rounded in fp32 as
 XLA rounds it.  Every state tensor is updated in place (JAX rebinds new
 arrays), so addresses hold across steps and a captured graph keeps
 reading them.  `LBFGS` reads the host and runs eagerly only.
+
+Under ZeRO (``distributed.fleet.sharding``) the optimizer carries the
+plan as ``_zero``: its state covers the rank's rows of each parameter
+(`_state_view`), `step` syncs the gradients over the sharding, dp and
+mp groups before the clip, and `_apply_update` runs each update on a
+contiguous tensor of the rows (the Adam kernel's vector path), then
+all-gathers the parameters that stay whole.
 """
 from __future__ import annotations
 
@@ -136,6 +143,7 @@ class Optimizer:
         self._step_count = 0         # step() calls
         self._step_tensor = None     # device fp32: updates applied
         self._lr_tensor = None       # device fp32: the rate of this step
+        self._zero = None            # the ZeRO plan (fleet.sharding)
 
     # ---------------- lr ----------------
     def get_lr(self):
@@ -186,7 +194,13 @@ class Optimizer:
             return
         with torch.no_grad():
             for name, init in self._state_spec():
-                self._state[name] = [init(p) for p in self._parameter_list]
+                self._state[name] = [init(self._state_view(p))
+                                     for p in self._parameter_list]
+
+    def _state_view(self, p):
+        """The part of ``p`` its state covers: all of it, or under ZeRO
+        the rank's rows."""
+        return p if self._zero is None else self._zero.state_view(p)
 
     def _wd_applies(self, p):
         """Whether weight decay applies to this parameter: always for one
@@ -225,6 +239,8 @@ class Optimizer:
                         if p.grad is not None and p.requires_grad]
         if not params_grads:
             return
+        if self._zero is not None:
+            params_grads = self._zero.sync_gradients(params_grads)
         params_grads, gscale = self._clip(params_grads)
         self._step_tensor.add_(1.0)
         self._apply_update(params_grads, self._write_lr(), self._step_tensor,
@@ -236,10 +252,12 @@ class Optimizer:
         ``lr`` and ``step`` (the counter after this update, fp32 0-dim)
         and ``gscale`` (the global-norm clip's fp32 0-dim scale, or None);
         with ``skip`` (a 0-dim bool on the device) set, nothing changes.
-        Returns nothing and reads nothing back."""
+        Returns nothing and reads nothing back.  Under ZeRO ``grad`` is
+        the rows' gradient and the update writes the rows."""
         self._ensure_state()
         grads = {id(p): g for p, g in params_grads if g is not None}
         scalars = {}
+        updated = []
         for i, p in enumerate(self._parameter_list):
             g = grads.get(id(p))
             if g is None:
@@ -248,7 +266,12 @@ class Optimizer:
             if s not in scalars:
                 scalars[s] = self._scalars(lr, step, s, gscale)
             state = {name: vals[i] for name, vals in self._state.items()}
-            self._update(p, g, state, scalars[s], self._wd_applies(p), skip)
+            target = p if self._zero is None else self._zero.target(p)
+            self._update(target, g, state, scalars[s], self._wd_applies(p),
+                         skip)
+            updated.append(p)
+        if self._zero is not None:
+            self._zero.gather_params(updated)
 
     def _scalars(self, lr, step, lr_scale, gscale=None):
         """The device scalars `_update` takes for one ``lr_scale``:
@@ -322,9 +345,10 @@ class Optimizer:
                 v = state[key]
                 t = v if torch.is_tensor(v) else torch.from_numpy(
                     np.array(v, dtype=np.float32))
-                if tuple(t.shape) != tuple(p.shape):
+                want = tuple(self._state_view(p).shape)
+                if tuple(t.shape) != want:
                     raise ValueError(f"{key}: shape {tuple(t.shape)} != "
-                                     f"parameter {tuple(p.shape)}")
+                                     f"parameter {want}")
                 if vals[i] is None:
                     vals[i] = t.to(device=p.device, dtype=torch.float32,
                                    copy=True)

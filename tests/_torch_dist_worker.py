@@ -629,6 +629,192 @@ def case_sharded_fit(rank, world, inputs):
                                                                     opt)}
 
 
+# ---------------------------------------------------------------------------
+# ZeRO sharding and the semi-auto parallel API
+# ---------------------------------------------------------------------------
+
+def _place_str(placements):
+    return [repr(p) for p in placements]
+
+
+def case_zero(rank, world, inputs):
+    """The JAX recipe (benchmarks/run.py config 3) at ``inputs["dp"]`` ×
+    ``inputs["sharding"]`` × ``inputs["mp"]`` on the tiny parallel
+    ``inputs["model"]``: fleet.init (``strategy.sharding`` at level
+    p_g_os), distributed_model, the global state loaded (each rank its
+    parts), AdamW + clip, group_sharded_parallel(level),
+    distributed_optimizer, the batches placed by shard_tensor (Shard(0)
+    on ``inputs["batch_axes"]``), eager steps.  Returns the world-mean
+    losses, the gathered state and optimizer state, each parameter's
+    placements and local shape, the optimizer state's local shapes, the
+    collectives a step and the ZeRO-3 regathers."""
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.distributed import api, collective as C, fleet
+    from paddle_tpu_torch.models import (ParallelGPTForCausalLM,
+                                         ParallelLlamaForCausalLM,
+                                         gpt_config, llama_config)
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    level = inputs["level"]
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs = {"dp_degree": inputs["dp"], "mp_degree": inputs["mp"],
+                        "sharding_degree": inputs["sharding"]}
+    if level == "p_g_os":
+        s.sharding = True
+        s.sharding_configs = {"stage": 3}
+    fleet.init(is_collective=True, strategy=s, backend="gloo")
+    if inputs["model"] == "gpt":
+        cfg = gpt_config("gpt2-124m", **inputs["cfg"])
+        net = ParallelGPTForCausalLM(cfg, device="cpu")
+    else:
+        cfg = llama_config("tiny", **inputs["cfg"])
+        net = ParallelLlamaForCausalLM(cfg, device="cpu")
+    model = fleet.distributed_model(net)
+    convert.load_paddle_tpu_state(
+        model, convert.shard_paddle_tpu_state(inputs["state"], model))
+    opt = AdamW(learning_rate=1e-3, parameters=model.parameters(),
+                weight_decay=0.01, grad_clip=ClipGradByGlobalNorm(1.0))
+    model, opt, _ = fleet.group_sharded_parallel(model, opt, level=level)
+    opt = fleet.distributed_optimizer(opt)
+    mesh = dist.get_mesh()
+    place = [dist.Shard(0) if n in inputs["batch_axes"] else dist.Replicate()
+             for n in mesh.dim_names]
+    losses, coll = [], None
+    regathers = api.stats["regathers"]
+    for ids, labels in inputs["batches"]:
+        before = C.counts()
+        x = dist.shard_tensor(torch.tensor(ids), mesh, place,
+                              stop_gradient=True)
+        y = dist.shard_tensor(torch.tensor(labels), mesh, place,
+                              stop_gradient=True)
+        _, loss = model(x, labels=y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        if coll is None:
+            coll = {k: v[0] - before.get(k, (0, 0))[0]
+                    for k, v in C.counts().items()}
+        lt = loss.detach().clone().reshape(1)
+        C.all_reduce(lt, op=C.ReduceOp.AVG)
+        losses.append(float(lt[0]))
+    out = {"losses": losses, "rank_loss": float(loss.detach()),
+           "rows": int(x.shape[0]),
+           "state": convert.gather_paddle_tpu_state(model),
+           "opt": {k: v for k, v in convert.gather_paddle_tpu_optimizer_state(
+               model, opt).items() if k.startswith(("moment", "master"))},
+           "placements": {n: _place_str(p.placements)
+                          for n, p in model.named_parameters()},
+           "local_shapes": {n: tuple(p.shape)
+                            for n, p in model.named_parameters()},
+           "moment_shapes": [tuple(t.shape)
+                             for t in opt._state["moment1"]],
+           "coll": coll, "regathers": api.stats["regathers"] - regathers,
+           "mesh": list(mesh.dim_names)}
+    if inputs.get("save"):
+        path = fleet.save_group_sharded_model(model, inputs["save"], opt)
+        out["saved"] = path
+    return out
+
+
+def case_zero_stage_units(rank, world, inputs):
+    """JAX's test_sharding_stage1_optimizer_states and
+    test_sharding_stage3_params at sharding ``world``: nn.Linear(16, 16),
+    AdamW(0.01), one step on the global x; the moments' and weight's
+    placements, parts and the gathered weight after the step."""
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.nn.layers import Linear
+    from paddle_tpu_torch.optimizer import AdamW
+    out = {}
+    for level in ("os_g", "p_g_os"):
+        s = fleet.DistributedStrategy()
+        s.hybrid_configs = {"sharding_degree": world}
+        fleet.init(is_collective=True, strategy=s, backend="gloo")
+        model = Linear(16, 16, device="cpu")
+        convert.load_paddle_tpu_state(model, inputs["state"])
+        if level == "os_g":
+            fleet.distributed_model(model)
+        opt = AdamW(0.01, parameters=model.parameters())
+        model, opt, _ = fleet.group_sharded_parallel(model, opt, level=level)
+        res = {"placements": {n: _place_str(p.placements)
+                              for n, p in model.named_parameters()},
+               "local": {n: tuple(p.shape)
+                         for n, p in model.named_parameters()}}
+        loss = model(torch.tensor(inputs["x"])).mean()
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        res["moment1"] = [tuple(t.shape) for t in opt._state["moment1"]]
+        res["zero_kinds"] = [opt._zero.kind(p)[0]
+                             for p in opt._parameter_list]
+        res["state"] = convert.gather_paddle_tpu_state(model)
+        out[level] = res
+    return out
+
+
+def case_auto_parallel(rank, world, inputs):
+    """The semi-auto API on a dp 2 x mp 2 mesh: shard_tensor's parts
+    under several placements, reshard moves (Shard -> Replicate ->
+    Shard(j), Shard(i) -> Shard(j), both axes on one dim),
+    unshard_dtensor, dtensor_from_fn, shard_constraint's gradient,
+    Partial's refusal, shard_layer's output and gradient, and
+    partition_from_tensor."""
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed.reshard import (MeshSpec,
+                                                      partition_from_tensor)
+    from paddle_tpu_torch.nn.layers import Linear
+    mesh = dist.init_mesh([2, 2], ["dp", "mp"])
+    dist.set_mesh(mesh)
+    x = torch.tensor(inputs["x"])
+    S, R = dist.Shard, dist.Replicate
+    out = {"parts": {}, "moves": {}}
+    for key, pl in inputs["placements"].items():
+        t = dist.shard_tensor(x, mesh, [eval(p) for p in pl])
+        out["parts"][key] = (t.numpy(), _place_str(t.placements))
+    for key, (a, b) in inputs["moves"].items():
+        t = dist.shard_tensor(x, mesh, [eval(p) for p in a])
+        r = dist.reshard(t, mesh, [eval(p) for p in b])
+        back = dist.unshard_dtensor(r)
+        out["moves"][key] = (r.numpy(), back.numpy())
+    t = dist.dtensor_from_fn(torch.ones, mesh, [S(0), R()], 4, 2)
+    out["from_fn"] = t.numpy()
+    try:
+        dist.shard_tensor(x, mesh, [dist.Partial(), R()])
+    except NotImplementedError as e:
+        out["partial"] = str(e)
+    # the gradient through a move inside a forward
+    w = torch.tensor(inputs["x"], requires_grad=True)
+    part = dist.shard_constraint(w, mesh, [S(0), S(1)])
+    (part * part).sum().backward()
+    out["constraint_grad"] = w.grad.numpy()
+    # shard_layer: weight Shard(1) over mp computes the global output
+    lin = Linear(8, 8, device="cpu")
+    with torch.no_grad():
+        lin.weight.copy_(torch.tensor(inputs["w"]))
+        lin.bias.copy_(torch.tensor(inputs["b"]))
+
+    def shard_fn(name, layer, m):
+        if isinstance(layer, Linear):
+            layer.weight.placements = [R(), S(1)]
+    dist.shard_layer(lin, mesh, shard_fn)
+    xin = torch.tensor(inputs["xin"])
+    y = lin(xin)
+    y.sum().backward()
+    out["layer"] = {"out": y.detach().numpy(),
+                    "weight_part": lin._parameters["weight"].detach().numpy(),
+                    "weight_grad": lin._parameters["weight"].grad.numpy(),
+                    "placements": _place_str(
+                        lin._parameters["weight"].placements)}
+    spec = MeshSpec(["dp", "mp"], [2, 2])
+    out["partition"] = [
+        partition_from_tensor(dist.shard_tensor(x, mesh, [S(0), S(1)]), spec),
+        partition_from_tensor(dist.shard_tensor(x, mesh, [R(), S(0)]), spec),
+        partition_from_tensor(x, spec)]
+    out["spec"] = dist.placements_to_spec(mesh, [S(0), S(1)], 2)
+    return out
+
+
 def case_compat(rank, world, inputs):
     """`distributed.compat`'s collectives on the world and on an explicit
     gloo group (the serving replica's descriptor channel)."""
@@ -693,6 +879,9 @@ CASES = {
     "guarded_collectives": case_guarded_collectives,
     "sentinel_fit": case_sentinel_fit,
     "sharded_fit": case_sharded_fit,
+    "zero": case_zero,
+    "zero_stage_units": case_zero_stage_units,
+    "auto_parallel": case_auto_parallel,
 }
 
 

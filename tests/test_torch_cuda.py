@@ -2544,3 +2544,83 @@ def test_hot_spare_snapshot_is_its_step_while_replays_run(card, monkeypatch):
                     assert not torch.equal(live.cpu(), v.cpu()), (it, k)
     assert sorted(want) == [3, 6, 9] and model._compiled_step.compiled
     agent.close(park=False)
+
+
+@pytest.mark.cuda
+def test_zero_shard_adam_takes_the_vector_path(card):
+    """A ZeRO parameter whose state is its rows (rank 1 of 2, rows 3-5 of
+    a [6, 1030] bf16 weight: a slice at byte 6180, off the 16-byte
+    boundary): the rows' gradient (`aligned_rows`), the master and the
+    moments (`_state_view`) and the update's buffer (`ZeroState.target`)
+    are tensors of their own, so the Adam kernel takes its vector path,
+    and its result equals the plain version's on the rows bit for bit;
+    the misaligned slice itself takes the scalar path (the control)."""
+    from types import SimpleNamespace
+    from paddle_tpu_torch.distributed.fleet.sharding import (ZeroState,
+                                                             aligned_rows)
+    g0 = torch.Generator(device=card).manual_seed(0)
+    w = torch.randn(6, 1030, device=card, generator=g0)
+    grad = torch.randn(6, 1030, device=card, generator=g0).to(torch.bfloat16)
+    p = torch.nn.Parameter(w.to(torch.bfloat16))
+    zero = ZeroState(SimpleNamespace(nranks=2, rank=1), 1)
+    assert zero.kind(p) == ("rows", 3, 6)
+    opt = AdamW(1e-3, parameters=[p])
+    opt._zero = zero
+    opt._ensure_state()
+    opt._lr_tensor.fill_(1e-3)
+    state = {name: vals[0] for name, vals in opt._state.items()}
+    assert state["moment1"].shape == (3, 1030)
+    rows = aligned_rows(grad, 3, 6)
+    assert grad[3:6].data_ptr() % 16 and rows.data_ptr() % 16 == 0
+    plain = {k: v.clone() for k, v in state.items()}
+    want = p.detach()[3:6].clone()
+    scal = opt._scalars(opt._lr_tensor, torch.ones((), device=card), 1.0)
+    kernels.reset_launch_counts()
+    target = zero.target(p)
+    opt._update(target, rows, state, scal, True)
+    assert adam.adam_update.launches == 1
+    assert adam.adam_update.scalar_launches == 0
+    adam.adam_update_ref(plain["master"], rows, plain["moment1"],
+                         plain["moment2"], want, scal, b1=0.9, b2=0.999,
+                         eps=1e-8, wd=0.01, decoupled=True)
+    assert torch.equal(target, want)
+    assert torch.equal(state["master"], plain["master"])
+    adam.adam_update(state["master"], grad[3:6], state["moment1"],
+                     state["moment2"], None, scal, b1=0.9, b2=0.999,
+                     eps=1e-8, wd=0.0, decoupled=True)
+    assert adam.adam_update.scalar_launches == 1
+
+
+@pytest.mark.cuda
+def test_api_moves_on_cuda_tensors(card, tmp_path):
+    """The semi-auto API's moves on CUDA tensors over NCCL (two ranks
+    sharing the card): Shard(0) -> Replicate, the all-to-all Shard(0) ->
+    Shard(1), unshard_dtensor, each bit for bit against the local slices
+    of the global tensor; the gradient through Replicate -> Shard(0) ->
+    Replicate comes back whole (the all-gather's backward averaged)."""
+    import json
+    res = _launch_two(tmp_path, (
+        "import paddle_tpu_torch.distributed as dist\n"
+        "from paddle_tpu_torch.distributed.placement import local_slice\n"
+        "mesh = dist.ProcessMesh([0, 1], ['mp'])\n"
+        "g = torch.Generator(device=dev).manual_seed(0)\n"
+        "x = torch.randn(64, 96, device=dev, generator=g)\n"
+        "S, R = dist.Shard, dist.Replicate\n"
+        "t = dist.shard_tensor(x, mesh, [S(0)])\n"
+        "r = dist.reshard(t, mesh, [R()])\n"
+        "a = dist.reshard(t, mesh, [S(1)])\n"
+        "w = x.clone().requires_grad_()\n"
+        "full = dist.reshard(dist.shard_tensor(w, mesh, [S(0)]), mesh, [R()])\n"
+        "(full * 3).sum().backward()\n"
+        "res = {'part': torch.equal(t, local_slice(x, mesh, [S(0)])),\n"
+        "       'whole': torch.equal(r, x),\n"
+        "       'a2a': torch.equal(a, local_slice(x, mesh, [S(1)])),\n"
+        "       'unshard': torch.equal(dist.unshard_dtensor(a), x),\n"
+        "       'grad': torch.equal(w.grad, torch.full_like(x, 3.0)),\n"
+        "       'cuda': t.is_cuda and a.is_cuda}\n"
+        "C.barrier()\n"
+        "json.dump(res, open(f'{out}/r{rank}.json', 'w'))\n"), {})
+    assert res.returncode == 0, res.stderr[-4000:]
+    for r in (0, 1):
+        got = json.load(open(tmp_path / f"r{r}.json"))
+        assert all(got.values()), (r, got)

@@ -119,6 +119,14 @@ def test_hybrid_degree_errors_match_jax(kw):
 
 @pytest.mark.parametrize("axis", ["pp", "sharding", "sep"])
 def test_unported_axes_raise(axis):
+    """pp and sep above 1 raise naming their ROADMAP A8 item; sharding is
+    ported (tests/test_torch_zero.py): its degree passes the check and
+    the topology wants a world of that many ranks."""
+    if axis == "sharding":
+        with pytest.raises(ValueError, match="the world has 1 ranks"):
+            topology.HybridCommunicateGroup(devices=list(range(8)),
+                                            sharding_degree=2)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         topology.HybridCommunicateGroup(devices=list(range(8)),
                                         **{f"{axis}_degree": 2})
@@ -138,16 +146,23 @@ def test_communicate_topology_matches_jax():
 
 
 def test_compiled_step_refuses_other_axes_and_the_sentinel():
-    """The mesh lanes run dp and mp: another axis above 1 raises with
-    JAX's wording.  The sentinel with a mesh is ported (its health on 2
-    ranks: tests/test_torch_sentinel_ranks.py): in a world of one it gets
-    as far as the step without it, the dp group this world cannot hold."""
+    """The mesh lanes run dp and mp: a pp or sep axis above 1 raises
+    with JAX's wording; a sharding axis takes JAX's eager lane with the
+    same words in a `MeshFallbackWarning` (tests/test_torch_zero.py).
+    The sentinel with a mesh is ported (its health on 2 ranks:
+    tests/test_torch_sentinel_ranks.py): in a world of one it gets as
+    far as the step without it, the dp group this world cannot hold."""
+    from paddle_tpu_torch.framework.train_step import MeshFallbackWarning
     opt = SGD(0.1, parameters=Linear(2, 2, device="cpu").parameters())
     for name in ("pp", "sharding", "sep"):
         mesh = ProcessMesh(np.arange(2).reshape(2, 1), [name, "dp"])
-        with pytest.raises(NotImplementedError,
-                           match=f"mesh axis '{name}' cannot run inside "
-                                 "one compiled program"):
+        words = f"mesh axis '{name}' cannot run inside one compiled program"
+        if name == "sharding":
+            with pytest.warns(MeshFallbackWarning, match=words):
+                cs = CompiledTrainStep(lambda x, y: x, opt, mesh=mesh)
+            assert not cs.compiled
+            continue
+        with pytest.raises(NotImplementedError, match=words):
             CompiledTrainStep(lambda x, y: x, opt, mesh=mesh)
     mesh = ProcessMesh(np.arange(2).reshape(2, 1), ["dp", "mp"])
     for sentinel in (False, True):

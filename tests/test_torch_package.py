@@ -201,8 +201,6 @@ SIGNATURE_ALLOW = {
     # JAX's hand-off from a jitted program; the port's tick advances the
     # device offsets in place and the host mirror follows
     "serving.paged_kv.PagedKVCache.absorb_tick",
-    # open: the build options of JAX's `load` (ROADMAP A9, cpp_extension)
-    "utils.cpp_extension.load",
 }
 
 

@@ -394,15 +394,23 @@ def test_ineligible_step_warns_once_and_stays_eager(why):
 
 
 def test_unported_options_raise():
-    """The mesh lanes run dp and mp (tests/test_torch_hybrid.py): a pp,
-    sharding or sep axis above 1 still raises (JAX's wording).  The
-    sentinel with a mesh is ported (tests/test_torch_sentinel_ranks.py):
-    in a world of one it resolves the mesh as the step without it does,
-    up to the dp group this world cannot hold."""
+    """The mesh lanes run dp and mp (tests/test_torch_hybrid.py): a pp
+    or sep axis above 1 still raises (JAX's wording); a sharding axis
+    takes JAX's eager lane with a `MeshFallbackWarning` naming it
+    (tests/test_torch_zero.py).  The sentinel with a mesh is ported
+    (tests/test_torch_sentinel_ranks.py): in a world of one it resolves
+    the mesh as the step without it does, up to the dp group this world
+    cannot hold."""
     from paddle_tpu_torch.distributed import ProcessMesh
+    from paddle_tpu_torch.framework.train_step import MeshFallbackWarning
     net, opt = _mlp()
     for axis in ("pp", "sharding", "sep"):
         mesh = ProcessMesh(np.arange(2).reshape(1, 2), ["dp", axis])
+        if axis == "sharding":
+            with pytest.warns(MeshFallbackWarning,
+                              match=f"mesh axis '{axis}'"):
+                CompiledTrainStep(lambda x, y: x, opt, mesh=mesh)
+            continue
         with pytest.raises(NotImplementedError, match=f"mesh axis '{axis}'"):
             CompiledTrainStep(lambda x, y: x, opt, mesh=mesh)
     mesh = ProcessMesh(np.arange(2).reshape(2, 1), ["dp", "mp"])
