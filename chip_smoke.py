@@ -386,7 +386,7 @@ last line:
             step p50 (the slowest rank), collectives and bytes a step,
             launches a step, resident parameter and optimizer-state bytes
             against sharding 1, peaks; (b) 2 layers at the same width in
-            fp32: levels os, os_g, p_g_os against one rank (3 AdamW steps
+            fp32: levels os, os_g, p_g_os against one rank (2 AdamW steps
             with the clip: losses and the next batch's within
             ZERO_LOSS_RTOL, the gathered parameters within 2 lr x steps)
             and the api moves bit for bit; (c) save_group_sharded_model
@@ -394,6 +394,29 @@ last line:
             its next-batch loss against the stage-3 run's.  With
             train-hybrid in the run, the ranks start beside its gpt lane
             and wait for this phase (their imports overlapped)
+24. train-pipe  pipeline parallelism: fleet.distributed_model(
+            GPTForCausalLMPipe) -> PipelineParallel.train_batch on four
+            ranks sharing the card over NCCL's socket transport, pp 2 x
+            mp 2 (with train-zero in the run, its ranks run this lane
+            after their checks; else ``--hybrid-child pipe``), (b) and
+            (c) first, 1F1B on each rank, the stage hand-offs point to
+            point: (a)
+            GPT-3 1.3B
+            width, PIPE_LAYERS of 24 layers (2 a stage), bf16 O2,
+            AdamW(1e-4) + clip 1.0, the [8, 2048] batch in 4
+            micro-batches, 1 + 3 steps: losses finite and equal on the 4
+            ranks, each rank's order JAX's 1F1B plan, launches a step a
+            rank (flash fwd / dK-dV / dQ 8 each, Adam one a parameter, none
+            on the scalar path); step p50 (the slowest rank), p2p and
+            collective calls and bytes a step, the tied weight's gradient
+            all-reduce, resident bytes, peaks; the flash kernels at the
+            path's shape (B2 H8 S2048 D128 causal bf16) and Adam at its
+            largest parameter against their plain versions; (b) 2 layers
+            at the same width in fp32 and (c) 4 layers in 2 virtual
+            stages a rank (small: hidden 1024, vocab 8192), each against
+            one rank's GPTForCausalLMPipe at pp 1 on the same weights (3
+            AdamW steps: losses within ZERO_LOSS_RTOL, this rank's
+            parameters within 2 lr x steps)
 
 The second-to-last line is the kernels' JSON summary, the last line
 ``{"ok": true, "device": {...}}``.  ``--phases`` runs a subset.
@@ -475,7 +498,8 @@ PHASES = ("device", "build", "kernels", "serve", "serve-lora-int8",
           "train-compiled-parity", "train-gpt2", "gpt2-parity", "attn-ops",
           "train-optimizers", "serve-gpt", "gpt-parity", "generate-gpt",
           "train-gpt2-recompute", "fit-gpt2", "fit-llama", "sentinel-gpt2",
-          "lora-llama", "train-hybrid", "train-zero", "train-guard")
+          "lora-llama", "train-hybrid", "train-zero", "train-pipe",
+          "train-guard")
 #: generate-gpt: the worst row error (relative to the row's norm) allowed
 #: between the cached path's last-position logits and the full forward's
 #: at GPT-3 6.7B in bf16.  Both paths round every activation to bf16 (a
@@ -6810,7 +6834,7 @@ def collective_counts():
         return {}
     out = {}
     for op in ("all_reduce", "all_gather", "reduce_scatter", "broadcast",
-               "barrier"):
+               "barrier", "send", "recv"):
         c = calls.labels(op=op).value
         if c:
             out[op] = (c, nbytes.labels(op=op).value)
@@ -7406,11 +7430,11 @@ def phase_train_hybrid(dev, zero=None):
 #: vocab 50304, S 2048), depth cut from 24 to ZERO_LAYERS layers; the
 #: recipe's [8, 2048] batch; ZERO_STEPS eager steps (the first a warm-up)
 ZERO_LAYERS = 4
-ZERO_STEPS = 4
+ZERO_STEPS = 3
 ZERO_BATCH = (8, 2048)
 #: (b) and (c): 2 layers at the same width, fp32, ZERO_ROWS x ZERO_SEQ
 #: tokens, ZERO_PARITY_STEPS AdamW steps (lr 1e-4, wd 0.01, clip 1.0)
-ZERO_ROWS, ZERO_SEQ, ZERO_PARITY_STEPS, ZERO_LR = 4, 512, 3, 1e-4
+ZERO_ROWS, ZERO_SEQ, ZERO_PARITY_STEPS, ZERO_LR = 4, 512, 2, 1e-4
 #: (b)'s tolerances against the one rank: the losses (sums in other
 #: orders over mp and the ZeRO averages) and each parameter within
 #: 2 lr x steps (AdamW moves an element by at most ~lr a step, whatever
@@ -7674,6 +7698,11 @@ def zero_lane(dev, rank, world, outdir):
     out["b"] = zero_parity(dev, rank, strategy, outdir)
     marks.append(time.monotonic())
     out["seconds"] = [b - a for a, b in zip(marks, marks[1:])]
+    if os.path.exists(os.path.join(outdir, "pipe-too")):
+        # train-pipe on the same ranks: their imports and process group
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["pipe"] = pipe_lane(dev, rank)
     return out
 
 
@@ -7777,8 +7806,10 @@ def phase_train_zero(dev, early=None):
     benchmarks/run.py config 3 at GPT-3 1.3B width, (b) each level at 2
     layers in fp32 against one rank and the api moves, (c) the saved
     model into one rank.  No number here is a four-card one: the ranks
-    time-slice one card.  ``early`` (``{"root", "procs"}``): ranks that
-    train-hybrid started, waiting for this phase's go."""
+    time-slice one card.  ``early`` (``{"root", "procs", "pipe"}``):
+    ranks that train-hybrid started, waiting for this phase's go; with
+    ``pipe`` they run train-pipe's lane after their checks (`pipe_lane`),
+    whose results this phase returns."""
     # the ranks' ~50 GB must not meet this process's cached blocks of the
     # earlier phases
     gc.collect()
@@ -7794,17 +7825,369 @@ def phase_train_zero(dev, early=None):
     try:
         if own:
             procs = start_hybrid("zero", root)
+        pipe = early is not None and early["pipe"]
+        if pipe:
+            open(os.path.join(root, "pipe-too"), "w").close()
         open(os.path.join(root, "zero-go"), "w").close()
-        check_zero(wait_hybrid("zero", root, procs, tag="train-zero"))
+        outs = wait_hybrid("zero", root, procs, tag="train-zero")
+        check_zero(outs)
+        return [o["pipe"] for o in outs] if pipe else None
     finally:
         stop_ranks(procs or [])
-        shutil.rmtree(root, ignore_errors=True)
+        if early is None:
+            shutil.rmtree(root, ignore_errors=True)
 
 
 def stop_ranks(procs):
     for p, _ in procs:
         if p.poll() is None:
             p.kill()
+
+
+# ------------------------------------------------------------ train-pipe
+#: train-pipe (a): GPTForCausalLMPipe at GPT-3 1.3B width (hidden 2048,
+#: 16 heads, FFN 8192, vocab 50304, S 2048), depth cut from 24 to
+#: PIPE_LAYERS layers (2 a stage), pp 2 x mp 2, bf16 O2, AdamW(1e-4) with
+#: the clip 1.0, the [8, 2048] batch in PIPE_ACCUM micro-batches of [2,
+#: 2048], PIPE_STEPS train_batch calls (the first a warm-up)
+PIPE_LAYERS, PIPE_STEPS, PIPE_ACCUM = 4, 4, 4
+PIPE_BATCH = (8, 2048)
+#: (b) 2 layers at the same width, (c) 4 layers in 2 virtual stages a
+#: rank, small (hidden 1024, 8 heads of D 128, vocab 8192); fp32,
+#: PIPE_ROWS rows of PIPE_SEQ tokens ((c) PIPE_SEQ_C), 2 micro-batches,
+#: PIPE_PARITY_STEPS AdamW steps (lr ZERO_LR, wd 0.01, clip 1.0) against
+#: one rank's GPTForCausalLMPipe at pp 1 on the same weights, within
+#: train-zero (b)'s tolerances
+PIPE_ROWS, PIPE_SEQ, PIPE_SEQ_C, PIPE_PARITY_STEPS = 4, 512, 256, 3
+
+
+def pipe_parity_cfgs():
+    """(b)'s and (c)'s model configs."""
+    return (gpt_config("gpt3-1.3b", max_seq_len=2048, num_layers=2),
+            gpt_config("gpt2-350m", num_layers=4, num_heads=8,
+                       vocab_size=8192, max_seq_len=PIPE_SEQ_C))
+#: the flash kernels' shape on the pipe's path: a micro-batch of B 2 x
+#: S 2048, the rank's 8 of 16 heads, D 128, causal
+PIPE_FLASH = dict(b=2, h=8, s=2048, d=128)
+
+
+def pipe_strategy(accum):
+    from paddle_tpu_torch.distributed import fleet
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs = {"dp_degree": 1, "mp_degree": 2, "pp_degree": 2}
+    s.pipeline = True
+    s.pipeline_configs = {"accumulate_steps": accum}
+    return s
+
+
+class one_rank_topology:
+    """No topology in the body (a model built there holds the whole
+    model and runs no collective); the rank's put back after."""
+
+    def __enter__(self):
+        from paddle_tpu_torch.distributed import mesh, topology
+        self.hcg = topology.get_hybrid_communicate_group()
+        topology.set_hybrid_communicate_group(None)
+        self.scope = mesh.suspended()
+        self.scope.__enter__()
+
+    def __exit__(self, *exc):
+        from paddle_tpu_torch.distributed import topology
+        self.scope.__exit__(*exc)
+        topology.set_hybrid_communicate_group(self.hcg)
+
+
+def pipe_rows(vocab, b, s, seed):
+    """(inputs, labels): ``b`` rows of ``s + 1`` random ids, shifted."""
+    ids = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, vocab, (b, s + 1)))
+    return ids[:, :-1], ids[:, 1:]
+
+
+def pipe_recipe(dev, hcg):
+    """(a) fleet.distributed_model(GPTForCausalLMPipe) -> train_batch at
+    1.3B width, bf16 O2: losses, step ms, collectives a step, the tied
+    weight's gradient bytes, launches, peak and resident bytes."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.models import GPTForCausalLMPipe
+    cfg = gpt_config("gpt3-1.3b", max_seq_len=2048, num_layers=PIPE_LAYERS)
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = GPTForCausalLMPipe(cfg, device=dev, dtype=torch.float32, seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    pm = fleet.distributed_model(model)
+    opt = AdamW(1e-4, parameters=pm.parameters(),
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    pm, opt = amp.decorate(pm, opt, level="O2", dtype=torch.bfloat16)
+    x, y = (t.to(dev) for t in pipe_rows(cfg.vocab_size, *PIPE_BATCH, 0))
+    kernels.reset_launch_counts()
+    scalar0 = adam_update.scalar_launches
+    before = collective_counts()
+    losses, times = [], []
+    for _ in range(PIPE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        losses.append(float(pm.train_batch((x, y), opt)))
+        torch.cuda.synchronize()
+        times.append((time.monotonic() - t0) * 1e3)
+    counts = kernels.launch_counts()
+    coll = per_step(collective_counts(), before, PIPE_STEPS)
+    state = sum(t.numel() * t.element_size()
+                for t in opt.state_dict().values() if torch.is_tensor(t))
+    return dict(
+        losses=losses, times=times, coll=coll,
+        launches={k: v for k, v in counts.items() if v},
+        scalar_adam=adam_update.scalar_launches - scalar0,
+        tie_mb=sum(p.numel() * p.element_size()
+                   for _, ps in pm._ties for p in ps) / 1e6,
+        peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+        n_params=n_params, n_tensors=len(list(pm.parameters())),
+        param_bytes=sum(p.numel() * p.element_size()
+                        for p in pm.parameters()), state_bytes=state,
+        order=[(op, m) for _, op, m in pm._runner.last_schedule])
+
+
+def pipe_kernel_checks(dev, n_adam):
+    """The flash kernels at the pipe's shape and Adam at its largest
+    parameter (bf16 with an fp32 master), each against its plain
+    version (the phase's own launches, after the path's were read)."""
+    gen = torch.Generator(device=dev).manual_seed(23)
+    f = PIPE_FLASH
+    errs, _ = flash_case(dev, f["b"], f["h"], f["h"], f["s"], f["d"], True,
+                         torch.bfloat16, gen)
+    errs["adam"], _ = adam_case(dev, n_adam, torch.bfloat16, True, True,
+                                0.01, gen)
+    return errs
+
+
+def pipe_parity(dev, strategy, cfg, chunks, seq):
+    """(b) / (c): ``cfg`` in fp32, ``chunks`` virtual stages a rank,
+    against one rank's GPTForCausalLMPipe at pp 1 built from the same
+    seed in this process (every rank runs it: no transfer of the whole
+    model): the losses of PIPE_PARITY_STEPS steps and the worst
+    difference of this rank's parameters from the one rank's parts."""
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.distributed import fleet, topology
+    from paddle_tpu_torch.distributed.fleet.mp_layers import shard_of
+    from paddle_tpu_torch.models import GPTForCausalLMPipe
+    batches = [tuple(t.to(dev) for t in pipe_rows(cfg.vocab_size, PIPE_ROWS,
+                                                  seq, 3 + i))
+               for i in range(PIPE_PARITY_STEPS)]
+
+    def adamw(ps):
+        return AdamW(ZERO_LR, parameters=ps, weight_decay=0.01,
+                     grad_clip=ClipGradByGlobalNorm(1.0))
+    t0 = time.monotonic()
+    with one_rank_topology():
+        one = GPTForCausalLMPipe(cfg, device=dev, dtype=torch.float32,
+                                 seed=1)
+        opt = adamw(one.parameters())
+        ref = []
+        for x, y in batches:
+            loss = one._loss_fn(one(x), y)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            ref.append(float(loss.detach()))
+        want = {k: v.detach() for k, v in one.state_dict().items()}
+        del one, opt
+    t1 = time.monotonic()
+    strategy.pipeline_configs["accumulate_steps"] = 2
+    model = GPTForCausalLMPipe(cfg, num_virtual_pipeline_stages=chunks,
+                               device=dev, dtype=torch.float32, seed=1)
+    pm = fleet.distributed_model(model)
+    opt = adamw(pm.parameters())
+    losses = [float(pm.train_batch(b, opt)) for b in batches]
+    splits = convert._splits(model)
+    g = topology.mp_group()
+    worst, worst_name = 0.0, None
+    for name, p in model.state_dict().items():
+        w = want[name]
+        if name in splits:
+            dim, ch = splits[name]
+            w = shard_of(w, dim, g.nranks, g.rank, ch)
+        err = float((p - w).abs().max())
+        if err > worst:
+            worst, worst_name = err, name
+    res = dict(losses=losses, ref=ref, worst=worst, worst_name=worst_name,
+               bound=2 * ZERO_LR * PIPE_PARITY_STEPS,
+               kind=type(pm).__name__,
+               order=list(pm._runner.last_schedule),
+               seconds=(t1 - t0, time.monotonic() - t1))
+    del model, pm, opt, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def pipe_lane(dev, rank):
+    """train-pipe on the world's four ranks (their process group joined):
+    pp 2 x mp 2; the fp32 lanes (b) and (c) first (the groups' NCCL
+    communicators are made there), then (a), then the kernels at its
+    shapes (rank 0)."""
+    from paddle_tpu_torch.distributed import fleet
+    marks = [time.monotonic()]
+    strategy = pipe_strategy(PIPE_ACCUM)
+    hcg = fleet.init(is_collective=True, strategy=strategy,
+                     backend=HYBRID_BACKEND, device=dev)
+    out = {"rank": rank, "stage": hcg.get_pipe_parallel_rank(),
+           "mp_rank": hcg.get_model_parallel_rank()}
+    marks.append(time.monotonic())
+    cfg_b, cfg_c = pipe_parity_cfgs()
+    out["b"] = pipe_parity(dev, strategy, cfg_b, 1, PIPE_SEQ)
+    marks.append(time.monotonic())
+    out["c"] = pipe_parity(dev, strategy, cfg_c, 2, PIPE_SEQ_C)
+    marks.append(time.monotonic())
+    strategy.pipeline_configs["accumulate_steps"] = PIPE_ACCUM
+    out["a"] = pipe_recipe(dev, hcg)
+    marks.append(time.monotonic())
+    if rank == 0:
+        out["kernels"] = pipe_kernel_checks(dev, 25152 * 2048)
+    marks.append(time.monotonic())
+    out["seconds"] = [b - a for a, b in zip(marks, marks[1:])]
+    return out
+
+
+def pipe_ranks(dev, rank, world, outdir):
+    """train-pipe's own four ranks (without train-zero in the run)."""
+    from paddle_tpu_torch.distributed import env
+    env.init_parallel_env(
+        backend=HYBRID_BACKEND, device=dev, world_size=world, rank=rank,
+        init_method="file://" + os.path.join(outdir, "rdzv-pipe"))
+    return pipe_lane(dev, rank)
+
+
+HYBRID_LANES["pipe"] = (pipe_ranks, 4)
+
+#: (a)'s launches a rank a step: flash fwd, dK/dV and dQ once a layer a
+#: micro-batch on the rank's 2 layers; Adam once a parameter (stage 0:
+#: wte, wpe and 12 a block; stage 1: 12 a block, the final norm's 2 and
+#: the tied copy's wte and wpe)
+PIPE_ADAM = {0: 2 + 12 * PIPE_LAYERS // 2, 1: 12 * PIPE_LAYERS // 2 + 4}
+
+
+def check_pipe(outs, seconds=None):
+    """(a), the kernels, (b) and (c) from the four ranks."""
+    tag = "train-pipe"
+    card = smi_card()
+    losses = [o["a"]["losses"] for o in outs]
+    if any(x != losses[0] for x in losses) or \
+            not all(np.isfinite(losses[0])):
+        raise AssertionError(f"[{tag}] (a) losses not finite and equal on "
+                             f"the 4 ranks: {losses}")
+    flash_per = PIPE_ACCUM * PIPE_LAYERS // 2
+    for o in outs:
+        a = o["a"]
+        per = {k: v / PIPE_STEPS for k, v in a["launches"].items()}
+        want = dict({k: flash_per for k in FLASH}, adam=PIPE_ADAM[o["stage"]])
+        bad = {k: (per.get(k, 0), n) for k, n in want.items()
+               if per.get(k, 0) != n}
+        if bad or a["scalar_adam"]:
+            raise AssertionError(f"[{tag}] (a) r{o['rank']}: launches a "
+                                 f"step (got, want) {bad}, scalar-path Adam "
+                                 f"{a['scalar_adam']}")
+        plan = pipe_plan(2, PIPE_ACCUM)[o["stage"]]
+        if [tuple(x) for x in a["order"]] != plan:
+            raise AssertionError(f"[{tag}] (a) r{o['rank']}: order "
+                                 f"{a['order']} is not the 1F1B plan {plan}")
+    steps = np.max([o["a"]["times"] for o in outs], axis=0)[1:]
+    p50 = float(np.median(steps))
+    b, s = PIPE_BATCH
+    log(f"[{tag}] {card}; (a) GPTForCausalLMPipe at GPT-3 1.3B width, "
+        f"{PIPE_LAYERS} of 24 layers (2 a stage), pp 2 x mp 2 on four ranks "
+        f"sharing the card over NCCL's socket, bf16 O2, AdamW(1e-4) + clip "
+        f"1.0, [{b}, {s}] in {PIPE_ACCUM} micro-batches, 1F1B on each rank: "
+        f"losses {[round(x, 4) for x in losses[0]]} equal on the 4 ranks; "
+        f"step p50 {p50:.1f} ms (the slowest rank's, {PIPE_STEPS - 1} steps "
+        f"after the first; ranks "
+        f"{[round(float(np.median(o['a']['times'][1:])), 1) for o in outs]}"
+        f"), {b * s / p50 * 1e3:.0f} tokens/s")
+    for o in outs:
+        a = o["a"]
+        per = {k: v / PIPE_STEPS for k, v in sorted(a["launches"].items())}
+        log(f"[{tag}] (a) r{o['rank']} (stage {o['stage']}, mp "
+            f"{o['mp_rank']}): {a['n_params'] / 1e6:.1f}M parameters in "
+            f"{a['n_tensors']} tensors, resident {a['param_bytes'] / 1e9:.3f}"
+            f" GB + optimizer state {a['state_bytes'] / 1e9:.3f} GB; "
+            f"collectives a step {fmt_coll(a['coll'])}; the tied weight's "
+            f"gradient all-reduce {a['tie_mb']:.1f} MB; launches a step "
+            f"{per}, scalar-path Adam {a['scalar_adam']}; peak "
+            f"{a['peak_gb']:.2f} GB; step ms {[round(t, 1) for t in a['times']]}")
+    errs = outs[0]["kernels"]
+    f = PIPE_FLASH
+    log(f"[{tag}] kernels at the path's shapes against their plain versions "
+        f"(rank 0): flash B{f['b']} H{f['h']} S{f['s']} D{f['d']} causal "
+        f"bf16: fwd {errs['flash_fwd']:.3e}, dK/dV {errs['flash_bwd_dkv']:.3e}"
+        f", dQ {errs['flash_bwd_dq']:.3e} (max abs err, rows within "
+        f"ROW_TOL); Adam on {25152 * 2048} elements (bf16 + fp32 master) bit "
+        f"for bit")
+    for lane, want_kind in (("b", "PipelineParallel"),
+                            ("c", "PipelineParallelWithInterleave")):
+        for o in outs:
+            r = o[lane]
+            rel = max(abs(x - y) / abs(y) for x, y in zip(r["losses"],
+                                                           r["ref"]))
+            if r["kind"] != want_kind or rel > ZERO_LOSS_RTOL or \
+                    r["worst"] > r["bound"]:
+                raise AssertionError(
+                    f"[{tag}] ({lane}) r{o['rank']} {r['kind']}: losses "
+                    f"{r['losses']} vs one rank {r['ref']} (rel {rel:.2e} > "
+                    f"{ZERO_LOSS_RTOL}) or {r['worst_name']} off by "
+                    f"{r['worst']:.3e} > {r['bound']:.1e}")
+        r0 = outs[0][lane]
+        rels = [max(abs(x - y) / abs(y) for x, y in
+                    zip(o[lane]["losses"], o[lane]["ref"])) for o in outs]
+        log(f"[{tag}] ({lane}) fp32 "
+            + ("2 layers at 1.3B width" if lane == "b" else
+               "4 layers at hidden 1024, 8 heads, vocab 8192")
+            + ", pp 2 x mp 2"
+            + (", 2 virtual stages a rank (all forwards chunk by chunk, "
+               "then the backwards in reverse)" if lane == "c" else "")
+            + f", [{PIPE_ROWS}, {PIPE_SEQ if lane == 'b' else PIPE_SEQ_C}] "
+            f"in 2 micro-batches vs one rank's pipe at pp 1, "
+            f"{PIPE_PARITY_STEPS} AdamW steps + clip 1.0: losses "
+            f"{[round(x, 5) for x in r0['losses']]} vs "
+            f"{[round(x, 5) for x in r0['ref']]} (worst rel {max(rels):.2e}"
+            f"), parameters within "
+            f"{max(o[lane]['worst'] for o in outs):.2e} (bound "
+            f"{r0['bound']:.1e}); seconds one rank / pipe "
+            f"{r0['seconds'][0]:.1f} / {r0['seconds'][1]:.1f}")
+    sec = outs[0]["seconds"]
+    log(f"[{tag}] rank 0's seconds: the topology {sec[0]:.1f}, (b) "
+        f"{sec[1]:.1f}, (c) {sec[2]:.1f}, (a) {sec[3]:.1f}, kernels "
+        f"{sec[4]:.1f}")
+
+
+def pipe_plan(stages, micro):
+    """Each stage's JAX 1F1B action list (`Host1F1B._plan`)."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.\
+        pipeline_parallel import Host1F1B
+
+    class _Stages:
+        _num_chunks = 1
+
+        def get_num_stages(self):
+            return stages
+    return Host1F1B(_Stages(), micro, None)._plan()
+
+
+def phase_train_pipe(dev, outs=None):
+    """train-pipe: pipeline parallelism on four ranks that share the card
+    (pp 2 x mp 2, the ranks' NCCL over its socket transport).  ``outs``:
+    the results train-zero's ranks brought back (they run this lane
+    after their checks); else this phase starts its own ranks (this
+    script's ``--hybrid-child pipe``)."""
+    if outs is None:
+        gc.collect()
+        torch.cuda.empty_cache()
+        root = tempfile.mkdtemp(prefix="train-pipe-")
+        procs = None
+        try:
+            procs = start_hybrid("pipe", root)
+            outs = wait_hybrid("pipe", root, procs, tag="train-pipe")
+        finally:
+            stop_ranks(procs or [])
+            shutil.rmtree(root, ignore_errors=True)
+    check_pipe(outs)
 
 
 # ----------------------------------------------------------- train-guard
@@ -9001,14 +9384,19 @@ def main(argv=None):
         run("sentinel-gpt2", phase_sentinel_gpt2, dev)
     if "lora-llama" in phases:
         run("lora-llama", phase_lora_llama, dev)
-    early = None
-    if {"train-hybrid", "train-zero"} <= set(phases):
-        early = {"root": tempfile.mkdtemp(prefix="train-zero-"), "procs": []}
+    early = pipe_outs = None
+    if "train-zero" in phases:
+        # train-zero's ranks start beside train-hybrid's gpt lane and wait
+        # for their phase; with train-pipe they run its lane after theirs
+        early = {"root": tempfile.mkdtemp(prefix="train-zero-"), "procs": [],
+                 "pipe": "train-pipe" in phases}
     try:
         if "train-hybrid" in phases:
             run("train-hybrid", phase_train_hybrid, dev, early)
         if "train-zero" in phases:
-            run("train-zero", phase_train_zero, dev, early)
+            pipe_outs = run("train-zero", phase_train_zero, dev, early)
+        if "train-pipe" in phases:
+            run("train-pipe", phase_train_pipe, dev, pipe_outs)
     finally:
         if early is not None:
             stop_ranks(early["procs"])

@@ -24,6 +24,12 @@ A model split over mp (the tensor-parallel layers) or sharded by ZeRO
 (mp first, then the rows over the sharding group) and
 `gather_paddle_tpu_state` joins them back (the rows, then mp) bit for
 bit; the optimizer's state the same way, its ZeRO rows included.
+
+A pipeline model (`GPTForCausalLMPipe`, any `PipelineLayer`) holds its
+stage's entries under JAX's global names: `shard_pipeline_state` takes
+the global state to this rank's (its stage's names, each cut to its mp
+part) and `gather_pipeline_state` puts the whole model's back together
+over mp and pp.
 """
 from __future__ import annotations
 
@@ -278,3 +284,47 @@ def gather_paddle_tpu_optimizer_state(model, optimizer, dst=None):
     if dst is not None and env.get_rank() != dst:
         return None
     return out
+
+
+# ---------------------------------------------------------------------------
+# a pipeline model (each rank its stage)
+# ---------------------------------------------------------------------------
+
+def _pipeline_layer(model):
+    """The `PipelineLayer` of ``model`` (a `PipelineParallel` wraps it)."""
+    return getattr(model, "_layers", model)
+
+
+def shard_pipeline_state(np_state, model):
+    """A paddle_tpu state dict of the global pipeline model (numpy, JAX's
+    ``run_function.<i>`` names) → this rank's: the entries its stage
+    holds (a tied layer's copy under its first name, as JAX names it),
+    each cut to the rank's mp part (`shard_paddle_tpu_state`).  Load it
+    with `load_paddle_tpu_state`."""
+    layers = _pipeline_layer(model)
+    own = layers.state_dict()
+    return shard_paddle_tpu_state(
+        {k: v for k, v in np_state.items() if k in own}, layers)
+
+
+def gather_pipeline_state(model, dst=None):
+    """The global pipeline model's state dict (numpy, JAX's names): each
+    stage's entries joined over mp (`gather_paddle_tpu_state`), then the
+    stages' gathered over the pp group (a tied layer's copies hold the
+    same values: the first stage's is kept); on every rank, or with
+    ``dst`` on that global rank only (the others get None).  Every rank
+    calls it."""
+    from .distributed import env
+    from .distributed.compat import all_gather_object
+    layers = _pipeline_layer(model)
+    mine = gather_paddle_tpu_state(layers)
+    group = layers._pp_group
+    parts = [mine]
+    if group is not None:
+        parts = []
+        all_gather_object(parts, mine, group=group)
+    out = {}
+    for part in parts:
+        for k, v in part.items():
+            out.setdefault(k, v)
+    return out if dst is None or env.get_rank() == dst else None

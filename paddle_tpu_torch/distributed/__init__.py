@@ -12,8 +12,10 @@ key-value stores (`store`: `TCPStore` over ``csrc/tcp_store.cpp``,
 `FileKVStore`, `TCPElasticStore`), and sharded checkpoints with the
 elastic reshard (`checkpoint`, `reshard`); `compat`: the object
 collectives, `alltoall`, `gather`, the backend calls and the gloo shims
-(its `isend` / `irecv` return a task, as JAX's exports do)."""
-from . import env, watchdog  # noqa: E402,F401
+(its `isend` / `irecv` return a task, as JAX's exports do);
+`functional`: the collectives as differentiable ops over a mesh axis's
+group."""
+from . import env, functional, watchdog  # noqa: E402,F401
 from .collective import (Group, P2POp, ReduceOp, all_gather, all_reduce,
                          all_to_all, barrier, batch_isend_irecv, broadcast,
                          get_group, irecv, isend, new_group, recv, reduce,
@@ -64,7 +66,8 @@ __all__ = ["CheckpointManager", "CollectiveTimeoutError", "DataParallel",
            "ParallelEnv", "Partial", "Placement", "ProcessMesh", "ReduceOp",
            "Replicate", "Shard", "all_gather", "all_reduce", "all_to_all",
            "barrier", "batch_isend_irecv", "broadcast", "device_count",
-           "env", "fleet", "get_group", "get_hybrid_communicate_group",
+           "env", "fleet", "functional", "get_group",
+           "get_hybrid_communicate_group",
            "get_mesh", "get_rank", "get_world_size", "init_mesh",
            "init_parallel_env", "irecv", "is_initialized", "isend",
            "local_device_count", "new_group", "recv", "reduce",

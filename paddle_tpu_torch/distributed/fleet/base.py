@@ -17,7 +17,13 @@ tiles over the sharding axis and is not split by mp, gathered on use
 are the train step's (`framework.train_step.CompiledTrainStep` with the
 mesh, or `hapi.Model`) or, under ZeRO, the optimizer's
 (`fleet.group_sharded_parallel`), so `distributed_optimizer` returns
-the optimizer as JAX's does.
+the optimizer as JAX's does.  A `PipelineLayer` is wrapped as JAX wraps
+it: `PipelineParallelWithInterleave` with virtual stages, else
+`PipelineParallel` with more than one stage.
+
+`Role`, `UtilBase` (the collective utilities over the world: numbers,
+objects, a file shard a worker) and `Fleet` (the stateful facade over the
+module's functions, its ``util`` a `UtilBase`) are JAX's.
 """
 from __future__ import annotations
 
@@ -121,7 +127,10 @@ def distributed_model(model):
     tensor-parallel layer's parameters over the topology's mp group, lets
     the model bind its rank (``_bind_topology``) and commits every
     parameter's placements (the ZeRO-3 layout under a sharding strategy);
-    returns the model (``fleet.init`` first when it was not called)."""
+    returns the model, a `PipelineLayer` wrapped for its schedule
+    (``fleet.init`` first when it was not called)."""
+    from .meta_parallel import (PipelineLayer, PipelineParallel,
+                                PipelineParallelWithInterleave)
     from .mp_layers import _MPLayer
     if not _fleet_state["initialized"]:
         init()
@@ -133,8 +142,17 @@ def distributed_model(model):
     bind = getattr(model, "_bind_topology", None)
     if bind is not None:
         bind(hcg)
+    strategy = _fleet_state["strategy"]
+    if isinstance(model, PipelineLayer):
+        _commit_params(model, get_mesh())
+        if model._num_chunks > 1:
+            return PipelineParallelWithInterleave(model, hcg=hcg,
+                                                  strategy=strategy)
+        if model.get_num_stages() > 1:
+            return PipelineParallel(model, hcg=hcg, strategy=strategy)
+        return model
     _commit_params(model, get_mesh(),
-                   "sharding" if _stage3(_fleet_state["strategy"]) else None)
+                   "sharding" if _stage3(strategy) else None)
     return model
 
 
@@ -170,3 +188,103 @@ def is_first_worker():
 def barrier_worker():
     from ..collective import barrier
     barrier()
+
+
+class Role:
+    """reference: fleet/base/role_maker.py:33."""
+    WORKER = 1
+    SERVER = 2
+    HETER_WORKER = 3
+    ALL = 4
+    COORDINATOR = 5
+
+
+class UtilBase:
+    """reference: fleet/base/util_factory.py:49 — collective utilities
+    over the world's ranks."""
+
+    def __init__(self):
+        self.role_maker = None
+        self.dist_strategy = None
+
+    def _set_strategy(self, dist_strategy):
+        self.dist_strategy = dist_strategy
+
+    def _set_role_maker(self, role_maker):
+        self.role_maker = role_maker
+
+    def all_reduce(self, input, mode="sum", comm_world="worker"):  # noqa: A002
+        """``input`` (a number, array or tensor) reduced over the world
+        (``mode`` sum, max or min), as a numpy array."""
+        import numpy as np
+        import torch
+        from .. import collective as C
+        t = torch.as_tensor(np.asarray(
+            input.detach().cpu() if torch.is_tensor(input) else input))
+        t = t.to(_env.current_device())
+        op = {"sum": C.ReduceOp.SUM, "max": C.ReduceOp.MAX,
+              "min": C.ReduceOp.MIN}[mode]
+        C.all_reduce(t, op=op)
+        return t.cpu().numpy()
+
+    def barrier(self, comm_world="worker"):
+        from .. import collective as C
+        C.barrier()
+
+    def all_gather(self, input, comm_world="worker"):  # noqa: A002
+        """Every rank's ``input`` (any picklable object), in rank order."""
+        from ..compat import all_gather_object
+        out = []
+        all_gather_object(out, input)
+        return out
+
+    def get_file_shard(self, files):
+        """Contiguous file shard for this worker (reference:
+        util_factory.get_file_shard)."""
+        n, w, r = len(files), _env.get_world_size(), _env.get_rank()
+        base, rem = divmod(n, w)
+        start = r * base + min(r, rem)
+        return files[start:start + base + (1 if r < rem else 0)]
+
+    def print_on_rank(self, message, rank_id):
+        if _env.get_rank() == rank_id:
+            print(message)
+
+
+class Fleet:
+    """reference: fleet/fleet.py:99 — the stateful facade behind the
+    module-level fleet.init/distributed_model/... functions; exposed for
+    users who instantiate it directly."""
+
+    def __init__(self):
+        self._util = UtilBase()
+        self._strategy = None
+
+    def init(self, role_maker=None, is_collective=True, strategy=None,
+             log_level="INFO", *, backend=None, device=None):
+        self._strategy = strategy
+        return init(role_maker, is_collective=is_collective,
+                    strategy=strategy, log_level=log_level, backend=backend,
+                    device=device)
+
+    def distributed_model(self, model):
+        return distributed_model(model)
+
+    def distributed_optimizer(self, optimizer, strategy=None):
+        return distributed_optimizer(optimizer, strategy=strategy)
+
+    def worker_index(self):
+        return worker_index()
+
+    def worker_num(self):
+        return worker_num()
+
+    def is_first_worker(self):
+        return is_first_worker()
+
+    def barrier_worker(self):
+        return barrier_worker()
+
+    @property
+    def util(self):
+        return self._util

@@ -41,6 +41,8 @@ import threading
 import time
 
 ELASTIC_EXIT_CODE = 101
+#: seconds a node waits for the others to register (JAX's constant)
+ELASTIC_TIMEOUT = 60
 _PLAN = ("plan_topology(model_desc=...): the auto-layout planner "
          "(cost_model.plan_layout) is not ported (ROADMAP A8)")
 

@@ -1,13 +1,14 @@
 """Hybrid-parallel topology (port of paddle_tpu/distributed/topology.py):
 the degrees of each axis, the mesh of ranks over them and, unlike JAX
 (where an axis group is a mesh axis name), the torch process groups of
-the data-parallel, sharding (ZeRO) and model-parallel axes.
+the pipeline, data-parallel, sharding (ZeRO) and model-parallel axes.
 
 The axes are JAX's, outermost to innermost: ``pp``, ``dp``,
-``sharding``, ``sep``, ``mp``; rank = (dp index × sharding + sharding
-index) × mp + mp index, so the ranks of one mp group are neighbours (on
-a multi-card host, the cards that share the most links).  The port runs
-dp, sharding and mp: a ``pp`` or ``sep`` degree above 1 raises
+``sharding``, ``sep``, ``mp``; rank = ((pp index × dp + dp index) ×
+sharding + sharding index) × mp + mp index, so the ranks of one mp group
+are neighbours (on a multi-card host, the cards that share the most
+links) and a pipeline stage is a contiguous block of ranks.  The port
+runs pp, dp, sharding and mp: a ``sep`` degree above 1 raises
 `NotImplementedError` naming its ROADMAP A8 item.
 """
 from __future__ import annotations
@@ -23,8 +24,6 @@ from .mesh import ProcessMesh, set_mesh
 HYBRID_AXES = ("pp", "dp", "sharding", "sep", "mp")
 
 _UNPORTED = {
-    "pp": "pp_degree > 1: pipeline parallelism (fleet/meta_parallel) is "
-          "not ported (ROADMAP A8)",
     "sep": "sep_degree > 1: context parallelism (context_parallel) is not "
            "ported (ROADMAP A8)",
 }
@@ -79,6 +78,7 @@ class HybridCommunicateGroup:
         self._dp_group = self.mesh.get_group("dp")
         self._mp_group = self.mesh.get_group("mp")
         self._sharding_group = self.mesh.get_group("sharding")
+        self._pp_group = self.mesh.get_group("pp")
         set_mesh(self.mesh)
 
     # ---- degrees (reference: topology.py:180-184) ----
@@ -111,6 +111,10 @@ class HybridCommunicateGroup:
     def get_sharding_parallel_rank(self):
         return self.mesh.get_coord("sharding")
 
+    def get_pipe_parallel_rank(self):
+        """This rank's pipeline stage."""
+        return self.mesh.get_coord("pp")
+
     # ---- groups (JAX: the axis names; here the process groups) ----
     def get_data_parallel_group(self):
         return self._dp_group
@@ -120,6 +124,13 @@ class HybridCommunicateGroup:
 
     def get_sharding_parallel_group(self):
         return self._sharding_group
+
+    def get_pipe_parallel_group(self):
+        return self._pp_group
+
+    def get_sep_parallel_group(self):
+        """sep is 1 here (a degree above raises): this rank alone."""
+        return self.mesh.get_group("sep")
 
     def get_check_parallel_group(self):
         return tuple(a for a, d in self._degrees.items() if d > 1)

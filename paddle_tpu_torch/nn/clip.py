@@ -98,7 +98,33 @@ def global_norm(params_grads):
     sharding group (``zero_group``), or both.  Each part's squared norm
     is summed over the groups that split it (one fp32 all-reduce of the
     stacked sums a group), and copies are counted once.  An mp-split
-    parameter without its group raises."""
+    parameter without its group raises.  A pipeline stage's parameters
+    (``pp_group``) are a part of the model: the stage's squared norm is
+    summed over the pp group (one fp32 all-reduce), a tied weight's later
+    copies (``pp_tied_copy``) left out."""
+    live = [(p, g) for p, g in params_grads if g is not None]
+    if not live:
+        return None
+    pp = next((p.pp_group for p, _ in live
+               if getattr(p, "pp_group", None) is not None), None)
+    if pp is not None:
+        sq = _stage_sq([(p, g) for p, g in live
+                        if not getattr(p, "pp_tied_copy", False)])
+        sq = torch.zeros(1, dtype=torch.float32, device=live[0][1].device) \
+            if sq is None else sq.reshape(1).clone()
+        from ..distributed import collective
+        collective.all_reduce(sq, group=pp)
+        return sq[0].sqrt()
+    if not any(_split_groups(p) for p, _ in live):
+        norms = torch._foreach_norm([g for _, g in live], 2.0,
+                                    dtype=torch.float32)
+        return torch.linalg.vector_norm(torch.stack(norms))
+    return _stage_sq(live).sqrt()
+
+
+def _stage_sq(params_grads):
+    """The squared norm of ``params_grads`` summed over the groups that
+    split them (`global_norm`'s rule); None without gradients."""
     grads = [g for _, g in params_grads if g is not None]
     if not grads:
         return None
@@ -106,9 +132,6 @@ def global_norm(params_grads):
     for p, g in params_grads:
         if g is not None:
             cats.setdefault(_split_groups(p), []).append(g)
-    if not any(cats):
-        norms = torch._foreach_norm(grads, 2.0, dtype=torch.float32)
-        return torch.linalg.vector_norm(torch.stack(norms))
     from ..distributed import collective
     keys = list(cats)
     sums = [_sq_sum(cats[k]) for k in keys]
@@ -121,7 +144,7 @@ def global_norm(params_grads):
         collective.all_reduce(v, group=group)
         for j, i in enumerate(idx):
             sums[i] = v[j]
-    return torch.stack(sums).sum().sqrt()
+    return torch.stack(sums).sum()
 
 
 def _split_groups(p):

@@ -856,6 +856,193 @@ def case_compat(rank, world, inputs):
     return out
 
 
+# ---------------------------------------------------------------------------
+# distributed.functional and the pipeline
+# ---------------------------------------------------------------------------
+
+def _axis_init(**degrees):
+    from paddle_tpu_torch.distributed import fleet
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs = dict(degrees)
+    return fleet.init(is_collective=True, strategy=s, backend="gloo")
+
+
+def case_functional(rank, world, inputs):
+    """Each ``inputs["ops"]`` entry ``name: (fn, kwargs, x blocks,
+    cotangent blocks)`` on this rank's blocks over the dp axis (dp =
+    world): its value and, with a cotangent, the gradient of
+    ``sum(y * w)``; max and min record the backward's error.  Then the
+    ring shift over the pp and the mp axis (each the world)."""
+    from paddle_tpu_torch.distributed import functional as Fn
+    _axis_init(dp_degree=world)
+    out = {"index": Fn.axis_index("dp"), "size": Fn.axis_size("dp")}
+    for name, (fn, kw, xs, ws) in inputs["ops"].items():
+        x = torch.tensor(xs[rank], requires_grad=True)
+        y = getattr(Fn, fn)(x, "dp", **kw)
+        res = {"y": y.detach().numpy()}
+        if ws is not None:
+            try:
+                (y * torch.tensor(ws[rank])).sum().backward()
+                res["g"] = x.grad.numpy()
+            except NotImplementedError as e:
+                res["error"] = str(e)
+        out[name] = res
+    x = torch.tensor(inputs["ops"]["shift_right"][2][rank])
+    for axis, kw in (("pp", dict(pp_degree=world)),
+                     ("mp", dict(mp_degree=world))):
+        _axis_init(**kw)
+        out[f"shift_{axis}"] = Fn.shift_right(x, axis, world).numpy()
+        out[f"index_{axis}"] = Fn.axis_index(axis)
+    return out
+
+
+def _pipe_strategy(pp, mp=1, dp=1, accum=2, **pipeline):
+    from paddle_tpu_torch.distributed import fleet
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs = {"dp_degree": dp, "mp_degree": mp, "pp_degree": pp}
+    s.pipeline = True
+    s.pipeline_configs = {"accumulate_steps": accum, **pipeline}
+    return s
+
+
+def _pipe_run(model, strategy, state, batches, make_opt, evaluate=True):
+    """``model`` (built after fleet.init) loaded with the global
+    ``state`` (its stage's part), wrapped by distributed_model and
+    trained on ``batches``: losses, the gathered state, the eval loss and
+    the global-view logits of the first batch, the parameters held."""
+    import warnings
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.distributed import fleet
+    held = sum(p.numel() * (p.mp_group.nranks if getattr(p, "mp_split",
+                                                          False) else 1)
+               for p in model.parameters())
+    keys = sorted(model.state_dict())
+    convert.load_paddle_tpu_state(
+        model, convert.shard_pipeline_state(state, model))
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        pm = fleet.distributed_model(model)
+    opt = make_opt(pm.parameters())
+    losses = [float(pm.train_batch(tuple(torch.tensor(a) for a in b), opt))
+              for b in batches]
+    out = {"losses": losses, "state": convert.gather_pipeline_state(pm),
+           "held": held, "keys": keys, "kind": type(pm).__name__,
+           "opt_shapes": [tuple(p.shape) for p in pm.parameters()],
+           "local_shapes": [tuple(p.shape) for p in model.parameters()],
+           "schedule": list(pm._runner.last_schedule),
+           "warnings": [str(w.message) for w in seen],
+           "spmd": pm._spmd is not None}
+    if evaluate:
+        ids, labels = (torch.tensor(a) for a in batches[0])
+        out["eval"] = float(pm.eval_batch((ids, labels)))
+        with torch.no_grad():
+            out["logits"] = pm(ids).numpy()
+    return out
+
+
+def case_pipe_gpt(rank, world, inputs):
+    """``GPTForCausalLMPipe`` of each ``inputs["runs"]`` entry
+    ``key: (gpt overrides, pp, mp, dp, chunks)`` on the JAX state
+    ``inputs["states"][key]``: `_pipe_run` with AdamW(1e-3) and the
+    global-norm clip 1.0."""
+    from paddle_tpu_torch.models import GPTForCausalLMPipe, gpt_config
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    out = {}
+    for key, (cfg, pp, mp, dp, chunks) in inputs["runs"].items():
+        strategy = _pipe_strategy(pp, mp, dp, accum=inputs["accum"])
+        from paddle_tpu_torch.distributed import fleet
+        hcg = fleet.init(is_collective=True, strategy=strategy,
+                         backend="gloo")
+        model = GPTForCausalLMPipe(gpt_config("gpt2-124m", **cfg),
+                                   num_virtual_pipeline_stages=chunks,
+                                   device="cpu")
+        res = _pipe_run(model, strategy, inputs["states"][key],
+                        inputs["batches"],
+                        lambda ps: AdamW(1e-3, parameters=ps,
+                                         grad_clip=ClipGradByGlobalNorm(1.0)))
+        res["stage"] = hcg.get_pipe_parallel_rank()
+        res["mp_rank"] = hcg.get_model_parallel_rank()
+        out[key] = res
+    return out
+
+
+def case_pipe_hetero(rank, world, inputs):
+    """tests/test_pipeline.py's heterogeneous 4-stage MLP at pp 4
+    (``inputs["state"]``: JAX's weights), SGD(0.1), mse, 4
+    micro-batches: the cross-rank 1F1B."""
+    from paddle_tpu_torch.distributed.fleet import LayerDesc, PipelineLayer
+    from paddle_tpu_torch.nn.layers import Linear
+    from paddle_tpu_torch.optimizer import SGD
+    from paddle_tpu_torch.distributed import fleet
+    strategy = _pipe_strategy(world, accum=4)
+    fleet.init(is_collective=True, strategy=strategy, backend="gloo")
+
+    def lin(i, o):
+        return LayerDesc(Linear, i, o, device="cpu")
+    descs = [lin(8, 32), LayerDesc(torch.nn.Tanh), lin(32, 16),
+             LayerDesc(torch.nn.Sigmoid), lin(16, 16), lin(16, 24),
+             LayerDesc(torch.nn.Tanh), lin(24, 8)]
+    model = PipelineLayer(descs, num_stages=world,
+                          loss_fn=lambda o, y: ((o - y) ** 2).mean())
+    return _pipe_run(model, strategy, inputs["state"], inputs["batches"],
+                     lambda ps: SGD(0.1, parameters=ps), evaluate=False)
+
+
+def case_pipe_refusals(rank, world, inputs):
+    """pp 2 × sharding 2 (not ported: A8) and ``schedule="spmd"`` on the
+    heterogeneous MLP at pp 4: the errors."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet import (LayerDesc,
+                                                    PipelineLayer,
+                                                    PipelineParallel)
+    from paddle_tpu_torch.nn.layers import Linear
+    out = {}
+    s = _pipe_strategy(2)
+    s.hybrid_configs["sharding_degree"] = 2
+    fleet.init(is_collective=True, strategy=s, backend="gloo")
+    model = PipelineLayer([LayerDesc(Linear, 4, 4, device="cpu")] * 2)
+    try:
+        PipelineParallel(model, strategy=s)
+    except NotImplementedError as e:
+        out["sharding"] = str(e)
+    s = _pipe_strategy(world, accum=4, schedule="spmd")
+    fleet.init(is_collective=True, strategy=s, backend="gloo")
+    descs = [LayerDesc(Linear, 8, 8, device="cpu"),
+             LayerDesc(torch.nn.Tanh), LayerDesc(Linear, 8, 8, device="cpu"),
+             LayerDesc(Linear, 8, 4, device="cpu"),
+             LayerDesc(torch.nn.Sigmoid)]
+    try:
+        PipelineParallel(PipelineLayer(descs), strategy=s)
+    except ValueError as e:
+        out["spmd"] = type(e).__name__
+    return out
+
+
+def case_fleet_util(rank, world, inputs):
+    """`fleet.UtilBase` and `fleet.Fleet` on the world's ranks."""
+    import io
+    from contextlib import redirect_stdout
+    from paddle_tpu_torch.distributed import fleet
+    f = fleet.Fleet()
+    f.init(is_collective=True, backend="gloo")
+    util = f.util
+    out = {"sum": util.all_reduce(np.array([1.0, 2.0]) * (rank + 1)),
+           "max": util.all_reduce(rank + 3, mode="max"),
+           "min": util.all_reduce(np.float32(rank + 3), mode="min"),
+           "gather": util.all_gather({"rank": rank}),
+           "shard": util.get_file_shard(inputs["files"]),
+           "index": f.worker_index(), "num": f.worker_num(),
+           "first": f.is_first_worker()}
+    util.barrier()
+    f.barrier_worker()
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        util.print_on_rank("hello", 1)
+    out["printed"] = buf.getvalue()
+    return out
+
+
 def case_many(rank, world, inputs):
     """Several cases on the same ranks, one after the other (one spawned
     group for a test module's cases): ``inputs["cases"]`` is a list of
@@ -882,6 +1069,11 @@ CASES = {
     "zero": case_zero,
     "zero_stage_units": case_zero_stage_units,
     "auto_parallel": case_auto_parallel,
+    "functional": case_functional,
+    "pipe_gpt": case_pipe_gpt,
+    "pipe_hetero": case_pipe_hetero,
+    "pipe_refusals": case_pipe_refusals,
+    "fleet_util": case_fleet_util,
 }
 
 

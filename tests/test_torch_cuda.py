@@ -2624,3 +2624,49 @@ def test_api_moves_on_cuda_tensors(card, tmp_path):
     for r in (0, 1):
         got = json.load(open(tmp_path / f"r{r}.json"))
         assert all(got.values()), (r, got)
+
+
+@pytest.mark.cuda
+def test_one_process_pipeline_launches_and_equals_the_whole_batch(card):
+    """GPTForCausalLMPipe with 2 stages in one process (pp 1) on the
+    card: `PipelineParallel.train_batch` over 2 micro-batches launches
+    the flash kernels once a layer a micro-batch and Adam once a
+    parameter, and its loss and parameters equal one SGD step on the
+    whole batch by hand within fp32 sums in another order (1e-5)."""
+    import warnings
+    from paddle_tpu_torch.distributed.fleet import (DistributedStrategy,
+                                                    PipelineParallel)
+    from paddle_tpu_torch.models import GPTForCausalLMPipe, gpt_config
+    from paddle_tpu_torch.optimizer import SGD
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = gpt_config("gpt2-124m", num_layers=2, hidden_size=128,
+                     num_heads=2, vocab_size=512, max_seq_len=128)
+    ids = torch.randint(0, 512, (4, 129), device=card,
+                        generator=torch.Generator(device=card).manual_seed(0))
+    x, y = ids[:, :-1], ids[:, 1:]
+    ref = GPTForCausalLMPipe(cfg, device=card, seed=3)
+    loss = ref._loss_fn(ref(x), y)
+    loss.backward()
+    SGD(0.1, parameters=ref.parameters()).step()
+    s = DistributedStrategy()
+    s.pipeline_configs = {"accumulate_steps": 2}
+    m = GPTForCausalLMPipe(cfg, num_stages=2, device=card, seed=3)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        pp = PipelineParallel(m, strategy=s)
+    opt = AdamW(1e-3, parameters=pp.parameters())
+    kernels.reset_launch_counts()
+    pp.train_batch((x, y), opt)
+    counts = kernels.launch_counts()
+    assert [counts.get(k, 0) for k in ("flash_fwd", "flash_bwd_dkv",
+                                       "flash_bwd_dq")] == [4, 4, 4]
+    assert counts.get("adam", 0) == len(list(pp.parameters()))
+    m2 = GPTForCausalLMPipe(cfg, num_stages=2, device=card, seed=3)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        pp2 = PipelineParallel(m2, strategy=s)
+    got = pp2.train_batch((x, y), SGD(0.1, parameters=pp2.parameters()))
+    assert abs(float(got) - float(loss.detach())) <= 1e-5 * abs(float(got))
+    want = ref.state_dict()
+    for k, v in m2.state_dict().items():
+        torch.testing.assert_close(v, want[k], rtol=1e-5, atol=1e-6)

@@ -119,13 +119,14 @@ def test_hybrid_degree_errors_match_jax(kw):
 
 @pytest.mark.parametrize("axis", ["pp", "sharding", "sep"])
 def test_unported_axes_raise(axis):
-    """pp and sep above 1 raise naming their ROADMAP A8 item; sharding is
-    ported (tests/test_torch_zero.py): its degree passes the check and
-    the topology wants a world of that many ranks."""
-    if axis == "sharding":
+    """sep above 1 raises naming its ROADMAP A8 item; sharding
+    (tests/test_torch_zero.py) and pp (tests/test_torch_pipeline.py) are
+    ported: the degree passes the check and the topology wants a world
+    of that many ranks."""
+    if axis in ("sharding", "pp"):
         with pytest.raises(ValueError, match="the world has 1 ranks"):
             topology.HybridCommunicateGroup(devices=list(range(8)),
-                                            sharding_degree=2)
+                                            **{f"{axis}_degree": 2})
         return
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         topology.HybridCommunicateGroup(devices=list(range(8)),
@@ -589,7 +590,8 @@ def two_ranks(tmp_path_factory):
         inputs = {"data_parallel": _dp_inputs(),
                   "fit_True": _fit_inputs(True),
                   "fit_False": _fit_inputs(False),
-                  "convert": _convert_inputs()}
+                  "convert": _convert_inputs(),
+                  "fleet_util": {"files": [f"f{i}" for i in range(5)]}}
         cases = [(k, "hapi_fit" if k.startswith("fit") else k, v)
                  for k, v in inputs.items()]
         outs = run_ranks(2, "many", tmp_path_factory.mktemp("two"),
@@ -768,3 +770,58 @@ def test_placement_local_slice():
         assert pmesh.get_mesh() is mesh
     assert pmesh.get_mesh() is None
     assert pmesh.init_mesh([2], ["dp"], devices=[0, 1]).shape == [2]
+
+
+# ---------------------------------------------------------------------------
+# the rest of fleet's surface: Fleet, Role, UtilBase, the wrappers
+# ---------------------------------------------------------------------------
+
+def test_fleet_util_base_two_ranks(two_ranks, monkeypatch):
+    """`fleet.Fleet` and its `UtilBase` on 2 ranks: all_reduce (sum,
+    max, min) as numpy, all_gather of objects, the file shard of each
+    rank equal to JAX's ``get_file_shard`` at that rank, print_on_rank,
+    the worker's index and count, barriers."""
+    from paddle_tpu.distributed import env as jenv
+    files = two_ranks["inputs"]["fleet_util"]["files"]
+    outs = two_ranks["results"]["fleet_util"]
+    for r, res in enumerate(outs):
+        np.testing.assert_array_equal(res["sum"], [3.0, 6.0])
+        assert res["max"] == 4 and res["min"] == 3
+        assert res["gather"] == [{"rank": 0}, {"rank": 1}]
+        monkeypatch.setattr(jenv, "get_rank", lambda r=r: r)
+        monkeypatch.setattr(jenv, "get_world_size", lambda: 2)
+        assert res["shard"] == jfleet.UtilBase().get_file_shard(files)
+        assert res["printed"] == ("hello\n" if r == 1 else "")
+        assert (res["index"], res["num"], res["first"]) == (r, 2, r == 0)
+
+
+def test_fleet_surface_matches_jax(capsys):
+    """`Role`'s values, ``ELASTIC_TIMEOUT``, a world of one's `UtilBase`
+    (all_reduce, all_gather, the file shard, print_on_rank) and `Fleet`'s
+    worker queries against JAX's; `TensorParallel` and `SegmentParallel`
+    wrap a model whose forward they keep."""
+    from paddle_tpu.distributed.fleet import elastic as jelastic
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet import elastic
+    for name in ("WORKER", "SERVER", "HETER_WORKER", "ALL", "COORDINATOR"):
+        assert getattr(fleet.Role, name) == getattr(jfleet.Role, name)
+    assert elastic.ELASTIC_TIMEOUT == jelastic.ELASTIC_TIMEOUT == 60
+    port, jax_util = fleet.Fleet().util, jfleet.Fleet().util
+    x = np.array([1.5, -2.0], dtype=np.float32)
+    for mode in ("sum", "max", "min"):
+        got, want = port.all_reduce(x, mode), jax_util.all_reduce(x, mode)
+        np.testing.assert_array_equal(got, want)
+        assert got.dtype == want.dtype
+    assert port.all_gather({"a": 1}) == jax_util.all_gather({"a": 1})
+    files = ["a", "b", "c"]
+    assert port.get_file_shard(files) == jax_util.get_file_shard(files)
+    port.print_on_rank("p", 0)
+    jax_util.print_on_rank("p", 0)
+    assert capsys.readouterr().out == "p\np\n"
+    f, jf = fleet.Fleet(), jfleet.Fleet()
+    assert (f.worker_index(), f.worker_num(), f.is_first_worker()) == \
+        (jf.worker_index(), jf.worker_num(), jf.is_first_worker())
+    net = Linear(4, 3, device="cpu")
+    xin = torch.randn(2, 4)
+    for wrap in (fleet.TensorParallel, fleet.SegmentParallel):
+        assert torch.equal(wrap(net)(xin), net(xin))
