@@ -255,7 +255,7 @@ last line:
             train-gpt2's.  attn-ops adds a learned bias that requires
             grad: no flash kernel launches, the plain route is counted,
             and the bias gradient matches an fp64 autograd reference
-17. fit-gpt2  GPT-2 124M, nothing cut, bf16 O2 (``prepare(amp_configs=
+17. fit-gpt2  GPT-2 124M width, 6 of its 12 layers, bf16 O2 (``prepare(amp_configs=
             "O2")``), AdamW(1e-4, wd 0.01), B8 x S1024 through
             ``hapi.Model.fit`` with CrossEntropyLoss over
             ``data.pipeline(ds).shard(0, 1).shuffle(seed=0).batch(8)
@@ -263,8 +263,8 @@ last line:
             (a) at dropout 0.1, 2 + 6 fit steps: the losses equal the
             same ``_forward_loss`` driven by hand through
             CompiledTrainStep bit for bit, one capture, no fallback, the
-            launches a replay equal (12 of each flash dropout variant,
-            148 Adam); (b) at dropout 0, 2 epochs of 3 steps in child
+            launches a replay equal (6 of each flash dropout variant,
+            76 Adam); (b) at dropout 0, 2 epochs of 3 steps in child
             processes: SIGTERM after step 2 through PreemptionHandler
             exits 101 and leaves a committed checkpoint, a child started
             beside it resumes with ``fit(resume=True)`` once it exited
@@ -336,8 +336,8 @@ last line:
             the 4 ranks' flash parts (the hash's offsets) = the one-rank
             call
 22. train-guard  the hang and failure guardian, the launcher and the
-            sentinel across ranks: GPT-2 124M, dp 2 (two ranks on the
-            card, NCCL), dropout 0.1, bf16 O2, AdamW, the eager lane,
+            sentinel across ranks: GPT-2 124M width, 6 of its 12
+            layers, dp 2 (two ranks on the card, NCCL), dropout 0.1, bf16 O2, AdamW, the eager lane,
             B4 x S1024 a rank, launched by the port's CollectiveController
             (the ranks are this script's ``--guard-child``; every generator
             reseeded from (step, rank)); (b), (e), (f) run side by side,
@@ -499,7 +499,7 @@ PHASES = ("device", "build", "kernels", "serve", "serve-lora-int8",
           "train-optimizers", "serve-gpt", "gpt-parity", "generate-gpt",
           "train-gpt2-recompute", "fit-gpt2", "fit-llama", "sentinel-gpt2",
           "lora-llama", "train-hybrid", "train-zero", "train-pipe",
-          "train-guard")
+          "train-sep", "train-moe", "train-guard")
 #: generate-gpt: the worst row error (relative to the row's norm) allowed
 #: between the cached path's last-position logits and the full forward's
 #: at GPT-3 6.7B in bf16.  Both paths round every activation to bf16 (a
@@ -516,6 +516,16 @@ DROPOUT_KERNELS = tuple(k + "_dropout" for k in FLASH)
 MASKED_KERNELS = tuple(k + "_masked" for k in FLASH)
 #: GPT-2 124M's training shape: B 8, 12 heads, S 1024, head dim 64
 GPT2_SHAPE = dict(b=8, h=12, s=1024, d=64)
+
+
+def gpt2_launches(layers, steps):
+    """The launches ``steps`` training steps of a GPT-2 with ``layers``
+    blocks and attention dropout need: each flash dropout kernel once a
+    block a step, the Adam kernel once a parameter a step (12 a block,
+    and wte, wpe and ln_f's weight and bias)."""
+    return dict({k: layers * steps for k in DROPOUT_KERNELS},
+                adam=(12 * layers + 4) * steps)
+
 #: (source under paddle_tpu_torch/, the TPU kernel it replaces)
 KERNEL_META = {
     "rms_norm": ("csrc/rms_norm.cu", "paddle_tpu/pallas/fused.py:92"),
@@ -5848,11 +5858,17 @@ class StepLog(Callback):
         self._it += 1
 
 
-def fit_gpt2_model(dev, dropout, seed=0, lr=1e-4):
-    """GPT-2 124M (nothing cut) behind ``hapi.Model``: bf16 O2 through
-    ``prepare(amp_configs="O2")``, AdamW(lr, wd 0.01), CrossEntropyLoss."""
+#: fit-gpt2's depth: GPT-2 124M's width, 12 blocks cut to 6 (the card
+#: script's time; sentinel-gpt2 keeps all 12)
+FIT_LAYERS = 6
+
+
+def fit_gpt2_model(dev, dropout, seed=0, lr=1e-4, layers=12):
+    """GPT-2 124M (``layers`` of its 12 blocks) behind ``hapi.Model``: bf16
+    O2 through ``prepare(amp_configs="O2")``, AdamW(lr, wd 0.01),
+    CrossEntropyLoss."""
     cfg = gpt_config("gpt2-124m", max_seq_len=1024, attn_dropout=dropout,
-                     dropout=dropout)
+                     dropout=dropout, num_layers=layers)
     net = GPTForCausalLM(cfg, device=dev, dtype=torch.float32, seed=seed)
     opt = AdamW(learning_rate=lr, parameters=net.parameters(),
                 weight_decay=0.01)
@@ -5962,7 +5978,8 @@ def fit_child(mode, outdir, dev=None):
     continues from the newest checkpoint, the rest of the first epoch and
     the second, reshuffled (the pipeline's next epoch).  Each loss is
     appended to ``outdir/losses.log``."""
-    model = fit_gpt2_model(dev or torch.device("cuda", 0), dropout=0.0)
+    model = fit_gpt2_model(dev or torch.device("cuda", 0), dropout=0.0,
+                           layers=FIT_LAYERS)
     if mode == "resume":
         # started beside the preempted child: built, it waits for the
         # parent's word that the preempted child's checkpoint is in
@@ -6085,8 +6102,8 @@ def checkpoint_numbers(model, batch, root):
 
 
 def phase_fit_gpt2(dev, warmup=2, steps=6):
-    """GPT-2 124M, nothing cut, bf16 O2, AdamW(1e-4, wd 0.01), B8 x S1024
-    through ``hapi.Model.fit`` over ``data.pipeline(ds).shard(0, 1)
+    """GPT-2 124M width, FIT_LAYERS of 12 layers, bf16 O2, AdamW(1e-4, wd
+    0.01), B8 x S1024 through ``hapi.Model.fit`` over ``data.pipeline(ds).shard(0, 1)
     .shuffle(seed=0).batch(8).device_prefetch(2)``: (a) at dropout 0.1
     the losses and launches a replay of 2 + 6 fit steps equal the same
     ``_forward_loss`` driven by hand through CompiledTrainStep; (b) at
@@ -6097,8 +6114,8 @@ def phase_fit_gpt2(dev, warmup=2, steps=6):
     ms beside the hand lane's, goodput, the busy share of 3 fit steps."""
     n = warmup + steps
     t0 = time.monotonic()
-    model = fit_gpt2_model(dev, dropout=0.1)
-    log(f"[fit-gpt2] GPT-2 124M, dropout 0.1, bf16 O2 (prepare), AdamW(1e-4,"
+    model = fit_gpt2_model(dev, dropout=0.1, layers=FIT_LAYERS)
+    log(f"[fit-gpt2] GPT-2 124M width, {FIT_LAYERS} of 12 layers, dropout 0.1, bf16 O2 (prepare), AdamW(1e-4,"
         f" wd 0.01), B8 x S1024, data.pipeline ... device_prefetch(2); built"
         f" in {time.monotonic() - t0:.1f} s")
     clock = StepLog()
@@ -6108,18 +6125,16 @@ def phase_fit_gpt2(dev, warmup=2, steps=6):
     model.fit(pipe, epochs=1, verbose=0, log_freq=1, callbacks=[clock])
     fallbacks = jit_fallbacks() - fallbacks
     counts = kernels.launch_counts()
-    need = {k: 12 * n for k in DROPOUT_KERNELS}
-    need["adam"] = 148 * n
-    check_launches(counts, need)
+    check_launches(counts, gpt2_launches(FIT_LAYERS, n))
     good = pipe.goodput.snapshot()
-    hand = fit_gpt2_model(dev, dropout=0.1)
+    hand = fit_gpt2_model(dev, dropout=0.1, layers=FIT_LAYERS)
     hand_losses, hand_times, hand_cs = hand_lane(
         hand, list(gpt2_pipeline(8 * n, prefetch=False)), dev)
     same_losses("fit-gpt2", clock.losses, hand_losses)
     check_fit_step("fit-gpt2", fit_graph("fit-gpt2", model._compiled_step,
                                          fallbacks),
                    hand_cs,
-                   dict({k: 12 for k in DROPOUT_KERNELS}, adam=148))
+                   gpt2_launches(FIT_LAYERS, 1))
     del hand, hand_cs
     torch.cuda.empty_cache()
     fit_ms = float(np.median(clock.times[warmup:]))
@@ -6185,12 +6200,15 @@ def phase_fit_llama(dev, warmup=2, steps=4):
     ``Model.fit`` over a DataLoader of seeded rows for 2 + 4 steps (then
     the busy share of 3 more fit steps); then the same model from the
     same seed driven by hand through CompiledTrainStep (the two do not
-    fit on the card together): equal losses and launches a replay."""
+    fit on the card together): equal losses and launches a replay.  The
+    DataLoader runs 2 worker processes over the shared-memory queue:
+    every batch must come from one, and none fall back to threads."""
     cfg = llama_config("llama2-7b", num_layers=8)
     n = warmup + steps
     rows = TokenRows(n, cfg.vocab_size, 4096).rows
     loader = DataLoader(TensorDataset([rows[:, :-1], rows[:, 1:]]),
-                        batch_size=1, shuffle=False)
+                        batch_size=1, shuffle=False, num_workers=2)
+    fallbacks0 = monitor.get_monitor_value("io.worker_fallbacks")
 
     def build():
         net = LlamaForCausalLM(cfg, device=dev, dtype=torch.float32, seed=0)
@@ -6205,6 +6223,16 @@ def phase_fit_llama(dev, warmup=2, steps=4):
     model.fit(loader, epochs=1, verbose=0, log_freq=1, shuffle=False,
               callbacks=[clock])
     counts = kernels.launch_counts()
+    # every batch from a worker process over the shared-memory queue
+    pids = list(loader.batch_pids)
+    worker_fallbacks = monitor.get_monitor_value("io.worker_fallbacks") - \
+        fallbacks0
+    if len(pids) != n or os.getpid() in pids or len(set(pids)) != 2 or \
+            worker_fallbacks:
+        raise AssertionError(
+            f"[fit-llama] the DataLoader's batches came from pids {pids} "
+            f"(this process {os.getpid()}; want {n} batches from 2 worker "
+            f"processes), io.worker_fallbacks {worker_fallbacks} (want 0)")
     need = {k: cfg.num_layers * n for k in TRAIN_KERNELS}
     need["adam"] = 75 * n
     check_launches(counts, need)
@@ -6225,7 +6253,10 @@ def phase_fit_llama(dev, warmup=2, steps=4):
                         flash_bwd_dkv=8, flash_bwd_dq=8, adam=75))
     hand_ms = float(np.median(hand_times[warmup:]))
     log(f"[fit-llama] {n} fit steps: losses {clock.losses}, equal to the "
-        f"hand lane's bit for bit; launches {counts}")
+        f"hand lane's bit for bit; launches {counts}; the DataLoader's "
+        f"{len(pids)} batches from 2 worker processes (pids "
+        f"{sorted(set(pids))}, this process {os.getpid()}) over the "
+        f"shared-memory queue, io.worker_fallbacks {worker_fallbacks}")
     log(f"[fit-llama] step {fit_ms:.2f} ms p50 through fit (all: "
         f"{[round(t, 1) for t in clock.times]}), hand lane {hand_ms:.2f} ms "
         f"(all: {[round(t, 1) for t in hand_times]})")
@@ -7050,11 +7081,11 @@ class LocalLMLoss:
         return _masked_parallel_ce(self.fn, logits, labels)
 
 
-def hybrid_gpt_model(dev, lr=1e-4):
+def hybrid_gpt_model(dev, lr=1e-4, layers=12):
     from paddle_tpu_torch.distributed import fleet
     from paddle_tpu_torch.models import ParallelGPTForCausalLM
     cfg = gpt_config("gpt2-124m", max_seq_len=1024, attn_dropout=0.1,
-                     dropout=0.1)
+                     dropout=0.1, num_layers=layers)
     lm = fleet.distributed_model(ParallelGPTForCausalLM(
         cfg, device=dev, dtype=torch.float32, seed=0))
     net = LocalLogits(lm)
@@ -7136,6 +7167,12 @@ def hybrid_gpt_lane(dev, rank, world, outdir, n=HYBRID_GPT_STEPS,
                                   offsets=(4 * dp_rank, 6 * mp_rank, 12))
     out["mask_part"] = hashlib.sha256(
         o.float().cpu().numpy().tobytes()).hexdigest()[:16]
+    if os.path.exists(os.path.join(outdir, "moe-too")):
+        # train-moe on the same ranks and topology (dp 2 x mp 2)
+        del q, k, v, part, o
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["moe"] = moe_lane(dev, rank, hcg)
     return out
 
 
@@ -7387,7 +7424,7 @@ def check_hybrid_gpt(outs, dev, warmup=2, n=HYBRID_GPT_STEPS):
         f"by the hash's offsets) equal the one-rank call's bit for bit")
 
 
-def phase_train_hybrid(dev, zero=None):
+def phase_train_hybrid(dev, zero=None, moe=False):
     """train-hybrid: (a) Llama-2 7B width, 8 layers, mp 2 (two ranks on
     the card), bf16 O2 training through fleet.init -> distributed_model ->
     CompiledTrainStep(mesh), both lanes; (b) mp 2 against one rank in
@@ -7395,7 +7432,8 @@ def phase_train_hybrid(dev, zero=None):
     hapi fit and by hand.  No number here is a two-card one: the ranks
     time-slice one card.  ``zero`` (``{"root", "procs"}``): train-zero's
     ranks are started beside the gpt lane's, to import and wait for that
-    phase's go."""
+    phase's go.  With ``moe`` the gpt lane's ranks run train-moe's lane
+    after their checks (`moe_lane`); its results are returned."""
     cards = torch.cuda.device_count()
     log(f"[train-hybrid] backend {HYBRID_BACKEND} ("
         + ("a card a rank" if cards >= 4 else "ranks sharing a card: "
@@ -7403,6 +7441,8 @@ def phase_train_hybrid(dev, zero=None):
         + f"); {cards} card(s); worlds: llama 2 (dp 1 x mp 2), gpt 4 (dp 2"
         f" x mp 2)")
     root = tempfile.mkdtemp(prefix="train-hybrid-")
+    if moe:
+        open(os.path.join(root, "moe-too"), "w").close()
     llama = gpt = None
     try:
         llama = start_hybrid("llama", root)
@@ -7417,7 +7457,9 @@ def phase_train_hybrid(dev, zero=None):
         check_hybrid_llama(outs)
         if gpt is None:
             gpt = start_hybrid("gpt", root)
-        check_hybrid_gpt(wait_hybrid("gpt", root, gpt), dev)
+        outs = wait_hybrid("gpt", root, gpt)
+        check_hybrid_gpt(outs, dev)
+        return [o["moe"] for o in outs] if moe else None
     finally:
         for p, _ in (llama or []) + (gpt or []):
             if p.poll() is None:
@@ -7703,6 +7745,11 @@ def zero_lane(dev, rank, world, outdir):
         gc.collect()
         torch.cuda.empty_cache()
         out["pipe"] = pipe_lane(dev, rank)
+    if os.path.exists(os.path.join(outdir, "sep-too")):
+        # train-sep on the same ranks, after train-pipe's lane
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["sep"] = sep_lane(dev, rank)
     return out
 
 
@@ -7809,7 +7856,8 @@ def phase_train_zero(dev, early=None):
     time-slice one card.  ``early`` (``{"root", "procs", "pipe"}``):
     ranks that train-hybrid started, waiting for this phase's go; with
     ``pipe`` they run train-pipe's lane after their checks (`pipe_lane`),
-    whose results this phase returns."""
+    with ``sep`` train-sep's after it (`sep_lane`): this phase returns
+    those lanes' results, ``{lane: [a rank's]}``."""
     # the ranks' ~50 GB must not meet this process's cached blocks of the
     # earlier phases
     gc.collect()
@@ -7825,13 +7873,14 @@ def phase_train_zero(dev, early=None):
     try:
         if own:
             procs = start_hybrid("zero", root)
-        pipe = early is not None and early["pipe"]
-        if pipe:
-            open(os.path.join(root, "pipe-too"), "w").close()
+        lanes = [lane for lane in ("pipe", "sep")
+                 if early is not None and early[lane]]
+        for lane in lanes:
+            open(os.path.join(root, f"{lane}-too"), "w").close()
         open(os.path.join(root, "zero-go"), "w").close()
         outs = wait_hybrid("zero", root, procs, tag="train-zero")
         check_zero(outs)
-        return [o["pipe"] for o in outs] if pipe else None
+        return {lane: [o[lane] for o in outs] for lane in lanes}
     finally:
         stop_ranks(procs or [])
         if early is None:
@@ -8190,12 +8239,649 @@ def phase_train_pipe(dev, outs=None):
     check_pipe(outs)
 
 
+# ------------------------------------------------------------ train-sep
+#: train-sep (a): ParallelGPTForCausalLM(use_ring_attention=True) at GPT-3
+#: 1.3B width (hidden 2048, 16 heads, FFN 8192, vocab 50304, S 2048), depth
+#: cut from 24 to SEP_LAYERS layers, sep 2 x mp 2 (dp 1) on four ranks
+#: sharing the card, bf16 O2, AdamW(1e-4) + clip 1.0, SEP_STEPS steps (the
+#: first a warm-up) on the global [4, 2048] batch (a rank's chunk [4,
+#: 1024]): B cut from 8, where the four ranks' peaks came to 64.2 GB (16.05
+#: GB a rank: the ring's fp32 scores, 268 MB a tensor at B 8)
+SEP_LAYERS, SEP_STEPS = 4, 3
+SEP_BATCH = (4, 2048)
+#: (b): 2 layers at the same width in fp32, [SEP_ROWS, SEP_SEQ], with ring
+#: and the gathered lane, PARITY_STEPS AdamW steps (lr ZERO_LR, wd 0.01,
+#: clip 1.0) against one rank's model at sep 1 on the same weights: the
+#: losses within PARITY_LOSS_RTOL, each parameter within PARITY_BOUND:
+#: set from the sound runs (1.32e-05 to 1.66e-05 on an H100, ring,
+#: gathered and MoE) at about 6 times the largest, below the 2 lr x 2
+#: steps = 4e-4 that any two runs of 2 AdamW steps stay within (AdamW
+#: moves an element by at most ~lr a step whatever its gradient's size),
+#: so that the second update, which no loss sees, is checked
+SEP_ROWS, SEP_SEQ, PARITY_STEPS = 2, 512, 2
+PARITY_LOSS_RTOL, PARITY_BOUND = 1e-6, 1.0e-4
+#: (c): ring and Ulysses at B2 S2048 (1024 a rank) H8 D128 bf16, forward
+#: and input gradients, against the flash kernel on the whole sequence
+#: (`check_close`'s bf16 tolerance: rtol 1e-2, atol 2e-2)
+SEP_OPS = dict(b=2, h=8, s=2048, d=128)
+
+
+def sep_strategy():
+    from paddle_tpu_torch.distributed import fleet
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs = {"dp_degree": 1, "mp_degree": 2, "sep_degree": 2}
+    return s
+
+
+class count_by_group:
+    """Tallies `collective.all_reduce` calls and bytes in the body by the
+    group's name in ``groups`` ({name: Group}): the registry counts by
+    op only."""
+
+    def __init__(self, groups):
+        self.names = {tuple(g.ranks): n for n, g in groups.items()
+                      if g is not None}
+        self.tally = {}
+
+    def __enter__(self):
+        from paddle_tpu_torch.distributed import collective
+        self.mod, self.orig = collective, collective.all_reduce
+
+        def counted(tensor, *args, **kwargs):
+            group = kwargs.get("group", args[1] if len(args) > 1 else None)
+            name = "world" if group is None else self.names.get(
+                tuple(group.ranks), str(group.ranks))
+            c, b = self.tally.get(name, (0, 0))
+            self.tally[name] = (c + 1,
+                                b + tensor.numel() * tensor.element_size())
+            return self.orig(tensor, *args, **kwargs)
+        collective.all_reduce = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.all_reduce = self.orig
+
+
+def rank_steps(model, opt, x, y, n, update=None):
+    """``n`` eager steps (forward, backward, ``update`` or ``opt.step``,
+    clear): the rank's losses and each step's ms."""
+    losses, times = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        _, loss = model(x, labels=y)
+        loss.backward()
+        (update or opt.step)()
+        opt.clear_grad()
+        losses.append(float(loss.detach()))
+        torch.cuda.synchronize()
+        times.append((time.monotonic() - t0) * 1e3)
+    return losses, times
+
+
+def sep_recipe(dev, hcg):
+    """(a): fleet.distributed_model(ParallelGPTForCausalLM(cfg,
+    use_ring_attention=True)) at 1.3B width, bf16 O2: the rank's losses,
+    step ms, all-reduce calls and bytes a step by group, the ring's p2p,
+    launches, peak."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.models import ParallelGPTForCausalLM
+    cfg = gpt_config("gpt3-1.3b", max_seq_len=2048, num_layers=SEP_LAYERS)
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = fleet.distributed_model(ParallelGPTForCausalLM(
+        cfg, use_ring_attention=True, device=dev, dtype=torch.float32,
+        seed=0))
+    opt = AdamW(1e-4, parameters=model.parameters(),
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    model, opt = amp.decorate(model, opt, level="O2", dtype=torch.bfloat16)
+    x, y = (t.to(dev) for t in pipe_rows(cfg.vocab_size, *SEP_BATCH, 0))
+    kernels.reset_launch_counts()
+    scalar0 = adam_update.scalar_launches
+    before = collective_counts()
+    with count_by_group({"mp": hcg.get_model_parallel_group(),
+                         "sep": hcg.get_sep_parallel_group()}) as groups:
+        losses, times = rank_steps(model, opt, x, y, SEP_STEPS)
+    return dict(
+        losses=losses, times=times, kind=type(model).__name__,
+        coll=per_step(collective_counts(), before, SEP_STEPS),
+        groups={k: (c / SEP_STEPS, b / SEP_STEPS)
+                for k, (c, b) in groups.tally.items()},
+        launches={k: v for k, v in kernels.launch_counts().items() if v},
+        scalar_adam=adam_update.scalar_launches - scalar0,
+        peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+        n_tensors=len(list(model.parameters())),
+        param_bytes=sum(p.numel() * p.element_size()
+                        for p in model.parameters()))
+
+
+def worst_part(model, want):
+    """The largest difference of this rank's parameters from the one-rank
+    model's ``want`` (its mp part of each split one): (err, name)."""
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.distributed import topology
+    from paddle_tpu_torch.distributed.fleet.mp_layers import shard_of
+    splits = convert._splits(model)
+    g = topology.mp_group()
+    worst, worst_name = 0.0, None
+    for name, p in model.state_dict().items():
+        w = want[name]
+        if name in splits:
+            dim, ch = splits[name]
+            w = shard_of(w, dim, g.nranks, g.rank, ch)
+        err = float((p.float() - w.float()).abs().max())
+        if err > worst:
+            worst, worst_name = err, name
+    return worst, worst_name
+
+
+def parity_adamw(ps):
+    return AdamW(ZERO_LR, parameters=ps, weight_decay=0.01,
+                 grad_clip=ClipGradByGlobalNorm(1.0))
+
+
+def one_rank_run(build, batches):
+    """The one-rank reference (no topology): losses and state."""
+    with one_rank_topology():
+        one = build()
+        opt = parity_adamw(one.parameters())
+        ref = [rank_steps(one, opt, x, y, 1)[0][0] for x, y in batches]
+        want = {k: v.detach() for k, v in one.state_dict().items()}
+        del one, opt
+    return ref, want
+
+
+def sep_parity(dev, hcg):
+    """(b): fp32 2 layers at 1.3B width, ring and gathered, against one
+    rank's model at sep 1 (every rank builds it: no transfer): the losses
+    (a rank's chunk losses averaged over sep: the chunks hold equal
+    labelled counts) and the worst parameter difference."""
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.models import ParallelGPTForCausalLM
+    cfg = gpt_config("gpt3-1.3b", max_seq_len=2048, num_layers=2)
+    batches = [tuple(t.to(dev) for t in pipe_rows(cfg.vocab_size, SEP_ROWS,
+                                                  SEP_SEQ, 3 + i))
+               for i in range(PARITY_STEPS)]
+    t0 = time.monotonic()
+    ref, want = one_rank_run(lambda: ParallelGPTForCausalLM(
+        cfg, device=dev, dtype=torch.float32, seed=1), batches)
+    res = {"ref": ref, "seconds": [time.monotonic() - t0]}
+    for ring in (True, False):
+        t0 = time.monotonic()
+        model = fleet.distributed_model(ParallelGPTForCausalLM(
+            cfg, use_ring_attention=ring, device=dev, dtype=torch.float32,
+            seed=1))
+        opt = parity_adamw(model.parameters())
+        kernels.reset_launch_counts()
+        local = [rank_steps(model, opt, x, y, 1)[0][0] for x, y in batches]
+        flash = kernels.launch_counts().get("flash_fwd", 0)
+        lt = torch.tensor(local, device=dev)
+        C.all_reduce(lt, op=C.ReduceOp.AVG,
+                     group=hcg.get_sep_parallel_group())
+        worst, name = worst_part(model, want)
+        res["ring" if ring else "gathered"] = dict(
+            losses=lt.tolist(), worst=worst, worst_name=name,
+            flash_fwd=flash)
+        res["seconds"].append(time.monotonic() - t0)
+        del model, opt
+    del want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def sep_ops(dev, hcg):
+    """(c): ring and Ulysses on this rank's chunk, forward and input
+    gradients, against the flash kernel on the whole sequence (the same
+    inputs on every rank from one seed): max abs errors."""
+    from paddle_tpu_torch.distributed import context_parallel as CP
+    f = SEP_OPS
+    g = torch.Generator(device=dev).manual_seed(29)
+    q, k, v, do = (torch.randn(f["b"], f["s"], f["h"], f["d"], device=dev,
+                               generator=g).to(torch.bfloat16)
+                   for _ in range(4))
+    ref = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = F.flash_attention(*ref, causal=True)
+    out.backward(do)
+    r, c = hcg.get_sep_parallel_rank(), f["s"] // 2
+
+    def chunk(t):
+        return t[:, r * c:(r + 1) * c]
+    errs = {}
+    for name, fn in (("ring", CP.ring_flash_attention),
+                     ("ulysses", CP.ulysses_attention)):
+        ins = [chunk(t).detach().clone().requires_grad_(True)
+               for t in (q, k, v)]
+        y = fn(*ins, causal=True)
+        y.backward(chunk(do))
+        for label, got, want in (("out", y, chunk(out)),
+                                 ("dq", ins[0].grad, chunk(ref[0].grad)),
+                                 ("dk", ins[1].grad, chunk(ref[1].grad)),
+                                 ("dv", ins[2].grad, chunk(ref[2].grad))):
+            check_close(f"[train-sep] (c) {name} {label}", got.detach(),
+                        want.detach(), torch.bfloat16)
+            errs[f"{name} {label}"] = max_err(got, want)
+    return errs
+
+
+def sep_lane(dev, rank):
+    """train-sep on the world's four ranks (their process group joined):
+    sep 2 x mp 2; (b) first (the groups' communicators are made there),
+    then (a), then (c) and, on rank 0, Adam at (a)'s largest parameter."""
+    from paddle_tpu_torch.distributed import fleet
+    marks = [time.monotonic()]
+    hcg = fleet.init(is_collective=True, strategy=sep_strategy(),
+                     backend=HYBRID_BACKEND, device=dev)
+    out = {"rank": rank, "sep_rank": hcg.get_sep_parallel_rank(),
+           "mp_rank": hcg.get_model_parallel_rank()}
+    marks.append(time.monotonic())
+    out["b"] = sep_parity(dev, hcg)
+    marks.append(time.monotonic())
+    out["a"] = sep_recipe(dev, hcg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    marks.append(time.monotonic())
+    out["c"] = sep_ops(dev, hcg)
+    if rank == 0:
+        gen = torch.Generator(device=dev).manual_seed(31)
+        out["adam"], _ = adam_case(dev, 25152 * 2048, torch.bfloat16, True,
+                                   True, 0.0, gen)
+    marks.append(time.monotonic())
+    out["seconds"] = [b - a for a, b in zip(marks, marks[1:])]
+    return out
+
+
+def sep_ranks(dev, rank, world, outdir):
+    """train-sep's own four ranks (without train-zero in the run)."""
+    from paddle_tpu_torch.distributed import env
+    env.init_parallel_env(
+        backend=HYBRID_BACKEND, device=dev, world_size=world, rank=rank,
+        init_method="file://" + os.path.join(outdir, "rdzv-sep"))
+    return sep_lane(dev, rank)
+
+
+HYBRID_LANES["sep"] = (sep_ranks, 4)
+
+#: (a)'s Adam launches a rank a step: one a parameter (wte, wpe, 12 a
+#: block, the final norm's 2)
+SEP_ADAM = 2 + 12 * SEP_LAYERS + 2
+
+
+def fmt_by_group(groups):
+    return ", ".join(f"{k} {c:g} calls {b / 1e6:.1f} MB"
+                     for k, (c, b) in sorted(groups.items()))
+
+
+def check_sep(outs):
+    """(a), (b), (c) from the four ranks."""
+    tag = "train-sep"
+    card = smi_card()
+    by = {(o["sep_rank"], o["mp_rank"]): o for o in outs}
+    for s in (0, 1):
+        la, lb = by[(s, 0)]["a"]["losses"], by[(s, 1)]["a"]["losses"]
+        if la != lb or not all(np.isfinite(la)):
+            raise AssertionError(f"[{tag}] (a) sep rank {s}: the mp ranks' "
+                                 f"chunk losses not finite and equal: {la} "
+                                 f"{lb}")
+    glob = np.mean([by[(s, 0)]["a"]["losses"] for s in (0, 1)], axis=0)
+    for o in outs:
+        a = o["a"]
+        per = {k: v / SEP_STEPS for k, v in a["launches"].items()}
+        if a["kind"] != "SegmentParallel" or per.get("adam") != SEP_ADAM \
+                or a["scalar_adam"] or per.get("flash_fwd", 0):
+            raise AssertionError(
+                f"[{tag}] (a) r{o['rank']}: {a['kind']}, launches a step "
+                f"{per} (Adam {SEP_ADAM} a step, no flash: the ring runs "
+                f"in plain torch), scalar-path Adam {a['scalar_adam']}")
+    steps = np.max([o["a"]["times"] for o in outs], axis=0)[1:]
+    p50 = float(np.median(steps))
+    b, s = SEP_BATCH
+    log(f"[{tag}] {card}; (a) ParallelGPTForCausalLM(use_ring_attention="
+        f"True) at GPT-3 1.3B width, {SEP_LAYERS} of 24 layers, sep 2 x mp "
+        f"2 on four ranks sharing the card over NCCL's socket, bf16 O2, "
+        f"AdamW(1e-4) + clip 1.0, [{b}, {s}] ([{b}, {s // 2}] a rank): "
+        f"losses (mean of the chunks) {[round(float(x), 4) for x in glob]}; step "
+        f"p50 {p50:.1f} ms (the slowest rank's, {SEP_STEPS - 1} steps after "
+        f"the first; ranks "
+        f"{[round(float(np.median(o['a']['times'][1:])), 1) for o in outs]}"
+        f"), {b * s / p50 * 1e3:.0f} tokens/s")
+    for o in outs:
+        a = o["a"]
+        per = {k: v / SEP_STEPS for k, v in sorted(a["launches"].items())}
+        log(f"[{tag}] (a) r{o['rank']} (sep {o['sep_rank']}, mp "
+            f"{o['mp_rank']}): {a['n_tensors']} tensors, resident "
+            f"{a['param_bytes'] / 1e9:.3f} GB; all-reduces a step by group "
+            f"{fmt_by_group(a['groups'])}; collectives a step "
+            f"{fmt_coll(a['coll'])}; launches a step {per}, scalar-path "
+            f"Adam {a['scalar_adam']}; peak {a['peak_gb']:.2f} GB; step ms "
+            f"{[round(t, 1) for t in a['times']]}")
+    for o in outs:
+        r = o["b"]
+        for lane in ("ring", "gathered"):
+            x = r[lane]
+            rel = max(abs(g - w) / abs(w) for g, w in zip(x["losses"],
+                                                          r["ref"]))
+            want_flash = 0 if lane == "ring" else 2 * PARITY_STEPS
+            if rel > PARITY_LOSS_RTOL or x["worst"] > PARITY_BOUND or \
+                    x["flash_fwd"] != want_flash:
+                raise AssertionError(
+                    f"[{tag}] (b) {lane} r{o['rank']}: losses {x['losses']} "
+                    f"vs one rank {r['ref']} (rel {rel:.2e} > "
+                    f"{PARITY_LOSS_RTOL}), {x['worst_name']} off by "
+                    f"{x['worst']:.3e} (> {PARITY_BOUND:.1e}?), flash "
+                    f"forwards {x['flash_fwd']} (want {want_flash})")
+    r0 = outs[0]["b"]
+    for lane in ("ring", "gathered"):
+        rels = [max(abs(g - w) / abs(w) for g, w in
+                    zip(o["b"][lane]["losses"], o["b"]["ref"]))
+                for o in outs]
+        log(f"[{tag}] (b) fp32 2 layers at 1.3B width, sep 2 x mp 2, "
+            f"{lane}, [{SEP_ROWS}, {SEP_SEQ}], {PARITY_STEPS} AdamW steps + "
+            f"clip 1.0 vs one rank's model at sep 1: losses "
+            f"{[round(x, 6) for x in r0[lane]['losses']]} vs "
+            f"{[round(x, 6) for x in r0['ref']]} (worst rel {max(rels):.2e}"
+            f" <= {PARITY_LOSS_RTOL}), parameters within "
+            f"{max(o['b'][lane]['worst'] for o in outs):.2e} (bound "
+            f"{PARITY_BOUND:.1e}); flash forwards "
+            f"{r0[lane]['flash_fwd']}")
+    f = SEP_OPS
+    errs = outs[0]["c"]
+    log(f"[{tag}] (c) ring and Ulysses at B{f['b']} S{f['s']} ({f['s'] // 2}"
+        f" a rank) H{f['h']} D{f['d']} bf16 vs the flash kernel on the whole "
+        f"sequence (check_close: rtol 1e-2, atol 2e-2), max abs err (rank "
+        f"0): " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    log(f"[{tag}] Adam on {25152 * 2048} elements (bf16 + fp32 master, "
+        f"(a)'s largest parameter) bit for bit: max abs err "
+        f"{outs[0]['adam']:.3e}")
+    sec = outs[0]["seconds"]
+    log(f"[{tag}] rank 0's seconds: the topology {sec[0]:.1f}, (b) "
+        f"{sec[1]:.1f} (one rank / ring / gathered "
+        f"{', '.join(f'{t:.1f}' for t in r0['seconds'])}), (a) {sec[2]:.1f}, "
+        f"(c) + Adam {sec[3]:.1f}")
+
+
+def phase_train_sep(dev, outs=None):
+    """train-sep: context parallelism on four ranks that share the card
+    (sep 2 x mp 2).  ``outs``: the results train-zero's ranks brought
+    back (they run this lane after their checks); else this phase starts
+    its own ranks (this script's ``--hybrid-child sep``)."""
+    if outs is None:
+        gc.collect()
+        torch.cuda.empty_cache()
+        root = tempfile.mkdtemp(prefix="train-sep-")
+        procs = None
+        try:
+            procs = start_hybrid("sep", root)
+            outs = wait_hybrid("sep", root, procs, tag="train-sep")
+        finally:
+            stop_ranks(procs or [])
+            shutil.rmtree(root, ignore_errors=True)
+    check_sep(outs)
+
+
+# ------------------------------------------------------------ train-moe
+#: train-moe: benchmarks/run.py config 5 (`moe`) at full width, nothing
+#: cut: ParallelGPTForCausalLM(gpt_config("gpt2-124m", max_seq_len=1024),
+#: moe_every=2, num_experts=4) (6 MoE layers), dp 2 x mp 2 on four ranks
+#: sharing the card, AdamW(1e-4), the global [16, 1024] batch (a dp rank
+#: [8, 1024]), MOE_STEPS eager steps (the first a warm-up); bf16 O2 added
+MOE_STEPS = 3
+MOE_BATCH = (16, 1024)
+#: (b): 2 layers (one MoE) at GPT-2 width in fp32, [MOE_ROWS, MOE_SEQ],
+#: moe_capacity (0.5, 1.0) so that tokens drop, PARITY_STEPS AdamW steps
+#: against one rank's model at dp 1 x mp 1 (train-sep (b)'s bounds)
+MOE_ROWS, MOE_SEQ = 4, 256
+#: the flash kernels at the recipe's shape: a dp rank's B8 x S1024, the
+#: rank's 6 of 12 heads, D 64, causal
+MOE_FLASH = dict(b=8, h=6, s=1024, d=64)
+
+
+def moe_model(dev, cfg, seed, capacity=None):
+    from paddle_tpu_torch.models import ParallelGPTForCausalLM
+    return ParallelGPTForCausalLM(cfg, moe_every=2, num_experts=4,
+                                  moe_capacity=capacity, device=dev,
+                                  dtype=torch.float32, seed=seed)
+
+
+def moe_update(opt, hcg, dev):
+    """The eager dp x mp step tail (`parallel.mesh_update`)."""
+    from paddle_tpu_torch.distributed import parallel
+    return lambda: parallel.mesh_update(
+        opt, None, hcg.get_data_parallel_group(),
+        hcg.get_model_parallel_group(), dev)
+
+
+def dp_rows(t, hcg):
+    per = t.shape[0] // hcg.get_data_parallel_world_size()
+    r = hcg.get_data_parallel_rank()
+    return t[r * per:(r + 1) * per]
+
+
+def moe_recipe(dev, hcg):
+    """(a): the recipe at full width, bf16 O2: losses, step ms,
+    all-reduce calls and bytes a step by group, the tokens each MoE
+    layer's experts dropped, launches, peak."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.framework import prng
+    cfg = gpt_config("gpt2-124m", max_seq_len=1024)
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = fleet.distributed_model(moe_model(dev, cfg, 0))
+    opt = AdamW(1e-4, parameters=model.parameters())
+    model, opt = amp.decorate(model, opt, level="O2", dtype=torch.bfloat16)
+    x, y = (dp_rows(t, hcg).to(dev)
+            for t in pipe_rows(cfg.vocab_size, *MOE_BATCH, 0))
+    prng.seed(0)
+    kernels.reset_launch_counts()
+    scalar0 = adam_update.scalar_launches
+    before = collective_counts()
+    with count_by_group({"mp": hcg.get_model_parallel_group(),
+                         "dp": hcg.get_data_parallel_group()}) as groups:
+        losses, times = rank_steps(model, opt, x, y, MOE_STEPS,
+                                   moe_update(opt, hcg, dev))
+    moe = [blk.mlp for blk in model.gpt.h if hasattr(blk.mlp, "gate")]
+    return dict(
+        losses=losses, times=times,
+        coll=per_step(collective_counts(), before, MOE_STEPS),
+        groups={k: (c / MOE_STEPS, b / MOE_STEPS)
+                for k, (c, b) in groups.tally.items()},
+        dropped=[m.last_dropped.tolist() for m in moe],
+        capacity=int(max(1, 1.2 * MOE_BATCH[0] * MOE_BATCH[1] / 4 * 2)),
+        launches={k: v for k, v in kernels.launch_counts().items() if v},
+        scalar_adam=adam_update.scalar_launches - scalar0,
+        peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+        n_tensors=len(list(model.parameters())),
+        expert_shape=list(moe[0]._stacked.w1.shape))
+
+
+def moe_parity(dev, hcg):
+    """(b): fp32 2 layers, tokens dropped by the capacity, against one
+    rank's model at dp 1 x mp 1 on the global batch (the random routing's
+    keys from the same stream): the global losses and the worst
+    parameter difference."""
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.framework import prng
+    cfg = gpt_config("gpt2-124m", max_seq_len=1024, num_layers=2)
+    batches = [tuple(t.to(dev) for t in pipe_rows(cfg.vocab_size, MOE_ROWS,
+                                                  MOE_SEQ, 5 + i))
+               for i in range(PARITY_STEPS)]
+    cap = (0.5, 1.0)
+    t0 = time.monotonic()
+    prng.seed(0)
+    ref, want = one_rank_run(lambda: moe_model(dev, cfg, 1, cap), batches)
+    one_s = time.monotonic() - t0
+    prng.seed(0)
+    model = fleet.distributed_model(moe_model(dev, cfg, 1, cap))
+    opt = parity_adamw(model.parameters())
+    update = moe_update(opt, hcg, dev)
+    local = [rank_steps(model, opt, dp_rows(x, hcg), dp_rows(y, hcg), 1,
+                        update)[0][0] for x, y in batches]
+    dropped = model.gpt.h[1].mlp.last_dropped.tolist()
+    lt = torch.tensor(local, device=dev)
+    C.all_reduce(lt, op=C.ReduceOp.AVG, group=hcg.get_data_parallel_group())
+    worst, name = worst_part(model, want)
+    del model, opt, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(losses=lt.tolist(), ref=ref, worst=worst, worst_name=name,
+                dropped=dropped,
+                seconds=(one_s, time.monotonic() - t0 - one_s))
+
+
+def moe_lane(dev, rank, hcg):
+    """train-moe in train-hybrid (c)'s four ranks (dp 2 x mp 2, their
+    topology): (a), then (b), then the kernels at (a)'s shapes (rank
+    0)."""
+    marks = [time.monotonic()]
+    out = {"rank": rank, "dp_rank": hcg.get_data_parallel_rank(),
+           "mp_rank": hcg.get_model_parallel_rank()}
+    out["a"] = moe_recipe(dev, hcg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    marks.append(time.monotonic())
+    out["b"] = moe_parity(dev, hcg)
+    marks.append(time.monotonic())
+    if rank == 0:
+        gen = torch.Generator(device=dev).manual_seed(37)
+        f = MOE_FLASH
+        out["kernels"], _ = flash_case(dev, f["b"], f["h"], f["h"], f["s"],
+                                       f["d"], True, torch.bfloat16, gen)
+        out["kernels"]["adam"], _ = adam_case(dev, 25152 * 768,
+                                              torch.bfloat16, True, True,
+                                              0.0, gen)
+    marks.append(time.monotonic())
+    out["seconds"] = [b - a for a, b in zip(marks, marks[1:])]
+    return out
+
+
+def moe_ranks(dev, rank, world, outdir):
+    """train-moe's own four ranks (without train-hybrid in the run)."""
+    return moe_lane(dev, rank, hybrid_init(dev, world, 2, 2, outdir, "moe"))
+
+
+HYBRID_LANES["moe"] = (moe_ranks, 4)
+
+#: (a)'s launches a rank a step: flash fwd, dK/dV and dQ once a layer;
+#: Adam once a parameter (wte, wpe, 12 a dense block, 14 a MoE block: the
+#: attention's 6, the norms' 4, its 4 expert stacks and the gate's 2; the
+#: final norm's 2)
+MOE_ADAM = 2 + 12 * 6 + 14 * 6 + 2
+
+
+def check_moe(outs):
+    """(a), (b) and the kernels from the four ranks."""
+    tag = "train-moe"
+    card = smi_card()
+    by = {(o["dp_rank"], o["mp_rank"]): o for o in outs}
+    for d in (0, 1):
+        la, lb = by[(d, 0)]["a"]["losses"], by[(d, 1)]["a"]["losses"]
+        if la != lb or not all(np.isfinite(la)):
+            raise AssertionError(f"[{tag}] (a) dp rank {d}: the mp ranks' "
+                                 f"losses not finite and equal: {la} {lb}")
+    glob = np.mean([by[(d, 0)]["a"]["losses"] for d in (0, 1)], axis=0)
+    for o in outs:
+        a = o["a"]
+        per = {k: v / MOE_STEPS for k, v in a["launches"].items()}
+        want = dict({k: 12 for k in FLASH}, adam=MOE_ADAM)
+        bad = {k: (per.get(k, 0), n) for k, n in want.items()
+               if per.get(k, 0) != n}
+        if bad or a["scalar_adam"] or a["expert_shape"] != [2, 768, 3072]:
+            raise AssertionError(
+                f"[{tag}] (a) r{o['rank']}: launches a step (got, want) "
+                f"{bad}, scalar-path Adam {a['scalar_adam']}, expert stack "
+                f"{a['expert_shape']} (want [2, 768, 3072])")
+        if a["dropped"] != outs[0]["a"]["dropped"]:
+            raise AssertionError(f"[{tag}] (a) the ranks' routing differs: "
+                                 f"{a['dropped']} {outs[0]['a']['dropped']}")
+    steps = np.max([o["a"]["times"] for o in outs], axis=0)[1:]
+    p50 = float(np.median(steps))
+    b, s = MOE_BATCH
+    a0 = outs[0]["a"]
+    log(f"[{tag}] {card}; (a) benchmarks/run.py config 5: "
+        f"ParallelGPTForCausalLM(gpt2-124m, max_seq_len 1024, moe_every=2, "
+        f"num_experts=4) at full width (6 MoE layers, 2 experts a rank), dp 2"
+        f" x mp 2 on four ranks sharing the card over NCCL's socket, bf16 "
+        f"O2 (the recipe is fp32), AdamW(1e-4), [{b}, {s}] ([{b // 2}, {s}] "
+        f"a rank): losses (mean of the dp ranks) "
+        f"{[round(float(x), 4) for x in glob]}; step p50 {p50:.1f} ms (the slowest "
+        f"rank's, {MOE_STEPS - 1} steps after the first; ranks "
+        f"{[round(float(np.median(o['a']['times'][1:])), 1) for o in outs]}"
+        f"), {b * s / p50 * 1e3:.0f} tokens/s; the last step's choices "
+        f"dropped by each MoE layer's capacity ({a0['capacity']} places an "
+        f"expert), by expert: {a0['dropped']}")
+    for o in outs:
+        a = o["a"]
+        per = {k: v / MOE_STEPS for k, v in sorted(a["launches"].items())}
+        log(f"[{tag}] (a) r{o['rank']} (dp {o['dp_rank']}, mp "
+            f"{o['mp_rank']}): {a['n_tensors']} tensors; all-reduces a step "
+            f"by group {fmt_by_group(a['groups'])}; collectives a step "
+            f"{fmt_coll(a['coll'])}; launches a step {per}, scalar-path "
+            f"Adam {a['scalar_adam']}; peak {a['peak_gb']:.2f} GB; step ms "
+            f"{[round(t, 1) for t in a['times']]}")
+    for o in outs:
+        r = o["b"]
+        rel = max(abs(g - w) / abs(w) for g, w in zip(r["losses"], r["ref"]))
+        if rel > PARITY_LOSS_RTOL or r["worst"] > PARITY_BOUND or \
+                not sum(r["dropped"]):
+            raise AssertionError(
+                f"[{tag}] (b) r{o['rank']}: losses {r['losses']} vs one rank"
+                f" {r['ref']} (rel {rel:.2e} > {PARITY_LOSS_RTOL}), "
+                f"{r['worst_name']} off by {r['worst']:.3e} (> "
+                f"{PARITY_BOUND:.1e}?), dropped {r['dropped']} (want some)")
+    r0 = outs[0]["b"]
+    rels = [max(abs(g - w) / abs(w) for g, w in zip(o["b"]["losses"],
+                                                     o["b"]["ref"]))
+            for o in outs]
+    log(f"[{tag}] (b) fp32 2 layers (one MoE) at GPT-2 width, dp 2 x mp 2, "
+        f"moe_capacity (0.5, 1.0), [{MOE_ROWS}, {MOE_SEQ}], {PARITY_STEPS} "
+        f"AdamW steps + clip 1.0 vs one rank's model at dp 1 x mp 1: losses "
+        f"{[round(x, 6) for x in r0['losses']]} vs "
+        f"{[round(x, 6) for x in r0['ref']]} (worst rel {max(rels):.2e} <= "
+        f"{PARITY_LOSS_RTOL}), parameters within "
+        f"{max(o['b']['worst'] for o in outs):.2e} (bound "
+        f"{PARITY_BOUND:.1e}); the last step dropped {r0['dropped']} by "
+        f"expert; seconds one rank / dp x mp {r0['seconds'][0]:.1f} / "
+        f"{r0['seconds'][1]:.1f}")
+    errs = outs[0]["kernels"]
+    f = MOE_FLASH
+    log(f"[{tag}] kernels at the path's shapes against their plain versions "
+        f"(rank 0): flash B{f['b']} H{f['h']} S{f['s']} D{f['d']} causal "
+        f"bf16: fwd {errs['flash_fwd']:.3e}, dK/dV {errs['flash_bwd_dkv']:.3e}"
+        f", dQ {errs['flash_bwd_dq']:.3e} (max abs err, rows within "
+        f"ROW_TOL); Adam on {25152 * 768} elements (bf16 + fp32 master) "
+        f"{errs['adam']:.3e}")
+    sec = outs[0]["seconds"]
+    log(f"[{tag}] rank 0's seconds: (a) {sec[0]:.1f}, (b) {sec[1]:.1f}, "
+        f"kernels {sec[2]:.1f}")
+
+
+def phase_train_moe(dev, outs=None):
+    """train-moe: the expert-parallel MoE recipe on four ranks that share
+    the card (dp 2 x mp 2).  ``outs``: the results train-hybrid (c)'s
+    ranks brought back (they run this lane after their checks); else this
+    phase starts its own ranks (this script's ``--hybrid-child moe``)."""
+    if outs is None:
+        gc.collect()
+        torch.cuda.empty_cache()
+        root = tempfile.mkdtemp(prefix="train-moe-")
+        procs = None
+        try:
+            procs = start_hybrid("moe", root)
+            outs = wait_hybrid("moe", root, procs, tag="train-moe")
+        finally:
+            stop_ranks(procs or [])
+            shutil.rmtree(root, ignore_errors=True)
+    check_moe(outs)
+
+
 # ----------------------------------------------------------- train-guard
-#: train-guard's workload: GPT-2 124M at full width, dp 2 (two ranks on
+#: train-guard's workload: GPT-2 124M at full width, depth cut from 12
+#: to GUARD_LAYERS blocks (the card script's time), dp 2 (two ranks on
 #: the card), the eager lane, 6 steps of GUARD_ROWS rows a rank (train-
 #: gpt2's B 8 over the two ranks); (b) and (e) through fit, an epoch of
 #: GUARD_SAVE_EVERY steps, a sharded checkpoint each epoch and a hot-spare
 #: snapshot every GUARD_SPARE_EVERY updates
+GUARD_LAYERS = 6
 GUARD_STEPS = 6
 GUARD_ROWS = 4
 GUARD_SAVE_EVERY = 2
@@ -8335,7 +9021,7 @@ def guard_train(mode, outdir, rank, dev):
     never a skipped cadence; then a guarded call's host cost.  (c) ``drill``: the guardian armed
     throughout, rank 0 checkpointing, resumed from its newest
     checkpoint."""
-    model = fit_gpt2_model(dev, dropout=0.1)
+    model = fit_gpt2_model(dev, dropout=0.1, layers=GUARD_LAYERS)
     timeout = port_flags.flag("FLAGS_collective_timeout_s")
     writes = [0]
     if mode == "clean":
@@ -8528,7 +9214,7 @@ def guard_fit(outdir, rank, dev):
     ModelCheckpoint (a shard file a rank) at each epoch's end, the
     hot-spare agent under the environment's FLAGS_hot_spare; a relaunch
     resumes through the ladder."""
-    model = fit_gpt2_model(dev, dropout=0.1)
+    model = fit_gpt2_model(dev, dropout=0.1, layers=GUARD_LAYERS)
     guard_switch(True, port_flags.flag("FLAGS_collective_timeout_s"), [0])
     cb = GuardFitLog(outdir, rank)
     kernels.reset_launch_counts()
@@ -8574,7 +9260,7 @@ def guard_resize(outdir, rank, dev):
     and trains the next epoch to the end."""
     from paddle_tpu_torch.framework.checkpoint_manager import scan_steps
     root = os.environ["GUARD_RESUME_DIR"]
-    model = fit_gpt2_model(dev, dropout=0.1)
+    model = fit_gpt2_model(dev, dropout=0.1, layers=GUARD_LAYERS)
     cb = GuardFitLog(outdir, rank, check=restored_against_shard(
         scan_steps(root)[0][1]))
     kernels.reset_launch_counts()
@@ -8590,7 +9276,7 @@ def world1_gpt_model(dev):
     names and loss, nothing split."""
     from paddle_tpu_torch.models import ParallelGPTForCausalLM
     cfg = gpt_config("gpt2-124m", max_seq_len=1024, attn_dropout=0.1,
-                     dropout=0.1)
+                     dropout=0.1, num_layers=GUARD_LAYERS)
     lm = ParallelGPTForCausalLM(cfg, device=dev, dtype=torch.float32, seed=0)
     net = LocalLogits(lm)
     opt = AdamW(learning_rate=1e-4, parameters=net.parameters(),
@@ -8610,7 +9296,7 @@ def guard_mp2(outdir, rank, dev):
     from paddle_tpu_torch.framework import io as fio
     fleet.init(is_collective=True, strategy=hybrid_strategy(1, 2),
                backend=HYBRID_BACKEND, device=dev)
-    model = hybrid_gpt_model(dev)
+    model = hybrid_gpt_model(dev, layers=GUARD_LAYERS)
     cb = GuardFitLog(outdir, rank, seed_rank=0)
     kernels.reset_launch_counts()
     model.fit(guard_loader(0), epochs=1, verbose=0, log_freq=1,
@@ -8680,7 +9366,7 @@ def guard_flaky(outdir, rank, dev):
     """(d): fit under the sentinel (the environment's flags) while
     grad_bitflip corrupts rank 1's gradients; its escalation leaves the
     process (`SentinelError`)."""
-    model = fit_gpt2_model(dev, dropout=0.1)
+    model = fit_gpt2_model(dev, dropout=0.1, layers=GUARD_LAYERS)
     rows = TokenRows(2 * GUARD_ROWS * GUARD_STEPS, 50304, 1024)
     model.fit(rows, batch_size=GUARD_ROWS, epochs=1, shuffle=False,
               verbose=0)
@@ -8880,7 +9566,7 @@ def guard_flaky_drill(root, base, resume_dir, tag="train-guard"):
                              f"relaunch:\n{guard_logs(d_dir, 0)[-3000:]}")
     check_launches(dict.fromkeys(DROPOUT_KERNELS + ("adam",), 0) |
                    res["launches"],
-                   dict({k: 12 * n for k in DROPOUT_KERNELS}, adam=148 * n))
+                   gpt2_launches(GUARD_LAYERS, n))
     log(f"[{tag}] (d) grad_bitflip on rank 1 at iterations 0 and 1: both "
         f"ranks skipped them (quarantined {dumps[0]['quarantined']}); "
         f"blame on rank {blamed[0]} (the dumps' blamed_rank "
@@ -8974,8 +9660,7 @@ def guard_spare_drill(root, base, at, want, sub, buddy_crash, steps,
     for o in res:
         check_launches(dict.fromkeys(DROPOUT_KERNELS + ("adam",), 0) |
                        o["launches"],
-                       dict({k: 12 * n for k in DROPOUT_KERNELS},
-                            adam=148 * n))
+                       gpt2_launches(GUARD_LAYERS, n))
     spare = {}
     for r in range(2):
         path = os.path.join(d, f"spare.{r}.0.json")
@@ -9012,8 +9697,7 @@ def guard_mp2_drill(root, base, tag="train-guard"):
     for o in mp2:
         check_launches(dict.fromkeys(DROPOUT_KERNELS + ("adam",), 0) |
                        o["launches"],
-                       dict({k: 12 * n for k in DROPOUT_KERNELS},
-                            adam=148 * n))
+                       gpt2_launches(GUARD_LAYERS, n))
     layout = read_layout(scan_steps(os.path.join(f_dir, "ckpt"))[0][1])
     split = sorted(k for k, m in layout["arrays"].items()
                    if "mp" in m["partition"])
@@ -9037,9 +9721,8 @@ def guard_mp2_drill(root, base, tag="train-guard"):
     for o in (a, b):
         check_launches(dict.fromkeys(DROPOUT_KERNELS + ("adam",), 0) |
                        o["launches"],
-                       dict({k: 12 * n for k in DROPOUT_KERNELS},
-                            adam=148 * n))
-    log(f"[{tag}] (f) GPT-2 124M dp 1 x mp 2 (train-hybrid (c)'s model), "
+                       gpt2_launches(GUARD_LAYERS, n))
+    log(f"[{tag}] (f) GPT-2 124M width ({GUARD_LAYERS} layers) dp 1 x mp 2 (train-hybrid (c)'s model), "
         f"bf16 O2, dropout 0.1: fit's {n} steps (losses "
         f"{[round(x, 4) for x in mp2[0]['losses']]}) saved a sharded "
         f"checkpoint over {layout['mesh']}: {len(split)} of "
@@ -9128,7 +9811,7 @@ def phase_train_guard(dev):
         if clean[0]["losses"] == clean[1]["losses"]:
             raise AssertionError(f"[{tag}] (a) the ranks' losses are equal: "
                                  "their rows are not their own")
-        need = dict({k: 12 * n for k in DROPOUT_KERNELS}, adam=148 * n)
+        need = gpt2_launches(GUARD_LAYERS, n)
         for o in clean:
             check_launches(dict.fromkeys(need, 0) | o["launches"], need)
         labels = clean[0]["labels"]
@@ -9136,7 +9819,8 @@ def phase_train_guard(dev):
             o["times"][1:], labels[1:]) if k == lane])) for o in clean]
             for lane in GUARD_LANES}
         call_us = [{k: v[0] for k, v in o["call_us"].items()} for o in clean]
-        log(f"[{tag}] (a) GPT-2 124M dp 2 (two ranks on one card, NCCL "
+        log(f"[{tag}] (a) GPT-2 124M width ({GUARD_LAYERS} of 12 layers) "
+            f"dp 2 (two ranks on one card, NCCL "
             f"socket), dropout 0.1, bf16 O2, AdamW, B{GUARD_ROWS} x S1024 a "
             f"rank, the eager lane: {n} steps, the guardian armed at step "
             f"0, then {GUARD_TURNS} turns of {'/'.join(GUARD_LANES)}; job "
@@ -9299,13 +9983,15 @@ def main(argv=None):
         serve_child(args.serve_child)
         return
     phases = args.phases.split(",")
+    start = time.monotonic()
     name, card = phase_device()
     dev = torch.device("cuda", 0)
 
     def run(label, fn, *a):
         t0 = time.monotonic()
         out = fn(*a)
-        log(f"[time] {label}: {time.monotonic() - t0:.1f} s")
+        log(f"[time] {label}: {time.monotonic() - t0:.1f} s (ends "
+            f"{time.monotonic() - start:.1f} s into the run)")
         return out
     if "build" in phases:
         run("build", phase_build)
@@ -9384,19 +10070,28 @@ def main(argv=None):
         run("sentinel-gpt2", phase_sentinel_gpt2, dev)
     if "lora-llama" in phases:
         run("lora-llama", phase_lora_llama, dev)
-    early = pipe_outs = None
+    early = moe_outs = None
+    lanes = {}
     if "train-zero" in phases:
         # train-zero's ranks start beside train-hybrid's gpt lane and wait
-        # for their phase; with train-pipe they run its lane after theirs
+        # for their phase; with train-pipe and train-sep they run those
+        # lanes after theirs
         early = {"root": tempfile.mkdtemp(prefix="train-zero-"), "procs": [],
-                 "pipe": "train-pipe" in phases}
+                 "pipe": "train-pipe" in phases,
+                 "sep": "train-sep" in phases}
     try:
         if "train-hybrid" in phases:
-            run("train-hybrid", phase_train_hybrid, dev, early)
+            # with train-moe its gpt lane's ranks run that lane after theirs
+            moe_outs = run("train-hybrid", phase_train_hybrid, dev, early,
+                           "train-moe" in phases)
         if "train-zero" in phases:
-            pipe_outs = run("train-zero", phase_train_zero, dev, early)
+            lanes = run("train-zero", phase_train_zero, dev, early)
         if "train-pipe" in phases:
-            run("train-pipe", phase_train_pipe, dev, pipe_outs)
+            run("train-pipe", phase_train_pipe, dev, lanes.get("pipe"))
+        if "train-sep" in phases:
+            run("train-sep", phase_train_sep, dev, lanes.get("sep"))
+        if "train-moe" in phases:
+            run("train-moe", phase_train_moe, dev, moe_outs)
     finally:
         if early is not None:
             stop_ranks(early["procs"])
@@ -9425,6 +10120,7 @@ def main(argv=None):
                         max_abs_err=errs[k], **timed[k])
                    for k in KERNEL_META]
         log(json.dumps({"kernels": summary}))
+    log(f"[time] the run: {time.monotonic() - start:.1f} s")
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

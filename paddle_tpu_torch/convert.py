@@ -107,10 +107,18 @@ def load_paddle_tpu_scaler_state(scaler, state):
 # a model split over mp (the tensor-parallel layers)
 # ---------------------------------------------------------------------------
 
+def _bare(model):
+    """The model a data-axis wrapper (`DataParallel`, `SegmentParallel`)
+    holds, else ``model``: the names of its state dict are the model's."""
+    from .distributed.parallel import DataParallel
+    return model._layers if isinstance(model, DataParallel) else model
+
+
 def _splits(model):
     """``{parameter name: (dim, chunks)}`` of ``model``'s parameters that a
     tensor-parallel layer splits over mp (the rest are copies)."""
     from .distributed.fleet.mp_layers import _MPLayer
+    model = _bare(model)
     out = {}
     for prefix, mod in model.named_modules():
         if isinstance(mod, _MPLayer):
@@ -133,7 +141,8 @@ def _gather_steps(model):
     gathers on use (ZeRO stage 3, `distributed.api.shard_layer`): the
     ``(group, dim)`` joins from the rank's part to the parameter its
     module reads."""
-    return {name: p._gather_slot.steps for name, p in model.named_parameters()
+    return {name: p._gather_slot.steps
+            for name, p in _bare(model).named_parameters()
             if getattr(p, "_gather_slot", None) is not None}
 
 
@@ -217,7 +226,8 @@ def gather_paddle_tpu_state(model, dst=None):
 def _param_splits(model, optimizer):
     """The split of each of the optimizer's parameters (by position)."""
     splits = _splits(model)
-    by_id = {id(p): splits.get(name) for name, p in model.named_parameters()}
+    by_id = {id(p): splits.get(name)
+             for name, p in _bare(model).named_parameters()}
     return [by_id.get(id(p)) for p in optimizer._all_params()]
 
 

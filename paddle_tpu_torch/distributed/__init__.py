@@ -14,7 +14,8 @@ elastic reshard (`checkpoint`, `reshard`); `compat`: the object
 collectives, `alltoall`, `gather`, the backend calls and the gloo shims
 (its `isend` / `irecv` return a task, as JAX's exports do);
 `functional`: the collectives as differentiable ops over a mesh axis's
-group."""
+group; `context_parallel`: ring attention and Ulysses over the sep
+axis."""
 from . import env, functional, watchdog  # noqa: E402,F401
 from .collective import (Group, P2POp, ReduceOp, all_gather, all_reduce,
                          all_to_all, barrier, batch_isend_irecv, broadcast,
@@ -48,6 +49,9 @@ from . import launch  # noqa: E402,F401
 from . import spawn as spawn_mod  # noqa: E402,F401
 from .spawn import spawn  # noqa: E402,F401
 from . import compat  # noqa: E402,F401
+from . import context_parallel  # noqa: E402,F401
+from .context_parallel import (ring_flash_attention,  # noqa: E402,F401
+                               split_sequence, ulysses_attention)
 from .compat import (  # noqa: E402,F401
     CountFilterEntry, DistAttr, ParallelMode, ProbabilityEntry,
     ShowClickEntry, all_gather_object, alltoall, alltoall_single,
@@ -65,13 +69,16 @@ __all__ = ["CheckpointManager", "CollectiveTimeoutError", "DataParallel",
            "save_checkpoint", "save_state_dict",
            "ParallelEnv", "Partial", "Placement", "ProcessMesh", "ReduceOp",
            "Replicate", "Shard", "all_gather", "all_reduce", "all_to_all",
-           "barrier", "batch_isend_irecv", "broadcast", "device_count",
+           "barrier", "batch_isend_irecv", "broadcast", "context_parallel",
+           "device_count",
            "env", "fleet", "functional", "get_group",
            "get_hybrid_communicate_group",
            "get_mesh", "get_rank", "get_world_size", "init_mesh",
            "init_parallel_env", "irecv", "is_initialized", "isend",
            "local_device_count", "new_group", "recv", "reduce",
-           "reduce_scatter", "scatter", "send", "set_hybrid_communicate_group",
+           "reduce_scatter", "ring_flash_attention", "scatter", "send",
+           "set_hybrid_communicate_group", "split_sequence",
+           "ulysses_attention",
            "set_mesh", "spawn", "watchdog", "dtensor_from_fn",
            "placements_to_spec", "shard_constraint", "shard_layer",
            "shard_tensor", "spec_to_placements", "unshard_dtensor",

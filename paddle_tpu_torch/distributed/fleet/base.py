@@ -19,7 +19,9 @@ mesh, or `hapi.Model`) or, under ZeRO, the optimizer's
 (`fleet.group_sharded_parallel`), so `distributed_optimizer` returns
 the optimizer as JAX's does.  A `PipelineLayer` is wrapped as JAX wraps
 it: `PipelineParallelWithInterleave` with virtual stages, else
-`PipelineParallel` with more than one stage.
+`PipelineParallel` with more than one stage; at a sep degree above 1
+the model is wrapped in `SegmentParallel` (the reference's dispatch),
+which averages the gradients over dp × sep after each backward.
 
 `Role`, `UtilBase` (the collective utilities over the world: numbers,
 objects, a file shard a worker) and `Fleet` (the stateful facade over the
@@ -127,8 +129,9 @@ def distributed_model(model):
     tensor-parallel layer's parameters over the topology's mp group, lets
     the model bind its rank (``_bind_topology``) and commits every
     parameter's placements (the ZeRO-3 layout under a sharding strategy);
-    returns the model, a `PipelineLayer` wrapped for its schedule
-    (``fleet.init`` first when it was not called)."""
+    returns the model, a `PipelineLayer` wrapped for its schedule, a
+    model at sep > 1 in `SegmentParallel` (``fleet.init`` first when it
+    was not called)."""
     from .meta_parallel import (PipelineLayer, PipelineParallel,
                                 PipelineParallelWithInterleave)
     from .mp_layers import _MPLayer
@@ -153,6 +156,9 @@ def distributed_model(model):
         return model
     _commit_params(model, get_mesh(),
                    "sharding" if _stage3(strategy) else None)
+    if hcg.get_sep_parallel_world_size() > 1:
+        from .meta_parallel import SegmentParallel
+        return SegmentParallel(model, hcg=hcg, strategy=strategy)
     return model
 
 

@@ -71,15 +71,21 @@ class ProcessMesh:
         return self.coord(rank)[self._dim_names.index(name)]
 
     def lines(self, name):
-        """Every line of ranks along axis ``name``, each in axis order."""
-        axis = self._dim_names.index(name)
-        moved = np.moveaxis(self._process_ids, axis, -1)
+        """Every line of ranks along axis ``name``, each in axis order;
+        ``name`` a tuple of axes: the blocks of ranks that differ only
+        on those axes (row-major over them, in the tuple's order)."""
+        names = (name,) if isinstance(name, str) else tuple(name)
+        axes = [self._dim_names.index(n) for n in names]
+        moved = np.moveaxis(self._process_ids, axes,
+                            list(range(-len(axes), 0)))
+        width = int(np.prod([self._shape[a] for a in axes]))
         return [[int(r) for r in line]
-                for line in moved.reshape(-1, moved.shape[-1])]
+                for line in moved.reshape(-1, width)]
 
     def get_group(self, name):
-        """The `collective.Group` of this rank's line along ``name`` (the
-        groups of all the axis's lines are built at the first call)."""
+        """The `collective.Group` of this rank's line along ``name`` (an
+        axis, or a tuple of axes: `lines`); the groups of all its lines
+        are built at the first call."""
         if name not in self._groups:
             from .collective import Group, new_group
             me, world = _env.get_rank(), _env.get_world_size()

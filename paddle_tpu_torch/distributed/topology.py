@@ -4,12 +4,11 @@ the degrees of each axis, the mesh of ranks over them and, unlike JAX
 the pipeline, data-parallel, sharding (ZeRO) and model-parallel axes.
 
 The axes are JAX's, outermost to innermost: ``pp``, ``dp``,
-``sharding``, ``sep``, ``mp``; rank = ((pp index × dp + dp index) ×
-sharding + sharding index) × mp + mp index, so the ranks of one mp group
-are neighbours (on a multi-card host, the cards that share the most
-links) and a pipeline stage is a contiguous block of ranks.  The port
-runs pp, dp, sharding and mp: a ``sep`` degree above 1 raises
-`NotImplementedError` naming its ROADMAP A8 item.
+``sharding``, ``sep``, ``mp``; rank = (((pp index × dp + dp index) ×
+sharding + sharding index) × sep + sep index) × mp + mp index, so the
+ranks of one mp group are neighbours (on a multi-card host, the cards
+that share the most links), a sep group's ranks are mp apart and a
+pipeline stage is a contiguous block of ranks.
 """
 from __future__ import annotations
 
@@ -22,11 +21,6 @@ from . import env as _env
 from .mesh import ProcessMesh, set_mesh
 
 HYBRID_AXES = ("pp", "dp", "sharding", "sep", "mp")
-
-_UNPORTED = {
-    "sep": "sep_degree > 1: context parallelism (context_parallel) is not "
-           "ported (ROADMAP A8)",
-}
 
 
 def hybrid_degrees(ndev, dp_degree=-1, mp_degree=1, pp_degree=1,
@@ -54,8 +48,8 @@ def hybrid_degrees(ndev, dp_degree=-1, mp_degree=1, pp_degree=1,
 class HybridCommunicateGroup:
     """reference: fleet/base/topology.py:174.  ``devices`` (a list, one
     rank each) sizes the topology; None: the world.  Builds the mesh
-    (set as the default, as JAX's does) and the dp, mp and sharding
-    groups, in that order, so every rank constructs it alike."""
+    (set as the default, as JAX's does) and the dp, mp, sharding, pp
+    and sep groups, in that order, so every rank constructs it alike."""
 
     def __init__(self, dp_degree=-1, mp_degree=1, pp_degree=1,
                  sharding_degree=1, sep_degree=1, devices=None):
@@ -63,9 +57,6 @@ class HybridCommunicateGroup:
         ndev = len(devices) if devices is not None else world
         degrees = hybrid_degrees(ndev, dp_degree, mp_degree, pp_degree,
                                  sharding_degree, sep_degree)
-        for axis, msg in _UNPORTED.items():
-            if degrees[axis] > 1:
-                raise NotImplementedError(msg)
         if ndev != world:
             raise ValueError(f"HybridCommunicateGroup: {ndev} devices, but "
                              f"the world has {world} ranks (a rank is a "
@@ -79,6 +70,7 @@ class HybridCommunicateGroup:
         self._mp_group = self.mesh.get_group("mp")
         self._sharding_group = self.mesh.get_group("sharding")
         self._pp_group = self.mesh.get_group("pp")
+        self._sep_group = self.mesh.get_group("sep")
         set_mesh(self.mesh)
 
     # ---- degrees (reference: topology.py:180-184) ----
@@ -115,6 +107,10 @@ class HybridCommunicateGroup:
         """This rank's pipeline stage."""
         return self.mesh.get_coord("pp")
 
+    def get_sep_parallel_rank(self):
+        """This rank's sequence chunk (its index on the sep axis)."""
+        return self.mesh.get_coord("sep")
+
     # ---- groups (JAX: the axis names; here the process groups) ----
     def get_data_parallel_group(self):
         return self._dp_group
@@ -129,8 +125,7 @@ class HybridCommunicateGroup:
         return self._pp_group
 
     def get_sep_parallel_group(self):
-        """sep is 1 here (a degree above raises): this rank alone."""
-        return self.mesh.get_group("sep")
+        return self._sep_group
 
     def get_check_parallel_group(self):
         return tuple(a for a, d in self._degrees.items() if d > 1)
@@ -172,6 +167,13 @@ def dp_group():
     one)."""
     hcg = _HCG[0]
     return None if hcg is None else hcg.get_data_parallel_group()
+
+
+def sep_group():
+    """The sep (context-parallel) group of the current topology (None
+    without one)."""
+    hcg = _HCG[0]
+    return None if hcg is None else hcg.get_sep_parallel_group()
 
 
 class CommunicateTopology:

@@ -8,6 +8,10 @@ A seeded serving request draws its tokens from
 engine; this module gives the port the same bits, so the same seeded
 request decodes the same tokens in both packages.
 
+The process's key stream (`seed`, `next_rng_key`) is JAX's
+``core.state``: key n is ``fold_in(PRNGKey(seed), n)``, n counting the
+draws since the seed.  The MoE gates draw their random routing from it.
+
 Keys are int64 tensors ``[..., 2]`` holding uint32 words; the arithmetic
 is int64 masked to 32 bits (sums below 2^34, shifts of 32-bit words by at
 most 29 places), so it runs on the CPU and on the card alike, with no host
@@ -94,17 +98,21 @@ _FLOAT_LAYOUT = {torch.float32: (32, 23, torch.int32, 0x3F800000),
                  torch.float16: (16, 10, torch.int16, 0x3C00)}
 
 
-def uniform(key, shape, dtype=torch.float32, minval=0.0):
-    """``jax.random.uniform(key, shape, dtype, minval, maxval=1)``: the
+def uniform(key, shape, dtype=torch.float32, minval=0.0, maxval=1.0):
+    """``jax.random.uniform(key, shape, dtype, minval, maxval)``: the
     drawn bits fill the mantissa of a float in [1, 2) (JAX draws 8 bits
     for a type with fewer than 8 mantissa bits), minus one, scaled to
-    [minval, 1) in ``dtype``."""
+    [minval, maxval) in ``dtype``."""
     nbits, nmant, view, one = _FLOAT_LAYOUT[dtype]
     bits = random_bits(key, shape, nbits)
     float_bits = (bits >> (nbits - nmant)) | one
     floats = float_bits.to(view).view(dtype) - 1.0
     lo = torch.full((), minval, dtype=dtype, device=key.device)
-    return torch.maximum(lo, floats * (1.0 - lo) + lo)
+    hi = torch.full((), maxval, dtype=dtype, device=key.device)
+    # XLA fuses the scale and shift into one FMA (one rounding): the
+    # product of two floats is exact in double, so one rounding after
+    scaled = floats.double() * (hi - lo).double() + lo.double()
+    return torch.maximum(lo, scaled.to(dtype))
 
 
 def gumbel(key, shape, dtype=torch.float32):
@@ -120,3 +128,45 @@ def categorical(key, logits):
     ``key`` [..., 2] batches over the leading axes of ``logits``."""
     noise = gumbel(key, logits.shape[-1:], logits.dtype)
     return torch.argmax(noise + logits, dim=-1)
+
+
+#: the process's key stream: JAX ``core.state``'s seed and counter
+_STREAM = {"seed": 0, "counter": 0}
+
+
+def seed(s):
+    """Restart the key stream at ``s`` (JAX's ``paddle.seed``)."""
+    _STREAM["seed"], _STREAM["counter"] = int(s), 0
+    return s
+
+
+def get_rng_state():
+    """``(seed, counter)`` of the key stream."""
+    return _STREAM["seed"], _STREAM["counter"]
+
+
+def set_rng_state(state):
+    """Put the key stream at ``(seed, counter)`` (e.g. JAX's
+    ``STATE.rng_key`` seed and ``STATE.rng_counter``)."""
+    _STREAM["seed"], _STREAM["counter"] = int(state[0]), int(state[1])
+
+
+def _draw_counter():
+    n = _STREAM["counter"]
+    _STREAM["counter"] = n + 1
+    return n
+
+
+def next_rng_key(device="cpu"):
+    """The stream's next key, ``fold_in(PRNGKey(seed), counter)`` (JAX's
+    ``next_rng_key``), on ``device``.  On the card the counter is a
+    device scalar (`kernels.graph_state.device_seed`), so a captured
+    step refills it before each replay and each replay draws a fresh
+    key.  A recomputed region (activation recompute) takes its first
+    run's counter back instead of drawing one, as JAX's checkpoint
+    reuses the traced key."""
+    from ..kernels import graph_state
+    device = torch.device(device)
+    n = graph_state.logged_draw(
+        lambda: graph_state.device_seed(_draw_counter, device))
+    return fold_in(PRNGKey(_STREAM["seed"]).to(device), n)

@@ -1,4 +1,6 @@
-"""Fused ops of the port (paddle_tpu.incubate counterpart)."""
+"""Fused ops and incubating models of the port (paddle_tpu.incubate
+counterpart)."""
 from . import nn
+from . import distributed
 
-__all__ = ["nn"]
+__all__ = ["distributed", "nn"]

@@ -1,6 +1,7 @@
 """Worker introspection (port of paddle_tpu/io/worker_info.py): inside a
 DataLoader worker it describes the worker; elsewhere it returns None.
-The port's workers are threads, so the description is thread-local."""
+The description is thread-local: a worker process sets it in its main
+thread, a worker thread (the threaded lane) in its own."""
 from __future__ import annotations
 
 import threading

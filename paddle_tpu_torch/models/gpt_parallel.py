@@ -23,9 +23,28 @@ group (Megatron) and its batch over the data-parallel one.
   over mp, so every rank picks the same token.
 - ``sequence_parallel`` splits the activations between blocks on the
   sequence over mp (the sequence-parallel linears; the layer norms'
-  gradients summed over mp).  ``use_ring_attention`` (context parallel)
-  and ``moe_every`` (expert parallel) raise `NotImplementedError`
-  (ROADMAP A8).
+  gradients summed over mp).
+- At a sep degree above 1 (context parallel) the model takes the global
+  ``[B, S]`` ids and labels, as JAX's does, and from the embedding on a
+  rank works on its contiguous chunk of the sequence, rows ``r·S/sep …
+  (r+1)·S/sep`` (JAX's GSPMD shards the sequence; a process here holds
+  only its chunk): the positions are the chunk's global ones, the loss
+  is the masked mean over the chunk, and the logits returned with
+  ``labels`` are the rank's chunk and vocabulary slice.  Attention is
+  `distributed.context_parallel.ring_flash_attention` with
+  ``use_ring_attention`` (K and V rotate around the sep group; no
+  attention dropout, as in JAX's ring); without it K, V and q are
+  gathered over sep and the flash kernels run on the whole sequence,
+  the rank keeping its rows (JAX's SDPA over the sequence GSPMD gathers;
+  the dropout masks are one rank's).  `fleet.distributed_model` wraps
+  the model in `SegmentParallel`, which averages the gradients over dp ×
+  sep.  sep > 1 with pp > 1 raises `NotImplementedError` (ROADMAP A8).
+- ``moe_every`` > 0 makes every ``moe_every``-th block's FFN an
+  expert-parallel `MoELayer` (``num_experts`` experts split over mp, a
+  GShard top-2 gate with ``moe_capacity``'s factors), as JAX's; its
+  gates' aux losses are set on the gates and not added to the loss (JAX
+  adds them nowhere).  With ``sequence_parallel`` or at sep > 1 it
+  raises `NotImplementedError` (ROADMAP A8).
 
 Build the model after `fleet.init` (its layers then hold their shards and
 it binds its dp and mp ranks), or before and pass it to
@@ -58,14 +77,58 @@ from ..nn.functional import flash_attention
 from ..nn.layers import Dropout, LayerNorm, deferred_init
 from .gpt import GPTConfig, GPTModel, gpt_config  # noqa: F401
 
-_RING = ("use_ring_attention: context parallelism (ring attention over the "
-         "sep axis) is not ported (ROADMAP A8)")
-_MOE = ("ParallelGPTForCausalLM(moe_every > 0): the expert-parallel MoE "
-        "layer is not ported (ROADMAP A8)")
+_MOE_SP = ("ParallelGPTForCausalLM(moe_every > 0) with sequence_parallel: "
+           "the MoE layer takes the tokens whole on every mp rank "
+           "(ROADMAP A8)")
+_MOE_SEP = ("ParallelGPTForCausalLM(moe_every > 0) at sep > 1: the gates "
+            "route over the dp ranks' batch, not a sequence's chunks "
+            "(ROADMAP A8)")
 
 
 def _mp():
     return topology.mp_group()
+
+
+def _sep():
+    """The topology's sep group when its degree is above 1, else None."""
+    g = topology.sep_group()
+    return g if g is not None and g.nranks > 1 else None
+
+
+def _chunk(t, group, dim=1):
+    """This rank's contiguous chunk of ``t`` along ``dim`` over
+    ``group`` (ids, labels, positions: no gradient)."""
+    n = t.shape[dim]
+    if n % group.nranks:
+        raise ValueError(f"a sequence of {n} does not split over the "
+                         f"{group.nranks} ranks of the sep axis")
+    c = n // group.nranks
+    return t.narrow(dim, group.rank * c, c)
+
+
+def _sep_attention(q, k, v, group, ring, **flash_kw):
+    """Causal attention of this rank's chunk over the sep ``group``:
+    ``q`` ``[b, h, c, d]``, ``k``, ``v`` ``[b, h_kv, c, d]`` (head-major)
+    → its ``[b, h, c, d]``.  ``ring``: `context_parallel.
+    ring_flash_attention` (kv heads repeated to the query heads, as JAX's
+    Llama repeats them); else q, k and v gathered over sep (k and v's
+    gradients reduce-scattered back) and the flash kernels over the whole
+    sequence, the rank keeping its rows."""
+    if ring:
+        from ..distributed.context_parallel import ring_flash_attention
+        n_rep = q.shape[1] // k.shape[1]
+        if n_rep > 1:
+            k, v = (t.repeat_interleave(n_rep, dim=1) for t in (k, v))
+        out = ring_flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), causal=True)
+        return out.transpose(1, 2)
+    c, r = q.shape[2], group.rank
+    qf = gather_from_mp(q.contiguous(), group, 2)
+    kf, vf = (gather_from_mp(t.contiguous(), group, 2, reduce_back=True)
+              for t in (k, v))
+    out = flash_attention(qf, kf, vf, causal=True, head_major=True,
+                          **flash_kw)
+    return out[:, :, r * c:(r + 1) * c]
 
 
 def _masked_parallel_ce(loss_fn, logits, labels, vocab_size=None):
@@ -102,6 +165,8 @@ def _ranks(hcg):
 
 _SP_CACHE = ("a sequence-parallel model decodes no cache: build one with "
              "sequence_parallel=False from the same weights")
+_SEP_CACHE = ("a model at sep > 1 decodes no cache: decode under a topology "
+              "without a sep axis, from the same weights")
 
 
 def _column(sp):
@@ -117,9 +182,8 @@ class ParallelGPTAttention(nn.Module):
                  *, sequence_parallel=False, device=None,
                  dtype=torch.float32):
         super().__init__()
-        if use_ring_attention:
-            raise NotImplementedError(_RING)
         self.config = config
+        self.use_ring_attention = use_ring_attention
         h = config.hidden_size
         std = config.initializer_range
         out_std = std / math.sqrt(2 * config.num_layers)
@@ -149,12 +213,16 @@ class ParallelGPTAttention(nn.Module):
                     q, k, v, cache["k"], cache["v"], cache["offset"])
             return self.out_proj(out.reshape(b, s, hl * d))
         q, k, v = (t.transpose(1, 2) for t in qkv.unbind(dim=2))
-        out = flash_attention(
-            q, k, v, dropout=cfg.attn_dropout, causal=True,
-            training=self.training, head_major=True,
-            generator=self.generator,
-            dropout_offsets=(self.dp_rank * b, self.mp_rank * hl,
-                             cfg.num_heads))
+        kw = dict(dropout=cfg.attn_dropout, training=self.training,
+                  generator=self.generator,
+                  dropout_offsets=(self.dp_rank * b, self.mp_rank * hl,
+                                   cfg.num_heads))
+        sep = _sep()
+        if sep is not None:
+            out = _sep_attention(q, k, v, sep, self.use_ring_attention, **kw)
+        else:
+            out = flash_attention(q, k, v, causal=True, head_major=True,
+                                  **kw)
         return self.out_proj(out.transpose(1, 2).reshape(b, s, hl * d))
 
 
@@ -180,8 +248,8 @@ class ParallelGPTBlock(nn.Module):
                  use_ring_attention=False, use_moe=False, num_experts=8,
                  moe_capacity=None, *, device=None, dtype=torch.float32):
         super().__init__()
-        if use_moe:
-            raise NotImplementedError(_MOE)
+        if use_moe and sequence_parallel:
+            raise NotImplementedError(_MOE_SP)
         self.sequence_parallel = sequence_parallel
         self.use_recompute = config.use_recompute
         kw = dict(epsilon=config.layer_norm_eps, device=device, dtype=dtype)
@@ -190,8 +258,21 @@ class ParallelGPTBlock(nn.Module):
             config, use_ring_attention, sequence_parallel=sequence_parallel,
             device=device, dtype=dtype)
         self.ln_2 = LayerNorm(config.hidden_size, **kw)
-        self.mlp = ParallelGPTMLP(config, sequence_parallel=sequence_parallel,
-                                  device=device, dtype=dtype)
+        if use_moe:
+            # the expert-parallel FFN: experts split over mp
+            from ..incubate.distributed.models.moe import MoELayer
+            gate = {"type": "gshard", "top_k": 2}
+            if moe_capacity is not None:
+                # (train, eval) capacity factors; small ones drop tokens
+                gate["capacity"] = moe_capacity
+            self.mlp = MoELayer(d_model=config.hidden_size,
+                                num_expert=num_experts,
+                                d_hidden=config.intermediate_size,
+                                gate=gate, device=device, dtype=dtype)
+        else:
+            self.mlp = ParallelGPTMLP(config,
+                                      sequence_parallel=sequence_parallel,
+                                      device=device, dtype=dtype)
         self.dropout = Dropout(config.dropout)
         if sequence_parallel:
             for ln in (self.ln_1, self.ln_2):
@@ -213,8 +294,6 @@ class ParallelGPTModel(nn.Module):
                  use_ring_attention=False, moe_every=0, num_experts=8,
                  moe_capacity=None, *, device=None, dtype=torch.float32):
         super().__init__()
-        if moe_every:
-            raise NotImplementedError(_MOE)
         device = resolve_device(device)
         dtype = to_torch_dtype(dtype)
         self.config = config
@@ -227,10 +306,14 @@ class ParallelGPTModel(nn.Module):
                                           config.hidden_size, std=std,
                                           device=device, dtype=dtype)
         self.drop = Dropout(config.dropout)
+        self.moe_every = moe_every
         self.h = nn.ModuleList([
-            ParallelGPTBlock(config, sequence_parallel, use_ring_attention,
-                             device=device, dtype=dtype)
-            for _ in range(config.num_layers)])
+            ParallelGPTBlock(
+                config, sequence_parallel, use_ring_attention,
+                use_moe=moe_every > 0 and (i + 1) % moe_every == 0,
+                num_experts=num_experts, moe_capacity=moe_capacity,
+                device=device, dtype=dtype)
+            for i in range(config.num_layers)])
         self.ln_f = LayerNorm(config.hidden_size,
                               epsilon=config.layer_norm_eps, device=device,
                               dtype=dtype)
@@ -242,6 +325,17 @@ class ParallelGPTModel(nn.Module):
         b, s = input_ids.shape
         if self.sequence_parallel and caches is not None:
             raise ValueError(_SP_CACHE)
+        sep = _sep()
+        if sep is not None:
+            if caches is not None:
+                raise ValueError(_SEP_CACHE)
+            if self.moe_every > 0:
+                raise NotImplementedError(_MOE_SEP)
+            if position_ids is None:
+                position_ids = GPTModel._positions(self, b, s,
+                                                   input_ids.device, None)
+            input_ids = _chunk(input_ids, sep)
+            position_ids = _chunk(position_ids, sep, -1)
         if position_ids is None:
             position_ids = GPTModel._positions(self, b, s, input_ids.device,
                                                caches)
@@ -252,6 +346,19 @@ class ParallelGPTModel(nn.Module):
             x = block(x, cache=None if caches is None else caches[i])
         x = self.ln_f(x)
         return gather_from_mp(x, _mp(), 1) if self.sequence_parallel else x
+
+
+def _lm_output(loss_fn, logits, labels):
+    """The parallel models' output: with ``labels`` ``(local logits,
+    loss)`` over the rank's chunk (its labels cut from the global ones at
+    sep > 1); without, the logits gathered over mp and sep."""
+    sep = _sep()
+    if labels is not None:
+        if sep is not None:
+            labels = _chunk(labels, sep)
+        return logits, _masked_parallel_ce(loss_fn, logits, labels)
+    logits = gather_from_mp(logits, _mp(), -1)
+    return logits if sep is None else gather_from_mp(logits, sep, 1)
 
 
 class ParallelGPTForCausalLM(nn.Module):
@@ -299,13 +406,21 @@ class ParallelGPTForCausalLM(nn.Module):
 
     def _bind_topology(self, hcg):
         """Take this rank's place: its dp and mp ranks, the dropout
-        generator seeded by (seed, dp rank), the loss's mp group."""
+        generator seeded by (seed, dp rank, sep rank: the chunks of a
+        sequence draw their own masks), the loss's mp group."""
         dp_rank, mp_rank = _ranks(hcg)
+        sep_rank, sep_n = 0, 1
+        if hcg is not None:
+            from ..distributed.context_parallel import check_sep_pp
+            check_sep_pp(hcg)
+            sep_rank = hcg.get_sep_parallel_rank()
+            sep_n = hcg.get_sep_parallel_world_size()
         for mod in self.modules():
             if isinstance(mod, ParallelGPTAttention):
                 mod.dp_rank, mod.mp_rank = dp_rank, mp_rank
         self.dropout_generator.manual_seed(
-            (self.seed + 0x9E3779B97F4A7C15 * dp_rank) % (1 << 63))
+            (self.seed + 0x9E3779B97F4A7C15 * (dp_rank * sep_n + sep_rank))
+            % (1 << 63))
         self.loss_fn.mp_group = _mp()
 
     @property
@@ -319,13 +434,12 @@ class ParallelGPTForCausalLM(nn.Module):
 
     def forward(self, input_ids, labels=None, position_ids=None,
                 caches=None):
-        """With ``labels``: ``(local logits [B, S, V / mp], loss)``; without:
-        the logits gathered over mp, ``[B, S, V]``."""
+        """With ``labels``: ``(local logits [B, S / sep, V / mp], loss)``
+        (the rank's chunk and vocabulary slice); without: the logits
+        gathered over mp and sep, ``[B, S, V]``."""
         hidden = self.gpt(input_ids, position_ids, caches=caches)
         logits = F.linear(copy_to_mp(hidden, _mp()), self.gpt.wte.weight.T)
-        if labels is not None:
-            return logits, _masked_parallel_ce(self.loss_fn, logits, labels)
-        return gather_from_mp(logits, _mp(), -1)
+        return _lm_output(self.loss_fn, logits, labels)
 
     def generate(self, input_ids, max_new_tokens=32, temperature=0.0,
                  top_k=None, top_p=None, repetition_penalty=None,

@@ -22,8 +22,12 @@ as `models.gpt_parallel` lays GPT out.
   process holds no global array, unlike JAX's single controller);
   without labels the logits are gathered over mp, so every rank of a
   `generate` picks the same token.
-- ``use_ring_attention`` raises `NotImplementedError` (context parallel,
-  ROADMAP A8).
+- At a sep degree above 1 a rank works on its contiguous chunk of the
+  global ``[B, S]`` sequence as `models.gpt_parallel` lays it out; rope
+  takes the chunk's global positions (JAX passes none: GSPMD keeps the
+  global ones), attention is the ring (``use_ring_attention``, the kv
+  heads repeated to the query heads as JAX repeats them) or the
+  gathered lane.
 """
 from __future__ import annotations
 
@@ -43,8 +47,9 @@ from ..incubate.nn import functional as IF
 from ..nn import functional as F
 from ..nn.functional import flash_attention
 from ..nn.layers import RMSNorm, deferred_init
-from .gpt_parallel import (_RING, _SP_CACHE, _column, _global_count,
-                           _masked_parallel_ce, _mp, _row)
+from .gpt_parallel import (_SEP_CACHE, _SP_CACHE, _chunk, _column,
+                           _global_count, _lm_output, _mp, _row, _sep,
+                           _sep_attention)
 from .llama import LlamaConfig, llama_config  # noqa: F401
 
 
@@ -61,9 +66,8 @@ class ParallelLlamaAttention(nn.Module):
                  *, sequence_parallel=False, device=None,
                  dtype=torch.float32):
         super().__init__()
-        if use_ring_attention:
-            raise NotImplementedError(_RING)
         self.config = config
+        self.use_ring_attention = use_ring_attention
         h, d = config.hidden_size, config.head_dim
         kv = config.num_kv_heads * d
         std = config.initializer_range
@@ -105,12 +109,21 @@ class ParallelLlamaAttention(nn.Module):
         k = self.k_proj.local_forward(xc).reshape(b, s, kv_in, d)
         v = self.v_proj.local_forward(xc).reshape(b, s, kv_in, d)
         if cache is None:
+            sep = _sep()
+            pos = None if sep is None else _chunk(
+                torch.arange(s * sep.nranks, dtype=torch.int32,
+                             device=x.device), sep, 0)
             q, k, _ = IF.fused_rotary_position_embedding(
-                q, k, rotary_emb_base=cfg.rope_theta)
+                q, k, position_ids=pos, rotary_emb_base=cfg.rope_theta)
             k, v = self._local_kv(k), self._local_kv(v)
-            out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                  v.transpose(1, 2), causal=True,
-                                  training=self.training, head_major=True)
+            q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+            if sep is not None:
+                out = _sep_attention(q, k, v, sep, self.use_ring_attention,
+                                     training=self.training)
+            else:
+                out = flash_attention(q, k, v, causal=True,
+                                      training=self.training,
+                                      head_major=True)
             return self.o_proj(out.transpose(1, 2).reshape(b, s, -1))
         off = torch.as_tensor(cache["offset"]).to(x.device)
         pos = torch.arange(s, dtype=torch.int32, device=x.device)
@@ -196,6 +209,11 @@ class ParallelLlamaModel(nn.Module):
     def forward(self, input_ids, caches=None):
         if self.sequence_parallel and caches is not None:
             raise ValueError(_SP_CACHE)
+        sep = _sep()
+        if sep is not None:
+            if caches is not None:
+                raise ValueError(_SEP_CACHE)
+            input_ids = _chunk(input_ids, sep)
         x = self.embed_tokens(input_ids)
         if self.sequence_parallel:
             x = split_to_mp(x, _mp(), 1)
@@ -240,6 +258,9 @@ class ParallelLlamaForCausalLM(nn.Module):
         self.loss_fn = ParallelCrossEntropy()
 
     def _bind_topology(self, hcg):
+        if hcg is not None:
+            from ..distributed.context_parallel import check_sep_pp
+            check_sep_pp(hcg)
         self.loss_fn.mp_group = _mp()
 
     @property
@@ -248,17 +269,16 @@ class ParallelLlamaForCausalLM(nn.Module):
         return self.llama.layers[0].self_attn.kv_heads
 
     def forward(self, input_ids, labels=None, caches=None):
-        """With ``labels``: ``(local logits [B, S, V / mp], loss)``; without:
-        the logits gathered over mp, ``[B, S, V]``."""
+        """With ``labels``: ``(local logits [B, S / sep, V / mp], loss)``
+        (the rank's chunk and vocabulary slice); without: the logits
+        gathered over mp and sep, ``[B, S, V]``."""
         hidden = self.llama(input_ids, caches=caches)
         if self.lm_head is not None:
             logits = self.lm_head(hidden)
         else:
             logits = F.linear(copy_to_mp(hidden, _mp()),
                               self.llama.embed_tokens.weight.T)
-        if labels is not None:
-            return logits, _masked_parallel_ce(self.loss_fn, logits, labels)
-        return gather_from_mp(logits, _mp(), -1)
+        return _lm_output(self.loss_fn, logits, labels)
 
     def generate(self, input_ids, max_new_tokens=32, temperature=0.0,
                  top_k=None, top_p=None, repetition_penalty=None,

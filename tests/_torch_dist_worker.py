@@ -1043,6 +1043,257 @@ def case_fleet_util(rank, world, inputs):
     return out
 
 
+# ---------------------------------------------------------------------------
+# context parallelism (sep)
+# ---------------------------------------------------------------------------
+
+def _chunk_of(arr, n, r, dim=1):
+    c = arr.shape[dim] // n
+    return np.take(arr, np.arange(r * c, (r + 1) * c), axis=dim)
+
+
+def case_cp_ops(rank, world, inputs):
+    """`context_parallel`'s ops at sep = world: each ``inputs["ops"]``
+    entry ``key: (fn, causal, q, k, v, w)`` (global ``[B, S, H, D]``
+    arrays) on this rank's chunk: the output chunk and the chunks of the
+    gradients of ``sum(out * w)``; then Ulysses' error on 3 heads,
+    `split_sequence` and the groups."""
+    from paddle_tpu_torch.distributed import context_parallel as CP
+    hcg = _axis_init(sep_degree=world)
+    r = hcg.get_sep_parallel_rank()
+    out = {"sep_rank": r, "sep_ranks": hcg.get_sep_parallel_group().ranks}
+    for key, (fn, causal, *arrs) in inputs["ops"].items():
+        q, k, v, w = (torch.tensor(_chunk_of(a, world, r)) for a in arrs)
+        for t in (q, k, v):
+            t.requires_grad_(True)
+        y = getattr(CP, fn)(q, k, v, causal=causal)
+        (y * w).sum().backward()
+        out[key] = {"y": y.detach().numpy(), "dq": q.grad.numpy(),
+                    "dk": k.grad.numpy(), "dv": v.grad.numpy()}
+    x = torch.zeros(2, 4 * world, 3, 8)
+    try:
+        CP.ulysses_attention(x, x, x)
+    except ValueError as e:
+        out["ulysses_error"] = str(e)
+    seq = torch.arange(2 * 4 * world, dtype=torch.float32).reshape(
+        2, 4 * world).requires_grad_(True)
+    part = CP.split_sequence(seq)
+    (part * (r + 1)).sum().backward()
+    out["split"] = part.detach().numpy()
+    out["split_grad"] = seq.grad.numpy()
+    return out
+
+
+def case_sep_train(rank, world, inputs):
+    """Each ``inputs["runs"]`` entry ``key: (which, cfg overrides, degrees,
+    ring, sequence_parallel)`` (``which`` "gpt" or "llama"): fleet.init at
+    ``degrees``, the
+    parallel model through ``fleet.distributed_model`` (`SegmentParallel`
+    at sep > 1) on JAX's state ``inputs["states"][key]``, AdamW(1e-3, wd
+    0.01) + the global-norm clip 1.0, eager steps over the global batches
+    (each dp rank its rows; the model cuts the rank's sequence chunk):
+    the global losses (the ranks' chunk losses averaged over dp × sep),
+    the gathered state, the wrapper's kind."""
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.segment_parallel \
+        import sep_data_group
+    from paddle_tpu_torch.models import (ParallelGPTForCausalLM,
+                                         ParallelLlamaForCausalLM,
+                                         gpt_config, llama_config)
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    out = {}
+    for key, (which, cfg, degrees, ring, sp) in inputs["runs"].items():
+        hcg = _axis_init(**degrees)
+        if which == "gpt":
+            model = ParallelGPTForCausalLM(gpt_config("gpt2-124m", **cfg),
+                                           sequence_parallel=sp,
+                                           use_ring_attention=ring,
+                                           device="cpu")
+        else:
+            model = ParallelLlamaForCausalLM(llama_config("tiny", **cfg),
+                                             sequence_parallel=sp,
+                                             use_ring_attention=ring,
+                                             device="cpu")
+        model = fleet.distributed_model(model)
+        convert.load_paddle_tpu_state(model, convert.shard_paddle_tpu_state(
+            inputs["states"][key], model))
+        opt = AdamW(learning_rate=1e-3, parameters=model.parameters(),
+                    weight_decay=0.01, grad_clip=ClipGradByGlobalNorm(1.0))
+        dp, dpr = (hcg.get_data_parallel_world_size(),
+                   hcg.get_data_parallel_rank())
+        group = sep_data_group(hcg)
+        losses = []
+        for ids, labels in inputs["batches"]:
+            per = ids.shape[0] // dp
+            rows = slice(dpr * per, (dpr + 1) * per)
+            logits, loss = model(torch.tensor(ids[rows]),
+                                 labels=torch.tensor(labels[rows]))
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            lt = loss.detach().clone().reshape(1)
+            C.all_reduce(lt, op=C.ReduceOp.AVG, group=group)
+            losses.append(float(lt[0]))
+        out[key] = {"losses": losses,
+                    "state": convert.gather_paddle_tpu_state(model),
+                    "kind": type(model).__name__,
+                    "logits_shape": tuple(logits.shape),
+                    "sep_rank": hcg.get_sep_parallel_rank(),
+                    "mp_rank": hcg.get_model_parallel_rank()}
+    return out
+
+
+def case_sep_refusals(rank, world, inputs):
+    """sep 2 × pp 2: the parallel model's refusal, built under the
+    topology and built before it (``fleet.distributed_model``)."""
+    from paddle_tpu_torch.distributed import fleet, topology
+    from paddle_tpu_torch.models import ParallelGPTForCausalLM, gpt_config
+    cfg = gpt_config("gpt2-124m", **inputs["cfg"])
+    out = {}
+    _axis_init(sep_degree=2, pp_degree=2)
+    try:
+        ParallelGPTForCausalLM(cfg, device="cpu")
+    except NotImplementedError as e:
+        out["built_after"] = str(e)
+    hcg = topology.get_hybrid_communicate_group()
+    topology.set_hybrid_communicate_group(None)
+    model = ParallelGPTForCausalLM(cfg, device="cpu")
+    topology.set_hybrid_communicate_group(hcg)
+    try:
+        fleet.distributed_model(model)
+    except NotImplementedError as e:
+        out["distributed_model"] = str(e)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the expert-parallel MoE layer
+# ---------------------------------------------------------------------------
+
+def case_moe(rank, world, inputs):
+    """dp 2 × mp 2 on 4 ranks, each dp rank its rows of the global tokens
+    (the key stream at ``inputs["rng"]`` before each part):
+
+    - ``gate``: `GShardGate` on JAX's gate weights, training (random
+      routing) and eval: this rank's rows of the dense combine and
+      dispatch, the aux loss;
+    - ``layer``: `MoELayer` (stacked experts) on JAX's state, training:
+      the output rows, the gradients of ``sum(y * w)`` (x's rows; each
+      parameter's local gradient, summed over dp by the parent);
+    - ``model``: the tiny ``ParallelGPTForCausalLM(moe_every=2)`` through
+      `CompiledTrainStep` over the mesh (3 AdamW steps + the clip): the
+      global losses, the gathered state, the first step's global norm
+      (`ClipGradForMOEByGlobalNorm`), the local expert shapes;
+    - ``convert``: the expert stacks' shard and gather round trip."""
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.framework import CompiledTrainStep, prng
+    from paddle_tpu_torch.incubate.distributed.models.moe import (
+        ClipGradForMOEByGlobalNorm, GShardGate, MoELayer)
+    from paddle_tpu_torch.models import ParallelGPTForCausalLM, gpt_config
+    from paddle_tpu_torch.nn.clip import global_norm
+    from paddle_tpu_torch.optimizer import AdamW
+    hcg = _hybrid_init(2, 2)
+    dpr = hcg.get_data_parallel_rank()
+    out = {"dp_rank": dpr, "mp_rank": hcg.get_model_parallel_rank()}
+
+    def rows(a):
+        per = a.shape[0] // 2
+        return torch.tensor(a[dpr * per:(dpr + 1) * per])
+
+    g = inputs["gate"]
+    gate = GShardGate(g["d"], g["e"], 1, capacity=g["capacity"],
+                      device="cpu")
+    gate.load_state_dict({"gate.weight": torch.tensor(g["w"]),
+                          "gate.bias": torch.tensor(g["b"])})
+    res = {}
+    for train in (True, False):
+        prng.set_rng_state(inputs["rng"])
+        combine, dispatch, aux = gate.dispatch_info(rows(g["x"]), train)
+        res[train] = {"combine": combine.detach().numpy(),
+                      "dispatch": dispatch.numpy(), "aux": float(aux)}
+    out["gate"] = res
+
+    lay = inputs["layer"]
+    layer = MoELayer(lay["d"], num_expert=lay["e"], d_hidden=lay["h"],
+                     gate={"type": "gshard", "top_k": 2,
+                           "capacity": lay["capacity"]}, device="cpu")
+    layer = fleet.distributed_model(layer)
+    convert.load_paddle_tpu_state(layer, convert.shard_paddle_tpu_state(
+        lay["state"], layer))
+    prng.set_rng_state(inputs["rng"])
+    x = rows(lay["x"]).requires_grad_(True)
+    y = layer(x)
+    (y * rows(lay["w"])).sum().backward()
+    out["layer"] = {"y": y.detach().numpy(), "dx": x.grad.numpy(),
+                    "grads": {k: p.grad.numpy()
+                              for k, p in layer.named_parameters()},
+                    "local_shapes": {k: tuple(v.shape) for k, v in
+                                     layer.state_dict().items()}}
+    back = convert.gather_paddle_tpu_state(layer)
+    out["convert"] = {k: np.array_equal(back[k], v)
+                      for k, v in lay["state"].items()}
+
+    m = inputs["model"]
+    model = fleet.distributed_model(ParallelGPTForCausalLM(
+        gpt_config("gpt2-124m", **m["cfg"]), moe_every=2, num_experts=4,
+        moe_capacity=m["capacity"], device="cpu"))
+    convert.load_paddle_tpu_state(model, convert.shard_paddle_tpu_state(
+        m["state"], model))
+    clip = ClipGradForMOEByGlobalNorm(1.0)
+    opt = AdamW(learning_rate=1e-3, parameters=model.parameters(),
+                weight_decay=0.01, grad_clip=clip)
+    prng.set_rng_state(m["rng"])
+    ids, labels = (torch.tensor(a) for a in m["batches"][0])
+    per = ids.shape[0] // 2
+    sl = slice(dpr * per, (dpr + 1) * per)
+    _, loss = model(ids[sl], labels=labels[sl])
+    loss.backward()
+    from paddle_tpu_torch.distributed import parallel
+    parallel.allreduce_gradients(list(model.parameters()),
+                                 hcg.get_data_parallel_group())
+    norm = global_norm([(p, p.grad) for p in model.parameters()])
+    opt.clear_grad()
+    prng.set_rng_state(m["rng"])
+    step = CompiledTrainStep(lambda a, b: model(a, labels=b)[1], opt,
+                             network=model, mesh=hcg.mesh)
+    losses = []
+    for a, b in m["batches"]:
+        lt = step(torch.tensor(a), torch.tensor(b)).detach().clone()
+        lt = lt.reshape(1)
+        C.all_reduce(lt, op=C.ReduceOp.AVG,
+                     group=hcg.get_data_parallel_group())
+        losses.append(float(lt[0]))
+    out["model"] = {"losses": losses, "norm": float(norm),
+                    "state": convert.gather_paddle_tpu_state(model),
+                    "rng": prng.get_rng_state(),
+                    "expert_shape": tuple(
+                        model.gpt.h[1].mlp._stacked.w1.shape)}
+    return out
+
+
+def case_moe_split_refused(rank, world, inputs):
+    """The MoE layer on 2 ranks at sharding 2 and then at sep 2 (dp 1):
+    each forward's `NotImplementedError` message."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.incubate.distributed.models.moe import MoELayer
+    out = {}
+    for axis in ("sharding", "sep"):
+        s = fleet.DistributedStrategy()
+        s.hybrid_configs = {f"{axis}_degree": 2}
+        fleet.init(is_collective=True, strategy=s, backend="gloo")
+        layer = MoELayer(8, num_expert=2, d_hidden=8, device="cpu")
+        try:
+            layer(torch.randn(4, 8))
+        except NotImplementedError as e:
+            out[axis] = str(e)
+    return out
+
+
 def case_many(rank, world, inputs):
     """Several cases on the same ranks, one after the other (one spawned
     group for a test module's cases): ``inputs["cases"]`` is a list of
@@ -1074,6 +1325,11 @@ CASES = {
     "pipe_hetero": case_pipe_hetero,
     "pipe_refusals": case_pipe_refusals,
     "fleet_util": case_fleet_util,
+    "cp_ops": case_cp_ops,
+    "sep_train": case_sep_train,
+    "sep_refusals": case_sep_refusals,
+    "moe": case_moe,
+    "moe_split_refused": case_moe_split_refused,
 }
 
 

@@ -2670,3 +2670,74 @@ def test_one_process_pipeline_launches_and_equals_the_whole_batch(card):
     want = ref.state_dict()
     for k, v in m2.state_dict().items():
         torch.testing.assert_close(v, want[k], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_ring_block_merge_matches_flash_on_card(card, causal):
+    """The ring body's block merge (`context_parallel.merge_block`) on the
+    card, in one process: each of two sequence chunks in turn folds the
+    K/V blocks in the order its ring visits them (its own, then the
+    other's); the chunks' outputs joined equal the flash kernel on the
+    whole sequence (bf16 inputs; the merge in fp32, the kernel's row
+    tolerance of 1e-2 of a row's norm and 2e-2 absolute)."""
+    from paddle_tpu_torch.distributed import context_parallel as CP
+    g = torch.Generator(device=card).manual_seed(3)
+    b, s, h, d = 2, 1024, 8, 128
+    q, k, v = (torch.randn(b, s, h, d, device=card, generator=g)
+               .to(torch.bfloat16) for _ in range(3))
+    want = fa.flash_attention(q, k, v, causal=causal)
+    c = s // 2
+    pos = torch.arange(c, device=card)
+    outs = []
+    for me in range(2):
+        qc = q[:, me * c:(me + 1) * c]
+        state = CP.start_state(qc)
+        qt = qc.float().transpose(1, 2)
+        for t in range(2):
+            j = (me - t) % 2
+            rows, cols = (me * c + pos[:, None], j * c + pos[None, :]) \
+                if causal else (None, None)
+            state = CP.merge_block(state, qt, k[:, j * c:(j + 1) * c],
+                                   v[:, j * c:(j + 1) * c], d ** -0.5,
+                                   rows, cols)
+        outs.append(CP.finish_state(state, q.dtype))
+    got = torch.cat(outs, dim=1)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_moe_index_dispatch_equals_dense_triple_on_card(card):
+    """`MoELayer`'s index dispatch (the buffer of each expert's kept
+    tokens, combine by gather) on the card equals the dense form of its
+    gate's routing (JAX's ``combine`` / ``dispatch`` einsums over the same
+    experts) in fp32, with tokens dropped by the capacity, and the
+    gradients of the input and the experts too (1e-5)."""
+    from paddle_tpu_torch.framework import prng
+    from paddle_tpu_torch.incubate.distributed.models.moe import MoELayer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    layer = MoELayer(64, num_expert=4, d_hidden=128, device=card,
+                     gate={"type": "gshard", "top_k": 2,
+                           "capacity": (0.5, 0.5)})
+    x = torch.randn(512, 64, device=card,
+                    generator=torch.Generator(device=card).manual_seed(5))
+    w = torch.randn_like(x)
+    prng.seed(7)
+    xi = x.clone().requires_grad_(True)
+    y = layer(xi)
+    (y * w).sum().backward()
+    assert int(layer.last_dropped.sum()) > 0
+    grads = [p.grad.clone() for p in layer._stacked.parameters()]
+    layer.zero_grad()
+    prng.seed(7)
+    xd = x.clone().requires_grad_(True)
+    combine, dispatch, _ = layer.gate.dispatch_info(xd, train=True)
+    xe = torch.einsum("nec,nd->ecd", dispatch.float(), xd)
+    yd = torch.einsum("nec,ecd->nd", combine, layer._stacked(xe))
+    (yd * w).sum().backward()
+    torch.testing.assert_close(y, yd, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(xi.grad, xd.grad, rtol=1e-5, atol=1e-5)
+    for got, p in zip(grads, layer._stacked.parameters()):
+        torch.testing.assert_close(got, p.grad, rtol=1e-5, atol=1e-5)

@@ -119,16 +119,11 @@ def test_hybrid_degree_errors_match_jax(kw):
 
 @pytest.mark.parametrize("axis", ["pp", "sharding", "sep"])
 def test_unported_axes_raise(axis):
-    """sep above 1 raises naming its ROADMAP A8 item; sharding
-    (tests/test_torch_zero.py) and pp (tests/test_torch_pipeline.py) are
-    ported: the degree passes the check and the topology wants a world
-    of that many ranks."""
-    if axis in ("sharding", "pp"):
-        with pytest.raises(ValueError, match="the world has 1 ranks"):
-            topology.HybridCommunicateGroup(devices=list(range(8)),
-                                            **{f"{axis}_degree": 2})
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+    """Every axis is ported: sharding (tests/test_torch_zero.py), pp
+    (tests/test_torch_pipeline.py) and sep
+    (tests/test_torch_context_parallel.py).  The degree passes the check
+    and the topology wants a world of that many ranks."""
+    with pytest.raises(ValueError, match="the world has 1 ranks"):
         topology.HybridCommunicateGroup(devices=list(range(8)),
                                         **{f"{axis}_degree": 2})
 

@@ -15,6 +15,15 @@ against the JAX package's.
   ``validate_finite`` refusing a NaN, a child killed in the middle of a
   save, and a directory the JAX package's manager wrote restored by the
   port's.  Values restored are compared exactly: nothing is computed.
+- The shared-memory queue (`io/shm_queue.py` over ``csrc/shm_queue.cpp``):
+  tests/test_native.py's cases (round trip, an oversized payload, a
+  producer in another process, a worker's error in the trainer).
+- The DataLoader's worker processes (``use_shared_memory=True``, the
+  default): the batches equal JAX's loader's, in order, each from a
+  worker process; ``worker_info`` and ``worker_init_fn`` in the worker;
+  a worker's exception reported in the trainer; a killed worker detected
+  at its batch; ``timeout``; no worker left a zombie; a sample holding a
+  CUDA-like device tensor refused; the loud fallback to threads.
 """
 import os
 import subprocess
@@ -498,3 +507,242 @@ def test_jax_manager_directory_restores_in_the_port(tmp_path):
     # and the port's manifests verify under the JAX package's reader
     mgr.save(_state(5.0), step=7)
     assert jcm.verify_checkpoint(str(tmp_path / step_dir_name(7)))
+
+
+# ---------------------------------------------------------------------------
+# the shared-memory queue and the DataLoader's worker processes
+# ---------------------------------------------------------------------------
+
+import multiprocessing as mp  # noqa: E402
+import signal  # noqa: E402
+import warnings  # noqa: E402
+
+from paddle_tpu import io as jio  # noqa: E402
+from paddle_tpu_torch import io as tio  # noqa: E402
+from paddle_tpu_torch.io.shm_queue import QueueClosed, ShmQueue  # noqa: E402
+
+
+def test_shm_queue_roundtrip():
+    q = ShmQueue(capacity=4, slot_size=1 << 16)
+    try:
+        q.put({"x": np.arange(5)})
+        q.put("two")
+        assert q.qsize() == 2
+        first = q.get()
+        np.testing.assert_array_equal(first["x"], np.arange(5))
+        assert q.get() == "two"
+    finally:
+        q.close()
+        q.release()
+
+
+def test_shm_queue_oversized_payload():
+    q = ShmQueue(capacity=2, slot_size=256)
+    try:
+        with pytest.raises(ValueError, match="slot_size"):
+            q.put(np.zeros(10000))
+    finally:
+        q.close()
+        q.release()
+
+
+def test_shm_queue_multiprocess():
+    q = ShmQueue(capacity=4, slot_size=1 << 16)
+
+    def producer():
+        for i in range(20):
+            q.put(("item", i))
+        q.close()
+
+    p = mp.get_context("fork").Process(target=producer, daemon=True)
+    p.start()
+    got = []
+    try:
+        while True:
+            got.append(q.get(timeout=10))
+    except QueueClosed:
+        pass
+    p.join()
+    q.release()
+    assert [i for _, i in got] == list(range(20))
+
+
+class _SquareDataset:
+    def __init__(self, n=32, raise_at=None, sleep_from=None, die_at=None):
+        self.n, self.raise_at = n, raise_at
+        self.sleep_from, self.die_at = sleep_from, die_at
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        if i == self.raise_at:
+            raise ValueError(f"poisoned sample {i}")
+        if i == self.die_at:
+            os.kill(os.getpid(), signal.SIGKILL)
+        if self.sleep_from is not None and i >= self.sleep_from:
+            time.sleep(3.0)
+        info = tio.get_worker_info()
+        return (np.float32(i) ** 2, np.float32(i),
+                np.int64(-1 if info is None else info.id))
+
+
+def test_worker_error_surfaces_in_trainer():
+    """A worker failure (a batch larger than the shm slot) raises in the
+    trainer naming the cause."""
+    class Big(_SquareDataset):
+        def __getitem__(self, i):
+            return np.zeros((1 << 16,), np.float32)
+
+    dl = tio.DataLoader(Big(8), batch_size=4, num_workers=2)
+    dl.shm_slot_size = 1 << 16
+    with pytest.raises(RuntimeError, match="slot_size"):
+        for _ in dl:
+            pass
+
+
+@pytest.mark.parametrize("shuffle", [False, True])
+def test_worker_processes_match_jax_in_order(shuffle):
+    """The batches of 2 worker processes equal JAX's loader's (its own
+    worker processes), in order; each came from a worker process, batch
+    i from worker i % 2 (``worker_info``), and counts
+    ``io.batches_fetched`` in the trainer."""
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((22, 3)).astype(np.float32)
+    y = rng.integers(0, 9, (22,)).astype(np.int32)
+    mk = lambda m: m.DataLoader(  # noqa: E731
+        m.TensorDataset([x, y]), num_workers=2,
+        batch_sampler=m.BatchSampler(m.TensorDataset([x, y]),
+                                     shuffle=shuffle, batch_size=4, seed=11))
+    a, b = mk(tio), mk(jio)
+    fetched = monitor.get_monitor_value("io.batches_fetched")
+    got = [[t.numpy() for t in batch] for batch in a]
+    assert monitor.get_monitor_value("io.batches_fetched") == fetched + 6
+    want = [[np.asarray(t._data_) for t in batch] for batch in b]
+    assert len(got) == len(want) == 6
+    for g, w in zip(got, want):
+        for gt, wt in zip(g, w):
+            np.testing.assert_array_equal(gt, wt)
+    assert len(a.batch_pids) == 6 and os.getpid() not in a.batch_pids
+    assert len(set(a.batch_pids)) == 2
+    ids = [int(b[2][0]) for b in tio.DataLoader(
+        _SquareDataset(24), batch_size=4, num_workers=2)]
+    assert ids == [i % 2 for i in range(6)]
+
+
+def test_worker_init_fn_and_worker_info_in_the_worker(tmp_path):
+    def init(worker_id):
+        info = tio.get_worker_info()
+        (tmp_path / f"w{worker_id}").write_text(
+            f"{worker_id} {info.id} {info.num_workers} {os.getpid()}")
+
+    dl = tio.DataLoader(_SquareDataset(16), batch_size=4, num_workers=2,
+                        worker_init_fn=init)
+    out = list(dl)
+    rows = sorted(tuple(int(v) for v in (tmp_path / f"w{w}").read_text()
+                        .split()) for w in range(2))
+    assert [(w, i, n) for w, i, n, _ in rows] == [(0, 0, 2), (1, 1, 2)]
+    assert {pid for *_, pid in rows} == set(dl.batch_pids)
+    np.testing.assert_array_equal(torch.cat([b[1] for b in out]).numpy(),
+                                  np.arange(16, dtype=np.float32))
+    assert tio.get_worker_info() is None
+
+
+def test_worker_exception_is_reported():
+    dl = tio.DataLoader(_SquareDataset(32, raise_at=21), batch_size=4,
+                        num_workers=2)
+    with pytest.raises(RuntimeError,
+                       match="worker 1: ValueError: poisoned sample 21"):
+        list(dl)
+
+
+def test_killed_worker_is_detected_at_its_batch():
+    """Worker 1 dies (SIGKILL) fetching batch 3: the trainer gets batches
+    0-2 and fails at batch 3 naming the worker and its exit code, well
+    before any timeout."""
+    dl = tio.DataLoader(_SquareDataset(32, die_at=13), batch_size=4,
+                        num_workers=2)
+    seen = []
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match=r"worker 1 exited unexpectedly "
+                       r"\(code -9\) before delivering batch 3"):
+        for b in dl:
+            seen.append(b)
+    assert len(seen) == 3 and time.monotonic() - t0 < 20
+
+
+def test_worker_timeout_names_the_batch():
+    dl = tio.DataLoader(_SquareDataset(16, sleep_from=4), batch_size=4,
+                        num_workers=1, timeout=0.5)
+    it = iter(dl)
+    next(it)
+    with pytest.raises(tio.DataLoaderTimeoutError) as ei:
+        next(it)
+    assert ei.value.batch_index == 1
+    it.close()
+
+
+def _children():
+    """This process's live and zombie children (``/proc``)."""
+    me, out = os.getpid(), {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        if int(fields[1]) == me:
+            out[int(d)] = fields[0]
+    return out
+
+
+def test_workers_are_reaped():
+    """After a full epoch, an early break and a worker's error, no worker
+    is left, not even a zombie."""
+    before = set(_children())
+    list(tio.DataLoader(_SquareDataset(16), batch_size=4, num_workers=2))
+    it = iter(tio.DataLoader(_SquareDataset(64), batch_size=4,
+                             num_workers=2))
+    next(it)
+    it.close()
+    with pytest.raises(RuntimeError):
+        list(tio.DataLoader(_SquareDataset(16, raise_at=5), batch_size=4,
+                            num_workers=2))
+    left = {pid: st for pid, st in _children().items() if pid not in before}
+    assert left == {}
+
+
+def test_device_tensor_sample_is_refused():
+    """A sample holding a tensor off the host raises a clear error at the
+    first batch (a worker forked beside a live CUDA context must not
+    touch it); the meta device stands in for the card here."""
+    class OnDevice(_SquareDataset):
+        def __getitem__(self, i):
+            return torch.zeros(2, device="meta")
+
+    with pytest.raises(RuntimeError, match="fetch host data"):
+        list(tio.DataLoader(OnDevice(8), batch_size=4, num_workers=2))
+
+
+def test_worker_fallback_is_loud(monkeypatch):
+    """When the queue cannot be built (its g++ build fails) the loader
+    takes the threaded lane, as JAX's does, with a DataLoaderWarning
+    naming the cause and ``io.worker_fallbacks`` counted."""
+    from paddle_tpu_torch.io import shm_queue
+    from paddle_tpu_torch.utils.cpp_extension import BuildError
+
+    def broken():
+        raise BuildError("building paddle_tpu_torch_shm_queue needs g++")
+    monkeypatch.setattr(shm_queue, "_lib", broken)
+    before = monitor.get_monitor_value("io.worker_fallbacks")
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        out = list(tio.DataLoader(_SquareDataset(8), batch_size=4,
+                                  num_workers=2))
+    typed = [x for x in w if issubclass(x.category, tio.DataLoaderWarning)]
+    assert len(typed) == 1 and "needs g++" in str(typed[0].message)
+    assert monitor.get_monitor_value("io.worker_fallbacks") == before + 1
+    np.testing.assert_array_equal(torch.cat([b[1] for b in out]).numpy(),
+                                  np.arange(8, dtype=np.float32))
